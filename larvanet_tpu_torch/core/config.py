@@ -1,0 +1,22 @@
+"""Cascaded flag parsing helpers (larvanet_tpu/core/config.py:52-75).
+
+Each stage (CLI -> model) consumes its own flags with `parse_known_args`
+and hands the rest on, as the reference's CLIs do.
+"""
+
+from __future__ import annotations
+
+import argparse
+from typing import List, Sequence, Tuple
+
+
+def parse_known(parser: argparse.ArgumentParser,
+                args: Sequence[str]) -> Tuple[argparse.Namespace, List[str]]:
+    """Plugin-side `parse_args(args) -> (namespace, remaining)`."""
+    ns, remaining = parser.parse_known_args(args=list(args))
+    return ns, remaining
+
+
+def parse_scale_list(scales: str) -> List[int]:
+    """'2,3,4' -> [2, 3, 4]."""
+    return [int(x) for x in scales.split(",")]

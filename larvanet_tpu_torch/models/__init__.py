@@ -1,0 +1,3 @@
+"""Model zoo of the port; importing it registers every ported model."""
+
+from larvanet_tpu_torch.models import edsr  # noqa: F401

@@ -1,0 +1,115 @@
+"""Shared building blocks, NHWC (counterparts of larvanet_tpu/models/layers.py).
+
+Parameters carry the reference PyTorch repo's state_dict names, so a
+reference `.pth` (or one exported by the JAX package) loads with
+`strict=True`. Every 3x3 conv goes through `ops.conv3x3`, which is the
+hand-written CUDA kernel on the card.
+
+Init parity: torch's Conv2d default, kaiming_uniform_(a=sqrt(5)) for the
+weight and U(-1/sqrt(fan_in), 1/sqrt(fan_in)) for the bias, drawn from
+an explicit `torch.Generator`.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+from torch import nn
+
+from larvanet_tpu_torch.ops.conv3x3 import conv3x3_bias_act
+from larvanet_tpu_torch.ops.pixel_shuffle import PixelShuffle
+
+# RGB mean used by every MeanShift in the zoo (reference models/edsr.py:181)
+DIV2K_RGB_MEAN = (114.4, 111.5, 103.0)
+
+
+class MeanShift(nn.Module):
+    """Frozen 1x1 RGB affine, out = M x + b (layers.py:136-164).
+
+    M (as the reference's (3, 3, 1, 1) conv weight) and b are buffers:
+    they are in the state_dict but not among the parameters. Built as
+    the intended +/-mean shift (M = I, b = sign * mean); loading a
+    state_dict replaces them, so the random frozen affines of genuine
+    reference checkpoints (utils/torch_convert.py:290-371 in the JAX
+    package) are computed exactly, at the same pre-padding position.
+    """
+
+    def __init__(self, sign: float):
+        super().__init__()
+        self.register_buffer("weight", torch.eye(3).reshape(3, 3, 1, 1))
+        self.register_buffer("bias", sign * torch.tensor(DIV2K_RGB_MEAN))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x @ self.weight.reshape(3, 3).t() + self.bias
+
+
+class Conv3x3(nn.Module):
+    """SAME 3x3 conv + bias, with an optional activation fused into the
+    kernel's epilogue. Holds the OIHW `weight` and `bias` of torch's
+    Conv2d; hands the kernel the HWIO view."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 act: Optional[str] = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.act = act
+        fan_in = in_features * 9
+        bound = 1.0 / math.sqrt(fan_in)
+        self.weight = nn.Parameter(torch.empty(out_features, in_features, 3, 3)
+                                   .uniform_(-bound, bound, generator=generator))
+        self.bias = nn.Parameter(torch.empty(out_features)
+                                 .uniform_(-bound, bound, generator=generator))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return conv3x3_bias_act(x, self.weight.permute(2, 3, 1, 0), self.bias,
+                                self.act)
+
+
+class ResBlock(nn.Module):
+    """conv -> ReLU -> conv, times res_weight, plus the identity
+    (layers.py:167-196, reference models/edsr.py:139-153).
+
+    `body` keeps the reference's Sequential indices so the keys are
+    body.0 / body.2; index 1, the ReLU, runs fused in body.0's kernel."""
+
+    def __init__(self, features: int, res_weight: float = 1.0,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.res_weight = res_weight
+        self.body = nn.ModuleList([
+            Conv3x3(features, features, act="relu", generator=generator),
+            nn.Identity(),
+            Conv3x3(features, features, generator=generator),
+        ])
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        res = self.body[2](self.body[0](x))
+        if self.res_weight != 1.0:
+            res = res * self.res_weight
+        return x + res
+
+
+class UpsampleBlock(nn.Module):
+    """[conv3x3(C -> 4C) -> PixelShuffle(2)] x log2(scale) for x2/x4/x8,
+    one conv3x3(C -> 9C) -> PixelShuffle(3) for x3 (layers.py:230-265).
+    The convs sit at body.0, body.2, ... as in the reference."""
+
+    def __init__(self, features: int, scale: int,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if scale in (2, 4, 8):
+            stages = []
+            for _ in range(int(math.log2(scale))):
+                stages += [Conv3x3(features, 4 * features, generator=generator),
+                           PixelShuffle(2)]
+        elif scale == 3:
+            stages = [Conv3x3(features, 9 * features, generator=generator),
+                      PixelShuffle(3)]
+        else:
+            raise ValueError("unsupported scale %d" % (scale,))
+        self.body = nn.Sequential(*stages)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.body(x)

@@ -1,0 +1,91 @@
+"""Build the port's CUDA sources into shared libraries at first use.
+
+Each `csrc/*.cu` file has a plain C interface and is compiled by `nvcc`
+for Hopper (`sm_90a`) into `build/kernels/<stem>-<hash>.so` at the repo
+root, then loaded with `ctypes`. The hash covers the source and the
+flags, so an edited `.cu` rebuilds and an unchanged one is reused. The
+compiler's output (with `-Xptxas -v`: registers, shared memory, spills
+per kernel) is kept beside the library as `<stem>-<hash>.log`.
+
+Nothing here runs at import: the CPU tests import every module, and this
+machine may have no `nvcc`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Dict, Sequence
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+SOURCES = ("conv3x3_bias_act.cu",)
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+_LOCK = threading.Lock()
+
+
+def nvcc() -> str:
+    found = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(found):
+        raise RuntimeError("nvcc not found: building the CUDA kernels needs "
+                           "the CUDA toolkit (on PATH or in /usr/local/cuda)")
+    return found
+
+
+def library_path(source: str) -> Path:
+    digest = hashlib.sha256((CSRC / source).read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / ("%s-%s.so" % (Path(source).stem, digest.hexdigest()[:16]))
+
+
+def build(sources: Sequence[str] = SOURCES) -> Dict[str, float]:
+    """Compile every source whose library is missing: one `nvcc` per
+    source, all started together. Returns {source: seconds} for the ones
+    built; raises with the compiler's output if any failed."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    running = []
+    for source in sources:
+        out = library_path(source)
+        if out.exists():
+            continue
+        tmp = out.with_name("%s.%d.tmp" % (out.name, os.getpid()))
+        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / source)]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        running.append((source, out, tmp, proc, time.perf_counter()))
+    seconds, failures = {}, []
+    for source, out, tmp, proc, t0 in running:
+        log, _ = proc.communicate()
+        seconds[source] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            failures.append("nvcc failed on %s (exit %d):\n%s"
+                            % (source, proc.returncode, log))
+            continue
+        out.with_suffix(".log").write_text(log)
+        os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+    if failures:
+        raise RuntimeError("\n".join(failures))
+    return seconds
+
+
+def build_log(source: str) -> str:
+    path = library_path(source).with_suffix(".log")
+    return path.read_text() if path.exists() else ""
+
+
+def load(source: str) -> ctypes.CDLL:
+    """The loaded library of `source`, built first if needed."""
+    with _LOCK:
+        if source not in _LIBS:
+            build([source])
+            _LIBS[source] = ctypes.CDLL(str(library_path(source)))
+        return _LIBS[source]

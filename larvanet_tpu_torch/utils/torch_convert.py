@@ -1,0 +1,89 @@
+"""State dicts across the boundary with the JAX package.
+
+The port's modules use the reference PyTorch repo's state_dict keys, the
+ones larvanet_tpu/utils/torch_convert.export_state_dict writes
+(torch_convert.py:448-479,702-757). This module is the port's own copy
+of that export for the families it has, so the tests can carry JAX
+parameters (nested dicts of numpy arrays) into a port module without
+the port importing the JAX package.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Dict, Iterator, Tuple
+
+import numpy as np
+import torch
+
+_RGB_MEAN = (114.4, 111.5, 103.0)
+
+
+def _exp_edsr(path: str) -> str:
+    m = re.match(r"res_block_(\d+)/conv([12])$", path)
+    if m:
+        return "res_blocks.%s.body.%d" % (m.group(1), 0 if m.group(2) == "1" else 2)
+    if path in ("first_conv", "after_res_conv", "final_conv"):
+        return path
+    m = re.match(r"upsample/conv(\d+)$", path)
+    if m:
+        return "upsample.body.%d" % (2 * int(m.group(1)))
+    raise KeyError(path)
+
+
+EXPORT_RULES = {"edsr": _exp_edsr, "edsr_loss": _exp_edsr}
+# families whose forward applies both MeanShifts
+_MEANSHIFT_BOTH = {"edsr", "edsr_loss"}
+
+
+def _inv_conv(leaves) -> Dict[str, np.ndarray]:
+    """HWIO kernel -> OIHW weight."""
+    out = {"weight": np.ascontiguousarray(
+        np.transpose(np.asarray(leaves["kernel"]), (3, 2, 0, 1)))}
+    if "bias" in leaves:
+        out["bias"] = np.asarray(leaves["bias"])
+    return out
+
+
+def _meanshift_entries(model_name: str) -> Dict[str, np.ndarray]:
+    """The intended identity + (+/-)mean shifts."""
+    out = {}
+    if model_name in _MEANSHIFT_BOTH:
+        for name, sign in (("mean_shift", 1.0), ("mean_inverse_shift", -1.0)):
+            out[name + ".weight"] = np.eye(3, dtype=np.float32).reshape(3, 3, 1, 1)
+            out[name + ".bias"] = sign * np.asarray(_RGB_MEAN, dtype=np.float32)
+    return out
+
+
+def _param_groups(params, prefix: str = "") -> Iterator[Tuple[str, Dict]]:
+    """(path, leaves) for each dict that holds a conv's kernel/bias."""
+    if "kernel" in params:
+        yield prefix, params
+        return
+    for key, val in params.items():
+        sub = prefix + "/" + str(key) if prefix else str(key)
+        if not hasattr(val, "items"):
+            raise KeyError("unexpected bare leaf at %s" % sub)
+        yield from _param_groups(dict(val), sub)
+
+
+def state_dict_from_jax_params(params_np, model_name: str) -> Dict[str, torch.Tensor]:
+    """JAX parameter tree (nested dicts of numpy arrays) -> the port's
+    state_dict, key-complete for a strict load (MeanShift included)."""
+    rule = EXPORT_RULES[model_name]
+    state: Dict[str, np.ndarray] = {}
+    for path, leaves in _param_groups(dict(params_np)):
+        stem = rule(path)
+        for suffix, value in _inv_conv(leaves).items():
+            state[stem + "." + suffix] = value
+    state.update(_meanshift_entries(model_name))
+    return {k: torch.from_numpy(np.array(v, np.float32)) for k, v in state.items()}
+
+
+def load_pth(path: str) -> Dict[str, torch.Tensor]:
+    """A `.pth` state_dict on the CPU. weights_only=True: a state_dict is
+    plain tensors, and a full unpickle could run arbitrary code."""
+    state = torch.load(path, map_location="cpu", weights_only=True)
+    if not isinstance(state, dict):
+        raise ValueError("%s does not hold a state_dict" % (path,))
+    return state
