@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py        # from the repo root, on a machine with one H100
 
-It drives the port's main path, serving EDSR-baseline x4, on the card and
-fails (exit code != 0, no result line) if any phase fails:
+It drives the port's main paths on the card, serving EDSR-baseline x4 and
+validating it, and fails (exit code != 0, no result line) if any phase
+fails:
 
  1. device: CUDA must be available; prints nvidia-smi's name and power limit.
  2. build: compiles every kernel of the path from larvanet_tpu_torch/csrc/
@@ -14,6 +15,12 @@ fails (exit code != 0, no result line) if any phase fails:
     of 192x192 and one ragged 339x510 frame, in f32 (TF32 off) and bf16.
     Prints each shape's kernel, plain-version and F.conv2d times (CUDA
     events, mean of TIMED_REPS launches after WARMUP_REPS) and its bound.
+ 3b. wino kernels: holds both fused Winograd ResBlock kernels (F(2,3) and
+    F(4,3)) against their plain version at EDSR-baseline's ResBlock (C = 64)
+    for the same two geometries, f32 and bf16 (res_weight 1.0, and 0.1 on
+    the ragged frame); prints each one's kernel, plain-version and cuDNN
+    ResBlock times (two F.conv2d, ReLU, add) and its bound beside the
+    direct ResBlock's.
  4. serve: EDSR-baseline x4 at full width (64 features, 16 ResBlocks),
     random weights from SEED with final_conv rescaled so the output spans
     the pixel range (see fit_output_range), saved as a .pth; the port's HTTP server
@@ -27,14 +34,28 @@ fails (exit code != 0, no result line) if any phase fails:
     of that forward, and the unclamped f32 forward through the kernels
     within FWD_RTOL of it.
  5. forward: times the whole x4 forward on the batch of 4 x 192x192 LR
-    tiles, f32 and bf16 (CUDA events), to set the convs' share against it.
- 6. prints the kernels JSON line, the nvidia-smi line, then the result line
+    tiles, f32 and bf16 (CUDA events), through the conv3x3 kernel and
+    under --wino_trunk 2 and 4, to set the kernels' share against it.
+ 6. validate: the port's validate CLI in this process on a DIV2K-layout
+    set written by the port's PNG encoder (4 LR frames of even width and,
+    for the standard path only, one of odd width), EDSR-baseline x4 as in
+    phase 4, with --wino_trunk 0, 2 and 4, f32. The counters are zeroed
+    before each run and read after: 37 conv3x3 launches per forward for
+    0; 5 conv3x3 and 16 fused launches per forward for 2 and 4. Each
+    image's PSNR under 2 and 4 must lie within VALIDATE_PSNR_TOL of 0's,
+    and the unclamped f32 forward through each fused kernel within
+    WINO_FWD_RTOL of the conv3x3 forward.
+ 7. runtime: the port's runtime CLI at the DIV2K x4 LR size 339x510,
+    --wino_trunk 0, 2 and 4 in f32 and bf16: ms per frame and LR-MP/s.
+ 8. prints the kernels JSON line, the nvidia-smi line, then the result line
     {"ok": true, "device": {...}}.
 
-The kernels line reports, per kernel: its launches in phase 4; and summed
-over the convs of one x4 forward of the 4 x 192x192 f32 batch (the 37
-launches), its time, its plain version's, F.conv2d's and its bound; and the
-largest f32 error of phase 3.
+The kernels line reports, per kernel: its launches on the main path that
+runs it (conv3x3: the served forwards of phase 4; the wino kernels: the
+validate run of phase 6 with their --wino_trunk); summed over one x4
+forward of the 4 x 192x192 f32 batch (the 37 convs; the 16 ResBlocks),
+its time, its plain version's, the library's (F.conv2d; the cuDNN
+ResBlock) and its bound; and the largest f32 error of phase 3 or 3b.
 """
 
 from __future__ import annotations
@@ -61,9 +82,34 @@ F32_ATOL = 2e-4
 # values near 0.
 BF16_RTOL = 2.0 ** -7
 BF16_ATOL = 1e-3
+# fused Winograd ResBlock against its plain version, f32: the two sum the
+# same f32 products in another order, as the conv does (F32_ATOL); F(4,3)'s
+# B^T and A^T entries (up to 5 and 8) amplify that rounding, and the JAX
+# package holds it to 5x the F(2,3) bar (tests/test_wino_pallas.py, 5e-4
+# against 1e-4).
+WINO_F32_ATOL = {2: F32_ATOL, 4: 5 * F32_ATOL}
+# bf16, normwise: both round the point-product operands to bf16 from f32
+# transforms summed in another order (the kernel contracts to FMA), so an
+# operand next to a rounding boundary lands on neighbouring bf16 values,
+# and A^T spreads that step over m output rows. Bar: two bf16 steps of the
+# largest output.
+WINO_BF16_RTOL = 2.0 ** -6
 # the whole f32 forward, kernels against plain versions: 37 convs of
 # errors like F32_ATOL's, relative to the largest output value
 FWD_RTOL = 1e-4
+# the whole f32 forward through the wino kernels against the forward through
+# the conv3x3 kernel: 16 ResBlocks whose Winograd and direct sums differ by
+# errors like WINO_F32_ATOL's; the same relative bar as FWD_RTOL
+WINO_FWD_RTOL = FWD_RTOL
+# per-image PSNR of --wino_trunk 2|4 against --wino_trunk 0: the JAX CLI
+# test's bar (tests/test_wino_cli.py). The two f32 forwards differ by ~1e-6
+# of the output range, which rounds a pixel to another uint8 level with a
+# probability near 1e-4 and moves a PSNR near 15 dB by ~1e-5 dB.
+VALIDATE_PSNR_TOL = 1e-3
+# validate's LR frames (even widths), and the odd-width frame that only the
+# standard path scores (--wino_trunk needs an even width, as in JAX)
+VALIDATE_LR = ((120, 160), (96, 128), (64, 96), (48, 64))
+VALIDATE_ODD_LR = (67, 93)
 # share of served pixels strictly inside (0, 255)
 MIN_INSIDE = 0.9
 # H100 SXM peaks (NVIDIA data sheet): f32 on CUDA cores, bf16 dense tensor
@@ -176,6 +222,111 @@ def kernel_phase(torch):
     return sums, worst_f32
 
 
+def wino_bound_ms(n, h, w, c, m, dtype_name):
+    """The least time of one fused ResBlock: bytes (x read, out written, the
+    two transformed weights read once; biases f32) over HBM bandwidth vs
+    the kernel's own multiply-adds, 2 convs x (m + 2) * 3 / m C^2 per
+    pixel, over the dtype's peak. m = 0: the direct ResBlock, 2 x 9 C^2."""
+    item = 4 if dtype_name == "f32" else 2
+    taps = 9 if m == 0 else (m + 2) * 3
+    per_px = 9.0 if m == 0 else taps / m
+    nbytes = item * (2 * n * h * w * c + 2 * taps * c * c) + 2 * 4 * c
+    flops = 2 * n * h * w * 2 * per_px * c * c
+    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_FLOPS[dtype_name]
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def wino_phase(torch):
+    """Phase 3b. Holds both fused Winograd ResBlock kernels against their
+    plain version at EDSR-baseline's ResBlock (C = 64) for the LR batch
+    and the ragged frame, f32 and bf16, res_weight 1.0 (and 0.1 on the
+    ragged frame). Returns {m: (per-forward sums at the LR batch in f32,
+    worst f32 error)}."""
+    import torch.nn.functional as F
+
+    from larvanet_tpu_torch.ops.wino_resblock import (
+        h_transform_kernel, wino_resblock_transformed,
+        wino_resblock_transformed_reference)
+
+    c = 64
+    dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    out = {}
+    for m in (2, 4):
+        sums = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+        worst_f32 = 0.0
+        for geometry in (LR_BATCH, RAGGED):
+            n, h, w = geometry
+            init = 1.0 / 24  # the layers' init bound, 1/sqrt(9 C)
+            x32 = torch.randn((n, h, w, c), generator=gen, device="cuda")
+            k_a, k_b = (init * (2 * torch.rand((3, 3, c, c), generator=gen, device="cuda") - 1)
+                        for _ in range(2))
+            b_a, b_b = (init * (2 * torch.rand((c,), generator=gen, device="cuda") - 1)
+                        for _ in range(2))
+            for dname, dtype in dtypes.items():
+                x = x32.to(dtype)
+                u_a = h_transform_kernel(k_a, m).to(dtype)
+                u_b = h_transform_kernel(k_b, m).to(dtype)
+                rws = (1.0, 0.1) if geometry == RAGGED else (1.0,)
+                for rw in rws:
+                    got = wino_resblock_transformed(x, u_a, b_a, u_b, b_b, rw, m)
+                    torch.cuda.synchronize()  # a fault during the run shows here
+                    want = wino_resblock_transformed_reference(x, u_a, b_a, u_b, b_b, rw, m)
+                    if got.shape != want.shape or got.dtype != want.dtype:
+                        raise AssertionError("wino F(%d,3): kernel gave %s %s, plain %s %s"
+                                             % (m, tuple(got.shape), got.dtype,
+                                                tuple(want.shape), want.dtype))
+                    diff = (got.float() - want.float()).abs()
+                    err = float(diff.max())
+                    scale = float(want.float().abs().max())
+                    if dname == "f32":
+                        bar = WINO_F32_ATOL[m]
+                        worst_f32 = max(worst_f32, err)
+                    else:
+                        bar = WINO_BF16_RTOL * scale
+                    ok = err <= bar
+                    print("wino F(%d,3) %-4s x=%s rw=%g: max|d| %.3g vs plain version "
+                          "(bar %.3g; max|y| %.3g; %d of %d values differ)"
+                          % (m, dname, geometry, rw, err, bar, scale,
+                             int((diff > 0).sum()), diff.numel()), flush=True)
+                    if not ok or not torch.isfinite(got).all():
+                        raise AssertionError("wino F(%d,3) %s %s rw=%g: kernel disagrees "
+                                             "with its plain version, max |d| = %g"
+                                             % (m, dname, geometry, rw, err))
+                    del got, want, diff
+                x_nchw = x.permute(0, 3, 1, 2)  # channels_last view of NHWC
+                w_a = k_a.to(dtype).permute(3, 2, 0, 1).contiguous()
+                w_b = k_b.to(dtype).permute(3, 2, 0, 1).contiguous()
+                lb_a, lb_b = b_a.to(dtype), b_b.to(dtype)
+
+                def library():
+                    t = F.relu(F.conv2d(x_nchw, w_a, lb_a, padding=1))
+                    return x_nchw + F.conv2d(t, w_b, lb_b, padding=1)
+
+                ms = time_ms(torch, lambda: wino_resblock_transformed(x, u_a, b_a, u_b, b_b,
+                                                                      1.0, m))
+                plain = time_ms(torch, lambda: wino_resblock_transformed_reference(
+                    x, u_a, b_a, u_b, b_b, 1.0, m))
+                lib = time_ms(torch, library)
+                bound, by = wino_bound_ms(n, h, w, c, m, dname)
+                direct, direct_by = wino_bound_ms(n, h, w, c, 0, dname)
+                print("wino F(%d,3) %-4s x=%s C=%d: kernel %.4f ms, plain %.4f ms, "
+                      "cuDNN ResBlock %.4f ms, bound %.4f ms (%s), direct ResBlock "
+                      "bound %.4f ms (%s)" % (m, dname, geometry, c, ms, plain, lib, bound,
+                                              by, direct, direct_by), flush=True)
+                if geometry == LR_BATCH and dname == "f32":
+                    sums["ms"] += 16 * ms
+                    sums["plain_ms"] += 16 * plain
+                    sums["library_ms"] += 16 * lib
+                    sums["bound_ms"] += 16 * bound
+                    sums["bound_by"] = by
+                del x
+            del x32, k_a, k_b, b_a, b_b
+            torch.cuda.empty_cache()
+        out[m] = (sums, worst_f32)
+    return out
+
+
 def _http(url, data=None):
     req = urllib.request.Request(url, data=data, method="POST" if data else "GET")
     try:
@@ -202,41 +353,50 @@ def fit_output_range(torch, model, img_chw):
                                      + 128.0 - shift)
 
 
+def photo(rng, h, w):
+    """A CHW uint8 frame of smooth gradients plus noise, like a photo more
+    than pure noise."""
+    import numpy as np
+
+    yy, xx = np.mgrid[0:h, 0:w]
+    base = np.stack([xx * 255.0 / w, yy * 255.0 / h,
+                     (xx + yy) * 127.0 / (h + w)])
+    noisy = base + rng.normal(0, 12, (3, h, w))
+    return np.clip(noisy, 0, 255).astype(np.uint8)
+
+
+def save_edsr_baseline(torch, path, fit_frame, device="cuda"):
+    """EDSR-baseline x4 at full width, random weights from SEED, final_conv
+    fitted on `fit_frame` (fit_output_range), saved as a .pth."""
+    from larvanet_tpu_torch.core.registry import get_model
+
+    model = get_model("edsr")
+    model.parse_args([])
+    model.prepare([4], device=device, seed=SEED)
+    n_params = model.num_parameters()
+    if n_params != 1517571:
+        raise AssertionError("EDSR-baseline x4 has %d parameters, not 1517571" % n_params)
+    fit_output_range(torch, model, fit_frame)
+    torch.save(model.module.state_dict(), path)
+
+
 def serve_phase(torch, device="cuda"):
     """Phase 4. Returns the kernel launches counted while serving, and the
     served model."""
     import numpy as np
 
     from larvanet_tpu_torch.cli import serve
-    from larvanet_tpu_torch.core.registry import get_model
     from larvanet_tpu_torch.data import png
     from larvanet_tpu_torch.eval.metrics import psnr_rgb_device
     from larvanet_tpu_torch.models import layers
     from larvanet_tpu_torch.ops import conv3x3
 
     rng = np.random.default_rng(SEED)
-
-    def frame(h, w):
-        # smooth gradients plus noise, like a photo more than pure noise
-        yy, xx = np.mgrid[0:h, 0:w]
-        base = np.stack([xx * 255.0 / w, yy * 255.0 / h,
-                         (xx + yy) * 127.0 / (h + w)])
-        noisy = base + rng.normal(0, 12, (3, h, w))
-        return np.clip(noisy, 0, 255).astype(np.uint8)
-
-    frames = [frame(120, 160), frame(120, 160), frame(67, 93), frame(96, 128)]
+    frames = [photo(rng, 120, 160), photo(rng, 120, 160), photo(rng, 67, 93),
+              photo(rng, 96, 128)]
     with tempfile.TemporaryDirectory() as tmp:
-        model = get_model("edsr")
-        model.parse_args([])
-        model.prepare([4], device=device, seed=SEED)
-        n_params = model.num_parameters()
-        if n_params != 1517571:
-            raise AssertionError("EDSR-baseline x4 has %d parameters, not 1517571"
-                                 % n_params)
-        fit_output_range(torch, model, frames[0])
         pth = os.path.join(tmp, "edsr_baseline_x4.pth")
-        torch.save(model.module.state_dict(), pth)
-        del model
+        save_edsr_baseline(torch, pth, frames[0], device)
 
         args, remaining = serve.build_parser().parse_known_args(
             ["--model", "edsr", "--scales", "4", "--restore_path", pth,
@@ -342,16 +502,132 @@ def serve_phase(torch, device="cuda"):
 
 
 def forward_phase(torch, model):
-    """The whole x4 forward (`fwd_runtime`) on the LR batch of phase 3, in
-    f32 and bf16: the denominator of the conv kernel's share of a forward."""
+    """Phase 5. The whole x4 forward (`fwd_runtime`) on the LR batch of
+    phase 3, in f32 and bf16, through the conv3x3 kernel and under each
+    --wino_trunk route: the denominator of the kernels' share of a
+    forward."""
+    from larvanet_tpu_torch.ops.wino_resblock import make_wino_edsr_forward
+
     n, h, w = LR_BATCH
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     x = 255.0 * torch.rand((n, h, w, 3), generator=gen, device="cuda")
     for name in ("f32", "bf16"):
         model.set_serving_dtype(name)
-        ms = time_ms(torch, lambda: model.fwd_runtime(x))
-        print("forward: EDSR-baseline x4, %d x %dx%d LR, %s: %.4f ms per forward, "
-              "%.3f LR-MP/s" % (n, h, w, name, ms, n * h * w / 1e3 / ms))
+        for m in (0, 2, 4):
+            model.set_route(make_wino_edsr_forward(model, m) if m else None)
+            ms = time_ms(torch, lambda: model.fwd_runtime(x))
+            print("forward: EDSR-baseline x4, %d x %dx%d LR, %s, --wino_trunk %d: %.4f ms "
+                  "per forward, %.3f LR-MP/s" % (n, h, w, name, m, ms, n * h * w / 1e3 / ms),
+                  flush=True)
+    model.set_route(None)
+    model.set_serving_dtype("f32")
+
+
+def validate_phase(torch, device="cuda"):
+    """Phase 6. The port's validate CLI on a small DIV2K-layout set, with
+    --wino_trunk 0, 2 and 4. Returns {m: wino launches in the m run}."""
+    import numpy as np
+
+    from larvanet_tpu_torch.cli import validate
+    from larvanet_tpu_torch.core.registry import get_model
+    from larvanet_tpu_torch.data import io
+    from larvanet_tpu_torch.ops import conv3x3, wino_resblock
+
+    rng = np.random.default_rng(SEED + 2)
+    with tempfile.TemporaryDirectory() as tmp:
+        # 4 even LR widths for every run, one odd width for the standard path
+        names = []
+        for i, (h, w) in enumerate(VALIDATE_LR + (VALIDATE_ODD_LR,)):
+            hr = photo(rng, 4 * h, 4 * w)
+            lr = np.round(hr.reshape(3, h, 4, w, 4).mean((2, 4))).astype(np.uint8)
+            name = "%04d" % i
+            sets = ("all",) if (h, w) == VALIDATE_ODD_LR else ("all", "even")
+            for sub in sets:
+                io.save_image_chw(hr, os.path.join(tmp, sub, "HR", name + ".png"))
+                io.save_image_chw(lr, os.path.join(tmp, sub, "LR", "X4", "%sx4.png" % name))
+            names.append(name)
+        pth = os.path.join(tmp, "edsr_baseline_x4.pth")
+        first_lr = io.load_image_u8(os.path.join(tmp, "even", "LR", "X4", "0000x4.png"))
+        save_edsr_baseline(torch, pth, first_lr.transpose(2, 0, 1), device)
+
+        psnrs, wino_launches = {}, {}
+        for m in (0, 2, 4):
+            sub = "all" if m == 0 else "even"
+            n_images = len(io.list_pngs(os.path.join(tmp, sub, "HR")))
+            report = os.path.join(tmp, "report_%d.json" % m)
+            conv3x3.LAUNCHES = 0
+            wino_resblock.reset_launches()
+            t0 = time.perf_counter()
+            validate.main(["--model", "edsr", "--scales", "4", "--device", device,
+                           "--restore_path", pth,
+                           "--data_input_path", os.path.join(tmp, sub, "LR"),
+                           "--data_truth_path", os.path.join(tmp, sub, "HR"),
+                           "--report_json", report, "--wino_trunk", str(m)])
+            seconds = time.perf_counter() - t0
+            conv, wino = conv3x3.LAUNCHES, dict(wino_resblock.LAUNCHES)
+            with open(report) as f:
+                psnrs[m] = json.load(f)["scales"]["4"]["per_image"]
+            want_conv = 37 if m == 0 else 5
+            want_wino = {k: (16 if k == m else 0) for k in (2, 4)}
+            print("validate --wino_trunk %d: %d images in %.3f s; per forward %s conv3x3 "
+                  "launches, %s F(2,3) and %s F(4,3) launches; PSNRs %s" % (
+                      m, n_images, seconds, conv / n_images, wino[2] / n_images,
+                      wino[4] / n_images,
+                      ", ".join("%s %.4f" % kv for kv in sorted(psnrs[m].items()))))
+            if conv != want_conv * n_images or any(
+                    wino[k] != want_wino[k] * n_images for k in (2, 4)):
+                raise AssertionError("validate --wino_trunk %d: %d conv3x3 and %s wino "
+                                     "launches for %d forwards, not %d and %s each"
+                                     % (m, conv, wino, n_images, want_conv, want_wino))
+            if m:
+                wino_launches[m] = wino[m]
+                deltas = [abs(psnrs[m][k] - psnrs[0][k]) for k in psnrs[m]]
+                print("validate --wino_trunk %d: max |dPSNR| %.3g dB against "
+                      "--wino_trunk 0 (bar %g)" % (m, max(deltas), VALIDATE_PSNR_TOL))
+                if len(deltas) != len(VALIDATE_LR) or max(deltas) > VALIDATE_PSNR_TOL:
+                    raise AssertionError("validate --wino_trunk %d: PSNRs %s, --wino_trunk "
+                                         "0: %s" % (m, psnrs[m], psnrs[0]))
+
+        # the unclamped f32 forward through each wino kernel against the
+        # forward through the conv3x3 kernel
+        from larvanet_tpu_torch.ops.wino_resblock import make_wino_edsr_forward
+
+        model = get_model("edsr")
+        model.parse_args([])
+        model.prepare([4], device=device, seed=SEED)
+        model.restore(pth)
+        img = first_lr.transpose(2, 0, 1)
+        ref = model.upscale_device([img], 4, uint8=False)
+        for m in (2, 4):
+            model.set_route(make_wino_edsr_forward(model, m))
+            got = model.upscale_device([img], 4, uint8=False)
+            model.set_route(None)
+            err = float((got - ref).abs().max())
+            bar = WINO_FWD_RTOL * float(ref.abs().max())
+            print("validate: unclamped f32 forward through F(%d,3) vs the conv3x3 forward: "
+                  "max |d| %.3g (bar %.3g)" % (m, err, bar))
+            if err > bar or not torch.isfinite(got).all():
+                raise AssertionError("the F(%d,3) forward disagrees with the conv3x3 "
+                                     "forward" % m)
+    return wino_launches
+
+
+def runtime_phase(torch, device="cuda"):
+    """Phase 7. The port's runtime CLI at the DIV2K x4 LR size, every
+    --wino_trunk in f32 and bf16."""
+    from larvanet_tpu_torch.cli import runtime
+
+    n, h, w = RAGGED
+    for dtype_name in ("f32", "bf16"):
+        for m in (0, 2, 4):
+            mean_s, mps = runtime.main(["--model", "edsr", "--scales", "4", "--device", device,
+                                        "--input_height", str(h), "--input_width", str(w),
+                                        "--num_warmup", "2", "--num_iters", str(TIMED_REPS),
+                                        "--wino_trunk", str(m),
+                                        "--serving_dtype", dtype_name])
+            print("runtime: EDSR-baseline x4, %dx%d LR, %s, --wino_trunk %d: %.4f ms per "
+                  "frame, %.3f LR-MP/s" % (h, w, dtype_name, m, 1e3 * mean_s, mps),
+                  flush=True)
 
 
 def main() -> int:
@@ -377,8 +653,12 @@ def main() -> int:
         print("build log %s:\n%s" % (source, build.build_log(source).strip()))
 
     sums, worst_f32 = kernel_phase(torch)
+    wino = wino_phase(torch)
     launches, model = serve_phase(torch)
     forward_phase(torch, model)
+    del model
+    wino_launches = validate_phase(torch)
+    runtime_phase(torch)
 
     kernels = [{
         "name": "conv3x3_bias_act",
@@ -393,6 +673,21 @@ def main() -> int:
         "bound_by": sums["bound_by"],
         "library_ms": sums["library_ms"],
     }]
+    for m, line in ((2, 205), (4, 336)):
+        wsums, werr = wino[m]
+        kernels.append({
+            "name": "wino_resblock_f%d" % m,
+            "route": "cuda",
+            "source": "larvanet_tpu_torch/csrc/wino_resblock.cu",
+            "replaces": "larvanet_tpu/ops/wino_pallas.py:%d" % line,
+            "launches": wino_launches[m],
+            "max_abs_err": werr,
+            "ms": wsums["ms"],
+            "plain_ms": wsums["plain_ms"],
+            "bound_ms": wsums["bound_ms"],
+            "bound_by": wsums["bound_by"],
+            "library_ms": wsums["library_ms"],
+        })
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

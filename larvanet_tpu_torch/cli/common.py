@@ -1,8 +1,10 @@
-"""Shared CLI plumbing (larvanet_tpu/cli/common.py, the parts serving uses).
+"""Shared CLI plumbing (larvanet_tpu/cli/common.py, the parts the ported
+CLIs use).
 
 Entry points run on the card. `--device cpu` runs them on the CPU (the
 tests do); without it and without CUDA they exit non-zero instead of
-quietly running on the CPU.
+quietly running on the CPU. Flags of features the port does not have yet
+exit non-zero with a pointer to ROADMAP.md (`refuse_unported`).
 """
 
 from __future__ import annotations
@@ -14,6 +16,19 @@ import torch
 
 from larvanet_tpu_torch.core import registry
 from larvanet_tpu_torch.core.config import parse_scale_list
+
+
+def add_common_flags(parser: argparse.ArgumentParser, default_loader: str,
+                     default_model: str = "edsr") -> None:
+    """--dataloader, --model, --scales, and the device flags."""
+    parser.add_argument("--dataloader", type=str, default=default_loader,
+                        help="Name of the data loader.")
+    parser.add_argument("--model", type=str, default=default_model,
+                        help="Name of the model.")
+    parser.add_argument("--scales", type=str, default="4",
+                        help="Scales of the input images. Use the ',' character "
+                             "to specify multiple scales (e.g., 2,3,4).")
+    add_device_flags(parser)
 
 
 def add_device_flags(parser: argparse.ArgumentParser) -> None:
@@ -34,6 +49,43 @@ def resolve_device(args) -> torch.device:
                          "on the card (pass --device cpu to run on the CPU)")
     index = int(args.cuda_device)
     return torch.device("cuda", index if index >= 0 else torch.cuda.current_device())
+
+
+def synchronize(device: torch.device) -> None:
+    """Wait for the card's queued work (the counterpart of block_until_ready)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def add_refused_flags(parser: argparse.ArgumentParser, refused: Sequence[str],
+                      ignored: Sequence[str]) -> None:
+    """Flags of the JAX CLI that the port refuses (any value but 0) or
+    accepts and ignores."""
+    for flag in refused:
+        parser.add_argument("--" + flag, type=str, default=None, nargs="?", const="1",
+                            help="Not ported yet (see ROADMAP.md); refused.")
+    for flag in ignored:
+        parser.add_argument("--" + flag, type=str, default=None,
+                            help="A TPU-only setting; accepted and ignored.")
+
+
+def refuse_unported(args, refused: Sequence[str], ignored: Sequence[str],
+                    tool: str) -> None:
+    for flag in refused:
+        if getattr(args, flag, None) not in (None, "0", ""):
+            raise SystemExit("--%s is not ported to larvanet_tpu_torch yet (see "
+                             "ROADMAP.md); run %s without it" % (flag, tool))
+    given = ["--" + flag for flag in ignored if getattr(args, flag, None) is not None]
+    if given:
+        print("%s: %s only matter(s) on the TPU; ignored here" % (tool, ", ".join(given)))
+
+
+def setup_loader(name: str, remaining: Sequence[str], scales: List[int]):
+    print("prepare data loader - %s" % (name,))
+    loader = registry.get_loader(name)
+    loader_args, remaining = loader.parse_args(list(remaining))
+    loader.prepare(scales=scales)
+    return loader, loader_args, remaining
 
 
 def setup_model(name: str, remaining: Sequence[str], scales: List[int],
@@ -59,6 +111,43 @@ def apply_serving_dtype(model, args) -> None:
     if model.compute_dtype == torch.bfloat16:
         print("inference compute dtype: bfloat16 (throughput configuration; "
               "not bit-identical to f32)")
+
+
+def add_wino_trunk_flag(parser: argparse.ArgumentParser) -> None:
+    parser.add_argument("--wino_trunk", type=int, default=0,
+                        help="Run every EDSR ResBlock as one fused Winograd "
+                             "kernel: 2 = F(2,3), 4 = F(4,3) "
+                             "(ops/wino_resblock.py; float-tolerance equal to "
+                             "the standard path; 0 = off). Even input widths.")
+
+
+def maybe_wino_trunk(model, args) -> None:
+    """Route the EDSR forward through the fused Winograd ResBlock kernel
+    when --wino_trunk is 2 or 4 (cli/common.py:384-428 in the JAX package).
+    No fallback: on the card the route launches the kernel or raises; with
+    --device cpu it runs the kernel's plain version."""
+    from larvanet_tpu_torch.ops.wino_resblock import (KERNEL_CHANNELS,
+                                                      make_wino_edsr_forward)
+
+    m = int(getattr(args, "wino_trunk", 0) or 0)
+    if not m:
+        return
+    if m not in (2, 4):
+        raise SystemExit("--wino_trunk must be 0, 2 or 4 (got %d)" % m)
+    model_name = getattr(args, "model", None) or ""
+    if model_name.startswith(("LarvaNet", "LarvaLeg")):
+        raise SystemExit("--wino_trunk for the LarvaNet family is not ported to "
+                         "larvanet_tpu_torch yet (see ROADMAP.md)")
+    if model_name not in ("edsr", "edsr_loss"):
+        print("--wino_trunk: only the EDSR/LarvaNet families are routed; "
+              "running the standard path for %r" % model_name)
+        return
+    features = model.module.first_conv.weight.shape[0]
+    if model.device.type == "cuda" and features != KERNEL_CHANNELS:
+        raise SystemExit("--wino_trunk: the kernel is built for %d features, the "
+                         "model has %d" % (KERNEL_CHANNELS, features))
+    model.set_route(make_wino_edsr_forward(model, m))
+    print("inference: fused Winograd F(%d,3) ResBlock kernel enabled" % m)
 
 
 def warn_leftovers(remaining: Sequence[str]) -> None:

@@ -1,0 +1,105 @@
+"""Inference CLI: a directory of PNGs in, their SR PNGs out
+(larvanet_tpu/cli/get_sr.py; reference get_sr.py:62-97):
+
+    python -m larvanet_tpu_torch.cli.get_sr --model edsr --scales 4 \\
+        --restore_path model.pth --input_path LR --output_path SR \\
+        [--serving_dtype bf16] [--device cpu]
+
+Frames cross to the device as uint8, are quantized there before the pull
+(--device_uint8), and are dispatched ahead (--pipeline_depth); the mean
+latency per frame is printed at the end.
+
+Not ported yet, refused with a pointer to ROADMAP.md: --chop_forward,
+--tile_forward, --spatial_shard, --int8_trunk, --dp_devices, --ema.
+--collapsed_tail, --packed_trunk and --plain_frame_px are TPU routing
+settings: accepted and ignored.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import time
+
+import numpy as np
+
+from larvanet_tpu_torch.cli import common
+from larvanet_tpu_torch.data import io
+from larvanet_tpu_torch.eval.pipeline import pipelined_upscale
+
+REFUSED = ("chop_forward", "tile_forward", "spatial_shard", "int8_trunk", "dp_devices",
+           "ema")
+IGNORED = ("collapsed_tail", "packed_trunk", "plain_frame_px")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--model", type=str, default="edsr", help="Name of the model.")
+    parser.add_argument("--scales", type=str, default="4", help="Scales of the input images.")
+    common.add_device_flags(parser)
+    parser.add_argument("--input_path", type=str, required=True,
+                        help="Base path of the input images.")
+    parser.add_argument("--output_path", type=str, required=True,
+                        help="Base path of the output images.")
+    parser.add_argument("--restore_path", type=str, required=True,
+                        help="A .pth state_dict (the reference's format).")
+    parser.add_argument("--device_uint8", type=int, default=1,
+                        help="Quantize SR frames to uint8 on the device before the "
+                             "pull (byte-equal to host quantization). 0 pulls f32.")
+    parser.add_argument("--pipeline_depth", type=int, default=2,
+                        help="Frames launched but not yet pulled (1 = serial).")
+    common.add_refused_flags(parser, REFUSED, IGNORED)
+    common.add_serving_dtype_flag(parser)
+    return parser
+
+
+def main(argv=None):
+    args, remaining = build_parser().parse_known_args(argv)
+    common.refuse_unported(args, REFUSED, IGNORED, "get_sr")
+    device = common.resolve_device(args)
+    scale_list = common.scales_of(args)
+    scale = scale_list[0]
+    model, _, remaining = common.setup_model(args.model, remaining, scale_list, device)
+    common.warn_leftovers(remaining)
+    model.restore(args.restore_path)
+    common.apply_serving_dtype(model, args)
+    print("restored the model")
+
+    image_names = io.list_pngs(args.input_path)
+    print("%d images are prepared" % (len(image_names),))
+    os.makedirs(args.output_path, exist_ok=True)
+    total = len(image_names)
+
+    def frame(name):
+        path = os.path.join(args.input_path, name + ".png")
+        if args.device_uint8:  # uint8 push, cast to f32 on the device
+            return io.load_image_u8(path).transpose(2, 0, 1)
+        return io.load_image_chw(path)
+
+    duration_list = []
+    if args.device_uint8 and args.pipeline_depth > 1:
+        frames = ((name, frame(name)) for name in image_names)
+        results = pipelined_upscale(model, frames, scale, depth=args.pipeline_depth)
+    else:
+        def serial():
+            for name in image_names:
+                input_image = frame(name)
+                start_time = time.perf_counter()
+                if args.device_uint8:
+                    output = model.upscale_uint8([input_image], scale)[0]
+                else:
+                    output = model.upscale([input_image], scale)[0]
+                yield name, output, time.perf_counter() - start_time
+
+        results = serial()
+    for i, (name, output, duration) in enumerate(results):
+        duration_list.append(duration)
+        io.save_image_chw(output, os.path.join(args.output_path, name + ".png"))
+        print("%d/%d, %s, duration=%.4f" % (i + 1, total, name, duration))
+
+    print("mean duration=%.4f" % (float(np.mean(duration_list)),))
+    print("finished")
+
+
+if __name__ == "__main__":
+    main()

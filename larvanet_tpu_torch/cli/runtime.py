@@ -1,0 +1,100 @@
+"""Forward-latency CLI (larvanet_tpu/cli/runtime.py; reference runtime.py).
+
+Times `fwd_runtime` per image (the loader's real images) or at one fixed
+input size, each timed block bracketed with `torch.cuda.synchronize()`
+as the reference does (runtime.py:63-67); warmup forwards build the
+kernels and are not timed:
+
+    python -m larvanet_tpu_torch.cli.runtime --model edsr --scales 4 \\
+        --input_height 339 --input_width 510 [--restore_path model.pth] \\
+        [--wino_trunk 2|4] [--serving_dtype bf16] [--device cpu]
+
+Without --restore_path the weights are random from the seed. Refused
+with a pointer to ROADMAP.md: --int8_trunk, --ema. --collapsed_tail,
+--packed_trunk and --plain_frame_px are TPU routing settings: accepted
+and ignored.
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from larvanet_tpu_torch.cli import common
+
+REFUSED = ("int8_trunk", "ema")
+IGNORED = ("collapsed_tail", "packed_trunk", "plain_frame_px")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser()
+    common.add_common_flags(parser, default_loader="div2k_val_loader", default_model="edsr")
+    parser.add_argument("--restore_path", type=str,
+                        help="A .pth state_dict (optional: random weights if omitted).")
+    parser.add_argument("--input_width", type=int, default=0,
+                        help="Fixed input width (0 = use the dataloader's real images).")
+    parser.add_argument("--input_height", type=int, default=0)
+    parser.add_argument("--num_warmup", type=int, default=2,
+                        help="Warmup forwards, not timed.")
+    parser.add_argument("--num_iters", type=int, default=10,
+                        help="Timed iterations per image/shape.")
+    common.add_wino_trunk_flag(parser)
+    common.add_refused_flags(parser, REFUSED, IGNORED)
+    common.add_serving_dtype_flag(parser)
+    return parser
+
+
+def main(argv=None):
+    args, remaining = build_parser().parse_known_args(argv)
+    common.refuse_unported(args, REFUSED, IGNORED, "runtime")
+    device = common.resolve_device(args)
+    scale_list = common.scales_of(args)
+    use_loader = args.input_width == 0
+
+    dataloader = None
+    if use_loader:
+        dataloader, _, remaining = common.setup_loader(args.dataloader, remaining, scale_list)
+    model, _, remaining = common.setup_model(args.model, remaining, scale_list, device)
+    common.warn_leftovers(remaining)
+    if args.restore_path:
+        model.restore(args.restore_path)
+        print("restored the model")
+    common.apply_serving_dtype(model, args)
+    common.maybe_wino_trunk(model, args)
+
+    scale = scale_list[0]
+    durations = []
+    megapixels = []
+
+    def bench_one(batch_nhwc: np.ndarray) -> None:
+        x = torch.from_numpy(batch_nhwc).to(device)
+        for _ in range(args.num_warmup):
+            model.fwd_runtime(x)
+        common.synchronize(device)
+        t0 = time.perf_counter()
+        for _ in range(args.num_iters):
+            model.fwd_runtime(x)
+        common.synchronize(device)
+        durations.append((time.perf_counter() - t0) / args.num_iters)
+        megapixels.append(batch_nhwc.shape[1] * batch_nhwc.shape[2] / 1e6)
+
+    if use_loader:
+        for i in range(dataloader.get_num_images()):
+            inp, _, name = dataloader.get_image_pair(i, scale)
+            bench_one(np.ascontiguousarray(inp.transpose(1, 2, 0))[None].astype(np.float32))
+            print("%d/%d %s: %.4f sec" % (i + 1, dataloader.get_num_images(), name,
+                                          durations[-1]))
+    else:
+        bench_one(np.zeros((1, args.input_height, args.input_width, 3), np.float32))
+
+    mean_dur = float(np.mean(durations))
+    mp_per_sec = float(np.sum(megapixels)) / float(np.sum(durations))
+    print("mean duration=%.4f sec; throughput=%.2f LR megapixels/sec" % (mean_dur, mp_per_sec))
+    return mean_dur, mp_per_sec
+
+
+if __name__ == "__main__":
+    main()

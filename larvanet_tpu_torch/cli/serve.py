@@ -454,32 +454,14 @@ def build_parser() -> argparse.ArgumentParser:
                              "into one batched forward.")
     parser.add_argument("--warmup_size", type=str, default="128x128",
                         help="WxH run through the model before serving traffic.")
-    for flag in REFUSED:
-        parser.add_argument("--" + flag, type=str, default=None,
-                            nargs="?", const="1",
-                            help="Not ported yet (see ROADMAP.md); refused.")
-    for flag in IGNORED:
-        parser.add_argument("--" + flag, type=int, default=None,
-                            help="TPU layout rewrite; accepted and ignored.")
+    common.add_refused_flags(parser, REFUSED, IGNORED)
     common.add_serving_dtype_flag(parser)
     return parser
 
 
-def _refuse_unported(args) -> None:
-    for flag in REFUSED:
-        value = getattr(args, flag, None)
-        if value not in (None, "0", ""):
-            raise SystemExit("--%s is not ported to larvanet_tpu_torch yet "
-                             "(see ROADMAP.md); serve the direct path "
-                             "without it" % flag)
-    if any(getattr(args, flag, None) is not None for flag in IGNORED):
-        print("serve: --collapsed_tail/--packed_trunk are TPU layout "
-              "rewrites of the same function; ignored here")
-
-
 def build_service(args, remaining) -> SRService:
     """Restore the model on the device and wrap it in an SRService."""
-    _refuse_unported(args)
+    common.refuse_unported(args, REFUSED, IGNORED, "serve")
     device = common.resolve_device(args)
     scales = common.scales_of(args)
     model, _, remaining = common.setup_model(args.model, remaining, scales, device)

@@ -1,0 +1,141 @@
+"""Full-image validation CLI (larvanet_tpu/cli/validate.py; reference
+validate.py).
+
+Per image: upscale, round and clip to uint8, crop the truth to the
+output, RGB PSNR; optionally save the PNG; mean PSNR and duration per
+scale (reference validate.py:83-123):
+
+    python -m larvanet_tpu_torch.cli.validate --model edsr --scales 4 \\
+        --restore_path model.pth --data_input_path LR --data_truth_path HR \\
+        [--wino_trunk 2|4] [--serving_dtype bf16] [--report_json r.json] \\
+        [--device cpu]
+
+By default the frame is quantized on the device before the pull
+(--device_uint8) and frames are dispatched ahead (--pipeline_depth);
+both give the serial loop's bytes. --wino_trunk runs every EDSR ResBlock
+as one fused Winograd kernel.
+
+Not ported yet, refused with a pointer to ROADMAP.md: --chop_forward,
+--tile_forward, --self_ensemble, --artifact, --int8_trunk, --int8_report,
+--dp_devices, --spatial_shard, --ema. --collapsed_tail and --packed_trunk
+are TPU layout rewrites of the same function: accepted and ignored.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import time
+
+import numpy as np
+
+from larvanet_tpu_torch.cli import common
+from larvanet_tpu_torch.data import io
+from larvanet_tpu_torch.eval import metrics
+from larvanet_tpu_torch.eval.pipeline import pipelined_upscale
+
+REFUSED = ("chop_forward", "tile_forward", "self_ensemble", "artifact", "int8_trunk",
+           "int8_report", "dp_devices", "spatial_shard", "ema")
+IGNORED = ("collapsed_tail", "packed_trunk")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser()
+    common.add_common_flags(parser, default_loader="div2k_val_loader", default_model="edsr")
+    parser.add_argument("--restore_path", type=str, default=None,
+                        help="A .pth state_dict (the reference's format).")
+    parser.add_argument("--save_path", type=str,
+                        help="Base output path of the upscaled images.")
+    parser.add_argument("--device_uint8", type=int, default=1,
+                        help="Quantize SR frames to uint8 on the device before the "
+                             "pull (the protocol quantizes first anyway: byte-equal, "
+                             "a quarter of the bytes).")
+    parser.add_argument("--pipeline_depth", type=int, default=2,
+                        help="Dispatch-ahead with --device_uint8: launch frame i+1 "
+                             "before pulling frame i (eval/pipeline.py; 1 = serial).")
+    parser.add_argument("--report_json", type=str,
+                        help="Write per-image and mean PSNRs to this JSON file.")
+    common.add_wino_trunk_flag(parser)
+    common.add_refused_flags(parser, REFUSED, IGNORED)
+    common.add_serving_dtype_flag(parser)
+    return parser
+
+
+def main(argv=None):
+    args, remaining = build_parser().parse_known_args(argv)
+    common.refuse_unported(args, REFUSED, IGNORED, "validate")
+    if not args.restore_path:
+        raise SystemExit("pass --restore_path (a .pth checkpoint)")
+    device = common.resolve_device(args)
+    scale_list = common.scales_of(args)
+    dataloader, _, remaining = common.setup_loader(args.dataloader, remaining, scale_list)
+    model, _, remaining = common.setup_model(args.model, remaining, scale_list, device)
+    common.warn_leftovers(remaining)
+    model.restore(args.restore_path)
+    common.apply_serving_dtype(model, args)
+    print("restored the model")
+    common.maybe_wino_trunk(model, args)
+
+    print("begin validation")
+    num_images = dataloader.get_num_images()
+    average_psnr_dict = {}
+    average_duration_dict = {}
+    report = {}
+    for scale in scale_list:
+        duration_list, psnr_list, name_list = [], [], []
+
+        def score(image_index, image_name, truth_image, output_image, duration):
+            duration_list.append(duration)
+            truth_u8 = metrics.image_to_uint8(truth_image)
+            output_u8 = metrics.image_to_uint8(output_image)
+            if args.save_path is not None:
+                out_dir = os.path.join(args.save_path, "x%d" % scale)
+                io.save_image_chw(output_u8, os.path.join(out_dir, image_name + ".png"))
+            truth_u8 = metrics.fit_truth_to_output(output_u8, truth_u8)
+            psnr = metrics.psnr_rgb(output_u8, truth_u8)
+            psnr_list.append(psnr)
+            name_list.append(image_name)
+            print("x%d, %d/%d, psnr=%.2f, duration=%.4f"
+                  % (scale, image_index + 1, num_images, psnr, duration))
+
+        if args.device_uint8 and args.pipeline_depth > 1:
+            def items():
+                for image_index in range(num_images):
+                    input_image, truth_image, image_name = dataloader.get_image_pair(
+                        image_index=image_index, scale=scale)
+                    yield (image_index, image_name, truth_image), input_image
+
+            for (image_index, image_name, truth_image), out_u8, dt in pipelined_upscale(
+                    model, items(), scale, depth=args.pipeline_depth):
+                score(image_index, image_name, truth_image, out_u8, dt)
+        else:
+            for image_index in range(num_images):
+                input_image, truth_image, image_name = dataloader.get_image_pair(
+                    image_index=image_index, scale=scale)
+                start_time = time.perf_counter()
+                if args.device_uint8:
+                    output_image = model.upscale_uint8([input_image], scale)[0]
+                else:
+                    output_image = model.upscale([input_image], scale)[0]
+                score(image_index, image_name, truth_image, output_image,
+                      time.perf_counter() - start_time)
+
+        average_psnr_dict[scale] = float(np.mean(psnr_list))
+        average_duration_dict[scale] = float(np.mean(duration_list))
+        print("x%d, psnr=%.2f, duration=%.4f"
+              % (scale, average_psnr_dict[scale], average_duration_dict[scale]))
+        report.setdefault("scales", {})[str(scale)] = {
+            "mean_psnr": average_psnr_dict[scale],
+            "per_image": dict(zip(name_list, map(float, psnr_list))),
+        }
+    if args.report_json:
+        os.makedirs(os.path.dirname(args.report_json) or ".", exist_ok=True)
+        with open(args.report_json, "w") as f:
+            json.dump(report, f, indent=1, sort_keys=True)
+    print("finished")
+    return average_psnr_dict
+
+
+if __name__ == "__main__":
+    main()

@@ -1,8 +1,10 @@
-"""Name -> factory registry for models (larvanet_tpu/core/registry.py:19-55).
+"""Name -> factory registries for models and data loaders
+(larvanet_tpu/core/registry.py:19-55).
 
-Models register under the reference's public names, so `--model=...`
-resolves as in the JAX package. Only the names this port has so far are
-registered: `edsr` and `edsr_loss`.
+Plugins register under the reference's public names, so `--model=...` and
+`--dataloader=...` resolve as in the JAX package. Only the names this port
+has so far are registered: the models `edsr` and `edsr_loss`; the loaders
+`div2k_val_loader` and `basic_loader`.
 """
 
 from __future__ import annotations
@@ -10,6 +12,7 @@ from __future__ import annotations
 from typing import Callable, Dict
 
 _MODELS: Dict[str, Callable] = {}
+_LOADERS: Dict[str, Callable] = {}
 
 
 def register_model(name: str):
@@ -20,17 +23,35 @@ def register_model(name: str):
     return deco
 
 
+def register_loader(name: str):
+    def deco(factory: Callable):
+        _LOADERS[name] = factory
+        return factory
+
+    return deco
+
+
 def _ensure_imported() -> None:
-    # importing the package runs every model's register_model decorator
+    # importing the packages runs every register_* decorator
+    import larvanet_tpu_torch.data.loaders  # noqa: F401
     import larvanet_tpu_torch.models  # noqa: F401
+
+
+def _get(table: Dict[str, Callable], kind: str, name: str):
+    _ensure_imported()
+    if name not in table:
+        raise KeyError("unknown %s %r; the port has: %s"
+                       % (kind, name, ", ".join(sorted(table))))
+    obj = table[name]()
+    obj.registry_name = name
+    return obj
 
 
 def get_model(name: str):
     """A fresh model wrapper for `--model=<name>`."""
-    _ensure_imported()
-    if name not in _MODELS:
-        raise KeyError("unknown model %r; the port has: %s"
-                       % (name, ", ".join(sorted(_MODELS))))
-    model = _MODELS[name]()
-    model.registry_name = name
-    return model
+    return _get(_MODELS, "model", name)
+
+
+def get_loader(name: str):
+    """A fresh data loader for `--dataloader=<name>`."""
+    return _get(_LOADERS, "data loader", name)

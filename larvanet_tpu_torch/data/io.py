@@ -1,0 +1,48 @@
+"""Host-side image IO (larvanet_tpu/data/io.py:22-66).
+
+Images travel through the port as the reference's loader contract has
+them: CHW float32 RGB in [0, 255]. The card's machine has no Pillow, so
+PNGs go through the port's own codec (`data/png.py`), which decodes the
+same 8-bit bytes to the same values.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import List
+
+import numpy as np
+
+from larvanet_tpu_torch.data import png
+
+
+def load_image_u8(path: str) -> np.ndarray:
+    """Read a PNG as HWC uint8 RGB."""
+    with open(path, "rb") as f:
+        return png.decode(f.read())
+
+
+def load_image_chw(path: str) -> np.ndarray:
+    """Read a PNG as CHW float32 RGB in [0, 255] (the loader contract)."""
+    return load_image_u8(path).transpose(2, 0, 1).astype(np.float32)
+
+
+def save_image_chw(image_chw: np.ndarray, path: str) -> None:
+    """Write a CHW uint8 or float image as PNG; floats are rounded and
+    clipped (reference validate.py:29-32)."""
+    save_image_hwc(np.transpose(np.asarray(image_chw), (1, 2, 0)), path)
+
+
+def save_image_hwc(image_hwc: np.ndarray, path: str) -> None:
+    img = np.asarray(image_hwc)
+    if img.dtype != np.uint8:
+        img = np.clip(np.round(img), 0, 255).astype(np.uint8)
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "wb") as f:
+        f.write(png.encode(img))
+
+
+def list_pngs(directory: str) -> List[str]:
+    """Sorted basenames (without extension) of the PNGs in a directory."""
+    return sorted(os.path.splitext(f)[0] for f in os.listdir(directory)
+                  if f.lower().endswith(".png"))

@@ -16,6 +16,11 @@ JAX package's jitted closures become plain calls of the module.
     kernel's bf16 variant (the counterpart of serving_compute_dtype,
     models/base.py:42-54); inputs are cast on the device and outputs
     come back as f32.
+  * `set_route(forward)` sends `fwd_runtime` through another forward of
+    the same module (e.g. ops/wino_resblock.make_wino_edsr_forward), the
+    counterpart of the JAX CLIs replacing `model._fwd_jit`. A route reads
+    the module's weights on every call, so restore and set_serving_dtype
+    keep working with one set.
   * uint8 frames (PNG decodes) cross to the device as uint8 and are cast
     to f32 there: exact, and a quarter of the bytes (base.py:489-507).
     `upscale_uint8` quantizes on the device before the pull with
@@ -48,6 +53,7 @@ class SRModel:
         self.scale = 4
         self.device = torch.device("cpu")
         self.compute_dtype = torch.float32
+        self.route = None
 
     # ---- plugin protocol -------------------------------------------------
 
@@ -71,6 +77,11 @@ class SRModel:
     def set_serving_dtype(self, name: str) -> None:
         self.compute_dtype = DTYPES[name]
         self.module.to(self.compute_dtype)
+
+    def set_route(self, forward) -> None:
+        """Run `fwd_runtime` through `forward` (NHWC batch in the compute
+        dtype -> NHWC output) instead of the module; None restores it."""
+        self.route = forward
 
     def num_parameters(self) -> int:
         return sum(p.numel() for p in self.module.parameters())
@@ -110,7 +121,8 @@ class SRModel:
     def fwd_runtime(self, x_nhwc: torch.Tensor) -> torch.Tensor:
         """The forward on an NHWC float batch already on the device; the
         result is f32 NHWC on the device, not synchronised."""
-        out = self.module(x_nhwc.to(self.compute_dtype).contiguous())
+        x = x_nhwc.to(self.compute_dtype).contiguous()
+        out = self.module(x) if self.route is None else self.route(x)
         return out.float()
 
     def _input_to_device(self, input_list) -> torch.Tensor:

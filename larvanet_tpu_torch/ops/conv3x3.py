@@ -61,12 +61,32 @@ def conv3x3_bias_act_reference(x: torch.Tensor, kernel: torch.Tensor,
     return acc.reshape(n, h, w, f).to(x.dtype)
 
 
-@functools.lru_cache(maxsize=None)
-def _entry(dtype: torch.dtype):
-    fn = getattr(build.load(SOURCE), _ENTRY[dtype])
+def bind(lib: ctypes.CDLL, dtype: torch.dtype):
+    """The entry point of `lib` for `dtype`, with its C signature."""
+    fn = getattr(lib, _ENTRY[dtype])
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _entry(dtype: torch.dtype):
+    return bind(build.load(SOURCE), dtype)
+
+
+def _run(fn, x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
+         act: Optional[str], stream) -> torch.Tensor:
+    """Call entry point `fn` on checked operands; returns the output."""
+    n, h, w, c = x.shape
+    f = kernel.shape[3]
+    kmat = kernel.reshape(9 * c, f).to(x.dtype).contiguous()
+    b = bias.to(torch.float32).contiguous()
+    out = torch.empty((n, h, w, f), dtype=x.dtype, device=x.device)
+    err = fn(x.data_ptr(), kmat.data_ptr(), b.data_ptr(), out.data_ptr(), n, h, w, c, f,
+             ACTS[act], stream)
+    if err != 0:
+        raise RuntimeError("conv3x3_bias_act kernel launch failed: CUDA error %d" % err)
+    return out
 
 
 def conv3x3_bias_act(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
@@ -97,16 +117,9 @@ def conv3x3_bias_act(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
         raise ValueError("empty conv: x %s, F %d" % (tuple(x.shape), f))
     if kernel.device != x.device or bias.device != x.device:
         raise ValueError("x, kernel and bias must be on one device")
-    kmat = kernel.reshape(9 * c, f).to(x.dtype).contiguous()
-    b = bias.to(torch.float32).contiguous()
-    out = torch.empty((n, h, w, f), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _entry(x.dtype)(x.data_ptr(), kmat.data_ptr(), b.data_ptr(),
-                              out.data_ptr(), n, h, w, c, f, ACTS[act], stream)
-    if err != 0:
-        raise RuntimeError("conv3x3_bias_act kernel launch failed: CUDA error %d"
-                           % err)
+        out = _run(_entry(x.dtype), x, kernel, bias, act,
+                   torch.cuda.current_stream().cuda_stream)
     global LAUNCHES
     LAUNCHES += 1
     return out
