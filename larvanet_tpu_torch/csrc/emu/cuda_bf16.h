@@ -23,3 +23,6 @@ inline __nv_bfloat16 __float2bfloat16_rn(float f) {
   u += 0x7fffu + ((u >> 16) & 1u);
   return __nv_bfloat16{(uint16_t)(u >> 16)};
 }
+
+inline unsigned short __bfloat16_as_ushort(__nv_bfloat16 v) { return v.bits; }
+inline __nv_bfloat16 __ushort_as_bfloat16(unsigned short u) { return __nv_bfloat16{u}; }

@@ -10,15 +10,19 @@ does (pallas_conv.py:76-77).
 
 `conv3x3_bias_act` launches `csrc/conv3x3_bias_act.cu` for a CUDA
 tensor and raises on anything that kernel does not take; only a CPU
-tensor goes to `conv3x3_bias_act_reference`. `LAUNCHES` counts the
-kernel's launches, so a run can show that its path went through it.
+tensor goes to `conv3x3_bias_act_reference`. The source has two paths,
+chosen by shape (`path_for`), never by retrying after a failure:
+"tensor_core" (bf16 with C and F multiples of 16, WMMA over a halo tile in
+shared memory) and "cuda_core" (everything else). `LAUNCHES` counts the
+kernel's launches and `LAUNCHES_BY_PATH` each path's, so a run can show
+that its path went through them.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -27,10 +31,28 @@ from larvanet_tpu_torch.ops import build
 
 SOURCE = "conv3x3_bias_act.cu"
 ACTS = {None: 0, "relu": 1, "leaky_relu": 2}
-_ENTRY = {torch.float32: "conv3x3_bias_act_f32",
-          torch.bfloat16: "conv3x3_bias_act_bf16"}
+_ENTRY = {("cuda_core", torch.float32): "conv3x3_bias_act_f32",
+          ("cuda_core", torch.bfloat16): "conv3x3_bias_act_bf16",
+          ("tensor_core", torch.bfloat16): "conv3x3_bias_act_bf16_tc"}
 
 LAUNCHES = 0
+LAUNCHES_BY_PATH: Dict[str, int] = {"cuda_core": 0, "tensor_core": 0}
+
+
+def reset_launches() -> None:
+    global LAUNCHES
+    LAUNCHES = 0
+    for path in LAUNCHES_BY_PATH:
+        LAUNCHES_BY_PATH[path] = 0
+
+
+def path_for(c: int, f: int, dtype: torch.dtype) -> str:
+    """The kernel path for a C -> F conv in `dtype`: the tensor cores take
+    bf16 with C and F multiples of 16 (WMMA's 16-deep bf16 fragments),
+    the CUDA cores the rest."""
+    if dtype == torch.bfloat16 and c % 16 == 0 and f % 16 == 0:
+        return "tensor_core"
+    return "cuda_core"
 
 
 def _apply_act(out: torch.Tensor, act: Optional[str]) -> torch.Tensor:
@@ -61,17 +83,17 @@ def conv3x3_bias_act_reference(x: torch.Tensor, kernel: torch.Tensor,
     return acc.reshape(n, h, w, f).to(x.dtype)
 
 
-def bind(lib: ctypes.CDLL, dtype: torch.dtype):
-    """The entry point of `lib` for `dtype`, with its C signature."""
-    fn = getattr(lib, _ENTRY[dtype])
+def bind(lib: ctypes.CDLL, dtype: torch.dtype, path: str = "cuda_core"):
+    """The entry point of `lib` for (`path`, `dtype`), with its C signature."""
+    fn = getattr(lib, _ENTRY[(path, dtype)])
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
 @functools.lru_cache(maxsize=None)
-def _entry(dtype: torch.dtype):
-    return bind(build.load(SOURCE), dtype)
+def _entry(dtype: torch.dtype, path: str):
+    return bind(build.load(SOURCE), dtype, path)
 
 
 def _run(fn, x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
@@ -100,7 +122,7 @@ def conv3x3_bias_act(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
                          % (x.device,))
     if act not in ACTS:
         raise ValueError("unknown activation %r" % (act,))
-    if x.dtype not in _ENTRY:
+    if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError("conv3x3_bias_act takes float32 or bfloat16, got %s"
                         % (x.dtype,))
     if x.dim() != 4 or not x.is_contiguous():
@@ -117,9 +139,11 @@ def conv3x3_bias_act(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
         raise ValueError("empty conv: x %s, F %d" % (tuple(x.shape), f))
     if kernel.device != x.device or bias.device != x.device:
         raise ValueError("x, kernel and bias must be on one device")
+    path = path_for(c, f, x.dtype)
     with torch.cuda.device(x.device):
-        out = _run(_entry(x.dtype), x, kernel, bias, act,
+        out = _run(_entry(x.dtype, path), x, kernel, bias, act,
                    torch.cuda.current_stream().cuda_stream)
     global LAUNCHES
     LAUNCHES += 1
+    LAUNCHES_BY_PATH[path] += 1
     return out

@@ -14,7 +14,7 @@ import torch
 from larvanet_tpu.ops.pallas_conv import conv3x3_bias_act as jax_conv3x3
 from larvanet_tpu_torch.ops import conv3x3
 
-# f32 sums of at most 9*32 products of unit-scale values taken in another
+# f32 sums of at most 9*64 products of unit-scale values taken in another
 # order than XLA's: differences stay near 1e-6; the TPU kernel's own bar
 # (tools/pallas_check.py) is 2e-4.
 ATOL = 1e-4
@@ -22,7 +22,9 @@ ATOL = 1e-4
 SHAPES = [((1, 33, 48, 32), 16),  # tools/pallas_check.py:33
           ((1, 8, 8, 8), 8),
           ((2, 7, 9, 3), 8),       # C = 3, as EDSR's first_conv
-          ((1, 10, 13, 8), 3)]     # F = 3, as EDSR's final_conv
+          ((1, 10, 13, 8), 3),     # F = 3, as EDSR's final_conv
+          ((1, 9, 17, 48), 48),    # C = F = 48, LarvaNet's trunk width
+          ((1, 6, 10, 64), 64)]    # C = F = 64, EDSR-baseline's trunk
 
 
 def _inputs(shape, f, seed=0):
@@ -81,3 +83,32 @@ def test_wrapper_rejects_unknown_activation():
     with pytest.raises(ValueError, match="activation"):
         conv3x3.conv3x3_bias_act(torch.from_numpy(x), torch.from_numpy(k),
                                  torch.from_numpy(b), "gelu")
+
+
+@pytest.mark.parametrize("c,f,dtype,path", [
+    (64, 64, torch.bfloat16, "tensor_core"),   # EDSR trunk
+    (64, 256, torch.bfloat16, "tensor_core"),  # EDSR upsample
+    (48, 48, torch.bfloat16, "tensor_core"),   # LarvaNet trunk
+    (3, 64, torch.bfloat16, "cuda_core"),      # first_conv
+    (64, 3, torch.bfloat16, "cuda_core"),      # final_conv
+    (24, 64, torch.bfloat16, "cuda_core"),     # C a multiple of 8, not 16
+    (64, 64, torch.float32, "cuda_core"),      # f32 never takes the tensor cores
+])
+def test_path_for_chooses_by_shape_and_dtype(c, f, dtype, path):
+    assert conv3x3.path_for(c, f, dtype) == path
+
+
+def test_cpu_tensor_counts_no_launch_on_either_path():
+    """A CPU tensor of a tensor-core shape takes the plain version and adds
+    to no counter; reset_launches zeroes every counter."""
+    x, k, b = _inputs((1, 5, 6, 16), 16)
+    conv3x3.reset_launches()
+    out = conv3x3.conv3x3_bias_act(torch.from_numpy(x).to(torch.bfloat16),
+                                   torch.from_numpy(k), torch.from_numpy(b), "relu")
+    assert out.dtype == torch.bfloat16 and out.shape == (1, 5, 6, 16)
+    assert conv3x3.LAUNCHES == 0
+    assert conv3x3.LAUNCHES_BY_PATH == {"cuda_core": 0, "tensor_core": 0}
+    conv3x3.LAUNCHES_BY_PATH["tensor_core"] = 3
+    conv3x3.LAUNCHES = 3
+    conv3x3.reset_launches()
+    assert conv3x3.LAUNCHES == 0 and set(conv3x3.LAUNCHES_BY_PATH.values()) == {0}

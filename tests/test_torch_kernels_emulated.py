@@ -73,6 +73,48 @@ def test_conv3x3_kernel_matches_plain_version(conv_lib, shape, f, act, dname):
         assert bool((diff <= BF16_ATOL + BF16_RTOL * want.float().abs()).all())
 
 
+@pytest.mark.parametrize("shape,f,act", [
+    ((1, 29, 19, 64), 64, "relu"),       # trunk conv; 2 x 2 tiles of 24 x 16, ragged
+    ((2, 5, 7, 64), 64, None),           # frames smaller than one tile, batch 2
+    ((1, 6, 20, 64), 256, None),         # upsample conv, 4 F tiles x 2 pixel tiles
+    ((1, 9, 17, 48), 48, "leaky_relu"),  # C = F = 48: a part-filled F tile
+    ((2, 7, 10, 96), 32, "relu"),        # C = 96: two channel chunks, 64 + 32
+])
+def test_conv3x3_tensor_core_path_matches_plain_version(conv_lib, shape, f, act):
+    """The persistent kernel on the stand-in's one-SM card: one block per F
+    tile walks every pixel tile (and every chunk of C) in turn."""
+    assert conv3x3.path_for(shape[3], f, torch.bfloat16) == "tensor_core"
+    rng = np.random.default_rng(sum(shape) + f)
+    x = _t(rng.standard_normal(shape)).to(torch.bfloat16)
+    k = _t(0.1 * rng.standard_normal((3, 3, shape[3], f)))
+    b = _t(rng.standard_normal(f))
+    fn = conv3x3.bind(conv_lib, torch.bfloat16, "tensor_core")
+    got = conv3x3._run(fn, x, k, b, act, None)
+    want = conv3x3.conv3x3_bias_act_reference(x, k, b, act)
+    assert got.shape == want.shape and got.dtype == want.dtype
+    diff = (got.float() - want.float()).abs()
+    print("emulated conv3x3 tensor_core %s->%d %s: max|d| %.3g, %d of %d values differ"
+          % (shape, f, act, float(diff.max()), int((diff > 0).sum()), diff.numel()))
+    assert torch.isfinite(got.float()).all()
+    assert bool((diff <= BF16_ATOL + BF16_RTOL * want.float().abs()).all())
+
+
+@pytest.mark.parametrize("case", ["c_not_16", "f_not_16", "misaligned"])
+def test_conv3x3_tensor_core_entry_refuses_what_it_cannot_take(conv_lib, case):
+    """Nothing is launched and the wrapper raises: C or F not a multiple of 16
+    (cudaErrorInvalidValue), x not 16-byte aligned (cudaErrorMisalignedAddress)."""
+    c, f = {"c_not_16": (24, 16), "f_not_16": (16, 24)}.get(case, (16, 16))
+    shape = (1, 4, 5, c)
+    x = torch.zeros(shape, dtype=torch.bfloat16)
+    if case == "misaligned":
+        x = torch.zeros(x.numel() + 1, dtype=torch.bfloat16)[1:].view(shape)
+    k, b = torch.zeros((3, 3, c, f)), torch.zeros(f)
+    fn = conv3x3.bind(conv_lib, torch.bfloat16, "tensor_core")
+    code = 716 if case == "misaligned" else 1
+    with pytest.raises(RuntimeError, match="CUDA error %d" % code):
+        conv3x3._run(fn, x, k, b, None, None)
+
+
 @pytest.mark.parametrize("m", [2, 4])
 @pytest.mark.parametrize("dname,shape,rw,b_a", [
     ("f32", (1, 13, 34, 64), 0.7, None),   # odd H, ragged tiles in H and W
