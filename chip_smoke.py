@@ -22,9 +22,12 @@ fails:
  3b. wino kernels: holds both fused Winograd ResBlock kernels (F(2,3) and
     F(4,3)) against their plain version at EDSR-baseline's ResBlock (C = 64)
     for the same two geometries, f32 and bf16 (res_weight 1.0, and 0.1 on
-    the ragged frame); prints each one's kernel, plain-version and cuDNN
-    ResBlock times (two F.conv2d, ReLU, add) and its bound beside the
-    direct ResBlock's.
+    the ragged frame). Each call must take the path `path_for` names: bf16
+    the tensor-core entry, f32 the CUDA-core one; in bf16 the CUDA-core
+    entry is held and timed too, as the earlier kernel of the same
+    function. Prints each one's kernel, plain-version and cuDNN ResBlock
+    times (two F.conv2d, ReLU, add) and its bound beside the direct
+    ResBlock's.
  4. serve: EDSR-baseline x4 at full width (64 features, 16 ResBlocks),
     random weights from SEED with final_conv rescaled so the output spans
     the pixel range (see fit_output_range), saved as a .pth; the port's HTTP server
@@ -43,6 +46,10 @@ fails:
  5. forward: times the whole x4 forward on the batch of 4 x 192x192 LR
     tiles, f32 and bf16 (CUDA events), through the conv3x3 kernel and
     under --wino_trunk 2 and 4, to set the kernels' share against it.
+    Under --wino_trunk the counters are zeroed before one forward and read
+    after it: 5 conv3x3 and 16 fused launches, all 16 on the dtype's path
+    (WINO_PATH_LAUNCHES); the bf16 forward must lie within BF16_FWD_RTOL
+    of the same route with the plain fused ResBlock in place of the kernel.
  6. validate: the port's validate CLI in this process on a DIV2K-layout
     set written by the port's PNG encoder (4 LR frames of even width and,
     for the standard path only, one of odd width), EDSR-baseline x4 as in
@@ -53,18 +60,20 @@ fails:
     and the unclamped f32 forward through each fused kernel within
     WINO_FWD_RTOL of the conv3x3 forward.
  7. runtime: the port's runtime CLI at the DIV2K x4 LR size 339x510,
-    --wino_trunk 0, 2 and 4 in f32 and bf16: ms per frame and LR-MP/s.
+    --wino_trunk 0, 2 and 4 in f32 and bf16: ms per frame and LR-MP/s,
+    and each run's launches by path.
  8. prints the kernels JSON line, the nvidia-smi line, then the result line
     {"ok": true, "device": {...}}.
 
-The kernels line reports, per kernel: its launches on the main path that
-runs it (conv3x3: the served forwards of phase 4, f32 and bf16, also by
-path; the wino kernels: the validate run of phase 6 with their
+The kernels line reports, per kernel: its launches on the main paths that
+run it, also by path (conv3x3: the served forwards of phase 4, f32 and
+bf16; the wino kernels: the counted forwards of phase 5, f32 and bf16,
+the validate run of phase 6 and the runtime runs of phase 7 with their
 --wino_trunk); summed over one x4 forward of the 4 x 192x192 f32 batch
 (the 37 convs; the 16 ResBlocks), its time, its plain version's, the
 library's (F.conv2d; the cuDNN ResBlock) and its bound; and the largest
-f32 error of phase 3 or 3b. conv3x3 also gives the same sums in bf16,
-with the CUDA-core bf16 entry's sum beside them.
+f32 error of phase 3 or 3b. Each also gives the same sums in bf16, with
+the CUDA-core bf16 entry's sum beside them.
 """
 
 from __future__ import annotations
@@ -123,6 +132,11 @@ BF16_FWD_RTOL = 2.0 ** -5
 # final_conv (F = 3) on the CUDA cores
 PATH_LAUNCHES = {"f32": {"cuda_core": 37, "tensor_core": 0},
                  "bf16": {"cuda_core": 2, "tensor_core": 35}}
+# fused ResBlock launches per x4 forward under --wino_trunk, by path
+# (ops/wino_resblock.py path_for): f32 on the CUDA cores, bf16 on the
+# tensor cores; the 5 convs around them go through conv3x3
+WINO_PATH_LAUNCHES = {"f32": {"cuda_core": 16, "tensor_core": 0},
+                      "bf16": {"cuda_core": 0, "tensor_core": 16}}
 # the whole f32 forward through the wino kernels against the forward through
 # the conv3x3 kernel: 16 ResBlocks whose Winograd and direct sums differ by
 # errors like WINO_F32_ATOL's; the same relative bar as FWD_RTOL
@@ -306,16 +320,32 @@ def wino_bound_ms(n, h, w, c, m, dtype_name):
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def _wino_err(torch, got, want, m, dname):
+    """(max |d|, bar, max |y|) of a fused ResBlock output against its plain
+    version; raises on shape or dtype."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError("wino F(%d,3): kernel gave %s %s, plain %s %s"
+                             % (m, tuple(got.shape), got.dtype, tuple(want.shape), want.dtype))
+    err = float((got.float() - want.float()).abs().max())
+    scale = float(want.float().abs().max())
+    bar = WINO_F32_ATOL[m] if dname == "f32" else WINO_BF16_RTOL * scale
+    if not bool(torch.isfinite(got).all()):
+        err = float("inf")
+    return err, bar, scale
+
+
 def wino_phase(torch):
     """Phase 3b. Holds both fused Winograd ResBlock kernels against their
     plain version at EDSR-baseline's ResBlock (C = 64) for the LR batch
     and the ragged frame, f32 and bf16, res_weight 1.0 (and 0.1 on the
-    ragged frame). Returns {m: (per-forward sums at the LR batch in f32,
-    worst f32 error)}."""
+    ragged frame), and the CUDA-core bf16 entry beside the tensor-core one.
+    Returns {m: ({dtype: per-forward sums at the LR batch}, {dtype: worst
+    error})}."""
     import torch.nn.functional as F
 
+    from larvanet_tpu_torch.ops import wino_resblock as wr
     from larvanet_tpu_torch.ops.wino_resblock import (
-        h_transform_kernel, wino_resblock_transformed,
+        entry_basis, h_transform_kernel, path_for, wino_resblock_transformed,
         wino_resblock_transformed_reference)
 
     c = 64
@@ -323,8 +353,10 @@ def wino_phase(torch):
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     out = {}
     for m in (2, 4):
-        sums = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
-        worst_f32 = 0.0
+        sums = {d: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+                for d in dtypes}
+        sums["bf16"]["cuda_core_ms"] = 0.0
+        worst = {d: 0.0 for d in dtypes}
         for geometry in (LR_BATCH, RAGGED):
             n, h, w = geometry
             init = 1.0 / 24  # the layers' init bound, 1/sqrt(9 C)
@@ -335,35 +367,48 @@ def wino_phase(torch):
                         for _ in range(2))
             for dname, dtype in dtypes.items():
                 x = x32.to(dtype)
+                path = path_for(dtype)
                 u_a = h_transform_kernel(k_a, m).to(dtype)
                 u_b = h_transform_kernel(k_b, m).to(dtype)
+                # the basis as the forward caches it, in the entry's layout
+                e_a, e_b = entry_basis(u_a, path), entry_basis(u_b, path)
+                # bf16: the CUDA-core entry on the same inputs, the earlier kernel
+                cc = wr._entry(m, dtype, "cuda_core") if path == "tensor_core" else None
+                stream = torch.cuda.current_stream().cuda_stream
                 rws = (1.0, 0.1) if geometry == RAGGED else (1.0,)
                 for rw in rws:
-                    got = wino_resblock_transformed(x, u_a, b_a, u_b, b_b, rw, m)
+                    before = dict(wr.LAUNCHES_BY_PATH)
+                    got = wino_resblock_transformed(x, e_a, b_a, e_b, b_b, rw, m,
+                                                    entry_layout=True)
                     torch.cuda.synchronize()  # a fault during the run shows here
+                    took = {p: wr.LAUNCHES_BY_PATH[p] - before[p] for p in before}
+                    if took != {p: int(p == path) for p in before}:
+                        raise AssertionError("wino F(%d,3) %s: launches by path %s, expected "
+                                             "one on %s" % (m, dname, took, path))
                     want = wino_resblock_transformed_reference(x, u_a, b_a, u_b, b_b, rw, m)
-                    if got.shape != want.shape or got.dtype != want.dtype:
-                        raise AssertionError("wino F(%d,3): kernel gave %s %s, plain %s %s"
-                                             % (m, tuple(got.shape), got.dtype,
-                                                tuple(want.shape), want.dtype))
-                    diff = (got.float() - want.float()).abs()
-                    err = float(diff.max())
-                    scale = float(want.float().abs().max())
-                    if dname == "f32":
-                        bar = WINO_F32_ATOL[m]
-                        worst_f32 = max(worst_f32, err)
-                    else:
-                        bar = WINO_BF16_RTOL * scale
-                    ok = err <= bar
-                    print("wino F(%d,3) %-4s x=%s rw=%g: max|d| %.3g vs plain version "
-                          "(bar %.3g; max|y| %.3g; %d of %d values differ)"
-                          % (m, dname, geometry, rw, err, bar, scale,
-                             int((diff > 0).sum()), diff.numel()), flush=True)
-                    if not ok or not torch.isfinite(got).all():
-                        raise AssertionError("wino F(%d,3) %s %s rw=%g: kernel disagrees "
+                    err, bar, scale = _wino_err(torch, got, want, m, dname)
+                    worst[dname] = max(worst[dname], err)
+                    print("wino F(%d,3) %-4s x=%s rw=%g: %s kernel max|d| %.3g vs plain "
+                          "version (bar %.3g; max|y| %.3g; %d of %d values differ)"
+                          % (m, dname, geometry, rw, path, err, bar, scale,
+                             int((got.float() != want.float()).sum()), got.numel()),
+                          flush=True)
+                    if err > bar:
+                        raise AssertionError("wino F(%d,3) %s %s rw=%g: %s kernel disagrees "
                                              "with its plain version, max |d| = %g"
-                                             % (m, dname, geometry, rw, err))
-                    del got, want, diff
+                                             % (m, dname, geometry, rw, path, err))
+                    if cc is not None:
+                        got_cc = wr._run(cc, x, u_a, b_a, u_b, b_b, rw, m, stream)
+                        torch.cuda.synchronize()
+                        err_cc, _, _ = _wino_err(torch, got_cc, want, m, dname)
+                        print("wino F(%d,3) %-4s x=%s rw=%g: cuda_core kernel max|d| %.3g"
+                              % (m, dname, geometry, rw, err_cc), flush=True)
+                        if err_cc > bar:
+                            raise AssertionError("wino F(%d,3) %s: cuda_core kernel disagrees "
+                                                 "with its plain version, max |d| = %g"
+                                                 % (m, dname, err_cc))
+                        del got_cc
+                    del got, want
                 x_nchw = x.permute(0, 3, 1, 2)  # channels_last view of NHWC
                 w_a = k_a.to(dtype).permute(3, 2, 0, 1).contiguous()
                 w_b = k_b.to(dtype).permute(3, 2, 0, 1).contiguous()
@@ -373,27 +418,45 @@ def wino_phase(torch):
                     t = F.relu(F.conv2d(x_nchw, w_a, lb_a, padding=1))
                     return x_nchw + F.conv2d(t, w_b, lb_b, padding=1)
 
-                ms = time_ms(torch, lambda: wino_resblock_transformed(x, u_a, b_a, u_b, b_b,
-                                                                      1.0, m))
+                ms = time_ms(torch, lambda: wino_resblock_transformed(
+                    x, e_a, b_a, e_b, b_b, 1.0, m, entry_layout=True))
                 plain = time_ms(torch, lambda: wino_resblock_transformed_reference(
                     x, u_a, b_a, u_b, b_b, 1.0, m))
                 lib = time_ms(torch, library)
                 bound, by = wino_bound_ms(n, h, w, c, m, dname)
                 direct, direct_by = wino_bound_ms(n, h, w, c, 0, dname)
-                print("wino F(%d,3) %-4s x=%s C=%d: kernel %.4f ms, plain %.4f ms, "
-                      "cuDNN ResBlock %.4f ms, bound %.4f ms (%s), direct ResBlock "
-                      "bound %.4f ms (%s)" % (m, dname, geometry, c, ms, plain, lib, bound,
-                                              by, direct, direct_by), flush=True)
-                if geometry == LR_BATCH and dname == "f32":
-                    sums["ms"] += 16 * ms
-                    sums["plain_ms"] += 16 * plain
-                    sums["library_ms"] += 16 * lib
-                    sums["bound_ms"] += 16 * bound
-                    sums["bound_by"] = by
+                cc_ms = ms
+                if cc is not None:
+                    cc_ms = time_ms(torch, lambda: wr._run(cc, x, u_a, b_a, u_b, b_b, 1.0, m,
+                                                           stream))
+                print("wino F(%d,3) %-4s x=%s C=%d: %s kernel %.4f ms%s, plain %.4f ms, "
+                      "cuDNN ResBlock %.4f ms, bound %.4f ms (%s), direct ResBlock bound "
+                      "%.4f ms (%s)" % (
+                          m, dname, geometry, c, path, ms,
+                          " (cuda_core kernel %.4f ms, %.2fx)" % (cc_ms, cc_ms / ms)
+                          if cc is not None else "",
+                          plain, lib, bound, by, direct, direct_by), flush=True)
+                if geometry == LR_BATCH:
+                    sd = sums[dname]
+                    sd["ms"] += 16 * ms
+                    sd["plain_ms"] += 16 * plain
+                    sd["library_ms"] += 16 * lib
+                    sd["bound_ms"] += 16 * bound
+                    sd["bound_by"] = by
+                    if dname == "bf16":
+                        sd["cuda_core_ms"] += 16 * cc_ms
                 del x
             del x32, k_a, k_b, b_a, b_b
             torch.cuda.empty_cache()
-        out[m] = (sums, worst_f32)
+        for dname in dtypes:
+            print("wino F(%d,3) per x4 forward (16 ResBlocks) at %s, %s: kernel %.4f ms, "
+                  "plain %.4f ms, cuDNN ResBlocks %.4f ms, bound %.4f ms (%s)%s" % (
+                      m, LR_BATCH, dname, sums[dname]["ms"], sums[dname]["plain_ms"],
+                      sums[dname]["library_ms"], sums[dname]["bound_ms"],
+                      sums[dname]["bound_by"],
+                      ", cuda_core kernel %.4f ms" % sums[dname]["cuda_core_ms"]
+                      if dname == "bf16" else ""), flush=True)
+        out[m] = (sums, worst)
     return out
 
 
@@ -585,31 +648,73 @@ def serve_phase(torch, device="cuda", dtype_name="f32"):
     return launches, by_path, service.model
 
 
-def forward_phase(torch, model):
+def _add(total, part):
+    for k, v in part.items():
+        total[k] = total.get(k, 0) + v
+
+
+def forward_phase(torch, model, device="cuda"):
     """Phase 5. The whole x4 forward (`fwd_runtime`) on the LR batch of
     phase 3, in f32 and bf16, through the conv3x3 kernel and under each
     --wino_trunk route: the denominator of the kernels' share of a
-    forward."""
+    forward. Under --wino_trunk, one forward is counted (5 conv3x3 and 16
+    fused launches on the dtype's path) and, in bf16, held against the
+    same route with the plain fused ResBlock. Returns {m: fused launches
+    by path in the counted forwards}."""
+    from larvanet_tpu_torch.ops import conv3x3
+    from larvanet_tpu_torch.ops import wino_resblock as wr
     from larvanet_tpu_torch.ops.wino_resblock import make_wino_edsr_forward
 
     n, h, w = LR_BATCH
-    gen = torch.Generator(device="cuda").manual_seed(SEED)
-    x = 255.0 * torch.rand((n, h, w, 3), generator=gen, device="cuda")
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    x = 255.0 * torch.rand((n, h, w, 3), generator=gen, device=device)
+    launches = {2: {}, 4: {}}
     for name in ("f32", "bf16"):
         model.set_serving_dtype(name)
         for m in (0, 2, 4):
             model.set_route(make_wino_edsr_forward(model, m) if m else None)
+            if m:
+                conv3x3.reset_launches()
+                wr.reset_launches()
+                got = model.fwd_runtime(x)
+                if device == "cuda":
+                    torch.cuda.synchronize()
+                conv, by_path = conv3x3.LAUNCHES, dict(wr.LAUNCHES_BY_PATH)
+                print("forward %s --wino_trunk %d: %d conv3x3 launches, fused launches by "
+                      "path %s" % (name, m, conv, by_path), flush=True)
+                if conv != 5 or by_path != WINO_PATH_LAUNCHES[name]:
+                    raise AssertionError("forward %s --wino_trunk %d: %d conv3x3 and %s fused "
+                                         "launches, not 5 and %s" % (
+                                             name, m, conv, by_path, WINO_PATH_LAUNCHES[name]))
+                _add(launches[m], by_path)
+                if name == "bf16":
+                    with mock.patch.object(wr, "wino_resblock_transformed",
+                                           wr.wino_resblock_transformed_reference):
+                        ref = model.fwd_runtime(x)
+                    err = float((got - ref).abs().max())
+                    bar = BF16_FWD_RTOL * float(ref.abs().max())
+                    print("forward bf16 --wino_trunk %d: max |d| %.3g against the route with "
+                          "the plain fused ResBlock (bar %.3g)" % (m, err, bar), flush=True)
+                    if err > bar or not bool(torch.isfinite(got).all()):
+                        raise AssertionError("forward bf16 --wino_trunk %d disagrees with the "
+                                             "plain fused ResBlock's" % m)
+                    del ref
+                del got
+            if device != "cuda":
+                continue
             ms = time_ms(torch, lambda: model.fwd_runtime(x))
             print("forward: EDSR-baseline x4, %d x %dx%d LR, %s, --wino_trunk %d: %.4f ms "
                   "per forward, %.3f LR-MP/s" % (n, h, w, name, m, ms, n * h * w / 1e3 / ms),
                   flush=True)
     model.set_route(None)
     model.set_serving_dtype("f32")
+    return launches
 
 
 def validate_phase(torch, device="cuda"):
     """Phase 6. The port's validate CLI on a small DIV2K-layout set, with
-    --wino_trunk 0, 2 and 4. Returns {m: wino launches in the m run}."""
+    --wino_trunk 0, 2 and 4. Returns {m: fused launches by path in the m
+    run}."""
     import numpy as np
 
     from larvanet_tpu_torch.cli import validate
@@ -649,6 +754,7 @@ def validate_phase(torch, device="cuda"):
                            "--report_json", report, "--wino_trunk", str(m)])
             seconds = time.perf_counter() - t0
             conv, wino = conv3x3.LAUNCHES, dict(wino_resblock.LAUNCHES)
+            wino_by_path = dict(wino_resblock.LAUNCHES_BY_PATH)
             with open(report) as f:
                 psnrs[m] = json.load(f)["scales"]["4"]["per_image"]
             want_conv = 37 if m == 0 else 5
@@ -664,7 +770,7 @@ def validate_phase(torch, device="cuda"):
                                      "launches for %d forwards, not %d and %s each"
                                      % (m, conv, wino, n_images, want_conv, want_wino))
             if m:
-                wino_launches[m] = wino[m]
+                wino_launches[m] = wino_by_path
                 deltas = [abs(psnrs[m][k] - psnrs[0][k]) for k in psnrs[m]]
                 print("validate --wino_trunk %d: max |dPSNR| %.3g dB against "
                       "--wino_trunk 0 (bar %g)" % (m, max(deltas), VALIDATE_PSNR_TOL))
@@ -698,20 +804,59 @@ def validate_phase(torch, device="cuda"):
 
 def runtime_phase(torch, device="cuda"):
     """Phase 7. The port's runtime CLI at the DIV2K x4 LR size, every
-    --wino_trunk in f32 and bf16."""
+    --wino_trunk in f32 and bf16, with each run's launches by path. Returns
+    {m: fused launches by path under --wino_trunk m}."""
     from larvanet_tpu_torch.cli import runtime
+    from larvanet_tpu_torch.ops import conv3x3
+    from larvanet_tpu_torch.ops import wino_resblock as wr
 
     n, h, w = RAGGED
+    launches = {2: {}, 4: {}}
     for dtype_name in ("f32", "bf16"):
         for m in (0, 2, 4):
+            conv3x3.reset_launches()
+            wr.reset_launches()
             mean_s, mps = runtime.main(["--model", "edsr", "--scales", "4", "--device", device,
                                         "--input_height", str(h), "--input_width", str(w),
                                         "--num_warmup", "2", "--num_iters", str(TIMED_REPS),
                                         "--wino_trunk", str(m),
                                         "--serving_dtype", dtype_name])
+            conv, wino = dict(conv3x3.LAUNCHES_BY_PATH), dict(wr.LAUNCHES_BY_PATH)
             print("runtime: EDSR-baseline x4, %dx%d LR, %s, --wino_trunk %d: %.4f ms per "
-                  "frame, %.3f LR-MP/s" % (h, w, dtype_name, m, 1e3 * mean_s, mps),
-                  flush=True)
+                  "frame, %.3f LR-MP/s; launches conv3x3 %s, fused %s" % (
+                      h, w, dtype_name, m, 1e3 * mean_s, mps, conv, wino), flush=True)
+            if m:
+                forwards = sum(wino.values()) // 16
+                want = {p: k * forwards for p, k in WINO_PATH_LAUNCHES[dtype_name].items()}
+                if forwards == 0 or wino != want:
+                    raise AssertionError("runtime %s --wino_trunk %d: fused launches %s, not "
+                                         "16 a forward on its path" % (dtype_name, m, wino))
+                _add(launches[m], wino)
+    return launches
+
+
+def print_sass_mix(build):
+    """The instruction mix of each tensor-core kernel in the built
+    libraries (cuobjdump -sass): ldmatrix, tensor-core products, generic
+    loads, local-memory spills."""
+    import re
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        print("sass: cuobjdump not found")
+        return
+    kinds = {"LDSM": r"\bLDSM\b", "HMMA": r"\bHMMA\b", "LD.E": r"\bLD\.E\b",
+             "LDL/STL": r"\b(?:LDL|STL)\b"}
+    for source in build.SOURCES:
+        sass = subprocess.run([tool, "-sass", str(build.library_path(source))],
+                              capture_output=True, text=True, timeout=120).stdout
+        for fn in re.split(r"\n\s*Function : ", sass)[1:]:
+            name = fn.split("\n", 1)[0].strip()
+            if "tc_kernel" not in name:
+                continue
+            mix = {k: len(re.findall(v, fn)) for k, v in kinds.items()}
+            print("sass %s %s: %s" % (source, name, mix))
 
 
 def main() -> int:
@@ -735,6 +880,7 @@ def main() -> int:
                                    or "cached"))
     for source in build.SOURCES:
         print("build log %s:\n%s" % (source, build.build_log(source).strip()))
+    print_sass_mix(build)
 
     sums, worst = kernel_phase(torch)
     wino = wino_phase(torch)
@@ -746,10 +892,10 @@ def main() -> int:
             by_path[path] = by_path.get(path, 0) + k
         if dtype_name == "bf16":
             del model
-    forward_phase(torch, model)
+    fwd_launches = forward_phase(torch, model)
     del model
-    wino_launches = validate_phase(torch)
-    runtime_phase(torch)
+    validate_launches = validate_phase(torch)
+    runtime_launches = runtime_phase(torch)
 
     kernels = [{
         "name": "conv3x3_bias_act",
@@ -768,18 +914,23 @@ def main() -> int:
     }]
     for m, line in ((2, 205), (4, 336)):
         wsums, werr = wino[m]
+        by_path = {}
+        for part in (fwd_launches[m], validate_launches[m], runtime_launches[m]):
+            _add(by_path, part)
         kernels.append({
             "name": "wino_resblock_f%d" % m,
             "route": "cuda",
             "source": "larvanet_tpu_torch/csrc/wino_resblock.cu",
             "replaces": "larvanet_tpu/ops/wino_pallas.py:%d" % line,
-            "launches": wino_launches[m],
-            "max_abs_err": werr,
-            "ms": wsums["ms"],
-            "plain_ms": wsums["plain_ms"],
-            "bound_ms": wsums["bound_ms"],
-            "bound_by": wsums["bound_by"],
-            "library_ms": wsums["library_ms"],
+            "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
+            "max_abs_err": werr["f32"],
+            "ms": wsums["f32"]["ms"],
+            "plain_ms": wsums["f32"]["plain_ms"],
+            "bound_ms": wsums["f32"]["bound_ms"],
+            "bound_by": wsums["f32"]["bound_by"],
+            "library_ms": wsums["f32"]["library_ms"],
+            "bf16": dict(wsums["bf16"], max_abs_err=werr["bf16"]),
         })
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())

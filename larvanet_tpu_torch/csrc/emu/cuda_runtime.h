@@ -8,7 +8,10 @@
 // arrays become function-local statics, which the sequential blocks take
 // in turn. A stand-in that finds a fault the card would report (a
 // misaligned address) records it with `emu_fault`, and the next
-// `cudaGetLastError` returns it.
+// `cudaGetLastError` returns it. The warp-wide PTX instructions the kernels
+// issue in inline assembly (ldmatrix, mma.sync) have stand-ins here that
+// exchange the lanes' operands through a per-warp buffer between two
+// `__syncwarp`s, as the instruction does across the warp's registers.
 #pragma once
 
 #include <atomic>
@@ -36,10 +39,15 @@ struct dim3 {
 struct alignas(16) float4 {
   float x, y, z, w;
 };
+struct alignas(8) float2 {
+  float x, y;
+};
+inline float2 make_float2(float x, float y) { return {x, y}; }
 struct alignas(16) uint4 {
   unsigned x, y, z, w;
 };
 inline uint4 make_uint4(unsigned x, unsigned y, unsigned z, unsigned w) { return {x, y, z, w}; }
+inline float4 make_float4(float x, float y, float z, float w) { return {x, y, z, w}; }
 
 inline thread_local dim3 threadIdx, blockIdx, gridDim;
 inline thread_local std::barrier<>* emu_block_barrier = nullptr;
@@ -116,4 +124,67 @@ void emu_launch(K kernel, dim3 grid, int threads, int smem_bytes, cudaStream_t, 
           });
         for (auto& th : block) th.join();
       }
+}
+
+// ---- warp-wide PTX instructions ----
+
+struct EmuWarpRegs {
+  const void* rows[32];
+  unsigned a[32][4];
+  unsigned b[32][2];
+};
+inline EmuWarpRegs emu_warp_regs[32];  // one per warp of the running block
+
+inline float emu_bf16_bits(unsigned short u) {
+  const uint32_t w = (uint32_t)u << 16;
+  float f;
+  static_assert(sizeof f == sizeof w);
+  __builtin_memcpy(&f, &w, 4);
+  return f;
+}
+
+// ldmatrix.sync.aligned.m8n8.x4.shared.b16: lane l names row l % 8 of
+// matrix l / 8 (16 bytes, 16-byte aligned); lane l receives in r[i] the
+// elements (l / 4, 2 (l % 4)) and (l / 4, 2 (l % 4) + 1) of matrix i
+inline void emu_ldmatrix_x4(unsigned (&r)[4], const void* row) {
+  if (!emu_aligned(row, 16)) emu_fault(cudaErrorMisalignedAddress);
+  const int lane = (int)(threadIdx.x % 32);
+  EmuWarpRegs& w = emu_warp_regs[threadIdx.x / 32];
+  w.rows[lane] = row;
+  __syncwarp();
+  for (int i = 0; i < 4; ++i) {
+    const unsigned short* src =
+        static_cast<const unsigned short*>(w.rows[8 * i + lane / 4]) + 2 * (lane % 4);
+    r[i] = (unsigned)src[0] | ((unsigned)src[1] << 16);
+  }
+  __syncwarp();
+}
+
+// mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32, d += a x b, with the
+// PTX ISA's fragment layouts (g = lane / 4, t = lane % 4): a[i] holds A(g +
+// 8 (i % 2), 8 (i / 2) + 2t, + 1); b_i holds B(8i + 2t, + 1; g); d[2e + i] is
+// D(g + 8e, 2t + i)
+inline void emu_mma_m16n8k16(float* d, const unsigned (&a)[4], unsigned b0, unsigned b1) {
+  const int lane = (int)(threadIdx.x % 32);
+  EmuWarpRegs& w = emu_warp_regs[threadIdx.x / 32];
+  for (int i = 0; i < 4; ++i) w.a[lane][i] = a[i];
+  w.b[lane][0] = b0;
+  w.b[lane][1] = b1;
+  __syncwarp();
+  auto half = [](unsigned v, int k) {
+    return emu_bf16_bits((unsigned short)(v >> (16 * (k % 2))));
+  };
+  const int g = lane / 4, t = lane % 4;
+  for (int e = 0; e < 2; ++e)
+    for (int i = 0; i < 2; ++i) {
+      const int row = g + 8 * e, col = 2 * t + i;
+      float sum = 0.f;
+      for (int k = 0; k < 16; ++k) {
+        const float av = half(w.a[(row % 8) * 4 + (k % 8) / 2][row / 8 + 2 * (k / 8)], k);
+        const float bv = half(w.b[col * 4 + (k % 8) / 2][k / 8], k);
+        sum += av * bv;
+      }
+      d[2 * e + i] += sum;
+    }
+  __syncwarp();
 }

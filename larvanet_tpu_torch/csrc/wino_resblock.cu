@@ -9,43 +9,82 @@
 //
 // with each SAME 3x3 conv in 1-D Winograd F(m, 3) along H (P = m + 2 basis
 // taps for m output rows) and the 3 direct taps along W. The intermediate t
-// never leaves shared memory. Numerics follow the TPU kernel: transforms in
-// f32, the point-product operands rounded to the activation dtype (T) and
-// summed in f32, t kept in f32 and zero outside the image, bias / ReLU /
-// rw / residual in f32 and one cast to T. The weights come pre-transformed,
-// U[p, kw] = sum_kh G[p, kh] k[kh, kw], shaped (P, 3, C, C) in T.
+// never leaves shared memory. Numerics follow the TPU kernel
+// (wino_pallas.py:143-144, 185-189): the input transform B^T d in f32 and
+// rounded once to the activation dtype (T), point products of T operands
+// summed in f32, A^T, bias, ReLU, rw and the residual in f32, t kept in f32
+// and zero outside the image, one cast of the output to T. The weights come
+// pre-transformed, U[p, kw] = sum_kh G[p, kh] k[kh, kw], (P, 3, C, C) in T.
+// Per output pixel the Winograd form needs 2 x (P*3/m) C^2 multiply-adds:
+// 12 C^2 for F(2,3) and 9 C^2 for F(4,3), against 18 C^2 for the direct
+// ResBlock. C = 64 (EDSR-baseline). Two paths, chosen by dtype in
+// ops/wino_resblock.py `path_for`:
 //
-// Design: a block owns TH = GB*m output rows x TW output columns of one
-// image and all C = 64 channels. Stage A computes t on the window of
-// (TH + 2) x (TW + 2) pixels that stage B needs, in GB + 1 groups of m
-// rows starting one row above the tile, and stores it in shared memory
-// (zero where the pixel lies outside the image: conv_b's SAME padding must
-// see zeros there, not ReLU(b_a)). Stage B reads t from shared memory and
-// writes the tile. Each stage is a set of P GEMMs, M[p] = V_p (pixel groups
-// x 3C) * U_p (3C x C), run like the conv3x3 kernel: 64 pixel groups x 64
-// channels per round, 4x4 per thread, K in BK slices. The input transform
-// V_p = B^T d is applied while a K slice is gathered into shared memory
-// (all P basis taps from one read of the m + 2 rows), the thread keeps all
-// P accumulators, and the epilogue applies A^T, so the m + 2 input rows are
-// read once per slice and not once per basis tap. Stage A reads x through
-// L1 / L2; the residual is read again in stage B's epilogue.
+// Tensor-core path, `wino_resblock_f{2,4}_bf16_tc` (bf16). Bound on an H100
+// SXM (989 TFLOP/s bf16 dense, 3.35 TB/s HBM) at 4 x 192x192 LR: F(2,3)
+// 14.5 GFLOP, 14.7 us, bound by operations (x and y, 37.7 MB, take 11.3
+// us); F(4,3) 10.9 GFLOP, 11.0 us, under its bytes' 11.4 us. Each block owns a
+// tile of TH x 30 outputs and walks tiles persistently, one block an SM.
+// Per tile and stage (A: x -> t, B: t -> y) it transforms its input once
+// into a window V = B^T d in shared memory, bf16, [p][group row][column]
+// [channel] with a pixel stride of C + 8 values, then runs P steps of point
+// products on mma.sync.m16n8k16 (bf16 in, f32 accumulate): M = 16
+// consecutive columns of one group row, N = the output channels, K = 3 kw
+// x C. The kw tap is a shift of the A operand's rows by kw pixels, so each
+// transformed value is computed once and read three times. Operands load
+// with ldmatrix; the C + 8 stride puts the 8 rows of every ldmatrix phase
+// in distinct banks at every kw shift (WMMA's loads need 32-byte aligned
+// tiles, which forces a 16-value multiple and a 2-way conflict on every A
+// load). Each U_p slab (3 x C x C, transposed to [kw][co][ci] by the
+// wrapper's weight cache so that B loads untransposed, rows of C + 8)
+// comes by cp.async into one of two buffers while the products of the
+// previous p run. A warp keeps all P accumulators of its unit (the two M
+// tiles of one group row x 16 or 32 channels: 2 A and NQ B loads per 2 NQ
+// products) in registers; the epilogue applies A^T
+// element by element across them (every accumulator has the same register
+// layout) and writes from the registers: stage A ReLU(. + b_a) as f32 into
+// t (a border tile then zeroes t outside the image), stage B x + rw (. +
+// b_b), rounded once, into y, masked at the ragged edges. During stage B
+// the next tile's x window (cp.async, zero-filled outside the image) lands
+// in t's bytes, this tile's residual x in V's unused tail, and the last
+// step copies the next tile's first slab.
+//   F(2,3): 6 x 30 outputs, 8 warps, units of 2 M tiles x 32 channels (8
+//     in stage A, 6 in B), 203,776 bytes of dynamic shared memory (t 69,632;
+//     V 78,336; slabs 55,296; biases 512), 255 registers.
+//   F(4,3): 8 x 30 outputs, 12 warps, units of 2 M tiles x 16 channels
+//     (12 in A, 8 in B), 231,040 bytes (t 87,040; V 88,192; slabs 55,296;
+//     biases 512), 168 registers. At 4 x 30 (8 warps) it ran 1.4x slower: twice the tiles
+//     for the same fixed costs per tile, and stage A computed 8 t rows
+//     for 6.
+// What holds it back (it runs at ~8x / ~12x its bound): mma.sync at a
+// fraction of wgmma's rate, with every warp reloading its B operands from
+// shared memory (2 A + NQ B ldmatrix per 2 NQ products), so the products run
+// near the shared-memory bandwidth; one block an SM runs its transforms,
+// products and epilogues one after another, with no warp specialisation to
+// overlap them; stage B leaves 2 (F(2,3)) or 4 (F(4,3)) warps idle; the
+// 30-column tile wastes 9% of its columns at W = 192.
 //
-// Bound on an H100 SXM (67 TFLOP/s f32 CUDA core, 989 TFLOP/s bf16 tensor,
-// 3.35 TB/s HBM). Per output pixel the Winograd form needs 2 x (P*3/m) C^2
-// multiply-adds: 12 C^2 for F(2,3) and 9 C^2 for F(4,3), against 18 C^2 for
-// the direct ResBlock. At 4 x 192x192 LR pixels and C = 64 that is 14.5
-// GFLOP (F(2,3)) in f32, 0.22 ms at the f32 peak, against 75 MB of x + out
-// (22 us at the HBM rate): bound by operations. The tiling recomputes t
-// on the window's 2-pixel rim and fills rounds of 64 groups partly, so the
-// kernel does 16 C^2 (F(2,3)) and 14.4 C^2 (F(4,3)) per pixel.
-//
-// What this simple design leaves on the table: CUDA cores only (no
-// mma.sync / wgmma), so bf16 runs at the f32 rate; synchronous staging
-// with two barriers per K slice; U streamed from L2 for every slice of
-// every round; x gathered m + 2 times per group from L1 / L2.
+// CUDA-core path, `wino_resblock_f{2,4}_{f32,bf16}` (f32; the bf16 entries
+// stay as the earlier kernel of the bf16 function). A block owns TH = GB*m
+// output rows x TW output columns and all C channels. Stage A computes t
+// on the window of (TH + 2) x (TW + 2) pixels that stage B needs, in GB + 1
+// groups of m rows starting one row above the tile, and stores it in
+// shared memory (zero outside the image). Each stage is a set of P GEMMs,
+// M[p] = V_p (pixel groups x 3C) * U_p (3C x C): 64 pixel groups x 64
+// channels per round, 4x4 per thread, K in BK slices; V_p = B^T d is
+// applied while a K slice is gathered into shared memory, the thread keeps
+// all P accumulators, and the epilogue applies A^T. In f32 it is bound by
+// operations (F(2,3): 14.5 GFLOP with the 12 C^2 form, 0.22 ms at 67
+// TFLOP/s). What it leaves on the table: CUDA cores only; two barriers per
+// K slice; U streamed from L2 for every slice of every round; each input
+// gathered and transformed once per kw.
 
 #include <cuda_bf16.h>
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -307,6 +346,550 @@ int launch(const void* x, const void* ua, const void* ba, const void* ub, const 
 constexpr int kF2Groups = 6, kF2Width = 16, kF2Slice = 16;
 constexpr int kF4Groups = 2, kF4Width = 30, kF4Slice = 8;
 
+// ---- tensor-core path (bf16) ----
+
+constexpr int kVLd = kC + 8;     // V's pixel stride in bf16: see kULd
+// a slab row (the C inputs of one kw and output channel); C + 8 puts the 8
+// rows of an ldmatrix phase in 8 distinct bank groups
+constexpr int kULd = kC + 8;
+constexpr int kTLd = kC + 4;     // t's pixel stride in f32
+constexpr int kSlab = 3 * kC * kULd;  // one U_p slab, bf16 values
+constexpr int kNFrag = kC / 16;  // 16-channel fragments of C
+
+__host__ __device__ constexpr int cmax(int a, int b) { return a > b ? a : b; }
+
+// Operands of mma.sync.m16n8k16 (bf16 x bf16 + f32), in the PTX ISA's
+// register layouts; g = lane / 4, t = lane % 4. A, 16 pixels x 16 inputs:
+// r[i] holds (pixel g + 8 (i % 2), inputs 8 (i / 2) + 2t, + 1). B, 16 inputs x
+// 16 outputs: r[2h + i] holds (inputs 8i + 2t, + 1; output 8h + g). An
+// accumulator, 16 pixels x 16 outputs: c[4h + 2e + i] is (pixel g + 8e,
+// output 8h + 2t + i). All accumulators share that mapping, so A^T and the
+// epilogue work element by element on the registers.
+struct FragA {
+  unsigned r[4];
+};
+struct FragB {
+  unsigned r[4];
+};
+struct Acc {
+  float c[8];
+};
+
+// ldmatrix.x4 from shared memory: lane l names row l % 8 of 8x8 matrix l / 8
+// and receives, from each matrix i, elements (g, 2t) and (g, 2t + 1) in r[i]
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const __nv_bfloat16* row) {
+#ifdef __CUDA_ARCH__
+  const unsigned addr = (unsigned)__cvta_generic_to_shared(row);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+#elif !defined(__CUDACC__)
+  emu_ldmatrix_x4(r, row);  // the CPU stand-in (ops/emulate.py)
+#endif
+}
+
+// A operand: 16 pixels from p (stride ld) x inputs 0..15; matrix i covers
+// pixels 8 (i % 2).., inputs 8 (i / 2)..
+__device__ __forceinline__ void load_a(FragA& a, const __nv_bfloat16* p, int ld, int lane) {
+  const int i = lane / 8;
+  ldsm_x4(a.r, p + (lane % 8 + 8 * (i % 2)) * ld + 8 * (i / 2));
+}
+
+// B operand from a slab of rows of outputs (stride ld), inputs contiguous:
+// matrix i covers outputs 8 (i / 2).., inputs 8 (i % 2)..
+__device__ __forceinline__ void load_b(FragB& b, const __nv_bfloat16* p, int ld, int lane) {
+  const int i = lane / 8;
+  ldsm_x4(b.r, p + (lane % 8 + 8 * (i / 2)) * ld + 8 * (i % 2));
+}
+
+// acc += a x b, both 8-output halves
+__device__ __forceinline__ void mma(Acc& acc, const FragA& a, const FragB& b) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float* d = acc.c + 4 * h;
+#ifdef __CUDA_ARCH__
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+        "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a.r[0]), "r"(a.r[1]), "r"(a.r[2]), "r"(a.r[3]), "r"(b.r[2 * h]),
+          "r"(b.r[2 * h + 1]));
+#elif !defined(__CUDACC__)
+    emu_mma_m16n8k16(d, a.r, b.r[2 * h], b.r[2 * h + 1]);
+#endif
+  }
+}
+
+// A block's tile and its shared memory. Stage A makes t on TR x TC pixels
+// (GA groups of M rows from one row above the tile, TC = TW + 2 columns from
+// one column left of it) out of an x window of XR x XW pixels; stage B makes
+// the TH x TW outputs. A warp's unit: MT M tiles (16 columns each) of one
+// group row x NQ 16-channel fragments, P accumulators each; NW warps.
+template <int M, int GB, int TW, int MT, int NQ, int NW>
+struct TcTile {
+  static constexpr int kThreads = 32 * NW;
+  static constexpr int P = M + 2;
+  static constexpr int TH = GB * M;
+  static constexpr int GA = GB + 1;
+  static constexpr int TR = TH + 2;
+  static constexpr int W = TW;
+  static constexpr int TC = TW + 2;
+  static constexpr int XR = GA * M + 2;
+  static constexpr int XW = TC + 2;
+  static constexpr int VWA = TC + 2;  // V columns: the last M tile reads up to col + 15 + 2
+  static constexpr int VWB = TC;
+  static constexpr int NFA = (TC + 15) / 16;  // M tiles of a group row
+  static constexpr int NFB = (TW + 15) / 16;
+  static constexpr int UNITS_A = GA * (NFA / MT) * (kNFrag / NQ);
+  static constexpr int UNITS_B = GB * (NFB / MT) * (kNFrag / NQ);
+  // t in f32; until stage A's epilogue the same bytes hold the x window, and
+  // from stage B's products on the next tile's
+  static constexpr int kTBytes = cmax(TR * TC * kTLd * 4, XR * XW * kC * 2);
+  // V of either stage; in stage B the bytes past its V take the tile's
+  // residual x
+  static constexpr int kVBElems = P * GB * VWB * kVLd;
+  static constexpr int kVBytes =
+      cmax(P * GA * VWA * kVLd * 2, 2 * (kVBElems + TH * TW * kC)) + 127 & ~127;
+  static constexpr int kUBytes = 2 * kSlab * 2;  // two slab buffers
+  static constexpr int kBiasBytes = 2 * kC * 4;
+  static constexpr int kSmemBytes = kTBytes + kVBytes + kUBytes + kBiasBytes;
+  static_assert(TW >= 16 && kNFrag % NQ == 0, "tile geometry");
+  static_assert(NFA % MT == 0 && NFB % MT == 0, "a unit's M tiles lie in one group row");
+  static_assert(UNITS_A <= NW && UNITS_B <= NW, "one unit a warp per stage");
+  static_assert(kTBytes % 128 == 0 && (kVBElems * 2) % 16 == 0, "16-byte aligned rows");
+  static_assert(P % 2 == 0, "stage B's slabs alternate buffers as stage A's do");
+};
+
+__device__ __forceinline__ float bf16_lo(unsigned w) {
+  return __bfloat162float(__ushort_as_bfloat16((unsigned short)(w & 0xffffu)));
+}
+__device__ __forceinline__ float bf16_hi(unsigned w) {
+  return __bfloat162float(__ushort_as_bfloat16((unsigned short)(w >> 16)));
+}
+__device__ __forceinline__ unsigned pack_bf16(float a, float b) {
+  return (unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(a)) |
+         ((unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(b)) << 16);
+}
+
+// the x window of the tile, XR x XW pixels from (h0 - 2, w0 - 2), 16 bytes
+// (8 channels) per copy, zeros outside the image; a zero-filled copy reads
+// nothing but still names a valid address
+template <class Tl>
+__device__ __forceinline__ void copy_x(__nv_bfloat16* xs, const __nv_bfloat16* __restrict__ xn,
+                                       int h0, int w0, int h_img, int w_img) {
+  for (int e = threadIdx.x; e < Tl::XR * Tl::XW * 8; e += Tl::kThreads) {
+    const int q = e % 8;
+    const int pix = e / 8;
+    const int hh = h0 - 2 + pix / Tl::XW;
+    const int ww = w0 - 2 + pix % Tl::XW;
+    const bool inside = hh >= 0 && hh < h_img && ww >= 0 && ww < w_img;
+    const __nv_bfloat16* src = inside ? xn + ((long long)hh * w_img + ww) * kC + 8 * q : xn;
+    __pipeline_memcpy_async(xs + pix * kC + 8 * q, src, 16, inside ? 0 : 16);
+  }
+}
+
+// the tile's own TH x TW pixels of x, for the residual add. A pixel's 16-byte
+// chunk q sits at chunk q ^ (pixel % 8), so that the epilogue's lanes, 8
+// pixels apart, read distinct banks.
+__device__ __forceinline__ int res_at(int pix, int ch) {
+  return pix * kC + ((ch / 8) ^ (pix % 8)) * 8 + ch % 8;
+}
+
+template <class Tl>
+__device__ __forceinline__ void copy_residual(__nv_bfloat16* rs,
+                                              const __nv_bfloat16* __restrict__ xn, int h0,
+                                              int w0, int h_img, int w_img) {
+  for (int e = threadIdx.x; e < Tl::TH * Tl::W * 8; e += Tl::kThreads) {
+    const int q = e % 8;
+    const int pix = e / 8;
+    const int hh = h0 + pix / Tl::W;
+    const int ww = w0 + pix % Tl::W;
+    const bool inside = hh < h_img && ww < w_img;
+    const __nv_bfloat16* src = inside ? xn + ((long long)hh * w_img + ww) * kC + 8 * q : xn;
+    __pipeline_memcpy_async(rs + res_at(pix, 8 * q), src, 16, inside ? 0 : 16);
+  }
+}
+
+// one U_p slab, [kw][co][ci] in the transposed basis, into rows of kULd
+template <int kThreads>
+__device__ __forceinline__ void copy_slab(__nv_bfloat16* slab,
+                                          const __nv_bfloat16* __restrict__ u_p) {
+  for (int e = threadIdx.x; e < 3 * kC * 8; e += kThreads) {
+    const int row = e / 8;
+    const int q = e % 8;
+    __pipeline_memcpy_async(slab + row * kULd + 8 * q, u_p + row * kC + 8 * q, 16);
+  }
+}
+
+// V_p = B^T d for 8 channels of one group row and column: d holds the
+// group's P input rows in f32; writes P x 16 bytes, rounded once to bf16
+template <int M>
+__device__ __forceinline__ void store_v(const float (&d)[M + 2][8], __nv_bfloat16* v,
+                                        int p_stride) {
+  constexpr int P = M + 2;
+  float vv[P][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    float col[P], out[P];
+#pragma unroll
+    for (int j = 0; j < P; ++j) col[j] = d[j][i];
+    Wino<M>::bt(col, out);
+#pragma unroll
+    for (int p = 0; p < P; ++p) vv[p][i] = out[p];
+  }
+#pragma unroll
+  for (int p = 0; p < P; ++p)
+    *reinterpret_cast<uint4*>(v + p * p_stride) =
+        make_uint4(pack_bf16(vv[p][0], vv[p][1]), pack_bf16(vv[p][2], vv[p][3]),
+                   pack_bf16(vv[p][4], vv[p][5]), pack_bf16(vv[p][6], vv[p][7]));
+}
+
+// V of a stage, [P][GR][VW][kVLd], from a source of f32 or bf16 pixels with
+// kPixLd values a pixel and SW pixels a row: item (g, c, 8 channels) reads
+// the group's P rows. kIlp items a thread at a time, all loaded before any
+// is stored (2 within 8 warps' registers; 1 with more warps, which spill
+// at 2).
+template <int M, int GR, int VW, int SW, int kPixLd, int kThreads, typename S>
+__device__ __forceinline__ void transform(const S* src, __nv_bfloat16* vs) {
+  constexpr int kItems = GR * VW * 8;
+  constexpr int kIlp = kThreads > 256 ? 1 : 2;
+  for (int e0 = threadIdx.x; e0 < kItems; e0 += kIlp * kThreads) {
+    float d[kIlp][M + 2][8];
+#pragma unroll
+    for (int k = 0; k < kIlp; ++k) {
+      const int e = e0 + k * kThreads;
+      const int q = e % 8;
+      const int c = (e / 8) % VW;
+      const int g = e / (8 * VW);
+#pragma unroll
+      for (int j = 0; j < M + 2; ++j) {
+        if (e >= kItems) continue;
+        const S* px = src + ((g * M + j) * SW + c) * kPixLd + 8 * q;
+        if constexpr (std::is_same<S, float>::value) {
+          const float4 lo = *reinterpret_cast<const float4*>(px);
+          const float4 hi = *reinterpret_cast<const float4*>(px + 4);
+          d[k][j][0] = lo.x, d[k][j][1] = lo.y, d[k][j][2] = lo.z, d[k][j][3] = lo.w;
+          d[k][j][4] = hi.x, d[k][j][5] = hi.y, d[k][j][6] = hi.z, d[k][j][7] = hi.w;
+        } else {
+          const uint4 raw = *reinterpret_cast<const uint4*>(px);
+          const unsigned w[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            d[k][j][2 * i] = bf16_lo(w[i]);
+            d[k][j][2 * i + 1] = bf16_hi(w[i]);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kIlp; ++k) {
+      const int e = e0 + k * kThreads;
+      if (e >= kItems) continue;
+      const int q = e % 8;
+      const int c = (e / 8) % VW;
+      const int g = e / (8 * VW);
+      store_v<M>(d[k], vs + (g * VW + c) * kVLd + 8 * q, GR * VW * kVLd);
+    }
+  }
+}
+
+// A warp's unit in a stage of GR group rows, NF M tiles a row and COLS
+// output columns: its group row, its MT M tiles' first columns (the last M
+// tile of a row ends at COLS and may overlap the one before) and first
+// columns written (columns the tile before has written are skipped), and
+// its first fragment
+template <int GR, int NF, int COLS, int MT, int NQ>
+struct Unit {
+  int gr, col[MT], first[MT], nq0;
+  bool live;
+  __device__ explicit Unit(int warp) {
+    constexpr int per_group = kNFrag / NQ;
+    const int mg = warp / per_group;
+    live = mg < GR * (NF / MT);
+    gr = mg / (NF / MT);
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+      const int cf = mg % (NF / MT) * MT + i;
+      col[i] = cf == NF - 1 ? COLS - 16 : 16 * cf;
+      first[i] = 16 * cf;
+    }
+    nq0 = (warp % per_group) * NQ;
+  }
+};
+
+// The P point-product steps of a stage: at step p the slab U_p sits in
+// buffer (s0 + p) % 2 while the next slab (U_{p+1}, or `u_next`'s U_0 after
+// the last p) is copied into the other. With kHead, `head` commits one more
+// group of copies at step 0, which may stay in flight until step 2. M_p =
+// sum over kw and the C inputs of V_p (16 columns shifted by kw) x U_p[kw]:
+// an A operand is read at the kw shift straight from V, so each transformed
+// value serves three taps. Accumulator i * NQ + j is M tile i x fragment j.
+// Ends with every copy landed and every warp done.
+template <int P, int MT, int NQ, int VW, bool kHead, int kThreads, class U, class Head>
+__device__ __forceinline__ void point_products(Acc (&acc)[P][MT * NQ], const U& unit,
+                                               int gr_count,
+                                               const __nv_bfloat16* vs, __nv_bfloat16* us,
+                                               int s0, const __nv_bfloat16* __restrict__ u,
+                                               const __nv_bfloat16* __restrict__ u_next,
+                                               int lane, Head head) {
+#pragma unroll
+  for (int p = 0; p < P; ++p)
+#pragma unroll
+    for (int q = 0; q < MT * NQ; ++q)
+#pragma unroll
+      for (int e = 0; e < 8; ++e) acc[p][q].c[e] = 0.f;
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    if (kHead && p == 1) {
+      __pipeline_wait_prior(1);
+    } else {
+      __pipeline_wait_prior(0);
+    }
+    __syncthreads();  // slab p landed for every thread; the other buffer is free
+    copy_slab<kThreads>(us + ((s0 + p + 1) % 2) * kSlab,
+                        p + 1 < P ? u + (p + 1) * 3 * kC * kC : u_next);
+    __pipeline_commit();
+    if (kHead && p == 0) {
+      head();
+      __pipeline_commit();
+    }
+    if (unit.live) {
+      const __nv_bfloat16* v = vs + (p * gr_count + unit.gr) * VW * kVLd;
+      const __nv_bfloat16* slab = us + ((s0 + p) % 2) * kSlab + 16 * unit.nq0 * kULd;
+#pragma unroll
+      for (int kw = 0; kw < 3; ++kw)
+#pragma unroll
+        for (int ks = 0; ks < kC / 16; ++ks) {
+          FragA a[MT];
+#pragma unroll
+          for (int i = 0; i < MT; ++i)
+            load_a(a[i], v + (unit.col[i] + kw) * kVLd + 16 * ks, kVLd, lane);
+#pragma unroll
+          for (int j = 0; j < NQ; ++j) {
+            FragB b;
+            load_b(b, slab + (kw * kC + 16 * j) * kULd + 16 * ks, kULd, lane);
+#pragma unroll
+            for (int i = 0; i < MT; ++i) mma(acc[p][i * NQ + j], a[i], b);
+          }
+        }
+    }
+  }
+  __pipeline_wait_prior(0);
+  __syncthreads();  // every warp's products are done: V may be reused
+}
+
+// A^T across the P accumulators of tile j, element by element: output row
+// r lands in acc[r][j]
+template <int M, int NT>
+__device__ __forceinline__ void apply_at(Acc (&acc)[M + 2][NT], int j) {
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    float mv[M + 2], yv[M];
+#pragma unroll
+    for (int p = 0; p < M + 2; ++p) mv[p] = acc[p][j].c[e];
+    Wino<M>::at(mv, yv);
+#pragma unroll
+    for (int r = 0; r < M; ++r) acc[r][j].c[e] = yv[r];
+  }
+}
+
+struct TcShape {
+  int h_img, w_img, h_tiles, w_tiles, n_tiles;
+};
+
+// the element offset of a tile's image in x and y, and its corner
+template <class Tl>
+__device__ __forceinline__ long long tile_origin(const TcShape& s, int tile, int& h0, int& w0) {
+  const int rest = tile / s.w_tiles;
+  w0 = (tile % s.w_tiles) * Tl::W;
+  h0 = (rest % s.h_tiles) * Tl::TH;
+  return (long long)(rest / s.h_tiles) * s.h_img * s.w_img * kC;
+}
+
+// Persistent: block b walks the tiles b, b + gridDim.x, ... Per tile:
+// stage A (x -> t in shared memory), stage B (t -> y). During stage B's
+// products the next tile's x window (into t's bytes, read by then) and
+// this tile's residual are copied, and its last step copies the next
+// tile's first slab.
+template <int M, int GB, int TW, int MT, int NQ, int NW>
+__global__ void __launch_bounds__(32 * NW)
+    wino_resblock_tc_kernel(const __nv_bfloat16* __restrict__ x,
+                            const __nv_bfloat16* __restrict__ ua,
+                            const float* __restrict__ ba,
+                            const __nv_bfloat16* __restrict__ ub,
+                            const float* __restrict__ bb, __nv_bfloat16* __restrict__ y,
+                            float rw, TcShape s) {
+  using Tl = TcTile<M, GB, TW, MT, NQ, NW>;
+  constexpr int P = Tl::P;
+  constexpr int kThreads = Tl::kThreads;
+  extern __shared__ __align__(128) float4 tc_smem[];
+  char* const base = reinterpret_cast<char*>(tc_smem);
+  float* const ts = reinterpret_cast<float*>(base);                  // [TR][TC][kTLd] t
+  __nv_bfloat16* const xs = reinterpret_cast<__nv_bfloat16*>(base);  // [XR][XW][C] x window
+  __nv_bfloat16* const vs = reinterpret_cast<__nv_bfloat16*>(base + Tl::kTBytes);
+  __nv_bfloat16* const rs = vs + Tl::kVBElems;  // [TH][TW][C] residual, in stage B
+  __nv_bfloat16* const us =
+      reinterpret_cast<__nv_bfloat16*>(base + Tl::kTBytes + Tl::kVBytes);
+  float* const bias = reinterpret_cast<float*>(base + Tl::kTBytes + Tl::kVBytes + Tl::kUBytes);
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;  // an accumulator's pixels g, g + 8 and outputs 2t, 2t + 1
+  const int t2 = 2 * (lane % 4);
+  for (int i = threadIdx.x; i < 2 * kC; i += kThreads) bias[i] = i < kC ? ba[i] : bb[i - kC];
+
+  {
+    int h0, w0;
+    const long long off = tile_origin<Tl>(s, blockIdx.x, h0, w0);
+    copy_x<Tl>(xs, x + off, h0, w0, s.h_img, s.w_img);
+    copy_slab<kThreads>(us, ua);
+    __pipeline_commit();
+  }
+  for (int tile = blockIdx.x; tile < s.n_tiles; tile += gridDim.x) {
+    int h0, w0;
+    const long long off = tile_origin<Tl>(s, tile, h0, w0);
+    const __nv_bfloat16* const xn = x + off;
+    __nv_bfloat16* const yn = y + off;
+
+    __pipeline_wait_prior(0);
+    __syncthreads();  // the x window and U_0 landed; the last tile's buffers are free
+    transform<M, Tl::GA, Tl::VWA, Tl::XW, kC, kThreads>(xs, vs);
+
+    {  // stage A: t = ReLU(conv_a(x) + b_a) on the window, 0 outside the image
+      const Unit<Tl::GA, Tl::NFA, Tl::TC, MT, NQ> unit(warp);
+      Acc acc[P][MT * NQ];
+      point_products<P, MT, NQ, Tl::VWA, false, kThreads>(acc, unit, Tl::GA, vs, us, 0, ua, ub,
+                                                           lane, [] {});
+      if (unit.live) {
+#pragma unroll
+        for (int q = 0; q < MT * NQ; ++q) {
+          apply_at<M, MT * NQ>(acc, q);
+          const int i = q / NQ;
+#pragma unroll
+          for (int r = 0; r < M; ++r) {
+            const int tr = unit.gr * M + r;  // t-local row: global h0 - 1 + tr
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int tc = unit.col[i] + g + 8 * e;
+              if (tr >= Tl::TR || tc < unit.first[i]) continue;
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                const int co = 16 * (unit.nq0 + q % NQ) + 8 * h + t2;
+                const float* c = acc[r][q].c + 4 * h + 2 * e;
+                *reinterpret_cast<float2*>(ts + (tr * Tl::TC + tc) * kTLd + co) =
+                    make_float2(fmaxf(c[0] + bias[co], 0.f), fmaxf(c[1] + bias[co + 1], 0.f));
+              }
+            }
+          }
+        }
+      }
+    }
+    __syncthreads();  // t is whole
+    // t outside the image is 0, not ReLU(b_a): conv_b's SAME padding. Only
+    // a tile whose window crosses the image's edge has such pixels.
+    if (h0 < 1 || w0 < 1 || h0 + Tl::TH >= s.h_img || w0 + TW >= s.w_img) {
+      for (int e = threadIdx.x; e < Tl::TR * Tl::TC * (kC / 4); e += kThreads) {
+        const int pix = e / (kC / 4);
+        const int gh = h0 - 1 + pix / Tl::TC;
+        const int gw = w0 - 1 + pix % Tl::TC;
+        if (gh < 0 || gh >= s.h_img || gw < 0 || gw >= s.w_img)
+          *reinterpret_cast<float4*>(ts + pix * kTLd + 4 * (e % (kC / 4))) =
+              make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+      __syncthreads();
+    }
+    transform<M, GB, Tl::VWB, Tl::TC, kTLd, kThreads>(ts, vs);
+
+    {  // stage B: y = x + rw * (conv_b(t) + b_b)
+      const Unit<GB, Tl::NFB, TW, MT, NQ> unit(warp);
+      Acc acc[P][MT * NQ];
+      const int next = tile + gridDim.x;
+      auto head = [&] {  // the next tile's x window, into t's bytes, and the residual
+        if (next < s.n_tiles) {
+          int h1, w1;
+          const long long off1 = tile_origin<Tl>(s, next, h1, w1);
+          copy_x<Tl>(xs, x + off1, h1, w1, s.h_img, s.w_img);
+        }
+        copy_residual<Tl>(rs, xn, h0, w0, s.h_img, s.w_img);
+      };
+      point_products<P, MT, NQ, Tl::VWB, true, kThreads>(acc, unit, GB, vs, us, P, ub, ua,
+                                                          lane, head);
+      if (unit.live) {
+#pragma unroll
+        for (int q = 0; q < MT * NQ; ++q) {
+          apply_at<M, MT * NQ>(acc, q);
+          const int i = q / NQ;
+#pragma unroll
+          for (int r = 0; r < M; ++r) {
+            const int lr = unit.gr * M + r;  // tile-local output row and column
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int lc = unit.col[i] + g + 8 * e;
+              if (h0 + lr >= s.h_img || w0 + lc >= s.w_img || lc < unit.first[i]) continue;
+              const long long pix = (long long)(h0 + lr) * s.w_img + w0 + lc;
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                const int co = kC + 16 * (unit.nq0 + q % NQ) + 8 * h + t2;  // in bias: b_b
+                const float* c = acc[r][q].c + 4 * h + 2 * e;
+                const unsigned xr =
+                    *reinterpret_cast<const unsigned*>(rs + res_at(lr * TW + lc, co - kC));
+                *reinterpret_cast<unsigned*>(yn + pix * kC + co - kC) =
+                    pack_bf16(bf16_lo(xr) + (c[0] + bias[co]) * rw,
+                              bf16_hi(xr) + (c[1] + bias[co + 1]) * rw);
+              }
+            }
+          }
+        }
+      }
+    }
+  }
+}
+
+template <int M, int GB, int TW, int MT, int NQ, int NW>
+int launch_tc(const void* x, const void* ua, const void* ba, const void* ub, const void* bb,
+              void* y, float rw, int n, int h, int w, void* stream) {
+  using Tl = TcTile<M, GB, TW, MT, NQ, NW>;
+  if (n <= 0 || h <= 0 || w <= 0) return cudaErrorInvalidValue;
+  // 16-byte copies of x and U
+  if ((reinterpret_cast<std::uintptr_t>(x) | reinterpret_cast<std::uintptr_t>(ua) |
+       reinterpret_cast<std::uintptr_t>(ub) | reinterpret_cast<std::uintptr_t>(y)) % 16)
+    return cudaErrorMisalignedAddress;
+  auto kernel = wino_resblock_tc_kernel<M, GB, TW, MT, NQ, NW>;
+  // once per process and instance: the tile's shared memory exceeds 48 KB
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Tl::kSmemBytes);
+  if (attr != cudaSuccess) return (int)attr;
+  int device = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, Tl::kThreads,
+                                                        Tl::kSmemBytes);
+  if (err != cudaSuccess) return (int)err;
+  if (per_sm < 1) return cudaErrorInvalidValue;
+  const int h_tiles = (h + Tl::TH - 1) / Tl::TH;
+  const int w_tiles = (w + TW - 1) / TW;
+  const long long n_tiles = (long long)n * h_tiles * w_tiles;
+  if (n_tiles > 0x7fffffff) return cudaErrorInvalidValue;
+  const TcShape s{h, w, h_tiles, w_tiles, (int)n_tiles};
+  const long long blocks = (long long)sms * per_sm < n_tiles ? (long long)sms * per_sm : n_tiles;
+  kernel<<<(unsigned)blocks, Tl::kThreads, Tl::kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(ua),
+      static_cast<const float*>(ba), static_cast<const __nv_bfloat16*>(ub),
+      static_cast<const float*>(bb), static_cast<__nv_bfloat16*>(y), rw, s);
+  return (int)cudaGetLastError();
+}
+
+// Tensor-core tiles, 30 output columns (stage A's t window 32 columns: two
+// M tiles; stage B's 30 in two overlapping ones). F(2,3): 6 x 30 outputs, 8
+// warps, a warp's unit both M tiles of a group row x 32 channels (8 units
+// in stage A, 6 in B). F(4,3): 8 x 30 outputs, 12 warps, units of both M
+// tiles x 16 channels (12 in stage A, 8 in B).
+constexpr int kTcWidth = 30;
+constexpr int kF2TcGroups = 3, kF2TcTiles = 2, kF2TcNq = 2, kF2TcWarps = 8;
+constexpr int kF4TcGroups = 2, kF4TcTiles = 2, kF4TcNq = 1, kF4TcWarps = 12;
+
 }  // namespace
 
 // Plain C entry points for ctypes. x, y: (n, h, w, 64) contiguous in the
@@ -339,4 +922,23 @@ extern "C" int wino_resblock_f4_bf16(const void* x, const void* ua, const void* 
                                      int h, int w, void* stream) {
   return launch<__nv_bfloat16, 4, kF4Groups, kF4Width, kF4Slice>(x, ua, ba, ub, bb, y, rw, n,
                                                                  h, w, stream);
+}
+
+// bf16 on the tensor cores, same arguments as the entries above except the
+// weights: ua, ub (m + 2, 3, 64, 64) with the channel axes swapped, U[p, kw,
+// co, ci] (ops/wino_resblock.py `entry_basis`). x, ua, ub and y must be
+// 16-byte aligned (cudaErrorMisalignedAddress otherwise) and n, h, w
+// positive (cudaErrorInvalidValue), with nothing launched.
+extern "C" int wino_resblock_f2_bf16_tc(const void* x, const void* ua, const void* ba,
+                                        const void* ub, const void* bb, void* y, float rw, int n,
+                                        int h, int w, void* stream) {
+  return launch_tc<2, kF2TcGroups, kTcWidth, kF2TcTiles, kF2TcNq, kF2TcWarps>(
+      x, ua, ba, ub, bb, y, rw, n, h, w, stream);
+}
+
+extern "C" int wino_resblock_f4_bf16_tc(const void* x, const void* ua, const void* ba,
+                                        const void* ub, const void* bb, void* y, float rw, int n,
+                                        int h, int w, void* stream) {
+  return launch_tc<4, kF4TcGroups, kTcWidth, kF4TcTiles, kF4TcNq, kF4TcWarps>(
+      x, ua, ba, ub, bb, y, rw, n, h, w, stream);
 }

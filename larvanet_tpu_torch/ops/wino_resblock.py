@@ -26,7 +26,14 @@ wino_pallas.py:103-113), and is cast to x's dtype.
 
 `wino_resblock` launches `csrc/wino_resblock.cu` for a CUDA tensor and
 raises on anything that kernel does not take; only a CPU tensor goes to
-the plain version. `LAUNCHES` counts the kernel's launches, per m.
+the plain version. The source has two paths, chosen by dtype
+(`path_for`), never by retrying after a failure: "tensor_core" (bf16:
+mma.sync point products on a transformed window in shared memory) and
+"cuda_core" (f32). The tensor-core entries take the basis with its
+channel axes swapped, (P, 3, C_out, C_in) (`entry_basis`): a row of a
+weight slab is then one output channel's inputs, the layout in which
+ldmatrix loads the B operand. `LAUNCHES` counts the kernel's launches
+per m and `LAUNCHES_BY_PATH` per path.
 """
 
 from __future__ import annotations
@@ -80,17 +87,34 @@ _AT46 = np.array([
 MATRICES = {2: (_G4, _BT4, _AT24), 4: (_G6, _BT6, _AT46)}
 # the channel count the CUDA kernel is built for (EDSR-baseline's width)
 KERNEL_CHANNELS = 64
-_ENTRY = {(2, torch.float32): "wino_resblock_f2_f32",
-          (2, torch.bfloat16): "wino_resblock_f2_bf16",
-          (4, torch.float32): "wino_resblock_f4_f32",
-          (4, torch.bfloat16): "wino_resblock_f4_bf16"}
+_ENTRY = {(2, torch.float32, "cuda_core"): "wino_resblock_f2_f32",
+          (2, torch.bfloat16, "cuda_core"): "wino_resblock_f2_bf16",
+          (4, torch.float32, "cuda_core"): "wino_resblock_f4_f32",
+          (4, torch.bfloat16, "cuda_core"): "wino_resblock_f4_bf16",
+          (2, torch.bfloat16, "tensor_core"): "wino_resblock_f2_bf16_tc",
+          (4, torch.bfloat16, "tensor_core"): "wino_resblock_f4_bf16_tc"}
 
 LAUNCHES: Dict[int, int] = {2: 0, 4: 0}
+LAUNCHES_BY_PATH: Dict[str, int] = {"cuda_core": 0, "tensor_core": 0}
 
 
 def reset_launches() -> None:
     for m in LAUNCHES:
         LAUNCHES[m] = 0
+    for path in LAUNCHES_BY_PATH:
+        LAUNCHES_BY_PATH[path] = 0
+
+
+def path_for(dtype: torch.dtype) -> str:
+    """The kernel path for activations in `dtype`: bf16 on the tensor
+    cores, f32 on the CUDA cores."""
+    return "tensor_core" if dtype == torch.bfloat16 else "cuda_core"
+
+
+def entry_basis(u: torch.Tensor, path: str) -> torch.Tensor:
+    """Basis u (P, 3, C, F) as the entry of `path` takes it: as it is for
+    the CUDA cores, (P, 3, F, C) for the tensor cores; contiguous."""
+    return (u.transpose(2, 3) if path == "tensor_core" else u).contiguous()
 
 
 def _check_m(m: int) -> None:
@@ -129,11 +153,13 @@ def _wino_conv(x: torch.Tensor, u: torch.Tensor, m: int) -> torch.Tensor:
 
 
 def wino_resblock_transformed_reference(x, u_a, b_a, u_b, b_b,
-                                        res_weight: float = 1.0,
-                                        m: int = 2) -> torch.Tensor:
+                                        res_weight: float = 1.0, m: int = 2,
+                                        entry_layout: bool = False) -> torch.Tensor:
     """The plain version on pre-transformed weights (see
-    `wino_resblock_transformed`)."""
+    `wino_resblock_transformed`, whose arguments it takes)."""
     _check_m(m)
+    if entry_layout and path_for(x.dtype) == "tensor_core":
+        u_a, u_b = u_a.transpose(2, 3), u_b.transpose(2, 3)
     xf = x.float()
     t = torch.relu(_wino_conv(xf, u_a, m) + b_a.float())
     y = _wino_conv(t, u_b, m) + b_b.float()
@@ -151,9 +177,9 @@ def wino_resblock_reference(x, k_a, b_a, k_b, b_b, res_weight: float = 1.0,
     return wino_resblock_transformed_reference(x, u_a, b_a, u_b, b_b, res_weight, m)
 
 
-def bind(lib: ctypes.CDLL, m: int, dtype: torch.dtype):
-    """The entry point of `lib` for (m, dtype), with its C signature."""
-    fn = getattr(lib, _ENTRY[(m, dtype)])
+def bind(lib: ctypes.CDLL, m: int, dtype: torch.dtype, path: str = "cuda_core"):
+    """The entry point of `lib` for (m, dtype, path), with its C signature."""
+    fn = getattr(lib, _ENTRY[(m, dtype, path)])
     fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_float] + [ctypes.c_int] * 3
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -161,12 +187,13 @@ def bind(lib: ctypes.CDLL, m: int, dtype: torch.dtype):
 
 
 @functools.lru_cache(maxsize=None)
-def _entry(m: int, dtype: torch.dtype):
-    return bind(build.load(SOURCE), m, dtype)
+def _entry(m: int, dtype: torch.dtype, path: str):
+    return bind(build.load(SOURCE), m, dtype, path)
 
 
 def _run(fn, x, u_a, b_a, u_b, b_b, res_weight: float, m: int, stream) -> torch.Tensor:
-    """Call entry point `fn` on checked operands; returns the output."""
+    """Call entry point `fn` on checked operands, u_a/u_b in its layout
+    (`entry_basis`); returns the output."""
     n, h, w, _ = x.shape
     ua = u_a.to(x.dtype).contiguous()
     ub = u_b.to(x.dtype).contiguous()
@@ -184,13 +211,16 @@ def _run(fn, x, u_a, b_a, u_b, b_b, res_weight: float, m: int, stream) -> torch.
 def wino_resblock_transformed(x: torch.Tensor, u_a: torch.Tensor,
                               b_a: torch.Tensor, u_b: torch.Tensor,
                               b_b: torch.Tensor, res_weight: float = 1.0,
-                              m: int = 2) -> torch.Tensor:
+                              m: int = 2, entry_layout: bool = False) -> torch.Tensor:
     """The fused ResBlock on pre-transformed weights u_a/u_b (m + 2, 3, C, C)
-    in x's dtype (`h_transform_kernel(k, m).to(x.dtype)`). CUDA tensor: the
-    hand-written kernel; CPU tensor: the plain version."""
+    in x's dtype (`h_transform_kernel(k, m).to(x.dtype)`); with
+    `entry_layout`, already in the layout of the entry that
+    `path_for(x.dtype)` picks (`entry_basis`), as `make_wino_edsr_forward`
+    caches them. CUDA tensor: the hand-written kernel; CPU tensor: the
+    plain version."""
     if x.device.type == "cpu":
         return wino_resblock_transformed_reference(x, u_a, b_a, u_b, b_b,
-                                                   res_weight, m)
+                                                   res_weight, m, entry_layout)
     if x.device.type != "cuda":
         raise ValueError("wino_resblock runs on CUDA or the CPU, not %s" % (x.device,))
     _check_m(m)
@@ -216,9 +246,19 @@ def wino_resblock_transformed(x: torch.Tensor, u_a: torch.Tensor,
         if t.device != x.device:
             raise ValueError("x, weights and biases must be on one device")
     with torch.cuda.device(x.device):
-        out = _run(_entry(m, x.dtype), x, u_a, b_a, u_b, b_b, res_weight, m,
-                   torch.cuda.current_stream().cuda_stream)
+        return _launch(x, u_a, b_a, u_b, b_b, res_weight, m, entry_layout,
+                       torch.cuda.current_stream().cuda_stream)
+
+
+def _launch(x, u_a, b_a, u_b, b_b, res_weight: float, m: int, entry_layout: bool,
+            stream) -> torch.Tensor:
+    """Launch the entry of `path_for(x.dtype)` on checked operands and count it."""
+    path = path_for(x.dtype)
+    if not entry_layout:
+        u_a, u_b = entry_basis(u_a, path), entry_basis(u_b, path)
+    out = _run(_entry(m, x.dtype, path), x, u_a, b_a, u_b, b_b, res_weight, m, stream)
     LAUNCHES[m] += 1
+    LAUNCHES_BY_PATH[path] += 1
     return out
 
 
@@ -238,9 +278,9 @@ def make_wino_edsr_forward(model, m: int = 2):
     wino_pallas.py:467-491). Head, after_res_conv and tail run the
     module's own layers. Takes and returns what `model.module` does; reads
     the module's weights on every call, so a later restore or
-    set_serving_dtype holds. The weight transforms are cached per block
-    and recomputed when a weight changes. Even input widths only, as in
-    JAX."""
+    set_serving_dtype holds. The weight transforms are cached per block,
+    in the layout of the dtype's entry (`entry_basis`), and recomputed
+    when a weight changes. Even input widths only, as in JAX."""
     _check_m(m)
     cache: Dict[int, tuple] = {}
 
@@ -250,7 +290,8 @@ def make_wino_edsr_forward(model, m: int = 2):
         key = tuple((w.data_ptr(), w._version, w.dtype, w.device) for w in weights) + (dtype,)
         hit = cache.get(i)
         if hit is None or hit[0] != key:
-            hit = (key, tuple(h_transform_kernel(w.permute(2, 3, 1, 0), m).to(dtype)
+            hit = (key, tuple(entry_basis(h_transform_kernel(w.permute(2, 3, 1, 0), m)
+                                          .to(dtype), path_for(dtype))
                               for w in weights))
             cache[i] = hit
         return hit[1]
@@ -265,7 +306,8 @@ def make_wino_edsr_forward(model, m: int = 2):
         for i, block in enumerate(mod.res_blocks):
             u_a, u_b = basis(i, block, res.dtype)
             res = wino_resblock_transformed(res, u_a, block.body[0].bias, u_b,
-                                            block.body[2].bias, block.res_weight, m)
+                                            block.body[2].bias, block.res_weight, m,
+                                            entry_layout=True)
         h = h + mod.after_res_conv(res)
         h = mod.final_conv(mod.upsample(h))
         return mod.mean_inverse_shift(h)

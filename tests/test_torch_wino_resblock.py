@@ -19,6 +19,7 @@ from larvanet_tpu.ops import wino_pallas
 from larvanet_tpu.ops.packed.core import (grid1_mask, pack_bias, pack_kernel_a,
                                           pack_kernel_b, pack_w, unpack_w)
 from larvanet_tpu_torch.core.registry import get_model
+from larvanet_tpu_torch.ops import emulate
 from larvanet_tpu_torch.ops import wino_resblock as wr
 from larvanet_tpu_torch.ops.conv3x3 import conv3x3_bias_act_reference
 from larvanet_tpu_torch.utils.torch_convert import state_dict_from_jax_params
@@ -155,6 +156,7 @@ def test_cpu_tensor_takes_plain_version_and_counts_no_launch():
     args = [torch.from_numpy(a) for a in _block_inputs(8, 1, 6, 4, 8)]
     wr.wino_resblock(*args, res_weight=1.0, m=4)
     assert wr.LAUNCHES == {2: 0, 4: 0}
+    assert wr.LAUNCHES_BY_PATH == {"cuda_core": 0, "tensor_core": 0}
 
 
 def test_wrapper_rejects_other_devices_and_sizes():
@@ -163,6 +165,69 @@ def test_wrapper_rejects_other_devices_and_sizes():
         wr.wino_resblock_transformed(args[0].to("meta"), *args[1:], m=2)
     with pytest.raises(ValueError, match="m must be 2 or 4"):
         wr.wino_resblock(*args, m=3)
+
+
+def test_path_for_dtype():
+    assert wr.path_for(torch.bfloat16) == "tensor_core"
+    assert wr.path_for(torch.float32) == "cuda_core"
+
+
+@pytest.mark.parametrize("m", [2, 4])
+def test_entry_basis_swaps_channel_axes_for_the_tensor_cores(m):
+    u = torch.from_numpy(np.random.default_rng(12).standard_normal((m + 2, 3, 8, 6))
+                         .astype(np.float32))
+    tc = wr.entry_basis(u, "tensor_core")
+    assert tc.shape == (m + 2, 3, 6, 8) and tc.is_contiguous()
+    np.testing.assert_array_equal(tc.numpy(), u.numpy().transpose(0, 1, 3, 2))
+    np.testing.assert_array_equal(wr.entry_basis(u, "cuda_core").numpy(), u.numpy())
+
+
+@pytest.mark.parametrize("dname,path", [("bf16", "tensor_core"), ("f32", "cuda_core")])
+def test_launch_takes_the_dtype_path_and_counts_it(monkeypatch, dname, path):
+    """The launch step of the CUDA branch on the CPU build of the source
+    (ops/emulate.py): bf16 goes to the tensor-core entry with the swapped
+    basis, f32 to the CUDA-core entry, and LAUNCHES_BY_PATH counts each."""
+    try:
+        lib = emulate.load(wr.SOURCE)
+    except RuntimeError as exc:
+        pytest.skip(str(exc))
+    taken = []
+
+    def entry(m, dtype, p):
+        taken.append(p)
+        return wr.bind(lib, m, dtype, p)
+
+    monkeypatch.setattr(wr, "_entry", entry)
+    dtype = {"bf16": torch.bfloat16, "f32": torch.float32}[dname]
+    x, k_a, b_a, k_b, b_b = _block_inputs(13, 1, 6, 9, wr.KERNEL_CHANNELS)
+    x = torch.from_numpy(x).to(dtype)
+    u_a, u_b = (wr.h_transform_kernel(torch.from_numpy(0.25 * k), 2).to(dtype)
+                for k in (k_a, k_b))
+    b_a, b_b = torch.from_numpy(b_a), torch.from_numpy(b_b)
+    wr.reset_launches()
+    got = wr._launch(x, u_a, b_a, u_b, b_b, 0.5, 2, False, None)
+    assert taken == [path]
+    assert wr.LAUNCHES_BY_PATH == {"cuda_core": int(path == "cuda_core"),
+                                   "tensor_core": int(path == "tensor_core")}
+    assert wr.LAUNCHES == {2: 1, 4: 0}
+    want = wr.wino_resblock_transformed_reference(x, u_a, b_a, u_b, b_b, 0.5, 2)
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= (2e-4 if dname == "f32" else 2.0 ** -6 * float(want.float().abs().max()))
+
+
+@pytest.mark.parametrize("m", [2, 4])
+def test_entry_layout_on_the_cpu_matches_the_public_layout(m):
+    """A basis cached in the entry's layout (`entry_basis`) gives the same
+    plain-version output as the public layout, in bf16 and f32."""
+    x, k_a, b_a, k_b, b_b = (torch.from_numpy(a) for a in _block_inputs(14, 1, 7, 6, 8))
+    for dtype in (torch.bfloat16, torch.float32):
+        u_a, u_b = (wr.h_transform_kernel(k, m).to(dtype) for k in (k_a, k_b))
+        path = wr.path_for(dtype)
+        want = wr.wino_resblock_transformed(x.to(dtype), u_a, b_a, u_b, b_b, 0.7, m)
+        got = wr.wino_resblock_transformed(x.to(dtype), wr.entry_basis(u_a, path), b_a,
+                                           wr.entry_basis(u_b, path), b_b, 0.7, m,
+                                           entry_layout=True)
+        assert torch.equal(got, want)
 
 
 def _models(m_name="edsr"):
