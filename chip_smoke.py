@@ -14,11 +14,14 @@ fails:
     card at every conv shape of the x4 forward, for a batch of 4 LR tiles
     of 192x192 and one ragged 339x510 frame, in f32 (TF32 off) and bf16.
     Each call must take the conv kernel's path that `path_for` names: the
-    tensor cores for bf16 with C and F multiples of 16, else the CUDA
-    cores; at those tensor-core shapes the CUDA-core bf16 entry is held
-    and timed too, as the earlier kernel of the same function. Prints
-    each shape's kernel, plain-version and F.conv2d times (CUDA events,
-    mean of TIMED_REPS launches after WARMUP_REPS) and its bound.
+    narrow path for F <= 8 with C a multiple of 16 up to 64 (final_conv,
+    f32 and bf16), the tensor cores for bf16 with C and F multiples of 16,
+    else the CUDA cores; at the narrow and tensor-core shapes the CUDA-core
+    entry of the dtype is held and timed too, as the earlier kernel of the
+    same function. Prints each shape's kernel, plain-version and F.conv2d
+    times (CUDA events, mean of TIMED_REPS launches after WARMUP_REPS) and
+    its bound at the dtype's peak; at the narrow shapes also
+    x.sum(), one PyTorch read of x, as a yardstick of the bytes side.
  3b. wino kernels: holds both fused Winograd ResBlock kernels (F(2,3) and
     F(4,3)) against their plain version at EDSR-baseline's ResBlock (C = 64)
     for the same two geometries, f32 and bf16 (res_weight 1.0, and 0.1 on
@@ -47,21 +50,23 @@ fails:
     tiles, f32 and bf16 (CUDA events), through the conv3x3 kernel and
     under --wino_trunk 2 and 4, to set the kernels' share against it.
     Under --wino_trunk the counters are zeroed before one forward and read
-    after it: 5 conv3x3 and 16 fused launches, all 16 on the dtype's path
-    (WINO_PATH_LAUNCHES); the bf16 forward must lie within BF16_FWD_RTOL
-    of the same route with the plain fused ResBlock in place of the kernel.
+    after it: 5 conv3x3 launches by path (WINO_CONV_PATH_LAUNCHES) and 16
+    fused launches, all 16 on the dtype's path (WINO_PATH_LAUNCHES); the
+    bf16 forward must lie within BF16_FWD_RTOL of the same route with the
+    plain fused ResBlock in place of the kernel.
  6. validate: the port's validate CLI in this process on a DIV2K-layout
     set written by the port's PNG encoder (4 LR frames of even width and,
     for the standard path only, one of odd width), EDSR-baseline x4 as in
     phase 4, with --wino_trunk 0, 2 and 4, f32. The counters are zeroed
     before each run and read after: 37 conv3x3 launches per forward for
-    0; 5 conv3x3 and 16 fused launches per forward for 2 and 4. Each
-    image's PSNR under 2 and 4 must lie within VALIDATE_PSNR_TOL of 0's,
+    0; 5 conv3x3 and 16 fused launches per forward for 2 and 4; the
+    conv3x3 launches by path as phases 4 and 5 count them. Each image's
+    PSNR under 2 and 4 must lie within VALIDATE_PSNR_TOL of 0's,
     and the unclamped f32 forward through each fused kernel within
     WINO_FWD_RTOL of the conv3x3 forward.
  7. runtime: the port's runtime CLI at the DIV2K x4 LR size 339x510,
     --wino_trunk 0, 2 and 4 in f32 and bf16: ms per frame and LR-MP/s,
-    and each run's launches by path.
+    and each run's launches by path (one narrow conv3x3 launch a forward).
  8. prints the kernels JSON line, the nvidia-smi line, then the result line
     {"ok": true, "device": {...}}.
 
@@ -73,7 +78,8 @@ the validate run of phase 6 and the runtime runs of phase 7 with their
 (the 37 convs; the 16 ResBlocks), its time, its plain version's, the
 library's (F.conv2d; the cuDNN ResBlock) and its bound; and the largest
 f32 error of phase 3 or 3b. Each also gives the same sums in bf16, with
-the CUDA-core bf16 entry's sum beside them.
+the CUDA-core entries' sums beside them; the conv3x3 line adds the narrow
+path's final_conv times in both dtypes and geometries.
 """
 
 from __future__ import annotations
@@ -126,12 +132,17 @@ FWD_RTOL = 1e-4
 # twice the fused ResBlock's bar (WINO_BF16_RTOL) for a forward that
 # rounds 37 times in a row.
 BF16_FWD_RTOL = 2.0 ** -5
-# conv3x3 launches per x4 forward by path (ops/conv3x3.py path_for): f32
-# runs every conv on the CUDA cores; bf16 runs the 35 convs with C and F
-# multiples of 16 on the tensor cores and first_conv (C = 3) and
-# final_conv (F = 3) on the CUDA cores
-PATH_LAUNCHES = {"f32": {"cuda_core": 37, "tensor_core": 0},
-                 "bf16": {"cuda_core": 2, "tensor_core": 35}}
+# conv3x3 launches per x4 forward by path (ops/conv3x3.py path_for):
+# final_conv (64 -> 3) takes the narrow path in both dtypes; f32 runs the
+# other 36 convs on the CUDA cores; bf16 runs the 35 convs with C and F
+# multiples of 16 on the tensor cores and first_conv (C = 3) on the CUDA
+# cores
+PATH_LAUNCHES = {"f32": {"cuda_core": 36, "tensor_core": 0, "narrow": 1},
+                 "bf16": {"cuda_core": 1, "tensor_core": 35, "narrow": 1}}
+# the same for the 5 convs around the fused ResBlocks under --wino_trunk:
+# first_conv, after_res_conv, the two upsample convs, final_conv
+WINO_CONV_PATH_LAUNCHES = {"f32": {"cuda_core": 4, "tensor_core": 0, "narrow": 1},
+                           "bf16": {"cuda_core": 1, "tensor_core": 3, "narrow": 1}}
 # fused ResBlock launches per x4 forward under --wino_trunk, by path
 # (ops/wino_resblock.py path_for): f32 on the CUDA cores, bf16 on the
 # tensor cores; the 5 convs around them go through conv3x3
@@ -153,7 +164,8 @@ VALIDATE_ODD_LR = (67, 93)
 # share of served pixels strictly inside (0, 255)
 MIN_INSIDE = 0.9
 # H100 SXM peaks (NVIDIA data sheet): f32 on CUDA cores, bf16 dense tensor
-# cores, HBM3 bandwidth. The f32 kernel runs on CUDA cores.
+# cores, HBM3 bandwidth. A bound takes the card's peak for the dtype, whatever
+# units a kernel's path happens to run on.
 PEAK_FLOPS = {"f32": 67e12, "bf16": 989e12}
 PEAK_BYTES = 3.35e12
 LR_BATCH = (4, 192, 192)
@@ -224,9 +236,10 @@ def kernel_phase(torch):
 
     dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    sums = {d: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
-            for d in dtypes}
-    sums["bf16"]["cuda_core_ms"] = 0.0
+    sums = {d: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
+                "cuda_core_ms": 0.0} for d in dtypes}
+    # final_conv on the narrow path, per dtype and geometry
+    narrow = {d: {} for d in dtypes}
     bound_kind = {d: {} for d in dtypes}
     worst = {d: 0.0 for d in dtypes}
     for geometry in (LR_BATCH, RAGGED):
@@ -264,7 +277,7 @@ def kernel_phase(torch):
                       "max|d| %.3g" % (name, dname, (n, h, w), c, f, act, path, ms, plain,
                                        lib, bound, by, err), flush=True)
                 cc_ms = ms
-                if path == "tensor_core":
+                if path != "cuda_core":
                     # the CUDA-core entry on the same inputs: the earlier kernel
                     cc = conv3x3._entry(dtype, "cuda_core")
                     stream = torch.cuda.current_stream().cuda_stream
@@ -278,18 +291,29 @@ def kernel_phase(torch):
                     cc_ms = time_ms(torch, lambda: conv3x3._run(cc, x, k32, b32, act,
                                                                  stream))
                     print("conv3x3 %-32s %-4s x=%s C=%d F=%d act=%s: cuda_core kernel "
-                          "%.4f ms (tensor_core %.2fx faster), max|d| %.3g"
-                          % (name, dname, (n, h, w), c, f, act, cc_ms, cc_ms / ms, err_cc),
-                          flush=True)
+                          "%.4f ms (%s %.2fx faster), max|d| %.3g"
+                          % (name, dname, (n, h, w), c, f, act, cc_ms, path, cc_ms / ms,
+                             err_cc), flush=True)
                     del got_cc
+                if path == "narrow":
+                    # a yardstick of the bytes side: one PyTorch reduction that
+                    # reads x once
+                    read = time_ms(torch, lambda: x.sum())
+                    print("conv3x3 %-32s %-4s x=%s: x.sum() %.4f ms (%.3f TB/s), narrow kernel "
+                          "%.3f TB/s of x" % (name, dname, (n, h, w), read,
+                                              x.numel() * x.element_size() / read / 1e9,
+                                              x.numel() * x.element_size() / ms / 1e9),
+                          flush=True)
+                    narrow[dname]["%dx%dx%d" % (n, h, w)] = {
+                        "ms": ms, "cuda_core_ms": cc_ms, "plain_ms": plain, "library_ms": lib,
+                        "read_ms": read, "bound_ms": bound, "bound_by": by, "max_abs_err": err}
                 if geometry == LR_BATCH:
                     s = sums[dname]
                     s["ms"] += count * ms
                     s["plain_ms"] += count * plain
                     s["library_ms"] += count * lib
                     s["bound_ms"] += count * bound
-                    if dname == "bf16":
-                        s["cuda_core_ms"] += count * cc_ms
+                    s["cuda_core_ms"] += count * cc_ms
                     bound_kind[dname][by] = bound_kind[dname].get(by, 0.0) + count * bound
                 del x, got, want
             del x32, k32, b32
@@ -297,13 +321,11 @@ def kernel_phase(torch):
     for dname in dtypes:
         sums[dname]["bound_by"] = max(bound_kind[dname], key=bound_kind[dname].get)
         print("conv3x3 per x4 forward at %s, %s: kernel %.4f ms, plain %.4f ms, F.conv2d "
-              "%.4f ms, bound %.4f ms (%s)%s" % (
+              "%.4f ms, bound %.4f ms (%s), all-cuda_core kernel %.4f ms" % (
                   LR_BATCH, dname, sums[dname]["ms"], sums[dname]["plain_ms"],
                   sums[dname]["library_ms"], sums[dname]["bound_ms"],
-                  sums[dname]["bound_by"],
-                  ", all-cuda_core kernel %.4f ms" % sums[dname]["cuda_core_ms"]
-                  if dname == "bf16" else ""), flush=True)
-    return sums, worst
+                  sums[dname]["bound_by"], sums[dname]["cuda_core_ms"]), flush=True)
+    return sums, worst, narrow
 
 
 def wino_bound_ms(n, h, w, c, m, dtype_name):
@@ -605,7 +627,7 @@ def serve_phase(torch, device="cuda", dtype_name="f32"):
         for i, (img, (code, body)) in enumerate(zip(frames, replies)):
             if code != 200:
                 raise AssertionError("request %d: HTTP %d %r" % (i, code, body[:80]))
-            got = png.decode(body)
+            got = png.decode(body, grey16="clip")
             h, w = img.shape[1:]
             if got.shape != (4 * h, 4 * w, 3):
                 raise AssertionError("request %d: reply %s, not x4 of %s"
@@ -679,13 +701,15 @@ def forward_phase(torch, model, device="cuda"):
                 got = model.fwd_runtime(x)
                 if device == "cuda":
                     torch.cuda.synchronize()
-                conv, by_path = conv3x3.LAUNCHES, dict(wr.LAUNCHES_BY_PATH)
-                print("forward %s --wino_trunk %d: %d conv3x3 launches, fused launches by "
-                      "path %s" % (name, m, conv, by_path), flush=True)
-                if conv != 5 or by_path != WINO_PATH_LAUNCHES[name]:
-                    raise AssertionError("forward %s --wino_trunk %d: %d conv3x3 and %s fused "
-                                         "launches, not 5 and %s" % (
-                                             name, m, conv, by_path, WINO_PATH_LAUNCHES[name]))
+                conv, by_path = dict(conv3x3.LAUNCHES_BY_PATH), dict(wr.LAUNCHES_BY_PATH)
+                print("forward %s --wino_trunk %d: conv3x3 launches by path %s, fused launches "
+                      "by path %s" % (name, m, conv, by_path), flush=True)
+                if conv != WINO_CONV_PATH_LAUNCHES[name] or by_path != WINO_PATH_LAUNCHES[name]:
+                    raise AssertionError("forward %s --wino_trunk %d: %s conv3x3 and %s fused "
+                                         "launches, not %s and %s" % (
+                                             name, m, conv, by_path,
+                                             WINO_CONV_PATH_LAUNCHES[name],
+                                             WINO_PATH_LAUNCHES[name]))
                 _add(launches[m], by_path)
                 if name == "bf16":
                     with mock.patch.object(wr, "wino_resblock_transformed",
@@ -754,21 +778,25 @@ def validate_phase(torch, device="cuda"):
                            "--report_json", report, "--wino_trunk", str(m)])
             seconds = time.perf_counter() - t0
             conv, wino = conv3x3.LAUNCHES, dict(wino_resblock.LAUNCHES)
+            conv_by_path = dict(conv3x3.LAUNCHES_BY_PATH)
             wino_by_path = dict(wino_resblock.LAUNCHES_BY_PATH)
             with open(report) as f:
                 psnrs[m] = json.load(f)["scales"]["4"]["per_image"]
             want_conv = 37 if m == 0 else 5
+            want_by_path = {p: k * n_images for p, k in
+                            (WINO_CONV_PATH_LAUNCHES if m else PATH_LAUNCHES)["f32"].items()}
             want_wino = {k: (16 if k == m else 0) for k in (2, 4)}
             print("validate --wino_trunk %d: %d images in %.3f s; per forward %s conv3x3 "
                   "launches, %s F(2,3) and %s F(4,3) launches; PSNRs %s" % (
                       m, n_images, seconds, conv / n_images, wino[2] / n_images,
                       wino[4] / n_images,
                       ", ".join("%s %.4f" % kv for kv in sorted(psnrs[m].items()))))
-            if conv != want_conv * n_images or any(
+            if conv != want_conv * n_images or conv_by_path != want_by_path or any(
                     wino[k] != want_wino[k] * n_images for k in (2, 4)):
-                raise AssertionError("validate --wino_trunk %d: %d conv3x3 and %s wino "
-                                     "launches for %d forwards, not %d and %s each"
-                                     % (m, conv, wino, n_images, want_conv, want_wino))
+                raise AssertionError("validate --wino_trunk %d: %d conv3x3 (%s) and %s wino "
+                                     "launches for %d forwards, not %d (%s) and %s each"
+                                     % (m, conv, conv_by_path, wino, n_images, want_conv,
+                                        want_by_path, want_wino))
             if m:
                 wino_launches[m] = wino_by_path
                 deltas = [abs(psnrs[m][k] - psnrs[0][k]) for k in psnrs[m]]
@@ -825,10 +853,16 @@ def runtime_phase(torch, device="cuda"):
             print("runtime: EDSR-baseline x4, %dx%d LR, %s, --wino_trunk %d: %.4f ms per "
                   "frame, %.3f LR-MP/s; launches conv3x3 %s, fused %s" % (
                       h, w, dtype_name, m, 1e3 * mean_s, mps, conv, wino), flush=True)
+            # one forward is 37 conv3x3 launches (5 under --wino_trunk), one narrow
+            forwards = sum(conv.values()) // (5 if m else 37)
+            want_conv = {p: k * forwards for p, k in
+                         (WINO_CONV_PATH_LAUNCHES if m else PATH_LAUNCHES)[dtype_name].items()}
+            if forwards == 0 or conv != want_conv:
+                raise AssertionError("runtime %s --wino_trunk %d: conv3x3 launches %s, not %s"
+                                     % (dtype_name, m, conv, want_conv))
             if m:
-                forwards = sum(wino.values()) // 16
                 want = {p: k * forwards for p, k in WINO_PATH_LAUNCHES[dtype_name].items()}
-                if forwards == 0 or wino != want:
+                if wino != want:
                     raise AssertionError("runtime %s --wino_trunk %d: fused launches %s, not "
                                          "16 a forward on its path" % (dtype_name, m, wino))
                 _add(launches[m], wino)
@@ -836,9 +870,9 @@ def runtime_phase(torch, device="cuda"):
 
 
 def print_sass_mix(build):
-    """The instruction mix of each tensor-core kernel in the built
-    libraries (cuobjdump -sass): ldmatrix, tensor-core products, generic
-    loads, local-memory spills."""
+    """The instruction mix of each tensor-core and narrow kernel in the
+    built libraries (cuobjdump -sass): ldmatrix, tensor-core products,
+    generic loads, cp.async copies, local-memory spills."""
     import re
     import shutil
 
@@ -847,13 +881,13 @@ def print_sass_mix(build):
         print("sass: cuobjdump not found")
         return
     kinds = {"LDSM": r"\bLDSM\b", "HMMA": r"\bHMMA\b", "LD.E": r"\bLD\.E\b",
-             "LDL/STL": r"\b(?:LDL|STL)\b"}
+             "LDGSTS": r"\bLDGSTS\b", "LDL/STL": r"\b(?:LDL|STL)\b"}
     for source in build.SOURCES:
         sass = subprocess.run([tool, "-sass", str(build.library_path(source))],
                               capture_output=True, text=True, timeout=120).stdout
         for fn in re.split(r"\n\s*Function : ", sass)[1:]:
             name = fn.split("\n", 1)[0].strip()
-            if "tc_kernel" not in name:
+            if "tc_kernel" not in name and "narrow" not in name:
                 continue
             mix = {k: len(re.findall(v, fn)) for k, v in kinds.items()}
             print("sass %s %s: %s" % (source, name, mix))
@@ -882,7 +916,7 @@ def main() -> int:
         print("build log %s:\n%s" % (source, build.build_log(source).strip()))
     print_sass_mix(build)
 
-    sums, worst = kernel_phase(torch)
+    sums, worst, narrow = kernel_phase(torch)
     wino = wino_phase(torch)
     launches, by_path = 0, {}
     for dtype_name in ("bf16", "f32"):
@@ -910,7 +944,9 @@ def main() -> int:
         "bound_ms": sums["f32"]["bound_ms"],
         "bound_by": sums["f32"]["bound_by"],
         "library_ms": sums["f32"]["library_ms"],
+        "cuda_core_ms": sums["f32"]["cuda_core_ms"],
         "bf16": dict(sums["bf16"], max_abs_err=worst["bf16"]),
+        "narrow": narrow,
     }]
     for m, line in ((2, 205), (4, 336)):
         wsums, werr = wino[m]

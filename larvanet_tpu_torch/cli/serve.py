@@ -326,8 +326,9 @@ def prometheus_metrics(info: dict) -> bytes:
 
 
 def png_to_chw(data: bytes, dtype=np.float32) -> np.ndarray:
-    """Decode a request PNG to a CHW frame of `dtype`."""
-    return png.decode(data).astype(dtype, copy=False).transpose(2, 0, 1)
+    """Decode a request PNG to a CHW frame of `dtype`. 16-bit greyscale is
+    clipped at 255, as the JAX server's Pillow `convert("RGB")` does."""
+    return png.decode(data, grey16="clip").astype(dtype, copy=False).transpose(2, 0, 1)
 
 
 def chw_to_png(img_chw: np.ndarray, compress_level: int = 6) -> bytes:

@@ -5,7 +5,35 @@
 // act(conv3x3_same(x, k) + b) with act in {none, relu, leaky_relu(0.1)},
 // accumulated in f32 and stored in the input dtype (f32 or bf16). In the
 // port it carries every 3x3 conv of the EDSR forward (37 launches per x4
-// forward). Two paths, chosen by shape in ops/conv3x3.py `path_for`:
+// forward). Three paths, chosen by shape in ops/conv3x3.py `path_for`:
+//
+// Narrow-output path, `conv3x3_bias_act_{f32,bf16}_narrow`: F <= 8 with C
+// a multiple of 16 up to 64, both dtypes (EDSR's 64->3 final_conv, at the
+// HR size). Bound on an H100 SXM: at 4 x 768x768 the conv reads 302 MB of
+// x and does 8.2 GFLOP in bf16 (0.094 ms at 3.35 TB/s), twice the bytes in
+// f32 (0.189 ms): a streaming kernel, bound by its bytes in both dtypes
+// once the bf16 products run on the tensor cores (on the CUDA cores their
+// FMAs alone would take 0.122 ms). Persistent blocks (8 warps, one an SM)
+// walk tiles of 32 output columns; the tile's input halo comes by 16-byte
+// cp.async (.cg, zero-filled outside the image) into a ring of two stages,
+// the next step's copy in flight while this step's products run, and the
+// outputs of each warp row are staged in shared memory and stored by
+// neighbouring lanes to neighbouring values. bf16: 16-row tiles with all C
+// channels a stage, C padded to 64 with zeros (pixel stride 64 + 8,
+// conflict-free for ldmatrix); each warp owns a 16-pixel M tile x 4 rows on
+// mma.sync.m16n8k16 with F padded to n = 8, B (the whole 9 x 64 x 8 weight)
+// held in registers, and each A operand (ldmatrix.x4) loaded once per halo
+// row, kw tap and k-step and used for the up to three output rows it is a
+// kh tap of: one kernel for every shape. f32: 32-row tiles in 16-channel
+// chunks (pixel stride 20 floats); a thread owns 4 rows of one column and
+// F f32 sums per pixel (F padded to 3 or 8: two instances), loads its
+// column's 6 halo pixels once per kw tap and 4 channels, and reads each
+// weight float4 by a broadcast shared by its 4 pixels. What holds it back
+// (~2x its bound, PERF.md): the cp.async copies into shared memory, which
+// carry the halo's 1.2x (bf16) / 1.13x (f32) re-reads and run below the
+// rate of a plain read of x (chip_smoke.py's `read_ms`); two stages hide
+// the products only in part, and a third does not fit beside tiles this
+// large.
 //
 // Tensor-core path, `conv3x3_bias_act_bf16_tc`: bf16 with C and F
 // multiples of 16 (35 of EDSR's 37 convs: 64->64 and 64->256).
@@ -42,21 +70,22 @@
 // producer and consumers.
 //
 // CUDA-core path, `conv3x3_bias_act_f32` and `conv3x3_bias_act_bf16`: f32,
-// and bf16 with C or F not a multiple of 16 (EDSR's 3->64 first_conv and
-// 64->3 final_conv). An implicit GEMM on CUDA cores: M = N*H*W output
-// pixels, K = 9*C (tap-major, channel-minor: the HWIO kernel reshaped to
-// (9C, F)), N_gemm = F. A block owns a BM x BN output tile and walks K in
+// and bf16 with C or F not a multiple of 16, outside the narrow path (EDSR's
+// 3->64 first_conv; the 64->3 final_conv ran here before the narrow path,
+// and the entries still take it). An implicit GEMM on CUDA cores: M = N*H*W
+// output pixels, K = 9*C (tap-major, channel-minor: the HWIO kernel reshaped
+// to (9C, F)), N_gemm = F. A block owns a BM x BN output tile and walks K in
 // BK slices: each slice of the virtual im2col matrix is gathered straight
-// from x into shared memory, with the SAME zero padding computed by masks
-// on the pixel's (h, w). Each thread keeps a TM x TN f32 accumulator in
-// registers and the epilogue adds the bias, applies the activation and
-// masks the ragged edges in M and F. Two tile shapes: 128x64 for wide
-// outputs and 256x4 for F <= 4 (the final 64->3 conv), so the narrow conv
-// does not pay for 60 idle columns. In f32 a trunk conv is bound by
-// operations (0.16 ms at 67 TFLOP/s); the final 64->3 conv by its bytes.
-// What it leaves on the table: synchronous loads with two barriers per K
-// slice, each input pixel fetched 9 times from L2, and in the final conv
-// 64 x 9 gathered values per pixel for 3 outputs.
+// from x into shared memory, with the SAME zero padding computed by masks on
+// the pixel's (h, w). Each thread keeps a TM x TN f32 accumulator in
+// registers and the epilogue adds the bias, applies the activation and masks
+// the ragged edges in M and F. Two tile shapes: 128x64 for wide outputs and
+// 256x4 for F <= 4 (the final 64->3 conv), so the narrow conv does not pay
+// for 60 idle columns. In f32 a trunk conv is bound by operations (0.16 ms
+// at 67 TFLOP/s); the final 64->3 conv by its bytes. What it leaves on the
+// table: synchronous loads with two barriers per K slice, each input pixel
+// fetched 9 times from L2, and in the final conv 64 x 9 gathered values per
+// pixel for 3 outputs.
 
 #include <cuda_bf16.h>
 #include <cuda_pipeline.h>
@@ -81,6 +110,12 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
 }
 
 enum Act { kNone = 0, kRelu = 1, kLeakyRelu = 2 };
+
+__device__ __forceinline__ float activate(float v, int act) {
+  if (act == kRelu) return fmaxf(v, 0.f);
+  if (act == kLeakyRelu) return v >= 0.f ? v : 0.1f * v;
+  return v;
+}
 
 template <typename T, int BM, int BN, int BK, int TM, int TN>
 __global__ void __launch_bounds__((BM / TM) * (BN / TN))
@@ -184,13 +219,7 @@ __global__ void __launch_bounds__((BM / TM) * (BN / TN))
     for (int j = 0; j < TN; ++j) {
       const int ff = f0 + tx * TN + j;
       if (ff >= f) continue;
-      float v = acc[i][j] + bias[ff];
-      if (act == kRelu) {
-        v = fmaxf(v, 0.f);
-      } else if (act == kLeakyRelu) {
-        v = v >= 0.f ? v : 0.1f * v;
-      }
-      y[m * f + ff] = from_f32<T>(v);
+      y[m * f + ff] = from_f32<T>(activate(acc[i][j] + bias[ff], act));
     }
   }
 }
@@ -264,29 +293,64 @@ struct TcTile {
   int h0, w0;
 };
 
+// tile sp of TH x TW output pixels; tiles run along W, then H, then images
+template <int TH, int TW>
 __device__ __forceinline__ TcTile tile_of(const TcShape& s, long long sp) {
   const long long rest = sp / s.w_tiles;
-  return {rest / s.h_tiles, (int)(rest % s.h_tiles) * kTH, (int)(sp % s.w_tiles) * kTW};
+  return {rest / s.h_tiles, (int)(rest % s.h_tiles) * TH, (int)(sp % s.w_tiles) * TW};
 }
 
-// the halo of a tile, channels c0 .. c0 + kc: 16 bytes (8 channels) per
+// a 16-byte cp.async, or 16 zero bytes if `zero`. kL2Only (the narrow path)
+// caches in L2 only (.cg: the halo is read back from shared memory, never
+// through L1); the tensor-core path keeps the pipeline primitive's copy.
+template <bool kL2Only>
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool zero) {
+#ifdef __CUDA_ARCH__
+  if (kL2Only) {
+    const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(d), "l"(src),
+                 "r"(zero ? 0 : 16));
+    return;
+  }
+#endif
+  __pipeline_memcpy_async(dst, src, 16, zero ? 16 : 0);
+}
+
+// the halo of a TH x TW tile, (TH + 2) x (TW + 2) pixels from (h0 - 1, w0 -
+// 1), channels c0 .. c0 + kc at a pixel stride of ld values: 16 bytes per
 // copy, zeros outside the image; a zero-filled copy reads nothing but still
 // names a valid address
-__device__ __forceinline__ void copy_halo(__nv_bfloat16* halo, int lda,
-                                          const __nv_bfloat16* __restrict__ x,
+template <int TH, int TW, int kThreads, bool kL2Only, typename T>
+__device__ __forceinline__ void copy_halo(T* halo, int ld, const T* __restrict__ x,
                                           const TcShape& s, TcTile t, int c0, int kc) {
-  const __nv_bfloat16* x_img = x + t.img * s.h_img * s.w_img * s.c;
-  const int groups = kc / 8;
-  for (int e = threadIdx.x; e < kHaloPix * groups; e += kTcThreads) {
+  constexpr int kPer = 16 / sizeof(T);  // values a copy
+  constexpr int kW = TW + 2;
+  const T* x_img = x + t.img * s.h_img * s.w_img * s.c;
+  const int groups = kc / kPer;
+  for (int e = threadIdx.x; e < (TH + 2) * kW * groups; e += kThreads) {
     const int p = e / groups;
     const int g = e - p * groups;
-    const int hh = t.h0 - 1 + p / kHaloW;
-    const int ww = t.w0 - 1 + p % kHaloW;
+    const int hh = t.h0 - 1 + p / kW;
+    const int ww = t.w0 - 1 + p % kW;
     const bool inside = hh >= 0 && hh < s.h_img && ww >= 0 && ww < s.w_img;
-    const __nv_bfloat16* src =
-        inside ? x_img + ((long long)hh * s.w_img + ww) * s.c + c0 + 8 * g : x;
-    __pipeline_memcpy_async(halo + p * lda + 8 * g, src, 16, inside ? 0 : 16);
+    const T* src = inside ? x_img + ((long long)hh * s.w_img + ww) * s.c + c0 + kPer * g : x;
+    cp_async16<kL2Only>(halo + p * ld + kPer * g, src, !inside);
   }
+}
+
+// as many blocks of `kernel` as the card holds at once
+template <typename K>
+cudaError_t resident_blocks(K kernel, int threads, int smem, long long* blocks) {
+  int device = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidValue;
+  *blocks = (long long)sms * per_sm;
+  return cudaSuccess;
 }
 
 // the weight slab of channels c0 .. c0 + kc, transposed: slab[tap][n][k] =
@@ -426,14 +490,14 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   const int row0 = warp * kRW;  // the warp's first row in the tile
   float* const st = stage + warp * 16 * kStageLd;
 
-  copy_halo(halo, lda, x, s, tile_of(s, first), 0, kc_max);
+  copy_halo<kTH, kTW, kTcThreads, false>(halo, lda, x, s, tile_of<kTH, kTW>(s, first), 0, kc_max);
   __pipeline_commit();
   copy_slab(slab, ldb, w, s, f0, nj, 0, kc_max);
   for (int i = threadIdx.x; i < 16 * nj; i += kTcThreads) bias_s[i] = bias[f0 + i];
 
   FragC acc[kRW][kNJ];
   for (long long step = 0; step < steps; ++step) {
-    const TcTile t = tile_of(s, first + step / chunks * groups);
+    const TcTile t = tile_of<kTH, kTW>(s, first + step / chunks * groups);
     const int chunk = (int)(step % chunks);
     const int c0 = chunk * kKC;
     const int kc = s.c - c0 < kKC ? s.c - c0 : kKC;
@@ -462,7 +526,9 @@ __global__ void __launch_bounds__(kTcThreads, 1)
       const int next = (int)((step + 1) % chunks);
       const int c1 = next * kKC;
       const int kc1 = s.c - c1 < kKC ? s.c - c1 : kKC;
-      copy_halo(halo, lda, x, s, tile_of(s, first + (step + 1) / chunks * groups), c1, kc1);
+      copy_halo<kTH, kTW, kTcThreads, false>(halo, lda, x, s,
+                                      tile_of<kTH, kTW>(s, first + (step + 1) / chunks * groups),
+                                      c1, kc1);
       __pipeline_commit();
       if (!resident) copy_slab(slab, ldb, w, s, f0, nj, c1, kc1);
     }
@@ -488,15 +554,9 @@ __global__ void __launch_bounds__(kTcThreads, 1)
             for (int i = 0; i < 4; ++i) {
               float v[2];
 #pragma unroll
-              for (int q = 0; q < 2; ++q) {
-                float u = st[p * kStageLd + 8 * half + 2 * i + q] + bias_s[fc + 2 * i + q];
-                if (act == kRelu) {
-                  u = fmaxf(u, 0.f);
-                } else if (act == kLeakyRelu) {
-                  u = u >= 0.f ? u : 0.1f * u;
-                }
-                v[q] = u;
-              }
+              for (int q = 0; q < 2; ++q)
+                v[q] = activate(st[p * kStageLd + 8 * half + 2 * i + q] + bias_s[fc + 2 * i + q],
+                                act);
               word[i] = (unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(v[0])) |
                         ((unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(v[1])) << 16);
             }
@@ -522,18 +582,13 @@ int launch_tc(const void* x, const void* w, const void* bias, void* y, const TcS
   if (attr != cudaSuccess) return (int)attr;
   const int smem = tc_smem_bytes(s.c < kKC ? s.c : kKC);
   // as many blocks as fit on the card at once, a multiple of the F tiles
-  int device = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, conv3x3_bf16_tc_kernel<kFull>, kTcThreads, smem);
+  long long fit = 0;
+  const cudaError_t err =
+      resident_blocks(conv3x3_bf16_tc_kernel<kFull>, kTcThreads, smem, &fit);
   if (err != cudaSuccess) return (int)err;
-  if (per_sm < 1) return cudaErrorInvalidValue;
   const int f_tiles = (s.f + kTcBN - 1) / kTcBN;
   const long long n_tiles = (long long)s.n * s.h_tiles * s.w_tiles;
-  long long groups = (long long)sms * per_sm / f_tiles;
+  long long groups = fit / f_tiles;
   groups = groups < 1 ? 1 : (groups > n_tiles ? n_tiles : groups);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   conv3x3_bf16_tc_kernel<kFull><<<(unsigned)(groups * f_tiles), kTcThreads, smem, st>>>(
@@ -553,6 +608,393 @@ int conv3x3_bias_act_tc(const void* x, const void* w, const void* bias, void* y,
   const TcShape s{n, h, w_img, c, f, (h + kTH - 1) / kTH, (w_img + kTW - 1) / kTW};
   return f % kTcBN == 0 ? launch_tc<true>(x, w, bias, y, s, act, stream)
                         : launch_tc<false>(x, w, bias, y, s, act, stream);
+}
+
+// ---- narrow-output path (F <= 8, C % 16 == 0, C <= 64; f32 and bf16) ----
+
+constexpr int kNwMaxF = 8;
+constexpr int kNwMaxC = 64;
+constexpr int kNwWarps = 8;
+constexpr int kNwThreads = 32 * kNwWarps;
+constexpr int kNwTW = 32;        // output columns of a tile
+constexpr int kNwHW = kNwTW + 2;  // halo columns
+// f32: 32 x 32 tiles, channels in chunks of 16 (halo pixel stride 20 floats,
+// 80 bytes: a warp's float4 loads of 32 neighbouring pixels are conflict-free)
+constexpr int kNfTH = 32;
+constexpr int kNfR = kNfTH / kNwWarps;  // output rows of a thread
+constexpr int kNfKC = 16;
+constexpr int kNfLd = kNfKC + 4;
+constexpr int kNfStage = (kNfTH + 2) * kNwHW * kNfLd;  // floats
+constexpr int kNfStages = 2;  // halo stages in the ring
+// bf16: 16 x 32 tiles, all C channels at once, padded to kNwMaxC (pixel
+// stride kNwMaxC + 8: the 8 rows of an ldmatrix phase in distinct banks); a
+// warp owns one 16-column M tile x kNbR rows
+constexpr int kNbTH = 16;
+constexpr int kNbR = kNbTH / (kNwWarps / 2);
+constexpr int kNbStages = 2;
+
+// the f32 kernel's shared memory: the halo stages, the weights as float4 of
+// 4 input channels [9][C / 4][F], each warp's output row, the bias
+__host__ __device__ constexpr int nf_smem_bytes(int c, int f) {
+  return 4 * (kNfStages * kNfStage + 9 * c * f + kNwWarps * kNwTW * f + f);
+}
+
+// the bf16 kernel's: the halo stages (kNwMaxC channels), each warp's output
+// row (16 pixels x up to 8 values), the bias
+constexpr int kNbSmemBytes =
+    2 * (kNbStages * (kNbTH + 2) * kNwHW * (kNwMaxC + 8) + kNwWarps * 16 * kNwMaxF) +
+    4 * kNwMaxF;
+
+// Writes one output row of a warp, staged as `count` values in `st`
+// (pixel-major, F values a pixel), to y at element `dst`: neighbouring lanes
+// store neighbouring values, so each store instruction fills whole sectors
+// whatever the row's alignment.
+template <typename T>
+__device__ __forceinline__ void store_row(T* __restrict__ dst, const T* st, int count, int lane) {
+  for (int e = lane; e < count; e += 32) dst[e] = st[e];
+}
+
+// Persistent: block b walks steps b, b + gridDim.x, ..., a step being one
+// (tile, 16-channel chunk). The halos of the next kNfStages - 1 steps are in
+// flight (cp.async) in a ring of stages while this step's products run. A
+// thread owns kNfR rows of one column of the tile: per 4 channels and kw tap it
+// loads the kNfR + 2 halo pixels of its column (float4) once for the three kh
+// taps, and takes each weight float4 by a broadcast read, shared by its kNfR
+// pixels. F = s.f is padded to FP sums a pixel, the padded outputs' weights
+// zero: two instances, FP = 3 (RGB, and grey padded) and FP = 8, cover every
+// F and keep the sums in registers.
+template <int FP>
+__global__ void __launch_bounds__(kNwThreads, 1)
+    conv3x3_narrow_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                              const float* __restrict__ bias, float* __restrict__ y, TcShape s,
+                              int act) {
+  const int F = s.f;
+  extern __shared__ __align__(128) float4 nf_smem[];
+  // [kNfStages][kNfTH + 2][kNwHW][kNfLd]
+  float* const halo = reinterpret_cast<float*>(nf_smem);
+  float4* const w_s = reinterpret_cast<float4*>(halo + kNfStages * kNfStage);
+  float* const out_s = reinterpret_cast<float*>(w_s + 9 * (s.c / 4) * FP);
+  float* const bias_s = out_s + kNwWarps * kNwTW * F;
+
+  const int chunks = s.c / kNfKC;
+  const int c4s = s.c / 4;
+  const long long n_tiles = (long long)s.n * s.h_tiles * s.w_tiles;
+  const long long first = blockIdx.x;
+  if (first >= n_tiles) return;
+  const long long steps = ((n_tiles - 1 - first) / gridDim.x + 1) * chunks;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int row0 = warp * kNfR;
+
+  // step j's halo into stage j % kNfStages; one commit group a step, empty
+  // past the last step, so that waiting for all but kNfStages - 1 groups
+  // always means this step's
+  const auto copy_step = [&](long long j) {
+    if (j < steps)
+      copy_halo<kNfTH, kNwTW, kNwThreads, true>(
+          halo + (j % kNfStages) * kNfStage, kNfLd, x, s,
+          tile_of<kNfTH, kNwTW>(s, first + j / chunks * gridDim.x), (int)(j % chunks) * kNfKC,
+          kNfKC);
+    __pipeline_commit();
+  };
+  for (int j = 0; j < kNfStages - 1; ++j) copy_step(j);
+  // w is (9 C, F): component c % 4 of w_s[(tap, c / 4, f)] is w[tap C + c][f],
+  // zero for f >= F
+  float* const w_f = reinterpret_cast<float*>(w_s);
+  for (int e = threadIdx.x; e < 9 * s.c * FP; e += kNwThreads) {
+    const int f = e % FP;
+    const int k = e / FP;  // tap * C + c
+    const int tap = k / s.c;
+    const int c = k - tap * s.c;
+    w_f[((tap * c4s + c / 4) * FP + f) * 4 + c % 4] = f < F ? w[k * F + f] : 0.f;
+  }
+  for (int i = threadIdx.x; i < F; i += kNwThreads) bias_s[i] = bias[i];
+
+  float acc[kNfR][FP];
+  for (long long step = 0; step < steps; ++step) {
+    const TcTile t = tile_of<kNfTH, kNwTW>(s, first + step / chunks * gridDim.x);
+    const int chunk = (int)(step % chunks);
+    copy_step(step + kNfStages - 1);  // into the stage read by step - 1
+    __pipeline_wait_prior(kNfStages - 1);
+    __syncthreads();  // this step's halo (and, at first, the weights) landed
+
+    if (chunk == 0) {
+#pragma unroll
+      for (int r = 0; r < kNfR; ++r)
+#pragma unroll
+        for (int f = 0; f < FP; ++f) acc[r][f] = 0.f;
+    }
+    const float* col = halo + (step % kNfStages) * kNfStage + (row0 * kNwHW + lane) * kNfLd;
+    const float4* w_chunk = w_s + chunk * (kNfKC / 4) * FP;
+#pragma unroll
+    for (int q = 0; q < kNfKC / 4; ++q) {
+#pragma unroll
+      for (int dx = 0; dx < 3; ++dx) {
+        float4 xv[kNfR + 2];
+#pragma unroll
+        for (int j = 0; j < kNfR + 2; ++j)
+          xv[j] = *reinterpret_cast<const float4*>(col + (j * kNwHW + dx) * kNfLd + 4 * q);
+#pragma unroll
+        for (int dy = 0; dy < 3; ++dy) {
+#pragma unroll
+          for (int f = 0; f < FP; ++f) {
+            const float4 wv = w_chunk[((dy * 3 + dx) * c4s + q) * FP + f];
+#pragma unroll
+            for (int r = 0; r < kNfR; ++r) {
+              const float4 v = xv[r + dy];
+              acc[r][f] = fmaf(v.x, wv.x, acc[r][f]);
+              acc[r][f] = fmaf(v.y, wv.y, acc[r][f]);
+              acc[r][f] = fmaf(v.z, wv.z, acc[r][f]);
+              acc[r][f] = fmaf(v.w, wv.w, acc[r][f]);
+            }
+          }
+        }
+      }
+    }
+
+    if (chunk == chunks - 1) {
+      // epilogue: each row of the warp through its staging, then stored
+      float* const st = out_s + warp * kNwTW * F;
+      const int live = s.w_img - t.w0 < kNwTW ? s.w_img - t.w0 : kNwTW;
+#pragma unroll
+      for (int r = 0; r < kNfR; ++r) {
+#pragma unroll
+        for (int f = 0; f < FP; ++f)
+          if (f < F) st[lane * F + f] = activate(acc[r][f] + bias_s[f], act);
+        __syncwarp();
+        const int oh = t.h0 + row0 + r;
+        if (oh < s.h_img)
+          store_row(y + ((t.img * s.h_img + oh) * s.w_img + t.w0) * F, st, live * F, lane);
+        __syncwarp();  // the next row overwrites the staging
+      }
+    }
+    __syncthreads();  // this stage may now be overwritten
+  }
+}
+
+// mma.sync.m16n8k16 operands in the PTX ISA's register layouts, g = lane /
+// 4, t = lane % 4. A, 16 pixels x 16 inputs: a[i] holds (pixel g + 8 (i %
+// 2), inputs 8 (i / 2) + 2t, + 1). B, 16 inputs x 8 outputs: b[i] holds
+// (inputs 8i + 2t, + 1; output g). D, 16 pixels x 8 outputs: d[2e + i] is
+// (pixel g + 8e, output 2t + i).
+struct NarrowA {
+  unsigned r[4];
+};
+
+// ldmatrix.x4 of an A operand: 16 pixels from p (stride ld values) x inputs
+// 0..15; lane l names row l % 8 of matrix l / 8, which covers pixels 8 (i %
+// 2).. and inputs 8 (i / 2)..
+__device__ __forceinline__ void load_a16(NarrowA& a, const __nv_bfloat16* p, int ld, int lane) {
+  const int i = lane / 8;
+  const __nv_bfloat16* row = p + (lane % 8 + 8 * (i % 2)) * ld + 8 * (i / 2);
+#ifdef __CUDA_ARCH__
+  const unsigned addr = (unsigned)__cvta_generic_to_shared(row);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(a.r[0]), "=r"(a.r[1]), "=r"(a.r[2]), "=r"(a.r[3])
+               : "r"(addr));
+#elif !defined(__CUDACC__)
+  emu_ldmatrix_x4(a.r, row);  // the CPU stand-in (ops/emulate.py)
+#endif
+}
+
+// d += a x b on one m16n8k16 product
+__device__ __forceinline__ void mma_n8(float (&d)[4], const NarrowA& a, const unsigned (&b)[2]) {
+#ifdef __CUDA_ARCH__
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a.r[0]), "r"(a.r[1]), "r"(a.r[2]), "r"(a.r[3]), "r"(b[0]), "r"(b[1]));
+#elif !defined(__CUDACC__)
+  emu_mma_m16n8k16(d, a.r, b[0], b[1]);
+#endif
+}
+
+// Persistent: block b walks tiles b, b + gridDim.x, ...; the halos (all C
+// channels) of the next kNbStages - 1 tiles are in flight (cp.async) in a ring
+// of stages while this tile's products run. Output channels are padded to n = 8
+// (F <= 8 live). Warp w owns M tile w % 2 (16 columns) x kNbR rows from row
+// kNbR (w / 2). B, the whole 9 x C x 8 weight, stays in registers (9 KS
+// k-steps x 2). Each A operand, loaded once per halo row, kw tap and k-step,
+// serves the up to three output rows it is a kh tap of. C = s.c is padded to
+// kNwMaxC: the halo's channels past C are zeroed once and their weights are
+// zero, so one instance covers every C.
+__global__ void __launch_bounds__(kNwThreads, 1)
+    conv3x3_narrow_tc_kernel(const __nv_bfloat16* __restrict__ x,
+                             const __nv_bfloat16* __restrict__ w,
+                             const float* __restrict__ bias, __nv_bfloat16* __restrict__ y,
+                             TcShape s, int act) {
+  constexpr int KS = kNwMaxC / 16;  // k-steps a tap
+  constexpr int kLd = kNwMaxC + 8;
+  constexpr int kStage = (kNbTH + 2) * kNwHW * kLd;  // bf16 values
+  const int C = s.c;
+  extern __shared__ __align__(128) float4 nb_smem[];
+  __nv_bfloat16* const halo = reinterpret_cast<__nv_bfloat16*>(nb_smem);  // [kNbStages][kStage]
+  __nv_bfloat16* const out_s = halo + kNbStages * kStage;  // [kNwWarps][16 * kNwMaxF]
+  float* const bias_s = reinterpret_cast<float*>(out_s + kNwWarps * 16 * kNwMaxF);
+
+  const long long n_tiles = (long long)s.n * s.h_tiles * s.w_tiles;
+  const long long first = blockIdx.x;
+  if (first >= n_tiles) return;
+  const long long tiles = (n_tiles - 1 - first) / gridDim.x + 1;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;
+  const int tq = lane % 4;
+  const int col0 = 16 * (warp % 2);
+  const int row0 = kNbR * (warp / 2);
+
+  // tile j's halo into stage j % kNbStages, one commit group a tile (as in
+  // the f32 kernel); at C = kNwMaxC the copy's channel count is a constant,
+  // and its index math has no division
+  const auto copy_tile = [&](long long j) {
+    if (j < tiles) {
+      __nv_bfloat16* const dst = halo + (j % kNbStages) * kStage;
+      const TcTile t = tile_of<kNbTH, kNwTW>(s, first + j * gridDim.x);
+      if (C == kNwMaxC)
+        copy_halo<kNbTH, kNwTW, kNwThreads, true>(dst, kLd, x, s, t, 0, kNwMaxC);
+      else
+        copy_halo<kNbTH, kNwTW, kNwThreads, true>(dst, kLd, x, s, t, 0, C);
+    }
+    __pipeline_commit();
+  };
+  // the padded channels C .. kNwMaxC of every halo pixel, which no copy writes
+  const int pad = (kNwMaxC - C) / 8;  // 16-byte groups a pixel
+  for (int e = threadIdx.x; e < kNbStages * (kNbTH + 2) * kNwHW * pad; e += kNwThreads)
+    *reinterpret_cast<uint4*>(halo + (e / pad) * kLd + C + 8 * (e % pad)) = uint4{0, 0, 0, 0};
+  for (int j = 0; j < kNbStages - 1; ++j) copy_tile(j);
+  // w is (9 C, F): b[tap KS + kk][i] = (w[tap C + c][g], w[tap C + c + 1][g])
+  // with c = 16 kk + 8 i + 2 tq; zero for the padded outputs g >= F and the
+  // padded channels c >= C
+  unsigned b[9 * KS][2];
+#pragma unroll
+  for (int tap = 0; tap < 9; ++tap)
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int c = 16 * kk + 8 * i + 2 * tq;
+        unsigned lo = 0, hi = 0;
+        if (g < s.f && c < C) {
+          lo = __bfloat16_as_ushort(w[(tap * C + c) * s.f + g]);
+          hi = __bfloat16_as_ushort(w[(tap * C + c + 1) * s.f + g]);
+        }
+        b[tap * KS + kk][i] = lo | (hi << 16);
+      }
+  for (int i = threadIdx.x; i < s.f; i += kNwThreads) bias_s[i] = bias[i];
+
+  for (long long i = 0; i < tiles; ++i) {
+    const TcTile t = tile_of<kNbTH, kNwTW>(s, first + i * gridDim.x);
+    copy_tile(i + kNbStages - 1);  // into the stage read by tile i - 1
+    __pipeline_wait_prior(kNbStages - 1);
+    __syncthreads();  // this tile's halo landed
+
+    float acc[kNbR][4];
+#pragma unroll
+    for (int r = 0; r < kNbR; ++r)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[r][e] = 0.f;
+    const __nv_bfloat16* base = halo + (i % kNbStages) * kStage + (row0 * kNwHW + col0) * kLd;
+#pragma unroll
+    for (int hr = 0; hr < kNbR + 2; ++hr)
+#pragma unroll
+      for (int dx = 0; dx < 3; ++dx)
+#pragma unroll
+        for (int kk = 0; kk < KS; ++kk) {
+          NarrowA a;
+          load_a16(a, base + (hr * kNwHW + dx) * kLd + 16 * kk, kLd, lane);
+#pragma unroll
+          for (int dy = 0; dy < 3; ++dy) {
+            const int r = hr - dy;
+            if (r >= 0 && r < kNbR) mma_n8(acc[r], a, b[(dy * 3 + dx) * KS + kk]);
+          }
+        }
+
+    // epilogue: each row of the warp's M tile through its staging, then stored
+    __nv_bfloat16* const st = out_s + warp * 16 * kNwMaxF;
+    const int left = s.w_img - t.w0 - col0;
+    const int live = left < 16 ? left : 16;
+#pragma unroll
+    for (int r = 0; r < kNbR; ++r) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const int f = 2 * tq + q;
+          if (f < s.f)
+            st[(g + 8 * e) * s.f + f] =
+                __float2bfloat16_rn(activate(acc[r][2 * e + q] + bias_s[f], act));
+        }
+      __syncwarp();
+      const int oh = t.h0 + row0 + r;
+      if (oh < s.h_img && live > 0)
+        store_row(y + ((t.img * s.h_img + oh) * s.w_img + t.w0 + col0) * s.f, st, live * s.f,
+                  lane);
+      __syncwarp();  // the next row overwrites the staging
+    }
+    __syncthreads();  // this stage may now be overwritten
+  }
+}
+
+// one persistent launch of a narrow kernel whose shared-memory attribute
+// `attr` has been set: as many blocks as the card holds at once, at most
+// one a tile
+template <typename T, typename K>
+int launch_narrow(K kernel, cudaError_t attr, int smem, const TcShape& s, const void* x,
+                  const void* w, const void* bias, void* y, int act, void* stream) {
+  if (attr != cudaSuccess) return (int)attr;
+  long long blocks = 0;
+  const cudaError_t err = resident_blocks(kernel, kNwThreads, smem, &blocks);
+  if (err != cudaSuccess) return (int)err;
+  const long long n_tiles = (long long)s.n * s.h_tiles * s.w_tiles;
+  blocks = blocks > n_tiles ? n_tiles : blocks;
+  kernel<<<(unsigned)blocks, kNwThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(x), static_cast<const T*>(w), static_cast<const float*>(bias),
+      static_cast<T*>(y), s, act);
+  return (int)cudaGetLastError();
+}
+
+
+// each f32 instance sets its largest shared memory once per process
+template <int FP>
+int narrow_f32(const void* x, const void* w, const void* bias, void* y, const TcShape& s,
+               int act, void* stream) {
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(conv3x3_narrow_f32_kernel<FP>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, nf_smem_bytes(kNwMaxC, FP));
+  return launch_narrow<float>(conv3x3_narrow_f32_kernel<FP>, attr, nf_smem_bytes(s.c, FP), s, x,
+                              w, bias, y, act, stream);
+}
+
+// what the narrow entries take: F <= 8, C a multiple of 16 up to 64, x
+// 16-byte aligned (its 16-byte halo copies)
+int narrow_refusal(const void* x, int n, int h, int w_img, int c, int f) {
+  if (n <= 0 || h <= 0 || w_img <= 0 || f < 1 || f > kNwMaxF || c < 16 || c > kNwMaxC ||
+      c % 16)
+    return cudaErrorInvalidValue;
+  if (reinterpret_cast<std::uintptr_t>(x) % 16) return cudaErrorMisalignedAddress;
+  return cudaSuccess;
+}
+
+int conv3x3_narrow_f32(const void* x, const void* w, const void* bias, void* y, int n, int h,
+                       int w_img, int c, int f, int act, void* stream) {
+  const int refused = narrow_refusal(x, n, h, w_img, c, f);
+  if (refused) return refused;
+  const TcShape s{n, h, w_img, c, f, (h + kNfTH - 1) / kNfTH, (w_img + kNwTW - 1) / kNwTW};
+  return f <= 3 ? narrow_f32<3>(x, w, bias, y, s, act, stream)
+                : narrow_f32<kNwMaxF>(x, w, bias, y, s, act, stream);
+}
+
+int conv3x3_narrow_bf16(const void* x, const void* w, const void* bias, void* y, int n, int h,
+                        int w_img, int c, int f, int act, void* stream) {
+  const int refused = narrow_refusal(x, n, h, w_img, c, f);
+  if (refused) return refused;
+  const TcShape s{n, h, w_img, c, f, (h + kNbTH - 1) / kNbTH, (w_img + kNwTW - 1) / kNwTW};
+  // its shared memory, set once per process
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      conv3x3_narrow_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kNbSmemBytes);
+  return launch_narrow<__nv_bfloat16>(conv3x3_narrow_tc_kernel, attr, kNbSmemBytes, s, x, w, bias,
+                                      y, act, stream);
 }
 
 }  // namespace
@@ -580,4 +1022,20 @@ extern "C" int conv3x3_bias_act_bf16_tc(const void* x, const void* w, const void
                                         void* y, int n, int h, int w_img, int c, int f, int act,
                                         void* stream) {
   return conv3x3_bias_act_tc(x, w, bias, y, n, h, w_img, c, f, act, stream);
+}
+
+// The narrow-output path, F <= 8 with C a multiple of 16 up to 64: f32 on
+// the CUDA cores, bf16 on the tensor cores. x must be 16-byte aligned; any
+// other shape or a misaligned x returns cudaErrorInvalidValue /
+// cudaErrorMisalignedAddress with nothing launched.
+extern "C" int conv3x3_bias_act_f32_narrow(const void* x, const void* w, const void* bias,
+                                           void* y, int n, int h, int w_img, int c, int f,
+                                           int act, void* stream) {
+  return conv3x3_narrow_f32(x, w, bias, y, n, h, w_img, c, f, act, stream);
+}
+
+extern "C" int conv3x3_bias_act_bf16_narrow(const void* x, const void* w, const void* bias,
+                                            void* y, int n, int h, int w_img, int c, int f,
+                                            int act, void* stream) {
+  return conv3x3_narrow_bf16(x, w, bias, y, n, h, w_img, c, f, act, stream);
 }

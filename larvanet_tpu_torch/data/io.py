@@ -2,8 +2,9 @@
 
 Images travel through the port as the reference's loader contract has
 them: CHW float32 RGB in [0, 255]. The card's machine has no Pillow, so
-PNGs go through the port's own codec (`data/png.py`), which decodes the
-same 8-bit bytes to the same values.
+PNGs go through the port's own codec (`data/png.py`), which decodes every
+PNG to the values the JAX loader's libpng decoder gives (16-bit greyscale
+keeps its high byte, as `png_set_strip_16` does).
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ from larvanet_tpu_torch.data import png
 def load_image_u8(path: str) -> np.ndarray:
     """Read a PNG as HWC uint8 RGB."""
     with open(path, "rb") as f:
-        return png.decode(f.read())
+        return png.decode(f.read(), grey16="high")
 
 
 def load_image_chw(path: str) -> np.ndarray:

@@ -10,12 +10,15 @@ does (pallas_conv.py:76-77).
 
 `conv3x3_bias_act` launches `csrc/conv3x3_bias_act.cu` for a CUDA
 tensor and raises on anything that kernel does not take; only a CPU
-tensor goes to `conv3x3_bias_act_reference`. The source has two paths,
+tensor goes to `conv3x3_bias_act_reference`. The source has three paths,
 chosen by shape (`path_for`), never by retrying after a failure:
-"tensor_core" (bf16 with C and F multiples of 16, WMMA over a halo tile in
-shared memory) and "cuda_core" (everything else). `LAUNCHES` counts the
-kernel's launches and `LAUNCHES_BY_PATH` each path's, so a run can show
-that its path went through them.
+"narrow" (F <= 8 with C a multiple of 16 up to 64, both dtypes: EDSR's
+64->3 final_conv; a streaming kernel over a double-buffered halo, bf16 on
+mma.sync and f32 on the CUDA cores), "tensor_core" (bf16 with C and F
+multiples of 16, WMMA over a halo tile in shared memory) and "cuda_core"
+(everything else). `LAUNCHES` counts the kernel's launches and
+`LAUNCHES_BY_PATH` each path's, so a run can show that its path went
+through them.
 """
 
 from __future__ import annotations
@@ -33,10 +36,16 @@ SOURCE = "conv3x3_bias_act.cu"
 ACTS = {None: 0, "relu": 1, "leaky_relu": 2}
 _ENTRY = {("cuda_core", torch.float32): "conv3x3_bias_act_f32",
           ("cuda_core", torch.bfloat16): "conv3x3_bias_act_bf16",
-          ("tensor_core", torch.bfloat16): "conv3x3_bias_act_bf16_tc"}
+          ("tensor_core", torch.bfloat16): "conv3x3_bias_act_bf16_tc",
+          ("narrow", torch.float32): "conv3x3_bias_act_f32_narrow",
+          ("narrow", torch.bfloat16): "conv3x3_bias_act_bf16_narrow"}
+# the narrow path's shapes: its bf16 products pad F to mma.sync's n = 8, and
+# its bf16 kernel keeps the whole 9 x 64 x 8 weight in registers
+NARROW_MAX_F = 8
+NARROW_MAX_C = 64
 
 LAUNCHES = 0
-LAUNCHES_BY_PATH: Dict[str, int] = {"cuda_core": 0, "tensor_core": 0}
+LAUNCHES_BY_PATH: Dict[str, int] = {"cuda_core": 0, "tensor_core": 0, "narrow": 0}
 
 
 def reset_launches() -> None:
@@ -47,9 +56,12 @@ def reset_launches() -> None:
 
 
 def path_for(c: int, f: int, dtype: torch.dtype) -> str:
-    """The kernel path for a C -> F conv in `dtype`: the tensor cores take
-    bf16 with C and F multiples of 16 (WMMA's 16-deep bf16 fragments),
-    the CUDA cores the rest."""
+    """The kernel path for a C -> F conv in `dtype`: the narrow path takes
+    F <= 8 with C a multiple of 16 up to 64 in either dtype, the tensor
+    cores bf16 with C and F multiples of 16 (WMMA's 16-deep bf16
+    fragments), the CUDA cores the rest."""
+    if f <= NARROW_MAX_F and c % 16 == 0 and c <= NARROW_MAX_C:
+        return "narrow"
     if dtype == torch.bfloat16 and c % 16 == 0 and f % 16 == 0:
         return "tensor_core"
     return "cuda_core"

@@ -24,7 +24,8 @@ SHAPES = [((1, 33, 48, 32), 16),  # tools/pallas_check.py:33
           ((2, 7, 9, 3), 8),       # C = 3, as EDSR's first_conv
           ((1, 10, 13, 8), 3),     # F = 3, as EDSR's final_conv
           ((1, 9, 17, 48), 48),    # C = F = 48, LarvaNet's trunk width
-          ((1, 6, 10, 64), 64)]    # C = F = 64, EDSR-baseline's trunk
+          ((1, 6, 10, 64), 64),    # C = F = 64, EDSR-baseline's trunk
+          ((1, 12, 20, 64), 3)]    # 64 -> 3, final_conv at full input width
 
 
 def _inputs(shape, f, seed=0):
@@ -90,7 +91,13 @@ def test_wrapper_rejects_unknown_activation():
     (64, 256, torch.bfloat16, "tensor_core"),  # EDSR upsample
     (48, 48, torch.bfloat16, "tensor_core"),   # LarvaNet trunk
     (3, 64, torch.bfloat16, "cuda_core"),      # first_conv
-    (64, 3, torch.bfloat16, "cuda_core"),      # final_conv
+    (64, 3, torch.bfloat16, "narrow"),         # final_conv
+    (64, 3, torch.float32, "narrow"),          # final_conv in f32
+    (64, 8, torch.bfloat16, "narrow"),         # the widest narrow output
+    (16, 1, torch.float32, "narrow"),          # the narrowest input
+    (64, 9, torch.float32, "cuda_core"),       # F = 9: past the narrow path
+    (80, 3, torch.bfloat16, "cuda_core"),      # C = 80: past its weights in registers
+    (3, 3, torch.bfloat16, "cuda_core"),       # C = 3, F = 3
     (24, 64, torch.bfloat16, "cuda_core"),     # C a multiple of 8, not 16
     (64, 64, torch.float32, "cuda_core"),      # f32 never takes the tensor cores
 ])
@@ -107,8 +114,9 @@ def test_cpu_tensor_counts_no_launch_on_either_path():
                                    torch.from_numpy(k), torch.from_numpy(b), "relu")
     assert out.dtype == torch.bfloat16 and out.shape == (1, 5, 6, 16)
     assert conv3x3.LAUNCHES == 0
-    assert conv3x3.LAUNCHES_BY_PATH == {"cuda_core": 0, "tensor_core": 0}
+    assert conv3x3.LAUNCHES_BY_PATH == {"cuda_core": 0, "tensor_core": 0, "narrow": 0}
     conv3x3.LAUNCHES_BY_PATH["tensor_core"] = 3
-    conv3x3.LAUNCHES = 3
+    conv3x3.LAUNCHES_BY_PATH["narrow"] = 1
+    conv3x3.LAUNCHES = 4
     conv3x3.reset_launches()
     assert conv3x3.LAUNCHES == 0 and set(conv3x3.LAUNCHES_BY_PATH.values()) == {0}

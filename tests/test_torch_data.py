@@ -8,6 +8,7 @@ PNG codec.
 """
 
 import os
+import subprocess
 
 import numpy as np
 import pytest
@@ -16,6 +17,7 @@ import torch
 from larvanet_tpu.core.registry import get_loader as jax_get_loader
 from larvanet_tpu.data import fixture
 from larvanet_tpu.data import io as jax_io
+from larvanet_tpu.data import native as jax_native
 from larvanet_tpu.eval import metrics as jax_metrics
 from larvanet_tpu_torch.core.registry import get_loader
 from larvanet_tpu_torch.data import io
@@ -23,6 +25,7 @@ from larvanet_tpu_torch.data.dataset import PairDataset
 from larvanet_tpu_torch.data.loaders import BaseLoader
 from larvanet_tpu_torch.eval import metrics
 from larvanet_tpu_torch.eval.pipeline import pipelined_upscale
+from torch_png_cases import CASES, case_png
 
 # float64 arithmetic in the same order on both sides
 METRIC_TOL = 1e-12
@@ -103,6 +106,46 @@ def test_png_io_round_trip_with_pillow(tmp_path):
     np.testing.assert_array_equal(jax_io.load_image_u8(str(tmp_path / "sub" / "port.png")),
                                   jax_io.load_image_u8(str(tmp_path / "pil2.png")))
     assert io.list_pngs(str(tmp_path)) == jax_io.list_pngs(str(tmp_path)) == ["pil", "pil2"]
+
+
+@pytest.fixture(scope="module")
+def jax_libpng(tmp_path_factory):
+    """The JAX loader with its libpng decoder, as it runs when the native
+    library is built. Where the shared build is missing, the same source is
+    compiled into a private directory, so that no other test's build of it
+    is raced."""
+    if jax_native.available():
+        yield
+        return
+    out = tmp_path_factory.mktemp("native") / "liblvtdata.so"
+    repo = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(jax_native.__file__))))
+    src = os.path.join(repo, "native", "lvt_data.cpp")
+    proc = subprocess.run(["g++", "-O3", "-fPIC", "-shared", "-std=c++17", "-o", str(out), src,
+                           "-lpng", "-lz", "-pthread"], capture_output=True, text=True)
+    if proc.returncode != 0:
+        pytest.skip("no libpng toolchain to build the JAX loader's decoder:\n" + proc.stderr)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax_native, "_LIB_PATH", str(out))
+        mp.setattr(jax_native, "_lib", None)
+        assert jax_native.available()
+        yield
+
+
+@pytest.mark.parametrize("interlace", [False, True])
+@pytest.mark.parametrize("case", CASES)
+def test_load_image_u8_matches_jax_loader_on_every_png_kind(jax_libpng, tmp_path, case,
+                                                             interlace):
+    """The loaders' decode against the JAX loader's libpng path, exactly:
+    palettes, grey + alpha, packed grey, 16-bit RGB(A), and 16-bit grey,
+    which libpng takes by its high byte (the port's "high" rule)."""
+    path = str(tmp_path / "img.png")
+    with open(path, "wb") as f:
+        f.write(case_png(case, seed=3, interlace=interlace))
+    want = jax_io.load_image_u8(path)
+    got = io.load_image_u8(path)
+    assert got.shape == want.shape == (13, 17, 3) and got.dtype == want.dtype == np.uint8
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(io.load_image_chw(path), jax_io.load_image_chw(path))
 
 
 def test_dataset_rejects_unknown_scheme_and_training_methods_raise():

@@ -115,6 +115,57 @@ def test_conv3x3_tensor_core_entry_refuses_what_it_cannot_take(conv_lib, case):
         conv3x3._run(fn, x, k, b, None, None)
 
 
+@pytest.mark.parametrize("dname", ["f32", "bf16"])
+@pytest.mark.parametrize("shape,f,act", [
+    ((1, 10, 11, 64), 3, None),          # final_conv, a frame smaller than one tile
+    ((1, 32, 64, 16), 8, "leaky_relu"),  # tiles end exactly on the last row and column
+    ((2, 37, 45, 64), 1, "relu"),        # batch 2, ragged in H and W, several tiles
+    ((1, 20, 40, 16), 3, "relu"),        # C = 16, ragged last column tile
+    ((1, 33, 35, 64), 8, None),          # one row and three columns past a tile
+    ((1, 9, 70, 32), 5, "leaky_relu"),   # C = 32, three tiles along W
+])
+def test_conv3x3_narrow_path_matches_plain_version(conv_lib, shape, f, act, dname):
+    """The persistent narrow kernels (f32: 32 x 32 tiles in 16-channel chunks;
+    bf16: 16 x 32 tiles on mma.sync) on the stand-in's one-SM card: one block
+    walks every tile, copying the next halo while the current one is used."""
+    dtype = DTYPES[dname]
+    assert conv3x3.path_for(shape[3], f, dtype) == "narrow"
+    rng = np.random.default_rng(sum(shape) + f)
+    x = _t(rng.standard_normal(shape)).to(dtype)
+    k = _t(0.1 * rng.standard_normal((3, 3, shape[3], f)))
+    b = _t(rng.standard_normal(f))
+    got = conv3x3._run(conv3x3.bind(conv_lib, dtype, "narrow"), x, k, b, act, None)
+    want = conv3x3.conv3x3_bias_act_reference(x, k, b, act)
+    assert got.shape == want.shape and got.dtype == want.dtype
+    diff = (got.float() - want.float()).abs()
+    print("emulated conv3x3 narrow %s %s->%d %s: max|d| %.3g, %d of %d values differ"
+          % (dname, shape, f, act, float(diff.max()), int((diff > 0).sum()), diff.numel()))
+    assert torch.isfinite(got.float()).all()
+    if dname == "f32":
+        assert float(diff.max()) <= F32_ATOL["conv"]
+    else:
+        assert bool((diff <= BF16_ATOL + BF16_RTOL * want.float().abs()).all())
+
+
+@pytest.mark.parametrize("dname", ["f32", "bf16"])
+@pytest.mark.parametrize("case", ["f_9", "c_not_16", "c_80", "misaligned"])
+def test_conv3x3_narrow_entry_refuses_what_it_cannot_take(conv_lib, case, dname):
+    """Nothing is launched and the wrapper raises: F > 8, C not a multiple of
+    16 or above 64 (cudaErrorInvalidValue), x not 16-byte aligned
+    (cudaErrorMisalignedAddress)."""
+    dtype = DTYPES[dname]
+    c, f = {"f_9": (16, 9), "c_not_16": (24, 3), "c_80": (80, 3)}.get(case, (16, 3))
+    shape = (1, 4, 5, c)
+    x = torch.zeros(shape, dtype=dtype)
+    if case == "misaligned":
+        x = torch.zeros(x.numel() + 1, dtype=dtype)[1:].view(shape)
+    k, b = torch.zeros((3, 3, c, f)), torch.zeros(f)
+    fn = conv3x3.bind(conv_lib, dtype, "narrow")
+    code = 716 if case == "misaligned" else 1
+    with pytest.raises(RuntimeError, match="CUDA error %d" % code):
+        conv3x3._run(fn, x, k, b, None, None)
+
+
 @pytest.mark.parametrize("m", [2, 4])
 @pytest.mark.parametrize("dname,shape,rw,b_a", [
     ("f32", (1, 13, 34, 64), 0.7, None),   # odd H, ragged tiles in H and W

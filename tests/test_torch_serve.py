@@ -8,6 +8,7 @@ dynamic batching, draining, and the refusal to run without CUDA.
 """
 
 import argparse
+import io
 import json
 import threading
 import time
@@ -17,6 +18,7 @@ import urllib.request
 import numpy as np
 import pytest
 import torch
+from PIL import Image
 
 from larvanet_tpu.cli import serve as jax_serve
 from larvanet_tpu_torch.cli import serve
@@ -117,7 +119,7 @@ def test_png_reply_equals_upscale_uint8_and_jax_server(port_server, tmp_path):
 
     code, reply = _post(url + "/upscale", body)
     assert code == 200
-    got = png.decode(reply)
+    got = png.decode(reply, grey16="clip")
     assert got.shape == (36, 44, 3)
     # most pixels must lie inside the range, or the clamp hides errors
     inside = float(np.mean((got > 0) & (got < 255)))
@@ -148,7 +150,8 @@ def test_png_reply_equals_upscale_uint8_and_jax_server(port_server, tmp_path):
         jhttpd.shutdown()
         jhttpd.server_close()
     assert jcode == 200
-    levels = int(np.abs(got.astype(np.int16) - png.decode(jreply).astype(np.int16)).max())
+    jgot = png.decode(jreply, grey16="clip")
+    levels = int(np.abs(got.astype(np.int16) - jgot.astype(np.int16)).max())
     print("parity served PNG vs JAX server: max %d uint8 level(s)" % levels)
     assert levels <= 1
 
@@ -223,6 +226,25 @@ def _burst(url, images):
     return results
 
 
+def test_palette_png_is_served_as_its_rgb_image(port_server):
+    """A palette PNG answers 200 with the bytes of the same image sent as
+    RGB (the JAX server decodes it with Pillow's convert("RGB"))."""
+    service, url, _ = port_server
+    service.ready or service.warmup(8, 8)
+    rng = np.random.default_rng(1)
+    palette = rng.integers(0, 256, (16, 3), dtype=np.uint8)
+    index = rng.integers(0, 16, (9, 11), dtype=np.uint8)
+    im = Image.frombytes("P", (11, 9), index.tobytes())
+    im.putpalette(palette.tobytes())
+    buf = io.BytesIO()
+    im.save(buf, format="PNG", bits=4)
+    rgb_code, rgb_reply = _post(url + "/upscale", png.encode(palette[index]))
+    code, reply = _post(url + "/upscale", buf.getvalue())
+    assert rgb_code == code == 200
+    assert reply == rgb_reply
+    assert png.decode(reply, grey16="clip").shape == (36, 44, 3)
+
+
 def test_load_shedding_503():
     service = serve.SRService(_SlowModel(hold_s=0.3), 4, max_queue=1)
     service.ready = True
@@ -250,7 +272,7 @@ def test_dynamic_batch_coalesces_and_keeps_each_frame():
         for i, (code, body) in results.items():
             assert code == 200
             np.testing.assert_array_equal(
-                png.decode(body), np.repeat(np.repeat(images[i], 4, 0), 4, 1))
+                png.decode(body, grey16="clip"), np.repeat(np.repeat(images[i], 4, 0), 4, 1))
         info = service.info()
         assert info["num_requests"] == 12
         assert info["num_forwards"] == len(model.batch_sizes) < 12
