@@ -13,15 +13,19 @@ fails:
  3. kernels: holds each kernel against its plain PyTorch version on the
     card at every conv shape of the x4 forward, for a batch of 4 LR tiles
     of 192x192 and one ragged 339x510 frame, in f32 (TF32 off) and bf16.
-    Each call must take the conv kernel's path that `path_for` names: the
-    narrow path for F <= 8 with C a multiple of 16 up to 64 (final_conv,
-    f32 and bf16), the tensor cores for bf16 with C and F multiples of 16,
-    else the CUDA cores; at the narrow and tensor-core shapes the CUDA-core
-    entry of the dtype is held and timed too, as the earlier kernel of the
-    same function. Prints each shape's kernel, plain-version and F.conv2d
-    times (CUDA events, mean of TIMED_REPS launches after WARMUP_REPS) and
-    its bound at the dtype's peak; at the narrow shapes also
-    x.sum(), one PyTorch read of x, as a yardstick of the bytes side.
+    Each call must take the conv kernel's path that X4_CONVS names and
+    `path_for` agrees with: the narrow path for final_conv (F <= 8 with C a
+    multiple of 16 up to 64), the tensor cores for C and F multiples of 16
+    (bf16 on WMMA, f32 in split TF32), else the CUDA cores; at the narrow
+    and tensor-core shapes the CUDA-core entry of the dtype is held and
+    timed too, as the earlier kernel of the same function. Prints each
+    shape's kernel, CUDA-core entry, plain-version and F.conv2d times and
+    its bound at the dtype's peak; at the narrow shapes also x.sum(), one
+    PyTorch read of x, as a yardstick of the bytes side. Every time in the
+    script is the median of WINDOWS windows of TIMED_REPS calls (CUDA
+    events, after WARMUP_REPS), printed with the windows' min-max; the
+    times compared on one row are taken in turns, window by window, in
+    the same call.
  3b. wino kernels: holds both fused Winograd ResBlock kernels (F(2,3) and
     F(4,3)) against their plain version at EDSR-baseline's ResBlock (C = 64)
     for the same two geometries, f32 and bf16 (res_weight 1.0, and 0.1 on
@@ -29,8 +33,8 @@ fails:
     the tensor-core entry, f32 the CUDA-core one; in bf16 the CUDA-core
     entry is held and timed too, as the earlier kernel of the same
     function. Prints each one's kernel, plain-version and cuDNN ResBlock
-    times (two F.conv2d, ReLU, add) and its bound beside the direct
-    ResBlock's.
+    times (two F.conv2d, ReLU, add; in turns, as in phase 3) and its bound
+    beside the direct ResBlock's.
  4. serve: EDSR-baseline x4 at full width (64 features, 16 ResBlocks),
     random weights from SEED with final_conv rescaled so the output spans
     the pixel range (see fit_output_range), saved as a .pth; the port's HTTP server
@@ -78,14 +82,17 @@ the validate run of phase 6 and the runtime runs of phase 7 with their
 (the 37 convs; the 16 ResBlocks), its time, its plain version's, the
 library's (F.conv2d; the cuDNN ResBlock) and its bound; and the largest
 f32 error of phase 3 or 3b. Each also gives the same sums in bf16, with
-the CUDA-core entries' sums beside them; the conv3x3 line adds the narrow
-path's final_conv times in both dtypes and geometries.
+the CUDA-core entries' sums beside them; the conv3x3 line adds the sums
+of its 35 tensor-core convs per dtype with their served launches (f32:
+the split-TF32 entry) and the narrow path's final_conv times in both
+dtypes and geometries.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -98,8 +105,13 @@ from unittest import mock
 SEED = 0
 WARMUP_REPS = 2
 TIMED_REPS = 10
+# timing windows of TIMED_REPS calls; a time is their median
+WINDOWS = 5
 # f32: the kernel and the plain version sum the same f32 products in another
-# order; tools/pallas_check.py holds the TPU kernel to the same bar.
+# order; tools/pallas_check.py holds the TPU kernel to the same bar. The
+# tensor-core entry's split-TF32 products drop a_lo b_lo, ~2^-22 of each
+# product, below that order's own rounding; one TF32 product (~2^-11 of
+# each) would miss the bar by an order of magnitude at C = 64.
 F32_ATOL = 2e-4
 # bf16: both see the same bf16 inputs and sum in f32, so the outputs differ by
 # at most one bf16 rounding step of the value: 2^-7 relative, plus a floor for
@@ -132,16 +144,15 @@ FWD_RTOL = 1e-4
 # twice the fused ResBlock's bar (WINO_BF16_RTOL) for a forward that
 # rounds 37 times in a row.
 BF16_FWD_RTOL = 2.0 ** -5
-# conv3x3 launches per x4 forward by path (ops/conv3x3.py path_for):
-# final_conv (64 -> 3) takes the narrow path in both dtypes; f32 runs the
-# other 36 convs on the CUDA cores; bf16 runs the 35 convs with C and F
-# multiples of 16 on the tensor cores and first_conv (C = 3) on the CUDA
-# cores
-PATH_LAUNCHES = {"f32": {"cuda_core": 36, "tensor_core": 0, "narrow": 1},
+# conv3x3 launches per x4 forward by path (ops/conv3x3.py path_for), the
+# same in both dtypes: final_conv (64 -> 3) takes the narrow path, the 35
+# convs with C and F multiples of 16 the tensor cores (f32 in split TF32),
+# first_conv (C = 3) the CUDA cores
+PATH_LAUNCHES = {"f32": {"cuda_core": 1, "tensor_core": 35, "narrow": 1},
                  "bf16": {"cuda_core": 1, "tensor_core": 35, "narrow": 1}}
 # the same for the 5 convs around the fused ResBlocks under --wino_trunk:
 # first_conv, after_res_conv, the two upsample convs, final_conv
-WINO_CONV_PATH_LAUNCHES = {"f32": {"cuda_core": 4, "tensor_core": 0, "narrow": 1},
+WINO_CONV_PATH_LAUNCHES = {"f32": {"cuda_core": 1, "tensor_core": 3, "narrow": 1},
                            "bf16": {"cuda_core": 1, "tensor_core": 3, "narrow": 1}}
 # fused ResBlock launches per x4 forward under --wino_trunk, by path
 # (ops/wino_resblock.py path_for): f32 on the CUDA cores, bf16 on the
@@ -163,21 +174,24 @@ VALIDATE_LR = ((120, 160), (96, 128), (64, 96), (48, 64))
 VALIDATE_ODD_LR = (67, 93)
 # share of served pixels strictly inside (0, 255)
 MIN_INSIDE = 0.9
-# H100 SXM peaks (NVIDIA data sheet): f32 on CUDA cores, bf16 dense tensor
-# cores, HBM3 bandwidth. A bound takes the card's peak for the dtype, whatever
-# units a kernel's path happens to run on.
-PEAK_FLOPS = {"f32": 67e12, "bf16": 989e12}
+# H100 SXM peaks (NVIDIA data sheet), HBM3 bandwidth. A bound takes the
+# card's fastest f32-accurate rate for the dtype, whatever units a kernel's
+# path happens to run on. bf16: the dense tensor cores, 989 TF/s. f32: the
+# tensor cores' 495 TF/s of TF32 over the three TF32 products (split TF32)
+# that one f32-accurate product takes, 165 TF/s, above the CUDA cores' 67.
+PEAK_FLOPS = {"f32": 495e12 / 3, "bf16": 989e12}
 PEAK_BYTES = 3.35e12
 LR_BATCH = (4, 192, 192)
 RAGGED = (1, 339, 510)
-# (name, LR-size multiple of the conv's input, C, F, act, launches per x4 forward)
+# (name, LR-size multiple of the conv's input, C, F, act, launches per x4
+# forward, the conv3x3 path it takes in both dtypes)
 X4_CONVS = (
-    ("first_conv", 1, 3, 64, None, 1),
-    ("res_block.body.0", 1, 64, 64, "relu", 16),
-    ("res_block.body.2+after_res_conv", 1, 64, 64, None, 17),
-    ("upsample.body.0", 1, 64, 256, None, 1),
-    ("upsample.body.2", 2, 64, 256, None, 1),
-    ("final_conv", 4, 64, 3, None, 1),
+    ("first_conv", 1, 3, 64, None, 1, "cuda_core"),
+    ("res_block.body.0", 1, 64, 64, "relu", 16, "tensor_core"),
+    ("res_block.body.2+after_res_conv", 1, 64, 64, None, 17, "tensor_core"),
+    ("upsample.body.0", 1, 64, 256, None, 1, "tensor_core"),
+    ("upsample.body.2", 2, 64, 256, None, 1, "tensor_core"),
+    ("final_conv", 4, 64, 3, None, 1, "narrow"),
 )
 
 
@@ -188,23 +202,38 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(torch, fn) -> float:
-    for _ in range(WARMUP_REPS):
-        fn()
+def time_windows(torch, fns):
+    """{name: (median, min, max)} ms per call of each callable in `fns`:
+    WINDOWS windows of TIMED_REPS calls each (CUDA events), after
+    WARMUP_REPS calls, the callables' windows taken in turns (a, b, c, a,
+    b, c, ...), so that a drift of the clocks within the call hits each of
+    them alike and one outlying window moves no median."""
+    for fn in fns.values():
+        for _ in range(WARMUP_REPS):
+            fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(TIMED_REPS):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / TIMED_REPS
+    times = {name: [] for name in fns}
+    for _ in range(WINDOWS):
+        for name, fn in fns.items():
+            torch.cuda.synchronize()
+            start.record()
+            for _ in range(TIMED_REPS):
+                fn()
+            end.record()
+            end.synchronize()
+            times[name].append(start.elapsed_time(end) / TIMED_REPS)
+    return {name: (statistics.median(t), min(t), max(t)) for name, t in times.items()}
+
+
+def spread(t) -> str:
+    """'median ms [min-max]' of a time_windows entry."""
+    return "%.4f ms [%.4f-%.4f]" % t
 
 
 def bound_ms(n, h, w, c, f, dtype_name):
     """The least time of one conv: bytes (x, kernel, outputs once; bias f32)
-    over HBM bandwidth vs operations over the dtype's peak."""
+    over HBM bandwidth vs operations over the dtype's peak (PEAK_FLOPS)."""
     item = 4 if dtype_name == "f32" else 2
     nbytes = item * (n * h * w * (c + f) + 9 * c * f) + 4 * f
     flops = 2 * n * h * w * 9 * c * f
@@ -227,7 +256,8 @@ def _conv_ok(torch, got, want, dname):
 
 def kernel_phase(torch):
     """Phase 3. Returns ({dtype: per-forward sums at the LR batch},
-    {dtype: worst error})."""
+    {dtype: the same over the tensor-core convs}, {dtype: worst error},
+    {dtype: final_conv's numbers by geometry})."""
     import torch.nn.functional as F
 
     from larvanet_tpu_torch.ops import conv3x3
@@ -236,14 +266,15 @@ def kernel_phase(torch):
 
     dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    sums = {d: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
-                "cuda_core_ms": 0.0} for d in dtypes}
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "cuda_core_ms")
+    sums = {d: dict.fromkeys(keys, 0.0) for d in dtypes}
+    tc_sums = {d: dict.fromkeys(keys, 0.0) for d in dtypes}
     # final_conv on the narrow path, per dtype and geometry
     narrow = {d: {} for d in dtypes}
     bound_kind = {d: {} for d in dtypes}
     worst = {d: 0.0 for d in dtypes}
     for geometry in (LR_BATCH, RAGGED):
-        for name, mult, c, f, act, count in X4_CONVS:
+        for name, mult, c, f, act, count, expected in X4_CONVS:
             n, h, w = geometry[0], geometry[1] * mult, geometry[2] * mult
             x32 = torch.randn((n, h, w, c), generator=gen, device="cuda")
             k32 = 0.1 * torch.randn((3, 3, c, f), generator=gen, device="cuda")
@@ -251,6 +282,9 @@ def kernel_phase(torch):
             for dname, dtype in dtypes.items():
                 x = x32.to(dtype)
                 path = path_for(c, f, dtype)
+                if path != expected:
+                    raise AssertionError("%s %s: path_for names %s, not %s"
+                                         % (name, dname, path, expected))
                 before = dict(conv3x3.LAUNCHES_BY_PATH)
                 got = conv3x3_bias_act(x, k32, b32, act)
                 torch.cuda.synchronize()  # a fault during the run shows here
@@ -268,19 +302,14 @@ def kernel_phase(torch):
                 w_oihw = k32.to(dtype).permute(3, 2, 0, 1).contiguous()
                 x_nchw = x.permute(0, 3, 1, 2)  # channels_last view of NHWC
                 b_lib = b32.to(dtype)
-                ms = time_ms(torch, lambda: conv3x3_bias_act(x, k32, b32, act))
-                plain = time_ms(torch, lambda: conv3x3_bias_act_reference(x, k32, b32, act))
-                lib = time_ms(torch, lambda: F.conv2d(x_nchw, w_oihw, b_lib, padding=1))
-                bound, by = bound_ms(n, h, w, c, f, dname)
-                print("conv3x3 %-32s %-4s x=%s C=%d F=%d act=%s: %s kernel %.4f ms, "
-                      "plain %.4f ms, F.conv2d %.4f ms, bound %.4f ms (%s), "
-                      "max|d| %.3g" % (name, dname, (n, h, w), c, f, act, path, ms, plain,
-                                       lib, bound, by, err), flush=True)
-                cc_ms = ms
+                stream = torch.cuda.current_stream().cuda_stream
+                fns = {"kernel": lambda: conv3x3_bias_act(x, k32, b32, act),
+                       "F.conv2d": lambda: F.conv2d(x_nchw, w_oihw, b_lib, padding=1),
+                       "plain": lambda: conv3x3_bias_act_reference(x, k32, b32, act)}
+                err_cc = None
                 if path != "cuda_core":
                     # the CUDA-core entry on the same inputs: the earlier kernel
                     cc = conv3x3._entry(dtype, "cuda_core")
-                    stream = torch.cuda.current_stream().cuda_stream
                     got_cc = conv3x3._run(cc, x, k32, b32, act, stream)
                     torch.cuda.synchronize()
                     ok_cc, err_cc = _conv_ok(torch, got_cc, want, dname)
@@ -288,19 +317,29 @@ def kernel_phase(torch):
                         raise AssertionError("%s %s: cuda_core kernel disagrees with its "
                                              "plain version, max |d| = %g" % (
                                                  name, dname, err_cc))
-                    cc_ms = time_ms(torch, lambda: conv3x3._run(cc, x, k32, b32, act,
-                                                                 stream))
-                    print("conv3x3 %-32s %-4s x=%s C=%d F=%d act=%s: cuda_core kernel "
-                          "%.4f ms (%s %.2fx faster), max|d| %.3g"
-                          % (name, dname, (n, h, w), c, f, act, cc_ms, path, cc_ms / ms,
-                             err_cc), flush=True)
                     del got_cc
+                    fns["cuda_core"] = lambda: conv3x3._run(cc, x, k32, b32, act, stream)
                 if path == "narrow":
                     # a yardstick of the bytes side: one PyTorch reduction that
                     # reads x once
-                    read = time_ms(torch, lambda: x.sum())
-                    print("conv3x3 %-32s %-4s x=%s: x.sum() %.4f ms (%.3f TB/s), narrow kernel "
-                          "%.3f TB/s of x" % (name, dname, (n, h, w), read,
+                    fns["x.sum()"] = lambda: x.sum()
+                t = time_windows(torch, fns)
+                ms, lib, plain = t["kernel"][0], t["F.conv2d"][0], t["plain"][0]
+                cc_ms = t["cuda_core"][0] if "cuda_core" in t else ms
+                bound, by = bound_ms(n, h, w, c, f, dname)
+                print("conv3x3 %-32s %-4s x=%s C=%d F=%d act=%s: %s kernel %s, %sF.conv2d %s, "
+                      "plain %s, bound %.4f ms (%s), max|d| %.3g%s" % (
+                          name, dname, (n, h, w), c, f, act, path, spread(t["kernel"]),
+                          "cuda_core kernel %s (%s %.2fx faster), " % (
+                              spread(t["cuda_core"]), path, cc_ms / ms)
+                          if "cuda_core" in t else "", spread(t["F.conv2d"]),
+                          spread(t["plain"]), bound, by, err,
+                          "" if err_cc is None else ", cuda_core max|d| %.3g" % err_cc),
+                      flush=True)
+                if path == "narrow":
+                    read = t["x.sum()"][0]
+                    print("conv3x3 %-32s %-4s x=%s: x.sum() %s (%.3f TB/s), narrow kernel "
+                          "%.3f TB/s of x" % (name, dname, (n, h, w), spread(t["x.sum()"]),
                                               x.numel() * x.element_size() / read / 1e9,
                                               x.numel() * x.element_size() / ms / 1e9),
                           flush=True)
@@ -308,24 +347,27 @@ def kernel_phase(torch):
                         "ms": ms, "cuda_core_ms": cc_ms, "plain_ms": plain, "library_ms": lib,
                         "read_ms": read, "bound_ms": bound, "bound_by": by, "max_abs_err": err}
                 if geometry == LR_BATCH:
-                    s = sums[dname]
-                    s["ms"] += count * ms
-                    s["plain_ms"] += count * plain
-                    s["library_ms"] += count * lib
-                    s["bound_ms"] += count * bound
-                    s["cuda_core_ms"] += count * cc_ms
+                    part = {"ms": ms, "plain_ms": plain, "library_ms": lib, "bound_ms": bound,
+                            "cuda_core_ms": cc_ms}
+                    for total in (sums[dname],) + ((tc_sums[dname],)
+                                                   if path == "tensor_core" else ()):
+                        for k in keys:
+                            total[k] += count * part[k]
                     bound_kind[dname][by] = bound_kind[dname].get(by, 0.0) + count * bound
-                del x, got, want
+                del x, got, want, fns
             del x32, k32, b32
             torch.cuda.empty_cache()
     for dname in dtypes:
         sums[dname]["bound_by"] = max(bound_kind[dname], key=bound_kind[dname].get)
         print("conv3x3 per x4 forward at %s, %s: kernel %.4f ms, plain %.4f ms, F.conv2d "
-              "%.4f ms, bound %.4f ms (%s), all-cuda_core kernel %.4f ms" % (
-                  LR_BATCH, dname, sums[dname]["ms"], sums[dname]["plain_ms"],
-                  sums[dname]["library_ms"], sums[dname]["bound_ms"],
-                  sums[dname]["bound_by"], sums[dname]["cuda_core_ms"]), flush=True)
-    return sums, worst, narrow
+              "%.4f ms, bound %.4f ms (%s), all-cuda_core kernel %.4f ms; its 35 tensor-core "
+              "convs: kernel %.4f ms, cuda_core entry %.4f ms, F.conv2d %.4f ms, bound %.4f ms"
+              % (LR_BATCH, dname, sums[dname]["ms"], sums[dname]["plain_ms"],
+                 sums[dname]["library_ms"], sums[dname]["bound_ms"], sums[dname]["bound_by"],
+                 sums[dname]["cuda_core_ms"], tc_sums[dname]["ms"],
+                 tc_sums[dname]["cuda_core_ms"], tc_sums[dname]["library_ms"],
+                 tc_sums[dname]["bound_ms"]), flush=True)
+    return sums, tc_sums, worst, narrow
 
 
 def wino_bound_ms(n, h, w, c, m, dtype_name):
@@ -440,24 +482,26 @@ def wino_phase(torch):
                     t = F.relu(F.conv2d(x_nchw, w_a, lb_a, padding=1))
                     return x_nchw + F.conv2d(t, w_b, lb_b, padding=1)
 
-                ms = time_ms(torch, lambda: wino_resblock_transformed(
-                    x, e_a, b_a, e_b, b_b, 1.0, m, entry_layout=True))
-                plain = time_ms(torch, lambda: wino_resblock_transformed_reference(
-                    x, u_a, b_a, u_b, b_b, 1.0, m))
-                lib = time_ms(torch, library)
+                fns = {"kernel": lambda: wino_resblock_transformed(
+                           x, e_a, b_a, e_b, b_b, 1.0, m, entry_layout=True),
+                       "cuDNN": library,
+                       "plain": lambda: wino_resblock_transformed_reference(
+                           x, u_a, b_a, u_b, b_b, 1.0, m)}
+                if cc is not None:
+                    fns["cuda_core"] = lambda: wr._run(cc, x, u_a, b_a, u_b, b_b, 1.0, m,
+                                                       stream)
+                t = time_windows(torch, fns)
+                ms, lib, plain = t["kernel"][0], t["cuDNN"][0], t["plain"][0]
+                cc_ms = t["cuda_core"][0] if cc is not None else ms
                 bound, by = wino_bound_ms(n, h, w, c, m, dname)
                 direct, direct_by = wino_bound_ms(n, h, w, c, 0, dname)
-                cc_ms = ms
-                if cc is not None:
-                    cc_ms = time_ms(torch, lambda: wr._run(cc, x, u_a, b_a, u_b, b_b, 1.0, m,
-                                                           stream))
-                print("wino F(%d,3) %-4s x=%s C=%d: %s kernel %.4f ms%s, plain %.4f ms, "
-                      "cuDNN ResBlock %.4f ms, bound %.4f ms (%s), direct ResBlock bound "
-                      "%.4f ms (%s)" % (
-                          m, dname, geometry, c, path, ms,
-                          " (cuda_core kernel %.4f ms, %.2fx)" % (cc_ms, cc_ms / ms)
+                print("wino F(%d,3) %-4s x=%s C=%d: %s kernel %s%s, plain %s, cuDNN ResBlock "
+                      "%s, bound %.4f ms (%s), direct ResBlock bound %.4f ms (%s)" % (
+                          m, dname, geometry, c, path, spread(t["kernel"]),
+                          " (cuda_core kernel %s, %.2fx)" % (spread(t["cuda_core"]), cc_ms / ms)
                           if cc is not None else "",
-                          plain, lib, bound, by, direct, direct_by), flush=True)
+                          spread(t["plain"]), spread(t["cuDNN"]), bound, by, direct,
+                          direct_by), flush=True)
                 if geometry == LR_BATCH:
                     sd = sums[dname]
                     sd["ms"] += 16 * ms
@@ -726,10 +770,10 @@ def forward_phase(torch, model, device="cuda"):
                 del got
             if device != "cuda":
                 continue
-            ms = time_ms(torch, lambda: model.fwd_runtime(x))
-            print("forward: EDSR-baseline x4, %d x %dx%d LR, %s, --wino_trunk %d: %.4f ms "
-                  "per forward, %.3f LR-MP/s" % (n, h, w, name, m, ms, n * h * w / 1e3 / ms),
-                  flush=True)
+            t = time_windows(torch, {"forward": lambda: model.fwd_runtime(x)})["forward"]
+            print("forward: EDSR-baseline x4, %d x %dx%d LR, %s, --wino_trunk %d: %s per "
+                  "forward, %.3f LR-MP/s" % (n, h, w, name, m, spread(t),
+                                             n * h * w / 1e3 / t[0]), flush=True)
     model.set_route(None)
     model.set_serving_dtype("f32")
     return launches
@@ -916,14 +960,14 @@ def main() -> int:
         print("build log %s:\n%s" % (source, build.build_log(source).strip()))
     print_sass_mix(build)
 
-    sums, worst, narrow = kernel_phase(torch)
+    sums, tc_sums, worst, narrow = kernel_phase(torch)
     wino = wino_phase(torch)
-    launches, by_path = 0, {}
+    launches, by_path, served = 0, {}, {}
     for dtype_name in ("bf16", "f32"):
         n_launch, n_by_path, model = serve_phase(torch, dtype_name=dtype_name)
         launches += n_launch
-        for path, k in n_by_path.items():
-            by_path[path] = by_path.get(path, 0) + k
+        served[dtype_name] = n_by_path
+        _add(by_path, n_by_path)
         if dtype_name == "bf16":
             del model
     fwd_launches = forward_phase(torch, model)
@@ -946,6 +990,10 @@ def main() -> int:
         "library_ms": sums["f32"]["library_ms"],
         "cuda_core_ms": sums["f32"]["cuda_core_ms"],
         "bf16": dict(sums["bf16"], max_abs_err=worst["bf16"]),
+        # the 35 convs of a forward on the tensor-core path (f32: split TF32),
+        # with their served launches
+        "tensor_core": {d: dict(tc_sums[d], launches=served[d]["tensor_core"])
+                        for d in ("f32", "bf16")},
         "narrow": narrow,
     }]
     for m, line in ((2, 205), (4, 336)):

@@ -69,10 +69,54 @@
 // path: wgmma on shared-memory descriptors fed by TMA, with warp-specialised
 // producer and consumers.
 //
-// CUDA-core path, `conv3x3_bias_act_f32` and `conv3x3_bias_act_bf16`: f32,
+// Tensor-core path in f32, `conv3x3_bias_act_f32_tc`: f32 with C and F
+// multiples of 16 (the same 35 convs; the f32 default of serve, validate,
+// runtime and get_sr). Bound on an H100 SXM: f32-accurate products on the
+// tensor cores run at 495 / 3 = 165 TFLOP/s (below), so a 64->64 trunk conv
+// at 4 x 192x192 LR (10.9 GFLOP, 75.5 MB) is bound by its operations, 66 us
+// (22.5 us of bytes at 3.35 TB/s). One TF32 product keeps 11 significant
+// bits of each operand, ~2^-11 relative: over 576-term sums at EDSR's scale
+// it misses by ~4e-3, twenty times the f32 bar of 2e-4. So each operand is
+// split into tf32 parts, v = hi + lo with hi = rna(v) and lo = rna(v - hi),
+// and a x b is taken as lo_a hi_b + hi_a lo_b + hi_a hi_b (split TF32,
+// "3xTF32"; lo_a lo_b, ~2^-22 of the product, is dropped), small products
+// first, all on mma.sync.m16n8k8 tf32 with f32 sums. Every operand is
+// rounded with cvt.rna (the activations here, on load) or its bit-exact
+// equivalent (the weights, split once per weight by the wrapper,
+// ops/conv3x3.py `split_weight`): the tensor core reads a .tf32 operand by
+// ignoring its low 13 bits, so an unrounded operand is truncated and lo
+// carries the wrong rest. The design is the bf16 path's with mma.sync in
+// place of WMMA: persistent blocks of 12 warps keep BN = 64 outputs and
+// walk 24 x 16 tiles; the input halo (f32, pixel stride C + 4 floats, an
+// odd multiple of 16 bytes, so the 8 rows of an ldmatrix phase fall in
+// distinct banks at every tap shift) comes by 16-byte cp.async with
+// zero-fill and stays for the 9 taps; A operands are read from it by
+// ldmatrix.x4 (8 rows of 4 floats a matrix hand each lane the tf32 fragment
+// element, as CUTLASS's SM80 tf32 iterators do) and split once per k-step
+// for all of a warp's 8 n8 tiles. Shared memory is what runs out first: the
+// halo is 127 KB at C = 64, and the split weight slab of 9 taps x 64 x 64
+// would be 295 KB, so the weights stream through a ring of two stages, one
+// tap's hi and lo slabs (34 KB) a stage, the next tap's copy in flight
+// during this tap's products: 197 KB at C = 64, one block an SM. A resident
+// slab of unsplit f32 weights at BN = 32, split on load, was slower at every
+// EDSR shape on the card (more ALU a product, the halo copied once per 32
+// outputs). What holds it back (the kernel runs at ~3x its bound, ~2.3x
+// faster than F.conv2d without TF32, PERF.md): mma.sync runs TF32 at
+// about two thirds of the tensor cores' dense rate, which only wgmma
+// reaches, and three products an f32 product take the rest of the gap to
+// 165 TFLOP/s; beside the products, the halo copy exposed at each tile's
+// start, a barrier a tap, the A split and the B loads take a third of the
+// time. Its sums round toward zero on the tensor core, so its error (~6e-5
+// at the phase-3 scale of chip_smoke.py) is a few times that of the f32
+// CUDA-core entry, within the same bar. Next: wgmma (which takes tf32) fed
+// by TMA, as for the bf16 path.
+//
+// CUDA-core path, `conv3x3_bias_act_f32` and `conv3x3_bias_act_bf16`: f32
 // and bf16 with C or F not a multiple of 16, outside the narrow path (EDSR's
 // 3->64 first_conv; the 64->3 final_conv ran here before the narrow path,
-// and the entries still take it). An implicit GEMM on CUDA cores: M = N*H*W
+// and the entries still take it; the trunk and upsample convs in f32 ran
+// here before the f32 tensor-core path, and the f32 entry still takes
+// them). An implicit GEMM on CUDA cores: M = N*H*W
 // output pixels, K = 9*C (tap-major, channel-minor: the HWIO kernel reshaped
 // to (9C, F)), N_gemm = F. A block owns a BM x BN output tile and walks K in
 // BK slices: each slice of the virtual im2col matrix is gathered straight
@@ -571,43 +615,313 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   }
 }
 
-template <bool kFull>
-int launch_tc(const void* x, const void* w, const void* bias, void* y, const TcShape& s,
-              int act, void* stream) {
-  // once per process and instance: the largest chunk's shared memory
-  // exceeds 48 KB
-  static const cudaError_t attr =
-      cudaFuncSetAttribute(conv3x3_bf16_tc_kernel<kFull>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, tc_smem_bytes(kKC));
+// one persistent launch of a tensor-core kernel whose shared-memory
+// attribute `attr` has been set: as many blocks as fit on the card at once,
+// a multiple of the F tiles, at most one a pixel tile per F tile
+template <typename T, typename K>
+int launch_tc(K kernel, cudaError_t attr, int smem, const TcShape& s, const void* x,
+              const void* w, const void* bias, void* y, int act, void* stream) {
   if (attr != cudaSuccess) return (int)attr;
-  const int smem = tc_smem_bytes(s.c < kKC ? s.c : kKC);
-  // as many blocks as fit on the card at once, a multiple of the F tiles
   long long fit = 0;
-  const cudaError_t err =
-      resident_blocks(conv3x3_bf16_tc_kernel<kFull>, kTcThreads, smem, &fit);
+  const cudaError_t err = resident_blocks(kernel, kTcThreads, smem, &fit);
   if (err != cudaSuccess) return (int)err;
   const int f_tiles = (s.f + kTcBN - 1) / kTcBN;
   const long long n_tiles = (long long)s.n * s.h_tiles * s.w_tiles;
   long long groups = fit / f_tiles;
   groups = groups < 1 ? 1 : (groups > n_tiles ? n_tiles : groups);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  conv3x3_bf16_tc_kernel<kFull><<<(unsigned)(groups * f_tiles), kTcThreads, smem, st>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w),
-      static_cast<const float*>(bias), static_cast<__nv_bfloat16*>(y), s, act);
+  kernel<<<(unsigned)(groups * f_tiles), kTcThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(x), static_cast<const T*>(w), static_cast<const float*>(bias),
+      static_cast<T*>(y), s, act);
   return (int)cudaGetLastError();
+}
+
+// each instance sets its largest chunk's shared memory (above 48 KB) once
+// per process
+template <bool kFull>
+int bf16_tc(const void* x, const void* w, const void* bias, void* y, const TcShape& s, int act,
+            void* stream) {
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(conv3x3_bf16_tc_kernel<kFull>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, tc_smem_bytes(kKC));
+  return launch_tc<__nv_bfloat16>(conv3x3_bf16_tc_kernel<kFull>, attr,
+                                  tc_smem_bytes(s.c < kKC ? s.c : kKC), s, x, w, bias, y, act,
+                                  stream);
+}
+
+// what both tensor-core entries take: C and F multiples of 16, x, w and y
+// 16-byte aligned (16-byte copies and stores)
+int tc_refusal(const void* x, const void* w, const void* y, int n, int h, int w_img, int c,
+               int f) {
+  if (n <= 0 || h <= 0 || w_img <= 0 || c <= 0 || f <= 0 || c % 16 || f % 16)
+    return cudaErrorInvalidValue;
+  if ((reinterpret_cast<std::uintptr_t>(x) | reinterpret_cast<std::uintptr_t>(w) |
+       reinterpret_cast<std::uintptr_t>(y)) % 16)
+    return cudaErrorMisalignedAddress;
+  return cudaSuccess;
 }
 
 int conv3x3_bias_act_tc(const void* x, const void* w, const void* bias, void* y, int n,
                         int h, int w_img, int c, int f, int act, void* stream) {
-  if (n <= 0 || h <= 0 || w_img <= 0 || c <= 0 || f <= 0 || c % 16 || f % 16)
-    return cudaErrorInvalidValue;
-  // 16-byte copies and stores of x, w and y
-  if ((reinterpret_cast<std::uintptr_t>(x) | reinterpret_cast<std::uintptr_t>(w) |
-       reinterpret_cast<std::uintptr_t>(y)) % 16)
-    return cudaErrorMisalignedAddress;
+  const int refused = tc_refusal(x, w, y, n, h, w_img, c, f);
+  if (refused) return refused;
   const TcShape s{n, h, w_img, c, f, (h + kTH - 1) / kTH, (w_img + kTW - 1) / kTW};
-  return f % kTcBN == 0 ? launch_tc<true>(x, w, bias, y, s, act, stream)
-                        : launch_tc<false>(x, w, bias, y, s, act, stream);
+  return f % kTcBN == 0 ? bf16_tc<true>(x, w, bias, y, s, act, stream)
+                        : bf16_tc<false>(x, w, bias, y, s, act, stream);
+}
+
+// ---- tensor-core path, f32 (C % 16 == 0, F % 16 == 0): split TF32 ----
+
+// mma.sync.m16n8k8 tf32 operands in the PTX ISA's register layouts, g =
+// lane / 4, t = lane % 4. A, 16 pixels x 8 inputs: a[0] (pixel g, input t),
+// a[1] (g + 8, t), a[2] (g, t + 4), a[3] (g + 8, t + 4). B, 8 inputs x 8
+// outputs: b0 (input t, output g), b1 (t + 4, g). D, 16 pixels x 8
+// outputs: d[2e + i] is (pixel g + 8e, output 2t + i).
+
+// the halo's (and a weight slab row's) stride in floats for a chunk of kc
+// channels: 16 (kc / 4 + 1) bytes, an odd multiple of 16, so the 8 rows of
+// an ldmatrix phase fall in distinct banks at every tap shift
+__host__ __device__ constexpr int f32_ld(int kc) { return kc + 4; }
+
+// the halo, two stages of the weight ring (a hi and a lo slab of kTcBN
+// output rows each), the bias
+__host__ __device__ constexpr int f32_tc_smem_bytes(int kc) {
+  return 4 * ((kHaloPix + 2 * 2 * kTcBN) * f32_ld(kc) + kTcBN);
+}
+
+// ldmatrix.x4 from shared memory: lane l names row l % 8 of 8x8 b16 matrix
+// l / 8 and receives, from each matrix i, its elements (g, 2t) and (g, 2t +
+// 1) in r[i]. Read as 8 rows of 4 floats, matrix i hands lane l the float
+// (g, t): the tf32 fragments above, as CUTLASS's SM80 tf32 iterators load
+// them.
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const float* row) {
+#ifdef __CUDA_ARCH__
+  const unsigned addr = (unsigned)__cvta_generic_to_shared(row);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+#elif !defined(__CUDACC__)
+  emu_ldmatrix_x4(r, row);  // the CPU stand-in (ops/emulate.py)
+#endif
+}
+
+// cvt.rna.tf32.f32: v rounded to 10 explicit mantissa bits, ties away from
+// zero, low 13 bits zero. The tensor core reads a .tf32 operand by ignoring
+// those 13 bits, so an operand that skipped this would be truncated.
+__device__ __forceinline__ unsigned tf32_rna(float v) {
+#ifdef __CUDA_ARCH__
+  unsigned r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(v));
+  return r;
+#elif !defined(__CUDACC__)
+  return emu_cvt_rna_tf32(v);
+#else
+  return 0u;  // the host pass of nvcc compiles no device code
+#endif
+}
+
+// v = hi + lo + O(2^-22 |v|), each part a tf32 value
+__device__ __forceinline__ void split_tf32(unsigned& hi, unsigned& lo, unsigned v) {
+  const float f = __uint_as_float(v);
+  hi = tf32_rna(f);
+  lo = tf32_rna(f - __uint_as_float(hi));
+}
+
+// d += a x b on one m16n8k8 tf32 product, f32 sums
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+#ifdef __CUDA_ARCH__
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+#elif !defined(__CUDACC__)
+  emu_mma_m16n8k8_tf32(d, a, b0, b1);
+#endif
+}
+
+// Persistent, as the bf16 kernel: block b keeps the output channels f0 =
+// (b % f_tiles) * BN and walks the pixel tiles b / f_tiles, + groups, ...; a
+// step is one (tile, chunk of C). The halo (the step's channels, f32) stays
+// for the step's 9 taps; the weights stream through a ring of two stages,
+// one tap's hi and lo slabs a stage: slab q = 9 step + tap is copied while
+// slab q - 1's products run, one barrier a tap. w holds the wrapper's split
+// weights, hi then lo, each [9][F][C]. Each warp owns kRW rows of 16 pixels
+// x the block's BN outputs (kRW x 8 accumulator tiles in registers); per
+// k-step it loads and splits its kRW A operands once and uses each for all
+// its n8 tiles, three products an accumulator: lo x hi, hi x lo, then hi x
+// hi. The epilogue adds the bias, applies the activation and stores float2
+// pairs straight from the accumulators; the next step's halo is copied
+// while it runs. kFull: F % BN == 0, no product or load predicated.
+template <bool kFull>
+__global__ void __launch_bounds__(kTcThreads, 1)
+    conv3x3_f32_tc_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                          const float* __restrict__ bias, float* __restrict__ y, TcShape s,
+                          int act) {
+  constexpr int kNT = kTcBN / 8;  // n8 tiles of a warp
+  extern __shared__ __align__(128) float4 f32_smem[];
+  const int kc_max = s.c < kKC ? s.c : kKC;
+  const int ld = f32_ld(kc_max);
+  const int chunks = (s.c + kKC - 1) / kKC;
+  // [kHaloPix][ld] halo, [2 stages][hi, lo][kTcBN][ld] ring, the bias
+  float* const halo = reinterpret_cast<float*>(f32_smem);
+  float* const ring = halo + kHaloPix * ld;
+  float* const bias_s = ring + 2 * 2 * kTcBN * ld;
+
+  const int f_tiles = (s.f + kTcBN - 1) / kTcBN;
+  const long long groups = gridDim.x / f_tiles;
+  const int f0 = (int)(blockIdx.x % f_tiles) * kTcBN;
+  const long long first = blockIdx.x / f_tiles;
+  const long long n_tiles = (long long)s.n * s.h_tiles * s.w_tiles;
+  if (first >= n_tiles) return;
+  const long long steps = ((n_tiles - 1 - first) / groups + 1) * chunks;
+  const int live = kFull ? kTcBN : (s.f - f0 < kTcBN ? s.f - f0 : kTcBN);
+  const int nt = live / 8;  // live n8 tiles, even (F % 16 == 0)
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;
+  const int tq = lane % 4;
+  const int row0 = warp * kRW;
+  const int mi = lane / 8;  // the ldmatrix matrix this lane names a row of
+  // the lane's ldmatrix row: A, pixel lane % 8 + 8 (mi % 2), inputs 4 (mi /
+  // 2)..; B, output lane % 8 + 8 (mi / 2) of an n8 pair, inputs 4 (mi % 2)..
+  const int a_lane = (lane % 8 + 8 * (mi % 2)) * ld + 4 * (mi / 2);
+  const int b_lane = (lane % 8 + 8 * (mi / 2)) * ld + 4 * (mi % 2);
+
+  // slab q into stage q % 2: taps of the step's chunk, rows f0 .. f0 + live
+  const long long slabs = steps * 9;
+  const auto copy_slab = [&](long long q) {
+    if (q >= slabs) return;
+    const int tap = (int)(q % 9);
+    const int c0 = (int)(q / 9 % chunks) * kKC;
+    const int kc = s.c - c0 < kKC ? s.c - c0 : kKC;
+    const int per_row = kc / 4;  // 16-byte copies a row
+    float* const dst = ring + (q % 2) * 2 * kTcBN * ld;
+    for (int e = threadIdx.x; e < 2 * live * per_row; e += kTcThreads) {
+      const int row = e / per_row;  // part * live + output
+      const int part = row / live;
+      const int n = row - part * live;
+      const int gi = e - row * per_row;
+      const float* src =
+          w + (((long long)part * 9 + tap) * s.f + f0 + n) * s.c + c0 + 4 * gi;
+      cp_async16<false>(dst + (part * kTcBN + n) * ld + 4 * gi, src, false);
+    }
+  };
+
+  copy_halo<kTH, kTW, kTcThreads, false>(halo, ld, x, s, tile_of<kTH, kTW>(s, first), 0, kc_max);
+  copy_slab(0);
+  __pipeline_commit();
+  for (int i = threadIdx.x; i < live; i += kTcThreads) bias_s[i] = bias[f0 + i];
+
+  float acc[kRW][kNT][4];
+  for (long long step = 0; step < steps; ++step) {
+    const TcTile t = tile_of<kTH, kTW>(s, first + step / chunks * groups);
+    const int chunk = (int)(step % chunks);
+    const int kc = s.c - chunk * kKC < kKC ? s.c - chunk * kKC : kKC;
+    if (chunk == 0) {
+#pragma unroll
+      for (int r = 0; r < kRW; ++r)
+#pragma unroll
+        for (int j = 0; j < kNT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[r][j][e] = 0.f;
+    }
+    for (int tap = 0; tap < 9; ++tap) {
+      const long long q = step * 9 + tap;
+      __pipeline_wait_prior(0);
+      // slab q (and at tap 0 the step's halo) landed; every warp is done
+      // with stage (q + 1) % 2
+      __syncthreads();
+      copy_slab(q + 1);
+      __pipeline_commit();
+
+      const float* a_p = halo + ((row0 + tap / 3) * kHaloW + tap % 3) * ld + a_lane;
+      const float* b_hi = ring + (q % 2) * 2 * kTcBN * ld + b_lane;
+      const float* b_lo = b_hi + kTcBN * ld;
+      for (int k0 = 0; k0 < kc; k0 += 8) {
+        unsigned a_hi[kRW][4], a_lo[kRW][4];
+#pragma unroll
+        for (int r = 0; r < kRW; ++r) {
+          unsigned raw[4];
+          ldsm_x4(raw, a_p + r * kHaloW * ld + k0);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) split_tf32(a_hi[r][i], a_lo[r][i], raw[i]);
+        }
+#pragma unroll
+        for (int jp = 0; jp < kNT / 2; ++jp) {
+          if (!kFull && 2 * jp >= nt) continue;
+          // r[2h], r[2h + 1]: b0, b1 of n8 tile 2 jp + h
+          unsigned bh[4], bl[4];
+          ldsm_x4(bh, b_hi + 16 * jp * ld + k0);
+          ldsm_x4(bl, b_lo + 16 * jp * ld + k0);
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int r = 0; r < kRW; ++r) mma_tf32(acc[r][2 * jp + h], a_lo[r], bh[2 * h], bh[2 * h + 1]);
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int r = 0; r < kRW; ++r) mma_tf32(acc[r][2 * jp + h], a_hi[r], bl[2 * h], bl[2 * h + 1]);
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int r = 0; r < kRW; ++r) mma_tf32(acc[r][2 * jp + h], a_hi[r], bh[2 * h], bh[2 * h + 1]);
+        }
+      }
+    }
+
+    __syncthreads();  // every warp is done with the halo
+    if (step + 1 < steps) {
+      const int c1 = (int)((step + 1) % chunks) * kKC;
+      copy_halo<kTH, kTW, kTcThreads, false>(
+          halo, ld, x, s, tile_of<kTH, kTW>(s, first + (step + 1) / chunks * groups), c1,
+          s.c - c1 < kKC ? s.c - c1 : kKC);
+      __pipeline_commit();
+    }
+
+    if (chunk == chunks - 1) {
+#pragma unroll
+      for (int r = 0; r < kRW; ++r) {
+        const int oh = t.h0 + row0 + r;
+        if (oh >= s.h_img) continue;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int ow = t.w0 + g + 8 * e;
+          if (ow >= s.w_img) continue;
+          float* const out = y + ((t.img * s.h_img + oh) * s.w_img + ow) * s.f + f0 + 2 * tq;
+#pragma unroll
+          for (int j = 0; j < kNT; ++j) {
+            if (!kFull && j >= nt) continue;
+            const int fc = 8 * j + 2 * tq;
+            *reinterpret_cast<float2*>(out + 8 * j) =
+                make_float2(activate(acc[r][j][2 * e] + bias_s[fc], act),
+                            activate(acc[r][j][2 * e + 1] + bias_s[fc + 1], act));
+          }
+        }
+      }
+    }
+  }
+}
+
+template <bool kFull>
+int f32_tc(const void* x, const void* w, const void* bias, void* y, const TcShape& s, int act,
+           void* stream) {
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(conv3x3_f32_tc_kernel<kFull>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, f32_tc_smem_bytes(kKC));
+  return launch_tc<float>(conv3x3_f32_tc_kernel<kFull>, attr,
+                          f32_tc_smem_bytes(s.c < kKC ? s.c : kKC), s, x, w, bias, y, act,
+                          stream);
+}
+
+int conv3x3_bias_act_tc_f32(const void* x, const void* w, const void* bias, void* y, int n,
+                            int h, int w_img, int c, int f, int act, void* stream) {
+  const int refused = tc_refusal(x, w, y, n, h, w_img, c, f);
+  if (refused) return refused;
+  const TcShape s{n, h, w_img, c, f, (h + kTH - 1) / kTH, (w_img + kTW - 1) / kTW};
+  return f % kTcBN == 0 ? f32_tc<true>(x, w, bias, y, s, act, stream)
+                        : f32_tc<false>(x, w, bias, y, s, act, stream);
 }
 
 // ---- narrow-output path (F <= 8, C % 16 == 0, C <= 64; f32 and bf16) ----
@@ -1022,6 +1336,17 @@ extern "C" int conv3x3_bias_act_bf16_tc(const void* x, const void* w, const void
                                         void* y, int n, int h, int w_img, int c, int f, int act,
                                         void* stream) {
   return conv3x3_bias_act_tc(x, w, bias, y, n, h, w_img, c, f, act, stream);
+}
+
+// f32 on the tensor cores in split TF32 (3 products an f32 product); w is
+// the wrapper's split weight, hi then lo, each [9][F][C] f32 (ops/conv3x3.py
+// `split_weight`). C and F must be multiples of 16 and x, w, y 16-byte
+// aligned (cudaErrorInvalidValue / cudaErrorMisalignedAddress otherwise,
+// with nothing launched).
+extern "C" int conv3x3_bias_act_f32_tc(const void* x, const void* w, const void* bias,
+                                       void* y, int n, int h, int w_img, int c, int f, int act,
+                                       void* stream) {
+  return conv3x3_bias_act_tc_f32(x, w, bias, y, n, h, w_img, c, f, act, stream);
 }
 
 // The narrow-output path, F <= 8 with C a multiple of 16 up to 64: f32 on

@@ -9,9 +9,10 @@
 // in turn. A stand-in that finds a fault the card would report (a
 // misaligned address) records it with `emu_fault`, and the next
 // `cudaGetLastError` returns it. The warp-wide PTX instructions the kernels
-// issue in inline assembly (ldmatrix, mma.sync) have stand-ins here that
-// exchange the lanes' operands through a per-warp buffer between two
-// `__syncwarp`s, as the instruction does across the warp's registers.
+// run in inline assembly (ldmatrix, mma.sync in bf16 and tf32) have
+// stand-ins here that exchange the lanes' operands through a per-warp
+// buffer between two `__syncwarp`s, as the instruction does across the
+// warp's registers; cvt.rna.tf32.f32 has a bit-exact one.
 #pragma once
 
 #include <atomic>
@@ -157,6 +158,57 @@ inline void emu_ldmatrix_x4(unsigned (&r)[4], const void* row) {
         static_cast<const unsigned short*>(w.rows[8 * i + lane / 4]) + 2 * (lane % 4);
     r[i] = (unsigned)src[0] | ((unsigned)src[1] << 16);
   }
+  __syncwarp();
+}
+
+inline float __uint_as_float(unsigned u) {
+  float f;
+  static_assert(sizeof f == sizeof u);
+  __builtin_memcpy(&f, &u, 4);
+  return f;
+}
+inline unsigned __float_as_uint(float f) {
+  unsigned u;
+  __builtin_memcpy(&u, &f, 4);
+  return u;
+}
+
+// cvt.rna.tf32.f32, bit for bit: round the magnitude to 10 explicit mantissa
+// bits, ties away from zero (add half of the dropped part's unit to the bit
+// pattern, then clear the low 13 bits; a carry moves into the exponent, and
+// past the largest finite value to infinity); NaN stays NaN
+inline unsigned emu_cvt_rna_tf32(float v) {
+  const unsigned u = __float_as_uint(v);
+  if ((u & 0x7fffffffu) > 0x7f800000u) return u;
+  return (u + 0x1000u) & 0xffffe000u;
+}
+
+// mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32, d += a x b, with the
+// PTX ISA's fragment layouts (g = lane / 4, t = lane % 4): a[0] holds A(g,
+// t), a[1] A(g + 8, t), a[2] A(g, t + 4), a[3] A(g + 8, t + 4); b0 holds B(t;
+// g), b1 B(t + 4; g); d[2e + i] is D(g + 8e, 2t + i). Each operand is read
+// as the card reads a .tf32 register: its low 13 bits ignored (truncated,
+// not rounded); the products of two such values are exact in f32.
+inline void emu_mma_m16n8k8_tf32(float* d, const unsigned (&a)[4], unsigned b0, unsigned b1) {
+  const int lane = (int)(threadIdx.x % 32);
+  EmuWarpRegs& w = emu_warp_regs[threadIdx.x / 32];
+  for (int i = 0; i < 4; ++i) w.a[lane][i] = a[i];
+  w.b[lane][0] = b0;
+  w.b[lane][1] = b1;
+  __syncwarp();
+  auto tf32 = [](unsigned v) { return __uint_as_float(v & 0xffffe000u); };
+  const int g = lane / 4, t = lane % 4;
+  for (int e = 0; e < 2; ++e)
+    for (int i = 0; i < 2; ++i) {
+      const int row = g + 8 * e, col = 2 * t + i;
+      float sum = 0.f;
+      for (int k = 0; k < 8; ++k) {
+        const float av = tf32(w.a[(row % 8) * 4 + k % 4][row / 8 + 2 * (k / 4)]);
+        const float bv = tf32(w.b[col * 4 + k % 4][k / 4]);
+        sum += av * bv;
+      }
+      d[2 * e + i] += sum;
+    }
   __syncwarp();
 }
 

@@ -14,18 +14,22 @@ tensor goes to `conv3x3_bias_act_reference`. The source has three paths,
 chosen by shape (`path_for`), never by retrying after a failure:
 "narrow" (F <= 8 with C a multiple of 16 up to 64, both dtypes: EDSR's
 64->3 final_conv; a streaming kernel over a double-buffered halo, bf16 on
-mma.sync and f32 on the CUDA cores), "tensor_core" (bf16 with C and F
-multiples of 16, WMMA over a halo tile in shared memory) and "cuda_core"
-(everything else). `LAUNCHES` counts the kernel's launches and
-`LAUNCHES_BY_PATH` each path's, so a run can show that its path went
-through them.
+mma.sync and f32 on the CUDA cores), "tensor_core" (C and F multiples of
+16, both dtypes, over a halo tile in shared memory: bf16 on WMMA, f32 on
+mma.sync in split TF32, three TF32 products an f32 product, with the
+weights split into hi and lo parts here, once per weight:
+`split_weight`) and "cuda_core" (everything else). `LAUNCHES` counts the
+kernel's launches and `LAUNCHES_BY_PATH` each path's, so a run can show
+that its path went through them.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
-from typing import Dict, Optional
+import threading
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -37,6 +41,7 @@ ACTS = {None: 0, "relu": 1, "leaky_relu": 2}
 _ENTRY = {("cuda_core", torch.float32): "conv3x3_bias_act_f32",
           ("cuda_core", torch.bfloat16): "conv3x3_bias_act_bf16",
           ("tensor_core", torch.bfloat16): "conv3x3_bias_act_bf16_tc",
+          ("tensor_core", torch.float32): "conv3x3_bias_act_f32_tc",
           ("narrow", torch.float32): "conv3x3_bias_act_f32_narrow",
           ("narrow", torch.bfloat16): "conv3x3_bias_act_bf16_narrow"}
 # the narrow path's shapes: its bf16 products pad F to mma.sync's n = 8, and
@@ -56,15 +61,74 @@ def reset_launches() -> None:
 
 
 def path_for(c: int, f: int, dtype: torch.dtype) -> str:
-    """The kernel path for a C -> F conv in `dtype`: the narrow path takes
-    F <= 8 with C a multiple of 16 up to 64 in either dtype, the tensor
-    cores bf16 with C and F multiples of 16 (WMMA's 16-deep bf16
-    fragments), the CUDA cores the rest."""
+    """The kernel path for a C -> F conv in `dtype` (f32 or bf16): the
+    narrow path takes F <= 8 with C a multiple of 16 up to 64, the tensor
+    cores C and F multiples of 16 (bf16 WMMA's 16-deep fragments; f32's
+    16-byte copies of 4-channel groups and n8 tile pairs), the CUDA cores
+    the rest."""
     if f <= NARROW_MAX_F and c % 16 == 0 and c <= NARROW_MAX_C:
         return "narrow"
-    if dtype == torch.bfloat16 and c % 16 == 0 and f % 16 == 0:
+    if c % 16 == 0 and f % 16 == 0:
         return "tensor_core"
     return "cuda_core"
+
+
+def tf32_round(t: torch.Tensor) -> torch.Tensor:
+    """f32 `t` rounded as `cvt.rna.tf32.f32` rounds, bit for bit: to 10
+    explicit mantissa bits, ties away from zero, the low 13 bits zero (add
+    0x1000 to the magnitude's bit pattern, then clear those bits; a carry
+    moves into the exponent). NaN stays NaN."""
+    t = t.to(torch.float32).contiguous()
+    bits = (t.view(torch.int32) + 0x1000) & -0x2000
+    return torch.where(torch.isnan(t), t, bits.view(torch.float32))
+
+
+def split_tf32(t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo), both tf32 values (low 13 bits zero), with hi + lo = t to
+    about 2^-22 of |t|: hi = rna(t), lo = rna(t - hi)."""
+    hi = tf32_round(t)
+    return hi, tf32_round(t.to(torch.float32) - hi)
+
+
+# the split weights of the f32 tensor-core entry, by weight: key ->
+# (the weight, its split). Holding the weight keeps its storage alive, so a
+# live entry's data_ptr names no other tensor; `_version` changes with any
+# in-place write. Least recently used first; a model's convs fit many times.
+_SPLIT_CACHE: "collections.OrderedDict[tuple, tuple]" = collections.OrderedDict()
+_SPLIT_CACHE_SIZE = 256
+_SPLIT_LOCK = threading.Lock()
+
+
+def split_weight(kernel: torch.Tensor) -> torch.Tensor:
+    """The f32 tensor-core entry's weight operand for an HWIO kernel (3, 3,
+    C, F): (2, 9, F, C) f32 contiguous, hi then lo (`split_tf32` of the
+    kernel in f32), each tap's rows the output channels with the C inputs
+    contiguous. Split once per weight and cached until the weight changes
+    (by its data_ptr, _version, dtype, device, shape and strides)."""
+    key = (kernel.data_ptr(), kernel._version, kernel.dtype, kernel.device,
+           tuple(kernel.shape), kernel.stride())
+    with _SPLIT_LOCK:
+        hit = _SPLIT_CACHE.get(key)
+        if hit is not None:
+            _SPLIT_CACHE.move_to_end(key)
+            return hit[1]
+    c, f = kernel.shape[2], kernel.shape[3]
+    k = kernel.detach().to(torch.float32).reshape(9, c, f).transpose(1, 2)
+    split = torch.stack(split_tf32(k)).contiguous()
+    with _SPLIT_LOCK:
+        _SPLIT_CACHE[key] = (kernel, split)
+        while len(_SPLIT_CACHE) > _SPLIT_CACHE_SIZE:
+            _SPLIT_CACHE.popitem(last=False)
+    return split
+
+
+def entry_weight(kernel: torch.Tensor, dtype: torch.dtype, path: str) -> torch.Tensor:
+    """The weight operand of the (`path`, `dtype`) entry: the split weight
+    for f32 on the tensor cores, else the kernel as (9 C, F) in `dtype`."""
+    if (path, dtype) == ("tensor_core", torch.float32):
+        return split_weight(kernel)
+    c, f = kernel.shape[2], kernel.shape[3]
+    return kernel.reshape(9 * c, f).to(dtype).contiguous()
 
 
 def _apply_act(out: torch.Tensor, act: Optional[str]) -> torch.Tensor:
@@ -109,11 +173,12 @@ def _entry(dtype: torch.dtype, path: str):
 
 
 def _run(fn, x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
-         act: Optional[str], stream) -> torch.Tensor:
-    """Call entry point `fn` on checked operands; returns the output."""
+         act: Optional[str], stream, path: str = "cuda_core") -> torch.Tensor:
+    """Call entry point `fn`, the (`path`, x.dtype) entry, on checked
+    operands; returns the output."""
     n, h, w, c = x.shape
     f = kernel.shape[3]
-    kmat = kernel.reshape(9 * c, f).to(x.dtype).contiguous()
+    kmat = entry_weight(kernel, x.dtype, path)
     b = bias.to(torch.float32).contiguous()
     out = torch.empty((n, h, w, f), dtype=x.dtype, device=x.device)
     err = fn(x.data_ptr(), kmat.data_ptr(), b.data_ptr(), out.data_ptr(), n, h, w, c, f,
@@ -154,7 +219,7 @@ def conv3x3_bias_act(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
     path = path_for(c, f, x.dtype)
     with torch.cuda.device(x.device):
         out = _run(_entry(x.dtype, path), x, kernel, bias, act,
-                   torch.cuda.current_stream().cuda_stream)
+                   torch.cuda.current_stream().cuda_stream, path)
     global LAUNCHES
     LAUNCHES += 1
     LAUNCHES_BY_PATH[path] += 1

@@ -99,20 +99,51 @@ def test_conv3x3_tensor_core_path_matches_plain_version(conv_lib, shape, f, act)
     assert bool((diff <= BF16_ATOL + BF16_RTOL * want.float().abs()).all())
 
 
+@pytest.mark.parametrize("shape,f,act", [
+    ((1, 9, 13, 64), 64, "relu"),          # a trunk conv, one ragged tile
+    ((2, 5, 7, 16), 16, None),             # C = F = 16, batch 2, frames < one tile
+    ((1, 24, 32, 32), 32, "leaky_relu"),   # tile windows end on the last row and column
+    ((1, 7, 6, 64), 80, "relu"),           # F = 64 + 16: a ragged BN chunk
+    ((1, 6, 5, 32), 256, "leaky_relu"),    # upsample-like F = 256: 4 F tiles
+    ((1, 5, 9, 96), 16, None),             # C = 96: two channel chunks, 64 + 32
+])
+def test_conv3x3_f32_tensor_core_path_matches_plain_version(conv_lib, shape, f, act):
+    """The split-TF32 entry (three tf32 products an f32 product: lo x hi,
+    hi x lo, hi x hi) on the stand-in's one-SM card, whose mma reads each
+    operand as the card does, its low 13 bits dropped: a single TF32
+    product, or operands fed unrounded, miss F32_ATOL at C = 64."""
+    assert conv3x3.path_for(shape[3], f, torch.float32) == "tensor_core"
+    rng = np.random.default_rng(sum(shape) + f)
+    x = _t(rng.standard_normal(shape))
+    k = _t(0.1 * rng.standard_normal((3, 3, shape[3], f)))
+    b = _t(rng.standard_normal(f))
+    fn = conv3x3.bind(conv_lib, torch.float32, "tensor_core")
+    got = conv3x3._run(fn, x, k, b, act, None, "tensor_core")
+    want = conv3x3.conv3x3_bias_act_reference(x, k, b, act)
+    assert got.shape == want.shape and got.dtype == want.dtype
+    diff = (got - want).abs()
+    print("emulated conv3x3 f32 tensor_core %s->%d %s: max|d| %.3g"
+          % (shape, f, act, float(diff.max())))
+    assert torch.isfinite(got).all()
+    assert float(diff.max()) <= F32_ATOL["conv"]
+
+
+@pytest.mark.parametrize("dname", ["f32", "bf16"])
 @pytest.mark.parametrize("case", ["c_not_16", "f_not_16", "misaligned"])
-def test_conv3x3_tensor_core_entry_refuses_what_it_cannot_take(conv_lib, case):
+def test_conv3x3_tensor_core_entry_refuses_what_it_cannot_take(conv_lib, case, dname):
     """Nothing is launched and the wrapper raises: C or F not a multiple of 16
     (cudaErrorInvalidValue), x not 16-byte aligned (cudaErrorMisalignedAddress)."""
+    dtype = DTYPES[dname]
     c, f = {"c_not_16": (24, 16), "f_not_16": (16, 24)}.get(case, (16, 16))
     shape = (1, 4, 5, c)
-    x = torch.zeros(shape, dtype=torch.bfloat16)
+    x = torch.zeros(shape, dtype=dtype)
     if case == "misaligned":
-        x = torch.zeros(x.numel() + 1, dtype=torch.bfloat16)[1:].view(shape)
+        x = torch.zeros(x.numel() + 1, dtype=dtype)[1:].view(shape)
     k, b = torch.zeros((3, 3, c, f)), torch.zeros(f)
-    fn = conv3x3.bind(conv_lib, torch.bfloat16, "tensor_core")
+    fn = conv3x3.bind(conv_lib, dtype, "tensor_core")
     code = 716 if case == "misaligned" else 1
     with pytest.raises(RuntimeError, match="CUDA error %d" % code):
-        conv3x3._run(fn, x, k, b, None, None)
+        conv3x3._run(fn, x, k, b, None, None, "tensor_core")
 
 
 @pytest.mark.parametrize("dname", ["f32", "bf16"])
