@@ -29,12 +29,12 @@ fails:
  3b. wino kernels: holds both fused Winograd ResBlock kernels (F(2,3) and
     F(4,3)) against their plain version at EDSR-baseline's ResBlock (C = 64)
     for the same two geometries, f32 and bf16 (res_weight 1.0, and 0.1 on
-    the ragged frame). Each call must take the path `path_for` names: bf16
-    the tensor-core entry, f32 the CUDA-core one; in bf16 the CUDA-core
-    entry is held and timed too, as the earlier kernel of the same
-    function. Prints each one's kernel, plain-version and cuDNN ResBlock
-    times (two F.conv2d, ReLU, add; in turns, as in phase 3) and its bound
-    beside the direct ResBlock's.
+    the ragged frame). Each call must take the path `path_for` names, the
+    tensor-core entry in both dtypes (f32 in split TF32); the CUDA-core
+    entry of the dtype is held and timed too, as the earlier kernel of the
+    same function. Prints each one's kernel, CUDA-core entry,
+    plain-version and cuDNN ResBlock times (two F.conv2d, ReLU, add; in
+    turns, as in phase 3) and its bound beside the direct ResBlock's.
  4. serve: EDSR-baseline x4 at full width (64 features, 16 ResBlocks),
     random weights from SEED with final_conv rescaled so the output spans
     the pixel range (see fit_output_range), saved as a .pth; the port's HTTP server
@@ -55,7 +55,7 @@ fails:
     under --wino_trunk 2 and 4, to set the kernels' share against it.
     Under --wino_trunk the counters are zeroed before one forward and read
     after it: 5 conv3x3 launches by path (WINO_CONV_PATH_LAUNCHES) and 16
-    fused launches, all 16 on the dtype's path (WINO_PATH_LAUNCHES); the
+    fused launches, all 16 on the tensor cores (WINO_PATH_LAUNCHES); the
     bf16 forward must lie within BF16_FWD_RTOL of the same route with the
     plain fused ResBlock in place of the kernel.
  6. validate: the port's validate CLI in this process on a DIV2K-layout
@@ -81,8 +81,8 @@ the validate run of phase 6 and the runtime runs of phase 7 with their
 --wino_trunk); summed over one x4 forward of the 4 x 192x192 f32 batch
 (the 37 convs; the 16 ResBlocks), its time, its plain version's, the
 library's (F.conv2d; the cuDNN ResBlock) and its bound; and the largest
-f32 error of phase 3 or 3b. Each also gives the same sums in bf16, with
-the CUDA-core entries' sums beside them; the conv3x3 line adds the sums
+f32 error of phase 3 or 3b, with the CUDA-core entries' sums beside them.
+Each also gives the same sums in bf16; the conv3x3 line adds the sums
 of its 35 tensor-core convs per dtype with their served launches (f32:
 the split-TF32 entry) and the narrow path's final_conv times in both
 dtypes and geometries.
@@ -155,9 +155,9 @@ PATH_LAUNCHES = {"f32": {"cuda_core": 1, "tensor_core": 35, "narrow": 1},
 WINO_CONV_PATH_LAUNCHES = {"f32": {"cuda_core": 1, "tensor_core": 3, "narrow": 1},
                            "bf16": {"cuda_core": 1, "tensor_core": 3, "narrow": 1}}
 # fused ResBlock launches per x4 forward under --wino_trunk, by path
-# (ops/wino_resblock.py path_for): f32 on the CUDA cores, bf16 on the
-# tensor cores; the 5 convs around them go through conv3x3
-WINO_PATH_LAUNCHES = {"f32": {"cuda_core": 16, "tensor_core": 0},
+# (ops/wino_resblock.py path_for): both dtypes on the tensor cores (f32 in
+# split TF32); the 5 convs around them go through conv3x3
+WINO_PATH_LAUNCHES = {"f32": {"cuda_core": 0, "tensor_core": 16},
                       "bf16": {"cuda_core": 0, "tensor_core": 16}}
 # the whole f32 forward through the wino kernels against the forward through
 # the conv3x3 kernel: 16 ResBlocks whose Winograd and direct sums differ by
@@ -402,7 +402,8 @@ def wino_phase(torch):
     """Phase 3b. Holds both fused Winograd ResBlock kernels against their
     plain version at EDSR-baseline's ResBlock (C = 64) for the LR batch
     and the ragged frame, f32 and bf16, res_weight 1.0 (and 0.1 on the
-    ragged frame), and the CUDA-core bf16 entry beside the tensor-core one.
+    ragged frame), and the dtype's CUDA-core entry beside the tensor-core
+    one.
     Returns {m: ({dtype: per-forward sums at the LR batch}, {dtype: worst
     error})}."""
     import torch.nn.functional as F
@@ -417,9 +418,8 @@ def wino_phase(torch):
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     out = {}
     for m in (2, 4):
-        sums = {d: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
-                for d in dtypes}
-        sums["bf16"]["cuda_core_ms"] = 0.0
+        sums = {d: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
+                    "cuda_core_ms": 0.0} for d in dtypes}
         worst = {d: 0.0 for d in dtypes}
         for geometry in (LR_BATCH, RAGGED):
             n, h, w = geometry
@@ -436,8 +436,8 @@ def wino_phase(torch):
                 u_b = h_transform_kernel(k_b, m).to(dtype)
                 # the basis as the forward caches it, in the entry's layout
                 e_a, e_b = entry_basis(u_a, path), entry_basis(u_b, path)
-                # bf16: the CUDA-core entry on the same inputs, the earlier kernel
-                cc = wr._entry(m, dtype, "cuda_core") if path == "tensor_core" else None
+                # the CUDA-core entry on the same inputs, the earlier kernel
+                cc = wr._entry(m, dtype, "cuda_core")
                 stream = torch.cuda.current_stream().cuda_stream
                 rws = (1.0, 0.1) if geometry == RAGGED else (1.0,)
                 for rw in rws:
@@ -461,18 +461,16 @@ def wino_phase(torch):
                         raise AssertionError("wino F(%d,3) %s %s rw=%g: %s kernel disagrees "
                                              "with its plain version, max |d| = %g"
                                              % (m, dname, geometry, rw, path, err))
-                    if cc is not None:
-                        got_cc = wr._run(cc, x, u_a, b_a, u_b, b_b, rw, m, stream)
-                        torch.cuda.synchronize()
-                        err_cc, _, _ = _wino_err(torch, got_cc, want, m, dname)
-                        print("wino F(%d,3) %-4s x=%s rw=%g: cuda_core kernel max|d| %.3g"
-                              % (m, dname, geometry, rw, err_cc), flush=True)
-                        if err_cc > bar:
-                            raise AssertionError("wino F(%d,3) %s: cuda_core kernel disagrees "
-                                                 "with its plain version, max |d| = %g"
-                                                 % (m, dname, err_cc))
-                        del got_cc
-                    del got, want
+                    got_cc = wr._run(cc, x, u_a, b_a, u_b, b_b, rw, m, stream)
+                    torch.cuda.synchronize()
+                    err_cc, _, _ = _wino_err(torch, got_cc, want, m, dname)
+                    print("wino F(%d,3) %-4s x=%s rw=%g: cuda_core kernel max|d| %.3g"
+                          % (m, dname, geometry, rw, err_cc), flush=True)
+                    if err_cc > bar:
+                        raise AssertionError("wino F(%d,3) %s: cuda_core kernel disagrees "
+                                             "with its plain version, max |d| = %g"
+                                             % (m, dname, err_cc))
+                    del got, got_cc, want
                 x_nchw = x.permute(0, 3, 1, 2)  # channels_last view of NHWC
                 w_a = k_a.to(dtype).permute(3, 2, 0, 1).contiguous()
                 w_b = k_b.to(dtype).permute(3, 2, 0, 1).contiguous()
@@ -486,20 +484,18 @@ def wino_phase(torch):
                            x, e_a, b_a, e_b, b_b, 1.0, m, entry_layout=True),
                        "cuDNN": library,
                        "plain": lambda: wino_resblock_transformed_reference(
-                           x, u_a, b_a, u_b, b_b, 1.0, m)}
-                if cc is not None:
-                    fns["cuda_core"] = lambda: wr._run(cc, x, u_a, b_a, u_b, b_b, 1.0, m,
-                                                       stream)
+                           x, u_a, b_a, u_b, b_b, 1.0, m),
+                       "cuda_core": lambda: wr._run(cc, x, u_a, b_a, u_b, b_b, 1.0, m, stream)}
                 t = time_windows(torch, fns)
                 ms, lib, plain = t["kernel"][0], t["cuDNN"][0], t["plain"][0]
-                cc_ms = t["cuda_core"][0] if cc is not None else ms
+                cc_ms = t["cuda_core"][0]
                 bound, by = wino_bound_ms(n, h, w, c, m, dname)
                 direct, direct_by = wino_bound_ms(n, h, w, c, 0, dname)
-                print("wino F(%d,3) %-4s x=%s C=%d: %s kernel %s%s, plain %s, cuDNN ResBlock "
-                      "%s, bound %.4f ms (%s), direct ResBlock bound %.4f ms (%s)" % (
+                print("wino F(%d,3) %-4s x=%s C=%d: %s kernel %s (cuda_core kernel %s, %.2fx), "
+                      "plain %s, cuDNN ResBlock %s, bound %.4f ms (%s), direct ResBlock bound "
+                      "%.4f ms (%s)" % (
                           m, dname, geometry, c, path, spread(t["kernel"]),
-                          " (cuda_core kernel %s, %.2fx)" % (spread(t["cuda_core"]), cc_ms / ms)
-                          if cc is not None else "",
+                          spread(t["cuda_core"]), cc_ms / ms,
                           spread(t["plain"]), spread(t["cuDNN"]), bound, by, direct,
                           direct_by), flush=True)
                 if geometry == LR_BATCH:
@@ -509,19 +505,17 @@ def wino_phase(torch):
                     sd["library_ms"] += 16 * lib
                     sd["bound_ms"] += 16 * bound
                     sd["bound_by"] = by
-                    if dname == "bf16":
-                        sd["cuda_core_ms"] += 16 * cc_ms
+                    sd["cuda_core_ms"] += 16 * cc_ms
                 del x
             del x32, k_a, k_b, b_a, b_b
             torch.cuda.empty_cache()
         for dname in dtypes:
             print("wino F(%d,3) per x4 forward (16 ResBlocks) at %s, %s: kernel %.4f ms, "
-                  "plain %.4f ms, cuDNN ResBlocks %.4f ms, bound %.4f ms (%s)%s" % (
+                  "plain %.4f ms, cuDNN ResBlocks %.4f ms, bound %.4f ms (%s), cuda_core "
+                  "kernel %.4f ms" % (
                       m, LR_BATCH, dname, sums[dname]["ms"], sums[dname]["plain_ms"],
                       sums[dname]["library_ms"], sums[dname]["bound_ms"],
-                      sums[dname]["bound_by"],
-                      ", cuda_core kernel %.4f ms" % sums[dname]["cuda_core_ms"]
-                      if dname == "bf16" else ""), flush=True)
+                      sums[dname]["bound_by"], sums[dname]["cuda_core_ms"]), flush=True)
         out[m] = (sums, worst)
     return out
 
@@ -1014,6 +1008,7 @@ def main() -> int:
             "bound_ms": wsums["f32"]["bound_ms"],
             "bound_by": wsums["f32"]["bound_by"],
             "library_ms": wsums["f32"]["library_ms"],
+            "cuda_core_ms": wsums["f32"]["cuda_core_ms"],
             "bf16": dict(wsums["bf16"], max_abs_err=werr["bf16"]),
         })
     print(json.dumps({"kernels": kernels}))

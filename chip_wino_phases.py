@@ -13,7 +13,9 @@ transforming x into V, stage A's point products, stage A's epilogue (with
 the border pass), transforming t, stage B's point products, stage B's
 epilogue. A stamp is thread 0's view; the phases between barriers are
 the block's. Exits non-zero without a card or if the source no longer
-has a phase boundary this script expects.
+has a phase boundary this script expects. It stamps the bf16 kernel
+only: the f32 entries run another kernel (`wino_resblock_f32_tc_kernel`,
+V built one basis tap at a time), whose boundaries it does not mark.
 """
 
 from __future__ import annotations

@@ -11,7 +11,7 @@
 // `cudaGetLastError` returns it. The warp-wide PTX instructions the kernels
 // run in inline assembly (ldmatrix, mma.sync in bf16 and tf32) have
 // stand-ins here that exchange the lanes' operands through a per-warp
-// buffer between two `__syncwarp`s, as the instruction does across the
+// buffer after a `__syncwarp`, as the instruction does across the
 // warp's registers; cvt.rna.tf32.f32 has a bit-exact one.
 #pragma once
 
@@ -134,7 +134,15 @@ struct EmuWarpRegs {
   unsigned a[32][4];
   unsigned b[32][2];
 };
-inline EmuWarpRegs emu_warp_regs[32];  // one per warp of the running block
+inline EmuWarpRegs emu_warp_regs[32][2];  // two per warp of the running block
+inline thread_local unsigned emu_turn = 0;
+
+// The exchange buffer of this lane's next warp-wide instruction: the warp's
+// two buffers in turns. The lanes of a warp run the same sequence of these
+// instructions, so they agree on the turn, and a lane writes a buffer again
+// only after every lane has passed the barrier of the instruction after
+// the one that read it: one `__syncwarp` an instruction suffices.
+inline EmuWarpRegs& emu_exchange() { return emu_warp_regs[threadIdx.x / 32][emu_turn++ % 2]; }
 
 inline float emu_bf16_bits(unsigned short u) {
   const uint32_t w = (uint32_t)u << 16;
@@ -150,7 +158,7 @@ inline float emu_bf16_bits(unsigned short u) {
 inline void emu_ldmatrix_x4(unsigned (&r)[4], const void* row) {
   if (!emu_aligned(row, 16)) emu_fault(cudaErrorMisalignedAddress);
   const int lane = (int)(threadIdx.x % 32);
-  EmuWarpRegs& w = emu_warp_regs[threadIdx.x / 32];
+  EmuWarpRegs& w = emu_exchange();
   w.rows[lane] = row;
   __syncwarp();
   for (int i = 0; i < 4; ++i) {
@@ -158,7 +166,6 @@ inline void emu_ldmatrix_x4(unsigned (&r)[4], const void* row) {
         static_cast<const unsigned short*>(w.rows[8 * i + lane / 4]) + 2 * (lane % 4);
     r[i] = (unsigned)src[0] | ((unsigned)src[1] << 16);
   }
-  __syncwarp();
 }
 
 inline float __uint_as_float(unsigned u) {
@@ -191,7 +198,7 @@ inline unsigned emu_cvt_rna_tf32(float v) {
 // not rounded); the products of two such values are exact in f32.
 inline void emu_mma_m16n8k8_tf32(float* d, const unsigned (&a)[4], unsigned b0, unsigned b1) {
   const int lane = (int)(threadIdx.x % 32);
-  EmuWarpRegs& w = emu_warp_regs[threadIdx.x / 32];
+  EmuWarpRegs& w = emu_exchange();
   for (int i = 0; i < 4; ++i) w.a[lane][i] = a[i];
   w.b[lane][0] = b0;
   w.b[lane][1] = b1;
@@ -209,7 +216,6 @@ inline void emu_mma_m16n8k8_tf32(float* d, const unsigned (&a)[4], unsigned b0, 
       }
       d[2 * e + i] += sum;
     }
-  __syncwarp();
 }
 
 // mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32, d += a x b, with the
@@ -218,7 +224,7 @@ inline void emu_mma_m16n8k8_tf32(float* d, const unsigned (&a)[4], unsigned b0, 
 // D(g + 8e, 2t + i)
 inline void emu_mma_m16n8k16(float* d, const unsigned (&a)[4], unsigned b0, unsigned b1) {
   const int lane = (int)(threadIdx.x % 32);
-  EmuWarpRegs& w = emu_warp_regs[threadIdx.x / 32];
+  EmuWarpRegs& w = emu_exchange();
   for (int i = 0; i < 4; ++i) w.a[lane][i] = a[i];
   w.b[lane][0] = b0;
   w.b[lane][1] = b1;
@@ -238,5 +244,4 @@ inline void emu_mma_m16n8k16(float* d, const unsigned (&a)[4], unsigned b0, unsi
       }
       d[2 * e + i] += sum;
     }
-  __syncwarp();
 }

@@ -17,8 +17,9 @@
 // pre-transformed, U[p, kw] = sum_kh G[p, kh] k[kh, kw], (P, 3, C, C) in T.
 // Per output pixel the Winograd form needs 2 x (P*3/m) C^2 multiply-adds:
 // 12 C^2 for F(2,3) and 9 C^2 for F(4,3), against 18 C^2 for the direct
-// ResBlock. C = 64 (EDSR-baseline). Two paths, chosen by dtype in
-// ops/wino_resblock.py `path_for`:
+// ResBlock. C = 64 (EDSR-baseline). ops/wino_resblock.py `path_for` sends
+// both dtypes to the tensor cores; the CUDA-core entries stay as the
+// earlier kernels of both:
 //
 // Tensor-core path, `wino_resblock_f{2,4}_bf16_tc` (bf16). Bound on an H100
 // SXM (989 TFLOP/s bf16 dense, 3.35 TB/s HBM) at 4 x 192x192 LR: F(2,3)
@@ -64,9 +65,59 @@
 // overlap them; stage B leaves 2 (F(2,3)) or 4 (F(4,3)) warps idle; the
 // 30-column tile wastes 9% of its columns at W = 192.
 //
-// CUDA-core path, `wino_resblock_f{2,4}_{f32,bf16}` (f32; the bf16 entries
-// stay as the earlier kernel of the bf16 function). A block owns TH = GB*m
-// output rows x TW output columns and all C channels. Stage A computes t
+// Tensor-core path in f32, `wino_resblock_f{2,4}_f32_tc` (split TF32).
+// Bound on an H100 SXM: f32-accurate products on the tensor cores run at
+// 495 / 3 = 165 TFLOP/s (three TF32 products an f32 product), so at 4 x
+// 192x192 LR F(2,3) (14.5 GFLOP) takes 88 us and F(4,3) (10.9 GFLOP) 66
+// us, bound by operations (x and y, 75.5 MB, take 22.5 us). One TF32
+// product keeps 11 bits of each operand, far from the f32 bar over sums
+// of 3 x 64 products, so each operand is split into tf32 parts, v = hi +
+// lo (hi = rna(v), lo = rna(v - hi)), and a x b is taken as lo_a hi_b +
+// hi_a lo_b + hi_a hi_b on mma.sync.m16n8k8 tf32 with f32 sums, small
+// products first: V = B^T d stays unrounded f32 in shared memory and is
+// split with cvt.rna as each A operand is loaded (once per k-step for all
+// of a warp's n8 tiles); the weights U come split once per weight by the
+// wrapper, hi then lo, with the bf16 path's swapped channel axes. The
+// structure is the bf16 path's (persistent blocks, the same tiles, stage A
+// into t in shared memory, stage B into y, A^T element by element across
+// the P accumulators, masked edges, t zeroed outside the image), and
+// shared memory is what runs out first: in f32 the x window alone is 87
+// KB (F(2,3)) / 122 KB (F(4,3)) and V of all P taps 148 KB / 167 KB, so
+// the block builds V one basis tap at a time (V_p, read three times at the
+// kw shifts, then the next) and streams the weights through a cp.async
+// ring of two (p, kw) slabs, hi and lo (35 KB a slab), one barrier a slab.
+// Pixel strides of C + 4 floats (272 bytes, an odd multiple of 16) in V, t
+// and the slabs put the 8 rows of every ldmatrix phase in distinct banks
+// at every kw shift. The x window shares its bytes with t (written only
+// after stage A's last product); the next tile's window is copied into
+// them from stage B's last slab on, once t's last V_p is built; the
+// residual is read in the epilogue from global memory, where the tile's x
+// window was read moments before (L2).
+//   F(2,3): 6 x 30 outputs, 16 warps, units of 2 M tiles x 16 channels
+//     (16 in stage A, 12 in B), 194,176 bytes of dynamic shared memory (x
+//     window / t 87,040; V_p 36,992; slabs 69,632; biases 512), 128
+//     registers (the cap at 512 threads), no spills. At 8 warps with 32
+//     channels a unit (165 registers) it ran level; with the kw loop
+//     unrolled it spilled and ran slower (the unrolled code also slowed
+//     F(4,3): 1,152 HMMA a kernel already).
+//   F(4,3): 8 x 30 outputs, 12 warps, units of 2 M tiles x 16 channels
+//     (12 in A, 8 in B), 219,776 bytes (x window / t 121,856; V_p 27,776;
+//     slabs 69,632; biases 512), 165 registers, no spills.
+// What holds it back (it runs at ~6.7x / ~9x its bound, ~1.7x faster than
+// cuDNN's f32 ResBlock, PERF.md): the products take about half the time
+// and the A operands' split about a quarter (it is redone at every
+// k-step and kw shift, shared by a unit's 2 n8 tiles only); the rest is
+// mostly the weights: every tile streams the split basis of both convs
+// through the slab ring (749 / 842 MB from L2 a launch at 4 x 192x192),
+// behind a barrier every 96 products a warp. Stage B leaves 4 warps idle,
+// and F(4,3)'s 672 tiles take 6 rounds of 132 SMs. wgmma (tf32 from
+// shared memory, so V could be split once per value) with larger tiles or
+// a resident basis is the next step.
+//
+// CUDA-core path, `wino_resblock_f{2,4}_{f32,bf16}`, the earlier kernels of
+// both functions (f32 ran here until the split-TF32 entries came). A block
+// owns TH = GB*m output rows x TW output columns and all C channels. Stage
+// A computes t
 // on the window of (TH + 2) x (TW + 2) pixels that stage B needs, in GB + 1
 // groups of m rows starting one row above the tile, and stores it in
 // shared memory (zero outside the image). Each stage is a set of P GEMMs,
@@ -679,11 +730,11 @@ __device__ __forceinline__ void point_products(Acc (&acc)[P][MT * NQ], const U& 
 }
 
 // A^T across the P accumulators of tile j, element by element: output row
-// r lands in acc[r][j]
-template <int M, int NT>
-__device__ __forceinline__ void apply_at(Acc (&acc)[M + 2][NT], int j) {
+// r lands in acc[r][j] (A: Acc, or the f32 path's n8 tile Acc4)
+template <int M, int NT, class A>
+__device__ __forceinline__ void apply_at(A (&acc)[M + 2][NT], int j) {
 #pragma unroll
-  for (int e = 0; e < 8; ++e) {
+  for (int e = 0; e < (int)(sizeof(A::c) / sizeof(float)); ++e) {
     float mv[M + 2], yv[M];
 #pragma unroll
     for (int p = 0; p < M + 2; ++p) mv[p] = acc[p][j].c[e];
@@ -704,6 +755,40 @@ __device__ __forceinline__ long long tile_origin(const TcShape& s, int tile, int
   w0 = (tile % s.w_tiles) * Tl::W;
   h0 = (rest % s.h_tiles) * Tl::TH;
   return (long long)(rest / s.h_tiles) * s.h_img * s.w_img * kC;
+}
+
+// The persistent launch of a tensor-core kernel over tile geometry Tl:
+// refuses an empty frame (cudaErrorInvalidValue) and x, ua, ub or y not
+// 16-byte aligned (cudaErrorMisalignedAddress, for the 16-byte copies)
+// before launching anything, then runs as many blocks as the SMs hold, at
+// most one a tile. `attr` is the kernel's shared-memory opt-in.
+template <class Tl, typename T, class K>
+int launch_persistent(K kernel, cudaError_t attr, const T* x, const T* ua, const void* ba,
+                      const T* ub, const void* bb, T* y, float rw, int n, int h, int w,
+                      void* stream) {
+  if (n <= 0 || h <= 0 || w <= 0) return cudaErrorInvalidValue;
+  if ((reinterpret_cast<std::uintptr_t>(x) | reinterpret_cast<std::uintptr_t>(ua) |
+       reinterpret_cast<std::uintptr_t>(ub) | reinterpret_cast<std::uintptr_t>(y)) % 16)
+    return cudaErrorMisalignedAddress;
+  if (attr != cudaSuccess) return (int)attr;
+  int device = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, Tl::kThreads,
+                                                        Tl::kSmemBytes);
+  if (err != cudaSuccess) return (int)err;
+  if (per_sm < 1) return cudaErrorInvalidValue;
+  const int h_tiles = (h + Tl::TH - 1) / Tl::TH;
+  const int w_tiles = (w + Tl::W - 1) / Tl::W;
+  const long long n_tiles = (long long)n * h_tiles * w_tiles;
+  if (n_tiles > 0x7fffffff) return cudaErrorInvalidValue;
+  const TcShape s{h, w, h_tiles, w_tiles, (int)n_tiles};
+  const long long blocks = (long long)sms * per_sm < n_tiles ? (long long)sms * per_sm : n_tiles;
+  kernel<<<(unsigned)blocks, Tl::kThreads, Tl::kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
+      x, ua, static_cast<const float*>(ba), ub, static_cast<const float*>(bb), y, rw, s);
+  return (int)cudaGetLastError();
 }
 
 // Persistent: block b walks the tiles b, b + gridDim.x, ... Per tile:
@@ -849,46 +934,397 @@ template <int M, int GB, int TW, int MT, int NQ, int NW>
 int launch_tc(const void* x, const void* ua, const void* ba, const void* ub, const void* bb,
               void* y, float rw, int n, int h, int w, void* stream) {
   using Tl = TcTile<M, GB, TW, MT, NQ, NW>;
-  if (n <= 0 || h <= 0 || w <= 0) return cudaErrorInvalidValue;
-  // 16-byte copies of x and U
-  if ((reinterpret_cast<std::uintptr_t>(x) | reinterpret_cast<std::uintptr_t>(ua) |
-       reinterpret_cast<std::uintptr_t>(ub) | reinterpret_cast<std::uintptr_t>(y)) % 16)
-    return cudaErrorMisalignedAddress;
   auto kernel = wino_resblock_tc_kernel<M, GB, TW, MT, NQ, NW>;
   // once per process and instance: the tile's shared memory exceeds 48 KB
   static const cudaError_t attr =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Tl::kSmemBytes);
-  if (attr != cudaSuccess) return (int)attr;
-  int device = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, Tl::kThreads,
-                                                        Tl::kSmemBytes);
-  if (err != cudaSuccess) return (int)err;
-  if (per_sm < 1) return cudaErrorInvalidValue;
-  const int h_tiles = (h + Tl::TH - 1) / Tl::TH;
-  const int w_tiles = (w + TW - 1) / TW;
-  const long long n_tiles = (long long)n * h_tiles * w_tiles;
-  if (n_tiles > 0x7fffffff) return cudaErrorInvalidValue;
-  const TcShape s{h, w, h_tiles, w_tiles, (int)n_tiles};
-  const long long blocks = (long long)sms * per_sm < n_tiles ? (long long)sms * per_sm : n_tiles;
-  kernel<<<(unsigned)blocks, Tl::kThreads, Tl::kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(ua),
-      static_cast<const float*>(ba), static_cast<const __nv_bfloat16*>(ub),
-      static_cast<const float*>(bb), static_cast<__nv_bfloat16*>(y), rw, s);
-  return (int)cudaGetLastError();
+  return launch_persistent<Tl>(kernel, attr, static_cast<const __nv_bfloat16*>(x),
+                               static_cast<const __nv_bfloat16*>(ua), ba,
+                               static_cast<const __nv_bfloat16*>(ub), bb,
+                               static_cast<__nv_bfloat16*>(y), rw, n, h, w, stream);
+}
+
+// ---- tensor-core path (f32): split TF32 ----
+
+// mma.sync.m16n8k8 tf32 operands in the PTX ISA's register layouts, g =
+// lane / 4, t = lane % 4. A, 16 pixels x 8 inputs: a[0] (pixel g, input t),
+// a[1] (g + 8, t), a[2] (g, t + 4), a[3] (g + 8, t + 4). B, 8 inputs x 8
+// outputs: b0 (input t, output g), b1 (t + 4, g). D, 16 pixels x 8
+// outputs: d[2e + i] is (pixel g + 8e, output 2t + i). Every accumulator
+// has that mapping, so A^T and the epilogues work element by element.
+
+// an accumulator n8 tile: d[2e + i] above
+struct Acc4 {
+  float c[4];
+};
+
+// ldmatrix.x4 read as 8 rows of 4 floats a matrix: matrix i hands lane l
+// the float (g, t), the tf32 fragment element above
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const float* row) {
+#ifdef __CUDA_ARCH__
+  const unsigned addr = (unsigned)__cvta_generic_to_shared(row);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+#elif !defined(__CUDACC__)
+  emu_ldmatrix_x4(r, row);  // the CPU stand-in (ops/emulate.py)
+#endif
+}
+
+// cvt.rna.tf32.f32: v rounded to 10 explicit mantissa bits, ties away from
+// zero, low 13 bits zero. The tensor core reads a .tf32 operand by ignoring
+// those 13 bits, so an operand that skipped this would be truncated.
+__device__ __forceinline__ unsigned tf32_rna(float v) {
+#ifdef __CUDA_ARCH__
+  unsigned r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(v));
+  return r;
+#elif !defined(__CUDACC__)
+  return emu_cvt_rna_tf32(v);
+#else
+  return 0u;  // the host pass of nvcc compiles no device code
+#endif
+}
+
+// v = hi + lo + O(2^-22 |v|), each part a tf32 value
+__device__ __forceinline__ void split_tf32(unsigned& hi, unsigned& lo, unsigned v) {
+  const float f = __uint_as_float(v);
+  hi = tf32_rna(f);
+  lo = tf32_rna(f - __uint_as_float(hi));
+}
+
+// d += a x b on one m16n8k8 tf32 product, f32 sums
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+#ifdef __CUDA_ARCH__
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+#elif !defined(__CUDACC__)
+  emu_mma_m16n8k8_tf32(d, a, b0, b1);
+#endif
+}
+
+// The f32 block's tile and shared memory, with the geometry of TcTile: the
+// x window in f32 (pixel stride C) and t (pixel stride kTLd) share their
+// bytes, since t is written only after stage A's last product; one basis
+// tap V_p of either stage (pixel stride kTLd); a ring of two (p, kw) weight
+// slabs, each the tap's hi rows then its lo rows (kTLd floats a row).
+template <int M, int GB, int TW, int MT, int NQ, int NW>
+struct F32Tile : TcTile<M, GB, TW, MT, NQ, NW> {
+  using G = TcTile<M, GB, TW, MT, NQ, NW>;
+  static constexpr int kMT = MT, kNQ = NQ;
+  static constexpr int NT = MT * 2 * NQ;  // a warp's n8 accumulator tiles per basis tap
+  static constexpr int kBasisFloats = G::P * 3 * kC * kC;  // hi to lo in the split basis
+  static constexpr int kSlabFloats = 2 * kC * kTLd;
+  static constexpr int kXFloats = cmax(G::TR * G::TC * kTLd, G::XR * G::XW * kC);
+  static constexpr int kVFloats = cmax(G::GA * G::VWA, GB * G::VWB) * kTLd + 31 & ~31;
+  static constexpr int kSmemBytes = 4 * (kXFloats + kVFloats + 2 * kSlabFloats + 2 * kC);
+  static_assert(kXFloats % 32 == 0 && kVFloats % 32 == 0, "128-byte aligned regions");
+};
+
+// the f32 x window, XR x XW pixels from (h0 - 2, w0 - 2), 4 channels a copy,
+// zeros outside the image
+template <class Tl>
+__device__ __forceinline__ void copy_x_f32(float* xs, const float* __restrict__ xn, int h0,
+                                           int w0, int h_img, int w_img) {
+  for (int e = threadIdx.x; e < Tl::XR * Tl::XW * (kC / 4); e += Tl::kThreads) {
+    const int q = e % (kC / 4);
+    const int pix = e / (kC / 4);
+    const int hh = h0 - 2 + pix / Tl::XW;
+    const int ww = w0 - 2 + pix % Tl::XW;
+    const bool inside = hh >= 0 && hh < h_img && ww >= 0 && ww < w_img;
+    const float* src = inside ? xn + ((long long)hh * w_img + ww) * kC + 4 * q : xn;
+    __pipeline_memcpy_async(xs + pix * kC + 4 * q, src, 16, inside ? 0 : 16);
+  }
+}
+
+// weight slab `tap` (= 3 p + kw) of a split basis u, hi (P, 3, C_out, C_in)
+// with lo kBasisFloats after it, into a ring buffer: hi rows, then lo rows
+template <class Tl>
+__device__ __forceinline__ void copy_tap(float* slab, const float* __restrict__ u, int tap) {
+  for (int e = threadIdx.x; e < 2 * kC * (kC / 4); e += Tl::kThreads) {
+    const int row = e / (kC / 4);  // part * C + output channel
+    const int q = e % (kC / 4);
+    const int part = row / kC;
+    __pipeline_memcpy_async(slab + row * kTLd + 4 * q,
+                            u + part * Tl::kBasisFloats + (tap * kC + row % kC) * kC + 4 * q,
+                            16);
+  }
+}
+
+// V_p = row p of B^T d, [GR][VW][kTLd], from a source of f32 pixels with
+// kPixLd floats a pixel and SW pixels a row: item (g, c, 4 channels) reads
+// the rows of group g that B^T's row p names (the others are never loaded
+// once p is a constant of the unrolled caller)
+template <int M, int GR, int VW, int SW, int kPixLd, int kThreads>
+__device__ __forceinline__ void transform_row(int p, const float* src, float* vs) {
+  constexpr int kItems = GR * VW * (kC / 4);
+  for (int e = threadIdx.x; e < kItems; e += kThreads) {
+    const int q = e % (kC / 4);
+    const int c = (e / (kC / 4)) % VW;
+    const int g = e / ((kC / 4) * VW);
+    const float* px = src + (g * M * SW + c) * kPixLd + 4 * q;
+    float d[4][M + 2];
+#pragma unroll
+    for (int j = 0; j < M + 2; ++j) {
+      const float4 f = *reinterpret_cast<const float4*>(px + j * SW * kPixLd);
+      d[0][j] = f.x, d[1][j] = f.y, d[2][j] = f.z, d[3][j] = f.w;
+    }
+    float v[4][M + 2];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) Wino<M>::bt(d[i], v[i]);
+    *reinterpret_cast<float4*>(vs + (g * VW + c) * kTLd + 4 * q) =
+        make_float4(v[0][p], v[1][p], v[2][p], v[3][p]);
+  }
+}
+
+// One (p, kw) step of a warp's unit: M_p += V_p (its MT M tiles, shifted by
+// kw columns) x U_p[kw] (its NQ 16-channel fragments), in split TF32. Per
+// k-step the A operands are loaded and split once for all the unit's n8
+// tiles, and each accumulator takes lo x hi, hi x lo, then hi x hi.
+// Accumulator i * 2 NQ + n is M tile i x n8 tile n.
+template <int MT, int NQ, class U>
+__device__ __forceinline__ void products_f32(Acc4 (&acc)[MT * 2 * NQ], const U& unit,
+                                             const float* v_row, const float* slab, int kw,
+                                             int lane) {
+  const int mi = lane / 8;  // the ldmatrix matrix this lane names a row of
+  // A: pixel lane % 8 + 8 (mi % 2), inputs 4 (mi / 2)..; B: output lane % 8
+  // + 8 (mi / 2) of a fragment, inputs 4 (mi % 2)..
+  const float* a_p[MT];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+    a_p[i] = v_row + (unit.col[i] + kw + lane % 8 + 8 * (mi % 2)) * kTLd + 4 * (mi / 2);
+  const float* b_hi = slab + (16 * unit.nq0 + lane % 8 + 8 * (mi / 2)) * kTLd + 4 * (mi % 2);
+  const float* b_lo = b_hi + kC * kTLd;
+#pragma unroll
+  for (int k0 = 0; k0 < kC; k0 += 8) {
+    unsigned a_hi[MT][4], a_lo[MT][4];
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+      unsigned raw[4];
+      ldsm_x4(raw, a_p[i] + k0);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) split_tf32(a_hi[i][r], a_lo[i][r], raw[r]);
+    }
+#pragma unroll
+    for (int j = 0; j < NQ; ++j) {
+      // r[2h], r[2h + 1]: b0, b1 of n8 tile 2 j + h
+      unsigned bh[4], bl[4];
+      ldsm_x4(bh, b_hi + 16 * j * kTLd + k0);
+      ldsm_x4(bl, b_lo + 16 * j * kTLd + k0);
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int i = 0; i < MT; ++i)
+          mma_tf32(acc[i * 2 * NQ + 2 * j + h].c, a_lo[i], bh[2 * h], bh[2 * h + 1]);
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int i = 0; i < MT; ++i)
+          mma_tf32(acc[i * 2 * NQ + 2 * j + h].c, a_hi[i], bl[2 * h], bl[2 * h + 1]);
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int i = 0; i < MT; ++i)
+          mma_tf32(acc[i * 2 * NQ + 2 * j + h].c, a_hi[i], bh[2 * h], bh[2 * h + 1]);
+    }
+  }
+}
+
+// The point products of a stage on GR group rows, V built one basis tap at
+// a time: at tap p the block transforms V_p from `src` (SW pixels a row,
+// kPixLd floats a pixel) into vs, then runs the three kw steps of slab s =
+// 3 p + kw, which sits in ring buffer s % 2 while slab s + 1 (after the
+// last, slab 0 of `u_next`) is copied into the other. `head` issues one
+// more group of copies at the last step. Called after a barrier that made
+// `src` whole and freed vs; returns with every warp's last products issued
+// but not waited for.
+template <int M, int GR, int VW, int SW, int kPixLd, class Tl, class U, class Head>
+__device__ __forceinline__ void stage_f32(Acc4 (&acc)[M + 2][Tl::NT], const U& unit,
+                                          const float* src, float* vs, float* ring,
+                                          const float* __restrict__ u,
+                                          const float* __restrict__ u_next, int lane,
+                                          Head head) {
+  constexpr int P = M + 2;
+#pragma unroll
+  for (int p = 0; p < P; ++p)
+#pragma unroll
+    for (int q = 0; q < Tl::NT; ++q)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[p][q].c[e] = 0.f;
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    if (p > 0) __syncthreads();  // every warp is done with V_{p-1}
+    transform_row<M, GR, VW, SW, kPixLd, Tl::kThreads>(p, src, vs);
+#pragma unroll 1
+    for (int kw = 0; kw < 3; ++kw) {
+      const int s = 3 * p + kw;
+      __pipeline_wait_prior(0);
+      __syncthreads();  // slab s landed; V_p is whole; the other buffer is free
+      copy_tap<Tl>(ring + (s + 1) % 2 * Tl::kSlabFloats, s + 1 < 3 * P ? u : u_next,
+                   s + 1 < 3 * P ? s + 1 : 0);
+      __pipeline_commit();
+      if (s == 3 * P - 1) {
+        head();
+        __pipeline_commit();
+      }
+      if (unit.live)
+        products_f32<Tl::kMT, Tl::kNQ>(acc[p], unit, vs + unit.gr * VW * kTLd,
+                                       ring + s % 2 * Tl::kSlabFloats, kw, lane);
+    }
+  }
+}
+
+// Persistent, as the bf16 kernel: per tile, stage A (x -> t in shared
+// memory), stage B (t -> y). The next tile's x window is copied into t's
+// bytes from stage B's last step on, once its last V_p has been read off
+// t; the residual comes from global memory in the epilogue (the tile's x
+// window was read moments before, so it sits in L2).
+template <int M, int GB, int TW, int MT, int NQ, int NW>
+__global__ void __launch_bounds__(32 * NW, 1)
+    wino_resblock_f32_tc_kernel(const float* __restrict__ x, const float* __restrict__ ua,
+                                const float* __restrict__ ba, const float* __restrict__ ub,
+                                const float* __restrict__ bb, float* __restrict__ y, float rw,
+                                TcShape s) {
+  using Tl = F32Tile<M, GB, TW, MT, NQ, NW>;
+  constexpr int P = Tl::P;
+  constexpr int NT = Tl::NT;
+  extern __shared__ __align__(128) float4 f32_smem[];
+  float* const xs = reinterpret_cast<float*>(f32_smem);  // [XR][XW][C] x window
+  float* const ts = xs;                                   // after stage A: [TR][TC][kTLd] t
+  float* const vs = xs + Tl::kXFloats;                    // [GR][VW][kTLd] V_p
+  float* const ring = vs + Tl::kVFloats;                  // [2][hi, lo][C][kTLd] slabs
+  float* const bias = ring + 2 * Tl::kSlabFloats;
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;  // an accumulator's pixels g, g + 8 and outputs 2t, 2t + 1
+  const int t2 = 2 * (lane % 4);
+  for (int i = threadIdx.x; i < 2 * kC; i += Tl::kThreads) bias[i] = i < kC ? ba[i] : bb[i - kC];
+
+  {
+    int h0, w0;
+    const long long off = tile_origin<Tl>(s, blockIdx.x, h0, w0);
+    copy_x_f32<Tl>(xs, x + off, h0, w0, s.h_img, s.w_img);
+    copy_tap<Tl>(ring, ua, 0);
+    __pipeline_commit();
+  }
+  for (int tile = blockIdx.x; tile < s.n_tiles; tile += gridDim.x) {
+    int h0, w0;
+    const long long off = tile_origin<Tl>(s, tile, h0, w0);
+    const float* const xn = x + off;
+    float* const yn = y + off;
+
+    __pipeline_wait_prior(0);
+    __syncthreads();  // the x window and the first slab landed; the last tile's V is free
+
+    {  // stage A: t = ReLU(conv_a(x) + b_a) on the window, 0 outside the image
+      const Unit<Tl::GA, Tl::NFA, Tl::TC, MT, NQ> unit(warp);
+      Acc4 acc[P][NT];
+      stage_f32<M, Tl::GA, Tl::VWA, Tl::XW, kC, Tl>(acc, unit, xs, vs, ring, ua, ub, lane,
+                                                     [] {});
+      __syncthreads();  // every warp's products are done: the x window's bytes take t
+      if (unit.live) {
+#pragma unroll
+        for (int q = 0; q < NT; ++q) {
+          apply_at<M, NT>(acc, q);
+          const int i = q / (2 * NQ);
+          const int co = 16 * unit.nq0 + 8 * (q % (2 * NQ)) + t2;
+#pragma unroll
+          for (int r = 0; r < M; ++r) {
+            const int tr = unit.gr * M + r;  // t-local row: global h0 - 1 + tr
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int tc = unit.col[i] + g + 8 * e;
+              if (tr >= Tl::TR || tc < unit.first[i]) continue;
+              *reinterpret_cast<float2*>(ts + (tr * Tl::TC + tc) * kTLd + co) =
+                  make_float2(fmaxf(acc[r][q].c[2 * e] + bias[co], 0.f),
+                              fmaxf(acc[r][q].c[2 * e + 1] + bias[co + 1], 0.f));
+            }
+          }
+        }
+      }
+    }
+    __syncthreads();  // t is whole
+    // t outside the image is 0, not ReLU(b_a): conv_b's SAME padding
+    if (h0 < 1 || w0 < 1 || h0 + Tl::TH >= s.h_img || w0 + TW >= s.w_img) {
+      for (int e = threadIdx.x; e < Tl::TR * Tl::TC * (kC / 4); e += Tl::kThreads) {
+        const int pix = e / (kC / 4);
+        const int gh = h0 - 1 + pix / Tl::TC;
+        const int gw = w0 - 1 + pix % Tl::TC;
+        if (gh < 0 || gh >= s.h_img || gw < 0 || gw >= s.w_img)
+          *reinterpret_cast<float4*>(ts + pix * kTLd + 4 * (e % (kC / 4))) =
+              make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+      __syncthreads();
+    }
+
+    {  // stage B: y = x + rw * (conv_b(t) + b_b)
+      const Unit<GB, Tl::NFB, TW, MT, NQ> unit(warp);
+      Acc4 acc[P][NT];
+      const int next = tile + gridDim.x;
+      auto next_x = [&] {  // t's last V_p is built: its bytes take the next x window
+        if (next < s.n_tiles) {
+          int h1, w1;
+          const long long off1 = tile_origin<Tl>(s, next, h1, w1);
+          copy_x_f32<Tl>(xs, x + off1, h1, w1, s.h_img, s.w_img);
+        }
+      };
+      stage_f32<M, GB, Tl::VWB, Tl::TC, kTLd, Tl>(acc, unit, ts, vs, ring, ub, ua, lane, next_x);
+      if (unit.live) {
+#pragma unroll
+        for (int q = 0; q < NT; ++q) {
+          apply_at<M, NT>(acc, q);
+          const int i = q / (2 * NQ);
+          const int co = 16 * unit.nq0 + 8 * (q % (2 * NQ)) + t2;
+#pragma unroll
+          for (int r = 0; r < M; ++r) {
+            const int lr = unit.gr * M + r;  // tile-local output row and column
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int lc = unit.col[i] + g + 8 * e;
+              if (h0 + lr >= s.h_img || w0 + lc >= s.w_img || lc < unit.first[i]) continue;
+              const long long at = ((long long)(h0 + lr) * s.w_img + w0 + lc) * kC + co;
+              const float2 xr = *reinterpret_cast<const float2*>(xn + at);
+              *reinterpret_cast<float2*>(yn + at) =
+                  make_float2(xr.x + (acc[r][q].c[2 * e] + bias[kC + co]) * rw,
+                              xr.y + (acc[r][q].c[2 * e + 1] + bias[kC + co + 1]) * rw);
+            }
+          }
+        }
+      }
+    }
+  }
+}
+
+template <int M, int GB, int TW, int MT, int NQ, int NW>
+int launch_f32_tc(const void* x, const void* ua, const void* ba, const void* ub, const void* bb,
+                  void* y, float rw, int n, int h, int w, void* stream) {
+  using Tl = F32Tile<M, GB, TW, MT, NQ, NW>;
+  auto kernel = wino_resblock_f32_tc_kernel<M, GB, TW, MT, NQ, NW>;
+  // once per process and instance: the tile's shared memory exceeds 48 KB
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Tl::kSmemBytes);
+  return launch_persistent<Tl>(kernel, attr, static_cast<const float*>(x),
+                               static_cast<const float*>(ua), ba, static_cast<const float*>(ub),
+                               bb, static_cast<float*>(y), rw, n, h, w, stream);
 }
 
 // Tensor-core tiles, 30 output columns (stage A's t window 32 columns: two
 // M tiles; stage B's 30 in two overlapping ones). F(2,3): 6 x 30 outputs, 8
 // warps, a warp's unit both M tiles of a group row x 32 channels (8 units
 // in stage A, 6 in B). F(4,3): 8 x 30 outputs, 12 warps, units of both M
-// tiles x 16 channels (12 in stage A, 8 in B).
+// tiles x 16 channels (12 in stage A, 8 in B). The f32 entries take the
+// same tiles with 16-channel units: F(2,3) on 16 warps (16 units in stage
+// A, 12 in B), F(4,3) on 12.
 constexpr int kTcWidth = 30;
 constexpr int kF2TcGroups = 3, kF2TcTiles = 2, kF2TcNq = 2, kF2TcWarps = 8;
 constexpr int kF4TcGroups = 2, kF4TcTiles = 2, kF4TcNq = 1, kF4TcWarps = 12;
+constexpr int kF2F32Nq = 1, kF2F32Warps = 16;
+constexpr int kF4F32Nq = 1, kF4F32Warps = 12;
 
 }  // namespace
 
@@ -940,5 +1376,24 @@ extern "C" int wino_resblock_f4_bf16_tc(const void* x, const void* ua, const voi
                                         const void* ub, const void* bb, void* y, float rw, int n,
                                         int h, int w, void* stream) {
   return launch_tc<4, kF4TcGroups, kTcWidth, kF4TcTiles, kF4TcNq, kF4TcWarps>(
+      x, ua, ba, ub, bb, y, rw, n, h, w, stream);
+}
+
+// f32 on the tensor cores in split TF32, same arguments as the entries above
+// except the weights: ua, ub each point at the basis's tf32 parts, hi then
+// lo, each (m + 2, 3, 64, 64) with the channel axes swapped, U[p, kw, co,
+// ci] (ops/wino_resblock.py `entry_basis`, which keeps the exact basis in
+// front of them). Refusals as for the bf16 entries.
+extern "C" int wino_resblock_f2_f32_tc(const void* x, const void* ua, const void* ba,
+                                       const void* ub, const void* bb, void* y, float rw, int n,
+                                       int h, int w, void* stream) {
+  return launch_f32_tc<2, kF2TcGroups, kTcWidth, kF2TcTiles, kF2F32Nq, kF2F32Warps>(
+      x, ua, ba, ub, bb, y, rw, n, h, w, stream);
+}
+
+extern "C" int wino_resblock_f4_f32_tc(const void* x, const void* ua, const void* ba,
+                                       const void* ub, const void* bb, void* y, float rw, int n,
+                                       int h, int w, void* stream) {
+  return launch_f32_tc<4, kF4TcGroups, kTcWidth, kF4TcTiles, kF4F32Nq, kF4F32Warps>(
       x, ua, ba, ub, bb, y, rw, n, h, w, stream);
 }

@@ -26,14 +26,20 @@ wino_pallas.py:103-113), and is cast to x's dtype.
 
 `wino_resblock` launches `csrc/wino_resblock.cu` for a CUDA tensor and
 raises on anything that kernel does not take; only a CPU tensor goes to
-the plain version. The source has two paths, chosen by dtype
-(`path_for`), never by retrying after a failure: "tensor_core" (bf16:
-mma.sync point products on a transformed window in shared memory) and
-"cuda_core" (f32). The tensor-core entries take the basis with its
-channel axes swapped, (P, 3, C_out, C_in) (`entry_basis`): a row of a
+the plain version. Both dtypes run on the "tensor_core" entries
+(`path_for`): mma.sync point products on a transformed window in shared
+memory, bf16 products in bf16, f32 products in split TF32 (each operand
+split into two TF32 parts, hi + lo, three TF32 products an f32 product,
+f32 sums). The "cuda_core" entries of both dtypes stay in the source as
+the earlier kernels of the same function (`_entry(m, dtype,
+"cuda_core")`); nothing routes to them. The tensor-core entries take the
+basis with its channel axes swapped, (P, 3, C_out, C_in): a row of a
 weight slab is then one output channel's inputs, the layout in which
-ldmatrix loads the B operand. `LAUNCHES` counts the kernel's launches
-per m and `LAUNCHES_BY_PATH` per path.
+ldmatrix loads the B operand. The f32 entry reads that basis split once
+per weight into its hi and lo parts; `entry_basis` keeps the exact basis
+in front of them, (3, P, 3, C_out, C_in), so the plain version of a
+cached basis sees it bit for bit. `LAUNCHES` counts the kernel's
+launches per m and `LAUNCHES_BY_PATH` per path.
 """
 
 from __future__ import annotations
@@ -47,6 +53,7 @@ import torch
 import torch.nn.functional as F
 
 from larvanet_tpu_torch.ops import build
+from larvanet_tpu_torch.ops.conv3x3 import split_tf32
 
 SOURCE = "wino_resblock.cu"
 
@@ -92,7 +99,9 @@ _ENTRY = {(2, torch.float32, "cuda_core"): "wino_resblock_f2_f32",
           (4, torch.float32, "cuda_core"): "wino_resblock_f4_f32",
           (4, torch.bfloat16, "cuda_core"): "wino_resblock_f4_bf16",
           (2, torch.bfloat16, "tensor_core"): "wino_resblock_f2_bf16_tc",
-          (4, torch.bfloat16, "tensor_core"): "wino_resblock_f4_bf16_tc"}
+          (4, torch.bfloat16, "tensor_core"): "wino_resblock_f4_bf16_tc",
+          (2, torch.float32, "tensor_core"): "wino_resblock_f2_f32_tc",
+          (4, torch.float32, "tensor_core"): "wino_resblock_f4_f32_tc"}
 
 LAUNCHES: Dict[int, int] = {2: 0, 4: 0}
 LAUNCHES_BY_PATH: Dict[str, int] = {"cuda_core": 0, "tensor_core": 0}
@@ -106,15 +115,35 @@ def reset_launches() -> None:
 
 
 def path_for(dtype: torch.dtype) -> str:
-    """The kernel path for activations in `dtype`: bf16 on the tensor
-    cores, f32 on the CUDA cores."""
-    return "tensor_core" if dtype == torch.bfloat16 else "cuda_core"
+    """The kernel path for activations in `dtype`: the tensor cores, for
+    both dtypes the kernel takes (bf16 products in bf16, f32 products in
+    split TF32)."""
+    del dtype  # every dtype the kernel takes has a tensor-core entry
+    return "tensor_core"
+
+
+def _split_basis(dtype: torch.dtype, path: str) -> bool:
+    """Whether the entry of (`path`, `dtype`) reads the split basis."""
+    return path == "tensor_core" and dtype == torch.float32
 
 
 def entry_basis(u: torch.Tensor, path: str) -> torch.Tensor:
-    """Basis u (P, 3, C, F) as the entry of `path` takes it: as it is for
-    the CUDA cores, (P, 3, F, C) for the tensor cores; contiguous."""
-    return (u.transpose(2, 3) if path == "tensor_core" else u).contiguous()
+    """Basis u (P, 3, C, F) as the entry of (`path`, u.dtype) takes it,
+    contiguous: as it is for the CUDA cores; (P, 3, F, C) for the bf16
+    tensor-core entry; for the f32 one (3, P, 3, F, C), that transposed
+    basis followed by its split-TF32 parts hi and lo (`split_tf32`), which
+    the entry reads."""
+    if path != "tensor_core":
+        return u.contiguous()
+    ut = u.transpose(2, 3)
+    if _split_basis(u.dtype, path):
+        return torch.stack((ut,) + split_tf32(ut)).contiguous()
+    return ut.contiguous()
+
+
+def _public_basis(u: torch.Tensor) -> torch.Tensor:
+    """The basis (P, 3, C, F) of a tensor-core entry's basis."""
+    return (u[0] if u.dim() == 5 else u).transpose(2, 3)
 
 
 def _check_m(m: int) -> None:
@@ -159,7 +188,7 @@ def wino_resblock_transformed_reference(x, u_a, b_a, u_b, b_b,
     `wino_resblock_transformed`, whose arguments it takes)."""
     _check_m(m)
     if entry_layout and path_for(x.dtype) == "tensor_core":
-        u_a, u_b = u_a.transpose(2, 3), u_b.transpose(2, 3)
+        u_a, u_b = _public_basis(u_a), _public_basis(u_b)
     xf = x.float()
     t = torch.relu(_wino_conv(xf, u_a, m) + b_a.float())
     y = _wino_conv(t, u_b, m) + b_b.float()
@@ -193,10 +222,10 @@ def _entry(m: int, dtype: torch.dtype, path: str):
 
 def _run(fn, x, u_a, b_a, u_b, b_b, res_weight: float, m: int, stream) -> torch.Tensor:
     """Call entry point `fn` on checked operands, u_a/u_b in its layout
-    (`entry_basis`); returns the output."""
+    (`entry_basis`; of a split basis the entry reads the hi and lo parts);
+    returns the output."""
     n, h, w, _ = x.shape
-    ua = u_a.to(x.dtype).contiguous()
-    ub = u_b.to(x.dtype).contiguous()
+    ua, ub = ((u[1:] if u.dim() == 5 else u).to(x.dtype).contiguous() for u in (u_a, u_b))
     ba = b_a.to(torch.float32).contiguous()
     bb = b_b.to(torch.float32).contiguous()
     out = torch.empty_like(x)
@@ -236,6 +265,8 @@ def wino_resblock_transformed(x: torch.Tensor, u_a: torch.Tensor,
     if n * h * w == 0:
         raise ValueError("empty input %s" % (tuple(x.shape),))
     basis = (m + 2, 3, c, c)
+    if entry_layout and _split_basis(x.dtype, path_for(x.dtype)):
+        basis = (3,) + basis
     for name, u in (("u_a", u_a), ("u_b", u_b)):
         if tuple(u.shape) != basis:
             raise ValueError("%s must be %s, got %s" % (name, basis, tuple(u.shape)))
@@ -255,7 +286,7 @@ def _launch(x, u_a, b_a, u_b, b_b, res_weight: float, m: int, entry_layout: bool
     """Launch the entry of `path_for(x.dtype)` on checked operands and count it."""
     path = path_for(x.dtype)
     if not entry_layout:
-        u_a, u_b = entry_basis(u_a, path), entry_basis(u_b, path)
+        u_a, u_b = (entry_basis(u.to(x.dtype), path) for u in (u_a, u_b))
     out = _run(_entry(m, x.dtype, path), x, u_a, b_a, u_b, b_b, res_weight, m, stream)
     LAUNCHES[m] += 1
     LAUNCHES_BY_PATH[path] += 1
@@ -279,8 +310,9 @@ def make_wino_edsr_forward(model, m: int = 2):
     module's own layers. Takes and returns what `model.module` does; reads
     the module's weights on every call, so a later restore or
     set_serving_dtype holds. The weight transforms are cached per block,
-    in the layout of the dtype's entry (`entry_basis`), and recomputed
-    when a weight changes. Even input widths only, as in JAX."""
+    in the layout of the dtype's entry (`entry_basis`; in f32 with their
+    split-TF32 parts), and recomputed when a weight changes. Even input
+    widths only, as in JAX."""
     _check_m(m)
     cache: Dict[int, tuple] = {}
 

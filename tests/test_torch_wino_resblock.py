@@ -169,24 +169,34 @@ def test_wrapper_rejects_other_devices_and_sizes():
 
 def test_path_for_dtype():
     assert wr.path_for(torch.bfloat16) == "tensor_core"
-    assert wr.path_for(torch.float32) == "cuda_core"
+    assert wr.path_for(torch.float32) == "tensor_core"
 
 
 @pytest.mark.parametrize("m", [2, 4])
 def test_entry_basis_swaps_channel_axes_for_the_tensor_cores(m):
+    """bf16: the basis with its channel axes swapped. f32: that basis, bit
+    for bit, then its split-TF32 parts hi and lo, tf32 values (low 13 bits
+    zero) whose sum is the basis to ~2^-22 of its values."""
     u = torch.from_numpy(np.random.default_rng(12).standard_normal((m + 2, 3, 8, 6))
                          .astype(np.float32))
-    tc = wr.entry_basis(u, "tensor_core")
+    ut = u.numpy().transpose(0, 1, 3, 2)
+    tc = wr.entry_basis(u.bfloat16(), "tensor_core")
     assert tc.shape == (m + 2, 3, 6, 8) and tc.is_contiguous()
-    np.testing.assert_array_equal(tc.numpy(), u.numpy().transpose(0, 1, 3, 2))
+    assert torch.equal(tc, u.bfloat16().transpose(2, 3))
+    split = wr.entry_basis(u, "tensor_core")
+    assert split.shape == (3, m + 2, 3, 6, 8) and split.is_contiguous()
+    np.testing.assert_array_equal(split[0].numpy(), ut)
+    for part in (split[1], split[2]):
+        assert not bool((part.view(torch.int32) & 0x1fff).any())
+    np.testing.assert_allclose((split[1] + split[2]).numpy(), ut, rtol=2.0 ** -21, atol=0)
     np.testing.assert_array_equal(wr.entry_basis(u, "cuda_core").numpy(), u.numpy())
 
 
-@pytest.mark.parametrize("dname,path", [("bf16", "tensor_core"), ("f32", "cuda_core")])
+@pytest.mark.parametrize("dname,path", [("bf16", "tensor_core"), ("f32", "tensor_core")])
 def test_launch_takes_the_dtype_path_and_counts_it(monkeypatch, dname, path):
     """The launch step of the CUDA branch on the CPU build of the source
-    (ops/emulate.py): bf16 goes to the tensor-core entry with the swapped
-    basis, f32 to the CUDA-core entry, and LAUNCHES_BY_PATH counts each."""
+    (ops/emulate.py): both dtypes go to the tensor-core entry, bf16 with the
+    swapped basis, f32 with its split, and LAUNCHES_BY_PATH counts each."""
     try:
         lib = emulate.load(wr.SOURCE)
     except RuntimeError as exc:
@@ -228,6 +238,39 @@ def test_entry_layout_on_the_cpu_matches_the_public_layout(m):
                                            wr.entry_basis(u_b, path), b_b, 0.7, m,
                                            entry_layout=True)
         assert torch.equal(got, want)
+
+
+def test_wino_forward_recomputes_the_f32_split_after_a_weight_write(monkeypatch):
+    """The f32 forward hands every fused call the split basis of its block
+    (`entry_basis`), and an in-place write to a weight refreshes it."""
+    _, pm = _models()
+    seen = []
+
+    def spy(x, u_a, b_a, u_b, b_b, res_weight, m, entry_layout=False):
+        seen.append((u_a, u_b))
+        return wr.wino_resblock_transformed_reference(x, u_a, b_a, u_b, b_b, res_weight, m,
+                                                      entry_layout)
+
+    monkeypatch.setattr(wr, "wino_resblock_transformed", spy)
+    fwd = wr.make_wino_edsr_forward(pm, 2)
+    x = torch.from_numpy(np.random.default_rng(15).uniform(0, 255, (1, 6, 8, 3))
+                         .astype(np.float32))
+    block = pm.module.res_blocks[0]
+
+    def want(weight):
+        u = wr.h_transform_kernel(weight.permute(2, 3, 1, 0), 2)
+        return wr.entry_basis(u, wr.path_for(torch.float32))
+
+    fwd(x)
+    first = seen[0][0]
+    assert first.shape == (3, 4, 3, 8, 8) and torch.equal(first, want(block.body[0].weight))
+    with torch.no_grad():
+        block.body[0].weight.mul_(2.0)
+    seen.clear()
+    fwd(x)
+    assert torch.equal(seen[0][0], want(block.body[0].weight))
+    assert not torch.equal(seen[0][0][1], first[1])
+    assert torch.equal(seen[0][1], want(block.body[2].weight))
 
 
 def _models(m_name="edsr"):
