@@ -3,9 +3,10 @@
 
     python3 chip_smoke.py        # from the repo root, on a machine with one H100
 
-It drives the port's main paths on the card, serving EDSR-baseline x4 and
-validating it, and fails (exit code != 0, no result line) if any phase
-fails:
+It drives the port's main paths on the card, serving and validating
+EDSR-baseline x4 and the LarvaNet family (the flagship LarvaNet 2x16, and
+LarvaNet_w64 on the fused ResBlocks), and fails (exit code != 0, no result
+line) if any phase fails:
 
  1. device: CUDA must be available; prints nvidia-smi's name and power limit.
  2. build: compiles every kernel of the path from larvanet_tpu_torch/csrc/
@@ -25,7 +26,9 @@ fails:
     script is the median of WINDOWS windows of TIMED_REPS calls (CUDA
     events, after WARMUP_REPS), printed with the windows' min-max; the
     times compared on one row are taken in turns, window by window, in
-    the same call.
+    the same call. The same again at LarvaNet's conv shapes (LARVANET_CONVS:
+    3 -> 48, 48 -> 48 relu and none, w64's leg 64 -> 48, V2's merge 96 -> 48),
+    summed over one LarvaNet 2x16 forward.
  3b. wino kernels: holds both fused Winograd ResBlock kernels (F(2,3) and
     F(4,3)) against their plain version at EDSR-baseline's ResBlock (C = 64)
     for the same two geometries, f32 and bf16 (res_weight 1.0, and 0.1 on
@@ -50,6 +53,12 @@ fails:
     unclamped forward through the kernels within FWD_RTOL of it. bf16:
     the response within 1 level of the kernels' own forward, and that
     unclamped forward within BF16_FWD_RTOL of the plain bf16 forward.
+ 4b. serve LarvaNet: the same for the flagship LarvaNet 2x16 (48 features,
+    random weights from SEED as the family draws them, saved as the port
+    module's state_dict): 67 conv3x3 launches per forward, 66 on the tensor
+    cores and the head on the CUDA cores. The trunk adds little to the
+    interpolated base, so the unclamped forward is held relative to the
+    residual (the forward minus its base), not to the output.
  5. forward: times the whole x4 forward on the batch of 4 x 192x192 LR
     tiles, f32 and bf16 (CUDA events), through the conv3x3 kernel and
     under --wino_trunk 2 and 4, to set the kernels' share against it.
@@ -57,7 +66,16 @@ fails:
     after it: 5 conv3x3 launches by path (WINO_CONV_PATH_LAUNCHES) and 16
     fused launches, all 16 on the tensor cores (WINO_PATH_LAUNCHES); the
     bf16 forward must lie within BF16_FWD_RTOL of the same route with the
-    plain fused ResBlock in place of the kernel.
+    plain fused ResBlock in place of the kernel. Each timed forward's
+    device time is split by torch.profiler's kernel records: convs, fused
+    ResBlocks, other kernels, idle (`breakdown_line`).
+ 5b. forward LarvaNet: the same for LARVANET_ROUTES, each route set up by
+    the CLI's `maybe_wino_trunk`: LarvaNet 2x16 on the default route and
+    under --wino_trunk 2 (JAX's notice, the same 67 direct launches, the
+    same output bit for bit); LarvaNet_w64 2x16 (67 launches; under
+    --wino_trunk 2 and 4, 3 conv3x3 and 32 fused launches, held within
+    WINO_FWD_RTOL / BF16_FWD_RTOL of the plain fused ResBlock's route,
+    relative to the residual); LarvaLeg --leg 1 (35 launches).
  6. validate: the port's validate CLI in this process on a DIV2K-layout
     set written by the port's PNG encoder (4 LR frames of even width and,
     for the standard path only, one of odd width), EDSR-baseline x4 as in
@@ -68,24 +86,29 @@ fails:
     PSNR under 2 and 4 must lie within VALIDATE_PSNR_TOL of 0's,
     and the unclamped f32 forward through each fused kernel within
     WINO_FWD_RTOL of the conv3x3 forward.
+ 6b. validate LarvaNet_w64 2x16 on the same set, --wino_trunk 0, 2 and 4:
+    67 conv3x3 launches per forward for 0; 3 conv3x3 and 32 fused for 2
+    and 4; each image's PSNR under 2 and 4 within VALIDATE_PSNR_TOL of 0's.
  7. runtime: the port's runtime CLI at the DIV2K x4 LR size 339x510,
     --wino_trunk 0, 2 and 4 in f32 and bf16: ms per frame and LR-MP/s,
-    and each run's launches by path (one narrow conv3x3 launch a forward).
+    and each run's launches by path (one narrow conv3x3 launch a forward);
+    then LarvaNet 2x16, --wino_trunk 0 and 2 (67 launches a forward).
  8. prints the kernels JSON line, the nvidia-smi line, then the result line
     {"ok": true, "device": {...}}.
 
 The kernels line reports, per kernel: its launches on the main paths that
-run it, also by path (conv3x3: the served forwards of phase 4, f32 and
-bf16; the wino kernels: the counted forwards of phase 5, f32 and bf16,
-the validate run of phase 6 and the runtime runs of phase 7 with their
---wino_trunk); summed over one x4 forward of the 4 x 192x192 f32 batch
+run it, also by path (conv3x3: the served forwards of phases 4 and 4b,
+f32 and bf16; the wino kernels: the counted forwards of phases 5 and 5b,
+f32 and bf16, the validate runs of phases 6 and 6b and the runtime runs of
+phase 7 with their --wino_trunk); summed over one x4 forward of the 4 x 192x192 f32 batch
 (the 37 convs; the 16 ResBlocks), its time, its plain version's, the
 library's (F.conv2d; the cuDNN ResBlock) and its bound; and the largest
 f32 error of phase 3 or 3b, with the CUDA-core entries' sums beside them.
 Each also gives the same sums in bf16; the conv3x3 line adds the sums
 of its 35 tensor-core convs per dtype with their served launches (f32:
-the split-TF32 entry) and the narrow path's final_conv times in both
-dtypes and geometries.
+the split-TF32 entry), the narrow path's final_conv times in both
+dtypes and geometries, and the sums over one LarvaNet 2x16 forward (its 67
+convs) per dtype with their served launches.
 """
 
 from __future__ import annotations
@@ -193,6 +216,50 @@ X4_CONVS = (
     ("upsample.body.2", 2, 64, 256, None, 1, "tensor_core"),
     ("final_conv", 4, 64, 3, None, 1, "narrow"),
 )
+# the flagship LarvaNet: 2 modules of 16 ResBlocks, 48 features, x4
+LARVANET_FLAGS = ["--num_modules", "2", "--num_blocks", "16,16"]
+LARVANET_PARAMS = {"LarvaNet": 1414656, "LarvaNet_w64": 2494432}
+# LarvaNet's conv shapes, all at the LR size, as X4_CONVS; launches per
+# LarvaNet 2x16 forward: the head, 32 ResBlocks and the last leg's two convs
+LARVANET_CONVS = (
+    ("head.feature_extraction", 1, 3, 48, None, 1, "cuda_core"),
+    ("res_blocks.body.0+leg.recon_block.0", 1, 48, 48, "relu", 33, "tensor_core"),
+    ("res_blocks.body.2+leg.recon_block.2", 1, 48, 48, None, 33, "tensor_core"),
+    ("w64 leg.recon_block.2", 1, 64, 48, None, 0, "tensor_core"),
+    ("V2 tail.merge_conv", 1, 96, 48, None, 0, "tensor_core"),
+)
+# conv3x3 launches per forward by shape (C, F, act), and fused ResBlock
+# launches per forward, of each LarvaNet configuration and --wino_trunk
+# route that the LarvaNet phases drive. A 48-channel trunk takes the direct
+# convs under --wino_trunk as on the default route (JAX's notice); the
+# 64-channel LarvaNet_w64 trunk takes 32 fused launches, and its head and
+# leg the direct convs.
+_LARVA48 = {(3, 48, None): 1, (48, 48, "relu"): 33, (48, 48, None): 33}
+_W64 = {(3, 64, None): 1, (64, 64, "relu"): 33, (64, 64, None): 32, (64, 48, None): 1}
+_W64_WINO = {(3, 64, None): 1, (64, 64, "relu"): 1, (64, 48, None): 1}
+LARVANET_ROUTES = {
+    "LarvaNet 2x16": ("LarvaNet", LARVANET_FLAGS, {0: (_LARVA48, 0), 2: (_LARVA48, 0)}),
+    "LarvaNet_w64 2x16": ("LarvaNet_w64", LARVANET_FLAGS,
+                          {0: (_W64, 0), 2: (_W64_WINO, 32), 4: (_W64_WINO, 32)}),
+    "LarvaLeg 2x16 --leg 1": ("LarvaLeg", LARVANET_FLAGS + ["--leg", "1"], {0: (
+        {(3, 48, None): 1, (48, 48, "relu"): 17, (48, 48, None): 17}, 0)}),
+}
+# the path of every conv shape above (ops/conv3x3.py path_for, both dtypes)
+SHAPE_PATH = {(c, f, act): path for _, _, c, f, act, _, path in X4_CONVS + LARVANET_CONVS}
+
+
+def conv_path_launches(shapes):
+    """conv3x3 launches by path of one forward with `shapes` {(C, F, act): n}."""
+    out = {"cuda_core": 0, "tensor_core": 0, "narrow": 0}
+    for shape, n in shapes.items():
+        out[SHAPE_PATH[shape]] += n
+    return out
+
+
+def fused_path_launches(n):
+    """Fused ResBlock launches by path of one forward with n of them: all on
+    the tensor cores (ops/wino_resblock.py path_for, both dtypes)."""
+    return {"cuda_core": 0, "tensor_core": n}
 
 
 def nvidia_smi_line() -> str:
@@ -254,10 +321,11 @@ def _conv_ok(torch, got, want, dname):
     return ok and bool(torch.isfinite(got).all()), float(diff.max())
 
 
-def kernel_phase(torch):
-    """Phase 3. Returns ({dtype: per-forward sums at the LR batch},
-    {dtype: the same over the tensor-core convs}, {dtype: worst error},
-    {dtype: final_conv's numbers by geometry})."""
+def kernel_phase(torch, convs=X4_CONVS, label="EDSR-baseline x4"):
+    """Phase 3 over `convs` (X4_CONVS or LARVANET_CONVS), whose launch
+    counts are per forward of `label`. Returns ({dtype: per-forward sums at
+    the LR batch}, {dtype: the same over the tensor-core convs}, {dtype:
+    worst error}, {dtype: the narrow path's numbers by geometry})."""
     import torch.nn.functional as F
 
     from larvanet_tpu_torch.ops import conv3x3
@@ -274,7 +342,7 @@ def kernel_phase(torch):
     bound_kind = {d: {} for d in dtypes}
     worst = {d: 0.0 for d in dtypes}
     for geometry in (LR_BATCH, RAGGED):
-        for name, mult, c, f, act, count, expected in X4_CONVS:
+        for name, mult, c, f, act, count, expected in convs:
             n, h, w = geometry[0], geometry[1] * mult, geometry[2] * mult
             x32 = torch.randn((n, h, w, c), generator=gen, device="cuda")
             k32 = 0.1 * torch.randn((3, 3, c, f), generator=gen, device="cuda")
@@ -357,14 +425,15 @@ def kernel_phase(torch):
                 del x, got, want, fns
             del x32, k32, b32
             torch.cuda.empty_cache()
+    n_tc = sum(row[5] for row in convs if row[6] == "tensor_core")
     for dname in dtypes:
         sums[dname]["bound_by"] = max(bound_kind[dname], key=bound_kind[dname].get)
-        print("conv3x3 per x4 forward at %s, %s: kernel %.4f ms, plain %.4f ms, F.conv2d "
-              "%.4f ms, bound %.4f ms (%s), all-cuda_core kernel %.4f ms; its 35 tensor-core "
+        print("conv3x3 per %s forward at %s, %s: kernel %.4f ms, plain %.4f ms, F.conv2d "
+              "%.4f ms, bound %.4f ms (%s), all-cuda_core kernel %.4f ms; its %d tensor-core "
               "convs: kernel %.4f ms, cuda_core entry %.4f ms, F.conv2d %.4f ms, bound %.4f ms"
-              % (LR_BATCH, dname, sums[dname]["ms"], sums[dname]["plain_ms"],
+              % (label, LR_BATCH, dname, sums[dname]["ms"], sums[dname]["plain_ms"],
                  sums[dname]["library_ms"], sums[dname]["bound_ms"], sums[dname]["bound_by"],
-                 sums[dname]["cuda_core_ms"], tc_sums[dname]["ms"],
+                 sums[dname]["cuda_core_ms"], n_tc, tc_sums[dname]["ms"],
                  tc_sums[dname]["cuda_core_ms"], tc_sums[dname]["library_ms"],
                  tc_sums[dname]["bound_ms"]), flush=True)
     return sums, tc_sums, worst, narrow
@@ -573,8 +642,35 @@ def save_edsr_baseline(torch, path, fit_frame, device="cuda"):
     torch.save(model.module.state_dict(), path)
 
 
-def serve_phase(torch, device="cuda", dtype_name="f32"):
-    """Phase 4 with --serving_dtype `dtype_name`. Returns the conv3x3
+def save_larvanet(torch, path, name="LarvaNet", flags=LARVANET_FLAGS, device="cuda"):
+    """A LarvaNet-family model x4 at full width, random weights from SEED
+    (the family's 0.1-scaled Kaiming init), saved as the port module's own
+    state_dict."""
+    from larvanet_tpu_torch.core.registry import get_model
+
+    model = get_model(name)
+    model.parse_args(list(flags))
+    model.prepare([4], device=device, seed=SEED)
+    n_params = model.num_parameters()
+    if n_params != LARVANET_PARAMS[name]:
+        raise AssertionError("%s %s has %d parameters, not %d"
+                             % (name, " ".join(flags), n_params, LARVANET_PARAMS[name]))
+    torch.save(model.module.state_dict(), path)
+
+
+def larvanet_base(torch, model, img_chw):
+    """The interpolated base of `model`'s LarvaNet forward on one CHW frame,
+    NHWC f32 (models/layers.interpolated_base on the input in the compute
+    dtype, as the forward takes it)."""
+    from larvanet_tpu_torch.models.layers import interpolated_base
+
+    x = model._input_to_device([img_chw]).to(model.compute_dtype)
+    return interpolated_base(x, 4, model.module.interpolate).float()[0]
+
+
+def serve_phase(torch, device="cuda", dtype_name="f32", model_name="edsr"):
+    """Phase 4 (EDSR-baseline x4) or 4b (`model_name` a LarvaNet preset, at
+    LARVANET_FLAGS) with --serving_dtype `dtype_name`. Returns the conv3x3
     launches counted while serving, the same by path, and the served
     model."""
     import numpy as np
@@ -585,16 +681,27 @@ def serve_phase(torch, device="cuda", dtype_name="f32"):
     from larvanet_tpu_torch.models import layers
     from larvanet_tpu_torch.ops import conv3x3
 
+    larva = model_name != "edsr"
     rng = np.random.default_rng(SEED)
     frames = [photo(rng, 120, 160), photo(rng, 120, 160), photo(rng, 67, 93),
               photo(rng, 96, 128)]
+    label = "%s %s" % (model_name, dtype_name)
     with tempfile.TemporaryDirectory() as tmp:
-        pth = os.path.join(tmp, "edsr_baseline_x4.pth")
-        save_edsr_baseline(torch, pth, frames[0], device)
+        pth = os.path.join(tmp, "%s_x4.pth" % model_name)
+        if larva:
+            save_larvanet(torch, pth, model_name, LARVANET_FLAGS, device)
+            model_flags = ["--model", model_name] + LARVANET_FLAGS
+            per_forward = conv_path_launches(_LARVA48)
+        else:
+            save_edsr_baseline(torch, pth, frames[0], device)
+            model_flags = ["--model", "edsr"]
+            per_forward = PATH_LAUNCHES[dtype_name]
+        n_conv = sum(per_forward.values())
 
         args, remaining = serve.build_parser().parse_known_args(
-            ["--model", "edsr", "--scales", "4", "--restore_path", pth,
-             "--device", device, "--dynamic_batch", "2", "--serving_dtype", dtype_name])
+            model_flags + ["--scales", "4", "--restore_path", pth,
+                           "--device", device, "--dynamic_batch", "2",
+                           "--serving_dtype", dtype_name])
         service = serve.build_service(args, remaining)
         httpd = serve.make_server(service, "127.0.0.1", 0)
         thread = threading.Thread(target=httpd.serve_forever, daemon=True)
@@ -606,7 +713,7 @@ def serve_phase(torch, device="cuda", dtype_name="f32"):
                 raise AssertionError("/healthz gave %d before warmup" % code)
             t0 = time.perf_counter()
             service.warmup(128, 128)
-            print("serve %s: warmup took %.3f s" % (dtype_name, time.perf_counter() - t0))
+            print("serve %s: warmup took %.3f s" % (label, time.perf_counter() - t0))
             code, _ = _http(url + "/healthz")
             if code != 200:
                 raise AssertionError("/healthz gave %d after warmup" % code)
@@ -645,22 +752,22 @@ def serve_phase(torch, device="cuda", dtype_name="f32"):
 
         print("serve %s: /info num_requests=%d num_forwards=%d mean_batch_size=%s "
               "device_seconds=%s queue_wait_seconds=%s device_memory_mb=%s"
-              % (dtype_name, info["num_requests"], info["num_forwards"],
+              % (label, info["num_requests"], info["num_forwards"],
                  info["mean_batch_size"],
                  info["device_seconds"], info["queue_wait_seconds"],
                  info["device_memory_mb"]))
         print("serve %s: client wall seconds per request: %s"
-              % (dtype_name, ", ".join("%.4f" % s for s in wall)))
+              % (label, ", ".join("%.4f" % s for s in wall)))
         if info["num_requests"] != 4 or info["num_forwards"] != 3:
             raise AssertionError("expected 4 requests in 3 forwards (one batch of "
                                  "2), /info says %s" % info)
-        want = {p: k * info["num_forwards"] for p, k in PATH_LAUNCHES[dtype_name].items()}
-        if launches != 37 * info["num_forwards"] or by_path != want:
-            raise AssertionError("conv3x3 kernel launched %d times (%s) for %d forwards, "
-                                 "not 37 each (%s)" % (launches, by_path,
-                                                       info["num_forwards"], want))
-        print("serve %s: %d conv3x3 kernel launches for %d forwards (37 each): %s"
-              % (dtype_name, launches, info["num_forwards"], by_path))
+        want = {p: k * info["num_forwards"] for p, k in per_forward.items()}
+        if launches != n_conv * info["num_forwards"] or by_path != want:
+            raise AssertionError("%s: conv3x3 kernel launched %d times (%s) for %d forwards, "
+                                 "not %d each (%s)" % (label, launches, by_path,
+                                                       info["num_forwards"], n_conv, want))
+        print("serve %s: %d conv3x3 kernel launches for %d forwards (%d each): %s"
+              % (label, launches, info["num_forwards"], n_conv, by_path))
 
         for i, (img, (code, body)) in enumerate(zip(frames, replies)):
             if code != 200:
@@ -680,7 +787,12 @@ def serve_phase(torch, device="cuda", dtype_name="f32"):
                 raise AssertionError("request %d: forward not finite" % i)
             fwd_err = float((fwd - ref).abs().max())
             rtol = FWD_RTOL if dtype_name == "f32" else BF16_FWD_RTOL
-            fwd_bar = rtol * float(ref.abs().max())
+            # LarvaNet: relative to the residual, the forward minus its
+            # interpolated base (the same in both forwards), which a fault
+            # of the trunk would move by far more than the image's range
+            # shows; EDSR: relative to the output
+            magnitude = ref - larvanet_base(torch, service.model, img) if larva else ref
+            fwd_bar = rtol * float(magnitude.abs().max())
 
             def u8(t):
                 return torch.clamp(torch.round(t), 0, 255).to(torch.int16)
@@ -695,16 +807,17 @@ def serve_phase(torch, device="cuda", dtype_name="f32"):
             served = levels if dtype_name == "f32" else int((got_t - u8(fwd)).abs().max())
             psnr = float(psnr_rgb_device(got_t[None].float(), ref[None]))
             print("serve %s: request %d %dx%d -> %dx%d: %.4f of pixels inside (0, 255), "
-                  "unclamped max |d| %.3g (bar %.3g), max %d uint8 level(s) from the "
+                  "unclamped max |d| %.3g (bar %.3g%s), max %d uint8 level(s) from the "
                   "plain-version forward, %d from the kernels' forward, PSNR %.2f dB" % (
-                      dtype_name, i, h, w, 4 * h, 4 * w, inside, fwd_err, fwd_bar, levels,
-                      int((got_t - u8(fwd)).abs().max()), psnr))
+                      label, i, h, w, 4 * h, 4 * w, inside, fwd_err, fwd_bar,
+                      "; residual max |y| %.3g" % float(magnitude.abs().max()) if larva else "",
+                      levels, int((got_t - u8(fwd)).abs().max()), psnr))
             if inside < MIN_INSIDE:
                 raise AssertionError("request %d: only %.4f of the pixels inside "
                                      "(0, 255)" % (i, inside))
             if fwd_err > fwd_bar or served > 1:
                 raise AssertionError("request %d (%s): kernel forward disagrees with the "
-                                     "plain forward" % (i, dtype_name))
+                                     "plain forward" % (i, label))
     return launches, by_path, service.model
 
 
@@ -766,17 +879,178 @@ def forward_phase(torch, model, device="cuda"):
                 continue
             t = time_windows(torch, {"forward": lambda: model.fwd_runtime(x)})["forward"]
             print("forward: EDSR-baseline x4, %d x %dx%d LR, %s, --wino_trunk %d: %s per "
-                  "forward, %.3f LR-MP/s" % (n, h, w, name, m, spread(t),
-                                             n * h * w / 1e3 / t[0]), flush=True)
+                  "forward, %.3f LR-MP/s; %s" % (
+                      n, h, w, name, m, spread(t), n * h * w / 1e3 / t[0],
+                      breakdown_line(torch, lambda: model.fwd_runtime(x), t[0])), flush=True)
     model.set_route(None)
     model.set_serving_dtype("f32")
     return launches
 
 
-def validate_phase(torch, device="cuda"):
-    """Phase 6. The port's validate CLI on a small DIV2K-layout set, with
-    --wino_trunk 0, 2 and 4. Returns {m: fused launches by path in the m
-    run}."""
+def larvanet_model(name, flags, device="cuda", pth=None):
+    """A LarvaNet-family model x4 on `device`, random weights from SEED or
+    restored from `pth`."""
+    from larvanet_tpu_torch.core.registry import get_model
+
+    model = get_model(name)
+    model.parse_args(list(flags))
+    model.prepare([4], device=device, seed=SEED)
+    if pth is not None:
+        model.restore(pth)
+    return model
+
+
+def device_breakdown(torch, fn):
+    """The card's kernel time in one call of `fn`: (wall ms under the
+    profiler, {"conv3x3", "wino_resblock", "other": ms of kernels by name}),
+    from torch.profiler's CUDA kernel records over TIMED_REPS calls
+    bracketed with CUDA events. The parts are None, not measured, when the
+    profiler records no kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start.record()
+        for _ in range(TIMED_REPS):
+            fn()
+        end.record()
+        end.synchronize()
+    parts = {"conv3x3": 0.0, "wino_resblock": 0.0, "other": 0.0}
+    for event in prof.key_averages():
+        if event.device_type == DeviceType.CUDA:
+            kind = next((k for k in ("conv3x3", "wino_resblock") if k in event.key), "other")
+            parts[kind] += event.self_device_time_total / 1e3 / TIMED_REPS
+    return start.elapsed_time(end) / TIMED_REPS, (parts if sum(parts.values()) else None)
+
+
+def breakdown_line(torch, fn, wall) -> str:
+    """Where a call of `fn` that takes `wall` ms unprofiled spends the card's
+    time: its kernels by name (device_breakdown) and idle, the rest of
+    `wall` (one stream: kernels do not overlap). The profiler's own host
+    work slows a host-bound call, so idle is taken against the unprofiled
+    time; the profiled wall is printed beside it."""
+    profiled, parts = device_breakdown(torch, fn)
+    if parts is None:
+        return "device breakdown not measured (the profiler recorded no kernel)"
+    parts["idle"] = max(wall - sum(parts.values()), 0.0)
+    return "of it %s (profiled wall %.4f ms)" % (", ".join(
+        "%s %.4f ms (%.1f%%)" % (k, v, 100.0 * v / wall) for k, v in parts.items()), profiled)
+
+
+def larvanet_forward_phase(torch, device="cuda"):
+    """Phase 5b. The LarvaNet-family x4 forwards of LARVANET_ROUTES on the
+    LR batch of phase 3, f32 and bf16, each --wino_trunk route set up by the
+    CLI's own `maybe_wino_trunk`. One forward of each is counted (conv3x3
+    launches by path, fused launches by path), then timed; under
+    --wino_trunk a 48-channel trunk must give the default route's output
+    bit for bit, and LarvaNet_w64 must lie within WINO_FWD_RTOL (f32) or
+    BF16_FWD_RTOL (bf16) of the same route with the plain fused ResBlock,
+    relative to the residual (the forward minus its base). Each timed
+    forward's time is split by `breakdown_line`: the convs, the fused
+    ResBlocks, the other kernels (the base among them) and idle.
+    Returns {m: fused launches by path in the counted forwards}."""
+    import argparse
+    import contextlib
+    import io as stdio
+
+    from larvanet_tpu_torch.cli import common
+    from larvanet_tpu_torch.models.layers import interpolated_base
+    from larvanet_tpu_torch.ops import conv3x3
+    from larvanet_tpu_torch.ops import wino_resblock as wr
+
+    n, h, w = LR_BATCH
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    x = 255.0 * torch.rand((n, h, w, 3), generator=gen, device=device)
+    launches = {2: {}, 4: {}}
+    base_done = set()
+    for label, (name, flags, routes) in LARVANET_ROUTES.items():
+        model = larvanet_model(name, flags, device)
+        for dname in ("f32", "bf16"):
+            model.set_serving_dtype(dname)
+            base = interpolated_base(x.to(model.compute_dtype), 4,
+                                     model.module.interpolate).float()
+            if dname not in base_done and device == "cuda":
+                base_done.add(dname)
+                t = time_windows(torch, {"base": lambda: interpolated_base(
+                    x.to(model.compute_dtype), 4, model.module.interpolate)})["base"]
+                print("forward: bicubic base of %d x %dx%d LR, %s: %s" % (
+                    n, h, w, dname, spread(t)), flush=True)
+            default = None
+            for m, (shapes, fused) in routes.items():
+                model.set_route(None)
+                notice = stdio.StringIO()
+                with contextlib.redirect_stdout(notice):
+                    common.maybe_wino_trunk(model, argparse.Namespace(model=name,
+                                                                      wino_trunk=m))
+                if notice.getvalue():
+                    print("forward %s %s --wino_trunk %d: %s" % (
+                        label, dname, m, notice.getvalue().strip().replace("\n", "; ")))
+                conv3x3.reset_launches()
+                wr.reset_launches()
+                got = model.fwd_runtime(x)
+                if device == "cuda":
+                    torch.cuda.synchronize()
+                conv, by_path = dict(conv3x3.LAUNCHES_BY_PATH), dict(wr.LAUNCHES_BY_PATH)
+                want_conv, want_fused = conv_path_launches(shapes), fused_path_launches(fused)
+                print("forward %s %s --wino_trunk %d: conv3x3 launches by path %s, fused "
+                      "launches by path %s" % (label, dname, m, conv, by_path), flush=True)
+                if conv != want_conv or by_path != want_fused:
+                    raise AssertionError("forward %s %s --wino_trunk %d: %s conv3x3 and %s "
+                                         "fused launches, not %s and %s" % (
+                                             label, dname, m, conv, by_path, want_conv,
+                                             want_fused))
+                if m:
+                    _add(launches[m], by_path)
+                if not bool(torch.isfinite(got).all()):
+                    raise AssertionError("forward %s %s --wino_trunk %d: not finite"
+                                         % (label, dname, m))
+                if m == 0:
+                    default = got
+                elif not fused:
+                    if not torch.equal(got, default):
+                        raise AssertionError("forward %s %s --wino_trunk %d: the 48-channel "
+                                             "route differs from the default route"
+                                             % (label, dname, m))
+                else:
+                    with mock.patch.object(wr, "wino_resblock_transformed",
+                                           wr.wino_resblock_transformed_reference):
+                        ref = model.fwd_runtime(x)
+                    err = float((got - ref).abs().max())
+                    rtol = WINO_FWD_RTOL if dname == "f32" else BF16_FWD_RTOL
+                    residual = float((ref - base).abs().max())
+                    bar = rtol * residual
+                    print("forward %s %s --wino_trunk %d: max |d| %.3g against the route with "
+                          "the plain fused ResBlock (bar %.3g; residual max |y| %.3g, output "
+                          "max |y| %.3g)" % (label, dname, m, err, bar, residual,
+                                             float(ref.abs().max())), flush=True)
+                    if err > bar:
+                        raise AssertionError("forward %s %s --wino_trunk %d disagrees with the "
+                                             "plain fused ResBlock's" % (label, dname, m))
+                    del ref
+                del got
+                if device != "cuda":
+                    continue
+                t = time_windows(torch, {"forward": lambda: model.fwd_runtime(x)})["forward"]
+                print("forward: %s x4, %d x %dx%d LR, %s, --wino_trunk %d: %s per forward, "
+                      "%.3f LR-MP/s; %s" % (
+                          label, n, h, w, dname, m, spread(t), n * h * w / 1e3 / t[0],
+                          breakdown_line(torch, lambda: model.fwd_runtime(x), t[0])),
+                      flush=True)
+            del default
+        model.set_route(None)
+        del model
+    return launches
+
+
+def validate_phase(torch, device="cuda", model_name="edsr"):
+    """Phase 6 (EDSR-baseline x4) or 6b (`model_name` "LarvaNet_w64" at
+    LARVANET_FLAGS). The port's validate CLI on a small DIV2K-layout set,
+    with --wino_trunk 0, 2 and 4. Returns {m: fused launches by path in the
+    m run}."""
     import numpy as np
 
     from larvanet_tpu_torch.cli import validate
@@ -797,9 +1071,21 @@ def validate_phase(torch, device="cuda"):
                 io.save_image_chw(hr, os.path.join(tmp, sub, "HR", name + ".png"))
                 io.save_image_chw(lr, os.path.join(tmp, sub, "LR", "X4", "%sx4.png" % name))
             names.append(name)
-        pth = os.path.join(tmp, "edsr_baseline_x4.pth")
+        pth = os.path.join(tmp, "%s_x4.pth" % model_name)
         first_lr = io.load_image_u8(os.path.join(tmp, "even", "LR", "X4", "0000x4.png"))
-        save_edsr_baseline(torch, pth, first_lr.transpose(2, 0, 1), device)
+        if model_name == "edsr":
+            save_edsr_baseline(torch, pth, first_lr.transpose(2, 0, 1), device)
+            model_flags = ["--model", "edsr"]
+            # {m: (conv3x3 launches by path, fused launches by kernel) per forward}
+            expect = {m: ((WINO_CONV_PATH_LAUNCHES if m else PATH_LAUNCHES)["f32"],
+                          {k: (16 if k == m else 0) for k in (2, 4)}) for m in (0, 2, 4)}
+        else:
+            save_larvanet(torch, pth, model_name, LARVANET_FLAGS, device)
+            model_flags = ["--model", model_name] + LARVANET_FLAGS
+            routes = LARVANET_ROUTES["%s 2x16" % model_name][2]
+            expect = {m: (conv_path_launches(routes[m][0]),
+                          {k: (routes[m][1] if k == m else 0) for k in (2, 4)})
+                      for m in (0, 2, 4)}
 
         psnrs, wino_launches = {}, {}
         for m in (0, 2, 4):
@@ -809,8 +1095,8 @@ def validate_phase(torch, device="cuda"):
             conv3x3.reset_launches()
             wino_resblock.reset_launches()
             t0 = time.perf_counter()
-            validate.main(["--model", "edsr", "--scales", "4", "--device", device,
-                           "--restore_path", pth,
+            validate.main(model_flags + ["--scales", "4", "--device", device,
+                                         "--restore_path", pth,
                            "--data_input_path", os.path.join(tmp, sub, "LR"),
                            "--data_truth_path", os.path.join(tmp, sub, "HR"),
                            "--report_json", report, "--wino_trunk", str(m)])
@@ -820,29 +1106,31 @@ def validate_phase(torch, device="cuda"):
             wino_by_path = dict(wino_resblock.LAUNCHES_BY_PATH)
             with open(report) as f:
                 psnrs[m] = json.load(f)["scales"]["4"]["per_image"]
-            want_conv = 37 if m == 0 else 5
-            want_by_path = {p: k * n_images for p, k in
-                            (WINO_CONV_PATH_LAUNCHES if m else PATH_LAUNCHES)["f32"].items()}
-            want_wino = {k: (16 if k == m else 0) for k in (2, 4)}
-            print("validate --wino_trunk %d: %d images in %.3f s; per forward %s conv3x3 "
+            want_by_path = {p: k * n_images for p, k in expect[m][0].items()}
+            want_conv = sum(expect[m][0].values())
+            want_wino = expect[m][1]
+            print("validate %s --wino_trunk %d: %d images in %.3f s; per forward %s conv3x3 "
                   "launches, %s F(2,3) and %s F(4,3) launches; PSNRs %s" % (
-                      m, n_images, seconds, conv / n_images, wino[2] / n_images,
+                      model_name, m, n_images, seconds, conv / n_images, wino[2] / n_images,
                       wino[4] / n_images,
                       ", ".join("%s %.4f" % kv for kv in sorted(psnrs[m].items()))))
             if conv != want_conv * n_images or conv_by_path != want_by_path or any(
                     wino[k] != want_wino[k] * n_images for k in (2, 4)):
-                raise AssertionError("validate --wino_trunk %d: %d conv3x3 (%s) and %s wino "
-                                     "launches for %d forwards, not %d (%s) and %s each"
-                                     % (m, conv, conv_by_path, wino, n_images, want_conv,
-                                        want_by_path, want_wino))
+                raise AssertionError("validate %s --wino_trunk %d: %d conv3x3 (%s) and %s "
+                                     "wino launches for %d forwards, not %d (%s) and %s each"
+                                     % (model_name, m, conv, conv_by_path, wino, n_images,
+                                        want_conv, want_by_path, want_wino))
             if m:
                 wino_launches[m] = wino_by_path
                 deltas = [abs(psnrs[m][k] - psnrs[0][k]) for k in psnrs[m]]
-                print("validate --wino_trunk %d: max |dPSNR| %.3g dB against "
-                      "--wino_trunk 0 (bar %g)" % (m, max(deltas), VALIDATE_PSNR_TOL))
+                print("validate %s --wino_trunk %d: max |dPSNR| %.3g dB against "
+                      "--wino_trunk 0 (bar %g)" % (model_name, m, max(deltas),
+                                                   VALIDATE_PSNR_TOL))
                 if len(deltas) != len(VALIDATE_LR) or max(deltas) > VALIDATE_PSNR_TOL:
-                    raise AssertionError("validate --wino_trunk %d: PSNRs %s, --wino_trunk "
-                                         "0: %s" % (m, psnrs[m], psnrs[0]))
+                    raise AssertionError("validate %s --wino_trunk %d: PSNRs %s, --wino_trunk "
+                                         "0: %s" % (model_name, m, psnrs[m], psnrs[0]))
+        if model_name != "edsr":
+            return wino_launches
 
         # the unclamped f32 forward through each wino kernel against the
         # forward through the conv3x3 kernel
@@ -868,41 +1156,51 @@ def validate_phase(torch, device="cuda"):
     return wino_launches
 
 
-def runtime_phase(torch, device="cuda"):
-    """Phase 7. The port's runtime CLI at the DIV2K x4 LR size, every
-    --wino_trunk in f32 and bf16, with each run's launches by path. Returns
-    {m: fused launches by path under --wino_trunk m}."""
+def runtime_phase(torch, device="cuda", model_name="edsr"):
+    """Phase 7 (EDSR-baseline x4, every --wino_trunk) or 7b (`model_name` a
+    LarvaNet preset at LARVANET_FLAGS, its --wino_trunk routes in
+    LARVANET_ROUTES). The port's runtime CLI at the DIV2K x4 LR size, f32
+    and bf16, with each run's launches by path. Returns {m: fused launches
+    by path under --wino_trunk m}."""
     from larvanet_tpu_torch.cli import runtime
     from larvanet_tpu_torch.ops import conv3x3
     from larvanet_tpu_torch.ops import wino_resblock as wr
 
     n, h, w = RAGGED
     launches = {2: {}, 4: {}}
+    if model_name == "edsr":
+        model_flags, label = ["--model", "edsr"], "EDSR-baseline x4"
+        # {dtype: {m: (conv3x3 launches by path, fused launches by path) per forward}}
+        expect = {d: {m: ((WINO_CONV_PATH_LAUNCHES if m else PATH_LAUNCHES)[d],
+                          WINO_PATH_LAUNCHES[d] if m else fused_path_launches(0))
+                      for m in (0, 2, 4)} for d in ("f32", "bf16")}
+    else:
+        label = "%s 2x16" % model_name
+        model_flags = ["--model", model_name] + LARVANET_ROUTES[label][1]
+        expect = {d: {m: (conv_path_launches(shapes), fused_path_launches(fused))
+                      for m, (shapes, fused) in LARVANET_ROUTES[label][2].items()}
+                  for d in ("f32", "bf16")}
     for dtype_name in ("f32", "bf16"):
-        for m in (0, 2, 4):
+        for m, (per_conv, per_fused) in expect[dtype_name].items():
             conv3x3.reset_launches()
             wr.reset_launches()
-            mean_s, mps = runtime.main(["--model", "edsr", "--scales", "4", "--device", device,
-                                        "--input_height", str(h), "--input_width", str(w),
-                                        "--num_warmup", "2", "--num_iters", str(TIMED_REPS),
-                                        "--wino_trunk", str(m),
-                                        "--serving_dtype", dtype_name])
+            mean_s, mps = runtime.main(model_flags + [
+                "--scales", "4", "--device", device, "--input_height", str(h),
+                "--input_width", str(w), "--num_warmup", "2", "--num_iters", str(TIMED_REPS),
+                "--wino_trunk", str(m), "--serving_dtype", dtype_name])
             conv, wino = dict(conv3x3.LAUNCHES_BY_PATH), dict(wr.LAUNCHES_BY_PATH)
-            print("runtime: EDSR-baseline x4, %dx%d LR, %s, --wino_trunk %d: %.4f ms per "
-                  "frame, %.3f LR-MP/s; launches conv3x3 %s, fused %s" % (
-                      h, w, dtype_name, m, 1e3 * mean_s, mps, conv, wino), flush=True)
-            # one forward is 37 conv3x3 launches (5 under --wino_trunk), one narrow
-            forwards = sum(conv.values()) // (5 if m else 37)
-            want_conv = {p: k * forwards for p, k in
-                         (WINO_CONV_PATH_LAUNCHES if m else PATH_LAUNCHES)[dtype_name].items()}
-            if forwards == 0 or conv != want_conv:
-                raise AssertionError("runtime %s --wino_trunk %d: conv3x3 launches %s, not %s"
-                                     % (dtype_name, m, conv, want_conv))
+            print("runtime: %s, %dx%d LR, %s, --wino_trunk %d: %.4f ms per frame, %.3f "
+                  "LR-MP/s; launches conv3x3 %s, fused %s" % (
+                      label, h, w, dtype_name, m, 1e3 * mean_s, mps, conv, wino), flush=True)
+            forwards = sum(conv.values()) // sum(per_conv.values())
+            want_conv = {p: k * forwards for p, k in per_conv.items()}
+            want_fused = {p: k * forwards for p, k in per_fused.items()}
+            if forwards == 0 or conv != want_conv or wino != want_fused:
+                raise AssertionError("runtime %s %s --wino_trunk %d: launches conv3x3 %s and "
+                                     "fused %s, not %s and %s" % (
+                                         label, dtype_name, m, conv, wino, want_conv,
+                                         want_fused))
             if m:
-                want = {p: k * forwards for p, k in WINO_PATH_LAUNCHES[dtype_name].items()}
-                if wino != want:
-                    raise AssertionError("runtime %s --wino_trunk %d: fused launches %s, not "
-                                         "16 a forward on its path" % (dtype_name, m, wino))
                 _add(launches[m], wino)
     return launches
 
@@ -955,19 +1253,26 @@ def main() -> int:
     print_sass_mix(build)
 
     sums, tc_sums, worst, narrow = kernel_phase(torch)
+    larva_sums, _, larva_worst, _ = kernel_phase(torch, LARVANET_CONVS, "LarvaNet 2x16")
+    for dname in ("f32", "bf16"):
+        worst[dname] = max(worst[dname], larva_worst[dname])
     wino = wino_phase(torch)
     launches, by_path, served = 0, {}, {}
-    for dtype_name in ("bf16", "f32"):
-        n_launch, n_by_path, model = serve_phase(torch, dtype_name=dtype_name)
-        launches += n_launch
-        served[dtype_name] = n_by_path
-        _add(by_path, n_by_path)
-        if dtype_name == "bf16":
+    for model_name in ("edsr", "LarvaNet"):
+        for dtype_name in ("bf16", "f32"):
+            n_launch, n_by_path, model = serve_phase(torch, dtype_name=dtype_name,
+                                                     model_name=model_name)
+            launches += n_launch
+            served[(model_name, dtype_name)] = n_by_path
+            _add(by_path, n_by_path)
+            if model_name == "edsr" and dtype_name == "f32":
+                fwd_launches = forward_phase(torch, model)
             del model
-    fwd_launches = forward_phase(torch, model)
-    del model
+    larva_fwd_launches = larvanet_forward_phase(torch)
     validate_launches = validate_phase(torch)
+    larva_validate_launches = validate_phase(torch, model_name="LarvaNet_w64")
     runtime_launches = runtime_phase(torch)
+    runtime_phase(torch, model_name="LarvaNet")
 
     kernels = [{
         "name": "conv3x3_bias_act",
@@ -986,14 +1291,19 @@ def main() -> int:
         "bf16": dict(sums["bf16"], max_abs_err=worst["bf16"]),
         # the 35 convs of a forward on the tensor-core path (f32: split TF32),
         # with their served launches
-        "tensor_core": {d: dict(tc_sums[d], launches=served[d]["tensor_core"])
+        "tensor_core": {d: dict(tc_sums[d], launches=served[("edsr", d)]["tensor_core"])
                         for d in ("f32", "bf16")},
         "narrow": narrow,
+        # the 67 convs of one LarvaNet 2x16 forward, with their served launches
+        "larvanet": {d: dict(larva_sums[d], max_abs_err=larva_worst[d],
+                             launches_by_path=served[("LarvaNet", d)])
+                     for d in ("f32", "bf16")},
     }]
     for m, line in ((2, 205), (4, 336)):
         wsums, werr = wino[m]
         by_path = {}
-        for part in (fwd_launches[m], validate_launches[m], runtime_launches[m]):
+        for part in (fwd_launches[m], validate_launches[m], runtime_launches[m],
+                     larva_fwd_launches[m], larva_validate_launches[m]):
             _add(by_path, part)
         kernels.append({
             "name": "wino_resblock_f%d" % m,

@@ -115,19 +115,25 @@ def apply_serving_dtype(model, args) -> None:
 
 def add_wino_trunk_flag(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("--wino_trunk", type=int, default=0,
-                        help="Run every EDSR ResBlock as one fused Winograd "
-                             "kernel: 2 = F(2,3), 4 = F(4,3) "
-                             "(ops/wino_resblock.py; float-tolerance equal to "
-                             "the standard path; 0 = off). Even input widths.")
+                        help="Run every 64-channel trunk ResBlock (EDSR, "
+                             "LarvaNet_w64) as one fused Winograd kernel: 2 = "
+                             "F(2,3), 4 = F(4,3) (ops/wino_resblock.py; "
+                             "float-tolerance equal to the standard path; 0 = "
+                             "off). Even input widths.")
 
 
 def maybe_wino_trunk(model, args) -> None:
-    """Route the EDSR forward through the fused Winograd ResBlock kernel
-    when --wino_trunk is 2 or 4 (cli/common.py:384-428 in the JAX package).
-    No fallback: on the card the route launches the kernel or raises; with
-    --device cpu it runs the kernel's plain version."""
+    """Route the EDSR or LarvaNet-family forward through the fused Winograd
+    ResBlock kernel when --wino_trunk is 2 or 4 (cli/common.py:384-428 in
+    the JAX package). The trunk's width, read from the module, decides the
+    route once: EDSR must be 64 wide on the card; a LarvaNet trunk of any
+    other width than 64 runs its ResBlocks on the direct convs with a
+    notice, as JAX's 48-channel trunks do. No fallback: on the card the
+    route launches the kernel or raises; with --device cpu it runs the
+    kernel's plain version."""
     from larvanet_tpu_torch.ops.wino_resblock import (KERNEL_CHANNELS,
-                                                      make_wino_edsr_forward)
+                                                      make_wino_edsr_forward,
+                                                      make_wino_larvanet_forward)
 
     m = int(getattr(args, "wino_trunk", 0) or 0)
     if not m:
@@ -135,18 +141,23 @@ def maybe_wino_trunk(model, args) -> None:
     if m not in (2, 4):
         raise SystemExit("--wino_trunk must be 0, 2 or 4 (got %d)" % m)
     model_name = getattr(args, "model", None) or ""
-    if model_name.startswith(("LarvaNet", "LarvaLeg")):
-        raise SystemExit("--wino_trunk for the LarvaNet family is not ported to "
-                         "larvanet_tpu_torch yet (see ROADMAP.md)")
-    if model_name not in ("edsr", "edsr_loss"):
+    is_edsr = model_name in ("edsr", "edsr_loss")
+    if not (is_edsr or model_name.startswith(("LarvaNet", "LarvaLeg"))):
         print("--wino_trunk: only the EDSR/LarvaNet families are routed; "
               "running the standard path for %r" % model_name)
         return
-    features = model.module.first_conv.weight.shape[0]
-    if model.device.type == "cuda" and features != KERNEL_CHANNELS:
-        raise SystemExit("--wino_trunk: the kernel is built for %d features, the "
-                         "model has %d" % (KERNEL_CHANNELS, features))
-    model.set_route(make_wino_edsr_forward(model, m))
+    features = model.module.features
+    if is_edsr:
+        if model.device.type == "cuda" and features != KERNEL_CHANNELS:
+            raise SystemExit("--wino_trunk: the kernel is built for %d features, the "
+                             "model has %d" % (KERNEL_CHANNELS, features))
+        model.set_route(make_wino_edsr_forward(model, m))
+    else:
+        model.set_route(make_wino_larvanet_forward(model, m))
+        if features != KERNEL_CHANNELS:
+            print("--wino_trunk: %r trunk is %d channels (the fused kernel is built "
+                  "for %d); body ResBlocks run the direct conv3x3 kernel"
+                  % (model_name, features, KERNEL_CHANNELS))
     print("inference: fused Winograd F(%d,3) ResBlock kernel enabled" % m)
 
 

@@ -6,6 +6,8 @@ reuses them. Only the standard library's HTTP server:
 
     python -m larvanet_tpu_torch.cli.serve --model edsr --scales 4 \
         --restore_path model.pth --port 8080 [--dynamic_batch 4]
+    python -m larvanet_tpu_torch.cli.serve --model LarvaNet --num_modules 2 \
+        --num_blocks 16,16 --scales 4 --restore_path larvanet.pth
 
 Endpoints:
     GET  /healthz   -> 200 "ok" once the warmup forward has run

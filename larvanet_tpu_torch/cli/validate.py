@@ -12,8 +12,11 @@ scale (reference validate.py:83-123):
 
 By default the frame is quantized on the device before the pull
 (--device_uint8) and frames are dispatched ahead (--pipeline_depth);
-both give the serial loop's bytes. --wino_trunk runs every EDSR ResBlock
-as one fused Winograd kernel.
+both give the serial loop's bytes. --wino_trunk runs every 64-channel
+trunk ResBlock (EDSR, LarvaNet_w64) as one fused Winograd kernel; a
+48-channel LarvaNet trunk keeps the direct convs. --model takes edsr and
+every LarvaNet-family preset (their flags after it, e.g. --num_modules 2
+--num_blocks 16,16).
 
 Not ported yet, refused with a pointer to ROADMAP.md: --chop_forward,
 --tile_forward, --self_ensemble, --artifact, --int8_trunk, --int8_report,

@@ -1,3 +1,4 @@
 """Model zoo of the port; importing it registers every ported model."""
 
 from larvanet_tpu_torch.models import edsr  # noqa: F401
+from larvanet_tpu_torch.models import larvanet  # noqa: F401

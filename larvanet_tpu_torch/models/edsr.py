@@ -32,6 +32,7 @@ class EDSRModule(nn.Module):
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         g = generator
+        self.features = features
         self.mean_shift = MeanShift(sign=1.0)
         self.first_conv = Conv3x3(3, features, generator=g)
         self.res_blocks = nn.ModuleList(

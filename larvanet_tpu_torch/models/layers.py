@@ -5,9 +5,11 @@ reference `.pth` (or one exported by the JAX package) loads with
 `strict=True`. Every 3x3 conv goes through `ops.conv3x3`, which is the
 hand-written CUDA kernel on the card.
 
-Init parity: torch's Conv2d default, kaiming_uniform_(a=sqrt(5)) for the
-weight and U(-1/sqrt(fan_in), 1/sqrt(fan_in)) for the bias, drawn from
-an explicit `torch.Generator`.
+Init parity, drawn from an explicit `torch.Generator`: torch's Conv2d
+default, kaiming_uniform_(a=sqrt(5)) for the weight and U(-1/sqrt(fan_in),
+1/sqrt(fan_in)) for the bias; or, with `init_scale=s`, the LarvaNet
+family's kaiming_normal_(fan_in) times s with a zero bias
+(`kaiming_normal_scaled`, layers.py:69-78).
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from larvanet_tpu_torch.ops.conv3x3 import conv3x3_bias_act
@@ -48,19 +51,27 @@ class MeanShift(nn.Module):
 class Conv3x3(nn.Module):
     """SAME 3x3 conv + bias, with an optional activation fused into the
     kernel's epilogue. Holds the OIHW `weight` and `bias` of torch's
-    Conv2d; hands the kernel the HWIO view."""
+    Conv2d; hands the kernel the HWIO view. `init_scale` None draws torch's
+    Conv2d default; a float s draws `kaiming_normal_scaled(s)`."""
 
     def __init__(self, in_features: int, out_features: int,
                  act: Optional[str] = None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 init_scale: Optional[float] = None):
         super().__init__()
         self.act = act
         fan_in = in_features * 9
-        bound = 1.0 / math.sqrt(fan_in)
-        self.weight = nn.Parameter(torch.empty(out_features, in_features, 3, 3)
-                                   .uniform_(-bound, bound, generator=generator))
-        self.bias = nn.Parameter(torch.empty(out_features)
-                                 .uniform_(-bound, bound, generator=generator))
+        weight = torch.empty(out_features, in_features, 3, 3)
+        bias = torch.empty(out_features)
+        if init_scale is None:
+            bound = 1.0 / math.sqrt(fan_in)
+            weight.uniform_(-bound, bound, generator=generator)
+            bias.uniform_(-bound, bound, generator=generator)
+        else:
+            weight.normal_(0.0, init_scale * math.sqrt(2.0 / fan_in), generator=generator)
+            bias.zero_()
+        self.weight = nn.Parameter(weight)
+        self.bias = nn.Parameter(bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return conv3x3_bias_act(x, self.weight.permute(2, 3, 1, 0), self.bias,
@@ -72,16 +83,19 @@ class ResBlock(nn.Module):
     (layers.py:167-196, reference models/edsr.py:139-153).
 
     `body` keeps the reference's Sequential indices so the keys are
-    body.0 / body.2; index 1, the ReLU, runs fused in body.0's kernel."""
+    body.0 / body.2; index 1, the ReLU, runs fused in body.0's kernel.
+    `init_scale` as in Conv3x3 (0.1 in the LarvaNet family)."""
 
     def __init__(self, features: int, res_weight: float = 1.0,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 init_scale: Optional[float] = None):
         super().__init__()
         self.res_weight = res_weight
         self.body = nn.ModuleList([
-            Conv3x3(features, features, act="relu", generator=generator),
+            Conv3x3(features, features, act="relu", generator=generator,
+                    init_scale=init_scale),
             nn.Identity(),
-            Conv3x3(features, features, generator=generator),
+            Conv3x3(features, features, generator=generator, init_scale=init_scale),
         ])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -113,3 +127,22 @@ class UpsampleBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.body(x)
+
+
+def interpolated_base(x: torch.Tensor, scale: int, method: str = "bicubic") -> torch.Tensor:
+    """The residual 'base' image of the LarvaNet family, NHWC:
+    F.interpolate(x, scale, mode, align_corners=False) (layers.py:314-317,
+    ops/resize.py:120-140; bicubic with torch's A = -0.75, nearest is
+    floor-index). Bicubic and bilinear run in f32 whatever x's dtype: the
+    JAX resampler multiplies x by f32 weights, which promotes a bf16 frame,
+    so its base is f32 from the bf16-rounded input; nearest copies pixels
+    and keeps x's dtype, as in JAX."""
+    if method not in ("bicubic", "bilinear", "nearest"):
+        raise ValueError("unsupported interpolation method: %r" % (method,))
+    nchw = x.permute(0, 3, 1, 2)  # a channels_last view of NHWC
+    if method == "nearest":
+        out = F.interpolate(nchw, scale_factor=scale, mode="nearest")
+    else:
+        out = F.interpolate(nchw.float(), scale_factor=scale, mode=method,
+                            align_corners=False)
+    return out.permute(0, 2, 3, 1).contiguous()

@@ -303,45 +303,81 @@ def wino_resblock(x: torch.Tensor, k_a: torch.Tensor, b_a: torch.Tensor,
     return wino_resblock_transformed(x, u_a, b_a, u_b, b_b, res_weight, m)
 
 
+def fused_resblock_runner(m: int = 2):
+    """`run(block, x)`: ResBlock `block` (models/layers.ResBlock, C = 64) on
+    x in one `wino_resblock_transformed` call. The weight transforms are
+    cached per block, in the layout of the dtype's entry (`entry_basis`; in
+    f32 with their split-TF32 parts), and recomputed when a weight changes,
+    so a later restore or set_serving_dtype holds."""
+    _check_m(m)
+    cache: Dict[torch.nn.Module, tuple] = {}
+
+    @torch.no_grad()
+    def run(block, x: torch.Tensor) -> torch.Tensor:
+        weights = (block.body[0].weight, block.body[2].weight)
+        key = tuple((w.data_ptr(), w._version, w.dtype, w.device) for w in weights) \
+            + (x.dtype,)
+        hit = cache.get(block)
+        if hit is None or hit[0] != key:
+            hit = (key, tuple(entry_basis(h_transform_kernel(w.permute(2, 3, 1, 0), m)
+                                          .to(x.dtype), path_for(x.dtype))
+                              for w in weights))
+            cache[block] = hit
+        u_a, u_b = hit[1]
+        return wino_resblock_transformed(x, u_a, block.body[0].bias, u_b,
+                                         block.body[2].bias, block.res_weight, m,
+                                         entry_layout=True)
+
+    return run
+
+
+def _check_even_width(x: torch.Tensor) -> None:
+    if x.shape[2] % 2:
+        raise ValueError("wino_trunk requires even width")
+
+
 def make_wino_edsr_forward(model, m: int = 2):
     """EDSR inference forward with every ResBlock in one `wino_resblock`
     call (counterpart of make_wino_pallas_edsr_forward,
     wino_pallas.py:467-491). Head, after_res_conv and tail run the
     module's own layers. Takes and returns what `model.module` does; reads
-    the module's weights on every call, so a later restore or
-    set_serving_dtype holds. The weight transforms are cached per block,
-    in the layout of the dtype's entry (`entry_basis`; in f32 with their
-    split-TF32 parts), and recomputed when a weight changes. Even input
-    widths only, as in JAX."""
-    _check_m(m)
-    cache: Dict[int, tuple] = {}
-
-    def basis(i, block, dtype):
-        """(u_a, u_b) of ResBlock i in `dtype`, recomputed when a weight changed."""
-        weights = (block.body[0].weight, block.body[2].weight)
-        key = tuple((w.data_ptr(), w._version, w.dtype, w.device) for w in weights) + (dtype,)
-        hit = cache.get(i)
-        if hit is None or hit[0] != key:
-            hit = (key, tuple(entry_basis(h_transform_kernel(w.permute(2, 3, 1, 0), m)
-                                          .to(dtype), path_for(dtype))
-                              for w in weights))
-            cache[i] = hit
-        return hit[1]
+    the module's weights on every call (`fused_resblock_runner`). Even
+    input widths only, as in JAX."""
+    run = fused_resblock_runner(m)
 
     @torch.no_grad()
     def forward(x: torch.Tensor) -> torch.Tensor:
-        if x.shape[2] % 2:
-            raise ValueError("wino_trunk requires even width")
+        _check_even_width(x)
         mod = model.module
         h = mod.first_conv(mod.mean_shift(x))
         res = h
-        for i, block in enumerate(mod.res_blocks):
-            u_a, u_b = basis(i, block, res.dtype)
-            res = wino_resblock_transformed(res, u_a, block.body[0].bias, u_b,
-                                            block.body[2].bias, block.res_weight, m,
-                                            entry_layout=True)
+        for block in mod.res_blocks:
+            res = run(block, res)
         h = h + mod.after_res_conv(res)
         h = mod.final_conv(mod.upsample(h))
         return mod.mean_inverse_shift(h)
+
+    return forward
+
+
+def make_wino_larvanet_forward(model, m: int = 2):
+    """LarvaNet-family inference forward with fused body ResBlocks
+    (counterpart of make_wino_pallas_larvanet_forward and the pair rule of
+    wino_pallas_pair_with_fallback, wino_pallas.py:413-464): the topology
+    is the module's own walk (`LarvaNetModule.walk`: the 'res' body
+    stream, the serving exit of --leg, the V2 tail). A trunk of
+    KERNEL_CHANNELS (64, LarvaNet_w64) runs every body ResBlock in the
+    kernel; any other width runs the module's own ResBlocks, as JAX's
+    96-lane 48-channel trunks take its exact path. The width is read once,
+    here, from the module. Legs and the tail always run the direct convs.
+    Even input widths only, as in JAX."""
+    _check_m(m)
+    run = fused_resblock_runner(m) if model.module.features == KERNEL_CHANNELS else None
+
+    @torch.no_grad()
+    def forward(x: torch.Tensor):
+        _check_even_width(x)
+        mod = model.module
+        return mod.walk(x, mod.exits, run)
 
     return forward

@@ -2,10 +2,10 @@
 
 The port's modules use the reference PyTorch repo's state_dict keys, the
 ones larvanet_tpu/utils/torch_convert.export_state_dict writes
-(torch_convert.py:448-479,702-757). This module is the port's own copy
-of that export for the families it has, so the tests can carry JAX
-parameters (nested dicts of numpy arrays) into a port module without
-the port importing the JAX package.
+(torch_convert.py:448-503,702-757). This module is the port's own copy
+of that export for the families it has (EDSR and the LarvaNet family),
+so the tests can carry JAX parameters (nested dicts of numpy arrays)
+into a port module without the port importing the JAX package.
 """
 
 from __future__ import annotations
@@ -31,8 +31,39 @@ def _exp_edsr(path: str) -> str:
     raise KeyError(path)
 
 
-EXPORT_RULES = {"edsr": _exp_edsr, "edsr_loss": _exp_edsr}
-# families whose forward applies both MeanShifts
+def _exp_larvanet(path: str) -> str:
+    """The LarvaNet family (torch_convert.py:482-503). The JAX EXPORT_RULES
+    list the nine reference names; LarvaNet_w64 and LarvaLeg_w64 have the
+    same parameter tree at another width, so they take the same rules here
+    (the JAX package has no entry for them and cannot write their .pth)."""
+    if path == "head":
+        return "head.feature_extraction"
+    m = re.match(r"body_(\d+)/block_(\d+)/conv([12])$", path)
+    if m:
+        return "body_%s.res_blocks.%s.body.%d" % (
+            m.group(1), m.group(2), 0 if m.group(3) == "1" else 2)
+    m = re.match(r"leg_(\d+)/recon/conv([12])$", path)  # the 'resblock' leg (_1c)
+    if m:
+        return "body_%s.leg.recon_block.body.%d" % (
+            m.group(1), 0 if m.group(2) == "1" else 2)
+    m = re.match(r"leg_(\d+)/recon([12])$", path)
+    if m:
+        return "body_%s.leg.recon_block.%d" % (m.group(1), 0 if m.group(2) == "1" else 2)
+    if path == "tail_merge":
+        return "tail.merge_conv"
+    m = re.match(r"tail_recon([12])$", path)
+    if m:
+        return "tail.recon_block.%d" % (0 if m.group(1) == "1" else 2)
+    raise KeyError(path)
+
+
+LARVANET_NAMES = ("LarvaNet", "LarvaNetV2", "LarvaLeg", "LarvaLegV2", "LarvaNet_0c",
+                  "LarvaNet_1c", "LarvaNet_4c", "LarvaNet_skip", "LarvaNet_res",
+                  "LarvaNet_w64", "LarvaLeg_w64")
+EXPORT_RULES = {"edsr": _exp_edsr, "edsr_loss": _exp_edsr,
+                **{name: _exp_larvanet for name in LARVANET_NAMES}}
+# families whose forward applies both MeanShifts (the LarvaNet family has
+# none, torch_convert.py:704-720)
 _MEANSHIFT_BOTH = {"edsr", "edsr_loss"}
 
 

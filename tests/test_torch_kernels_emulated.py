@@ -179,6 +179,37 @@ def test_conv3x3_narrow_path_matches_plain_version(conv_lib, shape, f, act, dnam
 
 
 @pytest.mark.parametrize("dname", ["f32", "bf16"])
+@pytest.mark.parametrize("shape,f,act,path", [
+    ((2, 7, 9, 3), 48, None, "cuda_core"),          # head 3 -> 48
+    ((1, 13, 17, 48), 48, "relu", "tensor_core"),   # trunk conv 1, leg recon1
+    ((1, 13, 17, 48), 48, None, "tensor_core"),     # trunk conv 2, leg recon2
+    ((1, 11, 10, 64), 48, None, "tensor_core"),     # w64 leg recon2, 64 -> 48
+    ((1, 9, 12, 96), 48, None, "tensor_core"),      # V2 tail merge, 96 -> 48
+])
+def test_conv3x3_larvanet_shapes_match_plain_version(conv_lib, shape, f, act, path, dname):
+    """The LarvaNet family's conv shapes on the path `path_for` gives them:
+    F = 48 fills part of the tensor-core entries' output tiles and C = 48
+    (or 96) ends on a part-filled channel chunk, so both masks run here."""
+    dtype = DTYPES[dname]
+    assert conv3x3.path_for(shape[3], f, dtype) == path
+    rng = np.random.default_rng(sum(shape) + f)
+    x = _t(rng.standard_normal(shape)).to(dtype)
+    k = _t(0.1 * rng.standard_normal((3, 3, shape[3], f)))
+    b = _t(rng.standard_normal(f))
+    got = conv3x3._run(conv3x3.bind(conv_lib, dtype, path), x, k, b, act, None, path)
+    want = conv3x3.conv3x3_bias_act_reference(x, k, b, act)
+    assert got.shape == want.shape and got.dtype == want.dtype
+    diff = (got.float() - want.float()).abs()
+    print("emulated conv3x3 %s %s %s->%d %s: max|d| %.3g"
+          % (path, dname, shape, f, act, float(diff.max())))
+    assert torch.isfinite(got.float()).all()
+    if dname == "f32":
+        assert float(diff.max()) <= F32_ATOL["conv"]
+    else:
+        assert bool((diff <= BF16_ATOL + BF16_RTOL * want.float().abs()).all())
+
+
+@pytest.mark.parametrize("dname", ["f32", "bf16"])
 @pytest.mark.parametrize("case", ["f_9", "c_not_16", "c_80", "misaligned"])
 def test_conv3x3_narrow_entry_refuses_what_it_cannot_take(conv_lib, case, dname):
     """Nothing is launched and the wrapper raises: F > 8, C not a multiple of

@@ -330,3 +330,56 @@ def test_no_cuda_without_device_cpu_exits_nonzero(tmp_path, monkeypatch):
     with pytest.raises(SystemExit) as exc:
         serve.main(["--restore_path", pth, *TINY])
     assert exc.value.code not in (0, None)
+
+
+LARVA_TINY = ["--num_modules", "2", "--num_blocks", "1,1"]
+
+
+def test_served_larvanet_request_is_x4_and_matches_jax_server(tmp_path):
+    """`serve --model LarvaNet` answers a PNG with its x4 frame, the bytes of
+    the port model's own upscale_uint8, within 1 uint8 level of the JAX
+    server on the same .pth (the port module's state_dict, which the JAX
+    package's LarvaNet rules read)."""
+    model = get_model("LarvaNet")
+    model.parse_args(list(LARVA_TINY))
+    model.prepare([4], device="cpu", seed=3)
+    with torch.no_grad():  # a trunk that moves the output by tens of levels
+        for name, value in model.module.named_parameters():
+            value.copy_(torch.randn(value.shape, generator=torch.Generator().manual_seed(
+                len(name))) if name.endswith("bias") else 2.0 * value)
+    pth = str(tmp_path / "larvanet_tiny.pth")
+    torch.save(model.module.state_dict(), pth)
+    args, remaining = serve.build_parser().parse_known_args(
+        ["--model", "LarvaNet", "--restore_path", pth, "--device", "cpu", *LARVA_TINY])
+    service = serve.build_service(args, remaining)
+    service.warmup(8, 8)
+    httpd, url = _spin(service)
+    img = _frame()
+    try:
+        code, reply = _post(url + "/upscale", png.encode(img))
+        info = json.loads(_get(url + "/info")[1])
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    assert code == 200 and info["model"] == "LarvaNet"
+    got = png.decode(reply, grey16="clip")
+    assert got.shape == (36, 44, 3)
+    own = service.model.upscale_uint8([img.transpose(2, 0, 1)], 4)[0]
+    assert png.encode(own.transpose(1, 2, 0), 1) == reply
+
+    jax_args = argparse.Namespace(
+        model="LarvaNet", scales="4", restore_path=pth, restore_target=None,
+        chop_forward=False, chop_overlap_size=20, tile_forward=False,
+        tile_size=32, tile_overlap=8, spatial_shard=0, spatial_halo=32,
+        collapsed_tail=1, packed_trunk=1, int8_trunk=0, int8_calib_path=None,
+        dp_devices=0)
+    jax_service = jax_serve.build_service(jax_args, list(LARVA_TINY))
+    want = jax_service.model.upscale_uint8([img.transpose(2, 0, 1)], 4)[0]
+    levels = int(np.abs(own.astype(np.int16) - want.astype(np.int16)).max())
+    img_f32 = [img.transpose(2, 0, 1).astype(np.float32)]
+    err = float(np.abs(service.model.upscale(img_f32, 4) - jax_service.model.upscale(
+        img_f32, 4)).max())
+    print("parity served LarvaNet PNG vs JAX server model: max %d uint8 level(s), "
+          "unclamped f32 max |d| %.3g" % (levels, err))
+    # f32 graphs summed in another order (tests/test_torch_larvanet.py's bar)
+    assert levels <= 1 and err <= 1e-3

@@ -163,13 +163,97 @@ def test_odd_width_under_wino_raises_as_jax(odd_data, pth, monkeypatch):
         jax_validate.main(_flags(odd_data, pth, "--wino_trunk", "2"))
 
 
-def test_wino_trunk_refuses_larvanet(even_data, pth):
+def test_wino_trunk_refuses_larvanet(capsys, monkeypatch):
+    """The fused kernel is built for 64 channels: under --wino_trunk a
+    48-channel LarvaNet keeps its ResBlocks on the direct convs with JAX's
+    notice (larvanet_tpu/cli/common.py:420-424), and gives the default
+    route's output."""
+    from larvanet_tpu_torch.cli import common
+    from larvanet_tpu_torch.ops import wino_resblock
+
+    model = get_model("LarvaNet")
+    model.parse_args(list(LARVA_TINY))
+    model.prepare([4], device="cpu")
+    x = torch.from_numpy(np.random.default_rng(4).uniform(0, 255, (1, 6, 8, 3))
+                         .astype(np.float32))
+    want = model.fwd_runtime(x)
     args = validate.build_parser().parse_known_args(["--model", "LarvaNet", "--wino_trunk",
                                                      "2"])[0]
-    from larvanet_tpu_torch.cli import common
+    common.maybe_wino_trunk(model, args)
+    assert "'LarvaNet' trunk is 48 channels" in capsys.readouterr().out
+    monkeypatch.setattr(wino_resblock, "wino_resblock_transformed",
+                        lambda *a, **k: pytest.fail("fused ResBlock on a 48-channel trunk"))
+    assert torch.equal(model.fwd_runtime(x), want)
 
-    with pytest.raises(SystemExit, match="ROADMAP"):
-        common.maybe_wino_trunk(None, args)
+
+LARVA_TINY = ["--num_modules", "2", "--num_blocks", "1,1"]
+
+
+def _louder(tree, rng):
+    """Every kernel x2, every bias from N(0, 1): the trunk then moves the
+    output by tens of levels over its interpolated base (as drawn, by less
+    than one, and PSNR would score the base alone)."""
+    if "kernel" in tree:
+        return {"kernel": (2.0 * tree["kernel"]).astype(np.float32),
+                "bias": rng.normal(0.0, 1.0, tree["bias"].shape).astype(np.float32)}
+    return {k: _louder(v, rng) for k, v in tree.items()}
+
+
+@pytest.fixture(scope="module")
+def larva_ckpts(tmp_path_factory):
+    """{name: (port .pth, JAX checkpoint)} of tiny LarvaNet and LarvaNet_w64
+    x4 models with louder weights. LarvaNet's .pth is written by the JAX
+    package's save_pth and read by both; the JAX package has no .pth rules
+    for LarvaNet_w64, so JAX reads its own msgpack checkpoint of the same
+    parameters and the port a .pth of the port's export."""
+    import jax
+    import jax.numpy as jnp
+
+    out = {}
+    for name in ("LarvaNet", "LarvaNet_w64"):
+        root = tmp_path_factory.mktemp(name)
+        jm = jax_get_model(name)
+        jm.parse_args(list(LARVA_TINY))
+        jm.prepare(is_training=False, scales=[4])
+        params = _louder(_to_numpy(jm.params), np.random.default_rng(2))
+        if name == "LarvaNet":
+            path = save_pth(params, name, str(root / "larvanet.pth"))
+            out[name] = (path, path)
+            continue
+        port = str(root / "larvanet_w64.pth")
+        torch.save(state_dict_from_jax_params(params, name), port)
+        jm.params = jax.tree_util.tree_map(jnp.asarray, params)
+        out[name] = (port, jm.save(str(root)))
+    return out
+
+
+@pytest.mark.parametrize("name,wino", [("LarvaNet", 0), ("LarvaNet_w64", 0),
+                                       ("LarvaNet_w64", 2)])
+def test_validate_larvanet_matches_jax_validate(name, wino, even_data, larva_ckpts, tmp_path,
+                                                monkeypatch):
+    """Per-image PSNR of the port's validate within PSNR_TOL of JAX's, on
+    its default route (JAX's packed trunk) and, for the 64-channel trunk,
+    with every body ResBlock in the fused kernel (JAX's Pallas kernels in
+    the interpreter)."""
+    port_pth, jax_ckpt = larva_ckpts[name]
+
+    def flags(ckpt, report):
+        return ["--model", name, "--scales", "4", "--dataloader", "basic_loader",
+                "--data_input_path", even_data[0], "--data_truth_path", even_data[1],
+                "--restore_path", ckpt, "--report_json", str(tmp_path / report),
+                "--wino_trunk", str(wino), *LARVA_TINY]
+
+    validate.main(flags(port_pth, "port.json") + ["--device", "cpu"])
+    if wino:
+        monkeypatch.setenv("LVT_WINO_INTERPRET", "1")
+    jax_validate.main(flags(jax_ckpt, "jax.json"))
+    port, ref = _per_image(tmp_path / "port.json"), _per_image(tmp_path / "jax.json")
+    assert sorted(port) == sorted(ref) == io.list_pngs(even_data[1])
+    deltas = {k: abs(port[k] - ref[k]) for k in ref}
+    print("parity validate %s --wino_trunk %d: |dPSNR| %s dB (PSNRs %s)"
+          % (name, wino, {k: "%.2e" % v for k, v in deltas.items()},
+             {k: "%.3f" % v for k, v in port.items()}))
+    assert max(deltas.values()) <= PSNR_TOL
 
 
 @pytest.mark.parametrize("cli,flag", [(validate, f) for f in validate.REFUSED]
