@@ -5,8 +5,8 @@
 
 It drives the port's main paths on the card, serving and validating
 EDSR-baseline x4 and the LarvaNet family (the flagship LarvaNet 2x16, and
-LarvaNet_w64 on the fused ResBlocks), and fails (exit code != 0, no result
-line) if any phase fails:
+LarvaNet_w64 on the fused ResBlocks) and training EDSR-baseline x4, and
+fails (exit code != 0, no result line) if any phase fails:
 
  1. device: CUDA must be available; prints nvidia-smi's name and power limit.
  2. build: compiles every kernel of the path from larvanet_tpu_torch/csrc/
@@ -93,7 +93,25 @@ line) if any phase fails:
     --wino_trunk 0, 2 and 4 in f32 and bf16: ms per frame and LR-MP/s,
     and each run's launches by path (one narrow conv3x3 launch a forward);
     then LarvaNet 2x16, --wino_trunk 0 and 2 (67 launches a forward).
- 8. prints the kernels JSON line, the nvidia-smi line, then the result line
+ 8. train: EDSR-baseline x4 at full width trained through the kernels, f32,
+    batch 16 of 48x48 LR patches, on a DIV2K-layout set of 8 `photo` frames
+    (LR 96x128) written by the port's PNG encoder. One batch's loss and
+    gradients through the kernels are held against the same autograd
+    Function with the plain versions inside (LOSS_RTOL; every parameter's
+    gradient within GRAD_RTOL of its tensor's largest |g|). The counters are
+    zeroed around one train step: 37 forward conv3x3 launches, 36 dgrad
+    launches (conv3x3 on the rotated kernel) and 37 wgrad launches, by path
+    (TRAIN_LAUNCHES). The step's median ms (CUDA events around train_step)
+    and its device split (forward convs, dgrad convs, wgrad, optimizer and
+    other kernels, idle). The train CLI for 20 steps (--save_freq 10), whose
+    loss at step 20 must be below step 1's; again with --restore_path latest
+    from step 10 to 20, whose losses must repeat the first run's bit for
+    bit; validate on model_20.pth, whose frames must be the trained
+    forward's. Then the wgrad kernel at each of the step's shapes
+    (TRAIN_WGRAD) and the conv kernel at the dgrad shapes no forward has
+    (TRAIN_DGRAD), each against its plain version and timed in turns with
+    it and cuDNN's gradient (conv2d_weight / conv2d_input, TF32 off).
+ 9. prints the kernels JSON line, the nvidia-smi line, then the result line
     {"ok": true, "device": {...}}.
 
 The kernels line reports, per kernel: its launches on the main paths that
@@ -109,6 +127,10 @@ of its 35 tensor-core convs per dtype with their served launches (f32:
 the split-TF32 entry), the narrow path's final_conv times in both
 dtypes and geometries, and the sums over one LarvaNet 2x16 forward (its 67
 convs) per dtype with their served launches.
+The conv3x3 line's launches add phase 8's counted train step (its forward
+and dgrad launches, by path, and the dgrad shapes' times under
+"train_step"); the conv3x3_wgrad line gives that step's wgrad launches and
+its times summed over the step's 37 wgrads.
 """
 
 from __future__ import annotations
@@ -228,6 +250,48 @@ LARVANET_CONVS = (
     ("w64 leg.recon_block.2", 1, 64, 48, None, 0, "tensor_core"),
     ("V2 tail.merge_conv", 1, 96, 48, None, 0, "tensor_core"),
 )
+# phase 8, training: EDSR-baseline x4 at the JAX train CLI's defaults (batch
+# 16 of 48x48 LR patches, f32) on a DIV2K-layout set of TRAIN_FRAMES frames
+# of TRAIN_LR, TRAIN_STEPS steps at the default learning rate, 1e-4 (from
+# random weights the loss falls to about a quarter within them)
+TRAIN_BATCH = 16
+TRAIN_PATCH = 48
+TRAIN_FRAMES = 8
+TRAIN_LR = (96, 128)
+TRAIN_STEPS = 20
+# the train step through the kernels against the same step with the plain
+# versions: the loss, relative; each parameter's gradient relative to its
+# tensor's largest |g| (split-TF32 forwards and dgrads and f32 sums in
+# another order, ~1e-5 of each conv's outputs; element-wise bars would not
+# hold where an L1 gradient's sign flips inside that rounding). The wgrad
+# kernel alone, and the conv kernel at the dgrad shapes, are held to the
+# same gradient bar.
+LOSS_RTOL = 1e-5
+GRAD_RTOL = 2e-4
+# the weight-gradient shapes of one train step: (name, multiple of the LR
+# patch size, C, F, launches a step)
+TRAIN_WGRAD = (
+    ("first_conv", 1, 3, 64, 1),
+    ("trunk+after_res", 1, 64, 64, 33),
+    ("upsample.body.0", 1, 64, 256, 1),
+    ("upsample.body.2", 2, 64, 256, 1),
+    ("final_conv", 4, 64, 3, 1),
+)
+# the input-gradient convs no forward has: (name, size multiple, C of the
+# output gradient, F = the forward's input channels); the trunk's 64 -> 64
+# dgrad is the forward's shape
+TRAIN_DGRAD = (
+    ("upsample.body.0", 1, 256, 64),
+    ("upsample.body.2", 2, 256, 64),
+    ("final_conv", 4, 3, 64),
+)
+# launches of one train step by path: the 37 forward convs as a served
+# forward takes them; 36 dgrads (none for first_conv, whose input needs no
+# gradient): the 256 -> 64 and 64 -> 64 ones on the tensor cores,
+# final_conv's 3 -> 64 on the CUDA cores; 37 wgrads, final_conv's narrow
+TRAIN_LAUNCHES = {"forward": {"cuda_core": 1, "tensor_core": 35, "narrow": 1},
+                  "dgrad": {"cuda_core": 1, "tensor_core": 35, "narrow": 0},
+                  "wgrad": {"wide": 36, "narrow": 1}}
 # conv3x3 launches per forward by shape (C, F, act), and fused ResBlock
 # launches per forward, of each LarvaNet configuration and --wino_trunk
 # route that the LarvaNet phases drive. A 48-channel trunk takes the direct
@@ -900,12 +964,12 @@ def larvanet_model(name, flags, device="cuda", pth=None):
     return model
 
 
-def device_breakdown(torch, fn):
+def device_breakdown(torch, fn, kinds=("conv3x3", "wino_resblock")):
     """The card's kernel time in one call of `fn`: (wall ms under the
-    profiler, {"conv3x3", "wino_resblock", "other": ms of kernels by name}),
-    from torch.profiler's CUDA kernel records over TIMED_REPS calls
-    bracketed with CUDA events. The parts are None, not measured, when the
-    profiler records no kernel."""
+    profiler, {each of `kinds`, "other": ms of kernels by name, a kernel
+    going to the first kind its name holds}), from torch.profiler's CUDA
+    kernel records over TIMED_REPS calls bracketed with CUDA events. The
+    parts are None, not measured, when the profiler records no kernel."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -919,10 +983,10 @@ def device_breakdown(torch, fn):
             fn()
         end.record()
         end.synchronize()
-    parts = {"conv3x3": 0.0, "wino_resblock": 0.0, "other": 0.0}
+    parts = dict.fromkeys(kinds + ("other",), 0.0)
     for event in prof.key_averages():
         if event.device_type == DeviceType.CUDA:
-            kind = next((k for k in ("conv3x3", "wino_resblock") if k in event.key), "other")
+            kind = next((k for k in kinds if k in event.key), "other")
             parts[kind] += event.self_device_time_total / 1e3 / TIMED_REPS
     return start.elapsed_time(end) / TIMED_REPS, (parts if sum(parts.values()) else None)
 
@@ -1205,6 +1269,276 @@ def runtime_phase(torch, device="cuda", model_name="edsr"):
     return launches
 
 
+def wgrad_bound_ms(n, h, w, c, f):
+    """The least time of one weight and bias gradient in f32: x and g read
+    once, dW and db written once, over HBM bandwidth vs its 2 N H W 9 C F
+    operations (and N H W F for db) over the f32 peak (PEAK_FLOPS)."""
+    nbytes = 4 * (n * h * w * (c + f) + 9 * c * f + f)
+    flops = 2 * n * h * w * 9 * c * f + n * h * w * f
+    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_FLOPS["f32"]
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def train_kernel_phase(torch):
+    """Phase 8's kernel half: the wgrad kernel at every (C, F, size) of a
+    train step (TRAIN_WGRAD), and the conv kernel at the dgrad shapes no
+    forward has (TRAIN_DGRAD), each held against its plain version on the
+    card and timed in turns with it and cuDNN's gradient
+    (torch.nn.grad.conv2d_weight / conv2d_input, TF32 off), beside its
+    bound. Returns ({"ms", "plain_ms", "library_ms", "bound_ms"} summed over
+    one train step's 37 wgrad launches, its bound's kind, the largest wgrad
+    |d| and |d| / max |dW|, {label: dgrad numbers})."""
+    from larvanet_tpu_torch.ops import conv3x3_wgrad as wg
+    from larvanet_tpu_torch.ops.conv3x3 import (conv3x3_bias_act,
+                                                conv3x3_bias_act_reference, dgrad_kernel,
+                                                path_for)
+
+    n = TRAIN_BATCH
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms")
+    sums = dict.fromkeys(keys, 0.0)
+    kinds = {}
+    worst_abs = worst_rel = 0.0
+    for name, mult, c, f, count in TRAIN_WGRAD:
+        h = w = TRAIN_PATCH * mult
+        x = torch.randn((n, h, w, c), generator=gen, device="cuda")
+        g = torch.randn((n, h, w, f), generator=gen, device="cuda") / (n * h * w)
+        dw, db = wg.conv3x3_wgrad(x, g)
+        torch.cuda.synchronize()  # a fault during the run shows here
+        want_w, want_b = wg.conv3x3_wgrad_reference(x, g)
+        err = max(float((dw - want_w).abs().max()), float((db - want_b).abs().max()))
+        rel = max(float((dw - want_w).abs().max() / want_w.abs().max()),
+                  float((db - want_b).abs().max() / want_b.abs().max()))
+        worst_abs, worst_rel = max(worst_abs, err), max(worst_rel, rel)
+        if rel > GRAD_RTOL or not bool(torch.isfinite(dw).all()):
+            raise AssertionError("wgrad %s: the kernel disagrees with its plain version, "
+                                 "max |d| / max |dW| = %g" % (name, rel))
+        x_nchw, g_nchw = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
+        t = time_windows(torch, {
+            "kernel": lambda: wg.conv3x3_wgrad(x, g),
+            "conv2d_weight": lambda: torch.nn.grad.conv2d_weight(x_nchw, (f, c, 3, 3), g_nchw,
+                                                                 padding=1),
+            "plain": lambda: wg.conv3x3_wgrad_reference(x, g)})
+        bound, by = wgrad_bound_ms(n, h, w, c, f)
+        print("wgrad %-18s x=%s C=%d F=%d (%s path): kernel %s, conv2d_weight %s, plain %s, "
+              "bound %.4f ms (%s), max|d| %.3g (%.3g of max |dW|), %d a step" % (
+                  name, (n, h, w), c, f, wg.path_for(f), spread(t["kernel"]),
+                  spread(t["conv2d_weight"]), spread(t["plain"]), bound, by, err, rel, count),
+              flush=True)
+        part = {"ms": t["kernel"][0], "plain_ms": t["plain"][0],
+                "library_ms": t["conv2d_weight"][0], "bound_ms": bound}
+        for k in keys:
+            sums[k] += count * part[k]
+        kinds[by] = kinds.get(by, 0.0) + count * bound
+        del x, g, dw, db, want_w, want_b
+        torch.cuda.empty_cache()
+    dgrad = {}
+    for name, mult, c, f in TRAIN_DGRAD:
+        h = w = TRAIN_PATCH * mult
+        g = torch.randn((n, h, w, c), generator=gen, device="cuda")
+        # the forward's HWIO kernel, F -> C, at phase 3's output scale
+        k_fwd = 0.05 * torch.randn((3, 3, f, c), generator=gen, device="cuda")
+        k = dgrad_kernel(k_fwd)
+        zero = torch.zeros(f, device="cuda")
+        got = conv3x3_bias_act(g, k, zero, None, dgrad=True)
+        torch.cuda.synchronize()
+        want = conv3x3_bias_act_reference(g, k, zero, None)
+        # a gradient, held as the train step's are: relative to its largest
+        # value (at C = 256 the split-TF32 sums run 2,304 terms, four times
+        # phase 3's, and their truncation error grows with them)
+        err = float((got - want).abs().max())
+        rel = err / float(want.abs().max())
+        if rel > GRAD_RTOL or not bool(torch.isfinite(got).all()):
+            raise AssertionError("dgrad %s: the conv kernel disagrees with its plain version, "
+                                 "max |d| / max |dx| = %g" % (name, rel))
+        w_oihw = k_fwd.permute(3, 2, 0, 1).contiguous()  # the forward's (C, F, 3, 3)
+        g_nchw = g.permute(0, 3, 1, 2)
+        t = time_windows(torch, {
+            "kernel": lambda: conv3x3_bias_act(g, k, zero, None, dgrad=True),
+            "conv2d_input": lambda: torch.nn.grad.conv2d_input((n, f, h, w), w_oihw, g_nchw,
+                                                               padding=1),
+            "plain": lambda: conv3x3_bias_act_reference(g, k, zero, None)})
+        bound, by = bound_ms(n, h, w, c, f, "f32")
+        path = path_for(c, f, torch.float32)
+        print("dgrad %-18s g=%s C=%d F=%d (%s path): kernel %s, conv2d_input %s, plain %s, "
+              "bound %.4f ms (%s), max|d| %.3g (%.3g of max |dx|)" % (
+                  name, (n, h, w), c, f, path, spread(t["kernel"]), spread(t["conv2d_input"]),
+                  spread(t["plain"]), bound, by, err, rel), flush=True)
+        dgrad[name] = {"path": path, "ms": t["kernel"][0], "plain_ms": t["plain"][0],
+                       "library_ms": t["conv2d_input"][0], "bound_ms": bound, "bound_by": by,
+                       "max_abs_err": err, "max_rel_err": rel}
+        del g, k, k_fwd, got, want
+        torch.cuda.empty_cache()
+    print("wgrad per train step (37 launches), f32: kernel %.4f ms, plain %.4f ms, "
+          "conv2d_weight %.4f ms, bound %.4f ms" % (sums["ms"], sums["plain_ms"],
+                                                    sums["library_ms"], sums["bound_ms"]),
+          flush=True)
+    return sums, max(kinds, key=kinds.get), worst_abs, worst_rel, dgrad
+
+
+def write_train_set(root, rng, n_frames, lr_size):
+    """A DIV2K-layout train set by the port's PNG encoder: `photo` HR frames
+    and their 4x4 box means as LR."""
+    import numpy as np
+
+    from larvanet_tpu_torch.data import io
+
+    h, w = lr_size
+    for i in range(n_frames):
+        hr = photo(rng, 4 * h, 4 * w)
+        lr = np.round(hr.reshape(3, h, 4, w, 4).mean((2, 4))).astype(np.uint8)
+        io.save_image_chw(hr, os.path.join(root, "HR", "%04d.png" % i))
+        io.save_image_chw(lr, os.path.join(root, "LR", "X4", "%04dx4.png" % i))
+
+
+def train_phase(torch):
+    """Phase 8. EDSR-baseline x4 trained at full width through the kernels.
+    Returns the counted train step's launches: {"forward": conv3x3 by path,
+    "dgrad": conv3x3 by path, "wgrad": wgrad by path}."""
+    import shutil
+
+    import numpy as np
+
+    from larvanet_tpu_torch.cli import train, validate
+    from larvanet_tpu_torch.core.registry import get_loader, get_model
+    from larvanet_tpu_torch.data import io
+    from larvanet_tpu_torch.ops import conv3x3
+    from larvanet_tpu_torch.ops import conv3x3_wgrad as wg
+
+    device, batch, patch, steps = "cuda", TRAIN_BATCH, TRAIN_PATCH, TRAIN_STEPS
+    with tempfile.TemporaryDirectory() as tmp:
+        write_train_set(tmp, np.random.default_rng(SEED + 8), TRAIN_FRAMES, TRAIN_LR)
+        data_flags = ["--data_input_path", os.path.join(tmp, "LR"),
+                      "--data_truth_path", os.path.join(tmp, "HR"), "--data_cached",
+                      "--data_seed", str(SEED)]
+        loader = get_loader("div2k_train_loader")
+        loader.parse_args(data_flags)
+        loader.prepare([4])
+        loader.reseed_for_step(0)
+        lr_list, hr_list = loader.get_patch_batch(batch, 4, patch)
+        model = get_model("edsr")
+        model.parse_args([])
+        model.prepare([4], device=device, seed=SEED, is_training=True)
+        if model.num_parameters() != 1517571:
+            raise AssertionError("EDSR-baseline x4 has %d parameters" % model.num_parameters())
+        x = torch.from_numpy(np.stack(lr_list).transpose(0, 2, 3, 1).copy()).to(device)
+        t = torch.from_numpy(np.stack(hr_list).transpose(0, 2, 3, 1).copy()).to(device)
+
+        # gradients through the kernels against the same Function with the
+        # plain versions inside, from the same weights and batch
+        loss_k = float(model._loss_and_grads(x, t))
+        grads_k = {k: p.grad.clone() for k, p in model.module.named_parameters()}
+        model.optimizer.zero_grad(set_to_none=True)
+
+        def plain_conv(x, kernel, bias, act=None, dgrad=False):
+            return conv3x3.conv3x3_bias_act_reference(x, kernel, bias, act)
+
+        with mock.patch.object(conv3x3, "conv3x3_bias_act", plain_conv), \
+                mock.patch.object(wg, "conv3x3_wgrad", wg.conv3x3_wgrad_reference):
+            loss_p = float(model._loss_and_grads(x, t))
+        worst = (-1.0, "")
+        for k, p in model.module.named_parameters():
+            rel = float((grads_k[k] - p.grad).abs().max() / p.grad.abs().max())
+            worst = max(worst, (rel, k))
+        model.optimizer.zero_grad(set_to_none=True)
+        loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+        print("train: EDSR-baseline x4, %d x %dx%d LR patches: loss through the kernels "
+              "%.6f, plain %.6f (rel %.3g, bar %g); worst gradient %s, max |d| / max |g| "
+              "%.3g (bar %g)" % (batch, patch, patch, loss_k, loss_p, loss_rel, LOSS_RTOL,
+                                 worst[1], worst[0], GRAD_RTOL), flush=True)
+        if loss_rel > LOSS_RTOL or worst[0] > GRAD_RTOL or not np.isfinite(loss_k):
+            raise AssertionError("the train step's loss or gradients through the kernels "
+                                 "disagree with the plain versions'")
+        del grads_k
+
+        # one train step, counted
+        conv3x3.reset_launches()
+        wg.reset_launches()
+        model.train_step(lr_list, 4, hr_list)
+        torch.cuda.synchronize()
+        dgrad = dict(conv3x3.DGRAD_LAUNCHES_BY_PATH)
+        launches = {"forward": {p: conv3x3.LAUNCHES_BY_PATH[p] - dgrad[p] for p in dgrad},
+                    "dgrad": dgrad, "wgrad": dict(wg.LAUNCHES_BY_PATH)}
+        print("train step launches: conv3x3 forward %s, dgrad %s; wgrad %s"
+              % (launches["forward"], launches["dgrad"], launches["wgrad"]), flush=True)
+        if launches != TRAIN_LAUNCHES:
+            raise AssertionError("train step launches %s, not %s" % (launches, TRAIN_LAUNCHES))
+
+        # the step's time and where the card's time goes in it
+        step = lambda: model.train_step(lr_list, 4, hr_list)  # noqa: E731
+        tm = time_windows(torch, {"train_step": step})["train_step"]
+        print("train: EDSR-baseline x4, batch %d x %dx%d, f32: %s per train step, %.3f "
+              "LR-MP/s trained" % (batch, patch, patch, spread(tm),
+                                   batch * patch * patch / 1e3 / tm[0]), flush=True)
+        _, fwd = device_breakdown(torch, lambda: model._compute_loss(x, t),
+                                  kinds=("wgrad", "conv3x3"))
+        _, parts = device_breakdown(torch, step, kinds=("wgrad", "conv3x3"))
+        if parts is None or fwd is None:
+            print("train step device breakdown not measured (the profiler recorded "
+                  "no kernel)")
+        else:
+            split = {"forward convs": fwd["conv3x3"],
+                     "dgrad convs": parts["conv3x3"] - fwd["conv3x3"],
+                     "wgrad": parts["wgrad"], "optimizer and other kernels": parts["other"]}
+            split["idle"] = max(tm[0] - sum(split.values()), 0.0)
+            print("train step device split: %s" % ", ".join(
+                "%s %.4f ms (%.1f%%)" % (k, v, 100.0 * v / tm[0]) for k, v in split.items()),
+                flush=True)
+        del model, x, t
+        torch.cuda.empty_cache()
+
+        # the CLI: steps 1..`steps`, a checkpoint every steps / 2
+        half = steps // 2
+        cli = ["--dataloader", "div2k_train_loader", "--model", "edsr", "--scales", "4",
+               "--device", device, "--batch_size", str(batch), "--input_patch_size",
+               str(patch), "--log_freq", str(half), "--save_freq", str(half)] + data_flags
+        run = os.path.join(tmp, "run")
+        t0 = time.perf_counter()
+        trained, losses = train.main(cli + ["--train_path", run, "--max_steps", str(steps)])
+        print("train CLI: %d steps in %.3f s; loss at step 1 %.6f, at step %d %.6f" % (
+            steps, time.perf_counter() - t0, losses[1], steps, losses[steps]), flush=True)
+        if not losses[steps] < losses[1]:
+            raise AssertionError("the loss did not fall: %s" % losses)
+        # resume from the middle checkpoint: the same losses, bit for bit
+        again = os.path.join(tmp, "again")
+        os.makedirs(again)
+        for suffix in (".pth", ".state.pt"):
+            shutil.copy(os.path.join(run, "model_%d%s" % (half, suffix)), again)
+        _, resumed = train.main(cli + ["--train_path", again, "--max_steps", str(steps),
+                                       "--restore_path", "latest"])
+        same = {s: (losses[s], resumed.get(s)) for s in range(half + 1, steps + 1)}
+        print("train CLI resumed at step %d: losses %s the first run's" % (
+            half, "repeat" if all(a == b for a, b in same.values()) else "DO NOT repeat"),
+            flush=True)
+        if sorted(resumed) != list(range(half + 1, steps + 1)) or any(
+                a != b for a, b in same.values()):
+            raise AssertionError("the resumed run's losses differ: %s" % same)
+
+        # validate restores model_<steps>.pth: its frames are the trained forward's
+        val = os.path.join(tmp, "val")
+        for name in ("0000", "0001"):
+            for sub in ("HR", os.path.join("LR", "X4")):
+                src = name + ("x4" if sub != "HR" else "") + ".png"
+                os.makedirs(os.path.join(val, sub), exist_ok=True)
+                shutil.copy(os.path.join(tmp, sub, src), os.path.join(val, sub, src))
+        validate.main(["--model", "edsr", "--scales", "4", "--device", device,
+                       "--restore_path", os.path.join(run, "model_%d.pth" % steps),
+                       "--data_input_path", os.path.join(val, "LR"),
+                       "--data_truth_path", os.path.join(val, "HR"),
+                       "--save_path", os.path.join(tmp, "sr")])
+        for name in ("0000", "0001"):
+            lr = io.load_image_u8(os.path.join(val, "LR", "X4", name + "x4.png"))
+            want = trained.upscale_uint8([lr.transpose(2, 0, 1)], 4)[0]
+            got = io.load_image_u8(os.path.join(tmp, "sr", "x4", name + ".png"))
+            if not np.array_equal(got.transpose(2, 0, 1), want):
+                raise AssertionError("validate's frame %s from model_%d.pth differs from the "
+                                     "trained forward's" % (name, steps))
+        print("train: validate on model_%d.pth gives the trained forward's frames, bit for "
+              "bit" % steps, flush=True)
+        del trained
+    return launches
+
+
 def print_sass_mix(build):
     """The instruction mix of each tensor-core and narrow kernel in the
     built libraries (cuobjdump -sass): ldmatrix, tensor-core products,
@@ -1273,14 +1607,19 @@ def main() -> int:
     larva_validate_launches = validate_phase(torch, model_name="LarvaNet_w64")
     runtime_launches = runtime_phase(torch)
     runtime_phase(torch, model_name="LarvaNet")
+    torch.cuda.empty_cache()
+    train_launches = train_phase(torch)
+    wgrad_sums, wgrad_by, wgrad_err, wgrad_rel, dgrad_times = train_kernel_phase(torch)
 
     kernels = [{
         "name": "conv3x3_bias_act",
         "route": "cuda",
         "source": "larvanet_tpu_torch/csrc/conv3x3_bias_act.cu",
         "replaces": "larvanet_tpu/ops/pallas_conv.py:61",
-        "launches": launches,
-        "launches_by_path": by_path,
+        "launches": launches + sum(train_launches["forward"].values())
+        + sum(train_launches["dgrad"].values()),
+        "launches_by_path": {p: by_path[p] + train_launches["forward"][p]
+                             + train_launches["dgrad"][p] for p in by_path},
         "max_abs_err": worst["f32"],
         "ms": sums["f32"]["ms"],
         "plain_ms": sums["f32"]["plain_ms"],
@@ -1298,6 +1637,24 @@ def main() -> int:
         "larvanet": {d: dict(larva_sums[d], max_abs_err=larva_worst[d],
                              launches_by_path=served[("LarvaNet", d)])
                      for d in ("f32", "bf16")},
+        # one EDSR-baseline x4 train step's forward and dgrad launches, and
+        # the dgrad shapes no forward has
+        "train_step": {"forward_by_path": train_launches["forward"],
+                       "dgrad_by_path": train_launches["dgrad"], "dgrad": dgrad_times},
+    }, {
+        "name": "conv3x3_wgrad",
+        "route": "cuda",
+        "source": "larvanet_tpu_torch/csrc/conv3x3_wgrad.cu",
+        "replaces": "larvanet_tpu/models/layers.py:81 (XLA's weight gradient of conv3x3)",
+        "launches": sum(train_launches["wgrad"].values()),
+        "launches_by_path": train_launches["wgrad"],
+        "max_abs_err": wgrad_err,
+        "max_rel_err": wgrad_rel,
+        "ms": wgrad_sums["ms"],
+        "plain_ms": wgrad_sums["plain_ms"],
+        "bound_ms": wgrad_sums["bound_ms"],
+        "bound_by": wgrad_by,
+        "library_ms": wgrad_sums["library_ms"],
     }]
     for m, line in ((2, 205), (4, 336)):
         wsums, werr = wino[m]

@@ -89,12 +89,29 @@ def setup_loader(name: str, remaining: Sequence[str], scales: List[int]):
 
 
 def setup_model(name: str, remaining: Sequence[str], scales: List[int],
-                device: torch.device, seed: int = 0):
+                device: torch.device, seed: int = 0, is_training: bool = False,
+                global_step: int = 0, ema_decay: float = 0.0):
     print("prepare model - %s" % (name,))
     model = registry.get_model(name)
     model_args, remaining = model.parse_args(list(remaining))
-    model.prepare(scales=scales, device=device, seed=seed)
+    model.ema_decay = float(ema_decay or 0.0)  # before prepare: it makes the average
+    model.prepare(scales=scales, device=device, seed=seed, is_training=is_training,
+                  global_step=global_step)
     return model, model_args, remaining
+
+
+def add_ema_decay_flag(parser: argparse.ArgumentParser) -> None:
+    parser.add_argument("--ema_decay", type=float, default=0.0,
+                        help="Track an exponential moving average of the params "
+                             "(e.g. 0.999), saved in the state file beside each "
+                             "checkpoint. 0 = off.")
+
+
+def add_fused_opt_flag(parser: argparse.ArgumentParser) -> None:
+    parser.add_argument("--fused_opt", type=int, default=None,
+                        help="The JAX package's one-pass Adam over a flattened "
+                             "parameter vector (numerically identical per "
+                             "element); accepted and ignored.")
 
 
 def add_serving_dtype_flag(parser: argparse.ArgumentParser) -> None:

@@ -1,0 +1,165 @@
+"""Step-driven training CLI (larvanet_tpu/cli/train.py:25-140; reference
+train.py):
+
+    python -m larvanet_tpu_torch.cli.train --dataloader div2k_train_loader \\
+        --model edsr --scales 4 --train_path runs/edsr \\
+        --data_input_path LR --data_truth_path HR [--data_seed 0] \\
+        [--batch_size 16 --input_patch_size 48] [--max_steps N] \\
+        [--restore_path latest] [--ema_decay 0.999] [--grad_accum 2] \\
+        [--device cpu]
+
+The host loop: `reseed_for_step` (with --data_seed, a resumed run draws
+the batches an uninterrupted one would), `get_patch_batch`, `train_step`,
+with --sleep_ratio, --log_freq, --summary_freq (scalars.jsonl per scale
+directory, its writer made when the first summary is due) and --save_freq
+(`model_<step>.pth` and its state file). It runs on the card unless
+--device cpu is given; every 3x3 conv of the forward and the backward runs
+on the hand-written kernels there. Only EDSR trains (--model edsr or
+edsr_loss); the LarvaNet family is refused.
+
+Not ported yet, refused with a pointer to ROADMAP.md: --async_checkpoint,
+--orbax_checkpoint, --device_pipeline, --dp_devices, --widen_from,
+--profile_dir, and the model's --train_dtype bf16, --qat 1 and --remat 1.
+Accepted and ignored: the model's --packed_trunk, --collapsed_tail_train
+and --lr_domain_loss (exact reparametrisations of the module graph the
+port trains) and --fused_opt (numerically identical per element).
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import time
+
+from larvanet_tpu_torch.cli import common
+from larvanet_tpu_torch.core.config import dump_arguments_json
+from larvanet_tpu_torch.utils.checkpoints import resolve_restore_path
+from larvanet_tpu_torch.utils.summary import SummaryWriter
+
+# the models whose training is ported; the LarvaNet family's comes later
+TRAINED_MODELS = ("edsr", "edsr_loss")
+REFUSED = ("async_checkpoint", "orbax_checkpoint", "device_pipeline", "dp_devices",
+           "widen_from", "profile_dir")
+# the model's flags of training graphs the port does not have, and the
+# values that ask for them
+REFUSED_MODEL = (("train_dtype", "bf16"), ("qat", 1), ("remat", 1))
+IGNORED_MODEL = ("packed_trunk", "collapsed_tail_train", "lr_domain_loss")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser()
+    common.add_common_flags(parser, default_loader="div2k_train_loader", default_model="edsr")
+    parser.add_argument("--batch_size", type=int, default=16,
+                        help="Size of the batches for each training step.")
+    parser.add_argument("--input_patch_size", type=int, default=48,
+                        help="Size of each input image patch.")
+    parser.add_argument("--train_path", type=str, required=True,
+                        help="Base path of the trained model to be saved.")
+    parser.add_argument("--grad_accum", type=int, default=1,
+                        help="Accumulate gradients over N equal microbatches: the "
+                             "full-batch mean gradient at batch/N peak activation "
+                             "memory. batch_size must be divisible by N.")
+    parser.add_argument("--max_steps", type=int, default=300000,
+                        help="The maximum number of training steps.")
+    parser.add_argument("--log_freq", type=int, default=10,
+                        help="The frequency of logging.")
+    parser.add_argument("--summary_freq", type=int, default=1000,
+                        help="The frequency of writing summaries.")
+    parser.add_argument("--save_freq", type=int, default=10000,
+                        help="The frequency of saving the trained model.")
+    parser.add_argument("--sleep_ratio", type=float, default=0.0,
+                        help="Per-step sleep ratio (a thermal throttle; default off).")
+    parser.add_argument("--restore_path", type=str,
+                        help="Checkpoint (.pth) to restore; 'latest' resumes from the "
+                             "newest model_*.pth in --train_path.")
+    parser.add_argument("--restore_target", type=str,
+                        help="Target of the restoration (accepted, as in the JAX CLI).")
+    parser.add_argument("--global_step", type=int, default=0,
+                        help="Initial global step (a state file's step replaces it).")
+    common.add_ema_decay_flag(parser)
+    common.add_fused_opt_flag(parser)
+    common.add_refused_flags(parser, REFUSED, ())
+    return parser
+
+
+def refuse_model_flags(model_args) -> None:
+    for flag, value in REFUSED_MODEL:
+        if getattr(model_args, flag, None) == value:
+            raise SystemExit("--%s %s is not ported to larvanet_tpu_torch yet (see "
+                             "ROADMAP.md); run train without it" % (flag, value))
+    given = ["--" + flag for flag in IGNORED_MODEL
+             if getattr(model_args, flag, None) is not None]
+    if given:
+        print("train: %s reparametrise(s) the JAX package's training graph; the port "
+              "trains the module graph (the same gradients): ignored" % ", ".join(given))
+
+
+def main(argv=None):
+    """Train; returns (the model in its final state, {global_step: loss})."""
+    args, remaining = build_parser().parse_known_args(argv)
+    common.refuse_unported(args, REFUSED, (), "train")
+    if args.model not in TRAINED_MODELS:
+        raise SystemExit("training --model %s is not ported to larvanet_tpu_torch yet (see "
+                         "ROADMAP.md); train takes %s" % (args.model, ", ".join(TRAINED_MODELS)))
+    if args.fused_opt is not None:
+        print("train: --fused_opt is numerically identical per element; ignored")
+    device = common.resolve_device(args)
+    scale_list = common.scales_of(args)
+    os.makedirs(args.train_path, exist_ok=True)
+
+    dataloader, loader_args, remaining = common.setup_loader(args.dataloader, remaining,
+                                                             scale_list)
+    model, model_args, remaining = common.setup_model(
+        args.model, remaining, scale_list, device, is_training=True,
+        global_step=args.global_step, ema_decay=args.ema_decay)
+    refuse_model_flags(model_args)
+    model.grad_accum = args.grad_accum
+    common.warn_leftovers(remaining)
+
+    restore_path = resolve_restore_path(args.restore_path, args.train_path)
+    if restore_path is not None:
+        model.restore(restore_path)
+        print("restored the model")
+
+    summary_writers = {}  # by scale, made when its first summary is due
+    dump_arguments_json(os.path.join(args.train_path, "arguments.json"), args, loader_args,
+                        model_args)
+
+    print("begin training")
+    losses = {}
+    local_step = 0
+    try:
+        while model.global_step < args.max_steps:
+            local_step += 1
+            start_time = time.time()
+            scale = model.get_next_train_scale()
+            summary = None
+            if local_step % args.summary_freq == 0:
+                if scale not in summary_writers:
+                    summary_writers[scale] = SummaryWriter(
+                        os.path.join(args.train_path, "x%d" % scale))
+                summary = summary_writers[scale]
+            dataloader.reseed_for_step(model.global_step)  # the resumable stream
+            input_list, truth_list = dataloader.get_patch_batch(
+                batch_size=args.batch_size, scale=scale, input_patch_size=args.input_patch_size)
+            loss = model.train_step(input_list=input_list, scale=scale, truth_list=truth_list,
+                                    summary=summary)
+            losses[model.global_step] = loss
+            duration = time.time() - start_time
+            if args.sleep_ratio > 0 and duration > 0:
+                time.sleep(min(10.0, duration * args.sleep_ratio))
+            if local_step % args.log_freq == 0:
+                print("step %d, lr %f, loss %.6f (%.3f sec/batch)"
+                      % (model.global_step, model.get_learning_rate(), loss, duration))
+            if local_step % args.save_freq == 0:
+                model.save(base_path=args.train_path)
+                print("saved a model checkpoint at step %d" % (model.global_step,))
+    finally:
+        for w in summary_writers.values():
+            w.close()
+    print("finished")
+    return model, losses
+
+
+if __name__ == "__main__":
+    main()

@@ -1,17 +1,23 @@
-"""Paired LR/HR image store (larvanet_tpu/data/dataset.py:30-110, the
-full-image part).
+"""Paired LR/HR image store with patch sampling and augmentation
+(larvanet_tpu/data/dataset.py).
 
 File schemes: `div2k`, input `X{s}/{name}x{s}.png` against truth
 `{name}.png`; `flat`, `{name}.png` in both directories. The optional cache
-holds uint8 HWC images, a quarter of the float32 CHW bytes. Patch sampling
-and augmentation come with training.
+holds uint8 HWC images, a quarter of the float32 CHW bytes.
+
+Patches (dataset.py:112-165): a random crop aligned to the scale, rot90 by
+k in 1..4, then a horizontal flip with p 0.5, from a numpy Generator per
+dataset; `reseed_for_step` re-keys it to (seed, step), so that a resumed
+run draws what an uninterrupted one would. The draws are the JAX
+package's numpy path, bit for bit; its native C++ batcher (`--data_native
+1` on its `patch_batch_nhwc` path) draws another stream and is not ported.
 """
 
 from __future__ import annotations
 
 import os
 import threading
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -22,13 +28,15 @@ class PairDataset:
     """LR/HR pair store with an optional in-RAM uint8 cache."""
 
     def __init__(self, input_path: str, truth_path: str, scheme: str = "div2k",
-                 cached: bool = False):
+                 cached: bool = False, seed: Optional[int] = None):
         if scheme not in ("div2k", "flat"):
             raise ValueError("unknown file scheme %r (div2k or flat)" % (scheme,))
         self.input_path = input_path
         self.truth_path = truth_path
         self.scheme = scheme
         self.cached = cached
+        self.seed = seed
+        self.rng = np.random.default_rng(seed)
         self.image_names: List[str] = []
         self.scale_list: List[int] = []
         self._input_cache: Dict[int, Dict[str, np.ndarray]] = {}
@@ -80,3 +88,44 @@ class PairDataset:
         inp = self.input_u8(scale, index).transpose(2, 0, 1).astype(np.float32)
         tru = self.truth_u8(index).transpose(2, 0, 1).astype(np.float32)
         return inp, tru, self.image_names[index]
+
+    # -- patch sampling --------------------------------------------------------
+
+    def random_patch_pair_u8(self, scale: int, input_patch_size: int,
+                             index: Optional[int] = None) -> Tuple[np.ndarray, np.ndarray]:
+        """One augmented HWC uint8 patch pair (reference :61-98 semantics)."""
+        if index is None:
+            index = int(self.rng.integers(len(self.image_names)))
+        inp = self.input_u8(scale, index)
+        tru = self.truth_u8(index)
+        h, w = inp.shape[:2]
+        p = input_patch_size
+        x = int(self.rng.integers(w - p))
+        y = int(self.rng.integers(h - p))
+        ip = inp[y:y + p, x:x + p]
+        tp = tru[y * scale:(y + p) * scale, x * scale:(x + p) * scale]
+        k = int(self.rng.integers(4)) + 1
+        ip = np.rot90(ip, k=k, axes=(0, 1))
+        tp = np.rot90(tp, k=k, axes=(0, 1))
+        if self.rng.uniform() < 0.5:
+            ip = ip[:, ::-1]
+            tp = tp[:, ::-1]
+        return np.ascontiguousarray(ip), np.ascontiguousarray(tp)
+
+    def patch_batch_nhwc(self, batch_size: int, scale: int,
+                         input_patch_size: int) -> Tuple[np.ndarray, np.ndarray]:
+        """A batch of augmented patches as NHWC float32 (the numpy path)."""
+        p = input_patch_size
+        ins = np.empty((batch_size, p, p, 3), np.float32)
+        trs = np.empty((batch_size, p * scale, p * scale, 3), np.float32)
+        for i in range(batch_size):
+            ins[i], trs[i] = self.random_patch_pair_u8(scale, p)
+        return ins, trs
+
+    def reseed_for_step(self, step: int) -> None:
+        """Stateless re-key: the numpy stream from SeedSequence((seed, step)),
+        so a run resumed at step N draws what an uninterrupted one would.
+        No-op when unseeded."""
+        if self.seed is None:
+            return
+        self.rng = np.random.default_rng((self.seed, step))

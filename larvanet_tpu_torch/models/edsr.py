@@ -7,8 +7,17 @@ The module's state_dict keys are the reference's (`mean_shift`,
 `upsample.body.{0,2}`, `final_conv`, `mean_inverse_shift`), the keys
 larvanet_tpu/utils/torch_convert.py:470-479 exports.
 
-`edsr_loss` is the same network (its robust loss matters only to
-training, which is not ported yet).
+Training (models/edsr.py:63-165 in the JAX package): Adam and L1, the
+learning rate --edsr_learning_rate (1e-4) halved (--edsr_learning_rate_decay)
+every --edsr_learning_rate_decay_steps (200k) steps. `edsr_loss` is the
+same network trained with the robust sqrt loss mean((|o-t|+1e-5)^0.5)
+(reference models/edsr_loss.py:35-37). The JAX package trains by default
+through three exact reparametrisations of the module graph
+(--packed_trunk, --collapsed_tail_train, --lr_domain_loss: the same
+per-element gradients, the loss in another order of summation); the port
+parses them and trains the module graph, as JAX does with --packed_trunk 0.
+--train_dtype, --qat and --remat are parsed here and refused by the train
+CLI at any value but f32 / 0.
 """
 
 from __future__ import annotations
@@ -21,7 +30,8 @@ from torch import nn
 
 from larvanet_tpu_torch.core.config import parse_known
 from larvanet_tpu_torch.core.registry import register_model
-from larvanet_tpu_torch.models.base import SRModel
+from larvanet_tpu_torch.models.base import SRModel, StepDecayMixin
+from larvanet_tpu_torch.train.losses import robust_sqrt_loss
 from larvanet_tpu_torch.models.layers import (Conv3x3, MeanShift, ResBlock,
                                               UpsampleBlock)
 
@@ -53,7 +63,11 @@ class EDSRModule(nn.Module):
         return self.mean_inverse_shift(x)
 
 
-class EDSR(SRModel):
+class EDSR(StepDecayMixin, SRModel):
+    lr_flag = "edsr_learning_rate"
+    decay_flag = "edsr_learning_rate_decay"
+    decay_steps_flag = "edsr_learning_rate_decay_steps"
+
     def parse_args(self, args):
         parser = argparse.ArgumentParser()
         parser.add_argument("--edsr_conv_features", type=int, default=64,
@@ -62,6 +76,33 @@ class EDSR(SRModel):
                             help="The number of residual blocks.")
         parser.add_argument("--edsr_res_weight", type=float, default=1.0,
                             help="The scaling factor.")
+        parser.add_argument("--edsr_learning_rate", type=float, default=1e-4,
+                            help="Initial learning rate.")
+        parser.add_argument("--edsr_learning_rate_decay", type=float, default=0.5,
+                            help="Learning rate decay factor.")
+        parser.add_argument("--edsr_learning_rate_decay_steps", type=int, default=200000,
+                            help="The number of training steps to perform learning rate "
+                                 "decay.")
+        parser.add_argument("--packed_trunk", type=int, default=None,
+                            help="The JAX package's width-packed training trunk (an exact "
+                                 "reparametrisation); accepted and ignored: the port "
+                                 "trains the module graph.")
+        parser.add_argument("--lr_domain_loss", type=int, default=None,
+                            help="The JAX package's pre-shuffle loss (the same "
+                                 "per-element gradients); accepted and ignored.")
+        parser.add_argument("--collapsed_tail_train", type=int, default=None,
+                            help="The JAX package's live collapsed tail (loss- and "
+                                 "gradient-equivalent); accepted and ignored.")
+        parser.add_argument("--qat", type=int, default=0,
+                            help="Quantization-aware training; not ported yet (see "
+                                 "ROADMAP.md), refused by the train CLI unless 0.")
+        parser.add_argument("--remat", type=int, default=0,
+                            help="Rematerialised training trunk; not ported yet (see "
+                                 "ROADMAP.md), refused by the train CLI unless 0.")
+        parser.add_argument("--train_dtype", type=str, default="f32",
+                            choices=["f32", "bf16"],
+                            help="Compute dtype of the training graph; only f32 is "
+                                 "ported (bf16 is refused by the train CLI).")
         self.args, remaining = parse_known(parser, args)
         return self.args, remaining
 
@@ -77,6 +118,10 @@ def create_edsr():
     return EDSR()
 
 
+class EDSRLoss(EDSR):
+    loss = staticmethod(robust_sqrt_loss)
+
+
 @register_model("edsr_loss")
 def create_edsr_loss():
-    return EDSR()
+    return EDSRLoss()

@@ -3,7 +3,8 @@
 Parameters carry the reference PyTorch repo's state_dict names, so a
 reference `.pth` (or one exported by the JAX package) loads with
 `strict=True`. Every 3x3 conv goes through `ops.conv3x3`, which is the
-hand-written CUDA kernel on the card.
+hand-written CUDA kernel on the card; where a gradient is wanted, through
+its `Conv3x3Train`, whose backward runs on hand-written kernels too.
 
 Init parity, drawn from an explicit `torch.Generator`: torch's Conv2d
 default, kaiming_uniform_(a=sqrt(5)) for the weight and U(-1/sqrt(fan_in),
@@ -21,7 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from larvanet_tpu_torch.ops.conv3x3 import conv3x3_bias_act
+from larvanet_tpu_torch.ops.conv3x3 import Conv3x3Train, conv3x3_bias_act
 from larvanet_tpu_torch.ops.pixel_shuffle import PixelShuffle
 
 # RGB mean used by every MeanShift in the zoo (reference models/edsr.py:181)
@@ -52,7 +53,9 @@ class Conv3x3(nn.Module):
     """SAME 3x3 conv + bias, with an optional activation fused into the
     kernel's epilogue. Holds the OIHW `weight` and `bias` of torch's
     Conv2d; hands the kernel the HWIO view. `init_scale` None draws torch's
-    Conv2d default; a float s draws `kaiming_normal_scaled(s)`."""
+    Conv2d default; a float s draws `kaiming_normal_scaled(s)`. Under
+    no_grad, or when neither x nor a parameter requires grad (serving),
+    the direct call; else the differentiable `Conv3x3Train`."""
 
     def __init__(self, in_features: int, out_features: int,
                  act: Optional[str] = None,
@@ -74,8 +77,11 @@ class Conv3x3(nn.Module):
         self.bias = nn.Parameter(bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return conv3x3_bias_act(x, self.weight.permute(2, 3, 1, 0), self.bias,
-                                self.act)
+        kernel = self.weight.permute(2, 3, 1, 0)
+        if torch.is_grad_enabled() and (x.requires_grad or self.weight.requires_grad
+                                        or self.bias.requires_grad):
+            return Conv3x3Train.apply(x, kernel, self.bias, self.act)
+        return conv3x3_bias_act(x, kernel, self.bias, self.act)
 
 
 class ResBlock(nn.Module):

@@ -20,7 +20,17 @@ mma.sync in split TF32, three TF32 products an f32 product, with the
 weights split into hi and lo parts here, once per weight:
 `split_weight`) and "cuda_core" (everything else). `LAUNCHES` counts the
 kernel's launches and `LAUNCHES_BY_PATH` each path's, so a run can show
-that its path went through them.
+that its path went through them; `DGRAD_LAUNCHES_BY_PATH` counts those of
+them that were input gradients.
+
+`Conv3x3Train` is the conv as a `torch.autograd.Function`, for training:
+its forward is `conv3x3_bias_act`; its backward takes the activation's
+derivative from the saved output, runs the input gradient (dgrad) as a
+SAME 3x3 conv on the same kernel (the kernel rotated by 180 degrees, C and
+F swapped) and the weight and bias gradient on `ops/conv3x3_wgrad.py`'s
+kernel. It calls both wrappers through their modules, so on a CPU tensor
+it runs their plain versions, and the CPU tests hold these formulas, not
+torch's autograd through the plain version.
 """
 
 from __future__ import annotations
@@ -35,6 +45,7 @@ import torch
 import torch.nn.functional as F
 
 from larvanet_tpu_torch.ops import build
+from larvanet_tpu_torch.ops import conv3x3_wgrad as wgrad
 
 SOURCE = "conv3x3_bias_act.cu"
 ACTS = {None: 0, "relu": 1, "leaky_relu": 2}
@@ -51,13 +62,15 @@ NARROW_MAX_C = 64
 
 LAUNCHES = 0
 LAUNCHES_BY_PATH: Dict[str, int] = {"cuda_core": 0, "tensor_core": 0, "narrow": 0}
+DGRAD_LAUNCHES_BY_PATH: Dict[str, int] = {"cuda_core": 0, "tensor_core": 0, "narrow": 0}
 
 
 def reset_launches() -> None:
     global LAUNCHES
     LAUNCHES = 0
-    for path in LAUNCHES_BY_PATH:
-        LAUNCHES_BY_PATH[path] = 0
+    for counts in (LAUNCHES_BY_PATH, DGRAD_LAUNCHES_BY_PATH):
+        for path in counts:
+            counts[path] = 0
 
 
 def path_for(c: int, f: int, dtype: torch.dtype) -> str:
@@ -99,22 +112,27 @@ _SPLIT_CACHE_SIZE = 256
 _SPLIT_LOCK = threading.Lock()
 
 
-def split_weight(kernel: torch.Tensor) -> torch.Tensor:
+def split_weight(kernel: torch.Tensor, cache: bool = True) -> torch.Tensor:
     """The f32 tensor-core entry's weight operand for an HWIO kernel (3, 3,
     C, F): (2, 9, F, C) f32 contiguous, hi then lo (`split_tf32` of the
     kernel in f32), each tap's rows the output channels with the C inputs
     contiguous. Split once per weight and cached until the weight changes
-    (by its data_ptr, _version, dtype, device, shape and strides)."""
+    (by its data_ptr, _version, dtype, device, shape and strides); with
+    `cache` False (a kernel made afresh for one call, as dgrad's) split
+    every call and kept nowhere."""
     key = (kernel.data_ptr(), kernel._version, kernel.dtype, kernel.device,
            tuple(kernel.shape), kernel.stride())
-    with _SPLIT_LOCK:
-        hit = _SPLIT_CACHE.get(key)
-        if hit is not None:
-            _SPLIT_CACHE.move_to_end(key)
-            return hit[1]
+    if cache:
+        with _SPLIT_LOCK:
+            hit = _SPLIT_CACHE.get(key)
+            if hit is not None:
+                _SPLIT_CACHE.move_to_end(key)
+                return hit[1]
     c, f = kernel.shape[2], kernel.shape[3]
     k = kernel.detach().to(torch.float32).reshape(9, c, f).transpose(1, 2)
     split = torch.stack(split_tf32(k)).contiguous()
+    if not cache:
+        return split
     with _SPLIT_LOCK:
         _SPLIT_CACHE[key] = (kernel, split)
         while len(_SPLIT_CACHE) > _SPLIT_CACHE_SIZE:
@@ -122,11 +140,13 @@ def split_weight(kernel: torch.Tensor) -> torch.Tensor:
     return split
 
 
-def entry_weight(kernel: torch.Tensor, dtype: torch.dtype, path: str) -> torch.Tensor:
+def entry_weight(kernel: torch.Tensor, dtype: torch.dtype, path: str,
+                 cache: bool = True) -> torch.Tensor:
     """The weight operand of the (`path`, `dtype`) entry: the split weight
-    for f32 on the tensor cores, else the kernel as (9 C, F) in `dtype`."""
+    for f32 on the tensor cores (`split_weight`, cached unless `cache` is
+    False), else the kernel as (9 C, F) in `dtype`."""
     if (path, dtype) == ("tensor_core", torch.float32):
-        return split_weight(kernel)
+        return split_weight(kernel, cache)
     c, f = kernel.shape[2], kernel.shape[3]
     return kernel.reshape(9 * c, f).to(dtype).contiguous()
 
@@ -173,12 +193,13 @@ def _entry(dtype: torch.dtype, path: str):
 
 
 def _run(fn, x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
-         act: Optional[str], stream, path: str = "cuda_core") -> torch.Tensor:
+         act: Optional[str], stream, path: str = "cuda_core",
+         cache: bool = True) -> torch.Tensor:
     """Call entry point `fn`, the (`path`, x.dtype) entry, on checked
     operands; returns the output."""
     n, h, w, c = x.shape
     f = kernel.shape[3]
-    kmat = entry_weight(kernel, x.dtype, path)
+    kmat = entry_weight(kernel, x.dtype, path, cache)
     b = bias.to(torch.float32).contiguous()
     out = torch.empty((n, h, w, f), dtype=x.dtype, device=x.device)
     err = fn(x.data_ptr(), kmat.data_ptr(), b.data_ptr(), out.data_ptr(), n, h, w, c, f,
@@ -189,9 +210,12 @@ def _run(fn, x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
 
 
 def conv3x3_bias_act(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
-                     act: Optional[str] = None) -> torch.Tensor:
+                     act: Optional[str] = None, dgrad: bool = False) -> torch.Tensor:
     """SAME 3x3 conv + bias + act. CUDA tensor: the hand-written kernel;
-    CPU tensor: the plain version."""
+    CPU tensor: the plain version. `dgrad` marks an input gradient
+    (`Conv3x3Train.backward`): its kernel is made afresh for the call, so
+    its split weight is not cached, and its launch is counted in
+    DGRAD_LAUNCHES_BY_PATH as well."""
     if x.device.type == "cpu":
         return conv3x3_bias_act_reference(x, kernel, bias, act)
     if x.device.type != "cuda":
@@ -219,8 +243,52 @@ def conv3x3_bias_act(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
     path = path_for(c, f, x.dtype)
     with torch.cuda.device(x.device):
         out = _run(_entry(x.dtype, path), x, kernel, bias, act,
-                   torch.cuda.current_stream().cuda_stream, path)
+                   torch.cuda.current_stream().cuda_stream, path, cache=not dgrad)
     global LAUNCHES
     LAUNCHES += 1
     LAUNCHES_BY_PATH[path] += 1
+    if dgrad:
+        DGRAD_LAUNCHES_BY_PATH[path] += 1
     return out
+
+
+def dgrad_kernel(kernel: torch.Tensor) -> torch.Tensor:
+    """The HWIO kernel of the input gradient of a SAME 3x3 conv with HWIO
+    `kernel` (3, 3, C, F): rotated by 180 degrees, C and F swapped, (3, 3,
+    F, C); a SAME 3x3 conv of the output gradient with it is the input
+    gradient."""
+    return kernel.flip(0, 1).transpose(2, 3).contiguous()
+
+
+class Conv3x3Train(torch.autograd.Function):
+    """`conv3x3_bias_act` with a backward: dgrad on the same conv kernel,
+    the weight and bias gradient on conv3x3_wgrad's. Inputs x NHWC, the
+    HWIO kernel (any strides), the bias, act; the gradients come back in
+    their layouts. dgrad is skipped where x needs no gradient (first_conv,
+    whose input is the mean-shifted batch)."""
+
+    @staticmethod
+    def forward(ctx, x, kernel, bias, act):
+        out = conv3x3_bias_act(x, kernel, bias, act)
+        ctx.act = act
+        ctx.save_for_backward(x, kernel, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        x, kernel, out = ctx.saved_tensors
+        # the activation's derivative from its output, as jax.nn's gradients
+        # take it at 0: relu 1 where out > 0; leaky_relu 1 where out >= 0,
+        # else 0.1
+        g = grad_out.contiguous()
+        if ctx.act == "relu":
+            g = g * (out > 0).to(g.dtype)
+        elif ctx.act == "leaky_relu":
+            g = torch.where(out >= 0, g, 0.1 * g)
+        grad_x = grad_k = grad_b = None
+        if ctx.needs_input_grad[0]:
+            zero = torch.zeros(kernel.shape[2], dtype=torch.float32, device=g.device)
+            grad_x = conv3x3_bias_act(g, dgrad_kernel(kernel), zero, None, dgrad=True)
+        if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
+            grad_k, grad_b = wgrad.conv3x3_wgrad(x, g)
+        return grad_x, grad_k, grad_b, None

@@ -341,14 +341,15 @@ def make_wino_edsr_forward(model, m: int = 2):
     call (counterpart of make_wino_pallas_edsr_forward,
     wino_pallas.py:467-491). Head, after_res_conv and tail run the
     module's own layers. Takes and returns what `model.module` does; reads
-    the module's weights on every call (`fused_resblock_runner`). Even
-    input widths only, as in JAX."""
+    the weights of `model.serving_module` (the module, or its cast copy) on
+    every call (`fused_resblock_runner`). Even input widths only, as in
+    JAX."""
     run = fused_resblock_runner(m)
 
     @torch.no_grad()
     def forward(x: torch.Tensor) -> torch.Tensor:
         _check_even_width(x)
-        mod = model.module
+        mod = model.serving_module
         h = mod.first_conv(mod.mean_shift(x))
         res = h
         for block in mod.res_blocks:
@@ -377,7 +378,7 @@ def make_wino_larvanet_forward(model, m: int = 2):
     @torch.no_grad()
     def forward(x: torch.Tensor):
         _check_even_width(x)
-        mod = model.module
+        mod = model.serving_module
         return mod.walk(x, mod.exits, run)
 
     return forward

@@ -67,3 +67,32 @@ def test_each_port_script_exists_and_imports_no_jax(name):
         names += [m.group(1)] if m.group(1) else re.split(r"\s*,\s*", m.group(2))
     assert "torch" in names or any(n.startswith("larvanet_tpu_torch") for n in names)
     assert [n for n in names if FORBIDDEN.match(n)] == []
+
+
+def test_training_on_the_cpu_loads_no_jax(tmp_path):
+    """A few steps of the train CLI, checkpoints included, in a fresh
+    process: no JAX module is loaded along the way (no summary is due, so
+    no TensorBoard writer is made)."""
+    code = (
+        "import json, os, sys\n"
+        "import numpy as np\n"
+        "from larvanet_tpu_torch.cli import train\n"
+        "from larvanet_tpu_torch.data import io\n"
+        "root = %r\n"
+        "rng = np.random.default_rng(0)\n"
+        "for i in range(2):\n"
+        "    hr = rng.integers(0, 256, (3, 48, 48), dtype=np.uint8)\n"
+        "    io.save_image_chw(hr, os.path.join(root, 'HR', '%%04d.png' %% i))\n"
+        "    io.save_image_chw(hr[:, ::4, ::4], os.path.join(root, 'LR', 'X4', '%%04dx4.png' %% i))\n"
+        "train.main(['--device', 'cpu', '--train_path', os.path.join(root, 'run'),\n"
+        "            '--data_input_path', os.path.join(root, 'LR'),\n"
+        "            '--data_truth_path', os.path.join(root, 'HR'), '--batch_size', '2',\n"
+        "            '--input_patch_size', '8', '--edsr_conv_features', '8',\n"
+        "            '--edsr_res_blocks', '1', '--max_steps', '3', '--save_freq', '2'])\n"
+        "assert os.path.isfile(os.path.join(root, 'run', 'model_2.pth'))\n"
+        "print(json.dumps(sorted(sys.modules)))\n" % (str(tmp_path),))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                         capture_output=True, text=True, timeout=300)
+    loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    assert "larvanet_tpu_torch.cli.train" in loaded
+    assert [m for m in loaded if FORBIDDEN.match(m)] == []

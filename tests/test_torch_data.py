@@ -151,8 +151,11 @@ def test_load_image_u8_matches_jax_loader_on_every_png_kind(jax_libpng, tmp_path
 def test_dataset_rejects_unknown_scheme_and_training_methods_raise():
     with pytest.raises(ValueError, match="scheme"):
         PairDataset("a", "b", scheme="zip")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError):
         BaseLoader().get_patch_batch(2, 4, 8)
+    # the threaded queue loaders are not ported yet
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        BaseLoader().start_training_queue_runner(2, 8)
 
 
 def _images(seed, shape=(24, 30, 3)):

@@ -162,7 +162,8 @@ def test_bf16_serving_dtype_runs_bf16_convs_and_returns_f32():
     x = torch.from_numpy(_lr((1, 6, 5, 3), seed=2))
     want = pm.fwd_runtime(x)
     pm.set_serving_dtype("bf16")
-    assert pm.module.first_conv.weight.dtype == torch.bfloat16
+    assert pm.serving_module.first_conv.weight.dtype == torch.bfloat16
+    assert pm.module.first_conv.weight.dtype == torch.float32  # the f32 weights stay
     got = pm.fwd_runtime(x)
     assert got.dtype == torch.float32
     # bf16 keeps 8 significant bits: a few levels on [0, 255] after 7 convs

@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from larvanet_tpu_torch.ops import conv3x3, emulate
+from larvanet_tpu_torch.ops import conv3x3_wgrad as wg
 from larvanet_tpu_torch.ops import wino_resblock as wr
 
 # f32: the kernel sums the same f32 products as the plain version in another
@@ -42,6 +43,11 @@ def conv_lib():
 @pytest.fixture(scope="module")
 def wino_lib():
     return _lib(wr.SOURCE)
+
+
+@pytest.fixture(scope="module")
+def wgrad_lib():
+    return _lib(wg.SOURCE)
 
 
 def _t(a):
@@ -374,3 +380,77 @@ def test_translate_rewrites_launches_and_dynamic_shared_memory():
     out = emulate.translate(src)
     assert "float* smem = reinterpret_cast<float*>(emu_smem());" in out
     assert "  emu_launch(kern<T, 4>, grid, 256, bytes, static_cast<cudaStream_t>(s), a, b);" in out
+
+
+@pytest.mark.parametrize("shape,f,path", [
+    ((1, 6, 7, 256), 64, "tensor_core"),   # upsample dgrad 256 -> 64: four chunks of 64
+    ((2, 5, 9, 256), 64, "tensor_core"),   # batch 2, frames smaller than one tile
+    ((1, 30, 19, 3), 64, "cuda_core"),     # final_conv's dgrad 3 -> 64, several M tiles
+])
+def test_conv3x3_dgrad_shapes_match_plain_version(conv_lib, shape, f, path):
+    """The input gradients of a train step's convs that no forward has: C =
+    256 on the f32 tensor-core entry and 3 -> 64 on the CUDA cores, with the
+    rotated kernel (`dgrad_kernel`) split afresh, not cached (`cache=False`)."""
+    assert conv3x3.path_for(shape[3], f, torch.float32) == path
+    rng = np.random.default_rng(sum(shape) + f)
+    g = _t(rng.standard_normal(shape))
+    k = conv3x3.dgrad_kernel(_t(0.05 * rng.standard_normal((3, 3, f, shape[3]))))
+    zero = torch.zeros(f)
+    fn = conv3x3.bind(conv_lib, torch.float32, path)
+    cached = len(conv3x3._SPLIT_CACHE)
+    got = conv3x3._run(fn, g, k, zero, None, None, path, cache=False)
+    assert len(conv3x3._SPLIT_CACHE) == cached
+    want = conv3x3.conv3x3_bias_act_reference(g, k, zero, None)
+    err = float((got - want).abs().max())
+    print("emulated conv3x3 dgrad %s %s->%d: max|d| %.3g" % (path, shape, f, err))
+    assert torch.isfinite(got).all() and err <= F32_ATOL["conv"]
+
+
+def _chunk_for(m, splits):
+    chunk = wg._cdiv(wg._cdiv(m, splits), 16) * 16
+    return wg._cdiv(m, chunk), chunk
+
+
+@pytest.mark.parametrize("shape,f,splits", [
+    ((2, 5, 7, 16), 16, 1),    # one split: the reduce pass copies
+    ((2, 9, 11, 16), 16, 5),   # five splits, the last one short
+    ((1, 6, 5, 3), 64, 2),     # first_conv's 3 -> 64: 28 rows, one tile
+    ((1, 12, 13, 64), 3, 4),   # final_conv's 64 -> 3 on the narrow 256 x 4 tiles
+    ((2, 4, 6, 8), 80, 3),     # F = 64 + 16: a ragged F tile
+    ((1, 7, 9, 32), 4, 1),     # F = 4, the narrow tile's full width
+])
+def test_conv3x3_wgrad_kernel_matches_plain_version(wgrad_lib, shape, f, splits):
+    """The weight and bias gradient through the wrapper's `bind` and `_run`,
+    the pixel sum cut into `splits` runs and the partials added in order:
+    f32 sums of the same products in another order, within 1e-5 of the
+    largest |dW| (|db|)."""
+    rng = np.random.default_rng(sum(shape) + f + splits)
+    x = _t(rng.standard_normal(shape))
+    g = _t(rng.standard_normal(shape[:3] + (f,)))
+    n_split, chunk = _chunk_for(shape[0] * shape[1] * shape[2], splits)
+    assert n_split == splits
+    fn = wg.bind(wgrad_lib, wg.path_for(f))
+    dw, db = wg._run(fn, x, g, n_split, chunk, None)
+    want_w, want_b = wg.conv3x3_wgrad_reference(x, g)
+    assert dw.shape == want_w.shape and db.shape == want_b.shape
+    err_w = float((dw - want_w).abs().max() / want_w.abs().max())
+    err_b = float((db - want_b).abs().max() / want_b.abs().max())
+    print("emulated conv3x3_wgrad %s->%d, %d splits: max|d| / max|g| dW %.3g, db %.3g"
+          % (shape, f, splits, err_w, err_b))
+    assert torch.isfinite(dw).all() and err_w <= 1e-5 and err_b <= 1e-5
+    again = wg._run(fn, x, g, n_split, chunk, None)
+    assert torch.equal(again[0], dw) and torch.equal(again[1], db)  # deterministic
+
+
+@pytest.mark.parametrize("case", ["empty_split", "short", "no_pixels", "narrow_f8"])
+def test_conv3x3_wgrad_entry_refuses_what_it_cannot_take(wgrad_lib, case):
+    """Nothing is launched and the wrapper raises cudaErrorInvalidValue: an
+    empty split, splits that miss pixels, no pixels, F > 4 on the narrow
+    entry."""
+    shape = (1, 0, 5, 16) if case == "no_pixels" else (1, 4, 5, 16)
+    f = 8 if case == "narrow_f8" else 4
+    x, g = torch.zeros(shape), torch.zeros(shape[:3] + (f,))
+    splits, chunk = {"empty_split": (3, 16), "short": (1, 16)}.get(case, (1, 32))
+    fn = wg.bind(wgrad_lib, "narrow")
+    with pytest.raises(RuntimeError, match="CUDA error 1"):
+        wg._run(fn, x, g, splits, chunk, None)
