@@ -108,9 +108,10 @@ fails (exit code != 0, no result line) if any phase fails:
     from step 10 to 20, whose losses must repeat the first run's bit for
     bit; validate on model_20.pth, whose frames must be the trained
     forward's. Then the wgrad kernel at each of the step's shapes
-    (TRAIN_WGRAD) and the conv kernel at the dgrad shapes no forward has
-    (TRAIN_DGRAD), each against its plain version and timed in turns with
-    it and cuDNN's gradient (conv2d_weight / conv2d_input, TF32 off).
+    (TRAIN_WGRAD), on its path and on its CUDA-core entries, and the conv
+    kernel at the dgrad shapes no forward has (TRAIN_DGRAD), each against
+    its plain version and timed in turns with it and cuDNN's gradient
+    (conv2d_weight / conv2d_input, TF32 off).
  9. prints the kernels JSON line, the nvidia-smi line, then the result line
     {"ok": true, "device": {...}}.
 
@@ -129,8 +130,9 @@ dtypes and geometries, and the sums over one LarvaNet 2x16 forward (its 67
 convs) per dtype with their served launches.
 The conv3x3 line's launches add phase 8's counted train step (its forward
 and dgrad launches, by path, and the dgrad shapes' times under
-"train_step"); the conv3x3_wgrad line gives that step's wgrad launches and
-its times summed over the step's 37 wgrads.
+"train_step"); the conv3x3_wgrad line gives that step's wgrad launches by
+path and its times summed over the step's 37 wgrads, with the CUDA-core
+entries' sum beside them.
 """
 
 from __future__ import annotations
@@ -288,10 +290,12 @@ TRAIN_DGRAD = (
 # launches of one train step by path: the 37 forward convs as a served
 # forward takes them; 36 dgrads (none for first_conv, whose input needs no
 # gradient): the 256 -> 64 and 64 -> 64 ones on the tensor cores,
-# final_conv's 3 -> 64 on the CUDA cores; 37 wgrads, final_conv's narrow
+# final_conv's 3 -> 64 on the CUDA cores; 37 wgrads (ops/conv3x3_wgrad.py
+# path_for): the 35 64 -> 64 and 64 -> 256 on the tensor cores,
+# final_conv's 64 -> 3 narrow, first_conv's 3 -> 64 on the CUDA cores
 TRAIN_LAUNCHES = {"forward": {"cuda_core": 1, "tensor_core": 35, "narrow": 1},
                   "dgrad": {"cuda_core": 1, "tensor_core": 35, "narrow": 0},
-                  "wgrad": {"wide": 36, "narrow": 1}}
+                  "wgrad": {"tensor_core": 35, "narrow": 1, "cuda_core": 1}}
 # conv3x3 launches per forward by shape (C, F, act), and fused ResBlock
 # launches per forward, of each LarvaNet configuration and --wino_trunk
 # route that the LarvaNet phases drive. A 48-channel trunk takes the direct
@@ -1285,9 +1289,12 @@ def train_kernel_phase(torch):
     forward has (TRAIN_DGRAD), each held against its plain version on the
     card and timed in turns with it and cuDNN's gradient
     (torch.nn.grad.conv2d_weight / conv2d_input, TF32 off), beside its
-    bound. Returns ({"ms", "plain_ms", "library_ms", "bound_ms"} summed over
-    one train step's 37 wgrad launches, its bound's kind, the largest wgrad
-    |d| and |d| / max |dW|, {label: dgrad numbers})."""
+    bound. The wgrad kernel runs on its shape's path and, as the earlier
+    kernel of the same function, on its CUDA-core entries; both are held
+    to the plain version and timed in the same turns. Returns ({"ms",
+    "cuda_core_ms", "plain_ms", "library_ms", "bound_ms"} summed over one
+    train step's 37 wgrad launches, its bound's kind, the largest wgrad |d|
+    and |d| / max |dW| of either entry, {label: dgrad numbers})."""
     from larvanet_tpu_torch.ops import conv3x3_wgrad as wg
     from larvanet_tpu_torch.ops.conv3x3 import (conv3x3_bias_act,
                                                 conv3x3_bias_act_reference, dgrad_kernel,
@@ -1295,7 +1302,7 @@ def train_kernel_phase(torch):
 
     n = TRAIN_BATCH
     gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
-    keys = ("ms", "plain_ms", "library_ms", "bound_ms")
+    keys = ("ms", "cuda_core_ms", "plain_ms", "library_ms", "bound_ms")
     sums = dict.fromkeys(keys, 0.0)
     kinds = {}
     worst_abs = worst_rel = 0.0
@@ -1303,30 +1310,37 @@ def train_kernel_phase(torch):
         h = w = TRAIN_PATCH * mult
         x = torch.randn((n, h, w, c), generator=gen, device="cuda")
         g = torch.randn((n, h, w, f), generator=gen, device="cuda") / (n * h * w)
-        dw, db = wg.conv3x3_wgrad(x, g)
-        torch.cuda.synchronize()  # a fault during the run shows here
+        path = wg.path_for(c, f)
         want_w, want_b = wg.conv3x3_wgrad_reference(x, g)
-        err = max(float((dw - want_w).abs().max()), float((db - want_b).abs().max()))
-        rel = max(float((dw - want_w).abs().max() / want_w.abs().max()),
-                  float((db - want_b).abs().max() / want_b.abs().max()))
-        worst_abs, worst_rel = max(worst_abs, err), max(worst_rel, rel)
-        if rel > GRAD_RTOL or not bool(torch.isfinite(dw).all()):
-            raise AssertionError("wgrad %s: the kernel disagrees with its plain version, "
-                                 "max |d| / max |dW| = %g" % (name, rel))
+        errs = {}
+        for label, entry in (("kernel", path), ("cuda_core", "cuda_core")):
+            dw, db = wg.conv3x3_wgrad(x, g, path=entry)
+            torch.cuda.synchronize()  # a fault during the run shows here
+            err = max(float((dw - want_w).abs().max()), float((db - want_b).abs().max()))
+            rel = max(float((dw - want_w).abs().max() / want_w.abs().max()),
+                      float((db - want_b).abs().max() / want_b.abs().max()))
+            worst_abs, worst_rel = max(worst_abs, err), max(worst_rel, rel)
+            if rel > GRAD_RTOL or not bool(torch.isfinite(dw).all()):
+                raise AssertionError("wgrad %s: the %s entry disagrees with its plain version, "
+                                     "max |d| / max |dW| = %g" % (name, entry, rel))
+            errs[label] = (err, rel)
         x_nchw, g_nchw = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
         t = time_windows(torch, {
             "kernel": lambda: wg.conv3x3_wgrad(x, g),
+            "cuda_core": lambda: wg.conv3x3_wgrad(x, g, path="cuda_core"),
             "conv2d_weight": lambda: torch.nn.grad.conv2d_weight(x_nchw, (f, c, 3, 3), g_nchw,
                                                                  padding=1),
             "plain": lambda: wg.conv3x3_wgrad_reference(x, g)})
         bound, by = wgrad_bound_ms(n, h, w, c, f)
-        print("wgrad %-18s x=%s C=%d F=%d (%s path): kernel %s, conv2d_weight %s, plain %s, "
-              "bound %.4f ms (%s), max|d| %.3g (%.3g of max |dW|), %d a step" % (
-                  name, (n, h, w), c, f, wg.path_for(f), spread(t["kernel"]),
-                  spread(t["conv2d_weight"]), spread(t["plain"]), bound, by, err, rel, count),
-              flush=True)
-        part = {"ms": t["kernel"][0], "plain_ms": t["plain"][0],
-                "library_ms": t["conv2d_weight"][0], "bound_ms": bound}
+        print("wgrad %-18s x=%s C=%d F=%d (%s path): kernel %s, cuda_core entry %s, "
+              "conv2d_weight %s, plain %s, bound %.4f ms (%s), max|d| %.3g (%.3g of max |dW|), "
+              "cuda_core entry %.3g (%.3g), %d a step" % (
+                  name, (n, h, w), c, f, path, spread(t["kernel"]), spread(t["cuda_core"]),
+                  spread(t["conv2d_weight"]), spread(t["plain"]), bound, by,
+                  *errs["kernel"], *errs["cuda_core"], count), flush=True)
+        part = {"ms": t["kernel"][0], "cuda_core_ms": t["cuda_core"][0],
+                "plain_ms": t["plain"][0], "library_ms": t["conv2d_weight"][0],
+                "bound_ms": bound}
         for k in keys:
             sums[k] += count * part[k]
         kinds[by] = kinds.get(by, 0.0) + count * bound
@@ -1369,10 +1383,10 @@ def train_kernel_phase(torch):
                        "max_abs_err": err, "max_rel_err": rel}
         del g, k, k_fwd, got, want
         torch.cuda.empty_cache()
-    print("wgrad per train step (37 launches), f32: kernel %.4f ms, plain %.4f ms, "
-          "conv2d_weight %.4f ms, bound %.4f ms" % (sums["ms"], sums["plain_ms"],
-                                                    sums["library_ms"], sums["bound_ms"]),
-          flush=True)
+    print("wgrad per train step (37 launches), f32: kernel %.4f ms, cuda_core entries %.4f ms, "
+          "plain %.4f ms, conv2d_weight %.4f ms, bound %.4f ms" % (
+              sums["ms"], sums["cuda_core_ms"], sums["plain_ms"], sums["library_ms"],
+              sums["bound_ms"]), flush=True)
     return sums, max(kinds, key=kinds.get), worst_abs, worst_rel, dgrad
 
 
@@ -1655,6 +1669,7 @@ def main() -> int:
         "bound_ms": wgrad_sums["bound_ms"],
         "bound_by": wgrad_by,
         "library_ms": wgrad_sums["library_ms"],
+        "cuda_core_ms": wgrad_sums["cuda_core_ms"],
     }]
     for m, line in ((2, 205), (4, 336)):
         wsums, werr = wino[m]

@@ -21,7 +21,8 @@ JAX package's jitted closures become plain calls of the module.
     it `model_<step>.state.pt` with what a resume needs: the step, Adam's
     moments and the average. `restore(path)` reads a `.pth` with a strict
     load and shape checks, and, when training, its state file if there is
-    one; a `.pth` alone restarts the moments, as in the reference and JAX.
+    one; a `.pth` alone restarts the moments and leaves the average at the
+    weights `prepare` built, as in the reference and JAX.
     msgpack `.ckpt` files and orbax directories need flax and are refused.
   * `set_serving_dtype("bf16")` serves through a bf16 copy of the module,
     so every conv runs the kernel's bf16 variant (the counterpart of
@@ -203,8 +204,11 @@ class SRModel:
         """Strict restore of a `.pth` state_dict; when training, also its
         state file (`state_path`) if it exists: the step, Adam's moments and
         the average continue where the saved run stopped. Without one the
-        moments restart (as the reference and JAX's `_restore_pth` do) and
-        the average restarts from the restored weights."""
+        moments restart and the average stays where `prepare` made it,
+        from the weights the module had then, as the reference and JAX's
+        `_restore_pth` leave them (larvanet_tpu/models/base.py:160-164,
+        :786-852): the restored weights reach the average only through its
+        updates."""
         if not ckpt_path.endswith((".pth", ".pt")):
             kind = "an orbax directory" if os.path.isdir(ckpt_path) \
                 else "a msgpack checkpoint"
@@ -245,8 +249,6 @@ class SRModel:
         self.module.load_state_dict(state, strict=True)
         if self._serving_copy is not None:
             self._serving_copy = self._cast_copy()
-        if self.ema is not None:  # new weights: the average starts from them
-            self.ema = ParamEMA(self.module.parameters(), self.ema_decay)
 
     # ---- forward -----------------------------------------------------------
 

@@ -152,3 +152,60 @@ def test_wgrad_splits_cover_every_pixel_once(m, c, f, sms):
     assert chunk % 16 == 0 and splits >= 1
     assert (splits - 1) * chunk < m <= splits * chunk  # no split is empty
     assert splits == 1 or chunk >= wg.MIN_CHUNK
+
+
+# a train step's weight-gradient shapes (chip_smoke.py TRAIN_WGRAD at batch
+# 16 of 48x48 LR patches): (N, H, W, C, F) and the path each takes
+TRAIN_WGRAD_PATHS = [
+    ((16, 48, 48, 3, 64), "cuda_core"),      # first_conv: C = 3
+    ((16, 48, 48, 64, 64), "tensor_core"),   # the trunk and after_res_conv
+    ((16, 48, 48, 64, 256), "tensor_core"),  # upsample.body.0
+    ((16, 96, 96, 64, 256), "tensor_core"),  # upsample.body.2
+    ((16, 192, 192, 64, 3), "narrow"),       # final_conv
+]
+
+
+@pytest.mark.parametrize("shape,path", TRAIN_WGRAD_PATHS)
+def test_wgrad_path_for_every_train_step_shape(shape, path):
+    n, h, w, c, f = shape
+    assert wg.path_for(c, f) == path
+    assert wg.entry_for(path, f) == path  # none of them takes the 256 x 4 CUDA-core tile
+
+
+@pytest.mark.parametrize("c,f,path", [(16, 4, "narrow"), (48, 1, "narrow"), (16, 8, "tensor_core"),
+                                      (48, 48, "tensor_core"), (8, 3, "cuda_core"),
+                                      (64, 12, "cuda_core"), (3, 16, "cuda_core")])
+def test_wgrad_path_for_by_shape(c, f, path):
+    """C % 16 == 0 with F <= 4 is narrow, with F % 8 == 0 the tensor cores;
+    the CUDA-core path takes the rest, on its 256 x 4 tile for F <= 4."""
+    assert wg.path_for(c, f) == path
+    assert wg.entry_for(path, f) == ("cuda_core_narrow" if path == "cuda_core" and f <= 4
+                                     else path)
+
+
+@pytest.mark.parametrize("shape,sms", [(s, 132) for s, _ in TRAIN_WGRAD_PATHS[1:]]
+                         + [((1, 5, 7, 16, 16), 132), ((3, 17, 33, 32, 64), 4),
+                            ((2, 9, 40, 16, 3), 1), ((1, 8, 16, 128, 256), 132),
+                            ((64, 96, 96, 64, 256), 132)])
+def test_wgrad_tile_splits_cover_every_tile_once(shape, sms):
+    """The tiled paths' splits count pixel tiles (the kernel's step): none is
+    empty, together they cover every tile once, their blocks (one an output
+    tile and channel chunk) fill at most the SMs once where the tiles allow
+    it, and no tensor-core split is longer than MAX_TC_CHUNK tiles (batch 64
+    of the upsample's 96x96 takes the cap)."""
+    n, h, w, c, f = shape
+    path = wg.path_for(c, f)
+    splits, chunk = wg.tile_splits(path, n, h, w, c, f, sms)
+    th, tw = wg.PIXEL_TILE[path]
+    tiles = n * -(-h // th) * -(-w // tw)
+    assert splits >= 1 and chunk >= 1
+    assert (splits - 1) * chunk < tiles <= splits * chunk
+    bc, bf = {"tensor_core": (64, 64), "narrow": (64, f)}[path]
+    blocks = -(-c // bc) * -(-f // bf)
+    if path == "tensor_core" and chunk == wg.MAX_TC_CHUNK:
+        assert -(-tiles // wg.MAX_TC_CHUNK) == splits  # the cap, not the SMs, sets the splits
+    else:
+        assert splits * blocks <= max(sms, blocks)
+    assert path != "tensor_core" or chunk <= wg.MAX_TC_CHUNK
+    print("wgrad %s %s on %d SMs: %d splits of %d tiles (%d tiles, %d blocks a split)"
+          % (path, shape, sms, splits, chunk, tiles, blocks))

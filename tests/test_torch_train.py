@@ -101,6 +101,8 @@ def _models(name, accum, ema, kind, flags=("--packed_trunk", "0")):
     pm.ema_decay, pm.optimizer_kind, pm.grad_accum = ema, kind, accum
     pm.prepare([SCALE], device="cpu", is_training=True)
     pm.load_state_dict(state_dict_from_jax_params(_to_numpy(jm.params), "edsr"))
+    if pm.ema is not None:  # JAX's average starts at its init weights: so does the port's
+        pm.ema.load([p.detach().clone() for p in pm.module.parameters()])
     return jm, pm
 
 
@@ -346,6 +348,75 @@ def test_saved_pth_restores_in_the_jax_package(tmp_path):
     got = _as_port(jm.params, list(_port_params(pm)))
     for k, v in _port_params(pm).items():
         np.testing.assert_array_equal(got[k], v)
+
+
+# the average after one step from a known start: f32 d e + (1 - d) p against
+# the same formula in float64
+EMA_ATOL = 1e-6
+
+
+@functools.lru_cache(maxsize=None)
+def _pth_only_restore(tmp_dir):
+    """Both sides train with --ema_decay 0.9 from their own init, restore a
+    `.pth` alone (saved by an untrained port model of another seed), and
+    take one step. {side: (init, after restore, restored, after the step,
+    params after the step)}, each {name: array} in the port's names."""
+    src = get_model("edsr")
+    src.parse_args(TINY)
+    src.prepare([SCALE], device="cpu", seed=7)
+    path = src.save(tmp_dir)
+    assert os.path.basename(path) == "model_0.pth"
+    assert not os.path.exists(os.path.splitext(path)[0] + ".state.pt")
+    restored = _port_params(src)
+    names = list(restored)
+    lr, hr = _batch(4)
+
+    jm = jax_get_model("edsr")
+    jm.parse_args(TINY + ["--packed_trunk", "0"])
+    jm.ema_decay = 0.9
+    jm.prepare(is_training=True, scales=[SCALE])
+    j_init = _as_port(jm.params, names)
+    jm.restore(path)
+    j_after = _as_port(find_ema(jm.opt_state), names)
+    j_restored = _as_port(jm.params, names)
+    jm.train_step(lr, SCALE, hr)
+    out = {"jax": (j_init, j_after, j_restored, _as_port(find_ema(jm.opt_state), names),
+                   _as_port(jm.params, names))}
+
+    pm = get_model("edsr")
+    pm.parse_args(TINY)
+    pm.ema_decay = 0.9
+    pm.prepare([SCALE], device="cpu", is_training=True)
+    p_init = {k: v.copy() for k, v in _port_params(pm).items()}
+    pm.restore(path)
+
+    def average():
+        return {k: a.numpy().copy() for k, a in zip(names, pm.ema.average)}
+
+    p_after, p_restored = average(), {k: v.copy() for k, v in _port_params(pm).items()}
+    pm.train_step(lr, SCALE, hr)
+    out["port"] = (p_init, p_after, p_restored, average(), _port_params(pm))
+    return out
+
+
+@pytest.mark.parametrize("check", ["jax_keeps_init", "port_keeps_init", "one_step"])
+def test_pth_only_restore_leaves_the_average_at_the_init(tmp_path_factory, check):
+    """A training restore of a `.pth` alone replaces the weights and leaves
+    the average where `prepare` made it: JAX's `_restore_pth` does, and the
+    port follows (ROADMAP fault 3). One step later each side's average is
+    0.9 init + 0.1 the new weights."""
+    runs = _pth_only_restore(str(tmp_path_factory.getbasetemp() / "pth_only"))
+    if check == "one_step":
+        for side, (init, _, _, stepped, params) in runs.items():
+            for k in init:
+                want = 0.9 * init[k].astype(np.float64) + 0.1 * params[k].astype(np.float64)
+                err = float(np.abs(stepped[k] - want).max())
+                assert err <= EMA_ATOL, (side, k, err)
+        return
+    init, after, restored, _, _ = runs["jax" if check == "jax_keeps_init" else "port"]
+    for k in init:
+        np.testing.assert_array_equal(after[k], init[k], err_msg=k)
+        assert np.abs(restored[k] - init[k]).max() > 0, k  # the restore changed the weights
 
 
 # ---- the CLI --------------------------------------------------------------------
