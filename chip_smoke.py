@@ -5,8 +5,8 @@
 
 It drives the port's main paths on the card, serving and validating
 EDSR-baseline x4 and the LarvaNet family (the flagship LarvaNet 2x16, and
-LarvaNet_w64 on the fused ResBlocks) and training EDSR-baseline x4, and
-fails (exit code != 0, no result line) if any phase fails:
+LarvaNet_w64 on the fused ResBlocks) and training EDSR-baseline x4 and the
+flagship, and fails (exit code != 0, no result line) if any phase fails:
 
  1. device: CUDA must be available; prints nvidia-smi's name and power limit.
  2. build: compiles every kernel of the path from larvanet_tpu_torch/csrc/
@@ -112,6 +112,24 @@ fails (exit code != 0, no result line) if any phase fails:
     kernel at the dgrad shapes no forward has (TRAIN_DGRAD), each against
     its plain version and timed in turns with it and cuDNN's gradient
     (conv2d_weight / conv2d_input, TF32 off).
+ 8b. train LarvaNet: the flagship LarvaNet 2x16 (1,414,656 parameters)
+    trained at the JAX train_larva CLI's defaults (batch 16 of 48x48 LR
+    patches, f32, AdamW at lr 4e-4) on phase 8's set: the multi-exit loss
+    and its gradients held against the plain versions as in phase 8; one
+    counted step (LARVA_TRAIN_LAUNCHES: 69 forward, 68 dgrad and 69 wgrad
+    launches); the step's median ms and device split. train_larva for
+    LARVA_TRAIN_STEPS steps with a --val_volume of LARVA_VAL_STEPS steps
+    and LARVA_VAL_FRAMES validation frames, the schedule set to halve the
+    lr at each validation after step 1's: validation at steps 1, 5 and 10,
+    model_step5_vol0G.pth and model_step10_vol0G.pth with their state
+    files; again with --restore_path latest from step 5, whose losses,
+    validation PSNR and lr, schedule, volume and weights must repeat the
+    first run's bit for bit. train_larvaV2 on LarvaNetV2 2x4 for V2_STEPS
+    steps, its launches counted over the run (the tail's 96 -> 48 merge's
+    wgrad and 48 -> 96 dgrad on the tensor cores). Then phase 8's kernel
+    half at LarvaNet's shapes (LARVA_TRAIN_WGRAD: wgrad 3 -> 48, 48 -> 48,
+    64 -> 48 and 96 -> 48 at 48x48; LARVA_TRAIN_DGRAD: the conv at 48 ->
+    96).
  9. prints the kernels JSON line, the nvidia-smi line, then the result line
     {"ok": true, "device": {...}}.
 
@@ -128,11 +146,13 @@ of its 35 tensor-core convs per dtype with their served launches (f32:
 the split-TF32 entry), the narrow path's final_conv times in both
 dtypes and geometries, and the sums over one LarvaNet 2x16 forward (its 67
 convs) per dtype with their served launches.
-The conv3x3 line's launches add phase 8's counted train step (its forward
-and dgrad launches, by path, and the dgrad shapes' times under
-"train_step"); the conv3x3_wgrad line gives that step's wgrad launches by
-path and its times summed over the step's 37 wgrads, with the CUDA-core
-entries' sum beside them.
+The conv3x3 line's launches add phase 8's and 8b's counted train steps and
+8b's train_larvaV2 run (their forward and dgrad launches, by path, and the
+dgrad shapes' times under "train_step" and "larvanet_train"); the
+conv3x3_wgrad line gives the same runs' wgrad launches by path, its times
+summed over phase 8's step's 37 wgrads, with the CUDA-core entries' sum
+beside them, and under "larvanet_train" the sums over one LarvaNet 2x16
+step's 69 wgrads and each 48-channel shape's numbers.
 """
 
 from __future__ import annotations
@@ -296,6 +316,45 @@ TRAIN_DGRAD = (
 TRAIN_LAUNCHES = {"forward": {"cuda_core": 1, "tensor_core": 35, "narrow": 1},
                   "dgrad": {"cuda_core": 1, "tensor_core": 35, "narrow": 0},
                   "wgrad": {"tensor_core": 35, "narrow": 1, "cuda_core": 1}}
+# phase 8b, training the flagship LarvaNet 2x16 at the JAX train_larva CLI's
+# defaults (batch 16 of 48x48 LR patches, f32, AdamW at lr 4e-4) on phase
+# 8's set. Launches of one step by path: 69 forward convs (the head's 3 -> 48
+# on the CUDA cores, the 64 trunk and 4 leg convs, all 48 -> 48, on the
+# tensor cores); 68 dgrads (none for the head); 69 wgrads (the 68 48 -> 48 on
+# the tensor cores, the head's on the CUDA cores)
+LARVA_TRAIN_LAUNCHES = {"forward": {"cuda_core": 1, "tensor_core": 68, "narrow": 0},
+                        "dgrad": {"cuda_core": 0, "tensor_core": 68, "narrow": 0},
+                        "wgrad": {"tensor_core": 68, "narrow": 0, "cuda_core": 1}}
+# train_larva: LARVA_TRAIN_STEPS steps, a --val_volume of LARVA_VAL_STEPS
+# steps, validation on LARVA_VAL_FRAMES frames of TRAIN_LR; --patience 0
+# --cooldown 0 and a threshold no validation of the run beats, so that each
+# validation after step 1's halves the lr and the resume has a schedule to
+# repeat
+LARVA_TRAIN_STEPS = 10
+LARVA_VAL_STEPS = 5
+LARVA_VAL_FRAMES = 2
+LARVA_SCHEDULE = ["--patience", "0", "--cooldown", "0", "--threshold", "100"]
+# train_larvaV2 on LarvaNetV2 2x4 for V2_STEPS steps, validated once (step
+# 1) on the same frames. A step: 24 forward convs (head, 16 trunk, 4 leg, the
+# tail's 96 -> 48 merge and its 2 recon convs), 23 dgrads (the merge's as 48
+# -> 96) and 24 wgrads (the merge's 96 -> 48 among the tensor-core ones); a
+# validation forward exits through the tail and runs no leg: 20 convs.
+V2_FLAGS = ["--num_modules", "2", "--num_blocks", "4,4"]
+V2_STEPS = 3
+V2_STEP_LAUNCHES = {"forward": {"cuda_core": 1, "tensor_core": 23, "narrow": 0},
+                    "dgrad": {"cuda_core": 0, "tensor_core": 23, "narrow": 0},
+                    "wgrad": {"tensor_core": 23, "narrow": 0, "cuda_core": 1}}
+V2_VAL_FORWARD = {"cuda_core": 1, "tensor_core": 19, "narrow": 0}
+# the weight-gradient shapes of LarvaNet's training at 48x48 LR, batch 16,
+# with their launches per flagship step, and the input-gradient shape no
+# forward has (V2's merge, 48 -> 96)
+LARVA_TRAIN_WGRAD = (
+    ("head", 1, 3, 48, 1),
+    ("trunk+legs 48->48", 1, 48, 48, 68),
+    ("w64 leg.recon_block.2", 1, 64, 48, 0),
+    ("V2 tail.merge_conv", 1, 96, 48, 0),
+)
+LARVA_TRAIN_DGRAD = (("V2 tail.merge_conv", 1, 48, 96),)
 # conv3x3 launches per forward by shape (C, F, act), and fused ResBlock
 # launches per forward, of each LarvaNet configuration and --wino_trunk
 # route that the LarvaNet phases drive. A 48-channel trunk takes the direct
@@ -1283,18 +1342,20 @@ def wgrad_bound_ms(n, h, w, c, f):
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def train_kernel_phase(torch):
-    """Phase 8's kernel half: the wgrad kernel at every (C, F, size) of a
-    train step (TRAIN_WGRAD), and the conv kernel at the dgrad shapes no
-    forward has (TRAIN_DGRAD), each held against its plain version on the
-    card and timed in turns with it and cuDNN's gradient
-    (torch.nn.grad.conv2d_weight / conv2d_input, TF32 off), beside its
-    bound. The wgrad kernel runs on its shape's path and, as the earlier
-    kernel of the same function, on its CUDA-core entries; both are held
-    to the plain version and timed in the same turns. Returns ({"ms",
-    "cuda_core_ms", "plain_ms", "library_ms", "bound_ms"} summed over one
-    train step's 37 wgrad launches, its bound's kind, the largest wgrad |d|
-    and |d| / max |dW| of either entry, {label: dgrad numbers})."""
+def train_kernel_phase(torch, wgrad_shapes=TRAIN_WGRAD, dgrad_shapes=TRAIN_DGRAD,
+                       label="EDSR-baseline x4"):
+    """Phase 8's kernel half (8b's with LarvaNet's shapes): the wgrad kernel
+    at every (C, F, size) of a train step (TRAIN_WGRAD), and the conv
+    kernel at the dgrad shapes no forward has (TRAIN_DGRAD), each held
+    against its plain version on the card and timed in turns with it and
+    cuDNN's gradient (torch.nn.grad.conv2d_weight / conv2d_input, TF32
+    off), beside its bound. The wgrad kernel runs on its shape's path and,
+    as the earlier kernel of the same function, on its CUDA-core entries;
+    both are held to the plain version and timed in the same turns. Returns
+    ({"ms", "cuda_core_ms", "plain_ms", "library_ms", "bound_ms"} summed
+    over one `label` train step's wgrad launches (the shapes' counts), its
+    bound's kind, the largest wgrad |d| and |d| / max |dW| of either entry,
+    {name: dgrad numbers}, {name: the wgrad shape's numbers})."""
     from larvanet_tpu_torch.ops import conv3x3_wgrad as wg
     from larvanet_tpu_torch.ops.conv3x3 import (conv3x3_bias_act,
                                                 conv3x3_bias_act_reference, dgrad_kernel,
@@ -1305,15 +1366,16 @@ def train_kernel_phase(torch):
     keys = ("ms", "cuda_core_ms", "plain_ms", "library_ms", "bound_ms")
     sums = dict.fromkeys(keys, 0.0)
     kinds = {}
+    shapes = {}
     worst_abs = worst_rel = 0.0
-    for name, mult, c, f, count in TRAIN_WGRAD:
+    for name, mult, c, f, count in wgrad_shapes:
         h = w = TRAIN_PATCH * mult
         x = torch.randn((n, h, w, c), generator=gen, device="cuda")
         g = torch.randn((n, h, w, f), generator=gen, device="cuda") / (n * h * w)
         path = wg.path_for(c, f)
         want_w, want_b = wg.conv3x3_wgrad_reference(x, g)
         errs = {}
-        for label, entry in (("kernel", path), ("cuda_core", "cuda_core")):
+        for which, entry in (("kernel", path), ("cuda_core", "cuda_core")):
             dw, db = wg.conv3x3_wgrad(x, g, path=entry)
             torch.cuda.synchronize()  # a fault during the run shows here
             err = max(float((dw - want_w).abs().max()), float((db - want_b).abs().max()))
@@ -1323,7 +1385,7 @@ def train_kernel_phase(torch):
             if rel > GRAD_RTOL or not bool(torch.isfinite(dw).all()):
                 raise AssertionError("wgrad %s: the %s entry disagrees with its plain version, "
                                      "max |d| / max |dW| = %g" % (name, entry, rel))
-            errs[label] = (err, rel)
+            errs[which] = (err, rel)
         x_nchw, g_nchw = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
         t = time_windows(torch, {
             "kernel": lambda: wg.conv3x3_wgrad(x, g),
@@ -1341,13 +1403,15 @@ def train_kernel_phase(torch):
         part = {"ms": t["kernel"][0], "cuda_core_ms": t["cuda_core"][0],
                 "plain_ms": t["plain"][0], "library_ms": t["conv2d_weight"][0],
                 "bound_ms": bound}
+        shapes[name] = dict(part, path=path, bound_by=by, max_abs_err=errs["kernel"][0],
+                            max_rel_err=errs["kernel"][1])
         for k in keys:
             sums[k] += count * part[k]
         kinds[by] = kinds.get(by, 0.0) + count * bound
         del x, g, dw, db, want_w, want_b
         torch.cuda.empty_cache()
     dgrad = {}
-    for name, mult, c, f in TRAIN_DGRAD:
+    for name, mult, c, f in dgrad_shapes:
         h = w = TRAIN_PATCH * mult
         g = torch.randn((n, h, w, c), generator=gen, device="cuda")
         # the forward's HWIO kernel, F -> C, at phase 3's output scale
@@ -1383,11 +1447,12 @@ def train_kernel_phase(torch):
                        "max_abs_err": err, "max_rel_err": rel}
         del g, k, k_fwd, got, want
         torch.cuda.empty_cache()
-    print("wgrad per train step (37 launches), f32: kernel %.4f ms, cuda_core entries %.4f ms, "
-          "plain %.4f ms, conv2d_weight %.4f ms, bound %.4f ms" % (
-              sums["ms"], sums["cuda_core_ms"], sums["plain_ms"], sums["library_ms"],
-              sums["bound_ms"]), flush=True)
-    return sums, max(kinds, key=kinds.get), worst_abs, worst_rel, dgrad
+    print("wgrad per %s train step (%d launches), f32: kernel %.4f ms, cuda_core entries "
+          "%.4f ms, plain %.4f ms, conv2d_weight %.4f ms, bound %.4f ms" % (
+              label, sum(shape[-1] for shape in wgrad_shapes), sums["ms"],
+              sums["cuda_core_ms"], sums["plain_ms"], sums["library_ms"], sums["bound_ms"]),
+          flush=True)
+    return sums, max(kinds, key=kinds.get), worst_abs, worst_rel, dgrad, shapes
 
 
 def write_train_set(root, rng, n_frames, lr_size):
@@ -1405,6 +1470,121 @@ def write_train_set(root, rng, n_frames, lr_size):
         io.save_image_chw(lr, os.path.join(root, "LR", "X4", "%04dx4.png" % i))
 
 
+def check_train_grads(torch, model, x, t, label, batch, patch, same_forward=False):
+    """One batch's loss and gradients through the kernels against the same
+    autograd Function with the plain versions inside, from the same weights
+    and batch: the loss within LOSS_RTOL, every parameter's gradient within
+    GRAD_RTOL of its tensor's largest |g|. With `same_forward` (phase 8b)
+    the gradients are held against the plain dgrad and wgrad run on the
+    kernels' forward: the forward's rounding (split TF32) puts a few ReLU
+    pre-activations of the trunk on the other side of 0, and each such flip
+    moves a weight gradient that cancels over the batch by more than
+    GRAD_RTOL of its largest value. The all-plain step's gradients are then
+    printed beside, with the flips counted (the plain conv on the same
+    input), and its loss is held at LOSS_RTOL."""
+    import numpy as np
+
+    from larvanet_tpu_torch.ops import conv3x3
+    from larvanet_tpu_torch.ops import conv3x3_wgrad as wg
+
+    kernel_conv, plain_wgrad = conv3x3.conv3x3_bias_act, wg.conv3x3_wgrad_reference
+
+    def plain_conv(x, kernel, bias, act=None, dgrad=False):
+        return conv3x3.conv3x3_bias_act_reference(x, kernel, bias, act)
+
+    def plain_dgrad(x, kernel, bias, act=None, dgrad=False):
+        return (plain_conv if dgrad else kernel_conv)(x, kernel, bias, act)
+
+    def loss_and_grads(conv=kernel_conv, wgrad=wg.conv3x3_wgrad):
+        with mock.patch.object(conv3x3, "conv3x3_bias_act", conv), \
+                mock.patch.object(wg, "conv3x3_wgrad", wgrad):
+            loss = float(model._loss_and_grads(x, t))
+        grads = {k: p.grad.clone() for k, p in model.module.named_parameters()}
+        model.optimizer.zero_grad(set_to_none=True)
+        return loss, grads
+
+    def worst(got, want):
+        return max((float((got[k] - want[k]).abs().max() / want[k].abs().max()), k)
+                   for k in want)
+
+    loss_k, grads_k = loss_and_grads()
+    loss_p, grads_p = loss_and_grads(plain_conv, plain_wgrad)
+    held, against = grads_p, "the plain versions'"
+    if same_forward:
+        held, against = loss_and_grads(plain_dgrad, plain_wgrad)[1], \
+            "the plain dgrad and wgrad on the kernels' forward"
+        flips = [0, 0]
+
+        def counting(x, kernel, bias, act=None, dgrad=False):
+            out = kernel_conv(x, kernel, bias, act, dgrad=dgrad)
+            if act == "relu":
+                ref = plain_conv(x, kernel, bias, act)
+                flips[0] += int(((out > 0) != (ref > 0)).sum())
+                flips[1] += out.numel()
+            return out
+
+        # with gradients on, as in the step: the Function's forward calls the
+        # conv through its module, where the counting wrapper sits
+        with mock.patch.object(conv3x3, "conv3x3_bias_act", counting):
+            model._compute_loss(x, t)
+        print("train: %s, all-plain step against the kernels': worst gradient %s, max |d| / "
+              "max |g| %.3g (not held); ReLU outputs on the other side of 0 than the plain "
+              "conv's on the same input: %d of %d" % (label, *worst(grads_k, grads_p)[::-1],
+                                                      *flips), flush=True)
+    err, name = worst(grads_k, held)
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    print("train: %s, %d x %dx%d LR patches: loss through the kernels %.6f, plain %.6f "
+          "(rel %.3g, bar %g); gradients against %s: worst %s, max |d| / max |g| %.3g "
+          "(bar %g)" % (label, batch, patch, patch, loss_k, loss_p, loss_rel, LOSS_RTOL,
+                        against, name, err, GRAD_RTOL), flush=True)
+    if loss_rel > LOSS_RTOL or err > GRAD_RTOL or not np.isfinite(loss_k):
+        raise AssertionError("the %s train step's loss or gradients through the kernels "
+                             "disagree with %s" % (label, against))
+
+
+def counted_step(torch, fn):
+    """The kernels' launches by path in one call of `fn`, the counters zeroed
+    just before it: {"forward": conv3x3, "dgrad": conv3x3 input gradients,
+    "wgrad": the weight-gradient kernel}."""
+    from larvanet_tpu_torch.ops import conv3x3
+    from larvanet_tpu_torch.ops import conv3x3_wgrad as wg
+
+    conv3x3.reset_launches()
+    wg.reset_launches()
+    fn()
+    torch.cuda.synchronize()
+    dgrad = dict(conv3x3.DGRAD_LAUNCHES_BY_PATH)
+    launches = {"forward": {p: conv3x3.LAUNCHES_BY_PATH[p] - dgrad[p] for p in dgrad},
+                "dgrad": dgrad, "wgrad": dict(wg.LAUNCHES_BY_PATH)}
+    print("launches: conv3x3 forward %s, dgrad %s; wgrad %s"
+          % (launches["forward"], launches["dgrad"], launches["wgrad"]), flush=True)
+    return launches
+
+
+def time_train_step(torch, model, x, t, step, label, batch, patch):
+    """The median ms of `step` (CUDA events) and where the card's time goes
+    in it: forward convs (a loss with gradients on, the Function's forwards),
+    dgrad convs, wgrad, optimizer and other kernels, idle. Returns the
+    time_windows entry."""
+    tm = time_windows(torch, {"train_step": step})["train_step"]
+    print("train: %s, batch %d x %dx%d, f32: %s per train step, %.3f LR-MP/s trained"
+          % (label, batch, patch, patch, spread(tm), batch * patch * patch / 1e3 / tm[0]),
+          flush=True)
+    _, fwd = device_breakdown(torch, lambda: model._compute_loss(x, t),
+                              kinds=("wgrad", "conv3x3"))
+    _, parts = device_breakdown(torch, step, kinds=("wgrad", "conv3x3"))
+    if parts is None or fwd is None:
+        print("train step device breakdown not measured (the profiler recorded no kernel)")
+        return tm
+    split = {"forward convs": fwd["conv3x3"], "dgrad convs": parts["conv3x3"] - fwd["conv3x3"],
+             "wgrad": parts["wgrad"], "optimizer and other kernels": parts["other"]}
+    split["idle"] = max(tm[0] - sum(split.values()), 0.0)
+    print("train step device split (%s): %s" % (label, ", ".join(
+        "%s %.4f ms (%.1f%%)" % (k, v, 100.0 * v / tm[0]) for k, v in split.items())),
+        flush=True)
+    return tm
+
+
 def train_phase(torch):
     """Phase 8. EDSR-baseline x4 trained at full width through the kernels.
     Returns the counted train step's launches: {"forward": conv3x3 by path,
@@ -1416,8 +1596,6 @@ def train_phase(torch):
     from larvanet_tpu_torch.cli import train, validate
     from larvanet_tpu_torch.core.registry import get_loader, get_model
     from larvanet_tpu_torch.data import io
-    from larvanet_tpu_torch.ops import conv3x3
-    from larvanet_tpu_torch.ops import conv3x3_wgrad as wg
 
     device, batch, patch, steps = "cuda", TRAIN_BATCH, TRAIN_PATCH, TRAIN_STEPS
     with tempfile.TemporaryDirectory() as tmp:
@@ -1438,66 +1616,12 @@ def train_phase(torch):
         x = torch.from_numpy(np.stack(lr_list).transpose(0, 2, 3, 1).copy()).to(device)
         t = torch.from_numpy(np.stack(hr_list).transpose(0, 2, 3, 1).copy()).to(device)
 
-        # gradients through the kernels against the same Function with the
-        # plain versions inside, from the same weights and batch
-        loss_k = float(model._loss_and_grads(x, t))
-        grads_k = {k: p.grad.clone() for k, p in model.module.named_parameters()}
-        model.optimizer.zero_grad(set_to_none=True)
-
-        def plain_conv(x, kernel, bias, act=None, dgrad=False):
-            return conv3x3.conv3x3_bias_act_reference(x, kernel, bias, act)
-
-        with mock.patch.object(conv3x3, "conv3x3_bias_act", plain_conv), \
-                mock.patch.object(wg, "conv3x3_wgrad", wg.conv3x3_wgrad_reference):
-            loss_p = float(model._loss_and_grads(x, t))
-        worst = (-1.0, "")
-        for k, p in model.module.named_parameters():
-            rel = float((grads_k[k] - p.grad).abs().max() / p.grad.abs().max())
-            worst = max(worst, (rel, k))
-        model.optimizer.zero_grad(set_to_none=True)
-        loss_rel = abs(loss_k - loss_p) / abs(loss_p)
-        print("train: EDSR-baseline x4, %d x %dx%d LR patches: loss through the kernels "
-              "%.6f, plain %.6f (rel %.3g, bar %g); worst gradient %s, max |d| / max |g| "
-              "%.3g (bar %g)" % (batch, patch, patch, loss_k, loss_p, loss_rel, LOSS_RTOL,
-                                 worst[1], worst[0], GRAD_RTOL), flush=True)
-        if loss_rel > LOSS_RTOL or worst[0] > GRAD_RTOL or not np.isfinite(loss_k):
-            raise AssertionError("the train step's loss or gradients through the kernels "
-                                 "disagree with the plain versions'")
-        del grads_k
-
-        # one train step, counted
-        conv3x3.reset_launches()
-        wg.reset_launches()
-        model.train_step(lr_list, 4, hr_list)
-        torch.cuda.synchronize()
-        dgrad = dict(conv3x3.DGRAD_LAUNCHES_BY_PATH)
-        launches = {"forward": {p: conv3x3.LAUNCHES_BY_PATH[p] - dgrad[p] for p in dgrad},
-                    "dgrad": dgrad, "wgrad": dict(wg.LAUNCHES_BY_PATH)}
-        print("train step launches: conv3x3 forward %s, dgrad %s; wgrad %s"
-              % (launches["forward"], launches["dgrad"], launches["wgrad"]), flush=True)
+        check_train_grads(torch, model, x, t, "EDSR-baseline x4", batch, patch)
+        launches = counted_step(torch, lambda: model.train_step(lr_list, 4, hr_list))
         if launches != TRAIN_LAUNCHES:
             raise AssertionError("train step launches %s, not %s" % (launches, TRAIN_LAUNCHES))
-
-        # the step's time and where the card's time goes in it
-        step = lambda: model.train_step(lr_list, 4, hr_list)  # noqa: E731
-        tm = time_windows(torch, {"train_step": step})["train_step"]
-        print("train: EDSR-baseline x4, batch %d x %dx%d, f32: %s per train step, %.3f "
-              "LR-MP/s trained" % (batch, patch, patch, spread(tm),
-                                   batch * patch * patch / 1e3 / tm[0]), flush=True)
-        _, fwd = device_breakdown(torch, lambda: model._compute_loss(x, t),
-                                  kinds=("wgrad", "conv3x3"))
-        _, parts = device_breakdown(torch, step, kinds=("wgrad", "conv3x3"))
-        if parts is None or fwd is None:
-            print("train step device breakdown not measured (the profiler recorded "
-                  "no kernel)")
-        else:
-            split = {"forward convs": fwd["conv3x3"],
-                     "dgrad convs": parts["conv3x3"] - fwd["conv3x3"],
-                     "wgrad": parts["wgrad"], "optimizer and other kernels": parts["other"]}
-            split["idle"] = max(tm[0] - sum(split.values()), 0.0)
-            print("train step device split: %s" % ", ".join(
-                "%s %.4f ms (%.1f%%)" % (k, v, 100.0 * v / tm[0]) for k, v in split.items()),
-                flush=True)
+        time_train_step(torch, model, x, t, lambda: model.train_step(lr_list, 4, hr_list),
+                        "EDSR-baseline x4", batch, patch)
         del model, x, t
         torch.cuda.empty_cache()
 
@@ -1550,6 +1674,131 @@ def train_phase(torch):
         print("train: validate on model_%d.pth gives the trained forward's frames, bit for "
               "bit" % steps, flush=True)
         del trained
+    return launches
+
+
+def larva_train_phase(torch, device="cuda"):
+    """Phase 8b. The flagship LarvaNet 2x16 trained at full width through the
+    kernels: one step's gradients against the plain versions, a counted and
+    a timed step, train_larva for LARVA_TRAIN_STEPS steps and a resume from
+    its middle checkpoint, and train_larvaV2 on LarvaNetV2 2x4. Returns
+    {"step": the counted flagship step's launches, "v2": the V2 run's}, each
+    {"forward": conv3x3 by path, "dgrad": conv3x3 by path, "wgrad": by path}."""
+    import shutil
+
+    import numpy as np
+
+    from larvanet_tpu_torch.cli import train_larva, train_larvaV2
+    from larvanet_tpu_torch.core.registry import get_loader, get_model
+    from larvanet_tpu_torch.models import larvanet
+
+    batch, patch, label = TRAIN_BATCH, TRAIN_PATCH, "LarvaNet 2x16"
+    with tempfile.TemporaryDirectory() as tmp:
+        write_train_set(tmp, np.random.default_rng(SEED + 8), TRAIN_FRAMES, TRAIN_LR)
+        data_flags = ["--data_input_path", os.path.join(tmp, "LR"),
+                      "--data_truth_path", os.path.join(tmp, "HR"), "--data_cached",
+                      "--data_seed", str(SEED)]
+        loader = get_loader("div2k_train_loader")
+        loader.parse_args(data_flags)
+        loader.prepare([4])
+        loader.reseed_for_step(0)
+        lr_nhwc, hr_nhwc = loader.get_patch_batch_nhwc(batch, 4, patch)
+        model = get_model("LarvaNet")
+        model.parse_args(list(LARVANET_FLAGS))
+        model.prepare([4], device=device, seed=SEED, is_training=True)
+        if model.num_parameters() != LARVANET_PARAMS["LarvaNet"]:
+            raise AssertionError("%s has %d parameters" % (label, model.num_parameters()))
+        x, t = torch.from_numpy(lr_nhwc).to(device), torch.from_numpy(hr_nhwc).to(device)
+
+        check_train_grads(torch, model, x, t, label, batch, patch, same_forward=True)
+        step = lambda: model.train_step(lr_nhwc, 4, hr_nhwc)  # noqa: E731
+        launches = {"step": counted_step(torch, step)}
+        if launches["step"] != LARVA_TRAIN_LAUNCHES:
+            raise AssertionError("%s train step launches %s, not %s"
+                                 % (label, launches["step"], LARVA_TRAIN_LAUNCHES))
+        time_train_step(torch, model, x, t, step, label, batch, patch)
+        del model, x, t
+        torch.cuda.empty_cache()
+
+        # validation frames, and train_larva with a checkpoint every
+        # LARVA_VAL_STEPS steps; each validation's step, PSNR and lr recorded
+        val = os.path.join(tmp, "val")
+        for i in range(LARVA_VAL_FRAMES):
+            for sub, name in (("HR", "%04d.png" % i), (os.path.join("LR", "X4"),
+                                                     "%04dx4.png" % i)):
+                os.makedirs(os.path.join(val, sub), exist_ok=True)
+                shutil.copy(os.path.join(tmp, sub, name), os.path.join(val, sub, name))
+        volume = patch * patch * batch * 3
+        cli = ["--dataloader", "div2k_train_loader", "--device", device,
+               "--val_data_input_path", os.path.join(val, "LR"),
+               "--val_data_truth_path", os.path.join(val, "HR"), "--batch_size", str(batch),
+               "--input_patch_size", str(patch), "--log_freq", str(LARVA_VAL_STEPS)] + data_flags
+        larva_cli = cli + LARVANET_FLAGS + LARVA_SCHEDULE + [
+            "--max_steps", str(LARVA_TRAIN_STEPS), "--val_volume", str(LARVA_VAL_STEPS * volume)]
+        seen = []
+        validate_for_train = larvanet.LarvaNetBase.validate_for_train
+
+        def recording(model, args, loader):
+            psnr = validate_for_train(model, args, loader)
+            seen.append((model.global_step, psnr, model.get_learning_rate()))
+            return psnr
+
+        run, again = os.path.join(tmp, "run"), os.path.join(tmp, "again")
+        with mock.patch.object(larvanet.LarvaNetBase, "validate_for_train", recording):
+            t0 = time.perf_counter()
+            trained, losses = train_larva.main(larva_cli + ["--train_path", run])
+            straight, seen[:] = list(seen), []
+            print("train_larva: %s, %d steps in %.3f s; loss at step 1 %.6f, at step %d %.6f; "
+                  "validations (step, PSNR, lr after) %s" % (
+                      label, LARVA_TRAIN_STEPS, time.perf_counter() - t0, losses[1],
+                      LARVA_TRAIN_STEPS, losses[LARVA_TRAIN_STEPS], straight), flush=True)
+            want = [1, LARVA_VAL_STEPS, LARVA_TRAIN_STEPS]
+            if [s for s, _, _ in straight] != want:
+                raise AssertionError("train_larva validated at steps %s, not %s"
+                                     % ([s for s, _, _ in straight], want))
+            stems = ["model_step%d_vol0G" % s for s in want[1:]]
+            files = sorted(os.listdir(run))
+            if not all(s + ext in files for s in stems for ext in (".pth", ".state.pt")):
+                raise AssertionError("train_larva wrote %s" % files)
+            if not all(np.isfinite(v) for v in losses.values()) or not all(
+                    np.isfinite(p) for _, p, _ in straight):
+                raise AssertionError("train_larva's losses or PSNRs are not finite")
+            # the resume from the middle checkpoint repeats the rest bit for bit
+            os.makedirs(again)
+            for ext in (".pth", ".state.pt"):
+                shutil.copy(os.path.join(run, stems[0] + ext), again)
+            resumed_model, resumed = train_larva.main(
+                larva_cli + ["--train_path", again, "--restore_path", "latest"])
+        rest = list(range(LARVA_VAL_STEPS + 1, LARVA_TRAIN_STEPS + 1))
+        same = (sorted(resumed) == rest and all(resumed[s] == losses[s] for s in rest)
+                and seen == straight[-1:]
+                and resumed_model.scheduler.state_dict() == trained.scheduler.state_dict()
+                and resumed_model.total_volume == trained.total_volume
+                and all(torch.equal(a, b) for a, b in zip(trained.module.parameters(),
+                                                          resumed_model.module.parameters())))
+        print("train_larva resumed at step %d: losses, lr %s, the schedule, the volume and "
+              "the weights %s the first run's" % (
+                  LARVA_VAL_STEPS, [lr for _, _, lr in seen],
+                  "repeat" if same else "DO NOT repeat"), flush=True)
+        if not same:
+            raise AssertionError("the resumed run differs: losses %s against %s, validations "
+                                 "%s against %s" % (resumed, losses, seen, straight))
+        del trained, resumed_model
+        torch.cuda.empty_cache()
+
+        # train_larvaV2: LarvaNetV2 2x4, validated at step 1 only
+        v2_cli = cli + V2_FLAGS + ["--max_steps", str(V2_STEPS),
+                                   "--train_path", os.path.join(tmp, "v2")]
+        launches["v2"] = counted_step(torch, lambda: train_larvaV2.main(v2_cli))
+        n_val = LARVA_VAL_FRAMES
+        want = {k: {p: V2_STEPS * n for p, n in by.items()}
+                for k, by in V2_STEP_LAUNCHES.items()}
+        for p, n in V2_VAL_FORWARD.items():
+            want["forward"][p] += n_val * n
+        if launches["v2"] != want:
+            raise AssertionError("train_larvaV2 launches %s, not %s" % (launches["v2"], want))
+        print("train_larvaV2: LarvaNetV2 %s, %d steps and %d validation forwards: launches "
+              "as expected" % (" ".join(V2_FLAGS), V2_STEPS, n_val), flush=True)
     return launches
 
 
@@ -1623,17 +1872,25 @@ def main() -> int:
     runtime_phase(torch, model_name="LarvaNet")
     torch.cuda.empty_cache()
     train_launches = train_phase(torch)
-    wgrad_sums, wgrad_by, wgrad_err, wgrad_rel, dgrad_times = train_kernel_phase(torch)
+    wgrad_sums, wgrad_by, wgrad_err, wgrad_rel, dgrad_times, _ = train_kernel_phase(torch)
+    torch.cuda.empty_cache()
+    larva_train = larva_train_phase(torch)
+    (larva_wgrad_sums, larva_wgrad_by, larva_wgrad_err, larva_wgrad_rel, larva_dgrad,
+     larva_wgrad_shapes) = train_kernel_phase(torch, LARVA_TRAIN_WGRAD, LARVA_TRAIN_DGRAD,
+                                              "LarvaNet 2x16")
+    wgrad_err, wgrad_rel = max(wgrad_err, larva_wgrad_err), max(wgrad_rel, larva_wgrad_rel)
+    # the counted train steps' launches, and the V2 run's
+    trained = [train_launches, larva_train["step"], larva_train["v2"]]
 
     kernels = [{
         "name": "conv3x3_bias_act",
         "route": "cuda",
         "source": "larvanet_tpu_torch/csrc/conv3x3_bias_act.cu",
         "replaces": "larvanet_tpu/ops/pallas_conv.py:61",
-        "launches": launches + sum(train_launches["forward"].values())
-        + sum(train_launches["dgrad"].values()),
-        "launches_by_path": {p: by_path[p] + train_launches["forward"][p]
-                             + train_launches["dgrad"][p] for p in by_path},
+        "launches": launches + sum(sum(run[k].values()) for run in trained
+                                   for k in ("forward", "dgrad")),
+        "launches_by_path": {p: by_path[p] + sum(run["forward"][p] + run["dgrad"][p]
+                                                 for run in trained) for p in by_path},
         "max_abs_err": worst["f32"],
         "ms": sums["f32"]["ms"],
         "plain_ms": sums["f32"]["plain_ms"],
@@ -1655,13 +1912,20 @@ def main() -> int:
         # the dgrad shapes no forward has
         "train_step": {"forward_by_path": train_launches["forward"],
                        "dgrad_by_path": train_launches["dgrad"], "dgrad": dgrad_times},
+        # one LarvaNet 2x16 train step's forward and dgrad launches, the
+        # train_larvaV2 run's, and V2's 48 -> 96 dgrad
+        "larvanet_train": {"forward_by_path": larva_train["step"]["forward"],
+                           "dgrad_by_path": larva_train["step"]["dgrad"],
+                           "v2_run": {k: larva_train["v2"][k] for k in ("forward", "dgrad")},
+                           "dgrad": larva_dgrad},
     }, {
         "name": "conv3x3_wgrad",
         "route": "cuda",
         "source": "larvanet_tpu_torch/csrc/conv3x3_wgrad.cu",
         "replaces": "larvanet_tpu/models/layers.py:81 (XLA's weight gradient of conv3x3)",
-        "launches": sum(train_launches["wgrad"].values()),
-        "launches_by_path": train_launches["wgrad"],
+        "launches": sum(sum(run["wgrad"].values()) for run in trained),
+        "launches_by_path": {p: sum(run["wgrad"][p] for run in trained)
+                             for p in train_launches["wgrad"]},
         "max_abs_err": wgrad_err,
         "max_rel_err": wgrad_rel,
         "ms": wgrad_sums["ms"],
@@ -1670,6 +1934,11 @@ def main() -> int:
         "bound_by": wgrad_by,
         "library_ms": wgrad_sums["library_ms"],
         "cuda_core_ms": wgrad_sums["cuda_core_ms"],
+        # the sums over one LarvaNet 2x16 train step's 69 wgrads, its
+        # launches by path, the train_larvaV2 run's, and each 48-channel shape
+        "larvanet_train": dict(larva_wgrad_sums, bound_by=larva_wgrad_by,
+                               launches_by_path=larva_train["step"]["wgrad"],
+                               v2_run=larva_train["v2"]["wgrad"], shapes=larva_wgrad_shapes),
     }]
     for m, line in ((2, 205), (4, 336)):
         wsums, werr = wino[m]

@@ -14,8 +14,11 @@ with --sleep_ratio, --log_freq, --summary_freq (scalars.jsonl per scale
 directory, its writer made when the first summary is due) and --save_freq
 (`model_<step>.pth` and its state file). It runs on the card unless
 --device cpu is given; every 3x3 conv of the forward and the backward runs
-on the hand-written kernels there. Only EDSR trains (--model edsr or
-edsr_loss); the LarvaNet family is refused.
+on the hand-written kernels there. Every registered model trains: EDSR
+(edsr, edsr_loss) with Adam and its step decay; the LarvaNet presets as
+the JAX package's step-driven CLI trains them, AdamW on the multi-exit
+loss at the plateau schedule's learning rate, which nothing validates
+here, so it stays at --lr (their volume-driven loop is cli/train_larva.py).
 
 Not ported yet, refused with a pointer to ROADMAP.md: --async_checkpoint,
 --orbax_checkpoint, --device_pipeline, --dp_devices, --widen_from,
@@ -36,8 +39,6 @@ from larvanet_tpu_torch.core.config import dump_arguments_json
 from larvanet_tpu_torch.utils.checkpoints import resolve_restore_path
 from larvanet_tpu_torch.utils.summary import SummaryWriter
 
-# the models whose training is ported; the LarvaNet family's comes later
-TRAINED_MODELS = ("edsr", "edsr_loss")
 REFUSED = ("async_checkpoint", "orbax_checkpoint", "device_pipeline", "dp_devices",
            "widen_from", "profile_dir")
 # the model's flags of training graphs the port does not have, and the
@@ -82,25 +83,23 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
-def refuse_model_flags(model_args) -> None:
+def refuse_model_flags(model_args, tool: str = "train") -> None:
     for flag, value in REFUSED_MODEL:
         if getattr(model_args, flag, None) == value:
             raise SystemExit("--%s %s is not ported to larvanet_tpu_torch yet (see "
-                             "ROADMAP.md); run train without it" % (flag, value))
+                             "ROADMAP.md); run %s without it" % (flag, value, tool))
     given = ["--" + flag for flag in IGNORED_MODEL
              if getattr(model_args, flag, None) is not None]
     if given:
-        print("train: %s reparametrise(s) the JAX package's training graph; the port "
-              "trains the module graph (the same gradients): ignored" % ", ".join(given))
+        print("%s: %s reparametrise(s) the JAX package's training graph; the port "
+              "trains the module graph (the same gradients): ignored"
+              % (tool, ", ".join(given)))
 
 
 def main(argv=None):
     """Train; returns (the model in its final state, {global_step: loss})."""
     args, remaining = build_parser().parse_known_args(argv)
     common.refuse_unported(args, REFUSED, (), "train")
-    if args.model not in TRAINED_MODELS:
-        raise SystemExit("training --model %s is not ported to larvanet_tpu_torch yet (see "
-                         "ROADMAP.md); train takes %s" % (args.model, ", ".join(TRAINED_MODELS)))
     if args.fused_opt is not None:
         print("train: --fused_opt is numerically identical per element; ignored")
     device = common.resolve_device(args)

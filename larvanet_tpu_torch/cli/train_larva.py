@@ -1,0 +1,180 @@
+"""Volume-driven multi-exit training CLI (larvanet_tpu/cli/train_larva.py;
+reference train_larva.py):
+
+    python -m larvanet_tpu_torch.cli.train_larva --train_path runs/larva \\
+        [--dataloader combined_loader] [--data_input_path LR --data_truth_path HR] \\
+        [--val_data_input_path VLR --val_data_truth_path VHR] \\
+        [--model LarvaNet --num_modules 2 --num_blocks 16,16] [--val_volume 30e9] \\
+        [--batch_size 16 --input_patch_size 48] [--max_steps N] \\
+        [--restore_path latest] [--ema_decay 0.999] [--grad_accum 2] [--device cpu]
+
+A train loader (default combined_loader, threaded) and a val loader
+(default div2k_val_loader, on --val_data_input_path / --val_data_truth_path),
+then the host loop of train_larva.py:141-175: a batch from the queue
+runners, or on an unthreaded loader `reseed_for_step` (with --data_seed, a
+resumed run draws the batches an uninterrupted one would) and
+`get_patch_batch_nhwc`; then the model's `train_step_larva`, which adds
+volume_per_step = patch^2 * batch * 3 bytes a step and every --val_volume
+bytes validates, steps the plateau schedule, saves
+`model_step<N>_vol<G>G.pth` with its state file, and writes the loss and
+lr to `<train_path>/x<scale>/scalars.jsonl` when the step is also a
+--summary_freq step (the writer is made when the first summary is due).
+--max_steps 0 runs until interrupted; the queue runners are stopped
+whatever ends the loop. It runs on the card unless --device cpu is given,
+every 3x3 conv of the forward and the backward on the hand-written
+kernels there, and never falls back to the CPU. `main` returns (the
+model in its final state, {global_step: loss}).
+
+Not ported yet, refused with a pointer to ROADMAP.md: --device_pipeline,
+--async_checkpoint, --orbax_checkpoint, --dp_devices, --widen_from,
+--profile_dir, and the model's --qat 1 and --remat 1. Accepted and
+ignored: the model's --packed_trunk and --lr_domain_loss (exact
+reparametrisations of the module graph the port trains) and --fused_opt
+(numerically identical per element).
+"""
+
+from __future__ import annotations
+
+import argparse
+import math
+import os
+import time
+
+from larvanet_tpu_torch.cli import common
+from larvanet_tpu_torch.cli.train import refuse_model_flags
+from larvanet_tpu_torch.core.config import dump_arguments_json
+from larvanet_tpu_torch.utils.checkpoints import resolve_restore_path
+from larvanet_tpu_torch.utils.summary import SummaryWriter
+
+REFUSED = ("async_checkpoint", "orbax_checkpoint", "device_pipeline", "dp_devices",
+           "widen_from", "profile_dir")
+
+
+def round_to_1(x):
+    """x to one significant figure (the reference's log line)."""
+    if x <= 0:
+        return x
+    return round(x, -int(math.floor(math.log10(abs(x)))))
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser()
+    common.add_common_flags(parser, default_loader="combined_loader",
+                            default_model="LarvaNet")
+    parser.add_argument("--val_dataloader", type=str, default="div2k_val_loader",
+                        help="Name of the validation data loader.")
+    parser.add_argument("--val_data_input_path", type=str,
+                        default="data/DIV2K_valid_LR_bicubic",
+                        help="Base path of the validation input images.")
+    parser.add_argument("--val_data_truth_path", type=str, default="data/DIV2K_valid_HR",
+                        help="Base path of the validation ground-truth images.")
+    parser.add_argument("--batch_size", type=int, default=16,
+                        help="Size of the batches for each training step.")
+    parser.add_argument("--input_patch_size", type=int, default=48,
+                        help="Size of each input image patch.")
+    parser.add_argument("--train_path", type=str, required=True,
+                        help="Base path of the trained model to be saved.")
+    parser.add_argument("--grad_accum", type=int, default=1,
+                        help="Accumulate gradients over N equal microbatches; "
+                             "batch_size must be divisible by N.")
+    parser.add_argument("--max_steps", type=int, default=0,
+                        help="Stop after this many steps (0 = run until interrupted).")
+    parser.add_argument("--log_freq", type=int, default=10,
+                        help="The frequency of logging.")
+    parser.add_argument("--summary_freq", type=int, default=1000,
+                        help="The frequency of writing summaries.")
+    parser.add_argument("--restore_path", type=str,
+                        help="Checkpoint (.pth) to restore; 'latest' resumes from the "
+                             "newest model_*.pth in --train_path.")
+    parser.add_argument("--restore_target", type=str,
+                        help="Target of the restoration (accepted, as in the JAX CLI).")
+    parser.add_argument("--global_step", type=int, default=0,
+                        help="Initial global step (a state file's step replaces it).")
+    common.add_ema_decay_flag(parser)
+    common.add_fused_opt_flag(parser)
+    common.add_refused_flags(parser, REFUSED, ())
+    return parser
+
+
+def main(argv=None):
+    """Train; returns (the model in its final state, {global_step: loss})."""
+    args, remaining = build_parser().parse_known_args(argv)
+    common.refuse_unported(args, REFUSED, (), "train_larva")
+    if args.fused_opt is not None:
+        print("train_larva: --fused_opt is numerically identical per element; ignored")
+    device = common.resolve_device(args)
+    scale_list = common.scales_of(args)
+    os.makedirs(args.train_path, exist_ok=True)
+
+    dataloader, loader_args, remaining = common.setup_loader(args.dataloader, remaining,
+                                                             scale_list)
+    print("prepare validation data loader - %s" % (args.val_dataloader,))
+    val_loader, _, _ = common.setup_loader(
+        args.val_dataloader, ["--data_input_path", args.val_data_input_path,
+                              "--data_truth_path", args.val_data_truth_path], scale_list)
+    model, model_args, remaining = common.setup_model(
+        args.model, remaining, scale_list, device, is_training=True,
+        global_step=args.global_step, ema_decay=args.ema_decay)
+    if not hasattr(model, "train_step_larva"):
+        raise SystemExit("train_larva trains the LarvaNet family; --model %s trains with "
+                         "larvanet_tpu_torch.cli.train" % (args.model,))
+    refuse_model_flags(model_args, "train_larva")
+    model.grad_accum = args.grad_accum
+    common.warn_leftovers(remaining)
+    model.volume_per_step = args.input_patch_size ** 2 * args.batch_size * 3
+
+    restore_path = resolve_restore_path(args.restore_path, args.train_path)
+    if restore_path is not None:
+        model.restore(restore_path)
+        print("restored the model")
+
+    dump_arguments_json(os.path.join(args.train_path, "arguments.json"), args, loader_args,
+                        model_args)
+
+    scale = scale_list[0]
+    threaded = dataloader.is_threaded
+    summary = None  # made when the first summary is due
+    losses = {}
+    local_step = 0
+    print("begin training")
+    if threaded:
+        dataloader.start_training_queue_runner(batch_size=args.batch_size,
+                                               input_patch_size=args.input_patch_size)
+    try:
+        while True:
+            local_step += 1
+            t0 = time.perf_counter()
+            if threaded:
+                inputs, truths = dataloader.get_queue_data(scale)
+            else:
+                dataloader.reseed_for_step(model.global_step)  # the resumable stream
+                inputs, truths = dataloader.get_patch_batch_nhwc(args.batch_size, scale,
+                                                                 args.input_patch_size)
+            t1 = time.perf_counter()
+            step_summary = None
+            if local_step % args.summary_freq == 0:
+                if summary is None:
+                    summary = SummaryWriter(os.path.join(args.train_path, "x%d" % scale))
+                step_summary = summary
+            loss = model.train_step_larva(args, val_loader, inputs, truths, step_summary)
+            losses[model.global_step] = loss
+            t2 = time.perf_counter()
+            if local_step % args.log_freq == 0:
+                print("step %d, loss %.6f, lr %.8f (data %ss, train %ss)"
+                      % (model.global_step, loss, model.get_learning_rate(),
+                         round_to_1(t1 - t0), round_to_1(t2 - t1)))
+            if args.max_steps and model.global_step >= args.max_steps:
+                break
+    except KeyboardInterrupt:
+        print("interrupted")
+    finally:
+        if threaded:
+            dataloader.stop_queue_runners()
+        if summary is not None:
+            summary.close()
+    print("finished")
+    return model, losses
+
+
+if __name__ == "__main__":
+    main()

@@ -4,8 +4,8 @@
 Plugins register under the reference's public names, so `--model=...` and
 `--dataloader=...` resolve as in the JAX package. Only the names this port
 has so far are registered: the models `edsr`, `edsr_loss` and the eleven
-LarvaNet-family presets; the loaders `div2k_train_loader`, `div2k_val_loader` and
-`basic_loader`.
+LarvaNet-family presets; the loaders `div2k_train_loader`, `div2k_val_loader`,
+`div2k_train_loader_queue`, `combined_loader` and `basic_loader`.
 """
 
 from __future__ import annotations

@@ -19,17 +19,15 @@ JAX package's native decoder and batcher, which the port does not have).
 from __future__ import annotations
 
 import argparse
-from typing import Optional
+import queue
+import threading
+from typing import Dict, List, Optional
 
 import numpy as np
 
 from larvanet_tpu_torch.core.config import parse_known
 from larvanet_tpu_torch.core.registry import register_loader
 from larvanet_tpu_torch.data.dataset import PairDataset
-
-_QUEUES = ("the threaded queue loaders are not ported to larvanet_tpu_torch yet "
-           "(see ROADMAP.md); train with div2k_train_loader")
-
 
 class BaseLoader:
     """Reference BaseLoader contract (dataloaders/base.py)."""
@@ -62,13 +60,13 @@ class BaseLoader:
         draws the batch stream an uninterrupted run would."""
 
     def start_training_queue_runner(self, batch_size, input_patch_size):
-        raise NotImplementedError(_QUEUES)
+        raise NotImplementedError
 
     def stop_queue_runners(self):
-        raise NotImplementedError(_QUEUES)
+        raise NotImplementedError
 
     def get_queue_data(self, scale):
-        raise NotImplementedError(_QUEUES)
+        raise NotImplementedError
 
 
 def _chw(img_hwc_u8: np.ndarray) -> np.ndarray:
@@ -101,8 +99,12 @@ class PairLoader(BaseLoader):
                             help="The JAX package's native decoder switch; "
                                  "accepted and ignored (the port decodes PNG "
                                  "in numpy and zlib).")
+        self._add_extra_args(parser)
         self.args, remaining = parse_known(parser, args)
         return self.args, remaining
+
+    def _add_extra_args(self, parser):
+        pass
 
     def prepare(self, scales):
         self.dataset = PairDataset(
@@ -126,9 +128,14 @@ class PairLoader(BaseLoader):
             truth_list.append(tp)
         return input_list, truth_list
 
+    def get_patch_batch_nhwc(self, batch_size, scale, input_patch_size):
+        """An NHWC float32 batch (input, truth): the same draws as
+        get_patch_batch."""
+        return self.dataset.patch_batch_nhwc(batch_size, scale, input_patch_size)
+
     def reseed_for_step(self, step: int) -> None:
-        if self.args.data_seed is None or self.dataset is None:
-            return  # unseeded = entropy
+        if self.is_threaded or self.args.data_seed is None or self.dataset is None:
+            return  # the runners own their streams; unseeded = entropy
         self.dataset.reseed_for_step(step)
 
     def get_random_image_patch_pair(self, scale, input_patch_size):
@@ -144,6 +151,91 @@ class PairLoader(BaseLoader):
         return self.dataset.image_pair_chw(image_index, scale)
 
 
+class _QueueRunnerMixin:
+    """The supervised pool of runner threads (loaders.py:161-277)."""
+
+    is_threaded = True
+    queue_capacity = 16  # reference div2k_train_loader_queue.py:52
+    default_num_runners = 8
+
+    def __init__(self):
+        super().__init__()
+        self._queues: Dict[int, queue.Queue] = {}
+        self._threads: List[threading.Thread] = []
+        self._stop_event = threading.Event()
+
+    def _add_extra_args(self, parser):
+        parser.add_argument("--data_num_queue_runners", type=int,
+                            default=self.default_num_runners,
+                            help="The number of threads for each queue runner.")
+
+    def start_training_queue_runner(self, batch_size, input_patch_size):
+        self._queues = {}
+        self._stop_event = threading.Event()
+        self._threads = []
+        for scale in self.dataset.scale_list:
+            self._queues[scale] = queue.Queue(maxsize=self.queue_capacity)
+            for i in range(self.args.data_num_queue_runners):
+                t = threading.Thread(target=self._runner,
+                                     args=(scale, batch_size, input_patch_size, i),
+                                     daemon=True, name="queue-runner-x%d-%d" % (scale, i))
+                t.start()
+                self._threads.append(t)
+
+    def _runner(self, scale, batch_size, input_patch_size, worker_id):
+        seed = self.args.data_seed
+        local = PairDataset(input_path=self.dataset.input_path,
+                            truth_path=self.dataset.truth_path, scheme=self.dataset.scheme,
+                            seed=None if seed is None else seed + worker_id)
+        # the loader's image list and its cache, under its lock
+        local.image_names = self.dataset.image_names
+        local.scale_list = self.dataset.scale_list
+        local.cached = self.dataset.cached
+        local._input_cache = self.dataset._input_cache
+        local._truth_cache = self.dataset._truth_cache
+        local._cache_lock = self.dataset._cache_lock
+        q = self._queues[scale]
+        while not self._stop_event.is_set():
+            try:
+                batch = local.patch_batch_nhwc(batch_size, scale, input_patch_size)
+            except Exception as exc:  # handed to the consumer, not swallowed
+                try:
+                    q.put(("error", exc), timeout=1.0)
+                except queue.Full:
+                    pass
+                return
+            while not self._stop_event.is_set():
+                try:
+                    q.put(("batch", batch), timeout=0.25)
+                    break
+                except queue.Full:
+                    continue
+
+    def stop_queue_runners(self):
+        """Stop and join every runner; safe to call again."""
+        if not self._threads:
+            return
+        self._stop_event.set()
+        # drain, so that runners blocked on put() see the event
+        for q in self._queues.values():
+            try:
+                while True:
+                    q.get_nowait()
+            except queue.Empty:
+                pass
+        for t in self._threads:
+            t.join(timeout=5.0)
+        self._threads = []
+
+    def get_queue_data(self, scale):
+        """The next batch (inputs, truths) as NHWC float32; blocks until a
+        runner has one, and raises a runner's error."""
+        kind, payload = self._queues[scale].get()
+        if kind == "error":
+            raise payload
+        return payload
+
+
 @register_loader("div2k_train_loader")
 class DIV2KTrainLoader(PairLoader):
     """Training loader (reference div2k_train_loader.py)."""
@@ -156,6 +248,22 @@ class DIV2KValLoader(PairLoader):
     default_input_path = "data/DIV2K_valid_LR_bicubic"
     default_truth_path = "data/DIV2K_valid_HR"
     always_cached = True
+
+
+@register_loader("div2k_train_loader_queue")
+class DIV2KTrainLoaderQueue(_QueueRunnerMixin, PairLoader):
+    """div2k_train_loader fed by runner threads (reference
+    div2k_train_loader_queue.py)."""
+
+
+@register_loader("combined_loader")
+class CombinedLoader(_QueueRunnerMixin, PairLoader):
+    """The merged DIV2K + Flickr2K set, 6 runners (reference
+    combined_loader.py:31-36)."""
+
+    default_input_path = "data/Combined_LR"
+    default_truth_path = "data/Combined_HR"
+    default_num_runners = 6
 
 
 @register_loader("basic_loader")

@@ -12,18 +12,27 @@ JAX package's jitted closures become plain calls of the module.
     the optimizer (`make_optimizer`: torch's Adam or AdamW, the formulas
     of optax's, with the learning rate set before every step) and, with
     `ema_decay` set first, the parameter average (`param_ema`).
-  * `train_step(inputs, scale, truths)` is one optimizer step on CHW host
-    lists (models/base.py:425-487): the loss and its gradients, summed
+  * `train_step(inputs, scale, truths)` is one optimizer step on a host
+    batch (models/base.py:425-487): the loss and its gradients, summed
     over `grad_accum` equal microbatches and scaled by 1/accum, then Adam,
-    then the average.
-  * `save(dir)` writes `model_<step>.pth`, the module's bare state_dict
-    (the reference's format, which the JAX package restores), and beside
-    it `model_<step>.state.pt` with what a resume needs: the step, Adam's
-    moments and the average. `restore(path)` reads a `.pth` with a strict
-    load and shape checks, and, when training, its state file if there is
-    one; a `.pth` alone restarts the moments and leaves the average at the
-    weights `prepare` built, as in the reference and JAX.
-    msgpack `.ckpt` files and orbax directories need flax and are refused.
+    then the average. A batch is a list of CHW frames or one 4-D float
+    array, NHWC or NCHW (`chw_list_to_nhwc`'s rule, base.py:117-135).
+  * Volume bookkeeping for the volume-driven trainers (base.py:345-373):
+    `total_volume` and `temp_volume` (reset by `prepare`) and
+    `volume_per_step`, which the train_larva CLI sets; `psnr_on_device`
+    scores one frame on the device with one scalar read back (:592-599).
+  * `save(dir)` writes `checkpoint_name()` (`model_<step>.pth`), the
+    module's bare state_dict (the reference's format, which the JAX
+    package restores), and beside it a `.state.pt` with what a resume
+    needs: the step, `total_volume`, Adam's moments, the average and
+    what a subclass adds (`_train_state`). `restore(path)` reads a `.pth`
+    with shape checks, strict by default; `strict=False` loads the keys
+    both sides have and keeps the init of the rest (the V2 presets'
+    partial restore, base.py:889-921). When training it also loads the
+    state file, if there is one and the `.pth` covered every key; a
+    `.pth` alone restarts the moments and leaves the average at the
+    weights `prepare` built, as in the reference and JAX. msgpack `.ckpt`
+    files and orbax directories need flax and are refused.
   * `set_serving_dtype("bf16")` serves through a bf16 copy of the module,
     so every conv runs the kernel's bf16 variant (the counterpart of
     serving_compute_dtype, models/base.py:42-54); the module keeps its f32
@@ -50,6 +59,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from larvanet_tpu_torch.eval.metrics import psnr_rgb_device
 from larvanet_tpu_torch.train.losses import l1_loss
 from larvanet_tpu_torch.utils.torch_convert import load_pth
 
@@ -114,6 +124,9 @@ class SRModel:
         self.route = None
         self._serving_copy: Optional[nn.Module] = None
         self.global_step = 0
+        self.total_volume = 0.0
+        self.temp_volume = 0.0
+        self.volume_per_step = 0
         self.is_training = False
         self.optimizer: Optional[torch.optim.Optimizer] = None
         self.ema: Optional[ParamEMA] = None
@@ -144,6 +157,8 @@ class SRModel:
         self.compute_dtype = torch.float32
         self._serving_copy = None
         self.global_step = global_step
+        self.total_volume = 0.0
+        self.temp_volume = 0.0
         self.is_training = is_training
         self.optimizer = self.ema = None
         if is_training:
@@ -185,30 +200,43 @@ class SRModel:
         return "model_%d.pth" % (self.global_step,)
 
     def save(self, base_path: str) -> str:
-        """Write `model_<step>.pth` (the module's bare state_dict, the
+        """Write `checkpoint_name()` (the module's bare state_dict, the
         reference's format) and, when training, its state file beside it
-        (`state_path`: the step, Adam's moments, the average). Returns the
-        .pth path."""
+        (`state_path`: the step, `total_volume`, Adam's moments, the
+        average, and `_train_state`'s additions). Returns the .pth path."""
         os.makedirs(base_path, exist_ok=True)
         path = os.path.join(base_path, self.checkpoint_name())
         state = {k: v.detach().cpu() for k, v in self.module.state_dict().items()}
         _save_atomic(state, path)
         if self.optimizer is not None:
-            _save_atomic({"global_step": self.global_step,
-                          "optimizer": self.optimizer.state_dict(),
-                          "ema": None if self.ema is None else self.ema.average},
-                         state_path(path))
+            _save_atomic(self._train_state(), state_path(path))
         return path
 
-    def restore(self, ckpt_path: str) -> None:
-        """Strict restore of a `.pth` state_dict; when training, also its
-        state file (`state_path`) if it exists: the step, Adam's moments and
-        the average continue where the saved run stopped. Without one the
-        moments restart and the average stays where `prepare` made it,
-        from the weights the module had then, as the reference and JAX's
-        `_restore_pth` leave them (larvanet_tpu/models/base.py:160-164,
-        :786-852): the restored weights reach the average only through its
-        updates."""
+    def _train_state(self) -> dict:
+        """What a resume needs beyond the weights. JAX saves no
+        `temp_volume` (base.py:606-635): a checkpoint is written when it was
+        just reset, and a resume restarts it at 0."""
+        return {"global_step": self.global_step, "total_volume": self.total_volume,
+                "optimizer": self.optimizer.state_dict(),
+                "ema": None if self.ema is None else self.ema.average}
+
+    def _load_train_state(self, state: dict) -> None:
+        self.optimizer.load_state_dict(state["optimizer"])
+        if self.ema is not None:
+            self.ema.load(state["ema"])
+        self.global_step = int(state["global_step"])
+        self.total_volume = float(state.get("total_volume", self.total_volume))
+
+    def restore(self, ckpt_path: str, strict: bool = True) -> None:
+        """Restore a `.pth` state_dict (`load_state_dict`, strict or
+        partial); when training, also its state file (`state_path`) if it
+        exists and the `.pth` covered every key of the module: the step,
+        `total_volume`, Adam's moments and the average continue where the
+        saved run stopped. Without one the moments restart and the average
+        stays where `prepare` made it, from the weights the module had
+        then, as the reference and JAX's `_restore_pth` leave them
+        (larvanet_tpu/models/base.py:160-164, :786-852): the restored
+        weights reach the average only through its updates."""
         if not ckpt_path.endswith((".pth", ".pt")):
             kind = "an orbax directory" if os.path.isdir(ckpt_path) \
                 else "a msgpack checkpoint"
@@ -217,38 +245,49 @@ class SRModel:
                 "use; convert it to .pth with the JAX package "
                 "(larvanet_tpu.utils.torch_convert.save_pth). See ROADMAP.md."
                 % (ckpt_path, kind))
-        self.load_state_dict(load_pth(ckpt_path))
+        complete = self.load_state_dict(load_pth(ckpt_path), strict=strict)
         if self.optimizer is None:
             return
         saved = state_path(ckpt_path)
         if not os.path.exists(saved):
+            return
+        if not complete:
+            print("restore: %s covers part of the model; its training state (%s) is "
+                  "not loaded" % (ckpt_path, saved))
             return
         state = torch.load(saved, map_location=self.device, weights_only=True)
         if (state["ema"] is None) != (self.ema is None):
             raise ValueError(
                 "%s was saved %s an EMA; --ema_decay must be consistent across a "
                 "resumed run" % (saved, "without" if state["ema"] is None else "with"))
-        self.optimizer.load_state_dict(state["optimizer"])
-        if self.ema is not None:
-            self.ema.load(state["ema"])
-        self.global_step = int(state["global_step"])
+        self._load_train_state(state)
 
-    def load_state_dict(self, state: Dict[str, torch.Tensor]) -> None:
+    def load_state_dict(self, state: Dict[str, torch.Tensor], strict: bool = True) -> bool:
+        """Load a state_dict, every key's shape checked. strict: the keys
+        must match exactly. Not strict (JAX's `_merge_partial`,
+        base.py:889-921): the keys both have are loaded, the module's other
+        keys keep their values, the checkpoint's extra keys are ignored.
+        Returns whether the checkpoint covered every key of the module."""
         current = self.module.state_dict()
         missing = sorted(set(current) - set(state))
         unexpected = sorted(set(state) - set(current))
-        if missing or unexpected:
+        if strict and (missing or unexpected):
             raise ValueError("checkpoint keys do not match model %s: missing %s, "
                              "unexpected %s" % (self.registry_name, missing,
                                                 unexpected))
+        state = {k: v for k, v in state.items() if k in current}
         for key, value in state.items():
             if tuple(value.shape) != tuple(current[key].shape):
                 raise ValueError(
                     "checkpoint shape mismatch at %r: model %s vs checkpoint %s"
                     % (key, tuple(current[key].shape), tuple(value.shape)))
-        self.module.load_state_dict(state, strict=True)
+        if missing:
+            print("restore: %d parameters are not in the checkpoint and keep their "
+                  "init: %s" % (len(missing), missing))
+        self.module.load_state_dict(state, strict=not missing)
         if self._serving_copy is not None:
             self._serving_copy = self._cast_copy()
+        return not missing
 
     # ---- forward -----------------------------------------------------------
 
@@ -260,20 +299,32 @@ class SRModel:
         out = self.serving_module(x) if self.route is None else self.route(x)
         return out.float()
 
-    def _input_to_device(self, input_list) -> torch.Tensor:
-        """A list of CHW host frames -> NHWC f32 batch on the device.
+    def _input_to_device(self, images) -> torch.Tensor:
+        """A host batch -> NHWC f32 batch on the device. A list is always
+        CHW frames; a 4-D array is NHWC when its last axis is 3, else NCHW
+        when its axis 1 is 3 (chw_list_to_nhwc, larvanet_tpu/models/
+        base.py:117-135; the queue loaders return NHWC).
 
         uint8 frames are pushed as uint8 and cast on the device; any
         other frames are pushed as f32 (the reference contract)."""
-        if not isinstance(input_list, (list, tuple)) or not input_list:
-            raise ValueError("expected a non-empty list of CHW frames")
-        if all(getattr(im, "dtype", None) == np.uint8 for im in input_list):
-            x8 = np.stack([np.asarray(im) for im in input_list])
-            x8 = np.ascontiguousarray(x8.transpose(0, 2, 3, 1))
-            return torch.from_numpy(x8).to(self.device).float()
-        arr = np.stack([np.asarray(im, np.float32) for im in input_list])
-        arr = np.ascontiguousarray(arr.transpose(0, 2, 3, 1))
-        return torch.from_numpy(arr).to(self.device)
+        if isinstance(images, (list, tuple)):
+            if not images:
+                raise ValueError("expected a non-empty list of CHW frames")
+            if all(getattr(im, "dtype", None) == np.uint8 for im in images):
+                x8 = np.stack([np.asarray(im) for im in images])
+                x8 = np.ascontiguousarray(x8.transpose(0, 2, 3, 1))
+                return torch.from_numpy(x8).to(self.device).float()
+            arr = np.stack([np.asarray(im, np.float32) for im in images]).transpose(0, 2, 3, 1)
+        else:
+            arr = np.asarray(images, np.float32)
+            if arr.ndim != 4:
+                raise ValueError("expected a batch of images, got shape %s" % (arr.shape,))
+            if arr.shape[-1] != 3:
+                if arr.shape[1] != 3:
+                    raise ValueError("cannot infer the layout of a batch of shape %s"
+                                     % (arr.shape,))
+                arr = arr.transpose(0, 2, 3, 1)
+        return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
 
     def upscale_device(self, input_list, scale, uint8: bool = True,
                        keep: Optional[int] = None) -> torch.Tensor:
@@ -332,14 +383,12 @@ class SRModel:
             total = total * inv
         return total
 
-    def train_step(self, input_list, scale, truth_list, summary=None) -> float:
-        """One optimizer step on a batch of CHW host frames (reference
-        models/base.py:65-76 contract). Returns the loss."""
+    def _optimizer_step(self, inputs: torch.Tensor, targets: torch.Tensor,
+                        lr: float) -> torch.Tensor:
+        """The loss and its gradients, then the optimizer's step at `lr` and
+        the average's update. Returns the loss, on the device."""
         if self.optimizer is None:
-            raise RuntimeError("train_step needs prepare(..., is_training=True)")
-        inputs = self._input_to_device(input_list)
-        targets = self._input_to_device(truth_list)
-        lr = self.get_learning_rate()
+            raise RuntimeError("training needs prepare(..., is_training=True)")
         for group in self.optimizer.param_groups:
             group["lr"] = lr
         self.optimizer.zero_grad(set_to_none=True)
@@ -347,8 +396,16 @@ class SRModel:
         self.optimizer.step()
         if self.ema is not None:
             self.ema.update()
+        return loss
+
+    def train_step(self, input_list, scale, truth_list, summary=None) -> float:
+        """One optimizer step on a host batch (reference models/base.py:65-76
+        contract; `_input_to_device` takes its layouts). Returns the loss."""
+        inputs = self._input_to_device(input_list)
+        targets = self._input_to_device(truth_list)
+        lr = self.get_learning_rate()
+        loss_val = float(self._optimizer_step(inputs, targets, lr))
         self.global_step += 1
-        loss_val = float(loss)
         if summary is not None:
             summary.scalar("loss", loss_val, self.global_step)
             summary.scalar("lr", lr, self.global_step)
@@ -362,6 +419,14 @@ class SRModel:
                 summary.image("truth/%d" % i, targets[i].cpu().numpy().transpose(2, 0, 1),
                               self.global_step)
         return loss_val
+
+    def psnr_on_device(self, input_chw: np.ndarray, truth_chw: np.ndarray) -> float:
+        """The challenge protocol's RGB PSNR of the forward of one CHW frame
+        against its truth, on the device, one scalar read back
+        (larvanet_tpu/models/base.py:580-599): the forward `fwd_runtime`
+        runs, through the exit the module takes by default."""
+        out = self.fwd_runtime(self._input_to_device([input_chw]))
+        return float(psnr_rgb_device(out, self._input_to_device([truth_chw])))
 
 
 def state_path(pth_path: str) -> str:

@@ -1,5 +1,5 @@
-"""The LarvaNet multi-exit family, inference (larvanet_tpu/models/larvanet.py;
-reference models/LarvaNet.py and its variant files).
+"""The LarvaNet multi-exit family (larvanet_tpu/models/larvanet.py; reference
+models/LarvaNet.py and its variant files).
 
 One configurable module covers the nine reference variants and the two
 w64 presets, NHWC:
@@ -22,8 +22,19 @@ larvanet_tpu/utils/torch_convert.py:482-503 exports: `head.feature_extraction`,
 `tail.recon_block.{0,2}`; there is no MeanShift. Every conv goes through
 `ops.conv3x3`, the hand-written kernel on the card.
 
-Training (the multi-exit loss, the volume-driven loop, ReduceLROnPlateau)
-is not ported yet: its flags are parsed and recorded, and change nothing.
+Training (larvanet.py:181-414): AdamW on the multi-exit loss, the mean of
+the L1 losses of every exit (`walk(x, "all")`: every leg, then the V2
+tail), with the learning rate of a ReduceLROnPlateau on the validation
+PSNR. `train_step` is one step at that rate (the step-driven train CLI,
+which never validates); `train_step_larva` is the volume-driven step of
+the train_larva CLIs: every `--val_volume` bytes of input pixels it
+validates, steps the schedule, saves `model_step<N>_vol<G>G.pth` and
+writes the summary. The JAX package trains a width-packed trunk with the
+loss taken before the shuffle (--packed_trunk, --lr_domain_loss): exact
+reparametrisations of the module graph that the port trains, so both
+flags are accepted and ignored. The V2 presets restore partially: a
+LarvaNet checkpoint gives them its bodies and legs, the tail keeps its
+init (`_V2Mixin`).
 """
 
 from __future__ import annotations
@@ -31,6 +42,7 @@ from __future__ import annotations
 import argparse
 from typing import Callable, Optional, Sequence, Union
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -39,6 +51,8 @@ from larvanet_tpu_torch.core.registry import register_model
 from larvanet_tpu_torch.models.base import SRModel
 from larvanet_tpu_torch.models.layers import Conv3x3, ResBlock, interpolated_base
 from larvanet_tpu_torch.ops.pixel_shuffle import pixel_shuffle
+from larvanet_tpu_torch.train.losses import multi_exit_l1
+from larvanet_tpu_torch.train.schedules import ReduceLROnPlateau
 
 FEATURES = 48  # the reference's trunk width (reference models/LarvaNet.py:226)
 SCALE = 4  # every exit is a PixelShuffle(4): 3 * SCALE^2 = 48 channels -> 3
@@ -204,12 +218,14 @@ class LarvaNetModule(nn.Module):
 
 
 class LarvaNetBase(SRModel):
-    """Shared wrapper of the presets (models/larvanet.py:181-269). Every
-    flag of the JAX parser parses; --num_modules, --num_blocks, --leg,
-    --num_features and --interpolate act, the training flags are recorded.
-    The family's exits are PixelShuffle(4): --scales 2 or 3 are accepted
-    and the output is x4 all the same, as in JAX."""
+    """Shared wrapper of the presets (models/larvanet.py:181-414): AdamW
+    with the plateau learning rate. Every flag of the JAX parser parses;
+    --packed_trunk and --lr_domain_loss are accepted and ignored, and the
+    train CLIs refuse --qat 1 and --remat 1. The family's exits are
+    PixelShuffle(4): --scales 2 or 3 are accepted and the output is x4 all
+    the same, as in JAX."""
 
+    optimizer_kind = "adamw"
     supported_scales = (2, 3, 4)
 
     # preset knobs overridden by the variants
@@ -224,6 +240,10 @@ class LarvaNetBase(SRModel):
     default_min_lr = 1e-8
     default_patience = 3
     default_cooldown: Optional[int] = 6  # None: no --cooldown flag
+
+    def __init__(self):
+        super().__init__()
+        self.scheduler: Optional[ReduceLROnPlateau] = None
 
     def parse_args(self, args):
         parser = argparse.ArgumentParser()
@@ -240,7 +260,6 @@ class LarvaNetBase(SRModel):
                                      "Winograd kernel under --wino_trunk).")
         parser.add_argument("--interpolate", type=str, default="bicubic",
                             help="Interpolation method.")
-        # training flags: recorded, not used until training is ported
         parser.add_argument("--val_volume", type=float, default=self.default_val_volume,
                             help="How much volume need for validation.")
         parser.add_argument("--lr", type=float, default=self.default_lr,
@@ -258,15 +277,19 @@ class LarvaNetBase(SRModel):
         if self.default_cooldown is not None:
             parser.add_argument("--cooldown", type=int, default=self.default_cooldown,
                                 help="cooldown for lr scheduler")
-        parser.add_argument("--packed_trunk", type=int, default=1,
-                            help="The TPU's width-packed trunk: the same function; "
-                                 "recorded.")
-        parser.add_argument("--lr_domain_loss", type=int, default=1,
-                            help="Training loss domain; recorded.")
+        parser.add_argument("--packed_trunk", type=int, default=None,
+                            help="The JAX package's width-packed trunk (an exact "
+                                 "reparametrisation); accepted and ignored: the port "
+                                 "runs the module graph.")
+        parser.add_argument("--lr_domain_loss", type=int, default=None,
+                            help="The JAX package's pre-shuffle loss (the same "
+                                 "per-element gradients); accepted and ignored.")
         parser.add_argument("--qat", type=int, default=0,
-                            help="Quantization-aware training; recorded.")
+                            help="Quantization-aware training; not ported yet (see "
+                                 "ROADMAP.md), refused by the train CLIs unless 0.")
         parser.add_argument("--remat", type=int, default=0,
-                            help="Rematerialized training graph; recorded.")
+                            help="Rematerialised training trunk; not ported yet (see "
+                                 "ROADMAP.md), refused by the train CLIs unless 0.")
         self.args, remaining = parse_known(parser, args)
         return self.args, remaining
 
@@ -285,9 +308,98 @@ class LarvaNetBase(SRModel):
             exits=int(self.args.leg) if self.has_early_exit else "last",
             generator=generator)
 
+    def prepare(self, scales, device="cuda", seed=0, is_training=False, global_step=0):
+        super().prepare(scales, device=device, seed=seed, is_training=is_training,
+                        global_step=global_step)
+        self.scheduler = None
+        if is_training:
+            self.scheduler = ReduceLROnPlateau(
+                lr=self.args.lr, factor=self.args.lr_decay, patience=self.args.patience,
+                cooldown=getattr(self.args, "cooldown", 0), threshold=self.args.threshold,
+                min_lr=self.args.min_lr, mode="max")
+
+    def get_learning_rate(self) -> float:
+        return self.scheduler.lr if self.scheduler is not None else self.args.lr
+
+    def _compute_loss(self, inputs: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+        """The mean of every exit's L1 loss (larvanet.py:314-323). The exits
+        are asked for by name: LarvaLeg's module defaults to its --leg."""
+        return multi_exit_l1(self.module.walk(inputs, "all"), targets)
+
+    # -- volume-driven training (reference train_larva.py, LarvaNet.py:98-161) --
+
+    def train_step_larva(self, args, val_dataloader, input_batch, truth_batch,
+                         summary=None) -> float:
+        """One step (larvanet.py:340-369): the step count and the volume
+        first, then the optimizer at the current lr; validation after step
+        1; and once `temp_volume` reaches --val_volume, the volume is
+        banked, then validation (which steps the schedule), a checkpoint in
+        args.train_path and the summary's loss and lr. Returns the loss."""
+        inputs = self._input_to_device(input_batch)
+        targets = self._input_to_device(truth_batch)
+        self.global_step += 1
+        self.temp_volume += self.volume_per_step
+        lr = self.get_learning_rate()
+        loss = float(self._optimizer_step(inputs, targets, lr))
+
+        if self.global_step == 1 and val_dataloader is not None:
+            self.validate_for_train(args, val_dataloader)
+
+        if self.temp_volume >= self.args.val_volume:
+            self.total_volume += self.temp_volume
+            self.temp_volume = 0
+            if val_dataloader is not None:
+                self.validate_for_train(args, val_dataloader)
+            if args is not None and getattr(args, "train_path", None):
+                self.save(base_path=args.train_path)
+                print("saved a model checkpoint at volume %.0fG" % (self.total_volume / 1e9,))
+            if summary is not None:
+                summary.scalar("loss", loss, self.global_step)
+                summary.scalar("lr", lr, self.global_step)
+        return loss
+
+    def validate_for_train(self, args, dataloader) -> float:
+        """The val set's mean RGB PSNR, each frame scored on the device, then
+        the plateau schedule's step with it (larvanet.py:371-388)."""
+        psnr_list = []
+        for idx in range(dataloader.get_num_images()):
+            input_image, truth_image, _ = dataloader.get_image_pair(image_index=idx,
+                                                                    scale=SCALE)
+            psnr_list.append(self.psnr_on_device(input_image, truth_image))
+        average_psnr = float(np.mean(psnr_list))
+        print("step %d, volume %.0fG, psnr=%.8f, lr = %.8f"
+              % (self.global_step, self.total_volume / 1e9, average_psnr,
+                 self.get_learning_rate()))
+        if self.scheduler is not None:
+            self.scheduler.step(average_psnr)
+        return average_psnr
+
+    def checkpoint_name(self) -> str:
+        return "model_step%d_vol%.0fG.pth" % (self.global_step, self.total_volume / 1e9)
+
+    def _train_state(self) -> dict:
+        state = super()._train_state()
+        if self.scheduler is not None:
+            state["scheduler"] = self.scheduler.state_dict()
+        return state
+
+    def _load_train_state(self, state: dict) -> None:
+        super()._load_train_state(state)
+        if self.scheduler is not None and "scheduler" in state:
+            self.scheduler.load_state_dict(state["scheduler"])
+
+
+class _V2Mixin:
+    """The V2 presets' partial restore (larvanet.py:405-414, reference
+    models/LarvaNetV2.py:198-207): the keys both sides have load, the tail
+    of a LarvaNet checkpoint keeps its init."""
+
+    def restore(self, ckpt_path: str, strict: bool = False) -> None:
+        super().restore(ckpt_path, strict=False)
+
 
 def _preset(name, **attrs):
-    cls = type(name, (LarvaNetBase,), attrs)
+    cls = type(name, tuple(attrs.pop("__bases__", (LarvaNetBase,))), attrs)
 
     @register_model(name)
     def factory(cls=cls):
@@ -309,8 +421,9 @@ LarvaNet1c = _preset("LarvaNet_1c", leg_style="resblock", **_VARIANT)
 LarvaNet4c = _preset("LarvaNet_4c", **_VARIANT)
 LarvaNetSkip = _preset("LarvaNet_skip", leg_style="skip", **_VARIANT)
 LarvaNetRes = _preset("LarvaNet_res", body_style="res", **_VARIANT)
-LarvaNetV2 = _preset("LarvaNetV2", use_tail=True, **_V2)
+LarvaNetV2 = _preset("LarvaNetV2", __bases__=(_V2Mixin, LarvaNetBase), use_tail=True, **_V2)
 LarvaLeg = _preset("LarvaLeg", has_early_exit=True, **_V2)
 LarvaLegW64 = _preset("LarvaLeg_w64", has_early_exit=True, trunk_features=64,
                       width_flag=True, **_V2)
-LarvaLegV2 = _preset("LarvaLegV2", has_early_exit=True, use_tail=True, **_V2)
+LarvaLegV2 = _preset("LarvaLegV2", __bases__=(_V2Mixin, LarvaNetBase), has_early_exit=True,
+                     use_tail=True, **_V2)

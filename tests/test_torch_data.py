@@ -153,8 +153,8 @@ def test_dataset_rejects_unknown_scheme_and_training_methods_raise():
         PairDataset("a", "b", scheme="zip")
     with pytest.raises(NotImplementedError):
         BaseLoader().get_patch_batch(2, 4, 8)
-    # the threaded queue loaders are not ported yet
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # the queue-runner trio is the threaded loaders' (tests/test_torch_larva_train.py)
+    with pytest.raises(NotImplementedError):
         BaseLoader().start_training_queue_runner(2, 8)
 
 

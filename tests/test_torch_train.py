@@ -502,13 +502,40 @@ def test_cli_refuses_what_is_not_ported(div2k_train_root, tmp_path, flags):
         _cli(div2k_train_root, str(tmp_path), "--max_steps", "1", *flags)
 
 
-@pytest.mark.parametrize("name", ["LarvaNet", "LarvaNetV2", "LarvaLeg"])
-def test_cli_refuses_a_model_whose_training_is_not_ported(div2k_train_root, tmp_path, name):
-    """Before it makes the train directory or builds the model."""
-    run = tmp_path / "run"
-    with pytest.raises(SystemExit, match="ROADMAP"):
-        _cli(div2k_train_root, str(run), "--max_steps", "1", "--model", name)
-    assert not run.exists()
+@pytest.mark.parametrize("name,flags", [("LarvaNet", []), ("LarvaNetV2", []),
+                                        ("LarvaLeg", ["--leg", "1"])])
+def test_cli_trains_a_larvanet_preset(div2k_train_root, tmp_path, name, flags):
+    """The step-driven CLI trains the LarvaNet family as JAX's does: from
+    the same weights (a .pth of the JAX init) and the same --data_seed
+    batch, its first step's multi-exit loss is the loss of JAX's train
+    step, `_compute_loss`, evaluated op by op. The jitted `train_step`
+    returns it summed in XLA's fused order, which on this batch lies
+    1.3e-6 from the float64 loss (the port's: 1.7e-8), so it is printed
+    beside it and not held at LOSS_RTOL."""
+    model_flags = ["--num_blocks", "1,1", *flags]
+    jm = jax_get_model(name)
+    jm.parse_args(model_flags + ["--packed_trunk", "0"])
+    jm.prepare(is_training=True, scales=[SCALE])
+    pth = str(tmp_path / "init.pth")
+    torch.save(state_dict_from_jax_params(_to_numpy(jm.params), name), pth)
+    data = ["--data_input_path", os.path.join(div2k_train_root, "LR"),
+            "--data_truth_path", os.path.join(div2k_train_root, "HR"), "--data_seed", "3"]
+    _, losses = train.main(["--dataloader", "div2k_train_loader", "--model", name,
+                            "--scales", "4", "--device", "cpu",
+                            "--train_path", str(tmp_path / "run"), "--batch_size", "2",
+                            "--input_patch_size", "8", "--max_steps", "1",
+                            "--restore_path", pth, *data, *model_flags])
+    jl = jax_get_loader("div2k_train_loader")
+    jl.parse_args(data + ["--data_native", "0"])
+    jl.prepare([4])
+    jl.reseed_for_step(0)
+    lr, hr = jl.get_patch_batch(2, 4, 8)
+    want = float(jm._compute_loss(jm.params, jnp.asarray(_nhwc(lr)), jnp.asarray(_nhwc(hr))))
+    jitted = jm.train_step(lr, SCALE, hr)
+    print("train CLI %s step 1: loss %.8g, JAX %.8g (its jitted train_step %.8g)"
+          % (name, losses[1], want, jitted))
+    assert sorted(losses) == [1]
+    assert abs(losses[1] - want) <= LOSS_RTOL * abs(want)
 
 
 def test_cli_runs_on_the_card_unless_told_otherwise(div2k_train_root, tmp_path):
