@@ -130,7 +130,34 @@ flagship, and fails (exit code != 0, no result line) if any phase fails:
     half at LarvaNet's shapes (LARVA_TRAIN_WGRAD: wgrad 3 -> 48, 48 -> 48,
     64 -> 48 and 96 -> 48 at 48x48; LARVA_TRAIN_DGRAD: the conv at 48 ->
     96).
- 9. prints the kernels JSON line, the nvidia-smi line, then the result line
+ 10. full frame: EDSR-baseline x4 (fitted as in phase 4) and LarvaNet
+    2x16 (as in phase 4b), f32, on one 339x510 `photo` frame. 10a: the
+    reference's chop-forward (eval/tiling.py, --chop_overlap_size 20: four
+    quadrants of 179 or 180 x 265), counted (4 forwards' launches by path)
+    and held within FWD_RTOL of the same function with the plain versions
+    inside (LarvaNet: relative to the residual), with its PSNR against the
+    direct forward. 10b: TiledUpscaler at each model's exact tiling
+    (FULL_FRAME_MODELS: half the overlap past the receptive radius; one
+    batch of 54 or 40 tiles) held within FWD_RTOL of the direct forward; at
+    the CLIs' 128 / 24 its max |d| and PSNR against it; on an 8K output's
+    1080x1920 LR frame (209 tiles in chunks of 64) its peak memory, and the
+    chunks of 64 held against chunks of 16; each counted. 10c: the x8
+    self-ensemble of the f32 module (the transposed 510x339 frame among
+    its orientations), counted (8 forwards) and held against its plain
+    version. Each path's ms per frame (timed in turns with the direct
+    forward, f32 and bf16; the self-ensemble f32) and peak memory. 10d:
+    validate on phase 6's set with --chop_forward, --tile_forward (48 /
+    16; also under --wino_trunk 2 and 4 on the even frames) and
+    --self_ensemble, each image's PSNR within VALIDATE_PSNR_TOL of the
+    same run with the plain versions, the launches counted; serve in chop
+    and tile mode, two frames POSTed, each reply within 1 uint8 level of
+    get_sr's frame of the same mode; test on SynSetReal and DIV2K_val
+    trees of photo frames in the realistic fixture's geometry
+    (`write_test_set`) with and without --chop_forward, its --report_json
+    read back. 10e: a .pth whose .state.pt holds an average
+    unlike its weights: validate --ema writes the average's frames bit for
+    bit.
+ 11. prints the kernels JSON line, the nvidia-smi line, then the result line
     {"ok": true, "device": {...}}.
 
 The kernels line reports, per kernel: its launches on the main paths that
@@ -152,12 +179,16 @@ dgrad shapes' times under "train_step" and "larvanet_train"); the
 conv3x3_wgrad line gives the same runs' wgrad launches by path, its times
 summed over phase 8's step's 37 wgrads, with the CUDA-core entries' sum
 beside them, and under "larvanet_train" the sums over one LarvaNet 2x16
-step's 69 wgrads and each 48-channel shape's numbers.
+step's 69 wgrads and each 48-channel shape's numbers. Phase 10's counted
+runs add their launches to conv3x3's and the wino kernels' totals, and
+give them by path under "full_frame".
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -389,6 +420,37 @@ def fused_path_launches(n):
     return {"cuda_core": 0, "tensor_core": n}
 
 
+# phase 10, full frames: each model's conv3x3 launches per forward by path,
+# and its exact tiling (size, overlap): half the overlap exceeds the
+# receptive radius, the deepest chain of 3x3 convs counted in LR pixels.
+# EDSR-baseline x4: first_conv, 32 trunk convs, after_res_conv and
+# upsample.body.0 at the LR size (35), upsample.body.2 at 2x (0.5) and
+# final_conv at 4x (0.25): 35.75 -> 36, so 128 / 80 (half 40). LarvaNet
+# 2x16: the head, 64 trunk convs and the last leg's 2 at the LR size (67)
+# beside a bicubic base of radius 2: 192 / 144 (half 72).
+FULL_FRAME_MODELS = {
+    "EDSR-baseline x4": ("edsr", [], PATH_LAUNCHES["f32"], (128, 80)),
+    "LarvaNet 2x16": ("LarvaNet", LARVANET_FLAGS, conv_path_launches(_LARVA48), (192, 144)),
+}
+FULL_FRAME_LR = RAGGED[1:]       # DIV2K x4 LR, 339x510: chop quadrants 179/180 x 265
+CHOP_OVERLAP = 20                # the CLIs' default --chop_overlap_size
+TILE_DEFAULT = (128, 24)         # the CLIs' default --tile_size / --tile_overlap
+TILE_MAX_BATCH = 64              # TiledUpscaler's default
+# the LR frame of an 8K output (7680x4320): 11 x 19 = 209 tiles at 128 / 24,
+# four chunks (64, 64, 64, 17) at TILE_MAX_BATCH; held against chunks of 16,
+# whose largest tensor is a quarter of the size (EDSR's upsample.body.2
+# output: 64 x 256^2 x 256 f32 = 4.3 GB against 1.07 GB)
+BIG_FRAME_LR = (1080, 1920)
+BIG_FRAME_SMALL_BATCH = 16
+# validate's tiles on phase 6's set (its frames are smaller than 128): 48 / 16
+VALIDATE_TILE = ["--tile_size", "48", "--tile_overlap", "16"]
+# the test CLI's benchmark frames, (LR h, LR w, truth extra h, extra w) in the
+# range of the JAX package's realistic fixture (LR ~80 x 120): an odd width,
+# and truth extras that fit_truth_to_output crops
+TEST_FRAMES = ((80, 118, 0, 0), (75, 121, 0, 0), (86, 112, 2, 3), (72, 127, 0, 0))
+
+
+
 def nvidia_smi_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -396,9 +458,9 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_windows(torch, fns):
+def time_windows(torch, fns, windows=WINDOWS, reps=TIMED_REPS):
     """{name: (median, min, max)} ms per call of each callable in `fns`:
-    WINDOWS windows of TIMED_REPS calls each (CUDA events), after
+    `windows` windows of `reps` calls each (CUDA events), after
     WARMUP_REPS calls, the callables' windows taken in turns (a, b, c, a,
     b, c, ...), so that a drift of the clocks within the call hits each of
     them alike and one outlying window moves no median."""
@@ -408,15 +470,15 @@ def time_windows(torch, fns):
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     times = {name: [] for name in fns}
-    for _ in range(WINDOWS):
+    for _ in range(windows):
         for name, fn in fns.items():
             torch.cuda.synchronize()
             start.record()
-            for _ in range(TIMED_REPS):
+            for _ in range(reps):
                 fn()
             end.record()
             end.synchronize()
-            times[name].append(start.elapsed_time(end) / TIMED_REPS)
+            times[name].append(start.elapsed_time(end) / reps)
     return {name: (statistics.median(t), min(t), max(t)) for name, t in times.items()}
 
 
@@ -1173,31 +1235,37 @@ def larvanet_forward_phase(torch, device="cuda"):
     return launches
 
 
+def write_validate_set(root):
+    """Phase 6's DIV2K-layout set under `root`: VALIDATE_LR frames (even
+    widths) in `all` and `even`, VALIDATE_ODD_LR in `all` only, each
+    `photo` HR frame with its 4x4 box-mean LR."""
+    import numpy as np
+
+    from larvanet_tpu_torch.data import io
+
+    rng = np.random.default_rng(SEED + 2)
+    for i, (h, w) in enumerate(VALIDATE_LR + (VALIDATE_ODD_LR,)):
+        hr = photo(rng, 4 * h, 4 * w)
+        lr = np.round(hr.reshape(3, h, 4, w, 4).mean((2, 4))).astype(np.uint8)
+        name = "%04d" % i
+        sets = ("all",) if (h, w) == VALIDATE_ODD_LR else ("all", "even")
+        for sub in sets:
+            io.save_image_chw(hr, os.path.join(root, sub, "HR", name + ".png"))
+            io.save_image_chw(lr, os.path.join(root, sub, "LR", "X4", "%sx4.png" % name))
+
+
 def validate_phase(torch, device="cuda", model_name="edsr"):
     """Phase 6 (EDSR-baseline x4) or 6b (`model_name` "LarvaNet_w64" at
     LARVANET_FLAGS). The port's validate CLI on a small DIV2K-layout set,
     with --wino_trunk 0, 2 and 4. Returns {m: fused launches by path in the
     m run}."""
-    import numpy as np
-
     from larvanet_tpu_torch.cli import validate
     from larvanet_tpu_torch.core.registry import get_model
     from larvanet_tpu_torch.data import io
     from larvanet_tpu_torch.ops import conv3x3, wino_resblock
 
-    rng = np.random.default_rng(SEED + 2)
     with tempfile.TemporaryDirectory() as tmp:
-        # 4 even LR widths for every run, one odd width for the standard path
-        names = []
-        for i, (h, w) in enumerate(VALIDATE_LR + (VALIDATE_ODD_LR,)):
-            hr = photo(rng, 4 * h, 4 * w)
-            lr = np.round(hr.reshape(3, h, 4, w, 4).mean((2, 4))).astype(np.uint8)
-            name = "%04d" % i
-            sets = ("all",) if (h, w) == VALIDATE_ODD_LR else ("all", "even")
-            for sub in sets:
-                io.save_image_chw(hr, os.path.join(tmp, sub, "HR", name + ".png"))
-                io.save_image_chw(lr, os.path.join(tmp, sub, "LR", "X4", "%sx4.png" % name))
-            names.append(name)
+        write_validate_set(tmp)
         pth = os.path.join(tmp, "%s_x4.pth" % model_name)
         first_lr = io.load_image_u8(os.path.join(tmp, "even", "LR", "X4", "0000x4.png"))
         if model_name == "edsr":
@@ -1802,6 +1870,456 @@ def larva_train_phase(torch, device="cuda"):
     return launches
 
 
+def plain_versions():
+    """A context in which every conv3x3 and fused ResBlock call runs its
+    plain version (and counts no launch)."""
+    from larvanet_tpu_torch.models import layers
+    from larvanet_tpu_torch.ops import conv3x3
+    from larvanet_tpu_torch.ops import wino_resblock as wr
+
+    stack = contextlib.ExitStack()
+    stack.enter_context(mock.patch.object(layers, "conv3x3_bias_act",
+                                          conv3x3.conv3x3_bias_act_reference))
+    stack.enter_context(mock.patch.object(wr, "wino_resblock_transformed",
+                                          wr.wino_resblock_transformed_reference))
+    return stack
+
+
+def counted(torch, fn, device="cuda"):
+    """fn() with the launch counters zeroed just before it and read just
+    after: (its result, conv3x3 launches by path, fused launches by m)."""
+    from larvanet_tpu_torch.ops import conv3x3
+    from larvanet_tpu_torch.ops import wino_resblock as wr
+
+    conv3x3.reset_launches()
+    wr.reset_launches()
+    out = fn()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return out, dict(conv3x3.LAUNCHES_BY_PATH), dict(wr.LAUNCHES)
+
+
+def expect_forwards(label, by_path, per_forward, forwards):
+    """Fail unless `by_path` is `forwards` forwards' worth of `per_forward`."""
+    want = {p: k * forwards for p, k in per_forward.items()}
+    print("%s: conv3x3 launches by path %s (%d forwards)" % (label, by_path, forwards),
+          flush=True)
+    if by_path != want:
+        raise AssertionError("%s: conv3x3 launches %s, not %d forwards' %s"
+                             % (label, by_path, forwards, want))
+
+
+def tile_count(h, w, tile, overlap):
+    """The tiles TiledUpscaler cuts from an h x w frame (1: a full-frame call)."""
+    from larvanet_tpu_torch.eval.tiling import _tile_starts
+
+    if h < tile or w < tile:
+        return 1
+    stride = tile - overlap
+    return len(_tile_starts(h, tile, stride)) * len(_tile_starts(w, tile, stride))
+
+
+def tile_forwards(h, w, tile, overlap, max_batch=None):
+    """The forwards TiledUpscaler runs on an h x w frame in chunks of
+    `max_batch` (default TILE_MAX_BATCH) tiles."""
+    return math.ceil(tile_count(h, w, tile, overlap) / (max_batch or TILE_MAX_BATCH))
+
+
+def _psnr(a, b) -> float:
+    """PSNR (dB, peak 255) of one frame against another, unclamped."""
+    mse = float(((a.double() - b.double()) ** 2).mean())
+    return float("inf") if mse == 0 else 10.0 * math.log10(255.0 ** 2 / mse)
+
+
+def peak_mb(torch, fn, device="cuda"):
+    """Peak device memory (MB) allocated by PyTorch during one call of fn."""
+    if device != "cuda":
+        fn()
+        return None
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() / 1e6
+
+
+def full_frame_model_phase(torch, label, device="cuda"):
+    """Phases 10a-10c for one model of FULL_FRAME_MODELS on the
+    FULL_FRAME_LR frame: chop, tiles and the self-ensemble through the
+    kernels, each counted and held against its plain version (or the direct
+    forward), then timed with its peak memory. Returns the conv3x3
+    launches by path of the counted runs."""
+    import numpy as np
+
+    from larvanet_tpu_torch.eval.ensemble import self_ensemble_forward
+    from larvanet_tpu_torch.eval.tiling import TiledUpscaler, upscale_with_chop_forward
+
+    name, flags, per_forward, (exact_tile, exact_overlap) = FULL_FRAME_MODELS[label]
+    larva = name != "edsr"
+    h, w = FULL_FRAME_LR
+    rng = np.random.default_rng(SEED + 10)
+    img = photo(rng, h, w)
+    big = photo(rng, *BIG_FRAME_LR)
+    with tempfile.TemporaryDirectory() as tmp:
+        pth = os.path.join(tmp, "%s.pth" % name)
+        if larva:
+            save_larvanet(torch, pth, name, flags, device)
+        else:
+            save_edsr_baseline(torch, pth, img, device)
+        model = larvanet_model(name, flags, device, pth)
+    totals = {}
+
+    def hwc(chw):
+        return torch.from_numpy(np.ascontiguousarray(chw.transpose(1, 2, 0))).to(device)
+
+    def held(what, got, ref, base):
+        """got within FWD_RTOL of ref, relative to ref's largest value
+        (LarvaNet: its residual over `base`, the interpolated base)."""
+        magnitude = ref - base if larva else ref
+        err = float((got - ref).abs().max())
+        bar = FWD_RTOL * float(magnitude.abs().max())
+        print("full frame %s %s: max |d| %.3g (bar %.3g%s)" % (
+            label, what, err, bar, ", relative to the residual" if larva else ""),
+            flush=True)
+        if got.shape != ref.shape or not bool(torch.isfinite(got).all()) or err > bar:
+            raise AssertionError("full frame %s: %s disagrees" % (label, what))
+
+    x = model._input_to_device([img])
+    direct = model.fwd_runtime(x)[0]
+    base = larvanet_base(torch, model, img) if larva else None
+
+    # 10a: chop, 4 quadrants of 179 or 180 x 265
+    def chop():
+        return upscale_with_chop_forward(model, img, 4, CHOP_OVERLAP)
+
+    got, by_path, _ = counted(torch, chop, device)
+    expect_forwards("full frame %s chop" % label, by_path, per_forward, 4)
+    _add(totals, by_path)
+    with plain_versions():
+        ref = chop()
+    got, ref = hwc(got), hwc(ref)
+    held("chop against its plain version", got, ref, base)
+    print("full frame %s chop %d: PSNR %.2f dB against the direct forward, max |d| %.3g"
+          % (label, CHOP_OVERLAP, _psnr(got, direct), float((got - direct).abs().max())))
+
+    # 10b: tiles at the exact overlap (one chunk) against the direct forward,
+    # at the CLIs' default overlap, and on the big frame in chunks of 64
+    tilers = {"tile %d/%d" % (exact_tile, exact_overlap): TiledUpscaler(
+        model.fwd_runtime, 4, exact_tile, exact_overlap, TILE_MAX_BATCH, device),
+        "tile %d/%d" % TILE_DEFAULT: TiledUpscaler(model.fwd_runtime, 4, *TILE_DEFAULT,
+                                                   TILE_MAX_BATCH, device)}
+    for i, (what, tiler) in enumerate(tilers.items()):
+        got, by_path, _ = counted(torch, lambda: tiler.upscale_device(x[0]), device)
+        expect_forwards("full frame %s %s" % (label, what), by_path, per_forward,
+                        tile_forwards(h, w, tiler.tile, tiler.tile - tiler.stride))
+        _add(totals, by_path)
+        if i == 0:
+            held("%s against the direct forward" % what, got, direct, base)
+        else:
+            print("full frame %s %s: max |d| %.3g, PSNR %.2f dB against the direct forward"
+                  % (label, what, float((got - direct).abs().max()), _psnr(got, direct)))
+    xb = model._input_to_device([big])[0]
+    big_tiler = TiledUpscaler(model.fwd_runtime, 4, *TILE_DEFAULT, max_batch=TILE_MAX_BATCH,
+                              device=device)
+    small_tiler = TiledUpscaler(model.fwd_runtime, 4, *TILE_DEFAULT,
+                                max_batch=BIG_FRAME_SMALL_BATCH, device=device)
+    big_label = "tile %d/%d at %dx%d LR" % (TILE_DEFAULT + BIG_FRAME_LR)
+    run = {}
+    mb = peak_mb(torch, lambda: run.update(out=counted(
+        torch, lambda: big_tiler.upscale_device(xb), device)), device)
+    got, by_path, _ = run.pop("out")
+    expect_forwards("full frame %s %s" % (label, big_label), by_path, per_forward,
+                    tile_forwards(*BIG_FRAME_LR, *TILE_DEFAULT))
+    _add(totals, by_path)
+    print("full frame %s %s: %d tiles in chunks of %d, peak memory %s" % (
+        label, big_label, tile_count(*BIG_FRAME_LR, *TILE_DEFAULT), TILE_MAX_BATCH,
+        "not measured" if mb is None else "%.1f MB" % mb), flush=True)
+    held("%s in chunks of %d against chunks of %d" % (
+        big_label, TILE_MAX_BATCH, BIG_FRAME_SMALL_BATCH), got, small_tiler.upscale_device(xb),
+        larvanet_base(torch, model, big) if larva else None)
+    del got
+
+    # 10c: the self-ensemble of the f32 module, its 8 orientations (the
+    # transposed 510x339 frame among them) through the kernels
+    se = self_ensemble_forward(model.module)
+    got, by_path, _ = counted(torch, lambda: se(x)[0], device)
+    expect_forwards("full frame %s self-ensemble" % label, by_path, per_forward, 8)
+    _add(totals, by_path)
+    with plain_versions():
+        ref = se(x)[0]
+    held("self-ensemble against its plain version", got, ref, base)
+    print("full frame %s self-ensemble: PSNR %.2f dB against the direct forward"
+          % (label, _psnr(got, direct)))
+    del got, ref
+
+    if device != "cuda":
+        return totals
+    # times and peak memory, the paths of a group timed in turns
+    frame = "at %dx%d LR" % (h, w)
+    for dname in ("f32", "bf16"):
+        model.set_serving_dtype(dname)
+        light = {"direct " + frame: lambda: model.upscale([img], 4),
+                 "chop %d %s" % (CHOP_OVERLAP, frame): chop}
+        for what, tiler in tilers.items():
+            light["%s %s" % (what, frame)] = lambda tiler=tiler: tiler.upscale_chw(img)
+        heavy = {big_label: lambda: big_tiler.upscale_device(xb)}
+        if dname == "f32":  # the self-ensemble runs the f32 module in either dtype
+            heavy["self-ensemble " + frame] = lambda: se(x)
+        for group, windows, reps in ((light, WINDOWS, TIMED_REPS), (heavy, 3, 2)):
+            for what, t in time_windows(torch, group, windows, reps).items():
+                print("full frame %s %s, %s: %s per frame, peak memory %.1f MB" % (
+                    label, dname, what, spread(t), peak_mb(torch, group[what])), flush=True)
+    model.set_serving_dtype("f32")
+    return totals
+
+
+def write_test_set(root, rng):
+    """Benchmark trees in the layout of the test CLI and the geometry of the
+    JAX package's realistic fixture (its data/fixture_real is generated,
+    not committed): `<root>/test_HR/<dataset>/` and `test_LR/<dataset>/`
+    for SynSetReal and DIV2K_val (LR `<name>x4.png`), TEST_FRAMES `photo`
+    frames each, LR the 4x4 box mean of the HR frame's aligned part.
+    Returns {dataset: image names without the extension}."""
+    import numpy as np
+
+    from larvanet_tpu_torch.data import io
+
+    names = {}
+    for ds in ("SynSetReal", "DIV2K_val"):
+        names[ds] = []
+        for i, (h, w, eh, ew) in enumerate(TEST_FRAMES):
+            hr = photo(rng, 4 * h + eh, 4 * w + ew)
+            lr = np.round(hr[:, :4 * h, :4 * w].reshape(3, h, 4, w, 4).mean((2, 4)))
+            name = "real%03d" % i
+            lr_name = name + ("x4" if ds == "DIV2K_val" else "")
+            io.save_image_chw(hr, os.path.join(root, "test_HR", ds, name + ".png"))
+            io.save_image_chw(lr.astype(np.uint8),
+                              os.path.join(root, "test_LR", ds, lr_name + ".png"))
+            names[ds].append(name)
+    return names
+
+
+def full_frame_cli_phase(torch, device="cuda"):
+    """Phase 10d: the CLIs in this process with EDSR-baseline x4 (phase 6's
+    model): validate on phase 6's set with --chop_forward, --tile_forward
+    (also under --wino_trunk 2 and 4) and --self_ensemble, each image's
+    PSNR within VALIDATE_PSNR_TOL of the same run with the plain versions;
+    serve in chop and tile mode against get_sr's frames of the same mode;
+    test on benchmark trees (`write_test_set`) with and without
+    --chop_forward. Every run's
+    launches are counted. Then 10e (`ema_phase`). Returns (conv3x3
+    launches by path, {m: fused launches by path})."""
+    import numpy as np
+
+    from larvanet_tpu_torch.cli import get_sr, serve, validate
+    from larvanet_tpu_torch.cli import test as test_cli
+    from larvanet_tpu_torch.data import io, png
+
+    conv_totals, fused = {}, {2: {}, 4: {}}
+    f32 = PATH_LAUNCHES["f32"]
+    with tempfile.TemporaryDirectory() as tmp:
+        write_validate_set(tmp)
+        first_lr = io.load_image_u8(os.path.join(tmp, "even", "LR", "X4", "0000x4.png"))
+        pth = os.path.join(tmp, "edsr_x4.pth")
+        save_edsr_baseline(torch, pth, first_lr.transpose(2, 0, 1), device)
+        model_flags = ["--model", "edsr", "--scales", "4", "--device", device,
+                       "--restore_path", pth]
+
+        # validate: (label, flags, subset, --wino_trunk, forwards of an h x w frame)
+        runs = [("chop", ["--chop_forward"], "all", 0, lambda h, w: 4),
+                ("tile", ["--tile_forward"] + VALIDATE_TILE, "all", 0,
+                 lambda h, w: tile_forwards(h, w, 48, 16)),
+                ("self-ensemble", ["--self_ensemble"], "all", 0, lambda h, w: 8)]
+        runs += [("tile --wino_trunk %d" % m, ["--tile_forward"] + VALIDATE_TILE, "even", m,
+                  lambda h, w: tile_forwards(h, w, 48, 16)) for m in (2, 4)]
+        for label, flags, sub, m, forwards_of in runs:
+            frames = VALIDATE_LR + ((VALIDATE_ODD_LR,) if sub == "all" else ())
+            forwards = sum(forwards_of(h, w) for h, w in frames)
+            argv = model_flags + flags + [
+                "--data_input_path", os.path.join(tmp, sub, "LR"),
+                "--data_truth_path", os.path.join(tmp, sub, "HR"), "--wino_trunk", str(m)]
+            reports = [os.path.join(tmp, "%s_%s.json" % (label, side))
+                       for side in ("kernels", "plain")]
+            t0 = time.perf_counter()
+            _, by_path, wino = counted(
+                torch, lambda: validate.main(argv + ["--report_json", reports[0]]), device)
+            seconds = time.perf_counter() - t0
+            with plain_versions():
+                validate.main(argv + ["--report_json", reports[1]])
+            psnrs = []
+            for report in reports:
+                with open(report) as f:
+                    psnrs.append(json.load(f)["scales"]["4"]["per_image"])
+            deltas = {k: abs(psnrs[0][k] - psnrs[1][k]) for k in psnrs[1]}
+            print("full frame validate %s: %d images, %d forwards in %.3f s; PSNRs %s; max "
+                  "|dPSNR| %.3g dB against the plain versions (bar %g)" % (
+                      label, len(frames), forwards, seconds,
+                      ", ".join("%s %.4f" % kv for kv in sorted(psnrs[0].items())),
+                      max(deltas.values()), VALIDATE_PSNR_TOL), flush=True)
+            if sorted(psnrs[0]) != sorted(psnrs[1]) or len(deltas) != len(frames) \
+                    or max(deltas.values()) > VALIDATE_PSNR_TOL:
+                raise AssertionError("full frame validate %s: PSNRs %s, plain %s"
+                                     % (label, psnrs[0], psnrs[1]))
+            expect_forwards("full frame validate %s" % label, by_path,
+                            WINO_CONV_PATH_LAUNCHES["f32"] if m else f32, forwards)
+            _add(conv_totals, by_path)
+            want = {k: (16 * forwards if k == m else 0) for k in (2, 4)}
+            if wino != want:
+                raise AssertionError("full frame validate %s: fused launches %s, not %s"
+                                     % (label, wino, want))
+            if m:
+                _add(fused[m], {"cuda_core": 0, "tensor_core": wino[m]})
+
+        # serve in chop and tile mode, against get_sr's frames of the mode
+        # the full frame and the size of its first chop quadrant
+        rng = np.random.default_rng(SEED + 11)
+        h, w = FULL_FRAME_LR
+        frames = [photo(rng, h, w),
+                  photo(rng, h // 2 + CHOP_OVERLAP // 2, w // 2 + CHOP_OVERLAP // 2)]
+        in_dir = os.path.join(tmp, "frames")
+        for i, f in enumerate(frames):
+            io.save_image_chw(f, os.path.join(in_dir, "f%d.png" % i))
+        for mode, forwards in (("chop", 4 * len(frames)),
+                               ("tile", sum(tile_forwards(*f.shape[1:], *TILE_DEFAULT)
+                                            for f in frames))):
+            flags = ["--%s_forward" % mode]
+            out_dir = os.path.join(tmp, "get_sr_" + mode)
+            get_sr.main(model_flags + ["--input_path", in_dir, "--output_path", out_dir]
+                        + flags)
+            args, remaining = serve.build_parser().parse_known_args(model_flags + flags)
+            service = serve.build_service(args, remaining)
+            service.warmup(128, 128)
+            httpd = serve.make_server(service, "127.0.0.1", 0)
+            thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+            thread.start()
+            url = "http://127.0.0.1:%d" % httpd.server_address[1]
+            try:
+                bodies = [png.encode(f.transpose(1, 2, 0)) for f in frames]
+                replies, by_path, _ = counted(
+                    torch, lambda: [_http(url + "/upscale", b) for b in bodies], device)
+                info = json.loads(_http(url + "/info")[1])
+            finally:
+                httpd.shutdown()
+                httpd.server_close()
+                thread.join(timeout=60)
+            expect_forwards("full frame serve %s" % mode, by_path, f32, forwards)
+            _add(conv_totals, by_path)
+            for i, (code, body) in enumerate(replies):
+                if code != 200:
+                    raise AssertionError("serve %s: request %d: HTTP %d" % (mode, i, code))
+                got = png.decode(body, grey16="clip").astype(np.int16)
+                want = io.load_image_u8(os.path.join(out_dir, "f%d.png" % i)).astype(np.int16)
+                levels = int(np.abs(got - want).max()) if got.shape == want.shape else -1
+                print("full frame serve %s: request %d %s -> %s, max %d uint8 level(s) from "
+                      "get_sr's frame; /info mode %s, device_seconds %s" % (
+                          mode, i, frames[i].shape[1:], got.shape, levels, info["mode"],
+                          info["device_seconds"]), flush=True)
+                if levels < 0 or levels > 1 or info["mode"] != mode:
+                    raise AssertionError("serve %s disagrees with get_sr" % mode)
+
+        # test: the paper protocol on benchmark trees of photo frames
+        root = os.path.join(tmp, "bench")
+        names = write_test_set(root, np.random.default_rng(SEED + 13))
+        for extra in ([], ["--chop_forward"]):
+            report = os.path.join(tmp, "test%d.json" % len(extra))
+            t0 = time.perf_counter()
+            _, by_path, _ = counted(torch, lambda: test_cli.main(
+                model_flags + ["--input_root_path", os.path.join(root, "test_LR"),
+                               "--truth_root_path", os.path.join(root, "test_HR"),
+                               "--output_root_path", os.path.join(tmp, "test_sr"),
+                               "--datasets", ",".join(names), "--report_json", report]
+                + extra), device)
+            seconds = time.perf_counter() - t0
+            with open(report) as f:
+                scores = json.load(f)
+            n_images = sum(len(v) for v in names.values())
+            print("full frame test %s: %d images in %.3f s; %s" % (
+                " ".join(extra) or "(whole frames)", n_images, seconds, "; ".join(
+                    "%s PSNR %.4f SSIM %.4f" % (ds, scores[ds]["mean_psnr"],
+                                                scores[ds]["mean_ssim"]) for ds in names)),
+                flush=True)
+            for ds, n in names.items():
+                per = scores[ds]["per_image"]
+                if sorted(per) != n or not all(
+                        math.isfinite(v["psnr"]) and math.isfinite(v["ssim"])
+                        for v in per.values()):
+                    raise AssertionError("test %s: report %s" % (extra, scores[ds]))
+            expect_forwards("full frame test %s" % " ".join(extra), by_path, f32,
+                            n_images * (4 if extra else 1))
+            _add(conv_totals, by_path)
+
+        _add(conv_totals, ema_phase(torch, tmp, pth, device))
+    return conv_totals, fused
+
+
+def ema_phase(torch, tmp, pth, device="cuda"):
+    """Phase 10e. A .pth (the weights of `pth`) whose .state.pt holds an
+    average that differs from them; validate --ema on phase 6's set under
+    `tmp` must write the frames of the average's own forward, bit for bit.
+    Returns validate's conv3x3 launches by path."""
+    import numpy as np
+
+    from larvanet_tpu_torch.cli import validate
+    from larvanet_tpu_torch.core.registry import get_model
+    from larvanet_tpu_torch.data import io
+
+    trainer = get_model("edsr")
+    trainer.parse_args([])
+    trainer.ema_decay = 0.9
+    trainer.prepare([4], device=device, seed=SEED, is_training=True)
+    trainer.restore(pth)
+    gen = torch.Generator(device=device).manual_seed(SEED + 12)
+    average = [p.detach() * (1 + 0.05 * torch.randn(p.shape, generator=gen, device=device))
+               for p in trainer.module.parameters()]
+    trainer.ema.load(average)
+    ema_pth = trainer.save(os.path.join(tmp, "ema"))
+    out_dir = os.path.join(tmp, "ema_sr")
+    lr_dir = os.path.join(tmp, "all", "LR")
+    _, by_path, _ = counted(torch, lambda: validate.main(
+        ["--model", "edsr", "--scales", "4", "--device", device, "--restore_path", ema_pth,
+         "--ema", "1", "--data_input_path", lr_dir,
+         "--data_truth_path", os.path.join(tmp, "all", "HR"), "--save_path", out_dir]), device)
+    n_images = len(VALIDATE_LR) + 1
+    expect_forwards("full frame validate --ema", by_path, PATH_LAUNCHES["f32"], n_images)
+
+    models = []
+    for weights in (average, None):
+        model = get_model("edsr")
+        model.parse_args([])
+        model.prepare([4], device=device, seed=SEED)
+        model.restore(pth)
+        if weights is not None:
+            with torch.no_grad():
+                for p, a in zip(model.module.parameters(), weights):
+                    p.copy_(a)
+        models.append(model)
+    differ = 0
+    for name in io.list_pngs(os.path.join(tmp, "all", "HR")):
+        lr = io.load_image_chw(os.path.join(lr_dir, "X4", name + "x4.png"))
+        got = io.load_image_u8(os.path.join(out_dir, "x4", name + ".png")).transpose(2, 0, 1)
+        if not np.array_equal(got, models[0].upscale_uint8([lr], 4)[0]):
+            raise AssertionError("validate --ema: frame %s is not the average's forward" % name)
+        differ += int(not np.array_equal(got, models[1].upscale_uint8([lr], 4)[0]))
+    print("full frame validate --ema: %d frames equal the average's forward bit for bit; "
+          "%d of them differ from the weights' forward" % (n_images, differ), flush=True)
+    if differ == 0:
+        raise AssertionError("validate --ema: the average gives the weights' frames")
+    return by_path
+
+
+def full_frame_phase(torch, device="cuda"):
+    """Phase 10. Returns {"conv3x3": launches by path, "wino": {m: fused
+    launches by path}} of every counted run."""
+    conv = {}
+    for label in FULL_FRAME_MODELS:
+        _add(conv, full_frame_model_phase(torch, label, device))
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    cli_conv, fused = full_frame_cli_phase(torch, device)
+    _add(conv, cli_conv)
+    return {"conv3x3": conv, "wino": fused}
+
+
 def print_sass_mix(build):
     """The instruction mix of each tensor-core and narrow kernel in the
     built libraries (cuobjdump -sass): ldmatrix, tensor-core products,
@@ -1881,6 +2399,8 @@ def main() -> int:
     wgrad_err, wgrad_rel = max(wgrad_err, larva_wgrad_err), max(wgrad_rel, larva_wgrad_rel)
     # the counted train steps' launches, and the V2 run's
     trained = [train_launches, larva_train["step"], larva_train["v2"]]
+    torch.cuda.empty_cache()
+    full_frame = full_frame_phase(torch)
 
     kernels = [{
         "name": "conv3x3_bias_act",
@@ -1888,9 +2408,11 @@ def main() -> int:
         "source": "larvanet_tpu_torch/csrc/conv3x3_bias_act.cu",
         "replaces": "larvanet_tpu/ops/pallas_conv.py:61",
         "launches": launches + sum(sum(run[k].values()) for run in trained
-                                   for k in ("forward", "dgrad")),
-        "launches_by_path": {p: by_path[p] + sum(run["forward"][p] + run["dgrad"][p]
-                                                 for run in trained) for p in by_path},
+                                   for k in ("forward", "dgrad"))
+        + sum(full_frame["conv3x3"].values()),
+        "launches_by_path": {p: by_path[p] + full_frame["conv3x3"].get(p, 0)
+                             + sum(run["forward"][p] + run["dgrad"][p] for run in trained)
+                             for p in by_path},
         "max_abs_err": worst["f32"],
         "ms": sums["f32"]["ms"],
         "plain_ms": sums["f32"]["plain_ms"],
@@ -1918,6 +2440,8 @@ def main() -> int:
                            "dgrad_by_path": larva_train["step"]["dgrad"],
                            "v2_run": {k: larva_train["v2"][k] for k in ("forward", "dgrad")},
                            "dgrad": larva_dgrad},
+        # phase 10's counted chop, tile, self-ensemble and CLI runs, by path
+        "full_frame": full_frame["conv3x3"],
     }, {
         "name": "conv3x3_wgrad",
         "route": "cuda",
@@ -1944,7 +2468,8 @@ def main() -> int:
         wsums, werr = wino[m]
         by_path = {}
         for part in (fwd_launches[m], validate_launches[m], runtime_launches[m],
-                     larva_fwd_launches[m], larva_validate_launches[m]):
+                     larva_fwd_launches[m], larva_validate_launches[m],
+                     full_frame["wino"][m]):
             _add(by_path, part)
         kernels.append({
             "name": "wino_resblock_f%d" % m,
@@ -1961,6 +2486,8 @@ def main() -> int:
             "library_ms": wsums["f32"]["library_ms"],
             "cuda_core_ms": wsums["f32"]["cuda_core_ms"],
             "bf16": dict(wsums["bf16"], max_abs_err=werr["bf16"]),
+            # phase 10's validate --tile_forward --wino_trunk m
+            "full_frame": full_frame["wino"][m],
         })
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())

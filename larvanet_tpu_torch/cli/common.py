@@ -114,6 +114,54 @@ def add_fused_opt_flag(parser: argparse.ArgumentParser) -> None:
                              "element); accepted and ignored.")
 
 
+def add_ema_flag(parser: argparse.ArgumentParser) -> None:
+    parser.add_argument("--ema", type=int, default=0,
+                        help="Serve the EMA weights of a --ema_decay checkpoint (a "
+                             "JAX .ckpt's average, or the .state.pt beside a .pth).")
+
+
+def maybe_use_ema(model, args) -> None:
+    """Swap the restored parameter average into the model when --ema is set
+    (larvanet_tpu/cli/common.py:222-228). Runs right after restore, before
+    apply_serving_dtype and maybe_wino_trunk, which read the weights."""
+    if getattr(args, "ema", 0):
+        model.use_ema_params()
+        print("serving the EMA weights (--ema)")
+
+
+def add_chop_flags(parser: argparse.ArgumentParser) -> None:
+    parser.add_argument("--chop_forward", action="store_true",
+                        help="The reference's chop-forward: the frame in 2x2 "
+                             "overlapping quadrants, each upscaled on its own.")
+    parser.add_argument("--chop_overlap_size", type=int, default=20,
+                        help="The overlap of the chop-forward quadrants; an odd "
+                             "pixel is dropped, as in the reference.")
+
+
+def add_tile_flags(parser: argparse.ArgumentParser) -> None:
+    parser.add_argument("--tile_forward", action="store_true",
+                        help="Overlapping fixed-size LR tiles, batched through "
+                             "the forward on the device (eval/tiling.py).")
+    parser.add_argument("--tile_size", type=int, default=128,
+                        help="LR tile size for --tile_forward.")
+    parser.add_argument("--tile_overlap", type=int, default=24,
+                        help="LR tile overlap for --tile_forward; the tiles "
+                             "equal the full-frame forward when half of it "
+                             "exceeds the model's receptive radius.")
+
+
+def make_tiler(model, args, forward=None):
+    """The TiledUpscaler of --tile_forward over `forward` (default: the
+    model's serving forward, `fwd_runtime`), or None without the flag."""
+    from larvanet_tpu_torch.eval.tiling import TiledUpscaler
+
+    if not getattr(args, "tile_forward", False):
+        return None
+    return TiledUpscaler(forward or model.fwd_runtime, scale=model.scale,
+                         tile_size=args.tile_size, overlap=args.tile_overlap,
+                         device=model.device)
+
+
 def add_serving_dtype_flag(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("--serving_dtype", type=str, default="f32",
                         choices=["f32", "bf16"],

@@ -3,16 +3,20 @@
 
     python -m larvanet_tpu_torch.cli.get_sr --model edsr --scales 4 \\
         --restore_path model.pth --input_path LR --output_path SR \\
-        [--serving_dtype bf16] [--device cpu]
+        [--serving_dtype bf16] [--chop_forward | --tile_forward] [--ema 1] \\
+        [--device cpu]
 
 Frames cross to the device as uint8, are quantized there before the pull
 (--device_uint8), and are dispatched ahead (--pipeline_depth); the mean
-latency per frame is printed at the end.
+latency per frame is printed at the end. --chop_forward (the reference's
+2x2 chop) and --tile_forward (batched tiles, eval/tiling.py) take the f32
+frame and write the f32 output, quantized by the PNG writer, as JAX's
+get_sr does. --restore_path takes a .pth or a JAX .ckpt; --ema serves its
+parameter average.
 
-Not ported yet, refused with a pointer to ROADMAP.md: --chop_forward,
---tile_forward, --spatial_shard, --int8_trunk, --dp_devices, --ema.
---collapsed_tail, --packed_trunk and --plain_frame_px are TPU routing
-settings: accepted and ignored.
+Not ported yet, refused with a pointer to ROADMAP.md: --spatial_shard,
+--int8_trunk, --dp_devices. --collapsed_tail, --packed_trunk and
+--plain_frame_px are TPU routing settings: accepted and ignored.
 """
 
 from __future__ import annotations
@@ -26,9 +30,9 @@ import numpy as np
 from larvanet_tpu_torch.cli import common
 from larvanet_tpu_torch.data import io
 from larvanet_tpu_torch.eval.pipeline import pipelined_upscale
+from larvanet_tpu_torch.eval.tiling import upscale_with_chop_forward
 
-REFUSED = ("chop_forward", "tile_forward", "spatial_shard", "int8_trunk", "dp_devices",
-           "ema")
+REFUSED = ("spatial_shard", "int8_trunk", "dp_devices")
 IGNORED = ("collapsed_tail", "packed_trunk", "plain_frame_px")
 
 
@@ -42,7 +46,11 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--output_path", type=str, required=True,
                         help="Base path of the output images.")
     parser.add_argument("--restore_path", type=str, required=True,
-                        help="A .pth state_dict (the reference's format).")
+                        help="A .pth state_dict (the reference's format) or a "
+                             "JAX msgpack .ckpt.")
+    common.add_chop_flags(parser)
+    common.add_tile_flags(parser)
+    common.add_ema_flag(parser)
     parser.add_argument("--device_uint8", type=int, default=1,
                         help="Quantize SR frames to uint8 on the device before the "
                              "pull (byte-equal to host quantization). 0 pulls f32.")
@@ -62,8 +70,13 @@ def main(argv=None):
     model, _, remaining = common.setup_model(args.model, remaining, scale_list, device)
     common.warn_leftovers(remaining)
     model.restore(args.restore_path)
+    common.maybe_use_ema(model, args)
     common.apply_serving_dtype(model, args)
     print("restored the model")
+    tiler = common.make_tiler(model, args)
+    # the direct path pushes uint8 frames; chop and tiles take the f32 loader
+    # frame, as in JAX (larvanet_tpu/cli/get_sr.py:112-117)
+    direct_u8 = args.device_uint8 and not args.chop_forward and tiler is None
 
     image_names = io.list_pngs(args.input_path)
     print("%d images are prepared" % (len(image_names),))
@@ -72,12 +85,12 @@ def main(argv=None):
 
     def frame(name):
         path = os.path.join(args.input_path, name + ".png")
-        if args.device_uint8:  # uint8 push, cast to f32 on the device
+        if direct_u8:  # uint8 push, cast to f32 on the device
             return io.load_image_u8(path).transpose(2, 0, 1)
         return io.load_image_chw(path)
 
     duration_list = []
-    if args.device_uint8 and args.pipeline_depth > 1:
+    if direct_u8 and args.pipeline_depth > 1:
         frames = ((name, frame(name)) for name in image_names)
         results = pipelined_upscale(model, frames, scale, depth=args.pipeline_depth)
     else:
@@ -85,7 +98,12 @@ def main(argv=None):
             for name in image_names:
                 input_image = frame(name)
                 start_time = time.perf_counter()
-                if args.device_uint8:
+                if args.chop_forward:
+                    output = upscale_with_chop_forward(model, input_image, scale,
+                                                       args.chop_overlap_size)
+                elif tiler is not None:
+                    output = tiler.upscale_chw(input_image)
+                elif args.device_uint8:
                     output = model.upscale_uint8([input_image], scale)[0]
                 else:
                     output = model.upscale([input_image], scale)[0]

@@ -7,12 +7,12 @@ kernels and are not timed:
 
     python -m larvanet_tpu_torch.cli.runtime --model edsr --scales 4 \\
         --input_height 339 --input_width 510 [--restore_path model.pth] \\
-        [--wino_trunk 2|4] [--serving_dtype bf16] [--device cpu]
+        [--wino_trunk 2|4] [--serving_dtype bf16] [--ema 1] [--device cpu]
 
-Without --restore_path the weights are random from the seed. Refused
-with a pointer to ROADMAP.md: --int8_trunk, --ema. --collapsed_tail,
---packed_trunk and --plain_frame_px are TPU routing settings: accepted
-and ignored.
+Without --restore_path the weights are random from the seed (and --ema,
+as in JAX, does nothing); it takes a .pth or a JAX .ckpt. Refused with a
+pointer to ROADMAP.md: --int8_trunk. --collapsed_tail, --packed_trunk and
+--plain_frame_px are TPU routing settings: accepted and ignored.
 """
 
 from __future__ import annotations
@@ -25,7 +25,7 @@ import torch
 
 from larvanet_tpu_torch.cli import common
 
-REFUSED = ("int8_trunk", "ema")
+REFUSED = ("int8_trunk",)
 IGNORED = ("collapsed_tail", "packed_trunk", "plain_frame_px")
 
 
@@ -33,7 +33,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser()
     common.add_common_flags(parser, default_loader="div2k_val_loader", default_model="edsr")
     parser.add_argument("--restore_path", type=str,
-                        help="A .pth state_dict (optional: random weights if omitted).")
+                        help="A .pth state_dict or a JAX .ckpt (optional: random "
+                             "weights if omitted).")
     parser.add_argument("--input_width", type=int, default=0,
                         help="Fixed input width (0 = use the dataloader's real images).")
     parser.add_argument("--input_height", type=int, default=0)
@@ -41,6 +42,7 @@ def build_parser() -> argparse.ArgumentParser:
                         help="Warmup forwards, not timed.")
     parser.add_argument("--num_iters", type=int, default=10,
                         help="Timed iterations per image/shape.")
+    common.add_ema_flag(parser)
     common.add_wino_trunk_flag(parser)
     common.add_refused_flags(parser, REFUSED, IGNORED)
     common.add_serving_dtype_flag(parser)
@@ -61,6 +63,7 @@ def main(argv=None):
     common.warn_leftovers(remaining)
     if args.restore_path:
         model.restore(args.restore_path)
+        common.maybe_use_ema(model, args)
         print("restored the model")
     common.apply_serving_dtype(model, args)
     common.maybe_wino_trunk(model, args)

@@ -1,11 +1,12 @@
 """Production serving: a persistent HTTP SR server on the card.
 
-The port of larvanet_tpu/cli/serve.py in its direct mode: the
-checkpoint is restored and the kernels built once, then every request
-reuses them. Only the standard library's HTTP server:
+The port of larvanet_tpu/cli/serve.py: the checkpoint is restored and
+the kernels built once, then every request reuses them. Only the
+standard library's HTTP server:
 
     python -m larvanet_tpu_torch.cli.serve --model edsr --scales 4 \
-        --restore_path model.pth --port 8080 [--dynamic_batch 4]
+        --restore_path model.pth --port 8080 [--dynamic_batch 4] \
+        [--chop_forward | --tile_forward] [--ema 1]
     python -m larvanet_tpu_torch.cli.serve --model LarvaNet --num_modules 2 \
         --num_blocks 16,16 --scales 4 --restore_path larvanet.pth
 
@@ -25,10 +26,17 @@ and the device->host pull of a finished batch runs outside the dispatch
 lock, so the next batch's kernels are queued behind it (up to
 --pipeline_depth batches launched but not yet pulled).
 
+Modes (`/info` "mode"): "direct" above; "chop" (--chop_forward, the
+reference's 2x2 chop) and "tile" (--tile_forward, batched tiles) run each
+request alone through eval/tiling.py under the dispatch lock, as JAX's
+server does; --dynamic_batch > 1 does not compose with them and exits.
+--restore_path takes a .pth or a JAX .ckpt; --ema serves its parameter
+average.
+
 Not ported yet, refused with a pointer to ROADMAP.md: --artifact,
---chop_forward, --tile_forward, --int8_trunk, --spatial_shard,
---dp_devices, --ema. --collapsed_tail and --packed_trunk are TPU layout
-rewrites of the same function: accepted, ignored, with a notice.
+--int8_trunk, --spatial_shard, --dp_devices. --collapsed_tail and
+--packed_trunk are TPU layout rewrites of the same function: accepted,
+ignored, with a notice.
 """
 
 from __future__ import annotations
@@ -47,9 +55,9 @@ import torch
 
 from larvanet_tpu_torch.cli import common
 from larvanet_tpu_torch.data import png
+from larvanet_tpu_torch.eval.tiling import upscale_with_chop_forward
 
-REFUSED = ("artifact", "chop_forward", "tile_forward", "int8_trunk",
-           "spatial_shard", "dp_devices", "ema")
+REFUSED = ("artifact", "int8_trunk", "spatial_shard", "dp_devices")
 IGNORED = ("collapsed_tail", "packed_trunk")
 
 
@@ -77,14 +85,26 @@ class SRService:
     geometry in one forward. Batch sizes come from power-of-two buckets
     no larger than the number waiting, so nothing is padded and a lone
     request runs at once at batch 1. Per-request device and queue-wait
-    latencies go into a sliding window for /info."""
+    latencies go into a sliding window for /info.
+
+    `mode` "chop" (the reference's chop-forward, `chop_overlap`) or "tile"
+    (`tiler`, a TiledUpscaler) runs each request alone through that
+    forward, which pulls its f32 frame itself."""
 
     def __init__(self, model, scale: int, max_queue: int = 32,
                  latency_window: int = 1024, dynamic_batch: int = 1,
                  device_uint8: bool = True, pipeline_depth: int = 2,
-                 uint8_input: bool = True):
+                 uint8_input: bool = True, mode: str = "direct", tiler=None,
+                 chop_overlap: int = 20):
+        if mode not in ("direct", "chop", "tile") or (mode == "tile") != (tiler is not None):
+            raise ValueError("mode %r with tiler %r" % (mode, tiler))
+        if mode != "direct" and int(dynamic_batch) > 1:
+            raise ValueError("--dynamic_batch coalesces direct forwards only")
         self.model = model
         self.scale = scale
+        self.mode = mode
+        self.tiler = tiler
+        self.chop_overlap = int(chop_overlap)
         # quantize on the device before the pull: a quarter of the bytes,
         # and byte-equal to quantizing the f32 frame on the host
         self.device_uint8 = bool(device_uint8)
@@ -118,6 +138,13 @@ class SRService:
         """Launch the forward on `imgs` (a whole bucket) and return a
         zero-argument `pull()` that copies the outputs to the host and
         returns them as a list of CHW arrays."""
+        if self.mode == "chop":
+            out = upscale_with_chop_forward(self.model, imgs[0], self.scale,
+                                            self.chop_overlap)
+            return lambda: [out]
+        if self.mode == "tile":
+            out = self.tiler.upscale_chw(imgs[0])
+            return lambda: [out]
         dev = self.model.upscale_device(imgs, self.scale, uint8=self.device_uint8)
 
         def pull():
@@ -255,7 +282,7 @@ class SRService:
         return {
             "model": self.model.registry_name,
             "scale": self.scale,
-            "mode": "direct",
+            "mode": self.mode,
             "device": str(self.model.device),
             "ready": self.ready,
             "draining": self.draining,
@@ -429,7 +456,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--scales", type=str, default="4")
     common.add_device_flags(parser)
     parser.add_argument("--restore_path", type=str, default=None,
-                        help="A .pth state_dict (the reference's format).")
+                        help="A .pth state_dict (the reference's format) or a "
+                             "JAX msgpack .ckpt.")
     parser.add_argument("--host", type=str, default="127.0.0.1")
     parser.add_argument("--port", type=int, default=8080,
                         help="0 picks an ephemeral port (printed at startup).")
@@ -457,6 +485,9 @@ def build_parser() -> argparse.ArgumentParser:
                              "into one batched forward.")
     parser.add_argument("--warmup_size", type=str, default="128x128",
                         help="WxH run through the model before serving traffic.")
+    common.add_chop_flags(parser)
+    common.add_tile_flags(parser)
+    common.add_ema_flag(parser)
     common.add_refused_flags(parser, REFUSED, IGNORED)
     common.add_serving_dtype_flag(parser)
     return parser
@@ -465,15 +496,23 @@ def build_parser() -> argparse.ArgumentParser:
 def build_service(args, remaining) -> SRService:
     """Restore the model on the device and wrap it in an SRService."""
     common.refuse_unported(args, REFUSED, IGNORED, "serve")
+    mode = "chop" if args.chop_forward else "tile" if args.tile_forward else "direct"
+    if args.dynamic_batch > 1 and mode != "direct":
+        raise SystemExit("--dynamic_batch coalesces same-geometry direct forwards; it "
+                         "does not compose with --%s_forward (the tiler already batches "
+                         "tiles within a request)" % mode)
     device = common.resolve_device(args)
     scales = common.scales_of(args)
     model, _, remaining = common.setup_model(args.model, remaining, scales, device)
     scale = model.scale
     common.warn_leftovers(remaining)
     model.restore(args.restore_path)
+    common.maybe_use_ema(model, args)
     common.apply_serving_dtype(model, args)
     print("restored the model")
-    return SRService(model, scale,
+    tiler = common.make_tiler(model, args) if mode == "tile" else None
+    return SRService(model, scale, mode=mode, tiler=tiler,
+                     chop_overlap=args.chop_overlap_size,
                      max_queue=args.max_queue,
                      dynamic_batch=args.dynamic_batch,
                      pipeline_depth=args.pipeline_depth,
@@ -484,7 +523,7 @@ def build_service(args, remaining) -> SRService:
 def main(argv=None):
     args, remaining = build_parser().parse_known_args(argv)
     if not args.restore_path:
-        raise SystemExit("pass --restore_path (a .pth checkpoint)")
+        raise SystemExit("pass --restore_path (a .pth or .ckpt checkpoint)")
     service = build_service(args, remaining)
     w, h = (int(v) for v in args.warmup_size.split("x"))
     print("warmup %dx%d ..." % (w, h))

@@ -8,6 +8,7 @@ scale (reference validate.py:83-123):
     python -m larvanet_tpu_torch.cli.validate --model edsr --scales 4 \\
         --restore_path model.pth --data_input_path LR --data_truth_path HR \\
         [--wino_trunk 2|4] [--serving_dtype bf16] [--report_json r.json] \\
+        [--chop_forward | --tile_forward] [--self_ensemble] [--ema 1] \\
         [--device cpu]
 
 By default the frame is quantized on the device before the pull
@@ -16,12 +17,20 @@ both give the serial loop's bytes. --wino_trunk runs every 64-channel
 trunk ResBlock (EDSR, LarvaNet_w64) as one fused Winograd kernel; a
 48-channel LarvaNet trunk keeps the direct convs. --model takes edsr and
 every LarvaNet-family preset (their flags after it, e.g. --num_modules 2
---num_blocks 16,16).
+--num_blocks 16,16). --restore_path takes a .pth or a JAX .ckpt.
 
-Not ported yet, refused with a pointer to ROADMAP.md: --chop_forward,
---tile_forward, --self_ensemble, --artifact, --int8_trunk, --int8_report,
---dp_devices, --spatial_shard, --ema. --collapsed_tail and --packed_trunk
-are TPU layout rewrites of the same function: accepted and ignored.
+Full frames in pieces (eval/tiling.py): --chop_forward is the
+reference's 2x2 chop (--chop_overlap_size), --tile_forward the batched
+tiles (--tile_size, --tile_overlap); both run the serving forward.
+--self_ensemble averages the x8 dihedral orientations of the f32 module
+forward, as JAX runs its module graph there, whatever --serving_dtype and
+--wino_trunk say; with --tile_forward it is the tiles' forward. --ema
+serves the checkpoint's parameter average.
+
+Not ported yet, refused with a pointer to ROADMAP.md: --artifact,
+--int8_trunk, --int8_report, --dp_devices, --spatial_shard.
+--collapsed_tail and --packed_trunk are TPU layout rewrites of the same
+function: accepted and ignored.
 """
 
 from __future__ import annotations
@@ -36,10 +45,11 @@ import numpy as np
 from larvanet_tpu_torch.cli import common
 from larvanet_tpu_torch.data import io
 from larvanet_tpu_torch.eval import metrics
+from larvanet_tpu_torch.eval.ensemble import self_ensemble_forward
 from larvanet_tpu_torch.eval.pipeline import pipelined_upscale
+from larvanet_tpu_torch.eval.tiling import upscale_with_chop_forward
 
-REFUSED = ("chop_forward", "tile_forward", "self_ensemble", "artifact", "int8_trunk",
-           "int8_report", "dp_devices", "spatial_shard", "ema")
+REFUSED = ("artifact", "int8_trunk", "int8_report", "dp_devices", "spatial_shard")
 IGNORED = ("collapsed_tail", "packed_trunk")
 
 
@@ -47,7 +57,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser()
     common.add_common_flags(parser, default_loader="div2k_val_loader", default_model="edsr")
     parser.add_argument("--restore_path", type=str, default=None,
-                        help="A .pth state_dict (the reference's format).")
+                        help="A .pth state_dict (the reference's format) or a "
+                             "JAX msgpack .ckpt.")
     parser.add_argument("--save_path", type=str,
                         help="Base output path of the upscaled images.")
     parser.add_argument("--device_uint8", type=int, default=1,
@@ -59,6 +70,12 @@ def build_parser() -> argparse.ArgumentParser:
                              "before pulling frame i (eval/pipeline.py; 1 = serial).")
     parser.add_argument("--report_json", type=str,
                         help="Write per-image and mean PSNRs to this JSON file.")
+    common.add_chop_flags(parser)
+    common.add_tile_flags(parser)
+    parser.add_argument("--self_ensemble", action="store_true",
+                        help="x8 dihedral test-time augmentation of the f32 module "
+                             "forward (eval/ensemble.py).")
+    common.add_ema_flag(parser)
     common.add_wino_trunk_flag(parser)
     common.add_refused_flags(parser, REFUSED, IGNORED)
     common.add_serving_dtype_flag(parser)
@@ -69,16 +86,21 @@ def main(argv=None):
     args, remaining = build_parser().parse_known_args(argv)
     common.refuse_unported(args, REFUSED, IGNORED, "validate")
     if not args.restore_path:
-        raise SystemExit("pass --restore_path (a .pth checkpoint)")
+        raise SystemExit("pass --restore_path (a .pth or .ckpt checkpoint)")
     device = common.resolve_device(args)
     scale_list = common.scales_of(args)
     dataloader, _, remaining = common.setup_loader(args.dataloader, remaining, scale_list)
     model, _, remaining = common.setup_model(args.model, remaining, scale_list, device)
     common.warn_leftovers(remaining)
     model.restore(args.restore_path)
+    common.maybe_use_ema(model, args)
     common.apply_serving_dtype(model, args)
     print("restored the model")
     common.maybe_wino_trunk(model, args)
+    # the ensemble runs the f32 module graph, as JAX's runs _forward_impl
+    forward = self_ensemble_forward(model.module) if args.self_ensemble else None
+    tiler = common.make_tiler(model, args, forward)
+    direct = not (args.chop_forward or tiler is not None or args.self_ensemble)
 
     print("begin validation")
     num_images = dataloader.get_num_images()
@@ -102,7 +124,7 @@ def main(argv=None):
             print("x%d, %d/%d, psnr=%.2f, duration=%.4f"
                   % (scale, image_index + 1, num_images, psnr, duration))
 
-        if args.device_uint8 and args.pipeline_depth > 1:
+        if direct and args.device_uint8 and args.pipeline_depth > 1:
             def items():
                 for image_index in range(num_images):
                     input_image, truth_image, image_name = dataloader.get_image_pair(
@@ -117,7 +139,15 @@ def main(argv=None):
                 input_image, truth_image, image_name = dataloader.get_image_pair(
                     image_index=image_index, scale=scale)
                 start_time = time.perf_counter()
-                if args.device_uint8:
+                if args.chop_forward:
+                    output_image = upscale_with_chop_forward(
+                        model, input_image, scale, args.chop_overlap_size)
+                elif tiler is not None:
+                    output_image = tiler.upscale_chw(input_image)
+                elif args.self_ensemble:
+                    out = forward(model._input_to_device([input_image]))
+                    output_image = out[0].cpu().numpy().transpose(2, 0, 1)
+                elif args.device_uint8:
                     output_image = model.upscale_uint8([input_image], scale)[0]
                 else:
                     output_image = model.upscale([input_image], scale)[0]

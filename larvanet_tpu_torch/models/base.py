@@ -31,8 +31,14 @@ JAX package's jitted closures become plain calls of the module.
     partial restore, base.py:889-921). When training it also loads the
     state file, if there is one and the `.pth` covered every key; a
     `.pth` alone restarts the moments and leaves the average at the
-    weights `prepare` built, as in the reference and JAX. msgpack `.ckpt`
-    files and orbax directories need flax and are refused.
+    weights `prepare` built, as in the reference and JAX. Any other file
+    is a flax msgpack checkpoint of the JAX package (`model_<step>.ckpt`),
+    read for evaluation by the port's own reader (`utils/flax_msgpack`):
+    its params, step, volume and EMA subtree. Orbax directories are
+    refused.
+  * `use_ema_params()` swaps the restored parameter average into the
+    module (the eval CLIs' `--ema`): a `.ckpt`'s EMA subtree, or the
+    `"ema"` of the `.state.pt` beside a `.pth`.
   * `set_serving_dtype("bf16")` serves through a bf16 copy of the module,
     so every conv runs the kernel's bf16 variant (the counterpart of
     serving_compute_dtype, models/base.py:42-54); the module keeps its f32
@@ -61,7 +67,9 @@ from torch import nn
 
 from larvanet_tpu_torch.eval.metrics import psnr_rgb_device
 from larvanet_tpu_torch.train.losses import l1_loss
-from larvanet_tpu_torch.utils.torch_convert import load_pth
+from larvanet_tpu_torch.utils import flax_msgpack
+from larvanet_tpu_torch.utils.torch_convert import (EXPORT_RULES, load_pth,
+                                                    state_dict_from_jax_params)
 
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 
@@ -130,6 +138,10 @@ class SRModel:
         self.is_training = False
         self.optimizer: Optional[torch.optim.Optimizer] = None
         self.ema: Optional[ParamEMA] = None
+        # an evaluation restore's parameter average for use_ema_params: a
+        # .ckpt's EMA subtree, or the state file beside a .pth (read on use)
+        self._restored_ema: Optional[Dict[str, torch.Tensor]] = None
+        self._ema_state_file: Optional[str] = None
         # set before prepare, as the train CLI does
         self.ema_decay = 0.0
         self.grad_accum = 1
@@ -228,28 +240,38 @@ class SRModel:
         self.total_volume = float(state.get("total_volume", self.total_volume))
 
     def restore(self, ckpt_path: str, strict: bool = True) -> None:
-        """Restore a `.pth` state_dict (`load_state_dict`, strict or
-        partial); when training, also its state file (`state_path`) if it
-        exists and the `.pth` covered every key of the module: the step,
-        `total_volume`, Adam's moments and the average continue where the
-        saved run stopped. Without one the moments restart and the average
-        stays where `prepare` made it, from the weights the module had
-        then, as the reference and JAX's `_restore_pth` leave them
-        (larvanet_tpu/models/base.py:160-164, :786-852): the restored
-        weights reach the average only through its updates."""
-        if not ckpt_path.endswith((".pth", ".pt")):
-            kind = "an orbax directory" if os.path.isdir(ckpt_path) \
-                else "a msgpack checkpoint"
+        """Restore a checkpoint, strict or partial (`load_state_dict`).
+
+        A `.pth` state_dict; when training, also its state file
+        (`state_path`) if it exists and the `.pth` covered every key of the
+        module: the step, `total_volume`, Adam's moments and the average
+        continue where the saved run stopped. Without one the moments
+        restart and the average stays where `prepare` made it, from the
+        weights the module had then, as the reference and JAX's
+        `_restore_pth` leave them (larvanet_tpu/models/base.py:160-164,
+        :786-852): the restored weights reach the average only through its
+        updates. For evaluation the state file is only remembered, for
+        `use_ema_params`.
+
+        Any other file is a flax msgpack checkpoint, restored for
+        evaluation as JAX's `restore` does (base.py:615-646, :775-785)."""
+        self._restored_ema = self._ema_state_file = None
+        if os.path.isdir(ckpt_path):
             raise ValueError(
-                "%s is %s: restoring it needs flax, which the port does not "
-                "use; convert it to .pth with the JAX package "
+                "%s is an orbax directory: restoring it needs orbax, which the port "
+                "does not use; convert it to .pth with the JAX package "
                 "(larvanet_tpu.utils.torch_convert.save_pth). See ROADMAP.md."
-                % (ckpt_path, kind))
-        complete = self.load_state_dict(load_pth(ckpt_path), strict=strict)
-        if self.optimizer is None:
+                % (ckpt_path,))
+        if not ckpt_path.endswith((".pth", ".pt")):
+            self._restore_msgpack(ckpt_path, strict)
             return
+        complete = self.load_state_dict(load_pth(ckpt_path), strict=strict)
         saved = state_path(ckpt_path)
         if not os.path.exists(saved):
+            return
+        if self.optimizer is None:
+            if complete:
+                self._ema_state_file = saved
             return
         if not complete:
             print("restore: %s covers part of the model; its training state (%s) is "
@@ -261,6 +283,71 @@ class SRModel:
                 "%s was saved %s an EMA; --ema_decay must be consistent across a "
                 "resumed run" % (saved, "without" if state["ema"] is None else "with"))
         self._load_train_state(state)
+
+    def _restore_msgpack(self, ckpt_path: str, strict: bool) -> None:
+        """A JAX `.ckpt` (flax msgpack): `params` through the port's copy of
+        the export rules into `load_state_dict`, `global_step`,
+        `total_volume`, and the EMA subtree (`ema_params`, or the {"ema": …}
+        node in `opt_state`) kept for `use_ema_params`."""
+        if self.optimizer is not None:
+            raise ValueError(
+                "%s is a msgpack checkpoint: resuming training from it needs optax's "
+                "Adam moments in torch's optimizer layout, which is not ported yet "
+                "(ROADMAP.md, queue 1 item 5); restore it for evaluation, or convert "
+                "it to .pth with the JAX package (larvanet_tpu.utils.torch_convert."
+                "save_pth) and resume from that" % (ckpt_path,))
+        if self.registry_name not in EXPORT_RULES:
+            raise ValueError("no conversion rules for the parameters of model %r"
+                             % (self.registry_name,))
+        with open(ckpt_path, "rb") as f:
+            state = flax_msgpack.restore(f.read())
+        if not isinstance(state, dict) or not isinstance(state.get("params"), dict):
+            raise ValueError("%s holds no params tree" % (ckpt_path,))
+        self.load_state_dict(self._from_jax_tree(state["params"]), strict=strict)
+        self.global_step = int(state.get("global_step", self.global_step))
+        self.total_volume = float(state.get("total_volume", self.total_volume))
+        ema = state.get("ema_params") or find_ema_in_state_dict(state.get("opt_state", {}))
+        if ema is not None:
+            self._restored_ema = self._from_jax_tree(ema)
+
+    def _from_jax_tree(self, tree) -> Dict[str, torch.Tensor]:
+        """A JAX parameter tree as read from a checkpoint (numpy leaves, or
+        torch tensors where flax gives bfloat16) -> the port's state_dict."""
+        def to_numpy(node):
+            if isinstance(node, dict):
+                return {k: to_numpy(v) for k, v in node.items()}
+            if isinstance(node, torch.Tensor):
+                return node.float().numpy()
+            return np.asarray(node)
+        return state_dict_from_jax_params(to_numpy(tree), self.registry_name)
+
+    def use_ema_params(self) -> None:
+        """Swap the parameter average into the module (the eval CLIs'
+        `--ema`, larvanet_tpu/models/base.py:671-681): a restored `.ckpt`'s
+        EMA subtree, else the `"ema"` of the state file beside a restored
+        `.pth` (the average of `module.parameters()`, in their order). The
+        serving copy is cast again; call it right after `restore`, before
+        anything that reads the weights once (the CLIs' Winograd route)."""
+        ema = self._restored_ema
+        if ema is None and self._ema_state_file is not None:
+            saved = torch.load(self._ema_state_file, map_location="cpu", weights_only=True)
+            if saved.get("ema") is not None:
+                names = [name for name, _ in self.module.named_parameters()]
+                ema = dict(zip(names, saved["ema"]))
+        if ema is None:
+            raise ValueError("checkpoint has no EMA weights — train with --ema_decay")
+        params = dict(self.module.named_parameters())
+        missing = sorted(set(params) - set(ema))
+        if missing:
+            raise ValueError("the EMA weights miss parameters %s" % (missing,))
+        with torch.no_grad():
+            for name, p in params.items():
+                if tuple(ema[name].shape) != tuple(p.shape):
+                    raise ValueError("EMA shape mismatch at %r: model %s vs average %s"
+                                     % (name, tuple(p.shape), tuple(ema[name].shape)))
+                p.copy_(ema[name])
+        if self._serving_copy is not None:
+            self._serving_copy = self._cast_copy()
 
     def load_state_dict(self, state: Dict[str, torch.Tensor], strict: bool = True) -> bool:
         """Load a state_dict, every key's shape checked. strict: the keys
@@ -427,6 +514,20 @@ class SRModel:
         runs, through the exit the module takes by default."""
         out = self.fwd_runtime(self._input_to_device([input_chw]))
         return float(psnr_rgb_device(out, self._input_to_device([truth_chw])))
+
+
+def find_ema_in_state_dict(sd):
+    """The parameter average inside a serialized optax state, or None: flax
+    writes an `EmaState` as a one-key {"ema": tree} dict
+    (larvanet_tpu/models/base.py:193-205)."""
+    if isinstance(sd, dict):
+        if set(sd.keys()) == {"ema"}:
+            return sd["ema"]
+        for v in sd.values():
+            found = find_ema_in_state_dict(v)
+            if found is not None:
+                return found
+    return None
 
 
 def state_path(pth_path: str) -> str:

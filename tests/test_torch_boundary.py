@@ -1,6 +1,6 @@
 """The port's package boundary: `larvanet_tpu_torch` and the root-level
-scripts the port added import torch, never JAX, flax, optax or the JAX
-package."""
+scripts the port added import torch, never JAX, flax, optax, msgpack or
+the JAX package."""
 
 import json
 import pathlib
@@ -16,7 +16,7 @@ PACKAGE = ROOT / "larvanet_tpu_torch"
 # here by hand, so no pattern can miss it)
 PORT_SCRIPTS = ("chip_smoke.py", "chip_wino_phases.py", "chip_wgrad_variants.py")
 # `larvanet_tpu` is a prefix of `larvanet_tpu_torch`: match it only whole
-FORBIDDEN = re.compile(r"^(jax|jaxlib|flax|optax|orbax|larvanet_tpu(?!_torch))(\.|$)")
+FORBIDDEN = re.compile(r"^(jax|jaxlib|flax|optax|orbax|msgpack|larvanet_tpu(?!_torch))(\.|$)")
 IMPORT_LINE = re.compile(
     r"^\s*(?:from\s+(\S+)\s+import|import\s+([\w.]+(?:\s*,\s*[\w.]+)*))", re.M)
 
@@ -54,6 +54,7 @@ def test_no_source_file_imports_jax():
 
 def test_forbidden_pattern_spares_the_port_itself():
     assert FORBIDDEN.match("larvanet_tpu.ops") and FORBIDDEN.match("jax")
+    assert FORBIDDEN.match("msgpack") and FORBIDDEN.match("flax.serialization")
     assert FORBIDDEN.match("larvanet_tpu")
     assert not FORBIDDEN.match("larvanet_tpu_torch.ops")
 

@@ -129,13 +129,29 @@ def test_strict_restore_rejects_wrong_shapes(tmp_path):
         pm.restore(path)
 
 
-def test_restore_refuses_flax_checkpoints(tmp_path):
+def test_restore_reads_a_jax_msgpack_checkpoint(tmp_path):
+    """A `.ckpt` the JAX package wrote restores without flax: the forward
+    equals JAX's module on the same input, and the step comes with it."""
+    jm = _jax_model(4)
+    jm.global_step = 5
+    path = jm.save(str(tmp_path))
+    assert path.endswith("model_5.ckpt")
+    pm = get_model("edsr")
+    pm.parse_args(list(TINY))
+    pm.prepare([4], device="cpu", seed=3)
+    pm.restore(path)
+    assert pm.global_step == 5
+    x = _lr((1, 9, 7, 3), seed=5)
+    want = np.asarray(jm.module.apply({"params": jm.params}, jnp.asarray(x)))
+    _check("EDSR restored from .ckpt vs EDSRModule", pm.fwd_runtime(torch.from_numpy(x)).numpy(),
+           want, ATOL)
+
+
+def test_restore_refuses_orbax_directories(tmp_path):
     pm = get_model("edsr")
     pm.parse_args(list(TINY))
     pm.prepare([4], device="cpu")
-    with pytest.raises(ValueError, match="flax"):
-        pm.restore(str(tmp_path / "model_5.ckpt"))
-    with pytest.raises(ValueError, match="orbax"):
+    with pytest.raises(ValueError, match="orbax directory.*save_pth"):
         pm.restore(str(tmp_path))
 
 
