@@ -157,7 +157,29 @@ flagship, and fails (exit code != 0, no result line) if any phase fails:
     read back. 10e: a .pth whose .state.pt holds an average
     unlike its weights: validate --ema writes the average's frames bit for
     bit.
- 11. prints the kernels JSON line, the nvidia-smi line, then the result line
+ 11. int8 (W8A8): 11a holds conv3x3_s8's two entries (conv_a: hin quantized
+    as it is staged, act, requantize; conv_b: int8 in, dequantize, residual)
+    in bf16 and f32 at every pair shape (S8_SHAPES) on the 4 x 192x192 batch
+    and the 339x510 frame against their plain version: 0 values may differ.
+    Each is timed in turns with its plain version, torch._int_mm on the same
+    im2col GEMM (the unfold not timed), the port's bf16 conv3x3 kernel and
+    F.conv2d bf16 at the shape, beside its bound at the dense INT8 peak.
+    11b: EDSR-baseline x4 (fitted as in phase 4) and LarvaNet 2x16, routed
+    by the CLIs' maybe_int8_trunk, calibrated on photo frames, on the 4 x
+    192x192 photo batch: one forward's launches (INT8_LAUNCHES), each pair's
+    captured input through the kernel's pair and the plain pair (0 values
+    differ), the forward's PSNR against the plain int8 forward with the same
+    scales (>= INT8_FWD_PSNR_DB; LarvaNet relative to the residual) and
+    against the exact bf16 forward, timed in turns with it. 11c: serve
+    --int8_trunk 1 --int8_calib_path (four POSTs, each reply within 1 level
+    of the kernels' own forward, the odd frame on the exact route), validate
+    --int8_trunk 1 --int8_report on phase 6's set, runtime --int8_trunk 1 at
+    339x510 (EDSR and LarvaNet), get_sr and test on phase 10d's trees, each
+    counted. 11d: --qat 1 on EDSR-baseline x4 and LarvaNet 2x16, batch 16 of
+    48x48: loss and gradients held as phase 8b holds them (same_forward),
+    then QAT_STEPS steps of the train CLI and a resume that repeats the last
+    loss bit for bit.
+ 12. prints the kernels JSON line, the nvidia-smi line, then the result line
     {"ok": true, "device": {...}}.
 
 The kernels line reports, per kernel: its launches on the main paths that
@@ -181,7 +203,11 @@ summed over phase 8's step's 37 wgrads, with the CUDA-core entries' sum
 beside them, and under "larvanet_train" the sums over one LarvaNet 2x16
 step's 69 wgrads and each 48-channel shape's numbers. Phase 10's counted
 runs add their launches to conv3x3's and the wino kernels' totals, and
-give them by path under "full_frame".
+give them by path under "full_frame". The conv3x3_s8 line gives its
+launches by entry over phases 11b and 11c, the sums over one EDSR-baseline
+int8 forward's 16 pairs at 4 x 192x192 (bf16, and f32 under "f32") with
+their bound and yardsticks (library_ms is null: no PyTorch call computes
+an int8 conv on CUDA), and every shape's row of phase 11a.
 """
 
 from __future__ import annotations
@@ -277,7 +303,7 @@ MIN_INSIDE = 0.9
 # path happens to run on. bf16: the dense tensor cores, 989 TF/s. f32: the
 # tensor cores' 495 TF/s of TF32 over the three TF32 products (split TF32)
 # that one f32-accurate product takes, 165 TF/s, above the CUDA cores' 67.
-PEAK_FLOPS = {"f32": 495e12 / 3, "bf16": 989e12}
+PEAK_FLOPS = {"f32": 495e12 / 3, "bf16": 989e12, "s8": 1979e12}
 PEAK_BYTES = 3.35e12
 LR_BATCH = (4, 192, 192)
 RAGGED = (1, 339, 510)
@@ -448,6 +474,21 @@ VALIDATE_TILE = ["--tile_size", "48", "--tile_overlap", "16"]
 # range of the JAX package's realistic fixture (LR ~80 x 120): an odd width,
 # and truth extras that fit_truth_to_output crops
 TEST_FRAMES = ((80, 118, 0, 0), (75, 121, 0, 0), (86, 112, 2, 3), (72, 127, 0, 0))
+# phase 11: the int8 pair's conv shapes (EDSR-baseline's ResBlock, LarvaNet's
+# ResBlock and 2conv leg, LarvaNet_w64's narrowing leg conv), the calibration
+# batch of photo frames, the launches of one int8 forward ({s8 entry: n},
+# conv3x3 by path: EDSR's 5 exact convs in bf16, LarvaNet's head), the PSNR
+# bar against the plain int8 forward (JAX's own int8 bar,
+# tests/test_packed_trunk.py:243) and the QAT CLI's steps
+S8_SHAPES = (("EDSR-baseline 64->64", 64, 64), ("LarvaNet 48->48", 48, 48),
+             ("LarvaNet_w64 leg 64->48", 64, 48))
+INT8_CALIB = (2, 96, 128)
+INT8_LAUNCHES = {"edsr": ({"conv_a": 16, "conv_b": 16},
+                          {"cuda_core": 1, "tensor_core": 3, "narrow": 1}),
+                 "LarvaNet": ({"conv_a": 33, "conv_b": 33},
+                              {"cuda_core": 1, "tensor_core": 0, "narrow": 0})}
+INT8_FWD_PSNR_DB = 55.0
+QAT_STEPS = 3
 
 
 
@@ -1116,13 +1157,13 @@ def device_breakdown(torch, fn, kinds=("conv3x3", "wino_resblock")):
     return start.elapsed_time(end) / TIMED_REPS, (parts if sum(parts.values()) else None)
 
 
-def breakdown_line(torch, fn, wall) -> str:
+def breakdown_line(torch, fn, wall, kinds=("conv3x3", "wino_resblock")) -> str:
     """Where a call of `fn` that takes `wall` ms unprofiled spends the card's
     time: its kernels by name (device_breakdown) and idle, the rest of
     `wall` (one stream: kernels do not overlap). The profiler's own host
     work slows a host-bound call, so idle is taken against the unprofiled
     time; the profiled wall is printed beside it."""
-    profiled, parts = device_breakdown(torch, fn)
+    profiled, parts = device_breakdown(torch, fn, kinds)
     if parts is None:
         return "device breakdown not measured (the profiler recorded no kernel)"
     parts["idle"] = max(wall - sum(parts.values()), 0.0)
@@ -2320,6 +2361,471 @@ def full_frame_phase(torch, device="cuda"):
     return {"conv3x3": conv, "wino": fused}
 
 
+# ---- phase 11: the W8A8 int8 path ------------------------------------------------
+
+
+def s8_bound_ms(n, h, w, c, f, item, entry, res=False):
+    """The least time of one conv3x3_s8 call: its bytes (conv_a: x in the
+    dtype, int8 out; conv_b: int8 in, the dtype out, and the residual when
+    `res` is read; both: the int8 weight, the f32 scale and bias) over HBM
+    bandwidth vs its operations at the dense INT8 peak (PEAK_FLOPS["s8"])."""
+    px = n * h * w
+    if entry == "conv_a":
+        nbytes = px * (item * c + f)
+    else:
+        nbytes = px * (c + (2 if res else 1) * item * f)
+    nbytes += 9 * c * f + 8 * f
+    t_bytes, t_ops = nbytes / PEAK_BYTES, 2 * px * 9 * c * f / PEAK_FLOPS["s8"]
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def s8_kernel_phase(torch):
+    """Phase 11a. conv3x3_s8's two entries, bf16 and f32, at every pair shape
+    (S8_SHAPES) on the 4 x 192x192 batch and the 339x510 frame: 0 values
+    differing from the plain version on the same int8 input and scales,
+    then the times in turns (entry, plain version, torch._int_mm on the same
+    im2col GEMM with the unfold not timed, the port's bf16 conv3x3 kernel
+    and F.conv2d bf16 at the same shape) and the bound. Returns {dtype:
+    {entry: sums over one EDSR-baseline int8 forward's 16 pairs at 4 x
+    192x192}}, the rows, and {dtype: the largest |kernel - plain| of both
+    entries over every shape}."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    from larvanet_tpu_torch.ops import conv3x3
+    from larvanet_tpu_torch.ops import conv3x3_s8 as s8
+
+    rng = np.random.default_rng(SEED + 11)
+    dev = "cuda"
+    sums, rows, errs = {}, [], {"f32": 0.0, "bf16": 0.0}
+    for label, c, f in S8_SHAPES:
+        for (n, h, w) in (LR_BATCH, RAGGED):
+            codes_a = rng.integers(-127, 128, (3, 3, c, c)).astype(np.int8)
+            codes_b = rng.integers(-127, 128, (3, 3, c, f)).astype(np.int8)
+            sa = (rng.uniform(0.5, 2.0, c) * 1e-3).astype(np.float32)
+            sb = (rng.uniform(0.5, 2.0, f) * 1e-3).astype(np.float32)
+            x32 = torch.from_numpy((rng.standard_normal((n, h, w, c)) * 3).astype(np.float32))
+            bias_a = torch.from_numpy(rng.standard_normal(c).astype(np.float32))
+            bias_b = torch.from_numpy(rng.standard_normal(f).astype(np.float32))
+            for dname, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+                item = 4 if dname == "f32" else 2
+                hin = x32.to(dev).to(dtype)
+                s_in = float(hin.float().abs().max()) * 1.05 / 127.0
+                wa = s8.make_weight(codes_a, sa, s_in, bias_a, dtype, dev)
+                t = s8._dequant(s8.conv_codes_reference(s8.quantize(hin, s_in), wa.codes),
+                                wa, dtype)
+                s_mid = float(torch.relu(t).float().abs().max()) * 1.05 / 127.0
+                del t
+                wb = s8.make_weight(codes_b, sb, s_mid, bias_b, dtype, dev)
+                res = (torch.randn((n, h, w, f), device=dev) * 4).to(dtype)
+                res_b = res if c == f else None
+                tq = s8.conv_a(hin, wa, s_in, s_mid)
+                want_a = s8.conv_a_reference(hin, wa, s_in, s_mid)
+                out = s8.conv_b(tq, wb, dtype, res_b, 1.0)
+                want_b = s8.conv_b_reference(tq, wb, dtype, res_b, 1.0)
+                torch.cuda.synchronize()
+                diff_a = int((tq != want_a).sum())
+                diff_b = int((out.float().view(torch.int32) != want_b.float().view(torch.int32))
+                             .sum())
+                errs[dname] = max(errs[dname],
+                                  float((tq.float() - want_a.float()).abs().max()),
+                                  float((out.float() - want_b.float()).abs().max()))
+                clipped = int((want_a.abs() == 127).sum())
+                # the yardsticks: cuBLASLt's s8 GEMM on the same im2col
+                # product, the port's bf16 conv kernel and F.conv2d in bf16
+                xq = s8.quantize(hin, s_in)
+                cols = F.pad(xq.float(), (0, 0, 1, 1, 1, 1))
+                cols = torch.cat([cols[:, dy:dy + h, dx:dx + w, :] for dy in range(3)
+                                  for dx in range(3)], dim=-1).reshape(n * h * w, 9 * c)
+                cols = cols.to(torch.int8).contiguous()
+                kmat = wa.codes.reshape(9 * c, c).contiguous()
+                xb = hin.to(torch.bfloat16).contiguous()
+                kb16 = torch.from_numpy(codes_a.astype(np.float32) * 1e-3).to(dev)
+                bb16 = bias_a.to(dev)
+                x_nchw = xb.permute(0, 3, 1, 2)
+                w_oihw = kb16.permute(3, 2, 0, 1).to(torch.bfloat16).contiguous(
+                    memory_format=torch.channels_last)
+                fns = {"conv_a": lambda: s8.conv_a(hin, wa, s_in, s_mid),
+                       "conv_b": lambda: s8.conv_b(tq, wb, dtype, res_b),
+                       "plain_a": lambda: s8.conv_a_reference(hin, wa, s_in, s_mid),
+                       "plain_b": lambda: s8.conv_b_reference(tq, wb, dtype, res_b),
+                       "int_mm": lambda: torch._int_mm(cols, kmat),
+                       "bf16_conv3x3": lambda: conv3x3.conv3x3_bias_act(xb, kb16, bb16, "relu"),
+                       "conv2d_bf16": lambda: F.conv2d(x_nchw, w_oihw, padding=1)}
+                s8.reset_launches()
+                t = time_windows(torch, fns)
+                bounds = {"conv_a": s8_bound_ms(n, h, w, c, c, item, "conv_a"),
+                          "conv_b": s8_bound_ms(n, h, w, c, f, item, "conv_b",
+                                                res_b is not None)}
+                print("s8 %s %dx%dx%d %s: conv_a %d of %d codes differ from the plain version "
+                      "(%d clip), conv_b %d of %d values; conv_a %s (plain %s, bound %.4f ms "
+                      "by %s), conv_b %s (plain %s, bound %.4f ms by %s); yardsticks: "
+                      "_int_mm %s, bf16 conv3x3 kernel %s, F.conv2d bf16 %s" % (
+                          label, n, h, w, dname, diff_a, want_a.numel(), clipped, diff_b,
+                          want_b.numel(), spread(t["conv_a"]), spread(t["plain_a"]),
+                          *bounds["conv_a"], spread(t["conv_b"]), spread(t["plain_b"]),
+                          *bounds["conv_b"], spread(t["int_mm"]), spread(t["bf16_conv3x3"]),
+                          spread(t["conv2d_bf16"])), flush=True)
+                if diff_a or diff_b or not bool(torch.isfinite(out.float()).all()):
+                    raise AssertionError("conv3x3_s8 %s %s disagrees with its plain version"
+                                         % (label, dname))
+                rows.append({"shape": label, "geometry": [n, h, w], "dtype": dname,
+                             **{k: v[0] for k, v in t.items()},
+                             "bound_a": bounds["conv_a"][0], "bound_b": bounds["conv_b"][0]})
+                if (n, h, w) == LR_BATCH and (c, f) == (64, 64):
+                    # one EDSR-baseline int8 forward: 16 pairs of this shape
+                    sums[dname] = {
+                        "ms": 16 * (t["conv_a"][0] + t["conv_b"][0]),
+                        "plain_ms": 16 * (t["plain_a"][0] + t["plain_b"][0]),
+                        "bound_ms": 16 * (bounds["conv_a"][0] + bounds["conv_b"][0]),
+                        "bound_by": bounds["conv_a"][1],
+                        "int_mm_ms": 32 * t["int_mm"][0],
+                        "bf16_conv3x3_ms": 32 * t["bf16_conv3x3"][0],
+                        "conv2d_bf16_ms": 32 * t["conv2d_bf16"][0]}
+                del hin, tq, out, want_a, want_b, cols, res, res_b
+            torch.cuda.empty_cache()
+    return sums, rows, errs
+
+
+def _int8_model(torch, name, tmp, fit_frame):
+    """EDSR-baseline x4 (fitted as in phase 4) or LarvaNet 2x16 (as in 4b),
+    restored from a .pth as the CLIs do: (model, model flags, .pth)."""
+    from larvanet_tpu_torch.core.registry import get_model
+
+    pth = os.path.join(tmp, "%s_int8.pth" % name)
+    if name == "edsr":
+        save_edsr_baseline(torch, pth, fit_frame)
+        flags = ["--model", "edsr"]
+    else:
+        save_larvanet(torch, pth, name, LARVANET_FLAGS)
+        flags = ["--model", name] + LARVANET_FLAGS
+    model = get_model(name)
+    model.parse_args(list(flags[2:]))
+    model.prepare([4], device="cuda", seed=SEED)
+    model.restore(pth)
+    return model, flags, pth
+
+
+def _plain_s8():
+    """A context in which conv3x3_s8's entries run their plain versions."""
+    from larvanet_tpu_torch.ops import conv3x3_s8 as s8
+
+    stack = contextlib.ExitStack()
+    stack.enter_context(mock.patch.object(s8, "conv_a", s8.conv_a_reference))
+    stack.enter_context(mock.patch.object(s8, "conv_b", s8.conv_b_reference))
+    return stack
+
+
+def int8_forward_phase(torch):
+    """Phase 11b. EDSR-baseline x4 and LarvaNet 2x16, routed by the CLIs'
+    maybe_int8_trunk and calibrated on INT8_CALIB `photo` frames, on the 4 x
+    192x192 batch of photo frames: the launches of one forward (INT8_LAUNCHES),
+    each pair's captured input through the kernel's pair and the plain pair
+    (0 values differing), the whole forward against the plain int8 forward
+    with the same scales (PSNR >= INT8_FWD_PSNR_DB; LarvaNet relative to the
+    residual over the base), and against the exact bf16 forward, timed in
+    turns with it. Returns {name: s8 launches by entry}."""
+    from types import SimpleNamespace
+
+    import numpy as np
+
+    from larvanet_tpu_torch.cli import common
+    from larvanet_tpu_torch.models.layers import interpolated_base
+    from larvanet_tpu_torch.ops import conv3x3, pairs
+    from larvanet_tpu_torch.ops import conv3x3_s8 as s8
+
+    rng = np.random.default_rng(SEED + 12)
+    n, h, w = LR_BATCH
+    frames = [photo(rng, h, w) for _ in range(n)]
+    x = torch.from_numpy(np.ascontiguousarray(
+        np.stack(frames).transpose(0, 2, 3, 1), np.float32)).cuda()
+    calib = np.stack([photo(rng, *INT8_CALIB[1:]) for _ in range(INT8_CALIB[0])])
+    calib = calib.transpose(0, 2, 3, 1).astype(np.float32)
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in ("edsr", "LarvaNet"):
+            model, _, _ = _int8_model(torch, name, tmp, frames[0])
+            t0 = time.perf_counter()
+            common.maybe_int8_trunk(model, SimpleNamespace(int8_trunk=1, model=name),
+                                    lambda: calib)
+            print("int8 %s: calibrated on %d x %dx%d photo frames in %.3f s"
+                  % (name, *INT8_CALIB, time.perf_counter() - t0), flush=True)
+            # the int8 forward the route calls, and its pair runner
+            int8_fwd = next(c.cell_contents for c in model.route.__closure__
+                            if hasattr(c.cell_contents, "runner"))
+            runner = int8_fwd.runner
+            seen = []
+            real = runner.int8
+
+            def capture(idx, hin, conv1, conv2, kind="res", res_weight=1.0):
+                seen.append((idx, hin, kind, res_weight))
+                return real(idx, hin, conv1, conv2, kind, res_weight)
+
+            runner.int8 = capture
+            s8.reset_launches()
+            conv3x3.reset_launches()
+            got = model.fwd_runtime(x)
+            torch.cuda.synchronize()
+            by_entry, by_path = dict(s8.LAUNCHES_BY_ENTRY), dict(conv3x3.LAUNCHES_BY_PATH)
+            del runner.int8
+            want_s8, want_conv = INT8_LAUNCHES[name]
+            print("int8 %s: one forward of %d x %dx%d: conv3x3_s8 launches %s, conv3x3 by "
+                  "path %s" % (name, n, h, w, by_entry, by_path), flush=True)
+            if by_entry != want_s8 or by_path != want_conv:
+                raise AssertionError("int8 %s: launches %s and %s, not %s and %s"
+                                     % (name, by_entry, by_path, want_s8, want_conv))
+            launches[name] = by_entry
+            # each pair: the kernel's pair and the plain pair on its input
+            differ = total = 0
+            for idx, hin, kind, rw in seen:
+                q = runner.quant[idx]
+                k_out = pairs.int8_pair(q, hin, kind, rw)
+                with _plain_s8():
+                    p_out = pairs.int8_pair(q, hin, kind, rw)
+                differ += int((k_out.float().view(torch.int32)
+                               != p_out.float().view(torch.int32)).sum())
+                total += p_out.numel()
+            del seen
+            print("int8 %s: %d pairs, each on its captured input through the kernel and the "
+                  "plain pair: %d of %d values differ" % (name, len(runner.quant), differ,
+                                                          total), flush=True)
+            if differ:
+                raise AssertionError("int8 %s: a pair through the kernel differs from the "
+                                     "plain pair" % name)
+            with _plain_s8(), plain_versions():
+                ref = model.fwd_runtime(x)
+            base = (interpolated_base(x.to(torch.bfloat16), 4, model.module.interpolate).float()
+                    if name != "edsr" else 0.0)
+            peak = float((ref - base).abs().max()) if name != "edsr" else 255.0
+            mse = float(((got.double() - ref.double()) ** 2).mean())
+            psnr = float("inf") if mse == 0 else 10 * math.log10(peak ** 2 / mse)
+            # the exact bf16 forward, timed in turns with the int8 one
+            model.set_serving_dtype("bf16")
+            exact_mod = model.serving_module
+            xb = x.to(torch.bfloat16)
+            with torch.no_grad():
+                exact = exact_mod(xb).float()
+            psnr_exact = _psnr(got, exact)
+            t = time_windows(torch, {"int8": lambda: int8_fwd(xb),
+                                     "exact_bf16": lambda: exact_mod(xb)})
+            print("int8 %s: %d x %dx%d LR: PSNR %.2f dB against the plain int8 forward with "
+                  "the same scales (%s; bar %g dB), %.2f dB against the exact bf16 forward; "
+                  "int8 forward %s, exact bf16 forward %s; %s" % (
+                      name, n, h, w, psnr, "relative to the residual, peak %.3g" % peak
+                      if name != "edsr" else "peak 255", INT8_FWD_PSNR_DB, psnr_exact,
+                      spread(t["int8"]), spread(t["exact_bf16"]),
+                      breakdown_line(torch, lambda: int8_fwd(xb), t["int8"][0],
+                                     ("conv3x3_s8", "conv3x3"))), flush=True)
+            if psnr < INT8_FWD_PSNR_DB or not bool(torch.isfinite(got).all()):
+                raise AssertionError("int8 %s: the forward through the kernels disagrees "
+                                     "with the plain int8 forward" % name)
+            del model, got, ref, exact
+            torch.cuda.empty_cache()
+    return launches
+
+
+def _counted_s8(torch, fn):
+    """fn() with the s8 and conv3x3 counters zeroed just before it and read
+    just after: (its result, s8 launches by entry, conv3x3 by path)."""
+    from larvanet_tpu_torch.ops import conv3x3
+    from larvanet_tpu_torch.ops import conv3x3_s8 as s8
+
+    s8.reset_launches()
+    conv3x3.reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, dict(s8.LAUNCHES_BY_ENTRY), dict(conv3x3.LAUNCHES_BY_PATH)
+
+
+def _expect_s8(label, got, per_forward, forwards):
+    want = {k: v * forwards for k, v in per_forward.items()}
+    print("%s: conv3x3_s8 launches %s (%d int8 forwards)" % (label, got, forwards), flush=True)
+    if got != want:
+        raise AssertionError("%s: conv3x3_s8 launches %s, not %s" % (label, got, want))
+
+
+def int8_cli_phase(torch):
+    """Phase 11c. The CLIs with --int8_trunk 1 on EDSR-baseline x4: serve
+    (calibrated on a directory of photo PNGs) with four POSTs, each reply
+    within 1 uint8 level of the kernels' own int8 forward, the odd-width
+    frame on the exact route; validate --int8_report on phase 6's set (the
+    report and its JSON); runtime at 339x510 (EDSR and LarvaNet 2x16); get_sr
+    and test on phase 10d's trees. Returns the s8 launches by entry, summed."""
+    import numpy as np
+
+    from larvanet_tpu_torch.cli import get_sr, runtime, serve, validate
+    from larvanet_tpu_torch.cli import test as port_test
+    from larvanet_tpu_torch.data import io, png
+
+    per = INT8_LAUNCHES["edsr"][0]
+    total = {"conv_a": 0, "conv_b": 0}
+    rng = np.random.default_rng(SEED + 13)
+    with tempfile.TemporaryDirectory() as tmp:
+        calib_dir = os.path.join(tmp, "calib")
+        for i in range(4):
+            io.save_image_chw(photo(rng, 96, 128), os.path.join(calib_dir, "c%d.png" % i))
+        frames = [photo(rng, 120, 160), photo(rng, 120, 160), photo(rng, 67, 93),
+                  photo(rng, 96, 128)]
+        _, flags, pth = _int8_model(torch, "edsr", tmp, frames[0])
+
+        # serve
+        args, remaining = serve.build_parser().parse_known_args(
+            flags + ["--scales", "4", "--restore_path", pth, "--int8_trunk", "1",
+                     "--int8_calib_path", calib_dir])
+        service = serve.build_service(args, remaining)
+        service.warmup(128, 128)
+        httpd = serve.make_server(service, "127.0.0.1", 0)
+        thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+        thread.start()
+        url = "http://127.0.0.1:%d" % httpd.server_address[1]
+        try:
+            replies, by_entry, by_path = _counted_s8(torch, lambda: [
+                _http(url + "/upscale", png.encode(f.transpose(1, 2, 0))) for f in frames])
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            thread.join(timeout=60)
+        _expect_s8("serve --int8_trunk 1", by_entry, per, 3)
+        expect_forwards("serve --int8_trunk 1: 3 int8 forwards (bf16) and the odd frame's "
+                        "exact f32 forward", by_path,
+                        {p: 3 * WINO_CONV_PATH_LAUNCHES["bf16"][p] + PATH_LAUNCHES["f32"][p]
+                         for p in PATH_LAUNCHES["f32"]}, 1)
+        _add(total, by_entry)
+        for i, (img, (code, body)) in enumerate(zip(frames, replies)):
+            if code != 200:
+                raise AssertionError("serve --int8_trunk 1: request %d gave HTTP %d" % (i, code))
+            got = torch.from_numpy(png.decode(body, grey16="clip").astype(np.int16))
+            own = service.model.upscale_device([img], 4, uint8=False)[0].cpu()
+            levels = int((got - torch.clamp(torch.round(own), 0, 255).to(torch.int16))
+                         .abs().max())
+            print("serve --int8_trunk 1: request %d %dx%d (%s route): max %d uint8 level(s) "
+                  "from the kernels' own forward" % (i, *img.shape[1:], "exact" if
+                                                     img.shape[2] % 2 else "int8", levels),
+                  flush=True)
+            if levels > 1:
+                raise AssertionError("serve --int8_trunk 1: request %d differs by %d levels"
+                                     % (i, levels))
+        del service
+
+        # validate --int8_report on phase 6's set (4 even frames, 1 odd)
+        write_validate_set(tmp)
+        report = os.path.join(tmp, "int8_report.json")
+        vflags = flags + ["--scales", "4", "--restore_path", pth,
+                          "--data_input_path", os.path.join(tmp, "all", "LR"),
+                          "--data_truth_path", os.path.join(tmp, "all", "HR"),
+                          "--report_json", report, "--int8_trunk", "1", "--int8_report",
+                          "--int8_max_drop", "100"]
+        _, by_entry, _ = _counted_s8(torch, lambda: validate.main(vflags))
+        _expect_s8("validate --int8_trunk 1 --int8_report", by_entry, per, len(VALIDATE_LR))
+        _add(total, by_entry)
+        with open(report) as f:
+            rep = json.load(f)["scales"]["4"]["int8_vs_exact"]
+        print("validate --int8_report: mean delta %+.4f dB, worst %+.4f dB, per image %s"
+              % (rep["mean_delta_db"], rep["worst_delta_db"], rep["per_image_delta"]),
+              flush=True)
+
+        # runtime at 339x510
+        _, hh, ww = RAGGED
+        for name, mflags in (("edsr", flags), ("LarvaNet", ["--model", "LarvaNet"]
+                                               + LARVANET_FLAGS)):
+            (mean_s, mps), by_entry, _ = _counted_s8(torch, lambda: runtime.main(
+                mflags + ["--scales", "4", "--input_height", str(hh), "--input_width",
+                          str(ww), "--num_warmup", "2", "--num_iters", str(TIMED_REPS),
+                          "--int8_trunk", "1"]))
+            forwards = 2 + TIMED_REPS
+            _expect_s8("runtime %s --int8_trunk 1" % name, by_entry, INT8_LAUNCHES[name][0],
+                       forwards)
+            _add(total, by_entry)
+            print("runtime: %s, %dx%d LR, --int8_trunk 1: %.4f ms per frame, %.3f LR-MP/s"
+                  % (name, hh, ww, 1e3 * mean_s, mps), flush=True)
+
+        # get_sr and test on phase 10d's trees
+        names = write_test_set(tmp, np.random.default_rng(SEED + 10))
+        lr_dir = os.path.join(tmp, "test_LR", "SynSetReal")
+        _, by_entry, _ = _counted_s8(torch, lambda: get_sr.main(
+            flags + ["--scales", "4", "--restore_path", pth, "--input_path", lr_dir,
+                     "--output_path", os.path.join(tmp, "sr"), "--int8_trunk", "1"]))
+        even = sum(1 for n_ in names["SynSetReal"]
+                   if io.load_image_u8(os.path.join(lr_dir, n_ + ".png")).shape[1] % 2 == 0)
+        _expect_s8("get_sr --int8_trunk 1", by_entry, per, even)
+        _add(total, by_entry)
+        out_root = os.path.join(tmp, "test_out")
+        (results, by_entry, _) = _counted_s8(torch, lambda: port_test.main(
+            flags + ["--scales", "4", "--restore_path", pth,
+                     "--input_root_path", os.path.join(tmp, "test_LR"),
+                     "--truth_root_path", os.path.join(tmp, "test_HR"),
+                     "--output_root_path", out_root, "--datasets", "SynSetReal,DIV2K_val",
+                     "--int8_trunk", "1", "--report_json", os.path.join(tmp, "t.json")]))
+        _expect_s8("test --int8_trunk 1", by_entry, per, 2 * even)
+        _add(total, by_entry)
+        print("test --int8_trunk 1: %s" % (results,), flush=True)
+    return total
+
+
+def qat_phase(torch):
+    """Phase 11d. --qat 1 on EDSR-baseline x4 and LarvaNet 2x16 at batch 16 of
+    48x48 LR patches on phase 8's set: the loss and its gradients held
+    against the plain dgrad and wgrad on the kernels' own forward
+    (check_train_grads' same_forward: fake-quant codes flip as ReLUs do), the
+    all-plain step printed beside; the train CLI for QAT_STEPS steps, then
+    again from the checkpoint at step QAT_STEPS - 1, whose last loss must
+    repeat the first run's bit for bit."""
+    import shutil
+
+    import numpy as np
+
+    from larvanet_tpu_torch.cli import train
+    from larvanet_tpu_torch.core.registry import get_loader, get_model
+
+    batch, patch = TRAIN_BATCH, TRAIN_PATCH
+    with tempfile.TemporaryDirectory() as tmp:
+        write_train_set(tmp, np.random.default_rng(SEED + 8), TRAIN_FRAMES, TRAIN_LR)
+        data_flags = ["--data_input_path", os.path.join(tmp, "LR"),
+                      "--data_truth_path", os.path.join(tmp, "HR"), "--data_cached",
+                      "--data_seed", str(SEED)]
+        loader = get_loader("div2k_train_loader")
+        loader.parse_args(data_flags)
+        loader.prepare([4])
+        loader.reseed_for_step(0)
+        lr_list, hr_list = loader.get_patch_batch(batch, 4, patch)
+        x = torch.from_numpy(np.stack(lr_list).transpose(0, 2, 3, 1).copy()).cuda()
+        t = torch.from_numpy(np.stack(hr_list).transpose(0, 2, 3, 1).copy()).cuda()
+        for name, mflags in (("edsr", []), ("LarvaNet", LARVANET_FLAGS)):
+            model = get_model(name)
+            model.parse_args(mflags + ["--qat", "1"])
+            model.prepare([4], device="cuda", seed=SEED, is_training=True)
+            check_train_grads(torch, model, x, t, "%s --qat 1" % name, batch, patch,
+                              same_forward=True)
+            del model
+            torch.cuda.empty_cache()
+            steps = QAT_STEPS
+            cli = ["--dataloader", "div2k_train_loader", "--model", name, "--scales", "4",
+                   "--batch_size", str(batch), "--input_patch_size", str(patch),
+                   "--log_freq", "1", "--save_freq", str(steps - 1), "--qat", "1"] \
+                + mflags + data_flags
+            run = os.path.join(tmp, "run_" + name)
+            _, losses = train.main(cli + ["--train_path", run, "--max_steps", str(steps)])
+            again = os.path.join(tmp, "again_" + name)
+            os.makedirs(again)
+            # the checkpoint of step steps - 1 (EDSR: model_2.pth; the LarvaNet
+            # family: model_step2_vol0G.pth) and its state file
+            kept = [f for f in os.listdir(run) if f.startswith(
+                ("model_%d." % (steps - 1), "model_step%d_" % (steps - 1)))]
+            if len(kept) != 2:
+                raise AssertionError("qat %s: checkpoint files %s" % (name, os.listdir(run)))
+            for f in kept:
+                shutil.copy(os.path.join(run, f), again)
+            _, resumed = train.main(cli + ["--train_path", again, "--max_steps", str(steps),
+                                           "--restore_path", "latest"])
+            print("qat %s: train CLI losses %s; resumed at step %d: %s" % (
+                name, {k: round(v, 6) for k, v in losses.items()}, steps - 1, resumed),
+                flush=True)
+            if resumed.get(steps) != losses[steps] or not all(
+                    np.isfinite(v) for v in losses.values()):
+                raise AssertionError("qat %s: the resumed run's loss %s differs from %s"
+                                     % (name, resumed.get(steps), losses[steps]))
+
+
 def print_sass_mix(build):
     """The instruction mix of each tensor-core and narrow kernel in the
     built libraries (cuobjdump -sass): ldmatrix, tensor-core products,
@@ -2331,14 +2837,15 @@ def print_sass_mix(build):
     if not os.path.exists(tool):
         print("sass: cuobjdump not found")
         return
-    kinds = {"LDSM": r"\bLDSM\b", "HMMA": r"\bHMMA\b", "LD.E": r"\bLD\.E\b",
+    kinds = {"LDSM": r"\bLDSM\b", "HMMA": r"\bHMMA\b", "IMMA": r"\bIMMA\b",
+             "LD.E": r"\bLD\.E\b",
              "LDGSTS": r"\bLDGSTS\b", "LDL/STL": r"\b(?:LDL|STL)\b"}
     for source in build.SOURCES:
         sass = subprocess.run([tool, "-sass", str(build.library_path(source))],
                               capture_output=True, text=True, timeout=120).stdout
         for fn in re.split(r"\n\s*Function : ", sass)[1:]:
             name = fn.split("\n", 1)[0].strip()
-            if "tc_kernel" not in name and "narrow" not in name:
+            if "tc_kernel" not in name and "narrow" not in name and "s8" not in name:
                 continue
             mix = {k: len(re.findall(v, fn)) for k, v in kinds.items()}
             print("sass %s %s: %s" % (source, name, mix))
@@ -2401,6 +2908,14 @@ def main() -> int:
     trained = [train_launches, larva_train["step"], larva_train["v2"]]
     torch.cuda.empty_cache()
     full_frame = full_frame_phase(torch)
+    torch.cuda.empty_cache()
+    s8_sums, s8_rows, s8_errs = s8_kernel_phase(torch)
+    s8_forward = int8_forward_phase(torch)
+    s8_cli = int8_cli_phase(torch)
+    qat_phase(torch)
+    s8_by_entry = {}
+    for part in (*s8_forward.values(), s8_cli):
+        _add(s8_by_entry, part)
 
     kernels = [{
         "name": "conv3x3_bias_act",
@@ -2489,6 +3004,33 @@ def main() -> int:
             # phase 10's validate --tile_forward --wino_trunk m
             "full_frame": full_frame["wino"][m],
         })
+    kernels.append({
+        "name": "conv3x3_s8",
+        "route": "cuda",
+        "source": "larvanet_tpu_torch/csrc/conv3x3_s8.cu",
+        "replaces": "larvanet_tpu/ops/packed/pairs.py:236 (XLA's int8 "
+                    "lax.conv_general_dilated; no Pallas kernel)",
+        "launches": sum(s8_by_entry.values()),
+        "launches_by_entry": s8_by_entry,
+        # phase 11b's counted forwards, by model
+        "forwards": s8_forward,
+        # the largest |kernel - plain version| of both entries in 11a, bf16
+        # and f32 (0.0: every value equal, bit for bit)
+        "max_abs_err": max(s8_errs.values()),
+        # one EDSR-baseline x4 int8 forward's 16 pairs at 4 x 192x192, bf16
+        # (the CLIs' int8 dtype), and the same in f32
+        "ms": s8_sums["bf16"]["ms"],
+        "plain_ms": s8_sums["bf16"]["plain_ms"],
+        "bound_ms": s8_sums["bf16"]["bound_ms"],
+        "bound_by": s8_sums["bf16"]["bound_by"],
+        # no PyTorch call computes an int8 conv on CUDA; the yardsticks:
+        # torch._int_mm on the same im2col GEMMs, the bf16 convs it replaces
+        "library_ms": None,
+        "yardsticks": {k: s8_sums["bf16"][k]
+                       for k in ("int_mm_ms", "bf16_conv3x3_ms", "conv2d_bf16_ms")},
+        "f32": dict(s8_sums["f32"], max_abs_err=s8_errs["f32"]),
+        "shapes": s8_rows,
+    })
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

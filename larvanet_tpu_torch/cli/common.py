@@ -12,6 +12,7 @@ from __future__ import annotations
 import argparse
 from typing import List, Sequence
 
+import numpy as np
 import torch
 
 from larvanet_tpu_torch.core import registry
@@ -233,3 +234,87 @@ def warn_leftovers(remaining: Sequence[str]) -> None:
 
 def scales_of(args) -> List[int]:
     return parse_scale_list(args.scales)
+
+
+def add_int8_trunk_flag(parser: argparse.ArgumentParser, help_tail: str = "") -> None:
+    parser.add_argument("--int8_trunk", type=int, default=0,
+                        help="Opt-in W8A8 quantized trunk (EDSR/LarvaNet families; "
+                             "NOT float-exact; the int8 forward runs in bf16 whatever "
+                             "--serving_dtype says; even widths, odd ones take the "
+                             "exact forward)." + help_tail)
+
+
+# model-name prefixes -> the int8 forward's maker in ops/int8_forward.py
+# (larvanet_tpu/cli/common.py:345-356, the families the port has)
+INT8_BUILDERS = {
+    ("edsr", "edsr_loss"): "make_int8_edsr_forward",
+    ("LarvaNet", "LarvaLeg"): "make_int8_larvanet_forward",
+}
+
+
+def int8_and_exact_forwards(model, model_name: str, calib):
+    """The (int8, exact) forwards of a model family, or Int8Unsupported (a
+    ValueError) when the family has no int8 path or the configuration cannot
+    be quantized (cli/common.py:359-381). The int8 forward is built in bf16,
+    as JAX's CLIs build it (the maker's default); the exact forward, the
+    odd-width route and the --int8_report reference, is the serving module
+    in the serving dtype."""
+    from larvanet_tpu_torch.ops import int8_forward
+
+    for prefixes, maker in INT8_BUILDERS.items():
+        if model_name in prefixes or model_name.startswith(prefixes):
+            int8_fwd = getattr(int8_forward, maker)(model, calib)
+            return int8_fwd, lambda x: model.serving_module(x)
+    raise int8_forward.Int8Unsupported("no int8 path for model %r" % (model_name,))
+
+
+def maybe_int8_trunk(model, args, get_calib) -> None:
+    """Route the forward through the W8A8 trunk when --int8_trunk is set
+    (cli/common.py:431-464). `get_calib` lazily returns an NHWC float32
+    calibration batch; an odd width is cropped by a column first. A family
+    or configuration with no int8 path (Int8Unsupported) prints JAX's
+    `--int8_trunk: ...; ignoring` line and keeps the exact route; any other
+    failure, a kernel's in calibration among them, propagates. Odd-width
+    inputs take the exact forward, which `model.int8_exact_forward` also
+    keeps for --int8_report. Runs after maybe_wino_trunk: int8 wins when
+    both are given, and its exact forward is the serving module, as JAX's
+    is."""
+    from larvanet_tpu_torch.ops.int8_forward import Int8Unsupported
+
+    if not getattr(args, "int8_trunk", 0):
+        return
+    model_name = getattr(args, "model", None) or ""
+    calib = np.asarray(get_calib(), np.float32)
+    if calib.shape[2] % 2:
+        calib = calib[:, :, : calib.shape[2] // 2 * 2]
+    try:
+        int8_fwd, exact_fwd = int8_and_exact_forwards(model, model_name, calib)
+    except Int8Unsupported as e:
+        print("--int8_trunk: %s; ignoring" % (e,))
+        return
+
+    def forward(x):
+        if x.shape[2] % 2:
+            return exact_fwd(x)  # odd width: the exact forward
+        return int8_fwd(x)
+
+    model.set_route(forward)
+    model.int8_exact_forward = exact_fwd
+    print("inference: int8 (W8A8) trunk enabled (NOT float-exact)")
+
+
+def int8_calib_batch(dataloader, scale, num_images=4) -> np.ndarray:
+    """The int8 calibration batch (cli/common.py:467-483): the first
+    `num_images` val inputs centre-cropped to their common size (the width
+    even-aligned), stacked NHWC float32."""
+    n = min(int(num_images), dataloader.get_num_images())
+    imgs = [dataloader.get_image_pair(image_index=i, scale=scale)[0].transpose(1, 2, 0)
+            for i in range(n)]
+    hh = min(im.shape[0] for im in imgs)
+    ww = min(im.shape[1] for im in imgs) // 2 * 2
+    out = []
+    for im in imgs:
+        top = (im.shape[0] - hh) // 2
+        left = (im.shape[1] - ww) // 2
+        out.append(im[top:top + hh, left:left + ww])
+    return np.asarray(out, np.float32)

@@ -14,8 +14,11 @@ frame and write the f32 output, quantized by the PNG writer, as JAX's
 get_sr does. --restore_path takes a .pth or a JAX .ckpt; --ema serves its
 parameter average.
 
+--int8_trunk 1 serves the W8A8 trunk (bf16 whatever --serving_dtype says),
+calibrated on the first input PNG, as in JAX.
+
 Not ported yet, refused with a pointer to ROADMAP.md: --spatial_shard,
---int8_trunk, --dp_devices. --collapsed_tail, --packed_trunk and
+--dp_devices. --collapsed_tail, --packed_trunk and
 --plain_frame_px are TPU routing settings: accepted and ignored.
 """
 
@@ -32,7 +35,7 @@ from larvanet_tpu_torch.data import io
 from larvanet_tpu_torch.eval.pipeline import pipelined_upscale
 from larvanet_tpu_torch.eval.tiling import upscale_with_chop_forward
 
-REFUSED = ("spatial_shard", "int8_trunk", "dp_devices")
+REFUSED = ("spatial_shard", "dp_devices")
 IGNORED = ("collapsed_tail", "packed_trunk", "plain_frame_px")
 
 
@@ -57,6 +60,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--pipeline_depth", type=int, default=2,
                         help="Frames launched but not yet pulled (1 = serial).")
     common.add_refused_flags(parser, REFUSED, IGNORED)
+    common.add_int8_trunk_flag(parser, " Calibrated on the first input PNG.")
     common.add_serving_dtype_flag(parser)
     return parser
 
@@ -73,12 +77,14 @@ def main(argv=None):
     common.maybe_use_ema(model, args)
     common.apply_serving_dtype(model, args)
     print("restored the model")
+    image_names = io.list_pngs(args.input_path)
+    common.maybe_int8_trunk(model, args, lambda: io.load_image_chw(
+        os.path.join(args.input_path, image_names[0] + ".png")).transpose(1, 2, 0)[None])
     tiler = common.make_tiler(model, args)
     # the direct path pushes uint8 frames; chop and tiles take the f32 loader
     # frame, as in JAX (larvanet_tpu/cli/get_sr.py:112-117)
     direct_u8 = args.device_uint8 and not args.chop_forward and tiler is None
 
-    image_names = io.list_pngs(args.input_path)
     print("%d images are prepared" % (len(image_names),))
     os.makedirs(args.output_path, exist_ok=True)
     total = len(image_names)

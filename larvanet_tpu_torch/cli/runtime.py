@@ -10,9 +10,11 @@ kernels and are not timed:
         [--wino_trunk 2|4] [--serving_dtype bf16] [--ema 1] [--device cpu]
 
 Without --restore_path the weights are random from the seed (and --ema,
-as in JAX, does nothing); it takes a .pth or a JAX .ckpt. Refused with a
-pointer to ROADMAP.md: --int8_trunk. --collapsed_tail, --packed_trunk and
---plain_frame_px are TPU routing settings: accepted and ignored.
+as in JAX, does nothing); it takes a .pth or a JAX .ckpt. --int8_trunk 1
+times the W8A8 trunk, calibrated on the loader's first input, or at a
+fixed size on uniform noise of that size from default_rng(0), as in JAX.
+--collapsed_tail, --packed_trunk and --plain_frame_px are TPU routing
+settings: accepted and ignored.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ import torch
 
 from larvanet_tpu_torch.cli import common
 
-REFUSED = ("int8_trunk",)
+REFUSED = ()
 IGNORED = ("collapsed_tail", "packed_trunk", "plain_frame_px")
 
 
@@ -44,6 +46,7 @@ def build_parser() -> argparse.ArgumentParser:
                         help="Timed iterations per image/shape.")
     common.add_ema_flag(parser)
     common.add_wino_trunk_flag(parser)
+    common.add_int8_trunk_flag(parser, " Calibrated on the first input.")
     common.add_refused_flags(parser, REFUSED, IGNORED)
     common.add_serving_dtype_flag(parser)
     return parser
@@ -67,6 +70,13 @@ def main(argv=None):
         print("restored the model")
     common.apply_serving_dtype(model, args)
     common.maybe_wino_trunk(model, args)
+    if args.int8_trunk:  # runtime.py:71-78 in the JAX package
+        if dataloader is not None:
+            common.maybe_int8_trunk(model, args, lambda: dataloader.get_image_pair(
+                image_index=0, scale=scale_list[0])[0].transpose(1, 2, 0)[None])
+        else:
+            common.maybe_int8_trunk(model, args, lambda: np.random.default_rng(0).uniform(
+                0, 255, (1, args.input_height, args.input_width, 3)).astype(np.float32))
 
     scale = scale_list[0]
     durations = []

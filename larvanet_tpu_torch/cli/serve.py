@@ -33,8 +33,13 @@ server does; --dynamic_batch > 1 does not compose with them and exits.
 --restore_path takes a .pth or a JAX .ckpt; --ema serves its parameter
 average.
 
+--int8_trunk 1 serves the W8A8 trunk (bf16 whatever --serving_dtype says;
+odd widths take the exact forward), calibrated on the first 4 PNGs of
+--int8_calib_path, or, without it, on noise with a warning, as JAX's
+server does.
+
 Not ported yet, refused with a pointer to ROADMAP.md: --artifact,
---int8_trunk, --spatial_shard, --dp_devices. --collapsed_tail and
+--spatial_shard, --dp_devices. --collapsed_tail and
 --packed_trunk are TPU layout rewrites of the same function: accepted,
 ignored, with a notice.
 """
@@ -57,7 +62,7 @@ from larvanet_tpu_torch.cli import common
 from larvanet_tpu_torch.data import png
 from larvanet_tpu_torch.eval.tiling import upscale_with_chop_forward
 
-REFUSED = ("artifact", "int8_trunk", "spatial_shard", "dp_devices")
+REFUSED = ("artifact", "spatial_shard", "dp_devices")
 IGNORED = ("collapsed_tail", "packed_trunk")
 
 
@@ -488,9 +493,31 @@ def build_parser() -> argparse.ArgumentParser:
     common.add_chop_flags(parser)
     common.add_tile_flags(parser)
     common.add_ema_flag(parser)
+    common.add_int8_trunk_flag(parser)
+    parser.add_argument("--int8_calib_path", type=str, default=None,
+                        help="Directory of representative PNGs whose first 4, cropped "
+                             "to their common size, calibrate --int8_trunk.")
     common.add_refused_flags(parser, REFUSED, IGNORED)
     common.add_serving_dtype_flag(parser)
     return parser
+
+
+def int8_calib(args):
+    """serve's int8 calibration batch (larvanet_tpu/cli/serve.py:632-647): the
+    first 4 PNGs of --int8_calib_path cropped to their common size, or
+    noise from default_rng(0) with a warning."""
+    from larvanet_tpu_torch.data import io
+
+    if args.int8_calib_path:
+        names = io.list_pngs(args.int8_calib_path)[:4]
+        calib = [io.load_image_chw("%s/%s.png" % (args.int8_calib_path, n)).transpose(1, 2, 0)
+                 for n in names]
+        h = min(a.shape[0] for a in calib)
+        w = min(a.shape[1] for a in calib)
+        return np.stack([a[:h, :w] for a in calib])
+    print("WARNING: --int8_trunk without --int8_calib_path calibrates on noise; pass a "
+          "directory of representative PNGs")
+    return np.random.default_rng(0).uniform(0, 255, (1, 64, 64, 3)).astype(np.float32)
 
 
 def build_service(args, remaining) -> SRService:
@@ -510,6 +537,8 @@ def build_service(args, remaining) -> SRService:
     common.maybe_use_ema(model, args)
     common.apply_serving_dtype(model, args)
     print("restored the model")
+    if args.int8_trunk:
+        common.maybe_int8_trunk(model, args, lambda: int8_calib(args))
     tiler = common.make_tiler(model, args) if mode == "tile" else None
     return SRService(model, scale, mode=mode, tiler=tiler,
                      chop_overlap=args.chop_overlap_size,

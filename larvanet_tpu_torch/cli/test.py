@@ -21,8 +21,11 @@ the HR PNGs. The frame is quantized on the device before the pull
 and runs the whole frame). --restore_path takes a .pth or a JAX .ckpt;
 --ema serves its parameter average.
 
-Refused with a pointer to ROADMAP.md: --int8_trunk, and the msrr models
-(whose [0, 1] range contract comes with their family). --collapsed_tail
+--int8_trunk 1 serves the W8A8 trunk (bf16 whatever --serving_dtype says),
+calibrated on the first --int8_calib_images LR images of the first
+dataset, centre-cropped to their common even size (`calib_from_dir`, as
+JAX's `_calib_from_dir`). Refused with a pointer to ROADMAP.md: the msrr
+models (whose [0, 1] range contract comes with their family). --collapsed_tail
 and --packed_trunk are TPU layout rewrites of the same function: accepted
 and ignored.
 """
@@ -42,7 +45,7 @@ from larvanet_tpu_torch.eval import metrics
 from larvanet_tpu_torch.eval.pipeline import pipelined_upscale
 from larvanet_tpu_torch.eval.tiling import upscale_with_chop_forward
 
-REFUSED = ("int8_trunk",)
+REFUSED = ()
 IGNORED = ("collapsed_tail", "packed_trunk")
 
 
@@ -73,9 +76,30 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--report_json", type=str,
                         help="Write per-image and mean PSNR/SSIM to this JSON file.")
     common.add_ema_flag(parser)
+    common.add_int8_trunk_flag(parser, " Calibrated on the first dataset's LR images.")
+    parser.add_argument("--int8_calib_images", type=int, default=4,
+                        help="LR images (first dataset, centre-cropped to a common "
+                             "size) in the int8 activation-scale calibration batch.")
     common.add_refused_flags(parser, REFUSED, IGNORED)
     common.add_serving_dtype_flag(parser)
     return parser
+
+
+def calib_from_dir(lr_dir: str, num_images: int) -> np.ndarray:
+    """The int8 calibration batch of a benchmark LR tree (test.py:29-45 in
+    the JAX package): its first `num_images` PNGs centre-cropped to their
+    common size, both sides even-aligned, stacked NHWC float32."""
+    names = [f for f in sorted(os.listdir(lr_dir)) if f.lower().endswith(".png")]
+    imgs = [io.load_image_u8(os.path.join(lr_dir, f)).astype(np.float32)
+            for f in names[: max(1, int(num_images))]]
+    hh = min(im.shape[0] for im in imgs) // 2 * 2
+    ww = min(im.shape[1] for im in imgs) // 2 * 2
+    out = []
+    for im in imgs:
+        top = (im.shape[0] - hh) // 2
+        left = (im.shape[1] - ww) // 2
+        out.append(im[top: top + hh, left: left + ww])
+    return np.stack(out)
 
 
 def score(output_image: np.ndarray, truth_image: np.ndarray, scale: int,
@@ -110,6 +134,9 @@ def main(argv=None):
     common.maybe_use_ema(model, args)
     common.apply_serving_dtype(model, args)
     print("restored the model")
+    common.maybe_int8_trunk(model, args, lambda: calib_from_dir(
+        os.path.join(args.input_root_path, args.datasets.split(",")[0]),
+        args.int8_calib_images))
 
     output_root = os.path.join(args.output_root_path, args.model)
     os.makedirs(output_root, exist_ok=True)

@@ -22,8 +22,10 @@ here, so it stays at --lr (their volume-driven loop is cli/train_larva.py).
 
 Not ported yet, refused with a pointer to ROADMAP.md: --async_checkpoint,
 --orbax_checkpoint, --device_pipeline, --dp_devices, --widen_from,
---profile_dir, and the model's --train_dtype bf16, --qat 1 and --remat 1.
-Accepted and ignored: the model's --packed_trunk, --collapsed_tail_train
+--profile_dir, and the model's --train_dtype bf16 and --remat 1. --qat 1
+trains through the fake-quant conv pairs (ops/pairs.qat_pair; even patch
+width; refused with an explicit --packed_trunk 0, as in JAX). Accepted and
+ignored: the model's --packed_trunk, --collapsed_tail_train
 and --lr_domain_loss (exact reparametrisations of the module graph the
 port trains) and --fused_opt (numerically identical per element).
 """
@@ -43,7 +45,7 @@ REFUSED = ("async_checkpoint", "orbax_checkpoint", "device_pipeline", "dp_device
            "widen_from", "profile_dir")
 # the model's flags of training graphs the port does not have, and the
 # values that ask for them
-REFUSED_MODEL = (("train_dtype", "bf16"), ("qat", 1), ("remat", 1))
+REFUSED_MODEL = (("train_dtype", "bf16"), ("remat", 1))
 IGNORED_MODEL = ("packed_trunk", "collapsed_tail_train", "lr_domain_loss")
 
 

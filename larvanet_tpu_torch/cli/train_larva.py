@@ -27,8 +27,9 @@ model in its final state, {global_step: loss}).
 
 Not ported yet, refused with a pointer to ROADMAP.md: --device_pipeline,
 --async_checkpoint, --orbax_checkpoint, --dp_devices, --widen_from,
---profile_dir, and the model's --qat 1 and --remat 1. Accepted and
-ignored: the model's --packed_trunk and --lr_domain_loss (exact
+--profile_dir, and the model's --remat 1. --qat 1 trains every body and
+leg conv pair through the fake-quant pair (ops/pairs.qat_pair). Accepted
+and ignored: the model's --packed_trunk and --lr_domain_loss (exact
 reparametrisations of the module graph the port trains) and --fused_opt
 (numerically identical per element).
 """

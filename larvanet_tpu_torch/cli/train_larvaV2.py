@@ -9,7 +9,8 @@ set on the model the moment the registry makes it: an epoch is 300 MiB
 of input pixels (patch^2 * batch * 3 bytes a step), rounded to one
 significant figure, unless --steps_per_epoch gives it (reference
 train_larvaV2.py:74-81). The flag is taken out before the hand-off.
-Returns what train_larva's `main` returns.
+Returns what train_larva's `main` returns; its flags are train_larva's,
+--qat 1 among them.
 """
 
 from __future__ import annotations

@@ -27,8 +27,14 @@ forward, as JAX runs its module graph there, whatever --serving_dtype and
 --wino_trunk say; with --tile_forward it is the tiles' forward. --ema
 serves the checkpoint's parameter average.
 
+--int8_trunk 1 serves the W8A8 trunk (ops/int8_forward.py; bf16 whatever
+--serving_dtype says), calibrated on the first --int8_calib_images val
+inputs; --int8_report also runs the exact forward per image (direct
+forwards only), prints the int8-vs-exact deltas, writes them to
+--report_json and exits 3 when the mean drop exceeds --int8_max_drop.
+
 Not ported yet, refused with a pointer to ROADMAP.md: --artifact,
---int8_trunk, --int8_report, --dp_devices, --spatial_shard.
+--dp_devices, --spatial_shard.
 --collapsed_tail and --packed_trunk are TPU layout rewrites of the same
 function: accepted and ignored.
 """
@@ -41,6 +47,7 @@ import os
 import time
 
 import numpy as np
+import torch
 
 from larvanet_tpu_torch.cli import common
 from larvanet_tpu_torch.data import io
@@ -49,7 +56,7 @@ from larvanet_tpu_torch.eval.ensemble import self_ensemble_forward
 from larvanet_tpu_torch.eval.pipeline import pipelined_upscale
 from larvanet_tpu_torch.eval.tiling import upscale_with_chop_forward
 
-REFUSED = ("artifact", "int8_trunk", "int8_report", "dp_devices", "spatial_shard")
+REFUSED = ("artifact", "dp_devices", "spatial_shard")
 IGNORED = ("collapsed_tail", "packed_trunk")
 
 
@@ -77,6 +84,16 @@ def build_parser() -> argparse.ArgumentParser:
                              "forward (eval/ensemble.py).")
     common.add_ema_flag(parser)
     common.add_wino_trunk_flag(parser)
+    common.add_int8_trunk_flag(parser)
+    parser.add_argument("--int8_calib_images", type=int, default=4,
+                        help="Number of val images stacked (centre-cropped) into the "
+                             "int8 activation-scale calibration batch.")
+    parser.add_argument("--int8_report", action="store_true",
+                        help="With --int8_trunk: also run the exact forward per image "
+                             "and print the int8-vs-exact PSNR delta.")
+    parser.add_argument("--int8_max_drop", type=float, default=0.1,
+                        help="With --int8_report: refuse to bless the int8 path (exit "
+                             "code 3) when the mean PSNR drop exceeds this many dB.")
     common.add_refused_flags(parser, REFUSED, IGNORED)
     common.add_serving_dtype_flag(parser)
     return parser
@@ -97,6 +114,16 @@ def main(argv=None):
     common.apply_serving_dtype(model, args)
     print("restored the model")
     common.maybe_wino_trunk(model, args)
+    common.maybe_int8_trunk(model, args, lambda: common.int8_calib_batch(
+        dataloader, scale_list[0], args.int8_calib_images))
+    int8_report = args.int8_report and hasattr(model, "int8_exact_forward")
+    if args.int8_report and not int8_report:
+        print("--int8_report: int8 trunk is not active; nothing to report")
+    if int8_report and (args.chop_forward or args.tile_forward):
+        raise SystemExit(
+            "--int8_report requires direct (non-tiled) forwards: drop "
+            "--chop_forward/--tile_forward so the int8-vs-exact delta "
+            "measures quantization alone")
     # the ensemble runs the f32 module graph, as JAX's runs _forward_impl
     forward = self_ensemble_forward(model.module) if args.self_ensemble else None
     tiler = common.make_tiler(model, args, forward)
@@ -107,10 +134,12 @@ def main(argv=None):
     average_psnr_dict = {}
     average_duration_dict = {}
     report = {}
+    int8_verdicts = []
     for scale in scale_list:
-        duration_list, psnr_list, name_list = [], [], []
+        duration_list, psnr_list, name_list, int8_deltas = [], [], [], []
 
-        def score(image_index, image_name, truth_image, output_image, duration):
+        def score(image_index, image_name, truth_image, output_image, duration,
+                  input_image):
             duration_list.append(duration)
             truth_u8 = metrics.image_to_uint8(truth_image)
             output_u8 = metrics.image_to_uint8(output_image)
@@ -121,10 +150,23 @@ def main(argv=None):
             psnr = metrics.psnr_rgb(output_u8, truth_u8)
             psnr_list.append(psnr)
             name_list.append(image_name)
+            if int8_report:
+                # the exact forward on the same frame (validate.py:271-282)
+                with torch.no_grad():
+                    x = model._input_to_device([input_image]).to(model.compute_dtype)
+                    exact = model.int8_exact_forward(x.contiguous()).float()
+                exact_u8 = metrics.image_to_uint8(exact[0].cpu().numpy().transpose(2, 0, 1))
+                exact_psnr = metrics.psnr_rgb(exact_u8, truth_u8)
+                int8_deltas.append(psnr - exact_psnr)
+                print("x%d, %d/%d, psnr=%.2f, duration=%.4f  [int8 %.4f vs exact "
+                      "%.4f dB, delta %+.4f]"
+                      % (scale, image_index + 1, num_images, psnr, duration, psnr,
+                         exact_psnr, psnr - exact_psnr))
+                return
             print("x%d, %d/%d, psnr=%.2f, duration=%.4f"
                   % (scale, image_index + 1, num_images, psnr, duration))
 
-        if direct and args.device_uint8 and args.pipeline_depth > 1:
+        if direct and args.device_uint8 and args.pipeline_depth > 1 and not int8_report:
             def items():
                 for image_index in range(num_images):
                     input_image, truth_image, image_name = dataloader.get_image_pair(
@@ -133,7 +175,7 @@ def main(argv=None):
 
             for (image_index, image_name, truth_image), out_u8, dt in pipelined_upscale(
                     model, items(), scale, depth=args.pipeline_depth):
-                score(image_index, image_name, truth_image, out_u8, dt)
+                score(image_index, image_name, truth_image, out_u8, dt, None)
         else:
             for image_index in range(num_images):
                 input_image, truth_image, image_name = dataloader.get_image_pair(
@@ -152,21 +194,42 @@ def main(argv=None):
                 else:
                     output_image = model.upscale([input_image], scale)[0]
                 score(image_index, image_name, truth_image, output_image,
-                      time.perf_counter() - start_time)
+                      time.perf_counter() - start_time, input_image)
 
         average_psnr_dict[scale] = float(np.mean(psnr_list))
         average_duration_dict[scale] = float(np.mean(duration_list))
         print("x%d, psnr=%.2f, duration=%.4f"
               % (scale, average_psnr_dict[scale], average_duration_dict[scale]))
+        if int8_report:
+            mean_delta = float(np.mean(int8_deltas))
+            worst = float(np.min(int8_deltas))
+            print("x%d, int8-vs-exact: mean delta %+.4f dB, worst %+.4f dB "
+                  "(threshold --int8_max_drop %.3f)"
+                  % (scale, mean_delta, worst, args.int8_max_drop))
+            int8_verdicts.append((scale, mean_delta, worst))
         report.setdefault("scales", {})[str(scale)] = {
             "mean_psnr": average_psnr_dict[scale],
             "per_image": dict(zip(name_list, map(float, psnr_list))),
         }
+        if int8_report:
+            report["scales"][str(scale)]["int8_vs_exact"] = {
+                "mean_delta_db": float(np.mean(int8_deltas)),
+                "worst_delta_db": float(np.min(int8_deltas)),
+                "per_image_delta": dict(zip(name_list, map(float, int8_deltas))),
+            }
     if args.report_json:
         os.makedirs(os.path.dirname(args.report_json) or ".", exist_ok=True)
         with open(args.report_json, "w") as f:
             json.dump(report, f, indent=1, sort_keys=True)
     print("finished")
+    for scale, mean_delta, worst in int8_verdicts:
+        if -mean_delta > args.int8_max_drop:
+            print("int8 REFUSED: x%d mean PSNR drop %.4f dB exceeds --int8_max_drop %.3f "
+                  "— do not serve this quantized model" % (scale, -mean_delta,
+                                                          args.int8_max_drop))
+            raise SystemExit(3)
+    if int8_verdicts:
+        print("int8 OK: within --int8_max_drop on every scale")
     return average_psnr_dict
 
 

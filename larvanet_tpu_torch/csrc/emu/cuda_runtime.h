@@ -9,7 +9,7 @@
 // in turn. A stand-in that finds a fault the card would report (a
 // misaligned address) records it with `emu_fault`, and the next
 // `cudaGetLastError` returns it. The warp-wide PTX instructions the kernels
-// run in inline assembly (ldmatrix, mma.sync in bf16 and tf32) have
+// run in inline assembly (ldmatrix, mma.sync in bf16, tf32 and s8) have
 // stand-ins here that exchange the lanes' operands through a per-warp
 // buffer after a `__syncwarp`, as the instruction does across the
 // warp's registers; cvt.rna.tf32.f32 has a bit-exact one.
@@ -245,3 +245,37 @@ inline void emu_mma_m16n8k16(float* d, const unsigned (&a)[4], unsigned b0, unsi
       d[2 * e + i] += sum;
     }
 }
+
+// mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32, d += a x b, with the PTX
+// ISA's fragment layouts (g = lane / 4, t = lane % 4): each register holds
+// four s8 values, byte i the i-th; a[0] holds A(g, 4t + i), a[1] A(g + 8, 4t +
+// i), a[2] A(g, 16 + 4t + i), a[3] A(g + 8, 16 + 4t + i); b0 holds B(4t + i;
+// g), b1 B(16 + 4t + i; g); d[2e + i] is D(g + 8e, 2t + i). The s32 sums are
+// exact, as on the card.
+inline void emu_mma_m16n8k32_s8(int* d, const unsigned (&a)[4], unsigned b0, unsigned b1) {
+  const int lane = (int)(threadIdx.x % 32);
+  EmuWarpRegs& w = emu_exchange();
+  for (int i = 0; i < 4; ++i) w.a[lane][i] = a[i];
+  w.b[lane][0] = b0;
+  w.b[lane][1] = b1;
+  __syncwarp();
+  auto s8 = [](unsigned v, int k) { return (int)(int8_t)(uint8_t)(v >> (8 * (k % 4))); };
+  const int g = lane / 4, t = lane % 4;
+  for (int e = 0; e < 2; ++e)
+    for (int i = 0; i < 2; ++i) {
+      const int row = g + 8 * e, col = 2 * t + i;
+      int sum = 0;
+      for (int k = 0; k < 32; ++k) {
+        const int av = s8(w.a[(row % 8) * 4 + (k % 16) / 4][row / 8 + 2 * (k / 16)], k);
+        const int bv = s8(w.b[col * 4 + (k % 16) / 4][k / 16], k);
+        sum += av * bv;
+      }
+      d[2 * e + i] += sum;
+    }
+}
+
+// the IEEE single-precision intrinsics that nvcc never contracts or
+// approximates: on the host one rounded operation each
+inline float __fmul_rn(float a, float b) { return a * b; }
+inline float __fadd_rn(float a, float b) { return a + b; }
+inline float __fdiv_rn(float a, float b) { return a / b; }

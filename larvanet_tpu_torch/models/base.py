@@ -74,6 +74,24 @@ from larvanet_tpu_torch.utils.torch_convert import (EXPORT_RULES, load_pth,
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 
 
+def add_qat_flag(parser) -> None:
+    """--qat (larvanet_tpu/models/base.py:57-84): train through
+    ops/pairs.qat_pair, the straight-through fake-quant of the conv pairs
+    with the int8 serving scheme (the same per-output-channel weight scales
+    and 1.05 max activation headroom), so that --int8_trunk serving costs
+    ~0 dB. Needs an even patch width; JAX also needs its --packed_trunk,
+    whose explicit 0 `prepare` refuses as JAX does."""
+    parser.add_argument("--qat", type=int, default=0,
+                        help="Quantization-aware training: fake-quantize the conv "
+                             "pairs with the int8 serving scheme (STE) so "
+                             "--int8_trunk serving costs ~0 dB. Even patch width.")
+
+
+def qat_requested(model) -> bool:
+    """True when the model was configured with --qat 1 (base.py:87-90)."""
+    return bool(getattr(getattr(model, "args", None), "qat", 0))
+
+
 def make_optimizer(kind: str, params) -> torch.optim.Optimizer:
     """Adam or AdamW with torch's defaults (betas 0.9 / 0.999, eps 1e-8;
     AdamW's weight decay 0.01 on every parameter), the learning rate set
@@ -173,6 +191,14 @@ class SRModel:
         self.temp_volume = 0.0
         self.is_training = is_training
         self.optimizer = self.ema = None
+        if is_training and qat_requested(self) and getattr(self.args, "packed_trunk",
+                                                           None) == 0:
+            # JAX's check (base.py:383-388); the port's --packed_trunk is
+            # otherwise accepted and ignored, and unset means JAX's default 1
+            raise ValueError(
+                "--qat 1 requires --packed_trunk 1: QAT fake-quantizes the "
+                "packed conv pairs the int8 serving path runs "
+                "(ops/pairs.qat_pair)")
         if is_training:
             params = list(self.module.parameters())
             self.optimizer = make_optimizer(self.optimizer_kind, params)

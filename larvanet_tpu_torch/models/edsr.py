@@ -16,24 +16,26 @@ through three exact reparametrisations of the module graph
 (--packed_trunk, --collapsed_tail_train, --lr_domain_loss: the same
 per-element gradients, the loss in another order of summation); the port
 parses them and trains the module graph, as JAX does with --packed_trunk 0.
---train_dtype, --qat and --remat are parsed here and refused by the train
-CLI at any value but f32 / 0.
+--qat 1 trains every ResBlock pair through ops/pairs.qat_pair (the int8
+serving scheme in fake-quant); --train_dtype and --remat are parsed here and
+refused by the train CLI at any value but f32 / 0.
 """
 
 from __future__ import annotations
 
 import argparse
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 from torch import nn
 
 from larvanet_tpu_torch.core.config import parse_known
 from larvanet_tpu_torch.core.registry import register_model
-from larvanet_tpu_torch.models.base import SRModel, StepDecayMixin
+from larvanet_tpu_torch.models.base import (SRModel, StepDecayMixin, add_qat_flag,
+                                            qat_requested)
 from larvanet_tpu_torch.train.losses import robust_sqrt_loss
 from larvanet_tpu_torch.models.layers import (Conv3x3, MeanShift, ResBlock,
-                                              UpsampleBlock)
+                                              UpsampleBlock, exact_pair)
 
 
 class EDSRModule(nn.Module):
@@ -53,11 +55,16 @@ class EDSRModule(nn.Module):
         self.final_conv = Conv3x3(features, 3, generator=g)
         self.mean_inverse_shift = MeanShift(sign=-1.0)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, pair: Callable = exact_pair) -> torch.Tensor:
+        """The forward, with ResBlock i's convs run by `pair(i, res, body[0],
+        body[2], kind="res", res_weight=...)` (layers.exact_pair: the
+        blocks themselves); the head, after_res_conv and the tail run their
+        own layers."""
         x = self.first_conv(self.mean_shift(x))
         res = x
-        for block in self.res_blocks:
-            res = block(res)
+        for i, block in enumerate(self.res_blocks):
+            res = pair(i, res, block.body[0], block.body[2], kind="res",
+                       res_weight=block.res_weight)
         x = x + self.after_res_conv(res)
         x = self.final_conv(self.upsample(x))
         return self.mean_inverse_shift(x)
@@ -93,9 +100,7 @@ class EDSR(StepDecayMixin, SRModel):
         parser.add_argument("--collapsed_tail_train", type=int, default=None,
                             help="The JAX package's live collapsed tail (loss- and "
                                  "gradient-equivalent); accepted and ignored.")
-        parser.add_argument("--qat", type=int, default=0,
-                            help="Quantization-aware training; not ported yet (see "
-                                 "ROADMAP.md), refused by the train CLI unless 0.")
+        add_qat_flag(parser)
         parser.add_argument("--remat", type=int, default=0,
                             help="Rematerialised training trunk; not ported yet (see "
                                  "ROADMAP.md), refused by the train CLI unless 0.")
@@ -105,6 +110,17 @@ class EDSR(StepDecayMixin, SRModel):
                                  "ported (bf16 is refused by the train CLI).")
         self.args, remaining = parse_known(parser, args)
         return self.args, remaining
+
+    def _compute_loss(self, inputs: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+        """The loss of the module's forward; under --qat 1 every ResBlock pair
+        runs `qat_pair` (make_packed_edsr_train_forward(qat=True),
+        ops/packed/edsr.py:145-157): the head, after_res_conv, the tail and
+        the residual stream stay exact."""
+        if not qat_requested(self):
+            return super()._compute_loss(inputs, targets)
+        from larvanet_tpu_torch.ops.pairs import qat_pair
+
+        return self.loss(self.module(inputs, qat_pair(torch.float32)), targets)
 
     def build_module(self, generator: torch.Generator) -> nn.Module:
         return EDSRModule(features=self.args.edsr_conv_features,

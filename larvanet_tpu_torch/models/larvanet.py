@@ -25,8 +25,9 @@ larvanet_tpu/utils/torch_convert.py:482-503 exports: `head.feature_extraction`,
 Training (larvanet.py:181-414): AdamW on the multi-exit loss, the mean of
 the L1 losses of every exit (`walk(x, "all")`: every leg, then the V2
 tail), with the learning rate of a ReduceLROnPlateau on the validation
-PSNR. `train_step` is one step at that rate (the step-driven train CLI,
-which never validates); `train_step_larva` is the volume-driven step of
+PSNR; --qat 1 fake-quantizes every body and leg conv pair (ops/pairs.py).
+`train_step` is one step at that rate (the step-driven train CLI, which
+never validates); `train_step_larva` is the volume-driven step of
 the train_larva CLIs: every `--val_volume` bytes of input pixels it
 validates, steps the schedule, saves `model_step<N>_vol<G>G.pth` and
 writes the summary. The JAX package trains a width-packed trunk with the
@@ -48,8 +49,8 @@ from torch import nn
 
 from larvanet_tpu_torch.core.config import parse_known
 from larvanet_tpu_torch.core.registry import register_model
-from larvanet_tpu_torch.models.base import SRModel
-from larvanet_tpu_torch.models.layers import Conv3x3, ResBlock, interpolated_base
+from larvanet_tpu_torch.models.base import SRModel, add_qat_flag, qat_requested
+from larvanet_tpu_torch.models.layers import Conv3x3, ResBlock, exact_pair, interpolated_base
 from larvanet_tpu_torch.ops.pixel_shuffle import pixel_shuffle
 from larvanet_tpu_torch.train.losses import multi_exit_l1
 from larvanet_tpu_torch.train.schedules import ReduceLROnPlateau
@@ -102,11 +103,24 @@ class Leg(nn.Module):
             self.recon_block = ResBlock(features, generator=generator,
                                         init_scale=INIT_SCALE)
 
-    def forward(self, fea: torch.Tensor, base: torch.Tensor) -> torch.Tensor:
-        if self.style == "skip":
-            fea = self.recon_block(fea) + fea
-        elif self.style != "none":
-            fea = self.recon_block(fea)
+    def pair(self):
+        """The leg's conv pair and its kind: (conv1, conv2, 'none') for
+        '2conv', (conv1, conv2, 'res') for 'skip' and 'resblock' (the skip
+        add); None for 'none'."""
+        if self.style == "none":
+            return None
+        rb = self.recon_block
+        if self.style == "resblock":
+            return rb.body[0], rb.body[2], "res"
+        return rb[0], rb[2], "none" if self.style == "2conv" else "res"
+
+    def forward(self, fea: torch.Tensor, base: torch.Tensor, pair: Callable = exact_pair,
+                idx: int = -1) -> torch.Tensor:
+        """The exit, with the leg's conv pair run by `pair(idx, fea, conv1,
+        conv2, kind=...)`."""
+        convs = self.pair()
+        if convs is not None:
+            fea = pair(idx, fea, convs[0], convs[1], kind=convs[2])
         return shuffle_exit(fea, base)
 
 
@@ -186,11 +200,13 @@ class LarvaNetModule(nn.Module):
     def forward(self, x: torch.Tensor, exits: Optional[Exits] = None):
         return self.walk(x, self.exits if exits is None else exits)
 
-    def walk(self, x: torch.Tensor, exits: Exits,
-             run_block: Optional[Callable[[ResBlock, torch.Tensor], torch.Tensor]] = None):
-        """The forward, with each body ResBlock run by `run_block(block, h)`
-        (None: the block itself); ops/wino_resblock.py routes the fused
-        kernel in here (the topology of ops/packed/larvanet.py:17-153)."""
+    def walk(self, x: torch.Tensor, exits: Exits, pair: Callable = exact_pair):
+        """The forward (the topology of ops/packed/larvanet.py:17-153), with
+        every conv pair run by `pair(idx, h, conv1, conv2, kind=...)`
+        (layers.exact_pair: the modules themselves). The indices are JAX's:
+        the body ResBlocks in execution order, then the serving leg; the
+        other legs, run only for exits 'all', get -1. The fused Winograd
+        route, the int8 calibration and replay and QAT come in here."""
         exits = self.check_exits(exits)
         base = interpolated_base(x, SCALE, self.interpolate)
         if exits == 0:
@@ -200,18 +216,20 @@ class LarvaNetModule(nn.Module):
         n_run = exits if isinstance(exits, int) else len(bodies)
         want_last_leg = exits == "all" or isinstance(exits, int) or not self.use_tail
         outputs, features = [], []
-        res = fea
+        res, idx = fea, 0
         for i in range(n_run):
             h = fea if self.body_style == "plain" else res
             for block in bodies[i].res_blocks:
-                h = block(h) if run_block is None else run_block(block, h)
+                h = pair(idx, h, block.body[0], block.body[2], kind="res",
+                         res_weight=block.res_weight)
+                idx += 1
             if self.body_style == "plain":
                 fea = fea + h
             else:
                 fea, res = fea + h, h
             features.append(fea)
             if exits == "all" or (i == n_run - 1 and want_last_leg):
-                outputs.append(bodies[i].leg(fea, base))
+                outputs.append(bodies[i].leg(fea, base, pair, idx if i == n_run - 1 else -1))
         if self.use_tail and not isinstance(exits, int):
             outputs.append(self.tail(features, base))
         return outputs if exits == "all" else outputs[-1]
@@ -220,8 +238,9 @@ class LarvaNetModule(nn.Module):
 class LarvaNetBase(SRModel):
     """Shared wrapper of the presets (models/larvanet.py:181-414): AdamW
     with the plateau learning rate. Every flag of the JAX parser parses;
-    --packed_trunk and --lr_domain_loss are accepted and ignored, and the
-    train CLIs refuse --qat 1 and --remat 1. The family's exits are
+    --packed_trunk and --lr_domain_loss are accepted and ignored (an explicit
+    --packed_trunk 0 with --qat 1 is refused, as in JAX), --qat 1 trains
+    through the fake-quant pairs, and the train CLIs refuse --remat 1. The family's exits are
     PixelShuffle(4): --scales 2 or 3 are accepted and the output is x4 all
     the same, as in JAX."""
 
@@ -284,9 +303,7 @@ class LarvaNetBase(SRModel):
         parser.add_argument("--lr_domain_loss", type=int, default=None,
                             help="The JAX package's pre-shuffle loss (the same "
                                  "per-element gradients); accepted and ignored.")
-        parser.add_argument("--qat", type=int, default=0,
-                            help="Quantization-aware training; not ported yet (see "
-                                 "ROADMAP.md), refused by the train CLIs unless 0.")
+        add_qat_flag(parser)
         parser.add_argument("--remat", type=int, default=0,
                             help="Rematerialised training trunk; not ported yet (see "
                                  "ROADMAP.md), refused by the train CLIs unless 0.")
@@ -323,8 +340,15 @@ class LarvaNetBase(SRModel):
 
     def _compute_loss(self, inputs: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
         """The mean of every exit's L1 loss (larvanet.py:314-323). The exits
-        are asked for by name: LarvaLeg's module defaults to its --leg."""
-        return multi_exit_l1(self.module.walk(inputs, "all"), targets)
+        are asked for by name: LarvaLeg's module defaults to its --leg. Under
+        --qat 1 every body and leg pair runs `qat_pair`, whatever its index,
+        as JAX's all-exits walk does (ops/packed/larvanet.py:298-309); the
+        head, the V2 tail and the residual stream stay exact."""
+        if not qat_requested(self):
+            return multi_exit_l1(self.module.walk(inputs, "all"), targets)
+        from larvanet_tpu_torch.ops.pairs import qat_pair
+
+        return multi_exit_l1(self.module.walk(inputs, "all", qat_pair(torch.float32)), targets)
 
     # -- volume-driven training (reference train_larva.py, LarvaNet.py:98-161) --
 

@@ -105,10 +105,22 @@ class ResBlock(nn.Module):
         ])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        res = self.body[2](self.body[0](x))
-        if self.res_weight != 1.0:
-            res = res * self.res_weight
-        return x + res
+        return exact_pair(0, x, self.body[0], self.body[2], res_weight=self.res_weight)
+
+
+def exact_pair(idx: int, hin: torch.Tensor, conv1: nn.Module, conv2: nn.Module,
+               kind: str = "res", res_weight: float = 1.0) -> torch.Tensor:
+    """A conv pair as the modules run it: conv1 (its act fused), conv2,
+    times res_weight when it is not 1, plus hin for kind 'res' ('none': no
+    skip). The default `pair` of the family walks (EDSRModule.forward,
+    LarvaNetModule.walk), which hand every ResBlock and leg pair to a pair
+    runner with its index `idx` (unused here): the fused Winograd route,
+    the int8 calibration and replay, QAT (ops/wino_resblock.py,
+    ops/pairs.py)."""
+    t = conv2(conv1(hin))
+    if res_weight != 1.0:
+        t = t * res_weight
+    return hin + t if kind == "res" else t
 
 
 class UpsampleBlock(nn.Module):

@@ -1,0 +1,72 @@
+"""The W8A8 int8 forwards of EDSR and the LarvaNet family.
+
+Counterparts of `make_int8_edsr_forward` (larvanet_tpu/ops/packed/edsr.py:
+114) and `make_int8_larvanet_forward` (ops/packed/larvanet.py:187). Each
+runs its module's own walk (EDSRModule.forward, LarvaNetModule.walk) with
+every conv pair handed to a pair runner (ops/pairs.py), with JAX's pair
+indices: the body blocks in execution order, then the serving leg. The int8
+forward calibrates once over a batch with the exact pair in `dtype` and
+replays the walk with the int8 pair on the conv3x3_s8 kernel; heads, EDSR's
+after_res_conv and tail, the V2 tail and the residual stream stay exact, in
+`dtype`, on the conv3x3 kernel. The CLIs build it in bf16 whatever
+--serving_dtype says, as JAX's do. An odd-width input raises (the CLIs'
+route sends it to the exact forward).
+
+EDSR's tail here is the plain live tail (upsample convs and PixelShuffle);
+JAX's serving forward bakes the collapsed tail (ops/collapsed_tail.py, not
+ported), the same function in another order of summation.
+"""
+
+from __future__ import annotations
+
+import copy
+
+import torch
+
+from larvanet_tpu_torch.models.larvanet import SCALE
+from larvanet_tpu_torch.models.layers import interpolated_base
+from larvanet_tpu_torch.ops.pairs import make_int8
+
+
+class Int8Unsupported(ValueError):
+    """A model family or configuration with no int8 path (JAX's makers raise
+    ValueError for it, and the CLIs keep the exact route). Only this is
+    caught by the CLIs: a failure while calibrating propagates."""
+
+
+def _module_in(model, dtype: torch.dtype):
+    """The model's module with its weights in `dtype` (a cast copy unless
+    f32): the exact parts of the int8 walk run in `dtype`."""
+    return model.module if dtype == torch.float32 else copy.deepcopy(model.module).to(dtype)
+
+
+def make_int8_edsr_forward(model, calib_batch, dtype: torch.dtype = torch.bfloat16):
+    """W8A8 EDSR inference (ops/packed/edsr.py:114-142): every ResBlock pair
+    int8, calibrated on `calib_batch` (NHWC float, even width); the head,
+    after_res_conv and the tail exact in `dtype`. Returns forward(x) for an
+    NHWC batch on the model's device."""
+    pairs = [(b.body[0], b.body[2]) for b in model.module.res_blocks]
+    return make_int8(model, calib_batch, dtype, _module_in(model, dtype), pairs)
+
+
+def make_int8_larvanet_forward(model, calib_batch, dtype: torch.dtype = torch.bfloat16):
+    """W8A8 LarvaNet-family inference (ops/packed/larvanet.py:187-235): the
+    body pairs of the modules that run, then the serving leg's pair (none
+    for leg style 'none', nor when a V2 model exits through its exact tail);
+    `--leg 0` is the pure base. A 'res' body style raises ValueError, as in
+    JAX (the CLIs then keep the exact route)."""
+    m = model.module
+    if m.body_style != "plain":
+        raise Int8Unsupported("int8 path supports plain-body configs")
+    exits = m.exits
+    if exits == 0:
+        return lambda x: interpolated_base(x.to(dtype), SCALE, m.interpolate)
+    bodies = m.bodies()
+    n_run = exits if isinstance(exits, int) else len(bodies)
+    pairs = [(b.body[0], b.body[2]) for body in bodies[:n_run] for b in body.res_blocks]
+    leg = bodies[n_run - 1].leg.pair()
+    if leg is not None and not (m.use_tail and not isinstance(exits, int)):
+        pairs.append(leg[:2])
+    module = _module_in(model, dtype)
+    return make_int8(model, calib_batch, dtype,
+                     lambda x, pair: module.walk(x, exits, pair), pairs)

@@ -53,6 +53,7 @@ import torch
 import torch.nn.functional as F
 
 from larvanet_tpu_torch.ops import build
+from larvanet_tpu_torch.models.layers import exact_pair
 from larvanet_tpu_torch.ops.conv3x3 import split_tf32
 
 SOURCE = "wino_resblock.cu"
@@ -304,28 +305,32 @@ def wino_resblock(x: torch.Tensor, k_a: torch.Tensor, b_a: torch.Tensor,
 
 
 def fused_resblock_runner(m: int = 2):
-    """`run(block, x)`: ResBlock `block` (models/layers.ResBlock, C = 64) on
-    x in one `wino_resblock_transformed` call. The weight transforms are
-    cached per block, in the layout of the dtype's entry (`entry_basis`; in
-    f32 with their split-TF32 parts), and recomputed when a weight changes,
-    so a later restore or set_serving_dtype holds."""
+    """The pair runner of the family walks (models/layers.exact_pair's
+    signature): a 'res' pair, a ResBlock's two convs, runs in one
+    `wino_resblock_transformed` call; any other kind (a LarvaNet leg) runs
+    exact_pair, as JAX's wino_pallas_pair_with_fallback does. The weight
+    transforms are cached per pair, in the layout of the dtype's entry
+    (`entry_basis`; in f32 with their split-TF32 parts), and recomputed
+    when a weight changes, so a later restore or set_serving_dtype holds."""
     _check_m(m)
     cache: Dict[torch.nn.Module, tuple] = {}
 
     @torch.no_grad()
-    def run(block, x: torch.Tensor) -> torch.Tensor:
-        weights = (block.body[0].weight, block.body[2].weight)
+    def run(idx: int, x: torch.Tensor, conv1, conv2, kind: str = "res",
+            res_weight: float = 1.0) -> torch.Tensor:
+        if kind != "res":
+            return exact_pair(idx, x, conv1, conv2, kind, res_weight)
+        weights = (conv1.weight, conv2.weight)
         key = tuple((w.data_ptr(), w._version, w.dtype, w.device) for w in weights) \
             + (x.dtype,)
-        hit = cache.get(block)
+        hit = cache.get(conv1)
         if hit is None or hit[0] != key:
             hit = (key, tuple(entry_basis(h_transform_kernel(w.permute(2, 3, 1, 0), m)
                                           .to(x.dtype), path_for(x.dtype))
                               for w in weights))
-            cache[block] = hit
+            cache[conv1] = hit
         u_a, u_b = hit[1]
-        return wino_resblock_transformed(x, u_a, block.body[0].bias, u_b,
-                                         block.body[2].bias, block.res_weight, m,
+        return wino_resblock_transformed(x, u_a, conv1.bias, u_b, conv2.bias, res_weight, m,
                                          entry_layout=True)
 
     return run
@@ -349,14 +354,7 @@ def make_wino_edsr_forward(model, m: int = 2):
     @torch.no_grad()
     def forward(x: torch.Tensor) -> torch.Tensor:
         _check_even_width(x)
-        mod = model.serving_module
-        h = mod.first_conv(mod.mean_shift(x))
-        res = h
-        for block in mod.res_blocks:
-            res = run(block, res)
-        h = h + mod.after_res_conv(res)
-        h = mod.final_conv(mod.upsample(h))
-        return mod.mean_inverse_shift(h)
+        return model.serving_module(x, run)
 
     return forward
 
@@ -373,7 +371,7 @@ def make_wino_larvanet_forward(model, m: int = 2):
     here, from the module. Legs and the tail always run the direct convs.
     Even input widths only, as in JAX."""
     _check_m(m)
-    run = fused_resblock_runner(m) if model.module.features == KERNEL_CHANNELS else None
+    run = fused_resblock_runner(m) if model.module.features == KERNEL_CHANNELS else exact_pair
 
     @torch.no_grad()
     def forward(x: torch.Tensor):

@@ -118,3 +118,28 @@ def load_pth(path: str) -> Dict[str, torch.Tensor]:
     if not isinstance(state, dict):
         raise ValueError("%s does not hold a state_dict" % (path,))
     return state
+
+
+def unpack_jax_pair_record(rec) -> Dict[str, object]:
+    """One of JAX's quantized pair records (larvanet_tpu/ops/packed/pairs.py
+    make_pair_runner's `quant`: ka, kb int8 width-packed kernels (3, 2, 2C,
+    2F); sa, sb, ba, bb per packed channel (2F,); s_in, s_mid floats) ->
+    the unpacked record: ka, kb int8 HWIO (3, 3, C, F), sa, sb f32 (F,), ba,
+    bb (F,) as numpy, s_in, s_mid floats. A packed entry [ky, w, e C + ci,
+    d F + co] is the original tap k[ky, 2w + e - d, ci, co] (core.py
+    `_route`); both column offsets d hold every tap, and the check that they
+    agree guards the unpacking."""
+    out: Dict[str, object] = {"s_in": float(rec["s_in"]), "s_mid": float(rec["s_mid"])}
+    for conv in ("a", "b"):
+        p = np.asarray(rec["k" + conv])
+        c, f = p.shape[2] // 2, p.shape[3] // 2
+        d0 = np.stack([p[:, 0, :c, :f], p[:, 0, c:, :f], p[:, 1, :c, :f]], axis=1)
+        d1 = np.stack([p[:, 0, c:, f:], p[:, 1, :c, f:], p[:, 1, c:, f:]], axis=1)
+        s = np.asarray(rec["s" + conv], np.float32).reshape(-1)
+        b = np.asarray(rec["b" + conv], np.float32).reshape(-1)
+        if (not np.array_equal(d0, d1) or not np.array_equal(s[:f], s[f:])
+                or not np.array_equal(b[:f], b[f:]) or np.any(p[:, 0, :c, f:])):
+            raise ValueError("pair record %s is not a width-packed SAME 3x3 conv" % conv)
+        out["k" + conv] = np.ascontiguousarray(d0.astype(np.int8))
+        out["s" + conv], out["b" + conv] = s[:f].copy(), b[:f].copy()
+    return out

@@ -38,6 +38,30 @@ def test_importing_every_module_loads_no_jax():
                          capture_output=True, text=True, timeout=300)
     loaded = json.loads(out.stdout.strip().splitlines()[-1])
     assert "larvanet_tpu_torch.cli.serve" in loaded
+    for name in ("ops.conv3x3_s8", "ops.pairs", "ops.int8_forward"):
+        assert "larvanet_tpu_torch." + name in loaded
+    assert [m for m in loaded if FORBIDDEN.match(m)] == []
+
+
+def test_int8_serving_and_qat_on_the_cpu_load_no_jax():
+    """An int8 forward (calibration, the s8 pairs' plain versions) and a QAT
+    loss with its backward, in a fresh process: no JAX module loads."""
+    code = (
+        "import json, sys, numpy as np, torch\n"
+        "from larvanet_tpu_torch.core.registry import get_model\n"
+        "from larvanet_tpu_torch.ops import int8_forward\n"
+        "m = get_model('edsr')\n"
+        "m.parse_args(['--edsr_res_blocks', '1', '--edsr_conv_features', '8', '--qat', '1'])\n"
+        "m.prepare([4], device='cpu', is_training=True)\n"
+        "x = np.random.default_rng(0).uniform(0, 255, (1, 6, 8, 3)).astype(np.float32)\n"
+        "fwd = int8_forward.make_int8_edsr_forward(m, x)\n"
+        "assert fwd(torch.from_numpy(x)).shape == (1, 24, 32, 3)\n"
+        "m._compute_loss(torch.from_numpy(x), torch.zeros(1, 24, 32, 3)).backward()\n"
+        "print(json.dumps(sorted(sys.modules)))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                         capture_output=True, text=True, timeout=300)
+    loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    assert "larvanet_tpu_torch.ops.pairs" in loaded
     assert [m for m in loaded if FORBIDDEN.match(m)] == []
 
 

@@ -452,7 +452,6 @@ def test_test_cli_matches_jax_on_fixture_real(extra, fixture_real, real_pth, jax
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--int8_trunk", "1"], "ROADMAP"),
     (["--model", "msrr_test"], "ROADMAP"),
 ])
 def test_test_cli_refusals(argv, match, real_pth, tmp_path):

@@ -15,6 +15,7 @@ import torch
 from larvanet_tpu_torch.ops import conv3x3, emulate
 from larvanet_tpu_torch.ops import conv3x3_wgrad as wg
 from larvanet_tpu_torch.ops import wino_resblock as wr
+from larvanet_tpu_torch.ops import conv3x3_s8 as s8
 
 # f32: the kernel sums the same f32 products as the plain version in another
 # order (chip_smoke.py's F32_ATOL; the JAX tests' 5x for F(4,3))
@@ -535,3 +536,101 @@ def test_conv3x3_wgrad_tiled_entry_refuses_what_it_cannot_take(wgrad_lib, path, 
     fn = wg.bind(wgrad_lib, path)
     with pytest.raises(RuntimeError, match="CUDA error 1$"):
         wg._run(fn, x, g, splits, chunk, None)
+
+
+# ---- conv3x3_s8: the int8 conv of the W8A8 pair, bit for bit ----
+
+@pytest.fixture(scope="module")
+def s8_lib():
+    return _lib(s8.SOURCE)
+
+
+def _s8_weight(rng, c, f, s, dtype):
+    codes = rng.integers(-127, 128, (3, 3, c, f)).astype(np.int8)
+    sa = (rng.uniform(0.5, 2.0, f) * 1e-3).astype(np.float32)
+    return s8.make_weight(codes, sa, s, _t(rng.standard_normal(f)), dtype, "cpu")
+
+
+# C and F of the pairs' shapes (EDSR 64->64, LarvaNet 48->48 and its leg
+# 48->48, LarvaNet_w64's leg 64->48) and of narrow pairs (JAX quantizes any
+# width); H odd and W not a multiple of the 16-pixel tile, batch 2. Then the
+# kernel's other edges: C not a multiple of 4 and F odd (padded codes and
+# outputs masked), C of three 32-code chunks, F past one 64-output block
+S8_CASES = [(8, 8, (2, 5, 19)), (16, 48, (2, 5, 19)), (48, 48, (2, 17, 7)),
+            (48, 16, (2, 5, 19)), (64, 64, (2, 5, 19)), (64, 48, (1, 3, 33)),
+            (6, 5, (2, 5, 19)), (96, 16, (1, 17, 18)), (16, 80, (1, 5, 19))]
+
+
+@pytest.mark.parametrize("dname", ["f32", "bf16"])
+@pytest.mark.parametrize("c,f,hw", S8_CASES)
+def test_conv3x3_s8_conv_a_matches_plain_version_bit_for_bit(s8_lib, c, f, hw, dname):
+    rng = np.random.default_rng(c * 100 + f)
+    dtype = DTYPES[dname]
+    # hin / s_in lands on many exact halves: rint must round them to even
+    s_in = 0.25
+    hin = _t(rng.integers(-300, 300, hw + (c,)) / 8.0).to(dtype)
+    wt = _s8_weight(rng, c, f, s_in, dtype)
+    t = s8._dequant(s8.conv_codes_reference(s8.quantize(hin, s_in), wt.codes), wt, dtype)
+    s_mid = float(t.float().abs().max()) * 0.8 / 127.0  # some codes clip
+    got = s8._run_a(s8.bind(s8_lib, "conv_a", dtype), hin, wt, s_in, s_mid, "relu", None)
+    want = s8.conv_a_reference(hin, wt, s_in, s_mid, "relu")
+    assert got.dtype == torch.int8 and got.shape == want.shape
+    flips = int((got != want).sum())
+    print("emulated conv3x3_s8 conv_a %s %d->%d %s: %d of %d codes differ, %d clip"
+          % (dname, c, f, hw, flips, want.numel(), int((want.abs() == 127).sum())))
+    assert flips == 0
+
+
+@pytest.mark.parametrize("dname", ["f32", "bf16"])
+@pytest.mark.parametrize("c,f,hw", S8_CASES)
+def test_conv3x3_s8_conv_b_matches_plain_version_bit_for_bit(s8_lib, c, f, hw, dname):
+    rng = np.random.default_rng(c * 100 + f + 7)
+    dtype = DTYPES[dname]
+    tq = torch.from_numpy(rng.integers(-127, 128, hw + (c,)).astype(np.int8))
+    wt = _s8_weight(rng, c, f, 0.03, dtype)
+    res = _t(rng.standard_normal(hw + (f,))).to(dtype)
+    fn = s8.bind(s8_lib, "conv_b", dtype)
+    for r, rw in ((res, 1.0), (res, 0.1), (None, 1.0), (None, 0.1)):
+        got = s8._run_b(fn, tq, wt, dtype, r, rw, None)
+        want = s8.conv_b_reference(tq, wt, dtype, r, rw)
+        assert got.dtype == dtype and got.shape == want.shape
+        assert torch.equal(got.view(torch.int16 if dname == "bf16" else torch.int32),
+                           want.view(torch.int16 if dname == "bf16" else torch.int32)), \
+            (c, f, r is None, rw, float((got.float() - want.float()).abs().max()))
+
+
+@pytest.mark.parametrize("case", ["misaligned_w", "act_2", "empty"])
+def test_conv3x3_s8_entry_refuses_what_it_cannot_take(s8_lib, case):
+    rng = np.random.default_rng(3)
+    wt = _s8_weight(rng, 16, 16, 0.1, torch.float32)
+    hin = _t(rng.standard_normal((1, 4, 4, 16)))
+    n = 1
+    if case == "misaligned_w":
+        buf = torch.zeros(wt.entry.numel() + 16, dtype=torch.int8)
+        wt._entry = buf[1:1 + wt.entry.numel()].view(wt.entry.shape)
+    fn = s8.bind(s8_lib, "conv_a", torch.float32)
+    out = torch.empty((1, 4, 4, 16), dtype=torch.int8)
+    err = fn(hin.data_ptr(), wt.entry.data_ptr(), wt.scale.data_ptr(), wt.bias.data_ptr(),
+             out.data_ptr(), 0 if case == "empty" else n, 4, 4, 16, 16, 0.1, 0.1,
+             2 if case == "act_2" else 1, None)
+    assert err == (716 if case == "misaligned_w" else 1)
+
+
+@pytest.mark.parametrize("case", ["dtype", "layout", "kernel_shape", "scale_shape"])
+def test_conv3x3_s8_wrapper_refuses_what_the_entry_cannot_take(case):
+    rng = np.random.default_rng(4)
+    wt = _s8_weight(rng, 16, 16, 0.1, torch.float32)
+    x = _t(rng.standard_normal((1, 4, 4, 16)))
+    if case == "dtype":
+        with pytest.raises(TypeError):
+            s8._check(x.double(), wt, (torch.float32, torch.bfloat16), "conv_a")
+    elif case == "layout":
+        with pytest.raises(ValueError):
+            s8._check(x.transpose(1, 2), wt, (torch.float32, torch.bfloat16), "conv_a")
+    elif case == "kernel_shape":
+        with pytest.raises(ValueError):
+            s8._check(x[..., :8].contiguous(), wt, (torch.float32, torch.bfloat16), "conv_a")
+    else:
+        wt.scale = wt.scale[:8]
+        with pytest.raises(ValueError, match="scale and bias"):
+            s8._check(x, wt, (torch.float32, torch.bfloat16), "conv_a")

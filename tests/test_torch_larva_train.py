@@ -434,11 +434,39 @@ def test_cli_takes_ema_decay_and_grad_accum(div2k_root, tmp_path):
 @pytest.mark.parametrize("flags", [
     ["--device_pipeline", "4"], ["--async_checkpoint", "1"], ["--orbax_checkpoint", "1"],
     ["--dp_devices", "2"], ["--widen_from", "narrow.pth"], ["--profile_dir", "trace"],
-    ["--qat", "1"], ["--remat", "1"],
+    ["--remat", "1"],
 ])
 def test_cli_refuses_what_is_not_ported(div2k_root, tmp_path, flags):
     with pytest.raises(SystemExit, match="ROADMAP"):
         _larva_cli(div2k_root, str(tmp_path), "--max_steps", "1", *flags)
+
+
+def test_cli_trains_with_qat(div2k_root, tmp_path, monkeypatch):
+    """--qat 1 is accepted: the loss runs every body and leg pair through
+    the fake-quant pair (3 body pairs and 2 legs a step here); --qat 1 with
+    an explicit --packed_trunk 0 is refused, as in JAX."""
+    from larvanet_tpu_torch.ops import pairs
+
+    calls = []
+    real = pairs.qat_pair
+
+    def counting(dtype=torch.float32):
+        pair = real(dtype)
+
+        def counted(*a, **k):
+            calls.append(a[0])
+            return pair(*a, **k)
+
+        return counted
+
+    monkeypatch.setattr(pairs, "qat_pair", counting)
+    model, losses = _larva_cli(div2k_root, str(tmp_path), "--max_steps", "2", "--qat", "1")
+    assert model.args.qat == 1 and all(np.isfinite(v) for v in losses.values())
+    n_pairs = sum(int(b) for b in BLOCKS[1].split(",")) + len(BLOCKS[1].split(","))
+    assert len(calls) == 2 * n_pairs and -1 in calls
+    with pytest.raises(ValueError, match="requires --packed_trunk 1"):
+        _larva_cli(div2k_root, str(tmp_path / "p0"), "--max_steps", "1", "--qat", "1",
+                   "--packed_trunk", "0")
 
 
 def test_cli_runs_on_the_card_unless_told_otherwise(div2k_root, tmp_path):

@@ -495,11 +495,32 @@ def test_restore_path_latest_finds_the_highest_step(tmp_path):
 @pytest.mark.parametrize("flags", [
     ["--async_checkpoint", "1"], ["--orbax_checkpoint", "1"], ["--device_pipeline", "4"],
     ["--dp_devices", "2"], ["--widen_from", "narrow.pth"], ["--profile_dir", "trace"],
-    ["--train_dtype", "bf16"], ["--qat", "1"], ["--remat", "1"],
+    ["--train_dtype", "bf16"], ["--remat", "1"],
 ])
 def test_cli_refuses_what_is_not_ported(div2k_train_root, tmp_path, flags):
     with pytest.raises(SystemExit, match="ROADMAP"):
         _cli(div2k_train_root, str(tmp_path), "--max_steps", "1", *flags)
+
+
+def test_cli_trains_with_qat(div2k_train_root, tmp_path):
+    """--qat 1 is accepted and trains through the fake-quant pairs: its
+    first loss differs from the exact run's on the same batch and weights,
+    and a resume repeats the straight run bit for bit; --qat 1 with an
+    explicit --packed_trunk 0 is refused, as in JAX."""
+    exact, exact_losses = _cli(div2k_train_root, str(tmp_path / "exact"), "--max_steps", "1")
+    straight, losses = _cli(div2k_train_root, str(tmp_path / "qat"), "--max_steps", "4",
+                            "--qat", "1")
+    assert straight.args.qat == 1 and losses[1] != exact_losses[1]
+    path = str(tmp_path / "resumed")
+    _cli(div2k_train_root, path, "--max_steps", "3", "--qat", "1")
+    resumed, resumed_losses = _cli(div2k_train_root, path, "--max_steps", "4", "--qat", "1",
+                                   "--restore_path", "latest")
+    assert resumed_losses[4] == losses[4]
+    for a, b in zip(straight.module.parameters(), resumed.module.parameters()):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="requires --packed_trunk 1"):
+        _cli(div2k_train_root, str(tmp_path / "p0"), "--max_steps", "1", "--qat", "1",
+             "--packed_trunk", "0")
 
 
 @pytest.mark.parametrize("name,flags", [("LarvaNet", []), ("LarvaNetV2", []),
