@@ -161,9 +161,11 @@ flagship, and fails (exit code != 0, no result line) if any phase fails:
     as it is staged, act, requantize; conv_b: int8 in, dequantize, residual)
     in bf16 and f32 at every pair shape (S8_SHAPES) on the 4 x 192x192 batch
     and the 339x510 frame against their plain version: 0 values may differ.
-    Each is timed in turns with its plain version, torch._int_mm on the same
-    im2col GEMM (the unfold not timed), the port's bf16 conv3x3 kernel and
-    F.conv2d bf16 at the shape, beside its bound at the dense INT8 peak.
+    Each is timed in turns, as a CUDA graph of one call replayed (its own
+    time) and through its wrapper, with its plain version, torch._int_mm on
+    the same im2col GEMM (the unfold not timed), the port's bf16 conv3x3
+    kernel and F.conv2d bf16 at the shape, beside its bound at the dense
+    INT8 peak.
     11b: EDSR-baseline x4 (fitted as in phase 4) and LarvaNet 2x16, routed
     by the CLIs' maybe_int8_trunk, calibrated on photo frames, on the 4 x
     192x192 photo batch: one forward's launches (INT8_LAUNCHES), each pair's
@@ -2383,12 +2385,15 @@ def s8_kernel_phase(torch):
     """Phase 11a. conv3x3_s8's two entries, bf16 and f32, at every pair shape
     (S8_SHAPES) on the 4 x 192x192 batch and the 339x510 frame: 0 values
     differing from the plain version on the same int8 input and scales,
-    then the times in turns (entry, plain version, torch._int_mm on the same
-    im2col GEMM with the unfold not timed, the port's bf16 conv3x3 kernel
-    and F.conv2d bf16 at the same shape) and the bound. Returns {dtype:
-    {entry: sums over one EDSR-baseline int8 forward's 16 pairs at 4 x
-    192x192}}, the rows, and {dtype: the largest |kernel - plain| of both
-    entries over every shape}."""
+    then the times in turns (the entry as a CUDA graph replay of one call
+    and through its wrapper, plain version, torch._int_mm on the same im2col
+    GEMM with the unfold not timed, the port's bf16 conv3x3 kernel and
+    F.conv2d bf16 at the same shape) and the bound, each entry's replay time
+    also as a multiple of its bound (the sums' "ms"; "wrapper_ms" beside).
+    Returns {dtype: sums over one EDSR-baseline int8 forward's 16 pairs at
+    4 x 192x192, with "larvanet": the same over one LarvaNet 2x16 int8
+    forward's 33 pairs at the 48->48 shape}, the rows, and {dtype: the
+    largest |kernel - plain| of both entries over every shape}."""
     import numpy as np
     import torch.nn.functional as F
 
@@ -2452,18 +2457,36 @@ def s8_kernel_phase(torch):
                        "int_mm": lambda: torch._int_mm(cols, kmat),
                        "bf16_conv3x3": lambda: conv3x3.conv3x3_bias_act(xb, kb16, bb16, "relu"),
                        "conv2d_bf16": lambda: F.conv2d(x_nchw, w_oihw, padding=1)}
+                # the entries' own times: a CUDA graph of one call straight
+                # through the C entry, replayed (no host work between two);
+                # the wrapper's, timed as a caller issues it, sit beside them
+                for key, entry, call in (
+                        ("graph_a", "conv_a", lambda fn: s8._run_a(
+                            fn, hin, wa, s_in, s_mid, "relu",
+                            torch.cuda.current_stream().cuda_stream)),
+                        ("graph_b", "conv_b", lambda fn: s8._run_b(
+                            fn, tq, wb, dtype, res_b, 1.0,
+                            torch.cuda.current_stream().cuda_stream))):
+                    graph = torch.cuda.CUDAGraph()
+                    with torch.cuda.graph(graph):
+                        call(s8._entry(entry, dtype))
+                    fns[key] = graph.replay
                 s8.reset_launches()
                 t = time_windows(torch, fns)
                 bounds = {"conv_a": s8_bound_ms(n, h, w, c, c, item, "conv_a"),
                           "conv_b": s8_bound_ms(n, h, w, c, f, item, "conv_b",
                                                 res_b is not None)}
                 print("s8 %s %dx%dx%d %s: conv_a %d of %d codes differ from the plain version "
-                      "(%d clip), conv_b %d of %d values; conv_a %s (plain %s, bound %.4f ms "
-                      "by %s), conv_b %s (plain %s, bound %.4f ms by %s); yardsticks: "
-                      "_int_mm %s, bf16 conv3x3 kernel %s, F.conv2d bf16 %s" % (
+                      "(%d clip), conv_b %d of %d values; conv_a %s = %.1fx its bound (through "
+                      "the wrapper %s; plain %s, bound %.4f ms by %s), conv_b %s = %.1fx its "
+                      "bound (through the wrapper %s; plain %s, bound %.4f ms by %s); "
+                      "yardsticks: _int_mm %s, bf16 conv3x3 kernel %s, F.conv2d bf16 %s" % (
                           label, n, h, w, dname, diff_a, want_a.numel(), clipped, diff_b,
-                          want_b.numel(), spread(t["conv_a"]), spread(t["plain_a"]),
-                          *bounds["conv_a"], spread(t["conv_b"]), spread(t["plain_b"]),
+                          want_b.numel(), spread(t["graph_a"]),
+                          t["graph_a"][0] / bounds["conv_a"][0], spread(t["conv_a"]),
+                          spread(t["plain_a"]), *bounds["conv_a"], spread(t["graph_b"]),
+                          t["graph_b"][0] / bounds["conv_b"][0], spread(t["conv_b"]),
+                          spread(t["plain_b"]),
                           *bounds["conv_b"], spread(t["int_mm"]), spread(t["bf16_conv3x3"]),
                           spread(t["conv2d_bf16"])), flush=True)
                 if diff_a or diff_b or not bool(torch.isfinite(out.float()).all()):
@@ -2472,16 +2495,24 @@ def s8_kernel_phase(torch):
                 rows.append({"shape": label, "geometry": [n, h, w], "dtype": dname,
                              **{k: v[0] for k, v in t.items()},
                              "bound_a": bounds["conv_a"][0], "bound_b": bounds["conv_b"][0]})
-                if (n, h, w) == LR_BATCH and (c, f) == (64, 64):
-                    # one EDSR-baseline int8 forward: 16 pairs of this shape
-                    sums[dname] = {
-                        "ms": 16 * (t["conv_a"][0] + t["conv_b"][0]),
-                        "plain_ms": 16 * (t["plain_a"][0] + t["plain_b"][0]),
-                        "bound_ms": 16 * (bounds["conv_a"][0] + bounds["conv_b"][0]),
+                # one EDSR-baseline int8 forward: 16 pairs of the 64->64
+                # shape; one LarvaNet 2x16 int8 forward: 33 of the 48->48
+                pairs_of = {(64, 64): (16, None), (48, 48): (33, "larvanet")}
+                if (n, h, w) == LR_BATCH and (c, f) in pairs_of:
+                    k, key = pairs_of[(c, f)]
+                    part = {
+                        "ms": k * (t["graph_a"][0] + t["graph_b"][0]),
+                        "wrapper_ms": k * (t["conv_a"][0] + t["conv_b"][0]),
+                        "plain_ms": k * (t["plain_a"][0] + t["plain_b"][0]),
+                        "bound_ms": k * (bounds["conv_a"][0] + bounds["conv_b"][0]),
                         "bound_by": bounds["conv_a"][1],
-                        "int_mm_ms": 32 * t["int_mm"][0],
-                        "bf16_conv3x3_ms": 32 * t["bf16_conv3x3"][0],
-                        "conv2d_bf16_ms": 32 * t["conv2d_bf16"][0]}
+                        "int_mm_ms": 2 * k * t["int_mm"][0],
+                        "bf16_conv3x3_ms": 2 * k * t["bf16_conv3x3"][0],
+                        "conv2d_bf16_ms": 2 * k * t["conv2d_bf16"][0]}
+                    if key is None:
+                        sums.setdefault(dname, {}).update(part)
+                    else:
+                        sums.setdefault(dname, {})[key] = part
                 del hin, tq, out, want_a, want_b, cols, res, res_b
             torch.cuda.empty_cache()
     return sums, rows, errs
@@ -3018,8 +3049,10 @@ def main() -> int:
         # and f32 (0.0: every value equal, bit for bit)
         "max_abs_err": max(s8_errs.values()),
         # one EDSR-baseline x4 int8 forward's 16 pairs at 4 x 192x192, bf16
-        # (the CLIs' int8 dtype), and the same in f32
+        # (the CLIs' int8 dtype), and the same in f32: each entry's CUDA
+        # graph replay, and through the wrapper as a caller issues it
         "ms": s8_sums["bf16"]["ms"],
+        "wrapper_ms": s8_sums["bf16"]["wrapper_ms"],
         "plain_ms": s8_sums["bf16"]["plain_ms"],
         "bound_ms": s8_sums["bf16"]["bound_ms"],
         "bound_by": s8_sums["bf16"]["bound_by"],
@@ -3028,6 +3061,8 @@ def main() -> int:
         "library_ms": None,
         "yardsticks": {k: s8_sums["bf16"][k]
                        for k in ("int_mm_ms", "bf16_conv3x3_ms", "conv2d_bf16_ms")},
+        # one LarvaNet 2x16 int8 forward's 33 pairs (48->48), bf16
+        "larvanet": s8_sums["bf16"]["larvanet"],
         "f32": dict(s8_sums["f32"], max_abs_err=s8_errs["f32"]),
         "shapes": s8_rows,
     })

@@ -12,16 +12,23 @@
 // run in inline assembly (ldmatrix, mma.sync in bf16, tf32 and s8) have
 // stand-ins here that exchange the lanes' operands through a per-warp
 // buffer after a `__syncwarp`, as the instruction does across the
-// warp's registers; cvt.rna.tf32.f32 has a bit-exact one.
+// warp's registers; cvt.rna.tf32.f32 has a bit-exact one. mbarriers have
+// stand-ins that block on a condition variable.
 #pragma once
 
 #include <atomic>
 #include <barrier>
+#include <chrono>
 #include <cmath>
+#include <cstdio>
+#include <cstdlib>
+#include <condition_variable>
 #include <cstddef>
 #include <cstdint>
 #include <limits>
+#include <map>
 #include <memory>
+#include <mutex>
 #include <thread>
 #include <vector>
 
@@ -29,9 +36,11 @@
 #define __device__
 #define __host__
 #define __forceinline__ inline
+#define __noinline__ __attribute__((noinline))
 #define __launch_bounds__(...)
 #define __align__(n) alignas(n)
 #define __shared__ static
+#define __grid_constant__
 
 struct dim3 {
   unsigned x, y, z;
@@ -44,6 +53,10 @@ struct alignas(8) float2 {
   float x, y;
 };
 inline float2 make_float2(float x, float y) { return {x, y}; }
+struct alignas(8) uint2 {
+  unsigned x, y;
+};
+inline uint2 make_uint2(unsigned x, unsigned y) { return {x, y}; }
 struct alignas(16) uint4 {
   unsigned x, y, z, w;
 };
@@ -54,6 +67,18 @@ inline thread_local dim3 threadIdx, blockIdx, gridDim;
 inline thread_local std::barrier<>* emu_block_barrier = nullptr;
 inline thread_local std::barrier<>* emu_warp_barrier = nullptr;
 inline thread_local float* emu_block_smem = nullptr;
+
+// a block's mbarriers (by address)
+struct EmuBlockSync {
+  struct Mbar {
+    int expected, pending, phase;
+    long long tx;  // bytes still to land in this phase
+  };
+  std::mutex m;
+  std::condition_variable cv;
+  std::map<const void*, Mbar> mbar;
+};
+inline thread_local EmuBlockSync* emu_block_sync = nullptr;
 
 inline void __syncthreads() { emu_block_barrier->arrive_and_wait(); }
 inline void __syncwarp(unsigned = 0xffffffffu) { emu_warp_barrier->arrive_and_wait(); }
@@ -67,6 +92,69 @@ enum { cudaDevAttrMultiProcessorCount = 16 };
 
 inline std::atomic<int> emu_error{cudaSuccess};
 inline void emu_fault(int code) { emu_error.store(code); }
+enum { cudaErrorIllegalInstruction = 715 };
+
+// a shared-memory address: the byte offset from the block's dynamic base
+inline std::size_t __cvta_generic_to_shared(const void* p) {
+  return static_cast<std::size_t>(static_cast<const char*>(p) -
+                                  reinterpret_cast<const char*>(emu_block_smem));
+}
+
+// mbarrier.init / arrive / arrive.expect_tx / try_wait.parity, and the
+// complete_tx of a bulk copy: a phase completes when its `expected`
+// arrivals have come and the bytes its arrivals announced have landed; a
+// wait for the phase of parity p returns once the current phase's parity
+// differs from p. An arrival or wait on a barrier never initialised
+// records an illegal instruction.
+inline void emu_mbar_init(void* bar, int count) {
+  std::lock_guard<std::mutex> lock(emu_block_sync->m);
+  emu_block_sync->mbar[bar] = EmuBlockSync::Mbar{count, count, 0, 0};
+}
+// under the block's lock: `arrivals` arrivals, `tx` bytes announced (> 0)
+// or landed (< 0)
+inline void emu_mbar_update(void* bar, int arrivals, long long tx) {
+  EmuBlockSync& b = *emu_block_sync;
+  auto it = b.mbar.find(bar);
+  if (it == b.mbar.end()) {
+    emu_fault(cudaErrorIllegalInstruction);
+    return;
+  }
+  EmuBlockSync::Mbar& m = it->second;
+  m.pending -= arrivals;
+  m.tx += tx;
+  if (m.pending == 0 && m.tx == 0) {
+    m.phase ^= 1;
+    m.pending = m.expected;
+    b.cv.notify_all();
+  }
+}
+inline void emu_mbar_arrive(void* bar) {
+  std::lock_guard<std::mutex> lock(emu_block_sync->m);
+  emu_mbar_update(bar, 1, 0);
+}
+inline void emu_mbar_arrive_expect_tx(void* bar, unsigned bytes) {
+  std::lock_guard<std::mutex> lock(emu_block_sync->m);
+  emu_mbar_update(bar, 1, bytes);
+}
+inline void emu_mbar_wait(void* bar, unsigned parity) {
+  EmuBlockSync& b = *emu_block_sync;
+  std::unique_lock<std::mutex> lock(b.m);
+  if (b.mbar.find(bar) == b.mbar.end()) {
+    emu_fault(cudaErrorIllegalInstruction);
+    return;
+  }
+  // a phase that never completes is a deadlock of the kernel's protocol:
+  // name the barrier and stop, rather than hang the caller
+  if (!b.cv.wait_for(lock, std::chrono::seconds(60),
+                     [&] { return (unsigned)b.mbar[bar].phase != (parity & 1u); })) {
+    const EmuBlockSync::Mbar& m = b.mbar[bar];
+    std::fprintf(stderr,
+                 "emu: thread %u waited 60 s on the mbarrier at shared byte %zu for its phase "
+                 "of parity %u (phase %d, %d arrivals and %lld bytes pending)\n",
+                 threadIdx.x, __cvta_generic_to_shared(bar), parity, m.phase, m.pending, m.tx);
+    std::abort();
+  }
+}
 inline bool emu_aligned(const void* p, std::uintptr_t bytes) {
   return reinterpret_cast<std::uintptr_t>(p) % bytes == 0;
 }
@@ -107,6 +195,7 @@ void emu_launch(K kernel, dim3 grid, int threads, int smem_bytes, cudaStream_t, 
         base += (kAlign - reinterpret_cast<std::uintptr_t>(base) / sizeof(float) % kAlign) %
                 kAlign;
         std::barrier<> barrier(threads);
+        EmuBlockSync sync;
         std::vector<std::unique_ptr<std::barrier<>>> warp_barriers;
         for (int wi = 0; wi < warps; ++wi)
           warp_barriers.push_back(
@@ -121,6 +210,7 @@ void emu_launch(K kernel, dim3 grid, int threads, int smem_bytes, cudaStream_t, 
             emu_block_barrier = &barrier;
             emu_warp_barrier = warp_barriers[t / 32].get();
             emu_block_smem = base;
+            emu_block_sync = &sync;
             kernel(args...);
           });
         for (auto& th : block) th.join();

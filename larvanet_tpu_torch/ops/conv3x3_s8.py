@@ -1,5 +1,6 @@
 """The int8 conv of the W8A8 conv pair: the hand-written CUDA kernel
-(`csrc/conv3x3_s8.cu`, s8 x s8 -> s32 on mma.sync) and its plain version.
+(`csrc/conv3x3_s8.cu`, s8 x s8 -> s32 on the tensor cores) and its plain
+version.
 
 A SAME 3x3 conv of int8 codes, NHWC x HWIO, with exact integer sums, and
 the pair's epilogues (larvanet_tpu/ops/packed/pairs.py:229-256,
@@ -41,7 +42,7 @@ _ENTRY = {("conv_a", torch.float32): "conv3x3_s8_a_f32",
           ("conv_a", torch.bfloat16): "conv3x3_s8_a_bf16",
           ("conv_b", torch.float32): "conv3x3_s8_b_f32",
           ("conv_b", torch.bfloat16): "conv3x3_s8_b_bf16"}
-BLOCK_N = 64  # output channels of a block: the entry weight pads F to it
+BLOCK_N = 16  # the products' N: the entry weight pads F to it
 CHUNK_K = 32  # input codes of a k32 step: the entry weight pads C to it
 
 LAUNCHES = 0
@@ -70,8 +71,11 @@ class S8Weight:
     """One conv of a quantized pair: its int8 HWIO codes, the per-channel f32
     `scale` (f32(s) * sa for the conv's input scale s) and the bias as the
     dtype holds it, on one device. `entry` is the kernel's weight operand,
-    [9][Fp][Cp] int8 (outputs padded to 64 and inputs to 32 with zeros), made
-    on first use."""
+    made on first use: the codes with F padded to Fp (a multiple of
+    BLOCK_N) and C to Cp (of CHUNK_K) with zeros, as [9][Cp/32][Fp/8][2][8]
+    [16] int8 (tap, k32 step, 8-output group, 16-code half, output, code):
+    each 8 outputs x 16 codes a contiguous 128-byte core matrix, which the
+    kernel's ldmatrix reads as it lies."""
 
     codes: torch.Tensor
     scale: torch.Tensor
@@ -84,8 +88,10 @@ class S8Weight:
             c, f = self.codes.shape[2], self.codes.shape[3]
             cp = -(-c // CHUNK_K) * CHUNK_K
             fp = -(-f // BLOCK_N) * BLOCK_N
-            w = torch.zeros((9, fp, cp), dtype=torch.int8, device=self.codes.device)
-            w[:, :f, :c] = self.codes.reshape(9, c, f).transpose(1, 2)
+            w = torch.zeros((9, cp, fp), dtype=torch.int8, device=self.codes.device)
+            w[:, :c, :f] = self.codes.reshape(9, c, f)
+            # (tap, step, half, code, group, output) -> (tap, step, group, half, output, code)
+            w = w.reshape(9, cp // 32, 2, 16, fp // 8, 8).permute(0, 1, 4, 2, 5, 3)
             self._entry = w.contiguous()
         return self._entry
 

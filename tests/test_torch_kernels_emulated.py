@@ -8,11 +8,13 @@ operand preparation; what nvcc accepts and how fast the kernels run only
 the card shows (chip_smoke.py). Inputs come from numpy with a seed.
 """
 
+import re
+
 import numpy as np
 import pytest
 import torch
 
-from larvanet_tpu_torch.ops import conv3x3, emulate
+from larvanet_tpu_torch.ops import build, conv3x3, emulate
 from larvanet_tpu_torch.ops import conv3x3_wgrad as wg
 from larvanet_tpu_torch.ops import wino_resblock as wr
 from larvanet_tpu_torch.ops import conv3x3_s8 as s8
@@ -555,10 +557,19 @@ def _s8_weight(rng, c, f, s, dtype):
 # 48->48, LarvaNet_w64's leg 64->48) and of narrow pairs (JAX quantizes any
 # width); H odd and W not a multiple of the 16-pixel tile, batch 2. Then the
 # kernel's other edges: C not a multiple of 4 and F odd (padded codes and
-# outputs masked), C of three 32-code chunks, F past one 64-output block
+# outputs masked), C of three 32-code chunks, F past one 64-output pass.
+# The stand-in's card holds one block, which walks every tile through the
+# ring: 48->48 at 33 x 35 runs 9 tiles (the rings wrap); 40->24 pads C
+# to 64 and F to 32 (codes and outputs past them zero and masked); 16->72
+# runs a second 16-output pass of which 8 are outputs; 256->256 (the large
+# EDSR's width) keeps its weights in global memory, takes conv_b's halo by
+# the producer's copy (a TMA box holds 256 codes, not Kp + 16) and
+# conv_a's straight from x (no raw slot fits)
 S8_CASES = [(8, 8, (2, 5, 19)), (16, 48, (2, 5, 19)), (48, 48, (2, 17, 7)),
             (48, 16, (2, 5, 19)), (64, 64, (2, 5, 19)), (64, 48, (1, 3, 33)),
-            (6, 5, (2, 5, 19)), (96, 16, (1, 17, 18)), (16, 80, (1, 5, 19))]
+            (6, 5, (2, 5, 19)), (96, 16, (1, 17, 18)), (16, 80, (1, 5, 19)),
+            (48, 48, (1, 33, 35)), (40, 24, (1, 9, 17)), (16, 72, (1, 5, 19)),
+            (256, 256, (1, 3, 9))]
 
 
 @pytest.mark.parametrize("dname", ["f32", "bf16"])
@@ -599,11 +610,69 @@ def test_conv3x3_s8_conv_b_matches_plain_version_bit_for_bit(s8_lib, c, f, hw, d
             (c, f, r is None, rw, float((got.float() - want.float()).abs().max()))
 
 
-@pytest.mark.parametrize("case", ["misaligned_w", "act_2", "empty"])
+def test_conv3x3_s8_cases_walk_more_tiles_than_ring_slots():
+    # the stand-in's one block walks every tile: the 48->48 case must take
+    # each of the kernel's rings round more than once (the rings wrap)
+    src = (build.CSRC / s8.SOURCE).read_text()
+    const = {k: int(re.search(r"constexpr int %s = (\d+);" % k, src).group(1))
+             for k in ("kTH", "kTW", "kRawSlots", "kCodeSlots")}
+    n, h, w = (1, 33, 35)
+    assert (48, 48, (n, h, w)) in S8_CASES
+    tiles = n * -(-h // const["kTH"]) * -(-w // const["kTW"])
+    assert tiles > 2 * max(const["kRawSlots"], const["kCodeSlots"]), tiles
+
+
+def _center_identity(c, s, dtype):
+    # codes 1 on the centre tap's diagonal, sa 1, bias 0: conv_a's t is
+    # T(xq * s) per channel
+    codes = np.zeros((3, 3, c, c), np.int8)
+    codes[1, 1] = np.eye(c, dtype=np.int8)
+    return s8.make_weight(codes, np.ones(c, np.float32), s, torch.zeros(c), dtype, "cpu")
+
+
+@pytest.mark.parametrize("dname", ["f32", "bf16"])
+def test_conv3x3_s8_quantizes_values_next_to_a_half_as_the_division_does(s8_lib, dname):
+    # the kernel's codes are rint(v * f32(1 / s)) away from the halves and the
+    # IEEE division's next to them: values a few ulps either side of (k +
+    # 1/2) s, at both clip edges, and scales whose reciprocal is inexact or
+    # not a normal number (every code then divides)
+    dtype = DTYPES[dname]
+    fn = s8.bind(s8_lib, "conv_a", dtype)
+    c, shape = 16, (1, 8, 17)
+    halves = np.arange(-129, 129, dtype=np.float64) + 0.5
+
+    def near(s):
+        v = np.asarray(halves * s, np.float32)
+        ulps = np.arange(-3, 4, dtype=np.int32)
+        bits = v.view(np.int32)[:, None] + np.where(v[:, None] < 0, -ulps, ulps)
+        v = np.concatenate([bits.reshape(-1).view(np.float32), [0.0, -0.0]])
+        return _t(np.resize(v, shape + (c,))).to(dtype)
+
+    # the input's codes: the output repeats them (s_mid = s_in, no act)
+    for s_in in (0.3, 0.0731, 1.7e-39):
+        hin = near(s_in)
+        wt = _center_identity(c, s_in, dtype)
+        got = s8._run_a(fn, hin, wt, s_in, s_in, None, None)
+        want = s8.conv_a_reference(hin, wt, s_in, s_in, None)
+        assert torch.equal(got, want), (s_in, int((got != want).sum()))
+    # the output's codes: t = xq / 4 exact in T, s_mid a few ulps off 1/2
+    hin = _t(np.resize(np.arange(-127, 128, dtype=np.float32) / 4, shape + (c,))).to(dtype)
+    wt = _center_identity(c, 0.25, dtype)
+    offs = (np.float32(0.5).view(np.int32) + np.arange(-2, 3, dtype=np.int32)).view(np.float32)
+    for s_mid in (*offs, 3.0e38):
+        got = s8._run_a(fn, hin, wt, 0.25, float(s_mid), None, None)
+        want = s8.conv_a_reference(hin, wt, 0.25, float(s_mid), None)
+        assert torch.equal(got, want), (float(s_mid), int((got != want).sum()))
+
+
+@pytest.mark.parametrize("case", ["misaligned_w", "act_2", "empty", "too_wide"])
 def test_conv3x3_s8_entry_refuses_what_it_cannot_take(s8_lib, case):
     rng = np.random.default_rng(3)
-    wt = _s8_weight(rng, 16, 16, 0.1, torch.float32)
-    hin = _t(rng.standard_normal((1, 4, 4, 16)))
+    # too_wide: one halo of 1280 codes a pixel (324 pixels x 1296 bytes)
+    # passes a block's 227 KB of shared memory
+    c = 1280 if case == "too_wide" else 16
+    wt = _s8_weight(rng, c, 16, 0.1, torch.float32)
+    hin = _t(rng.standard_normal((1, 4, 4, c)))
     n = 1
     if case == "misaligned_w":
         buf = torch.zeros(wt.entry.numel() + 16, dtype=torch.int8)
@@ -611,7 +680,7 @@ def test_conv3x3_s8_entry_refuses_what_it_cannot_take(s8_lib, case):
     fn = s8.bind(s8_lib, "conv_a", torch.float32)
     out = torch.empty((1, 4, 4, 16), dtype=torch.int8)
     err = fn(hin.data_ptr(), wt.entry.data_ptr(), wt.scale.data_ptr(), wt.bias.data_ptr(),
-             out.data_ptr(), 0 if case == "empty" else n, 4, 4, 16, 16, 0.1, 0.1,
+             out.data_ptr(), 0 if case == "empty" else n, 4, 4, c, 16, 0.1, 0.1,
              2 if case == "act_2" else 1, None)
     assert err == (716 if case == "misaligned_w" else 1)
 
