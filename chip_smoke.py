@@ -165,7 +165,9 @@ flagship, and fails (exit code != 0, no result line) if any phase fails:
     time) and through its wrapper, with its plain version, torch._int_mm on
     the same im2col GEMM (the unfold not timed), the port's bf16 conv3x3
     kernel and F.conv2d bf16 at the shape, beside its bound at the dense
-    INT8 peak.
+    INT8 peak. Then both entries at S8_WIDE (1280->64 on 1 x 48x48, past
+    what one code halo holds: the chunked plan) in both dtypes, held the
+    same way and timed (replay, wrapper, plain) beside the bound.
     11b: EDSR-baseline x4 (fitted as in phase 4) and LarvaNet 2x16, routed
     by the CLIs' maybe_int8_trunk, calibrated on photo frames, on the 4 x
     192x192 photo batch: one forward's launches (INT8_LAUNCHES), each pair's
@@ -181,8 +183,30 @@ flagship, and fails (exit code != 0, no result line) if any phase fails:
     48x48: loss and gradients held as phase 8b holds them (same_forward),
     then QAT_STEPS steps of the train CLI and a resume that repeats the last
     loss bit for bit.
- 12. prints the kernels JSON line, the nvidia-smi line, then the result line
-    {"ok": true, "device": {...}}.
+ 13. train flags (after phase 11, before the closing lines), on phase 8's set:
+    13a --train_dtype bf16 on EDSR-baseline x4 at batch 16 x 48x48: the
+    wgrad wrapper on bf16 x and g at every TRAIN_WGRAD shape
+    (conv3x3_wgrad_bf16_tc on the tensor-core shapes) held against its
+    plain version (GRAD_RTOL) and timed in turns with conv2d_weight in bf16,
+    the f32 entry and the plain version, beside its bound at the bf16 peak;
+    one bf16 step's loss and gradients against the plain dgrad and wgrad on
+    the kernels' forward (BF16_TRAIN_LOSS_RTOL / BF16_TRAIN_GRAD_RTOL); one
+    counted step (TRAIN_LAUNCHES, and BF16_WGRAD_LAUNCHES of the wgrad's
+    bf16 calls); the bf16 and the f32 step timed and split in the same
+    call; the train CLI for TRAIN_STEPS steps in bf16 with a bit-exact
+    resume from the middle. 13b --remat 1: EDSR-baseline x4 and LarvaNet
+    2x16 at batch 16 x REMAT_LR^2: loss and gradients equal --remat 0's bit
+    for bit, the recomputed forwards counted (REMAT_EXTRA_FORWARDS), the
+    peak memory of a step under both. 13c --device_pipeline DP_CHUNK: the
+    MB resident, a counted chunk (DP_CHUNK steps' launches), ChunkRateMeter's
+    steps/s, a chunk's and a host-loop step's idle share; train and
+    train_larva (LarvaNet 2x16) for DP_STEPS steps with a bit-exact resume.
+    13d --async_checkpoint 1: the files equal a synchronous save's tensors
+    bit for bit. 13e --profile_dir: trace.json names the conv3x3 and wgrad
+    kernels. 13f --widen_from: LarvaNet 2x16 widened into LarvaNet_w64 2x16
+    computes the narrow forward within FWD_RTOL of its residual.
+ 12. (last) prints the kernels JSON line, the nvidia-smi line, then the
+    result line {"ok": true, "device": {...}}.
 
 The kernels line reports, per kernel: its launches on the main paths that
 run it, also by path (conv3x3: the served forwards of phases 4 and 4b,
@@ -209,7 +233,12 @@ give them by path under "full_frame". The conv3x3_s8 line gives its
 launches by entry over phases 11b and 11c, the sums over one EDSR-baseline
 int8 forward's 16 pairs at 4 x 192x192 (bf16, and f32 under "f32") with
 their bound and yardsticks (library_ms is null: no PyTorch call computes
-an int8 conv on CUDA), and every shape's row of phase 11a.
+an int8 conv on CUDA), every shape's row of phase 11a, and under "wide"
+11a's 1280->64 (the chunked plan; its launches are the phase's checks,
+outside every model's path). The conv3x3 and conv3x3_wgrad lines add phase
+13's counted bf16 step and device-pipeline chunk to their launches; the
+conv3x3_wgrad line's "bf16" gives the bf16 step's wgrad sums (13a) with
+the bf16 launches by path of its counted step.
 """
 
 from __future__ import annotations
@@ -1581,7 +1610,8 @@ def write_train_set(root, rng, n_frames, lr_size):
         io.save_image_chw(lr, os.path.join(root, "LR", "X4", "%04dx4.png" % i))
 
 
-def check_train_grads(torch, model, x, t, label, batch, patch, same_forward=False):
+def check_train_grads(torch, model, x, t, label, batch, patch, same_forward=False,
+                      loss_rtol=None, grad_rtol=None):
     """One batch's loss and gradients through the kernels against the same
     autograd Function with the plain versions inside, from the same weights
     and batch: the loss within LOSS_RTOL, every parameter's gradient within
@@ -1592,7 +1622,8 @@ def check_train_grads(torch, model, x, t, label, batch, patch, same_forward=Fals
     moves a weight gradient that cancels over the batch by more than
     GRAD_RTOL of its largest value. The all-plain step's gradients are then
     printed beside, with the flips counted (the plain conv on the same
-    input), and its loss is held at LOSS_RTOL."""
+    input), and its loss is held at LOSS_RTOL. `loss_rtol` and `grad_rtol`
+    replace the two bars (phase 13's bf16 step)."""
     import numpy as np
 
     from larvanet_tpu_torch.ops import conv3x3
@@ -1644,11 +1675,13 @@ def check_train_grads(torch, model, x, t, label, batch, patch, same_forward=Fals
                                                       *flips), flush=True)
     err, name = worst(grads_k, held)
     loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    loss_rtol = LOSS_RTOL if loss_rtol is None else loss_rtol
+    grad_rtol = GRAD_RTOL if grad_rtol is None else grad_rtol
     print("train: %s, %d x %dx%d LR patches: loss through the kernels %.6f, plain %.6f "
           "(rel %.3g, bar %g); gradients against %s: worst %s, max |d| / max |g| %.3g "
-          "(bar %g)" % (label, batch, patch, patch, loss_k, loss_p, loss_rel, LOSS_RTOL,
-                        against, name, err, GRAD_RTOL), flush=True)
-    if loss_rel > LOSS_RTOL or err > GRAD_RTOL or not np.isfinite(loss_k):
+          "(bar %g)" % (label, batch, patch, patch, loss_k, loss_p, loss_rel, loss_rtol,
+                        against, name, err, grad_rtol), flush=True)
+    if loss_rel > loss_rtol or err > grad_rtol or not np.isfinite(loss_k):
         raise AssertionError("the %s train step's loss or gradients through the kernels "
                              "disagree with %s" % (label, against))
 
@@ -1672,15 +1705,15 @@ def counted_step(torch, fn):
     return launches
 
 
-def time_train_step(torch, model, x, t, step, label, batch, patch):
+def time_train_step(torch, model, x, t, step, label, batch, patch, dname="f32"):
     """The median ms of `step` (CUDA events) and where the card's time goes
     in it: forward convs (a loss with gradients on, the Function's forwards),
     dgrad convs, wgrad, optimizer and other kernels, idle. Returns the
     time_windows entry."""
     tm = time_windows(torch, {"train_step": step})["train_step"]
-    print("train: %s, batch %d x %dx%d, f32: %s per train step, %.3f LR-MP/s trained"
-          % (label, batch, patch, patch, spread(tm), batch * patch * patch / 1e3 / tm[0]),
-          flush=True)
+    print("train: %s, batch %d x %dx%d, %s: %s per train step, %.3f LR-MP/s trained"
+          % (label, batch, patch, patch, dname, spread(tm),
+             batch * patch * patch / 1e3 / tm[0]), flush=True)
     _, fwd = device_breakdown(torch, lambda: model._compute_loss(x, t),
                               kinds=("wgrad", "conv3x3"))
     _, parts = device_breakdown(torch, step, kinds=("wgrad", "conv3x3"))
@@ -2518,6 +2551,88 @@ def s8_kernel_phase(torch):
     return sums, rows, errs
 
 
+# phase 11a's wide shape: C past what one code halo of the kernel's shared
+# memory holds (C > 480 for conv_b in f32), which takes the chunked plan
+S8_WIDE = (("wide 1280->64", 1280, 64, (1, 48, 48)),)
+
+
+def s8_wide_phase(torch):
+    """Phase 11a, wide: both entries at S8_WIDE, f32 and bf16, against the
+    plain version (0 values may differ), then the times in turns (the
+    entry as a CUDA graph replay of one call, through its wrapper, the
+    plain version) beside the bound. Returns {"launches": the wrapper's
+    launches in the phase, by entry, "shapes": the rows}."""
+    import numpy as np
+
+    from larvanet_tpu_torch.ops import conv3x3_s8 as s8
+
+    rng = np.random.default_rng(SEED + 12)
+    dev, rows = "cuda", []
+    s8.reset_launches()
+    for label, c, f, (n, h, w) in S8_WIDE:
+        codes = rng.integers(-127, 128, (3, 3, c, f)).astype(np.int8)
+        sa = (rng.uniform(0.5, 2.0, f) * 1e-3).astype(np.float32)
+        bias = torch.from_numpy(rng.standard_normal(f).astype(np.float32))
+        x32 = torch.from_numpy((rng.standard_normal((n, h, w, c)) * 3).astype(np.float32))
+        tq = torch.from_numpy(rng.integers(-127, 128, (n, h, w, c)).astype(np.int8)).to(dev)
+        for dname, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            item = 4 if dname == "f32" else 2
+            hin = x32.to(dev).to(dtype)
+            s_in = float(hin.float().abs().max()) * 1.05 / 127.0
+            wa = s8.make_weight(codes, sa, s_in, bias, dtype, dev)
+            t = s8._dequant(s8.conv_codes_reference(s8.quantize(hin, s_in), wa.codes), wa,
+                            dtype)
+            s_mid = float(torch.relu(t).float().abs().max()) * 1.05 / 127.0
+            wb = s8.make_weight(codes, sa, 0.03 / c, bias, dtype, dev)
+            res = (torch.randn((n, h, w, f), device=dev) * 4).to(dtype)
+            got_a = s8.conv_a(hin, wa, s_in, s_mid)
+            got_b = s8.conv_b(tq, wb, dtype, res, 0.1)
+            want_a = s8.conv_a_reference(hin, wa, s_in, s_mid)
+            want_b = s8.conv_b_reference(tq, wb, dtype, res, 0.1)
+            torch.cuda.synchronize()
+            diff_a = int((got_a != want_a).sum())
+            diff_b = int((got_b.float().view(torch.int32) != want_b.float().view(torch.int32))
+                         .sum())
+            fns = {"conv_a": lambda: s8.conv_a(hin, wa, s_in, s_mid),
+                   "conv_b": lambda: s8.conv_b(tq, wb, dtype, res, 0.1),
+                   "plain_a": lambda: s8.conv_a_reference(hin, wa, s_in, s_mid),
+                   "plain_b": lambda: s8.conv_b_reference(tq, wb, dtype, res, 0.1)}
+            for key, entry, call in (
+                    ("graph_a", "conv_a", lambda fn: s8._run_a(
+                        fn, hin, wa, s_in, s_mid, "relu",
+                        torch.cuda.current_stream().cuda_stream)),
+                    ("graph_b", "conv_b", lambda fn: s8._run_b(
+                        fn, tq, wb, dtype, res, 0.1,
+                        torch.cuda.current_stream().cuda_stream))):
+                graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(graph):
+                    call(s8._entry(entry, dtype))
+                fns[key] = graph.replay
+            tm = time_windows(torch, fns, windows=3, reps=3)
+            bounds = {"conv_a": s8_bound_ms(n, h, w, c, f, item, "conv_a"),
+                      "conv_b": s8_bound_ms(n, h, w, c, f, item, "conv_b", True)}
+            print("s8 %s %dx%dx%d %s (chunked halo): conv_a %d of %d codes differ from the "
+                  "plain version, conv_b %d of %d values; conv_a %s = %.1fx its bound "
+                  "(through the wrapper %s; plain %s; bound %.4f ms by %s), conv_b %s = %.1fx "
+                  "its bound (through the wrapper %s; plain %s; bound %.4f ms by %s)" % (
+                      label, n, h, w, dname, diff_a, want_a.numel(), diff_b, want_b.numel(),
+                      spread(tm["graph_a"]), tm["graph_a"][0] / bounds["conv_a"][0],
+                      spread(tm["conv_a"]), spread(tm["plain_a"]), *bounds["conv_a"],
+                      spread(tm["graph_b"]), tm["graph_b"][0] / bounds["conv_b"][0],
+                      spread(tm["conv_b"]), spread(tm["plain_b"]), *bounds["conv_b"]),
+                  flush=True)
+            if diff_a or diff_b or not bool(torch.isfinite(got_b.float()).all()):
+                raise AssertionError("conv3x3_s8 %s %s disagrees with its plain version"
+                                     % (label, dname))
+            rows.append({"shape": label, "geometry": [n, h, w], "dtype": dname,
+                         **{k: v[0] for k, v in tm.items()},
+                         "bound_a": bounds["conv_a"][0], "bound_b": bounds["conv_b"][0],
+                         "bound_by": bounds["conv_a"][1], "max_abs_err": 0.0})
+            del hin, got_a, got_b, want_a, want_b, t, res
+        torch.cuda.empty_cache()
+    return {"launches": dict(s8.LAUNCHES_BY_ENTRY), "shapes": rows}
+
+
 def _int8_model(torch, name, tmp, fit_frame):
     """EDSR-baseline x4 (fitted as in phase 4) or LarvaNet 2x16 (as in 4b),
     restored from a .pth as the CLIs do: (model, model flags, .pth)."""
@@ -2857,6 +2972,448 @@ def qat_phase(torch):
                                      % (name, resumed.get(steps), losses[steps]))
 
 
+# ---- phase 13: the rest of the training flags -----------------------------------
+
+# the bf16 step through the kernels against the plain dgrad and wgrad on the
+# kernels' forward (check_train_grads' same_forward), and its loss against the
+# all-plain bf16 step's: the conv kernel's bf16 outputs and the plain
+# version's are f32 sums in other orders rounded to bf16, and a half-step
+# apart they land a bf16 step (2^-8) apart, which the backward carries on
+BF16_TRAIN_LOSS_RTOL = 2.0 ** -7
+BF16_TRAIN_GRAD_RTOL = 2.0 ** -5
+# bf16's wgrad launches by path in one step (ops/conv3x3_wgrad.py: the
+# tensor-core shapes on conv3x3_wgrad_bf16_tc, the other two on their f32
+# entries of the widened operands)
+BF16_WGRAD_LAUNCHES = {"tensor_core": 35, "narrow": 1, "cuda_core": 1}
+# --remat 1 recomputes each ResBlock / leg pair in the backward: its two
+# convs run again as forwards (EDSR: 16 pairs; LarvaNet 2x16: 32 body pairs
+# and 2 legs)
+REMAT_EXTRA_FORWARDS = {"edsr": 32, "LarvaNet": 68}
+# the LR size of the --remat memory comparison (batch TRAIN_BATCH)
+REMAT_LR = 96
+# --device_pipeline: DP_CHUNK steps a chunk, DP_STEPS steps a run
+DP_CHUNK = 10
+DP_STEPS = 20
+
+
+def wgrad_bf16_bound_ms(n, h, w, c, f):
+    """The least time of one bf16 weight and bias gradient: bf16 x and g
+    read once, the f32 dW and db written once, over HBM bandwidth vs its 2 N
+    H W 9 C F (+ N H W F) operations at the bf16 peak."""
+    nbytes = 2 * n * h * w * (c + f) + 4 * (9 * c * f + f)
+    flops = 2 * n * h * w * 9 * c * f + n * h * w * f
+    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_FLOPS["bf16"]
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def wgrad_bf16_phase(torch, wgrad_shapes=TRAIN_WGRAD):
+    """13a's kernel half: the wgrad wrapper on bf16 x and g at every shape of
+    an EDSR-baseline x4 step (TRAIN_WGRAD), which launches
+    conv3x3_wgrad_bf16_tc on the tensor-core shapes, held against its plain
+    version (GRAD_RTOL of max |dW|) and timed in turns with cuDNN's bf16
+    gradient (conv2d_weight), the f32 entry on the same values widened to
+    f32 and the plain version, beside its bound at the bf16 peak. Returns
+    the sums over one step (the shapes' counts), the bound's kind, the
+    largest |d| and |d| / max |dW|, and {name: the shape's numbers}."""
+    from larvanet_tpu_torch.ops import conv3x3_wgrad as wg
+
+    n = TRAIN_BATCH
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    keys = ("ms", "f32_entry_ms", "plain_ms", "library_ms", "bound_ms")
+    sums, kinds, shapes = dict.fromkeys(keys, 0.0), {}, {}
+    worst_abs = worst_rel = 0.0
+    for name, mult, c, f, count in wgrad_shapes:
+        h = w = TRAIN_PATCH * mult
+        x = torch.randn((n, h, w, c), generator=gen, device="cuda").bfloat16()
+        g = (torch.randn((n, h, w, f), generator=gen, device="cuda") / (n * h * w)).bfloat16()
+        x32, g32 = x.float(), g.float()
+        path = wg.path_for(c, f)
+        want_w, want_b = wg.conv3x3_wgrad_reference(x, g)
+        dw, db = wg.conv3x3_wgrad(x, g)
+        torch.cuda.synchronize()
+        err = max(float((dw - want_w).abs().max()), float((db - want_b).abs().max()))
+        rel = max(float((dw - want_w).abs().max() / want_w.abs().max()),
+                  float((db - want_b).abs().max() / want_b.abs().max()))
+        worst_abs, worst_rel = max(worst_abs, err), max(worst_rel, rel)
+        if rel > GRAD_RTOL or not bool(torch.isfinite(dw).all()):
+            raise AssertionError("bf16 wgrad %s disagrees with its plain version, max |d| / "
+                                 "max |dW| = %g" % (name, rel))
+        x_nchw, g_nchw = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
+        t = time_windows(torch, {
+            "kernel": lambda: wg.conv3x3_wgrad(x, g),
+            "f32_entry": lambda: wg.conv3x3_wgrad(x32, g32),
+            "conv2d_weight": lambda: torch.nn.grad.conv2d_weight(x_nchw, (f, c, 3, 3), g_nchw,
+                                                                 padding=1),
+            "plain": lambda: wg.conv3x3_wgrad_reference(x, g)})
+        bound, by = wgrad_bf16_bound_ms(n, h, w, c, f)
+        entry = wg._ENTRY[wg.entry_for(path, f, torch.bfloat16)]
+        print("wgrad bf16 %-18s x=%s C=%d F=%d (%s, %s): kernel %s, f32 entry %s, conv2d_weight "
+              "bf16 %s, plain %s, bound %.4f ms (%s), max|d| %.3g (%.3g of max |dW|), %d a step"
+              % (name, (n, h, w), c, f, path, entry, spread(t["kernel"]),
+                 spread(t["f32_entry"]), spread(t["conv2d_weight"]), spread(t["plain"]),
+                 bound, by, err, rel, count), flush=True)
+        part = {"ms": t["kernel"][0], "f32_entry_ms": t["f32_entry"][0],
+                "plain_ms": t["plain"][0], "library_ms": t["conv2d_weight"][0],
+                "bound_ms": bound}
+        shapes[name] = dict(part, path=path, entry=entry, bound_by=by, max_abs_err=err,
+                            max_rel_err=rel)
+        for k in keys:
+            sums[k] += count * part[k]
+        kinds[by] = kinds.get(by, 0.0) + count * bound
+        del x, g, x32, g32, dw, db, want_w, want_b
+        torch.cuda.empty_cache()
+    print("wgrad bf16 per EDSR-baseline x4 train step (%d launches): kernel %.4f ms, f32 entry "
+          "%.4f ms, plain %.4f ms, conv2d_weight bf16 %.4f ms, bound %.4f ms" % (
+              sum(sh[-1] for sh in wgrad_shapes), sums["ms"], sums["f32_entry_ms"],
+              sums["plain_ms"], sums["library_ms"], sums["bound_ms"]), flush=True)
+    return sums, max(kinds, key=kinds.get), worst_abs, worst_rel, shapes
+
+
+def cli_resume_check(main, cli, tmp, steps, save_stems, label):
+    """Run `main(cli)` for `steps` steps into tmp/run, then again from the
+    middle checkpoint (the files named by `save_stems`, copied to tmp/again)
+    with --restore_path latest: the loss must fall and the resumed run's
+    losses after the checkpoint repeat the first run's bit for bit.
+    Returns the first run's model and losses."""
+    import shutil
+
+    run, again = os.path.join(tmp, "run"), os.path.join(tmp, "again")
+    t0 = time.perf_counter()
+    model, losses = main(cli + ["--train_path", run, "--max_steps", str(steps)])
+    first, last = min(losses), max(losses)
+    print("%s: %d steps in %.3f s; loss at step %d %.6f, at step %d %.6f" % (
+        label, steps, time.perf_counter() - t0, first, losses[first], last, losses[last]),
+        flush=True)
+    if not losses[last] < losses[first]:
+        raise AssertionError("%s: the loss did not fall: %s" % (label, losses))
+    os.makedirs(again)
+    for stem in save_stems:
+        shutil.copy(os.path.join(run, stem), again)
+    _, resumed = main(cli + ["--train_path", again, "--max_steps", str(steps),
+                             "--restore_path", "latest"])
+    same = sorted(resumed) == [s for s in sorted(losses) if s > steps // 2] and all(
+        resumed[s] == losses[s] for s in resumed)
+    print("%s resumed at step %d: losses %s the first run's" % (
+        label, steps // 2, "repeat" if same else "DO NOT repeat"), flush=True)
+    if not same:
+        raise AssertionError("%s: the resumed run's losses %s differ from %s"
+                             % (label, resumed, losses))
+    return model, losses
+
+
+def bf16_train_phase(torch, tmp, data_flags, lr_list, hr_list):
+    """13a. --train_dtype bf16 on EDSR-baseline x4 at full width, batch 16 of
+    48x48: the wgrad kernel's bf16 entry at the step's shapes
+    (wgrad_bf16_phase); one step's loss and gradients through the kernels
+    against the plain dgrad and wgrad on the kernels' forward (and the
+    all-plain bf16 step's loss); one counted step (37 forward, 36 dgrad and
+    37 wgrad launches by path, the wgrad's bf16 launches by path
+    BF16_WGRAD_LAUNCHES); the step's median ms and device split beside
+    phase 8's f32 step; the train CLI for TRAIN_STEPS steps and a resume
+    from the middle repeating the rest bit for bit. Returns (the counted
+    step's launches, the wgrad numbers)."""
+    import numpy as np
+
+    from larvanet_tpu_torch.cli import train
+    from larvanet_tpu_torch.core.registry import get_model
+    from larvanet_tpu_torch.ops import conv3x3_wgrad as wg
+
+    wgrad = wgrad_bf16_phase(torch)
+    batch, patch = TRAIN_BATCH, TRAIN_PATCH
+    x = torch.from_numpy(np.stack(lr_list).transpose(0, 2, 3, 1).copy()).cuda()
+    t = torch.from_numpy(np.stack(hr_list).transpose(0, 2, 3, 1).copy()).cuda()
+    step_ms = {}
+    for dname in ("f32", "bf16"):
+        model = get_model("edsr")
+        model.parse_args(["--train_dtype", dname])
+        model.prepare([4], device="cuda", seed=SEED, is_training=True)
+        if dname == "bf16":
+            check_train_grads(torch, model, x, t, "EDSR-baseline x4 bf16", batch, patch,
+                              same_forward=True, loss_rtol=BF16_TRAIN_LOSS_RTOL,
+                              grad_rtol=BF16_TRAIN_GRAD_RTOL)
+            launches = counted_step(torch, lambda: model.train_step(lr_list, 4, hr_list))
+            bf16_wgrad = dict(wg.BF16_LAUNCHES_BY_PATH)
+            print("bf16 train step: wgrad's bf16 launches by path %s" % bf16_wgrad, flush=True)
+            if launches != TRAIN_LAUNCHES or bf16_wgrad != BF16_WGRAD_LAUNCHES:
+                raise AssertionError("bf16 train step launches %s (bf16 wgrad %s), not %s (%s)"
+                                     % (launches, bf16_wgrad, TRAIN_LAUNCHES,
+                                        BF16_WGRAD_LAUNCHES))
+        step_ms[dname] = time_train_step(
+            torch, model, x, t, lambda: model.train_step(lr_list, 4, hr_list),
+            "EDSR-baseline x4", batch, patch, dname)[0]
+        del model
+        torch.cuda.empty_cache()
+    print("train step, EDSR-baseline x4 batch 16 x 48x48: bf16 %.4f ms against f32 %.4f ms "
+          "(%.2fx)" % (step_ms["bf16"], step_ms["f32"], step_ms["f32"] / step_ms["bf16"]),
+          flush=True)
+    del x, t
+    half = TRAIN_STEPS // 2
+    cli = ["--dataloader", "div2k_train_loader", "--model", "edsr", "--scales", "4",
+           "--device", "cuda", "--batch_size", str(batch), "--input_patch_size", str(patch),
+           "--log_freq", str(half), "--save_freq", str(half), "--train_dtype", "bf16"
+           ] + data_flags
+    os.makedirs(os.path.join(tmp, "bf16"))
+    cli_resume_check(train.main, cli, os.path.join(tmp, "bf16"), TRAIN_STEPS,
+                     ["model_%d.pth" % half, "model_%d.state.pt" % half],
+                     "train CLI --train_dtype bf16")
+    torch.cuda.empty_cache()
+    return dict(launches, bf16_wgrad=bf16_wgrad), wgrad
+
+
+def remat_phase(torch):
+    """13b. --remat 1 on an EDSR-baseline x4 step and a LarvaNet 2x16 step,
+    batch TRAIN_BATCH of REMAT_LR^2 LR: the loss and every gradient equal
+    --remat 0's bit for bit (the recomputed forwards run the same kernels
+    on the same inputs), one counted step with the recomputed pairs'
+    forwards (REMAT_EXTRA_FORWARDS), and the peak memory of a step
+    (max_memory_allocated) under both."""
+    from larvanet_tpu_torch.core.registry import get_model
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
+    n, h = TRAIN_BATCH, REMAT_LR
+    x = torch.rand((n, h, h, 3), generator=gen, device="cuda") * 255
+    t = torch.rand((n, 4 * h, 4 * h, 3), generator=gen, device="cuda") * 255
+    out = {}
+    for name, flags in (("edsr", []), ("LarvaNet", list(LARVANET_FLAGS))):
+        grads, peaks = {}, {}
+        for remat in ("0", "1"):
+            model = get_model(name)
+            model.parse_args(flags + ["--remat", remat])
+            model.prepare([4], device="cuda", seed=SEED, is_training=True)
+
+            def step():
+                model.optimizer.zero_grad(set_to_none=True)
+                return model._loss_and_grads(x, t)
+
+            step()
+            peaks[remat] = peak_mb(torch, step)
+            loss = step()
+            grads[remat] = [float(loss)] + [p.grad.clone() for p in model.module.parameters()]
+            if remat == "1":
+                launches = counted_step(torch, step)
+                extra = launches["forward"]["tensor_core"] - (
+                    TRAIN_LAUNCHES if name == "edsr" else LARVA_TRAIN_LAUNCHES
+                )["forward"]["tensor_core"]
+                if extra != REMAT_EXTRA_FORWARDS[name]:
+                    raise AssertionError("--remat 1 %s: %d recomputed forwards, not %d"
+                                         % (name, extra, REMAT_EXTRA_FORWARDS[name]))
+            del model
+            torch.cuda.empty_cache()
+        same = grads["0"][0] == grads["1"][0] and all(
+            torch.equal(a, b) for a, b in zip(grads["0"][1:], grads["1"][1:]))
+        print("--remat 1, %s, batch %d x %dx%d LR: loss and gradients %s --remat 0's; peak "
+              "memory of a step %.1f MB (--remat 0: %.1f MB)" % (
+                  name, n, h, h, "equal, bit for bit," if same else "DIFFER from",
+                  peaks["1"], peaks["0"]), flush=True)
+        if not same:
+            raise AssertionError("--remat 1 changed %s's gradients" % name)
+        out[name] = {"peak_mb": peaks["1"], "peak_mb_remat0": peaks["0"]}
+    return out
+
+
+def chunk_idle(torch, fn, steps):
+    """(wall ms a step, device ms a step by kind, idle share) of fn() (a
+    chunk or a host step of `steps` steps) under torch.profiler, timed with
+    CUDA events once, after a warm call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    wall = start.elapsed_time(end) / steps
+    host = (time.perf_counter() - t0) * 1e3 / steps
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3 / steps
+    return wall, host, busy, max(wall - busy, 0.0) / wall
+
+
+def device_pipeline_phase(torch, tmp, data_flags, loader):
+    """13c. --device_pipeline DP_CHUNK: the set resident on the card (MB
+    printed); one counted chunk (DP_CHUNK steps' launches); the steps/s of
+    ChunkRateMeter over 3 chunks and a chunk's idle share (CUDA events and
+    torch.profiler) beside the host loop's step (data and train_step);
+    then train (EDSR-baseline x4) and train_larva (LarvaNet 2x16) for
+    DP_STEPS steps with a resume from the middle repeating the rest bit for
+    bit. Returns the counted chunk's launches."""
+    from larvanet_tpu_torch.cli import common, train, train_larva
+    from larvanet_tpu_torch.core.registry import get_model
+    from larvanet_tpu_torch.data.device_pipeline import chunk_seed, pipeline_for, run_chunk
+
+    batch, patch = TRAIN_BATCH, TRAIN_PATCH
+    pipe = pipeline_for(loader.dataset, 4, "cuda")
+    print("device pipeline: %d images, %.3f MB resident on the card"
+          % (len(pipe), pipe.nbytes() / 1e6), flush=True)
+    model = get_model("edsr")
+    model.parse_args([])
+    model.prepare([4], device="cuda", seed=SEED, is_training=True)
+    lr = model.get_learning_rate()
+    chunk = lambda: run_chunk(model, pipe, DP_CHUNK, batch, patch, lr,  # noqa: E731
+                              chunk_seed(SEED, model.global_step))
+    launches = counted_step(torch, chunk)
+    want = {k: {p: DP_CHUNK * v for p, v in by.items()} for k, by in TRAIN_LAUNCHES.items()}
+    if launches != want:
+        raise AssertionError("a device-pipeline chunk's launches %s, not %s" % (launches, want))
+    meter = common.ChunkRateMeter()
+    for i in range(3):
+        t0 = time.time()
+        loss = float(chunk())
+        model.global_step += DP_CHUNK
+        inst, avg, trusted = meter.update(model.global_step, DP_CHUNK, time.time() - t0)
+        print("device pipeline chunk %d: mean loss %.6f (%.1f steps/s)%s"
+              % (i, loss, inst, meter.suffix(avg, trusted)), flush=True)
+
+    def host_step():
+        lr_list, hr_list = loader.get_patch_batch(batch, 4, patch)
+        model.train_step(lr_list, 4, hr_list)
+
+    rows = {"chunk": chunk_idle(torch, chunk, DP_CHUNK), "host loop": chunk_idle(torch,
+                                                                                 host_step, 1)}
+    for label, (wall, host, busy, idle) in rows.items():
+        print("device pipeline: %s, EDSR-baseline x4 f32 batch %d x %dx%d: %.4f ms a step on "
+              "the card's clock (%.4f on the host's), kernels %.4f ms, idle %.1f%%"
+              % (label, batch, patch, patch, wall, host, busy, 100 * idle), flush=True)
+    del model
+    torch.cuda.empty_cache()
+    half = DP_STEPS // 2
+    cli = ["--dataloader", "div2k_train_loader", "--model", "edsr", "--scales", "4",
+           "--device", "cuda", "--batch_size", str(batch), "--input_patch_size", str(patch),
+           "--save_freq", str(half), "--device_pipeline", str(DP_CHUNK)] + data_flags
+    os.makedirs(os.path.join(tmp, "dp"))
+    cli_resume_check(train.main, cli, os.path.join(tmp, "dp"), DP_STEPS,
+                     ["model_%d.pth" % half, "model_%d.state.pt" % half],
+                     "train CLI --device_pipeline %d" % DP_CHUNK)
+    volume = patch * patch * batch * 3
+    larva_cli = ["--dataloader", "div2k_train_loader", "--device", "cuda",
+                 "--val_data_input_path", os.path.join(tmp, "LR"),
+                 "--val_data_truth_path", os.path.join(tmp, "HR"), "--batch_size", str(batch),
+                 "--input_patch_size", str(patch), "--device_pipeline", str(DP_CHUNK),
+                 "--val_volume", str(half * volume)] + LARVANET_FLAGS + data_flags
+    os.makedirs(os.path.join(tmp, "dp_larva"))
+    stem = "model_step%d_vol0G" % half
+    cli_resume_check(train_larva.main, larva_cli, os.path.join(tmp, "dp_larva"), DP_STEPS,
+                     [stem + ".pth", stem + ".state.pt"],
+                     "train_larva CLI --device_pipeline %d" % DP_CHUNK)
+    torch.cuda.empty_cache()
+    return launches
+
+
+def checkpoint_flags_phase(torch, tmp, data_flags):
+    """13d-13f. --async_checkpoint 1: the files of an asynchronous save of a
+    trained EDSR-baseline x4 equal a synchronous save's tensors bit for bit,
+    with a step taken before the writer is waited for. --profile_dir: the
+    train CLI for 2 steps writes trace.json, which names the conv3x3 and
+    wgrad kernels. --widen_from: a LarvaNet 2x16 checkpoint widened into
+    LarvaNet_w64 2x16 computes the narrow forward within FWD_RTOL of its
+    residual."""
+    import numpy as np
+
+    from larvanet_tpu_torch.cli import common, train
+    from larvanet_tpu_torch.core.registry import get_model
+    from larvanet_tpu_torch.models.base import state_path
+    from larvanet_tpu_torch.utils import profiling
+    from larvanet_tpu_torch.utils.torch_convert import load_pth
+
+    rng = np.random.default_rng(SEED + 15)
+    model = get_model("edsr")
+    model.parse_args([])
+    model.prepare([4], device="cuda", seed=SEED, is_training=True)
+    lr = rng.uniform(0, 255, (TRAIN_BATCH, 48, 48, 3)).astype(np.float32)
+    hr = np.repeat(np.repeat(lr, 4, 1), 4, 2)
+    model.train_step(lr, 4, hr)
+    sync = model.save(os.path.join(tmp, "sync"))
+    model.async_checkpoints = True
+    t0 = time.perf_counter()
+    path = model.save(os.path.join(tmp, "async"))
+    submit_ms = (time.perf_counter() - t0) * 1e3
+    model.train_step(lr, 4, hr)
+    model.wait_for_checkpoints()
+    a, b = load_pth(sync), load_pth(path)
+    sa = torch.load(state_path(sync), weights_only=True)
+    sb = torch.load(state_path(path), weights_only=True)
+    same = a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a) and all(
+        torch.equal(u.cpu(), v.cpu()) for u, v in zip(
+            [x for st in sa["optimizer"]["state"].values() for x in st.values()],
+            [x for st in sb["optimizer"]["state"].values() for x in st.values()]))
+    print("--async_checkpoint 1: the files %s the synchronous save's tensors, bit for bit "
+          "(the save returned in %.3f ms)" % ("hold" if same else "DO NOT hold", submit_ms),
+          flush=True)
+    if not same:
+        raise AssertionError("the asynchronous checkpoint differs from the synchronous one")
+    del model
+    torch.cuda.empty_cache()
+
+    trace_dir = os.path.join(tmp, "trace")
+    train.main(["--dataloader", "div2k_train_loader", "--model", "edsr", "--scales", "4",
+                "--device", "cuda", "--batch_size", str(TRAIN_BATCH), "--input_patch_size",
+                str(TRAIN_PATCH), "--max_steps", "2", "--save_freq", "100", "--train_path",
+                os.path.join(tmp, "prof"), "--profile_dir", trace_dir] + data_flags)
+    events = json.load(open(os.path.join(trace_dir, profiling.TRACE_FILE)))["traceEvents"]
+    names = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    found = {k: sum(k in n for n in names) for k in ("conv3x3", "wgrad")}
+    print("--profile_dir: %s holds %d kernel records, %s; train_step spans %d" % (
+        profiling.TRACE_FILE, len(names), found,
+        sum(e.get("name") == "train_step" for e in events)), flush=True)
+    if not all(found.values()):
+        raise AssertionError("the trace names no conv3x3 or wgrad kernel: %s" % found)
+
+    narrow_path = os.path.join(tmp, "narrow.pth")
+    save_larvanet(torch, narrow_path)
+    narrow = larvanet_model("LarvaNet", LARVANET_FLAGS, pth=narrow_path)
+    wide = get_model("LarvaNet_w64")
+    wide.parse_args(list(LARVANET_FLAGS))
+    wide.prepare([4], device="cuda", seed=SEED + 1, is_training=True)
+    common.maybe_widen_from(wide, mock.Mock(widen_from=narrow_path, restore_path=None))
+    img = photo(rng, *TRAIN_LR)
+    x = torch.from_numpy(img.transpose(1, 2, 0)[None].astype(np.float32)).cuda()
+    with torch.no_grad():
+        got, want = wide.fwd_runtime(x)[0], narrow.fwd_runtime(x)[0]
+        base = larvanet_base(torch, narrow, img)
+    residual = float((want - base).abs().max())
+    err = float((got - want).abs().max())
+    print("--widen_from: LarvaNet 2x16 widened into LarvaNet_w64 2x16 (%d -> %d parameters): "
+          "max |wide - narrow| %.3g, %.3g of the residual's max %.3g (bar %g)" % (
+              narrow.num_parameters(), wide.num_parameters(), err, err / residual, residual,
+              FWD_RTOL), flush=True)
+    if err > FWD_RTOL * residual:
+        raise AssertionError("the widened model's forward differs from the narrow one's")
+
+
+def train_flags_phase(torch):
+    """Phase 13, on phase 8's set: 13a bf16 training, 13b --remat, 13c
+    --device_pipeline, 13d-f --async_checkpoint, --profile_dir and
+    --widen_from. Returns {"bf16_step": its counted launches (with
+    "bf16_wgrad"), "chunk": the counted chunk's, "wgrad_bf16": the bf16
+    wgrad numbers, "remat": peak memory by model}."""
+    import numpy as np
+
+    from larvanet_tpu_torch.core.registry import get_loader
+
+    with tempfile.TemporaryDirectory() as tmp:
+        write_train_set(tmp, np.random.default_rng(SEED + 8), TRAIN_FRAMES, TRAIN_LR)
+        data_flags = ["--data_input_path", os.path.join(tmp, "LR"),
+                      "--data_truth_path", os.path.join(tmp, "HR"), "--data_cached",
+                      "--data_seed", str(SEED)]
+        loader = get_loader("div2k_train_loader")
+        loader.parse_args(data_flags)
+        loader.prepare([4])
+        loader.reseed_for_step(0)
+        lr_list, hr_list = loader.get_patch_batch(TRAIN_BATCH, 4, TRAIN_PATCH)
+        bf16_step, wgrad = bf16_train_phase(torch, tmp, data_flags, lr_list, hr_list)
+        remat = remat_phase(torch)
+        chunk = device_pipeline_phase(torch, tmp, data_flags, loader)
+        checkpoint_flags_phase(torch, tmp, data_flags)
+    return {"bf16_step": bf16_step, "chunk": chunk, "wgrad_bf16": wgrad, "remat": remat}
+
+
 def print_sass_mix(build):
     """The instruction mix of each tensor-core and narrow kernel in the
     built libraries (cuobjdump -sass): ldmatrix, tensor-core products,
@@ -2941,9 +3498,14 @@ def main() -> int:
     full_frame = full_frame_phase(torch)
     torch.cuda.empty_cache()
     s8_sums, s8_rows, s8_errs = s8_kernel_phase(torch)
+    s8_wide = s8_wide_phase(torch)
     s8_forward = int8_forward_phase(torch)
     s8_cli = int8_cli_phase(torch)
     qat_phase(torch)
+    torch.cuda.empty_cache()
+    flags = train_flags_phase(torch)
+    trained.append(flags["bf16_step"])
+    trained.append(flags["chunk"])
     s8_by_entry = {}
     for part in (*s8_forward.values(), s8_cli):
         _add(s8_by_entry, part)
@@ -3009,6 +3571,17 @@ def main() -> int:
         "larvanet_train": dict(larva_wgrad_sums, bound_by=larva_wgrad_by,
                                launches_by_path=larva_train["step"]["wgrad"],
                                v2_run=larva_train["v2"]["wgrad"], shapes=larva_wgrad_shapes),
+        # phase 13a: the bf16 step's wgrads (conv3x3_wgrad_bf16_tc on the
+        # tensor-core shapes, the f32 entries of the widened operands on the
+        # other two), summed over one step's 37, with the counted step's
+        # bf16 launches by path; the bound at the bf16 peak, library_ms
+        # conv2d_weight in bf16, f32_entry_ms the f32 entry on the same values
+        "bf16": dict(flags["wgrad_bf16"][0], bound_by=flags["wgrad_bf16"][1],
+                     entry="conv3x3_wgrad_bf16_tc",
+                     launches=sum(flags["bf16_step"]["bf16_wgrad"].values()),
+                     launches_by_path=flags["bf16_step"]["bf16_wgrad"],
+                     max_abs_err=flags["wgrad_bf16"][2], max_rel_err=flags["wgrad_bf16"][3],
+                     shapes=flags["wgrad_bf16"][4]),
     }]
     for m, line in ((2, 205), (4, 336)):
         wsums, werr = wino[m]
@@ -3065,6 +3638,9 @@ def main() -> int:
         "larvanet": s8_sums["bf16"]["larvanet"],
         "f32": dict(s8_sums["f32"], max_abs_err=s8_errs["f32"]),
         "shapes": s8_rows,
+        # phase 11a's widths past one code halo (the chunked plan): the
+        # calls that checked and timed them, outside every model's path
+        "wide": s8_wide,
     })
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())

@@ -10,6 +10,8 @@ exit non-zero with a pointer to ROADMAP.md (`refuse_unported`).
 from __future__ import annotations
 
 import argparse
+import os
+import time
 from typing import List, Sequence
 
 import numpy as np
@@ -71,11 +73,11 @@ def add_refused_flags(parser: argparse.ArgumentParser, refused: Sequence[str],
 
 
 def refuse_unported(args, refused: Sequence[str], ignored: Sequence[str],
-                    tool: str) -> None:
+                    tool: str, where: str = "see ROADMAP.md") -> None:
     for flag in refused:
         if getattr(args, flag, None) not in (None, "0", ""):
-            raise SystemExit("--%s is not ported to larvanet_tpu_torch yet (see "
-                             "ROADMAP.md); run %s without it" % (flag, tool))
+            raise SystemExit("--%s is not ported to larvanet_tpu_torch yet (%s); run %s "
+                             "without it" % (flag, where, tool))
     given = ["--" + flag for flag in ignored if getattr(args, flag, None) is not None]
     if given:
         print("%s: %s only matter(s) on the TPU; ignored here" % (tool, ", ".join(given)))
@@ -318,3 +320,97 @@ def int8_calib_batch(dataloader, scale, num_images=4) -> np.ndarray:
         left = (im.shape[1] - ww) // 2
         out.append(im[top:top + hh, left:left + ww])
     return np.asarray(out, np.float32)
+
+
+def add_train_flags(parser: argparse.ArgumentParser) -> None:
+    """The train CLIs' --async_checkpoint, --profile_dir, --device_pipeline
+    and --widen_from (larvanet_tpu/cli/train.py:36-58, common.py:140-148)."""
+    parser.add_argument("--async_checkpoint", type=int, default=0,
+                        help="Write checkpoints on a worker thread: the tensors are "
+                             "snapshotted on the device and the loop goes on.")
+    parser.add_argument("--profile_dir", type=str, default=None,
+                        help="Run the training loop under torch.profiler and write a "
+                             "Chrome trace (trace.json) into this directory.")
+    parser.add_argument("--device_pipeline", type=int, default=0,
+                        help="Steps per chunk with the uint8 dataset resident on the "
+                             "device and the patches sampled and augmented there "
+                             "(0 = the host pipeline).")
+    parser.add_argument("--widen_from", type=str, default=None,
+                        help="Warm-start this (wider) model from a narrower checkpoint "
+                             "of the same topology (a JAX .ckpt or the port's .pth): "
+                             "function-preserving widening, optimizer reset. "
+                             "Exclusive with --restore_path.")
+
+
+def maybe_widen_from(model, args) -> None:
+    """--widen_from (larvanet_tpu/cli/common.py:151-187): the narrow
+    checkpoint's parameters embedded function-preservingly into the prepared
+    (wider) model, with fresh optimizer moments and average. Takes a JAX
+    `.ckpt` (read by utils/flax_msgpack) or the port's `.pth`; an orbax
+    directory is refused."""
+    ckpt = getattr(args, "widen_from", None)
+    if not ckpt:
+        return
+    if getattr(args, "restore_path", None):
+        raise SystemExit("--widen_from and --restore_path are mutually "
+                         "exclusive (widening IS the warm start)")
+    from larvanet_tpu_torch.models.base import ParamEMA, make_optimizer
+    from larvanet_tpu_torch.utils import flax_msgpack
+    from larvanet_tpu_torch.utils.torch_convert import load_pth
+    from larvanet_tpu_torch.utils.width_transfer import widen_state_dict
+
+    if os.path.isdir(ckpt):
+        raise SystemExit("--widen_from %s: an orbax directory needs orbax, which the port "
+                         "does not use (ROADMAP.md queue 1 item 11); widen from a .ckpt "
+                         "or a .pth" % (ckpt,))
+    if ckpt.endswith((".pth", ".pt")):
+        old = load_pth(ckpt)
+    else:
+        with open(ckpt, "rb") as f:
+            state = flax_msgpack.restore(f.read())
+        old = model._from_jax_tree(state["params"])
+    module = model.module
+    names = [name for name, _ in module.named_parameters()]
+    widened = widen_state_dict(old, module.state_dict(), names)
+    model.load_state_dict(widened, strict=True)
+    if model.optimizer is not None:
+        params = list(module.parameters())
+        model.optimizer = make_optimizer(model.optimizer_kind, params)
+        if model.ema is not None:
+            model.ema = ParamEMA(params, model.ema_decay)
+    print("warm-started by widening %s into %s (function-preserving; "
+          "optimizer reset)" % (ckpt, model.registry_name))
+
+
+class ChunkRateMeter:
+    """Steps/s of the device-pipeline loops (larvanet_tpu/cli/common.py:
+    528-574): the first chunk starts a differenced clock; each later chunk's
+    average is (steps since the first chunk) / (wall time since it), and
+    its instantaneous rate n / dt is untrusted when above TRUST_FACTOR x
+    that average. `suffix` renders the log's suffix in JAX's grammar."""
+
+    TRUST_FACTOR = 5.0
+
+    def __init__(self):
+        self._t0 = None
+        self._steps0 = None
+        self._chunks = 0
+
+    def update(self, global_step: int, n_steps: int, dt: float):
+        """(instantaneous rate, average or None, trusted)."""
+        self._chunks += 1
+        now = time.time()
+        inst = n_steps / max(dt, 1e-9)
+        if self._chunks == 1:
+            self._t0, self._steps0 = now, global_step
+            return inst, None, True
+        avg = (global_step - self._steps0) / max(now - self._t0, 1e-9)
+        return inst, avg, inst <= self.TRUST_FACTOR * avg
+
+    def suffix(self, avg, trusted) -> str:
+        out = ""
+        if avg is not None:
+            out += " avg %.1f steps/s" % avg
+        if not trusted:
+            out += " [untrusted]"
+        return out

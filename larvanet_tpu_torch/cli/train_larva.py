@@ -6,7 +6,9 @@ reference train_larva.py):
         [--val_data_input_path VLR --val_data_truth_path VHR] \\
         [--model LarvaNet --num_modules 2 --num_blocks 16,16] [--val_volume 30e9] \\
         [--batch_size 16 --input_patch_size 48] [--max_steps N] \\
-        [--restore_path latest] [--ema_decay 0.999] [--grad_accum 2] [--device cpu]
+        [--restore_path latest] [--ema_decay 0.999] [--grad_accum 2] \\
+        [--device_pipeline 100] [--async_checkpoint 1] [--profile_dir trace] \\
+        [--widen_from narrow.ckpt] [--remat 1] [--device cpu]
 
 A train loader (default combined_loader, threaded) and a val loader
 (default div2k_val_loader, on --val_data_input_path / --val_data_truth_path),
@@ -25,13 +27,19 @@ every 3x3 conv of the forward and the backward on the hand-written
 kernels there, and never falls back to the CPU. `main` returns (the
 model in its final state, {global_step: loss}).
 
-Not ported yet, refused with a pointer to ROADMAP.md: --device_pipeline,
---async_checkpoint, --orbax_checkpoint, --dp_devices, --widen_from,
---profile_dir, and the model's --remat 1. --qat 1 trains every body and
-leg conv pair through the fake-quant pair (ops/pairs.qat_pair). Accepted
-and ignored: the model's --packed_trunk and --lr_domain_loss (exact
-reparametrisations of the module graph the port trains) and --fused_opt
-(numerically identical per element).
+--device_pipeline N (`_train_larva_device`, train_larva.py:180-250): the
+uint8 set resident on the device (data/device_pipeline.py), chunks of up to
+N steps, each stopping at the next --val_volume boundary, the chunk's draws
+seeded from (--data_seed, global_step); validation before the first chunk
+and at each boundary, then the checkpoint and the summary; one line a chunk
+with ChunkRateMeter's steps/s. --async_checkpoint 1, --profile_dir,
+--widen_from and a JAX `.ckpt` resume as in cli/train.py; the model's
+--remat 1 recomputes each body and leg conv pair in the backward. --qat 1
+trains every body and leg conv pair through the fake-quant pair
+(ops/pairs.qat_pair). Refused, with a pointer to ROADMAP.md queue 1 item 11
+(parallel): --orbax_checkpoint, --dp_devices. Accepted and ignored: the
+model's --lr_domain_loss (an exact reparametrisation of the module graph
+the port trains) and --fused_opt (numerically identical per element).
 """
 
 from __future__ import annotations
@@ -42,13 +50,11 @@ import os
 import time
 
 from larvanet_tpu_torch.cli import common
-from larvanet_tpu_torch.cli.train import refuse_model_flags
+from larvanet_tpu_torch.cli.train import PARALLEL, REFUSED, note_ignored_model_flags
 from larvanet_tpu_torch.core.config import dump_arguments_json
 from larvanet_tpu_torch.utils.checkpoints import resolve_restore_path
+from larvanet_tpu_torch.utils.profiling import annotate, trace
 from larvanet_tpu_torch.utils.summary import SummaryWriter
-
-REFUSED = ("async_checkpoint", "orbax_checkpoint", "device_pipeline", "dp_devices",
-           "widen_from", "profile_dir")
 
 
 def round_to_1(x):
@@ -93,6 +99,7 @@ def build_parser() -> argparse.ArgumentParser:
                         help="Initial global step (a state file's step replaces it).")
     common.add_ema_decay_flag(parser)
     common.add_fused_opt_flag(parser)
+    common.add_train_flags(parser)
     common.add_refused_flags(parser, REFUSED, ())
     return parser
 
@@ -100,7 +107,7 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None):
     """Train; returns (the model in its final state, {global_step: loss})."""
     args, remaining = build_parser().parse_known_args(argv)
-    common.refuse_unported(args, REFUSED, (), "train_larva")
+    common.refuse_unported(args, REFUSED, (), "train_larva", PARALLEL)
     if args.fused_opt is not None:
         print("train_larva: --fused_opt is numerically identical per element; ignored")
     device = common.resolve_device(args)
@@ -119,10 +126,12 @@ def main(argv=None):
     if not hasattr(model, "train_step_larva"):
         raise SystemExit("train_larva trains the LarvaNet family; --model %s trains with "
                          "larvanet_tpu_torch.cli.train" % (args.model,))
-    refuse_model_flags(model_args, "train_larva")
+    note_ignored_model_flags(model_args, "train_larva")
     model.grad_accum = args.grad_accum
+    model.async_checkpoints = bool(args.async_checkpoint)
     common.warn_leftovers(remaining)
     model.volume_per_step = args.input_patch_size ** 2 * args.batch_size * 3
+    common.maybe_widen_from(model, args)
 
     restore_path = resolve_restore_path(args.restore_path, args.train_path)
     if restore_path is not None:
@@ -138,10 +147,23 @@ def main(argv=None):
     losses = {}
     local_step = 0
     print("begin training")
+    if args.device_pipeline > 0:
+        summary_box = []  # the writer, made when the first summary is due
+        try:
+            with trace(args.profile_dir):
+                losses = _train_larva_device(args, dataloader, val_loader, model, scale,
+                                             device, summary_box)
+        finally:
+            for w in summary_box:
+                w.close()
+        model.wait_for_checkpoints()
+        print("finished")
+        return model, losses
     if threaded:
         dataloader.start_training_queue_runner(batch_size=args.batch_size,
                                                input_patch_size=args.input_patch_size)
     try:
+      with trace(args.profile_dir):
         while True:
             local_step += 1
             t0 = time.perf_counter()
@@ -157,7 +179,9 @@ def main(argv=None):
                 if summary is None:
                     summary = SummaryWriter(os.path.join(args.train_path, "x%d" % scale))
                 step_summary = summary
-            loss = model.train_step_larva(args, val_loader, inputs, truths, step_summary)
+            with annotate("train_step"):
+                loss = model.train_step_larva(args, val_loader, inputs, truths,
+                                              step_summary)
             losses[model.global_step] = loss
             t2 = time.perf_counter()
             if local_step % args.log_freq == 0:
@@ -173,8 +197,64 @@ def main(argv=None):
             dataloader.stop_queue_runners()
         if summary is not None:
             summary.close()
+    model.wait_for_checkpoints()
     print("finished")
     return model, losses
+
+
+def _train_larva_device(args, dataloader, val_loader, model, scale, device,
+                        summary_box) -> dict:
+    """--device_pipeline N (train_larva.py:180-250): validation before the
+    first chunk of a fresh run, then chunks of min(N, steps to the next
+    --val_volume) steps on the device-resident set, each seeded from
+    (--data_seed, its first step); at each volume boundary the volume is
+    banked, then validation, the checkpoint, and the loss and lr summary
+    where the chunk passed a --summary_freq step. Returns {global_step
+    after the chunk: its mean loss}."""
+    from larvanet_tpu_torch.data.device_pipeline import chunk_seed, pipeline_for, run_chunk
+
+    pipe = pipeline_for(dataloader.dataset, scale, device)
+    print("device pipeline: %d images, %.1f MB resident on the device"
+          % (len(pipe), pipe.nbytes() / 1e6))
+    data_seed = getattr(dataloader.args, "data_seed", None) or 0
+    if model.global_step == 0 and val_loader is not None:
+        model.validate_for_train(args, val_loader)
+    meter = common.ChunkRateMeter()
+    losses = {}
+    while True:
+        steps_to_val = max(1, math.ceil((model.args.val_volume - model.temp_volume)
+                                        / model.volume_per_step))
+        n = min(args.device_pipeline, steps_to_val)
+        t0 = time.time()
+        lr = model.get_learning_rate()
+        with annotate("chunk"):
+            loss = run_chunk(model, pipe, n, args.batch_size, args.input_patch_size, lr,
+                             chunk_seed(data_seed, model.global_step))
+        model.global_step += n
+        model.temp_volume += n * model.volume_per_step
+        loss_val = float(loss)
+        dt = time.time() - t0
+        inst, avg, trusted = meter.update(model.global_step, n, dt)
+        print("step %d, mean loss %.6f, lr %.8f (%.1f steps/s)%s"
+              % (model.global_step, loss_val, model.get_learning_rate(), inst,
+                 meter.suffix(avg, trusted)))
+        losses[model.global_step] = loss_val
+        if model.temp_volume >= model.args.val_volume:
+            model.total_volume += model.temp_volume
+            model.temp_volume = 0
+            if val_loader is not None:
+                model.validate_for_train(args, val_loader)
+            model.save(base_path=args.train_path)
+            print("saved a model checkpoint at volume %.0fG" % (model.total_volume / 1e9,))
+            if model.global_step % args.summary_freq < n:
+                if not summary_box:
+                    summary_box.append(SummaryWriter(
+                        os.path.join(args.train_path, "x%d" % scale)))
+                summary_box[0].scalar("loss", loss_val, model.global_step)
+                summary_box[0].scalar("lr", model.get_learning_rate(), model.global_step)
+        if args.max_steps and model.global_step >= args.max_steps:
+            break
+    return losses
 
 
 if __name__ == "__main__":

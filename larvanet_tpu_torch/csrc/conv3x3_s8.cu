@@ -119,7 +119,9 @@ struct S8Shape {
   int n, h_img, w_img, c, f, kp, np, h_tiles, w_tiles;
   long long tiles;
   int raw_stride;   // bytes of a pixel in a raw slot (conv_a: T, whole 16-byte granules)
-  int code_stride;  // bytes of a pixel in a code slot: Kp + 16
+  int code_stride;  // bytes of a pixel in a code slot: Kc + 16
+  int kc;           // codes of a chunk: Kp in the one-halo plan, else a multiple of 32
+  int chunks;       // chunks of Kp codes a halo is copied in (1: the one-halo plan)
   int raw_bytes;    // bytes of a raw slot (a multiple of 128)
   int code_bytes;   // bytes of a code slot (a multiple of 128)
   int out_stride;   // bytes of a pixel in a staging row (conv_a: codes; conv_b: T)
@@ -331,16 +333,17 @@ __device__ __forceinline__ void load_b(unsigned (&b)[4], const int8_t* p) {
   }
 }
 
-// The products of one pass: acc[r][j] = the warp's r-th row of 16 pixels x
-// outputs 8j .. 8j + 7 of the pass's nb, over the 9 taps and Kp / 32 steps.
-// a_p: this lane's ldmatrix row of the code halo at tap 0 for the warp's
-// first row; w_p: the pass's first 8-output group of tap 0, step 0, in
-// shared memory (kInSmem) or global memory; w_step: bytes of a (tap, step)
-// block of the weights. A B fragment serves the warp's kRW rows.
+// The products of one pass: acc[r][j] += the warp's r-th row of 16 pixels x
+// outputs 8j .. 8j + 7 of the pass's nb, over the 9 taps and the halo's kn
+// k32 steps (a chunk of the Kp / 32 = ksteps of the weights). a_p: this
+// lane's ldmatrix row of the code halo at tap 0 for the warp's first row;
+// w_p: the pass's first 8-output group of tap 0 at the chunk's first step,
+// in shared memory (kInSmem) or global memory; w_step: bytes of a (tap,
+// step) block of the weights. A B fragment serves the warp's kRW rows.
 template <bool kInSmem>
 __device__ __forceinline__ void products_mma(int (&acc)[kRW][kBN / 8][4], const int8_t* a_p,
                                              int code_stride, const int8_t* w_p, int w_step,
-                                             int ksteps, int nb, int lane) {
+                                             int ksteps, int kn, int nb, int lane) {
   const int nt = nb / 8;
   // ldmatrix: lanes 0-15 name the rows of group 2jp's two halves, 16-31
   // those of 2jp + 1; a lane's words: row lane / 4, bytes 4 (lane % 4) ..
@@ -349,7 +352,7 @@ __device__ __forceinline__ void products_mma(int (&acc)[kRW][kBN / 8][4], const 
   for (int tap = 0; tap < 9; ++tap) {
     const int8_t* a_t = a_p + ((tap / 3) * kHaloW + tap % 3) * code_stride;
 #pragma unroll 1
-    for (int ks = 0; ks < ksteps; ++ks) {
+    for (int ks = 0; ks < kn; ++ks) {
       unsigned a[kRW][4];
 #pragma unroll
       for (int r = 0; r < kRW; ++r) ldsm_x4(a[r], a_t + r * kHaloW * code_stride + kKC * ks);
@@ -391,23 +394,25 @@ __device__ __forceinline__ long long halo_pixel(const S8Shape& s, TileAt t, int 
 }
 
 // conv_b's code halo of tile t into a slot by the producer warp's 32 lanes,
-// for codes the TMA cannot copy: Kp codes a pixel, zero past C and outside
-// the image, 16 at a time (one 16-byte load where x allows it)
+// for codes the TMA cannot copy: codes cb .. cb + kw a pixel (the chunk's),
+// zero past C and outside the image, 16 at a time (one 16-byte load where x
+// allows it)
 __device__ __forceinline__ void stage_codes(int8_t* slot, const int8_t* __restrict__ x,
-                                            const S8Shape& s, TileAt t, int lane) {
-  const int g_n = s.kp / 16;
+                                            const S8Shape& s, TileAt t, int cb, int kw,
+                                            int lane) {
+  const int g_n = kw / 16;
   for (int e = lane; e < kHaloPix * g_n; e += 32) {
     const int p = e / g_n;
     const int ch0 = 16 * (e - p * g_n);
     const long long at = halo_pixel(s, t, p);
     uint4 v = make_uint4(0, 0, 0, 0);
-    if (at >= 0 && ch0 < s.c) {
-      const int8_t* src = x + at * s.c + ch0;
+    if (at >= 0 && cb + ch0 < s.c) {
+      const int8_t* src = x + at * s.c + cb + ch0;
       if (s.vec_in) {
         v = *reinterpret_cast<const uint4*>(src);
       } else {
         unsigned w[4] = {0, 0, 0, 0};
-        for (int i = 0; i < 16 && ch0 + i < s.c; ++i)
+        for (int i = 0; i < 16 && cb + ch0 + i < s.c; ++i)
           w[i / 4] |= (unsigned)(uint8_t)src[i] << (8 * (i % 4));
         v = make_uint4(w[0], w[1], w[2], w[3]);
       }
@@ -444,14 +449,15 @@ __device__ __forceinline__ uint2 quantize_run(const T* src, int n, float s, floa
   return make_uint2(packed[0], packed[1]);
 }
 
-// conv_a's quantize of tile t's halo into a code halo (codes C .. Kp zero) by
-// the consumers, kQV codes an item: from a raw slot, or with raw null from x
-// itself, element by element (zeros outside the image)
+// conv_a's quantize of tile t's halo into a code halo (codes past C zero) by
+// the consumers, kQV codes an item: from a raw slot (the one-halo plan: all
+// Kp codes), or with raw null from x itself, element by element (zeros
+// outside the image), the codes cb .. cb + kw of the chunk
 template <typename T>
 __device__ __forceinline__ void quantize_halo(int8_t* codes, const int8_t* raw,
                                               const T* __restrict__ x, const S8Shape& s,
-                                              TileAt t, float s_in, float r_in) {
-  const int q_n = s.kp / kQV;
+                                              TileAt t, int cb, int kw, float s_in, float r_in) {
+  const int q_n = kw / kQV;
   for (int e = threadIdx.x; e < kHaloPix * q_n; e += kConsumers) {
     const int p = e / q_n;
     const int ch0 = kQV * (e - p * q_n);
@@ -464,7 +470,7 @@ __device__ __forceinline__ void quantize_halo(int8_t* codes, const int8_t* raw,
       float v[kQV];
 #pragma unroll
       for (int i = 0; i < kQV; ++i)
-        v[i] = at >= 0 && ch0 + i < s.c ? to_f32(x[at * s.c + ch0 + i]) : 0.f;
+        v[i] = at >= 0 && cb + ch0 + i < s.c ? to_f32(x[at * s.c + cb + ch0 + i]) : 0.f;
       unsigned w[kQV / 4];
       quantize_pack(v, w, s_in, r_in);
       packed = make_uint2(w[0], w[1]);
@@ -704,18 +710,24 @@ __global__ void __launch_bounds__(kThreads)
     uint64_t* const empty = kA ? empty_raw : empty_code;
     int8_t* const ring = s8_smem + (kA ? s.off_raw : s.off_code);
     const int slot_bytes = kA ? s.raw_bytes : s.code_bytes;
+    // a tile's slot uses: its one halo, or each pass's chunks in turn
+    const int uses = s.chunks == 1 ? 1 : s.chunks * ((s.np + kBN - 1) / kBN);
     int i = 0;
-    for (long long tile = blockIdx.x; tile < s.tiles; tile += gridDim.x, ++i) {
-      const int slot = i % slots;
-      if (i >= slots) mbar_wait(empty + slot, (i / slots - 1) & 1);
+    for (long long tile = blockIdx.x; tile < s.tiles; tile += gridDim.x) {
       const TileAt t = tile_at(s, tile);
-      if (s.tma) {
-        mbar_arrive_expect_tx(full + slot, s.tx);
-        tma_load_4d(ring + slot * slot_bytes, &halo_map, 0, t.w0 - 1, t.h0 - 1, (int)t.img,
-                    full + slot);
-      } else if constexpr (!kA) {
-        stage_codes(ring + slot * slot_bytes, x, s, t, lane);
-        mbar_arrive(full + slot);
+      for (int u = 0; u < uses; ++u, ++i) {
+        const int slot = i % slots;
+        if (i >= slots) mbar_wait(empty + slot, (i / slots - 1) & 1);
+        if (s.tma) {
+          mbar_arrive_expect_tx(full + slot, s.tx);
+          tma_load_4d(ring + slot * slot_bytes, &halo_map, 0, t.w0 - 1, t.h0 - 1, (int)t.img,
+                      full + slot);
+        } else if constexpr (!kA) {
+          const int cb = u % s.chunks * s.kc;
+          stage_codes(ring + slot * slot_bytes, x, s, t, cb,
+                      s.kp - cb < s.kc ? s.kp - cb : s.kc, lane);
+          mbar_arrive(full + slot);
+        }
       }
     }
     return;
@@ -740,31 +752,45 @@ __global__ void __launch_bounds__(kThreads)
   const int w_step = s.np / 8 * 256;  // bytes of a (tap, k32 step) block
   int8_t* const stage = s8_smem + s.off_out + row0 * kTW * s.out_stride;  // the warp's rows
   mbar_wait(weights_in, 0);
-  int i = 0;
-  for (long long tile = blockIdx.x; tile < s.tiles; tile += gridDim.x, ++i) {
-    const int slot = i % s.code_slots;
+  int i = 0;  // slot uses of the code ring
+  for (long long tile = blockIdx.x; tile < s.tiles; tile += gridDim.x) {
     const TileAt t = tile_at(s, tile);
-    int8_t* const halo = s8_smem + s.off_code + slot * s.code_bytes;
     uint4 rv[kRW][kRowChunks<Tout>];
-    if constexpr (kA) {
-      // the tile's code halo, once every warp is done with the slot's last
-      if (i >= s.code_slots) mbar_wait(empty_code + slot, (i / s.code_slots - 1) & 1);
-      if (s.raw_slots) {
-        const int rs = i % s.raw_slots;
-        mbar_wait(full_raw + rs, (i / s.raw_slots) & 1);
-        quantize_halo<T>(halo, s8_smem + s.off_raw + rs * s.raw_bytes, x, s, t, k.s_in, k.r_in);
-        __syncwarp();
-        if (lane == 0) mbar_arrive(empty_raw + rs);  // this warp is done with the raw slot
-      } else {
-        quantize_halo<T>(halo, nullptr, x, s, t, k.s_in, k.r_in);
-      }
-      mbar_arrive(full_code + slot);
-    } else {
+    if constexpr (!kA) {
       if (s.vec_out && res != nullptr)
 #pragma unroll
         for (int r = 0; r < kRW; ++r) load_residual<T>(rv[r], res, s, t, row0 + r, lane);
     }
-    mbar_wait(full_code + slot, (i / s.code_slots) & 1);
+    // slot use i: codes cb .. cb + kw of the tile's halo (conv_a quantizes
+    // them into the slot first, once every warp is done with its last use)
+    const auto take = [&](int cb, int kw) -> const int8_t* {
+      const int slot = i % s.code_slots;
+      int8_t* const halo = s8_smem + s.off_code + slot * s.code_bytes;
+      if constexpr (kA) {
+        if (i >= s.code_slots) mbar_wait(empty_code + slot, (i / s.code_slots - 1) & 1);
+        if (s.raw_slots) {
+          const int rs = i % s.raw_slots;
+          mbar_wait(full_raw + rs, (i / s.raw_slots) & 1);
+          quantize_halo<T>(halo, s8_smem + s.off_raw + rs * s.raw_bytes, x, s, t, cb, kw,
+                           k.s_in, k.r_in);
+          __syncwarp();
+          if (lane == 0) mbar_arrive(empty_raw + rs);  // this warp is done with the raw slot
+        } else {
+          quantize_halo<T>(halo, nullptr, x, s, t, cb, kw, k.s_in, k.r_in);
+        }
+        mbar_arrive(full_code + slot);
+      }
+      mbar_wait(full_code + slot, (i / s.code_slots) & 1);
+      return halo;
+    };
+    const auto give_back = [&]() {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty_code + i % s.code_slots);  // this warp is done with it
+      ++i;
+    };
+    // the one-halo plan takes the tile's halo once for all passes; a chunked
+    // one takes each pass's chunks in turn, its sums kept across them
+    const int8_t* halo = s.chunks == 1 ? take(0, s.kp) : nullptr;
     for (int f0 = 0; f0 < s.np; f0 += kBN) {
       const int nb = s.np - f0 < kBN ? s.np - f0 : kBN;
       int acc[kRW][kBN / 8][4];
@@ -774,15 +800,18 @@ __global__ void __launch_bounds__(kThreads)
         for (int j = 0; j < kBN / 8; ++j)
 #pragma unroll
           for (int e = 0; e < 4; ++e) acc[r][j][e] = 0;
-      if (s.resident)
-        products_mma<true>(acc, halo + a_lane, s.code_stride, wsm + f0 / 8 * 256, w_step,
-                           s.kp / kKC, nb, lane);
-      else
-        products_mma<false>(acc, halo + a_lane, s.code_stride, w + f0 / 8 * 256, w_step,
-                            s.kp / kKC, nb, lane);
-      if (f0 + kBN >= s.np) {
-        __syncwarp();
-        if (lane == 0) mbar_arrive(empty_code + slot);  // this warp is done with the slot
+      for (int ch = 0; ch < s.chunks; ++ch) {
+        const int cb = ch * s.kc;
+        const int kw = s.kp - cb < s.kc ? s.kp - cb : s.kc;
+        if (s.chunks > 1) halo = take(cb, kw);
+        const long long w_off = (long long)(cb / kKC) * w_step + f0 / 8 * 256;
+        if (s.resident)
+          products_mma<true>(acc, halo + a_lane, s.code_stride, wsm + w_off, w_step,
+                             s.kp / kKC, kw / kKC, nb, lane);
+        else
+          products_mma<false>(acc, halo + a_lane, s.code_stride, w + w_off, w_step,
+                              s.kp / kKC, kw / kKC, nb, lane);
+        if (s.chunks > 1 || f0 + kBN >= s.np) give_back();
       }
 #pragma unroll
       for (int r = 0; r < kRW; ++r)
@@ -818,13 +847,38 @@ float reciprocal(float s) {
   return std::isnormal(s) && std::isnormal(r) ? r : std::numeric_limits<float>::quiet_NaN();
 }
 
+// The offsets of a plan with the weights resident or not and raw and code
+// slots of the rings (code slots of s.kc codes a pixel); whether it fits in
+// a block's shared memory.
+bool lay_out(S8Shape& s, bool a, int resident, int raw, int code) {
+  s.code_stride = s.kc + 16;
+  s.code_bytes = round_up(kHaloPix * s.code_stride, 128);
+  s.resident = resident;
+  s.raw_slots = raw;
+  s.code_slots = code;
+  s.off_w = kBarBytes;
+  s.off_scale = s.off_w + (resident ? 9 * s.kp * s.np : 0);
+  s.off_bias = s.off_scale + 4 * s.np;
+  s.off_raw = round_up(s.off_bias + 4 * s.np, 128);
+  s.off_code = s.off_raw + raw * s.raw_bytes;
+  s.off_out = s.off_code + code * s.code_bytes;
+  s.smem_bytes = s.off_out + kTH * kTW * s.out_stride;
+  return s.smem_bytes <= kSmemLimit;
+}
+
 // The shape and shared-memory plan of a launch: the most that fits in a
 // block's shared memory, the weights resident first, then the most slots of
-// each ring (conv_a with no raw slot: its consumers read x). 0, or the error
-// to refuse it.
+// each ring (conv_a with no raw slot: its consumers read x). Where not even
+// one halo of Kp codes fits (C past 480 for conv_b in f32, ~670 for conv_a),
+// the halo comes in chunks of Kc codes, Kc the largest multiple of 32 that
+// leaves two code slots (else one): copied by the producer warp (conv_b) or
+// read from x by the consumers (conv_a), no TMA. 0, or the error to refuse
+// it.
 int plan(S8Shape& s, bool a, int tin_size, int tout_size, int stream_size, const void* x,
          const void* y, const void* res) {
   s.kp = round_up(s.c, kKC);
+  s.kc = s.kp;
+  s.chunks = 1;
   s.np = round_up(s.f, kNPad);
   s.h_tiles = (s.h_img + kTH - 1) / kTH;
   s.w_tiles = (s.w_img + kTW - 1) / kTW;
@@ -832,7 +886,6 @@ int plan(S8Shape& s, bool a, int tin_size, int tout_size, int stream_size, const
   s.raw_stride = round_up(s.c * tin_size, 16);
   s.code_stride = s.kp + 16;
   s.raw_bytes = a ? round_up(kHaloPix * s.raw_stride, 128) : 0;
-  s.code_bytes = round_up(kHaloPix * s.code_stride, 128);
   s.out_stride = (s.np < kBN ? s.np : kBN) * (a ? 1 : stream_size) + 16;
   // the TMA's box: conv_a's C values (the raw slot's pixel stride), conv_b's
   // code_stride codes (past C: zeros outside the tensor)
@@ -844,26 +897,22 @@ int plan(S8Shape& s, bool a, int tin_size, int tout_size, int stream_size, const
   s.vec_out = a ? s.f % 16 == 0 && aligned16(y)
                 : s.np <= kBN && (s.f * tout_size) % 16 == 0 && aligned16(y) &&
                       (res == nullptr || aligned16(res));
-  const int w_bytes = 9 * s.kp * s.np;
   const int raw_max = a && s.tma ? kRawSlots : 0;
   for (int resident = kResident ? 1 : 0; resident >= 0; --resident)
     for (int raw = raw_max; raw >= 0; --raw)
-      for (int code = kCodeSlots; code >= 1; --code) {
-        s.resident = resident;
-        s.raw_slots = raw;
-        s.code_slots = code;
-        s.off_w = kBarBytes;
-        s.off_scale = s.off_w + (resident ? w_bytes : 0);
-        s.off_bias = s.off_scale + 4 * s.np;
-        s.off_raw = round_up(s.off_bias + 4 * s.np, 128);
-        s.off_code = s.off_raw + raw * s.raw_bytes;
-        s.off_out = s.off_code + code * s.code_bytes;
-        s.smem_bytes = s.off_out + kTH * kTW * s.out_stride;
-        if (s.smem_bytes <= kSmemLimit) {
+      for (int code = kCodeSlots; code >= 1; --code)
+        if (lay_out(s, a, resident, raw, code)) {
           if (a) s.tma = raw > 0;
           return cudaSuccess;
         }
-      }
+  s.tma = 0;
+  for (int resident = kResident ? 1 : 0; resident >= 0; --resident)
+    for (int code = 2; code >= 1; --code)
+      for (s.kc = s.kp - kKC; s.kc >= kKC; s.kc -= kKC)
+        if (lay_out(s, a, resident, 0, code)) {
+          s.chunks = (s.kp + s.kc - 1) / s.kc;
+          return cudaSuccess;
+        }
   return cudaErrorInvalidValue;
 }
 
@@ -990,9 +1039,9 @@ int conv_b(const void* x, const void* w, const void* scale, const void* bias, co
 // and does not synchronise; the return value is cudaGetLastError() right
 // after it (0 = launched; cudaErrorInvalidValue / cudaErrorMisalignedAddress
 // with nothing launched for an empty shape, an unknown act, a shape whose
-// smallest plan exceeds shared memory (one code halo and the staging rows
-// past 227 KB: C past 480 for conv_b in f32, ~670 for conv_a) or a
-// misaligned w).
+// smallest plan exceeds shared memory (a 32-code chunk of the halo and the
+// staging rows past 227 KB: F's staging rows alone, far past any model) or
+// a misaligned w). Any C is taken: past what one code halo holds, in chunks.
 //
 // conv_a: x (n, h, w, c) hin in T, y (n, h, w, f) int8 codes of the
 // requantized act(conv + bias); act 0 none, 1 relu.

@@ -532,6 +532,201 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   }
 }
 
+// d += a x b on one m16n8k16 bf16 product, f32 sums. Fragments (g = lane /
+// 4, t = lane % 4), each register two bf16 of consecutive k, the lower k in
+// the low half: a[0] A(g, 2t), a[1] A(g + 8, 2t), a[2] A(g, 2t + 8), a[3]
+// A(g + 8, 2t + 8); b0 B(2t, g), b1 B(2t + 8, g); d as mma_tf32's
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+#ifdef __CUDA_ARCH__
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+#elif !defined(__CUDACC__)
+  emu_mma_m16n8k16(d, a, b0, b1);
+#endif
+}
+
+// two bf16 (their bit patterns), lo in the low half
+__device__ __forceinline__ unsigned pack_bf16x2(unsigned short lo, unsigned short hi) {
+  return (unsigned)lo | ((unsigned)hi << 16);
+}
+
+// bf16 tensor-core entry: the f32 entry's tiles, blocks and splits, with x's
+// halo and the g tile staged as bf16 (16-byte cp.async of 8 values) and one
+// m16n8k16 bf16 product where the f32 entry runs three tf32 ones
+constexpr int kBfLd = 72;  // pixel stride of halo and g tile, bf16 values: 36 words
+constexpr int kBfStage = (kTcHaloPix + kTcPix) * kBfLd;  // values a stage
+constexpr int kBfSmem = 2 * kBfStage * 2;                // 88,704 bytes
+static_assert(kTcTW == 16, "a k16 step is one tile row");
+static_assert(kTcDbRuns * kTcBN * 4 <= kBfStage * 2, "db scratch");
+
+// x's halo as wg's copy_x_halo, in bf16: 8 channels a 16-byte copy
+template <int TH, int TW, int kThreads>
+__device__ __forceinline__ void copy_x_halo_bf16(unsigned short* halo, int ld,
+                                                 const unsigned short* __restrict__ x,
+                                                 const WgShape& s, WgTile t, int c0, int kc) {
+  constexpr int kW = TW + 2;
+  const unsigned short* x_img = x + t.img * s.h_img * s.w_img * s.c;
+  const int groups = kc / 8;
+  for (int e = threadIdx.x; e < (TH + 2) * kW * groups; e += kThreads) {
+    const int p = e / groups;
+    const int q = e - p * groups;
+    const int hh = t.h0 - 1 + p / kW;
+    const int ww = t.w0 - 1 + p % kW;
+    const bool inside = hh >= 0 && hh < s.h_img && ww >= 0 && ww < s.w_img;
+    const unsigned short* src =
+        inside ? x_img + ((long long)hh * s.w_img + ww) * s.c + c0 + 8 * q : x;
+    cp_async<16>(halo + p * ld + 8 * q, src, !inside);
+  }
+}
+
+// As wgrad_tc_kernel, on bf16 x and g (their bit patterns): block (f tile,
+// channel chunk) = blockIdx.x, split blockIdx.z; a k-step is the 16 pixels
+// of one tile row; f32 sums, db from the staged g values in f32.
+__global__ void __launch_bounds__(kTcThreads, 1)
+    wgrad_tc_bf16_kernel(const unsigned short* __restrict__ x,
+                         const unsigned short* __restrict__ g, float* __restrict__ ws,
+                         WgShape s, int chunk) {
+  extern __shared__ __align__(128) float4 wg_bf_smem[];
+  unsigned short* const smem = reinterpret_cast<unsigned short*>(wg_bf_smem);
+  const int f_tiles = (s.f + kTcBN - 1) / kTcBN;
+  const int f0 = (int)(blockIdx.x % f_tiles) * kTcBN;
+  const int c0 = (int)(blockIdx.x / f_tiles) * kTcKC;
+  const int kc = s.c - c0 < kTcKC ? s.c - c0 : kTcKC;
+  const int live = s.f - f0 < kTcBN ? s.f - f0 : kTcBN;  // a multiple of 8
+  const int nt = live / 8;
+  const long long n_tiles = (long long)s.n * s.h_tiles * s.w_tiles;
+  const long long t_begin = (long long)blockIdx.z * chunk;
+  const long long t_end = n_tiles < t_begin + chunk ? n_tiles : t_begin + chunk;
+  const int rows = 9 * s.c + 1;
+
+  const auto copy_tile = [&](long long tile, int stage) {
+    unsigned short* const halo = smem + stage * kBfStage;
+    unsigned short* const gt = halo + kTcHaloPix * kBfLd;
+    const WgTile t = wg_tile<kTcTH, kTcTW>(s, tile);
+    copy_x_halo_bf16<kTcTH, kTcTW, kTcThreads>(halo, kBfLd, x, s, t, c0, kc);
+    const unsigned short* g_img = g + t.img * s.h_img * s.w_img * s.f;
+    const int groups = live / 8;
+    for (int e = threadIdx.x; e < kTcPix * groups; e += kTcThreads) {
+      const int p = e / groups;
+      const int q = e - p * groups;
+      const int hh = t.h0 + p / kTcTW;
+      const int ww = t.w0 + p % kTcTW;
+      const bool inside = hh < s.h_img && ww < s.w_img;
+      const unsigned short* src =
+          inside ? g_img + ((long long)hh * s.w_img + ww) * s.f + f0 + 8 * q : g;
+      cp_async<16>(gt + p * kBfLd + 8 * q, src, !inside);
+    }
+  };
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int gq = lane / 4;
+  const int tq = lane % 4;
+  // the warp's m16 tiles as in wgrad_tc_kernel; a_off is the lane's a[0]
+  // element (channel cc + g, pixel 2t) relative to the k-step's first halo
+  // pixel
+  const int cq = kc / 16;
+  const int m_tiles = 9 * cq;
+  bool m_live[kTcMW];
+  int a_off[kTcMW], row_of[kTcMW];
+#pragma unroll
+  for (int i = 0; i < kTcMW; ++i) {
+    const int mt = warp * kTcMW + i;
+    m_live[i] = mt < m_tiles;
+    const int tap = m_live[i] ? mt / cq : 0;
+    const int cc = 16 * (mt - tap * cq);
+    a_off[i] = ((tap / 3) * kTcHW + tap % 3 + 2 * tq) * kBfLd + cc + gq;
+    row_of[i] = tap * s.c + c0 + cc + gq;
+  }
+  const int b_off = 2 * tq * kBfLd + gq;
+  const int db_col = threadIdx.x % kTcBN;
+  const int db_run = threadIdx.x / kTcBN;
+  float db_acc = 0.f;
+
+  float acc[kTcMW][kTcNT][4];
+#pragma unroll
+  for (int i = 0; i < kTcMW; ++i)
+#pragma unroll
+    for (int j = 0; j < kTcNT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+  copy_tile(t_begin, 0);
+  __pipeline_commit();
+  for (long long tile = t_begin; tile < t_end; ++tile) {
+    const int stage = (int)((tile - t_begin) % 2);
+    if (tile + 1 < t_end) {
+      copy_tile(tile + 1, stage ^ 1);
+      __pipeline_commit();
+      __pipeline_wait_prior(1);
+    } else {
+      __pipeline_wait_prior(0);
+    }
+    __syncthreads();  // this tile's halo and g have landed for every thread
+    const unsigned short* const halo = smem + stage * kBfStage;
+    const unsigned short* const gt = halo + kTcHaloPix * kBfLd;
+    if (c0 == 0 && db_col < live)
+      for (int p = db_run; p < kTcPix; p += kTcDbRuns)
+        db_acc += __uint_as_float((unsigned)gt[p * kBfLd + db_col] << 16);
+#pragma unroll 2
+    for (int py = 0; py < kTcTH; ++py) {
+      // k-step: the 16 pixels of tile row py
+      const unsigned short* const hb = halo + py * kTcHW * kBfLd;
+      const unsigned short* const gb = gt + py * kTcTW * kBfLd + b_off;
+      unsigned a[kTcMW][4];
+#pragma unroll
+      for (int i = 0; i < kTcMW; ++i) {
+        if (!m_live[i]) continue;
+        const unsigned short* const ap = hb + a_off[i];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const unsigned short* const q = ap + (r / 2) * 8 * kBfLd + (r % 2) * 8;
+          a[i][r] = pack_bf16x2(q[0], q[kBfLd]);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kTcNT; ++j) {
+        if (j >= nt) continue;
+        const unsigned short* const bq = gb + 8 * j;
+        const unsigned b0 = pack_bf16x2(bq[0], bq[kBfLd]);
+        const unsigned b1 = pack_bf16x2(bq[8 * kBfLd], bq[9 * kBfLd]);
+#pragma unroll
+        for (int i = 0; i < kTcMW; ++i)
+          if (m_live[i]) mma_bf16(acc[i][j], a[i], b0, b1);
+      }
+    }
+    __syncthreads();  // every thread is done with this stage before it is refilled
+  }
+
+  float* const part = ws + (long long)blockIdx.z * rows * s.f;
+#pragma unroll
+  for (int i = 0; i < kTcMW; ++i) {
+    if (!m_live[i]) continue;
+#pragma unroll
+    for (int j = 0; j < kTcNT; ++j) {
+      if (j >= nt) continue;
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        *reinterpret_cast<float2*>(part + (long long)(row_of[i] + 8 * e) * s.f + f0 + 8 * j +
+                                   2 * tq) = make_float2(acc[i][j][2 * e], acc[i][j][2 * e + 1]);
+    }
+  }
+  if (c0 == 0) {
+    float* const scratch = reinterpret_cast<float*>(wg_bf_smem);
+    scratch[db_run * kTcBN + db_col] = db_acc;
+    __syncthreads();
+    if ((int)threadIdx.x < live) {
+      float sum = 0.f;
+      for (int r = 0; r < kTcDbRuns; ++r) sum += scratch[r * kTcBN + threadIdx.x];
+      part[(long long)(rows - 1) * s.f + f0 + threadIdx.x] = sum;
+    }
+  }
+}
+
 // narrow entry: 8 x 32 pixel tiles, 64 channels a block, F <= 4 outputs
 constexpr int kNwTH = 8;
 constexpr int kNwTW = 32;
@@ -713,6 +908,23 @@ int wgrad_tc(const void* x, const void* g, void* ws, void* out, int n, int h, in
   return reduce_splits(ws, out, s, splits, stream);
 }
 
+int wgrad_tc_bf16(const void* x, const void* g, void* ws, void* out, int n, int h,
+                  int w_img, int c, int f, int splits, int chunk, void* stream) {
+  WgShape s;
+  const int refused =
+      tiled_refusal<kTcTH, kTcTW>(x, g, ws, n, h, w_img, c, f, splits, chunk, &s);
+  if (refused) return refused;
+  if (f % 8) return (int)cudaErrorInvalidValue;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      wgrad_tc_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kBfSmem);
+  if (attr != cudaSuccess) return (int)attr;
+  const int blocks = ((f + kTcBN - 1) / kTcBN) * ((c + kTcKC - 1) / kTcKC);
+  wgrad_tc_bf16_kernel<<<dim3((unsigned)blocks, 1, (unsigned)splits), kTcThreads, kBfSmem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const unsigned short*>(x), static_cast<const unsigned short*>(g),
+      static_cast<float*>(ws), s, chunk);
+  return reduce_splits(ws, out, s, splits, stream);
+}
+
 template <int FP>
 int wgrad_narrow_launch(const void* x, const void* g, void* ws, const WgShape& s, int splits,
                         int chunk, void* stream) {
@@ -782,4 +994,14 @@ extern "C" int conv3x3_wgrad_f32_halo_narrow(const void* x, const void* g, void*
                                              int n, int h, int w_img, int c, int f, int splits,
                                              int chunk, void* stream) {
   return wgrad_halo_narrow(x, g, ws, out, n, h, w_img, c, f, splits, chunk, stream);
+}
+
+// The bf16 tensor-core entry: x and g bf16 (n, h, w, c) / (n, h, w, f),
+// contiguous, 16-byte aligned; the same pixel tiles, splits, workspace and
+// f32 output as conv3x3_wgrad_f32_tc, C % 16 == 0 and F % 8 == 0. Every
+// product of two bf16 values is exact in f32; the sums are f32.
+extern "C" int conv3x3_wgrad_bf16_tc(const void* x, const void* g, void* ws, void* out, int n,
+                                     int h, int w_img, int c, int f, int splits, int chunk,
+                                     void* stream) {
+  return wgrad_tc_bf16(x, g, ws, out, n, h, w_img, c, f, splits, chunk, stream);
 }

@@ -5,13 +5,16 @@ parse_args, prepare(scales), get_num_images, get_image_pair, and the
 patch methods that training uses (get_patch_batch, reseed_for_step).
 Registered here:
 
-  div2k_train_loader  DIV2K file scheme, patches for training
-  div2k_val_loader    DIV2K file scheme, cache always on
-  basic_loader        flat file scheme (`{name}.png` in both directories)
+  div2k_train_loader         DIV2K file scheme, patches for training
+  div2k_val_loader           DIV2K file scheme, cache always on
+  div2k_train_loader_queue   the train loader behind a pool of runner threads
+  combined_loader            the same, with the reference's combined sets
+  div2k_train_loader_tensor  the train loader with every image decoded by
+                             prepare(), its path flags under the reference's
+                             tensor-loader names too
+  basic_loader               flat file scheme (`{name}.png` in both directories)
 
-The threaded queue loaders (div2k_train_loader_queue, combined_loader)
-and div2k_train_loader_tensor are not ported yet (ROADMAP.md); the queue
-methods raise here. `--data_seed` seeds patch sampling (the JAX package's
+`--data_seed` seeds patch sampling (the JAX package's
 numpy stream, bit for bit); `--data_native` is accepted and ignored (the
 JAX package's native decoder and batcher, which the port does not have).
 """
@@ -264,6 +267,39 @@ class CombinedLoader(_QueueRunnerMixin, PairLoader):
     default_input_path = "data/Combined_LR"
     default_truth_path = "data/Combined_HR"
     default_num_runners = 6
+
+
+@register_loader("div2k_train_loader_tensor")
+class DIV2KTrainLoaderTensor(PairLoader):
+    """The eager whole-set loader (larvanet_tpu/data/loaders.py:287-321,
+    reference div2k_train_loader_tensor.py:42-68): prepare() decodes every
+    image into the uint8 cache, get_patch_batch returns NHWC float32 arrays,
+    and --train_input_path / --train_truth_path (the reference's names for
+    this loader) stand for --data_input_path / --data_truth_path."""
+
+    always_cached = True
+
+    def parse_args(self, args):
+        ns, remaining = super().parse_args(args)
+        alias = argparse.ArgumentParser()
+        alias.add_argument("--train_input_path", type=str, default=None)
+        alias.add_argument("--train_truth_path", type=str, default=None)
+        extra, remaining = parse_known(alias, remaining)
+        if extra.train_input_path:
+            ns.data_input_path = extra.train_input_path
+        if extra.train_truth_path:
+            ns.data_truth_path = extra.train_truth_path
+        return ns, remaining
+
+    def prepare(self, scales):
+        super().prepare(scales)
+        for s in self.dataset.scale_list:
+            for i in range(len(self.dataset)):
+                self.dataset.input_u8(s, i)
+                self.dataset.truth_u8(i)
+
+    def get_patch_batch(self, batch_size, scale, input_patch_size):
+        return self.dataset.patch_batch_nhwc(batch_size, scale, input_patch_size)
 
 
 @register_loader("basic_loader")

@@ -33,9 +33,21 @@ JAX package's jitted closures become plain calls of the module.
     `.pth` alone restarts the moments and leaves the average at the
     weights `prepare` built, as in the reference and JAX. Any other file
     is a flax msgpack checkpoint of the JAX package (`model_<step>.ckpt`),
-    read for evaluation by the port's own reader (`utils/flax_msgpack`):
-    its params, step, volume and EMA subtree. Orbax directories are
-    refused.
+    read by the port's own reader (`utils/flax_msgpack`): its params,
+    step and volume, and for evaluation its EMA subtree; when training,
+    its optax state too (`_load_jax_opt_state`: Adam's or AdamW's `mu`,
+    `nu` and `count` become torch's `exp_avg`, `exp_avg_sq` and `step`
+    per parameter, per leaf or in `--fused_opt`'s one flat vector; the
+    EMA node becomes `ParamEMA`'s average) and what a subclass adds
+    (`_load_jax_train_extras`: the plateau schedule), so the next step is
+    the one JAX takes from the same file. Orbax directories are refused.
+  * `--async_checkpoint` (`async_checkpoints` set): `save` snapshots the
+    files' tensors on the device and returns; a worker thread writes them
+    (utils/checkpoints.AsyncCheckpointWriter). `wait_for_checkpoints()`
+    blocks until they are on disk and raises the writer's errors.
+  * `--remat 1` (`remat_requested`): the train step's conv pairs run under
+    `torch.utils.checkpoint` (ops/pairs.remat_pair); refused with an
+    explicit --packed_trunk 0, as JAX refuses it.
   * `use_ema_params()` swaps the restored parameter average into the
     module (the eval CLIs' `--ema`): a `.ckpt`'s EMA subtree, or the
     `"ema"` of the `.state.pt` beside a `.pth`.
@@ -68,6 +80,7 @@ from torch import nn
 from larvanet_tpu_torch.eval.metrics import psnr_rgb_device
 from larvanet_tpu_torch.train.losses import l1_loss
 from larvanet_tpu_torch.utils import flax_msgpack
+from larvanet_tpu_torch.utils.checkpoints import AsyncCheckpointWriter, to_host
 from larvanet_tpu_torch.utils.torch_convert import (EXPORT_RULES, load_pth,
                                                     state_dict_from_jax_params)
 
@@ -90,6 +103,12 @@ def add_qat_flag(parser) -> None:
 def qat_requested(model) -> bool:
     """True when the model was configured with --qat 1 (base.py:87-90)."""
     return bool(getattr(getattr(model, "args", None), "qat", 0))
+
+
+def remat_requested(model) -> bool:
+    """True when the model was configured with --remat 1
+    (ops/packed/pairs.py:147-148)."""
+    return bool(getattr(getattr(model, "args", None), "remat", 0))
 
 
 def make_optimizer(kind: str, params) -> torch.optim.Optimizer:
@@ -163,6 +182,8 @@ class SRModel:
         # set before prepare, as the train CLI does
         self.ema_decay = 0.0
         self.grad_accum = 1
+        self.async_checkpoints = False
+        self._ckpt_writer: Optional[AsyncCheckpointWriter] = None
         self._rng = np.random.default_rng()
 
     # ---- plugin protocol -------------------------------------------------
@@ -199,6 +220,13 @@ class SRModel:
                 "--qat 1 requires --packed_trunk 1: QAT fake-quantizes the "
                 "packed conv pairs the int8 serving path runs "
                 "(ops/pairs.qat_pair)")
+        if is_training and remat_requested(self) and getattr(self.args, "packed_trunk",
+                                                             None) == 0:
+            # base.py:389-393
+            raise ValueError(
+                "--remat 1 requires --packed_trunk 1: rematerialization "
+                "wraps the packed conv pairs (ops/pairs.remat_pair); "
+                "the plain module graph would silently train without it")
         if is_training:
             params = list(self.module.parameters())
             self.optimizer = make_optimizer(self.optimizer_kind, params)
@@ -241,14 +269,29 @@ class SRModel:
         """Write `checkpoint_name()` (the module's bare state_dict, the
         reference's format) and, when training, its state file beside it
         (`state_path`: the step, `total_volume`, Adam's moments, the
-        average, and `_train_state`'s additions). Returns the .pth path."""
+        average, and `_train_state`'s additions). Returns the .pth path.
+        With `async_checkpoints` set the tensors are snapshotted on the
+        device and a worker thread writes the files
+        (`wait_for_checkpoints`)."""
         os.makedirs(base_path, exist_ok=True)
         path = os.path.join(base_path, self.checkpoint_name())
-        state = {k: v.detach().cpu() for k, v in self.module.state_dict().items()}
-        _save_atomic(state, path)
+        files = [({k: v.detach() for k, v in self.module.state_dict().items()}, path)]
         if self.optimizer is not None:
-            _save_atomic(self._train_state(), state_path(path))
+            files.append((self._train_state(), state_path(path)))
+        if self.async_checkpoints:
+            if self._ckpt_writer is None:
+                self._ckpt_writer = AsyncCheckpointWriter()
+            self._ckpt_writer.submit(files, _save_atomic)
+            return path
+        for obj, file in files:
+            _save_atomic(to_host(obj), file)
         return path
+
+    def wait_for_checkpoints(self) -> None:
+        """Block until every asynchronous save is on disk (a no-op for
+        synchronous ones); raises the writer's errors (base.py:765-771)."""
+        if self._ckpt_writer is not None:
+            self._ckpt_writer.wait()
 
     def _train_state(self) -> dict:
         """What a resume needs beyond the weights. JAX saves no
@@ -313,15 +356,11 @@ class SRModel:
     def _restore_msgpack(self, ckpt_path: str, strict: bool) -> None:
         """A JAX `.ckpt` (flax msgpack): `params` through the port's copy of
         the export rules into `load_state_dict`, `global_step`,
-        `total_volume`, and the EMA subtree (`ema_params`, or the {"ema": …}
-        node in `opt_state`) kept for `use_ema_params`."""
-        if self.optimizer is not None:
-            raise ValueError(
-                "%s is a msgpack checkpoint: resuming training from it needs optax's "
-                "Adam moments in torch's optimizer layout, which is not ported yet "
-                "(ROADMAP.md, queue 1 item 5); restore it for evaluation, or convert "
-                "it to .pth with the JAX package (larvanet_tpu.utils.torch_convert."
-                "save_pth) and resume from that" % (ckpt_path,))
+        `total_volume`; for evaluation the EMA subtree (`ema_params`, or
+        the {"ema": …} node in `opt_state`) kept for `use_ema_params`; when
+        training, the optimizer state and the average
+        (`_load_jax_opt_state`) and `_load_jax_train_extras`. JAX saves no
+        `temp_volume`: it restarts at 0, as in JAX."""
         if self.registry_name not in EXPORT_RULES:
             raise ValueError("no conversion rules for the parameters of model %r"
                              % (self.registry_name,))
@@ -332,9 +371,51 @@ class SRModel:
         self.load_state_dict(self._from_jax_tree(state["params"]), strict=strict)
         self.global_step = int(state.get("global_step", self.global_step))
         self.total_volume = float(state.get("total_volume", self.total_volume))
+        if self.optimizer is not None:
+            if "opt_state" not in state:
+                raise ValueError("%s holds no optimizer state to resume training from"
+                                 % (ckpt_path,))
+            self._load_jax_opt_state(state["opt_state"], state["params"], ckpt_path)
+            self.temp_volume = 0.0
+            self._load_jax_train_extras(state)
+            return
         ema = state.get("ema_params") or find_ema_in_state_dict(state.get("opt_state", {}))
         if ema is not None:
             self._restored_ema = self._from_jax_tree(ema)
+
+    def _load_jax_opt_state(self, opt_state, params_tree, ckpt_path: str) -> None:
+        """optax's serialized state -> the optimizer's and the average's
+        (base.py:619-670): the Adam node's `mu` and `nu` (parameter trees,
+        or `--fused_opt`'s flat vectors in ravel_pytree's order: dict keys
+        sorted, `_adapt_opt_layout`) through the export rules onto each
+        parameter, `count` as its `step`; the {"ema": tree} node into
+        `ParamEMA` (it must be there exactly when --ema_decay is set)."""
+        adam = _find_adam_node(opt_state)
+        if adam is None:
+            raise ValueError("%s: no Adam state (mu, nu, count) in its opt_state"
+                             % (ckpt_path,))
+        mu, nu = (_unravel_like(adam[k], params_tree) for k in ("mu", "nu"))
+        mu, nu = self._from_jax_tree(mu), self._from_jax_tree(nu)
+        step = float(np.asarray(adam["count"]))
+        names = [name for name, _ in self.module.named_parameters()]
+        opt = {"state": {}, "param_groups": self.optimizer.state_dict()["param_groups"]}
+        for i, name in enumerate(names):
+            opt["state"][i] = {"step": torch.tensor(step, dtype=torch.float32),
+                               "exp_avg": mu[name].to(self.device),
+                               "exp_avg_sq": nu[name].to(self.device)}
+        self.optimizer.load_state_dict(opt)
+        ema = find_ema_in_state_dict(opt_state)
+        if (ema is None) != (self.ema is None):
+            raise ValueError(
+                "%s was saved %s an EMA; --ema_decay must be consistent across a "
+                "resumed run" % (ckpt_path, "without" if ema is None else "with"))
+        if ema is not None:
+            average = self._from_jax_tree(ema)
+            self.ema.load([average[name].to(self.device) for name in names])
+
+    def _load_jax_train_extras(self, state: dict) -> None:
+        """What a subclass restores from a JAX checkpoint beyond the
+        optimizer (LarvaNet: the plateau schedule)."""
 
     def _from_jax_tree(self, tree) -> Dict[str, torch.Tensor]:
         """A JAX parameter tree as read from a checkpoint (numpy leaves, or
@@ -540,6 +621,46 @@ class SRModel:
         runs, through the exit the module takes by default."""
         out = self.fwd_runtime(self._input_to_device([input_chw]))
         return float(psnr_rgb_device(out, self._input_to_device([truth_chw])))
+
+
+def _find_adam_node(sd):
+    """The serialized ScaleByAdamState ({"count", "mu", "nu"}) inside an
+    optax state, or None."""
+    if isinstance(sd, dict):
+        if {"count", "mu", "nu"} <= set(sd.keys()):
+            return sd
+        for v in sd.values():
+            found = _find_adam_node(v)
+            if found is not None:
+                return found
+    return None
+
+
+def _unravel_like(node, params_tree):
+    """A moment as a parameter tree: itself when it is one, or
+    `--fused_opt`'s flat vector cut into the leaves of `params_tree` in
+    ravel_pytree's order (jax's tree order: dict keys sorted)."""
+    if isinstance(node, dict):
+        return node
+    flat = np.asarray(node.float().numpy() if isinstance(node, torch.Tensor) else node
+                      ).reshape(-1)
+    offset = 0
+
+    def cut(tree):
+        nonlocal offset
+        if isinstance(tree, dict):
+            return {k: cut(tree[k]) for k in sorted(tree)}
+        shape = tuple(tree.shape)
+        size = int(np.prod(shape))
+        leaf = flat[offset:offset + size].reshape(shape)
+        offset += size
+        return leaf
+
+    out = cut(params_tree)
+    if offset != flat.size:
+        raise ValueError("a flat optimizer moment of %d values for parameters of %d"
+                         % (flat.size, offset))
+    return out
 
 
 def find_ema_in_state_dict(sd):

@@ -17,8 +17,22 @@ through three exact reparametrisations of the module graph
 per-element gradients, the loss in another order of summation); the port
 parses them and trains the module graph, as JAX does with --packed_trunk 0.
 --qat 1 trains every ResBlock pair through ops/pairs.qat_pair (the int8
-serving scheme in fake-quant); --train_dtype and --remat are parsed here and
-refused by the train CLI at any value but f32 / 0.
+serving scheme in fake-quant); --remat 1 recomputes each ResBlock pair's
+activations in the backward (ops/pairs.remat_pair; refused with an explicit
+--packed_trunk 0, as in JAX).
+
+--train_dtype bf16 (models/edsr.py:99-113, :114-145) is JAX's mixed-precision
+step: the batch is cast to bf16 and the whole forward runs in bf16 (the
+MeanShifts, every conv on the kernels' bf16 entries, the residual adds, the
+shuffles), each conv's f32 master weight and bias cast to bf16 as it is used
+(layers.Conv3x3), so the weight gradients come back as bf16 (the bf16 wgrad
+entry's f32 sums rounded to bf16, as JAX's conv gradient is bf16) and then
+f32; the loss reduction (bf16 output against f32 targets), the master
+parameters, the gradients and Adam stay f32. With an explicit --packed_trunk
+0 JAX trains in f32 whatever --train_dtype says, and so does the port. JAX's
+default --collapsed_tail_train 1 runs the tail collapsed into one conv, exact
+in f32 but not in bf16; the port trains the plain tail, JAX's
+--collapsed_tail_train 0.
 """
 
 from __future__ import annotations
@@ -32,7 +46,7 @@ from torch import nn
 from larvanet_tpu_torch.core.config import parse_known
 from larvanet_tpu_torch.core.registry import register_model
 from larvanet_tpu_torch.models.base import (SRModel, StepDecayMixin, add_qat_flag,
-                                            qat_requested)
+                                            qat_requested, remat_requested)
 from larvanet_tpu_torch.train.losses import robust_sqrt_loss
 from larvanet_tpu_torch.models.layers import (Conv3x3, MeanShift, ResBlock,
                                               UpsampleBlock, exact_pair)
@@ -102,25 +116,39 @@ class EDSR(StepDecayMixin, SRModel):
                                  "gradient-equivalent); accepted and ignored.")
         add_qat_flag(parser)
         parser.add_argument("--remat", type=int, default=0,
-                            help="Rematerialised training trunk; not ported yet (see "
-                                 "ROADMAP.md), refused by the train CLI unless 0.")
+                            help="Recompute each ResBlock pair's activations in the "
+                                 "backward (torch.utils.checkpoint): a step's peak "
+                                 "memory holds one pair's, the same gradients.")
         parser.add_argument("--train_dtype", type=str, default="f32",
                             choices=["f32", "bf16"],
-                            help="Compute dtype of the training graph; only f32 is "
-                                 "ported (bf16 is refused by the train CLI).")
+                            help="Compute dtype of the training graph. bf16 = mixed "
+                                 "precision: convs/activations in bfloat16, loss "
+                                 "reduction, master params, grads, and optimizer in "
+                                 "f32.")
         self.args, remaining = parse_known(parser, args)
         return self.args, remaining
 
-    def _compute_loss(self, inputs: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
-        """The loss of the module's forward; under --qat 1 every ResBlock pair
-        runs `qat_pair` (make_packed_edsr_train_forward(qat=True),
-        ops/packed/edsr.py:145-157): the head, after_res_conv, the tail and
-        the residual stream stay exact."""
-        if not qat_requested(self):
-            return super()._compute_loss(inputs, targets)
-        from larvanet_tpu_torch.ops.pairs import qat_pair
+    def train_compute_dtype(self) -> torch.dtype:
+        """bf16 under --train_dtype bf16, unless --packed_trunk 0 asks for
+        the plain module graph, which JAX trains in f32 (_compute_loss,
+        edsr.py:114-145)."""
+        if (getattr(self.args, "train_dtype", "f32") == "bf16"
+                and getattr(self.args, "packed_trunk", None) != 0):
+            return torch.bfloat16
+        return torch.float32
 
-        return self.loss(self.module(inputs, qat_pair(torch.float32)), targets)
+    def _compute_loss(self, inputs: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+        """The loss of the module's forward in the train dtype; under --qat
+        1 every ResBlock pair runs `qat_pair` (make_packed_edsr_train_forward
+        (qat=True), ops/packed/edsr.py:145-157): the head, after_res_conv,
+        the tail and the residual stream stay exact; under --remat 1 every
+        ResBlock pair runs under `remat_pair`."""
+        from larvanet_tpu_torch.ops.pairs import training_pair
+
+        dtype = self.train_compute_dtype()
+        pair = training_pair(qat_requested(self), remat_requested(self), dtype)
+        # a bf16 output against f32 targets: the loss is reduced in f32
+        return self.loss(self.module(inputs.to(dtype), pair), targets)
 
     def build_module(self, generator: torch.Generator) -> nn.Module:
         return EDSRModule(features=self.args.edsr_conv_features,

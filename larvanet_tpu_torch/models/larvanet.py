@@ -49,7 +49,8 @@ from torch import nn
 
 from larvanet_tpu_torch.core.config import parse_known
 from larvanet_tpu_torch.core.registry import register_model
-from larvanet_tpu_torch.models.base import SRModel, add_qat_flag, qat_requested
+from larvanet_tpu_torch.models.base import (SRModel, add_qat_flag, qat_requested,
+                                            remat_requested)
 from larvanet_tpu_torch.models.layers import Conv3x3, ResBlock, exact_pair, interpolated_base
 from larvanet_tpu_torch.ops.pixel_shuffle import pixel_shuffle
 from larvanet_tpu_torch.train.losses import multi_exit_l1
@@ -239,8 +240,9 @@ class LarvaNetBase(SRModel):
     """Shared wrapper of the presets (models/larvanet.py:181-414): AdamW
     with the plateau learning rate. Every flag of the JAX parser parses;
     --packed_trunk and --lr_domain_loss are accepted and ignored (an explicit
-    --packed_trunk 0 with --qat 1 is refused, as in JAX), --qat 1 trains
-    through the fake-quant pairs, and the train CLIs refuse --remat 1. The family's exits are
+    --packed_trunk 0 with --qat 1 or --remat 1 is refused, as in JAX), --qat
+    1 trains through the fake-quant pairs and --remat 1 recomputes each pair
+    in the backward. The family's exits are
     PixelShuffle(4): --scales 2 or 3 are accepted and the output is x4 all
     the same, as in JAX."""
 
@@ -305,8 +307,9 @@ class LarvaNetBase(SRModel):
                                  "per-element gradients); accepted and ignored.")
         add_qat_flag(parser)
         parser.add_argument("--remat", type=int, default=0,
-                            help="Rematerialised training trunk; not ported yet (see "
-                                 "ROADMAP.md), refused by the train CLIs unless 0.")
+                            help="Recompute each conv pair's activations in the "
+                                 "backward (torch.utils.checkpoint): a step's peak "
+                                 "memory holds one pair's, the same gradients.")
         self.args, remaining = parse_known(parser, args)
         return self.args, remaining
 
@@ -343,12 +346,13 @@ class LarvaNetBase(SRModel):
         are asked for by name: LarvaLeg's module defaults to its --leg. Under
         --qat 1 every body and leg pair runs `qat_pair`, whatever its index,
         as JAX's all-exits walk does (ops/packed/larvanet.py:298-309); the
-        head, the V2 tail and the residual stream stay exact."""
-        if not qat_requested(self):
-            return multi_exit_l1(self.module.walk(inputs, "all"), targets)
-        from larvanet_tpu_torch.ops.pairs import qat_pair
+        head, the V2 tail and the residual stream stay exact. Under --remat
+        1 every body and leg pair recomputes its activations in the
+        backward (ops/pairs.remat_pair, as ops/packed/larvanet.py:179)."""
+        from larvanet_tpu_torch.ops.pairs import training_pair
 
-        return multi_exit_l1(self.module.walk(inputs, "all", qat_pair(torch.float32)), targets)
+        pair = training_pair(qat_requested(self), remat_requested(self))
+        return multi_exit_l1(self.module.walk(inputs, "all", pair), targets)
 
     # -- volume-driven training (reference train_larva.py, LarvaNet.py:98-161) --
 
@@ -411,6 +415,14 @@ class LarvaNetBase(SRModel):
         super()._load_train_state(state)
         if self.scheduler is not None and "scheduler" in state:
             self.scheduler.load_state_dict(state["scheduler"])
+
+    def _load_jax_train_extras(self, state: dict) -> None:
+        """The plateau schedule of a JAX checkpoint (larvanet.py:399-402),
+        its numpy scalars as Python numbers."""
+        if self.scheduler is not None and "scheduler" in state:
+            self.scheduler.load_state_dict(
+                {k: v.item() if hasattr(v, "item") else v
+                 for k, v in state["scheduler"].items()})
 
 
 class _V2Mixin:

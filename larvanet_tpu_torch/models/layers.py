@@ -46,7 +46,8 @@ class MeanShift(nn.Module):
         self.register_buffer("bias", sign * torch.tensor(DIV2K_RGB_MEAN))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x @ self.weight.reshape(3, 3).t() + self.bias
+        # in x's dtype: a bf16 train step shifts in bf16, as JAX's does
+        return x @ self.weight.reshape(3, 3).t().to(x.dtype) + self.bias.to(x.dtype)
 
 
 class Conv3x3(nn.Module):
@@ -55,7 +56,11 @@ class Conv3x3(nn.Module):
     Conv2d; hands the kernel the HWIO view. `init_scale` None draws torch's
     Conv2d default; a float s draws `kaiming_normal_scaled(s)`. Under
     no_grad, or when neither x nor a parameter requires grad (serving),
-    the direct call; else the differentiable `Conv3x3Train`."""
+    the direct call; else the differentiable `Conv3x3Train`. A weight of
+    another dtype than x is cast to x's first, and so is the bias
+    (`--train_dtype bf16`: the f32 master weights of a bf16 step, as JAX's
+    `jnp.asarray(p, bf16)`; the cast's backward takes the bf16 gradient
+    back to f32)."""
 
     def __init__(self, in_features: int, out_features: int,
                  act: Optional[str] = None,
@@ -77,11 +82,13 @@ class Conv3x3(nn.Module):
         self.bias = nn.Parameter(bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        kernel = self.weight.permute(2, 3, 1, 0)
+        kernel, bias = self.weight.permute(2, 3, 1, 0), self.bias
+        if kernel.dtype != x.dtype:
+            kernel, bias = kernel.to(x.dtype), bias.to(x.dtype)
         if torch.is_grad_enabled() and (x.requires_grad or self.weight.requires_grad
                                         or self.bias.requires_grad):
-            return Conv3x3Train.apply(x, kernel, self.bias, self.act)
-        return conv3x3_bias_act(x, kernel, self.bias, self.act)
+            return Conv3x3Train.apply(x, kernel, bias, self.act)
+        return conv3x3_bias_act(x, kernel, bias, self.act)
 
 
 class ResBlock(nn.Module):

@@ -264,13 +264,15 @@ class Conv3x3Train(torch.autograd.Function):
     """`conv3x3_bias_act` with a backward: dgrad on the same conv kernel,
     the weight and bias gradient on conv3x3_wgrad's. Inputs x NHWC, the
     HWIO kernel (any strides), the bias, act; the gradients come back in
-    their layouts. dgrad is skipped where x needs no gradient (first_conv,
-    whose input is the mean-shifted batch)."""
+    their layouts and dtypes (a bf16 step's: the f32 weight gradient
+    rounded to bf16). dgrad is skipped where x needs no gradient
+    (first_conv, whose input is the mean-shifted batch)."""
 
     @staticmethod
     def forward(ctx, x, kernel, bias, act):
         out = conv3x3_bias_act(x, kernel, bias, act)
         ctx.act = act
+        ctx.bias_dtype = bias.dtype
         ctx.save_for_backward(x, kernel, out)
         return out
 
@@ -290,5 +292,8 @@ class Conv3x3Train(torch.autograd.Function):
             zero = torch.zeros(kernel.shape[2], dtype=torch.float32, device=g.device)
             grad_x = conv3x3_bias_act(g, dgrad_kernel(kernel), zero, None, dgrad=True)
         if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
+            # f32 sums, then the dtype of the kernel and bias (bf16 in a
+            # bf16 step, where JAX's conv gradients are bf16 too)
             grad_k, grad_b = wgrad.conv3x3_wgrad(x, g)
+            grad_k, grad_b = grad_k.to(kernel.dtype), grad_b.to(ctx.bias_dtype)
         return grad_x, grad_k, grad_b, None

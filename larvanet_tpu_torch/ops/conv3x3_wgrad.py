@@ -2,7 +2,7 @@
 kernel and its plain PyTorch version.
 
 For x NHWC (N, H, W, C) and g (N, H, W, F), the gradient of the conv's
-output before its bias, both f32:
+output before its bias, both f32 or both bf16 (the sums and the result f32):
 
     dW[ky, kx, c, f] = sum over n, h, w of x_pad[n, h + ky, w + kx, c] * g[n, h, w, f]
     db[f]            = sum over n, h, w of g[n, h, w, f]
@@ -23,6 +23,15 @@ pixel tile), "narrow" (C % 16 == 0, F <= 4, final_conv: the same staging,
 CUDA-core FMAs) and "cuda_core" (everything else, first_conv's 3 -> 64: the
 first design's entries, 64 x 64 tiles or 256 x 4 for F <= 4). `LAUNCHES`
 and `LAUNCHES_BY_PATH` count the wrapper's calls that launched it.
+
+bf16 (`--train_dtype bf16`): on the tensor-core path the entry
+`conv3x3_wgrad_bf16_tc` reads bf16 x and g into the same halo tiles and runs
+one mma.sync m16n8k16 bf16 product with f32 sums where the f32 entry runs
+three TF32 ones, with the same splits and second pass. The narrow and
+CUDA-core paths cast x and g to f32 here and launch their f32 entries: a
+product of two bf16 values is exact in f32, so that computes the same
+function. `BF16_LAUNCHES_BY_PATH` counts the bf16 calls of each path. The
+plain version takes either dtype (its products in f32).
 """
 
 from __future__ import annotations
@@ -39,14 +48,15 @@ from larvanet_tpu_torch.ops import build
 SOURCE = "conv3x3_wgrad.cu"
 # entry points: the paths' own, and the CUDA-core path's 256 x 4 tile for F <= 4
 _ENTRY = {"tensor_core": "conv3x3_wgrad_f32_tc", "narrow": "conv3x3_wgrad_f32_halo_narrow",
-          "cuda_core": "conv3x3_wgrad_f32", "cuda_core_narrow": "conv3x3_wgrad_f32_narrow"}
+          "cuda_core": "conv3x3_wgrad_f32", "cuda_core_narrow": "conv3x3_wgrad_f32_narrow",
+          "tensor_core_bf16": "conv3x3_wgrad_bf16_tc"}
 # the CUDA-core entries' output tiles (rows of 9 C + 1 by output channels)
 # and the pixels a block takes per step, as in the source
 _TILE = {"cuda_core": (64, 64), "cuda_core_narrow": (256, 4)}
 _BK = 16
 # the tiled entries' pixel tiles (H x W) and the channels and outputs a
 # block takes (None: all F, which is <= 4), as in the source
-PIXEL_TILE = {"tensor_core": (8, 16), "narrow": (8, 32)}
+PIXEL_TILE = {"tensor_core": (8, 16), "narrow": (8, 32), "tensor_core_bf16": (8, 16)}
 _BLOCK_CF = {"tensor_core": (64, 64), "narrow": (64, None)}
 # the most pixel tiles a tensor-core split sums: the tensor cores' f32 sums
 # round toward zero, so the error grows with a split's length (H100 SXM,
@@ -61,13 +71,15 @@ MIN_CHUNK = 256
 
 LAUNCHES = 0
 LAUNCHES_BY_PATH: Dict[str, int] = {"tensor_core": 0, "narrow": 0, "cuda_core": 0}
+BF16_LAUNCHES_BY_PATH: Dict[str, int] = {"tensor_core": 0, "narrow": 0, "cuda_core": 0}
 
 
 def reset_launches() -> None:
     global LAUNCHES
     LAUNCHES = 0
-    for path in LAUNCHES_BY_PATH:
-        LAUNCHES_BY_PATH[path] = 0
+    for counts in (LAUNCHES_BY_PATH, BF16_LAUNCHES_BY_PATH):
+        for path in counts:
+            counts[path] = 0
 
 
 def path_for(c: int, f: int) -> str:
@@ -79,8 +91,11 @@ def path_for(c: int, f: int) -> str:
     return "cuda_core"
 
 
-def entry_for(path: str, f: int) -> str:
-    """The `_ENTRY` key that `path` launches for F outputs."""
+def entry_for(path: str, f: int, dtype: torch.dtype = torch.float32) -> str:
+    """The `_ENTRY` key that `path` launches for F outputs in `dtype` (bf16
+    has an entry of its own on the tensor cores only)."""
+    if path == "tensor_core" and dtype == torch.bfloat16:
+        return "tensor_core_bf16"
     return "cuda_core_narrow" if path == "cuda_core" and f <= 4 else path
 
 
@@ -109,11 +124,11 @@ def tile_splits(path: str, n: int, h: int, w: int, c: int, f: int,
     blocks of all splits, one for each channel chunk and output tile, fill
     `sms` SMs once, with no tensor-core split longer than MAX_TC_CHUNK."""
     th, tw = PIXEL_TILE[path]
-    bc, bf = _BLOCK_CF[path]
+    bc, bf = _BLOCK_CF["tensor_core" if path == "tensor_core_bf16" else path]
     tiles = n * _cdiv(h, th) * _cdiv(w, tw)
     blocks = _cdiv(c, bc) * (1 if bf is None else _cdiv(f, bf))
     chunk = _cdiv(tiles, max(1, min(tiles, sms // blocks)))
-    if path == "tensor_core":
+    if path in ("tensor_core", "tensor_core_bf16"):
         chunk = min(chunk, MAX_TC_CHUNK)
     return _cdiv(tiles, chunk), chunk
 
@@ -121,7 +136,8 @@ def tile_splits(path: str, n: int, h: int, w: int, c: int, f: int,
 def conv3x3_wgrad_reference(x: torch.Tensor, g: torch.Tensor
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The plain version: nine (C, M) x (M, F) products over the shifted
-    taps of x with its SAME halo, and g summed over the pixels, in f32."""
+    taps of x with its SAME halo, and g summed over the pixels, in f32
+    (bf16 x and g are widened to f32 first, which is exact)."""
     n, h, w, c = x.shape
     f = g.shape[-1]
     xp = F.pad(x.float(), (0, 0, 1, 1, 1, 1))
@@ -168,16 +184,19 @@ def _run(fn, x: torch.Tensor, g: torch.Tensor, splits: int, chunk: int,
 
 def conv3x3_wgrad(x: torch.Tensor, g: torch.Tensor,
                   path: Optional[str] = None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(dW HWIO (3, 3, C, F), db (F,)) of a SAME 3x3 conv. CUDA tensors:
-    the hand-written kernel on `path` (default `path_for(C, F)`; "cuda_core"
-    runs the first design's entries at any shape, to time them beside the
-    others); CPU tensors: the plain version."""
+    """(dW HWIO (3, 3, C, F), db (F,)), both f32, of a SAME 3x3 conv of f32
+    or bf16 x and g. CUDA tensors: the hand-written kernel on `path`
+    (default `path_for(C, F)`; "cuda_core" runs the first design's entries
+    at any shape, to time them beside the others); bf16 takes
+    `conv3x3_wgrad_bf16_tc` on the tensor cores and the f32 entries of the
+    other paths on x and g widened to f32. CPU tensors: the plain version."""
     if x.device.type == "cpu":
         return conv3x3_wgrad_reference(x, g)
     if x.device.type != "cuda":
         raise ValueError("conv3x3_wgrad runs on CUDA or the CPU, not %s" % (x.device,))
-    if x.dtype != torch.float32 or g.dtype != torch.float32:
-        raise TypeError("conv3x3_wgrad takes float32, got %s and %s" % (x.dtype, g.dtype))
+    if x.dtype != g.dtype or x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError("conv3x3_wgrad takes float32 or bfloat16 x and g of one dtype, "
+                        "got %s and %s" % (x.dtype, g.dtype))
     if x.dim() != 4 or g.dim() != 4 or x.shape[:3] != g.shape[:3]:
         raise ValueError("x and g must be NHWC with the same N, H, W, got %s and %s"
                          % (tuple(x.shape), tuple(g.shape)))
@@ -191,13 +210,18 @@ def conv3x3_wgrad(x: torch.Tensor, g: torch.Tensor,
     if m == 0 or c == 0 or f == 0:
         raise ValueError("empty conv: x %s, F %d" % (tuple(x.shape), f))
     path = path or path_for(c, f)
+    bf16 = x.dtype == torch.bfloat16
+    entry = entry_for(path, f, x.dtype)
+    if bf16 and entry != "tensor_core_bf16":
+        x, g = x.float(), g.float()
     with torch.cuda.device(x.device):
         sms = _sm_count(torch.cuda.current_device())
         splits, chunk = (splits_for(n * h * w, c, f, sms) if path == "cuda_core"
                          else tile_splits(path, n, h, w, c, f, sms))
-        out = _run(_entry(entry_for(path, f)), x, g, splits, chunk,
-                   torch.cuda.current_stream().cuda_stream)
+        out = _run(_entry(entry), x, g, splits, chunk, torch.cuda.current_stream().cuda_stream)
     global LAUNCHES
     LAUNCHES += 1
     LAUNCHES_BY_PATH[path] += 1
+    if bf16:
+        BF16_LAUNCHES_BY_PATH[path] += 1
     return out

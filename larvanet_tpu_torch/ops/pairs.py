@@ -23,6 +23,13 @@ packed grid1 mask is the SAME conv's zero padding.
     rounding for training (`--qat 1`): per-batch activation scales with
     +1e-12 and weight scales from the live weights, both detached, on the
     conv3x3 kernels' autograd Function.
+  * `remat_pair(pair)` (`--remat 1`): the pair under
+    `torch.utils.checkpoint` (non-reentrant): the backward recomputes the
+    pair's activations instead of keeping them, so a step's peak memory
+    holds one pair's, not the trunk's. The recomputed forward runs the same
+    kernels on the same inputs, so the gradients are those of the plain
+    pair bit for bit. `training_pair` picks a train step's pair as JAX's
+    `_training_pair` does.
 """
 
 from __future__ import annotations
@@ -228,9 +235,34 @@ def qat_pair(dtype: torch.dtype = torch.float32) -> Callable:
         sa = ka.detach().abs().amax(dim=(0, 1, 2)) / 127.0 + 1e-12
         sb = kb.detach().abs().amax(dim=(0, 1, 2)) / 127.0 + 1e-12
         x = fake_quant(hin.float(), _act_scale(hin)).to(dtype)
-        t = _conv(x, fake_quant(ka, sa).to(dtype), conv1.bias, conv1.act)
+        t = _conv(x, fake_quant(ka, sa).to(dtype), conv1.bias.to(dtype), conv1.act)
         t = fake_quant(t.float(), _act_scale(t)).to(dtype)
-        t = _conv(t, fake_quant(kb, sb).to(dtype), conv2.bias, conv2.act)
+        t = _conv(t, fake_quant(kb, sb).to(dtype), conv2.bias.to(dtype), conv2.act)
         return _finish(hin, t, kind, res_weight)
 
     return pair
+
+
+def remat_pair(pair: Callable) -> Callable:
+    """`pair` with its activations recomputed in the backward (remat_pair,
+    larvanet_tpu/ops/packed/pairs.py:117-136)."""
+    from torch.utils.checkpoint import checkpoint
+
+    def wrapped(idx, hin, conv1, conv2, kind="res", res_weight=1.0):
+        if not torch.is_grad_enabled():
+            return pair(idx, hin, conv1, conv2, kind=kind, res_weight=res_weight)
+        return checkpoint(lambda h: pair(idx, h, conv1, conv2, kind=kind,
+                                         res_weight=res_weight),
+                          hin, use_reentrant=False)
+
+    return wrapped
+
+
+def training_pair(qat: bool, remat: bool, dtype: torch.dtype = torch.float32) -> Callable:
+    """The pair a train step runs (_training_pair, pairs.py:139-144):
+    `qat_pair` under --qat 1, else the modules' own pair; wrapped by
+    `remat_pair` under --remat 1."""
+    from larvanet_tpu_torch.models.layers import exact_pair
+
+    pair = qat_pair(dtype) if qat else exact_pair
+    return remat_pair(pair) if remat else pair

@@ -472,13 +472,13 @@ def _tile_count(path, shape):
 WGRAD_RTOL = 1e-5
 
 
-def _wgrad_case(lib, path, shape, f, splits):
+def _wgrad_case(lib, path, shape, f, splits, dtype=torch.float32):
     """The tiled entry of `path` with its pixel tiles cut into `splits`
     runs (the last one short where the tiles allow), against the plain
     version, and again, bit for bit."""
     rng = np.random.default_rng(sum(shape) * 7 + f + splits)
-    x = _t(rng.standard_normal(shape))
-    g = _t(rng.standard_normal(shape[:3] + (f,)))
+    x = _t(rng.standard_normal(shape)).to(dtype)
+    g = _t(rng.standard_normal(shape[:3] + (f,))).to(dtype)
     tiles = _tile_count(path, shape)
     chunk = wg._cdiv(tiles, splits)
     assert wg._cdiv(tiles, chunk) == splits
@@ -506,6 +506,20 @@ def _wgrad_case(lib, path, shape, f, splits):
 ])
 def test_conv3x3_wgrad_tensor_core_entry_matches_plain_version(wgrad_lib, shape, f, splits):
     _wgrad_case(wgrad_lib, "tensor_core", shape, f, splits)
+
+
+# the bf16 entry: products of two bf16 values, exact in f32, summed in f32 in
+# another order than the plain version (which widens the same values to
+# f32): the f32 entry's bar
+@pytest.mark.parametrize("shape,f,splits", [
+    ((5, 5, 9, 16), 16, 3),    # N = 5 tiles ending inside H and W; splits of 2, 2, 1
+    ((1, 5, 7, 48), 16, 1),    # C = 48: a part-filled channel chunk
+    ((1, 5, 7, 16), 48, 1),    # F = 48: a part-filled F tile
+    ((1, 9, 7, 64), 24, 2),    # C = 64, F = 24 (three n8 tiles); two tile rows
+])
+def test_conv3x3_wgrad_bf16_tensor_core_entry_matches_plain_version(wgrad_lib, shape, f,
+                                                                    splits):
+    _wgrad_case(wgrad_lib, "tensor_core_bf16", shape, f, splits, torch.bfloat16)
 
 
 @pytest.mark.parametrize("shape,f,splits", [
@@ -665,12 +679,46 @@ def test_conv3x3_s8_quantizes_values_next_to_a_half_as_the_division_does(s8_lib,
         assert torch.equal(got, want), (float(s_mid), int((got != want).sum()))
 
 
-@pytest.mark.parametrize("case", ["misaligned_w", "act_2", "empty", "too_wide"])
+# Widths past one code halo (324 pixels x (Kp + 16) bytes beside the staging
+# rows in a block's 227 KB): the halo comes in chunks of Kc codes, the int32
+# sums kept across them, so the result stays bit for bit. At F = 64: C =
+# 1280 takes chunks in both entries (conv_a 4 x 288 codes + 128; conv_b f32
+# 5 x 224 + 160, bf16 5 x 256); C = 520 chunks conv_b in f32 (2 x 224 + 96)
+# and keeps the one-halo plan elsewhere; C = 1000 (Kp 1024) ends both
+# entries on a partial chunk (conv_a 3 x 288 + 160, conv_b f32 4 x 224 + 128)
+@pytest.mark.parametrize("dname", ["f32", "bf16"])
+@pytest.mark.parametrize("entry", ["conv_a", "conv_b"])
+@pytest.mark.parametrize("c", [1280, 520, 1000])
+def test_conv3x3_s8_takes_widths_past_one_halo_bit_for_bit(s8_lib, c, entry, dname):
+    rng = np.random.default_rng(c + len(entry))
+    dtype = DTYPES[dname]
+    f, hw = 64, (1, 4, 4)
+    fn = s8.bind(s8_lib, entry, dtype)
+    if entry == "conv_a":
+        s_in = 0.25
+        hin = _t(rng.integers(-300, 300, hw + (c,)) / 8.0).to(dtype)
+        wt = _s8_weight(rng, c, f, s_in, dtype)
+        t = s8._dequant(s8.conv_codes_reference(s8.quantize(hin, s_in), wt.codes), wt, dtype)
+        s_mid = float(t.float().abs().max()) * 0.8 / 127.0
+        got = s8._run_a(fn, hin, wt, s_in, s_mid, "relu", None)
+        want = s8.conv_a_reference(hin, wt, s_in, s_mid, "relu")
+        assert got.shape == want.shape and int((got != want).sum()) == 0
+        return
+    tq = torch.from_numpy(rng.integers(-127, 128, hw + (c,)).astype(np.int8))
+    wt = _s8_weight(rng, c, f, 0.03 / c, dtype)
+    res = _t(rng.standard_normal(hw + (f,))).to(dtype)
+    for r, rw in ((res, 0.1), (None, 1.0)):
+        got = s8._run_b(fn, tq, wt, dtype, r, rw, None)
+        want = s8.conv_b_reference(tq, wt, dtype, r, rw)
+        bits = torch.int16 if dname == "bf16" else torch.int32
+        assert got.shape == want.shape and torch.equal(got.view(bits), want.view(bits)), \
+            (c, r is None, float((got.float() - want.float()).abs().max()))
+
+
+@pytest.mark.parametrize("case", ["misaligned_w", "act_2", "empty"])
 def test_conv3x3_s8_entry_refuses_what_it_cannot_take(s8_lib, case):
     rng = np.random.default_rng(3)
-    # too_wide: one halo of 1280 codes a pixel (324 pixels x 1296 bytes)
-    # passes a block's 227 KB of shared memory
-    c = 1280 if case == "too_wide" else 16
+    c = 16
     wt = _s8_weight(rng, c, 16, 0.1, torch.float32)
     hin = _t(rng.standard_normal((1, 4, 4, c)))
     n = 1
