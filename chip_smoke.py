@@ -6,7 +6,14 @@
 It drives the port's main paths on the card, serving and validating
 EDSR-baseline x4 and the LarvaNet family (the flagship LarvaNet 2x16, and
 LarvaNet_w64 on the fused ResBlocks) and training EDSR-baseline x4 and the
-flagship, and fails (exit code != 0, no result line) if any phase fails:
+flagship, and fails (exit code != 0, no result line) if any phase fails.
+EDSR serves on its default route, the collapsed linear tail
+(ops/collapsed_tail.py: the trunk's 34 convs on conv3x3, the tail as one
+5x5 conv, 4 side and 4 corner operators on conv_kxk; the CLIs make the
+route, probing the tail once, inside the counted runs of phases 6, 7 and
+10); phases 8, 11d and 13 train EDSR on the plain tail
+(--collapsed_tail_train 0), whose counts they keep, and phase 14 trains it
+on the default, collapsed route:
 
  1. device: CUDA must be available; prints nvidia-smi's name and power limit.
  2. build: compiles every kernel of the path from larvanet_tpu_torch/csrc/
@@ -17,7 +24,9 @@ flagship, and fails (exit code != 0, no result line) if any phase fails:
     Each call must take the conv kernel's path that X4_CONVS names and
     `path_for` agrees with: the narrow path for final_conv (F <= 8 with C a
     multiple of 16 up to 64), the tensor cores for C and F multiples of 16
-    (bf16 on WMMA, f32 in split TF32), else the CUDA cores; at the narrow
+    (bf16 on WMMA, f32 in split TF32), else the CUDA cores (X4_CONVS: the
+    module's own tail, which the probes and the plain-tail phases run); at
+    the narrow
     and tensor-core shapes the CUDA-core entry of the dtype is held and
     timed too, as the earlier kernel of the same function. Prints each
     shape's kernel, CUDA-core entry, plain-version and F.conv2d times and
@@ -46,13 +55,15 @@ flagship, and fails (exit code != 0, no result line) if any phase fails:
     turns 200, the launch counters are zeroed and four PNG frames are
     POSTed (two of one geometry, held so they form one batch, and two of
     other sizes, one odd); the counters are read right after and must
-    show PATH_LAUNCHES per forward. Every response must have the x4
+    show PATH_LAUNCHES and KXK_LAUNCHES per forward (the collapsed tail;
+    LarvaNet: no conv_kxk). Every response must have the x4
     geometry; at least MIN_INSIDE of the plain-version forward's pixels
     must lie strictly inside (0, 255), so the clamp hides nothing. f32:
     the response must lie within 1 uint8 level of that forward, and the
     unclamped forward through the kernels within FWD_RTOL of it. bf16:
     the response within 1 level of the kernels' own forward, and that
-    unclamped forward within BF16_FWD_RTOL of the plain bf16 forward.
+    unclamped forward within BF16_FWD_RTOL of the plain bf16 forward (the
+    same route, every conv3x3 and conv_kxk call in its plain version).
  4b. serve LarvaNet: the same for the flagship LarvaNet 2x16 (48 features,
     random weights from SEED as the family draws them, saved as the port
     module's state_dict): 67 conv3x3 launches per forward, 66 on the tensor
@@ -60,11 +71,13 @@ flagship, and fails (exit code != 0, no result line) if any phase fails:
     interpolated base, so the unclamped forward is held relative to the
     residual (the forward minus its base), not to the output.
  5. forward: times the whole x4 forward on the batch of 4 x 192x192 LR
-    tiles, f32 and bf16 (CUDA events), through the conv3x3 kernel and
-    under --wino_trunk 2 and 4, to set the kernels' share against it.
-    Under --wino_trunk the counters are zeroed before one forward and read
-    after it: 5 conv3x3 launches by path (WINO_CONV_PATH_LAUNCHES) and 16
-    fused launches, all 16 on the tensor cores (WINO_PATH_LAUNCHES); the
+    tiles, f32 and bf16 (CUDA events), on the collapsed tail through the
+    conv3x3 and conv_kxk kernels and under --wino_trunk 2 and 4 (whose tail
+    is baked too), to set the kernels' share against it. The counters are
+    zeroed before one forward of each route and read after it: the
+    default's PATH_LAUNCHES; under --wino_trunk 2 conv3x3 launches by path
+    (WINO_CONV_PATH_LAUNCHES) and 16 fused launches, all 16 on the tensor
+    cores (WINO_PATH_LAUNCHES); 9 conv_kxk launches on every route; the
     bf16 forward must lie within BF16_FWD_RTOL of the same route with the
     plain fused ResBlock in place of the kernel. Each timed forward's
     device time is split by torch.profiler's kernel records: convs, fused
@@ -80,9 +93,11 @@ flagship, and fails (exit code != 0, no result line) if any phase fails:
     set written by the port's PNG encoder (4 LR frames of even width and,
     for the standard path only, one of odd width), EDSR-baseline x4 as in
     phase 4, with --wino_trunk 0, 2 and 4, f32. The counters are zeroed
-    before each run and read after: 37 conv3x3 launches per forward for
-    0; 5 conv3x3 and 16 fused launches per forward for 2 and 4; the
-    conv3x3 launches by path as phases 4 and 5 count them. Each image's
+    before each run and read after: 34 conv3x3 launches per forward for
+    0; 2 conv3x3 and 16 fused launches per forward for 2 and 4; 9 conv_kxk
+    launches per forward on each; the probes of the tail (PROBE_LAUNCHES)
+    once a run; the conv3x3 launches by path as phases 4 and 5 count them.
+    The collapsed tail bakes the same kernel in every run. Each image's
     PSNR under 2 and 4 must lie within VALIDATE_PSNR_TOL of 0's,
     and the unclamped f32 forward through each fused kernel within
     WINO_FWD_RTOL of the conv3x3 forward.
@@ -94,6 +109,7 @@ flagship, and fails (exit code != 0, no result line) if any phase fails:
     and each run's launches by path (one narrow conv3x3 launch a forward);
     then LarvaNet 2x16, --wino_trunk 0 and 2 (67 launches a forward).
  8. train: EDSR-baseline x4 at full width trained through the kernels, f32,
+    on the plain tail (--collapsed_tail_train 0; validate --collapsed_tail 0),
     batch 16 of 48x48 LR patches, on a DIV2K-layout set of 8 `photo` frames
     (LR 96x128) written by the port's PNG encoder. One batch's loss and
     gradients through the kernels are held against the same autograd
@@ -145,7 +161,11 @@ flagship, and fails (exit code != 0, no result line) if any phase fails:
     self-ensemble of the f32 module (the transposed 510x339 frame among
     its orientations), counted (8 forwards) and held against its plain
     version. Each path's ms per frame (timed in turns with the direct
-    forward, f32 and bf16; the self-ensemble f32) and peak memory. 10d:
+    forward, f32 and bf16; the self-ensemble f32) and peak memory.
+    EDSR serves on the collapsed tail (9 conv_kxk launches a forward, none
+    in the self-ensemble of the module); its exact tiling equals the
+    direct forward, and the 8K frame's chunks of 64 those of 16, bit for
+    bit. 10d:
     validate on phase 6's set with --chop_forward, --tile_forward (48 /
     16; also under --wino_trunk 2 and 4 on the even frames) and
     --self_ensemble, each image's PSNR within VALIDATE_PSNR_TOL of the
@@ -182,7 +202,7 @@ flagship, and fails (exit code != 0, no result line) if any phase fails:
     counted. 11d: --qat 1 on EDSR-baseline x4 and LarvaNet 2x16, batch 16 of
     48x48: loss and gradients held as phase 8b holds them (same_forward),
     then QAT_STEPS steps of the train CLI and a resume that repeats the last
-    loss bit for bit.
+    loss bit for bit (EDSR on the plain tail, --collapsed_tail_train 0).
  13. train flags (after phase 11, before the closing lines), on phase 8's set:
     13a --train_dtype bf16 on EDSR-baseline x4 at batch 16 x 48x48: the
     wgrad wrapper on bf16 x and g at every TRAIN_WGRAD shape
@@ -205,6 +225,26 @@ flagship, and fails (exit code != 0, no result line) if any phase fails:
     bit for bit. 13e --profile_dir: trace.json names the conv3x3 and wgrad
     kernels. 13f --widen_from: LarvaNet 2x16 widened into LarvaNet_w64 2x16
     computes the narrow forward within FWD_RTOL of its residual.
+ 14. the collapsed tail (after phase 13). 14a: conv_kxk at every shape of
+    KXK_SHAPES (the main 5x5 conv of the x4, x2, x3 tails, their border
+    operators, the x4 corners, the collapsed base's 3 -> 48 convs, the
+    live tail's 48 -> 64 input gradient) on the 4 x 192x192 batch, and the
+    main conv at 339x510, f32 and bf16, each on its path, held against its
+    plain version and timed in turns with it and F.conv2d beside its
+    bound; conv_kxk_wgrad at 5x5 64 -> 48, batch 16 x 48x48, the same way
+    with conv2d_weight; EDSR-baseline x2, x3 and x4 probed on the card:
+    radius 2. 14b: EDSR-baseline x4 (fitted) on the collapsed route, f32
+    and bf16, counted, held against the same route with the plain
+    versions and against the plain tail's forward (COLLAPSED_PSNR_DB) and its probed
+    kernel against the composed one (PROBE_STEPS), the
+    forwards and the tails alone timed against the plain tail's with their
+    device split; the --wino_trunk 2 and int8 forwards on the baked tail,
+    counted and held. 14c: one EDSR-baseline x4 train step on the default
+    route (the live collapsed tail, the loss before the shuffle): loss and
+    gradients against the plain versions, counted (TRAIN_COLLAPSED_LAUNCHES,
+    TRAIN_COLLAPSED_KXK), timed with its split against
+    --collapsed_tail_train 0's; the train CLI for TRAIN_STEPS steps and a
+    resume from the middle, bit for bit.
  12. (last) prints the kernels JSON line, the nvidia-smi line, then the
     result line {"ok": true, "device": {...}}.
 
@@ -238,7 +278,13 @@ an int8 conv on CUDA), every shape's row of phase 11a, and under "wide"
 outside every model's path). The conv3x3 and conv3x3_wgrad lines add phase
 13's counted bf16 step and device-pipeline chunk to their launches; the
 conv3x3_wgrad line's "bf16" gives the bf16 step's wgrad sums (13a) with
-the bf16 launches by path of its counted step.
+the bf16 launches by path of its counted step. The conv_kxk line gives its
+launches over the counted collapsed forwards of phases 4 to 14 and 14c's
+train step (forward and input gradient), its sums over one collapsed x4
+forward's 9 calls at 4 x 192x192 (f32; bf16 beside), every shape's row,
+the probed radii and 14b's forward and tail times; the conv_kxk_wgrad line
+the 5x5 64 -> 48 weight gradient's numbers and 14c's launch. The conv3x3
+lines add 14c's counted step.
 """
 
 from __future__ import annotations
@@ -299,16 +345,31 @@ FWD_RTOL = 1e-4
 # twice the fused ResBlock's bar (WINO_BF16_RTOL) for a forward that
 # rounds 37 times in a row.
 BF16_FWD_RTOL = 2.0 ** -5
-# conv3x3 launches per x4 forward by path (ops/conv3x3.py path_for), the
-# same in both dtypes: final_conv (64 -> 3) takes the narrow path, the 35
-# convs with C and F multiples of 16 the tensor cores (f32 in split TF32),
-# first_conv (C = 3) the CUDA cores
-PATH_LAUNCHES = {"f32": {"cuda_core": 1, "tensor_core": 35, "narrow": 1},
-                 "bf16": {"cuda_core": 1, "tensor_core": 35, "narrow": 1}}
-# the same for the 5 convs around the fused ResBlocks under --wino_trunk:
-# first_conv, after_res_conv, the two upsample convs, final_conv
-WINO_CONV_PATH_LAUNCHES = {"f32": {"cuda_core": 1, "tensor_core": 3, "narrow": 1},
-                           "bf16": {"cuda_core": 1, "tensor_core": 3, "narrow": 1}}
+# conv3x3 launches per x4 forward by path (ops/conv3x3.py path_for) on the
+# default route, the collapsed tail (the inference CLIs' --collapsed_tail
+# 1), the same in both dtypes: first_conv (C = 3) on the CUDA cores, the 32
+# trunk convs and after_res_conv on the tensor cores (f32 in split TF32);
+# the tail runs on conv_kxk (KXK_LAUNCHES)
+PATH_LAUNCHES = {"f32": {"cuda_core": 1, "tensor_core": 33, "narrow": 0},
+                 "bf16": {"cuda_core": 1, "tensor_core": 33, "narrow": 0}}
+# the module's own tail (--collapsed_tail 0, the x8 self-ensemble of the f32
+# module, the probes' original tail): 37 convs, final_conv (64 -> 3) on the
+# narrow path, the two upsample convs on the tensor cores
+PLAIN_PATH_LAUNCHES = {"f32": {"cuda_core": 1, "tensor_core": 35, "narrow": 1},
+                       "bf16": {"cuda_core": 1, "tensor_core": 35, "narrow": 1}}
+# conv_kxk launches per x4 forward on the collapsed tail (ops/conv_kxk.py
+# path_for): the 5x5 64 -> 48 conv, 4 side operators and 4 corners, all of
+# C = 64 on the tensor cores
+KXK_LAUNCHES = {"cuda_core": 0, "tensor_core": 9}
+# the conv3x3 launches of probing one EDSR-baseline x4 tail
+# (ops/collapsed_tail.collapsed_edsr_tail: 9 calls of the original tail,
+# whose 64 -> 256 convs take the tensor cores and final_conv the narrow
+# path), where a CLI makes the route inside a counted run
+PROBE_LAUNCHES = {"cuda_core": 0, "tensor_core": 18, "narrow": 9}
+# the same for the 2 convs around the fused ResBlocks under --wino_trunk,
+# whose tail is baked as JAX's is: first_conv, after_res_conv
+WINO_CONV_PATH_LAUNCHES = {"f32": {"cuda_core": 1, "tensor_core": 1, "narrow": 0},
+                           "bf16": {"cuda_core": 1, "tensor_core": 1, "narrow": 0}}
 # fused ResBlock launches per x4 forward under --wino_trunk, by path
 # (ops/wino_resblock.py path_for): both dtypes on the tensor cores (f32 in
 # split TF32); the 5 convs around them go through conv3x3
@@ -489,6 +550,13 @@ FULL_FRAME_MODELS = {
     "EDSR-baseline x4": ("edsr", [], PATH_LAUNCHES["f32"], (128, 80)),
     "LarvaNet 2x16": ("LarvaNet", LARVANET_FLAGS, conv_path_launches(_LARVA48), (192, 144)),
 }
+# conv_kxk launches per forward of each, on its serving route (EDSR's
+# collapsed tail), and conv3x3's per forward of its module (the x8
+# self-ensemble runs the f32 module, EDSR's with its own tail)
+FULL_FRAME_KXK = {"EDSR-baseline x4": KXK_LAUNCHES,
+                  "LarvaNet 2x16": {"cuda_core": 0, "tensor_core": 0}}
+FULL_FRAME_MODULE = {"EDSR-baseline x4": PLAIN_PATH_LAUNCHES["f32"],
+                     "LarvaNet 2x16": conv_path_launches(_LARVA48)}
 FULL_FRAME_LR = RAGGED[1:]       # DIV2K x4 LR, 339x510: chop quadrants 179/180 x 265
 CHOP_OVERLAP = 20                # the CLIs' default --chop_overlap_size
 TILE_DEFAULT = (128, 24)         # the CLIs' default --tile_size / --tile_overlap
@@ -508,14 +576,15 @@ TEST_FRAMES = ((80, 118, 0, 0), (75, 121, 0, 0), (86, 112, 2, 3), (72, 127, 0, 0
 # phase 11: the int8 pair's conv shapes (EDSR-baseline's ResBlock, LarvaNet's
 # ResBlock and 2conv leg, LarvaNet_w64's narrowing leg conv), the calibration
 # batch of photo frames, the launches of one int8 forward ({s8 entry: n},
-# conv3x3 by path: EDSR's 5 exact convs in bf16, LarvaNet's head), the PSNR
+# conv3x3 by path: EDSR's 2 exact convs in bf16 beside its baked tail's 9
+# conv_kxk launches, LarvaNet's head), the PSNR
 # bar against the plain int8 forward (JAX's own int8 bar,
 # tests/test_packed_trunk.py:243) and the QAT CLI's steps
 S8_SHAPES = (("EDSR-baseline 64->64", 64, 64), ("LarvaNet 48->48", 48, 48),
              ("LarvaNet_w64 leg 64->48", 64, 48))
 INT8_CALIB = (2, 96, 128)
 INT8_LAUNCHES = {"edsr": ({"conv_a": 16, "conv_b": 16},
-                          {"cuda_core": 1, "tensor_core": 3, "narrow": 1}),
+                          {"cuda_core": 1, "tensor_core": 1, "narrow": 0}),
                  "LarvaNet": ({"conv_a": 33, "conv_b": 33},
                               {"cuda_core": 1, "tensor_core": 0, "narrow": 0})}
 INT8_FWD_PSNR_DB = 55.0
@@ -559,24 +628,27 @@ def spread(t) -> str:
     return "%.4f ms [%.4f-%.4f]" % t
 
 
-def bound_ms(n, h, w, c, f, dtype_name):
-    """The least time of one conv: bytes (x, kernel, outputs once; bias f32)
-    over HBM bandwidth vs operations over the dtype's peak (PEAK_FLOPS)."""
+def bound_ms(n, h, w, c, f, dtype_name, kh=3, kw=3, pads=(1, 1, 1, 1)):
+    """The least time of one kh x kw conv with `pads` (default SAME 3x3):
+    bytes (x, kernel, outputs once; bias f32) over HBM bandwidth vs
+    operations over the dtype's peak (PEAK_FLOPS)."""
     item = 4 if dtype_name == "f32" else 2
-    nbytes = item * (n * h * w * (c + f) + 9 * c * f) + 4 * f
-    flops = 2 * n * h * w * 9 * c * f
+    ho, wo = h + pads[0] + pads[1] - kh + 1, w + pads[2] + pads[3] - kw + 1
+    nbytes = item * (n * h * w * c + n * ho * wo * f + kh * kw * c * f) + 4 * f
+    flops = 2 * n * ho * wo * kh * kw * c * f
     t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_FLOPS[dtype_name]
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def _conv_ok(torch, got, want, dname):
-    """(within the bar, max |d|) of a conv output against its plain version."""
+def _conv_ok(torch, got, want, dname, f32_atol=F32_ATOL):
+    """(within the bar, max |d|) of a conv output against its plain version;
+    `f32_atol` the f32 bar (F32_ATOL unless the conv sums more products)."""
     if got.shape != want.shape or got.dtype != want.dtype:
         raise AssertionError("kernel gave %s %s, plain %s %s" % (
             tuple(got.shape), got.dtype, tuple(want.shape), want.dtype))
     diff = (got.float() - want.float()).abs()
     if dname == "f32":
-        ok = float(diff.max()) <= F32_ATOL
+        ok = float(diff.max()) <= f32_atol
     else:
         ok = bool((diff <= BF16_ATOL + BF16_RTOL * want.float().abs()).all())
     return ok and bool(torch.isfinite(got).all()), float(diff.max())
@@ -939,8 +1011,8 @@ def serve_phase(torch, device="cuda", dtype_name="f32", model_name="edsr"):
     from larvanet_tpu_torch.cli import serve
     from larvanet_tpu_torch.data import png
     from larvanet_tpu_torch.eval.metrics import psnr_rgb_device
-    from larvanet_tpu_torch.models import layers
     from larvanet_tpu_torch.ops import conv3x3
+    from larvanet_tpu_torch.ops import conv_kxk as ck
 
     larva = model_name != "edsr"
     rng = np.random.default_rng(SEED)
@@ -953,10 +1025,12 @@ def serve_phase(torch, device="cuda", dtype_name="f32", model_name="edsr"):
             save_larvanet(torch, pth, model_name, LARVANET_FLAGS, device)
             model_flags = ["--model", model_name] + LARVANET_FLAGS
             per_forward = conv_path_launches(_LARVA48)
+            per_kxk = {"cuda_core": 0, "tensor_core": 0}
         else:
             save_edsr_baseline(torch, pth, frames[0], device)
             model_flags = ["--model", "edsr"]
-            per_forward = PATH_LAUNCHES[dtype_name]
+            per_forward = PATH_LAUNCHES[dtype_name]  # the default collapsed tail
+            per_kxk = KXK_LAUNCHES
         n_conv = sum(per_forward.values())
 
         args, remaining = serve.build_parser().parse_known_args(
@@ -989,6 +1063,7 @@ def serve_phase(torch, device="cuda", dtype_name="f32", model_name="edsr"):
                 wall[i] = time.perf_counter() - t
 
             conv3x3.reset_launches()
+            ck.reset_launches()
             # hold the dispatch lock until both same-geometry requests wait,
             # so the server coalesces them into one batch of 2
             with service._lock:
@@ -1005,6 +1080,7 @@ def serve_phase(torch, device="cuda", dtype_name="f32", model_name="edsr"):
             for i in (2, 3):
                 post(i)
             launches, by_path = conv3x3.LAUNCHES, dict(conv3x3.LAUNCHES_BY_PATH)
+            kxk_by_path = dict(ck.LAUNCHES_BY_PATH)
             info = json.loads(_http(url + "/info")[1])
         finally:
             httpd.shutdown()
@@ -1029,6 +1105,7 @@ def serve_phase(torch, device="cuda", dtype_name="f32", model_name="edsr"):
                                                        info["num_forwards"], n_conv, want))
         print("serve %s: %d conv3x3 kernel launches for %d forwards (%d each): %s"
               % (label, launches, info["num_forwards"], n_conv, by_path))
+        expect_kxk("serve %s" % label, kxk_by_path, per_kxk, info["num_forwards"])
 
         for i, (img, (code, body)) in enumerate(zip(frames, replies)):
             if code != 200:
@@ -1039,10 +1116,9 @@ def serve_phase(torch, device="cuda", dtype_name="f32", model_name="edsr"):
                 raise AssertionError("request %d: reply %s, not x4 of %s"
                                      % (i, got.shape, (h, w)))
             # the unclamped forward through the kernels, then the same
-            # forward with every conv in its plain version
+            # forward (the same route) with every conv in its plain version
             fwd = service.model.upscale_device([img], 4, uint8=False)[0]
-            with mock.patch.object(layers, "conv3x3_bias_act",
-                                   conv3x3.conv3x3_bias_act_reference):
+            with plain_versions():
                 ref = service.model.upscale_device([img], 4, uint8=False)[0]
             if not (torch.isfinite(ref).all() and torch.isfinite(fwd).all()):
                 raise AssertionError("request %d: forward not finite" % i)
@@ -1089,14 +1165,18 @@ def _add(total, part):
 
 def forward_phase(torch, model, device="cuda"):
     """Phase 5. The whole x4 forward (`fwd_runtime`) on the LR batch of
-    phase 3, in f32 and bf16, through the conv3x3 kernel and under each
-    --wino_trunk route: the denominator of the kernels' share of a
-    forward. Under --wino_trunk, one forward is counted (5 conv3x3 and 16
-    fused launches on the dtype's path) and, in bf16, held against the
-    same route with the plain fused ResBlock. Returns {m: fused launches
-    by path in the counted forwards}."""
+    phase 3, in f32 and bf16, on the default route (the collapsed tail)
+    through the conv3x3 and conv_kxk kernels and under each --wino_trunk
+    route (whose tail is baked too): the denominator of the kernels' share
+    of a forward. Each route's forward is counted (--wino_trunk 0: 34
+    conv3x3 launches; 2 and 4: 2 conv3x3 and 16 fused launches; 9 conv_kxk
+    launches on every route) and, under --wino_trunk in bf16, held against
+    the same route with the plain fused ResBlock. Returns {m: fused
+    launches by path in the counted forwards}."""
     from larvanet_tpu_torch.ops import conv3x3
+    from larvanet_tpu_torch.ops import conv_kxk as ck
     from larvanet_tpu_torch.ops import wino_resblock as wr
+    from larvanet_tpu_torch.ops.collapsed_tail import make_collapsed_edsr_forward
     from larvanet_tpu_torch.ops.wino_resblock import make_wino_edsr_forward
 
     n, h, w = LR_BATCH
@@ -1106,22 +1186,26 @@ def forward_phase(torch, model, device="cuda"):
     for name in ("f32", "bf16"):
         model.set_serving_dtype(name)
         for m in (0, 2, 4):
-            model.set_route(make_wino_edsr_forward(model, m) if m else None)
+            model.set_route(make_wino_edsr_forward(model, m) if m
+                            else make_collapsed_edsr_forward(model))
+            conv3x3.reset_launches()
+            ck.reset_launches()
+            wr.reset_launches()
+            got = model.fwd_runtime(x)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            conv, by_path = dict(conv3x3.LAUNCHES_BY_PATH), dict(wr.LAUNCHES_BY_PATH)
+            print("forward %s --wino_trunk %d: conv3x3 launches by path %s, fused launches "
+                  "by path %s" % (name, m, conv, by_path), flush=True)
+            want_conv = (WINO_CONV_PATH_LAUNCHES if m else PATH_LAUNCHES)[name]
+            want_fused = WINO_PATH_LAUNCHES[name] if m else fused_path_launches(0)
+            if conv != want_conv or by_path != want_fused:
+                raise AssertionError("forward %s --wino_trunk %d: %s conv3x3 and %s fused "
+                                     "launches, not %s and %s" % (
+                                         name, m, conv, by_path, want_conv, want_fused))
+            expect_kxk("forward %s --wino_trunk %d" % (name, m), ck.LAUNCHES_BY_PATH,
+                       KXK_LAUNCHES, 1)
             if m:
-                conv3x3.reset_launches()
-                wr.reset_launches()
-                got = model.fwd_runtime(x)
-                if device == "cuda":
-                    torch.cuda.synchronize()
-                conv, by_path = dict(conv3x3.LAUNCHES_BY_PATH), dict(wr.LAUNCHES_BY_PATH)
-                print("forward %s --wino_trunk %d: conv3x3 launches by path %s, fused launches "
-                      "by path %s" % (name, m, conv, by_path), flush=True)
-                if conv != WINO_CONV_PATH_LAUNCHES[name] or by_path != WINO_PATH_LAUNCHES[name]:
-                    raise AssertionError("forward %s --wino_trunk %d: %s conv3x3 and %s fused "
-                                         "launches, not %s and %s" % (
-                                             name, m, conv, by_path,
-                                             WINO_CONV_PATH_LAUNCHES[name],
-                                             WINO_PATH_LAUNCHES[name]))
                 _add(launches[m], by_path)
                 if name == "bf16":
                     with mock.patch.object(wr, "wino_resblock_transformed",
@@ -1135,7 +1219,7 @@ def forward_phase(torch, model, device="cuda"):
                         raise AssertionError("forward bf16 --wino_trunk %d disagrees with the "
                                              "plain fused ResBlock's" % m)
                     del ref
-                del got
+            del got
             if device != "cuda":
                 continue
             t = time_windows(torch, {"forward": lambda: model.fwd_runtime(x)})["forward"]
@@ -1161,7 +1245,7 @@ def larvanet_model(name, flags, device="cuda", pth=None):
     return model
 
 
-def device_breakdown(torch, fn, kinds=("conv3x3", "wino_resblock")):
+def device_breakdown(torch, fn, kinds=("conv3x3", "wino_resblock", "conv_kxk")):
     """The card's kernel time in one call of `fn`: (wall ms under the
     profiler, {each of `kinds`, "other": ms of kernels by name, a kernel
     going to the first kind its name holds}), from torch.profiler's CUDA
@@ -1188,7 +1272,7 @@ def device_breakdown(torch, fn, kinds=("conv3x3", "wino_resblock")):
     return start.elapsed_time(end) / TIMED_REPS, (parts if sum(parts.values()) else None)
 
 
-def breakdown_line(torch, fn, wall, kinds=("conv3x3", "wino_resblock")) -> str:
+def breakdown_line(torch, fn, wall, kinds=("conv3x3", "wino_resblock", "conv_kxk")) -> str:
     """Where a call of `fn` that takes `wall` ms unprofiled spends the card's
     time: its kernels by name (device_breakdown) and idle, the rest of
     `wall` (one stream: kernels do not overlap). The profiler's own host
@@ -1329,12 +1413,14 @@ def write_validate_set(root):
 def validate_phase(torch, device="cuda", model_name="edsr"):
     """Phase 6 (EDSR-baseline x4) or 6b (`model_name` "LarvaNet_w64" at
     LARVANET_FLAGS). The port's validate CLI on a small DIV2K-layout set,
-    with --wino_trunk 0, 2 and 4. Returns {m: fused launches by path in the
-    m run}."""
+    with --wino_trunk 0, 2 and 4 (EDSR: the default collapsed tail, which
+    every route bakes; its probes run inside the counted run). Returns {m:
+    fused launches by path in the m run}."""
     from larvanet_tpu_torch.cli import validate
     from larvanet_tpu_torch.core.registry import get_model
     from larvanet_tpu_torch.data import io
     from larvanet_tpu_torch.ops import conv3x3, wino_resblock
+    from larvanet_tpu_torch.ops import conv_kxk as ck
 
     with tempfile.TemporaryDirectory() as tmp:
         write_validate_set(tmp)
@@ -1346,6 +1432,7 @@ def validate_phase(torch, device="cuda", model_name="edsr"):
             # {m: (conv3x3 launches by path, fused launches by kernel) per forward}
             expect = {m: ((WINO_CONV_PATH_LAUNCHES if m else PATH_LAUNCHES)["f32"],
                           {k: (16 if k == m else 0) for k in (2, 4)}) for m in (0, 2, 4)}
+            per_kxk, probes = KXK_LAUNCHES, 1
         else:
             save_larvanet(torch, pth, model_name, LARVANET_FLAGS, device)
             model_flags = ["--model", model_name] + LARVANET_FLAGS
@@ -1353,6 +1440,7 @@ def validate_phase(torch, device="cuda", model_name="edsr"):
             expect = {m: (conv_path_launches(routes[m][0]),
                           {k: (routes[m][1] if k == m else 0) for k in (2, 4)})
                       for m in (0, 2, 4)}
+            per_kxk, probes = {"cuda_core": 0, "tensor_core": 0}, 0
 
         psnrs, wino_launches = {}, {}
         for m in (0, 2, 4):
@@ -1360,6 +1448,7 @@ def validate_phase(torch, device="cuda", model_name="edsr"):
             n_images = len(io.list_pngs(os.path.join(tmp, sub, "HR")))
             report = os.path.join(tmp, "report_%d.json" % m)
             conv3x3.reset_launches()
+            ck.reset_launches()
             wino_resblock.reset_launches()
             t0 = time.perf_counter()
             validate.main(model_flags + ["--scales", "4", "--device", device,
@@ -1373,20 +1462,24 @@ def validate_phase(torch, device="cuda", model_name="edsr"):
             wino_by_path = dict(wino_resblock.LAUNCHES_BY_PATH)
             with open(report) as f:
                 psnrs[m] = json.load(f)["scales"]["4"]["per_image"]
-            want_by_path = {p: k * n_images for p, k in expect[m][0].items()}
-            want_conv = sum(expect[m][0].values())
+            want_by_path = {p: k * n_images + probes * PROBE_LAUNCHES[p]
+                            for p, k in expect[m][0].items()}
+            want_conv = sum(want_by_path.values())
             want_wino = expect[m][1]
             print("validate %s --wino_trunk %d: %d images in %.3f s; per forward %s conv3x3 "
                   "launches, %s F(2,3) and %s F(4,3) launches; PSNRs %s" % (
                       model_name, m, n_images, seconds, conv / n_images, wino[2] / n_images,
                       wino[4] / n_images,
                       ", ".join("%s %.4f" % kv for kv in sorted(psnrs[m].items()))))
-            if conv != want_conv * n_images or conv_by_path != want_by_path or any(
+            if conv != want_conv or conv_by_path != want_by_path or any(
                     wino[k] != want_wino[k] * n_images for k in (2, 4)):
                 raise AssertionError("validate %s --wino_trunk %d: %d conv3x3 (%s) and %s "
-                                     "wino launches for %d forwards, not %d (%s) and %s each"
-                                     % (model_name, m, conv, conv_by_path, wino, n_images,
-                                        want_conv, want_by_path, want_wino))
+                                     "wino launches for %d forwards and %d tail probes, not %d "
+                                     "(%s) and %s each" % (
+                                         model_name, m, conv, conv_by_path, wino, n_images,
+                                         probes, want_conv, want_by_path, want_wino))
+            expect_kxk("validate %s --wino_trunk %d" % (model_name, m), ck.LAUNCHES_BY_PATH,
+                       per_kxk, n_images)
             if m:
                 wino_launches[m] = wino_by_path
                 deltas = [abs(psnrs[m][k] - psnrs[0][k]) for k in psnrs[m]]
@@ -1400,7 +1493,8 @@ def validate_phase(torch, device="cuda", model_name="edsr"):
             return wino_launches
 
         # the unclamped f32 forward through each wino kernel against the
-        # forward through the conv3x3 kernel
+        # forward through the conv3x3 kernel, both on the same baked tail
+        from larvanet_tpu_torch.ops.collapsed_tail import make_collapsed_edsr_forward
         from larvanet_tpu_torch.ops.wino_resblock import make_wino_edsr_forward
 
         model = get_model("edsr")
@@ -1408,11 +1502,13 @@ def validate_phase(torch, device="cuda", model_name="edsr"):
         model.prepare([4], device=device, seed=SEED)
         model.restore(pth)
         img = first_lr.transpose(2, 0, 1)
+        direct = make_collapsed_edsr_forward(model)
+        model.set_route(direct)
         ref = model.upscale_device([img], 4, uint8=False)
         for m in (2, 4):
             model.set_route(make_wino_edsr_forward(model, m))
             got = model.upscale_device([img], 4, uint8=False)
-            model.set_route(None)
+            model.set_route(direct)
             err = float((got - ref).abs().max())
             bar = WINO_FWD_RTOL * float(ref.abs().max())
             print("validate: unclamped f32 forward through F(%d,3) vs the conv3x3 forward: "
@@ -1427,10 +1523,12 @@ def runtime_phase(torch, device="cuda", model_name="edsr"):
     """Phase 7 (EDSR-baseline x4, every --wino_trunk) or 7b (`model_name` a
     LarvaNet preset at LARVANET_FLAGS, its --wino_trunk routes in
     LARVANET_ROUTES). The port's runtime CLI at the DIV2K x4 LR size, f32
-    and bf16, with each run's launches by path. Returns {m: fused launches
-    by path under --wino_trunk m}."""
+    and bf16, with each run's launches by path (EDSR: the default collapsed
+    tail, probed inside the counted run; its conv_kxk launches give the
+    forwards). Returns {m: fused launches by path under --wino_trunk m}."""
     from larvanet_tpu_torch.cli import runtime
     from larvanet_tpu_torch.ops import conv3x3
+    from larvanet_tpu_torch.ops import conv_kxk as ck
     from larvanet_tpu_torch.ops import wino_resblock as wr
 
     n, h, w = RAGGED
@@ -1441,15 +1539,18 @@ def runtime_phase(torch, device="cuda", model_name="edsr"):
         expect = {d: {m: ((WINO_CONV_PATH_LAUNCHES if m else PATH_LAUNCHES)[d],
                           WINO_PATH_LAUNCHES[d] if m else fused_path_launches(0))
                       for m in (0, 2, 4)} for d in ("f32", "bf16")}
+        per_kxk, probes = KXK_LAUNCHES, 1
     else:
         label = "%s 2x16" % model_name
         model_flags = ["--model", model_name] + LARVANET_ROUTES[label][1]
         expect = {d: {m: (conv_path_launches(shapes), fused_path_launches(fused))
                       for m, (shapes, fused) in LARVANET_ROUTES[label][2].items()}
                   for d in ("f32", "bf16")}
+        per_kxk, probes = None, 0
     for dtype_name in ("f32", "bf16"):
         for m, (per_conv, per_fused) in expect[dtype_name].items():
             conv3x3.reset_launches()
+            ck.reset_launches()
             wr.reset_launches()
             mean_s, mps = runtime.main(model_flags + [
                 "--scales", "4", "--device", device, "--input_height", str(h),
@@ -1459,14 +1560,20 @@ def runtime_phase(torch, device="cuda", model_name="edsr"):
             print("runtime: %s, %dx%d LR, %s, --wino_trunk %d: %.4f ms per frame, %.3f "
                   "LR-MP/s; launches conv3x3 %s, fused %s" % (
                       label, h, w, dtype_name, m, 1e3 * mean_s, mps, conv, wino), flush=True)
-            forwards = sum(conv.values()) // sum(per_conv.values())
-            want_conv = {p: k * forwards for p, k in per_conv.items()}
+            kxk = dict(ck.LAUNCHES_BY_PATH)
+            forwards = (kxk["tensor_core"] // per_kxk["tensor_core"] if per_kxk
+                        else sum(conv.values()) // sum(per_conv.values()))
+            want_conv = {p: k * forwards + probes * PROBE_LAUNCHES[p]
+                         for p, k in per_conv.items()}
             want_fused = {p: k * forwards for p, k in per_fused.items()}
             if forwards == 0 or conv != want_conv or wino != want_fused:
                 raise AssertionError("runtime %s %s --wino_trunk %d: launches conv3x3 %s and "
                                      "fused %s, not %s and %s" % (
                                          label, dtype_name, m, conv, wino, want_conv,
                                          want_fused))
+            if per_kxk:
+                expect_kxk("runtime %s %s --wino_trunk %d" % (label, dtype_name, m), kxk,
+                           per_kxk, forwards)
             if m:
                 _add(launches[m], wino)
     return launches
@@ -1623,13 +1730,17 @@ def check_train_grads(torch, model, x, t, label, batch, patch, same_forward=Fals
     GRAD_RTOL of its largest value. The all-plain step's gradients are then
     printed beside, with the flips counted (the plain conv on the same
     input), and its loss is held at LOSS_RTOL. `loss_rtol` and `grad_rtol`
-    replace the two bars (phase 13's bf16 step)."""
+    replace the two bars (phase 13's bf16 step). The collapsed tail's
+    conv_kxk and its wgrad (phase 14c) take the same plain versions beside
+    conv3x3's."""
     import numpy as np
 
     from larvanet_tpu_torch.ops import conv3x3
     from larvanet_tpu_torch.ops import conv3x3_wgrad as wg
+    from larvanet_tpu_torch.ops import conv_kxk as ck
 
     kernel_conv, plain_wgrad = conv3x3.conv3x3_bias_act, wg.conv3x3_wgrad_reference
+    kernel_kxk, kernel_kxk_wgrad = ck.conv_kxk, ck.conv_kxk_wgrad
 
     def plain_conv(x, kernel, bias, act=None, dgrad=False):
         return conv3x3.conv3x3_bias_act_reference(x, kernel, bias, act)
@@ -1637,9 +1748,19 @@ def check_train_grads(torch, model, x, t, label, batch, patch, same_forward=Fals
     def plain_dgrad(x, kernel, bias, act=None, dgrad=False):
         return (plain_conv if dgrad else kernel_conv)(x, kernel, bias, act)
 
+    def plain_kxk_dgrad(x, kernel, bias=None, pads=None, dgrad=False):
+        return (plain_kxk if dgrad else kernel_kxk)(x, kernel, bias, pads)
+
     def loss_and_grads(conv=kernel_conv, wgrad=wg.conv3x3_wgrad):
+        kxk, kxk_wgrad = kernel_kxk, kernel_kxk_wgrad
+        if conv is not kernel_conv:
+            kxk = plain_kxk_dgrad if conv is plain_dgrad else plain_kxk
+        if wgrad is not wg.conv3x3_wgrad:
+            kxk_wgrad = ck.conv_kxk_wgrad_reference
         with mock.patch.object(conv3x3, "conv3x3_bias_act", conv), \
-                mock.patch.object(wg, "conv3x3_wgrad", wgrad):
+                mock.patch.object(wg, "conv3x3_wgrad", wgrad), \
+                mock.patch.object(ck, "conv_kxk", kxk), \
+                mock.patch.object(ck, "conv_kxk_wgrad", kxk_wgrad):
             loss = float(model._loss_and_grads(x, t))
         grads = {k: p.grad.clone() for k, p in model.module.named_parameters()}
         model.optimizer.zero_grad(set_to_none=True)
@@ -1711,6 +1832,13 @@ def time_train_step(torch, model, x, t, step, label, batch, patch, dname="f32"):
     dgrad convs, wgrad, optimizer and other kernels, idle. Returns the
     time_windows entry."""
     tm = time_windows(torch, {"train_step": step})["train_step"]
+    train_step_split(torch, model, x, t, step, label, batch, patch, dname, tm)
+    return tm
+
+
+def train_step_split(torch, model, x, t, step, label, batch, patch, dname, tm):
+    """Print a train step's time `tm` (a time_windows entry) and where the
+    card's time goes in it (time_train_step's split)."""
     print("train: %s, batch %d x %dx%d, %s: %s per train step, %.3f LR-MP/s trained"
           % (label, batch, patch, patch, dname, spread(tm),
              batch * patch * patch / 1e3 / tm[0]), flush=True)
@@ -1719,20 +1847,22 @@ def time_train_step(torch, model, x, t, step, label, batch, patch, dname="f32"):
     _, parts = device_breakdown(torch, step, kinds=("wgrad", "conv3x3"))
     if parts is None or fwd is None:
         print("train step device breakdown not measured (the profiler recorded no kernel)")
-        return tm
+        return
     split = {"forward convs": fwd["conv3x3"], "dgrad convs": parts["conv3x3"] - fwd["conv3x3"],
              "wgrad": parts["wgrad"], "optimizer and other kernels": parts["other"]}
     split["idle"] = max(tm[0] - sum(split.values()), 0.0)
     print("train step device split (%s): %s" % (label, ", ".join(
         "%s %.4f ms (%.1f%%)" % (k, v, 100.0 * v / tm[0]) for k, v in split.items())),
         flush=True)
-    return tm
 
 
 def train_phase(torch):
-    """Phase 8. EDSR-baseline x4 trained at full width through the kernels.
-    Returns the counted train step's launches: {"forward": conv3x3 by path,
-    "dgrad": conv3x3 by path, "wgrad": wgrad by path}."""
+    """Phase 8. EDSR-baseline x4 trained at full width through the kernels,
+    on the plain tail (--collapsed_tail_train 0, and validate with
+    --collapsed_tail 0): the counts and checks of the module graph; the
+    default collapsed route is phase 14c's. Returns the counted train
+    step's launches: {"forward": conv3x3 by path, "dgrad": conv3x3 by path,
+    "wgrad": wgrad by path}."""
     import shutil
 
     import numpy as np
@@ -1753,7 +1883,7 @@ def train_phase(torch):
         loader.reseed_for_step(0)
         lr_list, hr_list = loader.get_patch_batch(batch, 4, patch)
         model = get_model("edsr")
-        model.parse_args([])
+        model.parse_args(["--collapsed_tail_train", "0"])
         model.prepare([4], device=device, seed=SEED, is_training=True)
         if model.num_parameters() != 1517571:
             raise AssertionError("EDSR-baseline x4 has %d parameters" % model.num_parameters())
@@ -1773,7 +1903,8 @@ def train_phase(torch):
         half = steps // 2
         cli = ["--dataloader", "div2k_train_loader", "--model", "edsr", "--scales", "4",
                "--device", device, "--batch_size", str(batch), "--input_patch_size",
-               str(patch), "--log_freq", str(half), "--save_freq", str(half)] + data_flags
+               str(patch), "--log_freq", str(half), "--save_freq", str(half),
+               "--collapsed_tail_train", "0"] + data_flags
         run = os.path.join(tmp, "run")
         t0 = time.perf_counter()
         trained, losses = train.main(cli + ["--train_path", run, "--max_steps", str(steps)])
@@ -1804,6 +1935,7 @@ def train_phase(torch):
                 os.makedirs(os.path.join(val, sub), exist_ok=True)
                 shutil.copy(os.path.join(tmp, sub, src), os.path.join(val, sub, src))
         validate.main(["--model", "edsr", "--scales", "4", "--device", device,
+                       "--collapsed_tail", "0",
                        "--restore_path", os.path.join(run, "model_%d.pth" % steps),
                        "--data_input_path", os.path.join(val, "LR"),
                        "--data_truth_path", os.path.join(val, "HR"),
@@ -1946,43 +2078,80 @@ def larva_train_phase(torch, device="cuda"):
     return launches
 
 
+def plain_kxk(x, kernel, bias=None, pads=None, dgrad=False):
+    """conv_kxk's plain version with the wrapper's signature."""
+    from larvanet_tpu_torch.ops import conv_kxk as ck
+
+    return ck.conv_kxk_reference(x, kernel, bias, pads)
+
+
 def plain_versions():
-    """A context in which every conv3x3 and fused ResBlock call runs its
-    plain version (and counts no launch)."""
+    """A context in which every conv3x3, conv_kxk and fused ResBlock call
+    runs its plain version (and counts no launch)."""
     from larvanet_tpu_torch.models import layers
     from larvanet_tpu_torch.ops import conv3x3
+    from larvanet_tpu_torch.ops import conv_kxk as ck
     from larvanet_tpu_torch.ops import wino_resblock as wr
 
     stack = contextlib.ExitStack()
     stack.enter_context(mock.patch.object(layers, "conv3x3_bias_act",
                                           conv3x3.conv3x3_bias_act_reference))
+    stack.enter_context(mock.patch.object(ck, "conv_kxk", plain_kxk))
     stack.enter_context(mock.patch.object(wr, "wino_resblock_transformed",
                                           wr.wino_resblock_transformed_reference))
     return stack
 
 
+# conv_kxk launches by path of the last `counted` run, and the sum of the
+# main paths' runs that were held to their counts (the kernels line)
+LAST_KXK = {}
+KXK_FORWARDS = {"cuda_core": 0, "tensor_core": 0}
+
+
 def counted(torch, fn, device="cuda"):
     """fn() with the launch counters zeroed just before it and read just
-    after: (its result, conv3x3 launches by path, fused launches by m)."""
+    after: (its result, conv3x3 launches by path, fused launches by m); the
+    conv_kxk launches by path go to LAST_KXK."""
     from larvanet_tpu_torch.ops import conv3x3
+    from larvanet_tpu_torch.ops import conv_kxk as ck
     from larvanet_tpu_torch.ops import wino_resblock as wr
 
     conv3x3.reset_launches()
+    ck.reset_launches()
     wr.reset_launches()
     out = fn()
     if device == "cuda":
         torch.cuda.synchronize()
+    LAST_KXK.clear()
+    LAST_KXK.update(ck.LAUNCHES_BY_PATH)
     return out, dict(conv3x3.LAUNCHES_BY_PATH), dict(wr.LAUNCHES)
 
 
-def expect_forwards(label, by_path, per_forward, forwards):
-    """Fail unless `by_path` is `forwards` forwards' worth of `per_forward`."""
+def expect_kxk(label, by_path, per_forward, forwards):
+    """Fail unless the conv_kxk launches `by_path` are `forwards` forwards'
+    worth of `per_forward`; add them to KXK_FORWARDS."""
     want = {p: k * forwards for p, k in per_forward.items()}
-    print("%s: conv3x3 launches by path %s (%d forwards)" % (label, by_path, forwards),
+    print("%s: conv_kxk launches by path %s (%d forwards)" % (label, by_path, forwards),
           flush=True)
-    if by_path != want:
-        raise AssertionError("%s: conv3x3 launches %s, not %d forwards' %s"
+    if dict(by_path) != want:
+        raise AssertionError("%s: conv_kxk launches %s, not %d forwards' %s"
                              % (label, by_path, forwards, want))
+    _add(KXK_FORWARDS, by_path)
+
+
+def expect_forwards(label, by_path, per_forward, forwards, kxk=None, probes=0):
+    """Fail unless `by_path` is `forwards` forwards' worth of `per_forward`
+    and `probes` tail probes' (PROBE_LAUNCHES: a CLI that makes the collapsed
+    route in the counted run); with `kxk`, the last counted run's conv_kxk
+    launches too (`expect_kxk`)."""
+    want = {p: k * forwards + probes * PROBE_LAUNCHES[p] for p, k in per_forward.items()}
+    print("%s: conv3x3 launches by path %s (%d forwards%s)" % (
+        label, by_path, forwards, ", %d tail probes" % probes if probes else ""), flush=True)
+    if by_path != want:
+        raise AssertionError("%s: conv3x3 launches %s, not %d forwards' and %d probes' %s"
+                             % (label, by_path, forwards, probes, want))
+    if kxk is not None:
+        expect_kxk(label, LAST_KXK, kxk, forwards)
 
 
 def tile_count(h, w, tile, overlap):
@@ -2023,14 +2192,19 @@ def full_frame_model_phase(torch, label, device="cuda"):
     """Phases 10a-10c for one model of FULL_FRAME_MODELS on the
     FULL_FRAME_LR frame: chop, tiles and the self-ensemble through the
     kernels, each counted and held against its plain version (or the direct
-    forward), then timed with its peak memory. Returns the conv3x3
+    forward), then timed with its peak memory. EDSR serves on its default
+    route, the collapsed tail (the self-ensemble runs the f32 module with
+    its own tail); the exact tiling and the 8K frame's chunks must equal
+    the direct forward and the chunks of 16 bit for bit. Returns the conv3x3
     launches by path of the counted runs."""
     import numpy as np
 
     from larvanet_tpu_torch.eval.ensemble import self_ensemble_forward
     from larvanet_tpu_torch.eval.tiling import TiledUpscaler, upscale_with_chop_forward
+    from larvanet_tpu_torch.ops.collapsed_tail import make_collapsed_edsr_forward
 
     name, flags, per_forward, (exact_tile, exact_overlap) = FULL_FRAME_MODELS[label]
+    kxk = FULL_FRAME_KXK[label]
     larva = name != "edsr"
     h, w = FULL_FRAME_LR
     rng = np.random.default_rng(SEED + 10)
@@ -2043,6 +2217,8 @@ def full_frame_model_phase(torch, label, device="cuda"):
         else:
             save_edsr_baseline(torch, pth, img, device)
         model = larvanet_model(name, flags, device, pth)
+    if not larva:
+        model.set_route(make_collapsed_edsr_forward(model))
     totals = {}
 
     def hwc(chw):
@@ -2069,7 +2245,7 @@ def full_frame_model_phase(torch, label, device="cuda"):
         return upscale_with_chop_forward(model, img, 4, CHOP_OVERLAP)
 
     got, by_path, _ = counted(torch, chop, device)
-    expect_forwards("full frame %s chop" % label, by_path, per_forward, 4)
+    expect_forwards("full frame %s chop" % label, by_path, per_forward, 4, kxk)
     _add(totals, by_path)
     with plain_versions():
         ref = chop()
@@ -2087,10 +2263,14 @@ def full_frame_model_phase(torch, label, device="cuda"):
     for i, (what, tiler) in enumerate(tilers.items()):
         got, by_path, _ = counted(torch, lambda: tiler.upscale_device(x[0]), device)
         expect_forwards("full frame %s %s" % (label, what), by_path, per_forward,
-                        tile_forwards(h, w, tiler.tile, tiler.tile - tiler.stride))
+                        tile_forwards(h, w, tiler.tile, tiler.tile - tiler.stride), kxk)
         _add(totals, by_path)
         if i == 0:
             held("%s against the direct forward" % what, got, direct, base)
+            if not torch.equal(got, direct):
+                raise AssertionError("full frame %s: the exact tiling %s differs from the "
+                                     "direct forward" % (label, what))
+            print("full frame %s %s: equal to the direct forward bit for bit" % (label, what))
         else:
             print("full frame %s %s: max |d| %.3g, PSNR %.2f dB against the direct forward"
                   % (label, what, float((got - direct).abs().max()), _psnr(got, direct)))
@@ -2105,21 +2285,28 @@ def full_frame_model_phase(torch, label, device="cuda"):
         torch, lambda: big_tiler.upscale_device(xb), device)), device)
     got, by_path, _ = run.pop("out")
     expect_forwards("full frame %s %s" % (label, big_label), by_path, per_forward,
-                    tile_forwards(*BIG_FRAME_LR, *TILE_DEFAULT))
+                    tile_forwards(*BIG_FRAME_LR, *TILE_DEFAULT), kxk)
     _add(totals, by_path)
     print("full frame %s %s: %d tiles in chunks of %d, peak memory %s" % (
         label, big_label, tile_count(*BIG_FRAME_LR, *TILE_DEFAULT), TILE_MAX_BATCH,
         "not measured" if mb is None else "%.1f MB" % mb), flush=True)
+    small = small_tiler.upscale_device(xb)
     held("%s in chunks of %d against chunks of %d" % (
-        big_label, TILE_MAX_BATCH, BIG_FRAME_SMALL_BATCH), got, small_tiler.upscale_device(xb),
+        big_label, TILE_MAX_BATCH, BIG_FRAME_SMALL_BATCH), got, small,
         larvanet_base(torch, model, big) if larva else None)
-    del got
+    if not torch.equal(got, small):
+        raise AssertionError("full frame %s: %s in chunks of %d differs from chunks of %d"
+                             % (label, big_label, TILE_MAX_BATCH, BIG_FRAME_SMALL_BATCH))
+    print("full frame %s %s: chunks of %d equal chunks of %d bit for bit"
+          % (label, big_label, TILE_MAX_BATCH, BIG_FRAME_SMALL_BATCH))
+    del got, small
 
     # 10c: the self-ensemble of the f32 module, its 8 orientations (the
     # transposed 510x339 frame among them) through the kernels
     se = self_ensemble_forward(model.module)
     got, by_path, _ = counted(torch, lambda: se(x)[0], device)
-    expect_forwards("full frame %s self-ensemble" % label, by_path, per_forward, 8)
+    expect_forwards("full frame %s self-ensemble" % label, by_path, FULL_FRAME_MODULE[label], 8,
+                    {"cuda_core": 0, "tensor_core": 0})
     _add(totals, by_path)
     with plain_versions():
         ref = se(x)[0]
@@ -2182,9 +2369,10 @@ def full_frame_cli_phase(torch, device="cuda"):
     PSNR within VALIDATE_PSNR_TOL of the same run with the plain versions;
     serve in chop and tile mode against get_sr's frames of the same mode;
     test on benchmark trees (`write_test_set`) with and without
-    --chop_forward. Every run's
-    launches are counted. Then 10e (`ema_phase`). Returns (conv3x3
-    launches by path, {m: fused launches by path})."""
+    --chop_forward. Every run's launches are counted, on the default
+    collapsed tail (the self-ensemble: the f32 module's own tail; a run
+    that makes the route also probes its tail). Then 10e (`ema_phase`).
+    Returns (conv3x3 launches by path, {m: fused launches by path})."""
     import numpy as np
 
     from larvanet_tpu_torch.cli import get_sr, serve, validate
@@ -2208,6 +2396,7 @@ def full_frame_cli_phase(torch, device="cuda"):
                 ("self-ensemble", ["--self_ensemble"], "all", 0, lambda h, w: 8)]
         runs += [("tile --wino_trunk %d" % m, ["--tile_forward"] + VALIDATE_TILE, "even", m,
                   lambda h, w: tile_forwards(h, w, 48, 16)) for m in (2, 4)]
+        no_kxk = {"cuda_core": 0, "tensor_core": 0}
         for label, flags, sub, m, forwards_of in runs:
             frames = VALIDATE_LR + ((VALIDATE_ODD_LR,) if sub == "all" else ())
             forwards = sum(forwards_of(h, w) for h, w in frames)
@@ -2236,8 +2425,11 @@ def full_frame_cli_phase(torch, device="cuda"):
                     or max(deltas.values()) > VALIDATE_PSNR_TOL:
                 raise AssertionError("full frame validate %s: PSNRs %s, plain %s"
                                      % (label, psnrs[0], psnrs[1]))
+            ensemble = label == "self-ensemble"
             expect_forwards("full frame validate %s" % label, by_path,
-                            WINO_CONV_PATH_LAUNCHES["f32"] if m else f32, forwards)
+                            WINO_CONV_PATH_LAUNCHES["f32"] if m else
+                            PLAIN_PATH_LAUNCHES["f32"] if ensemble else f32, forwards,
+                            no_kxk if ensemble else KXK_LAUNCHES, probes=1)
             _add(conv_totals, by_path)
             want = {k: (16 * forwards if k == m else 0) for k in (2, 4)}
             if wino != want:
@@ -2278,7 +2470,7 @@ def full_frame_cli_phase(torch, device="cuda"):
                 httpd.shutdown()
                 httpd.server_close()
                 thread.join(timeout=60)
-            expect_forwards("full frame serve %s" % mode, by_path, f32, forwards)
+            expect_forwards("full frame serve %s" % mode, by_path, f32, forwards, KXK_LAUNCHES)
             _add(conv_totals, by_path)
             for i, (code, body) in enumerate(replies):
                 if code != 200:
@@ -2321,7 +2513,7 @@ def full_frame_cli_phase(torch, device="cuda"):
                         for v in per.values()):
                     raise AssertionError("test %s: report %s" % (extra, scores[ds]))
             expect_forwards("full frame test %s" % " ".join(extra), by_path, f32,
-                            n_images * (4 if extra else 1))
+                            n_images * (4 if extra else 1), KXK_LAUNCHES, probes=1)
             _add(conv_totals, by_path)
 
         _add(conv_totals, ema_phase(torch, tmp, pth, device))
@@ -2331,13 +2523,15 @@ def full_frame_cli_phase(torch, device="cuda"):
 def ema_phase(torch, tmp, pth, device="cuda"):
     """Phase 10e. A .pth (the weights of `pth`) whose .state.pt holds an
     average that differs from them; validate --ema on phase 6's set under
-    `tmp` must write the frames of the average's own forward, bit for bit.
-    Returns validate's conv3x3 launches by path."""
+    `tmp` must write the frames of the average's own forward on the
+    default route (the collapsed tail, probed from the average), bit for
+    bit. Returns validate's conv3x3 launches by path."""
     import numpy as np
 
     from larvanet_tpu_torch.cli import validate
     from larvanet_tpu_torch.core.registry import get_model
     from larvanet_tpu_torch.data import io
+    from larvanet_tpu_torch.ops.collapsed_tail import make_collapsed_edsr_forward
 
     trainer = get_model("edsr")
     trainer.parse_args([])
@@ -2356,7 +2550,8 @@ def ema_phase(torch, tmp, pth, device="cuda"):
          "--ema", "1", "--data_input_path", lr_dir,
          "--data_truth_path", os.path.join(tmp, "all", "HR"), "--save_path", out_dir]), device)
     n_images = len(VALIDATE_LR) + 1
-    expect_forwards("full frame validate --ema", by_path, PATH_LAUNCHES["f32"], n_images)
+    expect_forwards("full frame validate --ema", by_path, PATH_LAUNCHES["f32"], n_images,
+                    KXK_LAUNCHES, probes=1)
 
     models = []
     for weights in (average, None):
@@ -2368,6 +2563,7 @@ def ema_phase(torch, tmp, pth, device="cuda"):
             with torch.no_grad():
                 for p, a in zip(model.module.parameters(), weights):
                     p.copy_(a)
+        model.set_route(make_collapsed_edsr_forward(model))
         models.append(model)
     differ = 0
     for name in io.list_pngs(os.path.join(tmp, "all", "HR")):
@@ -2679,6 +2875,7 @@ def int8_forward_phase(torch):
     from larvanet_tpu_torch.models.layers import interpolated_base
     from larvanet_tpu_torch.ops import conv3x3, pairs
     from larvanet_tpu_torch.ops import conv3x3_s8 as s8
+    from larvanet_tpu_torch.ops import conv_kxk as ck
 
     rng = np.random.default_rng(SEED + 12)
     n, h, w = LR_BATCH
@@ -2710,9 +2907,13 @@ def int8_forward_phase(torch):
             runner.int8 = capture
             s8.reset_launches()
             conv3x3.reset_launches()
+            ck.reset_launches()
             got = model.fwd_runtime(x)
             torch.cuda.synchronize()
             by_entry, by_path = dict(s8.LAUNCHES_BY_ENTRY), dict(conv3x3.LAUNCHES_BY_PATH)
+            # EDSR's int8 forward bakes the collapsed tail, as JAX's does
+            expect_kxk("int8 %s" % name, ck.LAUNCHES_BY_PATH, KXK_LAUNCHES if name == "edsr"
+                       else {"cuda_core": 0, "tensor_core": 0}, 1)
             del runner.int8
             want_s8, want_conv = INT8_LAUNCHES[name]
             print("int8 %s: one forward of %d x %dx%d: conv3x3_s8 launches %s, conv3x3 by "
@@ -2771,15 +2972,20 @@ def int8_forward_phase(torch):
 
 
 def _counted_s8(torch, fn):
-    """fn() with the s8 and conv3x3 counters zeroed just before it and read
-    just after: (its result, s8 launches by entry, conv3x3 by path)."""
+    """fn() with the s8, conv3x3 and conv_kxk counters zeroed just before it
+    and read just after: (its result, s8 launches by entry, conv3x3 by
+    path); conv_kxk's by path go to LAST_KXK."""
     from larvanet_tpu_torch.ops import conv3x3
     from larvanet_tpu_torch.ops import conv3x3_s8 as s8
+    from larvanet_tpu_torch.ops import conv_kxk as ck
 
     s8.reset_launches()
     conv3x3.reset_launches()
+    ck.reset_launches()
     out = fn()
     torch.cuda.synchronize()
+    LAST_KXK.clear()
+    LAST_KXK.update(ck.LAUNCHES_BY_PATH)
     return out, dict(s8.LAUNCHES_BY_ENTRY), dict(conv3x3.LAUNCHES_BY_PATH)
 
 
@@ -2833,9 +3039,11 @@ def int8_cli_phase(torch):
             thread.join(timeout=60)
         _expect_s8("serve --int8_trunk 1", by_entry, per, 3)
         expect_forwards("serve --int8_trunk 1: 3 int8 forwards (bf16) and the odd frame's "
-                        "exact f32 forward", by_path,
-                        {p: 3 * WINO_CONV_PATH_LAUNCHES["bf16"][p] + PATH_LAUNCHES["f32"][p]
+                        "exact f32 forward (the collapsed tail)", by_path,
+                        {p: 3 * INT8_LAUNCHES["edsr"][1][p] + PATH_LAUNCHES["f32"][p]
                          for p in PATH_LAUNCHES["f32"]}, 1)
+        expect_kxk("serve --int8_trunk 1: the baked tail of 4 forwards", LAST_KXK,
+                   KXK_LAUNCHES, 4)
         _add(total, by_entry)
         for i, (img, (code, body)) in enumerate(zip(frames, replies)):
             if code != 200:
@@ -2936,7 +3144,10 @@ def qat_phase(torch):
         lr_list, hr_list = loader.get_patch_batch(batch, 4, patch)
         x = torch.from_numpy(np.stack(lr_list).transpose(0, 2, 3, 1).copy()).cuda()
         t = torch.from_numpy(np.stack(hr_list).transpose(0, 2, 3, 1).copy()).cuda()
-        for name, mflags in (("edsr", []), ("LarvaNet", LARVANET_FLAGS)):
+        # EDSR on the plain tail (--collapsed_tail_train 0), the graph of
+        # these checks; the collapsed route trains in phase 14c
+        for name, mflags in (("edsr", ["--collapsed_tail_train", "0"]),
+                             ("LarvaNet", LARVANET_FLAGS)):
             model = get_model(name)
             model.parse_args(mflags + ["--qat", "1"])
             model.prepare([4], device="cuda", seed=SEED, is_training=True)
@@ -3125,7 +3336,7 @@ def bf16_train_phase(torch, tmp, data_flags, lr_list, hr_list):
     step_ms = {}
     for dname in ("f32", "bf16"):
         model = get_model("edsr")
-        model.parse_args(["--train_dtype", dname])
+        model.parse_args(["--train_dtype", dname, "--collapsed_tail_train", "0"])
         model.prepare([4], device="cuda", seed=SEED, is_training=True)
         if dname == "bf16":
             check_train_grads(torch, model, x, t, "EDSR-baseline x4 bf16", batch, patch,
@@ -3150,8 +3361,8 @@ def bf16_train_phase(torch, tmp, data_flags, lr_list, hr_list):
     half = TRAIN_STEPS // 2
     cli = ["--dataloader", "div2k_train_loader", "--model", "edsr", "--scales", "4",
            "--device", "cuda", "--batch_size", str(batch), "--input_patch_size", str(patch),
-           "--log_freq", str(half), "--save_freq", str(half), "--train_dtype", "bf16"
-           ] + data_flags
+           "--log_freq", str(half), "--save_freq", str(half), "--train_dtype", "bf16",
+           "--collapsed_tail_train", "0"] + data_flags
     os.makedirs(os.path.join(tmp, "bf16"))
     cli_resume_check(train.main, cli, os.path.join(tmp, "bf16"), TRAIN_STEPS,
                      ["model_%d.pth" % half, "model_%d.state.pt" % half],
@@ -3174,7 +3385,8 @@ def remat_phase(torch):
     x = torch.rand((n, h, h, 3), generator=gen, device="cuda") * 255
     t = torch.rand((n, 4 * h, 4 * h, 3), generator=gen, device="cuda") * 255
     out = {}
-    for name, flags in (("edsr", []), ("LarvaNet", list(LARVANET_FLAGS))):
+    for name, flags in (("edsr", ["--collapsed_tail_train", "0"]),
+                        ("LarvaNet", list(LARVANET_FLAGS))):
         grads, peaks = {}, {}
         for remat in ("0", "1"):
             model = get_model(name)
@@ -3253,7 +3465,7 @@ def device_pipeline_phase(torch, tmp, data_flags, loader):
     print("device pipeline: %d images, %.3f MB resident on the card"
           % (len(pipe), pipe.nbytes() / 1e6), flush=True)
     model = get_model("edsr")
-    model.parse_args([])
+    model.parse_args(["--collapsed_tail_train", "0"])
     model.prepare([4], device="cuda", seed=SEED, is_training=True)
     lr = model.get_learning_rate()
     chunk = lambda: run_chunk(model, pipe, DP_CHUNK, batch, patch, lr,  # noqa: E731
@@ -3286,7 +3498,8 @@ def device_pipeline_phase(torch, tmp, data_flags, loader):
     half = DP_STEPS // 2
     cli = ["--dataloader", "div2k_train_loader", "--model", "edsr", "--scales", "4",
            "--device", "cuda", "--batch_size", str(batch), "--input_patch_size", str(patch),
-           "--save_freq", str(half), "--device_pipeline", str(DP_CHUNK)] + data_flags
+           "--save_freq", str(half), "--device_pipeline", str(DP_CHUNK),
+           "--collapsed_tail_train", "0"] + data_flags
     os.makedirs(os.path.join(tmp, "dp"))
     cli_resume_check(train.main, cli, os.path.join(tmp, "dp"), DP_STEPS,
                      ["model_%d.pth" % half, "model_%d.state.pt" % half],
@@ -3414,6 +3627,466 @@ def train_flags_phase(torch):
     return {"bf16_step": bf16_step, "chunk": chunk, "wgrad_bf16": wgrad, "remat": remat}
 
 
+# ---- phase 14: the collapsed linear tail ------------------------------------------
+
+SAME5 = (2, 2, 2, 2)
+# conv_kxk's shapes (ops/conv_kxk.py), as (name, geometry, C, F, kh, kw,
+# pads, launches per collapsed x4 forward): the main 5x5 SAME conv of the
+# x4, x2 and x3 tails (64 -> 3 s^2), the border operators on 4-pixel strips
+# (top / bottom (4, 5), left / right (5, 4), 64 -> b q = 2 x 3 s^2) and the
+# corners (4x4 convs of a 4x4 patch, 64 -> b^2 q = 4 x 48); the collapsed
+# interpolated base's 3 -> 48 (5x5 bicubic, 3x3 bilinear, 1x1 nearest);
+# the live tail's input gradient, 48 -> 64 at the training size. Geometry:
+# "lr" the LR batch, "rows" its 4-row strips, "cols" its 4-column strips,
+# "corner" its 4x4 patches, "train" batch 16 x 48x48
+KXK_SHAPES = (
+    ("x4 5x5", "lr", 64, 48, 5, 5, SAME5, 1),
+    ("x4 top/bottom 4x5", "rows", 64, 96, 4, 5, (0, 0, 2, 2), 2),
+    ("x4 left/right 5x4", "cols", 64, 96, 5, 4, (2, 2, 0, 0), 2),
+    ("x4 corner 4x4", "corner", 64, 192, 4, 4, (0, 0, 0, 0), 4),
+    ("x2 5x5", "lr", 64, 12, 5, 5, SAME5, 0),
+    ("x2 top/bottom 4x5", "rows", 64, 24, 4, 5, (0, 0, 2, 2), 0),
+    ("x2 left/right 5x4", "cols", 64, 24, 5, 4, (2, 2, 0, 0), 0),
+    ("x3 5x5", "lr", 64, 27, 5, 5, SAME5, 0),
+    ("x3 top/bottom 4x5", "rows", 64, 54, 4, 5, (0, 0, 2, 2), 0),
+    ("x3 left/right 5x4", "cols", 64, 54, 5, 4, (2, 2, 0, 0), 0),
+    ("base bicubic x4 5x5", "lr", 3, 48, 5, 5, SAME5, 0),
+    ("base bilinear x4 3x3", "lr", 3, 48, 3, 3, (1, 1, 1, 1), 0),
+    ("base nearest x4 1x1", "lr", 3, 48, 1, 1, (0, 0, 0, 0), 0),
+    ("dgrad x4 5x5 48->64", "train", 48, 64, 5, 5, SAME5, 0),
+)
+# the live tail's weight gradient: its 5x5 64 -> 48 conv at batch 16 x 48x48
+KXK_WGRAD = (TRAIN_BATCH, TRAIN_PATCH, TRAIN_PATCH, 64, 48)
+# f32: F32_ATOL per product summed, scaled from the 3x3 64-channel conv's 576
+# products to the shape's kh kw C. The tensor cores' f32 sums round toward
+# zero, so the error's bias grows with the products summed (the 5x5 64 ->
+# 48 conv on an H100, 1,600 products of N(0, 1) x 0.1 N(0, 1) values: 2.56e-4
+# against F32_ATOL's 2e-4, the tensor-core accumulation's bias)
+KXK_F32_TERMS = 576
+# the probed kernel against the one composed from the tail's weights (the
+# live tail's delta batch with full padding, nothing subtracted): a probed
+# entry is the difference of two responses of the tail's output magnitude
+# (~|DIV2K mean| and the fitted bias, up to ~256), each carrying a step or
+# two of f32 rounding at that magnitude, so it is held within PROBE_STEPS
+# steps of it
+PROBE_STEPS = 4
+# the collapsed forward against the plain tail's, f32, by PSNR on [0, 255]:
+# the forward sums the probed kernel's steps over 1,600 taps of the trunk's
+# features (|h| ~ 140 on average at full width), ~0.05 on average and ~0.36
+# at most, in JAX's own collapsed forward as in the port's (JAX's 0.1 bar,
+# tests/test_collapsed_tail.py:26-28, is at 16 features); a wrong operator
+# moves pixels by whole levels, tens of dB below this bar
+COLLAPSED_PSNR_DB = 60.0
+# one EDSR-baseline x4 train step on the default route (the live collapsed
+# tail, the loss before the shuffle), by path. conv3x3 forwards: the
+# trunk's 34 (first_conv on the CUDA cores) and, for the kernel's
+# composition (a 64-image delta batch), the bias tile (a 5x5 canvas) and
+# each of the two strip batches, the original tail's three convs (two 64 ->
+# 256 on the tensor cores, one 64 -> 3 narrow). dgrads: the trunk's 33, and
+# the tail calls' (none for the first conv of the composition and of the
+# bias tile, whose inputs are the delta batch and the zero canvas): 256 ->
+# 64 on the tensor cores, 3 -> 64 on the CUDA cores. wgrads: one per
+# forward conv, by conv3x3_wgrad's path_for
+TRAIN_COLLAPSED_LAUNCHES = {"forward": {"cuda_core": 1, "tensor_core": 41, "narrow": 4},
+                            "dgrad": {"cuda_core": 4, "tensor_core": 39, "narrow": 0},
+                            "wgrad": {"tensor_core": 41, "narrow": 4, "cuda_core": 1}}
+# conv_kxk in that step: the 5x5 64 -> 48 forward and its 48 -> 64 input
+# gradient on the tensor cores, and one weight gradient
+TRAIN_COLLAPSED_KXK = {"forward": {"cuda_core": 0, "tensor_core": 1},
+                       "dgrad": {"cuda_core": 0, "tensor_core": 1}, "wgrad": 1}
+
+
+def _kxk_input(kind, geometry):
+    n, h, w = geometry
+    return {"lr": (n, h, w), "rows": (n, 4, w), "cols": (n, h, 4), "corner": (n, 4, 4),
+            "train": (TRAIN_BATCH, TRAIN_PATCH, TRAIN_PATCH)}[kind]
+
+
+def kxk_kernel_phase(torch):
+    """Phase 14a, the kernels. conv_kxk at every shape of KXK_SHAPES on the 4
+    x 192x192 batch (and the main x4 conv on the 339x510 frame), f32 (TF32
+    off) and bf16: one launch on the path `path_for` names, held against its
+    plain version (F32_ATOL per KXK_F32_TERMS products summed; bf16 one
+    step), timed in turns with it and
+    F.conv2d (the yardstick), beside its bound. Returns ({dtype: sums over
+    one collapsed x4 forward's 9 calls}, {dtype: worst error}, {shape row:
+    numbers})."""
+    import torch.nn.functional as F
+
+    from larvanet_tpu_torch.ops import conv_kxk as ck
+
+    dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms")
+    sums = {d: dict.fromkeys(keys, 0.0) for d in dtypes}
+    kinds = {d: {} for d in dtypes}
+    worst = {d: 0.0 for d in dtypes}
+    rows = {}
+    for geometry, (name, kind, c, f, kh, kw, pads, count) in (
+            [(LR_BATCH, shape) for shape in KXK_SHAPES] + [(RAGGED, KXK_SHAPES[0])]):
+        n, h, w = _kxk_input(kind, geometry)
+        x32 = torch.randn((n, h, w, c), generator=gen, device="cuda")
+        k32 = 0.1 * torch.randn((kh, kw, c, f), generator=gen, device="cuda")
+        b32 = torch.randn((f,), generator=gen, device="cuda")
+        for dname, dtype in dtypes.items():
+            x = x32.to(dtype)
+            path = ck.path_for(c)
+            before = dict(ck.LAUNCHES_BY_PATH)
+            got = ck.conv_kxk(x, k32, b32, pads)
+            torch.cuda.synchronize()  # a fault during the run shows here
+            took = {p: ck.LAUNCHES_BY_PATH[p] - before[p] for p in before}
+            if took != {p: int(p == path) for p in before}:
+                raise AssertionError("conv_kxk %s %s: launches by path %s, expected one on %s"
+                                     % (name, dname, took, path))
+            want = ck.conv_kxk_reference(x, k32, b32, pads)
+            ok, err = _conv_ok(torch, got, want, dname,
+                               F32_ATOL * max(1.0, kh * kw * c / KXK_F32_TERMS))
+            worst[dname] = max(worst[dname], err)
+            if not ok:
+                raise AssertionError("conv_kxk %s %s %s: %s kernel disagrees with its plain "
+                                     "version, max |d| = %g" % (name, dname, (n, h, w, c, f),
+                                                                path, err))
+            w_oihw = k32.to(dtype).permute(3, 2, 0, 1).contiguous()
+            x_nchw = x.permute(0, 3, 1, 2)  # channels_last view of NHWC
+            b_lib = b32.to(dtype)
+            t = time_windows(torch, {
+                "kernel": lambda: ck.conv_kxk(x, k32, b32, pads),
+                "F.conv2d": lambda: F.conv2d(x_nchw, w_oihw, b_lib, padding=(pads[0], pads[2])),
+                "plain": lambda: ck.conv_kxk_reference(x, k32, b32, pads)})
+            bound, by = bound_ms(n, h, w, c, f, dname, kh, kw, pads)
+            print("conv_kxk %-22s %-4s x=%s C=%d F=%d %dx%d pads %s: %s kernel %s, F.conv2d %s, "
+                  "plain %s, bound %.4f ms (%s, %.1fx), max|d| %.3g" % (
+                      name, dname, (n, h, w), c, f, kh, kw, pads, path, spread(t["kernel"]),
+                      spread(t["F.conv2d"]), spread(t["plain"]), bound, by,
+                      t["kernel"][0] / bound, err), flush=True)
+            row = {"ms": t["kernel"][0], "plain_ms": t["plain"][0],
+                   "library_ms": t["F.conv2d"][0], "bound_ms": bound, "bound_by": by,
+                   "max_abs_err": err, "path": path}
+            rows["%s %dx%dx%d %s" % (name, n, h, w, dname)] = row
+            if geometry == LR_BATCH and count:
+                for k in keys:
+                    sums[dname][k] += count * row[k]
+                kinds[dname][by] = kinds[dname].get(by, 0.0) + count * bound
+            del x, got, want
+        del x32, k32, b32
+        torch.cuda.empty_cache()
+    for dname in dtypes:
+        sums[dname]["bound_by"] = max(kinds[dname], key=kinds[dname].get)
+        print("conv_kxk per collapsed EDSR-baseline x4 forward at %s (%d calls), %s: kernel "
+              "%.4f ms, plain %.4f ms, F.conv2d %.4f ms, bound %.4f ms (%s)" % (
+                  LR_BATCH, sum(row[-1] for row in KXK_SHAPES), dname, sums[dname]["ms"],
+                  sums[dname]["plain_ms"], sums[dname]["library_ms"], sums[dname]["bound_ms"],
+                  sums[dname]["bound_by"]), flush=True)
+    return sums, worst, rows
+
+
+def kxk_wgrad_phase(torch):
+    """Phase 14a, the weight gradient: conv_kxk_wgrad at the live tail's 5x5
+    64 -> 48 conv, batch 16 x 48x48, f32 and bf16, against its plain version
+    (GRAD_RTOL of max |dW|, and of max |db|), timed in turns with it and
+    conv2d_weight (the yardstick), beside its bound. Returns {dtype: the
+    numbers}."""
+    from larvanet_tpu_torch.ops import conv_kxk as ck
+
+    n, h, w, c, f = KXK_WGRAD
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 15)
+    x32 = torch.randn((n, h, w, c), generator=gen, device="cuda")
+    g32 = torch.randn((n, h, w, f), generator=gen, device="cuda") / (n * h * w)
+    out = {}
+    for dname, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        x, g = x32.to(dtype), g32.to(dtype)
+        dw, db = ck.conv_kxk_wgrad(x, g, 5, 5, SAME5)
+        torch.cuda.synchronize()
+        want_w, want_b = ck.conv_kxk_wgrad_reference(x, g, 5, 5, SAME5)
+        err = max(float((dw - want_w).abs().max()), float((db - want_b).abs().max()))
+        rel = max(float((dw - want_w).abs().max() / want_w.abs().max()),
+                  float((db - want_b).abs().max() / want_b.abs().max()))
+        if rel > GRAD_RTOL or not bool(torch.isfinite(dw).all()):
+            raise AssertionError("conv_kxk_wgrad %s disagrees with its plain version, max |d| "
+                                 "/ max |dW| = %g" % (dname, rel))
+        x_nchw, g_nchw = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
+        t = time_windows(torch, {
+            "kernel": lambda: ck.conv_kxk_wgrad(x, g, 5, 5, SAME5),
+            "conv2d_weight": lambda: torch.nn.grad.conv2d_weight(x_nchw, (f, c, 5, 5), g_nchw,
+                                                                 padding=2),
+            "plain": lambda: ck.conv_kxk_wgrad_reference(x, g, 5, 5, SAME5)})
+        item = 4 if dname == "f32" else 2
+        nbytes = item * n * h * w * (c + f) + 4 * (25 * c * f + f)
+        flops = 2 * n * h * w * 25 * c * f + n * h * w * f
+        t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_FLOPS[dname]
+        bound, by = 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+        print("conv_kxk_wgrad %s x=%s C=%d F=%d 5x5: kernel %s, conv2d_weight %s, plain %s, "
+              "bound %.4f ms (%s, %.1fx), max|d| %.3g (%.3g of max |dW|)" % (
+                  dname, (n, h, w), c, f, spread(t["kernel"]), spread(t["conv2d_weight"]),
+                  spread(t["plain"]), bound, by, t["kernel"][0] / bound, err, rel), flush=True)
+        out[dname] = {"ms": t["kernel"][0], "plain_ms": t["plain"][0],
+                      "library_ms": t["conv2d_weight"][0], "bound_ms": bound, "bound_by": by,
+                      "max_abs_err": err, "max_rel_err": rel}
+        del x, g, dw, db, want_w, want_b
+    torch.cuda.empty_cache()
+    return out
+
+
+def collapsed_radius_phase(torch):
+    """Phase 14a, the probes: EDSR-baseline x2, x3 and x4 at full width
+    (random weights from SEED) probed on the card through the kernels
+    (ops/collapsed_tail.collapsed_edsr_tail): the trimmed radius must be
+    2, as JAX's is, which needs the delta and zero responses to cancel
+    exactly. Returns {scale: radius}."""
+    from larvanet_tpu_torch.core.registry import get_model
+    from larvanet_tpu_torch.ops.collapsed_tail import collapsed_edsr_tail
+
+    radius = {}
+    for scale in (2, 3, 4):
+        model = get_model("edsr")
+        model.parse_args([])
+        model.prepare([scale], device="cuda", seed=SEED)
+        t0 = time.perf_counter()
+        tail = collapsed_edsr_tail(model)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        radius[scale] = tail.radius
+        print("collapsed tail x%d: probed on the card in %.3f s, kernel %s, radius %d (1 + %d "
+              "stages probed)" % (scale, seconds, tuple(tail.kernel_np.shape), tail.radius,
+                                  2 if scale == 4 else 1), flush=True)
+        if tail.radius != 2:
+            raise AssertionError("collapsed tail x%d: radius %d, not 2: the probes did not "
+                                 "cancel exactly" % (scale, tail.radius))
+        del model, tail
+    return radius
+
+
+def _no_grad(torch, fn):
+    def call():
+        with torch.no_grad():
+            return fn()
+    return call
+
+
+def collapsed_serve_phase(torch):
+    """Phase 14b. EDSR-baseline x4 at full width (fitted as in phase 4) on
+    the 4 x 192x192 batch of photo frames, f32 and bf16, on the default
+    route, the collapsed tail: one forward counted (PATH_LAUNCHES conv3x3
+    and KXK_LAUNCHES conv_kxk launches), held within FWD_RTOL /
+    BF16_FWD_RTOL of the same route with the plain versions inside and
+    within COLLAPSED_PSNR_DB (bf16: BF16_FWD_RTOL of its max) of the plain
+    tail's forward, its probed kernel within PROBE_STEPS f32 steps of the
+    kernel composed from the tail's weights; the forwards and the tails alone timed in turns against
+    the plain tail's, with their device split. Then the baked tail of the
+    --wino_trunk 2 forward (counted; f32 within WINO_FWD_RTOL of the
+    collapsed conv3x3 forward) and of the int8 forward (counted; PSNR
+    against the plain int8 forward >= INT8_FWD_PSNR_DB). Returns the
+    numbers."""
+    from types import SimpleNamespace
+
+    import numpy as np
+
+    from larvanet_tpu_torch.cli import common
+    from larvanet_tpu_torch.core.registry import get_model
+    from larvanet_tpu_torch.ops import conv3x3_s8 as s8
+    from larvanet_tpu_torch.ops.collapsed_tail import (collapsed_edsr_tail, edsr_tail_fn,
+                                                        live_collapsed_edsr_tail,
+                                                        make_collapsed_edsr_forward)
+    from larvanet_tpu_torch.ops.wino_resblock import make_wino_edsr_forward
+
+    rng = np.random.default_rng(SEED + 16)
+    n, h, w = LR_BATCH
+    frames = [photo(rng, h, w) for _ in range(n)]
+    x = torch.from_numpy(np.ascontiguousarray(
+        np.stack(frames).transpose(0, 2, 3, 1), np.float32)).cuda()
+    with tempfile.TemporaryDirectory() as tmp:
+        pth = os.path.join(tmp, "edsr_x4.pth")
+        save_edsr_baseline(torch, pth, frames[0])
+        model = get_model("edsr")
+        model.parse_args([])
+        model.prepare([4], device="cuda", seed=SEED)
+        model.restore(pth)
+    direct = make_collapsed_edsr_forward(model)
+    # the probed kernel against the composed one
+    tail = collapsed_edsr_tail(model)
+    with torch.no_grad():
+        composed = live_collapsed_edsr_tail(model.module, 4)[0].cpu().numpy()
+    magnitude = float(np.abs(tail.bias_tile_np).max() + np.abs(tail.kernel_np).max())
+    probe_err = float(np.abs(tail.kernel_np - composed).max())
+    probe_bar = PROBE_STEPS * float(np.spacing(np.float32(magnitude)))
+    print("collapsed tail x4: the probed kernel lies %.3g from the composed one (bar %.3g: %d "
+          "f32 steps at the tail's %.4g)" % (probe_err, probe_bar, PROBE_STEPS, magnitude),
+          flush=True)
+    if composed.shape != tail.kernel_np.shape or probe_err > probe_bar:
+        raise AssertionError("the probed kernel disagrees with the composed one")
+    out = {"probe_err": probe_err}
+    collapsed = {}
+
+    def run(route):
+        model.set_route(route)
+        return model.fwd_runtime(x)
+
+    for dname in ("f32", "bf16"):
+        model.set_serving_dtype(dname)
+        label = "collapsed %s" % dname
+        got, conv, _ = counted(torch, lambda: run(direct))
+        expect_forwards("forward %s" % label, conv, PATH_LAUNCHES[dname], 1, KXK_LAUNCHES)
+        collapsed[dname] = got
+        with plain_versions():
+            ref = run(direct)
+        err = float((got - ref).abs().max())
+        bar = (FWD_RTOL if dname == "f32" else BF16_FWD_RTOL) * float(ref.abs().max())
+        plain_tail = run(None)
+        d_tail = float((got - plain_tail).abs().max())
+        psnr_tail = _psnr(got, plain_tail)
+        tail_ok = (psnr_tail >= COLLAPSED_PSNR_DB if dname == "f32"
+                   else d_tail <= BF16_FWD_RTOL * float(plain_tail.abs().max()))
+        print("forward %s: max |d| %.3g against the same route with the plain versions (bar "
+              "%.3g); against the plain tail's forward max |d| %.3g, mean %.3g, PSNR %.2f dB "
+              "(bar: %s)" % (label, err, bar, d_tail, float((got - plain_tail).abs().mean()),
+                             psnr_tail, "%g dB" % COLLAPSED_PSNR_DB if dname == "f32" else
+                             "%.3g" % (BF16_FWD_RTOL * float(plain_tail.abs().max()))),
+              flush=True)
+        if err > bar or not tail_ok or not bool(torch.isfinite(got).all()):
+            raise AssertionError("forward %s disagrees" % label)
+        del ref, plain_tail
+        t = time_windows(torch, {"collapsed": lambda: run(direct), "plain tail": lambda: run(None)})
+        splits = {k: breakdown_line(torch, lambda k=k: run(direct if k == "collapsed" else None),
+                                    t[k][0]) for k in t}
+        for k in t:
+            print("forward: EDSR-baseline x4, %d x %dx%d LR, %s, %s tail: %s per forward, %.3f "
+                  "LR-MP/s; %s" % (n, h, w, dname, k, spread(t[k]), n * h * w / 1e3 / t[k][0],
+                                   splits[k]), flush=True)
+        # the tails alone, on the trunk's output
+        xd = x.to(model.compute_dtype)
+        with torch.no_grad():
+            hd = model.serving_module(xd, tail=lambda z: z)
+        plain = edsr_tail_fn(model.serving_module)
+        tails = {"collapsed": _no_grad(torch, lambda: tail(hd)),
+                 "plain": _no_grad(torch, lambda: plain(hd))}
+        tt = time_windows(torch, tails)
+        for k, fn in tails.items():
+            print("tail: EDSR-baseline x4, %d x %dx%d LR, %s, %s: %s; %s" % (
+                n, h, w, dname, k, spread(tt[k]), breakdown_line(torch, fn, tt[k][0])),
+                flush=True)
+        out[dname] = {"forward_ms": t["collapsed"][0], "plain_tail_forward_ms": t["plain tail"][0],
+                      "tail_ms": tt["collapsed"][0], "plain_tail_ms": tt["plain"][0],
+                      "max_abs_err": err, "vs_plain_tail": d_tail,
+                      "vs_plain_tail_psnr": psnr_tail}
+        del hd
+    model.set_serving_dtype("f32")
+
+    # --wino_trunk 2 on the baked tail, f32
+    wino = make_wino_edsr_forward(model, 2)
+    got, conv, fused = counted(torch, lambda: run(wino))
+    expect_forwards("forward --wino_trunk 2 (baked tail)", conv, WINO_CONV_PATH_LAUNCHES["f32"],
+                    1, KXK_LAUNCHES)
+    err = float((got - collapsed["f32"]).abs().max())
+    bar = WINO_FWD_RTOL * float(collapsed["f32"].abs().max())
+    print("forward --wino_trunk 2 (baked tail): fused launches %s; max |d| %.3g against the "
+          "collapsed conv3x3 forward (bar %.3g)" % (fused, err, bar), flush=True)
+    if fused != {2: 16, 4: 0} or err > bar:
+        raise AssertionError("the --wino_trunk 2 forward on the baked tail disagrees")
+
+    # the int8 forward on the baked tail, calibrated on photo frames
+    calib = np.stack([photo(rng, *INT8_CALIB[1:]) for _ in range(INT8_CALIB[0])])
+    calib = calib.transpose(0, 2, 3, 1).astype(np.float32)
+    model.set_route(None)
+    common.maybe_int8_trunk(model, SimpleNamespace(int8_trunk=1, model="edsr"), lambda: calib)
+    got, by_entry, conv = _counted_s8(torch, lambda: model.fwd_runtime(x))
+    expect_forwards("forward --int8_trunk 1 (baked tail)", conv, INT8_LAUNCHES["edsr"][1], 1)
+    expect_kxk("forward --int8_trunk 1 (baked tail)", LAST_KXK, KXK_LAUNCHES, 1)
+    with _plain_s8(), plain_versions():
+        ref = model.fwd_runtime(x)
+    psnr = _psnr(got, ref)
+    print("forward --int8_trunk 1 (baked tail): conv3x3_s8 launches %s; PSNR %.2f dB against the "
+          "plain int8 forward (bar %g), %.2f dB against the f32 collapsed forward" % (
+              by_entry, psnr, INT8_FWD_PSNR_DB, _psnr(got, collapsed["f32"])), flush=True)
+    if by_entry != INT8_LAUNCHES["edsr"][0] or psnr < INT8_FWD_PSNR_DB:
+        raise AssertionError("the int8 forward on the baked tail disagrees")
+    model.set_route(None)
+    del model, got, ref, collapsed
+    torch.cuda.empty_cache()
+    return out
+
+
+def collapsed_train_phase(torch):
+    """Phase 14c. EDSR-baseline x4 trained at full width on the default
+    route (the live collapsed tail, the loss before the shuffle), batch 16
+    of 48x48 on phase 8's set: one batch's loss and gradients against the
+    plain versions (LOSS_RTOL, GRAD_RTOL; conv3x3, conv_kxk and both weight
+    gradients plain); one counted step (TRAIN_COLLAPSED_LAUNCHES,
+    TRAIN_COLLAPSED_KXK); the step's median ms and device split against
+    --collapsed_tail_train 0's in the same call; the train CLI for
+    TRAIN_STEPS steps and a resume from the middle, bit for bit. Returns
+    the counted step's launches ({"forward", "dgrad", "wgrad"}, and
+    "kxk")."""
+    import numpy as np
+
+    from larvanet_tpu_torch.cli import train
+    from larvanet_tpu_torch.core.registry import get_loader, get_model
+    from larvanet_tpu_torch.ops import conv_kxk as ck
+
+    batch, patch = TRAIN_BATCH, TRAIN_PATCH
+    with tempfile.TemporaryDirectory() as tmp:
+        write_train_set(tmp, np.random.default_rng(SEED + 8), TRAIN_FRAMES, TRAIN_LR)
+        data_flags = ["--data_input_path", os.path.join(tmp, "LR"),
+                      "--data_truth_path", os.path.join(tmp, "HR"), "--data_cached",
+                      "--data_seed", str(SEED)]
+        loader = get_loader("div2k_train_loader")
+        loader.parse_args(data_flags)
+        loader.prepare([4])
+        loader.reseed_for_step(0)
+        lr_list, hr_list = loader.get_patch_batch(batch, 4, patch)
+        x = torch.from_numpy(np.stack(lr_list).transpose(0, 2, 3, 1).copy()).cuda()
+        t = torch.from_numpy(np.stack(hr_list).transpose(0, 2, 3, 1).copy()).cuda()
+        models = {}
+        for label, flags in (("collapsed", []), ("plain", ["--collapsed_tail_train", "0"])):
+            model = get_model("edsr")
+            model.parse_args(flags)
+            model.prepare([4], device="cuda", seed=SEED, is_training=True)
+            models[label] = model
+        model = models["collapsed"]
+        if model.train_tail_route() != "lr_domain" or models["plain"].train_tail_route():
+            raise AssertionError("train routes %s / %s" % (
+                model.train_tail_route(), models["plain"].train_tail_route()))
+        check_train_grads(torch, model, x, t, "EDSR-baseline x4 collapsed tail", batch, patch)
+        ck.reset_launches()
+        launches = counted_step(torch, lambda: model.train_step(lr_list, 4, hr_list))
+        dgrad = dict(ck.DGRAD_LAUNCHES_BY_PATH)
+        kxk = {"forward": {p: ck.LAUNCHES_BY_PATH[p] - dgrad[p] for p in dgrad},
+               "dgrad": dgrad, "wgrad": ck.WGRAD_LAUNCHES}
+        print("launches: conv_kxk forward %s, dgrad %s; conv_kxk_wgrad %d"
+              % (kxk["forward"], kxk["dgrad"], kxk["wgrad"]), flush=True)
+        if launches != TRAIN_COLLAPSED_LAUNCHES or kxk != TRAIN_COLLAPSED_KXK:
+            raise AssertionError("collapsed train step launches %s and %s, not %s and %s" % (
+                launches, kxk, TRAIN_COLLAPSED_LAUNCHES, TRAIN_COLLAPSED_KXK))
+        # the two routes' steps timed in turns, window by window
+        steps = {label: (lambda m=m: m.train_step(lr_list, 4, hr_list))
+                 for label, m in models.items()}
+        tms = time_windows(torch, steps)
+        times = {label: tm[0] for label, tm in tms.items()}
+        for label, m in models.items():
+            train_step_split(torch, m, x, t, steps[label], "EDSR-baseline x4 %s tail" % label,
+                             batch, patch, "f32", tms[label])
+            _, parts = device_breakdown(torch, steps[label],
+                                        kinds=("conv_kxk", "wgrad", "conv3x3"))
+            if parts is not None:
+                print("train step kernels by name (%s tail): %s" % (label, ", ".join(
+                    "%s %.4f ms" % kv for kv in parts.items())), flush=True)
+        print("train step, EDSR-baseline x4 batch 16 x 48x48 f32, timed in turns: collapsed "
+              "tail %.4f ms against the plain tail's %.4f ms (%.3fx)" % (
+                  times["collapsed"], times["plain"], times["plain"] / times["collapsed"]),
+              flush=True)
+        del models, model, x, t
+        torch.cuda.empty_cache()
+        half = TRAIN_STEPS // 2
+        cli = ["--dataloader", "div2k_train_loader", "--model", "edsr", "--scales", "4",
+               "--device", "cuda", "--batch_size", str(batch), "--input_patch_size",
+               str(patch), "--log_freq", str(half), "--save_freq", str(half)] + data_flags
+        os.makedirs(os.path.join(tmp, "collapsed"))
+        cli_resume_check(train.main, cli, os.path.join(tmp, "collapsed"), TRAIN_STEPS,
+                         ["model_%d.pth" % half, "model_%d.state.pt" % half],
+                         "train CLI (the collapsed tail, the loss before the shuffle)")
+    torch.cuda.empty_cache()
+    return dict(launches, kxk=kxk, step_ms=times)
+
+
 def print_sass_mix(build):
     """The instruction mix of each tensor-core and narrow kernel in the
     built libraries (cuobjdump -sass): ldmatrix, tensor-core products,
@@ -3506,6 +4179,13 @@ def main() -> int:
     flags = train_flags_phase(torch)
     trained.append(flags["bf16_step"])
     trained.append(flags["chunk"])
+    torch.cuda.empty_cache()
+    kxk_sums, kxk_worst, kxk_rows = kxk_kernel_phase(torch)
+    kxk_wgrad = kxk_wgrad_phase(torch)
+    radius = collapsed_radius_phase(torch)
+    collapsed_serve = collapsed_serve_phase(torch)
+    collapsed_train = collapsed_train_phase(torch)
+    trained.append(collapsed_train)
     s8_by_entry = {}
     for part in (*s8_forward.values(), s8_cli):
         _add(s8_by_entry, part)
@@ -3641,6 +4321,53 @@ def main() -> int:
         # phase 11a's widths past one code halo (the chunked plan): the
         # calls that checked and timed them, outside every model's path
         "wide": s8_wide,
+    })
+    kxk_by_path = dict(KXK_FORWARDS)
+    for part in (collapsed_train["kxk"]["forward"], collapsed_train["kxk"]["dgrad"]):
+        _add(kxk_by_path, part)
+    kernels.append({
+        "name": "conv_kxk",
+        "route": "cuda",
+        "source": "larvanet_tpu_torch/csrc/conv_kxk.cu",
+        "replaces": "larvanet_tpu/ops/collapsed_tail.py:330 (XLA's lax.conv_general_dilated "
+                    "of the collapsed tail; no Pallas kernel)",
+        # the counted collapsed forwards of phases 4, 5, 6, 7, 10, 11 and 14,
+        # and phase 14c's train step (its forward and input gradient)
+        "launches": sum(kxk_by_path.values()),
+        "launches_by_path": kxk_by_path,
+        "max_abs_err": kxk_worst["f32"],
+        # one collapsed EDSR-baseline x4 forward's 9 calls at 4 x 192x192, f32
+        # (TF32 off) and bf16; library_ms F.conv2d at the same shapes
+        "ms": kxk_sums["f32"]["ms"],
+        "plain_ms": kxk_sums["f32"]["plain_ms"],
+        "bound_ms": kxk_sums["f32"]["bound_ms"],
+        "bound_by": kxk_sums["f32"]["bound_by"],
+        "library_ms": kxk_sums["f32"]["library_ms"],
+        "bf16": dict(kxk_sums["bf16"], max_abs_err=kxk_worst["bf16"]),
+        "shapes": kxk_rows,
+        # phase 14a's probed radius, 14b's forwards and tails, 14c's step
+        "radius": radius,
+        "serving": collapsed_serve,
+        "train_step": {"launches": collapsed_train["kxk"], "ms": collapsed_train["step_ms"]},
+    })
+    kernels.append({
+        "name": "conv_kxk_wgrad",
+        "route": "cuda",
+        "source": "larvanet_tpu_torch/csrc/conv_kxk.cu",
+        "replaces": "larvanet_tpu/ops/collapsed_tail.py:330 (XLA's weight gradient of the "
+                    "live collapsed tail's conv; no Pallas kernel)",
+        # phase 14c's counted train step
+        "launches": collapsed_train["kxk"]["wgrad"],
+        "max_abs_err": kxk_wgrad["f32"]["max_abs_err"],
+        "max_rel_err": kxk_wgrad["f32"]["max_rel_err"],
+        # the 5x5 64 -> 48 weight gradient at batch 16 x 48x48; library_ms
+        # conv2d_weight
+        "ms": kxk_wgrad["f32"]["ms"],
+        "plain_ms": kxk_wgrad["f32"]["plain_ms"],
+        "bound_ms": kxk_wgrad["f32"]["bound_ms"],
+        "bound_by": kxk_wgrad["f32"]["bound_by"],
+        "library_ms": kxk_wgrad["f32"]["library_ms"],
+        "bf16": kxk_wgrad["bf16"],
     })
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())

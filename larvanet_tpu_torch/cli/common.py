@@ -229,6 +229,39 @@ def maybe_wino_trunk(model, args) -> None:
     print("inference: fused Winograd F(%d,3) ResBlock kernel enabled" % m)
 
 
+def add_collapsed_tail_flag(parser: argparse.ArgumentParser) -> None:
+    parser.add_argument("--collapsed_tail", type=int, default=1,
+                        help="Run EDSR's linear upsample tail as one collapsed conv + "
+                             "pixel shuffle with exact border operators "
+                             "(ops/collapsed_tail.py; float-tolerance equal to the "
+                             "module's tail). 0 = the module's own tail.")
+
+
+def maybe_collapse_tail(model, args) -> None:
+    """Route EDSR inference through the collapsed linear tail when
+    --collapsed_tail is set (larvanet_tpu/cli/common.py:303-350): the probes
+    run once here, with the module's f32 weights, on its device. Runs
+    after --ema and restore, before maybe_wino_trunk and maybe_int8_trunk
+    (whose EDSR forwards bake the same tail). A module whose MeanShift
+    buffers are not the intended +/-mean shifts keeps the module graph, as
+    JAX's does. Other families: nothing to collapse (JAX's width-packed
+    trunks are not ported)."""
+    from larvanet_tpu_torch.ops.collapsed_tail import (make_collapsed_edsr_forward,
+                                                        mean_shifts_intended)
+
+    if not getattr(args, "collapsed_tail", 0):
+        return
+    if (getattr(args, "model", None) or "") not in ("edsr", "edsr_loss"):
+        return
+    if not mean_shifts_intended(model.module):
+        print("--collapsed_tail: the checkpoint carries trained (non-identity) "
+              "MeanShift affines; the collapsed graphs bake the intended mean "
+              "shifts, not these, so the exact module graph runs")
+        return
+    model.set_route(make_collapsed_edsr_forward(model))
+    print("inference: collapsed linear tail enabled")
+
+
 def warn_leftovers(remaining: Sequence[str]) -> None:
     if remaining:
         print("WARNING: found unhandled arguments: %s" % (list(remaining),))
@@ -260,12 +293,18 @@ def int8_and_exact_forwards(model, model_name: str, calib):
     be quantized (cli/common.py:359-381). The int8 forward is built in bf16,
     as JAX's CLIs build it (the maker's default); the exact forward, the
     odd-width route and the --int8_report reference, is the serving module
-    in the serving dtype."""
+    in the serving dtype, through the collapsed tail for EDSR, as JAX's
+    make_packed_edsr_forward is."""
     from larvanet_tpu_torch.ops import int8_forward
+    from larvanet_tpu_torch.ops.collapsed_tail import (make_collapsed_edsr_forward,
+                                                        mean_shifts_intended)
 
     for prefixes, maker in INT8_BUILDERS.items():
         if model_name in prefixes or model_name.startswith(prefixes):
             int8_fwd = getattr(int8_forward, maker)(model, calib)
+            if prefixes[0] == "edsr" and mean_shifts_intended(model.module):
+                # JAX's exact EDSR forward bakes the collapsed tail too
+                return int8_fwd, make_collapsed_edsr_forward(model)
             return int8_fwd, lambda x: model.serving_module(x)
     raise int8_forward.Int8Unsupported("no int8 path for model %r" % (model_name,))
 
@@ -279,8 +318,8 @@ def maybe_int8_trunk(model, args, get_calib) -> None:
     failure, a kernel's in calibration among them, propagates. Odd-width
     inputs take the exact forward, which `model.int8_exact_forward` also
     keeps for --int8_report. Runs after maybe_wino_trunk: int8 wins when
-    both are given, and its exact forward is the serving module, as JAX's
-    is."""
+    both are given (`int8_and_exact_forwards` says what its exact forward
+    is)."""
     from larvanet_tpu_torch.ops.int8_forward import Int8Unsupported
 
     if not getattr(args, "int8_trunk", 0):

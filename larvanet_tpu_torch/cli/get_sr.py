@@ -18,8 +18,12 @@ parameter average.
 calibrated on the first input PNG, as in JAX.
 
 Not ported yet, refused with a pointer to ROADMAP.md: --spatial_shard,
---dp_devices. --collapsed_tail, --packed_trunk and
---plain_frame_px are TPU routing settings: accepted and ignored.
+--dp_devices. --collapsed_tail 1 (the default, as in JAX) serves EDSR through the
+collapsed linear tail (ops/collapsed_tail.py: the tail probed once into
+one 5x5 conv, border operators and one shuffle, on the conv_kxk kernel);
+0 keeps the module's own tail.
+--packed_trunk and --plain_frame_px are TPU routing settings: accepted
+and ignored.
 """
 
 from __future__ import annotations
@@ -36,7 +40,7 @@ from larvanet_tpu_torch.eval.pipeline import pipelined_upscale
 from larvanet_tpu_torch.eval.tiling import upscale_with_chop_forward
 
 REFUSED = ("spatial_shard", "dp_devices")
-IGNORED = ("collapsed_tail", "packed_trunk", "plain_frame_px")
+IGNORED = ("packed_trunk", "plain_frame_px")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -59,6 +63,7 @@ def build_parser() -> argparse.ArgumentParser:
                              "pull (byte-equal to host quantization). 0 pulls f32.")
     parser.add_argument("--pipeline_depth", type=int, default=2,
                         help="Frames launched but not yet pulled (1 = serial).")
+    common.add_collapsed_tail_flag(parser)
     common.add_refused_flags(parser, REFUSED, IGNORED)
     common.add_int8_trunk_flag(parser, " Calibrated on the first input PNG.")
     common.add_serving_dtype_flag(parser)
@@ -77,6 +82,7 @@ def main(argv=None):
     common.maybe_use_ema(model, args)
     common.apply_serving_dtype(model, args)
     print("restored the model")
+    common.maybe_collapse_tail(model, args)
     image_names = io.list_pngs(args.input_path)
     common.maybe_int8_trunk(model, args, lambda: io.load_image_chw(
         os.path.join(args.input_path, image_names[0] + ".png")).transpose(1, 2, 0)[None])

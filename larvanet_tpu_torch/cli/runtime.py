@@ -13,8 +13,12 @@ Without --restore_path the weights are random from the seed (and --ema,
 as in JAX, does nothing); it takes a .pth or a JAX .ckpt. --int8_trunk 1
 times the W8A8 trunk, calibrated on the loader's first input, or at a
 fixed size on uniform noise of that size from default_rng(0), as in JAX.
---collapsed_tail, --packed_trunk and --plain_frame_px are TPU routing
-settings: accepted and ignored.
+--collapsed_tail 1 (the default, as in JAX) serves EDSR through the
+collapsed linear tail (ops/collapsed_tail.py: the tail probed once into
+one 5x5 conv, border operators and one shuffle, on the conv_kxk kernel);
+0 keeps the module's own tail.
+--packed_trunk and --plain_frame_px are TPU routing settings: accepted
+and ignored.
 """
 
 from __future__ import annotations
@@ -28,7 +32,7 @@ import torch
 from larvanet_tpu_torch.cli import common
 
 REFUSED = ()
-IGNORED = ("collapsed_tail", "packed_trunk", "plain_frame_px")
+IGNORED = ("packed_trunk", "plain_frame_px")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -47,6 +51,7 @@ def build_parser() -> argparse.ArgumentParser:
     common.add_ema_flag(parser)
     common.add_wino_trunk_flag(parser)
     common.add_int8_trunk_flag(parser, " Calibrated on the first input.")
+    common.add_collapsed_tail_flag(parser)
     common.add_refused_flags(parser, REFUSED, IGNORED)
     common.add_serving_dtype_flag(parser)
     return parser
@@ -69,6 +74,7 @@ def main(argv=None):
         common.maybe_use_ema(model, args)
         print("restored the model")
     common.apply_serving_dtype(model, args)
+    common.maybe_collapse_tail(model, args)
     common.maybe_wino_trunk(model, args)
     if args.int8_trunk:  # runtime.py:71-78 in the JAX package
         if dataloader is not None:

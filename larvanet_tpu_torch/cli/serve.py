@@ -39,8 +39,11 @@ odd widths take the exact forward), calibrated on the first 4 PNGs of
 server does.
 
 Not ported yet, refused with a pointer to ROADMAP.md: --artifact,
---spatial_shard, --dp_devices. --collapsed_tail and
---packed_trunk are TPU layout rewrites of the same function: accepted,
+--spatial_shard, --dp_devices. --collapsed_tail 1 (the default, as in JAX) serves EDSR through the
+collapsed linear tail (ops/collapsed_tail.py: the tail probed once into
+one 5x5 conv, border operators and one shuffle, on the conv_kxk kernel);
+0 keeps the module's own tail.
+--packed_trunk is a TPU layout rewrite of the same function: accepted,
 ignored, with a notice.
 """
 
@@ -63,7 +66,7 @@ from larvanet_tpu_torch.data import png
 from larvanet_tpu_torch.eval.tiling import upscale_with_chop_forward
 
 REFUSED = ("artifact", "spatial_shard", "dp_devices")
-IGNORED = ("collapsed_tail", "packed_trunk")
+IGNORED = ("packed_trunk",)
 
 
 class ServerBusy(RuntimeError):
@@ -497,6 +500,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--int8_calib_path", type=str, default=None,
                         help="Directory of representative PNGs whose first 4, cropped "
                              "to their common size, calibrate --int8_trunk.")
+    common.add_collapsed_tail_flag(parser)
     common.add_refused_flags(parser, REFUSED, IGNORED)
     common.add_serving_dtype_flag(parser)
     return parser
@@ -537,6 +541,7 @@ def build_service(args, remaining) -> SRService:
     common.maybe_use_ema(model, args)
     common.apply_serving_dtype(model, args)
     print("restored the model")
+    common.maybe_collapse_tail(model, args)
     if args.int8_trunk:
         common.maybe_int8_trunk(model, args, lambda: int8_calib(args))
     tiler = common.make_tiler(model, args) if mode == "tile" else None

@@ -25,9 +25,12 @@ and runs the whole frame). --restore_path takes a .pth or a JAX .ckpt;
 calibrated on the first --int8_calib_images LR images of the first
 dataset, centre-cropped to their common even size (`calib_from_dir`, as
 JAX's `_calib_from_dir`). Refused with a pointer to ROADMAP.md: the msrr
-models (whose [0, 1] range contract comes with their family). --collapsed_tail
-and --packed_trunk are TPU layout rewrites of the same function: accepted
-and ignored.
+models (whose [0, 1] range contract comes with their family). --collapsed_tail 1 (the default, as in JAX) serves EDSR through the
+collapsed linear tail (ops/collapsed_tail.py: the tail probed once into
+one 5x5 conv, border operators and one shuffle, on the conv_kxk kernel);
+0 keeps the module's own tail.
+--packed_trunk is a TPU layout rewrite of the same function: accepted and
+ignored.
 """
 
 from __future__ import annotations
@@ -46,7 +49,7 @@ from larvanet_tpu_torch.eval.pipeline import pipelined_upscale
 from larvanet_tpu_torch.eval.tiling import upscale_with_chop_forward
 
 REFUSED = ()
-IGNORED = ("collapsed_tail", "packed_trunk")
+IGNORED = ("packed_trunk",)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -80,6 +83,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--int8_calib_images", type=int, default=4,
                         help="LR images (first dataset, centre-cropped to a common "
                              "size) in the int8 activation-scale calibration batch.")
+    common.add_collapsed_tail_flag(parser)
     common.add_refused_flags(parser, REFUSED, IGNORED)
     common.add_serving_dtype_flag(parser)
     return parser
@@ -134,6 +138,7 @@ def main(argv=None):
     common.maybe_use_ema(model, args)
     common.apply_serving_dtype(model, args)
     print("restored the model")
+    common.maybe_collapse_tail(model, args)
     common.maybe_int8_trunk(model, args, lambda: calib_from_dir(
         os.path.join(args.input_root_path, args.datasets.split(",")[0]),
         args.int8_calib_images))

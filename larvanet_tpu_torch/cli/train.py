@@ -37,9 +37,10 @@ bf16 entries, and --remat 1 recomputes each conv pair in the backward.
 patch width). An explicit --packed_trunk 0 makes a bf16 step f32 and is
 refused with --qat 1 or --remat 1, as in JAX. Refused, with a pointer to
 ROADMAP.md queue 1 item 11 (parallel): --orbax_checkpoint, --dp_devices.
-Accepted and ignored: the model's --collapsed_tail_train and
---lr_domain_loss (exact reparametrisations of the module graph the port
-trains) and --fused_opt (numerically identical per element).
+The model's --collapsed_tail_train and --lr_domain_loss (EDSR, default 1)
+train through the live collapsed tail with the loss before the shuffle, as
+JAX's default graph does (ops/collapsed_tail.py). Accepted and ignored:
+--fused_opt (numerically identical per element).
 """
 
 from __future__ import annotations
@@ -56,7 +57,6 @@ from larvanet_tpu_torch.utils.summary import SummaryWriter
 
 REFUSED = ("orbax_checkpoint", "dp_devices")
 PARALLEL = "ROADMAP.md queue 1 item 11, parallel"
-IGNORED_MODEL = ("collapsed_tail_train", "lr_domain_loss")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -96,15 +96,6 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
-def note_ignored_model_flags(model_args, tool: str = "train") -> None:
-    given = ["--" + flag for flag in IGNORED_MODEL
-             if getattr(model_args, flag, None) is not None]
-    if given:
-        print("%s: %s reparametrise(s) the JAX package's training graph; the port "
-              "trains the module graph (the same gradients): ignored"
-              % (tool, ", ".join(given)))
-
-
 def main(argv=None):
     """Train; returns (the model in its final state, {global_step: loss})."""
     args, remaining = build_parser().parse_known_args(argv)
@@ -120,7 +111,6 @@ def main(argv=None):
     model, model_args, remaining = common.setup_model(
         args.model, remaining, scale_list, device, is_training=True,
         global_step=args.global_step, ema_decay=args.ema_decay)
-    note_ignored_model_flags(model_args)
     model.grad_accum = args.grad_accum
     model.async_checkpoints = bool(args.async_checkpoint)
     common.warn_leftovers(remaining)

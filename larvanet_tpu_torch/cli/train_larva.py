@@ -37,9 +37,10 @@ with ChunkRateMeter's steps/s. --async_checkpoint 1, --profile_dir,
 --remat 1 recomputes each body and leg conv pair in the backward. --qat 1
 trains every body and leg conv pair through the fake-quant pair
 (ops/pairs.qat_pair). Refused, with a pointer to ROADMAP.md queue 1 item 11
-(parallel): --orbax_checkpoint, --dp_devices. Accepted and ignored: the
-model's --lr_domain_loss (an exact reparametrisation of the module graph
-the port trains) and --fused_opt (numerically identical per element).
+(parallel): --orbax_checkpoint, --dp_devices. The model's --lr_domain_loss
+(default 1) takes every exit's loss before the shuffle, as JAX's default
+graph does. Accepted and ignored: --fused_opt (numerically identical per
+element).
 """
 
 from __future__ import annotations
@@ -50,7 +51,7 @@ import os
 import time
 
 from larvanet_tpu_torch.cli import common
-from larvanet_tpu_torch.cli.train import PARALLEL, REFUSED, note_ignored_model_flags
+from larvanet_tpu_torch.cli.train import PARALLEL, REFUSED
 from larvanet_tpu_torch.core.config import dump_arguments_json
 from larvanet_tpu_torch.utils.checkpoints import resolve_restore_path
 from larvanet_tpu_torch.utils.profiling import annotate, trace
@@ -126,7 +127,6 @@ def main(argv=None):
     if not hasattr(model, "train_step_larva"):
         raise SystemExit("train_larva trains the LarvaNet family; --model %s trains with "
                          "larvanet_tpu_torch.cli.train" % (args.model,))
-    note_ignored_model_flags(model_args, "train_larva")
     model.grad_accum = args.grad_accum
     model.async_checkpoints = bool(args.async_checkpoint)
     common.warn_leftovers(remaining)

@@ -35,8 +35,12 @@ forwards only), prints the int8-vs-exact deltas, writes them to
 
 Not ported yet, refused with a pointer to ROADMAP.md: --artifact,
 --dp_devices, --spatial_shard.
---collapsed_tail and --packed_trunk are TPU layout rewrites of the same
-function: accepted and ignored.
+--collapsed_tail 1 (the default, as in JAX) serves EDSR through the
+collapsed linear tail (ops/collapsed_tail.py: the tail probed once into
+one 5x5 conv, border operators and one shuffle, on the conv_kxk kernel);
+0 keeps the module's own tail.
+--packed_trunk is a TPU layout rewrite of the same function: accepted and
+ignored.
 """
 
 from __future__ import annotations
@@ -57,7 +61,7 @@ from larvanet_tpu_torch.eval.pipeline import pipelined_upscale
 from larvanet_tpu_torch.eval.tiling import upscale_with_chop_forward
 
 REFUSED = ("artifact", "dp_devices", "spatial_shard")
-IGNORED = ("collapsed_tail", "packed_trunk")
+IGNORED = ("packed_trunk",)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -94,6 +98,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--int8_max_drop", type=float, default=0.1,
                         help="With --int8_report: refuse to bless the int8 path (exit "
                              "code 3) when the mean PSNR drop exceeds this many dB.")
+    common.add_collapsed_tail_flag(parser)
     common.add_refused_flags(parser, REFUSED, IGNORED)
     common.add_serving_dtype_flag(parser)
     return parser
@@ -113,6 +118,7 @@ def main(argv=None):
     common.maybe_use_ema(model, args)
     common.apply_serving_dtype(model, args)
     print("restored the model")
+    common.maybe_collapse_tail(model, args)
     common.maybe_wino_trunk(model, args)
     common.maybe_int8_trunk(model, args, lambda: common.int8_calib_batch(
         dataloader, scale_list[0], args.int8_calib_images))

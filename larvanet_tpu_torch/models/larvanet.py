@@ -30,10 +30,13 @@ PSNR; --qat 1 fake-quantizes every body and leg conv pair (ops/pairs.py).
 never validates); `train_step_larva` is the volume-driven step of
 the train_larva CLIs: every `--val_volume` bytes of input pixels it
 validates, steps the schedule, saves `model_step<N>_vol<G>G.pth` and
-writes the summary. The JAX package trains a width-packed trunk with the
-loss taken before the shuffle (--packed_trunk, --lr_domain_loss): exact
-reparametrisations of the module graph that the port trains, so both
-flags are accepted and ignored. The V2 presets restore partially: a
+writes the summary. JAX's default training graph takes every exit's loss
+before the shuffle (--lr_domain_loss 1, larvanet.py:242-248, :310-322;
+ops/packed/larvanet.py:112-135): each leg (and the V2 tail) returns its 48
+channels plus the base unshuffled once, against the pixel-unshuffled
+targets; the port does the same, with JAX's rule that it applies only while
+--packed_trunk is not 0 (the width-packed layout itself is not ported: an
+exact reparametrisation). The V2 presets restore partially: a
 LarvaNet checkpoint gives them its bodies and legs, the tail keeps its
 init (`_V2Mixin`).
 """
@@ -52,7 +55,7 @@ from larvanet_tpu_torch.core.registry import register_model
 from larvanet_tpu_torch.models.base import (SRModel, add_qat_flag, qat_requested,
                                             remat_requested)
 from larvanet_tpu_torch.models.layers import Conv3x3, ResBlock, exact_pair, interpolated_base
-from larvanet_tpu_torch.ops.pixel_shuffle import pixel_shuffle
+from larvanet_tpu_torch.ops.pixel_shuffle import pixel_shuffle, pixel_unshuffle
 from larvanet_tpu_torch.train.losses import multi_exit_l1
 from larvanet_tpu_torch.train.schedules import ReduceLROnPlateau
 
@@ -83,9 +86,14 @@ class ReconBlock(nn.ModuleList):
         return self[2](self[0](x))
 
 
-def shuffle_exit(fea: torch.Tensor, base: torch.Tensor) -> torch.Tensor:
+def shuffle_exit(fea: torch.Tensor, base: torch.Tensor,
+                 lr_domain: bool = False) -> torch.Tensor:
     """PixelShuffle(4) of 48 channels plus the base, summed in the base's
-    f32 (a bf16 residual is widened exactly first, as JAX promotes it)."""
+    f32 (a bf16 residual is widened exactly first, as JAX promotes it).
+    `lr_domain`: no shuffle; `base` is then the base pixel-unshuffled, and
+    the exit is the output before the shuffle (a permutation of it)."""
+    if lr_domain:
+        return fea.to(base.dtype) + base
     return pixel_shuffle(fea, SCALE).to(base.dtype) + base
 
 
@@ -116,13 +124,13 @@ class Leg(nn.Module):
         return rb[0], rb[2], "none" if self.style == "2conv" else "res"
 
     def forward(self, fea: torch.Tensor, base: torch.Tensor, pair: Callable = exact_pair,
-                idx: int = -1) -> torch.Tensor:
+                idx: int = -1, lr_domain: bool = False) -> torch.Tensor:
         """The exit, with the leg's conv pair run by `pair(idx, fea, conv1,
-        conv2, kind=...)`."""
+        conv2, kind=...)`; `lr_domain` as in `shuffle_exit`."""
         convs = self.pair()
         if convs is not None:
             fea = pair(idx, fea, convs[0], convs[1], kind=convs[2])
-        return shuffle_exit(fea, base)
+        return shuffle_exit(fea, base, lr_domain)
 
 
 class Body(nn.Module):
@@ -149,8 +157,10 @@ class Tail(nn.Module):
                                   init_scale=INIT_SCALE)
         self.recon_block = ReconBlock(features, generator)
 
-    def forward(self, features: Sequence[torch.Tensor], base: torch.Tensor) -> torch.Tensor:
-        return shuffle_exit(self.recon_block(self.merge_conv(torch.cat(features, -1))), base)
+    def forward(self, features: Sequence[torch.Tensor], base: torch.Tensor,
+                lr_domain: bool = False) -> torch.Tensor:
+        return shuffle_exit(self.recon_block(self.merge_conv(torch.cat(features, -1))), base,
+                            lr_domain)
 
 
 class LarvaNetModule(nn.Module):
@@ -201,17 +211,23 @@ class LarvaNetModule(nn.Module):
     def forward(self, x: torch.Tensor, exits: Optional[Exits] = None):
         return self.walk(x, self.exits if exits is None else exits)
 
-    def walk(self, x: torch.Tensor, exits: Exits, pair: Callable = exact_pair):
+    def walk(self, x: torch.Tensor, exits: Exits, pair: Callable = exact_pair,
+             lr_domain: bool = False):
         """The forward (the topology of ops/packed/larvanet.py:17-153), with
         every conv pair run by `pair(idx, h, conv1, conv2, kind=...)`
         (layers.exact_pair: the modules themselves). The indices are JAX's:
         the body ResBlocks in execution order, then the serving leg; the
         other legs, run only for exits 'all', get -1. The fused Winograd
-        route, the int8 calibration and replay and QAT come in here."""
+        route, the int8 calibration and replay and QAT come in here.
+        `lr_domain` (the LR-domain training loss, ops/packed/larvanet.py:
+        112-135): every exit before the shuffle, 48 channels plus the base
+        unshuffled once."""
         exits = self.check_exits(exits)
         base = interpolated_base(x, SCALE, self.interpolate)
         if exits == 0:
             return base
+        if lr_domain:
+            base = pixel_unshuffle(base, SCALE)
         fea = self.head["feature_extraction"](x)
         bodies = self.bodies()
         n_run = exits if isinstance(exits, int) else len(bodies)
@@ -230,16 +246,18 @@ class LarvaNetModule(nn.Module):
                 fea, res = fea + h, h
             features.append(fea)
             if exits == "all" or (i == n_run - 1 and want_last_leg):
-                outputs.append(bodies[i].leg(fea, base, pair, idx if i == n_run - 1 else -1))
+                outputs.append(bodies[i].leg(fea, base, pair, idx if i == n_run - 1 else -1,
+                                             lr_domain))
         if self.use_tail and not isinstance(exits, int):
-            outputs.append(self.tail(features, base))
+            outputs.append(self.tail(features, base, lr_domain))
         return outputs if exits == "all" else outputs[-1]
 
 
 class LarvaNetBase(SRModel):
     """Shared wrapper of the presets (models/larvanet.py:181-414): AdamW
     with the plateau learning rate. Every flag of the JAX parser parses;
-    --packed_trunk and --lr_domain_loss are accepted and ignored (an explicit
+    --lr_domain_loss 1 (the default) takes the loss before the shuffle while
+    --packed_trunk is not 0, --packed_trunk itself is accepted (an explicit
     --packed_trunk 0 with --qat 1 or --remat 1 is refused, as in JAX), --qat
     1 trains through the fake-quant pairs and --remat 1 recomputes each pair
     in the backward. The family's exits are
@@ -300,11 +318,15 @@ class LarvaNetBase(SRModel):
                                 help="cooldown for lr scheduler")
         parser.add_argument("--packed_trunk", type=int, default=None,
                             help="The JAX package's width-packed trunk (an exact "
-                                 "reparametrisation); accepted and ignored: the port "
-                                 "runs the module graph.")
-        parser.add_argument("--lr_domain_loss", type=int, default=None,
-                            help="The JAX package's pre-shuffle loss (the same "
-                                 "per-element gradients); accepted and ignored.")
+                                 "reparametrisation the port does not run). Unset is JAX's "
+                                 "1; 0 takes the loss after the shuffle, as JAX does.")
+        parser.add_argument("--lr_domain_loss", type=int, default=1,
+                            help="With --packed_trunk (unset: on): compute every "
+                                 "exit's training L1 loss PRE-SHUFFLE in the LR "
+                                 "domain (targets pixel-unshuffled instead; mean-L1 is "
+                                 "permutation-invariant, identical per-element grads, "
+                                 "the loss equal up to f32 summation order). 0 = "
+                                 "HR-domain loss.")
         add_qat_flag(parser)
         parser.add_argument("--remat", type=int, default=0,
                             help="Recompute each conv pair's activations in the "
@@ -352,7 +374,17 @@ class LarvaNetBase(SRModel):
         from larvanet_tpu_torch.ops.pairs import training_pair
 
         pair = training_pair(qat_requested(self), remat_requested(self))
-        return multi_exit_l1(self.module.walk(inputs, "all", pair), targets)
+        lr_domain = self.lr_domain_loss()
+        if lr_domain:
+            # the targets unshuffled once, with no backward
+            targets = pixel_unshuffle(targets, SCALE)
+        return multi_exit_l1(self.module.walk(inputs, "all", pair, lr_domain), targets)
+
+    def lr_domain_loss(self) -> bool:
+        """JAX's rule (_lr_domain_loss, larvanet.py:310-312): --lr_domain_loss
+        1 while --packed_trunk is not 0 (unset is JAX's 1)."""
+        a = self.args
+        return getattr(a, "packed_trunk", None) != 0 and bool(getattr(a, "lr_domain_loss", 0))
 
     # -- volume-driven training (reference train_larva.py, LarvaNet.py:98-161) --
 

@@ -260,6 +260,16 @@ def dgrad_kernel(kernel: torch.Tensor) -> torch.Tensor:
     return kernel.flip(0, 1).transpose(2, 3).contiguous()
 
 
+def conv3x3_op(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
+               act: Optional[str] = None) -> torch.Tensor:
+    """`conv3x3_bias_act`, through `Conv3x3Train` where autograd wants a
+    gradient of x, the kernel or the bias."""
+    if torch.is_grad_enabled() and (x.requires_grad or kernel.requires_grad
+                                    or bias.requires_grad):
+        return Conv3x3Train.apply(x, kernel, bias, act)
+    return conv3x3_bias_act(x, kernel, bias, act)
+
+
 class Conv3x3Train(torch.autograd.Function):
     """`conv3x3_bias_act` with a backward: dgrad on the same conv kernel,
     the weight and bias gradient on conv3x3_wgrad's. Inputs x NHWC, the

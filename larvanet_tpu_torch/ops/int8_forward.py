@@ -12,9 +12,11 @@ after_res_conv and tail, the V2 tail and the residual stream stay exact, in
 --serving_dtype says, as JAX's do. An odd-width input raises (the CLIs'
 route sends it to the exact forward).
 
-EDSR's tail here is the plain live tail (upsample convs and PixelShuffle);
-JAX's serving forward bakes the collapsed tail (ops/collapsed_tail.py, not
-ported), the same function in another order of summation.
+EDSR's tail is the baked collapsed tail (ops/collapsed_tail.py
+`collapsed_edsr_tail`: one 5x5 conv on the conv_kxk kernel, the border
+operators, one shuffle), in `dtype`, as JAX's int8 forward bakes it
+(ops/packed/edsr.py:114-142); a module whose mean shifts are not the
+intended ones keeps its own tail.
 """
 
 from __future__ import annotations
@@ -43,10 +45,14 @@ def _module_in(model, dtype: torch.dtype):
 def make_int8_edsr_forward(model, calib_batch, dtype: torch.dtype = torch.bfloat16):
     """W8A8 EDSR inference (ops/packed/edsr.py:114-142): every ResBlock pair
     int8, calibrated on `calib_batch` (NHWC float, even width); the head,
-    after_res_conv and the tail exact in `dtype`. Returns forward(x) for an
-    NHWC batch on the model's device."""
+    after_res_conv and the baked collapsed tail exact in `dtype`. Returns
+    forward(x) for an NHWC batch on the model's device."""
+    from larvanet_tpu_torch.ops.collapsed_tail import collapsed_edsr_tail
+
     pairs = [(b.body[0], b.body[2]) for b in model.module.res_blocks]
-    return make_int8(model, calib_batch, dtype, _module_in(model, dtype), pairs)
+    module = _module_in(model, dtype)
+    return make_int8(model, calib_batch, dtype,
+                     lambda x, pair: module(x, pair, collapsed_edsr_tail(model)), pairs)
 
 
 def make_int8_larvanet_forward(model, calib_batch, dtype: torch.dtype = torch.bfloat16):

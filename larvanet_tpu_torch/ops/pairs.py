@@ -41,7 +41,7 @@ import numpy as np
 import torch
 
 from larvanet_tpu_torch.ops import conv3x3_s8 as s8
-from larvanet_tpu_torch.ops.conv3x3 import Conv3x3Train, conv3x3_bias_act
+from larvanet_tpu_torch.ops.conv3x3 import conv3x3_op
 
 HEADROOM = 1.05  # activation scale = HEADROOM * max / 127 (pairs.py:210-211)
 
@@ -211,13 +211,6 @@ def _act_scale(t: torch.Tensor) -> torch.Tensor:
     return t.detach().abs().max().float() * HEADROOM / 127.0 + 1e-12
 
 
-def _conv(x, kernel, bias, act):
-    if torch.is_grad_enabled() and (x.requires_grad or kernel.requires_grad
-                                    or bias.requires_grad):
-        return Conv3x3Train.apply(x, kernel, bias, act)
-    return conv3x3_bias_act(x, kernel, bias, act)
-
-
 def qat_pair(dtype: torch.dtype = torch.float32) -> Callable:
     """The QAT pair (`qat_pair`, pairs.py:61-114): pair_int8's W8A8 in float
     with straight-through rounding. Weight scales max|k| / 127 + 1e-12 per
@@ -235,9 +228,9 @@ def qat_pair(dtype: torch.dtype = torch.float32) -> Callable:
         sa = ka.detach().abs().amax(dim=(0, 1, 2)) / 127.0 + 1e-12
         sb = kb.detach().abs().amax(dim=(0, 1, 2)) / 127.0 + 1e-12
         x = fake_quant(hin.float(), _act_scale(hin)).to(dtype)
-        t = _conv(x, fake_quant(ka, sa).to(dtype), conv1.bias.to(dtype), conv1.act)
+        t = conv3x3_op(x, fake_quant(ka, sa).to(dtype), conv1.bias.to(dtype), conv1.act)
         t = fake_quant(t.float(), _act_scale(t)).to(dtype)
-        t = _conv(t, fake_quant(kb, sb).to(dtype), conv2.bias.to(dtype), conv2.act)
+        t = conv3x3_op(t, fake_quant(kb, sb).to(dtype), conv2.bias.to(dtype), conv2.act)
         return _finish(hin, t, kind, res_weight)
 
     return pair

@@ -1,6 +1,7 @@
-"""PixelShuffle (depth-to-space) on NHWC with PyTorch's channel order.
+"""PixelShuffle (depth-to-space) on NHWC with PyTorch's channel order, and
+its inverse.
 
-Copy of larvanet_tpu/ops/pixel_shuffle.py:22-30: torch's NCHW shuffle
+Copy of larvanet_tpu/ops/pixel_shuffle.py:22-41: torch's NCHW shuffle
 reads the channel axis as (C, r, r),
 
     out[n, h*r + i, w*r + j, c] = x[n, h, w, c*r*r + i*r + j],
@@ -22,6 +23,17 @@ def pixel_shuffle(x: torch.Tensor, r: int) -> torch.Tensor:
     c = crr // (r * r)
     x = x.reshape(n, h, w, c, r, r).permute(0, 1, 4, 2, 5, 3)  # n, h, i, w, j, c
     return x.reshape(n, h * r, w * r, c)
+
+
+def pixel_unshuffle(x: torch.Tensor, r: int) -> torch.Tensor:
+    """Inverse of `pixel_shuffle`: [N, H*r, W*r, C] -> [N, H, W, C*r*r],
+    contiguous (the LR-domain training targets and the collapsed base)."""
+    n, hr, wr, c = x.shape
+    if hr % r or wr % r:
+        raise ValueError("spatial dims (%d,%d) not divisible by r=%d" % (hr, wr, r))
+    h, w = hr // r, wr // r
+    x = x.reshape(n, h, r, w, r, c).permute(0, 1, 3, 5, 2, 4)  # n, h, w, c, i, j
+    return x.reshape(n, h, w, c * r * r)
 
 
 class PixelShuffle(nn.Module):

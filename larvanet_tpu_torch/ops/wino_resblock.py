@@ -343,18 +343,23 @@ def _check_even_width(x: torch.Tensor) -> None:
 
 def make_wino_edsr_forward(model, m: int = 2):
     """EDSR inference forward with every ResBlock in one `wino_resblock`
-    call (counterpart of make_wino_pallas_edsr_forward,
-    wino_pallas.py:467-491). Head, after_res_conv and tail run the
-    module's own layers. Takes and returns what `model.module` does; reads
-    the weights of `model.serving_module` (the module, or its cast copy) on
-    every call (`fused_resblock_runner`). Even input widths only, as in
-    JAX."""
+    call and the collapsed tail baked (counterpart of
+    make_wino_pallas_edsr_forward, wino_pallas.py:467-491, which bakes it
+    whatever --collapsed_tail says; ops/collapsed_tail.collapsed_edsr_tail,
+    the module's own tail when its mean shifts are not the intended ones).
+    Head and after_res_conv run the module's own layers. Takes and returns
+    what `model.module` does; reads the weights of `model.serving_module`
+    (the module, or its cast copy) and the baked tail on every call
+    (`fused_resblock_runner`, `collapsed_edsr_tail`), so a later restore
+    holds. Even input widths only, as in JAX."""
+    from larvanet_tpu_torch.ops.collapsed_tail import collapsed_edsr_tail
+
     run = fused_resblock_runner(m)
 
     @torch.no_grad()
     def forward(x: torch.Tensor) -> torch.Tensor:
         _check_even_width(x)
-        return model.serving_module(x, run)
+        return model.serving_module(x, run, collapsed_edsr_tail(model))
 
     return forward
 

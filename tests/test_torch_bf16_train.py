@@ -33,13 +33,14 @@ from larvanet_tpu_torch.utils.torch_convert import state_dict_from_jax_params
 
 TINY = ["--edsr_conv_features", "8", "--edsr_res_blocks", "2"]
 SCALE, PATCH = 4, 8
-# JAX with --collapsed_tail_train 0 (the graph the port trains): the loss
-# within 1e-4 (measured 3.2e-5 here), each weight gradient within 2.5e-2 of
-# its tensor's largest value (6.4 bf16 steps; measured 1.6e-2 on
-# res_blocks.0.body.0, 3.8e-3 to 7.8e-3 on the others)
+# both with --collapsed_tail_train 0 (the plain tail): the loss within 1e-4
+# (measured 3.2e-5 here), each weight gradient within 2.5e-2 of its tensor's
+# largest value (6.4 bf16 steps; measured 1.6e-2 on res_blocks.0.body.0,
+# 3.8e-3 to 7.8e-3 on the others)
 TIGHT = {"loss": 1e-4, "weight": 2.5e-2}
-# JAX's default route, whose tail is collapsed into one conv: exact in f32,
-# not in bf16 (measured: loss 1.24e-4, weights as above)
+# both on the default route, the tail collapsed into one conv, composed in
+# f32 and run in bf16 (first measured with the port on the plain tail: loss
+# 1.24e-4, weights as above)
 DEFAULT = {"loss": 5e-4, "weight": 2.5e-2}
 # a bias gradient against the float64 sum of the bf16 cotangent it sums:
 # one bf16 rounding of an f32 sum
@@ -74,7 +75,10 @@ def _pair(jflags=(), pflags=("--train_dtype", "bf16")):
 def _step(route):
     """One bf16 step's (port, JAX) loss and gradients by port name, and the
     port's bias gradients beside the float64 sums of its bf16 cotangents."""
-    jm, pm = _pair(("--collapsed_tail_train", "0") if route == "tight" else ())
+    tight = route == "tight"
+    # tight: both on the plain tail; default: both on the live collapsed tail
+    jm, pm = _pair(*((("--collapsed_tail_train", "0"),
+                      ("--train_dtype", "bf16", "--collapsed_tail_train", "0")) if tight else ()))
     lr, hr = _batch()
     jloss, jgrads = jax.value_and_grad(jm._compute_loss)(jm.params, jnp.asarray(lr),
                                                        jnp.asarray(hr))
@@ -82,7 +86,9 @@ def _step(route):
     real = conv3x3_wgrad.conv3x3_wgrad
 
     def recording(x, g, path=None):
-        assert x.dtype == g.dtype == torch.bfloat16
+        # the plain tail's convs are the module's: all bf16 (the collapsed
+        # tail composes its kernel in f32, as JAX does)
+        assert x.dtype == g.dtype == torch.bfloat16 or not tight
         sums.append(g.double().sum((0, 1, 2)))
         return real(x, g, path)
 
@@ -125,11 +131,12 @@ def test_bf16_bias_grads_are_one_rounding_of_their_sums():
 
 def test_packed_trunk_0_trains_bf16_in_f32():
     """With an explicit --packed_trunk 0 JAX trains in f32 whatever
-    --train_dtype says: the port's step then equals its f32 step bit for
-    bit."""
+    --train_dtype says: the port's step then equals its f32 step on the same
+    graph (the plain tail, as --packed_trunk 0 trains) bit for bit."""
     lr, hr = _batch(1)
     grads = []
-    for flags in (["--train_dtype", "bf16", "--packed_trunk", "0"], []):
+    for flags in (["--train_dtype", "bf16", "--packed_trunk", "0"],
+                  ["--collapsed_tail_train", "0"]):
         pm = get_model("edsr")
         pm.parse_args(TINY + flags)
         pm.prepare([SCALE], device="cpu", is_training=True)

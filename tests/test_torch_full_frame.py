@@ -6,7 +6,8 @@ the CLIs that use them (validate, get_sr, serve, test) with --ema.
 The library parts are held against JAX's module graph at the tiny models'
 tolerances (EDSR ATOL, LarvaNet LARVA_ATOL). The CLIs are held against
 JAX's CLIs with --collapsed_tail 0 (its module graph; the collapsed tail
-is a TPU rewrite that sits up to 0.1 from it), on a tiny EDSR whose
+sits up to 0.1 from it), the port's CLIs with --collapsed_tail 0 too, on a
+tiny EDSR whose
 final_conv is rescaled so its output spans the pixel range (as drawn, the
 clamp to [0, 255] would hide any error).
 
@@ -292,7 +293,8 @@ def _per_image(path):
 
 def _port_validate(data, tmp_path, *extra, ckpt=None):
     report = str(tmp_path / ("port%d.json" % len(os.listdir(tmp_path))))
-    validate.main(_validate_flags(data, ckpt or data[2], report, "--device", "cpu", *extra))
+    validate.main(_validate_flags(data, ckpt or data[2], report, "--device", "cpu",
+                                  "--collapsed_tail", "0", *extra))
     return _per_image(report)
 
 
@@ -360,7 +362,7 @@ def test_get_sr_full_frame_modes_match_jax(mode, data, tmp_path):
     own library call (the CLI adds nothing to the forward)."""
     port_dir, jax_dir = str(tmp_path / "port"), str(tmp_path / "jax")
     get_sr.main(["--device", "cpu", "--input_path", data[0], "--output_path", port_dir,
-                 "--restore_path", data[2], *mode, *TINY])
+                 "--restore_path", data[2], "--collapsed_tail", "0", *mode, *TINY])
     jax_get_sr.main(["--input_path", data[0], "--output_path", jax_dir, "--restore_path",
                      data[2], "--collapsed_tail", "0", *mode, *TINY])
     pm = get_model("edsr")
@@ -426,8 +428,8 @@ def test_test_cli_matches_jax_on_fixture_real(extra, fixture_real, real_pth, jax
                               "--input_root_path", os.path.join(fixture_real, "test_LR"),
                               "--truth_root_path", os.path.join(fixture_real, "test_HR"),
                               "--output_root_path", str(out), "--datasets",
-                              "SynSetReal,DIV2K_val", "--report_json",
-                              str(tmp_path / "r.json"), *extra, *TINY])
+                              "SynSetReal,DIV2K_val", "--collapsed_tail", "0",
+                              "--report_json", str(tmp_path / "r.json"), *extra, *TINY])
     with open(tmp_path / "r.json") as f:
         port = json.load(f)
     assert sorted(port) == sorted(jax_test_report) == ["DIV2K_val", "SynSetReal"]

@@ -32,6 +32,7 @@ from larvanet_tpu.utils.torch_convert import save_pth
 from larvanet_tpu_torch.cli import get_sr, runtime, validate
 from larvanet_tpu_torch.core.registry import get_model
 from larvanet_tpu_torch.data import io
+from larvanet_tpu_torch.ops.collapsed_tail import make_collapsed_edsr_forward
 from larvanet_tpu_torch.utils.torch_convert import state_dict_from_jax_params
 
 TINY = ["--edsr_res_blocks", "2", "--edsr_conv_features", "8"]
@@ -144,6 +145,7 @@ def test_validate_paths_agree_and_save_what_they_score(odd_data, pth, tmp_path):
     model.parse_args(list(TINY))
     model.prepare([4], device="cpu")
     model.restore(pth)
+    model.set_route(make_collapsed_edsr_forward(model))  # the CLI's default route
     for name in io.list_pngs(odd_data[0]):
         lr = io.load_image_u8(os.path.join(odd_data[0], name + ".png")).transpose(2, 0, 1)
         saved = io.load_image_u8(str(tmp_path / "sr" / "x4" / (name + ".png")))
@@ -299,9 +301,10 @@ def test_runtime_on_cpu(wino, even_data, pth, capsys):
 
 
 def test_get_sr_on_cpu_matches_jax_get_sr(even_data, pth, tmp_path):
-    """Every written frame equals the port model's upscale_uint8 and lies
-    within 1 uint8 level of the JAX CLI's frame (the JAX default path runs
-    its collapsed tail, the same function summed in another order)."""
+    """Every written frame equals the port model's upscale_uint8 on the
+    CLI's default route (the collapsed tail) and lies within 1 uint8 level
+    of the JAX CLI's frame (JAX's default path runs its collapsed tail, the
+    same function probed and summed in another order)."""
     port_dir, jax_dir = str(tmp_path / "port"), str(tmp_path / "jax")
     get_sr.main(["--device", "cpu", "--input_path", even_data[0], "--output_path", port_dir,
                  "--restore_path", pth, *TINY])
@@ -311,6 +314,7 @@ def test_get_sr_on_cpu_matches_jax_get_sr(even_data, pth, tmp_path):
     model.parse_args(list(TINY))
     model.prepare([4], device="cpu")
     model.restore(pth)
+    model.set_route(make_collapsed_edsr_forward(model))
     names = io.list_pngs(even_data[0])
     assert io.list_pngs(port_dir) == io.list_pngs(jax_dir) == names
     for name in names:

@@ -21,6 +21,7 @@ from larvanet_tpu.ops.packed.core import (grid1_mask, pack_bias, pack_kernel_a,
 from larvanet_tpu_torch.core.registry import get_model
 from larvanet_tpu_torch.ops import emulate
 from larvanet_tpu_torch.ops import wino_resblock as wr
+from larvanet_tpu_torch.ops.collapsed_tail import make_collapsed_edsr_forward
 from larvanet_tpu_torch.ops.conv3x3 import conv3x3_bias_act_reference
 from larvanet_tpu_torch.utils.torch_convert import state_dict_from_jax_params
 
@@ -294,7 +295,8 @@ def test_edsr_forward_matches_jax_wino_forward(m):
     fwd = wr.make_wino_edsr_forward(pm, m)
     got = fwd(torch.from_numpy(x)).numpy()
     _check("EDSR x4 F(%d,3) vs JAX wino forward" % m, got, want, COLLAPSED_TAIL_ATOL)
-    standard = pm.fwd_runtime(torch.from_numpy(x)).numpy()
+    # the port's standard route bakes the same tail (--collapsed_tail 1)
+    standard = make_collapsed_edsr_forward(pm)(torch.from_numpy(x)).numpy()
     _check("EDSR x4 F(%d,3) vs port standard" % m, got, standard, FWD_ATOL[m])
 
 
@@ -311,7 +313,8 @@ def test_route_follows_restore_and_serving_dtype(tmp_path):
     torch.save(other.module.state_dict(), path)
     pm.restore(path)  # in-place copy: the cached weight transforms must refresh
     routed = pm.fwd_runtime(x)
-    pm.set_route(None)
+    # the standard route (the collapsed tail, probed again for these weights)
+    pm.set_route(make_collapsed_edsr_forward(pm))
     np.testing.assert_allclose(routed.numpy(), pm.fwd_runtime(x).numpy(), atol=FWD_ATOL[2])
     assert float((routed - first).abs().max()) > 1.0
     pm.set_route(wr.make_wino_edsr_forward(pm, 2))
