@@ -77,7 +77,7 @@ on the default, collapsed route:
     zeroed before one forward of each route and read after it: the
     default's PATH_LAUNCHES; under --wino_trunk 2 conv3x3 launches by path
     (WINO_CONV_PATH_LAUNCHES) and 16 fused launches, all 16 on the tensor
-    cores (WINO_PATH_LAUNCHES); 9 conv_kxk launches on every route; the
+    cores (WINO_PATH_LAUNCHES); 4 conv_kxk launches (1 + 3 grouped) on every route; the
     bf16 forward must lie within BF16_FWD_RTOL of the same route with the
     plain fused ResBlock in place of the kernel. Each timed forward's
     device time is split by torch.profiler's kernel records: convs, fused
@@ -94,7 +94,7 @@ on the default, collapsed route:
     for the standard path only, one of odd width), EDSR-baseline x4 as in
     phase 4, with --wino_trunk 0, 2 and 4, f32. The counters are zeroed
     before each run and read after: 34 conv3x3 launches per forward for
-    0; 2 conv3x3 and 16 fused launches per forward for 2 and 4; 9 conv_kxk
+    0; 2 conv3x3 and 16 fused launches per forward for 2 and 4; 4 conv_kxk
     launches per forward on each; the probes of the tail (PROBE_LAUNCHES)
     once a run; the conv3x3 launches by path as phases 4 and 5 count them.
     The collapsed tail bakes the same kernel in every run. Each image's
@@ -162,7 +162,7 @@ on the default, collapsed route:
     its orientations), counted (8 forwards) and held against its plain
     version. Each path's ms per frame (timed in turns with the direct
     forward, f32 and bf16; the self-ensemble f32) and peak memory.
-    EDSR serves on the collapsed tail (9 conv_kxk launches a forward, none
+    EDSR serves on the collapsed tail (4 conv_kxk launches a forward, 3 of them grouped, none
     in the self-ensemble of the module); its exact tiling equals the
     direct forward, and the 8K frame's chunks of 64 those of 16, bit for
     bit. 10d:
@@ -228,11 +228,16 @@ on the default, collapsed route:
  14. the collapsed tail (after phase 13). 14a: conv_kxk at every shape of
     KXK_SHAPES (the main 5x5 conv of the x4, x2, x3 tails, their border
     operators, the x4 corners, the collapsed base's 3 -> 48 convs, the
-    live tail's 48 -> 64 input gradient) on the 4 x 192x192 batch, and the
-    main conv at 339x510, f32 and bf16, each on its path, held against its
-    plain version and timed in turns with it and F.conv2d beside its
-    bound; conv_kxk_wgrad at 5x5 64 -> 48, batch 16 x 48x48, the same way
-    with conv2d_weight; EDSR-baseline x2, x3 and x4 probed on the card:
+    live tail's 48 -> 64 input gradient) on the 4 x 192x192 batch, the
+    main conv at 339x510, and the border groups of KXK_GROUPS (the x4
+    tail's as the forward launches them, the bicubic base's on the CUDA
+    cores), f32 and bf16, each on its path, held against its plain version
+    and timed in turns with it and F.conv2d (CUDA graph replays of one
+    call, and the wrapper as issued) beside its bound; conv_kxk_wgrad at
+    each shape of KXK_WGRAD (the live tail's 5x5 64 -> 48 on the tensor
+    cores, the bicubic base's 5x5 3 -> 48 on the CUDA cores), batch 16 x
+    48x48, the same way with conv2d_weight, two runs bit for bit;
+    EDSR-baseline x2, x3 and x4 probed on the card:
     radius 2. 14b: EDSR-baseline x4 (fitted) on the collapsed route, f32
     and bf16, counted, held against the same route with the plain
     versions and against the plain tail's forward (COLLAPSED_PSNR_DB) and its probed
@@ -281,9 +286,13 @@ conv3x3_wgrad line's "bf16" gives the bf16 step's wgrad sums (13a) with
 the bf16 launches by path of its counted step. The conv_kxk line gives its
 launches over the counted collapsed forwards of phases 4 to 14 and 14c's
 train step (forward and input gradient), its sums over one collapsed x4
-forward's 9 calls at 4 x 192x192 (f32; bf16 beside), every shape's row,
+forward's 4 launches at 4 x 192x192 (f32; bf16 beside), every shape's row,
 the probed radii and 14b's forward and tail times; the conv_kxk_wgrad line
-the 5x5 64 -> 48 weight gradient's numbers and 14c's launch. The conv3x3
+the 5x5 64 -> 48 weight gradient's numbers and 14c's launch, with the
+CUDA-core entry's 3 -> 48 under "cuda_core". conv_kxk's
+launches count the grouped ones as "group_<path>", its sums are over a
+forward's 4 launches (the main conv and 3 border groups), and both lines'
+"ms" are CUDA graph replays of one call ("wrapper_ms" beside). The conv3x3
 lines add 14c's counted step.
 """
 
@@ -358,9 +367,11 @@ PATH_LAUNCHES = {"f32": {"cuda_core": 1, "tensor_core": 33, "narrow": 0},
 PLAIN_PATH_LAUNCHES = {"f32": {"cuda_core": 1, "tensor_core": 35, "narrow": 1},
                        "bf16": {"cuda_core": 1, "tensor_core": 35, "narrow": 1}}
 # conv_kxk launches per x4 forward on the collapsed tail (ops/conv_kxk.py
-# path_for): the 5x5 64 -> 48 conv, 4 side operators and 4 corners, all of
-# C = 64 on the tensor cores
-KXK_LAUNCHES = {"cuda_core": 0, "tensor_core": 9}
+# path_for), single and grouped ("group_" + path): the 5x5 64 -> 48 conv,
+# then 3 grouped launches (top + bottom, left + right, the 4 corners), all
+# of C = 64 on the tensor cores; NO_KXK: a route without the collapsed tail
+KXK_LAUNCHES = {"cuda_core": 0, "tensor_core": 1, "group_cuda_core": 0, "group_tensor_core": 3}
+NO_KXK = dict.fromkeys(KXK_LAUNCHES, 0)
 # the conv3x3 launches of probing one EDSR-baseline x4 tail
 # (ops/collapsed_tail.collapsed_edsr_tail: 9 calls of the original tail,
 # whose 64 -> 256 convs take the tensor cores and final_conv the narrow
@@ -554,7 +565,7 @@ FULL_FRAME_MODELS = {
 # collapsed tail), and conv3x3's per forward of its module (the x8
 # self-ensemble runs the f32 module, EDSR's with its own tail)
 FULL_FRAME_KXK = {"EDSR-baseline x4": KXK_LAUNCHES,
-                  "LarvaNet 2x16": {"cuda_core": 0, "tensor_core": 0}}
+                  "LarvaNet 2x16": NO_KXK}
 FULL_FRAME_MODULE = {"EDSR-baseline x4": PLAIN_PATH_LAUNCHES["f32"],
                      "LarvaNet 2x16": conv_path_launches(_LARVA48)}
 FULL_FRAME_LR = RAGGED[1:]       # DIV2K x4 LR, 339x510: chop quadrants 179/180 x 265
@@ -1025,7 +1036,7 @@ def serve_phase(torch, device="cuda", dtype_name="f32", model_name="edsr"):
             save_larvanet(torch, pth, model_name, LARVANET_FLAGS, device)
             model_flags = ["--model", model_name] + LARVANET_FLAGS
             per_forward = conv_path_launches(_LARVA48)
-            per_kxk = {"cuda_core": 0, "tensor_core": 0}
+            per_kxk = NO_KXK
         else:
             save_edsr_baseline(torch, pth, frames[0], device)
             model_flags = ["--model", "edsr"]
@@ -1080,7 +1091,7 @@ def serve_phase(torch, device="cuda", dtype_name="f32", model_name="edsr"):
             for i in (2, 3):
                 post(i)
             launches, by_path = conv3x3.LAUNCHES, dict(conv3x3.LAUNCHES_BY_PATH)
-            kxk_by_path = dict(ck.LAUNCHES_BY_PATH)
+            kxk_by_path = kxk_launches(ck)
             info = json.loads(_http(url + "/info")[1])
         finally:
             httpd.shutdown()
@@ -1169,7 +1180,7 @@ def forward_phase(torch, model, device="cuda"):
     through the conv3x3 and conv_kxk kernels and under each --wino_trunk
     route (whose tail is baked too): the denominator of the kernels' share
     of a forward. Each route's forward is counted (--wino_trunk 0: 34
-    conv3x3 launches; 2 and 4: 2 conv3x3 and 16 fused launches; 9 conv_kxk
+    conv3x3 launches; 2 and 4: 2 conv3x3 and 16 fused launches; 4 conv_kxk
     launches on every route) and, under --wino_trunk in bf16, held against
     the same route with the plain fused ResBlock. Returns {m: fused
     launches by path in the counted forwards}."""
@@ -1203,7 +1214,7 @@ def forward_phase(torch, model, device="cuda"):
                 raise AssertionError("forward %s --wino_trunk %d: %s conv3x3 and %s fused "
                                      "launches, not %s and %s" % (
                                          name, m, conv, by_path, want_conv, want_fused))
-            expect_kxk("forward %s --wino_trunk %d" % (name, m), ck.LAUNCHES_BY_PATH,
+            expect_kxk("forward %s --wino_trunk %d" % (name, m), kxk_launches(ck),
                        KXK_LAUNCHES, 1)
             if m:
                 _add(launches[m], by_path)
@@ -1440,7 +1451,7 @@ def validate_phase(torch, device="cuda", model_name="edsr"):
             expect = {m: (conv_path_launches(routes[m][0]),
                           {k: (routes[m][1] if k == m else 0) for k in (2, 4)})
                       for m in (0, 2, 4)}
-            per_kxk, probes = {"cuda_core": 0, "tensor_core": 0}, 0
+            per_kxk, probes = NO_KXK, 0
 
         psnrs, wino_launches = {}, {}
         for m in (0, 2, 4):
@@ -1478,7 +1489,7 @@ def validate_phase(torch, device="cuda", model_name="edsr"):
                                      "(%s) and %s each" % (
                                          model_name, m, conv, conv_by_path, wino, n_images,
                                          probes, want_conv, want_by_path, want_wino))
-            expect_kxk("validate %s --wino_trunk %d" % (model_name, m), ck.LAUNCHES_BY_PATH,
+            expect_kxk("validate %s --wino_trunk %d" % (model_name, m), kxk_launches(ck),
                        per_kxk, n_images)
             if m:
                 wino_launches[m] = wino_by_path
@@ -1560,7 +1571,7 @@ def runtime_phase(torch, device="cuda", model_name="edsr"):
             print("runtime: %s, %dx%d LR, %s, --wino_trunk %d: %.4f ms per frame, %.3f "
                   "LR-MP/s; launches conv3x3 %s, fused %s" % (
                       label, h, w, dtype_name, m, 1e3 * mean_s, mps, conv, wino), flush=True)
-            kxk = dict(ck.LAUNCHES_BY_PATH)
+            kxk = kxk_launches(ck)
             forwards = (kxk["tensor_core"] // per_kxk["tensor_core"] if per_kxk
                         else sum(conv.values()) // sum(per_conv.values()))
             want_conv = {p: k * forwards + probes * PROBE_LAUNCHES[p]
@@ -2079,16 +2090,28 @@ def larva_train_phase(torch, device="cuda"):
 
 
 def plain_kxk(x, kernel, bias=None, pads=None, dgrad=False):
-    """conv_kxk's plain version with the wrapper's signature."""
+    """conv_kxk's plain version with the wrapper's signature (a fixed
+    kernel, a ConvGroup of one, carries its bias)."""
     from larvanet_tpu_torch.ops import conv_kxk as ck
 
+    if isinstance(kernel, ck.ConvGroup):
+        (kernel,), (bias,) = kernel.kernels, kernel.biases
     return ck.conv_kxk_reference(x, kernel, bias, pads)
 
 
+def kxk_launches(ck):
+    """conv_kxk's launches by path since its counters were zeroed, single
+    (by path) and grouped ("group_" + path)."""
+    out = dict(ck.LAUNCHES_BY_PATH)
+    out.update({"group_" + p: k for p, k in ck.GROUP_LAUNCHES_BY_PATH.items()})
+    return out
+
+
 def plain_versions():
-    """A context in which every conv3x3, conv_kxk and fused ResBlock call
-    runs its plain version (and counts no launch)."""
+    """A context in which every conv3x3, conv_kxk (single and grouped) and
+    fused ResBlock call runs its plain version (and counts no launch)."""
     from larvanet_tpu_torch.models import layers
+    from larvanet_tpu_torch.ops import collapsed_tail
     from larvanet_tpu_torch.ops import conv3x3
     from larvanet_tpu_torch.ops import conv_kxk as ck
     from larvanet_tpu_torch.ops import wino_resblock as wr
@@ -2097,6 +2120,8 @@ def plain_versions():
     stack.enter_context(mock.patch.object(layers, "conv3x3_bias_act",
                                           conv3x3.conv3x3_bias_act_reference))
     stack.enter_context(mock.patch.object(ck, "conv_kxk", plain_kxk))
+    stack.enter_context(mock.patch.object(collapsed_tail, "conv_kxk_group",
+                                          ck.conv_kxk_group_reference))
     stack.enter_context(mock.patch.object(wr, "wino_resblock_transformed",
                                           wr.wino_resblock_transformed_reference))
     return stack
@@ -2105,7 +2130,7 @@ def plain_versions():
 # conv_kxk launches by path of the last `counted` run, and the sum of the
 # main paths' runs that were held to their counts (the kernels line)
 LAST_KXK = {}
-KXK_FORWARDS = {"cuda_core": 0, "tensor_core": 0}
+KXK_FORWARDS = dict(NO_KXK)
 
 
 def counted(torch, fn, device="cuda"):
@@ -2123,7 +2148,7 @@ def counted(torch, fn, device="cuda"):
     if device == "cuda":
         torch.cuda.synchronize()
     LAST_KXK.clear()
-    LAST_KXK.update(ck.LAUNCHES_BY_PATH)
+    LAST_KXK.update(kxk_launches(ck))
     return out, dict(conv3x3.LAUNCHES_BY_PATH), dict(wr.LAUNCHES)
 
 
@@ -2306,7 +2331,7 @@ def full_frame_model_phase(torch, label, device="cuda"):
     se = self_ensemble_forward(model.module)
     got, by_path, _ = counted(torch, lambda: se(x)[0], device)
     expect_forwards("full frame %s self-ensemble" % label, by_path, FULL_FRAME_MODULE[label], 8,
-                    {"cuda_core": 0, "tensor_core": 0})
+                    NO_KXK)
     _add(totals, by_path)
     with plain_versions():
         ref = se(x)[0]
@@ -2396,7 +2421,7 @@ def full_frame_cli_phase(torch, device="cuda"):
                 ("self-ensemble", ["--self_ensemble"], "all", 0, lambda h, w: 8)]
         runs += [("tile --wino_trunk %d" % m, ["--tile_forward"] + VALIDATE_TILE, "even", m,
                   lambda h, w: tile_forwards(h, w, 48, 16)) for m in (2, 4)]
-        no_kxk = {"cuda_core": 0, "tensor_core": 0}
+        no_kxk = NO_KXK
         for label, flags, sub, m, forwards_of in runs:
             frames = VALIDATE_LR + ((VALIDATE_ODD_LR,) if sub == "all" else ())
             forwards = sum(forwards_of(h, w) for h, w in frames)
@@ -2912,8 +2937,8 @@ def int8_forward_phase(torch):
             torch.cuda.synchronize()
             by_entry, by_path = dict(s8.LAUNCHES_BY_ENTRY), dict(conv3x3.LAUNCHES_BY_PATH)
             # EDSR's int8 forward bakes the collapsed tail, as JAX's does
-            expect_kxk("int8 %s" % name, ck.LAUNCHES_BY_PATH, KXK_LAUNCHES if name == "edsr"
-                       else {"cuda_core": 0, "tensor_core": 0}, 1)
+            expect_kxk("int8 %s" % name, kxk_launches(ck), KXK_LAUNCHES if name == "edsr"
+                       else NO_KXK, 1)
             del runner.int8
             want_s8, want_conv = INT8_LAUNCHES[name]
             print("int8 %s: one forward of %d x %dx%d: conv3x3_s8 launches %s, conv3x3 by "
@@ -2985,7 +3010,7 @@ def _counted_s8(torch, fn):
     out = fn()
     torch.cuda.synchronize()
     LAST_KXK.clear()
-    LAST_KXK.update(ck.LAUNCHES_BY_PATH)
+    LAST_KXK.update(kxk_launches(ck))
     return out, dict(s8.LAUNCHES_BY_ENTRY), dict(conv3x3.LAUNCHES_BY_PATH)
 
 
@@ -3641,9 +3666,9 @@ SAME5 = (2, 2, 2, 2)
 # "corner" its 4x4 patches, "train" batch 16 x 48x48
 KXK_SHAPES = (
     ("x4 5x5", "lr", 64, 48, 5, 5, SAME5, 1),
-    ("x4 top/bottom 4x5", "rows", 64, 96, 4, 5, (0, 0, 2, 2), 2),
-    ("x4 left/right 5x4", "cols", 64, 96, 5, 4, (2, 2, 0, 0), 2),
-    ("x4 corner 4x4", "corner", 64, 192, 4, 4, (0, 0, 0, 0), 4),
+    ("x4 top/bottom 4x5", "rows", 64, 96, 4, 5, (0, 0, 2, 2), 0),
+    ("x4 left/right 5x4", "cols", 64, 96, 5, 4, (2, 2, 0, 0), 0),
+    ("x4 corner 4x4", "corner", 64, 192, 4, 4, (0, 0, 0, 0), 0),
     ("x2 5x5", "lr", 64, 12, 5, 5, SAME5, 0),
     ("x2 top/bottom 4x5", "rows", 64, 24, 4, 5, (0, 0, 2, 2), 0),
     ("x2 left/right 5x4", "cols", 64, 24, 5, 4, (2, 2, 0, 0), 0),
@@ -3655,8 +3680,24 @@ KXK_SHAPES = (
     ("base nearest x4 1x1", "lr", 3, 48, 1, 1, (0, 0, 0, 0), 0),
     ("dgrad x4 5x5 48->64", "train", 48, 64, 5, 5, SAME5, 0),
 )
-# the live tail's weight gradient: its 5x5 64 -> 48 conv at batch 16 x 48x48
-KXK_WGRAD = (TRAIN_BATCH, TRAIN_PATCH, TRAIN_PATCH, 64, 48)
+# the border operators as grouped launches (ops/conv_kxk.py
+# conv_kxk_group): those of a collapsed x4 forward as it launches them (the
+# tensor cores), and the collapsed bicubic base's (C = 3: the CUDA cores),
+# as (name, geometry, problems, C, F, kh, kw, pads, launches per collapsed
+# x4 forward)
+KXK_GROUPS = (
+    ("x4 top+bottom 4x5", "rows", 2, 64, 96, 4, 5, (0, 0, 2, 2), 1),
+    ("x4 left+right 5x4", "cols", 2, 64, 96, 5, 4, (2, 2, 0, 0), 1),
+    ("x4 corners 4x4", "corner", 4, 64, 192, 4, 4, (0, 0, 0, 0), 1),
+    ("base bicubic x4 top+bottom 4x5", "rows", 2, 3, 96, 4, 5, (0, 0, 2, 2), 0),
+    ("base bicubic x4 left+right 5x4", "cols", 2, 3, 96, 5, 4, (2, 2, 0, 0), 0),
+    ("base bicubic x4 corners 4x4", "corner", 4, 3, 192, 4, 4, (0, 0, 0, 0), 0),
+)
+# the weight gradients, 5x5 SAME at batch 16 x 48x48, as (name, C, F, path):
+# the live tail's 64 -> 48 conv (the tensor cores), and the bicubic base's
+# 3 -> 48 (C % 16 != 0: the CUDA cores)
+KXK_WGRAD = (("live tail 64->48", 64, 48, "tensor_core"),
+             ("base bicubic 3->48", 3, 48, "cuda_core"))
 # f32: F32_ATOL per product summed, scaled from the 3x3 64-channel conv's 576
 # products to the shape's kh kw C. The tensor cores' f32 sums round toward
 # zero, so the error's bias grows with the products summed (the 5x5 64 ->
@@ -3702,128 +3743,212 @@ def _kxk_input(kind, geometry):
             "train": (TRAIN_BATCH, TRAIN_PATCH, TRAIN_PATCH)}[kind]
 
 
+def graph_replay(torch, fn):
+    """A CUDA graph of one call of fn (captured after one call on a side
+    stream), as a callable that replays it: the device's time of the call
+    with no host work between two."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return graph.replay
+
+
 def kxk_kernel_phase(torch):
     """Phase 14a, the kernels. conv_kxk at every shape of KXK_SHAPES on the 4
     x 192x192 batch (and the main x4 conv on the 339x510 frame), f32 (TF32
-    off) and bf16: one launch on the path `path_for` names, held against its
-    plain version (F32_ATOL per KXK_F32_TERMS products summed; bf16 one
-    step), timed in turns with it and
-    F.conv2d (the yardstick), beside its bound. Returns ({dtype: sums over
-    one collapsed x4 forward's 9 calls}, {dtype: worst error}, {shape row:
-    numbers})."""
+    off) and bf16, and the border groups of KXK_GROUPS as grouped launches:
+    one launch on the path `path_for` names, held against its plain version
+    (F32_ATOL per KXK_F32_TERMS products summed; bf16 one step), timed in
+    turns with it and F.conv2d (the yardstick; a group beside its problems'
+    F.conv2d calls), beside its bound. A single conv's kernel is fixed, a
+    ConvGroup of one, as the baked tail holds its main conv. "ms" and
+    "library_ms" are CUDA graph replays of one call (the device's time),
+    "wrapper_ms" the wrapper as a caller issues it. Returns ({dtype: sums
+    over one collapsed x4 forward's 4 launches}, {dtype: worst error},
+    {shape row: numbers})."""
     import torch.nn.functional as F
 
     from larvanet_tpu_torch.ops import conv_kxk as ck
 
     dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
     gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
-    keys = ("ms", "plain_ms", "library_ms", "bound_ms")
+    keys = ("ms", "wrapper_ms", "plain_ms", "library_ms", "bound_ms")
     sums = {d: dict.fromkeys(keys, 0.0) for d in dtypes}
     kinds = {d: {} for d in dtypes}
     worst = {d: 0.0 for d in dtypes}
     rows = {}
+
+    def library(x, k, b, pads):
+        w_oihw = k.to(x.dtype).permute(3, 2, 0, 1).contiguous()
+        x_nchw = x.permute(0, 3, 1, 2)  # channels_last view of NHWC
+        b_lib = None if b is None else b.to(x.dtype)
+        return lambda: F.conv2d(x_nchw, w_oihw, b_lib, padding=(pads[0], pads[2]))
+
+    def measure(name, dname, geometry, calls, bound, by, err, path, count):
+        kernel, lib_calls, plain = calls
+        t = time_windows(torch, {
+            "kernel": graph_replay(torch, kernel), "wrapper": kernel,
+            "F.conv2d": graph_replay(torch, lambda: [c() for c in lib_calls]), "plain": plain})
+        print("conv_kxk %-22s %-4s x=%s: %s kernel %s (through the wrapper %s), F.conv2d %s, "
+              "plain %s, bound %.4f ms (%s, %.1fx), max|d| %.3g" % (
+                  name, dname, geometry, path, spread(t["kernel"]), spread(t["wrapper"]),
+                  spread(t["F.conv2d"]), spread(t["plain"]), bound, by,
+                  t["kernel"][0] / bound, err), flush=True)
+        row = {"ms": t["kernel"][0], "wrapper_ms": t["wrapper"][0], "plain_ms": t["plain"][0],
+               "library_ms": t["F.conv2d"][0], "bound_ms": bound, "bound_by": by,
+               "max_abs_err": err, "path": path}
+        rows["%s %dx%dx%d %s" % (name, *geometry, dname)] = row
+        if count:
+            for k in keys:
+                sums[dname][k] += count * row[k]
+            kinds[dname][by] = kinds[dname].get(by, 0.0) + count * bound
+
+    def held(name, dname, geometry, got, want, kh, kw, c, path):
+        ok, err = _conv_ok(torch, got, want, dname,
+                           F32_ATOL * max(1.0, kh * kw * c / KXK_F32_TERMS))
+        worst[dname] = max(worst[dname], err)
+        if not ok:
+            raise AssertionError("conv_kxk %s %s %s: %s kernel disagrees with its plain "
+                                 "version, max |d| = %g" % (name, dname, geometry, path, err))
+        return err
+
     for geometry, (name, kind, c, f, kh, kw, pads, count) in (
             [(LR_BATCH, shape) for shape in KXK_SHAPES] + [(RAGGED, KXK_SHAPES[0])]):
         n, h, w = _kxk_input(kind, geometry)
         x32 = torch.randn((n, h, w, c), generator=gen, device="cuda")
         k32 = 0.1 * torch.randn((kh, kw, c, f), generator=gen, device="cuda")
         b32 = torch.randn((f,), generator=gen, device="cuda")
+        one = ck.ConvGroup([k32], [b32])  # its entry operands made once
         for dname, dtype in dtypes.items():
             x = x32.to(dtype)
             path = ck.path_for(c)
-            before = dict(ck.LAUNCHES_BY_PATH)
-            got = ck.conv_kxk(x, k32, b32, pads)
+            ck.reset_launches()
+            got = ck.conv_kxk(x, one, None, pads)
             torch.cuda.synchronize()  # a fault during the run shows here
-            took = {p: ck.LAUNCHES_BY_PATH[p] - before[p] for p in before}
-            if took != {p: int(p == path) for p in before}:
-                raise AssertionError("conv_kxk %s %s: launches by path %s, expected one on %s"
-                                     % (name, dname, took, path))
-            want = ck.conv_kxk_reference(x, k32, b32, pads)
-            ok, err = _conv_ok(torch, got, want, dname,
-                               F32_ATOL * max(1.0, kh * kw * c / KXK_F32_TERMS))
-            worst[dname] = max(worst[dname], err)
-            if not ok:
-                raise AssertionError("conv_kxk %s %s %s: %s kernel disagrees with its plain "
-                                     "version, max |d| = %g" % (name, dname, (n, h, w, c, f),
-                                                                path, err))
-            w_oihw = k32.to(dtype).permute(3, 2, 0, 1).contiguous()
-            x_nchw = x.permute(0, 3, 1, 2)  # channels_last view of NHWC
-            b_lib = b32.to(dtype)
-            t = time_windows(torch, {
-                "kernel": lambda: ck.conv_kxk(x, k32, b32, pads),
-                "F.conv2d": lambda: F.conv2d(x_nchw, w_oihw, b_lib, padding=(pads[0], pads[2])),
-                "plain": lambda: ck.conv_kxk_reference(x, k32, b32, pads)})
+            if kxk_launches(ck) != dict(NO_KXK, **{path: 1}):
+                raise AssertionError("conv_kxk %s %s: launches %s, expected one on %s"
+                                     % (name, dname, kxk_launches(ck), path))
+            err = held(name, dname, (n, h, w, c, f), got,
+                       ck.conv_kxk_reference(x, k32, b32, pads), kh, kw, c, path)
             bound, by = bound_ms(n, h, w, c, f, dname, kh, kw, pads)
-            print("conv_kxk %-22s %-4s x=%s C=%d F=%d %dx%d pads %s: %s kernel %s, F.conv2d %s, "
-                  "plain %s, bound %.4f ms (%s, %.1fx), max|d| %.3g" % (
-                      name, dname, (n, h, w), c, f, kh, kw, pads, path, spread(t["kernel"]),
-                      spread(t["F.conv2d"]), spread(t["plain"]), bound, by,
-                      t["kernel"][0] / bound, err), flush=True)
-            row = {"ms": t["kernel"][0], "plain_ms": t["plain"][0],
-                   "library_ms": t["F.conv2d"][0], "bound_ms": bound, "bound_by": by,
-                   "max_abs_err": err, "path": path}
-            rows["%s %dx%dx%d %s" % (name, n, h, w, dname)] = row
-            if geometry == LR_BATCH and count:
-                for k in keys:
-                    sums[dname][k] += count * row[k]
-                kinds[dname][by] = kinds[dname].get(by, 0.0) + count * bound
-            del x, got, want
-        del x32, k32, b32
+            measure(name, dname, (n, h, w), (
+                lambda: ck.conv_kxk(x, one, None, pads), [library(x, k32, b32, pads)],
+                lambda: ck.conv_kxk_reference(x, k32, b32, pads)),
+                bound, by, err, path, count if geometry == LR_BATCH else 0)
+            del x, got
+        del x32, k32, b32, one
         torch.cuda.empty_cache()
+    for name, kind, groups, c, f, kh, kw, pads, count in KXK_GROUPS:
+        n, h, w = _kxk_input(kind, LR_BATCH)
+        xs32 = [torch.randn((n, h, w, c), generator=gen, device="cuda") for _ in range(groups)]
+        group = ck.ConvGroup(
+            [0.1 * torch.randn((kh, kw, c, f), generator=gen, device="cuda")
+             for _ in range(groups)],
+            [torch.randn((f,), generator=gen, device="cuda") for _ in range(groups)])
+        for dname, dtype in dtypes.items():
+            xs = [x.to(dtype) for x in xs32]
+            path = ck.path_for(c)
+            ck.reset_launches()
+            with torch.no_grad():
+                got = ck.conv_kxk_group(xs, group, None, pads)
+            torch.cuda.synchronize()
+            if kxk_launches(ck) != dict(NO_KXK, **{"group_" + path: 1}):
+                raise AssertionError("conv_kxk group %s %s: launches %s, expected one grouped "
+                                     "on %s" % (name, dname, kxk_launches(ck), path))
+            want = ck.conv_kxk_group_reference(xs, group, None, pads)
+            err = max(held(name, dname, (groups, n, h, w, c, f), a, b, kh, kw, c, path)
+                      for a, b in zip(got, want))
+            bound, by = bound_ms(n, h, w, c, f, dname, kh, kw, pads)
+            measure(name, dname, (n, h, w), (
+                lambda: ck.conv_kxk_group(xs, group, None, pads),
+                [library(x, k, b, pads) for x, k, b in zip(xs, group.kernels, group.biases)],
+                lambda: ck.conv_kxk_group_reference(xs, group, None, pads)),
+                groups * bound, by, err, "group " + path, count)
+            del xs, got, want
+        torch.cuda.empty_cache()
+    launches = sum(row[-1] for row in KXK_SHAPES + KXK_GROUPS)
     for dname in dtypes:
         sums[dname]["bound_by"] = max(kinds[dname], key=kinds[dname].get)
-        print("conv_kxk per collapsed EDSR-baseline x4 forward at %s (%d calls), %s: kernel "
-              "%.4f ms, plain %.4f ms, F.conv2d %.4f ms, bound %.4f ms (%s)" % (
-                  LR_BATCH, sum(row[-1] for row in KXK_SHAPES), dname, sums[dname]["ms"],
-                  sums[dname]["plain_ms"], sums[dname]["library_ms"], sums[dname]["bound_ms"],
-                  sums[dname]["bound_by"]), flush=True)
+        print("conv_kxk per collapsed EDSR-baseline x4 forward at %s (%d launches), %s: kernel "
+              "%.4f ms (through the wrapper %.4f), plain %.4f ms, F.conv2d %.4f ms, bound %.4f "
+              "ms (%s)" % (LR_BATCH, launches, dname, sums[dname]["ms"],
+                           sums[dname]["wrapper_ms"], sums[dname]["plain_ms"],
+                           sums[dname]["library_ms"], sums[dname]["bound_ms"],
+                           sums[dname]["bound_by"]), flush=True)
     return sums, worst, rows
 
 
 def kxk_wgrad_phase(torch):
-    """Phase 14a, the weight gradient: conv_kxk_wgrad at the live tail's 5x5
-    64 -> 48 conv, batch 16 x 48x48, f32 and bf16, against its plain version
-    (GRAD_RTOL of max |dW|, and of max |db|), timed in turns with it and
-    conv2d_weight (the yardstick), beside its bound. Returns {dtype: the
-    numbers}."""
+    """Phase 14a, the weight gradient: conv_kxk_wgrad at each shape of
+    KXK_WGRAD, 5x5 SAME at batch 16 x 48x48, f32 and bf16, on the path
+    `wgrad_path_for` names (which must be the row's), against its plain
+    version (GRAD_RTOL of max |dW|, and of max |db|), two runs bit for bit,
+    timed in turns with it and conv2d_weight (the yardstick) as CUDA graph
+    replays, and through the wrapper, beside its bound. Returns {path:
+    {dtype: the numbers}}."""
     from larvanet_tpu_torch.ops import conv_kxk as ck
 
-    n, h, w, c, f = KXK_WGRAD
+    n, h, w = TRAIN_BATCH, TRAIN_PATCH, TRAIN_PATCH
     gen = torch.Generator(device="cuda").manual_seed(SEED + 15)
-    x32 = torch.randn((n, h, w, c), generator=gen, device="cuda")
-    g32 = torch.randn((n, h, w, f), generator=gen, device="cuda") / (n * h * w)
     out = {}
-    for dname, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
-        x, g = x32.to(dtype), g32.to(dtype)
-        dw, db = ck.conv_kxk_wgrad(x, g, 5, 5, SAME5)
-        torch.cuda.synchronize()
-        want_w, want_b = ck.conv_kxk_wgrad_reference(x, g, 5, 5, SAME5)
-        err = max(float((dw - want_w).abs().max()), float((db - want_b).abs().max()))
-        rel = max(float((dw - want_w).abs().max() / want_w.abs().max()),
-                  float((db - want_b).abs().max() / want_b.abs().max()))
-        if rel > GRAD_RTOL or not bool(torch.isfinite(dw).all()):
-            raise AssertionError("conv_kxk_wgrad %s disagrees with its plain version, max |d| "
-                                 "/ max |dW| = %g" % (dname, rel))
-        x_nchw, g_nchw = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
-        t = time_windows(torch, {
-            "kernel": lambda: ck.conv_kxk_wgrad(x, g, 5, 5, SAME5),
-            "conv2d_weight": lambda: torch.nn.grad.conv2d_weight(x_nchw, (f, c, 5, 5), g_nchw,
-                                                                 padding=2),
-            "plain": lambda: ck.conv_kxk_wgrad_reference(x, g, 5, 5, SAME5)})
-        item = 4 if dname == "f32" else 2
-        nbytes = item * n * h * w * (c + f) + 4 * (25 * c * f + f)
-        flops = 2 * n * h * w * 25 * c * f + n * h * w * f
-        t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_FLOPS[dname]
-        bound, by = 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
-        print("conv_kxk_wgrad %s x=%s C=%d F=%d 5x5: kernel %s, conv2d_weight %s, plain %s, "
-              "bound %.4f ms (%s, %.1fx), max|d| %.3g (%.3g of max |dW|)" % (
-                  dname, (n, h, w), c, f, spread(t["kernel"]), spread(t["conv2d_weight"]),
-                  spread(t["plain"]), bound, by, t["kernel"][0] / bound, err, rel), flush=True)
-        out[dname] = {"ms": t["kernel"][0], "plain_ms": t["plain"][0],
-                      "library_ms": t["conv2d_weight"][0], "bound_ms": bound, "bound_by": by,
-                      "max_abs_err": err, "max_rel_err": rel}
-        del x, g, dw, db, want_w, want_b
-    torch.cuda.empty_cache()
+    for name, c, f, want_path in KXK_WGRAD:
+        x32 = torch.randn((n, h, w, c), generator=gen, device="cuda")
+        g32 = torch.randn((n, h, w, f), generator=gen, device="cuda") / (n * h * w)
+        path = ck.wgrad_path_for(c, 5, 5)
+        if path != want_path:
+            raise AssertionError("conv_kxk_wgrad %s: wgrad_path_for names %s, not %s"
+                                 % (name, path, want_path))
+        out[path] = {}
+        for dname, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            x, g = x32.to(dtype), g32.to(dtype)
+            ck.reset_launches()
+            dw, db = ck.conv_kxk_wgrad(x, g, 5, 5, SAME5)
+            again = ck.conv_kxk_wgrad(x, g, 5, 5, SAME5)
+            torch.cuda.synchronize()
+            if ck.WGRAD_LAUNCHES_BY_PATH[path] != 2:
+                raise AssertionError("conv_kxk_wgrad %s %s: launches %s, expected 2 on %s" % (
+                    name, dname, ck.WGRAD_LAUNCHES_BY_PATH, path))
+            same = torch.equal(dw, again[0]) and torch.equal(db, again[1])
+            want_w, want_b = ck.conv_kxk_wgrad_reference(x, g, 5, 5, SAME5)
+            err = max(float((dw - want_w).abs().max()), float((db - want_b).abs().max()))
+            rel = max(float((dw - want_w).abs().max() / want_w.abs().max()),
+                      float((db - want_b).abs().max() / want_b.abs().max()))
+            if rel > GRAD_RTOL or not same or not bool(torch.isfinite(dw).all()):
+                raise AssertionError("conv_kxk_wgrad %s %s disagrees with its plain version "
+                                     "(max |d| / max |dW| = %g) or between two runs (%s)"
+                                     % (name, dname, rel, "equal" if same else "not equal"))
+            x_nchw, g_nchw = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
+            t = time_windows(torch, {
+                "kernel": graph_replay(torch, lambda: ck.conv_kxk_wgrad(x, g, 5, 5, SAME5)),
+                "wrapper": lambda: ck.conv_kxk_wgrad(x, g, 5, 5, SAME5),
+                "conv2d_weight": graph_replay(torch, lambda: torch.nn.grad.conv2d_weight(
+                    x_nchw, (f, c, 5, 5), g_nchw, padding=2)),
+                "plain": lambda: ck.conv_kxk_wgrad_reference(x, g, 5, 5, SAME5)})
+            item = 4 if dname == "f32" else 2
+            nbytes = item * n * h * w * (c + f) + 4 * (25 * c * f + f)
+            flops = 2 * n * h * w * 25 * c * f + n * h * w * f
+            t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_FLOPS[dname]
+            bound = 1e3 * max(t_bytes, t_ops)
+            by = "bytes" if t_bytes >= t_ops else "operations"
+            print("conv_kxk_wgrad %s %s x=%s C=%d F=%d 5x5 (%s): kernel %s (through the wrapper "
+                  "%s), conv2d_weight %s, plain %s, bound %.4f ms (%s, %.1fx), max|d| %.3g (%.3g "
+                  "of max |dW|), two runs equal" % (
+                      name, dname, (n, h, w), c, f, path, spread(t["kernel"]),
+                      spread(t["wrapper"]), spread(t["conv2d_weight"]), spread(t["plain"]),
+                      bound, by, t["kernel"][0] / bound, err, rel), flush=True)
+            out[path][dname] = {"ms": t["kernel"][0], "wrapper_ms": t["wrapper"][0],
+                                "plain_ms": t["plain"][0],
+                                "library_ms": t["conv2d_weight"][0], "bound_ms": bound,
+                                "bound_by": by, "max_abs_err": err, "max_rel_err": rel,
+                                "path": path}
+            del x, g, dw, db, again, want_w, want_b
+        del x32, g32
+        torch.cuda.empty_cache()
     return out
 
 
@@ -4181,7 +4306,8 @@ def main() -> int:
     trained.append(flags["chunk"])
     torch.cuda.empty_cache()
     kxk_sums, kxk_worst, kxk_rows = kxk_kernel_phase(torch)
-    kxk_wgrad = kxk_wgrad_phase(torch)
+    kxk_wgrads = kxk_wgrad_phase(torch)
+    kxk_wgrad = kxk_wgrads["tensor_core"]
     radius = collapsed_radius_phase(torch)
     collapsed_serve = collapsed_serve_phase(torch)
     collapsed_train = collapsed_train_phase(torch)
@@ -4336,9 +4462,12 @@ def main() -> int:
         "launches": sum(kxk_by_path.values()),
         "launches_by_path": kxk_by_path,
         "max_abs_err": kxk_worst["f32"],
-        # one collapsed EDSR-baseline x4 forward's 9 calls at 4 x 192x192, f32
-        # (TF32 off) and bf16; library_ms F.conv2d at the same shapes
+        # one collapsed EDSR-baseline x4 forward's 4 launches (the main conv
+        # and 3 border groups) at 4 x 192x192, f32 (TF32 off) and bf16, each
+        # a CUDA graph replay of one call; wrapper_ms through the wrapper;
+        # library_ms F.conv2d at the same shapes (a group: its problems' calls)
         "ms": kxk_sums["f32"]["ms"],
+        "wrapper_ms": kxk_sums["f32"]["wrapper_ms"],
         "plain_ms": kxk_sums["f32"]["plain_ms"],
         "bound_ms": kxk_sums["f32"]["bound_ms"],
         "bound_by": kxk_sums["f32"]["bound_by"],
@@ -4360,14 +4489,20 @@ def main() -> int:
         "launches": collapsed_train["kxk"]["wgrad"],
         "max_abs_err": kxk_wgrad["f32"]["max_abs_err"],
         "max_rel_err": kxk_wgrad["f32"]["max_rel_err"],
-        # the 5x5 64 -> 48 weight gradient at batch 16 x 48x48; library_ms
-        # conv2d_weight
+        # the 5x5 64 -> 48 weight gradient at batch 16 x 48x48 (tensor cores),
+        # a CUDA graph replay of one call; wrapper_ms through the wrapper;
+        # library_ms conv2d_weight
+        "path": kxk_wgrad["f32"]["path"],
         "ms": kxk_wgrad["f32"]["ms"],
+        "wrapper_ms": kxk_wgrad["f32"]["wrapper_ms"],
         "plain_ms": kxk_wgrad["f32"]["plain_ms"],
         "bound_ms": kxk_wgrad["f32"]["bound_ms"],
         "bound_by": kxk_wgrad["f32"]["bound_by"],
         "library_ms": kxk_wgrad["f32"]["library_ms"],
         "bf16": kxk_wgrad["bf16"],
+        # the CUDA-core entry (C % 16 != 0) at the bicubic base's 5x5 3 -> 48,
+        # f32 and bf16, the same way; on no counted path
+        "cuda_core": kxk_wgrads["cuda_core"],
     })
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())

@@ -258,6 +258,34 @@ inline void emu_ldmatrix_x4(unsigned (&r)[4], const void* row) {
   }
 }
 
+// ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16: lane l names row l % 8 of
+// matrix l / 8 as above; the matrices arrive transposed: lane l receives in
+// r[i] the elements (2 (l % 4), l / 4) and (2 (l % 4) + 1, l / 4) of matrix
+// i (row, column), the lower row in the low half
+inline void emu_ldmatrix_x4_trans(unsigned (&r)[4], const void* row) {
+  if (!emu_aligned(row, 16)) emu_fault(cudaErrorMisalignedAddress);
+  const int lane = (int)(threadIdx.x % 32);
+  EmuWarpRegs& w = emu_exchange();
+  w.rows[lane] = row;
+  __syncwarp();
+  for (int i = 0; i < 4; ++i) {
+    const unsigned short* r0 = static_cast<const unsigned short*>(w.rows[8 * i + 2 * (lane % 4)]);
+    const unsigned short* r1 =
+        static_cast<const unsigned short*>(w.rows[8 * i + 2 * (lane % 4) + 1]);
+    r[i] = (unsigned)r0[lane / 4] | ((unsigned)r1[lane / 4] << 16);
+  }
+}
+
+// __shfl_sync over the whole warp (mask 0xffffffff): every lane receives
+// lane `src`'s value
+inline int __shfl_sync(unsigned, int v, int src) {
+  const int lane = (int)(threadIdx.x % 32);
+  EmuWarpRegs& w = emu_exchange();
+  w.a[lane][0] = (unsigned)v;
+  __syncwarp();
+  return (int)w.a[src % 32][0];
+}
+
 inline float __uint_as_float(unsigned u) {
   float f;
   static_assert(sizeof f == sizeof u);

@@ -57,7 +57,7 @@ import torch.nn.functional as F
 
 from larvanet_tpu_torch.models.layers import DIV2K_RGB_MEAN, Conv3x3, interpolated_base
 from larvanet_tpu_torch.ops.conv3x3 import conv3x3_op
-from larvanet_tpu_torch.ops.conv_kxk import conv_kxk_op
+from larvanet_tpu_torch.ops.conv_kxk import ConvGroup, conv_kxk_group, conv_kxk_op
 from larvanet_tpu_torch.ops.pixel_shuffle import pixel_shuffle, pixel_unshuffle
 
 TailFn = Callable[[torch.Tensor], torch.Tensor]
@@ -190,9 +190,12 @@ def trim_zero_rings(kernel: np.ndarray) -> np.ndarray:
 
 
 class BorderOps:
-    """The probed border operators on a device, in one dtype: the side
-    kernels HWIO, the corners as HWIO (2b, 2b, C, b^2 q) kernels of a 2b x
-    2b patch, the biases."""
+    """The probed border operators on a device, in one dtype, as the three
+    groups that `apply_collapsed_tail` launches (`conv_kxk_group`): "rows"
+    (top, bottom) and "cols" (left, right) side kernels HWIO, "corners" (tl,
+    tr, bl, br) as HWIO (2b, 2b, C, b^2 q) kernels of a 2b x 2b patch; each
+    group a `ConvGroup` of kernels and biases, which makes its entry operands
+    at its first launch and keeps them."""
 
     def __init__(self, border: Dict[str, object], channels: int, device, dtype):
         self.b, self.hs, self.q = border["b"], border["Hs"], border["q"]
@@ -201,19 +204,26 @@ class BorderOps:
         def dev(a):
             return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device, dtype)
 
-        self.sides = {side: (dev(border["k_" + side]), dev(border["bias_" + side]))
-                      for side in ("top", "bot", "left", "right")}
-        self.corners = {key: (dev(border["corner_k"][key]).reshape(n2, n2, channels, -1),
-                              dev(border["corner_b"][key]))
-                        for key in ("tl", "tr", "bl", "br")}
+        def group(kernels, biases):
+            return ConvGroup([dev(k) for k in kernels], [dev(b) for b in biases])
+
+        self.groups = {
+            "rows": group([border["k_top"], border["k_bot"]],
+                          [border["bias_top"], border["bias_bot"]]),
+            "cols": group([border["k_left"], border["k_right"]],
+                          [border["bias_left"], border["bias_right"]]),
+            "corners": group([border["corner_k"][key].reshape(n2, n2, channels, -1)
+                              for key in ("tl", "tr", "bl", "br")],
+                             [border["corner_b"][key] for key in ("tl", "tr", "bl", "br")])}
 
 
-def apply_collapsed_tail(h: torch.Tensor, kernel: torch.Tensor, bias_tile: torch.Tensor,
+def apply_collapsed_tail(h: torch.Tensor, kernel, bias_tile: torch.Tensor,
                          tail_fn: TailFn, scale: int, border: Optional[BorderOps] = None,
                          lr_domain: bool = False) -> torch.Tensor:
     """The collapsed conv for the interior and the exact border frame
     (:271-480), all in h's dtype: the main conv on `conv_kxk` (through
-    `ConvKxKTrain` where a gradient is wanted), the border from `border`'s
+    `ConvKxKTrain` where a gradient is wanted; `kernel` HWIO, or a baked
+    tail's ConvGroup of one, which takes none), the border from `border`'s
     probed operators where they are given (b == r), else from the original
     tail on halo strips; the frame is stitched in the LR 3 s^2-channel
     domain, the interior bias tile added there, then one pixel shuffle
@@ -229,32 +239,33 @@ def apply_collapsed_tail(h: torch.Tensor, kernel: torch.Tensor, bias_tile: torch
         out = tail_fn(h).to(h.dtype)
         return pixel_unshuffle(out, s) if lr_domain else out
 
-    out_lr = conv_kxk_op(h, kernel.to(h.dtype), None, (r, r, r, r))
+    main = kernel if isinstance(kernel, ConvGroup) else kernel.to(h.dtype)
+    out_lr = conv_kxk_op(h, main, None, (r, r, r, r))
 
     if b > 0 and border is not None and b == r:
         hs, q, n2 = border.hs, border.q, 2 * b
-
-        def side(x_in, key, pads):
-            k, bias = border.sides[key]
-            return conv_kxk_op(x_in, k, bias, pads)
-
-        top = side(h[:, :hs], "top", (0, 0, r, r)).reshape(n, ww, b, q).transpose(1, 2)
-        bot = side(h[:, hh - hs:], "bot", (0, 0, r, r)).reshape(n, ww, b, q).transpose(1, 2)
-        left = side(h[:, :, :hs], "left", (r, r, 0, 0)).reshape(n, hh, b, q)
-        right = side(h[:, :, ww - hs:], "right", (r, r, 0, 0)).reshape(n, hh, b, q)
-
-        def corner(x_in, key):
-            k, bias = border.corners[key]
-            return conv_kxk_op(x_in, k, bias, (0, 0, 0, 0)).reshape(n, b, b, q)
+        # three launches: top + bottom, left + right, the four corners
+        top, bot = conv_kxk_group([h[:, :hs], h[:, hh - hs:]], border.groups["rows"], None,
+                                  (0, 0, r, r))
+        left, right = conv_kxk_group([h[:, :, :hs], h[:, :, ww - hs:]],
+                                     border.groups["cols"], None, (r, r, 0, 0))
+        corners = conv_kxk_group([h[:, :n2, :n2], h[:, :n2, ww - n2:], h[:, hh - n2:, :n2],
+                                  h[:, hh - n2:, ww - n2:]], border.groups["corners"], None,
+                                 (0, 0, 0, 0))
+        top = top.reshape(n, ww, b, q).transpose(1, 2)
+        bot = bot.reshape(n, ww, b, q).transpose(1, 2)
+        left = left.reshape(n, hh, b, q)
+        right = right.reshape(n, hh, b, q)
+        tl, tr, bl, br = (c.reshape(n, b, b, q) for c in corners)
 
         out_lr[:, :b, b:ww - b] = top[:, :, b:ww - b]
         out_lr[:, hh - b:, b:ww - b] = bot[:, :, b:ww - b]
         out_lr[:, b:hh - b, :b] = left[:, b:hh - b]
         out_lr[:, b:hh - b, ww - b:] = right[:, b:hh - b]
-        out_lr[:, :b, :b] = corner(h[:, :n2, :n2], "tl")
-        out_lr[:, :b, ww - b:] = corner(h[:, :n2, ww - n2:], "tr")
-        out_lr[:, hh - b:, :b] = corner(h[:, hh - n2:, :n2], "bl")
-        out_lr[:, hh - b:, ww - b:] = corner(h[:, hh - n2:, ww - n2:], "br")
+        out_lr[:, :b, :b] = tl
+        out_lr[:, :b, ww - b:] = tr
+        out_lr[:, hh - b:, :b] = bl
+        out_lr[:, hh - b:, ww - b:] = br
     elif b > 0:
         # halo = r suffices: kept output rows < b need input rows <= b - 1
         # + r, and a strip's inner-edge truncation only reaches rows >= b
@@ -281,8 +292,9 @@ def apply_collapsed_tail(h: torch.Tensor, kernel: torch.Tensor, bias_tile: torch
 
 
 class CollapsedTail:
-    """A baked collapsed tail (`make_collapsed_tail`): the f32 kernel, bias
-    tile and border operators on the device, cast to each dtype once.
+    """A baked collapsed tail (`make_collapsed_tail`): the f32 kernel (a
+    ConvGroup of one), bias tile and border operators on the device, cast to
+    each dtype once.
     `__call__(h)` is `apply_collapsed_tail` in h's dtype."""
 
     def __init__(self, kernel: np.ndarray, bias_tile: np.ndarray,
@@ -290,8 +302,7 @@ class CollapsedTail:
         self.kernel_np, self.bias_tile_np, self.border_np = kernel, bias_tile, border
         self.tail_fn, self.scale, self.device = tail_fn, scale, torch.device(device)
         self.radius = kernel.shape[0] // 2
-        self._cast: Dict[torch.dtype, Tuple[torch.Tensor, torch.Tensor,
-                                            Optional[BorderOps]]] = {}
+        self._cast: Dict[torch.dtype, Tuple[ConvGroup, torch.Tensor, Optional[BorderOps]]] = {}
 
     def operands(self, dtype: torch.dtype):
         if dtype not in self._cast:
@@ -299,7 +310,7 @@ class CollapsedTail:
                 return torch.from_numpy(np.ascontiguousarray(a)).to(self.device, dtype)
             border = (None if self.border_np is None else
                       BorderOps(self.border_np, self.kernel_np.shape[2], self.device, dtype))
-            self._cast[dtype] = (dev(self.kernel_np), dev(self.bias_tile_np), border)
+            self._cast[dtype] = (ConvGroup([dev(self.kernel_np)]), dev(self.bias_tile_np), border)
         return self._cast[dtype]
 
     def __call__(self, h: torch.Tensor, lr_domain: bool = False) -> torch.Tensor:
@@ -554,7 +565,7 @@ def make_collapsed_larvanet_forward(model, dtype: torch.dtype = torch.float32):
     if (mod.body_style != "plain" or mod.bodies()[0].leg.style != "2conv"
             or mod.use_tail or mod.interpolate != "bicubic"):
         raise ValueError("collapsed forward supports the flagship LarvaNet config only")
-    kb = torch.from_numpy(bicubic_phase_conv_kernel(SCALE, 3)).to(model.device, dtype)
+    kb = ConvGroup([torch.from_numpy(bicubic_phase_conv_kernel(SCALE, 3)).to(model.device, dtype)])
     r = kb.shape[0] // 2  # the bicubic radius in LR pixels (2)
     s = SCALE
 

@@ -172,6 +172,31 @@ def test_collapsed_forward_matches_jax(scale):
         assert errs[2] <= SAME_OPS_ATOL
 
 
+def test_collapsed_forward_runs_the_border_as_three_groups():
+    """The baked tail's border operators run as three grouped calls (top +
+    bottom, left + right, the four corners; ops/conv_kxk.py
+    `conv_kxk_group`), and the forward is held to JAX's collapsed forward at
+    the bar above."""
+    jm, pm = _models(4)
+    jfwd = jax.jit(jct.make_collapsed_edsr_forward(jm))
+    pfwd = pct.make_collapsed_edsr_forward(pm)
+    calls = []
+    grouped = pct.conv_kxk_group
+
+    def counting(xs, kernels, biases=None, pads=None):
+        calls.append(len(xs))
+        return grouped(xs, kernels, biases, pads)
+
+    x = _lr((1, 13, 17, 3), seed=7)
+    with mock.patch.object(pct, "conv_kxk_group", counting):
+        got = pfwd(torch.from_numpy(x)).numpy()
+    want = np.asarray(jfwd(jm.params, jnp.asarray(x)))
+    err = float(np.abs(got - want).max())
+    print("grouped border: calls %s, collapsed vs JAX's %.3g" % (calls, err))
+    assert calls == [2, 2, 4]
+    assert err <= COLLAPSED_ATOL
+
+
 def test_collapsed_forward_bf16_matches_jax():
     """--serving_dtype bf16 through the collapsed route against JAX's bf16
     collapsed forward (the kernel probed in f32, cast to bf16)."""
