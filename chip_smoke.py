@@ -6,7 +6,8 @@
 It drives the port's main paths on the card, serving and validating
 EDSR-baseline x4 and the LarvaNet family (the flagship LarvaNet 2x16, and
 LarvaNet_w64 on the fused ResBlocks) and training EDSR-baseline x4 and the
-flagship, and fails (exit code != 0, no result line) if any phase fails.
+flagship, then serving, running and training the MSRR family (phase 15),
+and fails (exit code != 0, no result line) if any phase fails.
 EDSR serves on its default route, the collapsed linear tail
 (ops/collapsed_tail.py: the trunk's 34 convs on conv3x3, the tail as one
 5x5 conv, 4 side and 4 corner operators on conv_kxk; the CLIs make the
@@ -250,6 +251,30 @@ on the default, collapsed route:
     TRAIN_COLLAPSED_KXK), timed with its split against
     --collapsed_tail_train 0's; the train CLI for TRAIN_STEPS steps and a
     resume from the middle, bit for bit.
+ 15. the MSRR family (after phase 14), x4 at full width, random weights
+    from SEED. 15a: dwconv3x3 (the depthwise kernel) at dwsr_reduced's 48
+    channels on the 4 x 192x192 batch and a 339x510 frame and at MAMNet's
+    CSD 64, f32 (TF32 off) and bf16, bit for bit with its plain version;
+    its input gradient (the same entry, the taps rotated) bit for bit and
+    dwconv3x3_wgrad within GRAD_RTOL, two runs bit for bit, at batch 16 x
+    48x48; each timed in turns as a CUDA graph replay, through the wrapper,
+    beside its plain version and F.conv2d / conv2d_input / conv2d_weight
+    with groups = C (replayed) and its bound. 15b: conv3x3 with relu6 and
+    leaky_relu(0.2) on the tensor-core (48 -> 48), CUDA-core (3 -> 48) and
+    narrow (48 -> 3) paths against the plain version, each call on its
+    path; conv3x3_s8's conv_a with both, bit for bit. 15c: msrr_reduced
+    served through the HTTP server in f32 and bf16 (phase 4's checks, 65
+    conv3x3 launches a forward); msrr_reduced, dwsr_reduced (1 conv3x3 + 64
+    dwconv3x3 a forward), msrr and msrr_test (37 conv3x3, their last conv
+    scaled by fit_residual) on the 4 x 192x192 batch in f32 and bf16:
+    counted, held against the plain versions relative to the residual over
+    the base, timed with their device split; msrr_reduced's int8 forward
+    (64 s8 launches), held by PSNR, timed. 15d: msrr_reduced,
+    msrr_reduced_relu6 and dwsr_reduced train steps at batch 16 x 48x48
+    f32: loss and gradients against the plain dgrad and wgrad, counted
+    (MSRR_TRAIN), timed; msrr_reduced through train_larva and the other two
+    through train for MSRR_CLI_STEPS steps. 15e: test on msrr_test in its
+    [0, 1] range on a SynSetReal tree, counted, the per-image PSNR printed.
  12. (last) prints the kernels JSON line, the nvidia-smi line, then the
     result line {"ok": true, "device": {...}}.
 
@@ -293,7 +318,15 @@ CUDA-core entry's 3 -> 48 under "cuda_core". conv_kxk's
 launches count the grouped ones as "group_<path>", its sums are over a
 forward's 4 launches (the main conv and 3 border groups), and both lines'
 "ms" are CUDA graph replays of one call ("wrapper_ms" beside). The conv3x3
-lines add 14c's counted step.
+lines add 14c's counted step. Phase 15's counted runs add to the conv3x3
+line (by path, under "msrr" with the new epilogues' errors and the
+family's forward and step times), the conv3x3_wgrad line (15d's steps) and
+the conv3x3_s8 line (15c's int8 forward); the dwconv3x3 line gives its
+launches by entry ("forward", and "dgrad": the same entry as the input
+gradient) over 15c and 15d, the call at dwsr_reduced x4's 4 x 192x192 x 48
+(f32; bf16 beside, the dgrad at 16 x 48x48 under "dgrad") and every shape's
+row; the dwconv3x3_wgrad line the weight gradient at 16 x 48x48 x 48 and
+15d's launches.
 """
 
 from __future__ import annotations
@@ -1003,18 +1036,20 @@ def save_larvanet(torch, path, name="LarvaNet", flags=LARVANET_FLAGS, device="cu
 
 
 def larvanet_base(torch, model, img_chw):
-    """The interpolated base of `model`'s LarvaNet forward on one CHW frame,
-    NHWC f32 (models/layers.interpolated_base on the input in the compute
-    dtype, as the forward takes it)."""
+    """The interpolated base of `model`'s LarvaNet (or msrr_reduced) forward
+    on one CHW frame, NHWC f32 (models/layers.interpolated_base on the
+    input in the compute dtype, as the forward takes it)."""
     from larvanet_tpu_torch.models.layers import interpolated_base
 
     x = model._input_to_device([img_chw]).to(model.compute_dtype)
-    return interpolated_base(x, 4, model.module.interpolate).float()[0]
+    method = getattr(model.module, "interpolate", None) or model.module.base
+    return interpolated_base(x, 4, method).float()[0]
 
 
 def serve_phase(torch, device="cuda", dtype_name="f32", model_name="edsr"):
-    """Phase 4 (EDSR-baseline x4) or 4b (`model_name` a LarvaNet preset, at
-    LARVANET_FLAGS) with --serving_dtype `dtype_name`. Returns the conv3x3
+    """Phase 4 (EDSR-baseline x4), 4b (`model_name` a LarvaNet preset, at
+    LARVANET_FLAGS) or 15c (an MSRR_MODELS name at full width) with
+    --serving_dtype `dtype_name`. Returns the conv3x3
     launches counted while serving, the same by path, and the served
     model."""
     import numpy as np
@@ -1032,7 +1067,12 @@ def serve_phase(torch, device="cuda", dtype_name="f32", model_name="edsr"):
     label = "%s %s" % (model_name, dtype_name)
     with tempfile.TemporaryDirectory() as tmp:
         pth = os.path.join(tmp, "%s_x4.pth" % model_name)
-        if larva:
+        if model_name in MSRR_MODELS:
+            save_msrr(torch, pth, model_name, device)
+            model_flags = ["--model", model_name]
+            per_forward = MSRR_MODELS[model_name][1]
+            per_kxk = NO_KXK
+        elif larva:
             save_larvanet(torch, pth, model_name, LARVANET_FLAGS, device)
             model_flags = ["--model", model_name] + LARVANET_FLAGS
             per_forward = conv_path_launches(_LARVA48)
@@ -1742,36 +1782,49 @@ def check_train_grads(torch, model, x, t, label, batch, patch, same_forward=Fals
     printed beside, with the flips counted (the plain conv on the same
     input), and its loss is held at LOSS_RTOL. `loss_rtol` and `grad_rtol`
     replace the two bars (phase 13's bf16 step). The collapsed tail's
-    conv_kxk and its wgrad (phase 14c) take the same plain versions beside
-    conv3x3's."""
+    conv_kxk and its wgrad (phase 14c), and the depthwise conv and its
+    wgrad (phase 15d), take the same plain versions beside conv3x3's."""
     import numpy as np
 
     from larvanet_tpu_torch.ops import conv3x3
     from larvanet_tpu_torch.ops import conv3x3_wgrad as wg
     from larvanet_tpu_torch.ops import conv_kxk as ck
+    from larvanet_tpu_torch.ops import dwconv3x3 as dw
 
     kernel_conv, plain_wgrad = conv3x3.conv3x3_bias_act, wg.conv3x3_wgrad_reference
     kernel_kxk, kernel_kxk_wgrad = ck.conv_kxk, ck.conv_kxk_wgrad
+    kernel_dw, kernel_dw_wgrad = dw.dwconv3x3, dw.dwconv3x3_wgrad
 
-    def plain_conv(x, kernel, bias, act=None, dgrad=False):
-        return conv3x3.conv3x3_bias_act_reference(x, kernel, bias, act)
+    def plain_dw(x, kernel, bias, dgrad=False):
+        return dw.dwconv3x3_reference(x, kernel, bias)
 
-    def plain_dgrad(x, kernel, bias, act=None, dgrad=False):
-        return (plain_conv if dgrad else kernel_conv)(x, kernel, bias, act)
+    def plain_dw_dgrad(x, kernel, bias, dgrad=False):
+        return (plain_dw if dgrad else kernel_dw)(x, kernel, bias)
+
+    def plain_conv(x, kernel, bias, act=None, dgrad=False, slope=0.1):
+        return conv3x3.conv3x3_bias_act_reference(x, kernel, bias, act, slope)
+
+    def plain_dgrad(x, kernel, bias, act=None, dgrad=False, slope=0.1):
+        return (plain_conv if dgrad else kernel_conv)(x, kernel, bias, act, slope=slope)
 
     def plain_kxk_dgrad(x, kernel, bias=None, pads=None, dgrad=False):
         return (plain_kxk if dgrad else kernel_kxk)(x, kernel, bias, pads)
 
     def loss_and_grads(conv=kernel_conv, wgrad=wg.conv3x3_wgrad):
         kxk, kxk_wgrad = kernel_kxk, kernel_kxk_wgrad
+        dwc, dw_wgrad = kernel_dw, kernel_dw_wgrad
         if conv is not kernel_conv:
             kxk = plain_kxk_dgrad if conv is plain_dgrad else plain_kxk
+            dwc = plain_dw_dgrad if conv is plain_dgrad else plain_dw
         if wgrad is not wg.conv3x3_wgrad:
             kxk_wgrad = ck.conv_kxk_wgrad_reference
+            dw_wgrad = dw.dwconv3x3_wgrad_reference
         with mock.patch.object(conv3x3, "conv3x3_bias_act", conv), \
                 mock.patch.object(wg, "conv3x3_wgrad", wgrad), \
                 mock.patch.object(ck, "conv_kxk", kxk), \
-                mock.patch.object(ck, "conv_kxk_wgrad", kxk_wgrad):
+                mock.patch.object(ck, "conv_kxk_wgrad", kxk_wgrad), \
+                mock.patch.object(dw, "dwconv3x3", dwc), \
+                mock.patch.object(dw, "dwconv3x3_wgrad", dw_wgrad):
             loss = float(model._loss_and_grads(x, t))
         grads = {k: p.grad.clone() for k, p in model.module.named_parameters()}
         model.optimizer.zero_grad(set_to_none=True)
@@ -1789,8 +1842,8 @@ def check_train_grads(torch, model, x, t, label, batch, patch, same_forward=Fals
             "the plain dgrad and wgrad on the kernels' forward"
         flips = [0, 0]
 
-        def counting(x, kernel, bias, act=None, dgrad=False):
-            out = kernel_conv(x, kernel, bias, act, dgrad=dgrad)
+        def counting(x, kernel, bias, act=None, dgrad=False, slope=0.1):
+            out = kernel_conv(x, kernel, bias, act, dgrad=dgrad, slope=slope)
             if act == "relu":
                 ref = plain_conv(x, kernel, bias, act)
                 flips[0] += int(((out > 0) != (ref > 0)).sum())
@@ -2108,12 +2161,14 @@ def kxk_launches(ck):
 
 
 def plain_versions():
-    """A context in which every conv3x3, conv_kxk (single and grouped) and
-    fused ResBlock call runs its plain version (and counts no launch)."""
+    """A context in which every conv3x3, conv_kxk (single and grouped),
+    fused ResBlock and depthwise conv call runs its plain version (and
+    counts no launch)."""
     from larvanet_tpu_torch.models import layers
     from larvanet_tpu_torch.ops import collapsed_tail
     from larvanet_tpu_torch.ops import conv3x3
     from larvanet_tpu_torch.ops import conv_kxk as ck
+    from larvanet_tpu_torch.ops import dwconv3x3 as dw
     from larvanet_tpu_torch.ops import wino_resblock as wr
 
     stack = contextlib.ExitStack()
@@ -2124,6 +2179,9 @@ def plain_versions():
                                           ck.conv_kxk_group_reference))
     stack.enter_context(mock.patch.object(wr, "wino_resblock_transformed",
                                           wr.wino_resblock_transformed_reference))
+    stack.enter_context(mock.patch.object(
+        dw, "dwconv3x3", lambda x, kernel, bias, dgrad=False: dw.dwconv3x3_reference(
+            x, kernel, bias)))
     return stack
 
 
@@ -4212,6 +4270,510 @@ def collapsed_train_phase(torch):
     return dict(launches, kxk=kxk, step_ms=times)
 
 
+# ---- phase 15: the MSRR family ---------------------------------------------------
+
+# 15a: the depthwise conv at dwsr_reduced x4's 48 channels (the 4 x 192x192
+# batch and one 339x510 frame) and MAMNet's CSD 64 (its later slice); its
+# input and weight gradients at a train step's batch 16 x 48x48
+DW_SHAPES = (("dwsr_reduced x4", LR_BATCH, 48), ("dwsr_reduced x4", RAGGED, 48),
+             ("MAMNet CSD", LR_BATCH, 64))
+DW_GRAD_SHAPES = (("dwsr_reduced x4", (TRAIN_BATCH, TRAIN_PATCH, TRAIN_PATCH), 48),
+                  ("MAMNet CSD", (TRAIN_BATCH, TRAIN_PATCH, TRAIN_PATCH), 64))
+PEAK_F32_FMA = 67e12  # f32 outside the tensor cores: the depthwise conv's products
+# 15b: the new epilogues on each conv3x3 path, (C, F, path), and their acts
+EPILOGUE_SHAPES = ((48, 48, "tensor_core"), (3, 48, "cuda_core"), (48, 3, "narrow"))
+EPILOGUE_ACTS = (("relu6", 0.1), ("leaky_relu", 0.2))
+# 15c: the family at full width, x4: name -> (parameters, conv3x3 launches a
+# forward by path, dwconv3x3 launches a forward); msrr_reduced's int8
+# forward's s8 launches
+MSRR_MODELS = {
+    "msrr_reduced": (1331520, {"cuda_core": 1, "tensor_core": 64, "narrow": 0}, 0),
+    "dwsr_reduced": (182592, {"cuda_core": 1, "tensor_core": 0, "narrow": 0}, 64),
+    "msrr": (1517571, {"cuda_core": 1, "tensor_core": 35, "narrow": 1}, 0),
+    "msrr_test": (1517571, {"cuda_core": 1, "tensor_core": 35, "narrow": 1}, 0),
+}
+MSRR_INT8_S8 = {"conv_a": 32, "conv_b": 32}
+# the device split's kernel kinds, by name: the s8 kernel's name holds "conv3x3"
+MSRR_KINDS = ("s8", "dw_", "conv3x3")
+# 15d: one train step at batch 16 x 48x48: conv3x3 forward / dgrad / wgrad by
+# path, dwconv3x3 by entry
+_MSRR48_STEP = {"forward": {"cuda_core": 1, "tensor_core": 64, "narrow": 0},
+                "dgrad": {"cuda_core": 0, "tensor_core": 64, "narrow": 0},
+                "wgrad": {"tensor_core": 64, "narrow": 0, "cuda_core": 1},
+                "dw": {"forward": 0, "dgrad": 0, "wgrad": 0}}
+MSRR_TRAIN = {
+    "msrr_reduced": _MSRR48_STEP,
+    "msrr_reduced_relu6": _MSRR48_STEP,
+    "dwsr_reduced": {"forward": {"cuda_core": 1, "tensor_core": 0, "narrow": 0},
+                     "dgrad": {"cuda_core": 0, "tensor_core": 0, "narrow": 0},
+                     "wgrad": {"tensor_core": 0, "narrow": 0, "cuda_core": 1},
+                     "dw": {"forward": 64, "dgrad": 64, "wgrad": 64}},
+}
+MSRR_CLI_STEPS = 4
+
+
+def dw_bound_ms(n, h, w, c, dname, entry="forward"):
+    """The least time of one depthwise call: bytes (forward and dgrad: x in,
+    y out, the taps; wgrad: x and g in, 10 C f32 sums out) over HBM
+    bandwidth vs its f32 products (9 multiply-adds and an add a value) at
+    the f32 peak outside the tensor cores."""
+    item = 4 if dname == "f32" else 2
+    px = n * h * w * c
+    if entry == "wgrad":
+        nbytes = item * 2 * px + 4 * 10 * c
+    else:
+        nbytes = item * (2 * px + 9 * c) + 4 * c
+    t_bytes, t_ops = nbytes / PEAK_BYTES, (2 * 9 + 1) * px / PEAK_F32_FMA
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _dw_row(torch, label, fns, bound, err, extra=""):
+    """Time `fns` in turns and print one row; returns the row's numbers."""
+    tm = time_windows(torch, fns)
+    row = {k + "_ms": tm[k][0] for k in tm}
+    row["ms"] = row.pop("kernel_ms")
+    row.update(bound_ms=bound[0], bound_by=bound[1], max_abs_err=err)
+    print("dwconv3x3 %s: kernel %s (%.1fx its bound), %s; bound %.4f ms (%s)%s" % (
+        label, spread(tm["kernel"]), tm["kernel"][0] / bound[0],
+        ", ".join("%s %s" % (k, spread(v)) for k, v in tm.items() if k != "kernel"),
+        bound[0], bound[1], extra), flush=True)
+    return row
+
+
+def dw_kernel_phase(torch):
+    """Phase 15a. dwconv3x3 (the forward entry) at DW_SHAPES and its input
+    gradient (the same entry, the taps rotated, no bias) and
+    dwconv3x3_wgrad at DW_GRAD_SHAPES, f32 (TF32 off) and bf16: the forward
+    and the input gradient bit for bit with the plain version, the weight
+    gradient within GRAD_RTOL of its largest value and two runs bit for
+    bit; each timed in turns as a CUDA graph replay of one call ("ms"),
+    through the wrapper, against its plain version and the library call
+    (F.conv2d / conv2d_input / conv2d_weight with groups = C, also
+    replayed) beside its bound. Returns {dtype: {entry: the dwsr_reduced x4
+    shape's row}} and every row."""
+    import torch.nn.functional as F
+    from torch.nn.grad import conv2d_input, conv2d_weight
+
+    from larvanet_tpu_torch.ops import dwconv3x3 as dw
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 15)
+    main, rows = {"f32": {}, "bf16": {}}, []
+    for label, (n, h, w), c in DW_SHAPES:
+        k = 0.3 * torch.randn((3, 3, 1, c), generator=gen, device="cuda")
+        b = torch.randn((c,), generator=gen, device="cuda")
+        x32 = 3.0 * torch.randn((n, h, w, c), generator=gen, device="cuda")
+        for dname, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            x = x32.to(dtype)
+            got, want = dw.dwconv3x3(x, k, b), dw.dwconv3x3_reference(x, k, b)
+            if got.dtype != dtype or not torch.equal(got, want):
+                raise AssertionError("dwconv3x3 %s %s %s: %d values differ from the plain "
+                                     "version" % (label, (n, h, w, c), dname,
+                                                  int((got != want).sum())))
+            xn, wl, bl = x.permute(0, 3, 1, 2), k.permute(3, 2, 0, 1).to(dtype), b.to(dtype)
+            row = _dw_row(torch, "%s %s %s" % (label, (n, h, w, c), dname), {
+                "kernel": graph_replay(torch, lambda: dw.dwconv3x3(x, k, b)),
+                "wrapper": lambda: dw.dwconv3x3(x, k, b),
+                "plain": lambda: dw.dwconv3x3_reference(x, k, b),
+                "library": graph_replay(torch, lambda: F.conv2d(xn, wl, bl, padding=1,
+                                                                groups=c))},
+                dw_bound_ms(n, h, w, c, dname), 0.0, ", bit for bit with the plain version")
+            rows.append(dict(row, shape=[n, h, w, c], dtype=dname, entry="forward"))
+            if (label, (n, h, w), c) == DW_SHAPES[0]:
+                main[dname]["forward"] = row
+        del x32
+    for label, (n, h, w), c in DW_GRAD_SHAPES:
+        k = 0.3 * torch.randn((3, 3, 1, c), generator=gen, device="cuda")
+        x32 = 3.0 * torch.randn((n, h, w, c), generator=gen, device="cuda")
+        g32 = torch.randn((n, h, w, c), generator=gen, device="cuda")
+        zero = torch.zeros((c,), device="cuda")
+        for dname, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            x, g = x32.to(dtype), g32.to(dtype)
+            kr = dw.dgrad_kernel(k)
+            got, want = dw.dwconv3x3(g, kr, zero, dgrad=True), dw.dwconv3x3_reference(g, kr, zero)
+            if not torch.equal(got, want):
+                raise AssertionError("dwconv3x3 dgrad %s %s: %d values differ" % (
+                    label, dname, int((got != want).sum())))
+            xn, gn, wl = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2), k.permute(3, 2, 0, 1)
+            row = _dw_row(torch, "dgrad %s %s %s" % (label, (n, h, w, c), dname), {
+                "kernel": graph_replay(torch, lambda: dw.dwconv3x3(g, kr, zero, dgrad=True)),
+                "wrapper": lambda: dw.dwconv3x3(g, kr, zero, dgrad=True),
+                "plain": lambda: dw.dwconv3x3_reference(g, kr, zero),
+                "library": graph_replay(torch, lambda: conv2d_input(
+                    xn.shape, wl.to(dtype), gn, padding=1, groups=c))},
+                dw_bound_ms(n, h, w, c, dname), 0.0, ", bit for bit with the plain version")
+            rows.append(dict(row, shape=[n, h, w, c], dtype=dname, entry="dgrad"))
+            dk, db = dw.dwconv3x3_wgrad(x, g)
+            again = dw.dwconv3x3_wgrad(x, g)
+            want_k, want_b = dw.dwconv3x3_wgrad_reference(x, g)
+            rel = max(float((dk - want_k).abs().max() / want_k.abs().max()),
+                      float((db - want_b).abs().max() / want_b.abs().max()))
+            err = max(float((dk - want_k).abs().max()), float((db - want_b).abs().max()))
+            same = torch.equal(again[0], dk) and torch.equal(again[1], db)
+            if rel > GRAD_RTOL or not same or not bool(torch.isfinite(dk).all()):
+                raise AssertionError("dwconv3x3_wgrad %s %s: max |d| / max |g| %.3g (bar %g), "
+                                     "two runs %s" % (label, dname, rel, GRAD_RTOL,
+                                                      "equal" if same else "DIFFER"))
+            row = _dw_row(torch, "wgrad %s %s %s" % (label, (n, h, w, c), dname), {
+                "kernel": graph_replay(torch, lambda: dw.dwconv3x3_wgrad(x, g)),
+                "wrapper": lambda: dw.dwconv3x3_wgrad(x, g),
+                "plain": lambda: dw.dwconv3x3_wgrad_reference(x, g),
+                "library": graph_replay(torch, lambda: conv2d_weight(
+                    xn, (c, 1, 3, 3), gn, padding=1, groups=c))},
+                dw_bound_ms(n, h, w, c, dname, "wgrad"), err,
+                "; max |d| / max |g| %.3g against the plain version, two runs bit for bit"
+                % rel)
+            rows.append(dict(row, shape=[n, h, w, c], dtype=dname, entry="wgrad",
+                             max_rel_err=rel))
+            if (label, (n, h, w), c) == DW_GRAD_SHAPES[0]:
+                main[dname]["dgrad"] = rows[-2]
+                main[dname]["wgrad"] = rows[-1]
+        del x32, g32
+    torch.cuda.empty_cache()
+    return main, rows
+
+
+def epilogue_phase(torch):
+    """Phase 15b. The epilogues MSRR's ablations add: conv3x3 with relu6 and
+    leaky_relu(0.2) at EPILOGUE_SHAPES on the 4 x 192x192 batch, f32 and
+    bf16, each on the path it names (one launch counted there), against its
+    plain version; conv3x3_s8's conv_a with the same two at 48 -> 48, f32
+    and bf16, bit for bit. Returns {dtype: the conv3x3 calls' largest error}."""
+    import numpy as np
+
+    from larvanet_tpu_torch.ops import conv3x3
+    from larvanet_tpu_torch.ops import conv3x3_s8 as s8
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 16)
+    n, h, w = LR_BATCH
+    worst = {"f32": 0.0, "bf16": 0.0}
+    for c, f, path in EPILOGUE_SHAPES:
+        x32 = 3.0 * torch.randn((n, h, w, c), generator=gen, device="cuda")
+        k = torch.randn((3, 3, c, f), generator=gen, device="cuda") / math.sqrt(9 * c)
+        b = 3.0 + 3.0 * torch.randn((f,), generator=gen, device="cuda")
+        for dname, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            x = x32.to(dtype)
+            for act, slope in EPILOGUE_ACTS:
+                conv3x3.reset_launches()
+                got = conv3x3.conv3x3_bias_act(x, k, b, act, slope=slope)
+                torch.cuda.synchronize()
+                by_path = dict(conv3x3.LAUNCHES_BY_PATH)
+                want = conv3x3.conv3x3_bias_act_reference(x, k, b, act, slope)
+                ok, err = _conv_ok(torch, got, want, dname)
+                bent = float((want.float() != conv3x3.conv3x3_bias_act_reference(
+                    x, k, b, None).float()).float().mean())
+                print("epilogue conv3x3 %d->%d %s %s(%g) on the %s path: max |d| %.3g against "
+                      "the plain version; the activation moved %.3f of the values" % (
+                          c, f, dname, act, slope, path, err, bent), flush=True)
+                if not ok or by_path[path] != 1 or sum(by_path.values()) != 1 or bent < 0.05:
+                    raise AssertionError("conv3x3 %d->%d %s %s: path %s, max |d| %.3g" % (
+                        c, f, dname, act, by_path, err))
+                worst[dname] = max(worst[dname], err)
+        del x32
+    rng = np.random.default_rng(SEED + 17)
+    c = 48
+    codes = rng.integers(-127, 128, (3, 3, c, c)).astype(np.int8)
+    sa = (rng.uniform(0.5, 2.0, c) * 1e-3).astype(np.float32)
+    bias = torch.from_numpy((2.0 * rng.standard_normal(c)).astype(np.float32))
+    hin32 = torch.from_numpy((rng.standard_normal((n, h, w, c)) * 3).astype(np.float32))
+    for dname, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        hin = hin32.to("cuda").to(dtype)
+        s_in = float(hin.float().abs().max()) * 1.05 / 127.0
+        wt = s8.make_weight(codes, sa, s_in, bias, dtype, "cuda")
+        for act, slope in EPILOGUE_ACTS:
+            s_mid = 6.0 / 100.0 if act == "relu6" else s_in
+            got = s8.conv_a(hin, wt, s_in, s_mid, act, slope)
+            want = s8.conv_a_reference(hin, wt, s_in, s_mid, act, slope)
+            differ = int((got != want).sum())
+            print("epilogue conv3x3_s8 conv_a 48->48 %s %s(%g): %d of %d codes differ from "
+                  "the plain version" % (dname, act, slope, differ, want.numel()), flush=True)
+            if differ:
+                raise AssertionError("conv3x3_s8 conv_a %s %s is not bit for bit" % (dname, act))
+    torch.cuda.empty_cache()
+    return worst
+
+
+def save_msrr(torch, path, name, device="cuda"):
+    """An MSRR-family model x4 at full width, random weights from SEED (the
+    family's 0.1-scaled Kaiming init), saved as the port module's own
+    state_dict."""
+    from larvanet_tpu_torch.core.registry import get_model
+
+    model = get_model(name)
+    model.parse_args([])
+    model.prepare([4], device=device, seed=SEED)
+    if model.num_parameters() != MSRR_MODELS[name][0]:
+        raise AssertionError("%s x4 has %d parameters, not %d"
+                             % (name, model.num_parameters(), MSRR_MODELS[name][0]))
+    torch.save(model.module.state_dict(), path)
+
+
+def fit_residual(torch, model, x):
+    """Scale the last conv of a random msrr or msrr_test x4 so that its
+    residual over the bilinear base on `x` has a std of 40: as drawn, the
+    0.1-scaled convs leave it near 1e-2, where no error of the trunk would
+    show against the base. The residual is linear in the last conv's weight
+    and bias, so both are scaled alike."""
+    from larvanet_tpu_torch.models.layers import interpolated_base
+
+    module = model.module
+    last = getattr(module, "final_conv", None) or module.conv_last
+    with torch.no_grad():
+        res = module(x) - interpolated_base(x, 4, "bilinear")
+        a = 40.0 / float(res.std())
+        last.weight.mul_(a)
+        last.bias.mul_(a)
+
+
+def _counted_msrr(torch, fn):
+    """fn() with the conv3x3, dwconv3x3 and conv3x3_s8 counters zeroed just
+    before it and read just after: (its result, conv3x3 by path, dwconv3x3
+    by entry, s8 by entry)."""
+    from larvanet_tpu_torch.ops import conv3x3
+    from larvanet_tpu_torch.ops import conv3x3_s8 as s8
+    from larvanet_tpu_torch.ops import dwconv3x3 as dw
+
+    for counter in (conv3x3, dw, s8):
+        counter.reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    return (out, dict(conv3x3.LAUNCHES_BY_PATH), dict(dw.LAUNCHES_BY_ENTRY),
+            dict(s8.LAUNCHES_BY_ENTRY))
+
+
+def msrr_forward_phase(torch):
+    """Phase 15c. Each MSRR_MODELS model x4 at full width, random weights
+    from SEED, on the 4 x 192x192 batch in f32 and bf16: one counted forward
+    (its conv3x3 launches by path and dwconv3x3 launches as MSRR_MODELS
+    says), held against the same forward with every kernel's plain version
+    within FWD_RTOL (bf16: BF16_FWD_RTOL) of the residual over the
+    interpolated base (msrr and msrr_test with their last conv scaled,
+    fit_residual), then timed with its device split (conv3x3, the
+    depthwise kernels "dw_", s8, other, idle). msrr_reduced's W8A8 int8
+    forward (bf16, calibrated on the batch): counted (MSRR_INT8_S8 and its
+    head conv), held against the same forward on the plain versions
+    (INT8_FWD_PSNR_DB), timed. Returns {"conv3x3": launches by path,
+    "dw": by entry, "s8": by entry} over the counted forwards, and
+    {model: {dtype: ms}}."""
+    from larvanet_tpu_torch.core.registry import get_model
+    from larvanet_tpu_torch.models.layers import interpolated_base
+    from larvanet_tpu_torch.ops.int8_forward import make_int8_msrr_forward
+
+    n, h, w = LR_BATCH
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 18)
+    x = 255.0 * torch.rand((n, h, w, 3), generator=gen, device="cuda")
+    totals, times = {"conv3x3": {}, "dw": {}, "s8": {}}, {}
+    for name, (n_params, per_conv, per_dw) in MSRR_MODELS.items():
+        model = get_model(name)
+        model.parse_args([])
+        model.prepare([4], device="cuda", seed=SEED)
+        if model.num_parameters() != n_params:
+            raise AssertionError("%s has %d parameters" % (name, model.num_parameters()))
+        method = getattr(model.module, "base", None) or "bilinear"
+        if name in ("msrr", "msrr_test"):
+            fit_residual(torch, model, x[:1])
+        times[name] = {}
+        for dname in ("f32", "bf16"):
+            model.set_serving_dtype(dname)
+            got, conv, dwl, _ = _counted_msrr(torch, lambda: model.fwd_runtime(x))
+            if conv != per_conv or dwl != {"forward": per_dw, "dgrad": 0, "wgrad": 0}:
+                raise AssertionError("%s %s forward: conv3x3 %s, dwconv3x3 %s, not %s and %d"
+                                     % (name, dname, conv, dwl, per_conv, per_dw))
+            _add(totals["conv3x3"], conv)
+            _add(totals["dw"], dwl)
+            with plain_versions():
+                ref = model.fwd_runtime(x)
+            base = interpolated_base(x.to(model.compute_dtype), 4, method)
+            residual = float((ref - base).abs().max())
+            err = float((got - ref).abs().max())
+            bar = (FWD_RTOL if dname == "f32" else BF16_FWD_RTOL) * residual
+            tm = time_windows(torch, {"forward": lambda: model.fwd_runtime(x)})["forward"]
+            times[name][dname] = tm[0]
+            print("msrr forward %s x4 %s: conv3x3 %s, dwconv3x3 %d a forward; max |d| %.3g "
+                  "against the plain versions (bar %.3g, residual max |y| %.3g); %s per "
+                  "forward, %.3f LR-MP/s; %s" % (
+                      name, dname, conv, per_dw, err, bar, residual, spread(tm),
+                      n * h * w / 1e3 / tm[0], breakdown_line(
+                          torch, lambda: model.fwd_runtime(x), tm[0], MSRR_KINDS)), flush=True)
+            if err > bar or not bool(torch.isfinite(got).all()) or residual < 1.0:
+                raise AssertionError("%s %s forward disagrees with the plain versions"
+                                     % (name, dname))
+            del got, ref, base
+        model.set_serving_dtype("f32")
+        if name == "msrr_reduced":
+            calib = x[:, :96, :96].cpu().numpy()
+            fwd = make_int8_msrr_forward(model, calib)
+            got, conv, _, s8l = _counted_msrr(torch, lambda: fwd(x))
+            if s8l != MSRR_INT8_S8 or conv != {"cuda_core": 1, "tensor_core": 0, "narrow": 0}:
+                raise AssertionError("msrr_reduced int8 forward: s8 %s, conv3x3 %s" % (s8l,
+                                                                                     conv))
+            _add(totals["s8"], s8l)
+            _add(totals["conv3x3"], conv)
+            with plain_versions(), _plain_s8():
+                ref = fwd(x)
+            psnr = _psnr(got.float(), ref.float())
+            with torch.no_grad():
+                exact = model.module(x)
+            tm = time_windows(torch, {"forward": lambda: fwd(x)})["forward"]
+            times[name]["int8"] = tm[0]
+            print("msrr forward msrr_reduced x4 int8 (bf16): s8 %s, conv3x3 %s; PSNR %.2f dB "
+                  "against the plain versions' int8 forward (bar %.1f), %.2f dB against the "
+                  "exact f32 forward; %s per forward; %s" % (
+                      s8l, conv, psnr, INT8_FWD_PSNR_DB, _psnr(got.float(), exact),
+                      spread(tm), breakdown_line(torch, lambda: fwd(x), tm[0], MSRR_KINDS)),
+                  flush=True)
+            if psnr < INT8_FWD_PSNR_DB:
+                raise AssertionError("msrr_reduced int8 forward disagrees with the plain one")
+            del fwd, got, ref, exact
+        del model
+        torch.cuda.empty_cache()
+    return totals, times
+
+
+def msrr_train_phase(torch):
+    """Phase 15d. msrr_reduced, msrr_reduced_relu6 and dwsr_reduced x4 at full
+    width trained at batch 16 x 48x48, f32, on phase 8's kind of set: one
+    batch's loss and gradients against the same Function with the plain
+    dgrad and wgrad on the kernels' forward (check_train_grads), a counted
+    step (MSRR_TRAIN: conv3x3 forward / dgrad / wgrad by path, the
+    depthwise kernels by entry), a step timed (3 windows of 5) with its
+    split; then
+    msrr_reduced through train_larva for MSRR_CLI_STEPS steps (validation at
+    step 1 and every 2 steps, volume checkpoints) and the other two through
+    train for MSRR_CLI_STEPS steps. Returns the counted steps' launches
+    and {model: ms a step}."""
+    import numpy as np
+
+    from larvanet_tpu_torch.cli import train, train_larva
+    from larvanet_tpu_torch.core.registry import get_loader, get_model
+    from larvanet_tpu_torch.ops import dwconv3x3 as dw
+
+    batch, patch = TRAIN_BATCH, TRAIN_PATCH
+    steps, times = [], {}
+    with tempfile.TemporaryDirectory() as tmp:
+        write_train_set(tmp, np.random.default_rng(SEED + 19), TRAIN_FRAMES, TRAIN_LR)
+        data_flags = ["--data_input_path", os.path.join(tmp, "LR"),
+                      "--data_truth_path", os.path.join(tmp, "HR"), "--data_cached",
+                      "--data_seed", str(SEED)]
+        loader = get_loader("div2k_train_loader")
+        loader.parse_args(data_flags)
+        loader.prepare([4])
+        loader.reseed_for_step(0)
+        lr_nhwc, hr_nhwc = loader.get_patch_batch_nhwc(batch, 4, patch)
+        x, t = torch.from_numpy(lr_nhwc).cuda(), torch.from_numpy(hr_nhwc).cuda()
+        for name, want in MSRR_TRAIN.items():
+            model = get_model(name)
+            model.parse_args([])
+            model.prepare([4], device="cuda", seed=SEED, is_training=True)
+            label = "%s x4" % name
+            check_train_grads(torch, model, x, t, label, batch, patch, same_forward=True)
+            step = lambda: model.train_step(lr_nhwc, 4, hr_nhwc)  # noqa: E731
+            dw.reset_launches()
+            launches = counted_step(torch, step)
+            launches["dw"] = dict(dw.LAUNCHES_BY_ENTRY)
+            if launches != want:
+                raise AssertionError("%s train step launches %s, not %s"
+                                     % (label, launches, want))
+            print("train %s: dwconv3x3 launches %s" % (label, launches["dw"]), flush=True)
+            steps.append(launches)
+            # 3 windows of 5 steps: the phase's share of the script's time
+            tm = time_windows(torch, {"train_step": step}, windows=3, reps=5)["train_step"]
+            train_step_split(torch, model, x, t, step, label, batch, patch, "f32", tm)
+            times[name] = tm[0]
+            del model
+            torch.cuda.empty_cache()
+        volume = patch * patch * batch * 3
+        cli = ["--dataloader", "div2k_train_loader", "--device", "cuda", "--batch_size",
+               str(batch), "--input_patch_size", str(patch), "--max_steps",
+               str(MSRR_CLI_STEPS)] + data_flags
+        run = os.path.join(tmp, "msrr_reduced")
+        trained, losses = train_larva.main(cli + [
+            "--model", "msrr_reduced", "--val_data_input_path", os.path.join(tmp, "LR"),
+            "--val_data_truth_path", os.path.join(tmp, "HR"), "--val_volume", str(2 * volume),
+            "--log_freq", "1", "--train_path", run])
+        files = sorted(os.listdir(run))
+        stems = ["model_step%d_vol0G" % s for s in range(2, MSRR_CLI_STEPS + 1, 2)]
+        print("train_larva msrr_reduced x4: losses %s, lr %.3g, files %s" % (
+            {k: round(v, 4) for k, v in losses.items()}, trained.get_learning_rate(), files),
+            flush=True)
+        if sorted(losses) != list(range(1, MSRR_CLI_STEPS + 1)) or not all(
+                s + ext in files for s in stems for ext in (".pth", ".state.pt")) or not all(
+                np.isfinite(v) for v in losses.values()):
+            raise AssertionError("train_larva msrr_reduced: losses %s, files %s"
+                                 % (losses, files))
+        del trained
+        for name in ("dwsr_reduced", "msrr_reduced_relu6"):
+            _, losses = train.main(cli + ["--model", name, "--scales", "4", "--log_freq", "1",
+                                          "--train_path", os.path.join(tmp, name)])
+            print("train %s x4: losses %s" % (name, {k: round(v, 4) for k, v in losses.items()}),
+                  flush=True)
+            if sorted(losses) != list(range(1, MSRR_CLI_STEPS + 1)) or not all(
+                    np.isfinite(v) for v in losses.values()):
+                raise AssertionError("train %s: losses %s" % (name, losses))
+    torch.cuda.empty_cache()
+    return steps, times
+
+
+def msrr_test_cli_phase(torch):
+    """Phase 15e. The test CLI on msrr_test x4 at full width (random weights
+    from SEED), in its [0, 1] range, on a SynSetReal tree of TEST_FRAMES
+    `photo` frames (write_test_set): counted (37 conv3x3 launches a frame),
+    the per-image Y-PSNR printed by the CLI. Returns the conv3x3 launches
+    by path."""
+    import numpy as np
+
+    from larvanet_tpu_torch.cli import test as port_test
+
+    with tempfile.TemporaryDirectory() as tmp:
+        write_test_set(tmp, np.random.default_rng(SEED + 20))
+        pth = os.path.join(tmp, "msrr_test.pth")
+        save_msrr(torch, pth, "msrr_test")
+        results, conv, _, _ = _counted_msrr(torch, lambda: port_test.main([
+            "--model", "msrr_test", "--device", "cuda", "--restore_path", pth,
+            "--input_root_path", os.path.join(tmp, "test_LR"), "--truth_root_path",
+            os.path.join(tmp, "test_HR"), "--output_root_path", os.path.join(tmp, "out"),
+            "--datasets", "SynSetReal"]))
+    frames = len(TEST_FRAMES)
+    want = {p: k * frames for p, k in MSRR_MODELS["msrr_test"][1].items()}
+    print("test msrr_test x4: %s; conv3x3 launches %s for %d frames" % (
+        results, conv, frames), flush=True)
+    if conv != want or not all(np.isfinite(r[1]) for r in results):
+        raise AssertionError("test msrr_test: conv3x3 %s (not %s), results %s"
+                             % (conv, want, results))
+    return conv
+
+
+def msrr_phase(torch):
+    """Phase 15: 15a-15e, each one's seconds printed. Returns what the
+    kernels line takes."""
+    t0 = time.perf_counter()
+    seconds = {}
+
+    def lap(part):
+        seconds[part] = time.perf_counter() - t0 - sum(seconds.values())
+
+    dw_main, dw_rows = dw_kernel_phase(torch)
+    lap("15a")
+    epilogue = epilogue_phase(torch)
+    lap("15b")
+    served = {}
+    for dtype_name in ("f32", "bf16"):
+        _, by_path, model = serve_phase(torch, dtype_name=dtype_name,
+                                        model_name="msrr_reduced")
+        _add(served, by_path)
+        del model
+    forwards, forward_ms = msrr_forward_phase(torch)
+    lap("15c")
+    steps, step_ms = msrr_train_phase(torch)
+    lap("15d")
+    test_conv = msrr_test_cli_phase(torch)
+    lap("15e")
+    print("phase 15: %.1f s (%s)" % (time.perf_counter() - t0, ", ".join(
+        "%s %.1f s" % kv for kv in seconds.items())), flush=True)
+    return dict(dw_main=dw_main, dw_rows=dw_rows, epilogue=epilogue, served=served,
+                forwards=forwards, forward_ms=forward_ms, steps=steps, step_ms=step_ms,
+                test_conv=test_conv)
+
+
 def print_sass_mix(build):
     """The instruction mix of each tensor-core and narrow kernel in the
     built libraries (cuobjdump -sass): ldmatrix, tensor-core products,
@@ -4312,9 +4874,19 @@ def main() -> int:
     collapsed_serve = collapsed_serve_phase(torch)
     collapsed_train = collapsed_train_phase(torch)
     trained.append(collapsed_train)
+    torch.cuda.empty_cache()
+    msrr = msrr_phase(torch)
+    trained.extend(msrr["steps"])
+    msrr_conv = {}
+    for part in (msrr["served"], msrr["forwards"]["conv3x3"], msrr["test_conv"]):
+        _add(msrr_conv, part)
     s8_by_entry = {}
-    for part in (*s8_forward.values(), s8_cli):
+    for part in (*s8_forward.values(), s8_cli, msrr["forwards"]["s8"]):
         _add(s8_by_entry, part)
+    dw_by_entry = dict(msrr["forwards"]["dw"])
+    for run in msrr["steps"]:
+        _add(dw_by_entry, run["dw"])
+    dw_main = msrr["dw_main"]
 
     kernels = [{
         "name": "conv3x3_bias_act",
@@ -4323,8 +4895,9 @@ def main() -> int:
         "replaces": "larvanet_tpu/ops/pallas_conv.py:61",
         "launches": launches + sum(sum(run[k].values()) for run in trained
                                    for k in ("forward", "dgrad"))
-        + sum(full_frame["conv3x3"].values()),
+        + sum(full_frame["conv3x3"].values()) + sum(msrr_conv.values()),
         "launches_by_path": {p: by_path[p] + full_frame["conv3x3"].get(p, 0)
+                             + msrr_conv.get(p, 0)
                              + sum(run["forward"][p] + run["dgrad"][p] for run in trained)
                              for p in by_path},
         "max_abs_err": worst["f32"],
@@ -4356,6 +4929,12 @@ def main() -> int:
                            "dgrad": larva_dgrad},
         # phase 10's counted chop, tile, self-ensemble and CLI runs, by path
         "full_frame": full_frame["conv3x3"],
+        # phase 15: the MSRR family's counted serving, forwards and test run
+        # (15c, 15e) by path; 15b's new epilogues (relu6, leaky_relu(0.2)),
+        # their largest error against the plain version by dtype; the
+        # forwards' ms by model and dtype
+        "msrr": {"launches_by_path": msrr_conv, "epilogue_max_abs_err": msrr["epilogue"],
+                 "forward_ms": msrr["forward_ms"], "train_step_ms": msrr["step_ms"]},
     }, {
         "name": "conv3x3_wgrad",
         "route": "cuda",
@@ -4503,6 +5082,54 @@ def main() -> int:
         # the CUDA-core entry (C % 16 != 0) at the bicubic base's 5x5 3 -> 48,
         # f32 and bf16, the same way; on no counted path
         "cuda_core": kxk_wgrads["cuda_core"],
+    })
+    dw_forward = dw_main["f32"]["forward"]
+    kernels.append({
+        "name": "dwconv3x3",
+        "route": "cuda",
+        "source": "larvanet_tpu_torch/csrc/dwconv3x3.cu",
+        "replaces": "larvanet_tpu/models/layers.py:199 (XLA's feature_group_count conv of "
+                    "DepthwiseSeparableResBlock; no Pallas kernel)",
+        # phase 15c's counted dwsr_reduced forwards and 15d's counted steps:
+        # the forward entry, and the same entry as the input gradient
+        "launches": dw_by_entry["forward"] + dw_by_entry["dgrad"],
+        "launches_by_entry": {k: dw_by_entry[k] for k in ("forward", "dgrad")},
+        # bit for bit with the plain version at every shape of 15a
+        "max_abs_err": 0.0,
+        # one call at dwsr_reduced x4's 4 x 192x192 x 48, f32 (TF32 off): a
+        # CUDA graph replay ("ms"), through the wrapper, the plain version,
+        # F.conv2d(groups=C) replayed; its dgrad at 16 x 48x48 under "dgrad"
+        "ms": dw_forward["ms"],
+        "wrapper_ms": dw_forward["wrapper_ms"],
+        "plain_ms": dw_forward["plain_ms"],
+        "bound_ms": dw_forward["bound_ms"],
+        "bound_by": dw_forward["bound_by"],
+        "library_ms": dw_forward["library_ms"],
+        "bf16": dw_main["bf16"]["forward"],
+        "dgrad": {d: dw_main[d]["dgrad"] for d in ("f32", "bf16")},
+        "shapes": [r for r in msrr["dw_rows"] if r["entry"] != "wgrad"],
+    })
+    dw_wgrad = dw_main["f32"]["wgrad"]
+    kernels.append({
+        "name": "dwconv3x3_wgrad",
+        "route": "cuda",
+        "source": "larvanet_tpu_torch/csrc/dwconv3x3.cu",
+        "replaces": "larvanet_tpu/models/layers.py:199 (XLA's weight gradient of the "
+                    "depthwise conv; no Pallas kernel)",
+        # phase 15d's counted dwsr_reduced step
+        "launches": dw_by_entry["wgrad"],
+        "max_abs_err": max(r["max_abs_err"] for r in msrr["dw_rows"] if r["entry"] == "wgrad"),
+        "max_rel_err": max(r["max_rel_err"] for r in msrr["dw_rows"] if r["entry"] == "wgrad"),
+        # at batch 16 x 48x48 x 48, f32: a CUDA graph replay, through the
+        # wrapper, the plain version, conv2d_weight(groups=C) replayed
+        "ms": dw_wgrad["ms"],
+        "wrapper_ms": dw_wgrad["wrapper_ms"],
+        "plain_ms": dw_wgrad["plain_ms"],
+        "bound_ms": dw_wgrad["bound_ms"],
+        "bound_by": dw_wgrad["bound_by"],
+        "library_ms": dw_wgrad["library_ms"],
+        "bf16": dw_main["bf16"]["wgrad"],
+        "shapes": [r for r in msrr["dw_rows"] if r["entry"] == "wgrad"],
     })
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())

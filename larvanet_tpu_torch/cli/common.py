@@ -95,7 +95,12 @@ def setup_model(name: str, remaining: Sequence[str], scales: List[int],
                 device: torch.device, seed: int = 0, is_training: bool = False,
                 global_step: int = 0, ema_decay: float = 0.0):
     print("prepare model - %s" % (name,))
-    model = registry.get_model(name)
+    try:
+        model = registry.get_model(name)
+    except KeyError as e:
+        raise SystemExit("--model %s: %s; the other model families of the JAX package are "
+                         "not ported to larvanet_tpu_torch yet (see ROADMAP.md queue 1 "
+                         "item 8)" % (name, e.args[0]))
     model_args, remaining = model.parse_args(list(remaining))
     model.ema_decay = float(ema_decay or 0.0)  # before prepare: it makes the average
     model.prepare(scales=scales, device=device, seed=seed, is_training=is_training,
@@ -273,7 +278,7 @@ def scales_of(args) -> List[int]:
 
 def add_int8_trunk_flag(parser: argparse.ArgumentParser, help_tail: str = "") -> None:
     parser.add_argument("--int8_trunk", type=int, default=0,
-                        help="Opt-in W8A8 quantized trunk (EDSR/LarvaNet families; "
+                        help="Opt-in W8A8 quantized trunk (EDSR/LarvaNet/MSRR families; "
                              "NOT float-exact; the int8 forward runs in bf16 whatever "
                              "--serving_dtype says; even widths, odd ones take the "
                              "exact forward)." + help_tail)
@@ -284,6 +289,7 @@ def add_int8_trunk_flag(parser: argparse.ArgumentParser, help_tail: str = "") ->
 INT8_BUILDERS = {
     ("edsr", "edsr_loss"): "make_int8_edsr_forward",
     ("LarvaNet", "LarvaLeg"): "make_int8_larvanet_forward",
+    ("msrr", "dwsr"): "make_int8_msrr_forward",
 }
 
 

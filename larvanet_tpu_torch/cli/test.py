@@ -24,8 +24,11 @@ and runs the whole frame). --restore_path takes a .pth or a JAX .ckpt;
 --int8_trunk 1 serves the W8A8 trunk (bf16 whatever --serving_dtype says),
 calibrated on the first --int8_calib_images LR images of the first
 dataset, centre-cropped to their common even size (`calib_from_dir`, as
-JAX's `_calib_from_dir`). Refused with a pointer to ROADMAP.md: the msrr
-models (whose [0, 1] range contract comes with their family). --collapsed_tail 1 (the default, as in JAX) serves EDSR through the
+JAX's `_calib_from_dir`, in [0, 255] for every model, msrr_test too).
+msrr_test runs in the [0, 1] range (reference test.py:132-146; JAX's
+cli/test.py:130, :149-152): its input is the frame over 255, its output is
+clipped to [0, 1], times 255 and rounded to uint8 on the host (no direct
+uint8 path, no dispatch-ahead). --collapsed_tail 1 (the default, as in JAX) serves EDSR through the
 collapsed linear tail (ops/collapsed_tail.py: the tail probed once into
 one 5x5 conv, border operators and one shuffle, on the conv_kxk kernel);
 0 keeps the module's own tail.
@@ -125,10 +128,6 @@ def score(output_image: np.ndarray, truth_image: np.ndarray, scale: int,
 def main(argv=None):
     args, remaining = build_parser().parse_known_args(argv)
     common.refuse_unported(args, REFUSED, IGNORED, "test")
-    if args.model.startswith("msrr"):
-        raise SystemExit("--model %s: the msrr family and its [0, 1] range contract are "
-                         "not ported to larvanet_tpu_torch yet (see ROADMAP.md)"
-                         % (args.model,))
     device = common.resolve_device(args)
     scale_list = common.scales_of(args)
     scale = scale_list[0]
@@ -145,7 +144,8 @@ def main(argv=None):
 
     output_root = os.path.join(args.output_root_path, args.model)
     os.makedirs(output_root, exist_ok=True)
-    direct_u8 = args.device_uint8 and not args.chop_forward
+    unit_range = args.model == "msrr_test"
+    direct_u8 = args.device_uint8 and not args.chop_forward and not unit_range
     results = []
     report = {}
     with open(os.path.join(output_root, "log.txt"), "w") as log:
@@ -174,7 +174,14 @@ def main(argv=None):
                     return
                 for name in image_names:
                     input_image = load_input(name)
-                    if args.chop_forward:
+                    if unit_range:
+                        lr = input_image / 255.0
+                        out = (upscale_with_chop_forward(model, lr, scale,
+                                                         args.chop_overlap_size)
+                               if args.chop_forward else model.upscale([lr], scale)[0])
+                        out = np.clip(out.transpose(1, 2, 0), 0.0, 1.0) * 255.0
+                        yield name, np.uint8(out.round())
+                    elif args.chop_forward:
                         out = upscale_with_chop_forward(model, input_image, scale,
                                                         args.chop_overlap_size)
                         yield name, metrics.image_to_uint8(out.transpose(1, 2, 0))

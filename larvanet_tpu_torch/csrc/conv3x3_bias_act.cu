@@ -2,8 +2,9 @@
 //
 // Replaces the TPU kernel `conv3x3_bias_act_pallas`
 // (larvanet_tpu/ops/pallas_conv.py:61-131): the same function, y =
-// act(conv3x3_same(x, k) + b) with act in {none, relu, leaky_relu(0.1)},
-// accumulated in f32 and stored in the input dtype (f32 or bf16). In the
+// act(conv3x3_same(x, k) + b) with act in {none, relu, leaky_relu (any
+// slope), relu6}, accumulated in f32 and stored in the input dtype (f32 or
+// bf16), the activation applied in f32 after the bias. In the
 // port it carries every 3x3 conv of the EDSR forward (37 launches per x4
 // forward). Three paths, chosen by shape in ops/conv3x3.py `path_for`:
 //
@@ -153,11 +154,20 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
 }
 
-enum Act { kNone = 0, kRelu = 1, kLeakyRelu = 2 };
+enum ActKind { kNone = 0, kRelu = 1, kLeakyRelu = 2, kRelu6 = 3 };
 
-__device__ __forceinline__ float activate(float v, int act) {
-  if (act == kRelu) return fmaxf(v, 0.f);
-  if (act == kLeakyRelu) return v >= 0.f ? v : 0.1f * v;
+// The epilogue's activation, applied in f32 after the bias: its kind and
+// leaky_relu's negative slope (0.1f for the families' leaky_relu; MSRR's
+// ablation takes any)
+struct Act {
+  int kind;
+  float slope;
+};
+
+__device__ __forceinline__ float activate(float v, Act act) {
+  if (act.kind == kRelu) return fmaxf(v, 0.f);
+  if (act.kind == kLeakyRelu) return v >= 0.f ? v : act.slope * v;
+  if (act.kind == kRelu6) return fminf(fmaxf(v, 0.f), 6.f);
   return v;
 }
 
@@ -165,7 +175,7 @@ template <typename T, int BM, int BN, int BK, int TM, int TN>
 __global__ void __launch_bounds__((BM / TM) * (BN / TN))
     conv3x3_bias_act_kernel(const T* __restrict__ x, const T* __restrict__ w,
                             const float* __restrict__ bias, T* __restrict__ y,
-                            int n, int h_img, int w_img, int c, int f, int act) {
+                            int n, int h_img, int w_img, int c, int f, Act act) {
   constexpr int kThreads = (BM / TM) * (BN / TN);
   static_assert(kThreads % BK == 0, "each thread gathers one fixed k column");
   static_assert((BM * BK) % kThreads == 0, "A tile must split evenly");
@@ -270,7 +280,7 @@ __global__ void __launch_bounds__((BM / TM) * (BN / TN))
 
 template <typename T, int BM, int BN, int BK, int TM, int TN>
 void launch(const void* x, const void* w, const void* bias, void* y, int n, int h, int w_img,
-            int c, int f, int act, cudaStream_t stream) {
+            int c, int f, Act act, cudaStream_t stream) {
   constexpr int kThreads = (BM / TM) * (BN / TN);
   const long long m_total = (long long)n * h * w_img;
   const dim3 grid((unsigned)((m_total + BM - 1) / BM), (unsigned)((f + BN - 1) / BN));
@@ -281,7 +291,7 @@ void launch(const void* x, const void* w, const void* bias, void* y, int n, int 
 
 template <typename T>
 int conv3x3_bias_act(const void* x, const void* w, const void* bias, void* y, int n, int h,
-                     int w_img, int c, int f, int act, void* stream) {
+                     int w_img, int c, int f, Act act, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (f <= 4) {
     launch<T, 256, 4, 16, 1, 4>(x, w, bias, y, n, h, w_img, c, f, act, s);
@@ -505,7 +515,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
     conv3x3_bf16_tc_kernel(const __nv_bfloat16* __restrict__ x,
                            const __nv_bfloat16* __restrict__ w,
                            const float* __restrict__ bias, __nv_bfloat16* __restrict__ y,
-                           TcShape s, int act) {
+                           TcShape s, Act act) {
   extern __shared__ __align__(128) float4 tc_smem[];
   const int kc_max = s.c < kKC ? s.c : kKC;
   const int lda = halo_ld(kc_max);
@@ -620,7 +630,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
 // a multiple of the F tiles, at most one a pixel tile per F tile
 template <typename T, typename K>
 int launch_tc(K kernel, cudaError_t attr, int smem, const TcShape& s, const void* x,
-              const void* w, const void* bias, void* y, int act, void* stream) {
+              const void* w, const void* bias, void* y, Act act, void* stream) {
   if (attr != cudaSuccess) return (int)attr;
   long long fit = 0;
   const cudaError_t err = resident_blocks(kernel, kTcThreads, smem, &fit);
@@ -638,7 +648,7 @@ int launch_tc(K kernel, cudaError_t attr, int smem, const TcShape& s, const void
 // each instance sets its largest chunk's shared memory (above 48 KB) once
 // per process
 template <bool kFull>
-int bf16_tc(const void* x, const void* w, const void* bias, void* y, const TcShape& s, int act,
+int bf16_tc(const void* x, const void* w, const void* bias, void* y, const TcShape& s, Act act,
             void* stream) {
   static const cudaError_t attr =
       cudaFuncSetAttribute(conv3x3_bf16_tc_kernel<kFull>,
@@ -661,7 +671,7 @@ int tc_refusal(const void* x, const void* w, const void* y, int n, int h, int w_
 }
 
 int conv3x3_bias_act_tc(const void* x, const void* w, const void* bias, void* y, int n,
-                        int h, int w_img, int c, int f, int act, void* stream) {
+                        int h, int w_img, int c, int f, Act act, void* stream) {
   const int refused = tc_refusal(x, w, y, n, h, w_img, c, f);
   if (refused) return refused;
   const TcShape s{n, h, w_img, c, f, (h + kTH - 1) / kTH, (w_img + kTW - 1) / kTW};
@@ -757,7 +767,7 @@ template <bool kFull>
 __global__ void __launch_bounds__(kTcThreads, 1)
     conv3x3_f32_tc_kernel(const float* __restrict__ x, const float* __restrict__ w,
                           const float* __restrict__ bias, float* __restrict__ y, TcShape s,
-                          int act) {
+                          Act act) {
   constexpr int kNT = kTcBN / 8;  // n8 tiles of a warp
   extern __shared__ __align__(128) float4 f32_smem[];
   const int kc_max = s.c < kKC ? s.c : kKC;
@@ -905,7 +915,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
 }
 
 template <bool kFull>
-int f32_tc(const void* x, const void* w, const void* bias, void* y, const TcShape& s, int act,
+int f32_tc(const void* x, const void* w, const void* bias, void* y, const TcShape& s, Act act,
            void* stream) {
   static const cudaError_t attr =
       cudaFuncSetAttribute(conv3x3_f32_tc_kernel<kFull>,
@@ -916,7 +926,7 @@ int f32_tc(const void* x, const void* w, const void* bias, void* y, const TcShap
 }
 
 int conv3x3_bias_act_tc_f32(const void* x, const void* w, const void* bias, void* y, int n,
-                            int h, int w_img, int c, int f, int act, void* stream) {
+                            int h, int w_img, int c, int f, Act act, void* stream) {
   const int refused = tc_refusal(x, w, y, n, h, w_img, c, f);
   if (refused) return refused;
   const TcShape s{n, h, w_img, c, f, (h + kTH - 1) / kTH, (w_img + kTW - 1) / kTW};
@@ -981,7 +991,7 @@ template <int FP>
 __global__ void __launch_bounds__(kNwThreads, 1)
     conv3x3_narrow_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
                               const float* __restrict__ bias, float* __restrict__ y, TcShape s,
-                              int act) {
+                              Act act) {
   const int F = s.f;
   extern __shared__ __align__(128) float4 nf_smem[];
   // [kNfStages][kNfTH + 2][kNwHW][kNfLd]
@@ -1137,7 +1147,7 @@ __global__ void __launch_bounds__(kNwThreads, 1)
     conv3x3_narrow_tc_kernel(const __nv_bfloat16* __restrict__ x,
                              const __nv_bfloat16* __restrict__ w,
                              const float* __restrict__ bias, __nv_bfloat16* __restrict__ y,
-                             TcShape s, int act) {
+                             TcShape s, Act act) {
   constexpr int KS = kNwMaxC / 16;  // k-steps a tap
   constexpr int kLd = kNwMaxC + 8;
   constexpr int kStage = (kNbTH + 2) * kNwHW * kLd;  // bf16 values
@@ -1255,7 +1265,7 @@ __global__ void __launch_bounds__(kNwThreads, 1)
 // one a tile
 template <typename T, typename K>
 int launch_narrow(K kernel, cudaError_t attr, int smem, const TcShape& s, const void* x,
-                  const void* w, const void* bias, void* y, int act, void* stream) {
+                  const void* w, const void* bias, void* y, Act act, void* stream) {
   if (attr != cudaSuccess) return (int)attr;
   long long blocks = 0;
   const cudaError_t err = resident_blocks(kernel, kNwThreads, smem, &blocks);
@@ -1272,7 +1282,7 @@ int launch_narrow(K kernel, cudaError_t attr, int smem, const TcShape& s, const 
 // each f32 instance sets its largest shared memory once per process
 template <int FP>
 int narrow_f32(const void* x, const void* w, const void* bias, void* y, const TcShape& s,
-               int act, void* stream) {
+               Act act, void* stream) {
   static const cudaError_t attr =
       cudaFuncSetAttribute(conv3x3_narrow_f32_kernel<FP>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, nf_smem_bytes(kNwMaxC, FP));
@@ -1291,7 +1301,7 @@ int narrow_refusal(const void* x, int n, int h, int w_img, int c, int f) {
 }
 
 int conv3x3_narrow_f32(const void* x, const void* w, const void* bias, void* y, int n, int h,
-                       int w_img, int c, int f, int act, void* stream) {
+                       int w_img, int c, int f, Act act, void* stream) {
   const int refused = narrow_refusal(x, n, h, w_img, c, f);
   if (refused) return refused;
   const TcShape s{n, h, w_img, c, f, (h + kNfTH - 1) / kNfTH, (w_img + kNwTW - 1) / kNwTW};
@@ -1300,7 +1310,7 @@ int conv3x3_narrow_f32(const void* x, const void* w, const void* bias, void* y, 
 }
 
 int conv3x3_narrow_bf16(const void* x, const void* w, const void* bias, void* y, int n, int h,
-                        int w_img, int c, int f, int act, void* stream) {
+                        int w_img, int c, int f, Act act, void* stream) {
   const int refused = narrow_refusal(x, n, h, w_img, c, f);
   if (refused) return refused;
   const TcShape s{n, h, w_img, c, f, (h + kNbTH - 1) / kNbTH, (w_img + kNwTW - 1) / kNwTW};
@@ -1314,19 +1324,21 @@ int conv3x3_narrow_bf16(const void* x, const void* w, const void* bias, void* y,
 }  // namespace
 
 // Plain C entry points for ctypes. x: (n, h, w, c) contiguous; w: (9c, f)
-// contiguous in the dtype of x; bias: (f,) f32; y: (n, h, w, f). The launch
+// contiguous in the dtype of x; bias: (f,) f32; y: (n, h, w, f); act: 0
+// none, 1 relu, 2 leaky_relu at `slope`, 3 relu6 (clip to [0, 6]). The launch
 // goes on `stream` and does not synchronise; the return value is
 // cudaGetLastError() right after the launch (0 = launched).
 extern "C" int conv3x3_bias_act_f32(const void* x, const void* w, const void* bias, void* y,
                                     int n, int h, int w_img, int c, int f, int act,
-                                    void* stream) {
-  return conv3x3_bias_act<float>(x, w, bias, y, n, h, w_img, c, f, act, stream);
+                                    float slope, void* stream) {
+  return conv3x3_bias_act<float>(x, w, bias, y, n, h, w_img, c, f, Act{act, slope}, stream);
 }
 
 extern "C" int conv3x3_bias_act_bf16(const void* x, const void* w, const void* bias, void* y,
                                      int n, int h, int w_img, int c, int f, int act,
-                                     void* stream) {
-  return conv3x3_bias_act<__nv_bfloat16>(x, w, bias, y, n, h, w_img, c, f, act, stream);
+                                     float slope, void* stream) {
+  return conv3x3_bias_act<__nv_bfloat16>(x, w, bias, y, n, h, w_img, c, f, Act{act, slope},
+                                         stream);
 }
 
 // bf16 on the tensor cores; C and F must be multiples of 16 and x, w, y
@@ -1334,8 +1346,8 @@ extern "C" int conv3x3_bias_act_bf16(const void* x, const void* w, const void* b
 // otherwise, with nothing launched).
 extern "C" int conv3x3_bias_act_bf16_tc(const void* x, const void* w, const void* bias,
                                         void* y, int n, int h, int w_img, int c, int f, int act,
-                                        void* stream) {
-  return conv3x3_bias_act_tc(x, w, bias, y, n, h, w_img, c, f, act, stream);
+                                        float slope, void* stream) {
+  return conv3x3_bias_act_tc(x, w, bias, y, n, h, w_img, c, f, Act{act, slope}, stream);
 }
 
 // f32 on the tensor cores in split TF32 (3 products an f32 product); w is
@@ -1345,8 +1357,8 @@ extern "C" int conv3x3_bias_act_bf16_tc(const void* x, const void* w, const void
 // with nothing launched).
 extern "C" int conv3x3_bias_act_f32_tc(const void* x, const void* w, const void* bias,
                                        void* y, int n, int h, int w_img, int c, int f, int act,
-                                       void* stream) {
-  return conv3x3_bias_act_tc_f32(x, w, bias, y, n, h, w_img, c, f, act, stream);
+                                       float slope, void* stream) {
+  return conv3x3_bias_act_tc_f32(x, w, bias, y, n, h, w_img, c, f, Act{act, slope}, stream);
 }
 
 // The narrow-output path, F <= 8 with C a multiple of 16 up to 64: f32 on
@@ -1355,12 +1367,12 @@ extern "C" int conv3x3_bias_act_f32_tc(const void* x, const void* w, const void*
 // cudaErrorMisalignedAddress with nothing launched.
 extern "C" int conv3x3_bias_act_f32_narrow(const void* x, const void* w, const void* bias,
                                            void* y, int n, int h, int w_img, int c, int f,
-                                           int act, void* stream) {
-  return conv3x3_narrow_f32(x, w, bias, y, n, h, w_img, c, f, act, stream);
+                                           int act, float slope, void* stream) {
+  return conv3x3_narrow_f32(x, w, bias, y, n, h, w_img, c, f, Act{act, slope}, stream);
 }
 
 extern "C" int conv3x3_bias_act_bf16_narrow(const void* x, const void* w, const void* bias,
                                             void* y, int n, int h, int w_img, int c, int f,
-                                            int act, void* stream) {
-  return conv3x3_narrow_bf16(x, w, bias, y, n, h, w_img, c, f, act, stream);
+                                            int act, float slope, void* stream) {
+  return conv3x3_narrow_bf16(x, w, bias, y, n, h, w_img, c, f, Act{act, slope}, stream);
 }

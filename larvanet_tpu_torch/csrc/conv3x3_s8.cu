@@ -14,7 +14,8 @@
 //
 // with T the residual stream's dtype (f32 or bf16), sca = f32(s_in) * sa and
 // scb = f32(s_mid) * sb the host's per-channel f32 products, rint half to
-// even. Two entries of one kernel: `conv3x3_s8_a_*` takes hin in T and
+// even, and act none, relu, relu6 (clip to [0, 6]) or leaky_relu at a slope,
+// taken in T as jax.nn.leaky_relu takes it: t >= 0 ? t : T(T(slope) * t). Two entries of one kernel: `conv3x3_s8_a_*` takes hin in T and
 // quantizes it in shared memory, and its epilogue ends in the requantize to
 // int8; `conv3x3_s8_b_*` takes tq in int8 and its epilogue ends in T, with
 // the optional res_weight and residual add. The int32 sums are exact in any
@@ -140,8 +141,9 @@ struct S8Shape {
 // res_weight
 struct S8Scalars {
   float s_in, s_mid, r_in, r_mid, res_weight;
-  int act;     // conv_a: 0 none, 1 relu
-  int use_rw;  // conv_b: multiply by res_weight
+  int act;      // conv_a: 0 none, 1 relu, 2 leaky_relu at `slope`, 3 relu6
+  int use_rw;   // conv_b: multiply by res_weight
+  float slope;  // conv_a's leaky_relu slope
 };
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
@@ -558,7 +560,13 @@ __device__ __forceinline__ void stage_values(const int (&acc)[kBN / 8][4], int8_
         float tv = round_to(__fmul_rn((float)acc[j][2 * e + i], i ? scale.y : scale.x), tag);
         tv = round_to(__fadd_rn(tv, i ? bias.y : bias.x), tag);
         if constexpr (kA) {
-          if (k.act == 1) tv = fmaxf(tv, 0.f);
+          if (k.act == 1) {
+            tv = fmaxf(tv, 0.f);
+          } else if (k.act == 2) {
+            if (!(tv >= 0.f)) tv = round_to(__fmul_rn(round_to(k.slope, tag), tv), tag);
+          } else if (k.act == 3) {
+            tv = fminf(fmaxf(tv, 0.f), 6.f);
+          }
         } else {
           if (k.use_rw) tv = round_to(__fmul_rn(tv, round_to(k.res_weight, tag)), tag);
         }
@@ -1013,11 +1021,12 @@ int launch(const void* x, const void* w, const void* scale, const void* bias, co
 
 template <typename T>
 int conv_a(const void* x, const void* w, const void* scale, const void* bias, void* y, int n,
-           int h, int w_img, int c, int f, float s_in, float s_mid, int act, void* stream) {
-  if (act != 0 && act != 1) return cudaErrorInvalidValue;
+           int h, int w_img, int c, int f, float s_in, float s_mid, int act, float slope,
+           void* stream) {
+  if (act < 0 || act > 3 || (act == 2 && !std::isfinite(slope))) return cudaErrorInvalidValue;
   return launch<T, int8_t, T, true>(
       x, w, scale, bias, nullptr, y, n, h, w_img, c, f,
-      S8Scalars{s_in, s_mid, reciprocal(s_in), reciprocal(s_mid), 1.f, act, 0}, stream);
+      S8Scalars{s_in, s_mid, reciprocal(s_in), reciprocal(s_mid), 1.f, act, 0, slope}, stream);
 }
 
 template <typename T>
@@ -1025,7 +1034,7 @@ int conv_b(const void* x, const void* w, const void* scale, const void* bias, co
            void* y, int n, int h, int w_img, int c, int f, float res_weight, int use_rw,
            void* stream) {
   return launch<int8_t, T, T, false>(x, w, scale, bias, res, y, n, h, w_img, c, f,
-                                     S8Scalars{1.f, 1.f, 1.f, 1.f, res_weight, 0, use_rw},
+                                     S8Scalars{1.f, 1.f, 1.f, 1.f, res_weight, 0, use_rw, 0.f},
                                      stream);
 }
 
@@ -1044,18 +1053,22 @@ int conv_b(const void* x, const void* w, const void* scale, const void* bias, co
 // a misaligned w). Any C is taken: past what one code halo holds, in chunks.
 //
 // conv_a: x (n, h, w, c) hin in T, y (n, h, w, f) int8 codes of the
-// requantized act(conv + bias); act 0 none, 1 relu.
+// requantized act(conv + bias); act 0 none, 1 relu, 2 leaky_relu at `slope`
+// (a finite number; rounded to T here), 3 relu6.
 extern "C" int conv3x3_s8_a_f32(const void* x, const void* w, const void* scale,
                                 const void* bias, void* y, int n, int h, int w_img, int c,
-                                int f, float s_in, float s_mid, int act, void* stream) {
-  return conv_a<float>(x, w, scale, bias, y, n, h, w_img, c, f, s_in, s_mid, act, stream);
+                                int f, float s_in, float s_mid, int act, float slope,
+                                void* stream) {
+  return conv_a<float>(x, w, scale, bias, y, n, h, w_img, c, f, s_in, s_mid, act, slope,
+                       stream);
 }
 
 extern "C" int conv3x3_s8_a_bf16(const void* x, const void* w, const void* scale,
                                  const void* bias, void* y, int n, int h, int w_img, int c,
-                                 int f, float s_in, float s_mid, int act, void* stream) {
+                                 int f, float s_in, float s_mid, int act, float slope,
+                                 void* stream) {
   return conv_a<__nv_bfloat16>(x, w, scale, bias, y, n, h, w_img, c, f, s_in, s_mid, act,
-                               stream);
+                               slope, stream);
 }
 
 // conv_b: x (n, h, w, c) int8 codes, y (n, h, w, f) in T; res null or (n, h,

@@ -2,3 +2,4 @@
 
 from larvanet_tpu_torch.models import edsr  # noqa: F401
 from larvanet_tpu_torch.models import larvanet  # noqa: F401
+from larvanet_tpu_torch.models import msrr  # noqa: F401

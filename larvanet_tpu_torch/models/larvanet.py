@@ -46,7 +46,6 @@ from __future__ import annotations
 import argparse
 from typing import Callable, Optional, Sequence, Union
 
-import numpy as np
 import torch
 from torch import nn
 
@@ -55,9 +54,9 @@ from larvanet_tpu_torch.core.registry import register_model
 from larvanet_tpu_torch.models.base import (SRModel, add_qat_flag, qat_requested,
                                             remat_requested)
 from larvanet_tpu_torch.models.layers import Conv3x3, ResBlock, exact_pair, interpolated_base
+from larvanet_tpu_torch.models.volume import PlateauVolumeMixin
 from larvanet_tpu_torch.ops.pixel_shuffle import pixel_shuffle, pixel_unshuffle
 from larvanet_tpu_torch.train.losses import multi_exit_l1
-from larvanet_tpu_torch.train.schedules import ReduceLROnPlateau
 
 FEATURES = 48  # the reference's trunk width (reference models/LarvaNet.py:226)
 SCALE = 4  # every exit is a PixelShuffle(4): 3 * SCALE^2 = 48 channels -> 3
@@ -253,9 +252,10 @@ class LarvaNetModule(nn.Module):
         return outputs if exits == "all" else outputs[-1]
 
 
-class LarvaNetBase(SRModel):
+class LarvaNetBase(PlateauVolumeMixin, SRModel):
     """Shared wrapper of the presets (models/larvanet.py:181-414): AdamW
-    with the plateau learning rate. Every flag of the JAX parser parses;
+    with the plateau learning rate and the volume-driven step
+    (models/volume.py, shared with msrr_reduced). Every flag of the JAX parser parses;
     --lr_domain_loss 1 (the default) takes the loss before the shuffle while
     --packed_trunk is not 0, --packed_trunk itself is accepted (an explicit
     --packed_trunk 0 with --qat 1 or --remat 1 is refused, as in JAX), --qat
@@ -264,7 +264,6 @@ class LarvaNetBase(SRModel):
     PixelShuffle(4): --scales 2 or 3 are accepted and the output is x4 all
     the same, as in JAX."""
 
-    optimizer_kind = "adamw"
     supported_scales = (2, 3, 4)
 
     # preset knobs overridden by the variants
@@ -279,10 +278,6 @@ class LarvaNetBase(SRModel):
     default_min_lr = 1e-8
     default_patience = 3
     default_cooldown: Optional[int] = 6  # None: no --cooldown flag
-
-    def __init__(self):
-        super().__init__()
-        self.scheduler: Optional[ReduceLROnPlateau] = None
 
     def parse_args(self, args):
         parser = argparse.ArgumentParser()
@@ -350,19 +345,6 @@ class LarvaNetBase(SRModel):
             exits=int(self.args.leg) if self.has_early_exit else "last",
             generator=generator)
 
-    def prepare(self, scales, device="cuda", seed=0, is_training=False, global_step=0):
-        super().prepare(scales, device=device, seed=seed, is_training=is_training,
-                        global_step=global_step)
-        self.scheduler = None
-        if is_training:
-            self.scheduler = ReduceLROnPlateau(
-                lr=self.args.lr, factor=self.args.lr_decay, patience=self.args.patience,
-                cooldown=getattr(self.args, "cooldown", 0), threshold=self.args.threshold,
-                min_lr=self.args.min_lr, mode="max")
-
-    def get_learning_rate(self) -> float:
-        return self.scheduler.lr if self.scheduler is not None else self.args.lr
-
     def _compute_loss(self, inputs: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
         """The mean of every exit's L1 loss (larvanet.py:314-323). The exits
         are asked for by name: LarvaLeg's module defaults to its --leg. Under
@@ -385,76 +367,6 @@ class LarvaNetBase(SRModel):
         1 while --packed_trunk is not 0 (unset is JAX's 1)."""
         a = self.args
         return getattr(a, "packed_trunk", None) != 0 and bool(getattr(a, "lr_domain_loss", 0))
-
-    # -- volume-driven training (reference train_larva.py, LarvaNet.py:98-161) --
-
-    def train_step_larva(self, args, val_dataloader, input_batch, truth_batch,
-                         summary=None) -> float:
-        """One step (larvanet.py:340-369): the step count and the volume
-        first, then the optimizer at the current lr; validation after step
-        1; and once `temp_volume` reaches --val_volume, the volume is
-        banked, then validation (which steps the schedule), a checkpoint in
-        args.train_path and the summary's loss and lr. Returns the loss."""
-        inputs = self._input_to_device(input_batch)
-        targets = self._input_to_device(truth_batch)
-        self.global_step += 1
-        self.temp_volume += self.volume_per_step
-        lr = self.get_learning_rate()
-        loss = float(self._optimizer_step(inputs, targets, lr))
-
-        if self.global_step == 1 and val_dataloader is not None:
-            self.validate_for_train(args, val_dataloader)
-
-        if self.temp_volume >= self.args.val_volume:
-            self.total_volume += self.temp_volume
-            self.temp_volume = 0
-            if val_dataloader is not None:
-                self.validate_for_train(args, val_dataloader)
-            if args is not None and getattr(args, "train_path", None):
-                self.save(base_path=args.train_path)
-                print("saved a model checkpoint at volume %.0fG" % (self.total_volume / 1e9,))
-            if summary is not None:
-                summary.scalar("loss", loss, self.global_step)
-                summary.scalar("lr", lr, self.global_step)
-        return loss
-
-    def validate_for_train(self, args, dataloader) -> float:
-        """The val set's mean RGB PSNR, each frame scored on the device, then
-        the plateau schedule's step with it (larvanet.py:371-388)."""
-        psnr_list = []
-        for idx in range(dataloader.get_num_images()):
-            input_image, truth_image, _ = dataloader.get_image_pair(image_index=idx,
-                                                                    scale=SCALE)
-            psnr_list.append(self.psnr_on_device(input_image, truth_image))
-        average_psnr = float(np.mean(psnr_list))
-        print("step %d, volume %.0fG, psnr=%.8f, lr = %.8f"
-              % (self.global_step, self.total_volume / 1e9, average_psnr,
-                 self.get_learning_rate()))
-        if self.scheduler is not None:
-            self.scheduler.step(average_psnr)
-        return average_psnr
-
-    def checkpoint_name(self) -> str:
-        return "model_step%d_vol%.0fG.pth" % (self.global_step, self.total_volume / 1e9)
-
-    def _train_state(self) -> dict:
-        state = super()._train_state()
-        if self.scheduler is not None:
-            state["scheduler"] = self.scheduler.state_dict()
-        return state
-
-    def _load_train_state(self, state: dict) -> None:
-        super()._load_train_state(state)
-        if self.scheduler is not None and "scheduler" in state:
-            self.scheduler.load_state_dict(state["scheduler"])
-
-    def _load_jax_train_extras(self, state: dict) -> None:
-        """The plateau schedule of a JAX checkpoint (larvanet.py:399-402),
-        its numpy scalars as Python numbers."""
-        if self.scheduler is not None and "scheduler" in state:
-            self.scheduler.load_state_dict(
-                {k: v.item() if hasattr(v, "item") else v
-                 for k, v in state["scheduler"].items()})
 
 
 class _V2Mixin:

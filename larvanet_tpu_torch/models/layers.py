@@ -23,10 +23,40 @@ import torch.nn.functional as F
 from torch import nn
 
 from larvanet_tpu_torch.ops.conv3x3 import Conv3x3Train, conv3x3_bias_act
+from larvanet_tpu_torch.ops.dwconv3x3 import dwconv3x3_op
 from larvanet_tpu_torch.ops.pixel_shuffle import PixelShuffle
 
 # RGB mean used by every MeanShift in the zoo (reference models/edsr.py:181)
 DIV2K_RGB_MEAN = (114.4, 111.5, 103.0)
+
+
+def activation(name: Optional[str], slope: float = 0.1):
+    """The activation `name` as a function (get_activation, layers.py:116-125):
+    None / "none" / "linear" the identity, "relu", "relu6" (clip to [0, 6]),
+    "leaky_relu" at negative slope `slope`. The convs take it fused in the
+    kernel's epilogue instead (`Conv3x3(act=...)`)."""
+    if name in (None, "none", "linear"):
+        return lambda x: x
+    if name == "relu":
+        return torch.relu
+    if name == "relu6":
+        return lambda x: torch.clamp(x, 0.0, 6.0)
+    if name == "leaky_relu":
+        return lambda x: torch.where(x >= 0, x, x * slope)
+    raise ValueError("unknown activation %r" % (name,))
+
+
+def _draw_weight(weight: torch.Tensor, bias: torch.Tensor, fan_in: int,
+                 generator: Optional[torch.Generator], init_scale: Optional[float]) -> None:
+    """torch's Conv2d default init (init_scale None), or kaiming_normal_scaled(s)
+    with a zero bias."""
+    if init_scale is None:
+        bound = 1.0 / math.sqrt(fan_in)
+        weight.uniform_(-bound, bound, generator=generator)
+        bias.uniform_(-bound, bound, generator=generator)
+    else:
+        weight.normal_(0.0, init_scale * math.sqrt(2.0 / fan_in), generator=generator)
+        bias.zero_()
 
 
 class MeanShift(nn.Module):
@@ -52,7 +82,8 @@ class MeanShift(nn.Module):
 
 class Conv3x3(nn.Module):
     """SAME 3x3 conv + bias, with an optional activation fused into the
-    kernel's epilogue. Holds the OIHW `weight` and `bias` of torch's
+    kernel's epilogue (`act`: None, relu, relu6, or leaky_relu at `slope`,
+    as ops.conv3x3 takes them). Holds the OIHW `weight` and `bias` of torch's
     Conv2d; hands the kernel the HWIO view. `init_scale` None draws torch's
     Conv2d default; a float s draws `kaiming_normal_scaled(s)`. Under
     no_grad, or when neither x nor a parameter requires grad (serving),
@@ -65,19 +96,13 @@ class Conv3x3(nn.Module):
     def __init__(self, in_features: int, out_features: int,
                  act: Optional[str] = None,
                  generator: Optional[torch.Generator] = None,
-                 init_scale: Optional[float] = None):
+                 init_scale: Optional[float] = None, slope: float = 0.1):
         super().__init__()
         self.act = act
-        fan_in = in_features * 9
+        self.slope = slope
         weight = torch.empty(out_features, in_features, 3, 3)
         bias = torch.empty(out_features)
-        if init_scale is None:
-            bound = 1.0 / math.sqrt(fan_in)
-            weight.uniform_(-bound, bound, generator=generator)
-            bias.uniform_(-bound, bound, generator=generator)
-        else:
-            weight.normal_(0.0, init_scale * math.sqrt(2.0 / fan_in), generator=generator)
-            bias.zero_()
+        _draw_weight(weight, bias, in_features * 9, generator, init_scale)
         self.weight = nn.Parameter(weight)
         self.bias = nn.Parameter(bias)
 
@@ -87,26 +112,28 @@ class Conv3x3(nn.Module):
             kernel, bias = kernel.to(x.dtype), bias.to(x.dtype)
         if torch.is_grad_enabled() and (x.requires_grad or self.weight.requires_grad
                                         or self.bias.requires_grad):
-            return Conv3x3Train.apply(x, kernel, bias, self.act)
-        return conv3x3_bias_act(x, kernel, bias, self.act)
+            return Conv3x3Train.apply(x, kernel, bias, self.act, self.slope)
+        return conv3x3_bias_act(x, kernel, bias, self.act, slope=self.slope)
 
 
 class ResBlock(nn.Module):
-    """conv -> ReLU -> conv, times res_weight, plus the identity
+    """conv -> act -> conv, times res_weight, plus the identity
     (layers.py:167-196, reference models/edsr.py:139-153).
 
     `body` keeps the reference's Sequential indices so the keys are
-    body.0 / body.2; index 1, the ReLU, runs fused in body.0's kernel.
-    `init_scale` as in Conv3x3 (0.1 in the LarvaNet family)."""
+    body.0 / body.2; index 1, the activation (ReLU, or MSRR's ablations'
+    relu6 and leaky_relu at `slope`), runs fused in body.0's kernel.
+    `init_scale` as in Conv3x3 (0.1 in the LarvaNet and MSRR families)."""
 
     def __init__(self, features: int, res_weight: float = 1.0,
                  generator: Optional[torch.Generator] = None,
-                 init_scale: Optional[float] = None):
+                 init_scale: Optional[float] = None, activation: str = "relu",
+                 slope: float = 0.1):
         super().__init__()
         self.res_weight = res_weight
         self.body = nn.ModuleList([
-            Conv3x3(features, features, act="relu", generator=generator,
-                    init_scale=init_scale),
+            Conv3x3(features, features, act=activation, generator=generator,
+                    init_scale=init_scale, slope=slope),
             nn.Identity(),
             Conv3x3(features, features, generator=generator, init_scale=init_scale),
         ])
@@ -133,18 +160,31 @@ def exact_pair(idx: int, hin: torch.Tensor, conv1: nn.Module, conv2: nn.Module,
 class UpsampleBlock(nn.Module):
     """[conv3x3(C -> 4C) -> PixelShuffle(2)] x log2(scale) for x2/x4/x8,
     one conv3x3(C -> 9C) -> PixelShuffle(3) for x3 (layers.py:230-265).
-    The convs sit at body.0, body.2, ... as in the reference."""
+    The convs sit at body.0, body.2, ... as in the reference.
+
+    `activation` (MSRR's leaky_relu, reference models/msrr.py:188-205): the
+    activation after every x2 shuffle, between the stages and after the
+    last (MSRRModule applies that one, msrr.py:72), none for x3; it runs
+    fused in each stage's conv, since an elementwise activation commutes
+    with the shuffle. Each stage is then [conv, shuffle, activation] and
+    the convs sit at body.0, body.3, ... as in the reference's MSRR
+    Sequential (torch_convert.py:555-564)."""
 
     def __init__(self, features: int, scale: int,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 activation: Optional[str] = None, init_scale: Optional[float] = None):
         super().__init__()
         if scale in (2, 4, 8):
             stages = []
             for _ in range(int(math.log2(scale))):
-                stages += [Conv3x3(features, 4 * features, generator=generator),
+                stages += [Conv3x3(features, 4 * features, act=activation,
+                                   generator=generator, init_scale=init_scale),
                            PixelShuffle(2)]
+                if activation is not None:
+                    stages.append(nn.Identity())
         elif scale == 3:
-            stages = [Conv3x3(features, 9 * features, generator=generator),
+            stages = [Conv3x3(features, 9 * features, generator=generator,
+                              init_scale=init_scale),
                       PixelShuffle(3)]
         else:
             raise ValueError("unsupported scale %d" % (scale,))
@@ -171,3 +211,88 @@ def interpolated_base(x: torch.Tensor, scale: int, method: str = "bicubic") -> t
         out = F.interpolate(nchw.float(), scale_factor=scale, mode=method,
                             align_corners=False)
     return out.permute(0, 2, 3, 1).contiguous()
+
+
+class DepthwiseConv3x3(nn.Module):
+    """SAME depthwise 3x3 conv + bias (groups = C): torch's (C, 1, 3, 3)
+    weight, handed to ops.dwconv3x3 as flax's HWIO (3, 3, 1, C), the
+    hand-written kernel on the card (its Function where a gradient is
+    wanted). A weight of another dtype than x is cast to x's first, as
+    Conv3x3's is."""
+
+    def __init__(self, features: int, generator: Optional[torch.Generator] = None,
+                 init_scale: Optional[float] = None):
+        super().__init__()
+        weight = torch.empty(features, 1, 3, 3)
+        bias = torch.empty(features)
+        _draw_weight(weight, bias, 9, generator, init_scale)
+        self.weight = nn.Parameter(weight)
+        self.bias = nn.Parameter(bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        kernel, bias = self.weight.permute(2, 3, 1, 0), self.bias
+        if kernel.dtype != x.dtype:
+            kernel, bias = kernel.to(x.dtype), bias.to(x.dtype)
+        return dwconv3x3_op(x, kernel, bias)
+
+
+class Conv1x1(nn.Module):
+    """Pointwise conv + bias, torch's (F, C, 1, 1) weight: a plain (N H W, C)
+    x (C, F) product (torch.matmul, as JAX leaves it to XLA), then the
+    bias, in x's dtype."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 generator: Optional[torch.Generator] = None,
+                 init_scale: Optional[float] = None):
+        super().__init__()
+        weight = torch.empty(out_features, in_features, 1, 1)
+        bias = torch.empty(out_features)
+        _draw_weight(weight, bias, in_features, generator, init_scale)
+        self.weight = nn.Parameter(weight)
+        self.bias = nn.Parameter(bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w = self.weight[:, :, 0, 0].t().to(x.dtype)
+        return torch.matmul(x, w) + self.bias.to(x.dtype)
+
+
+class DepthwiseSeparableResBlock(nn.Module):
+    """dw3x3 -> pw1x1 -> act -> dw3x3 -> pw1x1, plus the identity
+    (layers.py:199-227, reference models/dwsr_reduced.py
+    DepthWiseResidualBlock), every conv 0.1-scaled Kaiming with a zero
+    bias. The keys are the reference's body.0 / 1 / 3 / 4 (torch_convert.py:
+    649-656); index 2, the activation, runs after the pointwise product."""
+
+    def __init__(self, features: int, generator: Optional[torch.Generator] = None,
+                 activation_name: str = "relu", init_scale: Optional[float] = 0.1):
+        super().__init__()
+        g = generator
+        self.act = activation(activation_name)
+        self.body = nn.ModuleList([
+            DepthwiseConv3x3(features, g, init_scale), Conv1x1(features, features, g, init_scale),
+            nn.Identity(),
+            DepthwiseConv3x3(features, g, init_scale), Conv1x1(features, features, g, init_scale),
+        ])
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b = self.body
+        res = self.act(b[1](b[0](x)))
+        return x + b[4](b[3](res))
+
+
+class ConvPairResBlock(nn.Module):
+    """msrr_test's ResBlock: conv1 -> ReLU (fused) -> conv2, times
+    res_weight, plus the identity, with the reference's keys conv1 / conv2
+    (recon_trunk.N.conv1, torch_convert.py:640-646)."""
+
+    def __init__(self, features: int, res_weight: float = 1.0,
+                 generator: Optional[torch.Generator] = None,
+                 init_scale: Optional[float] = None):
+        super().__init__()
+        self.res_weight = res_weight
+        self.conv1 = Conv3x3(features, features, act="relu", generator=generator,
+                             init_scale=init_scale)
+        self.conv2 = Conv3x3(features, features, generator=generator, init_scale=init_scale)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return exact_pair(0, x, self.conv1, self.conv2, res_weight=self.res_weight)

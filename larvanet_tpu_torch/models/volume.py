@@ -1,0 +1,117 @@
+"""The volume-driven training loop of the train_larva CLIs (reference
+train_larva.py; larvanet_tpu/models/larvanet.py:339-402), shared by the
+LarvaNet family and msrr_reduced, which JAX gives the same methods
+(larvanet_tpu/models/msrr.py:455-479 borrows LarvaNetBase's).
+
+AdamW at the learning rate of a ReduceLROnPlateau on the validation PSNR
+(made by `prepare` when training, from --lr, --lr_decay, --patience,
+--cooldown, --threshold and --min_lr), `train_step_larva` (one step; every
+--val_volume bytes of input pixels: validation, the schedule's step, a
+checkpoint `model_step<N>_vol<G>G.pth`, the summary), `validate_for_train`,
+and the schedule's state in the checkpoint's state file and in a JAX
+`.ckpt` resume.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+
+from larvanet_tpu_torch.train.schedules import ReduceLROnPlateau
+
+# the scale validation asks the val loader for: the LarvaNet family's x4,
+# which JAX's borrowed validate_for_train keeps for msrr_reduced too
+VAL_SCALE = 4
+
+
+class PlateauVolumeMixin:
+    """AdamW on the plateau schedule and the volume-driven step, before
+    SRModel in a wrapper's bases."""
+
+    optimizer_kind = "adamw"
+
+    def __init__(self):
+        super().__init__()
+        self.scheduler: Optional[ReduceLROnPlateau] = None
+
+    def prepare(self, scales, device="cuda", seed=0, is_training=False, global_step=0):
+        super().prepare(scales, device=device, seed=seed, is_training=is_training,
+                        global_step=global_step)
+        self.scheduler = None
+        if is_training:
+            self.scheduler = ReduceLROnPlateau(
+                lr=self.args.lr, factor=self.args.lr_decay, patience=self.args.patience,
+                cooldown=getattr(self.args, "cooldown", 0), threshold=self.args.threshold,
+                min_lr=self.args.min_lr, mode="max")
+
+    def get_learning_rate(self) -> float:
+        return self.scheduler.lr if self.scheduler is not None else self.args.lr
+
+    def train_step_larva(self, args, val_dataloader, input_batch, truth_batch,
+                         summary=None) -> float:
+        """One step (larvanet.py:340-369): the step count and the volume
+        first, then the optimizer at the current lr; validation after step
+        1; and once `temp_volume` reaches --val_volume, the volume is
+        banked, then validation (which steps the schedule), a checkpoint in
+        args.train_path and the summary's loss and lr. Returns the loss."""
+        inputs = self._input_to_device(input_batch)
+        targets = self._input_to_device(truth_batch)
+        self.global_step += 1
+        self.temp_volume += self.volume_per_step
+        lr = self.get_learning_rate()
+        loss = float(self._optimizer_step(inputs, targets, lr))
+
+        if self.global_step == 1 and val_dataloader is not None:
+            self.validate_for_train(args, val_dataloader)
+
+        if self.temp_volume >= self.args.val_volume:
+            self.total_volume += self.temp_volume
+            self.temp_volume = 0
+            if val_dataloader is not None:
+                self.validate_for_train(args, val_dataloader)
+            if args is not None and getattr(args, "train_path", None):
+                self.save(base_path=args.train_path)
+                print("saved a model checkpoint at volume %.0fG" % (self.total_volume / 1e9,))
+            if summary is not None:
+                summary.scalar("loss", loss, self.global_step)
+                summary.scalar("lr", lr, self.global_step)
+        return loss
+
+    def validate_for_train(self, args, dataloader) -> float:
+        """The val set's mean RGB PSNR, each frame scored on the device, then
+        the plateau schedule's step with it (larvanet.py:371-388)."""
+        psnr_list = []
+        for idx in range(dataloader.get_num_images()):
+            input_image, truth_image, _ = dataloader.get_image_pair(image_index=idx,
+                                                                    scale=VAL_SCALE)
+            psnr_list.append(self.psnr_on_device(input_image, truth_image))
+        average_psnr = float(np.mean(psnr_list))
+        print("step %d, volume %.0fG, psnr=%.8f, lr = %.8f"
+              % (self.global_step, self.total_volume / 1e9, average_psnr,
+                 self.get_learning_rate()))
+        if self.scheduler is not None:
+            self.scheduler.step(average_psnr)
+        return average_psnr
+
+    def checkpoint_name(self) -> str:
+        return "model_step%d_vol%.0fG.pth" % (self.global_step, self.total_volume / 1e9)
+
+    def _train_state(self) -> dict:
+        state = super()._train_state()
+        if self.scheduler is not None:
+            state["scheduler"] = self.scheduler.state_dict()
+        return state
+
+    def _load_train_state(self, state: dict) -> None:
+        super()._load_train_state(state)
+        if self.scheduler is not None and "scheduler" in state:
+            self.scheduler.load_state_dict(state["scheduler"])
+
+    def _load_jax_train_extras(self, state: dict) -> None:
+        """The plateau schedule of a JAX checkpoint (larvanet.py:399-402),
+        its numpy scalars as Python numbers."""
+        if self.scheduler is not None and "scheduler" in state:
+            self.scheduler.load_state_dict(
+                {k: v.item() if hasattr(v, "item") else v
+                 for k, v in state["scheduler"].items()})

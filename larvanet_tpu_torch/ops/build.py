@@ -26,7 +26,7 @@ from typing import Dict, Sequence
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("conv3x3_bias_act.cu", "wino_resblock.cu", "conv3x3_wgrad.cu", "conv3x3_s8.cu",
-           "conv_kxk.cu")
+           "conv_kxk.cu", "dwconv3x3.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -3,8 +3,10 @@ and its plain PyTorch version.
 
 Counterpart of larvanet_tpu/ops/pallas_conv.py. The public layout is the
 JAX one: x is NHWC (N, H, W, C), the kernel HWIO (3, 3, C, F), the bias
-(F,); act is None, "relu" or "leaky_relu" (slope 0.1). The sum is taken
-in f32 and the result is stored in x's dtype (f32 or bf16); the kernel
+(F,); act is None, "relu", "leaky_relu" (negative slope `slope`, 0.1 by
+default, as the Pallas kernel's) or "relu6" (clip to [0, 6], MSRR's
+ablation). The sum is taken in f32, the activation is applied in f32 after
+the bias, and the result is stored in x's dtype (f32 or bf16); the kernel
 is cast to x's dtype and the bias to f32 first, as the Pallas kernel
 does (pallas_conv.py:76-77).
 
@@ -48,7 +50,7 @@ from larvanet_tpu_torch.ops import build
 from larvanet_tpu_torch.ops import conv3x3_wgrad as wgrad
 
 SOURCE = "conv3x3_bias_act.cu"
-ACTS = {None: 0, "relu": 1, "leaky_relu": 2}
+ACTS = {None: 0, "relu": 1, "leaky_relu": 2, "relu6": 3}
 _ENTRY = {("cuda_core", torch.float32): "conv3x3_bias_act_f32",
           ("cuda_core", torch.bfloat16): "conv3x3_bias_act_bf16",
           ("tensor_core", torch.bfloat16): "conv3x3_bias_act_bf16_tc",
@@ -151,17 +153,19 @@ def entry_weight(kernel: torch.Tensor, dtype: torch.dtype, path: str,
     return kernel.reshape(9 * c, f).to(dtype).contiguous()
 
 
-def _apply_act(out: torch.Tensor, act: Optional[str]) -> torch.Tensor:
+def _apply_act(out: torch.Tensor, act: Optional[str], slope: float = 0.1) -> torch.Tensor:
     if act == "relu":
         return torch.relu(out)
     if act == "leaky_relu":
-        return torch.where(out >= 0, out, out * 0.1)
+        return torch.where(out >= 0, out, out * slope)
+    if act == "relu6":
+        return torch.clamp(out, 0.0, 6.0)
     return out
 
 
 def conv3x3_bias_act_reference(x: torch.Tensor, kernel: torch.Tensor,
-                               bias: torch.Tensor,
-                               act: Optional[str] = None) -> torch.Tensor:
+                               bias: torch.Tensor, act: Optional[str] = None,
+                               slope: float = 0.1) -> torch.Tensor:
     """The plain version: nine shifted (M, C) x (C, F) products summed in
     f32, as the Pallas kernel's `dots` mode does (pallas_conv.py:94-100)."""
     if act not in ACTS:
@@ -175,14 +179,15 @@ def conv3x3_bias_act_reference(x: torch.Tensor, kernel: torch.Tensor,
         for dx in range(3):
             tap = xp[:, dy:dy + h, dx:dx + w, :].reshape(n * h * w, c)
             acc = acc + tap @ k[dy, dx]
-    acc = _apply_act(acc + bias.float(), act)
+    acc = _apply_act(acc + bias.float(), act, slope)
     return acc.reshape(n, h, w, f).to(x.dtype)
 
 
 def bind(lib: ctypes.CDLL, dtype: torch.dtype, path: str = "cuda_core"):
     """The entry point of `lib` for (`path`, `dtype`), with its C signature."""
     fn = getattr(lib, _ENTRY[(path, dtype)])
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+                   + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -194,30 +199,32 @@ def _entry(dtype: torch.dtype, path: str):
 
 def _run(fn, x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
          act: Optional[str], stream, path: str = "cuda_core",
-         cache: bool = True) -> torch.Tensor:
+         cache: bool = True, slope: float = 0.1) -> torch.Tensor:
     """Call entry point `fn`, the (`path`, x.dtype) entry, on checked
-    operands; returns the output."""
+    operands; returns the output. `slope` is leaky_relu's, handed to the
+    kernel as an f32."""
     n, h, w, c = x.shape
     f = kernel.shape[3]
     kmat = entry_weight(kernel, x.dtype, path, cache)
     b = bias.to(torch.float32).contiguous()
     out = torch.empty((n, h, w, f), dtype=x.dtype, device=x.device)
     err = fn(x.data_ptr(), kmat.data_ptr(), b.data_ptr(), out.data_ptr(), n, h, w, c, f,
-             ACTS[act], stream)
+             ACTS[act], float(slope), stream)
     if err != 0:
         raise RuntimeError("conv3x3_bias_act kernel launch failed: CUDA error %d" % err)
     return out
 
 
 def conv3x3_bias_act(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
-                     act: Optional[str] = None, dgrad: bool = False) -> torch.Tensor:
-    """SAME 3x3 conv + bias + act. CUDA tensor: the hand-written kernel;
-    CPU tensor: the plain version. `dgrad` marks an input gradient
+                     act: Optional[str] = None, dgrad: bool = False,
+                     slope: float = 0.1) -> torch.Tensor:
+    """SAME 3x3 conv + bias + act (leaky_relu at `slope`). CUDA tensor: the
+    hand-written kernel; CPU tensor: the plain version. `dgrad` marks an input gradient
     (`Conv3x3Train.backward`): its kernel is made afresh for the call, so
     its split weight is not cached, and its launch is counted in
     DGRAD_LAUNCHES_BY_PATH as well."""
     if x.device.type == "cpu":
-        return conv3x3_bias_act_reference(x, kernel, bias, act)
+        return conv3x3_bias_act_reference(x, kernel, bias, act, slope)
     if x.device.type != "cuda":
         raise ValueError("conv3x3_bias_act runs on CUDA or the CPU, not %s"
                          % (x.device,))
@@ -243,7 +250,8 @@ def conv3x3_bias_act(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
     path = path_for(c, f, x.dtype)
     with torch.cuda.device(x.device):
         out = _run(_entry(x.dtype, path), x, kernel, bias, act,
-                   torch.cuda.current_stream().cuda_stream, path, cache=not dgrad)
+                   torch.cuda.current_stream().cuda_stream, path, cache=not dgrad,
+                   slope=slope)
     global LAUNCHES
     LAUNCHES += 1
     LAUNCHES_BY_PATH[path] += 1
@@ -261,42 +269,58 @@ def dgrad_kernel(kernel: torch.Tensor) -> torch.Tensor:
 
 
 def conv3x3_op(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
-               act: Optional[str] = None) -> torch.Tensor:
+               act: Optional[str] = None, slope: float = 0.1) -> torch.Tensor:
     """`conv3x3_bias_act`, through `Conv3x3Train` where autograd wants a
     gradient of x, the kernel or the bias."""
     if torch.is_grad_enabled() and (x.requires_grad or kernel.requires_grad
                                     or bias.requires_grad):
-        return Conv3x3Train.apply(x, kernel, bias, act)
-    return conv3x3_bias_act(x, kernel, bias, act)
+        return Conv3x3Train.apply(x, kernel, bias, act, slope)
+    return conv3x3_bias_act(x, kernel, bias, act, slope=slope)
 
 
 class Conv3x3Train(torch.autograd.Function):
     """`conv3x3_bias_act` with a backward: dgrad on the same conv kernel,
     the weight and bias gradient on conv3x3_wgrad's. Inputs x NHWC, the
-    HWIO kernel (any strides), the bias, act; the gradients come back in
-    their layouts and dtypes (a bf16 step's: the f32 weight gradient
-    rounded to bf16). dgrad is skipped where x needs no gradient
-    (first_conv, whose input is the mean-shifted batch)."""
+    HWIO kernel (any strides), the bias, act and leaky_relu's slope (> 0);
+    the gradients come back in their layouts and dtypes (a bf16 step's: the
+    f32 weight gradient rounded to bf16). dgrad is skipped where x needs no
+    gradient (first_conv, whose input is the mean-shifted batch).
+
+    relu6 keeps the pre-activation z instead of the output: JAX
+    differentiates jnp.clip(z, 0, 6) as min(max(z, 0), 6), whose gradient
+    is 1/2 where z is exactly 0 or 6 (max and min split a tie), and the
+    output cannot tell z = 0 from z < 0 or z = 6 from z > 6. So its forward
+    runs the kernel without the activation and clips z in torch (the
+    values the relu6 epilogue gives, bit for bit: clipping commutes with
+    the rounding to x's dtype)."""
 
     @staticmethod
-    def forward(ctx, x, kernel, bias, act):
-        out = conv3x3_bias_act(x, kernel, bias, act)
-        ctx.act = act
+    def forward(ctx, x, kernel, bias, act, slope=0.1):
+        ctx.act, ctx.slope = act, slope
         ctx.bias_dtype = bias.dtype
+        if act == "relu6":
+            z = conv3x3_bias_act(x, kernel, bias, None)
+            ctx.save_for_backward(x, kernel, z)
+            return torch.clamp(z, 0.0, 6.0)
+        out = conv3x3_bias_act(x, kernel, bias, act, slope=slope)
         ctx.save_for_backward(x, kernel, out)
         return out
 
     @staticmethod
     def backward(ctx, grad_out):
-        x, kernel, out = ctx.saved_tensors
-        # the activation's derivative from its output, as jax.nn's gradients
-        # take it at 0: relu 1 where out > 0; leaky_relu 1 where out >= 0,
-        # else 0.1
+        x, kernel, saved = ctx.saved_tensors
+        # the activation's derivative as jax.nn's gradients take it: relu 1
+        # where out > 0; leaky_relu 1 where out >= 0, else the slope; relu6
+        # (from z) 1 where 0 < z < 6, 1/2 where z is 0 or 6, else 0
         g = grad_out.contiguous()
         if ctx.act == "relu":
-            g = g * (out > 0).to(g.dtype)
+            g = g * (saved > 0).to(g.dtype)
         elif ctx.act == "leaky_relu":
-            g = torch.where(out >= 0, g, 0.1 * g)
+            g = torch.where(saved >= 0, g, ctx.slope * g)
+        elif ctx.act == "relu6":
+            inside = ((saved > 0) & (saved < 6)).to(g.dtype)
+            tie = ((saved == 0) | (saved == 6)).to(g.dtype)
+            g = g * (inside + 0.5 * tie)
         grad_x = grad_k = grad_b = None
         if ctx.needs_input_grad[0]:
             zero = torch.zeros(kernel.shape[2], dtype=torch.float32, device=g.device)
@@ -306,4 +330,4 @@ class Conv3x3Train(torch.autograd.Function):
             # bf16 step, where JAX's conv gradients are bf16 too)
             grad_k, grad_b = wgrad.conv3x3_wgrad(x, g)
             grad_k, grad_b = grad_k.to(kernel.dtype), grad_b.to(ctx.bias_dtype)
-        return grad_x, grad_k, grad_b, None
+        return grad_x, grad_k, grad_b, None, None

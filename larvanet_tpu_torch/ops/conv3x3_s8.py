@@ -8,7 +8,9 @@ the pair's epilogues (larvanet_tpu/ops/packed/pairs.py:229-256,
 
   conv_a(hin, wa, s_in, s_mid): xq = clip(rint(f32(hin) / s_in), -127,
       127); t = act(T(T(f32(conv(xq, ka)) * sca) + ba)); returns the int8
-      codes clip(rint(f32(t) / s_mid), -127, 127)
+      codes clip(rint(f32(t) / s_mid), -127, 127). act: None, relu, relu6
+      (clip to [0, 6]) or leaky_relu, t >= 0 ? t : T(T(slope) * t), as
+      jax.nn.leaky_relu computes it in T (its weak-typed slope is T's)
   conv_b(tq, wb, dtype, res, res_weight): t = T(T(f32(conv(tq, kb)) * scb)
       + bb), times T(res_weight) when it is not 1, plus `res` when given
 
@@ -37,7 +39,7 @@ import torch.nn.functional as F
 from larvanet_tpu_torch.ops import build
 
 SOURCE = "conv3x3_s8.cu"
-ACTS = {None: 0, "relu": 1}
+ACTS = {None: 0, "relu": 1, "leaky_relu": 2, "relu6": 3}
 _ENTRY = {("conv_a", torch.float32): "conv3x3_s8_a_f32",
           ("conv_a", torch.bfloat16): "conv3x3_s8_a_bf16",
           ("conv_b", torch.float32): "conv3x3_s8_b_f32",
@@ -139,13 +141,23 @@ def _dequant(acc: torch.Tensor, wt: S8Weight, dtype: torch.dtype) -> torch.Tenso
     return (acc * wt.scale).to(dtype) + wt.bias.to(dtype)
 
 
+def activate(t: torch.Tensor, act: Optional[str], slope: float = 0.1) -> torch.Tensor:
+    """conv_a's activation on T-typed values, one IEEE operation in T where it
+    computes (leaky_relu's product of two T values, rounded once)."""
+    if act == "relu":
+        return torch.relu(t)
+    if act == "relu6":
+        return torch.clamp(t, 0.0, 6.0)
+    if act == "leaky_relu":
+        return torch.where(t >= 0, t, t * torch.tensor(slope, dtype=t.dtype, device=t.device))
+    return t
+
+
 def conv_a_reference(hin: torch.Tensor, wt: S8Weight, s_in: float, s_mid: float,
-                     act: Optional[str] = "relu") -> torch.Tensor:
+                     act: Optional[str] = "relu", slope: float = 0.1) -> torch.Tensor:
     """The plain version of the conv_a entry (the module docstring)."""
     t = _dequant(conv_codes_reference(quantize(hin, s_in), wt.codes), wt, hin.dtype)
-    if act == "relu":
-        t = torch.relu(t)
-    return quantize(t, s_mid)
+    return quantize(activate(t, act, slope), s_mid)
 
 
 def conv_b_reference(tq: torch.Tensor, wt: S8Weight, dtype: torch.dtype,
@@ -163,7 +175,7 @@ def bind(lib: ctypes.CDLL, entry: str, dtype: torch.dtype):
     fn = getattr(lib, _ENTRY[(entry, dtype)])
     if entry == "conv_a":
         fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
-                       + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p])
+                       + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
     else:
         fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
@@ -196,13 +208,13 @@ def _check(x: torch.Tensor, wt: S8Weight, dtypes, name: str) -> None:
             raise ValueError("%s: x and the weight must be on one device" % (name,))
 
 
-def _run_a(fn, hin, wt, s_in, s_mid, act, stream) -> torch.Tensor:
+def _run_a(fn, hin, wt, s_in, s_mid, act, stream, slope: float = 0.1) -> torch.Tensor:
     n, h, w, c = hin.shape
     f = wt.codes.shape[3]
     out = torch.empty((n, h, w, f), dtype=torch.int8, device=hin.device)
     err = fn(hin.data_ptr(), wt.entry.data_ptr(), wt.scale.data_ptr(), wt.bias.data_ptr(),
              out.data_ptr(), n, h, w, c, f, float(np.float32(s_in)), float(np.float32(s_mid)),
-             ACTS[act], stream)
+             ACTS[act], float(slope), stream)
     if err != 0:
         raise RuntimeError("conv3x3_s8 conv_a launch failed: CUDA error %d" % err)
     return out
@@ -227,20 +239,20 @@ def _count(entry: str) -> None:
 
 
 def conv_a(hin: torch.Tensor, wt: S8Weight, s_in: float, s_mid: float,
-           act: Optional[str] = "relu") -> torch.Tensor:
+           act: Optional[str] = "relu", slope: float = 0.1) -> torch.Tensor:
     """The pair's first conv: hin (f32 or bf16 NHWC) -> int8 codes of its
-    requantized output. CUDA tensor: the kernel; CPU tensor: the plain
-    version."""
+    requantized output (leaky_relu at `slope`). CUDA tensor: the kernel;
+    CPU tensor: the plain version."""
     if act not in ACTS:
-        raise ValueError("conv3x3_s8 takes act None or 'relu', got %r" % (act,))
+        raise ValueError("conv3x3_s8 takes act %s, got %r" % (sorted(map(str, ACTS)), act))
     if hin.device.type == "cpu":
-        return conv_a_reference(hin, wt, s_in, s_mid, act)
+        return conv_a_reference(hin, wt, s_in, s_mid, act, slope)
     if hin.device.type != "cuda":
         raise ValueError("conv3x3_s8 runs on CUDA or the CPU, not %s" % (hin.device,))
     _check(hin, wt, (torch.float32, torch.bfloat16), "conv_a")
     with torch.cuda.device(hin.device):
         out = _run_a(_entry("conv_a", hin.dtype), hin, wt, s_in, s_mid, act,
-                     torch.cuda.current_stream().cuda_stream)
+                     torch.cuda.current_stream().cuda_stream, slope)
     _count("conv_a")
     return out
 

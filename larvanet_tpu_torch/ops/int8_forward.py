@@ -1,8 +1,10 @@
-"""The W8A8 int8 forwards of EDSR and the LarvaNet family.
+"""The W8A8 int8 forwards of EDSR, the LarvaNet family and the MSRR family.
 
 Counterparts of `make_int8_edsr_forward` (larvanet_tpu/ops/packed/edsr.py:
-114) and `make_int8_larvanet_forward` (ops/packed/larvanet.py:187). Each
-runs its module's own walk (EDSRModule.forward, LarvaNetModule.walk) with
+114), `make_int8_larvanet_forward` (ops/packed/larvanet.py:187) and
+`make_int8_msrr_forward` (ops/packed/msrr.py:137-147). Each
+runs its module's own walk (EDSRModule.forward, LarvaNetModule.walk, the
+MSRR modules' walk) with
 every conv pair handed to a pair runner (ops/pairs.py), with JAX's pair
 indices: the body blocks in execution order, then the serving leg. The int8
 forward calibrates once over a batch with the exact pair in `dtype` and
@@ -76,3 +78,20 @@ def make_int8_larvanet_forward(model, calib_batch, dtype: torch.dtype = torch.bf
     module = _module_in(model, dtype)
     return make_int8(model, calib_batch, dtype,
                      lambda x, pair: module.walk(x, exits, pair), pairs)
+
+
+def make_int8_msrr_forward(model, calib_batch, dtype: torch.dtype = torch.bfloat16):
+    """W8A8 MSRR-family inference (ops/packed/msrr.py:137-147): every
+    ResBlock pair int8, its activation (relu, relu6, leaky_relu at --slope)
+    conv1's, inside conv_a before the requantize, as pair_int8 applies it;
+    the head, the upsample and HR convs, the shuffle, the base and the
+    residual stream exact in `dtype`. A depthwise config (dwsr_reduced) has
+    no int8 path: Int8Unsupported, with JAX's reason (packed/msrr.py:39-40)."""
+    m = model.module
+    if getattr(m, "depthwise", False):
+        raise Int8Unsupported("depthwise blocks do not pack profitably")
+    blocks = m.recon_trunk if hasattr(m, "recon_trunk") else m.res_blocks
+    pairs = [(b.conv1, b.conv2) if hasattr(b, "conv1") else (b.body[0], b.body[2])
+             for b in blocks]
+    module = _module_in(model, dtype)
+    return make_int8(model, calib_batch, dtype, lambda x, pair: module.walk(x, pair), pairs)

@@ -79,23 +79,28 @@ class QuantPair:
     a: s8.S8Weight
     b: s8.S8Weight
     act: Optional[str] = "relu"
+    slope: float = 0.1
 
 
 def quant_pair(q: Dict[str, object], s_in: float, s_mid: float, dtype: torch.dtype,
-               device, act: Optional[str] = "relu") -> QuantPair:
-    """A QuantPair from `quantize_pair_weights`' record and the scales."""
+               device, act: Optional[str] = "relu", slope: float = 0.1) -> QuantPair:
+    """A QuantPair from `quantize_pair_weights`' record and the scales; `act`
+    and `slope` are conv1's."""
     return QuantPair(s_in, s_mid,
                      s8.make_weight(q["ka"], q["sa"], s_in, torch.as_tensor(q["ba"]), dtype,
                                     device),
                      s8.make_weight(q["kb"], q["sb"], s_mid, torch.as_tensor(q["bb"]), dtype,
-                                    device), act)
+                                    device), act, slope)
 
 
 def load_jax_records(records: Sequence[Dict[str, np.ndarray]], dtype: torch.dtype,
-                     device) -> List[QuantPair]:
+                     device, act: Optional[str] = "relu",
+                     slope: float = 0.1) -> List[QuantPair]:
     """JAX's quantized pair records (make_pair_runner's `quant`: ka, sa, ba,
     kb, sb, bb, s_in, s_mid, as numpy; ka and kb packed) as the port's
-    QuantPairs (`torch_convert.unpack_jax_pair_record` unpacks them)."""
+    QuantPairs (`torch_convert.unpack_jax_pair_record` unpacks them), each
+    with the activation `act` (leaky_relu at `slope`), which JAX's walk
+    hands its pair and its records do not keep."""
     from larvanet_tpu_torch.utils.torch_convert import unpack_jax_pair_record
 
     out = []
@@ -103,7 +108,7 @@ def load_jax_records(records: Sequence[Dict[str, np.ndarray]], dtype: torch.dtyp
         q = unpack_jax_pair_record(rec)
         q["ba"] = torch.from_numpy(q["ba"]).to(dtype)
         q["bb"] = torch.from_numpy(q["bb"]).to(dtype)
-        out.append(quant_pair(q, q["s_in"], q["s_mid"], dtype, device))
+        out.append(quant_pair(q, q["s_in"], q["s_mid"], dtype, device, act, slope))
     return out
 
 
@@ -112,7 +117,7 @@ def int8_pair(q: QuantPair, hin: torch.Tensor, kind: str = "res",
     """The W8A8 pair on the conv3x3_s8 kernel (plain version on the CPU):
     conv_a quantizes hin with s_in and requantizes act(conv + bias) with
     s_mid; conv_b dequantizes, scales and adds the skip in hin's dtype."""
-    tq = s8.conv_a(hin, q.a, q.s_in, q.s_mid, q.act)
+    tq = s8.conv_a(hin, q.a, q.s_in, q.s_mid, q.act, q.slope)
     return s8.conv_b(tq, q.b, hin.dtype, res=hin if kind == "res" else None,
                      res_weight=res_weight)
 
@@ -147,7 +152,7 @@ class PairRunner:
             s_in = float(self.record[i][0]) * HEADROOM / 127.0
             s_mid = float(self.record[i][1]) * HEADROOM / 127.0
             self.quant.append(quant_pair(q, s_in, s_mid, self.dtype, conv1.weight.device,
-                                         conv1.act))
+                                         conv1.act, conv1.slope))
 
     def int8(self, idx, hin, conv1, conv2, kind="res", res_weight=1.0):
         return int8_pair(self.quant[idx], hin, kind, res_weight)
@@ -228,9 +233,11 @@ def qat_pair(dtype: torch.dtype = torch.float32) -> Callable:
         sa = ka.detach().abs().amax(dim=(0, 1, 2)) / 127.0 + 1e-12
         sb = kb.detach().abs().amax(dim=(0, 1, 2)) / 127.0 + 1e-12
         x = fake_quant(hin.float(), _act_scale(hin)).to(dtype)
-        t = conv3x3_op(x, fake_quant(ka, sa).to(dtype), conv1.bias.to(dtype), conv1.act)
+        t = conv3x3_op(x, fake_quant(ka, sa).to(dtype), conv1.bias.to(dtype), conv1.act,
+                       conv1.slope)
         t = fake_quant(t.float(), _act_scale(t)).to(dtype)
-        t = conv3x3_op(t, fake_quant(kb, sb).to(dtype), conv2.bias.to(dtype), conv2.act)
+        t = conv3x3_op(t, fake_quant(kb, sb).to(dtype), conv2.bias.to(dtype), conv2.act,
+                       conv2.slope)
         return _finish(hin, t, kind, res_weight)
 
     return pair

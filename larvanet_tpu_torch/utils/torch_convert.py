@@ -3,7 +3,8 @@
 The port's modules use the reference PyTorch repo's state_dict keys, the
 ones larvanet_tpu/utils/torch_convert.export_state_dict writes
 (torch_convert.py:448-503,702-757). This module is the port's own copy
-of that export for the families it has (EDSR and the LarvaNet family),
+of that export for the families it has (EDSR, the LarvaNet family and the
+MSRR family),
 so the tests can carry JAX parameters (nested dicts of numpy arrays)
 into a port module without the port importing the JAX package.
 """
@@ -57,14 +58,66 @@ def _exp_larvanet(path: str) -> str:
     raise KeyError(path)
 
 
+def _exp_msrr(path: str) -> str:
+    """Full MSRR (torch_convert.py:555-564): the upsample's convs at body.0,
+    body.3, ... (the reference's Sequential of conv, shuffle, LeakyReLU)."""
+    m = re.match(r"res_block_(\d+)/conv([12])$", path)
+    if m:
+        return "res_blocks.%s.body.%d" % (m.group(1), 0 if m.group(2) == "1" else 2)
+    m = re.match(r"upsample/conv(\d+)$", path)
+    if m:
+        return "upsample.body.%d" % (3 * int(m.group(1)))
+    if path in ("first_conv", "HR_conv", "final_conv"):
+        return path
+    raise KeyError(path)
+
+
+def _exp_msrr_reduced(path: str) -> str:
+    """msrr_reduced and its ablations (torch_convert.py:505-511)."""
+    m = re.match(r"res_block_(\d+)/conv([12])$", path)
+    if m:
+        return "res_blocks.%s.body.%d" % (m.group(1), 0 if m.group(2) == "1" else 2)
+    if path == "first_conv":
+        return path
+    raise KeyError(path)
+
+
+def _exp_msrr_test(path: str) -> str:
+    """msrr_test (torch_convert.py:640-646)."""
+    m = re.match(r"res_block_(\d+)/conv([12])$", path)
+    if m:
+        return "recon_trunk.%s.conv%s" % (m.group(1), m.group(2))
+    if path in ("conv_first", "upconv1", "upconv2", "HRconv", "conv_last"):
+        return path
+    raise KeyError(path)
+
+
+def _exp_dwsr(path: str) -> str:
+    """dwsr_reduced (torch_convert.py:649-656): the depthwise kernels (3, 3,
+    1, C) become the reference's (C, 1, 3, 3) as any HWIO kernel does."""
+    m = re.match(r"res_block_(\d+)/(dw1|pw1|dw2|pw2)$", path)
+    if m:
+        body = {"dw1": 0, "pw1": 1, "dw2": 3, "pw2": 4}[m.group(2)]
+        return "res_blocks.%s.body.%d" % (m.group(1), body)
+    if path == "first_conv":
+        return path
+    raise KeyError(path)
+
+
 LARVANET_NAMES = ("LarvaNet", "LarvaNetV2", "LarvaLeg", "LarvaLegV2", "LarvaNet_0c",
                   "LarvaNet_1c", "LarvaNet_4c", "LarvaNet_skip", "LarvaNet_res",
                   "LarvaNet_w64", "LarvaLeg_w64")
+MSRR_REDUCED_NAMES = ("msrr_reduced", "msrr_reduced_def_init", "msrr_reduced_NI",
+                      "msrr_reduced_linear", "msrr_reduced_relu6", "msrr_reduced_leaky",
+                      "msrr_reduced_meanshift")
 EXPORT_RULES = {"edsr": _exp_edsr, "edsr_loss": _exp_edsr,
-                **{name: _exp_larvanet for name in LARVANET_NAMES}}
-# families whose forward applies both MeanShifts (the LarvaNet family has
-# none, torch_convert.py:704-720)
-_MEANSHIFT_BOTH = {"edsr", "edsr_loss"}
+                **{name: _exp_larvanet for name in LARVANET_NAMES},
+                "msrr": _exp_msrr, "msrr_test": _exp_msrr_test, "dwsr_reduced": _exp_dwsr,
+                **{name: _exp_msrr_reduced for name in MSRR_REDUCED_NAMES}}
+# the state dicts with both MeanShifts (torch_convert.py:703-704; MSRR's are
+# dead in its forward but in the reference's state dict; the LarvaNet family
+# has none)
+_MEANSHIFT_BOTH = {"edsr", "edsr_loss", "msrr", "msrr_reduced_meanshift"}
 
 
 def _inv_conv(leaves) -> Dict[str, np.ndarray]:

@@ -77,9 +77,9 @@ def test_function_backward_runs_its_own_formulas():
     b.requires_grad_()
     calls = []
 
-    def conv(x, kernel, bias, act=None, dgrad=False):
+    def conv(x, kernel, bias, act=None, dgrad=False, slope=0.1):
         calls.append("dgrad" if dgrad else "forward")
-        return conv3x3.conv3x3_bias_act_reference(x, kernel, bias, act)
+        return conv3x3.conv3x3_bias_act_reference(x, kernel, bias, act, slope)
 
     def wgrad(x, g):
         calls.append("wgrad")

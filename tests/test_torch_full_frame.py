@@ -1,7 +1,8 @@
 """The port's full-frame inference paths against the JAX package, on the
 CPU: chop-forward and the tile engine (larvanet_tpu_torch/eval/tiling.py),
 the x8 self-ensemble and the checkpoint ensemble (eval/ensemble.py), and
-the CLIs that use them (validate, get_sr, serve, test) with --ema.
+the CLIs that use them (validate, get_sr, serve) with --ema; the test CLI
+is held in tests/test_torch_test_cli.py.
 
 The library parts are held against JAX's module graph at the tiny models'
 tolerances (EDSR ATOL, LarvaNet LARVA_ATOL). The CLIs are held against
@@ -33,18 +34,17 @@ from hypothesis import given, settings
 from hypothesis import strategies as st
 
 from larvanet_tpu.cli import get_sr as jax_get_sr
-from larvanet_tpu.cli import test as jax_test
 from larvanet_tpu.cli import validate as jax_validate
 from larvanet_tpu.core.registry import get_model as jax_get_model
 from larvanet_tpu.data import fixture
 from larvanet_tpu.eval import ensemble as jax_ensemble
 from larvanet_tpu.eval import tiling as jax_tiling
 from larvanet_tpu_torch.cli import get_sr, runtime, serve, validate
-from larvanet_tpu_torch.cli import test as port_test
 from larvanet_tpu_torch.core.registry import get_model
 from larvanet_tpu_torch.data import io, png
 from larvanet_tpu_torch.eval import ensemble, tiling
 from larvanet_tpu_torch.utils.torch_convert import state_dict_from_jax_params
+from torch_edsr_fit import _fitted_pth
 
 TINY = ["--edsr_res_blocks", "2", "--edsr_conv_features", "8"]
 LARVA_TINY = ["--num_modules", "2", "--num_blocks", "1,1"]
@@ -54,7 +54,6 @@ ATOL = 2e-4
 LARVA_ATOL = 1e-3
 # per-image PSNR of a port CLI against JAX's (tests/test_protocol_parity.py)
 PSNR_TOL = 1e-3
-SSIM_TOL = 1e-5
 EXACT_OVERLAP = 18
 # LR frames (h, w, extra_h, extra_w) with odd and even sides: odd chop
 # quadrants, ragged tiles
@@ -247,28 +246,6 @@ def test_ensemble_forward_matches_jax(pair):
 # ---- the CLIs against JAX's -----------------------------------------------------------
 
 
-def _fit(pm, lr_chw, target):
-    """Rescale final_conv so the port model's output on `lr_chw` has the
-    per-channel mean `target` and a std of 40."""
-    module = pm.module
-    shift = module.mean_inverse_shift.bias
-    with torch.no_grad():
-        f = pm.fwd_runtime(pm._input_to_device([lr_chw])) - shift
-        a = 40.0 / float(f.std())
-        module.final_conv.weight.mul_(a)
-        module.final_conv.bias.copy_(a * (module.final_conv.bias - f.mean((0, 1, 2)))
-                                     + torch.from_numpy(target).float() - shift)
-
-
-def _fitted_pth(path, lr_path, truth_path, seed=0):
-    pm = get_model("edsr")
-    pm.parse_args(list(TINY))
-    pm.prepare([4], device="cpu", seed=seed)
-    _fit(pm, io.load_image_chw(lr_path), io.load_image_chw(truth_path).mean((1, 2)))
-    torch.save(pm.module.state_dict(), path)
-    return path
-
-
 @pytest.fixture(scope="module")
 def data(tmp_path_factory):
     root = str(tmp_path_factory.mktemp("frames"))
@@ -384,83 +361,6 @@ def test_get_sr_full_frame_modes_match_jax(mode, data, tmp_path):
         levels = int(np.abs(got.astype(np.int16) - ref.astype(np.int16)).max())
         print("parity get_sr %s %s vs JAX: max %d uint8 level(s)" % (mode[0], name, levels))
         assert levels <= 1
-
-
-@pytest.fixture(scope="module")
-def fixture_real(tmp_path_factory):
-    """The JAX package's realistic fixture, data/fixture_real (generated from
-    its seed, not committed), written here so that no other test's copy is
-    read while it is being written."""
-    root = str(tmp_path_factory.mktemp("fixture_real"))
-    fixture.generate_realistic(root)
-    return root
-
-
-@pytest.fixture(scope="module")
-def real_pth(fixture_real, tmp_path_factory):
-    lr = os.path.join(fixture_real, "test_LR", "SynSetReal", "real000.png")
-    hr = os.path.join(fixture_real, "test_HR", "SynSetReal", "real000.png")
-    return _fitted_pth(str(tmp_path_factory.mktemp("real") / "edsr.pth"), lr, hr)
-
-
-@pytest.fixture(scope="module")
-def jax_test_report(fixture_real, real_pth, tmp_path_factory):
-    out = tmp_path_factory.mktemp("jax_test")
-    jax_test.main(["--restore_path", real_pth, "--input_root_path",
-                   os.path.join(fixture_real, "test_LR"), "--truth_root_path",
-                   os.path.join(fixture_real, "test_HR"), "--output_root_path", str(out),
-                   "--datasets", "SynSetReal,DIV2K_val", "--collapsed_tail", "0",
-                   "--report_json", str(out / "report.json"), *TINY])
-    with open(out / "report.json") as f:
-        return json.load(f)
-
-
-@pytest.mark.parametrize("extra", [[], ["--chop_forward"], ["--pipeline_depth", "1"],
-                                   ["--device_uint8", "0"]])
-def test_test_cli_matches_jax_on_fixture_real(extra, fixture_real, real_pth, jax_test_report,
-                                              tmp_path):
-    """The paper protocol (Y-PSNR and SSIM, shaved; RGB for DIV2K_val) per
-    image within PSNR_TOL / SSIM_TOL of JAX's test CLI, which takes
-    --chop_forward and runs the whole frame: the chop's overlap (half 10)
-    exceeds the tiny model's radius, so both score the same frames."""
-    out = tmp_path / "sr"
-    results = port_test.main(["--device", "cpu", "--restore_path", real_pth,
-                              "--input_root_path", os.path.join(fixture_real, "test_LR"),
-                              "--truth_root_path", os.path.join(fixture_real, "test_HR"),
-                              "--output_root_path", str(out), "--datasets",
-                              "SynSetReal,DIV2K_val", "--collapsed_tail", "0",
-                              "--report_json", str(tmp_path / "r.json"), *extra, *TINY])
-    with open(tmp_path / "r.json") as f:
-        port = json.load(f)
-    assert sorted(port) == sorted(jax_test_report) == ["DIV2K_val", "SynSetReal"]
-    for dataset, ref in jax_test_report.items():
-        assert sorted(port[dataset]["per_image"]) == sorted(ref["per_image"])
-        assert len(ref["per_image"]) == 12
-        dp = max(abs(port[dataset]["per_image"][k]["psnr"] - v["psnr"])
-                 for k, v in ref["per_image"].items())
-        ds = max(abs(port[dataset]["per_image"][k]["ssim"] - v["ssim"])
-                 for k, v in ref["per_image"].items())
-        print("parity test %s %s: max |dPSNR| %.2e dB, max |dSSIM| %.2e (mean PSNR %.3f)"
-              % (" ".join(extra), dataset, dp, ds, port[dataset]["mean_psnr"]))
-        assert dp <= PSNR_TOL and ds <= SSIM_TOL
-        assert port[dataset]["mean_psnr"] > 10.0
-    assert [r[0] for r in results] == ["SynSetReal", "DIV2K_val"]
-    log = (out / "edsr" / "log.txt").read_text()
-    assert "SynSetReal: 12 images are prepared" in log and "DIV2K_val, psnr=" in log
-    assert io.list_pngs(str(out / "edsr" / "DIV2K_val")) == sorted(ref["per_image"])
-    saved = io.load_image_u8(str(out / "edsr" / "SynSetReal" / "real000.png"))
-    lr = io.load_image_u8(os.path.join(fixture_real, "test_LR", "SynSetReal", "real000.png"))
-    assert saved.shape == (4 * lr.shape[0], 4 * lr.shape[1], 3)
-
-
-@pytest.mark.parametrize("argv,match", [
-    (["--model", "msrr_test"], "ROADMAP"),
-])
-def test_test_cli_refusals(argv, match, real_pth, tmp_path):
-    with pytest.raises(SystemExit, match=match) as exc:
-        port_test.main(["--device", "cpu", "--restore_path", real_pth, "--output_root_path",
-                        str(tmp_path), *argv, *TINY])
-    assert exc.value.code not in (0, None)
 
 
 # ---- serve's modes ------------------------------------------------------------------
