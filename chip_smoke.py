@@ -257,9 +257,11 @@ on the default, collapsed route:
     CSD 64, f32 (TF32 off) and bf16, bit for bit with its plain version;
     its input gradient (the same entry, the taps rotated) bit for bit and
     dwconv3x3_wgrad within GRAD_RTOL, two runs bit for bit, at batch 16 x
-    48x48; each timed in turns as a CUDA graph replay, through the wrapper,
-    beside its plain version and F.conv2d / conv2d_input / conv2d_weight
-    with groups = C (replayed) and its bound. 15b: conv3x3 with relu6 and
+    48x48; the tile each entry takes at each shape printed; each timed in
+    turns as a CUDA graph replay (of the entry alone: its taps cast
+    beforehand), through the wrapper, beside its plain version and F.conv2d
+    / conv2d_input / conv2d_weight with groups = C (replayed) and its
+    bound. 15b: conv3x3 with relu6 and
     leaky_relu(0.2) on the tensor-core (48 -> 48), CUDA-core (3 -> 48) and
     narrow (48 -> 3) paths against the plain version, each call on its
     path; conv3x3_s8's conv_a with both, bit for bit. 15c: msrr_reduced
@@ -4346,18 +4348,29 @@ def dw_kernel_phase(torch):
     dwconv3x3_wgrad at DW_GRAD_SHAPES, f32 (TF32 off) and bf16: the forward
     and the input gradient bit for bit with the plain version, the weight
     gradient within GRAD_RTOL of its largest value and two runs bit for
-    bit; each timed in turns as a CUDA graph replay of one call ("ms"),
-    through the wrapper, against its plain version and the library call
+    bit; each timed in turns as a CUDA graph replay of one call ("ms"; the
+    taps cast to x's dtype beforehand, so that the replay holds the kernel
+    alone), through the wrapper (f32 taps, cast by it), against its plain
+    version and the library call
     (F.conv2d / conv2d_input / conv2d_weight with groups = C, also
     replayed) beside its bound. Returns {dtype: {entry: the dwsr_reduced x4
     shape's row}} and every row."""
     import torch.nn.functional as F
     from torch.nn.grad import conv2d_input, conv2d_weight
 
+    from larvanet_tpu_torch.ops import build
     from larvanet_tpu_torch.ops import dwconv3x3 as dw
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 15)
     main, rows = {"f32": {}, "bf16": {}}, []
+    lib = build.load(dw.SOURCE)
+    for label, (n, h, w), c in DW_SHAPES + DW_GRAD_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            # the tile each entry takes (its operands' pointers 16-byte aligned)
+            for entry in ("forward", "wgrad"):
+                print("dwconv3x3 plan %s %s %s %s: %s" % (
+                    entry, label, (n, h, w, c), str(dtype)[6:],
+                    dw.plan(lib, (0, 0, 0), dtype, (n, h, w, c), entry)))
     for label, (n, h, w), c in DW_SHAPES:
         k = 0.3 * torch.randn((3, 3, 1, c), generator=gen, device="cuda")
         b = torch.randn((c,), generator=gen, device="cuda")
@@ -4370,8 +4383,9 @@ def dw_kernel_phase(torch):
                                      "version" % (label, (n, h, w, c), dname,
                                                   int((got != want).sum())))
             xn, wl, bl = x.permute(0, 3, 1, 2), k.permute(3, 2, 0, 1).to(dtype), b.to(dtype)
+            kx = k.to(dtype)  # the entry's own taps: the replay holds the kernel alone
             row = _dw_row(torch, "%s %s %s" % (label, (n, h, w, c), dname), {
-                "kernel": graph_replay(torch, lambda: dw.dwconv3x3(x, k, b)),
+                "kernel": graph_replay(torch, lambda: dw.dwconv3x3(x, kx, b)),
                 "wrapper": lambda: dw.dwconv3x3(x, k, b),
                 "plain": lambda: dw.dwconv3x3_reference(x, k, b),
                 "library": graph_replay(torch, lambda: F.conv2d(xn, wl, bl, padding=1,
@@ -4394,8 +4408,9 @@ def dw_kernel_phase(torch):
                 raise AssertionError("dwconv3x3 dgrad %s %s: %d values differ" % (
                     label, dname, int((got != want).sum())))
             xn, gn, wl = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2), k.permute(3, 2, 0, 1)
+            krx = kr.to(dtype)
             row = _dw_row(torch, "dgrad %s %s %s" % (label, (n, h, w, c), dname), {
-                "kernel": graph_replay(torch, lambda: dw.dwconv3x3(g, kr, zero, dgrad=True)),
+                "kernel": graph_replay(torch, lambda: dw.dwconv3x3(g, krx, zero, dgrad=True)),
                 "wrapper": lambda: dw.dwconv3x3(g, kr, zero, dgrad=True),
                 "plain": lambda: dw.dwconv3x3_reference(g, kr, zero),
                 "library": graph_replay(torch, lambda: conv2d_input(
@@ -4788,14 +4803,20 @@ def print_sass_mix(build):
     kinds = {"LDSM": r"\bLDSM\b", "HMMA": r"\bHMMA\b", "IMMA": r"\bIMMA\b",
              "LD.E": r"\bLD\.E\b",
              "LDGSTS": r"\bLDGSTS\b", "LDL/STL": r"\b(?:LDL|STL)\b"}
+    # the depthwise kernels' own mix: copies, shared loads, stores, the f32
+    # products and sums, shuffles, barriers, spills
+    dw_kinds = {"LDGSTS": r"\bLDGSTS\b", "LDS": r"\bLDS\b", "STG": r"\bSTG\b",
+                "FMUL": r"\bFMUL\b", "FADD": r"\bFADD\b", "FFMA": r"\bFFMA\b",
+                "SHFL": r"\bSHFL\b", "BAR": r"\bBAR\b", "LDL/STL": r"\b(?:LDL|STL)\b"}
     for source in build.SOURCES:
         sass = subprocess.run([tool, "-sass", str(build.library_path(source))],
                               capture_output=True, text=True, timeout=120).stdout
         for fn in re.split(r"\n\s*Function : ", sass)[1:]:
             name = fn.split("\n", 1)[0].strip()
-            if "tc_kernel" not in name and "narrow" not in name and "s8" not in name:
+            dw = "dw_" in name
+            if not dw and "tc_kernel" not in name and "narrow" not in name and "s8" not in name:
                 continue
-            mix = {k: len(re.findall(v, fn)) for k, v in kinds.items()}
+            mix = {k: len(re.findall(v, fn)) for k, v in (dw_kinds if dw else kinds).items()}
             print("sass %s %s: %s" % (source, name, mix))
 
 

@@ -1,36 +1,44 @@
 // CPU stand-in for the CUDA built-ins the port's kernels use, so that a
 // kernel source compiles with a host C++20 compiler and runs on the CPU
 // (ops/emulate.py). A launch runs the grid's blocks one after another; a
-// block runs one std::thread per CUDA thread, `__syncthreads` is a
-// std::barrier over the block and `__syncwarp` one over the thread's warp
-// of 32, and dynamic shared memory starts as NaNs (128-byte aligned) so
-// that a read before a write shows in the result. Static `__shared__`
-// arrays become function-local statics, which the sequential blocks take
-// in turn. A stand-in that finds a fault the card would report (a
-// misaligned address) records it with `emu_fault`, and the next
-// `cudaGetLastError` returns it. The warp-wide PTX instructions the kernels
-// run in inline assembly (ldmatrix, mma.sync in bf16, tf32 and s8) have
-// stand-ins here that exchange the lanes' operands through a per-warp
-// buffer after a `__syncwarp`, as the instruction does across the
-// warp's registers; cvt.rna.tf32.f32 has a bit-exact one. mbarriers have
-// stand-ins that block on a condition variable.
+// block runs its CUDA threads as fibers (ucontext) on the launching thread:
+// each runs until it waits (`__syncthreads`, a barrier over the block;
+// `__syncwarp`, one over its warp of 32; an mbarrier phase), and then the
+// next fiber that can go on runs, in thread order, and in reverse thread
+// order every other round, so that a read that needs a barrier shows in
+// either direction. A round in which no fiber can go on is a deadlock of
+// the kernel's protocol: the stand-in names what each fiber waits on and
+// aborts, rather than hang the caller. Dynamic shared memory starts as
+// NaNs (128-byte aligned) so that a read before a write shows in the
+// result. Static `__shared__` arrays become function-local statics, which
+// the sequential blocks take in turn. A stand-in that finds a fault the
+// card would report (a misaligned address) records it with `emu_fault`,
+// and the next `cudaGetLastError` returns it. The warp-wide PTX
+// instructions the kernels run in inline assembly (ldmatrix, mma.sync in
+// bf16, tf32 and s8) and __shfl_sync / __shfl_xor_sync have stand-ins here
+// that exchange the lanes' operands through a per-warp buffer after a
+// `__syncwarp`, as the instruction does across the warp's registers;
+// cvt.rna.tf32.f32 has a bit-exact one. mbarriers have stand-ins whose
+// waits suspend the fiber until the phase completes.
 #pragma once
 
 #include <atomic>
-#include <barrier>
-#include <chrono>
 #include <cmath>
 #include <cstdio>
 #include <cstdlib>
-#include <condition_variable>
 #include <cstddef>
 #include <cstdint>
+#include <cstring>
 #include <limits>
 #include <map>
 #include <memory>
 #include <mutex>
-#include <thread>
+#include <functional>
+#include <string>
 #include <vector>
+
+#include <sys/mman.h>
+#include <ucontext.h>
 
 #define __global__
 #define __device__
@@ -63,9 +71,50 @@ struct alignas(16) uint4 {
 inline uint4 make_uint4(unsigned x, unsigned y, unsigned z, unsigned w) { return {x, y, z, w}; }
 inline float4 make_float4(float x, float y, float z, float w) { return {x, y, z, w}; }
 
-inline thread_local dim3 threadIdx, blockIdx, gridDim;
-inline thread_local std::barrier<>* emu_block_barrier = nullptr;
-inline thread_local std::barrier<>* emu_warp_barrier = nullptr;
+inline thread_local dim3 threadIdx, blockIdx, blockDim, gridDim;
+
+// a barrier over `count` fibers: the last arrival of a generation releases
+// the others
+struct EmuBarrier {
+  int count = 0, arrived = 0, generation = 0;
+};
+
+// a cp.async copy issued and not yet landed (cuda_pipeline.h)
+struct EmuCopy {
+  void* dst;
+  const void* src;
+  std::size_t size, zfill;
+};
+
+// save the running context into *from and resume *to
+inline void emu_switch(ucontext_t* from, ucontext_t* to) { swapcontext(from, to); }
+
+// a context whose first resumption calls fn() on the `size` bytes at `stack`
+inline void emu_make_context(ucontext_t* ctx, char* stack, std::size_t size, void (*fn)()) {
+  getcontext(ctx);
+  ctx->uc_stack.ss_sp = stack;
+  ctx->uc_stack.ss_size = size;
+  ctx->uc_link = nullptr;
+  makecontext(ctx, fn, 0);
+}
+
+// one CUDA thread of the running block
+struct EmuFiber {
+  ucontext_t ctx;
+  unsigned tid = 0;
+  unsigned turn = 0;               // its warp-wide instructions so far (emu_exchange)
+  const int* wait_on = nullptr;    // suspended until *wait_on != wait_val
+  int wait_val = 0;
+  const char* waits_for = "";      // what it waits on, for the deadlock report
+  bool done = false;
+  std::vector<EmuCopy> copies;     // its cp.async copies in flight, in issue order
+  std::vector<std::size_t> groups; // the copies' count at each commit
+};
+
+inline thread_local EmuFiber* emu_self = nullptr;
+inline thread_local ucontext_t* emu_scheduler = nullptr;
+inline thread_local EmuBarrier* emu_block_barrier = nullptr;
+inline thread_local EmuBarrier* emu_warp_barriers = nullptr;
 inline thread_local float* emu_block_smem = nullptr;
 
 // a block's mbarriers (by address)
@@ -74,14 +123,34 @@ struct EmuBlockSync {
     int expected, pending, phase;
     long long tx;  // bytes still to land in this phase
   };
-  std::mutex m;
-  std::condition_variable cv;
+  std::mutex m;  // never held across a wait
   std::map<const void*, Mbar> mbar;
 };
 inline thread_local EmuBlockSync* emu_block_sync = nullptr;
 
-inline void __syncthreads() { emu_block_barrier->arrive_and_wait(); }
-inline void __syncwarp(unsigned = 0xffffffffu) { emu_warp_barrier->arrive_and_wait(); }
+// suspend this fiber until *flag != value
+inline void emu_wait_until_changed(const int* flag, int value, const char* what) {
+  EmuFiber* f = emu_self;
+  f->wait_on = flag;
+  f->wait_val = value;
+  f->waits_for = what;
+  emu_switch(&f->ctx, emu_scheduler);
+}
+
+inline void emu_arrive_and_wait(EmuBarrier* b, const char* what) {
+  const int generation = b->generation;
+  if (++b->arrived == b->count) {
+    b->arrived = 0;
+    ++b->generation;
+    return;
+  }
+  emu_wait_until_changed(&b->generation, generation, what);
+}
+
+inline void __syncthreads() { emu_arrive_and_wait(emu_block_barrier, "__syncthreads"); }
+inline void __syncwarp(unsigned = 0xffffffffu) {
+  emu_arrive_and_wait(&emu_warp_barriers[threadIdx.x / 32], "__syncwarp");
+}
 inline float* emu_smem() { return emu_block_smem; }
 
 typedef int cudaError_t;
@@ -125,7 +194,6 @@ inline void emu_mbar_update(void* bar, int arrivals, long long tx) {
   if (m.pending == 0 && m.tx == 0) {
     m.phase ^= 1;
     m.pending = m.expected;
-    b.cv.notify_all();
   }
 }
 inline void emu_mbar_arrive(void* bar) {
@@ -137,23 +205,14 @@ inline void emu_mbar_arrive_expect_tx(void* bar, unsigned bytes) {
   emu_mbar_update(bar, 1, bytes);
 }
 inline void emu_mbar_wait(void* bar, unsigned parity) {
-  EmuBlockSync& b = *emu_block_sync;
-  std::unique_lock<std::mutex> lock(b.m);
-  if (b.mbar.find(bar) == b.mbar.end()) {
+  auto it = emu_block_sync->mbar.find(bar);
+  if (it == emu_block_sync->mbar.end()) {
     emu_fault(cudaErrorIllegalInstruction);
     return;
   }
-  // a phase that never completes is a deadlock of the kernel's protocol:
-  // name the barrier and stop, rather than hang the caller
-  if (!b.cv.wait_for(lock, std::chrono::seconds(60),
-                     [&] { return (unsigned)b.mbar[bar].phase != (parity & 1u); })) {
-    const EmuBlockSync::Mbar& m = b.mbar[bar];
-    std::fprintf(stderr,
-                 "emu: thread %u waited 60 s on the mbarrier at shared byte %zu for its phase "
-                 "of parity %u (phase %d, %d arrivals and %lld bytes pending)\n",
-                 threadIdx.x, __cvta_generic_to_shared(bar), parity, m.phase, m.pending, m.tx);
-    std::abort();
-  }
+  // returns once the phase's parity differs from `parity`
+  if ((unsigned)it->second.phase == (parity & 1u))
+    emu_wait_until_changed(&it->second.phase, (int)(parity & 1u), "an mbarrier phase");
 }
 inline bool emu_aligned(const void* p, std::uintptr_t bytes) {
   return reinterpret_cast<std::uintptr_t>(p) % bytes == 0;
@@ -169,11 +228,15 @@ inline cudaError_t cudaGetDevice(int* device) {
   *device = 0;
   return cudaSuccess;
 }
-// a card of one SM that holds one block, so that a persistent kernel's
-// blocks each walk several tiles even at the tests' small shapes
+// a card of EMU_SMS SMs (1 unless the build defines it), each of which
+// holds one block, so that a persistent kernel's blocks each walk several
+// tiles even at the tests' small shapes
+#ifndef EMU_SMS
+#define EMU_SMS 1
+#endif
 inline cudaError_t cudaDeviceGetAttribute(int* value, int attr, int) {
   if (attr != cudaDevAttrMultiProcessorCount) return cudaErrorInvalidValue;
-  *value = 1;
+  *value = EMU_SMS;
   return cudaSuccess;
 }
 template <typename F>
@@ -182,39 +245,112 @@ cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* blocks, F, int, s
   return cudaSuccess;
 }
 
+// land the oldest `count` cp.async copies of fiber f
+inline void emu_land_copies(EmuFiber* f, std::size_t count) {
+  for (std::size_t i = 0; i < count; ++i) {
+    const EmuCopy& c = f->copies[i];
+    std::memcpy(c.dst, c.src, c.size - c.zfill);
+    std::memset(static_cast<char*>(c.dst) + (c.size - c.zfill), 0, c.zfill);
+  }
+  f->copies.erase(f->copies.begin(), f->copies.begin() + (std::ptrdiff_t)count);
+  std::vector<std::size_t> left;
+  for (std::size_t end : f->groups)
+    if (end > count) left.push_back(end - count);
+  f->groups.swap(left);
+}
+
+// the body of the running launch, as each fiber of a block starts it
+inline thread_local const std::function<void()>* emu_body = nullptr;
+
+inline void emu_fiber_main() {
+  (*emu_body)();
+  EmuFiber* f = emu_self;
+  emu_land_copies(f, f->copies.size());  // the card lands them all in the end
+  f->done = true;
+  emu_switch(&f->ctx, emu_scheduler);  // never resumed
+  std::abort();
+}
+
+// a fiber's stack: 2 MB of address space (pages come as they are touched)
+// below a guard page; kept for the launching thread's later launches
+constexpr std::size_t kEmuStack = std::size_t(2) << 20, kEmuGuard = 4096;
+inline char* emu_stack(int i) {
+  static thread_local std::vector<char*> stacks;
+  while ((int)stacks.size() <= i) {
+    void* p = mmap(nullptr, kEmuStack + kEmuGuard, PROT_READ | PROT_WRITE,
+                   MAP_PRIVATE | MAP_ANONYMOUS | MAP_NORESERVE, -1, 0);
+    if (p == MAP_FAILED) {
+      std::fprintf(stderr, "emu: no memory for a fiber's stack\n");
+      std::abort();
+    }
+    mprotect(p, kEmuGuard, PROT_NONE);
+    stacks.push_back(static_cast<char*>(p) + kEmuGuard);
+  }
+  return stacks[i];
+}
+
 template <typename K, typename... A>
 void emu_launch(K kernel, dim3 grid, int threads, int smem_bytes, cudaStream_t, A... args) {
   constexpr int kAlign = 128 / sizeof(float);
   const int warps = (threads + 31) / 32;
+  std::vector<float> smem(smem_bytes / 4 + 4 + kAlign);
+  float* base = smem.data();
+  base += (kAlign - reinterpret_cast<std::uintptr_t>(base) / sizeof(float) % kAlign) % kAlign;
+  const std::function<void()> body = [&] { kernel(args...); };
+  std::vector<EmuFiber> fibers(threads);
+  std::vector<EmuBarrier> warp_barriers(warps);
+  EmuBarrier block_barrier;
+  ucontext_t scheduler;
   for (unsigned bz = 0; bz < grid.z; ++bz)
     for (unsigned by = 0; by < grid.y; ++by)
       for (unsigned bx = 0; bx < grid.x; ++bx) {
-        std::vector<float> smem(smem_bytes / 4 + 4 + kAlign,
-                                std::numeric_limits<float>::quiet_NaN());
-        float* base = smem.data();
-        base += (kAlign - reinterpret_cast<std::uintptr_t>(base) / sizeof(float) % kAlign) %
-                kAlign;
-        std::barrier<> barrier(threads);
-        EmuBlockSync sync;
-        std::vector<std::unique_ptr<std::barrier<>>> warp_barriers;
+        std::fill(smem.begin(), smem.end(), std::numeric_limits<float>::quiet_NaN());
+        block_barrier = EmuBarrier{threads};
         for (int wi = 0; wi < warps; ++wi)
-          warp_barriers.push_back(
-              std::make_unique<std::barrier<>>(wi + 1 < warps ? 32 : threads - 32 * wi));
-        std::vector<std::thread> block;
-        block.reserve(threads);
-        for (int t = 0; t < threads; ++t)
-          block.emplace_back([&, t] {
-            threadIdx = dim3(t);
-            blockIdx = dim3(bx, by, bz);
-            gridDim = grid;
-            emu_block_barrier = &barrier;
-            emu_warp_barrier = warp_barriers[t / 32].get();
-            emu_block_smem = base;
-            emu_block_sync = &sync;
-            kernel(args...);
-          });
-        for (auto& th : block) th.join();
+          warp_barriers[wi] = EmuBarrier{wi + 1 < warps ? 32 : threads - 32 * wi};
+        EmuBlockSync sync;
+        blockIdx = dim3(bx, by, bz);
+        gridDim = grid;
+        blockDim = dim3(threads);
+        emu_block_barrier = &block_barrier;
+        emu_warp_barriers = warp_barriers.data();
+        emu_block_smem = base;
+        emu_block_sync = &sync;
+        emu_scheduler = &scheduler;
+        emu_body = &body;
+        for (int t = 0; t < threads; ++t) {
+          EmuFiber& f = fibers[t];
+          f.tid = t;
+          f.turn = 0;
+          f.wait_on = nullptr;
+          f.done = false;
+          f.copies.clear();
+          f.groups.clear();
+          emu_make_context(&f.ctx, emu_stack(t), kEmuStack, emu_fiber_main);
+        }
+        int left = threads;
+        for (int round = 0; left > 0; ++round) {
+          bool ran = false;
+          for (int i = 0; i < threads; ++i) {
+            EmuFiber& f = fibers[round % 2 ? threads - 1 - i : i];
+            if (f.done || (f.wait_on != nullptr && *f.wait_on == f.wait_val)) continue;
+            f.wait_on = nullptr;
+            threadIdx = dim3(f.tid);
+            emu_self = &f;
+            emu_switch(&scheduler, &f.ctx);
+            ran = true;
+            if (f.done) --left;
+          }
+          if (!ran) {
+            std::fprintf(stderr, "emu: block (%u, %u, %u) deadlocked; waiting:", bx, by, bz);
+            for (const EmuFiber& f : fibers)
+              if (!f.done) std::fprintf(stderr, " thread %u on %s;", f.tid, f.waits_for);
+            std::fprintf(stderr, "\n");
+            std::abort();
+          }
+        }
       }
+  emu_self = nullptr;
 }
 
 // ---- warp-wide PTX instructions ----
@@ -225,14 +361,15 @@ struct EmuWarpRegs {
   unsigned b[32][2];
 };
 inline EmuWarpRegs emu_warp_regs[32][2];  // two per warp of the running block
-inline thread_local unsigned emu_turn = 0;
 
 // The exchange buffer of this lane's next warp-wide instruction: the warp's
 // two buffers in turns. The lanes of a warp run the same sequence of these
 // instructions, so they agree on the turn, and a lane writes a buffer again
 // only after every lane has passed the barrier of the instruction after
 // the one that read it: one `__syncwarp` an instruction suffices.
-inline EmuWarpRegs& emu_exchange() { return emu_warp_regs[threadIdx.x / 32][emu_turn++ % 2]; }
+inline EmuWarpRegs& emu_exchange() {
+  return emu_warp_regs[threadIdx.x / 32][emu_self->turn++ % 2];
+}
 
 inline float emu_bf16_bits(unsigned short u) {
   const uint32_t w = (uint32_t)u << 16;
@@ -296,6 +433,16 @@ inline unsigned __float_as_uint(float f) {
   unsigned u;
   __builtin_memcpy(&u, &f, 4);
   return u;
+}
+
+// __shfl_xor_sync over the lanes of `mask` (the whole warp, or the lanes a
+// partial last warp has): every lane receives lane (lane ^ m)'s value
+inline float __shfl_xor_sync(unsigned, float v, int m) {
+  const int lane = (int)(threadIdx.x % 32);
+  EmuWarpRegs& w = emu_exchange();
+  w.a[lane][0] = __float_as_uint(v);
+  __syncwarp();
+  return __uint_as_float(w.a[lane ^ m][0]);
 }
 
 // cvt.rna.tf32.f32, bit for bit: round the magnitude to 10 explicit mantissa

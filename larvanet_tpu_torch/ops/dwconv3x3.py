@@ -18,10 +18,11 @@ same steps as the plain version, so the two agree bit for bit.
 does not take; only a CPU tensor goes to `dwconv3x3_reference`. The input
 gradient is the same entry with the taps rotated by 180 degrees and no bias
 (`dgrad=True`). `dwconv3x3_wgrad` gives dk (3, 3, 1, C) and db (C,) in f32
-(per-block partial sums over runs of pixel tiles, added in block order by a
+(per-block partial sums over runs of rows, added in a fixed order by a
 second kernel: the same bits on every run); `dwconv3x3_wgrad_reference` is
-its plain version. `DWConv3x3Train` is the conv as a
-`torch.autograd.Function` whose forward, dgrad and wgrad run on the kernels.
+its plain version. `plan` reads the tile an entry picks for a shape.
+`DWConv3x3Train` is the conv as a `torch.autograd.Function` whose forward,
+dgrad and wgrad run on the kernels.
 `LAUNCHES_BY_ENTRY` counts the wrapper's launches by entry ("forward",
 "dgrad", "wgrad").
 
@@ -46,9 +47,12 @@ _ENTRY = {("forward", torch.float32): "dwconv3x3_f32",
           ("wgrad", torch.float32): "dwconv3x3_wgrad_f32",
           ("wgrad", torch.bfloat16): "dwconv3x3_wgrad_bf16"}
 # the most blocks the weight gradient takes, over all its channel chunks
-# (each writes one row of 10 C partial sums): two to each of the H100's 132
-# SMs, so that a block sums several pixel tiles before its reduction
+# (each writes 10 C partial sums): two to each of the H100's 132 SMs, all in
+# one wave (the kernel also keeps each block's run to 8 rows at least)
 WGRAD_BLOCKS = 264
+# what `plan` reports, in the entry's order
+PLAN_KEYS = ("vector", "groups", "chunks", "tile_w", "tiles_w", "ring_slots",
+             "cols_a_thread", "copy_vectors", "runs")
 
 LAUNCHES = 0
 LAUNCHES_BY_ENTRY: Dict[str, int] = {"forward": 0, "dgrad": 0, "wgrad": 0}
@@ -103,6 +107,23 @@ def bind(lib: ctypes.CDLL, entry: str, dtype: torch.dtype):
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def plan(lib: ctypes.CDLL, ptrs, dtype: torch.dtype, shape, entry: str = "forward",
+         max_blocks: int = WGRAD_BLOCKS) -> Dict[str, int]:
+    """The tile `lib`'s `entry` ("forward" or "wgrad", the latter at most
+    `max_blocks` blocks) takes for an NHWC `shape` of `dtype` whose operands
+    lie at the three data pointers `ptrs` (the forward's x, k, y; the
+    wgrad's x, g, g), as the entry's own launch path works it out:
+    {PLAN_KEYS: ...}."""
+    fn = lib.dwconv3x3_plan
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * len(PLAN_KEYS))()
+    item = 4 if dtype == torch.float32 else 2
+    if fn(*ptrs, item, *shape, int(entry == "wgrad"), max_blocks, out) != 0:
+        raise ValueError("dwconv3x3 has no plan for %s %s" % (tuple(shape), dtype))
+    return dict(zip(PLAN_KEYS, out))
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,8 +1,9 @@
 """Build the port's CUDA sources for the CPU, to test their logic without a card.
 
 `load(source)` compiles `csrc/<source>` with the host C++ compiler (C++20)
-against the stand-in headers of `csrc/emu/` (one std::thread per CUDA
-thread, a barrier for `__syncthreads`, NaN-filled dynamic shared memory)
+against the stand-in headers of `csrc/emu/` (one fiber per CUDA thread
+on the calling thread, a barrier for `__syncthreads`, cp.async copies that
+land at the issuing thread's wait, NaN-filled dynamic shared memory)
 into `build/emu/<stem>-<hash>.so` and loads it with ctypes. The entry
 points keep their plain C interface, so a test calls them on CPU tensors
 exactly as the wrapper calls them on CUDA tensors, with stream 0, and
@@ -26,7 +27,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Tuple
 
 from larvanet_tpu_torch.ops.build import CSRC
 
@@ -34,7 +35,7 @@ EMU_DIR = CSRC / "emu"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "emu"
 CXX_FLAGS = ("-std=c++20", "-O2", "-fPIC", "-shared", "-pthread")
 
-_LIBS: Dict[str, ctypes.CDLL] = {}
+_LIBS: Dict[Tuple[str, int], ctypes.CDLL] = {}
 _LOCK = threading.Lock()
 
 
@@ -52,30 +53,35 @@ def translate(src: str) -> str:
     return re.sub(r"(?m)^(\s*)([^\n;]*?)<<<([^\n]*?)>>>\(", r"\1emu_launch(\2, \3, ", src)
 
 
-def library_path(source: str) -> Path:
+def _flags(sms: int):
+    return (*CXX_FLAGS, "-DEMU_SMS=%d" % sms)
+
+
+def library_path(source: str, sms: int = 1) -> Path:
     digest = hashlib.sha256((CSRC / source).read_bytes())
     for header in sorted(EMU_DIR.glob("*.h")):
         digest.update(header.read_bytes())
-    digest.update(" ".join(CXX_FLAGS).encode())
+    digest.update(" ".join(_flags(sms)).encode())
     return BUILD_DIR / ("%s-%s.so" % (Path(source).stem, digest.hexdigest()[:16]))
 
 
-def load(source: str) -> ctypes.CDLL:
-    """The CPU build of `source`, compiled first if needed."""
+def load(source: str, sms: int = 1) -> ctypes.CDLL:
+    """The CPU build of `source` for a stand-in card of `sms` SMs (each
+    holds one block), compiled first if needed."""
     with _LOCK:
-        if source in _LIBS:
-            return _LIBS[source]
-        out = library_path(source)
+        if (source, sms) in _LIBS:
+            return _LIBS[(source, sms)]
+        out = library_path(source, sms)
         if not out.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             cpp = out.with_name("%s.%d.cpp" % (out.stem, os.getpid()))
             cpp.write_text(translate((CSRC / source).read_text()))
             tmp = out.with_name("%s.%d.tmp" % (out.name, os.getpid()))
-            proc = subprocess.run([compiler(), *CXX_FLAGS, "-I", str(EMU_DIR), "-o", str(tmp),
+            proc = subprocess.run([compiler(), *_flags(sms), "-I", str(EMU_DIR), "-o", str(tmp),
                                    str(cpp)], capture_output=True, text=True)
             cpp.unlink()
             if proc.returncode != 0:
                 raise RuntimeError("CPU build of %s failed:\n%s" % (source, proc.stderr))
             os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
-        _LIBS[source] = ctypes.CDLL(str(out))
-        return _LIBS[source]
+        _LIBS[(source, sms)] = ctypes.CDLL(str(out))
+        return _LIBS[(source, sms)]

@@ -31,6 +31,8 @@ from larvanet_tpu_torch.core.registry import get_model
 from larvanet_tpu_torch.ops import conv3x3_wgrad
 from larvanet_tpu_torch.utils.torch_convert import state_dict_from_jax_params
 
+torch.set_num_threads(1)  # tiny tensors: more intra-op threads cost more than they give
+
 TINY = ["--edsr_conv_features", "8", "--edsr_res_blocks", "2"]
 SCALE, PATCH = 4, 8
 # both with --collapsed_tail_train 0 (the plain tail): the loss within 1e-4

@@ -15,7 +15,8 @@ PACKAGE = ROOT / "larvanet_tpu_torch"
 # every root-level script of the port, named one by one (a new one is added
 # here by hand, so no pattern can miss it)
 PORT_SCRIPTS = ("chip_smoke.py", "chip_wino_phases.py", "chip_wgrad_variants.py",
-                "chip_s8_variants.py", "chip_kxk_variants.py", "chip_epilogue_ab.py")
+                "chip_s8_variants.py", "chip_kxk_variants.py", "chip_epilogue_ab.py",
+                "chip_dw_ab.py")
 # `larvanet_tpu` is a prefix of `larvanet_tpu_torch`: match it only whole
 FORBIDDEN = re.compile(r"^(jax|jaxlib|flax|optax|orbax|msgpack|larvanet_tpu(?!_torch))(\.|$)")
 IMPORT_LINE = re.compile(

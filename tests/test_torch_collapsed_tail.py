@@ -41,6 +41,8 @@ from larvanet_tpu_torch.ops import conv_kxk as ck
 from larvanet_tpu_torch.ops.pixel_shuffle import pixel_shuffle, pixel_unshuffle
 from larvanet_tpu_torch.utils.torch_convert import state_dict_from_jax_params
 
+torch.set_num_threads(1)  # tiny tensors: more intra-op threads cost more than they give
+
 TINY = ["--edsr_conv_features", "8", "--edsr_res_blocks", "2"]
 PROBE_STEPS = 2
 COLLAPSED_ATOL = 0.1   # JAX's bar for its collapsed forward against its module

@@ -14,6 +14,8 @@ import torch
 from larvanet_tpu.ops.pallas_conv import conv3x3_bias_act as jax_conv3x3
 from larvanet_tpu_torch.ops import conv3x3
 
+torch.set_num_threads(1)  # tiny tensors: more intra-op threads cost more than they give
+
 # f32 sums of at most 9*64 products of unit-scale values taken in another
 # order than XLA's: differences stay near 1e-6; the TPU kernel's own bar
 # (tools/pallas_check.py) is 2e-4.

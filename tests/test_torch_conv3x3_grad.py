@@ -23,6 +23,8 @@ from larvanet_tpu_torch.models.layers import Conv3x3
 from larvanet_tpu_torch.ops import conv3x3
 from larvanet_tpu_torch.ops import conv3x3_wgrad as wg
 
+torch.set_num_threads(1)  # tiny tensors: more intra-op threads cost more than they give
+
 # f32 gradients that sum the same products in another order, each held
 # relative to its tensor's largest |g| (as the train-step tests are)
 GRAD_RTOL = 1e-5

@@ -29,6 +29,8 @@ import torch
 from larvanet_tpu_torch.ops import conv_kxk as ck
 from larvanet_tpu_torch.ops import emulate
 
+torch.set_num_threads(1)  # tiny tensors: more intra-op threads cost more than they give
+
 # f32: the kernel sums the same f32 products as the plain version in another
 # order, in split TF32 (a_lo b_lo, ~2^-22 of each product, dropped): sums of
 # 25 x 16 products of N(0, 1) x 0.1 N(0, 1) values, ~1e-6 apart; the bar of

@@ -27,6 +27,8 @@ from larvanet_tpu_torch.eval import metrics
 from larvanet_tpu_torch.eval.pipeline import pipelined_upscale
 from torch_png_cases import CASES, case_png
 
+torch.set_num_threads(1)  # tiny tensors: more intra-op threads cost more than they give
+
 # float64 arithmetic in the same order on both sides
 METRIC_TOL = 1e-12
 SHAPES = ((32, 40, 0, 0), (30, 33, 1, 2), (25, 25, 0, 1))

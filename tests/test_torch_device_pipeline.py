@@ -25,6 +25,8 @@ from larvanet_tpu_torch.core.registry import get_model
 from larvanet_tpu_torch.data import device_pipeline as pdp
 from larvanet_tpu_torch.data import io
 
+torch.set_num_threads(1)  # tiny tensors: more intra-op threads cost more than they give
+
 SCALE, PATCH = 4, 6
 
 

@@ -19,6 +19,8 @@ from larvanet_tpu_torch.core.registry import get_model
 from larvanet_tpu_torch.models.edsr import EDSRModule
 from larvanet_tpu_torch.utils.torch_convert import state_dict_from_jax_params
 
+torch.set_num_threads(1)  # tiny tensors: more intra-op threads cost more than they give
+
 TINY = ["--edsr_res_blocks", "2", "--edsr_conv_features", "8"]
 # f32 on [0, 255] outputs: the plain graphs differ only in summation order
 # through 7 convs, about 1e-5 of values up to a few hundred.

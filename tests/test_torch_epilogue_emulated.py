@@ -16,6 +16,8 @@ from torch_emulated import BF16_ATOL, BF16_RTOL, DTYPES, F32_ATOL
 from torch_emulated import lib as _lib
 from torch_emulated import t as _t
 
+torch.set_num_threads(1)  # tiny tensors: more intra-op threads cost more than they give
+
 # (act, slope): MSRR's relu6 ablation, and leaky_relu at a slope of
 # --slope's, not the 0.1 the kernels used to fix
 ACTS = [("relu6", 0.1), ("leaky_relu", 0.2)]

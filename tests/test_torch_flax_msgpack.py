@@ -33,6 +33,8 @@ from larvanet_tpu_torch.core.registry import get_model
 from larvanet_tpu_torch.utils import flax_msgpack
 from larvanet_tpu_torch.utils.torch_convert import load_pth, state_dict_from_jax_params
 
+torch.set_num_threads(1)  # tiny tensors: more intra-op threads cost more than they give
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LARVA_TINY = ["--num_modules", "2", "--num_blocks", "1,1"]
 MODELS = {"edsr": ["--edsr_res_blocks", "2", "--edsr_conv_features", "8"],

@@ -46,6 +46,8 @@ from larvanet_tpu_torch.eval import ensemble, tiling
 from larvanet_tpu_torch.utils.torch_convert import state_dict_from_jax_params
 from torch_edsr_fit import _fitted_pth
 
+torch.set_num_threads(1)  # tiny tensors: more intra-op threads cost more than they give
+
 TINY = ["--edsr_res_blocks", "2", "--edsr_conv_features", "8"]
 LARVA_TINY = ["--num_modules", "2", "--num_blocks", "1,1"]
 # f32 on [0, 255] outputs: the two module graphs sum the same products in

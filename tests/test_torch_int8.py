@@ -28,6 +28,8 @@ from larvanet_tpu_torch.ops import conv3x3_s8 as s8
 from larvanet_tpu_torch.ops import pairs
 from larvanet_tpu_torch.utils.torch_convert import state_dict_from_jax_params
 
+torch.set_num_threads(1)  # tiny tensors: more intra-op threads cost more than they give
+
 DTYPES = {"f32": (torch.float32, jnp.float32), "bf16": (torch.bfloat16, jnp.bfloat16)}
 
 

@@ -22,6 +22,8 @@ from larvanet_tpu.models.base import find_ema
 from larvanet_tpu_torch.core.registry import get_model
 from larvanet_tpu_torch.utils.torch_convert import state_dict_from_jax_params
 
+torch.set_num_threads(1)  # tiny tensors: more intra-op threads cost more than they give
+
 SCALE = 4
 PARAM_ATOL = 1e-5
 CASES = {

@@ -20,6 +20,8 @@ from torch_emulated import BF16_ATOL, BF16_RTOL, DTYPES, F32_ATOL
 from torch_emulated import lib as _lib
 from torch_emulated import t as _t
 
+torch.set_num_threads(1)  # tiny tensors: more intra-op threads cost more than they give
+
 
 @pytest.fixture(scope="module")
 def conv_lib():

@@ -38,6 +38,8 @@ from larvanet_tpu_torch.models.base import state_path
 from larvanet_tpu_torch.train.schedules import ReduceLROnPlateau, StepLR
 from larvanet_tpu_torch.utils.torch_convert import state_dict_from_jax_params
 
+torch.set_num_threads(1)  # tiny tensors: more intra-op threads cost more than they give
+
 BLOCKS = ["--num_blocks", "1,1"]
 # the presets whose step is held, with their flags at the test size
 PRESETS = {"LarvaNet": [], "LarvaNet_res": [], "LarvaNet_skip": [], "LarvaNet_1c": [],

@@ -31,6 +31,8 @@ from larvanet_tpu_torch.models.layers import interpolated_base
 from larvanet_tpu_torch.ops import wino_resblock as wr
 from larvanet_tpu_torch.utils.torch_convert import state_dict_from_jax_params
 
+torch.set_num_threads(1)  # tiny tensors: more intra-op threads cost more than they give
+
 BLOCKS = ["--num_blocks", "2,1"]
 # every preset's flags at the test size; the w64 presets at their own width
 PRESETS = {

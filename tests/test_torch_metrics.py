@@ -7,6 +7,8 @@ import torch
 from larvanet_tpu.eval import metrics as jax_metrics
 from larvanet_tpu_torch.eval import metrics
 
+torch.set_num_threads(1)  # tiny tensors: more intra-op threads cost more than they give
+
 
 def _pair(seed=0):
     rng = np.random.default_rng(seed)

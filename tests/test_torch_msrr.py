@@ -32,6 +32,8 @@ from larvanet_tpu_torch.core.registry import get_model
 from larvanet_tpu_torch.models.layers import exact_pair
 from larvanet_tpu_torch.utils.torch_convert import state_dict_from_jax_params
 
+torch.set_num_threads(1)  # tiny tensors: more intra-op threads cost more than they give
+
 BLOCKS = ["--num_blocks", "2"]
 NAMES = {
     "msrr": ["--num_filters", "8"], "msrr_test": ["--num_filters", "8"],

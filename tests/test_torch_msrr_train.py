@@ -39,6 +39,8 @@ from larvanet_tpu_torch.ops.int8_forward import Int8Unsupported, make_int8_msrr_
 from larvanet_tpu_torch.utils.torch_convert import state_dict_from_jax_params
 from test_torch_msrr import _louder, _lr, _to_numpy
 
+torch.set_num_threads(1)  # tiny tensors: more intra-op threads cost more than they give
+
 LOSS_RTOL = 1e-5
 GRAD_RTOL = 2e-5  # the plain step: JAX's XLA gradients sit ~1e-5 of their max from float64
 QAT_GRAD_RTOL = 2e-4  # a QAT pair's gradients on the same input

@@ -37,6 +37,8 @@ from larvanet_tpu_torch.models.layers import exact_pair
 from larvanet_tpu_torch.ops import int8_forward, pairs
 from larvanet_tpu_torch.utils.torch_convert import state_dict_from_jax_params
 
+torch.set_num_threads(1)  # tiny tensors: more intra-op threads cost more than they give
+
 LOSS_RTOL = 1e-5
 GRAD_RTOL = 2e-4  # a pair's gradients on the same input
 FLIP_GRAD_RTOL = 5e-2  # the whole model's, where codes flip (the module docstring)

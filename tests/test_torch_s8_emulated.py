@@ -20,6 +20,8 @@ from torch_emulated import DTYPES
 from torch_emulated import lib as _lib
 from torch_emulated import t as _t
 
+torch.set_num_threads(1)  # tiny tensors: more intra-op threads cost more than they give
+
 
 # ---- conv3x3_s8: the int8 conv of the W8A8 pair, bit for bit ----
 

@@ -25,6 +25,8 @@ from larvanet_tpu_torch.cli import serve
 from larvanet_tpu_torch.core.registry import get_model
 from larvanet_tpu_torch.data import png
 
+torch.set_num_threads(1)  # tiny tensors: more intra-op threads cost more than they give
+
 TINY = ["--edsr_res_blocks", "2", "--edsr_conv_features", "8"]
 # The JAX server's default routing is its fast path (width-packed trunk +
 # collapsed tail), which composes the tail's convs in another order; it

@@ -10,12 +10,15 @@ import json
 import os
 
 import pytest
+import torch
 
 from larvanet_tpu.cli import test as jax_test
 from larvanet_tpu.data import fixture
 from larvanet_tpu_torch.cli import test as port_test
 from larvanet_tpu_torch.data import io
 from torch_edsr_fit import TINY, _fitted_pth
+
+torch.set_num_threads(1)  # tiny tensors: more intra-op threads cost more than they give
 
 PSNR_TOL = 1e-3
 SSIM_TOL = 1e-5

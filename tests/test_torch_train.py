@@ -33,6 +33,8 @@ from larvanet_tpu_torch.train import losses
 from larvanet_tpu_torch.utils.checkpoints import find_latest, resolve_restore_path
 from larvanet_tpu_torch.utils.torch_convert import state_dict_from_jax_params
 
+torch.set_num_threads(1)  # tiny tensors: more intra-op threads cost more than they give
+
 TINY = ["--edsr_conv_features", "16", "--edsr_res_blocks", "2"]
 BATCH, PATCH, SCALE = 2, 12, 4
 # the loss: f32 sums of the same values in another order

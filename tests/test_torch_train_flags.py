@@ -27,6 +27,8 @@ from larvanet_tpu_torch.utils import profiling
 from larvanet_tpu_torch.utils.checkpoints import AsyncCheckpointWriter
 from larvanet_tpu_torch.utils.torch_convert import load_pth, state_dict_from_jax_params
 
+torch.set_num_threads(1)  # tiny tensors: more intra-op threads cost more than they give
+
 SCALE = 4
 EDSR_TINY = ["--edsr_conv_features", "8", "--edsr_res_blocks", "2"]
 # a forward of the widened model against the narrow one: the same products

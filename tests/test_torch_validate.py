@@ -35,6 +35,8 @@ from larvanet_tpu_torch.data import io
 from larvanet_tpu_torch.ops.collapsed_tail import make_collapsed_edsr_forward
 from larvanet_tpu_torch.utils.torch_convert import state_dict_from_jax_params
 
+torch.set_num_threads(1)  # tiny tensors: more intra-op threads cost more than they give
+
 TINY = ["--edsr_res_blocks", "2", "--edsr_conv_features", "8"]
 # the bar of tests/test_protocol_parity.py
 PSNR_TOL = 1e-3

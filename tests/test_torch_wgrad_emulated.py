@@ -16,6 +16,8 @@ from larvanet_tpu_torch.ops import conv3x3_wgrad as wg
 from torch_emulated import lib as _lib
 from torch_emulated import t as _t
 
+torch.set_num_threads(1)  # tiny tensors: more intra-op threads cost more than they give
+
 
 @pytest.fixture(scope="module")
 def wgrad_lib():

@@ -17,6 +17,8 @@ from torch_emulated import DTYPES, F32_ATOL, WINO_BF16_RTOL
 from torch_emulated import lib as _lib
 from torch_emulated import t as _t
 
+torch.set_num_threads(1)  # tiny tensors: more intra-op threads cost more than they give
+
 
 @pytest.fixture(scope="module")
 def wino_lib():

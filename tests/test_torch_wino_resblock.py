@@ -25,6 +25,8 @@ from larvanet_tpu_torch.ops.collapsed_tail import make_collapsed_edsr_forward
 from larvanet_tpu_torch.ops.conv3x3 import conv3x3_bias_act_reference
 from larvanet_tpu_torch.utils.torch_convert import state_dict_from_jax_params
 
+torch.set_num_threads(1)  # tiny tensors: more intra-op threads cost more than they give
+
 # the JAX package's own bars for its kernels against the direct packed
 # ResBlock (tests/test_wino_pallas.py): F(4,3)'s B^T / A^T entries up to 8
 # amplify the f32 rounding of the transforms

@@ -19,14 +19,14 @@ WINO_BF16_RTOL = 2.0 ** -6
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 
 
-def lib(source):
-    """The CPU build of csrc/`source`; the test skips where there is no
-    host C++ compiler."""
+def lib(source, sms=1):
+    """The CPU build of csrc/`source` for a stand-in card of `sms` SMs; the
+    test skips where there is no host C++ compiler."""
     try:
         emulate.compiler()
     except RuntimeError as exc:
         pytest.skip(str(exc))
-    return emulate.load(source)
+    return emulate.load(source, sms)
 
 
 def t(a):
