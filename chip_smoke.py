@@ -6,8 +6,9 @@
 It drives the port's main paths on the card, serving and validating
 EDSR-baseline x4 and the LarvaNet family (the flagship LarvaNet 2x16, and
 LarvaNet_w64 on the fused ResBlocks) and training EDSR-baseline x4 and the
-flagship, then serving, running and training the MSRR family (phase 15),
-and fails (exit code != 0, no result line) if any phase fails.
+flagship, then serving, running and training the MSRR family (phase 15)
+and TreeNet, REGO-Net and REGO-serial (phase 16), and fails (exit code !=
+0, no result line) if any phase fails.
 EDSR serves on its default route, the collapsed linear tail
 (ops/collapsed_tail.py: the trunk's 34 convs on conv3x3, the tail as one
 5x5 conv, 4 side and 4 corner operators on conv_kxk; the CLIs make the
@@ -277,6 +278,34 @@ on the default, collapsed route:
     (MSRR_TRAIN), timed; msrr_reduced through train_larva and the other two
     through train for MSRR_CLI_STEPS steps. 15e: test on msrr_test in its
     [0, 1] range on a SynSetReal tree, counted, the per-image PSNR printed.
+ 16. TreeNet and the REGOs (after phase 15), x4 at full width, random
+    weights from SEED, each model's residual over its base fitted to a std
+    of 30 (fit_branchy). 16a: conv3x3 at the shapes they bring
+    (BRANCHY_CONVS: REGO's RESBlock conv1 64 -> 64 with leaky_relu(0.1),
+    SRrecon 384 -> 48 and REGO-serial's merge 384 -> 64 over six channel
+    chunks, TreeNet's head 3 -> 48 with leaky_relu(0.1)) at 4 x 192x192 and
+    339x510, f32 and bf16, as phase 3 (the f32 bar scaled with the products
+    summed, as 14a's); the 384-channel weight gradients (f32, and the bf16
+    entry) and the 48 -> 384 / 64 -> 384 input gradients at 16 x 48x48, as
+    phase 8's kernel half, against conv2d_weight / conv2d_input; REGO's
+    s8 pair at 64 -> 64 (conv_a with leaky_relu(0.1), conv_b without a
+    residual at res_weight 1 and 0.1) bit for bit, graph replays. 16b:
+    TreeNet in f32 and REGO-Net in f32 and bf16 served through the HTTP
+    server (phase 4's checks; 33 and 32 conv3x3 launches a forward); the x4
+    forwards of TreeNet, REGO-Net and REGO-serial --num_regos 2 (63
+    launches) on the 4 x 192x192 batch in f32 and bf16: counted, held
+    against the plain versions relative to the residual, timed with their
+    device split. 16c: TreeNet's and REGO-Net's --int8_trunk route (the
+    CLIs' maybe_int8_trunk): 32 s8 + 1 conv3x3 and 30 s8 + 2 conv3x3 a
+    forward, held to 11b's bar, timed. 16d: TreeNet --num_branches 2 and
+    REGO-Net train steps at batch 16 x 48x48 f32 (gradients against the
+    plain dgrad and wgrad, counted: 49 / 48 / 49 and 32 / 31 / 32 launches,
+    timed with the split); train_larva on TreeNet (StepLR, model_<step>
+    checkpoints) and train on REGO-Net for BRANCHY_CLI_STEPS steps;
+    REGO-serial --num_regos 2 with --qat 1 (a counted step) and with
+    --remat 1 --lr_domain_loss 1 (bit for bit with --remat 0, 60
+    recomputed convs). 16e: validate_tree --pipeline_depth 1 and 2 (equal
+    PSNRs) and state_dict_tree on phase 6's set, counted.
  12. (last) prints the kernels JSON line, the nvidia-smi line, then the
     result line {"ok": true, "device": {...}}.
 
@@ -328,7 +357,12 @@ launches by entry ("forward", and "dgrad": the same entry as the input
 gradient) over 15c and 15d, the call at dwsr_reduced x4's 4 x 192x192 x 48
 (f32; bf16 beside, the dgrad at 16 x 48x48 under "dgrad") and every shape's
 row; the dwconv3x3_wgrad line the weight gradient at 16 x 48x48 x 48 and
-15d's launches.
+15d's launches. Phase 16's counted runs add to the conv3x3 line (by path,
+and under "branchy_launches_by_path"; 16a's new shapes under "branchy",
+the input gradients under "branchy_dgrad", the forwards' and steps' ms),
+the conv3x3_wgrad line (16d's steps; the 384-channel shapes under
+"branchy") and the conv3x3_s8 line (16c's forwards, their ms under
+"branchy_int8_ms").
 """
 
 from __future__ import annotations
@@ -700,11 +734,14 @@ def _conv_ok(torch, got, want, dname, f32_atol=F32_ATOL):
     return ok and bool(torch.isfinite(got).all()), float(diff.max())
 
 
-def kernel_phase(torch, convs=X4_CONVS, label="EDSR-baseline x4"):
-    """Phase 3 over `convs` (X4_CONVS or LARVANET_CONVS), whose launch
-    counts are per forward of `label`. Returns ({dtype: per-forward sums at
-    the LR batch}, {dtype: the same over the tensor-core convs}, {dtype:
-    worst error}, {dtype: the narrow path's numbers by geometry})."""
+def kernel_phase(torch, convs=X4_CONVS, label="EDSR-baseline x4", scaled_bar=False):
+    """Phase 3 over `convs` (X4_CONVS, LARVANET_CONVS or 16a's
+    BRANCHY_CONVS), whose launch counts are per forward of `label`. With
+    `scaled_bar` (16a) the f32 bar grows with the products a value sums, as
+    phase 14a's (F32_ATOL x 9 C / KXK_F32_TERMS, at least F32_ATOL): the
+    fuse's C = 384 sums six times phase 3's. Returns ({dtype: per-forward
+    sums at the LR batch}, {dtype: the same over the tensor-core convs},
+    {dtype: worst error}, {dtype: the narrow path's numbers by geometry})."""
     import torch.nn.functional as F
 
     from larvanet_tpu_torch.ops import conv3x3
@@ -740,7 +777,8 @@ def kernel_phase(torch, convs=X4_CONVS, label="EDSR-baseline x4"):
                     raise AssertionError("%s %s: launches by path %s, expected one on %s"
                                          % (name, dname, took, path))
                 want = conv3x3_bias_act_reference(x, k32, b32, act)
-                ok, err = _conv_ok(torch, got, want, dname)
+                f32_bar = F32_ATOL * (max(1.0, 9 * c / KXK_F32_TERMS) if scaled_bar else 1.0)
+                ok, err = _conv_ok(torch, got, want, dname, f32_bar)
                 worst[dname] = max(worst[dname], err)
                 if not ok:
                     raise AssertionError("%s %s %s: %s kernel disagrees with its plain "
@@ -759,7 +797,7 @@ def kernel_phase(torch, convs=X4_CONVS, label="EDSR-baseline x4"):
                     cc = conv3x3._entry(dtype, "cuda_core")
                     got_cc = conv3x3._run(cc, x, k32, b32, act, stream)
                     torch.cuda.synchronize()
-                    ok_cc, err_cc = _conv_ok(torch, got_cc, want, dname)
+                    ok_cc, err_cc = _conv_ok(torch, got_cc, want, dname, f32_bar)
                     if not ok_cc:
                         raise AssertionError("%s %s: cuda_core kernel disagrees with its "
                                              "plain version, max |d| = %g" % (
@@ -1050,7 +1088,8 @@ def larvanet_base(torch, model, img_chw):
 
 def serve_phase(torch, device="cuda", dtype_name="f32", model_name="edsr"):
     """Phase 4 (EDSR-baseline x4), 4b (`model_name` a LarvaNet preset, at
-    LARVANET_FLAGS) or 15c (an MSRR_MODELS name at full width) with
+    LARVANET_FLAGS), 15c (an MSRR_MODELS name at full width) or 16b (a
+    BRANCHY_MODELS name, its residual fitted by fit_branchy) with
     --serving_dtype `dtype_name`. Returns the conv3x3
     launches counted while serving, the same by path, and the served
     model."""
@@ -1073,6 +1112,11 @@ def serve_phase(torch, device="cuda", dtype_name="f32", model_name="edsr"):
             save_msrr(torch, pth, model_name, device)
             model_flags = ["--model", model_name]
             per_forward = MSRR_MODELS[model_name][1]
+            per_kxk = NO_KXK
+        elif model_name in BRANCHY_MODELS:
+            flags, _, per_forward = BRANCHY_MODELS[model_name]
+            save_branchy(torch, pth, model_name, frames[0], device)
+            model_flags = ["--model", model_name] + flags
             per_kxk = NO_KXK
         elif larva:
             save_larvanet(torch, pth, model_name, LARVANET_FLAGS, device)
@@ -3302,7 +3346,7 @@ def wgrad_bf16_bound_ms(n, h, w, c, f):
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def wgrad_bf16_phase(torch, wgrad_shapes=TRAIN_WGRAD):
+def wgrad_bf16_phase(torch, wgrad_shapes=TRAIN_WGRAD, label="EDSR-baseline x4"):
     """13a's kernel half: the wgrad wrapper on bf16 x and g at every shape of
     an EDSR-baseline x4 step (TRAIN_WGRAD), which launches
     conv3x3_wgrad_bf16_tc on the tensor-core shapes, held against its plain
@@ -3358,9 +3402,9 @@ def wgrad_bf16_phase(torch, wgrad_shapes=TRAIN_WGRAD):
         kinds[by] = kinds.get(by, 0.0) + count * bound
         del x, g, x32, g32, dw, db, want_w, want_b
         torch.cuda.empty_cache()
-    print("wgrad bf16 per EDSR-baseline x4 train step (%d launches): kernel %.4f ms, f32 entry "
+    print("wgrad bf16 per %s train step (%d launches): kernel %.4f ms, f32 entry "
           "%.4f ms, plain %.4f ms, conv2d_weight bf16 %.4f ms, bound %.4f ms" % (
-              sum(sh[-1] for sh in wgrad_shapes), sums["ms"], sums["f32_entry_ms"],
+              label, sum(sh[-1] for sh in wgrad_shapes), sums["ms"], sums["f32_entry_ms"],
               sums["plain_ms"], sums["library_ms"], sums["bound_ms"]), flush=True)
     return sums, max(kinds, key=kinds.get), worst_abs, worst_rel, shapes
 
@@ -4789,6 +4833,457 @@ def msrr_phase(torch):
                 test_conv=test_conv)
 
 
+# ---- phase 16: TreeNet and the REGOs ---------------------------------------------
+
+# 16a: the conv shapes these families bring (X4_CONVS' format), with their
+# launches per REGO-Net x4 forward: the RESBlock's conv1 with LeakyReLU(0.1)
+# (its conv2, 64 -> 64, and feature_extraction, 3 -> 64, are phase 3's
+# shapes), SRrecon's 384 -> 48 over the fuse's six 64-channel chunks;
+# REGO-serial's merge conv_0 384 -> 64 and TreeNet's head 3 -> 48 with
+# LeakyReLU(0.1), which no REGO-Net forward runs
+BRANCHY_CONVS = (
+    ("REGO RESBlock conv1 leaky", 1, 64, 64, "leaky_relu", 15, "tensor_core"),
+    ("REGO SRrecon 384->48", 1, 384, 48, None, 1, "tensor_core"),
+    ("REGO-serial conv_0 384->64", 1, 384, 64, None, 0, "tensor_core"),
+    ("TreeNet first_conv leaky", 1, 3, 48, "leaky_relu", 0, "cuda_core"),
+)
+# their weight and input gradients at a train step's batch 16 x 48x48, with
+# the launches of a REGO-Net step (TRAIN_WGRAD's and TRAIN_DGRAD's formats)
+BRANCHY_WGRAD = (("REGO SRrecon 384->48", 1, 384, 48, 1),
+                 ("REGO-serial conv_0 384->64", 1, 384, 64, 0))
+BRANCHY_DGRAD = (("REGO SRrecon 48->384", 1, 48, 384),
+                 ("REGO-serial conv_0 64->384", 1, 64, 384))
+# 16b: name -> (flags, parameters, conv3x3 launches a x4 forward by path):
+# TreeNet's head on the CUDA cores and its 16 ResBlocks' 32 convs on the
+# tensor cores; REGO-Net's feature_extraction on the CUDA cores, its 15
+# RESBlocks' 30 convs and SRrecon on the tensor cores; REGO-serial
+# --num_regos 2 twice the RESBlocks and the merge conv_0
+BRANCHY_MODELS = {
+    "TreeNet": ([], 666432, {"cuda_core": 1, "tensor_core": 32, "narrow": 0}),
+    "REGO-Net": ([], 1275568, {"cuda_core": 1, "tensor_core": 31, "narrow": 0}),
+    "REGO-serial": (["--num_regos", "2"], 2604656,
+                    {"cuda_core": 1, "tensor_core": 62, "narrow": 0}),
+}
+# 16c: the --int8_trunk forward's launches: s8 by entry (a pair each
+# ResBlock) and the conv3x3 launches that stay exact (the heads; REGO's
+# SRrecon)
+BRANCHY_INT8 = {"TreeNet": ({"conv_a": 16, "conv_b": 16},
+                            {"cuda_core": 1, "tensor_core": 0, "narrow": 0}),
+                "REGO-Net": ({"conv_a": 15, "conv_b": 15},
+                             {"cuda_core": 1, "tensor_core": 1, "narrow": 0})}
+# the residual std fit_branchy gives a random model over its base
+BRANCHY_RESIDUAL_STD = 30.0
+# 16d: name -> (flags, launches of one step at batch 16 x 48x48): TreeNet
+# --num_branches 2 (49 forward convs; 48 dgrads, none for the head; 49
+# wgrads, the head's 3 -> 48 on the CUDA cores), REGO-Net (32, 31, 32)
+BRANCHY_TRAIN = {
+    "TreeNet": (["--num_branches", "2"],
+                {"forward": {"cuda_core": 1, "tensor_core": 48, "narrow": 0},
+                 "dgrad": {"cuda_core": 0, "tensor_core": 48, "narrow": 0},
+                 "wgrad": {"tensor_core": 48, "narrow": 0, "cuda_core": 1}}),
+    "REGO-Net": ([], {"forward": {"cuda_core": 1, "tensor_core": 31, "narrow": 0},
+                      "dgrad": {"cuda_core": 0, "tensor_core": 31, "narrow": 0},
+                      "wgrad": {"tensor_core": 31, "narrow": 0, "cuda_core": 1}}),
+}
+# REGO-serial --num_regos 2's step (63, 62, 63), and the convs of its 30
+# pairs that a --remat 1 step recomputes
+SERIAL_STEP = {"forward": {"cuda_core": 1, "tensor_core": 62, "narrow": 0},
+               "dgrad": {"cuda_core": 0, "tensor_core": 62, "narrow": 0},
+               "wgrad": {"tensor_core": 62, "narrow": 0, "cuda_core": 1}}
+SERIAL_REMAT_EXTRA = 60
+BRANCHY_CLI_STEPS = 4
+
+
+def fit_branchy(torch, model, x):
+    """Scale a random TreeNet's or REGO's output so that its residual over
+    its base on `x` (NHWC on the card) has a std of BRANCHY_RESIDUAL_STD:
+    REGO's residual is linear in SRrecon's weight and bias, both scaled;
+    TreeNet's, at its init (zero biases, ReLU and LeakyReLU), positively
+    homogeneous in its head's weight, scaled alone."""
+    from larvanet_tpu_torch.models.layers import interpolated_base
+
+    module = model.module
+    with torch.no_grad():
+        res = module(x) - interpolated_base(x, 4, module.interpolate)
+        a = BRANCHY_RESIDUAL_STD / float(res.std())
+        if hasattr(module, "SRrecon"):
+            module.SRrecon.body[0].weight.mul_(a)
+            module.SRrecon.body[0].bias.mul_(a)
+        else:
+            module.common_parts[0].weight.mul_(a)
+
+
+def branchy_model(name, device="cuda", extra=(), is_training=False):
+    """A BRANCHY_MODELS model x4 at full width, random weights from SEED."""
+    from larvanet_tpu_torch.core.registry import get_model
+
+    flags, n_params, _ = BRANCHY_MODELS[name]
+    model = get_model(name)
+    model.parse_args(list(flags) + list(extra))
+    model.prepare([4], device=device, seed=SEED, is_training=is_training)
+    if not extra and model.num_parameters() != n_params:
+        raise AssertionError("%s x4 has %d parameters, not %d"
+                             % (name, model.num_parameters(), n_params))
+    return model
+
+
+def save_branchy(torch, path, name, fit_frame, device="cuda"):
+    """A BRANCHY_MODELS model, fitted on the CHW frame `fit_frame`
+    (fit_branchy), saved as the port module's own state_dict."""
+    model = branchy_model(name, device)
+    fit_branchy(torch, model, model._input_to_device([fit_frame]))
+    torch.save(model.module.state_dict(), path)
+
+
+def branchy_s8_phase(torch):
+    """Phase 16a's s8 half: REGO's RESBlock pair at 64 -> 64 on the 4 x
+    192x192 batch, bf16 (the CLIs' int8 dtype) and f32: conv_a with
+    leaky_relu(0.1) and conv_b without a residual (the 'both' pair adds hin
+    + t outside it) at res_weight 1 (REGO-Net) and 0.1 (REGO-serial), each
+    bit for bit with its plain version, timed in turns as CUDA graph replays
+    of the entry beside the plain version and the bound. Returns {dtype:
+    the sums over one REGO-Net int8 forward's 15 pairs}."""
+    import numpy as np
+
+    from larvanet_tpu_torch.ops import conv3x3_s8 as s8
+
+    rng = np.random.default_rng(SEED + 24)
+    n, h, w = LR_BATCH
+    c = 64
+    pairs = BRANCHY_INT8["REGO-Net"][0]["conv_a"]
+    codes_a, codes_b = (rng.integers(-127, 128, (3, 3, c, c)).astype(np.int8) for _ in "ab")
+    sa, sb = ((rng.uniform(0.5, 2.0, c) * 1e-3).astype(np.float32) for _ in "ab")
+    bias_a, bias_b = (torch.from_numpy(rng.standard_normal(c).astype(np.float32))
+                      for _ in "ab")
+    x32 = torch.from_numpy((rng.standard_normal((n, h, w, c)) * 3).astype(np.float32))
+    out = {}
+    for dname, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        item = 4 if dname == "f32" else 2
+        hin = x32.to("cuda").to(dtype)
+        s_in = float(hin.float().abs().max()) * 1.05 / 127.0
+        wa = s8.make_weight(codes_a, sa, s_in, bias_a, dtype, "cuda")
+        s_mid = s_in  # leaky_relu keeps both signs: the pre-activation's range
+        wb = s8.make_weight(codes_b, sb, s_mid, bias_b, dtype, "cuda")
+        tq = s8.conv_a(hin, wa, s_in, s_mid, "leaky_relu", 0.1)
+        differ = int((tq != s8.conv_a_reference(hin, wa, s_in, s_mid, "leaky_relu", 0.1))
+                     .sum())
+        bits = torch.int16 if dname == "bf16" else torch.int32
+        for rw in (1.0, 0.1):
+            got = s8.conv_b(tq, wb, dtype, None, rw)
+            differ += int((got.view(bits) != s8.conv_b_reference(tq, wb, dtype, None, rw)
+                           .view(bits)).sum())
+        stream = torch.cuda.current_stream
+        t = time_windows(torch, {
+            "conv_a": graph_replay(torch, lambda: s8._run_a(
+                s8._entry("conv_a", dtype), hin, wa, s_in, s_mid, "leaky_relu",
+                stream().cuda_stream, 0.1)),
+            "conv_b": graph_replay(torch, lambda: s8._run_b(
+                s8._entry("conv_b", dtype), tq, wb, dtype, None, 1.0, stream().cuda_stream)),
+            "plain_a": lambda: s8.conv_a_reference(hin, wa, s_in, s_mid, "leaky_relu", 0.1),
+            "plain_b": lambda: s8.conv_b_reference(tq, wb, dtype, None, 1.0)})
+        bounds = {"conv_a": s8_bound_ms(n, h, w, c, c, item, "conv_a"),
+                  "conv_b": s8_bound_ms(n, h, w, c, c, item, "conv_b")}
+        print("s8 REGO RESBlock 64->64 %dx%dx%d %s: conv_a leaky_relu(0.1) %s = %.1fx its "
+              "bound %.4f ms (%s; plain %s), conv_b without a residual %s = %.1fx its bound "
+              "%.4f ms (%s; plain %s); %d values differ from the plain versions (conv_b at "
+              "res_weight 1 and 0.1)" % (
+                  n, h, w, dname, spread(t["conv_a"]), t["conv_a"][0] / bounds["conv_a"][0],
+                  *bounds["conv_a"], spread(t["plain_a"]), spread(t["conv_b"]),
+                  t["conv_b"][0] / bounds["conv_b"][0], *bounds["conv_b"],
+                  spread(t["plain_b"]), differ), flush=True)
+        if differ:
+            raise AssertionError("conv3x3_s8 REGO pair %s: %d values differ" % (dname, differ))
+        out[dname] = {"ms": pairs * (t["conv_a"][0] + t["conv_b"][0]),
+                      "plain_ms": pairs * (t["plain_a"][0] + t["plain_b"][0]),
+                      "bound_ms": pairs * (bounds["conv_a"][0] + bounds["conv_b"][0]),
+                      "bound_by": bounds["conv_a"][1], "library_ms": None,
+                      "conv_a_ms": t["conv_a"][0], "conv_b_ms": t["conv_b"][0]}
+        del hin, tq, got
+    torch.cuda.empty_cache()
+    return out
+
+
+def branchy_forward_phase(torch):
+    """Phase 16b's forwards and 16c. Each BRANCHY_MODELS model x4 at full
+    width, fitted (fit_branchy), on the 4 x 192x192 batch in f32 and bf16:
+    one counted forward (BRANCHY_MODELS' launches), held against the same
+    forward with every kernel's plain version within FWD_RTOL (bf16:
+    BF16_FWD_RTOL) of the residual over the base, then timed with its
+    device split (conv3x3, s8, other, idle). 16c: TreeNet's and REGO-Net's
+    --int8_trunk route (the CLIs' maybe_int8_trunk, calibrated on the
+    batch's 96 x 96 corner): counted (BRANCHY_INT8), held against the same
+    route on the plain versions (INT8_FWD_PSNR_DB), timed. Returns the
+    counted launches ({"conv3x3": by path, "s8": by entry}) and {model:
+    {dtype: ms}}."""
+    from types import SimpleNamespace
+
+    from larvanet_tpu_torch.cli import common
+    from larvanet_tpu_torch.models.layers import interpolated_base
+
+    n, h, w = LR_BATCH
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 21)
+    x = 255.0 * torch.rand((n, h, w, 3), generator=gen, device="cuda")
+    totals, times = {"conv3x3": {}, "s8": {}}, {}
+    kinds = ("s8", "conv3x3")
+    for name, (_, _, per_conv) in BRANCHY_MODELS.items():
+        model = branchy_model(name)
+        fit_branchy(torch, model, x[:1])
+        times[name] = {}
+        for dname in ("f32", "bf16"):
+            model.set_serving_dtype(dname)
+            got, conv, _, _ = _counted_msrr(torch, lambda: model.fwd_runtime(x))
+            if conv != per_conv:
+                raise AssertionError("%s %s forward: conv3x3 %s, not %s"
+                                     % (name, dname, conv, per_conv))
+            _add(totals["conv3x3"], conv)
+            with plain_versions():
+                ref = model.fwd_runtime(x)
+            base = interpolated_base(x.to(model.compute_dtype), 4, model.module.interpolate)
+            residual = float((ref - base).abs().max())
+            err = float((got - ref).abs().max())
+            bar = (FWD_RTOL if dname == "f32" else BF16_FWD_RTOL) * residual
+            tm = time_windows(torch, {"forward": lambda: model.fwd_runtime(x)})["forward"]
+            times[name][dname] = tm[0]
+            print("branchy forward %s x4 %s: conv3x3 %s; max |d| %.3g against the plain "
+                  "versions (bar %.3g, residual max |y| %.3g); %s per forward, %.3f LR-MP/s; "
+                  "%s" % (name, dname, conv, err, bar, residual, spread(tm),
+                          n * h * w / 1e3 / tm[0], breakdown_line(
+                              torch, lambda: model.fwd_runtime(x), tm[0], kinds)), flush=True)
+            if err > bar or not bool(torch.isfinite(got).all()) or residual < 1.0:
+                raise AssertionError("%s %s forward disagrees with the plain versions"
+                                     % (name, dname))
+            del got, ref, base
+        model.set_serving_dtype("f32")
+        if name in BRANCHY_INT8:
+            want_s8, want_conv = BRANCHY_INT8[name]
+            common.maybe_int8_trunk(model, SimpleNamespace(int8_trunk=1, model=name),
+                                    lambda: x[:, :96, :96].cpu().numpy())
+            got, conv, _, s8l = _counted_msrr(torch, lambda: model.fwd_runtime(x))
+            if s8l != want_s8 or conv != want_conv:
+                raise AssertionError("%s int8 forward: s8 %s, conv3x3 %s" % (name, s8l, conv))
+            _add(totals["s8"], s8l)
+            _add(totals["conv3x3"], conv)
+            with plain_versions(), _plain_s8():
+                ref = model.fwd_runtime(x)
+            psnr = _psnr(got, ref)
+            exact = model.int8_exact_forward(x).float()
+            tm = time_windows(torch, {"forward": lambda: model.fwd_runtime(x)})["forward"]
+            times[name]["int8"] = tm[0]
+            print("branchy forward %s x4 --int8_trunk (bf16): s8 %s, conv3x3 %s; PSNR %.2f dB "
+                  "against the plain versions' int8 forward (bar %.1f), %.2f dB against the "
+                  "exact f32 forward; %s per forward; %s" % (
+                      name, s8l, conv, psnr, INT8_FWD_PSNR_DB, _psnr(got, exact), spread(tm),
+                      breakdown_line(torch, lambda: model.fwd_runtime(x), tm[0], kinds)),
+                  flush=True)
+            if psnr < INT8_FWD_PSNR_DB:
+                raise AssertionError("%s int8 forward disagrees with the plain one" % name)
+            del got, ref, exact
+        del model
+        torch.cuda.empty_cache()
+    return totals, times
+
+
+def branchy_train_phase(torch):
+    """Phase 16d. TreeNet --num_branches 2 and REGO-Net x4 at full width
+    trained at batch 16 x 48x48, f32, on phase 8's kind of set: one batch's
+    loss and gradients against the same Function with the plain dgrad and
+    wgrad on the kernels' forward (check_train_grads), a counted step
+    (BRANCHY_TRAIN), a step timed (3 windows of 5) with its split; TreeNet
+    through train_larva (StepLR, a --val_volume of 2 steps: checkpoints
+    model_2 and model_4) and REGO-Net through train for BRANCHY_CLI_STEPS
+    steps; then REGO-serial --num_regos 2: one counted step with --qat 1,
+    and with --remat 1 --lr_domain_loss 1 the loss and every gradient
+    equal --remat 0's bit for bit, its counted step recomputing
+    SERIAL_REMAT_EXTRA pairs. Returns the counted steps' launches and
+    {model: ms a step}."""
+    import numpy as np
+
+    from larvanet_tpu_torch.cli import train, train_larva
+    from larvanet_tpu_torch.core.registry import get_loader
+
+    batch, patch = TRAIN_BATCH, TRAIN_PATCH
+    steps, times = [], {}
+    with tempfile.TemporaryDirectory() as tmp:
+        write_train_set(tmp, np.random.default_rng(SEED + 22), TRAIN_FRAMES, TRAIN_LR)
+        data_flags = ["--data_input_path", os.path.join(tmp, "LR"),
+                      "--data_truth_path", os.path.join(tmp, "HR"), "--data_cached",
+                      "--data_seed", str(SEED)]
+        loader = get_loader("div2k_train_loader")
+        loader.parse_args(data_flags)
+        loader.prepare([4])
+        loader.reseed_for_step(0)
+        lr_nhwc, hr_nhwc = loader.get_patch_batch_nhwc(batch, 4, patch)
+        x, t = torch.from_numpy(lr_nhwc).cuda(), torch.from_numpy(hr_nhwc).cuda()
+        for name, (flags, want) in BRANCHY_TRAIN.items():
+            model = branchy_model(name, extra=flags, is_training=True)
+            label = "%s %s x4" % (name, " ".join(flags))
+            check_train_grads(torch, model, x, t, label, batch, patch, same_forward=True)
+            step = lambda: model.train_step(lr_nhwc, 4, hr_nhwc)  # noqa: E731
+            launches = counted_step(torch, step)
+            if launches != want:
+                raise AssertionError("%s train step launches %s, not %s"
+                                     % (label, launches, want))
+            steps.append(launches)
+            tm = time_windows(torch, {"train_step": step}, windows=3, reps=5)["train_step"]
+            train_step_split(torch, model, x, t, step, label, batch, patch, "f32", tm)
+            times[name] = tm[0]
+            del model
+            torch.cuda.empty_cache()
+        volume = patch * patch * batch * 3
+        cli = ["--dataloader", "div2k_train_loader", "--device", "cuda", "--batch_size",
+               str(batch), "--input_patch_size", str(patch), "--max_steps",
+               str(BRANCHY_CLI_STEPS), "--log_freq", "1"] + data_flags
+        run = os.path.join(tmp, "treenet")
+        trained, losses = train_larva.main(cli + [
+            "--model", "TreeNet", "--num_branches", "2", "--lr_step", "2",
+            "--val_data_input_path", os.path.join(tmp, "LR"), "--val_data_truth_path",
+            os.path.join(tmp, "HR"), "--val_volume", str(2 * volume), "--train_path", run])
+        files = sorted(os.listdir(run))
+        print("train_larva TreeNet --num_branches 2 x4: losses %s, lr %.3g, files %s" % (
+            {k: round(v, 4) for k, v in losses.items()}, trained.get_learning_rate(), files),
+            flush=True)
+        if sorted(losses) != list(range(1, BRANCHY_CLI_STEPS + 1)) or not all(
+                "model_%d%s" % (s, ext) in files for s in (2, 4)
+                for ext in (".pth", ".state.pt")) or not all(
+                np.isfinite(v) for v in losses.values()) or abs(
+                trained.get_learning_rate() - 1e-4) > 1e-12:
+            raise AssertionError("train_larva TreeNet: losses %s, files %s" % (losses, files))
+        del trained
+        _, losses = train.main(cli + ["--model", "REGO-Net", "--scales", "4",
+                                      "--train_path", os.path.join(tmp, "rego")])
+        print("train REGO-Net x4: losses %s" % {k: round(v, 4) for k, v in losses.items()},
+              flush=True)
+        if sorted(losses) != list(range(1, BRANCHY_CLI_STEPS + 1)) or not all(
+                np.isfinite(v) for v in losses.values()):
+            raise AssertionError("train REGO-Net: losses %s" % (losses,))
+        model = branchy_model("REGO-serial", extra=["--qat", "1"], is_training=True)
+        label = "REGO-serial --num_regos 2 --qat 1 x4"
+        launches = counted_step(torch, lambda: model.train_step(lr_nhwc, 4, hr_nhwc))
+        loss = model.train_step(lr_nhwc, 4, hr_nhwc)
+        print("train %s: a step's loss %.4f" % (label, loss), flush=True)
+        if launches != SERIAL_STEP or not np.isfinite(loss):
+            raise AssertionError("%s: launches %s, loss %s" % (label, launches, loss))
+        steps.append(launches)
+        del model
+        grads = {}
+        for remat in ("0", "1"):
+            model = branchy_model("REGO-serial", is_training=True,
+                                  extra=["--remat", remat, "--lr_domain_loss", "1"])
+
+            def one():
+                model.optimizer.zero_grad(set_to_none=True)
+                return model._loss_and_grads(x, t)
+
+            grads[remat] = [float(one())] + [p.grad.clone() for p in model.module.parameters()]
+            if remat == "1":
+                launches = counted_step(torch, one)
+                extra = launches["forward"]["tensor_core"] - SERIAL_STEP["forward"][
+                    "tensor_core"]
+                if extra != SERIAL_REMAT_EXTRA or launches["wgrad"] != SERIAL_STEP["wgrad"]:
+                    raise AssertionError("REGO-serial --remat 1: %d recomputed forwards, "
+                                         "launches %s" % (extra, launches))
+                steps.append(launches)
+            del model
+            torch.cuda.empty_cache()
+        same = grads["0"][0] == grads["1"][0] and all(
+            torch.equal(a, b) for a, b in zip(grads["0"][1:], grads["1"][1:]))
+        print("train REGO-serial --num_regos 2 --remat 1 --lr_domain_loss 1 x4: loss %.4f, "
+              "loss and gradients %s --remat 0's" % (
+                  grads["1"][0], "equal, bit for bit," if same else "DIFFER from"), flush=True)
+        if not same:
+            raise AssertionError("--remat 1 changed REGO-serial's gradients")
+    torch.cuda.empty_cache()
+    return steps, times
+
+
+def tree_cli_phase(torch):
+    """Phase 16e. validate_tree on TreeNet --num_branches 2 x4 (fitted,
+    saved as a .pth) over phase 6's set with --pipeline_depth 1 and 2: the
+    per-branch PSNRs equal, each run counted (33 conv3x3 launches a branch's
+    forward, both branches on every frame); then state_dict_tree, counted
+    (branch 0's forward on every frame, twice). Returns the conv3x3
+    launches by path."""
+    import numpy as np
+
+    from larvanet_tpu_torch.cli import state_dict_tree, validate_tree
+    from larvanet_tpu_torch.ops import conv3x3
+
+    per = {"cuda_core": 1, "tensor_core": 32, "narrow": 0}
+    total = {}
+    frames = len(VALIDATE_LR) + 1
+    with tempfile.TemporaryDirectory() as tmp:
+        write_validate_set(tmp)
+        rng = np.random.default_rng(SEED + 23)
+        pth = os.path.join(tmp, "treenet.pth")
+        model = branchy_model("TreeNet", extra=["--num_branches", "2"])
+        fit_branchy(torch, model, model._input_to_device([photo(rng, 96, 128)]))
+        torch.save(model.module.state_dict(), pth)
+        del model
+        argv = ["--device", "cuda", "--restore_path", pth, "--num_branches", "2",
+                "--data_input_path", os.path.join(tmp, "all", "LR"),
+                "--data_truth_path", os.path.join(tmp, "all", "HR")]
+        results = {}
+        for depth in (1, 2):
+            conv3x3.reset_launches()
+            results[depth] = validate_tree.main(argv + ["--pipeline_depth", str(depth)])
+            torch.cuda.synchronize()
+            by_path = dict(conv3x3.LAUNCHES_BY_PATH)
+            expect_forwards("validate_tree --pipeline_depth %d" % depth, by_path, per,
+                            2 * frames)
+            _add(total, by_path)
+        print("validate_tree TreeNet --num_branches 2 x4: mean PSNR by branch %s (depth 1), "
+              "%s (depth 2)" % tuple({b: round(r["mean_psnr"], 4) for b, r in res.items()}
+                                     for res in (results[1], results[2])), flush=True)
+        if results[1] != results[2] or not all(np.isfinite(r["mean_psnr"])
+                                               for r in results[1].values()):
+            raise AssertionError("validate_tree: --pipeline_depth 2 gave %s, 1 gave %s"
+                                 % (results[2], results[1]))
+        conv3x3.reset_launches()
+        state_dict_tree.main(argv)
+        torch.cuda.synchronize()
+        by_path = dict(conv3x3.LAUNCHES_BY_PATH)
+        expect_forwards("state_dict_tree", by_path, per, 2 * frames)
+        _add(total, by_path)
+    return total
+
+
+def branchy_phase(torch):
+    """Phase 16: 16a-16e, each one's seconds printed. Returns what the
+    kernels line takes."""
+    t0 = time.perf_counter()
+    seconds = {}
+
+    def lap(part):
+        seconds[part] = time.perf_counter() - t0 - sum(seconds.values())
+
+    conv_sums, _, conv_worst, _ = kernel_phase(torch, BRANCHY_CONVS,
+                                               "REGO-Net x4 (its new shapes)", scaled_bar=True)
+    wgrad = train_kernel_phase(torch, BRANCHY_WGRAD, BRANCHY_DGRAD,
+                               "REGO-Net x4 (its new shapes)")
+    wgrad_bf16 = wgrad_bf16_phase(torch, BRANCHY_WGRAD, "REGO-Net x4 (its new shapes)")
+    s8_pair = branchy_s8_phase(torch)
+    lap("16a")
+    served = {}
+    for name, dtype_name in (("TreeNet", "f32"), ("REGO-Net", "f32"), ("REGO-Net", "bf16")):
+        _, by_path, model = serve_phase(torch, dtype_name=dtype_name, model_name=name)
+        _add(served, by_path)
+        del model
+    forwards, forward_ms = branchy_forward_phase(torch)
+    lap("16b-c")
+    steps, step_ms = branchy_train_phase(torch)
+    lap("16d")
+    cli_conv = tree_cli_phase(torch)
+    lap("16e")
+    print("phase 16: %.1f s (%s)" % (time.perf_counter() - t0, ", ".join(
+        "%s %.1f s" % kv for kv in seconds.items())), flush=True)
+    conv = dict(served)
+    for part in (forwards["conv3x3"], cli_conv):
+        _add(conv, part)
+    return dict(conv_sums=conv_sums, conv_worst=conv_worst, wgrad=wgrad, wgrad_bf16=wgrad_bf16,
+                s8_pair=s8_pair, conv=conv, s8=forwards["s8"], forward_ms=forward_ms,
+                steps=steps, step_ms=step_ms)
+
+
 def print_sass_mix(build):
     """The instruction mix of each tensor-core and narrow kernel in the
     built libraries (cuobjdump -sass): ldmatrix, tensor-core products,
@@ -4908,6 +5403,12 @@ def main() -> int:
     for run in msrr["steps"]:
         _add(dw_by_entry, run["dw"])
     dw_main = msrr["dw_main"]
+    torch.cuda.empty_cache()
+    branchy = branchy_phase(torch)
+    trained.extend(branchy["steps"])
+    family_conv = dict(msrr_conv)  # phases 15's and 16's counted runs
+    _add(family_conv, branchy["conv"])
+    _add(s8_by_entry, branchy["s8"])
 
     kernels = [{
         "name": "conv3x3_bias_act",
@@ -4916,9 +5417,9 @@ def main() -> int:
         "replaces": "larvanet_tpu/ops/pallas_conv.py:61",
         "launches": launches + sum(sum(run[k].values()) for run in trained
                                    for k in ("forward", "dgrad"))
-        + sum(full_frame["conv3x3"].values()) + sum(msrr_conv.values()),
+        + sum(full_frame["conv3x3"].values()) + sum(family_conv.values()),
         "launches_by_path": {p: by_path[p] + full_frame["conv3x3"].get(p, 0)
-                             + msrr_conv.get(p, 0)
+                             + family_conv.get(p, 0)
                              + sum(run["forward"][p] + run["dgrad"][p] for run in trained)
                              for p in by_path},
         "max_abs_err": worst["f32"],
@@ -4956,6 +5457,18 @@ def main() -> int:
         # forwards' ms by model and dtype
         "msrr": {"launches_by_path": msrr_conv, "epilogue_max_abs_err": msrr["epilogue"],
                  "forward_ms": msrr["forward_ms"], "train_step_ms": msrr["step_ms"]},
+        # phase 16 (TreeNet, the REGOs): 16a's new shapes summed over one
+        # REGO-Net x4 forward's launches of them (the RESBlocks' leaky conv1,
+        # SRrecon's 384 -> 48) per dtype with their largest error; the
+        # forwards' and steps' ms by model (16b-16d); the input gradients at
+        # 384 channels (16a); the phase's counted serving, forward and CLI
+        # launches by path (its counted steps are in the totals' train runs)
+        "branchy": {d: dict(branchy["conv_sums"][d], max_abs_err=branchy["conv_worst"][d])
+                    for d in ("f32", "bf16")},
+        "branchy_launches_by_path": branchy["conv"],
+        "branchy_forward_ms": branchy["forward_ms"],
+        "branchy_train_step_ms": branchy["step_ms"],
+        "branchy_dgrad": branchy["wgrad"][4],
     }, {
         "name": "conv3x3_wgrad",
         "route": "cuda",
@@ -4988,6 +5501,15 @@ def main() -> int:
                      launches_by_path=flags["bf16_step"]["bf16_wgrad"],
                      max_abs_err=flags["wgrad_bf16"][2], max_rel_err=flags["wgrad_bf16"][3],
                      shapes=flags["wgrad_bf16"][4]),
+        # phase 16a: the fuse's C = 384 weight gradients at batch 16 x 48x48,
+        # f32 (and the bf16 entry's), each shape's numbers
+        "branchy": {"f32": dict(branchy["wgrad"][0], bound_by=branchy["wgrad"][1],
+                                max_abs_err=branchy["wgrad"][2],
+                                max_rel_err=branchy["wgrad"][3], shapes=branchy["wgrad"][5]),
+                    "bf16": dict(branchy["wgrad_bf16"][0], bound_by=branchy["wgrad_bf16"][1],
+                                 max_abs_err=branchy["wgrad_bf16"][2],
+                                 max_rel_err=branchy["wgrad_bf16"][3],
+                                 shapes=branchy["wgrad_bf16"][4])},
     }]
     for m, line in ((2, 205), (4, 336)):
         wsums, werr = wino[m]
@@ -5042,6 +5564,12 @@ def main() -> int:
                        for k in ("int_mm_ms", "bf16_conv3x3_ms", "conv2d_bf16_ms")},
         # one LarvaNet 2x16 int8 forward's 33 pairs (48->48), bf16
         "larvanet": s8_sums["bf16"]["larvanet"],
+        # phase 16c's --int8_trunk forwards of TreeNet and REGO-Net (ms, bf16),
+        # and 16a's REGO pair (conv_a leaky, conv_b without a residual) summed
+        # over one REGO-Net int8 forward's 15 pairs, graph replays, by dtype
+        "branchy_int8_ms": {k: v["int8"] for k, v in branchy["forward_ms"].items()
+                            if "int8" in v},
+        "branchy": branchy["s8_pair"],
         "f32": dict(s8_sums["f32"], max_abs_err=s8_errs["f32"]),
         "shapes": s8_rows,
         # phase 11a's widths past one code halo (the chunked plan): the

@@ -251,8 +251,8 @@ def maybe_collapse_tail(model, args) -> None:
     buffers are not the intended +/-mean shifts keeps the module graph, as
     JAX's does. Other families: nothing to collapse (JAX's width-packed
     trunks are not ported)."""
-    from larvanet_tpu_torch.ops.collapsed_tail import (make_collapsed_edsr_forward,
-                                                        mean_shifts_intended)
+    from larvanet_tpu_torch.models.layers import mean_shifts_intended
+    from larvanet_tpu_torch.ops.collapsed_tail import make_collapsed_edsr_forward
 
     if not getattr(args, "collapsed_tail", 0):
         return
@@ -278,7 +278,7 @@ def scales_of(args) -> List[int]:
 
 def add_int8_trunk_flag(parser: argparse.ArgumentParser, help_tail: str = "") -> None:
     parser.add_argument("--int8_trunk", type=int, default=0,
-                        help="Opt-in W8A8 quantized trunk (EDSR/LarvaNet/MSRR families; "
+                        help="Opt-in W8A8 quantized trunk (EDSR/LarvaNet/MSRR/TreeNet/REGO; "
                              "NOT float-exact; the int8 forward runs in bf16 whatever "
                              "--serving_dtype says; even widths, odd ones take the "
                              "exact forward)." + help_tail)
@@ -290,6 +290,8 @@ INT8_BUILDERS = {
     ("edsr", "edsr_loss"): "make_int8_edsr_forward",
     ("LarvaNet", "LarvaLeg"): "make_int8_larvanet_forward",
     ("msrr", "dwsr"): "make_int8_msrr_forward",
+    ("REGO",): "make_int8_rego_forward",
+    ("TreeNet",): "make_int8_treenet_forward",
 }
 
 
@@ -302,8 +304,8 @@ def int8_and_exact_forwards(model, model_name: str, calib):
     in the serving dtype, through the collapsed tail for EDSR, as JAX's
     make_packed_edsr_forward is."""
     from larvanet_tpu_torch.ops import int8_forward
-    from larvanet_tpu_torch.ops.collapsed_tail import (make_collapsed_edsr_forward,
-                                                        mean_shifts_intended)
+    from larvanet_tpu_torch.models.layers import mean_shifts_intended
+    from larvanet_tpu_torch.ops.collapsed_tail import make_collapsed_edsr_forward
 
     for prefixes, maker in INT8_BUILDERS.items():
         if model_name in prefixes or model_name.startswith(prefixes):

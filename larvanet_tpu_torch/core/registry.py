@@ -4,9 +4,10 @@
 Plugins register under the reference's public names, so `--model=...` and
 `--dataloader=...` resolve as in the JAX package. Only the names this port
 has so far are registered: the models `edsr`, `edsr_loss`, the eleven
-LarvaNet-family presets and the ten of the MSRR family (`msrr`,
-`msrr_reduced` and its six ablations, `dwsr_reduced`, `msrr_test`); the loaders `div2k_train_loader`, `div2k_val_loader`,
-`div2k_train_loader_queue`, `combined_loader` and `basic_loader`.
+LarvaNet-family presets, the ten of the MSRR family (`msrr`,
+`msrr_reduced` and its six ablations, `dwsr_reduced`, `msrr_test`),
+`TreeNet`, `REGO-Net` and `REGO-serial`; the six loaders that
+data/loaders.py registers.
 """
 
 from __future__ import annotations

@@ -13,13 +13,17 @@ import collections
 import time
 
 
-def pipelined_upscale(model, items, scale, depth=2):
+def pipelined_upscale(model, items, scale, depth=2, dispatch=None):
     """Run `model`'s forward over `items`, (payload, CHW input image) pairs,
     with dispatch-ahead, quantizing each frame to uint8 on the device.
     Yields (payload, CHW uint8 output, seconds) in input order; `seconds`
     is the wall time between consecutive completions, so their sum is the
-    loop's wall time. depth <= 1 is the serial loop."""
+    loop's wall time. depth <= 1 is the serial loop. `dispatch(input_list)`,
+    returning the device's NHWC uint8 batch, replaces `model.upscale_device`
+    (validate_tree: TreeNet's per-branch forwards, pipeline.py:44-46)."""
     depth = max(1, int(depth))
+    if dispatch is None:
+        dispatch = lambda imgs: model.upscale_device(imgs, scale, uint8=True)  # noqa: E731
     pending = collections.deque()
     t_last = time.perf_counter()
 
@@ -32,7 +36,7 @@ def pipelined_upscale(model, items, scale, depth=2):
         return payload, out, dt
 
     for payload, img in items:
-        pending.append((payload, model.upscale_device([img], scale, uint8=True)))
+        pending.append((payload, dispatch([img])))
         if len(pending) >= depth:
             yield pull()
     while pending:

@@ -3,3 +3,5 @@
 from larvanet_tpu_torch.models import edsr  # noqa: F401
 from larvanet_tpu_torch.models import larvanet  # noqa: F401
 from larvanet_tpu_torch.models import msrr  # noqa: F401
+from larvanet_tpu_torch.models import rego  # noqa: F401
+from larvanet_tpu_torch.models import treenet  # noqa: F401

@@ -100,6 +100,26 @@ def add_qat_flag(parser) -> None:
                              "--int8_trunk serving costs ~0 dB. Even patch width.")
 
 
+def add_training_flags(parser) -> None:
+    """--packed_trunk, --lr_domain_loss, --qat and --remat of the families
+    whose training graph is a walk of conv pairs (JAX's packed mixins:
+    _add_packed_trunk_flag, add_lr_domain_flag and add_qat_flag,
+    base.py:57-108)."""
+    parser.add_argument("--packed_trunk", type=int, default=None,
+                        help="The JAX package's width-packed trunk (an exact "
+                             "reparametrisation the port does not run). Unset is JAX's 1; "
+                             "0 trains the module graph, as JAX does.")
+    parser.add_argument("--lr_domain_loss", type=int, default=1,
+                        help="With --packed_trunk (unset: on): compute the training L1 "
+                             "loss PRE-SHUFFLE in the LR domain (targets pixel-unshuffled "
+                             "instead; identical per-element grads). 0 = HR-domain loss.")
+    add_qat_flag(parser)
+    parser.add_argument("--remat", type=int, default=0,
+                        help="Recompute each conv pair's activations in the backward "
+                             "(torch.utils.checkpoint): a step's peak memory holds one "
+                             "pair's, the same gradients.")
+
+
 def qat_requested(model) -> bool:
     """True when the model was configured with --qat 1 (base.py:87-90)."""
     return bool(getattr(getattr(model, "args", None), "qat", 0))

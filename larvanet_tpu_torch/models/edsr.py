@@ -61,7 +61,7 @@ from larvanet_tpu_torch.models.base import (SRModel, StepDecayMixin, add_qat_fla
                                             qat_requested, remat_requested)
 from larvanet_tpu_torch.train.losses import robust_sqrt_loss
 from larvanet_tpu_torch.models.layers import (Conv3x3, MeanShift, ResBlock,
-                                              UpsampleBlock, exact_pair)
+                                              UpsampleBlock, exact_pair, mean_shifts_intended)
 
 
 class EDSRModule(nn.Module):
@@ -170,8 +170,6 @@ class EDSR(StepDecayMixin, SRModel):
         is JAX's 1), --collapsed_tail_train 1 and the intended mean
         shifts; the LR-domain loss needs the collapsed tail and
         --lr_domain_loss 1."""
-        from larvanet_tpu_torch.ops.collapsed_tail import mean_shifts_intended
-
         a = self.args
         if (getattr(a, "packed_trunk", None) == 0 or not getattr(a, "collapsed_tail_train", 0)
                 or not mean_shifts_intended(self.module)):

@@ -72,12 +72,29 @@ class MeanShift(nn.Module):
 
     def __init__(self, sign: float):
         super().__init__()
+        self.sign = sign
         self.register_buffer("weight", torch.eye(3).reshape(3, 3, 1, 1))
         self.register_buffer("bias", sign * torch.tensor(DIV2K_RGB_MEAN))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         # in x's dtype: a bf16 train step shifts in bf16, as JAX's does
         return x @ self.weight.reshape(3, 3).t().to(x.dtype) + self.bias.to(x.dtype)
+
+    def intended(self) -> bool:
+        """Whether M and b are still the intended shift (M = I, b = sign x
+        DIV2K mean). A restored reference checkpoint may carry a trained,
+        non-identity affine: then the graphs that bake the intended shift
+        (EDSR's collapsed tail, REGO's int8 forward) are not taken
+        (larvanet_tpu/models/base.py:808-839, ops/fastpath.py:76-84)."""
+        return (torch.equal(self.weight.detach().float().cpu(), torch.eye(3).reshape(3, 3, 1, 1))
+                and torch.equal(self.bias.detach().float().cpu(),
+                                self.sign * torch.tensor(DIV2K_RGB_MEAN)))
+
+
+def mean_shifts_intended(module) -> bool:
+    """Whether both of EDSR's MeanShifts (`mean_shift`, `mean_inverse_shift`)
+    are the intended +/-mean shifts (`MeanShift.intended`)."""
+    return module.mean_shift.intended() and module.mean_inverse_shift.intended()
 
 
 class Conv3x3(nn.Module):
@@ -146,14 +163,16 @@ def exact_pair(idx: int, hin: torch.Tensor, conv1: nn.Module, conv2: nn.Module,
                kind: str = "res", res_weight: float = 1.0) -> torch.Tensor:
     """A conv pair as the modules run it: conv1 (its act fused), conv2,
     times res_weight when it is not 1, plus hin for kind 'res' ('none': no
-    skip). The default `pair` of the family walks (EDSRModule.forward,
-    LarvaNetModule.walk), which hand every ResBlock and leg pair to a pair
-    runner with its index `idx` (unused here): the fused Winograd route,
-    the int8 calibration and replay, QAT (ops/wino_resblock.py,
-    ops/pairs.py)."""
+    skip; 'both': the pair (t, hin + t), REGO's RESBlock). The default
+    `pair` of the family walks (EDSRModule.forward, LarvaNetModule.walk,
+    ...), which hand every ResBlock and leg pair to a pair runner with its
+    index `idx` (unused here): the fused Winograd route, the int8
+    calibration and replay, QAT (ops/wino_resblock.py, ops/pairs.py)."""
     t = conv2(conv1(hin))
     if res_weight != 1.0:
         t = t * res_weight
+    if kind == "both":
+        return t, hin + t
     return hin + t if kind == "res" else t
 
 

@@ -58,7 +58,7 @@ from torch import nn
 
 from larvanet_tpu_torch.core.config import parse_known
 from larvanet_tpu_torch.core.registry import register_model
-from larvanet_tpu_torch.models.base import (SRModel, StepDecayMixin, add_qat_flag,
+from larvanet_tpu_torch.models.base import (SRModel, StepDecayMixin, add_training_flags,
                                             qat_requested, remat_requested)
 from larvanet_tpu_torch.models.layers import (Conv3x3, ConvPairResBlock,
                                               DepthwiseSeparableResBlock, MeanShift, ResBlock,
@@ -193,25 +193,6 @@ class MSRRTestModule(nn.Module):
         return h + interpolated_base(x, 4, "bilinear")
 
 
-def _add_training_flags(parser) -> None:
-    """--packed_trunk, --lr_domain_loss, --qat and --remat (_add_packed_trunk_flag,
-    msrr.py:240-247, and add_qat_flag, base.py:55-84)."""
-    parser.add_argument("--packed_trunk", type=int, default=None,
-                        help="The JAX package's width-packed trunk (an exact "
-                             "reparametrisation the port does not run). Unset is JAX's 1; "
-                             "0 trains the module graph, as JAX does.")
-    parser.add_argument("--lr_domain_loss", type=int, default=1,
-                        help="With --packed_trunk (unset: on): compute msrr_reduced's "
-                             "training L1 loss PRE-SHUFFLE in the LR domain (targets "
-                             "pixel-unshuffled instead; identical per-element grads). "
-                             "0 = HR-domain loss.")
-    add_qat_flag(parser)
-    parser.add_argument("--remat", type=int, default=0,
-                        help="Recompute each ResBlock pair's activations in the "
-                             "backward (torch.utils.checkpoint): a step's peak memory "
-                             "holds one pair's, the same gradients.")
-
-
 def _add_step_decay_flags(parser) -> None:
     parser.add_argument("--learning_rate", type=float, default=1e-4,
                         help="Initial learning rate.")
@@ -266,7 +247,7 @@ class MSRR(_MSRRFamily):
         parser.add_argument("--res_weight", type=float, default=1.0,
                             help="The scaling factor.")
         _add_step_decay_flags(parser)
-        _add_training_flags(parser)
+        add_training_flags(parser)
         self.args, remaining = parse_known(parser, args)
         return self.args, remaining
 
@@ -307,7 +288,7 @@ class _ReducedStepwise(_MSRRFamily):
             parser.add_argument("--slope", type=float, default=0.1,
                                 help="Slope of LeakyReLU function.")
         _add_step_decay_flags(parser)
-        _add_training_flags(parser)
+        add_training_flags(parser)
         self.args, remaining = parse_known(parser, args)
         return self.args, remaining
 
@@ -357,7 +338,7 @@ class MSRRTest(_ReducedStepwise):
         parser.add_argument("--num_blocks", type=int, default=16)
         parser.add_argument("--res_weight", type=float, default=1.0)
         _add_step_decay_flags(parser)
-        _add_training_flags(parser)
+        add_training_flags(parser)
         self.args, remaining = parse_known(parser, args)
         return self.args, remaining
 
@@ -400,7 +381,7 @@ class MSRRReduced(PlateauVolumeMixin, _ReducedStepwise):
                             help="patience for lr scheduler")
         parser.add_argument("--cooldown", type=int, default=6,
                             help="cooldown for lr scheduler")
-        _add_training_flags(parser)
+        add_training_flags(parser)
         self.args, remaining = parse_known(parser, args)
         return self.args, remaining
 

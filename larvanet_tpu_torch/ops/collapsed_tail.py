@@ -55,7 +55,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from larvanet_tpu_torch.models.layers import DIV2K_RGB_MEAN, Conv3x3, interpolated_base
+from larvanet_tpu_torch.models.layers import Conv3x3, interpolated_base, mean_shifts_intended
 from larvanet_tpu_torch.ops.conv3x3 import conv3x3_op
 from larvanet_tpu_torch.ops.conv_kxk import ConvGroup, conv_kxk_group, conv_kxk_op
 from larvanet_tpu_torch.ops.pixel_shuffle import pixel_shuffle, pixel_unshuffle
@@ -351,21 +351,6 @@ def edsr_tail_fn(module) -> TailFn:
 
 def upsample_convs(module):
     return [m for m in module.upsample.body if isinstance(m, Conv3x3)]
-
-
-def mean_shifts_intended(module) -> bool:
-    """Whether the module's MeanShift buffers are the intended +/-mean
-    shifts (identity matrix, bias = sign x DIV2K mean). A restored
-    reference checkpoint may carry trained, non-identity affines: then the
-    collapsed graphs, which bake the intended shifts, are not taken
-    (larvanet_tpu/models/base.py:808-839, ops/fastpath.py:76-84)."""
-    mean = torch.tensor(DIV2K_RGB_MEAN)
-    eye = torch.eye(3).reshape(3, 3, 1, 1)
-    for shift, sign in ((module.mean_shift, 1.0), (module.mean_inverse_shift, -1.0)):
-        if not (torch.equal(shift.weight.detach().float().cpu(), eye)
-                and torch.equal(shift.bias.detach().float().cpu(), sign * mean)):
-            return False
-    return True
 
 
 def _tail_key(module) -> tuple:

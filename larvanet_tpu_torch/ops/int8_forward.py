@@ -1,10 +1,13 @@
-"""The W8A8 int8 forwards of EDSR, the LarvaNet family and the MSRR family.
+"""The W8A8 int8 forwards of EDSR, the LarvaNet family, the MSRR family,
+TreeNet and the REGOs.
 
 Counterparts of `make_int8_edsr_forward` (larvanet_tpu/ops/packed/edsr.py:
-114), `make_int8_larvanet_forward` (ops/packed/larvanet.py:187) and
-`make_int8_msrr_forward` (ops/packed/msrr.py:137-147). Each
+114), `make_int8_larvanet_forward` (ops/packed/larvanet.py:187),
+`make_int8_msrr_forward` (ops/packed/msrr.py:137-147) and
+`make_int8_treenet_forward` / `make_int8_rego_forward`
+(ops/packed/branchy.py:87-101, :277-290). Each
 runs its module's own walk (EDSRModule.forward, LarvaNetModule.walk, the
-MSRR modules' walk) with
+MSRR, TreeNet and REGO modules' walk) with
 every conv pair handed to a pair runner (ops/pairs.py), with JAX's pair
 indices: the body blocks in execution order, then the serving leg. The int8
 forward calibrates once over a batch with the exact pair in `dtype` and
@@ -95,3 +98,29 @@ def make_int8_msrr_forward(model, calib_batch, dtype: torch.dtype = torch.bfloat
              for b in blocks]
     module = _module_in(model, dtype)
     return make_int8(model, calib_batch, dtype, lambda x, pair: module.walk(x, pair), pairs)
+
+
+def make_int8_treenet_forward(model, calib_batch, dtype: torch.dtype = torch.bfloat16):
+    """W8A8 TreeNet inference of branch 0, the reference's inference branch
+    (branchy.py:87-101): the common blocks' pairs, then branch 0's, int8;
+    the head (its LeakyReLU fused), the shuffle, the base and the residual
+    stream exact in `dtype`."""
+    module = _module_in(model, dtype)
+    return make_int8(model, calib_batch, dtype, lambda x, pair: module.walk(x, pair),
+                     model.module.pairs())
+
+
+def make_int8_rego_forward(model, calib_batch, dtype: torch.dtype = torch.bfloat16):
+    """W8A8 REGO-Net / REGO-serial inference (branchy.py:277-290): every
+    RESBlock pair of the wavefront int8 in the walk's order, 'both'-kind
+    (conv_b without the skip, then (t, hin + t)), its LeakyReLU(0.1) inside
+    conv_a; the mean shift, the head, the fuse and SRrecon convs (C = 384),
+    the shuffle and the base exact in `dtype`. A module whose mean shift is
+    not the intended +mean (a trained reference checkpoint) has no int8
+    path: JAX's forward bakes the intended shift (Int8Unsupported)."""
+    if not model.module.mean_shift.intended():
+        raise Int8Unsupported("the checkpoint carries a trained (non-identity) MeanShift "
+                              "affine, which the int8 forward does not take")
+    module = _module_in(model, dtype)
+    return make_int8(model, calib_batch, dtype, lambda x, pair: module.walk(x, pair),
+                     model.module.pairs())

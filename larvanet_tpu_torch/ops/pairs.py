@@ -5,9 +5,10 @@ The port's counterpart of larvanet_tpu/ops/packed/pairs.py. A family walk
 conv2, kind=..., res_weight=...)` for each conv pair, conv1 and conv2 the
 pair's `Conv3x3` modules (conv1's fused activation is the pair's act); the
 runner decides the arithmetic (the walks' default, models/layers.exact_pair,
-runs the modules). kind: 'res' (conv-act-conv + skip add) or 'none' (no
-skip). JAX runs its pairs on a width-packed layout; the port keeps NHWC, and
-both give the same integers: a packed weight column holds every original
+runs the modules). kind: 'res' (conv-act-conv + skip add), 'none' (no
+skip) or 'both' (the pair (t, hin + t), REGO's RESBlock). JAX runs its
+pairs on a width-packed layout; the port keeps NHWC, and both give the
+same integers: a packed weight column holds every original
 tap of its channel, so the per-channel weight scales are the same, and the
 packed grid1 mask is the SAME conv's zero padding.
 
@@ -50,11 +51,14 @@ def _hwio(conv) -> torch.Tensor:
     return conv.weight.permute(2, 3, 1, 0)
 
 
-def _finish(hin: torch.Tensor, t: torch.Tensor, kind: str, res_weight: float) -> torch.Tensor:
+def _finish(hin: torch.Tensor, t: torch.Tensor, kind: str, res_weight: float):
     """t times res_weight (rounded to t's dtype first, as JAX's weak-typed
-    scalar is) when it is not 1, plus hin for kind 'res'."""
+    scalar is) when it is not 1, plus hin for kind 'res'; (t, hin + t) for
+    kind 'both'."""
     if res_weight != 1.0:
         t = t * torch.tensor(res_weight, dtype=t.dtype, device=t.device)
+    if kind == "both":
+        return t, hin + t
     return hin + t if kind == "res" else t
 
 
@@ -116,10 +120,13 @@ def int8_pair(q: QuantPair, hin: torch.Tensor, kind: str = "res",
               res_weight: float = 1.0):
     """The W8A8 pair on the conv3x3_s8 kernel (plain version on the CPU):
     conv_a quantizes hin with s_in and requantizes act(conv + bias) with
-    s_mid; conv_b dequantizes, scales and adds the skip in hin's dtype."""
+    s_mid; conv_b dequantizes, scales and adds the skip in hin's dtype.
+    Kind 'both' (pair_int8, pairs.py:249-253): conv_b without the skip,
+    then (t, hin + t), the add in hin's dtype."""
     tq = s8.conv_a(hin, q.a, q.s_in, q.s_mid, q.act, q.slope)
-    return s8.conv_b(tq, q.b, hin.dtype, res=hin if kind == "res" else None,
-                     res_weight=res_weight)
+    t = s8.conv_b(tq, q.b, hin.dtype, res=hin if kind == "res" else None,
+                  res_weight=res_weight)
+    return (t, hin + t) if kind == "both" else t
 
 
 @dataclass
@@ -245,7 +252,8 @@ def qat_pair(dtype: torch.dtype = torch.float32) -> Callable:
 
 def remat_pair(pair: Callable) -> Callable:
     """`pair` with its activations recomputed in the backward (remat_pair,
-    larvanet_tpu/ops/packed/pairs.py:117-136)."""
+    larvanet_tpu/ops/packed/pairs.py:117-136); a 'both' pair's two outputs
+    come back as the checkpointed function's tuple."""
     from torch.utils.checkpoint import checkpoint
 
     def wrapped(idx, hin, conv1, conv2, kind="res", res_weight=1.0):

@@ -3,8 +3,8 @@
 The port's modules use the reference PyTorch repo's state_dict keys, the
 ones larvanet_tpu/utils/torch_convert.export_state_dict writes
 (torch_convert.py:448-503,702-757). This module is the port's own copy
-of that export for the families it has (EDSR, the LarvaNet family and the
-MSRR family),
+of that export for the families it has (EDSR, the LarvaNet family, the
+MSRR family, TreeNet and the REGOs),
 so the tests can carry JAX parameters (nested dicts of numpy arrays)
 into a port module without the port importing the JAX package.
 """
@@ -104,6 +104,39 @@ def _exp_dwsr(path: str) -> str:
     raise KeyError(path)
 
 
+def _exp_treenet(path: str) -> str:
+    """TreeNet (torch_convert.py:528-538): the reference's common_parts
+    Sequential (conv, LeakyReLU, ResBlocks) and one Sequential per branch."""
+    if path == "first_conv":
+        return "common_parts.0"
+    m = re.match(r"common_block_(\d+)/conv([12])$", path)
+    if m:
+        return "common_parts.2.%s.body.%d" % (m.group(1), 0 if m.group(2) == "1" else 2)
+    m = re.match(r"branch_(\d+)_block_(\d+)/conv([12])$", path)
+    if m:
+        return "branch_%s.%s.body.%d" % (
+            m.group(1), m.group(2), 0 if m.group(3) == "1" else 2)
+    raise KeyError(path)
+
+
+def _make_exp_rego(serial: bool):
+    """REGO-Net / REGO-serial (torch_convert.py:591-607): REGO-Net's blocks
+    carry no repeat index (JAX's is always 0), REGO-serial's do."""
+    def rule(path: str) -> str:
+        m = re.match(r"RESB_(\d+)_(\d+)_(\d+)/conv([12])$", path)
+        if m:
+            body = 0 if m.group(4) == "1" else 2
+            if serial:
+                return "RESB_%s_%s_%s.body.%d" % (m.group(1), m.group(2), m.group(3), body)
+            return "RESB_%s_%s.body.%d" % (m.group(2), m.group(3), body)
+        if re.match(r"conv_(\d+)$", path) or path == "feature_extraction":
+            return path
+        if path == "SRrecon":
+            return "SRrecon.body.0"
+        raise KeyError(path)
+    return rule
+
+
 LARVANET_NAMES = ("LarvaNet", "LarvaNetV2", "LarvaLeg", "LarvaLegV2", "LarvaNet_0c",
                   "LarvaNet_1c", "LarvaNet_4c", "LarvaNet_skip", "LarvaNet_res",
                   "LarvaNet_w64", "LarvaLeg_w64")
@@ -113,11 +146,14 @@ MSRR_REDUCED_NAMES = ("msrr_reduced", "msrr_reduced_def_init", "msrr_reduced_NI"
 EXPORT_RULES = {"edsr": _exp_edsr, "edsr_loss": _exp_edsr,
                 **{name: _exp_larvanet for name in LARVANET_NAMES},
                 "msrr": _exp_msrr, "msrr_test": _exp_msrr_test, "dwsr_reduced": _exp_dwsr,
-                **{name: _exp_msrr_reduced for name in MSRR_REDUCED_NAMES}}
+                **{name: _exp_msrr_reduced for name in MSRR_REDUCED_NAMES},
+                "TreeNet": _exp_treenet, "REGO-Net": _make_exp_rego(serial=False),
+                "REGO-serial": _make_exp_rego(serial=True)}
 # the state dicts with both MeanShifts (torch_convert.py:703-704; MSRR's are
 # dead in its forward but in the reference's state dict; the LarvaNet family
-# has none)
+# and TreeNet have none) and with the forward one only (the REGOs, :705)
 _MEANSHIFT_BOTH = {"edsr", "edsr_loss", "msrr", "msrr_reduced_meanshift"}
+_MEANSHIFT_FWD_ONLY = {"REGO-Net", "REGO-serial"}
 
 
 def _inv_conv(leaves) -> Dict[str, np.ndarray]:
@@ -131,11 +167,15 @@ def _inv_conv(leaves) -> Dict[str, np.ndarray]:
 
 def _meanshift_entries(model_name: str) -> Dict[str, np.ndarray]:
     """The intended identity + (+/-)mean shifts."""
-    out = {}
+    shifts = []
     if model_name in _MEANSHIFT_BOTH:
-        for name, sign in (("mean_shift", 1.0), ("mean_inverse_shift", -1.0)):
-            out[name + ".weight"] = np.eye(3, dtype=np.float32).reshape(3, 3, 1, 1)
-            out[name + ".bias"] = sign * np.asarray(_RGB_MEAN, dtype=np.float32)
+        shifts = [("mean_shift", 1.0), ("mean_inverse_shift", -1.0)]
+    elif model_name in _MEANSHIFT_FWD_ONLY:
+        shifts = [("mean_shift", 1.0)]
+    out = {}
+    for name, sign in shifts:
+        out[name + ".weight"] = np.eye(3, dtype=np.float32).reshape(3, 3, 1, 1)
+        out[name + ".bias"] = sign * np.asarray(_RGB_MEAN, dtype=np.float32)
     return out
 
 

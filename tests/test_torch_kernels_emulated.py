@@ -241,3 +241,50 @@ def test_conv3x3_dgrad_shapes_match_plain_version(conv_lib, shape, f, path):
     print("emulated conv3x3 dgrad %s %s->%d: max|d| %.3g" % (path, shape, f, err))
     assert torch.isfinite(got).all() and err <= F32_ATOL["conv"]
 
+
+
+@pytest.mark.parametrize("dname", ["f32", "bf16"])
+@pytest.mark.parametrize("shape,f,act", [
+    ((1, 3, 5, 384), 48, None),          # REGO's SRrecon 384 -> 48: six channel chunks
+    ((1, 3, 5, 384), 64, None),          # REGO-serial's merge conv_0, 384 -> 64
+    ((1, 5, 7, 64), 64, "leaky_relu"),   # the RESBlock's conv1 with LeakyReLU(0.1)
+])
+def test_conv3x3_branchy_shapes_match_plain_version(conv_lib, shape, f, act, dname):
+    """The REGO family's conv shapes on the tensor-core path in both dtypes:
+    the fuse's C = 384 (six 64-channel chunks) into F = 48 and 64, and
+    64 -> 64 with leaky_relu at the default slope 0.1 (the f32 cases at C =
+    384 take the stand-in ~7-10 s each: three products an mma)."""
+    dtype = DTYPES[dname]
+    assert conv3x3.path_for(shape[3], f, dtype) == "tensor_core"
+    rng = np.random.default_rng(sum(shape) + f + 384)
+    x = _t(rng.standard_normal(shape)).to(dtype)
+    k = _t(0.05 * rng.standard_normal((3, 3, shape[3], f)))
+    b = _t(rng.standard_normal(f))
+    fn = conv3x3.bind(conv_lib, dtype, "tensor_core")
+    got = conv3x3._run(fn, x, k, b, act, None, "tensor_core")
+    want = conv3x3.conv3x3_bias_act_reference(x, k, b, act)
+    assert got.shape == want.shape and got.dtype == want.dtype
+    diff = (got.float() - want.float()).abs()
+    print("emulated conv3x3 tensor_core %s %s->%d %s: max|d| %.3g"
+          % (dname, shape, f, act, float(diff.max())))
+    assert torch.isfinite(got.float()).all()
+    if dname == "f32":
+        assert float(diff.max()) <= F32_ATOL["conv"]
+    else:
+        assert bool((diff <= BF16_ATOL + BF16_RTOL * want.float().abs()).all())
+
+
+def test_conv3x3_dgrad_of_the_384_channel_fuse_matches_plain_version(conv_lib):
+    """The input gradient of REGO's SRrecon (384 -> 48): a 48 -> 384 conv of
+    the output gradient on the f32 tensor-core entry, six F tiles of 64."""
+    shape, f = (1, 4, 6, 48), 384
+    assert conv3x3.path_for(shape[3], f, torch.float32) == "tensor_core"
+    rng = np.random.default_rng(48384)
+    g = _t(rng.standard_normal(shape))
+    k = conv3x3.dgrad_kernel(_t(0.05 * rng.standard_normal((3, 3, f, shape[3]))))
+    fn = conv3x3.bind(conv_lib, torch.float32, "tensor_core")
+    got = conv3x3._run(fn, g, k, torch.zeros(f), None, None, "tensor_core", cache=False)
+    want = conv3x3.conv3x3_bias_act_reference(g, k, torch.zeros(f), None)
+    err = float((got - want).abs().max())
+    print("emulated conv3x3 dgrad tensor_core %s->%d: max|d| %.3g" % (shape, f, err))
+    assert torch.isfinite(got).all() and err <= F32_ATOL["conv"]

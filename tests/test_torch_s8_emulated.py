@@ -222,3 +222,28 @@ def test_conv3x3_s8_wrapper_refuses_what_the_entry_cannot_take(case):
         wt.scale = wt.scale[:8]
         with pytest.raises(ValueError, match="scale and bias"):
             s8._check(x, wt, (torch.float32, torch.bfloat16), "conv_a")
+
+
+@pytest.mark.parametrize("dname", ["f32", "bf16"])
+def test_conv3x3_s8_rego_pair_entries_match_plain_version_bit_for_bit(s8_lib, dname):
+    """REGO's RESBlock W8A8 pair at 64 -> 64: conv_a with leaky_relu at the
+    default slope 0.1, and conv_b without a residual at res_weight 0.1 (the
+    'both' pair adds hin + t outside the kernel), each bit for bit."""
+    c, f, hw = 64, 64, (2, 5, 19)
+    rng = np.random.default_rng(6464)
+    dtype = DTYPES[dname]
+    s_in = 0.25
+    hin = _t(rng.integers(-300, 300, hw + (c,)) / 8.0).to(dtype)
+    wt = _s8_weight(rng, c, f, s_in, dtype)
+    t = s8._dequant(s8.conv_codes_reference(s8.quantize(hin, s_in), wt.codes), wt, dtype)
+    assert float((t < 0).float().mean()) > 0.2  # the leaky side is taken
+    s_mid = float(t.float().abs().max()) * 0.8 / 127.0
+    got = s8._run_a(s8.bind(s8_lib, "conv_a", dtype), hin, wt, s_in, s_mid, "leaky_relu", None,
+                    0.1)
+    want = s8.conv_a_reference(hin, wt, s_in, s_mid, "leaky_relu", 0.1)
+    assert torch.equal(got, want)
+    wb = _s8_weight(rng, f, f, s_mid, dtype)
+    got = s8._run_b(s8.bind(s8_lib, "conv_b", dtype), want, wb, dtype, None, 0.1, None)
+    want_b = s8.conv_b_reference(want, wb, dtype, None, 0.1)
+    bits = torch.int16 if dname == "bf16" else torch.int32
+    assert torch.equal(got.view(bits), want_b.view(bits))

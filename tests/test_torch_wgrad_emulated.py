@@ -167,3 +167,11 @@ def test_conv3x3_wgrad_tiled_entry_refuses_what_it_cannot_take(wgrad_lib, path, 
     fn = wg.bind(wgrad_lib, path)
     with pytest.raises(RuntimeError, match="CUDA error 1$"):
         wg._run(fn, x, g, splits, chunk, None)
+
+
+@pytest.mark.parametrize("path,dtype", [("tensor_core", torch.float32),
+                                        ("tensor_core_bf16", torch.bfloat16)])
+def test_conv3x3_wgrad_of_the_384_channel_fuse_matches_plain_version(wgrad_lib, path, dtype):
+    """The weight gradient of REGO's SRrecon, C = 384 (six channel chunks of
+    64) -> F = 48, on one pixel tile."""
+    _wgrad_case(wgrad_lib, path, (1, 5, 7, 384), 48, 1, dtype)
