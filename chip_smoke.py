@@ -6,9 +6,10 @@
 It drives the port's main paths on the card, serving and validating
 EDSR-baseline x4 and the LarvaNet family (the flagship LarvaNet 2x16, and
 LarvaNet_w64 on the fused ResBlocks) and training EDSR-baseline x4 and the
-flagship, then serving, running and training the MSRR family (phase 15)
-and TreeNet, REGO-Net and REGO-serial (phase 16), and fails (exit code !=
-0, no result line) if any phase fails.
+flagship, then serving, running and training the MSRR family (phase 15),
+TreeNet, REGO-Net and REGO-serial (phase 16) and the EBRN and HRSR
+families (phase 17), and fails (exit code != 0, no result line) if any
+phase fails.
 EDSR serves on its default route, the collapsed linear tail
 (ops/collapsed_tail.py: the trunk's 34 convs on conv3x3, the tail as one
 5x5 conv, 4 side and 4 corner operators on conv_kxk; the CLIs make the
@@ -306,6 +307,36 @@ on the default, collapsed route:
     --remat 1 --lr_domain_loss 1 (bit for bit with --remat 0, 60
     recomputed convs). 16e: validate_tree --pipeline_depth 1 and 2 (equal
     PSNRs) and state_dict_tree on phase 6's set, counted.
+ 17. The EBRN and HRSR families (after phase 16), x4 at full width, random
+    weights from SEED, each residual over its base (the bilinear base, or
+    ebrn's and ebrn_rm's inverse mean shift, the output then centred at
+    mid-grey) fitted to a std of 30 (fit_sr_residual). 17a: conv3x3 at the
+    shapes they bring, as phase 3 with 14a's scaled f32 bar: full EBRN's
+    (EBRN_CONVS at one 192x192 LR tile, EBRN_LR: fe0 3 -> 256 and recon 640
+    -> 3 on the CUDA cores, fe1 256 -> 64, the 64 -> 64 convs at the LR and
+    HR size), ebrn_rm's upsample 640 -> 48 (ten channel chunks) and hrsr's
+    3-channel HR convs at 4 x 192x192; the recon's 640 -> 3 weight gradient
+    (narrow) and fe0's 3 -> 256 (CUDA cores), the 3 -> 640 and 48 -> 640
+    input gradients at 16 x 48x48, as phase 8's kernel half; ebrn_rm's s8
+    pair (conv_a with leaky_relu(0.05), conv_b without a residual) bit for
+    bit, graph replays. 17b: ebrn_rm in f32 and bf16, ebrn, hrsr and
+    hrsr_c3 in f32 served through the HTTP server (phase 4's checks); the
+    forwards of ebrn_rm, hrsr and hrsr_c3 on the 4 x 192x192 batch in f32
+    and bf16 and of full EBRN at EBRN_LR in f32 (it serves its f32 module
+    under --serving_dtype bf16, as JAX does): counted (SR_MODELS: 31, 70,
+    18, 65 conv3x3 launches), held against the plain versions relative to
+    the residual, timed with their device split, full EBRN's 19 library
+    projections replayed apart (projection_ms). 17c: the --int8_trunk route
+    of ebrn_rm (20 s8 + 11 conv3x3), hrsr (8 + 10) and hrsr_c3 (64 + 1),
+    held to 11b's bar, timed. 17d: ebrn_rm (its LR-domain route), full EBRN
+    and hrsr_c3 --qat 1 train steps at batch 16 x 48x48 f32 (gradients
+    against the plain dgrad and wgrad, counted: SR_TRAIN, timed with the
+    split); train on ebrn_rm for SR_CLI_STEPS steps; train_schedule on hrsr
+    (an epoch of one step, validation every 2: the plateau steps at 2, 4 and
+    6 and halves the lr at 6), resumed from its step-2 checkpoint to the
+    same validations and weights, bit for bit. 17e: validate (hrsr),
+    get_sr (ebrn_rm), test (hrsr_c3) and runtime (full EBRN at 339x510),
+    counted.
  12. (last) prints the kernels JSON line, the nvidia-smi line, then the
     result line {"ok": true, "device": {...}}.
 
@@ -362,7 +393,12 @@ and under "branchy_launches_by_path"; 16a's new shapes under "branchy",
 the input gradients under "branchy_dgrad", the forwards' and steps' ms),
 the conv3x3_wgrad line (16d's steps; the 384-channel shapes under
 "branchy") and the conv3x3_s8 line (16c's forwards, their ms under
-"branchy_int8_ms").
+"branchy_int8_ms"). Phase 17's do the same under "ebrn_hrsr" (its new
+conv shapes per model and dtype), "ebrn_hrsr_launches_by_path",
+"ebrn_hrsr_dgrad", "ebrn_hrsr_forward_ms" and "ebrn_hrsr_train_step_ms"
+in the conv3x3 line, "ebrn_hrsr" (the 640 -> 3 and 3 -> 256 shapes) in the
+conv3x3_wgrad line, "ebrn_hrsr" (ebrn_rm's pair) and "ebrn_hrsr_int8_ms"
+in the conv3x3_s8 line.
 """
 
 from __future__ import annotations
@@ -669,6 +705,10 @@ INT8_LAUNCHES = {"edsr": ({"conv_a": 16, "conv_b": 16},
                               {"cuda_core": 1, "tensor_core": 0, "narrow": 0})}
 INT8_FWD_PSNR_DB = 55.0
 QAT_STEPS = 3
+# the profiled calls of the family phases' train-step splits (15d, 16d, 17d;
+# phases 8, 8b, 13 and 14 take TIMED_REPS): the profiler's host cost on a
+# host-bound step (QAT: ~2.5 s a profiled call) is the phases' largest part
+SPLIT_REPS = 3
 
 
 
@@ -734,14 +774,17 @@ def _conv_ok(torch, got, want, dname, f32_atol=F32_ATOL):
     return ok and bool(torch.isfinite(got).all()), float(diff.max())
 
 
-def kernel_phase(torch, convs=X4_CONVS, label="EDSR-baseline x4", scaled_bar=False):
-    """Phase 3 over `convs` (X4_CONVS, LARVANET_CONVS or 16a's
-    BRANCHY_CONVS), whose launch counts are per forward of `label`. With
-    `scaled_bar` (16a) the f32 bar grows with the products a value sums, as
-    phase 14a's (F32_ATOL x 9 C / KXK_F32_TERMS, at least F32_ATOL): the
-    fuse's C = 384 sums six times phase 3's. Returns ({dtype: per-forward
-    sums at the LR batch}, {dtype: the same over the tensor-core convs},
-    {dtype: worst error}, {dtype: the narrow path's numbers by geometry})."""
+def kernel_phase(torch, convs=X4_CONVS, label="EDSR-baseline x4", scaled_bar=False,
+                 geometries=(LR_BATCH, RAGGED)):
+    """Phase 3 over `convs` (X4_CONVS, LARVANET_CONVS, 16a's BRANCHY_CONVS or
+    17a's), whose launch counts are per forward of `label`. With
+    `scaled_bar` (16a, 17a) the f32 bar grows with the products a value
+    sums, as phase 14a's (F32_ATOL x 9 C / KXK_F32_TERMS, at least
+    F32_ATOL): the fuse's C = 384 sums six times phase 3's. `geometries`:
+    the (N, H, W) LR geometries, the first the one the per-forward sums are
+    taken at. Returns ({dtype: per-forward sums at the first geometry},
+    {dtype: the same over the tensor-core convs}, {dtype: worst error},
+    {dtype: the narrow path's numbers by geometry})."""
     import torch.nn.functional as F
 
     from larvanet_tpu_torch.ops import conv3x3
@@ -757,7 +800,7 @@ def kernel_phase(torch, convs=X4_CONVS, label="EDSR-baseline x4", scaled_bar=Fal
     narrow = {d: {} for d in dtypes}
     bound_kind = {d: {} for d in dtypes}
     worst = {d: 0.0 for d in dtypes}
-    for geometry in (LR_BATCH, RAGGED):
+    for geometry in geometries:
         for name, mult, c, f, act, count, expected in convs:
             n, h, w = geometry[0], geometry[1] * mult, geometry[2] * mult
             x32 = torch.randn((n, h, w, c), generator=gen, device="cuda")
@@ -831,7 +874,7 @@ def kernel_phase(torch, convs=X4_CONVS, label="EDSR-baseline x4", scaled_bar=Fal
                     narrow[dname]["%dx%dx%d" % (n, h, w)] = {
                         "ms": ms, "cuda_core_ms": cc_ms, "plain_ms": plain, "library_ms": lib,
                         "read_ms": read, "bound_ms": bound, "bound_by": by, "max_abs_err": err}
-                if geometry == LR_BATCH:
+                if geometry == geometries[0]:
                     part = {"ms": ms, "plain_ms": plain, "library_ms": lib, "bound_ms": bound,
                             "cuda_core_ms": cc_ms}
                     for total in (sums[dname],) + ((tc_sums[dname],)
@@ -848,7 +891,7 @@ def kernel_phase(torch, convs=X4_CONVS, label="EDSR-baseline x4", scaled_bar=Fal
         print("conv3x3 per %s forward at %s, %s: kernel %.4f ms, plain %.4f ms, F.conv2d "
               "%.4f ms, bound %.4f ms (%s), all-cuda_core kernel %.4f ms; its %d tensor-core "
               "convs: kernel %.4f ms, cuda_core entry %.4f ms, F.conv2d %.4f ms, bound %.4f ms"
-              % (label, LR_BATCH, dname, sums[dname]["ms"], sums[dname]["plain_ms"],
+              % (label, geometries[0], dname, sums[dname]["ms"], sums[dname]["plain_ms"],
                  sums[dname]["library_ms"], sums[dname]["bound_ms"], sums[dname]["bound_by"],
                  sums[dname]["cuda_core_ms"], n_tc, tc_sums[dname]["ms"],
                  tc_sums[dname]["cuda_core_ms"], tc_sums[dname]["library_ms"],
@@ -1076,20 +1119,32 @@ def save_larvanet(torch, path, name="LarvaNet", flags=LARVANET_FLAGS, device="cu
 
 
 def larvanet_base(torch, model, img_chw):
-    """The interpolated base of `model`'s LarvaNet (or msrr_reduced) forward
-    on one CHW frame, NHWC f32 (models/layers.interpolated_base on the
-    input in the compute dtype, as the forward takes it)."""
+    """The base of `model`'s LarvaNet (or msrr_reduced, TreeNet, REGO, EBRN
+    or HRSR) forward on one CHW frame, NHWC f32 (`sr_base`)."""
+    x = model._input_to_device([img_chw]).to(model.compute_dtype)
+    return sr_base(torch, model.module, x).float()[0]
+
+
+def sr_base(torch, module, x):
+    """The part of `module`'s x4 output on the NHWC batch `x` that is not
+    its network's: the interpolated base (models/layers.interpolated_base
+    on x in its dtype, as the forward takes it), or for ebrn and ebrn_rm
+    the inverse mean shift's constant, broadcast."""
     from larvanet_tpu_torch.models.layers import interpolated_base
 
-    x = model._input_to_device([img_chw]).to(model.compute_dtype)
-    method = getattr(model.module, "interpolate", None) or model.module.base
-    return interpolated_base(x, 4, method).float()[0]
+    if getattr(module, "bilinear_base", None) is False or hasattr(module, "recon_layer"):
+        n, h, w, _ = x.shape
+        return module.mean_inverse_shift.bias.to(x.dtype).expand(n, 4 * h, 4 * w, 3)
+    method = ("bilinear" if getattr(module, "bilinear_base", False)
+              else getattr(module, "interpolate", None) or module.base)
+    return interpolated_base(x, 4, method)
 
 
 def serve_phase(torch, device="cuda", dtype_name="f32", model_name="edsr"):
     """Phase 4 (EDSR-baseline x4), 4b (`model_name` a LarvaNet preset, at
-    LARVANET_FLAGS), 15c (an MSRR_MODELS name at full width) or 16b (a
-    BRANCHY_MODELS name, its residual fitted by fit_branchy) with
+    LARVANET_FLAGS), 15c (an MSRR_MODELS name at full width), 16b (a
+    BRANCHY_MODELS name, its residual fitted by fit_branchy) or 17b (an
+    SR_MODELS name, its residual fitted by fit_sr_residual) with
     --serving_dtype `dtype_name`. Returns the conv3x3
     launches counted while serving, the same by path, and the served
     model."""
@@ -1116,6 +1171,11 @@ def serve_phase(torch, device="cuda", dtype_name="f32", model_name="edsr"):
         elif model_name in BRANCHY_MODELS:
             flags, _, per_forward = BRANCHY_MODELS[model_name]
             save_branchy(torch, pth, model_name, frames[0], device)
+            model_flags = ["--model", model_name] + flags
+            per_kxk = NO_KXK
+        elif model_name in SR_MODELS:
+            flags, _, per_forward = SR_MODELS[model_name]
+            save_sr_model(torch, pth, model_name, frames[0], device)
             model_flags = ["--model", model_name] + flags
             per_kxk = NO_KXK
         elif larva:
@@ -1342,11 +1402,12 @@ def larvanet_model(name, flags, device="cuda", pth=None):
     return model
 
 
-def device_breakdown(torch, fn, kinds=("conv3x3", "wino_resblock", "conv_kxk")):
+def device_breakdown(torch, fn, kinds=("conv3x3", "wino_resblock", "conv_kxk"),
+                     reps=TIMED_REPS):
     """The card's kernel time in one call of `fn`: (wall ms under the
     profiler, {each of `kinds`, "other": ms of kernels by name, a kernel
     going to the first kind its name holds}), from torch.profiler's CUDA
-    kernel records over TIMED_REPS calls bracketed with CUDA events. The
+    kernel records over `reps` calls bracketed with CUDA events. The
     parts are None, not measured, when the profiler records no kernel."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1357,7 +1418,7 @@ def device_breakdown(torch, fn, kinds=("conv3x3", "wino_resblock", "conv_kxk")):
     end = torch.cuda.Event(enable_timing=True)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         start.record()
-        for _ in range(TIMED_REPS):
+        for _ in range(reps):
             fn()
         end.record()
         end.synchronize()
@@ -1365,8 +1426,8 @@ def device_breakdown(torch, fn, kinds=("conv3x3", "wino_resblock", "conv_kxk")):
     for event in prof.key_averages():
         if event.device_type == DeviceType.CUDA:
             kind = next((k for k in kinds if k in event.key), "other")
-            parts[kind] += event.self_device_time_total / 1e3 / TIMED_REPS
-    return start.elapsed_time(end) / TIMED_REPS, (parts if sum(parts.values()) else None)
+            parts[kind] += event.self_device_time_total / 1e3 / reps
+    return start.elapsed_time(end) / reps, (parts if sum(parts.values()) else None)
 
 
 def breakdown_line(torch, fn, wall, kinds=("conv3x3", "wino_resblock", "conv_kxk")) -> str:
@@ -1872,7 +1933,9 @@ def check_train_grads(torch, model, x, t, label, batch, patch, same_forward=Fals
                 mock.patch.object(dw, "dwconv3x3", dwc), \
                 mock.patch.object(dw, "dwconv3x3_wgrad", dw_wgrad):
             loss = float(model._loss_and_grads(x, t))
-        grads = {k: p.grad.clone() for k, p in model.module.named_parameters()}
+        # full EBRN's last BRM owns a down_block and bp_flow that no forward runs
+        grads = {k: p.grad.clone() for k, p in model.module.named_parameters()
+                 if p.grad is not None}
         model.optimizer.zero_grad(set_to_none=True)
         return loss, grads
 
@@ -1946,15 +2009,17 @@ def time_train_step(torch, model, x, t, step, label, batch, patch, dname="f32"):
     return tm
 
 
-def train_step_split(torch, model, x, t, step, label, batch, patch, dname, tm):
+def train_step_split(torch, model, x, t, step, label, batch, patch, dname, tm,
+                     reps=TIMED_REPS):
     """Print a train step's time `tm` (a time_windows entry) and where the
-    card's time goes in it (time_train_step's split)."""
+    card's time goes in it (time_train_step's split, over `reps` profiled
+    calls)."""
     print("train: %s, batch %d x %dx%d, %s: %s per train step, %.3f LR-MP/s trained"
           % (label, batch, patch, patch, dname, spread(tm),
              batch * patch * patch / 1e3 / tm[0]), flush=True)
     _, fwd = device_breakdown(torch, lambda: model._compute_loss(x, t),
-                              kinds=("wgrad", "conv3x3"))
-    _, parts = device_breakdown(torch, step, kinds=("wgrad", "conv3x3"))
+                              kinds=("wgrad", "conv3x3"), reps=reps)
+    _, parts = device_breakdown(torch, step, kinds=("wgrad", "conv3x3"), reps=reps)
     if parts is None or fwd is None:
         print("train step device breakdown not measured (the profiler recorded no kernel)")
         return
@@ -4736,7 +4801,8 @@ def msrr_train_phase(torch):
             steps.append(launches)
             # 3 windows of 5 steps: the phase's share of the script's time
             tm = time_windows(torch, {"train_step": step}, windows=3, reps=5)["train_step"]
-            train_step_split(torch, model, x, t, step, label, batch, patch, "f32", tm)
+            train_step_split(torch, model, x, t, step, label, batch, patch, "f32", tm,
+                             reps=SPLIT_REPS)
             times[name] = tm[0]
             del model
             torch.cuda.empty_cache()
@@ -4935,14 +5001,16 @@ def save_branchy(torch, path, name, fit_frame, device="cuda"):
     torch.save(model.module.state_dict(), path)
 
 
-def branchy_s8_phase(torch):
-    """Phase 16a's s8 half: REGO's RESBlock pair at 64 -> 64 on the 4 x
-    192x192 batch, bf16 (the CLIs' int8 dtype) and f32: conv_a with
-    leaky_relu(0.1) and conv_b without a residual (the 'both' pair adds hin
-    + t outside it) at res_weight 1 (REGO-Net) and 0.1 (REGO-serial), each
-    bit for bit with its plain version, timed in turns as CUDA graph replays
-    of the entry beside the plain version and the bound. Returns {dtype:
-    the sums over one REGO-Net int8 forward's 15 pairs}."""
+def branchy_s8_phase(torch, slope=0.1, pairs=None, res_weights=(1.0, 0.1),
+                     label="REGO RESBlock"):
+    """Phase 16a's s8 half (17a's with ebrn_rm's BRM pair): REGO's RESBlock
+    pair at 64 -> 64 on the 4 x 192x192 batch, bf16 (the CLIs' int8 dtype)
+    and f32: conv_a with leaky_relu(`slope`) and conv_b without a residual
+    (the 'both' pair adds hin + t outside it) at each of `res_weights`
+    (REGO-Net's 1, REGO-serial's 0.1), each bit for bit with its plain
+    version, timed in turns as CUDA graph replays of the entry beside the
+    plain version and the bound. Returns {dtype: the sums over one int8
+    forward's `pairs` pairs (REGO-Net's 15)}."""
     import numpy as np
 
     from larvanet_tpu_torch.ops import conv3x3_s8 as s8
@@ -4950,7 +5018,7 @@ def branchy_s8_phase(torch):
     rng = np.random.default_rng(SEED + 24)
     n, h, w = LR_BATCH
     c = 64
-    pairs = BRANCHY_INT8["REGO-Net"][0]["conv_a"]
+    pairs = BRANCHY_INT8["REGO-Net"][0]["conv_a"] if pairs is None else pairs
     codes_a, codes_b = (rng.integers(-127, 128, (3, 3, c, c)).astype(np.int8) for _ in "ab")
     sa, sb = ((rng.uniform(0.5, 2.0, c) * 1e-3).astype(np.float32) for _ in "ab")
     bias_a, bias_b = (torch.from_numpy(rng.standard_normal(c).astype(np.float32))
@@ -4964,11 +5032,11 @@ def branchy_s8_phase(torch):
         wa = s8.make_weight(codes_a, sa, s_in, bias_a, dtype, "cuda")
         s_mid = s_in  # leaky_relu keeps both signs: the pre-activation's range
         wb = s8.make_weight(codes_b, sb, s_mid, bias_b, dtype, "cuda")
-        tq = s8.conv_a(hin, wa, s_in, s_mid, "leaky_relu", 0.1)
-        differ = int((tq != s8.conv_a_reference(hin, wa, s_in, s_mid, "leaky_relu", 0.1))
+        tq = s8.conv_a(hin, wa, s_in, s_mid, "leaky_relu", slope)
+        differ = int((tq != s8.conv_a_reference(hin, wa, s_in, s_mid, "leaky_relu", slope))
                      .sum())
         bits = torch.int16 if dname == "bf16" else torch.int32
-        for rw in (1.0, 0.1):
+        for rw in res_weights:
             got = s8.conv_b(tq, wb, dtype, None, rw)
             differ += int((got.view(bits) != s8.conv_b_reference(tq, wb, dtype, None, rw)
                            .view(bits)).sum())
@@ -4976,23 +5044,26 @@ def branchy_s8_phase(torch):
         t = time_windows(torch, {
             "conv_a": graph_replay(torch, lambda: s8._run_a(
                 s8._entry("conv_a", dtype), hin, wa, s_in, s_mid, "leaky_relu",
-                stream().cuda_stream, 0.1)),
+                stream().cuda_stream, slope)),
             "conv_b": graph_replay(torch, lambda: s8._run_b(
                 s8._entry("conv_b", dtype), tq, wb, dtype, None, 1.0, stream().cuda_stream)),
-            "plain_a": lambda: s8.conv_a_reference(hin, wa, s_in, s_mid, "leaky_relu", 0.1),
+            "plain_a": lambda: s8.conv_a_reference(hin, wa, s_in, s_mid, "leaky_relu", slope),
             "plain_b": lambda: s8.conv_b_reference(tq, wb, dtype, None, 1.0)})
         bounds = {"conv_a": s8_bound_ms(n, h, w, c, c, item, "conv_a"),
                   "conv_b": s8_bound_ms(n, h, w, c, c, item, "conv_b")}
-        print("s8 REGO RESBlock 64->64 %dx%dx%d %s: conv_a leaky_relu(0.1) %s = %.1fx its "
+        print("s8 %s 64->64 %dx%dx%d %s: conv_a leaky_relu(%g) %s = %.1fx its "
               "bound %.4f ms (%s; plain %s), conv_b without a residual %s = %.1fx its bound "
               "%.4f ms (%s; plain %s); %d values differ from the plain versions (conv_b at "
-              "res_weight 1 and 0.1)" % (
-                  n, h, w, dname, spread(t["conv_a"]), t["conv_a"][0] / bounds["conv_a"][0],
+              "res_weight %s)" % (
+                  label, n, h, w, dname, slope, spread(t["conv_a"]),
+                  t["conv_a"][0] / bounds["conv_a"][0],
                   *bounds["conv_a"], spread(t["plain_a"]), spread(t["conv_b"]),
                   t["conv_b"][0] / bounds["conv_b"][0], *bounds["conv_b"],
-                  spread(t["plain_b"]), differ), flush=True)
+                  spread(t["plain_b"]), differ, " and ".join("%g" % rw for rw in res_weights)),
+              flush=True)
         if differ:
-            raise AssertionError("conv3x3_s8 REGO pair %s: %d values differ" % (dname, differ))
+            raise AssertionError("conv3x3_s8 %s pair %s: %d values differ"
+                                 % (label, dname, differ))
         out[dname] = {"ms": pairs * (t["conv_a"][0] + t["conv_b"][0]),
                       "plain_ms": pairs * (t["plain_a"][0] + t["plain_b"][0]),
                       "bound_ms": pairs * (bounds["conv_a"][0] + bounds["conv_b"][0]),
@@ -5125,7 +5196,8 @@ def branchy_train_phase(torch):
                                      % (label, launches, want))
             steps.append(launches)
             tm = time_windows(torch, {"train_step": step}, windows=3, reps=5)["train_step"]
-            train_step_split(torch, model, x, t, step, label, batch, patch, "f32", tm)
+            train_step_split(torch, model, x, t, step, label, batch, patch, "f32", tm,
+                             reps=SPLIT_REPS)
             times[name] = tm[0]
             del model
             torch.cuda.empty_cache()
@@ -5284,6 +5356,443 @@ def branchy_phase(torch):
                 steps=steps, step_ms=step_ms)
 
 
+# ---- phase 17: the EBRN and HRSR families ---------------------------------------
+
+# 17a: the conv shapes these families bring (X4_CONVS' format), with their
+# launches per forward. Full EBRN x4 at one 192x192 LR tile (EBRN_LR: its
+# HR flows at 16x the pixels, 64 channels): fe0 3 -> 4F and recon 10F -> 3
+# over the concat on the CUDA cores, fe1 4F -> F, and phase 3's 64 -> 64 at
+# the LR (fe2, 27 bp_flow) and HR size (30 sr_flow, 9 fusion); then on the
+# 4 x 192x192 batch ebrn_rm's upsample 10F -> 48 (ten channel chunks) and
+# hrsr's 3-channel HR convs (middle_conv with LeakyReLU(0.1), the 4 HR
+# blocks' conv1 with ReLU and conv2) on the CUDA cores
+EBRN_LR = (1, 192, 192)
+EBRN_CONVS = (
+    ("EBRN fe0 3->256", 1, 3, 256, None, 1, "cuda_core"),
+    ("EBRN fe1 256->64", 1, 256, 64, None, 1, "tensor_core"),
+    ("EBRN LR 64->64 (fe2, bp_flow)", 1, 64, 64, None, 28, "tensor_core"),
+    ("EBRN HR 64->64 (sr_flow, fusion)", 4, 64, 64, None, 39, "tensor_core"),
+    ("EBRN recon 640->3", 4, 640, 3, None, 1, "cuda_core"),
+)
+EBRN_RM_CONVS = (("ebrn_rm upsample 640->48", 1, 640, 48, None, 1, "tensor_core"),)
+HRSR_CONVS = (
+    ("hrsr middle_conv 3->3 leaky", 4, 3, 3, "leaky_relu", 1, "cuda_core"),
+    ("hrsr HR block conv1 3->3 relu", 4, 3, 3, "relu", 4, "cuda_core"),
+    ("hrsr HR block conv2 3->3", 4, 3, 3, None, 4, "cuda_core"),
+)
+# their weight and input gradients at a train step's batch 16 x 48x48 (TRAIN_WGRAD's
+# and TRAIN_DGRAD's formats): EBRN's recon 640 -> 3 on the narrow wgrad entry and
+# its input gradient 3 -> 640 at the HR size, fe0's 3 -> 256 (no input gradient);
+# ebrn_rm's upsample input gradient 48 -> 640
+EBRN_WGRAD = (("EBRN recon 640->3", 4, 640, 3, 1), ("EBRN fe0 3->256", 1, 3, 256, 1))
+EBRN_DGRAD = (("EBRN recon 3->640", 4, 3, 640), ("ebrn_rm upsample 48->640", 1, 48, 640))
+# 17b: name -> (flags, parameters, conv3x3 launches a x4 forward by path): ebrn_rm's
+# first_conv on the CUDA cores, its 10 BRM pairs, 9 fusion convs and upsample on the
+# tensor cores; full EBRN 70 (above) and 10 up- and 9 down-projections on the library;
+# hrsr's first_conv, middle_conv and 8 HR convs on the CUDA cores, its 4 LR blocks on
+# the tensor cores; hrsr_c3's first_conv and 32 LR blocks
+SR_MODELS = {
+    "ebrn_rm": ([], 1349232, {"cuda_core": 1, "tensor_core": 30, "narrow": 0}),
+    "ebrn": ([], 8005315, {"cuda_core": 2, "tensor_core": 68, "narrow": 0}),
+    "hrsr": ([], 168372, {"cuda_core": 10, "tensor_core": 8, "narrow": 0}),
+    "hrsr_c3": ([], 1331520, {"cuda_core": 1, "tensor_core": 64, "narrow": 0}),
+}
+# the residual std fit_sr_residual gives a random model over its base
+SR_RESIDUAL_STD = 30.0
+# 17c: the --int8_trunk forward's launches: s8 by entry (a pair each BRM or LR
+# block) and the conv3x3 launches that stay exact
+SR_INT8 = {"ebrn_rm": ({"conv_a": 10, "conv_b": 10},
+                       {"cuda_core": 1, "tensor_core": 10, "narrow": 0}),
+           "hrsr": ({"conv_a": 4, "conv_b": 4}, {"cuda_core": 10, "tensor_core": 0, "narrow": 0}),
+           "hrsr_c3": ({"conv_a": 32, "conv_b": 32},
+                       {"cuda_core": 1, "tensor_core": 0, "narrow": 0})}
+# 17d: name -> (flags, launches of one step at batch 16 x 48x48): ebrn_rm on its
+# LR-domain route (31 forward; 30 dgrads, none for first_conv; 31 wgrads, first_conv's
+# 3 -> 64 on the CUDA cores), full EBRN (70; 69, recon's 3 -> 640 on the CUDA cores;
+# 70, recon's 640 -> 3 narrow), hrsr_c3 --qat 1 (65; 64; 65)
+SR_TRAIN = {
+    "ebrn_rm": ([], {"forward": {"cuda_core": 1, "tensor_core": 30, "narrow": 0},
+                     "dgrad": {"cuda_core": 0, "tensor_core": 30, "narrow": 0},
+                     "wgrad": {"tensor_core": 30, "narrow": 0, "cuda_core": 1}}),
+    "ebrn": ([], {"forward": {"cuda_core": 2, "tensor_core": 68, "narrow": 0},
+                  "dgrad": {"cuda_core": 1, "tensor_core": 68, "narrow": 0},
+                  "wgrad": {"tensor_core": 68, "narrow": 1, "cuda_core": 1}}),
+    "hrsr_c3": (["--qat", "1"], {"forward": {"cuda_core": 1, "tensor_core": 64, "narrow": 0},
+                                 "dgrad": {"cuda_core": 0, "tensor_core": 64, "narrow": 0},
+                                 "wgrad": {"tensor_core": 64, "narrow": 0, "cuda_core": 1}}),
+}
+SR_CLI_STEPS = 4
+# 17d's train set (DIV2K layout, photo frames): its frames and LR size; the loaders
+# decode their PNGs in Python (data/png.py), host work that grows with the pixels
+SR_TRAIN_FRAMES = 4
+SR_TRAIN_LR = (64, 96)
+# hrsr through train_schedule on a val set of SCHEDULE_VAL frames of SCHEDULE_VAL_LR:
+# an epoch of one step, validation every 2, --threshold 100 (only the first
+# validation improves), so the plateau halves the lr at the third; the resumed run
+# starts from the first validation's checkpoint
+SCHEDULE_STEPS = 6
+SCHEDULE_LRS = [1e-3, 1e-3, 5e-4]
+SCHEDULE_RESUME = 2
+SCHEDULE_VAL = 2
+SCHEDULE_VAL_LR = (48, 64)
+
+
+def sr_model(name, device="cuda", extra=(), is_training=False):
+    """An SR_MODELS model x4 at full width, random weights from SEED."""
+    from larvanet_tpu_torch.core.registry import get_model
+
+    flags, n_params, _ = SR_MODELS[name]
+    model = get_model(name)
+    model.parse_args(list(flags) + list(extra))
+    model.prepare([4], device=device, seed=SEED, is_training=is_training)
+    if not extra and model.num_parameters() != n_params:
+        raise AssertionError("%s x4 has %d parameters, not %d"
+                             % (name, model.num_parameters(), n_params))
+    return model
+
+
+def fit_sr_residual(torch, model, x):
+    """Scale a random EBRN- or HRSR-family model so that its residual over its
+    base (`sr_base`) on `x` (NHWC on the card) has a std of SR_RESIDUAL_STD.
+    HRSR's residual, at its init (zero biases, ReLU and LeakyReLU), is
+    positively homogeneous in first_conv's weight, scaled alone; EBRN's and
+    ebrn_rm's is linear in the last conv's weight and bias (recon_layer,
+    upsample.body.0), both scaled, and where the base is the inverse mean
+    shift the last bias moves the output's mean to mid-grey, so that the
+    served frames span the pixel range."""
+    module = model.module
+    with torch.no_grad():
+        res = module(x) - sr_base(torch, module, x)
+        a = SR_RESIDUAL_STD / float(res.std())
+        if hasattr(module, "lr_res_blocks"):
+            module.first_conv.weight.mul_(a)
+            return
+        last = module.recon_layer if hasattr(module, "recon_layer") else module.upsample.body[0]
+        last.weight.mul_(a)
+        last.bias.mul_(a)
+        if not getattr(module, "bilinear_base", False):
+            shift = 128.0 - a * res.reshape(-1, 3).mean(0) - module.mean_inverse_shift.bias
+            last.bias.add_(shift.repeat_interleave(last.bias.numel() // 3))
+
+
+def save_sr_model(torch, path, name, fit_frame, device="cuda"):
+    """An SR_MODELS model, fitted on the CHW frame `fit_frame`
+    (fit_sr_residual), saved as the port module's own state_dict."""
+    model = sr_model(name, device)
+    fit_sr_residual(torch, model, model._input_to_device([fit_frame]))
+    torch.save(model.module.state_dict(), path)
+
+
+def projection_ms(torch, model, x):
+    """The card's time of a full-EBRN forward's up- and down-projections (the
+    library convs: F.conv_transpose2d, F.conv2d) on `x`: their calls of one
+    forward, with the inputs they took, replayed under the profiler
+    (device_breakdown). None where the profiler records no kernel."""
+    from larvanet_tpu_torch.models.layers import DownProjection, UpProjection
+
+    calls = []
+    hooks = [m.register_forward_hook(lambda mod, inp, out: calls.append((mod, inp[0])))
+             for m in model.serving_module.modules()
+             if isinstance(m, (UpProjection, DownProjection))]
+    try:
+        model.fwd_runtime(x)
+    finally:
+        for hook in hooks:
+            hook.remove()
+
+    def replay():
+        with torch.no_grad():
+            for mod, inp in calls:
+                mod(inp)
+
+    _, parts = device_breakdown(torch, replay, kinds=())
+    return None if parts is None else parts["other"]
+
+
+def sr_forward_phase(torch):
+    """Phase 17b's forwards and 17c. Each SR_MODELS model x4 at full width,
+    fitted (fit_sr_residual), on the 4 x 192x192 batch (full EBRN: EBRN_LR)
+    in f32 and bf16 (full EBRN serves its f32 module, as JAX does): one
+    counted forward (SR_MODELS' launches), held against the same forward
+    with every kernel's plain version within FWD_RTOL (bf16: BF16_FWD_RTOL)
+    of the residual over the base, then timed with its device split
+    (conv3x3, s8, other, idle; full EBRN's projections replayed apart,
+    `projection_ms`). 17c: the --int8_trunk route of ebrn_rm, hrsr and
+    hrsr_c3 (the CLIs' maybe_int8_trunk, calibrated on the batch's 96 x 96
+    corner): counted (SR_INT8), held against the same route on the plain
+    versions (INT8_FWD_PSNR_DB), timed. Returns the counted launches
+    ({"conv3x3": by path, "s8": by entry}) and {model: {dtype: ms}}."""
+    from types import SimpleNamespace
+
+    from larvanet_tpu_torch.cli import common
+
+    totals, times = {"conv3x3": {}, "s8": {}}, {}
+    kinds = ("s8", "conv3x3")
+    for name, (_, _, per_conv) in SR_MODELS.items():
+        n, h, w = EBRN_LR if name == "ebrn" else LR_BATCH
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 25)
+        x = 255.0 * torch.rand((n, h, w, 3), generator=gen, device="cuda")
+        model = sr_model(name)
+        fit_sr_residual(torch, model, x[:1])
+        times[name] = {}
+        for dname in ("f32",) if name == "ebrn" else ("f32", "bf16"):
+            model.set_serving_dtype(dname)
+            got, conv, _, _ = _counted_msrr(torch, lambda: model.fwd_runtime(x))
+            if conv != per_conv:
+                raise AssertionError("%s %s forward: conv3x3 %s, not %s"
+                                     % (name, dname, conv, per_conv))
+            _add(totals["conv3x3"], conv)
+            with plain_versions():
+                ref = model.fwd_runtime(x)
+            base = sr_base(torch, model.module, x.to(model.compute_dtype)).float()
+            residual = float((ref - base).abs().max())
+            err = float((got - ref).abs().max())
+            bar = (FWD_RTOL if dname == "f32" else BF16_FWD_RTOL) * residual
+            windows = 3 if name == "ebrn" else WINDOWS
+            tm = time_windows(torch, {"forward": lambda: model.fwd_runtime(x)},
+                              windows=windows)["forward"]
+            times[name][dname] = tm[0]
+            split = breakdown_line(torch, lambda: model.fwd_runtime(x), tm[0], kinds)
+            if name == "ebrn":
+                proj = projection_ms(torch, model, x)
+                split += ("; the up- and down-projections (library convs, among the other "
+                          "kernels) %s" % ("not measured" if proj is None else
+                                           "%.4f ms (%.1f%%)" % (proj, 100.0 * proj / tm[0])))
+            print("sr forward %s x4 %s %s: conv3x3 %s; max |d| %.3g against the plain versions "
+                  "(bar %.3g, residual max |y| %.3g); %s per forward, %.3f LR-MP/s; %s" % (
+                      name, dname, (n, h, w), conv, err, bar, residual, spread(tm),
+                      n * h * w / 1e3 / tm[0], split), flush=True)
+            if err > bar or not bool(torch.isfinite(got).all()) or residual < 1.0:
+                raise AssertionError("%s %s forward disagrees with the plain versions"
+                                     % (name, dname))
+            del got, ref, base
+        model.set_serving_dtype("f32")
+        if name in SR_INT8:
+            want_s8, want_conv = SR_INT8[name]
+            common.maybe_int8_trunk(model, SimpleNamespace(int8_trunk=1, model=name),
+                                    lambda: x[:, :96, :96].cpu().numpy())
+            got, conv, _, s8l = _counted_msrr(torch, lambda: model.fwd_runtime(x))
+            if s8l != want_s8 or conv != want_conv:
+                raise AssertionError("%s int8 forward: s8 %s, conv3x3 %s" % (name, s8l, conv))
+            _add(totals["s8"], s8l)
+            _add(totals["conv3x3"], conv)
+            with plain_versions(), _plain_s8():
+                ref = model.fwd_runtime(x)
+            psnr = _psnr(got, ref)
+            exact = model.int8_exact_forward(x).float()
+            tm = time_windows(torch, {"forward": lambda: model.fwd_runtime(x)})["forward"]
+            times[name]["int8"] = tm[0]
+            print("sr forward %s x4 --int8_trunk (bf16): s8 %s, conv3x3 %s; PSNR %.2f dB "
+                  "against the plain versions' int8 forward (bar %.1f), %.2f dB against the "
+                  "exact f32 forward; %s per forward; %s" % (
+                      name, s8l, conv, psnr, INT8_FWD_PSNR_DB, _psnr(got, exact), spread(tm),
+                      breakdown_line(torch, lambda: model.fwd_runtime(x), tm[0], kinds)),
+                  flush=True)
+            if psnr < INT8_FWD_PSNR_DB:
+                raise AssertionError("%s int8 forward disagrees with the plain one" % name)
+            del got, ref, exact
+        del model, x
+        torch.cuda.empty_cache()
+    return totals, times
+
+
+def sr_train_phase(torch):
+    """Phase 17d. ebrn_rm (its LR-domain route), full EBRN and hrsr_c3 --qat 1
+    x4 at full width trained at batch 16 x 48x48, f32, on a set of phase 8's
+    kind (SR_TRAIN_FRAMES frames of SR_TRAIN_LR): one batch's loss and
+    gradients against the same Function with the plain dgrad and wgrad on
+    the kernels' forward (check_train_grads), a counted step (SR_TRAIN), a
+    step timed (3 windows of 5) with its split; ebrn_rm through train for
+    SR_CLI_STEPS steps; hrsr through train_schedule with an epoch of one
+    step and validation every 2 on SCHEDULE_VAL frames (validations and
+    plateau steps at 2, 4 and 6, the lr halved at 6), then resumed from its
+    step-2 checkpoint: the same validations and the same weights, bit for
+    bit. Returns the counted steps' launches and {model: ms a step}."""
+    import numpy as np
+
+    from larvanet_tpu_torch.cli import train, train_schedule
+    from larvanet_tpu_torch.core.registry import get_loader
+
+    batch, patch = TRAIN_BATCH, TRAIN_PATCH
+    steps, times = [], {}
+    with tempfile.TemporaryDirectory() as tmp:
+        rng = np.random.default_rng(SEED + 26)
+        write_train_set(tmp, rng, SR_TRAIN_FRAMES, SR_TRAIN_LR)
+        data_flags = ["--data_input_path", os.path.join(tmp, "LR"),
+                      "--data_truth_path", os.path.join(tmp, "HR"), "--data_cached",
+                      "--data_seed", str(SEED)]
+        loader = get_loader("div2k_train_loader")
+        loader.parse_args(data_flags)
+        loader.prepare([4])
+        loader.reseed_for_step(0)
+        lr_nhwc, hr_nhwc = loader.get_patch_batch_nhwc(batch, 4, patch)
+        x, t = torch.from_numpy(lr_nhwc).cuda(), torch.from_numpy(hr_nhwc).cuda()
+        for name, (flags, want) in SR_TRAIN.items():
+            t0 = time.perf_counter()
+            model = sr_model(name, extra=flags, is_training=True)
+            label = "%s %s x4" % (name, " ".join(flags))
+            check_train_grads(torch, model, x, t, label, batch, patch, same_forward=True)
+            t1 = time.perf_counter()
+            step = lambda: model.train_step(lr_nhwc, 4, hr_nhwc)  # noqa: E731
+            launches = counted_step(torch, step)
+            if launches != want:
+                raise AssertionError("%s train step launches %s, not %s"
+                                     % (label, launches, want))
+            steps.append(launches)
+            tm = time_windows(torch, {"train_step": step}, windows=3, reps=5)["train_step"]
+            t2 = time.perf_counter()
+            train_step_split(torch, model, x, t, step, label, batch, patch, "f32", tm,
+                             reps=SPLIT_REPS)
+            times[name] = tm[0]
+            print("17d %s: %.1f s checking the gradients, %.1f s counting and timing, %.1f s "
+                  "profiling" % (label, t1 - t0, t2 - t1, time.perf_counter() - t2),
+                  flush=True)
+            del model
+            torch.cuda.empty_cache()
+        cli = ["--dataloader", "div2k_train_loader", "--device", "cuda", "--batch_size",
+               str(batch), "--input_patch_size", str(patch), "--log_freq", "1"] + data_flags
+        t0 = time.perf_counter()
+        _, losses = train.main(cli + ["--model", "ebrn_rm", "--scales", "4", "--max_steps",
+                                      str(SR_CLI_STEPS), "--train_path",
+                                      os.path.join(tmp, "ebrn_rm")])
+        print("train ebrn_rm x4 (LR-domain loss): losses %s (%.1f s)"
+              % ({k: round(v, 4) for k, v in losses.items()}, time.perf_counter() - t0),
+              flush=True)
+        if sorted(losses) != list(range(1, SR_CLI_STEPS + 1)) or not all(
+                np.isfinite(v) for v in losses.values()):
+            raise AssertionError("train ebrn_rm: losses %s" % (losses,))
+        write_train_set(os.path.join(tmp, "val"), rng, SCHEDULE_VAL, SCHEDULE_VAL_LR)
+        schedule = cli + [
+            "--model", "hrsr", "--val_data_input_path", os.path.join(tmp, "val", "LR"),
+            "--val_data_truth_path", os.path.join(tmp, "val", "HR"),
+            "--step_per_epoch", "1", "--val_freq_epochs", "2", "--max_steps",
+            str(SCHEDULE_STEPS), "--threshold", "100"]
+        run = os.path.join(tmp, "hrsr")
+        t0 = time.perf_counter()
+        model, losses, vals = train_schedule.main(schedule + ["--train_path", run])
+        print("train_schedule hrsr x4: validations (step, PSNR, lr after the plateau step) "
+              "%s; losses %s (%.1f s)" % (vals, {k: round(v, 4) for k, v in losses.items()},
+                                          time.perf_counter() - t0), flush=True)
+        if [(s, lr) for s, _, lr in vals] != list(zip(range(2, SCHEDULE_STEPS + 1, 2),
+                                                      SCHEDULE_LRS)) or not all(
+                np.isfinite(v) for v in losses.values()):
+            raise AssertionError("train_schedule hrsr: validations %s" % (vals,))
+        resumed, _, rest = train_schedule.main(schedule + [
+            "--train_path", os.path.join(tmp, "resumed"), "--restore_path",
+            os.path.join(run, "model_%d.pth" % SCHEDULE_RESUME)])
+        same = rest == vals[SCHEDULE_RESUME // 2:] and all(
+            torch.equal(a, b) for a, b in zip(model.module.state_dict().values(),
+                                              resumed.module.state_dict().values()))
+        print("train_schedule hrsr x4 resumed at step %d: validations %s, weights and "
+              "validations %s the uninterrupted run's" % (
+                  SCHEDULE_RESUME, rest, "equal, bit for bit, to" if same else "DIFFER from"),
+              flush=True)
+        if not same or resumed.lr_scheduler != model.lr_scheduler:
+            raise AssertionError("train_schedule hrsr: the resume differs")
+        del model, resumed
+    torch.cuda.empty_cache()
+    return steps, times
+
+
+def sr_cli_phase(torch):
+    """Phase 17e. The inference CLIs on the fitted models, saved as .pth,
+    each run counted: validate on hrsr over phase 6's set (18 conv3x3
+    launches a frame), get_sr on ebrn_rm over its LR frames (31), test on
+    hrsr_c3 over a SynSetReal tree (65), runtime on full EBRN at the DIV2K
+    x4 LR size, 339x510 (70 a forward). Returns the conv3x3 launches by
+    path."""
+    import numpy as np
+
+    from larvanet_tpu_torch.cli import get_sr, runtime, test, validate
+
+    total = {}
+    frames = len(VALIDATE_LR) + 1
+    rng = np.random.default_rng(SEED + 27)
+    with tempfile.TemporaryDirectory() as tmp:
+        write_validate_set(tmp)
+        write_test_set(tmp, rng)
+        pths = {}
+        for name in ("hrsr", "ebrn_rm", "hrsr_c3", "ebrn"):
+            pths[name] = os.path.join(tmp, name + ".pth")
+            save_sr_model(torch, pths[name], name, photo(rng, 96, 128))
+        lr_dir = os.path.join(tmp, "all", "LR")
+        runs = [
+            ("validate hrsr", frames, "hrsr", lambda: validate.main([
+                "--model", "hrsr", "--device", "cuda", "--restore_path", pths["hrsr"],
+                "--data_input_path", lr_dir,
+                "--data_truth_path", os.path.join(tmp, "all", "HR")])),
+            ("get_sr ebrn_rm", frames, "ebrn_rm", lambda: get_sr.main([
+                "--model", "ebrn_rm", "--device", "cuda", "--restore_path", pths["ebrn_rm"],
+                "--input_path", os.path.join(lr_dir, "X4"),
+                "--output_path", os.path.join(tmp, "sr")])),
+            ("test hrsr_c3", len(TEST_FRAMES), "hrsr_c3", lambda: test.main([
+                "--model", "hrsr_c3", "--device", "cuda", "--restore_path", pths["hrsr_c3"],
+                "--input_root_path", os.path.join(tmp, "test_LR"), "--truth_root_path",
+                os.path.join(tmp, "test_HR"), "--output_root_path", os.path.join(tmp, "out"),
+                "--datasets", "SynSetReal"])),
+            ("runtime ebrn", None, "ebrn", lambda: runtime.main([
+                "--model", "ebrn", "--device", "cuda", "--restore_path", pths["ebrn"],
+                "--input_height", str(RAGGED[1]), "--input_width", str(RAGGED[2]),
+                "--num_warmup", "1", "--num_iters", "3"])),
+        ]
+        for label, forwards, name, run in runs:
+            result, conv, _, _ = _counted_msrr(torch, run)
+            per = SR_MODELS[name][2]
+            if forwards is None:  # runtime: its warmup and timed forwards
+                forwards = sum(conv.values()) // sum(per.values())
+            print("%s x4: %s" % (label, result), flush=True)
+            expect_forwards(label, conv, per, forwards)
+            _add(total, conv)
+        if len(os.listdir(os.path.join(tmp, "sr"))) != frames:
+            raise AssertionError("get_sr ebrn_rm wrote %s" % os.listdir(os.path.join(tmp, "sr")))
+    return total
+
+
+def sr_phase(torch):
+    """Phase 17: 17a-17e, each one's seconds printed. Returns what the
+    kernels line takes."""
+    t0 = time.perf_counter()
+    seconds = {}
+
+    def lap(part):
+        seconds[part] = time.perf_counter() - t0 - sum(seconds.values())
+
+    conv_sums, conv_worst = {}, {"f32": 0.0, "bf16": 0.0}
+    for key, convs, label, geometries in (
+            ("ebrn", EBRN_CONVS, "EBRN x4 (its new shapes)", (EBRN_LR,)),
+            ("ebrn_rm", EBRN_RM_CONVS, "ebrn_rm x4 (its new shape)", (LR_BATCH,)),
+            ("hrsr", HRSR_CONVS, "hrsr x4 (its new shapes)", (LR_BATCH,))):
+        sums, _, worst, _ = kernel_phase(torch, convs, label, scaled_bar=True,
+                                         geometries=geometries)
+        conv_sums[key] = sums
+        for dname in conv_worst:
+            conv_worst[dname] = max(conv_worst[dname], worst[dname])
+    wgrad = train_kernel_phase(torch, EBRN_WGRAD, EBRN_DGRAD, "EBRN x4 (its new shapes)")
+    s8_pair = branchy_s8_phase(torch, slope=0.05, pairs=SR_INT8["ebrn_rm"][0]["conv_a"],
+                               res_weights=(1.0,), label="ebrn_rm BRM")
+    lap("17a")
+    served = {}
+    for name, dtype_name in (("ebrn_rm", "f32"), ("ebrn_rm", "bf16"), ("ebrn", "f32"),
+                             ("hrsr", "f32"), ("hrsr_c3", "f32")):
+        _, by_path, model = serve_phase(torch, dtype_name=dtype_name, model_name=name)
+        _add(served, by_path)
+        del model
+    forwards, forward_ms = sr_forward_phase(torch)
+    lap("17b-c")
+    steps, step_ms = sr_train_phase(torch)
+    lap("17d")
+    cli_conv = sr_cli_phase(torch)
+    lap("17e")
+    print("phase 17: %.1f s (%s)" % (time.perf_counter() - t0, ", ".join(
+        "%s %.1f s" % kv for kv in seconds.items())), flush=True)
+    conv = dict(served)
+    for part in (forwards["conv3x3"], cli_conv):
+        _add(conv, part)
+    return dict(conv_sums=conv_sums, conv_worst=conv_worst, wgrad=wgrad, s8_pair=s8_pair,
+                conv=conv, s8=forwards["s8"], forward_ms=forward_ms, steps=steps,
+                step_ms=step_ms)
+
+
 def print_sass_mix(build):
     """The instruction mix of each tensor-core and narrow kernel in the
     built libraries (cuobjdump -sass): ldmatrix, tensor-core products,
@@ -5406,9 +5915,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     branchy = branchy_phase(torch)
     trained.extend(branchy["steps"])
-    family_conv = dict(msrr_conv)  # phases 15's and 16's counted runs
-    _add(family_conv, branchy["conv"])
-    _add(s8_by_entry, branchy["s8"])
+    torch.cuda.empty_cache()
+    sr = sr_phase(torch)
+    trained.extend(sr["steps"])
+    family_conv = dict(msrr_conv)  # phases 15's, 16's and 17's counted runs
+    for part in (branchy["conv"], sr["conv"]):
+        _add(family_conv, part)
+    for part in (branchy["s8"], sr["s8"]):
+        _add(s8_by_entry, part)
 
     kernels = [{
         "name": "conv3x3_bias_act",
@@ -5469,6 +5983,19 @@ def main() -> int:
         "branchy_forward_ms": branchy["forward_ms"],
         "branchy_train_step_ms": branchy["step_ms"],
         "branchy_dgrad": branchy["wgrad"][4],
+        # phase 17 (the EBRN and HRSR families): 17a's new shapes summed over
+        # one forward's launches of them per dtype (full EBRN at 1 x 192x192:
+        # fe0, fe1, the LR and HR 64 -> 64, recon 640 -> 3; ebrn_rm's upsample
+        # 640 -> 48; hrsr's 3-channel HR convs) with the largest error; the
+        # forwards' and steps' ms by model (17b-17d); the input gradients
+        # 3 -> 640 and 48 -> 640 (17a); the phase's counted serving, forward
+        # and CLI launches by path (its counted steps are in the train runs)
+        "ebrn_hrsr": {k: {d: dict(v[d], max_abs_err=sr["conv_worst"][d])
+                          for d in ("f32", "bf16")} for k, v in sr["conv_sums"].items()},
+        "ebrn_hrsr_launches_by_path": sr["conv"],
+        "ebrn_hrsr_forward_ms": sr["forward_ms"],
+        "ebrn_hrsr_train_step_ms": sr["step_ms"],
+        "ebrn_hrsr_dgrad": sr["wgrad"][4],
     }, {
         "name": "conv3x3_wgrad",
         "route": "cuda",
@@ -5510,6 +6037,11 @@ def main() -> int:
                                  max_abs_err=branchy["wgrad_bf16"][2],
                                  max_rel_err=branchy["wgrad_bf16"][3],
                                  shapes=branchy["wgrad_bf16"][4])},
+        # phase 17a: EBRN's recon 640 -> 3 (narrow) at 16 x 192x192 and fe0
+        # 3 -> 256 (CUDA cores) at 16 x 48x48, f32, each shape's numbers
+        "ebrn_hrsr": dict(sr["wgrad"][0], bound_by=sr["wgrad"][1],
+                          max_abs_err=sr["wgrad"][2], max_rel_err=sr["wgrad"][3],
+                          shapes=sr["wgrad"][5]),
     }]
     for m, line in ((2, 205), (4, 336)):
         wsums, werr = wino[m]
@@ -5570,6 +6102,12 @@ def main() -> int:
         "branchy_int8_ms": {k: v["int8"] for k, v in branchy["forward_ms"].items()
                             if "int8" in v},
         "branchy": branchy["s8_pair"],
+        # phase 17c's --int8_trunk forwards of ebrn_rm, hrsr and hrsr_c3 (ms,
+        # bf16), and 17a's ebrn_rm BRM pair (conv_a leaky_relu(0.05), conv_b
+        # without a residual) summed over one ebrn_rm int8 forward's 10 pairs
+        "ebrn_hrsr_int8_ms": {k: v["int8"] for k, v in sr["forward_ms"].items()
+                              if "int8" in v},
+        "ebrn_hrsr": sr["s8_pair"],
         "f32": dict(s8_sums["f32"], max_abs_err=s8_errs["f32"]),
         "shapes": s8_rows,
         # phase 11a's widths past one code halo (the chunked plan): the

@@ -292,6 +292,8 @@ INT8_BUILDERS = {
     ("msrr", "dwsr"): "make_int8_msrr_forward",
     ("REGO",): "make_int8_rego_forward",
     ("TreeNet",): "make_int8_treenet_forward",
+    ("hrsr",): "make_int8_hrsr_forward",
+    ("ebrn_rm",): "make_int8_ebrn_rm_forward",
 }
 
 

@@ -42,6 +42,10 @@ def main(argv=None):
     model, _, remaining = common.setup_model(args.model, remaining, scale_list, device,
                                              global_step=args.restore_global_step)
     common.warn_leftovers(remaining)
+    if not hasattr(model, "upscale_branch_device"):
+        # JAX's CLI fails on the missing --num_branches; refused plainly here
+        raise SystemExit("validate_tree scores TreeNet's branches; --model %s has none "
+                         "(score it with larvanet_tpu_torch.cli.validate)" % (args.model,))
     model.restore(args.restore_path)
     print("restored the model")
 

@@ -6,8 +6,9 @@ Plugins register under the reference's public names, so `--model=...` and
 has so far are registered: the models `edsr`, `edsr_loss`, the eleven
 LarvaNet-family presets, the ten of the MSRR family (`msrr`,
 `msrr_reduced` and its six ablations, `dwsr_reduced`, `msrr_test`),
-`TreeNet`, `REGO-Net` and `REGO-serial`; the six loaders that
-data/loaders.py registers.
+`TreeNet`, `REGO-Net`, `REGO-serial`, the EBRN family (`ebrn`, `ebrn_rm`,
+`ebrn_rm_BLI`) and the HRSR family (`hrsr`, `hrsr_`, `hrsr_c3`); the six
+loaders that data/loaders.py registers.
 """
 
 from __future__ import annotations

@@ -100,19 +100,22 @@ def add_qat_flag(parser) -> None:
                              "--int8_trunk serving costs ~0 dB. Even patch width.")
 
 
-def add_training_flags(parser) -> None:
+def add_training_flags(parser, lr_domain: bool = True) -> None:
     """--packed_trunk, --lr_domain_loss, --qat and --remat of the families
     whose training graph is a walk of conv pairs (JAX's packed mixins:
     _add_packed_trunk_flag, add_lr_domain_flag and add_qat_flag,
-    base.py:57-108)."""
+    base.py:57-108); without `lr_domain` for a family whose loss is on
+    the HR image (HRSR, whose HR blocks follow the shuffle)."""
     parser.add_argument("--packed_trunk", type=int, default=None,
                         help="The JAX package's width-packed trunk (an exact "
                              "reparametrisation the port does not run). Unset is JAX's 1; "
                              "0 trains the module graph, as JAX does.")
-    parser.add_argument("--lr_domain_loss", type=int, default=1,
-                        help="With --packed_trunk (unset: on): compute the training L1 "
-                             "loss PRE-SHUFFLE in the LR domain (targets pixel-unshuffled "
-                             "instead; identical per-element grads). 0 = HR-domain loss.")
+    if lr_domain:
+        parser.add_argument("--lr_domain_loss", type=int, default=1,
+                            help="With --packed_trunk (unset: on): compute the training L1 "
+                                 "loss PRE-SHUFFLE in the LR domain (targets pixel-"
+                                 "unshuffled instead; identical per-element grads). 0 = "
+                                 "HR-domain loss.")
     add_qat_flag(parser)
     parser.add_argument("--remat", type=int, default=0,
                         help="Recompute each conv pair's activations in the backward "
@@ -720,3 +723,57 @@ class StepDecayMixin:
         decay = getattr(self.args, self.decay_flag)
         steps = getattr(self.args, self.decay_steps_flag)
         return base * (decay ** (self.global_step // steps))
+
+
+class SchedulerStateMixin:
+    """A training schedule, the attribute `scheduler_attr` names (None when
+    not training), in the training state file and from a JAX `.ckpt`
+    (JAX's `state["scheduler"]`, its numpy scalars as Python numbers)."""
+
+    scheduler_attr = "scheduler"
+
+    def _train_state(self) -> dict:
+        state = super()._train_state()
+        schedule = getattr(self, self.scheduler_attr)
+        if schedule is not None:
+            state["scheduler"] = schedule.state_dict()
+        return state
+
+    def _load_train_state(self, state: dict) -> None:
+        super()._load_train_state(state)
+        schedule = getattr(self, self.scheduler_attr)
+        if schedule is not None and "scheduler" in state:
+            schedule.load_state_dict(state["scheduler"])
+
+    def _load_jax_train_extras(self, state: dict) -> None:
+        schedule = getattr(self, self.scheduler_attr)
+        if schedule is not None and "scheduler" in state:
+            schedule.load_state_dict({k: v.item() if hasattr(v, "item") else v
+                                      for k, v in state["scheduler"].items()})
+
+
+class TrainedMeanShiftMixin:
+    """A restore of MeanShift buffers that are not the intended +/-mean (a
+    trained reference checkpoint; the module applies its own buffers on
+    every route): JAX's two restore lines, the affines named as JAX names
+    its overrides (ms_affine, mis_affine), and --packed_trunk off, so that
+    training runs the module graph, as JAX's does (base.py:808-839). The
+    graphs that bake the intended shift (the int8 forwards) refuse such a
+    module themselves."""
+
+    def load_state_dict(self, state, strict: bool = True) -> bool:
+        complete = super().load_state_dict(state, strict=strict)
+        trained = sorted(field for name, field in (("mean_shift", "ms_affine"),
+                                                   ("mean_inverse_shift", "mis_affine"))
+                         if hasattr(self.module, name)
+                         and not getattr(self.module, name).intended())
+        if trained:
+            print("restore: installed the checkpoint's trained MeanShift affines on the "
+                  "module (%s) — the reference trains around its randomly-initialized "
+                  "frozen shifts" % ", ".join(trained))
+            if getattr(self.args, "packed_trunk", None) != 0:
+                self.args.packed_trunk = 0
+                print("restore: disabled --packed_trunk — the packed graphs bake the "
+                      "intended mean shifts, not this checkpoint's trained affines; "
+                      "running the exact module graph")
+        return complete

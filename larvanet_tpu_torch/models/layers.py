@@ -23,6 +23,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from larvanet_tpu_torch.ops.conv3x3 import Conv3x3Train, conv3x3_bias_act
+from larvanet_tpu_torch.ops.conv_kxk import conv_kxk_op
 from larvanet_tpu_torch.ops.dwconv3x3 import dwconv3x3_op
 from larvanet_tpu_torch.ops.pixel_shuffle import PixelShuffle
 
@@ -91,6 +92,15 @@ class MeanShift(nn.Module):
                                 self.sign * torch.tensor(DIV2K_RGB_MEAN)))
 
 
+def inverse_shift_lr(shift: MeanShift, h: torch.Tensor) -> torch.Tensor:
+    """A MeanShift on a pre-shuffle output: its channels are (RGB, scale^2
+    sub-pixels) in pixel_shuffle's order, and the shift acts on each
+    sub-pixel's RGB triple (the LR-domain losses)."""
+    n, hh, ww, c = h.shape
+    rgb = h.reshape(n, hh, ww, 3, c // 3).transpose(3, 4)
+    return shift(rgb).transpose(3, 4).reshape(n, hh, ww, c)
+
+
 def mean_shifts_intended(module) -> bool:
     """Whether both of EDSR's MeanShifts (`mean_shift`, `mean_inverse_shift`)
     are the intended +/-mean shifts (`MeanShift.intended`)."""
@@ -133,6 +143,37 @@ class Conv3x3(nn.Module):
         return conv3x3_bias_act(x, kernel, bias, self.act, slope=self.slope)
 
 
+class ConvKxK(nn.Module):
+    """SAME KxK conv + bias for K other than 3 (HRSR's --hr_filter_size),
+    torch's (F, C, K, K) weight, on ops.conv_kxk (its `ConvKxKTrain` where a
+    gradient is wanted) with XLA's SAME pads: low (K - 1) // 2, high the
+    rest (flax's padding="SAME", which puts an even kernel's extra pad
+    below and right). The kernel has no activation epilogue, so `act` runs
+    after it in torch. Init as Conv3x3's (fan_in C K K)."""
+
+    def __init__(self, in_features: int, out_features: int, kernel_size: int,
+                 act: Optional[str] = None,
+                 generator: Optional[torch.Generator] = None,
+                 init_scale: Optional[float] = None, slope: float = 0.1):
+        super().__init__()
+        self.act = act
+        self.slope = slope
+        k = kernel_size
+        weight = torch.empty(out_features, in_features, k, k)
+        bias = torch.empty(out_features)
+        _draw_weight(weight, bias, in_features * k * k, generator, init_scale)
+        self.weight = nn.Parameter(weight)
+        self.bias = nn.Parameter(bias)
+        low = (k - 1) // 2
+        self.pads = (low, k - 1 - low, low, k - 1 - low)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        kernel, bias = self.weight.permute(2, 3, 1, 0), self.bias
+        if kernel.dtype != x.dtype:
+            kernel, bias = kernel.to(x.dtype), bias.to(x.dtype)
+        return activation(self.act, self.slope)(conv_kxk_op(x, kernel, bias, self.pads))
+
+
 class ResBlock(nn.Module):
     """conv -> act -> conv, times res_weight, plus the identity
     (layers.py:167-196, reference models/edsr.py:139-153).
@@ -140,20 +181,25 @@ class ResBlock(nn.Module):
     `body` keeps the reference's Sequential indices so the keys are
     body.0 / body.2; index 1, the activation (ReLU, or MSRR's ablations'
     relu6 and leaky_relu at `slope`), runs fused in body.0's kernel.
-    `init_scale` as in Conv3x3 (0.1 in the LarvaNet and MSRR families)."""
+    `init_scale` as in Conv3x3 (0.1 in the LarvaNet and MSRR families).
+    `kernel_size` other than 3 (HRSR's HR blocks) makes both convs
+    `ConvKxK`s."""
 
     def __init__(self, features: int, res_weight: float = 1.0,
                  generator: Optional[torch.Generator] = None,
                  init_scale: Optional[float] = None, activation: str = "relu",
-                 slope: float = 0.1):
+                 slope: float = 0.1, kernel_size: int = 3):
         super().__init__()
         self.res_weight = res_weight
-        self.body = nn.ModuleList([
-            Conv3x3(features, features, act=activation, generator=generator,
-                    init_scale=init_scale, slope=slope),
-            nn.Identity(),
-            Conv3x3(features, features, generator=generator, init_scale=init_scale),
-        ])
+
+        def conv(act):
+            if kernel_size == 3:
+                return Conv3x3(features, features, act=act, generator=generator,
+                               init_scale=init_scale, slope=slope)
+            return ConvKxK(features, features, kernel_size, act=act, generator=generator,
+                           init_scale=init_scale, slope=slope)
+
+        self.body = nn.ModuleList([conv(activation), nn.Identity(), conv(None)])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return exact_pair(0, x, self.body[0], self.body[2], res_weight=self.res_weight)
@@ -211,6 +257,86 @@ class UpsampleBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.body(x)
+
+
+class ConvShuffle(nn.Module):
+    """A conv, then PixelShuffle(scale): the reference's Sequential(conv,
+    PixelShuffle), whose conv's keys are body.0 (REGO's SRrecon, ebrn_rm's
+    upsample)."""
+
+    def __init__(self, conv: nn.Module, scale: int):
+        super().__init__()
+        self.body = nn.Sequential(conv, PixelShuffle(scale))
+
+
+class PReLU(nn.Module):
+    """Per-channel PReLU, torch's nn.PReLU(C) with its key `weight` and
+    slopes 0.25 (layers.py:268-276): x where x >= 0, else x times its
+    channel's slope, on NHWC in x's dtype. An XLA op in JAX, outside every
+    Pallas kernel, so plain PyTorch here."""
+
+    def __init__(self, features: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.full((features,), 0.25))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.where(x >= 0, x, x * self.weight.to(x.dtype))
+
+
+def _nchw(x: torch.Tensor) -> torch.Tensor:
+    return x.permute(0, 3, 1, 2)  # a channels_last view of NHWC
+
+
+def _nhwc(y: torch.Tensor) -> torch.Tensor:
+    return y.permute(0, 2, 3, 1).contiguous()
+
+
+class UpProjection(nn.Module):
+    """EBRN's up-projection: torch's ConvTranspose2d(C, F, k, stride=s,
+    padding=p), its weight (C, F, k, k) as the reference stores it, the
+    output (H - 1) s - 2 p + k a side (k/s/p 8/4/2, 7/3/2, 6/2/2 at x4, x3,
+    x2: s H). JAX computes it as a conv of the s-dilated input with the
+    flipped kernel and pads k - 1 - p (layers.py:279-311); here it is
+    F.conv_transpose2d, a library conv, as it is an XLA op in JAX. Init:
+    U(-1/sqrt(C k k), 1/sqrt(C k k)) for the weight and the bias, JAX's."""
+
+    def __init__(self, in_features: int, out_features: int, kernel_size: int, stride: int,
+                 padding: int, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        k = kernel_size
+        self.stride, self.padding = stride, padding
+        weight = torch.empty(in_features, out_features, k, k)
+        bias = torch.empty(out_features)
+        _draw_weight(weight, bias, in_features * k * k, generator, None)
+        self.weight = nn.Parameter(weight)
+        self.bias = nn.Parameter(bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.conv_transpose2d(_nchw(x), self.weight.to(x.dtype), self.bias.to(x.dtype),
+                               stride=self.stride, padding=self.padding)
+        return _nhwc(y)
+
+
+class DownProjection(nn.Module):
+    """EBRN's strided down-projection: torch's Conv2d(C, F, k, stride=s,
+    padding=p) (ebrn.py:66-67), F.conv2d, a library conv, as it is an XLA
+    op in JAX; torch's Conv2d default init."""
+
+    def __init__(self, in_features: int, out_features: int, kernel_size: int, stride: int,
+                 padding: int, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        k = kernel_size
+        self.stride, self.padding = stride, padding
+        weight = torch.empty(out_features, in_features, k, k)
+        bias = torch.empty(out_features)
+        _draw_weight(weight, bias, in_features * k * k, generator, None)
+        self.weight = nn.Parameter(weight)
+        self.bias = nn.Parameter(bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.conv2d(_nchw(x), self.weight.to(x.dtype), self.bias.to(x.dtype),
+                     stride=self.stride, padding=self.padding)
+        return _nhwc(y)
 
 
 def interpolated_base(x: torch.Tensor, scale: int, method: str = "bicubic") -> torch.Tensor:

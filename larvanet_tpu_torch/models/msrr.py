@@ -62,7 +62,8 @@ from larvanet_tpu_torch.models.base import (SRModel, StepDecayMixin, add_trainin
                                             qat_requested, remat_requested)
 from larvanet_tpu_torch.models.layers import (Conv3x3, ConvPairResBlock,
                                               DepthwiseSeparableResBlock, MeanShift, ResBlock,
-                                              UpsampleBlock, exact_pair, interpolated_base)
+                                              UpsampleBlock, exact_pair, interpolated_base,
+                                              inverse_shift_lr)
 from larvanet_tpu_torch.models.volume import PlateauVolumeMixin
 from larvanet_tpu_torch.ops.pixel_shuffle import pixel_shuffle, pixel_unshuffle
 
@@ -142,7 +143,7 @@ class MSRRReducedModule(nn.Module):
         s = self.scale
         if lr_domain:
             if meanshift:
-                return self._inverse_shift_lr(h)
+                return inverse_shift_lr(self.mean_inverse_shift, h)
             if self.base is not None:
                 return h + pixel_unshuffle(interpolated_base(x, s, self.base), s)
             return h
@@ -152,14 +153,6 @@ class MSRRReducedModule(nn.Module):
         if self.base is not None:
             return out + interpolated_base(x, s, self.base)
         return out
-
-    def _inverse_shift_lr(self, h: torch.Tensor) -> torch.Tensor:
-        """The inverse MeanShift on the pre-shuffle output: its channels are
-        (RGB, scale^2 sub-pixels) in pixel_shuffle's order, and the shift
-        acts on each sub-pixel's RGB triple."""
-        n, hh, ww, c = h.shape
-        rgb = h.reshape(n, hh, ww, 3, c // 3).transpose(3, 4)
-        return self.mean_inverse_shift(rgb).transpose(3, 4).reshape(n, hh, ww, c)
 
 
 class MSRRTestModule(nn.Module):

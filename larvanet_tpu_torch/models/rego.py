@@ -49,11 +49,12 @@ from torch import nn
 
 from larvanet_tpu_torch.core.config import parse_known
 from larvanet_tpu_torch.core.registry import register_model
-from larvanet_tpu_torch.models.base import (SRModel, StepDecayMixin, add_training_flags,
-                                            qat_requested, remat_requested)
-from larvanet_tpu_torch.models.layers import (Conv3x3, MeanShift, ResBlock, exact_pair,
-                                              interpolated_base)
-from larvanet_tpu_torch.ops.pixel_shuffle import PixelShuffle, pixel_shuffle, pixel_unshuffle
+from larvanet_tpu_torch.models.base import (SRModel, StepDecayMixin, TrainedMeanShiftMixin,
+                                            add_training_flags, qat_requested,
+                                            remat_requested)
+from larvanet_tpu_torch.models.layers import (Conv3x3, ConvShuffle, MeanShift, ResBlock,
+                                              exact_pair, interpolated_base)
+from larvanet_tpu_torch.ops.pixel_shuffle import pixel_shuffle, pixel_unshuffle
 
 SLOPE = 0.1  # the RESBlock's LeakyReLU
 
@@ -65,14 +66,6 @@ def triangle_order(len_side: int) -> List[Tuple[int, int]]:
     for i in range(1, len_side):
         order += [(i, 0)] + [(i - j, j) for j in range(1, i)] + [(0, i)]
     return order
-
-
-class _Recon(nn.Module):
-    """SRrecon: the reference's Sequential(conv, PixelShuffle), key body.0."""
-
-    def __init__(self, conv: Conv3x3, scale: int):
-        super().__init__()
-        self.body = nn.Sequential(conv, PixelShuffle(scale))
 
 
 class REGOModule(nn.Module):
@@ -97,7 +90,7 @@ class REGOModule(nn.Module):
                                  activation="leaky_relu", slope=SLOPE))
             if k != num_regos - 1:
                 setattr(self, "conv_%d" % k, Conv3x3(fused, features, generator=g))
-        self.SRrecon = _Recon(Conv3x3(fused, 3 * scale * scale, generator=g,
+        self.SRrecon = ConvShuffle(Conv3x3(fused, 3 * scale * scale, generator=g,
                                       init_scale=init_scale or None), scale)
 
     def block_name(self, k: int, i: int, j: int) -> str:
@@ -145,7 +138,7 @@ class REGOModule(nn.Module):
         return pixel_shuffle(sr, s) + base
 
 
-class REGONet(StepDecayMixin, SRModel):
+class REGONet(TrainedMeanShiftMixin, StepDecayMixin, SRModel):
     """REGO-Net (larvanet_tpu/models/rego.py:167-210): Adam at the step decay
     of --learning_rate."""
 
@@ -195,23 +188,6 @@ class REGONet(StepDecayMixin, SRModel):
             targets = pixel_unshuffle(targets, self.scale)  # no backward
         pair = training_pair(qat_requested(self), remat_requested(self))
         return self.loss(self.module.walk(inputs, pair, lr_domain), targets)
-
-    def load_state_dict(self, state, strict: bool = True) -> bool:
-        """SRModel's load; then, when the loaded forward MeanShift is not the
-        intended +mean (a trained reference checkpoint), JAX's two restore
-        lines (base.py:808-839) and --packed_trunk off: the module graph,
-        with its own affine, trains and serves."""
-        complete = super().load_state_dict(state, strict=strict)
-        if not self.module.mean_shift.intended():
-            print("restore: installed the checkpoint's trained MeanShift affines on the "
-                  "module (ms_affine) — the reference trains around its randomly-"
-                  "initialized frozen shifts")
-            if getattr(self.args, "packed_trunk", None) != 0:
-                self.args.packed_trunk = 0
-                print("restore: disabled --packed_trunk — the packed graphs bake the "
-                      "intended mean shifts, not this checkpoint's trained affines; "
-                      "running the exact module graph")
-        return complete
 
 
 @register_model("REGO-Net")

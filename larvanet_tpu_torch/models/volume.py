@@ -28,6 +28,7 @@ from typing import Optional
 
 import numpy as np
 
+from larvanet_tpu_torch.models.base import SchedulerStateMixin
 from larvanet_tpu_torch.train.schedules import ReduceLROnPlateau, StepLR
 
 # the scale validation asks the val loader for: the LarvaNet family's x4,
@@ -35,10 +36,11 @@ from larvanet_tpu_torch.train.schedules import ReduceLROnPlateau, StepLR
 VAL_SCALE = 4
 
 
-class _VolumeLoop:
+class _VolumeLoop(SchedulerStateMixin):
     """AdamW and the volume-driven step, before SRModel in a wrapper's
     bases; the schedule is a subclass's (`scheduler`, `_make_scheduler`,
-    `get_learning_rate` and the two hooks)."""
+    `get_learning_rate` and the two hooks), its state saved and restored
+    by SchedulerStateMixin (larvanet.py:399-402, treenet.py:251-261)."""
 
     optimizer_kind = "adamw"
     validate_at_step_1 = True
@@ -109,24 +111,6 @@ class _VolumeLoop:
             self._after_validation(average_psnr)
         return average_psnr
 
-    def _train_state(self) -> dict:
-        state = super()._train_state()
-        if self.scheduler is not None:
-            state["scheduler"] = self.scheduler.state_dict()
-        return state
-
-    def _load_train_state(self, state: dict) -> None:
-        super()._load_train_state(state)
-        if self.scheduler is not None and "scheduler" in state:
-            self.scheduler.load_state_dict(state["scheduler"])
-
-    def _load_jax_train_extras(self, state: dict) -> None:
-        """The schedule of a JAX checkpoint (larvanet.py:399-402,
-        treenet.py:251-261), its numpy scalars as Python numbers."""
-        if self.scheduler is not None and "scheduler" in state:
-            self.scheduler.load_state_dict(
-                {k: v.item() if hasattr(v, "item") else v
-                 for k, v in state["scheduler"].items()})
 
 
 class PlateauVolumeMixin(_VolumeLoop):

@@ -1,13 +1,14 @@
 """The W8A8 int8 forwards of EDSR, the LarvaNet family, the MSRR family,
-TreeNet and the REGOs.
+TreeNet, the REGOs, ebrn_rm (and BLI) and the HRSR family.
 
 Counterparts of `make_int8_edsr_forward` (larvanet_tpu/ops/packed/edsr.py:
 114), `make_int8_larvanet_forward` (ops/packed/larvanet.py:187),
 `make_int8_msrr_forward` (ops/packed/msrr.py:137-147) and
-`make_int8_treenet_forward` / `make_int8_rego_forward`
-(ops/packed/branchy.py:87-101, :277-290). Each
+`make_int8_treenet_forward` / `make_int8_rego_forward` /
+`make_int8_hrsr_forward` / `make_int8_ebrn_rm_forward`
+(ops/packed/branchy.py:87-101, :277-290, :165-175, :372-383). Each
 runs its module's own walk (EDSRModule.forward, LarvaNetModule.walk, the
-MSRR, TreeNet and REGO modules' walk) with
+MSRR, TreeNet, REGO, EBRN-RM and HRSR modules' walk) with
 every conv pair handed to a pair runner (ops/pairs.py), with JAX's pair
 indices: the body blocks in execution order, then the serving leg. The int8
 forward calibrates once over a batch with the exact pair in `dtype` and
@@ -31,7 +32,7 @@ import copy
 import torch
 
 from larvanet_tpu_torch.models.larvanet import SCALE
-from larvanet_tpu_torch.models.layers import interpolated_base
+from larvanet_tpu_torch.models.layers import interpolated_base, mean_shifts_intended
 from larvanet_tpu_torch.ops.pairs import make_int8
 
 
@@ -100,14 +101,20 @@ def make_int8_msrr_forward(model, calib_batch, dtype: torch.dtype = torch.bfloat
     return make_int8(model, calib_batch, dtype, lambda x, pair: module.walk(x, pair), pairs)
 
 
+def _make_int8_walk(model, calib_batch, dtype: torch.dtype):
+    """The int8 forward of a module whose `walk(x, pair)` is its serving
+    graph and whose `pairs()` lists the walk's conv pairs in order."""
+    module = _module_in(model, dtype)
+    return make_int8(model, calib_batch, dtype, lambda x, pair: module.walk(x, pair),
+                     model.module.pairs())
+
+
 def make_int8_treenet_forward(model, calib_batch, dtype: torch.dtype = torch.bfloat16):
     """W8A8 TreeNet inference of branch 0, the reference's inference branch
     (branchy.py:87-101): the common blocks' pairs, then branch 0's, int8;
     the head (its LeakyReLU fused), the shuffle, the base and the residual
     stream exact in `dtype`."""
-    module = _module_in(model, dtype)
-    return make_int8(model, calib_batch, dtype, lambda x, pair: module.walk(x, pair),
-                     model.module.pairs())
+    return _make_int8_walk(model, calib_batch, dtype)
 
 
 def make_int8_rego_forward(model, calib_batch, dtype: torch.dtype = torch.bfloat16):
@@ -121,6 +128,25 @@ def make_int8_rego_forward(model, calib_batch, dtype: torch.dtype = torch.bfloat
     if not model.module.mean_shift.intended():
         raise Int8Unsupported("the checkpoint carries a trained (non-identity) MeanShift "
                               "affine, which the int8 forward does not take")
-    module = _module_in(model, dtype)
-    return make_int8(model, calib_batch, dtype, lambda x, pair: module.walk(x, pair),
-                     model.module.pairs())
+    return _make_int8_walk(model, calib_batch, dtype)
+
+
+def make_int8_ebrn_rm_forward(model, calib_batch, dtype: torch.dtype = torch.bfloat16):
+    """W8A8 ebrn_rm / ebrn_rm_BLI inference (branchy.py:372-383): the
+    num_brms BRM pairs int8, 'both'-kind, their LeakyReLU(0.05) inside
+    conv_a; the mean shifts (or BLI's base), first_conv, the fusion cascade,
+    the 10F-channel upsample conv and the shuffle exact in `dtype`. A module
+    whose MeanShifts are not the intended ones has no int8 path, as REGO's
+    (Int8Unsupported)."""
+    m = model.module
+    if not m.bilinear_base and not mean_shifts_intended(m):
+        raise Int8Unsupported("the checkpoint carries trained (non-identity) MeanShift "
+                              "affines, which the int8 forward does not take")
+    return _make_int8_walk(model, calib_batch, dtype)
+
+
+def make_int8_hrsr_forward(model, calib_batch, dtype: torch.dtype = torch.bfloat16):
+    """W8A8 hrsr / hrsr_ / hrsr_c3 inference (branchy.py:165-175): the LR
+    ResBlock pairs int8; the head (its LeakyReLU fused), the shuffle, the HR
+    part and the base exact in `dtype`."""
+    return _make_int8_walk(model, calib_batch, dtype)

@@ -4,9 +4,11 @@ The port's modules use the reference PyTorch repo's state_dict keys, the
 ones larvanet_tpu/utils/torch_convert.export_state_dict writes
 (torch_convert.py:448-503,702-757). This module is the port's own copy
 of that export for the families it has (EDSR, the LarvaNet family, the
-MSRR family, TreeNet and the REGOs),
+MSRR family, TreeNet, the REGOs, the EBRN and HRSR families),
 so the tests can carry JAX parameters (nested dicts of numpy arrays)
-into a port module without the port importing the JAX package.
+into a port module without the port importing the JAX package. A rule
+returns the key stem, or (stem, kind) for a transposed conv ("convT") or a
+PReLU ("prelu"), torch_convert.py:376-401.
 """
 
 from __future__ import annotations
@@ -137,6 +139,63 @@ def _make_exp_rego(serial: bool):
     return rule
 
 
+def _exp_ebrn(path: str):
+    """Full EBRN (torch_convert.py:612-637): the PReLUs at the odd indices of
+    their Sequentials, the up-projection a ConvTranspose2d."""
+    m = re.match(r"fe(\d+)$", path)
+    if m:
+        return "feature_extract.%d" % (2 * int(m.group(1)))
+    m = re.match(r"fe_prelu(\d+)$", path)
+    if m:
+        return "feature_extract.%d" % (2 * int(m.group(1)) + 1), "prelu"
+    m = re.match(r"brm_(\d+)/up_block$", path)
+    if m:
+        return "brms.%s.up_block" % (m.group(1),), "convT"
+    m = re.match(r"brm_(\d+)/down_block$", path)
+    if m:
+        return "brms.%s.down_block" % (m.group(1),)
+    m = re.match(r"brm_(\d+)/(sr|bp)_flow/conv(\d+)$", path)
+    if m:
+        return "brms.%s.%s_flow.%d" % (m.group(1), m.group(2), 2 * int(m.group(3)))
+    m = re.match(r"brm_(\d+)/(sr|bp)_flow/prelu(\d+)$", path)
+    if m:
+        return ("brms.%s.%s_flow.%d" % (m.group(1), m.group(2), 2 * int(m.group(3)) + 1),
+                "prelu")
+    m = re.match(r"fusion_(\d+)$", path)
+    if m:
+        return "fusion_layers.%s" % (m.group(1),)
+    if path == "recon":
+        return "recon_layer"
+    raise KeyError(path)
+
+
+def _exp_ebrn_rm(path: str) -> str:
+    """ebrn_rm and ebrn_rm_BLI (torch_convert.py:567-578; the JAX export
+    lists ebrn_rm alone, BLI has the same parameters)."""
+    m = re.match(r"brm_(\d+)_conv([12])$", path)
+    if m:
+        return "brms.%s.body.%d" % (m.group(1), 0 if m.group(2) == "1" else 2)
+    m = re.match(r"fusion_(\d+)$", path)
+    if m:
+        return "fusion_layers.%s" % (m.group(1),)
+    if path == "upsample_conv":
+        return "upsample.body.0"
+    if path == "first_conv":
+        return path
+    raise KeyError(path)
+
+
+def _exp_hrsr(path: str) -> str:
+    """hrsr, hrsr_ and hrsr_c3 (torch_convert.py:581-588)."""
+    m = re.match(r"(lr|hr)_block_(\d+)/conv([12])$", path)
+    if m:
+        return "%s_res_blocks.%s.body.%d" % (
+            m.group(1), m.group(2), 0 if m.group(3) == "1" else 2)
+    if path in ("first_conv", "middle_conv", "final_conv"):
+        return path
+    raise KeyError(path)
+
+
 LARVANET_NAMES = ("LarvaNet", "LarvaNetV2", "LarvaLeg", "LarvaLegV2", "LarvaNet_0c",
                   "LarvaNet_1c", "LarvaNet_4c", "LarvaNet_skip", "LarvaNet_res",
                   "LarvaNet_w64", "LarvaLeg_w64")
@@ -148,11 +207,14 @@ EXPORT_RULES = {"edsr": _exp_edsr, "edsr_loss": _exp_edsr,
                 "msrr": _exp_msrr, "msrr_test": _exp_msrr_test, "dwsr_reduced": _exp_dwsr,
                 **{name: _exp_msrr_reduced for name in MSRR_REDUCED_NAMES},
                 "TreeNet": _exp_treenet, "REGO-Net": _make_exp_rego(serial=False),
-                "REGO-serial": _make_exp_rego(serial=True)}
+                "REGO-serial": _make_exp_rego(serial=True), "ebrn": _exp_ebrn,
+                "ebrn_rm": _exp_ebrn_rm, "ebrn_rm_BLI": _exp_ebrn_rm,
+                **{name: _exp_hrsr for name in ("hrsr", "hrsr_", "hrsr_c3")}}
 # the state dicts with both MeanShifts (torch_convert.py:703-704; MSRR's are
-# dead in its forward but in the reference's state dict; the LarvaNet family
-# and TreeNet have none) and with the forward one only (the REGOs, :705)
-_MEANSHIFT_BOTH = {"edsr", "edsr_loss", "msrr", "msrr_reduced_meanshift"}
+# dead in its forward but in the reference's state dict; the LarvaNet family,
+# TreeNet, ebrn_rm_BLI and HRSR have none) and with the forward one only
+# (the REGOs, :705)
+_MEANSHIFT_BOTH = {"edsr", "edsr_loss", "msrr", "msrr_reduced_meanshift", "ebrn", "ebrn_rm"}
 _MEANSHIFT_FWD_ONLY = {"REGO-Net", "REGO-serial"}
 
 
@@ -163,6 +225,41 @@ def _inv_conv(leaves) -> Dict[str, np.ndarray]:
     if "bias" in leaves:
         out["bias"] = np.asarray(leaves["bias"])
     return out
+
+
+def _inv_conv_transpose(leaves) -> Dict[str, np.ndarray]:
+    """JAX's input-dilated conv kernel, HWIO with the spatial axes flipped ->
+    torch's ConvTranspose2d weight (C_in, C_out, kH, kW)
+    (torch_convert.py:455-463)."""
+    k = np.asarray(leaves["kernel"])[::-1, ::-1]
+    out = {"weight": np.ascontiguousarray(np.transpose(k, (2, 3, 0, 1)))}
+    if "bias" in leaves:
+        out["bias"] = np.asarray(leaves["bias"])
+    return out
+
+
+_INVERSE = {"conv": _inv_conv, "convT": _inv_conv_transpose,
+            "prelu": lambda leaves: {"weight": np.asarray(leaves["slope"])}}
+
+
+def _synthesize_dead_brm(state: Dict[str, np.ndarray]) -> None:
+    """Full EBRN's last BRM: the reference builds its down_block and bp_flow
+    though its forward never runs them, and a strict load wants their keys;
+    JAX has no such parameters, so they are written as zeros (the PReLUs at
+    0.25), as JAX's export writes them (torch_convert.py:760-783)."""
+    n = 1 + max(int(re.match(r"brms\.(\d+)\.", k).group(1))
+                for k in state if k.startswith("brms."))
+    last = "brms.%d." % (n - 1)
+    if last + "down_block.weight" in state:
+        return
+    c, k = state[last + "up_block.weight"].shape[0], state[last + "up_block.weight"].shape[2]
+    state[last + "down_block.weight"] = np.zeros((c, c, k, k), np.float32)
+    state[last + "down_block.bias"] = np.zeros((c,), np.float32)
+    for i in (0, 2, 4):
+        state[last + "bp_flow.%d.weight" % i] = np.zeros((c, c, 3, 3), np.float32)
+        state[last + "bp_flow.%d.bias" % i] = np.zeros((c,), np.float32)
+    for i in (1, 3, 5):
+        state[last + "bp_flow.%d.weight" % i] = np.full((c,), 0.25, np.float32)
 
 
 def _meanshift_entries(model_name: str) -> Dict[str, np.ndarray]:
@@ -180,8 +277,9 @@ def _meanshift_entries(model_name: str) -> Dict[str, np.ndarray]:
 
 
 def _param_groups(params, prefix: str = "") -> Iterator[Tuple[str, Dict]]:
-    """(path, leaves) for each dict that holds a conv's kernel/bias."""
-    if "kernel" in params:
+    """(path, leaves) for each dict that holds a conv's kernel/bias or a
+    PReLU's slope."""
+    if "kernel" in params or "slope" in params:
         yield prefix, params
         return
     for key, val in params.items():
@@ -197,10 +295,13 @@ def state_dict_from_jax_params(params_np, model_name: str) -> Dict[str, torch.Te
     rule = EXPORT_RULES[model_name]
     state: Dict[str, np.ndarray] = {}
     for path, leaves in _param_groups(dict(params_np)):
-        stem = rule(path)
-        for suffix, value in _inv_conv(leaves).items():
+        spec = rule(path)
+        stem, kind = spec if isinstance(spec, tuple) else (spec, "conv")
+        for suffix, value in _INVERSE[kind](leaves).items():
             state[stem + "." + suffix] = value
     state.update(_meanshift_entries(model_name))
+    if model_name == "ebrn":
+        _synthesize_dead_brm(state)
     return {k: torch.from_numpy(np.array(v, np.float32)) for k, v in state.items()}
 
 

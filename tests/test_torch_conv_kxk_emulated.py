@@ -437,3 +437,36 @@ extern "C" void run(const unsigned short* in, unsigned* out) {
             lo = mem[i * 64 + (7 - 2 * t) * 8 + g]
             hi = mem[i * 64 + (7 - (2 * t + 1)) * 8 + g]
             assert out[4 * lane + i] == int(lo) | (int(hi) << 16), (lane, i)
+
+
+@pytest.mark.parametrize("dname", ["f32", "bf16"])
+@pytest.mark.parametrize("shape,k,path", [
+    ((2, 9, 11, 8), 5, "cuda_core"),      # hrsr --num_hr_filters 8 --hr_filter_size 5
+    ((2, 9, 11, 8), 4, "cuda_core"),      # an even kernel: XLA's SAME pads 1 above, 2 below
+    ((1, 6, 9, 16), 4, "tensor_core"),    # --num_hr_filters 16 on the tensor cores
+])
+def test_conv_kxk_hrsr_hr_blocks_match_plain_version(lib, dname, shape, k, path):
+    """HRSR's HR ResBlock convs of --hr_filter_size K other than 3 (layers.
+    ConvKxK: C -> C with XLA's SAME pads, low (K - 1) // 2): the forward and
+    the weight gradient against their plain versions."""
+    low = (k - 1) // 2
+    pads = (low, k - 1 - low, low, k - 1 - low)
+    c = shape[3]
+    assert ck.path_for(c) == path
+    dtype = DTYPES[dname]
+    rng = np.random.default_rng(sum(shape) + 7 * k)
+    x, kern, b = _operands(rng, shape, k, k, c, dtype)
+    got = ck._run(ck.bind(lib, dtype, path), x, kern, b, pads, None, path)
+    assert got.shape == shape
+    err = _held(got, ck.conv_kxk_reference(x, kern, b, pads), dname)
+    g = _t(rng.standard_normal(shape)).to(dtype)
+    wpath = ck.wgrad_path_for(c, k, k)
+    splits, chunk = ck.wgrad_splits(wpath, *shape, k, k, c, 1, dtype)
+    dw, db = ck._run_wgrad(ck.bind_wgrad(lib, dtype, wpath), x, g, k, k, pads, splits, chunk,
+                           None)
+    want_w, want_b = ck.conv_kxk_wgrad_reference(x, g, k, k, pads)
+    rel_w = float((dw - want_w).abs().max() / want_w.abs().max())
+    rel_b = float((db - want_b).abs().max() / want_b.abs().max())
+    print("emulated conv_kxk hrsr %s %s %dx%d pads %s (%s): max|d| %.3g; wgrad (%s) %.3g / %.3g"
+          % (dname, shape, k, k, pads, path, err, wpath, rel_w, rel_b))
+    assert rel_w <= WGRAD_RTOL and rel_b <= WGRAD_RTOL

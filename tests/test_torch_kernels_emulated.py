@@ -288,3 +288,37 @@ def test_conv3x3_dgrad_of_the_384_channel_fuse_matches_plain_version(conv_lib):
     err = float((got - want).abs().max())
     print("emulated conv3x3 dgrad tensor_core %s->%d: max|d| %.3g" % (shape, f, err))
     assert torch.isfinite(got).all() and err <= F32_ATOL["conv"]
+
+
+@pytest.mark.parametrize("dname", ["f32", "bf16"])
+@pytest.mark.parametrize("shape,f,act,path", [
+    ((1, 4, 6, 3), 256, None, "cuda_core"),        # EBRN's fe0 3 -> 4F
+    ((1, 4, 6, 256), 64, None, "tensor_core"),     # EBRN's fe1 4F -> F: four chunks
+    ((1, 3, 5, 640), 3, None, "cuda_core"),        # EBRN's recon 10F -> 3 over the concat
+    ((1, 3, 5, 640), 48, None, "tensor_core"),     # ebrn_rm's upsample 10F -> 48: ten chunks
+    ((2, 7, 9, 3), 3, "relu", "cuda_core"),        # HRSR's 3-channel HR convs
+    ((1, 5, 7, 64), 64, "leaky_relu", "tensor_core"),  # ebrn_rm's BRM conv1 at slope 0.05
+])
+def test_conv3x3_ebrn_hrsr_shapes_match_plain_version(conv_lib, shape, f, act, path, dname):
+    """The EBRN and HRSR families' new conv shapes on the path `path_for`
+    gives them: C = 640 (ten 64-channel chunks, or the CUDA cores where F =
+    3), 3 -> 256 and 3 -> 3 on the CUDA cores, 256 -> 64, and leaky_relu at
+    ebrn_rm's slope 0.05."""
+    dtype = DTYPES[dname]
+    assert conv3x3.path_for(shape[3], f, dtype) == path
+    rng = np.random.default_rng(sum(shape) + f + 640)
+    x = _t(rng.standard_normal(shape)).to(dtype)
+    k = _t(0.05 * rng.standard_normal((3, 3, shape[3], f)))
+    b = _t(rng.standard_normal(f))
+    got = conv3x3._run(conv3x3.bind(conv_lib, dtype, path), x, k, b, act, None, path,
+                       slope=0.05)
+    want = conv3x3.conv3x3_bias_act_reference(x, k, b, act, 0.05)
+    assert got.shape == want.shape and got.dtype == want.dtype
+    diff = (got.float() - want.float()).abs()
+    print("emulated conv3x3 %s %s %s->%d %s: max|d| %.3g"
+          % (path, dname, shape, f, act, float(diff.max())))
+    assert torch.isfinite(got.float()).all()
+    if dname == "f32":
+        assert float(diff.max()) <= F32_ATOL["conv"]
+    else:
+        assert bool((diff <= BF16_ATOL + BF16_RTOL * want.float().abs()).all())

@@ -247,3 +247,28 @@ def test_conv3x3_s8_rego_pair_entries_match_plain_version_bit_for_bit(s8_lib, dn
     want_b = s8.conv_b_reference(want, wb, dtype, None, 0.1)
     bits = torch.int16 if dname == "bf16" else torch.int32
     assert torch.equal(got.view(bits), want_b.view(bits))
+
+
+@pytest.mark.parametrize("dname", ["f32", "bf16"])
+def test_conv3x3_s8_ebrn_rm_pair_entries_match_plain_version_bit_for_bit(s8_lib, dname):
+    """ebrn_rm's BRM W8A8 'both' pair at 64 -> 64: conv_a with leaky_relu at
+    slope 0.05 (rounded to T inside the kernel, as the plain version rounds
+    it), and conv_b without a residual at res_weight 1, each bit for bit."""
+    c, f, hw = 64, 64, (2, 5, 19)
+    rng = np.random.default_rng(6405)
+    dtype = DTYPES[dname]
+    s_in = 0.25
+    hin = _t(rng.integers(-300, 300, hw + (c,)) / 8.0).to(dtype)
+    wt = _s8_weight(rng, c, f, s_in, dtype)
+    t = s8._dequant(s8.conv_codes_reference(s8.quantize(hin, s_in), wt.codes), wt, dtype)
+    assert float((t < 0).float().mean()) > 0.2  # the leaky side is taken
+    s_mid = float(t.float().abs().max()) * 0.3 / 127.0  # codes of the slope's side nonzero
+    got = s8._run_a(s8.bind(s8_lib, "conv_a", dtype), hin, wt, s_in, s_mid, "leaky_relu", None,
+                    0.05)
+    want = s8.conv_a_reference(hin, wt, s_in, s_mid, "leaky_relu", 0.05)
+    assert torch.equal(got, want) and bool((want < 0).any())
+    wb = _s8_weight(rng, f, f, s_mid, dtype)
+    got = s8._run_b(s8.bind(s8_lib, "conv_b", dtype), want, wb, dtype, None, 1.0, None)
+    want_b = s8.conv_b_reference(want, wb, dtype, None, 1.0)
+    bits = torch.int16 if dname == "bf16" else torch.int32
+    assert torch.equal(got.view(bits), want_b.view(bits))

@@ -175,3 +175,28 @@ def test_conv3x3_wgrad_of_the_384_channel_fuse_matches_plain_version(wgrad_lib, 
     """The weight gradient of REGO's SRrecon, C = 384 (six channel chunks of
     64) -> F = 48, on one pixel tile."""
     _wgrad_case(wgrad_lib, path, (1, 5, 7, 384), 48, 1, dtype)
+
+
+def test_conv3x3_wgrad_of_ebrn_recon_on_the_narrow_entry(wgrad_lib):
+    """The weight gradient of EBRN's recon, C = 640 (ten channel chunks) ->
+    F = 3, on the narrow entry, two splits."""
+    assert wg.path_for(640, 3) == "narrow"
+    _wgrad_case(wgrad_lib, "narrow", (1, 9, 33, 640), 3, 2)
+
+
+def test_conv3x3_wgrad_of_ebrn_fe0_on_the_cuda_cores(wgrad_lib):
+    """The weight gradient of EBRN's fe0, C = 3 -> F = 256, on the CUDA-core
+    entry (four F tiles of 64), the pixel sum in two runs."""
+    shape, f = (1, 6, 5, 3), 256
+    assert wg.path_for(3, f) == "cuda_core"
+    rng = np.random.default_rng(3256)
+    x = _t(rng.standard_normal(shape))
+    g = _t(rng.standard_normal(shape[:3] + (f,)))
+    n_split, chunk = _chunk_for(shape[0] * shape[1] * shape[2], 2)
+    fn = wg.bind(wgrad_lib, wg.entry_for("cuda_core", f))
+    dw, db = wg._run(fn, x, g, n_split, chunk, None)
+    want_w, want_b = wg.conv3x3_wgrad_reference(x, g)
+    err_w = float((dw - want_w).abs().max() / want_w.abs().max())
+    err_b = float((db - want_b).abs().max() / want_b.abs().max())
+    print("emulated conv3x3_wgrad cuda_core %s->%d: dW %.3g, db %.3g" % (shape, f, err_w, err_b))
+    assert torch.isfinite(dw).all() and err_w <= 1e-5 and err_b <= 1e-5
