@@ -7,9 +7,9 @@ It drives the port's main paths on the card, serving and validating
 EDSR-baseline x4 and the LarvaNet family (the flagship LarvaNet 2x16, and
 LarvaNet_w64 on the fused ResBlocks) and training EDSR-baseline x4 and the
 flagship, then serving, running and training the MSRR family (phase 15),
-TreeNet, REGO-Net and REGO-serial (phase 16) and the EBRN and HRSR
-families (phase 17), and fails (exit code != 0, no result line) if any
-phase fails.
+TreeNet, REGO-Net and REGO-serial (phase 16), the EBRN and HRSR
+families (phase 17) and MAMNet and IMDN (phase 18), and fails (exit code
+!= 0, no result line) if any phase fails.
 EDSR serves on its default route, the collapsed linear tail
 (ops/collapsed_tail.py: the trunk's 34 convs on conv3x3, the tail as one
 5x5 conv, 4 side and 4 corner operators on conv_kxk; the CLIs make the
@@ -337,6 +337,31 @@ on the default, collapsed route:
     same validations and weights, bit for bit. 17e: validate (hrsr),
     get_sr (ebrn_rm), test (hrsr_c3) and runtime (full EBRN at 339x510),
     counted.
+ 18. MAMNet and IMDN (after phase 17), x4 at full width (64 features, 16
+    MAMBlocks; 64 filters, 8 IMDBlocks), random weights from SEED, each
+    residual over the inverse mean shift fitted by fit_sr_residual. 18a:
+    IMDN's new conv3x3 shapes at leaky_relu(0.05) (IMDN_CONVS: 48 -> 64, 48
+    -> 16, the upsample conv 64 -> 48 on the tensor cores and x3's 64 -> 27
+    on the CUDA cores), as phase 3 with 14a's scaled f32 bar; its 48 -> 16
+    and 48 -> 64 weight gradients and conv4's 16 -> 48 input gradient at 16
+    x 48x48, as phase 8's kernel half; MAMNet's s8 pair (conv_a with relu,
+    conv_b without a residual) bit for bit, graph replays (MAMNet's CSD,
+    dwconv3x3 at C = 64, is 15a's). 18b: both served through the HTTP
+    server in f32 and bf16 (phase 4's checks; MAMNet on the collapsed tail:
+    34 conv3x3 + 4 conv_kxk a forward; IMDN 35); the forwards on the 4 x
+    192x192 batch in f32 and bf16 on the CLIs' default route: counted
+    (MI_MODELS; MAMNet's 16 dwconv3x3 launches, IMDN's 24 slice copies),
+    held against the plain versions relative to the residual, timed with
+    their device split; MAMNet's module graph (--packed_trunk 0, 37
+    conv3x3) counted and held; MAMNet's --int8_trunk route (32 s8 + 2
+    conv3x3 + 4 conv_kxk + 16 dwconv3x3) held to 11b's bar, timed; IMDN's
+    slice copy timed beside its bound. 18c: one train step of each at batch
+    16 x 48x48 f32 (MAMNet on its default route, the live collapsed tail
+    and the loss before the shuffle): gradients against the plain dgrad and
+    wgrad, counted (MI_TRAIN), timed with the split. 18d: validate and
+    test (MAMNet; its tail probed inside the run), get_sr (IMDN), runtime
+    (MAMNet at 339x510), train (IMDN, 2 steps, a checkpoint each) and
+    psnr_trend over those two checkpoints, counted.
  12. (last) prints the kernels JSON line, the nvidia-smi line, then the
     result line {"ok": true, "device": {...}}.
 
@@ -398,7 +423,13 @@ conv shapes per model and dtype), "ebrn_hrsr_launches_by_path",
 "ebrn_hrsr_dgrad", "ebrn_hrsr_forward_ms" and "ebrn_hrsr_train_step_ms"
 in the conv3x3 line, "ebrn_hrsr" (the 640 -> 3 and 3 -> 256 shapes) in the
 conv3x3_wgrad line, "ebrn_hrsr" (ebrn_rm's pair) and "ebrn_hrsr_int8_ms"
-in the conv3x3_s8 line.
+in the conv3x3_s8 line. Phase 18's do the same under "mamnet_imdn" (IMDN's
+shapes), "mamnet_imdn_launches_by_path", "mamnet_imdn_dgrad",
+"mamnet_imdn_forward_ms" and "mamnet_imdn_train_step_ms" in the conv3x3
+line, "mamnet_imdn" in the conv3x3_wgrad line, "mamnet" (MAMNet's pair)
+and "mamnet_int8_ms" in the conv3x3_s8 line; its MAMNet forwards and step
+add to the dwconv3x3 lines (by entry under "mamnet_launches_by_entry") and
+its collapsed forwards and step to the conv_kxk lines.
 """
 
 from __future__ import annotations
@@ -775,14 +806,14 @@ def _conv_ok(torch, got, want, dname, f32_atol=F32_ATOL):
 
 
 def kernel_phase(torch, convs=X4_CONVS, label="EDSR-baseline x4", scaled_bar=False,
-                 geometries=(LR_BATCH, RAGGED)):
+                 geometries=(LR_BATCH, RAGGED), slope=0.1):
     """Phase 3 over `convs` (X4_CONVS, LARVANET_CONVS, 16a's BRANCHY_CONVS or
     17a's), whose launch counts are per forward of `label`. With
     `scaled_bar` (16a, 17a) the f32 bar grows with the products a value
     sums, as phase 14a's (F32_ATOL x 9 C / KXK_F32_TERMS, at least
     F32_ATOL): the fuse's C = 384 sums six times phase 3's. `geometries`:
     the (N, H, W) LR geometries, the first the one the per-forward sums are
-    taken at. Returns ({dtype: per-forward sums at the first geometry},
+    taken at; `slope` leaky_relu's (18a: IMDN's 0.05). Returns ({dtype: per-forward sums at the first geometry},
     {dtype: the same over the tensor-core convs}, {dtype: worst error},
     {dtype: the narrow path's numbers by geometry})."""
     import torch.nn.functional as F
@@ -813,13 +844,13 @@ def kernel_phase(torch, convs=X4_CONVS, label="EDSR-baseline x4", scaled_bar=Fal
                     raise AssertionError("%s %s: path_for names %s, not %s"
                                          % (name, dname, path, expected))
                 before = dict(conv3x3.LAUNCHES_BY_PATH)
-                got = conv3x3_bias_act(x, k32, b32, act)
+                got = conv3x3_bias_act(x, k32, b32, act, slope=slope)
                 torch.cuda.synchronize()  # a fault during the run shows here
                 took = {p: conv3x3.LAUNCHES_BY_PATH[p] - before[p] for p in before}
                 if took != {p: int(p == path) for p in before}:
                     raise AssertionError("%s %s: launches by path %s, expected one on %s"
                                          % (name, dname, took, path))
-                want = conv3x3_bias_act_reference(x, k32, b32, act)
+                want = conv3x3_bias_act_reference(x, k32, b32, act, slope)
                 f32_bar = F32_ATOL * (max(1.0, 9 * c / KXK_F32_TERMS) if scaled_bar else 1.0)
                 ok, err = _conv_ok(torch, got, want, dname, f32_bar)
                 worst[dname] = max(worst[dname], err)
@@ -831,14 +862,14 @@ def kernel_phase(torch, convs=X4_CONVS, label="EDSR-baseline x4", scaled_bar=Fal
                 x_nchw = x.permute(0, 3, 1, 2)  # channels_last view of NHWC
                 b_lib = b32.to(dtype)
                 stream = torch.cuda.current_stream().cuda_stream
-                fns = {"kernel": lambda: conv3x3_bias_act(x, k32, b32, act),
+                fns = {"kernel": lambda: conv3x3_bias_act(x, k32, b32, act, slope=slope),
                        "F.conv2d": lambda: F.conv2d(x_nchw, w_oihw, b_lib, padding=1),
-                       "plain": lambda: conv3x3_bias_act_reference(x, k32, b32, act)}
+                       "plain": lambda: conv3x3_bias_act_reference(x, k32, b32, act, slope)}
                 err_cc = None
                 if path != "cuda_core":
                     # the CUDA-core entry on the same inputs: the earlier kernel
                     cc = conv3x3._entry(dtype, "cuda_core")
-                    got_cc = conv3x3._run(cc, x, k32, b32, act, stream)
+                    got_cc = conv3x3._run(cc, x, k32, b32, act, stream, slope=slope)
                     torch.cuda.synchronize()
                     ok_cc, err_cc = _conv_ok(torch, got_cc, want, dname, f32_bar)
                     if not ok_cc:
@@ -846,7 +877,8 @@ def kernel_phase(torch, convs=X4_CONVS, label="EDSR-baseline x4", scaled_bar=Fal
                                              "plain version, max |d| = %g" % (
                                                  name, dname, err_cc))
                     del got_cc
-                    fns["cuda_core"] = lambda: conv3x3._run(cc, x, k32, b32, act, stream)
+                    fns["cuda_core"] = lambda: conv3x3._run(cc, x, k32, b32, act, stream,
+                                                            slope=slope)
                 if path == "narrow":
                     # a yardstick of the bytes side: one PyTorch reduction that
                     # reads x once
@@ -1128,11 +1160,14 @@ def larvanet_base(torch, model, img_chw):
 def sr_base(torch, module, x):
     """The part of `module`'s x4 output on the NHWC batch `x` that is not
     its network's: the interpolated base (models/layers.interpolated_base
-    on x in its dtype, as the forward takes it), or for ebrn and ebrn_rm
-    the inverse mean shift's constant, broadcast."""
+    on x in its dtype, as the forward takes it), or for ebrn, ebrn_rm,
+    MAMNet and IMDN the inverse mean shift's constant, broadcast."""
+    from larvanet_tpu_torch.models.imdn import IMDNModule
     from larvanet_tpu_torch.models.layers import interpolated_base
+    from larvanet_tpu_torch.models.mamnet import MAMNetModule
 
-    if getattr(module, "bilinear_base", None) is False or hasattr(module, "recon_layer"):
+    if (getattr(module, "bilinear_base", None) is False or hasattr(module, "recon_layer")
+            or isinstance(module, (MAMNetModule, IMDNModule))):
         n, h, w, _ = x.shape
         return module.mean_inverse_shift.bias.to(x.dtype).expand(n, 4 * h, 4 * w, 3)
     method = ("bilinear" if getattr(module, "bilinear_base", False)
@@ -1143,8 +1178,9 @@ def sr_base(torch, module, x):
 def serve_phase(torch, device="cuda", dtype_name="f32", model_name="edsr"):
     """Phase 4 (EDSR-baseline x4), 4b (`model_name` a LarvaNet preset, at
     LARVANET_FLAGS), 15c (an MSRR_MODELS name at full width), 16b (a
-    BRANCHY_MODELS name, its residual fitted by fit_branchy) or 17b (an
-    SR_MODELS name, its residual fitted by fit_sr_residual) with
+    BRANCHY_MODELS name, its residual fitted by fit_branchy), 17b (an
+    SR_MODELS name, its residual fitted by fit_sr_residual) or 18b (an
+    MI_MODELS name, fitted the same way; MAMNet on the collapsed tail) with
     --serving_dtype `dtype_name`. Returns the conv3x3
     launches counted while serving, the same by path, and the served
     model."""
@@ -1178,6 +1214,10 @@ def serve_phase(torch, device="cuda", dtype_name="f32", model_name="edsr"):
             save_sr_model(torch, pth, model_name, frames[0], device)
             model_flags = ["--model", model_name] + flags
             per_kxk = NO_KXK
+        elif model_name in MI_MODELS:
+            _, per_forward, per_kxk, _ = MI_MODELS[model_name]
+            save_mi_model(torch, pth, model_name, frames[0], device)
+            model_flags = ["--model", model_name]
         elif larva:
             save_larvanet(torch, pth, model_name, LARVANET_FLAGS, device)
             model_flags = ["--model", model_name] + LARVANET_FLAGS
@@ -5002,11 +5042,13 @@ def save_branchy(torch, path, name, fit_frame, device="cuda"):
 
 
 def branchy_s8_phase(torch, slope=0.1, pairs=None, res_weights=(1.0, 0.1),
-                     label="REGO RESBlock"):
-    """Phase 16a's s8 half (17a's with ebrn_rm's BRM pair): REGO's RESBlock
+                     label="REGO RESBlock", act="leaky_relu"):
+    """Phase 16a's s8 half (17a's with ebrn_rm's BRM pair, 18a's with
+    MAMNet's MAMBlock pair, `act` relu): REGO's RESBlock
     pair at 64 -> 64 on the 4 x 192x192 batch, bf16 (the CLIs' int8 dtype)
-    and f32: conv_a with leaky_relu(`slope`) and conv_b without a residual
-    (the 'both' pair adds hin + t outside it) at each of `res_weights`
+    and f32: conv_a with `act` (leaky_relu at `slope`) and conv_b without a
+    residual (the 'both' and 'none' pairs add hin + t, or not, outside it)
+    at each of `res_weights`
     (REGO-Net's 1, REGO-serial's 0.1), each bit for bit with its plain
     version, timed in turns as CUDA graph replays of the entry beside the
     plain version and the bound. Returns {dtype: the sums over one int8
@@ -5032,9 +5074,8 @@ def branchy_s8_phase(torch, slope=0.1, pairs=None, res_weights=(1.0, 0.1),
         wa = s8.make_weight(codes_a, sa, s_in, bias_a, dtype, "cuda")
         s_mid = s_in  # leaky_relu keeps both signs: the pre-activation's range
         wb = s8.make_weight(codes_b, sb, s_mid, bias_b, dtype, "cuda")
-        tq = s8.conv_a(hin, wa, s_in, s_mid, "leaky_relu", slope)
-        differ = int((tq != s8.conv_a_reference(hin, wa, s_in, s_mid, "leaky_relu", slope))
-                     .sum())
+        tq = s8.conv_a(hin, wa, s_in, s_mid, act, slope)
+        differ = int((tq != s8.conv_a_reference(hin, wa, s_in, s_mid, act, slope)).sum())
         bits = torch.int16 if dname == "bf16" else torch.int32
         for rw in res_weights:
             got = s8.conv_b(tq, wb, dtype, None, rw)
@@ -5043,19 +5084,19 @@ def branchy_s8_phase(torch, slope=0.1, pairs=None, res_weights=(1.0, 0.1),
         stream = torch.cuda.current_stream
         t = time_windows(torch, {
             "conv_a": graph_replay(torch, lambda: s8._run_a(
-                s8._entry("conv_a", dtype), hin, wa, s_in, s_mid, "leaky_relu",
+                s8._entry("conv_a", dtype), hin, wa, s_in, s_mid, act,
                 stream().cuda_stream, slope)),
             "conv_b": graph_replay(torch, lambda: s8._run_b(
                 s8._entry("conv_b", dtype), tq, wb, dtype, None, 1.0, stream().cuda_stream)),
-            "plain_a": lambda: s8.conv_a_reference(hin, wa, s_in, s_mid, "leaky_relu", slope),
+            "plain_a": lambda: s8.conv_a_reference(hin, wa, s_in, s_mid, act, slope),
             "plain_b": lambda: s8.conv_b_reference(tq, wb, dtype, None, 1.0)})
         bounds = {"conv_a": s8_bound_ms(n, h, w, c, c, item, "conv_a"),
                   "conv_b": s8_bound_ms(n, h, w, c, c, item, "conv_b")}
-        print("s8 %s 64->64 %dx%dx%d %s: conv_a leaky_relu(%g) %s = %.1fx its "
+        print("s8 %s 64->64 %dx%dx%d %s: conv_a %s(%g) %s = %.1fx its "
               "bound %.4f ms (%s; plain %s), conv_b without a residual %s = %.1fx its bound "
               "%.4f ms (%s; plain %s); %d values differ from the plain versions (conv_b at "
               "res_weight %s)" % (
-                  label, n, h, w, dname, slope, spread(t["conv_a"]),
+                  label, n, h, w, dname, act, slope, spread(t["conv_a"]),
                   t["conv_a"][0] / bounds["conv_a"][0],
                   *bounds["conv_a"], spread(t["plain_a"]), spread(t["conv_b"]),
                   t["conv_b"][0] / bounds["conv_b"][0], *bounds["conv_b"],
@@ -5452,14 +5493,18 @@ def sr_model(name, device="cuda", extra=(), is_training=False):
 
 
 def fit_sr_residual(torch, model, x):
-    """Scale a random EBRN- or HRSR-family model so that its residual over its
-    base (`sr_base`) on `x` (NHWC on the card) has a std of SR_RESIDUAL_STD.
+    """Scale a random EBRN-, HRSR-family, MAMNet or IMDN model so that its
+    residual over its base (`sr_base`) on `x` (NHWC on the card) has a std
+    of SR_RESIDUAL_STD.
     HRSR's residual, at its init (zero biases, ReLU and LeakyReLU), is
-    positively homogeneous in first_conv's weight, scaled alone; EBRN's and
-    ebrn_rm's is linear in the last conv's weight and bias (recon_layer,
-    upsample.body.0), both scaled, and where the base is the inverse mean
-    shift the last bias moves the output's mean to mid-grey, so that the
-    served frames span the pixel range."""
+    positively homogeneous in first_conv's weight, scaled alone; EBRN's,
+    ebrn_rm's, MAMNet's and IMDN's is linear in the last conv's weight and
+    bias (recon_layer, MAMNet's final_conv, upsample.body.0), both scaled,
+    and where the base is the inverse mean shift the last bias moves the
+    output's mean to mid-grey, so that the served frames span the pixel
+    range."""
+    from larvanet_tpu_torch.models.mamnet import MAMNetModule
+
     module = model.module
     with torch.no_grad():
         res = module(x) - sr_base(torch, module, x)
@@ -5467,7 +5512,8 @@ def fit_sr_residual(torch, model, x):
         if hasattr(module, "lr_res_blocks"):
             module.first_conv.weight.mul_(a)
             return
-        last = module.recon_layer if hasattr(module, "recon_layer") else module.upsample.body[0]
+        last = (module.recon_layer if hasattr(module, "recon_layer") else module.final_conv
+                if isinstance(module, MAMNetModule) else module.upsample.body[0])
         last.weight.mul_(a)
         last.bias.mul_(a)
         if not getattr(module, "bilinear_base", False):
@@ -5793,6 +5839,373 @@ def sr_phase(torch):
                 step_ms=step_ms)
 
 
+# ---- phase 18: MAMNet and IMDN ----------------------------------------------------
+
+# 18a: IMDN's new conv shapes (X4_CONVS' format) at its leaky_relu slope, with
+# their launches per x4 forward: conv2 and conv3 48 -> 64 (two a block, 8
+# blocks), conv4 48 -> 16, the upsample conv 64 -> 3 s^2 (48 at x4; 27 at x3, on
+# the CUDA cores, no x4 launch)
+IMDN_CONVS = (
+    ("IMDN conv2/conv3 48->64 leaky", 1, 48, 64, "leaky_relu", 16, "tensor_core"),
+    ("IMDN conv4 48->16 leaky", 1, 48, 16, "leaky_relu", 8, "tensor_core"),
+    ("IMDN upsample 64->48", 1, 64, 48, None, 1, "tensor_core"),
+    ("IMDN upsample x3 64->27", 1, 64, 27, None, 0, "cuda_core"),
+)
+IMDN_SLOPE = 0.05
+# IMDN's new weight-gradient shapes at batch 16 x 48x48 (TRAIN_WGRAD's format)
+# and the input gradient no forward has (conv4's, 16 -> 48; TRAIN_DGRAD's)
+IMDN_WGRAD = (("IMDN conv4 48->16", 1, 48, 16, 8), ("IMDN conv2/3 48->64", 1, 48, 64, 16))
+IMDN_DGRAD = (("IMDN conv4 16->48", 1, 16, 48),)
+# 18b: name -> (parameters, conv3x3 launches a x4 forward by path on the CLIs'
+# default route, conv_kxk launches, dwconv3x3 launches): MAMNet on the collapsed
+# tail (first_conv on the CUDA cores, its 32 block convs and after_res_conv on the
+# tensor cores, the tail's 4 conv_kxk launches, 16 CSD launches); IMDN's module
+# (first_conv; 32 block convs, after_res_conv, the upsample conv)
+MI_MODELS = {
+    "mamnet": (1537091, {"cuda_core": 1, "tensor_core": 33, "narrow": 0}, KXK_LAUNCHES, 16),
+    "imdn_aim2019": (893936, {"cuda_core": 1, "tensor_core": 34, "narrow": 0}, NO_KXK, 0),
+}
+# MAMNet under --packed_trunk 0: the module's own tail, EDSR's 37 convs
+MAMNET_MODULE = {"cuda_core": 1, "tensor_core": 35, "narrow": 1}
+# MAMNet's --int8_trunk forward: a pair each MAMBlock, first_conv and
+# after_res_conv exact, the baked tail, the 16 CSDs
+MAMNET_INT8 = ({"conv_a": 16, "conv_b": 16}, {"cuda_core": 1, "tensor_core": 1, "narrow": 0})
+# IMDN's rem1 / rem2 / rem3 copies a forward: three a block
+IMDN_COPIES = 24
+# 18c: one train step at batch 16 x 48x48: MAMNet on its default route (the live
+# collapsed tail, the loss before the shuffle: EDSR's collapsed step, phase 14c,
+# and the CSDs' depthwise forward, input and weight gradients); IMDN's module
+# (35 forward; 34 dgrads, none for first_conv; 35 wgrads, first_conv's on the
+# CUDA cores)
+MI_TRAIN = {
+    "mamnet": dict(TRAIN_COLLAPSED_LAUNCHES, dw={"forward": 16, "dgrad": 16, "wgrad": 16},
+                   kxk=TRAIN_COLLAPSED_KXK),
+    "imdn_aim2019": {"forward": {"cuda_core": 1, "tensor_core": 34, "narrow": 0},
+                     "dgrad": {"cuda_core": 0, "tensor_core": 34, "narrow": 0},
+                     "wgrad": {"tensor_core": 34, "narrow": 0, "cuda_core": 1},
+                     "dw": {"forward": 0, "dgrad": 0, "wgrad": 0},
+                     "kxk": {"forward": {"cuda_core": 0, "tensor_core": 0},
+                             "dgrad": {"cuda_core": 0, "tensor_core": 0}, "wgrad": 0}},
+}
+# the device split's kernel kinds: the s8 kernel's name holds "conv3x3"
+MI_KINDS = ("s8", "dw_", "conv_kxk", "conv3x3")
+
+
+def mi_model(name, device="cuda", is_training=False):
+    """An MI_MODELS model x4 at full width, random weights from SEED."""
+    from larvanet_tpu_torch.core.registry import get_model
+
+    model = get_model(name)
+    model.parse_args([])
+    model.prepare([4], device=device, seed=SEED, is_training=is_training)
+    if model.num_parameters() != MI_MODELS[name][0]:
+        raise AssertionError("%s x4 has %d parameters, not %d"
+                             % (name, model.num_parameters(), MI_MODELS[name][0]))
+    return model
+
+
+def save_mi_model(torch, path, name, fit_frame, device="cuda", seed=SEED):
+    """An MI_MODELS model, fitted on the CHW frame `fit_frame`
+    (fit_sr_residual), saved as the port module's own state_dict."""
+    model = mi_model(name, device)
+    if seed != SEED:
+        model.prepare([4], device=device, seed=seed)
+    fit_sr_residual(torch, model, model._input_to_device([fit_frame]))
+    torch.save(model.module.state_dict(), path)
+
+
+def _counted_mi(torch, fn):
+    """fn() counted as _counted_msrr counts it, with conv_kxk's launches by
+    path and IMDN's slice copies: (result, conv3x3 by path, dwconv3x3 by
+    entry, s8 by entry, conv_kxk by path, copies)."""
+    from larvanet_tpu_torch.models import imdn
+    from larvanet_tpu_torch.ops import conv_kxk as ck
+
+    ck.reset_launches()
+    imdn.reset_slice_copies()
+    out, conv, dw, s8l = _counted_msrr(torch, fn)
+    return out, conv, dw, s8l, kxk_launches(ck), imdn.SLICE_COPIES
+
+
+def mi_forward_phase(torch):
+    """Phase 18b's forwards and 18c's int8. Each MI_MODELS model x4 at full
+    width, fitted (fit_sr_residual), on the 4 x 192x192 batch in f32 and
+    bf16 on the CLIs' default route (maybe_collapse_tail: MAMNet's collapsed
+    tail): one counted forward (MI_MODELS' launches; IMDN's slice copies),
+    held against the same forward with every kernel's plain version within
+    FWD_RTOL (bf16: BF16_FWD_RTOL) of the residual over the base, timed with
+    its device split. MAMNet also: its module graph (--packed_trunk 0),
+    counted and held; its --int8_trunk route (calibrated on the batch's 96 x
+    96 corner), counted (MAMNET_INT8), held against the plain versions'
+    int8 forward (INT8_FWD_PSNR_DB), timed. IMDN: one block's three slice
+    copies timed at the batch's size. Returns the counted launches
+    ({"conv3x3", "s8", "dw"}) and {model: {route: ms}}."""
+    from types import SimpleNamespace
+
+    from larvanet_tpu_torch.cli import common
+
+    totals, times = {"conv3x3": {}, "s8": {}, "dw": {}}, {}
+    n, h, w = LR_BATCH
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 28)
+    x = 255.0 * torch.rand((n, h, w, 3), generator=gen, device="cuda")
+
+    def run(label, model, per_conv, per_kxk, per_dw, copies, dname):
+        got, conv, dwl, _, kxk, made = _counted_mi(torch, lambda: model.fwd_runtime(x))
+        if conv != per_conv or dwl["forward"] != per_dw or made != copies:
+            raise AssertionError("%s: conv3x3 %s, dwconv3x3 %s, copies %d" % (
+                label, conv, dwl, made))
+        expect_kxk(label, kxk, per_kxk, 1)
+        _add(totals["conv3x3"], conv)
+        _add(totals["dw"], dwl)
+        with plain_versions():
+            ref = model.fwd_runtime(x)
+        base = sr_base(torch, model.module, x.to(model.compute_dtype)).float()
+        residual = float((ref - base).abs().max())
+        err = float((got - ref).abs().max())
+        bar = (FWD_RTOL if dname == "f32" else BF16_FWD_RTOL) * residual
+        if err > bar or not bool(torch.isfinite(got).all()) or residual < 1.0:
+            raise AssertionError("%s forward disagrees with the plain versions" % label)
+        return conv, dwl, kxk, err, bar, residual
+
+    for name, (_, per_conv, per_kxk, per_dw) in MI_MODELS.items():
+        model = mi_model(name)
+        fit_sr_residual(torch, model, x[:1])
+        common.maybe_collapse_tail(model, SimpleNamespace(model=name, collapsed_tail=1))
+        copies = IMDN_COPIES if name == "imdn_aim2019" else 0
+        times[name] = {}
+        for dname in ("f32", "bf16"):
+            model.set_serving_dtype(dname)
+            label = "%s x4 %s" % (name, dname)
+            conv, dwl, kxk, err, bar, residual = run(label, model, per_conv, per_kxk, per_dw,
+                                                     copies, dname)
+            tm = time_windows(torch, {"forward": lambda: model.fwd_runtime(x)})["forward"]
+            times[name][dname] = tm[0]
+            print("mi forward %s %s: conv3x3 %s, conv_kxk %s, dwconv3x3 %s, slice copies %d; "
+                  "max |d| %.3g against the plain versions (bar %.3g, residual max |y| %.3g); "
+                  "%s per forward, %.3f LR-MP/s; %s" % (
+                      label, (n, h, w), conv, kxk, dwl, copies, err, bar, residual,
+                      spread(tm), n * h * w / 1e3 / tm[0],
+                      breakdown_line(torch, lambda: model.fwd_runtime(x), tm[0], MI_KINDS)),
+                  flush=True)
+        model.set_serving_dtype("f32")
+        if name == "mamnet":
+            route = model.route
+            model.set_route(None)  # --packed_trunk 0: the module graph
+            conv, _, kxk, err, bar, _ = run("mamnet x4 --packed_trunk 0", model,
+                                            MAMNET_MODULE, NO_KXK, per_dw, 0, "f32")
+            print("mi forward mamnet x4 --packed_trunk 0 (the module graph): conv3x3 %s, "
+                  "conv_kxk %s; max |d| %.3g against the plain versions (bar %.3g)"
+                  % (conv, kxk, err, bar), flush=True)
+            model.set_route(route)
+            want_s8, want_conv = MAMNET_INT8
+            common.maybe_int8_trunk(model, SimpleNamespace(int8_trunk=1, model=name),
+                                    lambda: x[:, :96, :96].cpu().numpy())
+            got, conv, dwl, s8l, kxk, _ = _counted_mi(torch, lambda: model.fwd_runtime(x))
+            if s8l != want_s8 or conv != want_conv or dwl["forward"] != per_dw:
+                raise AssertionError("mamnet int8 forward: s8 %s, conv3x3 %s, dwconv3x3 %s"
+                                     % (s8l, conv, dwl))
+            expect_kxk("mamnet x4 --int8_trunk", kxk, KXK_LAUNCHES, 1)
+            for key, part in (("s8", s8l), ("conv3x3", conv), ("dw", dwl)):
+                _add(totals[key], part)
+            with plain_versions(), _plain_s8():
+                ref = model.fwd_runtime(x)
+            psnr = _psnr(got, ref)
+            exact = model.int8_exact_forward(x).float()
+            tm = time_windows(torch, {"forward": lambda: model.fwd_runtime(x)})["forward"]
+            times[name]["int8"] = tm[0]
+            print("mi forward mamnet x4 --int8_trunk (bf16): s8 %s, conv3x3 %s, conv_kxk %s, "
+                  "dwconv3x3 %s; PSNR %.2f dB against the plain versions' int8 forward (bar "
+                  "%.1f), %.2f dB against the exact f32 forward; %s per forward; %s" % (
+                      s8l, conv, kxk, dwl, psnr, INT8_FWD_PSNR_DB, _psnr(got, exact),
+                      spread(tm), breakdown_line(torch, lambda: model.fwd_runtime(x), tm[0],
+                                                 MI_KINDS)), flush=True)
+            if psnr < INT8_FWD_PSNR_DB:
+                raise AssertionError("mamnet int8 forward disagrees with the plain one")
+            del got, ref, exact
+        else:
+            t = torch.randn((n, h, w, 64), device="cuda")
+            tm = time_windows(torch, {"copy": lambda: t[..., 16:].contiguous()})["copy"]
+            bound = 1e3 * 2 * 4 * n * h * w * 48 / PEAK_BYTES
+            times[name]["slice_copy"] = tm[0]
+            print("mi imdn slice copy (rem, 48 of 64 channels) at %s f32: %s, bound %.4f ms "
+                  "(bytes); %d a forward: %.4f ms, %.1f%% of the f32 forward"
+                  % ((n, h, w), spread(tm), bound, IMDN_COPIES, IMDN_COPIES * tm[0],
+                     100.0 * IMDN_COPIES * tm[0] / times[name]["f32"]), flush=True)
+            del t
+        del model
+        torch.cuda.empty_cache()
+    return totals, times
+
+
+def mi_train_phase(torch):
+    """Phase 18c's steps. MAMNet (its default route: the live collapsed tail,
+    the loss before the shuffle) and IMDN x4 at full width trained at batch
+    16 x 48x48, f32, on a set of phase 8's kind: one batch's loss and
+    gradients against the same Functions with the plain dgrad and wgrad on
+    the kernels' forward (check_train_grads), a counted step (MI_TRAIN:
+    conv3x3, wgrad, dwconv3x3 and conv_kxk by entry), a step timed (3
+    windows of 5) with its split. Returns the counted steps' launches and
+    {model: ms a step}."""
+    import numpy as np
+
+    from larvanet_tpu_torch.core.registry import get_loader
+    from larvanet_tpu_torch.ops import conv_kxk as ck
+    from larvanet_tpu_torch.ops import dwconv3x3 as dw
+
+    batch, patch = TRAIN_BATCH, TRAIN_PATCH
+    steps, times = [], {}
+    with tempfile.TemporaryDirectory() as tmp:
+        write_train_set(tmp, np.random.default_rng(SEED + 29), SR_TRAIN_FRAMES, SR_TRAIN_LR)
+        loader = get_loader("div2k_train_loader")
+        loader.parse_args(["--data_input_path", os.path.join(tmp, "LR"), "--data_truth_path",
+                           os.path.join(tmp, "HR"), "--data_cached", "--data_seed", str(SEED)])
+        loader.prepare([4])
+        loader.reseed_for_step(0)
+        lr_nhwc, hr_nhwc = loader.get_patch_batch_nhwc(batch, 4, patch)
+    x, t = torch.from_numpy(lr_nhwc).cuda(), torch.from_numpy(hr_nhwc).cuda()
+    for name, want in MI_TRAIN.items():
+        t0 = time.perf_counter()
+        model = mi_model(name, is_training=True)
+        label = "%s x4" % name
+        if name == "mamnet" and model.train_tail_route(patch) != "lr_domain":
+            raise AssertionError("mamnet trains on %s" % model.train_tail_route(patch))
+        check_train_grads(torch, model, x, t, label, batch, patch, same_forward=True)
+        t1 = time.perf_counter()
+        step = lambda: model.train_step(lr_nhwc, 4, hr_nhwc)  # noqa: E731
+        dw.reset_launches()
+        ck.reset_launches()
+        launches = counted_step(torch, step)
+        dgrad = dict(ck.DGRAD_LAUNCHES_BY_PATH)
+        launches["dw"] = dict(dw.LAUNCHES_BY_ENTRY)
+        launches["kxk"] = {"forward": {p: ck.LAUNCHES_BY_PATH[p] - dgrad[p] for p in dgrad},
+                           "dgrad": dgrad, "wgrad": ck.WGRAD_LAUNCHES}
+        print("launches: dwconv3x3 %s, conv_kxk %s" % (launches["dw"], launches["kxk"]),
+              flush=True)
+        if launches != want:
+            raise AssertionError("%s train step launches %s, not %s" % (label, launches, want))
+        steps.append(launches)
+        tm = time_windows(torch, {"train_step": step}, windows=3, reps=5)["train_step"]
+        t2 = time.perf_counter()
+        train_step_split(torch, model, x, t, step, label, batch, patch, "f32", tm,
+                         reps=SPLIT_REPS)
+        times[name] = tm[0]
+        print("18c %s: %.1f s checking the gradients, %.1f s counting and timing, %.1f s "
+              "profiling" % (label, t1 - t0, t2 - t1, time.perf_counter() - t2), flush=True)
+        del model
+        torch.cuda.empty_cache()
+    return steps, times
+
+
+def mi_cli_phase(torch):
+    """Phase 18d. The CLIs on the fitted models, saved as .pth, each run
+    counted: validate on MAMNet over phase 6's set (its collapsed route made
+    inside the run: one tail probe), get_sr on IMDN over its LR frames, test
+    on MAMNet over a SynSetReal tree, runtime on MAMNet at the DIV2K x4 LR
+    size 339x510, train on IMDN for 2 steps (a checkpoint each) and
+    psnr_trend over those two checkpoints (IMDN's module). Returns the
+    conv3x3 launches by path."""
+    import numpy as np
+
+    from larvanet_tpu_torch.cli import get_sr, psnr_trend, runtime, test, train, validate
+
+    total = {}
+    frames = len(VALIDATE_LR) + 1
+    rng = np.random.default_rng(SEED + 30)
+    with tempfile.TemporaryDirectory() as tmp:
+        write_validate_set(tmp)
+        write_test_set(tmp, rng)
+        pths = {}
+        for name in MI_MODELS:
+            pths[name] = os.path.join(tmp, name + ".pth")
+            save_mi_model(torch, pths[name], name, photo(rng, 96, 128))
+        lr_dir = os.path.join(tmp, "all", "LR")
+        data = ["--data_input_path", lr_dir, "--data_truth_path", os.path.join(tmp, "all", "HR")]
+        run_dir = os.path.join(tmp, "imdn_run")
+        runs = [
+            ("validate mamnet", frames, "mamnet", 1, lambda: validate.main([
+                "--model", "mamnet", "--device", "cuda", "--restore_path", pths["mamnet"]]
+                + data)),
+            ("get_sr imdn_aim2019", frames, "imdn_aim2019", 0, lambda: get_sr.main([
+                "--model", "imdn_aim2019", "--device", "cuda", "--restore_path",
+                pths["imdn_aim2019"], "--input_path", os.path.join(lr_dir, "X4"),
+                "--output_path", os.path.join(tmp, "sr")])),
+            ("test mamnet", len(TEST_FRAMES), "mamnet", 1, lambda: test.main([
+                "--model", "mamnet", "--device", "cuda", "--restore_path", pths["mamnet"],
+                "--input_root_path", os.path.join(tmp, "test_LR"), "--truth_root_path",
+                os.path.join(tmp, "test_HR"), "--output_root_path", os.path.join(tmp, "out"),
+                "--datasets", "SynSetReal"])),
+            ("runtime mamnet", None, "mamnet", 1, lambda: runtime.main([
+                "--model", "mamnet", "--device", "cuda", "--restore_path", pths["mamnet"],
+                "--input_height", str(RAGGED[1]), "--input_width", str(RAGGED[2]),
+                "--num_warmup", "1", "--num_iters", "3"])),
+        ]
+        for label, forwards, name, probes, run in runs:
+            result, conv, _ = counted(torch, run)
+            per, per_kxk = MI_MODELS[name][1], MI_MODELS[name][2]
+            if forwards is None:  # runtime: its warmup and timed forwards
+                forwards = sum(LAST_KXK.values()) // sum(per_kxk.values())
+            print("%s x4: %s" % (label, result), flush=True)
+            expect_forwards(label, conv, per, forwards, kxk=per_kxk, probes=probes)
+            _add(total, conv)
+        if len(os.listdir(os.path.join(tmp, "sr"))) != frames:
+            raise AssertionError("get_sr imdn wrote %s" % os.listdir(os.path.join(tmp, "sr")))
+        _, losses = train.main([
+            "--dataloader", "div2k_train_loader", "--model", "imdn_aim2019", "--scales", "4",
+            "--device", "cuda", "--batch_size", "4", "--input_patch_size", "32",
+            "--max_steps", "2", "--save_freq", "1", "--log_freq", "1", "--train_path",
+            run_dir, "--data_cached"] + data)
+        if sorted(losses) != [1, 2] or not all(np.isfinite(v) for v in losses.values()):
+            raise AssertionError("train imdn_aim2019: losses %s" % (losses,))
+        trend, conv, _ = counted(torch, lambda: psnr_trend.main([
+            "--model", "imdn_aim2019", "--device", "cuda", "--restore_dir", run_dir] + data))
+        print("psnr_trend imdn_aim2019 x4 over %s: %s" % (sorted(os.listdir(run_dir)), trend),
+              flush=True)
+        if [n for n, _ in trend] != ["model_1.pth", "model_2.pth"]:
+            raise AssertionError("psnr_trend swept %s" % (trend,))
+        expect_forwards("psnr_trend imdn_aim2019", conv, MI_MODELS["imdn_aim2019"][1],
+                        2 * frames, kxk=NO_KXK)
+        _add(total, conv)
+    return total
+
+
+def mi_phase(torch):
+    """Phase 18: 18a-18d, each one's seconds printed. Returns what the
+    kernels line takes."""
+    t0 = time.perf_counter()
+    seconds = {}
+
+    def lap(part):
+        seconds[part] = time.perf_counter() - t0 - sum(seconds.values())
+
+    conv_sums, _, conv_worst, _ = kernel_phase(torch, IMDN_CONVS, "IMDN x4 (its new shapes)",
+                                               scaled_bar=True, geometries=(LR_BATCH,),
+                                               slope=IMDN_SLOPE)
+    wgrad = train_kernel_phase(torch, IMDN_WGRAD, IMDN_DGRAD, "IMDN x4 (its new shapes)")
+    s8_pair = branchy_s8_phase(torch, pairs=MAMNET_INT8[0]["conv_a"], res_weights=(1.0,),
+                               label="MAMNet MAMBlock", act="relu")
+    lap("18a")
+    served = {}
+    for name, dtype_name in (("mamnet", "f32"), ("mamnet", "bf16"), ("imdn_aim2019", "f32"),
+                             ("imdn_aim2019", "bf16")):
+        _, by_path, model = serve_phase(torch, dtype_name=dtype_name, model_name=name)
+        _add(served, by_path)
+        del model
+    forwards, forward_ms = mi_forward_phase(torch)
+    lap("18b")
+    steps, step_ms = mi_train_phase(torch)
+    lap("18c")
+    cli_conv = mi_cli_phase(torch)
+    lap("18d")
+    print("phase 18: %.1f s (%s)" % (time.perf_counter() - t0, ", ".join(
+        "%s %.1f s" % kv for kv in seconds.items())), flush=True)
+    conv = dict(served)
+    for part in (forwards["conv3x3"], cli_conv):
+        _add(conv, part)
+    return dict(conv_sums=conv_sums, conv_worst=conv_worst, wgrad=wgrad, s8_pair=s8_pair,
+                conv=conv, s8=forwards["s8"], dw=forwards["dw"], forward_ms=forward_ms,
+                steps=steps, step_ms=step_ms)
+
+
 def print_sass_mix(build):
     """The instruction mix of each tensor-core and narrow kernel in the
     built libraries (cuobjdump -sass): ldmatrix, tensor-core products,
@@ -5918,11 +6331,19 @@ def main() -> int:
     torch.cuda.empty_cache()
     sr = sr_phase(torch)
     trained.extend(sr["steps"])
-    family_conv = dict(msrr_conv)  # phases 15's, 16's and 17's counted runs
-    for part in (branchy["conv"], sr["conv"]):
+    torch.cuda.empty_cache()
+    mi = mi_phase(torch)
+    trained.extend(mi["steps"])
+    family_conv = dict(msrr_conv)  # phases 15's to 18's counted runs
+    for part in (branchy["conv"], sr["conv"], mi["conv"]):
         _add(family_conv, part)
-    for part in (branchy["s8"], sr["s8"]):
+    for part in (branchy["s8"], sr["s8"], mi["s8"]):
         _add(s8_by_entry, part)
+    # phase 18's MAMNet forwards and steps: its 16 CSDs a forward
+    mi_dw = dict(mi["dw"])
+    for run in mi["steps"]:
+        _add(mi_dw, run["dw"])
+    _add(dw_by_entry, mi_dw)
 
     kernels = [{
         "name": "conv3x3_bias_act",
@@ -5996,6 +6417,17 @@ def main() -> int:
         "ebrn_hrsr_forward_ms": sr["forward_ms"],
         "ebrn_hrsr_train_step_ms": sr["step_ms"],
         "ebrn_hrsr_dgrad": sr["wgrad"][4],
+        # phase 18 (MAMNet and IMDN): 18a's IMDN shapes at leaky_relu(0.05)
+        # summed over one IMDN x4 forward's launches of them per dtype with
+        # the largest error; the forwards' (and IMDN's slice copy's) and
+        # steps' ms by model (18b-18c); conv4's 16 -> 48 input gradient; the
+        # phase's counted serving, forward and CLI launches by path
+        "mamnet_imdn": {d: dict(mi["conv_sums"][d], max_abs_err=mi["conv_worst"][d])
+                        for d in ("f32", "bf16")},
+        "mamnet_imdn_launches_by_path": mi["conv"],
+        "mamnet_imdn_forward_ms": mi["forward_ms"],
+        "mamnet_imdn_train_step_ms": mi["step_ms"],
+        "mamnet_imdn_dgrad": mi["wgrad"][4],
     }, {
         "name": "conv3x3_wgrad",
         "route": "cuda",
@@ -6042,6 +6474,11 @@ def main() -> int:
         "ebrn_hrsr": dict(sr["wgrad"][0], bound_by=sr["wgrad"][1],
                           max_abs_err=sr["wgrad"][2], max_rel_err=sr["wgrad"][3],
                           shapes=sr["wgrad"][5]),
+        # phase 18a: IMDN's 48 -> 16 and 48 -> 64 at 16 x 48x48, f32, summed
+        # over one IMDN step's 24 launches of them, and each shape's numbers
+        "mamnet_imdn": dict(mi["wgrad"][0], bound_by=mi["wgrad"][1],
+                            max_abs_err=mi["wgrad"][2], max_rel_err=mi["wgrad"][3],
+                            shapes=mi["wgrad"][5]),
     }]
     for m, line in ((2, 205), (4, 336)):
         wsums, werr = wino[m]
@@ -6108,6 +6545,11 @@ def main() -> int:
         "ebrn_hrsr_int8_ms": {k: v["int8"] for k, v in sr["forward_ms"].items()
                               if "int8" in v},
         "ebrn_hrsr": sr["s8_pair"],
+        # phase 18b's --int8_trunk forward of MAMNet (ms, bf16), and 18a's
+        # MAMBlock pair (conv_a relu, conv_b without a residual) summed over
+        # one MAMNet int8 forward's 16 pairs
+        "mamnet_int8_ms": mi["forward_ms"]["mamnet"]["int8"],
+        "mamnet": mi["s8_pair"],
         "f32": dict(s8_sums["f32"], max_abs_err=s8_errs["f32"]),
         "shapes": s8_rows,
         # phase 11a's widths past one code halo (the chunked plan): the
@@ -6115,16 +6557,19 @@ def main() -> int:
         "wide": s8_wide,
     })
     kxk_by_path = dict(KXK_FORWARDS)
-    for part in (collapsed_train["kxk"]["forward"], collapsed_train["kxk"]["dgrad"]):
-        _add(kxk_by_path, part)
+    kxk_steps = [collapsed_train["kxk"]] + [run["kxk"] for run in mi["steps"]]
+    for run in kxk_steps:
+        for part in (run["forward"], run["dgrad"]):
+            _add(kxk_by_path, part)
     kernels.append({
         "name": "conv_kxk",
         "route": "cuda",
         "source": "larvanet_tpu_torch/csrc/conv_kxk.cu",
         "replaces": "larvanet_tpu/ops/collapsed_tail.py:330 (XLA's lax.conv_general_dilated "
                     "of the collapsed tail; no Pallas kernel)",
-        # the counted collapsed forwards of phases 4, 5, 6, 7, 10, 11 and 14,
-        # and phase 14c's train step (its forward and input gradient)
+        # the counted collapsed forwards of phases 4, 5, 6, 7, 10, 11, 14 and
+        # 18 (MAMNet's), and phase 14c's and 18c's train steps (their
+        # forwards and input gradients)
         "launches": sum(kxk_by_path.values()),
         "launches_by_path": kxk_by_path,
         "max_abs_err": kxk_worst["f32"],
@@ -6151,8 +6596,8 @@ def main() -> int:
         "source": "larvanet_tpu_torch/csrc/conv_kxk.cu",
         "replaces": "larvanet_tpu/ops/collapsed_tail.py:330 (XLA's weight gradient of the "
                     "live collapsed tail's conv; no Pallas kernel)",
-        # phase 14c's counted train step
-        "launches": collapsed_train["kxk"]["wgrad"],
+        # phase 14c's and 18c's (MAMNet's) counted train steps
+        "launches": sum(run["wgrad"] for run in kxk_steps),
         "max_abs_err": kxk_wgrad["f32"]["max_abs_err"],
         "max_rel_err": kxk_wgrad["f32"]["max_rel_err"],
         # the 5x5 64 -> 48 weight gradient at batch 16 x 48x48 (tensor cores),
@@ -6176,9 +6621,11 @@ def main() -> int:
         "route": "cuda",
         "source": "larvanet_tpu_torch/csrc/dwconv3x3.cu",
         "replaces": "larvanet_tpu/models/layers.py:199 (XLA's feature_group_count conv of "
-                    "DepthwiseSeparableResBlock; no Pallas kernel)",
-        # phase 15c's counted dwsr_reduced forwards and 15d's counted steps:
-        # the forward entry, and the same entry as the input gradient
+                    "DepthwiseSeparableResBlock and of MAMNet's CSD, larvanet_tpu/models/"
+                    "mamnet.py:44; no Pallas kernel)",
+        # phase 15c's counted dwsr_reduced forwards and 15d's counted steps,
+        # and phase 18's MAMNet forwards and step: the forward entry, and
+        # the same entry as the input gradient
         "launches": dw_by_entry["forward"] + dw_by_entry["dgrad"],
         "launches_by_entry": {k: dw_by_entry[k] for k in ("forward", "dgrad")},
         # bit for bit with the plain version at every shape of 15a
@@ -6195,6 +6642,9 @@ def main() -> int:
         "bf16": dw_main["bf16"]["forward"],
         "dgrad": {d: dw_main[d]["dgrad"] for d in ("f32", "bf16")},
         "shapes": [r for r in msrr["dw_rows"] if r["entry"] != "wgrad"],
+        # phase 18's MAMNet forwards and step (its 16 CSDs a forward), by
+        # entry, among the launches above
+        "mamnet_launches_by_entry": mi_dw,
     })
     dw_wgrad = dw_main["f32"]["wgrad"]
     kernels.append({
@@ -6203,7 +6653,7 @@ def main() -> int:
         "source": "larvanet_tpu_torch/csrc/dwconv3x3.cu",
         "replaces": "larvanet_tpu/models/layers.py:199 (XLA's weight gradient of the "
                     "depthwise conv; no Pallas kernel)",
-        # phase 15d's counted dwsr_reduced step
+        # phase 15d's counted dwsr_reduced step and 18c's MAMNet step
         "launches": dw_by_entry["wgrad"],
         "max_abs_err": max(r["max_abs_err"] for r in msrr["dw_rows"] if r["entry"] == "wgrad"),
         "max_rel_err": max(r["max_rel_err"] for r in msrr["dw_rows"] if r["entry"] == "wgrad"),

@@ -72,13 +72,19 @@ def add_refused_flags(parser: argparse.ArgumentParser, refused: Sequence[str],
                             help="A TPU-only setting; accepted and ignored.")
 
 
-def refuse_unported(args, refused: Sequence[str], ignored: Sequence[str],
-                    tool: str, where: str = "see ROADMAP.md") -> None:
+def refuse_unported(args, refused: Sequence[str], tool: str,
+                    where: str = "see ROADMAP.md") -> None:
     for flag in refused:
         if getattr(args, flag, None) not in (None, "0", ""):
             raise SystemExit("--%s is not ported to larvanet_tpu_torch yet (%s); run %s "
                              "without it" % (flag, where, tool))
-    given = ["--" + flag for flag in ignored if getattr(args, flag, None) is not None]
+
+
+def note_ignored(args, ignored: Sequence[str], tool: str, model) -> None:
+    """Name the TPU-only flags that were given, but those that `model`
+    reads when it serves (`model.serving_flags`)."""
+    given = ["--" + flag for flag in ignored if getattr(args, flag, None) is not None
+             and flag not in model.serving_flags]
     if given:
         print("%s: %s only matter(s) on the TPU; ignored here" % (tool, ", ".join(given)))
 
@@ -98,9 +104,8 @@ def setup_model(name: str, remaining: Sequence[str], scales: List[int],
     try:
         model = registry.get_model(name)
     except KeyError as e:
-        raise SystemExit("--model %s: %s; the other model families of the JAX package are "
-                         "not ported to larvanet_tpu_torch yet (see ROADMAP.md queue 1 "
-                         "item 8)" % (name, e.args[0]))
+        # every name of the JAX package's registry is registered
+        raise SystemExit("--model %s: %s" % (name, e.args[0]))
     model_args, remaining = model.parse_args(list(remaining))
     model.ema_decay = float(ema_decay or 0.0)  # before prepare: it makes the average
     model.prepare(scales=scales, device=device, seed=seed, is_training=is_training,
@@ -239,24 +244,27 @@ def add_collapsed_tail_flag(parser: argparse.ArgumentParser) -> None:
                         help="Run EDSR's linear upsample tail as one collapsed conv + "
                              "pixel shuffle with exact border operators "
                              "(ops/collapsed_tail.py; float-tolerance equal to the "
-                             "module's tail). 0 = the module's own tail.")
+                             "module's tail). 0 = the module's own tail. MAMNet takes "
+                             "the collapsed tail unless --packed_trunk 0.")
 
 
 def maybe_collapse_tail(model, args) -> None:
-    """Route EDSR inference through the collapsed linear tail when
-    --collapsed_tail is set (larvanet_tpu/cli/common.py:303-350): the probes
-    run once here, with the module's f32 weights, on its device. Runs
-    after --ema and restore, before maybe_wino_trunk and maybe_int8_trunk
-    (whose EDSR forwards bake the same tail). A module whose MeanShift
-    buffers are not the intended +/-mean shifts keeps the module graph, as
-    JAX's does. Other families: nothing to collapse (JAX's width-packed
-    trunks are not ported)."""
+    """Route inference through the collapsed linear tail where the model
+    serves one (`model.serves_collapsed_tail(args)`: EDSR under
+    --collapsed_tail; MAMNet unless --packed_trunk 0, as JAX's CLIs serve
+    make_packed_mamnet_forward, larvanet_tpu/cli/common.py:303-350): the
+    probes run once here, with the module's f32 weights, on its device.
+    Runs after --ema and restore, before maybe_wino_trunk and
+    maybe_int8_trunk (whose EDSR and MAMNet forwards bake the same tail). A
+    module whose MeanShift buffers are not the intended +/-mean shifts
+    keeps the module graph, as JAX's EDSR route does (JAX's MAMNet route
+    bakes the intended shifts regardless: ROADMAP.md queue 3). Other
+    families: nothing to collapse (JAX's width-packed trunks are not
+    ported)."""
     from larvanet_tpu_torch.models.layers import mean_shifts_intended
     from larvanet_tpu_torch.ops.collapsed_tail import make_collapsed_edsr_forward
 
-    if not getattr(args, "collapsed_tail", 0):
-        return
-    if (getattr(args, "model", None) or "") not in ("edsr", "edsr_loss"):
+    if not model.serves_collapsed_tail(args):
         return
     if not mean_shifts_intended(model.module):
         print("--collapsed_tail: the checkpoint carries trained (non-identity) "
@@ -278,16 +286,17 @@ def scales_of(args) -> List[int]:
 
 def add_int8_trunk_flag(parser: argparse.ArgumentParser, help_tail: str = "") -> None:
     parser.add_argument("--int8_trunk", type=int, default=0,
-                        help="Opt-in W8A8 quantized trunk (EDSR/LarvaNet/MSRR/TreeNet/REGO; "
+                        help="Opt-in W8A8 quantized trunk (EDSR/MAMNet/LarvaNet/MSRR/"
+                             "TreeNet/REGO/ebrn_rm/HRSR; "
                              "NOT float-exact; the int8 forward runs in bf16 whatever "
                              "--serving_dtype says; even widths, odd ones take the "
                              "exact forward)." + help_tail)
 
 
 # model-name prefixes -> the int8 forward's maker in ops/int8_forward.py
-# (larvanet_tpu/cli/common.py:345-356, the families the port has)
+# (larvanet_tpu/cli/common.py:345-356)
 INT8_BUILDERS = {
-    ("edsr", "edsr_loss"): "make_int8_edsr_forward",
+    ("edsr", "edsr_loss", "mamnet"): "make_int8_edsr_forward",
     ("LarvaNet", "LarvaLeg"): "make_int8_larvanet_forward",
     ("msrr", "dwsr"): "make_int8_msrr_forward",
     ("REGO",): "make_int8_rego_forward",
@@ -303,8 +312,8 @@ def int8_and_exact_forwards(model, model_name: str, calib):
     be quantized (cli/common.py:359-381). The int8 forward is built in bf16,
     as JAX's CLIs build it (the maker's default); the exact forward, the
     odd-width route and the --int8_report reference, is the serving module
-    in the serving dtype, through the collapsed tail for EDSR, as JAX's
-    make_packed_edsr_forward is."""
+    in the serving dtype, through the collapsed tail for EDSR and MAMNet, as
+    JAX's make_packed_edsr_forward and make_packed_mamnet_forward are."""
     from larvanet_tpu_torch.ops import int8_forward
     from larvanet_tpu_torch.models.layers import mean_shifts_intended
     from larvanet_tpu_torch.ops.collapsed_tail import make_collapsed_edsr_forward
@@ -312,8 +321,8 @@ def int8_and_exact_forwards(model, model_name: str, calib):
     for prefixes, maker in INT8_BUILDERS.items():
         if model_name in prefixes or model_name.startswith(prefixes):
             int8_fwd = getattr(int8_forward, maker)(model, calib)
-            if prefixes[0] == "edsr" and mean_shifts_intended(model.module):
-                # JAX's exact EDSR forward bakes the collapsed tail too
+            if model.has_collapsed_tail and mean_shifts_intended(model.module):
+                # JAX's exact EDSR and MAMNet forwards bake the collapsed tail too
                 return int8_fwd, make_collapsed_edsr_forward(model)
             return int8_fwd, lambda x: model.serving_module(x)
     raise int8_forward.Int8Unsupported("no int8 path for model %r" % (model_name,))

@@ -23,7 +23,10 @@ collapsed linear tail (ops/collapsed_tail.py: the tail probed once into
 one 5x5 conv, border operators and one shuffle, on the conv_kxk kernel);
 0 keeps the module's own tail.
 --packed_trunk and --plain_frame_px are TPU routing settings: accepted
-and ignored.
+and ignored, with a notice, but --packed_trunk for MAMNet, which takes the
+same collapsed tail whatever --collapsed_tail says, as JAX's
+make_packed_mamnet_forward does, and its module graph under
+--packed_trunk 0.
 """
 
 from __future__ import annotations
@@ -72,11 +75,12 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args, remaining = build_parser().parse_known_args(argv)
-    common.refuse_unported(args, REFUSED, IGNORED, "get_sr")
+    common.refuse_unported(args, REFUSED, "get_sr")
     device = common.resolve_device(args)
     scale_list = common.scales_of(args)
     scale = scale_list[0]
     model, _, remaining = common.setup_model(args.model, remaining, scale_list, device)
+    common.note_ignored(args, IGNORED, "get_sr", model)
     common.warn_leftovers(remaining)
     model.restore(args.restore_path)
     common.maybe_use_ema(model, args)

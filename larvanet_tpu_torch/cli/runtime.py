@@ -18,7 +18,10 @@ collapsed linear tail (ops/collapsed_tail.py: the tail probed once into
 one 5x5 conv, border operators and one shuffle, on the conv_kxk kernel);
 0 keeps the module's own tail.
 --packed_trunk and --plain_frame_px are TPU routing settings: accepted
-and ignored.
+and ignored, with a notice, but --packed_trunk for MAMNet, which takes the
+same collapsed tail whatever --collapsed_tail says, as JAX's
+make_packed_mamnet_forward does, and its module graph under
+--packed_trunk 0.
 """
 
 from __future__ import annotations
@@ -59,7 +62,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args, remaining = build_parser().parse_known_args(argv)
-    common.refuse_unported(args, REFUSED, IGNORED, "runtime")
+    common.refuse_unported(args, REFUSED, "runtime")
     device = common.resolve_device(args)
     scale_list = common.scales_of(args)
     use_loader = args.input_width == 0
@@ -68,6 +71,7 @@ def main(argv=None):
     if use_loader:
         dataloader, _, remaining = common.setup_loader(args.dataloader, remaining, scale_list)
     model, _, remaining = common.setup_model(args.model, remaining, scale_list, device)
+    common.note_ignored(args, IGNORED, "runtime", model)
     common.warn_leftovers(remaining)
     if args.restore_path:
         model.restore(args.restore_path)

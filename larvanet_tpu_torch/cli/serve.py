@@ -44,7 +44,9 @@ collapsed linear tail (ops/collapsed_tail.py: the tail probed once into
 one 5x5 conv, border operators and one shuffle, on the conv_kxk kernel);
 0 keeps the module's own tail.
 --packed_trunk is a TPU layout rewrite of the same function: accepted,
-ignored, with a notice.
+ignored, with a notice, but for MAMNet, which takes the same collapsed tail
+whatever --collapsed_tail says, as JAX's make_packed_mamnet_forward does,
+and its module graph under --packed_trunk 0.
 """
 
 from __future__ import annotations
@@ -526,7 +528,7 @@ def int8_calib(args):
 
 def build_service(args, remaining) -> SRService:
     """Restore the model on the device and wrap it in an SRService."""
-    common.refuse_unported(args, REFUSED, IGNORED, "serve")
+    common.refuse_unported(args, REFUSED, "serve")
     mode = "chop" if args.chop_forward else "tile" if args.tile_forward else "direct"
     if args.dynamic_batch > 1 and mode != "direct":
         raise SystemExit("--dynamic_batch coalesces same-geometry direct forwards; it "
@@ -536,6 +538,7 @@ def build_service(args, remaining) -> SRService:
     scales = common.scales_of(args)
     model, _, remaining = common.setup_model(args.model, remaining, scales, device)
     scale = model.scale
+    common.note_ignored(args, IGNORED, "serve", model)
     common.warn_leftovers(remaining)
     model.restore(args.restore_path)
     common.maybe_use_ema(model, args)

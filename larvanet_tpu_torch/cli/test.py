@@ -32,8 +32,10 @@ uint8 path, no dispatch-ahead). --collapsed_tail 1 (the default, as in JAX) serv
 collapsed linear tail (ops/collapsed_tail.py: the tail probed once into
 one 5x5 conv, border operators and one shuffle, on the conv_kxk kernel);
 0 keeps the module's own tail.
---packed_trunk is a TPU layout rewrite of the same function: accepted and
-ignored.
+--packed_trunk is a TPU layout rewrite of the same function: accepted,
+ignored, with a notice, but for MAMNet, which takes the same collapsed tail
+whatever --collapsed_tail says, as JAX's make_packed_mamnet_forward does,
+and its module graph under --packed_trunk 0.
 """
 
 from __future__ import annotations
@@ -127,11 +129,12 @@ def score(output_image: np.ndarray, truth_image: np.ndarray, scale: int,
 
 def main(argv=None):
     args, remaining = build_parser().parse_known_args(argv)
-    common.refuse_unported(args, REFUSED, IGNORED, "test")
+    common.refuse_unported(args, REFUSED, "test")
     device = common.resolve_device(args)
     scale_list = common.scales_of(args)
     scale = scale_list[0]
     model, _, remaining = common.setup_model(args.model, remaining, scale_list, device)
+    common.note_ignored(args, IGNORED, "test", model)
     common.warn_leftovers(remaining)
     model.restore(args.restore_path)
     common.maybe_use_ema(model, args)

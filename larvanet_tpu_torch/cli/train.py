@@ -99,7 +99,7 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None):
     """Train; returns (the model in its final state, {global_step: loss})."""
     args, remaining = build_parser().parse_known_args(argv)
-    common.refuse_unported(args, REFUSED, (), "train", PARALLEL)
+    common.refuse_unported(args, REFUSED, "train", PARALLEL)
     if args.fused_opt is not None:
         print("train: --fused_opt is numerically identical per element; ignored")
     device = common.resolve_device(args)

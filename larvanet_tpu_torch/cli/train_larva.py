@@ -105,10 +105,12 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
-def main(argv=None):
-    """Train; returns (the model in its final state, {global_step: loss})."""
+def main(argv=None, step: str = "train_step_larva"):
+    """Train through the model's method `step` (train_squid's is
+    train_step_squid); returns (the model in its final state,
+    {global_step: loss})."""
     args, remaining = build_parser().parse_known_args(argv)
-    common.refuse_unported(args, REFUSED, (), "train_larva", PARALLEL)
+    common.refuse_unported(args, REFUSED, "train_larva", PARALLEL)
     if args.fused_opt is not None:
         print("train_larva: --fused_opt is numerically identical per element; ignored")
     device = common.resolve_device(args)
@@ -124,7 +126,7 @@ def main(argv=None):
     model, model_args, remaining = common.setup_model(
         args.model, remaining, scale_list, device, is_training=True,
         global_step=args.global_step, ema_decay=args.ema_decay)
-    if not hasattr(model, "train_step_larva"):
+    if not hasattr(model, step):
         raise SystemExit("train_larva trains the LarvaNet family; --model %s trains with "
                          "larvanet_tpu_torch.cli.train" % (args.model,))
     model.grad_accum = args.grad_accum
@@ -180,8 +182,8 @@ def main(argv=None):
                     summary = SummaryWriter(os.path.join(args.train_path, "x%d" % scale))
                 step_summary = summary
             with annotate("train_step"):
-                loss = model.train_step_larva(args, val_loader, inputs, truths,
-                                              step_summary)
+                loss = getattr(model, step)(args, val_loader, inputs, truths,
+                                            step_summary)
             losses[model.global_step] = loss
             t2 = time.perf_counter()
             if local_step % args.log_freq == 0:

@@ -109,7 +109,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args, remaining = build_parser().parse_known_args(argv)
-    common.refuse_unported(args, REFUSED, (), "train_schedule", PARALLEL)
+    common.refuse_unported(args, REFUSED, "train_schedule", PARALLEL)
     if args.fused_opt is not None:
         print("train_schedule: --fused_opt is numerically identical per element; ignored")
     device = common.resolve_device(args)

@@ -15,9 +15,10 @@ By default the frame is quantized on the device before the pull
 (--device_uint8) and frames are dispatched ahead (--pipeline_depth);
 both give the serial loop's bytes. --wino_trunk runs every 64-channel
 trunk ResBlock (EDSR, LarvaNet_w64) as one fused Winograd kernel; a
-48-channel LarvaNet trunk keeps the direct convs. --model takes edsr and
-every LarvaNet-family preset (their flags after it, e.g. --num_modules 2
---num_blocks 16,16). --restore_path takes a .pth or a JAX .ckpt.
+48-channel LarvaNet trunk keeps the direct convs. --model takes every
+name of the registry, its flags after it (e.g. LarvaNet --num_modules 2
+--num_blocks 16,16; mamnet --mamnet_res_blocks 16; imdn_aim2019
+--num_blocks 8). --restore_path takes a .pth or a JAX .ckpt.
 
 Full frames in pieces (eval/tiling.py): --chop_forward is the
 reference's 2x2 chop (--chop_overlap_size), --tile_forward the batched
@@ -39,8 +40,10 @@ Not ported yet, refused with a pointer to ROADMAP.md: --artifact,
 collapsed linear tail (ops/collapsed_tail.py: the tail probed once into
 one 5x5 conv, border operators and one shuffle, on the conv_kxk kernel);
 0 keeps the module's own tail.
---packed_trunk is a TPU layout rewrite of the same function: accepted and
-ignored.
+--packed_trunk is a TPU layout rewrite of the same function: accepted,
+ignored, with a notice, but for MAMNet, which takes the same collapsed tail
+whatever --collapsed_tail says, as JAX's make_packed_mamnet_forward does,
+and its module graph under --packed_trunk 0.
 """
 
 from __future__ import annotations
@@ -106,13 +109,14 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args, remaining = build_parser().parse_known_args(argv)
-    common.refuse_unported(args, REFUSED, IGNORED, "validate")
+    common.refuse_unported(args, REFUSED, "validate")
     if not args.restore_path:
         raise SystemExit("pass --restore_path (a .pth or .ckpt checkpoint)")
     device = common.resolve_device(args)
     scale_list = common.scales_of(args)
     dataloader, _, remaining = common.setup_loader(args.dataloader, remaining, scale_list)
     model, _, remaining = common.setup_model(args.model, remaining, scale_list, device)
+    common.note_ignored(args, IGNORED, "validate", model)
     common.warn_leftovers(remaining)
     model.restore(args.restore_path)
     common.maybe_use_ema(model, args)

@@ -2,13 +2,13 @@
 (larvanet_tpu/core/registry.py:19-55).
 
 Plugins register under the reference's public names, so `--model=...` and
-`--dataloader=...` resolve as in the JAX package. Only the names this port
-has so far are registered: the models `edsr`, `edsr_loss`, the eleven
-LarvaNet-family presets, the ten of the MSRR family (`msrr`,
+`--dataloader=...` resolve as in the JAX package. Every name of the JAX
+package's registry is registered: the models `edsr`, `edsr_loss`, the
+eleven LarvaNet-family presets, the ten of the MSRR family (`msrr`,
 `msrr_reduced` and its six ablations, `dwsr_reduced`, `msrr_test`),
 `TreeNet`, `REGO-Net`, `REGO-serial`, the EBRN family (`ebrn`, `ebrn_rm`,
-`ebrn_rm_BLI`) and the HRSR family (`hrsr`, `hrsr_`, `hrsr_c3`); the six
-loaders that data/loaders.py registers.
+`ebrn_rm_BLI`), the HRSR family (`hrsr`, `hrsr_`, `hrsr_c3`), `mamnet` and
+`imdn_aim2019`; the six loaders that data/loaders.py registers.
 """
 
 from __future__ import annotations

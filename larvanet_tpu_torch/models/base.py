@@ -71,7 +71,7 @@ from __future__ import annotations
 
 import copy
 import os
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -181,6 +181,18 @@ class SRModel:
     registry_name: Optional[str] = None
     loss = staticmethod(l1_loss)
     optimizer_kind = "adam"
+    # the module has EDSR's linear upsample tail and forward(x, pair, tail)
+    # hook, which ops/collapsed_tail bakes (EDSR, MAMNet)
+    has_collapsed_tail = False
+    # flags the inference CLIs call TPU-only that this family reads when it
+    # serves (cli/common.note_ignored leaves them out of its notice)
+    serving_flags: Tuple[str, ...] = ()
+
+    def serves_collapsed_tail(self, args) -> bool:
+        """Whether the inference CLIs serve through the collapsed tail
+        (cli/common.maybe_collapse_tail): under --collapsed_tail, where the
+        module has one."""
+        return self.has_collapsed_tail and bool(getattr(args, "collapsed_tail", 0))
 
     def __init__(self):
         self.args = None
@@ -755,7 +767,7 @@ class SchedulerStateMixin:
 class TrainedMeanShiftMixin:
     """A restore of MeanShift buffers that are not the intended +/-mean (a
     trained reference checkpoint; the module applies its own buffers on
-    every route): JAX's two restore lines, the affines named as JAX names
+    every route): JAX's restore lines, the affines named as JAX names
     its overrides (ms_affine, mis_affine), and --packed_trunk off, so that
     training runs the module graph, as JAX's does (base.py:808-839). The
     graphs that bake the intended shift (the int8 forwards) refuse such a
@@ -771,7 +783,8 @@ class TrainedMeanShiftMixin:
             print("restore: installed the checkpoint's trained MeanShift affines on the "
                   "module (%s) — the reference trains around its randomly-initialized "
                   "frozen shifts" % ", ".join(trained))
-            if getattr(self.args, "packed_trunk", None) != 0:
+            # a family with no --packed_trunk (MAMNet) has nothing to turn off
+            if hasattr(self.args, "packed_trunk") and self.args.packed_trunk != 0:
                 self.args.packed_trunk = 0
                 print("restore: disabled --packed_trunk — the packed graphs bake the "
                       "intended mean shifts, not this checkpoint's trained affines; "

@@ -106,6 +106,7 @@ class EDSR(StepDecayMixin, SRModel):
     lr_flag = "edsr_learning_rate"
     decay_flag = "edsr_learning_rate_decay"
     decay_steps_flag = "edsr_learning_rate_decay_steps"
+    has_collapsed_tail = True
 
     def parse_args(self, args):
         parser = argparse.ArgumentParser()

@@ -401,6 +401,38 @@ class Conv1x1(nn.Module):
         return torch.matmul(x, w) + self.bias.to(x.dtype)
 
 
+class MAMLayer(nn.Module):
+    """MAMNet's multi-path adaptive modulation (larvanet_tpu/models/mamnet.py:
+    27-46, reference models/mamnet.py:151-172): x * sigmoid(CSI + ICD + CSD).
+    CSI is each channel's spatial variance (ddof 1, over max(H W - 1, 1)),
+    taken in f32 in two passes (the mean, then the squared deviations) and
+    cast to x's dtype; ICD the 1x1 squeeze-excite (F -> F // reduction, ReLU,
+    -> F) of that (N, 1, 1, F) variance on `Conv1x1` (`torch.matmul`, as
+    JAX leaves it to XLA); CSD the depthwise 3x3 conv of x on the
+    hand-written kernel (`DepthwiseConv3x3`; its Function where a gradient
+    is wanted). The sum, the sigmoid and the product are plain PyTorch in
+    x's dtype. The keys are the reference's conv_du.0 / conv_du.2 (index
+    1, the ReLU) and depthwise_conv2d."""
+
+    def __init__(self, features: int, reduction: int = 16,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        squeeze = features // reduction
+        self.conv_du = nn.ModuleList([Conv1x1(features, squeeze, generator), nn.Identity(),
+                                      Conv1x1(squeeze, features, generator)])
+        self.depthwise_conv2d = DepthwiseConv3x3(features, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        n_pix = x.shape[1] * x.shape[2]
+        xf = x.float()
+        mean = xf.mean(dim=(1, 2), keepdim=True)
+        var = ((xf - mean) ** 2).sum(dim=(1, 2), keepdim=True) / max(n_pix - 1, 1)
+        var = var.to(x.dtype)
+        icd = self.conv_du[2](torch.relu(self.conv_du[0](var)))
+        csd = self.depthwise_conv2d(x)
+        return x * torch.sigmoid(var + icd + csd)
+
+
 class DepthwiseSeparableResBlock(nn.Module):
     """dw3x3 -> pw1x1 -> act -> dw3x3 -> pw1x1, plus the identity
     (layers.py:199-227, reference models/dwsr_reduced.py

@@ -27,10 +27,15 @@ the 256-channel 2x tensor and its shuffles go away.
     run as 2b x 2b convs with no pads. Training (the live tail, no baked
     operators) recomputes the border with the original tail on halo strips.
     A frame with 2b >= its height or width runs the original tail.
-  * `make_collapsed_edsr_forward`: EDSR's own walk (`EDSRModule.forward`)
-    with the baked tail as its `tail` hook; `collapsed_edsr_tail` probes a
-    model once per set of tail weights and keeps it, so the plain, int8 and
-    Winograd routes share it (ops/int8_forward.py, ops/wino_resblock.py).
+  * `make_collapsed_edsr_forward`: the module's own walk with the baked
+    tail as its `tail` hook; `collapsed_edsr_tail` probes a model once per
+    set of tail weights and keeps it, so the plain, int8 and Winograd routes
+    share it (ops/int8_forward.py, ops/wino_resblock.py). The "EDSR" of the
+    names is the tail's shape: every helper here takes any module with
+    EDSR's tail attributes (`features`, `mean_shift`, `upsample`,
+    `final_conv`, `mean_inverse_shift`) and `forward(x, pair, tail)` hooks,
+    which MAMNetModule has too (JAX's ops/packed/mamnet.py:19-44 bakes
+    MAMNet's tail with the same `make_collapsed_tail`).
   * `live_collapsed_edsr_tail`: the kernel composed in the graph from the
     live tail weights (a delta batch through the chain with full padding:
     each 3x3 conv a SAME conv of its input padded by one more pixel, on
@@ -340,8 +345,9 @@ def make_collapsed_tail(tail_fn: TailFn, in_channels: int, scale: int, radius: i
 # ---- EDSR ----
 
 def edsr_tail_fn(module) -> TailFn:
-    """The original tail of an EDSRModule, run by its own layers in h's
-    dtype (the Conv3x3 layers cast their f32 weights to it)."""
+    """The original tail of an EDSR-tailed module (EDSRModule,
+    MAMNetModule), run by its own layers in h's dtype (the Conv3x3 layers
+    cast their f32 weights to it)."""
 
     def tail_fn(h: torch.Tensor) -> torch.Tensor:
         return module.mean_inverse_shift(module.final_conv(module.upsample(h)))
@@ -365,8 +371,9 @@ def _tail_key(module) -> tuple:
 
 
 def collapsed_edsr_tail(model) -> Optional[CollapsedTail]:
-    """The baked collapsed tail of an EDSR model (make_collapsed_edsr_forward,
-    :752-827): probed from `model.module` (f32), radius 1 + the upsample
+    """The baked collapsed tail of an EDSR or MAMNet model
+    (make_collapsed_edsr_forward, :752-827; _mamnet_fast_tail,
+    ops/packed/mamnet.py:19-44): probed from `model.module` (f32), radius 1 + the upsample
     stages, on the model's device, and kept on the model until its weights
     change (a restore, --ema), so a route that asks on every call follows
     them. None when the module's mean shifts are not the intended ones
@@ -384,8 +391,9 @@ def collapsed_edsr_tail(model) -> Optional[CollapsedTail]:
 
 
 def make_collapsed_edsr_forward(model):
-    """EDSR inference with the trunk as it is and the tail collapsed
-    (:752-827): the module's own walk with the baked tail
+    """EDSR or MAMNet inference with the trunk as it is and the tail
+    collapsed (:752-827; make_packed_mamnet_forward, ops/packed/mamnet.py:
+    110-126): the module's own walk with the baked tail
     (`collapsed_edsr_tail`, asked for on every call) as its `tail` hook, on
     `model.serving_module` (the module, or its cast copy), in the input's
     dtype. Returns forward(x) for an NHWC batch on the model's device;
@@ -451,7 +459,8 @@ def live_collapsed_edsr_tail(module, scale: int, dtype: torch.dtype = torch.floa
 
 def live_collapsed_tail_hook(module, scale: int, lr_domain: bool = False) -> TailFn:
     """The `tail` hook of a training step through the live collapsed tail
-    (_edsr_walk mode 'live_collapsed', ops/packed/edsr.py:17-101): composes
+    (_edsr_walk mode 'live_collapsed', ops/packed/edsr.py:17-101; MAMNet's
+    make_collapsed_mamnet_train_forward, ops/packed/mamnet.py:192-254): composes
     the kernel and bias tile in h's dtype, then `apply_collapsed_tail` with
     the border recomputed on strips; `lr_domain`: the output before the
     shuffle."""

@@ -1,8 +1,9 @@
-"""The W8A8 int8 forwards of EDSR, the LarvaNet family, the MSRR family,
-TreeNet, the REGOs, ebrn_rm (and BLI) and the HRSR family.
+"""The W8A8 int8 forwards of EDSR, MAMNet, the LarvaNet family, the MSRR
+family, TreeNet, the REGOs, ebrn_rm (and BLI) and the HRSR family.
 
 Counterparts of `make_int8_edsr_forward` (larvanet_tpu/ops/packed/edsr.py:
-114), `make_int8_larvanet_forward` (ops/packed/larvanet.py:187),
+114; MAMNet's too, for JAX's ops/packed/mamnet.py:129-143),
+`make_int8_larvanet_forward` (ops/packed/larvanet.py:187),
 `make_int8_msrr_forward` (ops/packed/msrr.py:137-147) and
 `make_int8_treenet_forward` / `make_int8_rego_forward` /
 `make_int8_hrsr_forward` / `make_int8_ebrn_rm_forward`
@@ -18,7 +19,7 @@ after_res_conv and tail, the V2 tail and the residual stream stay exact, in
 --serving_dtype says, as JAX's do. An odd-width input raises (the CLIs'
 route sends it to the exact forward).
 
-EDSR's tail is the baked collapsed tail (ops/collapsed_tail.py
+EDSR's and MAMNet's tail is the baked collapsed tail (ops/collapsed_tail.py
 `collapsed_edsr_tail`: one 5x5 conv on the conv_kxk kernel, the border
 operators, one shuffle), in `dtype`, as JAX's int8 forward bakes it
 (ops/packed/edsr.py:114-142); a module whose mean shifts are not the
@@ -52,13 +53,20 @@ def make_int8_edsr_forward(model, calib_batch, dtype: torch.dtype = torch.bfloat
     """W8A8 EDSR inference (ops/packed/edsr.py:114-142): every ResBlock pair
     int8, calibrated on `calib_batch` (NHWC float, even width); the head,
     after_res_conv and the baked collapsed tail exact in `dtype`. Returns
-    forward(x) for an NHWC batch on the model's device."""
+    forward(x) for an NHWC batch on the model's device.
+
+    The same function is MAMNet's (JAX's make_int8_mamnet_forward,
+    ops/packed/mamnet.py:129-143): its module has EDSR's walk, whose blocks
+    hand the pair `body[0]`, `body[2]` with kind 'none' (relu inside conv_a,
+    no skip in conv_b) and apply the MAM gate (its variance, squeeze-excite
+    and depthwise CSD), res_weight and the add exact in `dtype`."""
     from larvanet_tpu_torch.ops.collapsed_tail import collapsed_edsr_tail
 
     pairs = [(b.body[0], b.body[2]) for b in model.module.res_blocks]
     module = _module_in(model, dtype)
     return make_int8(model, calib_batch, dtype,
                      lambda x, pair: module(x, pair, collapsed_edsr_tail(model)), pairs)
+
 
 
 def make_int8_larvanet_forward(model, calib_batch, dtype: torch.dtype = torch.bfloat16):

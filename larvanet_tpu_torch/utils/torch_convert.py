@@ -3,8 +3,9 @@
 The port's modules use the reference PyTorch repo's state_dict keys, the
 ones larvanet_tpu/utils/torch_convert.export_state_dict writes
 (torch_convert.py:448-503,702-757). This module is the port's own copy
-of that export for the families it has (EDSR, the LarvaNet family, the
-MSRR family, TreeNet, the REGOs, the EBRN and HRSR families),
+of that export for every family the JAX package exports (EDSR, the
+LarvaNet family, the MSRR family, TreeNet, the REGOs, the EBRN and HRSR
+families, MAMNet and IMDN),
 so the tests can carry JAX parameters (nested dicts of numpy arrays)
 into a port module without the port importing the JAX package. A rule
 returns the key stem, or (stem, kind) for a transposed conv ("convT") or a
@@ -57,6 +58,39 @@ def _exp_larvanet(path: str) -> str:
     m = re.match(r"tail_recon([12])$", path)
     if m:
         return "tail.recon_block.%d" % (0 if m.group(1) == "1" else 2)
+    raise KeyError(path)
+
+
+def _exp_mamnet(path: str) -> str:
+    """MAMNet (torch_convert.py:541-553): a MAMBlock's convs at body.0 /
+    body.2, its MAMLayer at body.3 (the ICD squeeze and excite at conv_du.0
+    / conv_du.2, the CSD at depthwise_conv2d); EDSR's names for the rest."""
+    m = re.match(r"mam_block_(\d+)/mam/du([12])$", path)
+    if m:
+        return "res_blocks.%s.body.3.conv_du.%d" % (m.group(1), 0 if m.group(2) == "1" else 2)
+    m = re.match(r"mam_block_(\d+)/mam/depthwise$", path)
+    if m:
+        return "res_blocks.%s.body.3.depthwise_conv2d" % (m.group(1),)
+    m = re.match(r"mam_block_(\d+)/conv([12])$", path)
+    if m:
+        return "res_blocks.%s.body.%d" % (m.group(1), 0 if m.group(2) == "1" else 2)
+    return _exp_edsr(path)
+
+
+def _exp_imdn(path: str) -> str:
+    """IMDN (torch_convert.py:514-526): an IMDBlock's 3x3 convs at
+    conv1.0 ... conv4.0 (each a Sequential of the conv and its LeakyReLU),
+    the 1x1 fuse at conv5, the upsample conv at upsample.body.0."""
+    m = re.match(r"imd_block_(\d+)/conv([1-4])$", path)
+    if m:
+        return "res_blocks.%s.conv%s.0" % (m.group(1), m.group(2))
+    m = re.match(r"imd_block_(\d+)/conv5$", path)
+    if m:
+        return "res_blocks.%s.conv5" % (m.group(1),)
+    if path in ("first_conv", "after_res_conv"):
+        return path
+    if path == "upsample_conv":
+        return "upsample.body.0"
     raise KeyError(path)
 
 
@@ -209,12 +243,14 @@ EXPORT_RULES = {"edsr": _exp_edsr, "edsr_loss": _exp_edsr,
                 "TreeNet": _exp_treenet, "REGO-Net": _make_exp_rego(serial=False),
                 "REGO-serial": _make_exp_rego(serial=True), "ebrn": _exp_ebrn,
                 "ebrn_rm": _exp_ebrn_rm, "ebrn_rm_BLI": _exp_ebrn_rm,
-                **{name: _exp_hrsr for name in ("hrsr", "hrsr_", "hrsr_c3")}}
+                **{name: _exp_hrsr for name in ("hrsr", "hrsr_", "hrsr_c3")},
+                "mamnet": _exp_mamnet, "imdn_aim2019": _exp_imdn}
 # the state dicts with both MeanShifts (torch_convert.py:703-704; MSRR's are
 # dead in its forward but in the reference's state dict; the LarvaNet family,
 # TreeNet, ebrn_rm_BLI and HRSR have none) and with the forward one only
 # (the REGOs, :705)
-_MEANSHIFT_BOTH = {"edsr", "edsr_loss", "msrr", "msrr_reduced_meanshift", "ebrn", "ebrn_rm"}
+_MEANSHIFT_BOTH = {"edsr", "edsr_loss", "mamnet", "imdn_aim2019", "msrr",
+                   "msrr_reduced_meanshift", "ebrn", "ebrn_rm"}
 _MEANSHIFT_FWD_ONLY = {"REGO-Net", "REGO-serial"}
 
 

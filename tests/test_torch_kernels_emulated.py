@@ -322,3 +322,36 @@ def test_conv3x3_ebrn_hrsr_shapes_match_plain_version(conv_lib, shape, f, act, p
         assert float(diff.max()) <= F32_ATOL["conv"]
     else:
         assert bool((diff <= BF16_ATOL + BF16_RTOL * want.float().abs()).all())
+
+
+@pytest.mark.parametrize("dname", ["f32", "bf16"])
+@pytest.mark.parametrize("shape,f,act,path", [
+    ((1, 5, 7, 48), 64, "leaky_relu", "tensor_core"),  # IMDN's conv2 / conv3 r -> F at 0.05
+    ((1, 5, 7, 48), 16, "leaky_relu", "tensor_core"),  # IMDN's conv4 r -> d
+    ((1, 5, 7, 64), 48, None, "tensor_core"),          # IMDN's upsample conv 64 -> 3 s^2, x4
+    ((1, 5, 7, 64), 27, None, "cuda_core"),            # the same at x3
+])
+def test_conv3x3_imdn_shapes_match_plain_version(conv_lib, shape, f, act, path, dname):
+    """IMDN's new conv shapes on the path `path_for` gives them: the 48-channel
+    inputs of its distillation stages at leaky_relu(0.05), one of them to 16
+    outputs, and the upsample conv to 48 (tensor cores) and 27 (CUDA cores)."""
+    dtype = DTYPES[dname]
+    assert conv3x3.path_for(shape[3], f, dtype) == path
+    rng = np.random.default_rng(sum(shape) + f + 1948)
+    x = _t(rng.standard_normal(shape)).to(dtype)
+    k = _t(0.05 * rng.standard_normal((3, 3, shape[3], f)))
+    b = _t(rng.standard_normal(f))
+    got = conv3x3._run(conv3x3.bind(conv_lib, dtype, path), x, k, b, act, None, path,
+                       slope=0.05)
+    want = conv3x3.conv3x3_bias_act_reference(x, k, b, act, 0.05)
+    assert got.shape == want.shape and got.dtype == want.dtype
+    diff = (got.float() - want.float()).abs()
+    print("emulated conv3x3 %s %s %s->%d %s: max|d| %.3g"
+          % (path, dname, shape, f, act, float(diff.max())))
+    assert torch.isfinite(got.float()).all()
+    if act is not None:
+        assert bool((want < 0).any())  # the slope's side is taken
+    if dname == "f32":
+        assert float(diff.max()) <= F32_ATOL["conv"]
+    else:
+        assert bool((diff <= BF16_ATOL + BF16_RTOL * want.float().abs()).all())

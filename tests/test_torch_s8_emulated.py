@@ -272,3 +272,27 @@ def test_conv3x3_s8_ebrn_rm_pair_entries_match_plain_version_bit_for_bit(s8_lib,
     want_b = s8.conv_b_reference(want, wb, dtype, None, 1.0)
     bits = torch.int16 if dname == "bf16" else torch.int32
     assert torch.equal(got.view(bits), want_b.view(bits))
+
+
+@pytest.mark.parametrize("dname", ["f32", "bf16"])
+def test_conv3x3_s8_mamnet_pair_entries_match_plain_version_bit_for_bit(s8_lib, dname):
+    """MAMNet's MAMBlock W8A8 'none' pair at 64 -> 64: conv_a with relu, and
+    conv_b without a residual at res_weight 1 (the MAM gate and the add come
+    after the pair, outside the kernel), each bit for bit."""
+    c, f, hw = 64, 64, (2, 5, 19)
+    rng = np.random.default_rng(6416)
+    dtype = DTYPES[dname]
+    s_in = 0.25
+    hin = _t(rng.integers(-300, 300, hw + (c,)) / 8.0).to(dtype)
+    wt = _s8_weight(rng, c, f, s_in, dtype)
+    t = s8._dequant(s8.conv_codes_reference(s8.quantize(hin, s_in), wt.codes), wt, dtype)
+    assert float((t < 0).float().mean()) > 0.2  # the relu clamps
+    s_mid = float(t.float().abs().max()) * 0.8 / 127.0
+    got = s8._run_a(s8.bind(s8_lib, "conv_a", dtype), hin, wt, s_in, s_mid, "relu", None)
+    want = s8.conv_a_reference(hin, wt, s_in, s_mid, "relu")
+    assert torch.equal(got, want) and bool((want == 0).any())
+    wb = _s8_weight(rng, f, f, s_mid, dtype)
+    got = s8._run_b(s8.bind(s8_lib, "conv_b", dtype), want, wb, dtype, None, 1.0, None)
+    want_b = s8.conv_b_reference(want, wb, dtype, None, 1.0)
+    bits = torch.int16 if dname == "bf16" else torch.int32
+    assert torch.equal(got.view(bits), want_b.view(bits))

@@ -91,11 +91,11 @@ def test_test_cli_matches_jax_on_fixture_real(extra, fixture_real, real_pth, jax
     assert saved.shape == (4 * lr.shape[0], 4 * lr.shape[1], 3)
 
 
-# a model family the port does not have yet (msrr_test, TreeNet and then
-# ebrn, refused here before their families were ported, now run:
-# tests/test_torch_msrr.py, tests/test_torch_treenet.py, tests/test_torch_ebrn.py)
+# a model name that neither package registers (every reference name runs
+# since mamnet and imdn_aim2019 were ported: tests/test_torch_mamnet.py,
+# tests/test_torch_imdn.py)
 @pytest.mark.parametrize("argv,match", [
-    (["--model", "mamnet"], "ROADMAP"),
+    (["--model", "carn"], "unknown model 'carn'"),
 ])
 def test_test_cli_refusals(argv, match, real_pth, tmp_path):
     with pytest.raises(SystemExit, match=match) as exc:
