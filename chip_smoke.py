@@ -8,8 +8,9 @@ EDSR-baseline x4 and the LarvaNet family (the flagship LarvaNet 2x16, and
 LarvaNet_w64 on the fused ResBlocks) and training EDSR-baseline x4 and the
 flagship, then serving, running and training the MSRR family (phase 15),
 TreeNet, REGO-Net and REGO-serial (phase 16), the EBRN and HRSR
-families (phase 17) and MAMNet and IMDN (phase 18), and fails (exit code
-!= 0, no result line) if any phase fails.
+families (phase 17) and MAMNet and IMDN (phase 18), then exporting, serving
+and validating serving artifacts and the full-frame forwards (phase 19),
+and fails (exit code != 0, no result line) if any phase fails.
 EDSR serves on its default route, the collapsed linear tail
 (ops/collapsed_tail.py: the trunk's 34 convs on conv3x3, the tail as one
 5x5 conv, 4 side and 4 corner operators on conv_kxk; the CLIs make the
@@ -362,6 +363,25 @@ on the default, collapsed route:
     test (MAMNet; its tail probed inside the run), get_sr (IMDN), runtime
     (MAMNet at 339x510), train (IMDN, 2 steps, a checkpoint each) and
     psnr_trend over those two checkpoints, counted.
+ 19. Serving artifacts and the full-frame forwards (after phase 18). 19a:
+    five artifacts exported on the card at 4 x 192x192 (utils/aot.py:
+    EDSR-baseline x4 f32 and bf16 on the collapsed tail, EDSR with
+    --int8_trunk in bf16, LarvaNet 2x16 bf16, MAMNet x4 f32), saved, loaded
+    back onto the card (without the model zoo's help: the program carries
+    its kernels as the registered ops of ops/library.py); each artifact's
+    forward and its live route's counted (every kernel's launches, by path
+    or entry, must be equal) and held bit for bit (max |d| 0), timed in
+    turns with the device split; export s, MB and load s printed. 19b:
+    `serve --artifact` of the EDSR f32 artifact in two fresh processes
+    (direct: 8 requests at the exported geometry; --tile_forward: 2 on the
+    339x510 frame), their pixels equal to the live server's, /info showing
+    the artifact mode and no model zoo in sys.modules. 19c: validate
+    --artifact --tile_forward within 1e-4 dB of validate --restore_path
+    --tile_forward at the same tiles. 19d: the strip-batched and tile-scan
+    forwards of EDSR bf16 on the 1080x1920 frame (halo 40 >= the receptive
+    radius 36) equal to the direct frame, timed with peak memory beside
+    TiledUpscaler's tiles and the chop. 19e: the 2-D Winograd EDSR forward
+    (ops/winograd.py) in f32 against the module at JAX's bar.
  12. (last) prints the kernels JSON line, the nvidia-smi line, then the
     result line {"ok": true, "device": {...}}.
 
@@ -429,7 +449,11 @@ shapes), "mamnet_imdn_launches_by_path", "mamnet_imdn_dgrad",
 line, "mamnet_imdn" in the conv3x3_wgrad line, "mamnet" (MAMNet's pair)
 and "mamnet_int8_ms" in the conv3x3_s8 line; its MAMNet forwards and step
 add to the dwconv3x3 lines (by entry under "mamnet_launches_by_entry") and
-its collapsed forwards and step to the conv_kxk lines.
+its collapsed forwards and step to the conv_kxk lines. Phase 19a's counted
+forwards (each artifact's and its live route's) add to the conv3x3,
+conv3x3_s8, conv_kxk and dwconv3x3 lines, which give them under
+"artifact_launches"; the conv3x3 line gives phase 19's numbers under
+"artifact".
 """
 
 from __future__ import annotations
@@ -6206,6 +6230,391 @@ def mi_phase(torch):
                 steps=steps, step_ms=step_ms)
 
 
+# ---- phase 19: serving artifacts, the full-frame forwards, Winograd --------------
+
+# 19a: the artifacts exported on the card at LR_BATCH, on the serving CLIs'
+# route (utils/aot.serving_forward): label -> (model name, model flags, export
+# dtype, --int8_trunk). The int8 one in bf16, the CLIs' int8 dtype.
+ARTIFACTS = (
+    ("EDSR-baseline x4 f32", "edsr", [], "float32", False),
+    ("EDSR-baseline x4 bf16", "edsr", [], "bfloat16", False),
+    ("EDSR-baseline x4 int8", "edsr", [], "bfloat16", True),
+    ("LarvaNet 2x16 bf16", "LarvaNet", LARVANET_FLAGS, "bfloat16", False),
+    ("MAMNet x4 f32", "mamnet", [], "float32", False),
+)
+# the kernels' counters a forward is counted by, and the device split's kinds
+ARTIFACT_KINDS = MI_KINDS
+# 19b: requests to the artifact server: direct ones at the exported geometry,
+# and --tile_forward ones on the ragged frame (tiles of the exported 192, the
+# CLIs' default overlap)
+ARTIFACT_REQUESTS = 8
+ARTIFACT_TILE_REQUESTS = 2
+ARTIFACT_TILE_OVERLAP = 24
+SERVER_START_S = 300
+# 19c: validate --artifact --tile_forward against validate --restore_path
+# --tile_forward on phase 6's set, at phase 6's tiles (48, overlap 16), from
+# an artifact of 8 tiles; the bar on the mean PSNR
+ARTIFACT_VALIDATE_BATCH = 8
+ARTIFACT_PSNR_TOL = 1e-4
+# 19d: EDSR-baseline x4 bf16 on one BIG_FRAME_LR frame: 8 strips and a grid
+# of 135 x 240 tiles, each with a halo of 40 LR pixels, past the collapsed
+# route's receptive radius of 36 (34 3x3 convs, the 5x5 tail's 2)
+FRAME_STRIPS = 8
+FRAME_TILE = (135, 240)
+FRAME_HALO = 40
+RECEPTIVE_RADIUS = 36
+FRAME_WINDOWS = 3
+FRAME_REPS = 1
+# 19e: the Winograd EDSR forward against the module, JAX's bar
+# (tests/test_winograd.py:69)
+WINOGRAD_RTOL, WINOGRAD_ATOL = 2e-3, 0.15
+
+
+def _counted_all(torch, fn):
+    """fn() with every forward kernel's counter zeroed just before it and
+    read just after: (its result, {"conv3x3": by path, "conv_kxk": by path
+    (single and "group_"), "s8": by entry, "dw": by entry})."""
+    from larvanet_tpu_torch.ops import conv_kxk as ck
+
+    ck.reset_launches()
+    out, conv, dw, s8l = _counted_msrr(torch, fn)
+    return out, {"conv3x3": conv, "conv_kxk": kxk_launches(ck), "s8": s8l, "dw": dw}
+
+
+def artifact_model(torch, name, flags, x):
+    """A 19a model x4 at full width, random weights from SEED, its output
+    spread over the pixel range on x[:1] (EDSR: fit_output_range; MAMNet:
+    fit_sr_residual; LarvaNet as drawn, its residual over the bicubic base)."""
+    from larvanet_tpu_torch.core.registry import get_model
+
+    if name == "mamnet":
+        model = mi_model(name)
+        fit_sr_residual(torch, model, x[:1])
+        return model
+    model = get_model(name)
+    model.parse_args(list(flags))
+    model.prepare([4], device="cuda", seed=SEED)
+    if name == "edsr":
+        fit_output_range(torch, model, x[0].permute(2, 0, 1).cpu().numpy())
+    return model
+
+
+def artifact_export_phase(torch, tmp):
+    """Phase 19a. Each ARTIFACTS model exported on the card at the 4 x
+    192x192 batch (the route built once: the live forward and the traced one
+    are the same closure), saved, loaded back onto the card. The live route
+    and the loaded program each run one counted forward: the launches of
+    every kernel, by path or entry, must be equal, and the outputs equal bit
+    for bit (max |d| 0). Prints export s, artifact MB, load s, and both
+    forwards' times in turns with the artifact's device split (idle).
+    Returns ({label: numbers}, the counted launches summed, the EDSR f32
+    model and its .pth and artifact paths)."""
+    from larvanet_tpu_torch.utils import aot
+
+    n, h, w = LR_BATCH
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 31)
+    x = 255.0 * torch.rand((n, h, w, 3), generator=gen, device="cuda")
+    totals = {"conv3x3": {}, "conv_kxk": {}, "s8": {}, "dw": {}}
+    rows, models = {}, {}
+    for label, name, flags, dtype, int8 in ARTIFACTS:
+        model = models.get(name) or artifact_model(torch, name, flags, x)
+        models[name] = model
+        calib = x[:, :96, :96].cpu().numpy() if int8 else None
+        fwd, desc = aot.serving_forward(model, dtype, int8_trunk=int8, calib=calib)
+        fwd(x)
+        live, live_counts = _counted_all(torch, lambda: fwd(x))
+        t0 = time.perf_counter()
+        program, header = aot.trace_serving(model, fwd, desc, (n, h, w, 3), dtype,
+                                            ("cuda", "cpu"))
+        export_s = time.perf_counter() - t0
+        path = os.path.join(tmp, "%s.lvt" % label.replace(" ", "_"))
+        aot.save_artifact(path, program, header)
+        del program
+        t0 = time.perf_counter()
+        serve, _ = aot.load_artifact(path, "cuda")
+        load_s = time.perf_counter() - t0
+        serve(x)
+        got, counts = _counted_all(torch, lambda: serve(x))
+        err = float((got - live).abs().max())
+        print("artifact %s (%s): export %.2f s, %.2f MB, load %.2f s; launches %s, live "
+              "route %s; max |d| against the live route %.3g" % (
+                  label, desc, export_s, os.path.getsize(path) / 1e6, load_s, counts,
+                  live_counts, err), flush=True)
+        if counts != live_counts or err != 0.0 or not bool(torch.isfinite(got).all()):
+            raise AssertionError("artifact %s differs from its live route" % label)
+        for run in (live_counts, counts):
+            for key, part in run.items():
+                _add(totals[key], part)
+        tm = time_windows(torch, {"live": lambda: fwd(x), "artifact": lambda: serve(x)})
+        print("artifact %s: forward %s, live route %s (in turns); artifact %s; live %s" % (
+            label, spread(tm["artifact"]), spread(tm["live"]),
+            breakdown_line(torch, lambda: serve(x), tm["artifact"][0], ARTIFACT_KINDS),
+            breakdown_line(torch, lambda: fwd(x), tm["live"][0], ARTIFACT_KINDS)), flush=True)
+        rows[label] = {"path_desc": desc, "export_s": export_s,
+                       "artifact_mb": os.path.getsize(path) / 1e6, "load_s": load_s,
+                       "ms": tm["artifact"][0], "live_ms": tm["live"][0], "launches": counts,
+                       "max_abs_err": err}
+        if label == "EDSR-baseline x4 f32":
+            pth = os.path.join(tmp, "edsr_x4.pth")
+            torch.save(model.module.state_dict(), pth)
+            edsr = (model, pth, path)
+        del serve, got, live
+    del models
+    torch.cuda.empty_cache()
+    return rows, totals, edsr
+
+
+def _start_artifact_server(path, extra):
+    """`serve --artifact path` in a fresh process on an ephemeral port:
+    (process, base url), once it prints its address."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+    proc = subprocess.Popen([sys.executable, "-m", "larvanet_tpu_torch.cli.serve",
+                             "--artifact", path, "--port", "0", *extra], cwd=root, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return proc
+
+
+def _server_url(proc):
+    t0 = time.perf_counter()
+    for line in proc.stdout:
+        if " on http://" in line:
+            threading.Thread(target=proc.stdout.read, daemon=True).start()  # drain
+            return line.strip().rsplit(" on ", 1)[1]
+        if time.perf_counter() - t0 > SERVER_START_S:
+            break
+    raise AssertionError("serve --artifact did not start (exit %s)" % (proc.poll(),))
+
+
+def artifact_serve_phase(torch, model, pth, path):
+    """Phase 19b. `serve --artifact` of 19a's EDSR f32 artifact (4 x
+    192x192) in two fresh processes, direct and --tile_forward, started
+    together: ARTIFACT_REQUESTS requests at the exported geometry, sent at
+    once (a batch-4 artifact coalesces them), and ARTIFACT_TILE_REQUESTS on
+    the ragged frame through tiles of 192. Each response's pixels must equal
+    the live server's (build_service on the .pth, direct and with
+    --tile_forward --tile_size 192), and each process's /info must report
+    its artifact mode and no model zoo in sys.modules."""
+    import numpy as np
+
+    from larvanet_tpu_torch.cli import serve
+    from larvanet_tpu_torch.data import png
+
+    _, h, w = LR_BATCH
+    rng = np.random.default_rng(SEED + 32)
+    frames = [photo(rng, h, w) for _ in range(ARTIFACT_REQUESTS)]
+    ragged = [photo(rng, *RAGGED[1:]) for _ in range(ARTIFACT_TILE_REQUESTS)]
+    procs = {"direct": _start_artifact_server(path, []),
+             "tile": _start_artifact_server(path, ["--tile_forward", "--tile_overlap",
+                                                   str(ARTIFACT_TILE_OVERLAP)])}
+    t0 = time.perf_counter()
+    try:
+        urls = {mode: _server_url(proc) for mode, proc in procs.items()}
+        print("artifact servers up in %.2f s: %s" % (time.perf_counter() - t0, urls),
+              flush=True)
+        results = {}
+        for mode, imgs in (("direct", frames), ("tile", ragged)):
+            outs = [None] * len(imgs)
+
+            def post(i, url=urls[mode], imgs=imgs, outs=outs):
+                outs[i] = _http(url + "/upscale",
+                                png.encode(np.ascontiguousarray(imgs[i].transpose(1, 2, 0))))
+
+            threads = [threading.Thread(target=post, args=(i,)) for i in range(len(imgs))]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            status, body = _http(urls[mode] + "/info")
+            info = json.loads(body)
+            results[mode] = (outs, info)
+            print("artifact server %s: %d requests, statuses %s; /info mode %s, path_desc "
+                  "%r, input_shape %s, num_forwards %d, mean_batch_size %s, "
+                  "model_zoo_loaded %s" % (
+                      mode, len(imgs), sorted(set(s for s, _ in outs)), info["mode"],
+                      info["path_desc"], info["input_shape"], info["num_forwards"],
+                      info["mean_batch_size"], info["model_zoo_loaded"]), flush=True)
+            if (any(s != 200 for s, _ in outs) or info["mode"] != "artifact-" + mode
+                    or info["model_zoo_loaded"] is not False
+                    or info["num_requests"] != len(imgs)):
+                raise AssertionError("serve --artifact (%s) failed its checks" % mode)
+    finally:
+        for proc in procs.values():
+            proc.terminate()
+        for proc in procs.values():
+            try:
+                proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+    worst = {}
+    for mode, imgs in (("direct", frames), ("tile", ragged)):
+        extra = (["--tile_forward", "--tile_size", str(h), "--tile_overlap",
+                  str(ARTIFACT_TILE_OVERLAP)] if mode == "tile" else [])
+        args, remaining = serve.build_parser().parse_known_args(
+            ["--model", "edsr", "--restore_path", pth, *extra])
+        service = serve.build_service(args, remaining)
+        outs, _ = results[mode]
+        worst[mode] = 0
+        for img, (_, body) in zip(imgs, outs):
+            # the live server's response: its frame as make_server encodes it
+            want = png.decode(serve.chw_to_png(service.upscale_chw(img)), grey16="clip")
+            got = png.decode(body, grey16="clip")
+            worst[mode] = max(worst[mode], int(np.abs(got.astype(np.int16)
+                                                      - want.astype(np.int16)).max()))
+        del service
+    print("artifact servers: largest pixel difference from the live server %s" % worst,
+          flush=True)
+    if any(worst.values()):
+        raise AssertionError("serve --artifact's pixels differ from the live server's")
+    return worst
+
+
+def artifact_validate_phase(torch, model, pth, tmp):
+    """Phase 19c. validate --artifact --tile_forward of an EDSR f32 artifact
+    of ARTIFACT_VALIDATE_BATCH tiles of 48 (exported from 19a's model)
+    against validate --restore_path --tile_forward at the same tiles, on
+    phase 6's set: the mean PSNRs within ARTIFACT_PSNR_TOL dB."""
+    from larvanet_tpu_torch.cli import validate
+    from larvanet_tpu_torch.utils import aot
+
+    write_validate_set(tmp)
+    tile, overlap = int(VALIDATE_TILE[1]), int(VALIDATE_TILE[3])
+    path = os.path.join(tmp, "edsr_x4_tile%d.lvt" % tile)
+    program, header = aot.export_serving(model, (ARTIFACT_VALIDATE_BATCH, tile, tile, 3))
+    aot.save_artifact(path, program, header)
+    data = ["--data_input_path", os.path.join(tmp, "all", "LR"),
+            "--data_truth_path", os.path.join(tmp, "all", "HR")]
+    t0 = time.perf_counter()
+    art = validate.main(["--artifact", path, "--tile_forward", "--tile_overlap", str(overlap),
+                         *data])[4]
+    art_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    live = validate.main(["--model", "edsr", "--restore_path", pth, "--tile_forward",
+                          *VALIDATE_TILE, *data])[4]
+    live_s = time.perf_counter() - t0
+    print("validate --artifact --tile_forward (tiles %d, overlap %d, batch %d): mean PSNR "
+          "%.6f dB in %.2f s; validate --restore_path: %.6f dB in %.2f s; |d| %.3g dB "
+          "(bar %g)" % (tile, overlap, ARTIFACT_VALIDATE_BATCH, art, art_s, live, live_s,
+                        abs(art - live), ARTIFACT_PSNR_TOL), flush=True)
+    if abs(art - live) > ARTIFACT_PSNR_TOL:
+        raise AssertionError("validate --artifact disagrees with validate --restore_path")
+    return {"psnr": art, "restore_psnr": live}
+
+
+def frame_forwards_phase(torch, model):
+    """Phase 19d. EDSR-baseline x4 bf16 on its collapsed route on one
+    BIG_FRAME_LR frame: the direct frame, the strip-batched forward
+    (FRAME_STRIPS strips), the tile-scan forward (FRAME_TILE tiles), each
+    with a halo of FRAME_HALO >= RECEPTIVE_RADIUS, held against the direct
+    frame (max |d|), and beside them TiledUpscaler's default tiles and the
+    reference's chop: each timed (CUDA events) with its peak memory."""
+    from larvanet_tpu_torch.eval import tiling
+    from larvanet_tpu_torch.utils import aot
+
+    fh, fw = BIG_FRAME_LR
+    fwd, _ = aot.serving_forward(model, "bfloat16")
+    model.set_route(fwd)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 33)
+    x = 255.0 * torch.rand((1, fh, fw, 3), generator=gen, device="cuda")
+    frame = x[0].permute(2, 0, 1).cpu().numpy()
+    strip = tiling.make_strip_batched_forward(fwd, 4, FRAME_STRIPS, FRAME_HALO, fh, fw)
+    scan = tiling.make_tile_scan_forward(fwd, 4, *FRAME_TILE, FRAME_HALO, fh, fw)
+    tiler = tiling.TiledUpscaler(fwd, 4, *TILE_DEFAULT, device="cuda")
+    routes = {"direct": lambda: fwd(x), "strips": lambda: strip(x), "tile_scan": lambda: scan(x),
+              "tiles": lambda: tiler.upscale_device(x[0]),
+              "chop": lambda: tiling.upscale_with_chop_forward(model, frame, 4, CHOP_OVERLAP)}
+    direct = fwd(x)[0]
+    out = {}
+    for name, fn in routes.items():
+        got = fn()
+        got = torch.from_numpy(got).permute(1, 2, 0).cuda() if name == "chop" else got
+        err = float((got.reshape(direct.shape) - direct).abs().max())
+        del got
+        mb = peak_mb(torch, fn)
+        tm = time_windows(torch, {name: fn}, FRAME_WINDOWS, FRAME_REPS)[name]
+        out[name] = {"ms": tm[0], "peak_mb": mb, "max_abs_err": err}
+        print("frame %dx%d bf16 %s: max |d| against the direct frame %.3g; %s; peak %.1f MB"
+              % (fh, fw, name, err, spread(tm), mb), flush=True)
+    for name in ("strips", "tile_scan"):
+        if out[name]["max_abs_err"] != 0.0:
+            raise AssertionError("the %s forward (halo %d >= radius %d) differs from the "
+                                 "direct frame" % (name, FRAME_HALO, RECEPTIVE_RADIUS))
+    model.set_route(None)
+    model.set_serving_dtype("f32")
+    torch.cuda.empty_cache()
+    return out
+
+
+def winograd_phase(torch, model):
+    """Phase 19e. The 2-D Winograd EDSR forward (ops/winograd.py: plain
+    torch, no CLI routes to it; its tail the baked collapsed tail) in f32 on
+    the 4 x 192x192 batch, held at JAX's bar (tests/test_winograd.py:69)
+    against the module's walk with the same collapsed tail, so that the
+    Winograd trunk is what the bar measures; its distance from the module's
+    own tail and from the module on the plain versions printed beside it.
+    Both forwards timed."""
+    from larvanet_tpu_torch.ops.collapsed_tail import collapsed_edsr_tail
+    from larvanet_tpu_torch.ops.winograd import make_winograd_edsr_forward
+
+    n, h, w = LR_BATCH
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 34)
+    x = 255.0 * torch.rand((n, h, w, 3), generator=gen, device="cuda")
+    wino = make_winograd_edsr_forward(model, torch.float32)
+    tail = collapsed_edsr_tail(model)
+    route = torch.no_grad()(lambda: model.module(x, tail=tail))
+    with torch.no_grad():
+        got = wino(x)
+        want = route()
+        module = model.module(x)
+        with plain_versions():
+            plain = model.module(x)
+    excess = float(((got - want).abs() - WINOGRAD_RTOL * want.abs()).max())
+    err = float((got - want).abs().max())
+    tm = time_windows(torch, {"winograd": lambda: wino(x), "module": route})
+    print("winograd EDSR f32 %s: max |d| against the module's collapsed route %.3g (bar %g "
+          "+ %g |y|, worst excess over rtol %.3g); against the module's own tail %.3g, the "
+          "module on the plain versions %.3g (the collapsed route from the module's tail "
+          "%.3g); %s, the module's collapsed route %s" % (
+              (n, h, w), err, WINOGRAD_ATOL, WINOGRAD_RTOL, excess,
+              float((got - module).abs().max()), float((got - plain).abs().max()),
+              float((want - module).abs().max()), spread(tm["winograd"]),
+              spread(tm["module"])), flush=True)
+    if excess > WINOGRAD_ATOL or not bool(torch.isfinite(got).all()):
+        raise AssertionError("the Winograd EDSR forward misses JAX's bar")
+    return {"max_abs_err": err, "ms": tm["winograd"][0], "module_ms": tm["module"][0]}
+
+
+def artifact_phase(torch):
+    """Phase 19: 19a to 19e. Returns {"rows", "launches" (19a's counted
+    forwards, live and artifact), "serve", "validate", "frames",
+    "winograd"}."""
+    t0 = time.perf_counter()
+    times = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t = time.perf_counter()
+        rows, launches, (model, pth, path) = artifact_export_phase(torch, tmp)
+        times["19a"] = time.perf_counter() - t
+        t = time.perf_counter()
+        served = artifact_serve_phase(torch, model, pth, path)
+        times["19b"] = time.perf_counter() - t
+        t = time.perf_counter()
+        validated = artifact_validate_phase(torch, model, pth, tmp)
+        times["19c"] = time.perf_counter() - t
+    t = time.perf_counter()
+    frames = frame_forwards_phase(torch, model)
+    times["19d"] = time.perf_counter() - t
+    t = time.perf_counter()
+    wino = winograd_phase(torch, model)
+    times["19e"] = time.perf_counter() - t
+    print("phase 19: %.1f s (%s)" % (time.perf_counter() - t0, ", ".join(
+        "%s %.1f s" % kv for kv in times.items())), flush=True)
+    del model
+    torch.cuda.empty_cache()
+    return {"rows": rows, "launches": launches, "serve": served, "validate": validated,
+            "frames": frames, "winograd": wino}
+
+
 def print_sass_mix(build):
     """The instruction mix of each tensor-core and narrow kernel in the
     built libraries (cuobjdump -sass): ldmatrix, tensor-core products,
@@ -6334,16 +6743,19 @@ def main() -> int:
     torch.cuda.empty_cache()
     mi = mi_phase(torch)
     trained.extend(mi["steps"])
+    torch.cuda.empty_cache()
+    art = artifact_phase(torch)
     family_conv = dict(msrr_conv)  # phases 15's to 18's counted runs
-    for part in (branchy["conv"], sr["conv"], mi["conv"]):
+    for part in (branchy["conv"], sr["conv"], mi["conv"], art["launches"]["conv3x3"]):
         _add(family_conv, part)
-    for part in (branchy["s8"], sr["s8"], mi["s8"]):
+    for part in (branchy["s8"], sr["s8"], mi["s8"], art["launches"]["s8"]):
         _add(s8_by_entry, part)
     # phase 18's MAMNet forwards and steps: its 16 CSDs a forward
     mi_dw = dict(mi["dw"])
     for run in mi["steps"]:
         _add(mi_dw, run["dw"])
     _add(dw_by_entry, mi_dw)
+    _add(dw_by_entry, art["launches"]["dw"])
 
     kernels = [{
         "name": "conv3x3_bias_act",
@@ -6428,6 +6840,11 @@ def main() -> int:
         "mamnet_imdn_forward_ms": mi["forward_ms"],
         "mamnet_imdn_train_step_ms": mi["step_ms"],
         "mamnet_imdn_dgrad": mi["wgrad"][4],
+        # phase 19: 19a's counted forwards (each artifact's and its live
+        # route's) by path, each artifact's export, load and forward numbers,
+        # 19b's pixel differences, 19c's PSNRs, 19d's frames, 19e's Winograd
+        "artifact_launches": art["launches"]["conv3x3"],
+        "artifact": {k: art[k] for k in ("rows", "serve", "validate", "frames", "winograd")},
     }, {
         "name": "conv3x3_wgrad",
         "route": "cuda",
@@ -6550,6 +6967,8 @@ def main() -> int:
         # one MAMNet int8 forward's 16 pairs
         "mamnet_int8_ms": mi["forward_ms"]["mamnet"]["int8"],
         "mamnet": mi["s8_pair"],
+        # phase 19a's int8 artifact and its live route, by entry
+        "artifact_launches": art["launches"]["s8"],
         "f32": dict(s8_sums["f32"], max_abs_err=s8_errs["f32"]),
         "shapes": s8_rows,
         # phase 11a's widths past one code halo (the chunked plan): the
@@ -6561,6 +6980,7 @@ def main() -> int:
     for run in kxk_steps:
         for part in (run["forward"], run["dgrad"]):
             _add(kxk_by_path, part)
+    _add(kxk_by_path, art["launches"]["conv_kxk"])
     kernels.append({
         "name": "conv_kxk",
         "route": "cuda",
@@ -6589,6 +7009,8 @@ def main() -> int:
         "radius": radius,
         "serving": collapsed_serve,
         "train_step": {"launches": collapsed_train["kxk"], "ms": collapsed_train["step_ms"]},
+        # phase 19a's collapsed artifacts and their live routes
+        "artifact_launches": art["launches"]["conv_kxk"],
     })
     kernels.append({
         "name": "conv_kxk_wgrad",
@@ -6645,6 +7067,8 @@ def main() -> int:
         # phase 18's MAMNet forwards and step (its 16 CSDs a forward), by
         # entry, among the launches above
         "mamnet_launches_by_entry": mi_dw,
+        # phase 19a's MAMNet artifact and its live route
+        "artifact_launches": art["launches"]["dw"],
     })
     dw_wgrad = dw_main["f32"]["wgrad"]
     kernels.append({

@@ -38,8 +38,18 @@ odd widths take the exact forward), calibrated on the first 4 PNGs of
 --int8_calib_path, or, without it, on noise with a warning, as JAX's
 server does.
 
-Not ported yet, refused with a pointer to ROADMAP.md: --artifact,
---spatial_shard, --dp_devices. --collapsed_tail 1 (the default, as in JAX) serves EDSR through the
+--artifact FILE serves a serving artifact (cli/export.py --stablehlo,
+utils/aot.py) through `ArtifactService`: no model zoo, no restore, no
+graph build (`/info` "mode" "artifact-direct" or "artifact-tile", with the
+artifact's "path_desc" and "input_shape"). Direct mode takes requests of
+exactly the exported LR geometry, and a batch-N artifact coalesces up to N
+waiting requests into one call; --tile_forward serves any frame at least
+the exported square tile through tiles of that size. --dynamic_batch,
+--chop_forward, --int8_trunk, --ema, a --serving_dtype other than f32 and
+--restore_path are refused with it, as in JAX.
+
+Not ported yet, refused with a pointer to ROADMAP.md: --spatial_shard,
+--dp_devices. --collapsed_tail 1 (the default, as in JAX) serves EDSR through the
 collapsed linear tail (ops/collapsed_tail.py: the tail probed once into
 one 5x5 conv, border operators and one shuffle, on the conv_kxk kernel);
 0 keeps the module's own tail.
@@ -65,9 +75,11 @@ import torch
 
 from larvanet_tpu_torch.cli import common
 from larvanet_tpu_torch.data import png
-from larvanet_tpu_torch.eval.tiling import upscale_with_chop_forward
+from larvanet_tpu_torch.eval.tiling import TiledUpscaler, upscale_with_chop_forward
 
-REFUSED = ("artifact", "spatial_shard", "dp_devices")
+REFUSED = ("spatial_shard", "dp_devices")
+# refused with --artifact (larvanet_tpu/cli/serve.py:768-796)
+ARTIFACT_REFUSED = ("chop_forward", "int8_trunk", "ema")
 IGNORED = ("packed_trunk",)
 
 
@@ -314,6 +326,58 @@ class SRService:
         }
 
 
+class ArtifactService(SRService):
+    """Serve from a serving artifact (cli/export.py --stablehlo;
+    larvanet_tpu/cli/serve.py:381-437): no model zoo, no checkpoint
+    restore, no graph build, only `load_artifact`. Direct mode requires
+    requests of exactly the exported LR geometry; --tile_forward serves any
+    frame at least the exported tile through tiles of that size (the
+    artifact's batch padded or chunked). Smaller frames are refused in both
+    modes: zero-padding them into the fixed canvas would not be exact for
+    these models, so export a smaller artifact for small inputs instead."""
+
+    def __init__(self, path: str, tile: bool, tile_overlap: int = 24, max_queue: int = 32,
+                 device="cuda", pipeline_depth: int = 2, device_uint8: bool = True,
+                 uint8_input: bool = True):
+        from larvanet_tpu_torch.utils.aot import ArtifactModel
+
+        model = ArtifactModel(path, device)
+        self.header = model.header
+        tiler = None
+        if tile:
+            h, w = model.height, model.width
+            if h != w:
+                raise ValueError("--tile_forward over an artifact needs a square exported "
+                                 "geometry, got %dx%d" % (h, w))
+            tiler = TiledUpscaler(model.fwd_runtime, scale=model.scale, tile_size=h,
+                                  overlap=tile_overlap, max_batch=max(model.batch, 16),
+                                  device=model.device)
+        # a batch-N artifact pays its whole batch each call: direct mode
+        # coalesces up to N waiting requests into it
+        dyn = model.batch if (not tile and model.batch > 1) else 1
+        super().__init__(model, model.scale, max_queue=max_queue, dynamic_batch=dyn,
+                         device_uint8=device_uint8, pipeline_depth=pipeline_depth,
+                         uint8_input=uint8_input, mode="tile" if tile else "direct",
+                         tiler=tiler)
+
+    def warmup(self, height: int, width: int) -> None:
+        # the exported geometry whatever --warmup_size says: the artifact has
+        # one shape, and the tiler's small-frame call must not see a smaller one
+        if self.mode == "direct":
+            height, width = self.model.height, self.model.width
+        else:
+            height, width = max(height, self.model.height), max(width, self.model.width)
+        super().warmup(height, width)
+
+    def info(self) -> dict:
+        out = super().info()
+        # whether the model zoo was imported: an artifact needs only the ops
+        out.update(mode="artifact-" + self.mode, path_desc=self.header.get("path_desc", ""),
+                   input_shape=self.header.get("input_shape"),
+                   model_zoo_loaded="larvanet_tpu_torch.models" in sys.modules)
+        return out
+
+
 def host_rss_mb():
     """Server-process resident set (MB), the leak signal of a long soak."""
     try:
@@ -503,6 +567,9 @@ def build_parser() -> argparse.ArgumentParser:
                         help="Directory of representative PNGs whose first 4, cropped "
                              "to their common size, calibrate --int8_trunk.")
     common.add_collapsed_tail_flag(parser)
+    parser.add_argument("--artifact", type=str, default=None,
+                        help="Serve a serving artifact (cli/export.py --stablehlo) instead "
+                             "of a checkpoint: no model build or restore.")
     common.add_refused_flags(parser, REFUSED, IGNORED)
     common.add_serving_dtype_flag(parser)
     return parser
@@ -557,11 +624,44 @@ def build_service(args, remaining) -> SRService:
                      uint8_input=bool(args.uint8_input))
 
 
+def build_artifact_service(args, remaining) -> ArtifactService:
+    """serve --artifact (larvanet_tpu/cli/serve.py:768-801): JAX's
+    refusals, then the ArtifactService on the device."""
+    common.refuse_unported(args, REFUSED, "serve")
+    if args.dynamic_batch > 1:
+        raise SystemExit("--dynamic_batch does not apply to --artifact serving: the batch "
+                         "dimension was baked at export, and a batch-N artifact already "
+                         "coalesces up to N queued requests per execution automatically")
+    for flag in ARTIFACT_REFUSED:
+        if getattr(args, flag, 0):
+            raise SystemExit("--%s does not apply to --artifact serving (the graph and "
+                             "weights are baked into the file; re-export with the right "
+                             "options)" % flag)
+    if getattr(args, "serving_dtype", "f32") != "f32":
+        raise SystemExit("--serving_dtype does not apply to --artifact serving (the compute "
+                         "dtype was baked at export — use cli/export.py --export_dtype)")
+    if args.restore_path:
+        raise SystemExit("pass --restore_path OR --artifact, not both")
+    common.warn_leftovers(remaining)
+    service = ArtifactService(args.artifact, tile=args.tile_forward,
+                              tile_overlap=args.tile_overlap, max_queue=args.max_queue,
+                              device=common.resolve_device(args),
+                              pipeline_depth=args.pipeline_depth,
+                              device_uint8=bool(args.device_uint8),
+                              uint8_input=bool(args.uint8_input))
+    print("serving artifact %s (%s)" % (args.artifact, service.header.get("path_desc", "")))
+    return service
+
+
 def main(argv=None):
     args, remaining = build_parser().parse_known_args(argv)
-    if not args.restore_path:
-        raise SystemExit("pass --restore_path (a .pth or .ckpt checkpoint)")
-    service = build_service(args, remaining)
+    if args.artifact:
+        service = build_artifact_service(args, remaining)
+    elif args.restore_path:
+        service = build_service(args, remaining)
+    else:
+        raise SystemExit("pass --restore_path (a .pth or .ckpt checkpoint) or --artifact "
+                         "(a serving artifact)")
     w, h = (int(v) for v in args.warmup_size.split("x"))
     print("warmup %dx%d ..." % (w, h))
     service.warmup(h, w)
@@ -589,7 +689,7 @@ def main(argv=None):
         pass  # not the main thread (embedded use)
 
     print("serving %s on http://%s:%d" % (
-        args.model, httpd.server_address[0], httpd.server_address[1]))
+        service.model.registry_name, httpd.server_address[0], httpd.server_address[1]))
     try:
         httpd.serve_forever()
     except KeyboardInterrupt:

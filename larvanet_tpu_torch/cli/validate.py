@@ -34,8 +34,17 @@ inputs; --int8_report also runs the exact forward per image (direct
 forwards only), prints the int8-vs-exact deltas, writes them to
 --report_json and exits 3 when the mean drop exceeds --int8_max_drop.
 
-Not ported yet, refused with a pointer to ROADMAP.md: --artifact,
---dp_devices, --spatial_shard.
+--artifact FILE validates a serving artifact (cli/export.py --stablehlo,
+utils/aot.py) instead of a checkpoint: the challenge protocol runs against
+the file production deploys, loaded without the model zoo. Its frames must
+match the exported geometry, or pass --tile_forward (the tile size is the
+exported square size). --chop_forward, --self_ensemble, --int8_trunk,
+--ema, a --serving_dtype other than f32 and --restore_path are refused
+with it, as in JAX (the graph is baked into the file); --wino_trunk is
+ignored, as JAX ignores it there.
+
+Not ported yet, refused with a pointer to ROADMAP.md: --dp_devices,
+--spatial_shard.
 --collapsed_tail 1 (the default, as in JAX) serves EDSR through the
 collapsed linear tail (ops/collapsed_tail.py: the tail probed once into
 one 5x5 conv, border operators and one shuffle, on the conv_kxk kernel);
@@ -63,7 +72,9 @@ from larvanet_tpu_torch.eval.ensemble import self_ensemble_forward
 from larvanet_tpu_torch.eval.pipeline import pipelined_upscale
 from larvanet_tpu_torch.eval.tiling import upscale_with_chop_forward
 
-REFUSED = ("artifact", "dp_devices", "spatial_shard")
+REFUSED = ("dp_devices", "spatial_shard")
+# refused with --artifact (larvanet_tpu/cli/validate.py:109-121)
+ARTIFACT_REFUSED = ("chop_forward", "self_ensemble", "int8_trunk", "ema")
 IGNORED = ("packed_trunk",)
 
 
@@ -102,30 +113,70 @@ def build_parser() -> argparse.ArgumentParser:
                         help="With --int8_report: refuse to bless the int8 path (exit "
                              "code 3) when the mean PSNR drop exceeds this many dB.")
     common.add_collapsed_tail_flag(parser)
+    parser.add_argument("--artifact", type=str, default=None,
+                        help="Validate a serving artifact (cli/export.py --stablehlo) "
+                             "instead of a checkpoint: the challenge protocol runs "
+                             "against the file production deploys. Images must match "
+                             "the exported geometry, or pass --tile_forward (tile size "
+                             "auto-set).")
     common.add_refused_flags(parser, REFUSED, IGNORED)
     common.add_serving_dtype_flag(parser)
     return parser
 
 
+def load_artifact_model(args, scale_list, device):
+    """validate --artifact (larvanet_tpu/cli/validate.py:107-133): JAX's
+    refusals, then the ArtifactModel on `device`; --tile_forward takes the
+    exported square size."""
+    from larvanet_tpu_torch.utils.aot import ArtifactModel
+
+    for flag in ARTIFACT_REFUSED:
+        if getattr(args, flag, 0):
+            raise SystemExit("--%s does not apply to --artifact validation (the graph is "
+                             "baked into the file)" % flag)
+    if getattr(args, "serving_dtype", "f32") != "f32":
+        raise SystemExit("--serving_dtype does not apply to --artifact validation (the "
+                         "compute dtype was baked at export — use cli/export.py "
+                         "--export_dtype)")
+    if args.restore_path:
+        raise SystemExit("pass --restore_path OR --artifact, not both")
+    model = ArtifactModel(args.artifact, device)
+    if scale_list != [model.scale]:
+        raise SystemExit("artifact is x%d; pass --scales %d" % (model.scale, model.scale))
+    if args.tile_forward:
+        if model.height != model.width:
+            raise SystemExit("--tile_forward needs a square exported geometry (got %dx%d)"
+                             % (model.height, model.width))
+        args.tile_size = model.height  # the artifact's one shape
+    print("validating serving artifact %s (%s; input %s)"
+          % (args.artifact, model.header.get("path_desc", ""),
+             model.header.get("input_shape")))
+    return model
+
+
 def main(argv=None):
     args, remaining = build_parser().parse_known_args(argv)
     common.refuse_unported(args, REFUSED, "validate")
-    if not args.restore_path:
-        raise SystemExit("pass --restore_path (a .pth or .ckpt checkpoint)")
+    if not args.restore_path and not args.artifact:
+        raise SystemExit("pass --restore_path (a .pth or .ckpt checkpoint) or --artifact")
     device = common.resolve_device(args)
     scale_list = common.scales_of(args)
     dataloader, _, remaining = common.setup_loader(args.dataloader, remaining, scale_list)
-    model, _, remaining = common.setup_model(args.model, remaining, scale_list, device)
-    common.note_ignored(args, IGNORED, "validate", model)
-    common.warn_leftovers(remaining)
-    model.restore(args.restore_path)
-    common.maybe_use_ema(model, args)
-    common.apply_serving_dtype(model, args)
-    print("restored the model")
-    common.maybe_collapse_tail(model, args)
-    common.maybe_wino_trunk(model, args)
-    common.maybe_int8_trunk(model, args, lambda: common.int8_calib_batch(
-        dataloader, scale_list[0], args.int8_calib_images))
+    if args.artifact:
+        model = load_artifact_model(args, scale_list, device)
+        common.warn_leftovers(remaining)
+    else:
+        model, _, remaining = common.setup_model(args.model, remaining, scale_list, device)
+        common.note_ignored(args, IGNORED, "validate", model)
+        common.warn_leftovers(remaining)
+        model.restore(args.restore_path)
+        common.maybe_use_ema(model, args)
+        common.apply_serving_dtype(model, args)
+        print("restored the model")
+        common.maybe_collapse_tail(model, args)
+        common.maybe_wino_trunk(model, args)
+        common.maybe_int8_trunk(model, args, lambda: common.int8_calib_batch(
+            dataloader, scale_list[0], args.int8_calib_images))
     int8_report = args.int8_report and hasattr(model, "int8_exact_forward")
     if args.int8_report and not int8_report:
         print("--int8_report: int8 trunk is not active; nothing to report")

@@ -1,4 +1,4 @@
-"""Full-frame inference in pieces (larvanet_tpu/eval/tiling.py:251-387).
+"""Full-frame inference in pieces (larvanet_tpu/eval/tiling.py).
 
 1. `upscale_with_chop_forward`: the reference's chop-forward
    (utils/image_utils.py:7-65), numpy on the host around `model.upscale`:
@@ -17,6 +17,17 @@
    power-of-two batch as in JAX, where the padding bounds XLA's compile
    count: nothing here compiles per shape, and a tile's output does not
    depend on the batch it runs in.
+
+3. `make_strip_batched_forward` and `make_tile_scan_forward` (JAX's :34
+   and :143): a frame of one fixed geometry through any NHWC forward (a
+   port route, so the kernels run inside) in windows of rows, or of 2-D
+   tiles, each extended by `halo` and shifted to stay inside the frame, so
+   that the outer windows' SAME padding falls on the true frame edge; each
+   window's owned rows (tiles) are written into one output frame on the
+   device. Where `halo` reaches the model's receptive radius every owned
+   pixel sees what it sees in the full frame. JAX's `lax.scan` over chunks
+   and tile rows is a Python loop here: one chunk's (one tile row's)
+   activations are live at a time.
 """
 
 from __future__ import annotations
@@ -26,6 +37,101 @@ from typing import Callable, List, Sequence, Tuple
 
 import numpy as np
 import torch
+
+# ---------------------------------------------------------------------------
+# Strips and 2-D tiles of one frame geometry, on the device
+# ---------------------------------------------------------------------------
+
+
+def _check_frame(x: torch.Tensor, height: int, width: int) -> None:
+    if x.shape[1] != height or x.shape[2] != width:
+        raise ValueError("frame shape %s does not match the traced (%d, %d) geometry"
+                         % (tuple(x.shape[1:3]), height, width))
+
+
+def make_strip_batched_forward(forward: Callable[[torch.Tensor], torch.Tensor], scale: int,
+                               n_strips: int, halo: int, height: int, width: int,
+                               chunk: int = 1) -> Callable[[torch.Tensor], torch.Tensor]:
+    """Full-frame SR of (N, height, width, 3) frames through `forward` (an
+    NHWC batch -> its NHWC x`scale` output) in `n_strips` windows of
+    height / n_strips + 2 halo rows (larvanet_tpu/eval/tiling.py:34-140):
+    window i starts at i sh - halo, clamped into the frame, and owns rows
+    [i sh, (i + 1) sh). `chunk` strips go through `forward` as one batch
+    (strip-major), one chunk after the other. Raises ValueError where
+    n_strips does not divide the height, chunk does not divide n_strips,
+    or a window exceeds the frame, and at call time on another geometry."""
+    if height % n_strips:
+        raise ValueError("height %d not divisible by n_strips %d" % (height, n_strips))
+    if n_strips % chunk:
+        raise ValueError("n_strips %d not divisible by chunk %d" % (n_strips, chunk))
+    sh = height // n_strips
+    win = sh + 2 * halo
+    if win > height:
+        raise ValueError("strip window %d exceeds frame height %d — fewer strips or a "
+                         "smaller halo" % (win, height))
+    starts = [min(max(i * sh - halo, 0), height - win) for i in range(n_strips)]
+    offs = [i * sh - starts[i] for i in range(n_strips)]  # owned offset in its window
+    s = scale
+
+    @torch.no_grad()
+    def run(x: torch.Tensor) -> torch.Tensor:
+        _check_frame(x, height, width)
+        n = x.shape[0]
+        out = None
+        for c0 in range(0, n_strips, chunk):
+            strips = range(c0, c0 + chunk)
+            outs = forward(torch.cat([x[:, starts[i]:starts[i] + win] for i in strips]))
+            if out is None:
+                out = outs.new_empty((n, height * s, width * s, outs.shape[-1]))
+            for j, i in enumerate(strips):
+                out[:, i * sh * s:(i + 1) * sh * s] = \
+                    outs[j * n:(j + 1) * n, offs[i] * s:(offs[i] + sh) * s]
+        return out
+
+    return run
+
+
+def make_tile_scan_forward(forward: Callable[[torch.Tensor], torch.Tensor], scale: int,
+                           tile_h: int, tile_w: int, halo: int, height: int,
+                           width: int) -> Callable[[torch.Tensor], torch.Tensor]:
+    """Full-frame SR of (N, height, width, 3) frames through `forward` over
+    a (height / tile_h, width / tile_w) grid of tiles, one tile row at a
+    time (larvanet_tpu/eval/tiling.py:143-247): each tile's window reaches
+    `halo` past it on every side, clamped to the frame and shifted to stay
+    inside it; a row's windows go through `forward` as one batch
+    (column-major within the row), and their owned tiles are written into
+    the output. Raises ValueError where a tile side does not divide the
+    frame's, and at call time on another geometry."""
+    if height % tile_h:
+        raise ValueError("height %d not divisible by tile_h %d" % (height, tile_h))
+    if width % tile_w:
+        raise ValueError("width %d not divisible by tile_w %d" % (width, tile_w))
+    gh, gw = height // tile_h, width // tile_w
+    # a window clamped to the frame only gains context on its far side
+    wh, ww = min(tile_h + 2 * halo, height), min(tile_w + 2 * halo, width)
+    rstarts = [min(max(i * tile_h - halo, 0), height - wh) for i in range(gh)]
+    roffs = [i * tile_h - rstarts[i] for i in range(gh)]
+    cstarts = [min(max(j * tile_w - halo, 0), width - ww) for j in range(gw)]
+    coffs = [j * tile_w - cstarts[j] for j in range(gw)]
+    s = scale
+
+    @torch.no_grad()
+    def run(x: torch.Tensor) -> torch.Tensor:
+        _check_frame(x, height, width)
+        n = x.shape[0]
+        out = None
+        for r in range(gh):
+            rs, ro = rstarts[r], roffs[r]
+            outs = forward(torch.cat([x[:, rs:rs + wh, cs:cs + ww] for cs in cstarts]))
+            if out is None:
+                out = outs.new_empty((n, height * s, width * s, outs.shape[-1]))
+            for j, co in enumerate(coffs):
+                out[:, r * tile_h * s:(r + 1) * tile_h * s, j * tile_w * s:(j + 1) * tile_w * s] \
+                    = outs[j * n:(j + 1) * n, ro * s:(ro + tile_h) * s, co * s:(co + tile_w) * s]
+        return out
+
+    return run
+
 
 # ---------------------------------------------------------------------------
 # The reference's chop-forward (2x2 + overlap)

@@ -215,19 +215,11 @@ def _run(fn, x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
     return out
 
 
-def conv3x3_bias_act(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
-                     act: Optional[str] = None, dgrad: bool = False,
-                     slope: float = 0.1) -> torch.Tensor:
-    """SAME 3x3 conv + bias + act (leaky_relu at `slope`). CUDA tensor: the
-    hand-written kernel; CPU tensor: the plain version. `dgrad` marks an input gradient
-    (`Conv3x3Train.backward`): its kernel is made afresh for the call, so
-    its split weight is not cached, and its launch is counted in
-    DGRAD_LAUNCHES_BY_PATH as well."""
-    if x.device.type == "cpu":
-        return conv3x3_bias_act_reference(x, kernel, bias, act, slope)
-    if x.device.type != "cuda":
-        raise ValueError("conv3x3_bias_act runs on CUDA or the CPU, not %s"
-                         % (x.device,))
+def check_operands(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
+                   act: Optional[str]) -> None:
+    """The checks of a launch on the card, on shapes, dtypes and devices
+    alone: the wrapper's, and the registered op's fake body's
+    (ops/library.py)."""
     if act not in ACTS:
         raise ValueError("unknown activation %r" % (act,))
     if x.dtype not in (torch.float32, torch.bfloat16):
@@ -247,6 +239,16 @@ def conv3x3_bias_act(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
         raise ValueError("empty conv: x %s, F %d" % (tuple(x.shape), f))
     if kernel.device != x.device or bias.device != x.device:
         raise ValueError("x, kernel and bias must be on one device")
+
+
+def conv3x3_bias_act_cuda(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
+                          act: Optional[str] = None, slope: float = 0.1,
+                          dgrad: bool = False) -> torch.Tensor:
+    """The launch on checked CUDA operands (`check_operands`): the path's
+    entry on the current stream, its split weight cached unless `dgrad`,
+    and the launch counted. The wrapper's CUDA route and the registered
+    op's CUDA body."""
+    c, f = x.shape[3], kernel.shape[3]
     path = path_for(c, f, x.dtype)
     with torch.cuda.device(x.device):
         out = _run(_entry(x.dtype, path), x, kernel, bias, act,
@@ -258,6 +260,29 @@ def conv3x3_bias_act(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
     if dgrad:
         DGRAD_LAUNCHES_BY_PATH[path] += 1
     return out
+
+
+def conv3x3_bias_act(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
+                     act: Optional[str] = None, dgrad: bool = False,
+                     slope: float = 0.1) -> torch.Tensor:
+    """SAME 3x3 conv + bias + act (leaky_relu at `slope`). CUDA tensor: the
+    hand-written kernel; CPU tensor: the plain version; under torch.export,
+    the registered op `larvanet.conv3x3_bias_act` (ops/library.py), which
+    runs the same two. `dgrad` marks an input gradient
+    (`Conv3x3Train.backward`): its kernel is made afresh for the call, so
+    its split weight is not cached, and its launch is counted in
+    DGRAD_LAUNCHES_BY_PATH as well."""
+    if torch.compiler.is_exporting():
+        from larvanet_tpu_torch.ops import library
+
+        return library.conv3x3_bias_act(x, kernel, bias, act, slope)
+    if x.device.type == "cpu":
+        return conv3x3_bias_act_reference(x, kernel, bias, act, slope)
+    if x.device.type != "cuda":
+        raise ValueError("conv3x3_bias_act runs on CUDA or the CPU, not %s"
+                         % (x.device,))
+    check_operands(x, kernel, bias, act)
+    return conv3x3_bias_act_cuda(x, kernel, bias, act, slope, dgrad)
 
 
 def dgrad_kernel(kernel: torch.Tensor) -> torch.Tensor:

@@ -238,34 +238,18 @@ def _count(entry: str) -> None:
     LAUNCHES_BY_ENTRY[entry] += 1
 
 
-def conv_a(hin: torch.Tensor, wt: S8Weight, s_in: float, s_mid: float,
-           act: Optional[str] = "relu", slope: float = 0.1) -> torch.Tensor:
-    """The pair's first conv: hin (f32 or bf16 NHWC) -> int8 codes of its
-    requantized output (leaky_relu at `slope`). CUDA tensor: the kernel;
-    CPU tensor: the plain version."""
+def check_a(hin: torch.Tensor, wt: S8Weight, act: Optional[str]) -> None:
+    """conv_a's checks on shapes, dtypes and devices: the wrapper's and the
+    registered op's fake body's (ops/library.py)."""
     if act not in ACTS:
         raise ValueError("conv3x3_s8 takes act %s, got %r" % (sorted(map(str, ACTS)), act))
-    if hin.device.type == "cpu":
-        return conv_a_reference(hin, wt, s_in, s_mid, act, slope)
-    if hin.device.type != "cuda":
-        raise ValueError("conv3x3_s8 runs on CUDA or the CPU, not %s" % (hin.device,))
     _check(hin, wt, (torch.float32, torch.bfloat16), "conv_a")
-    with torch.cuda.device(hin.device):
-        out = _run_a(_entry("conv_a", hin.dtype), hin, wt, s_in, s_mid, act,
-                     torch.cuda.current_stream().cuda_stream, slope)
-    _count("conv_a")
-    return out
 
 
-def conv_b(tq: torch.Tensor, wt: S8Weight, dtype: torch.dtype,
-           res: Optional[torch.Tensor] = None, res_weight: float = 1.0) -> torch.Tensor:
-    """The pair's second conv: int8 codes (NHWC) -> `dtype`, times
-    res_weight, plus `res` (in `dtype`, the output's shape) when given.
-    CUDA tensor: the kernel; CPU tensor: the plain version."""
-    if tq.device.type == "cpu":
-        return conv_b_reference(tq, wt, dtype, res, res_weight)
-    if tq.device.type != "cuda":
-        raise ValueError("conv3x3_s8 runs on CUDA or the CPU, not %s" % (tq.device,))
+def check_b(tq: torch.Tensor, wt: S8Weight, dtype: torch.dtype,
+            res: Optional[torch.Tensor]) -> None:
+    """conv_b's checks on shapes, dtypes and devices: the wrapper's and the
+    registered op's fake body's."""
     _check(tq, wt, (torch.int8,), "conv_b")
     if dtype not in (torch.float32, torch.bfloat16):
         raise TypeError("conv_b writes float32 or bfloat16, got %s" % (dtype,))
@@ -275,8 +259,63 @@ def conv_b(tq: torch.Tensor, wt: S8Weight, dtype: torch.dtype,
                 or tuple(res.shape) != tuple(tq.shape[:3]) + (f,)):
             raise ValueError("conv_b: res must be a contiguous %s tensor of shape %s on %s"
                              % (dtype, tuple(tq.shape[:3]) + (f,), tq.device))
+
+
+def conv_a_cuda(hin: torch.Tensor, wt: S8Weight, s_in: float, s_mid: float,
+                act: Optional[str] = "relu", slope: float = 0.1) -> torch.Tensor:
+    """conv_a's launch on checked CUDA operands, counted: the wrapper's CUDA
+    route and the registered op's CUDA body."""
+    with torch.cuda.device(hin.device):
+        out = _run_a(_entry("conv_a", hin.dtype), hin, wt, s_in, s_mid, act,
+                     torch.cuda.current_stream().cuda_stream, slope)
+    _count("conv_a")
+    return out
+
+
+def conv_b_cuda(tq: torch.Tensor, wt: S8Weight, dtype: torch.dtype,
+                res: Optional[torch.Tensor] = None, res_weight: float = 1.0) -> torch.Tensor:
+    """conv_b's launch on checked CUDA operands, counted: the wrapper's CUDA
+    route and the registered op's CUDA body."""
     with torch.cuda.device(tq.device):
         out = _run_b(_entry("conv_b", dtype), tq, wt, dtype, res, res_weight,
                      torch.cuda.current_stream().cuda_stream)
     _count("conv_b")
     return out
+
+
+def conv_a(hin: torch.Tensor, wt: S8Weight, s_in: float, s_mid: float,
+           act: Optional[str] = "relu", slope: float = 0.1) -> torch.Tensor:
+    """The pair's first conv: hin (f32 or bf16 NHWC) -> int8 codes of its
+    requantized output (leaky_relu at `slope`). CUDA tensor: the kernel;
+    CPU tensor: the plain version; under torch.export, the registered op
+    `larvanet.conv3x3_s8_a` (ops/library.py), which runs the same two."""
+    if act not in ACTS:
+        raise ValueError("conv3x3_s8 takes act %s, got %r" % (sorted(map(str, ACTS)), act))
+    if torch.compiler.is_exporting():
+        from larvanet_tpu_torch.ops import library
+
+        return library.conv3x3_s8_a(hin, wt, s_in, s_mid, act, slope)
+    if hin.device.type == "cpu":
+        return conv_a_reference(hin, wt, s_in, s_mid, act, slope)
+    if hin.device.type != "cuda":
+        raise ValueError("conv3x3_s8 runs on CUDA or the CPU, not %s" % (hin.device,))
+    check_a(hin, wt, act)
+    return conv_a_cuda(hin, wt, s_in, s_mid, act, slope)
+
+
+def conv_b(tq: torch.Tensor, wt: S8Weight, dtype: torch.dtype,
+           res: Optional[torch.Tensor] = None, res_weight: float = 1.0) -> torch.Tensor:
+    """The pair's second conv: int8 codes (NHWC) -> `dtype`, times
+    res_weight, plus `res` (in `dtype`, the output's shape) when given.
+    CUDA tensor: the kernel; CPU tensor: the plain version; under
+    torch.export, the registered op `larvanet.conv3x3_s8_b`."""
+    if torch.compiler.is_exporting():
+        from larvanet_tpu_torch.ops import library
+
+        return library.conv3x3_s8_b(tq, wt, dtype, res, res_weight)
+    if tq.device.type == "cpu":
+        return conv_b_reference(tq, wt, dtype, res, res_weight)
+    if tq.device.type != "cuda":
+        raise ValueError("conv3x3_s8 runs on CUDA or the CPU, not %s" % (tq.device,))
+    check_b(tq, wt, dtype, res)
+    return conv_b_cuda(tq, wt, dtype, res, res_weight)

@@ -369,8 +369,8 @@ def _run_wgrad(fn, x: torch.Tensor, g: torch.Tensor, kh: int, kw: int, pads: Seq
     return out[:rows - 1].view(kh, kw, c, f), out[rows - 1]
 
 
-def _check(x: torch.Tensor, name: str) -> None:
-    if x.device.type != "cuda":
+def _check(x: torch.Tensor, name: str, cuda: bool = True) -> None:
+    if cuda and x.device.type != "cuda":
         raise ValueError("%s runs on CUDA or the CPU, not %s" % (name, x.device))
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError("%s takes float32 or bfloat16, got %s" % (name, x.dtype))
@@ -409,15 +409,56 @@ def _check_operands(x: torch.Tensor, kernel: torch.Tensor, bias: Optional[torch.
     return _check_pads(pads, kh, kw, h, w)
 
 
+def check_conv(x: torch.Tensor, kernel: torch.Tensor, bias: Optional[torch.Tensor],
+               pads: Sequence[int], name: str = "conv_kxk", cuda: bool = True) -> Pads:
+    """The checks of a launch of one problem: the wrapper's (`cuda`: x on
+    the card), and the registered ops' fake bodies' (ops/library.py, on
+    shapes, dtypes and devices alone); returns the pads."""
+    _check(x, name, cuda)
+    if kernel.dim() != 4:
+        raise ValueError("kernel must be HWIO (kh, kw, C, F), got %s" % (tuple(kernel.shape),))
+    return _check_operands(x, kernel, bias, pads)
+
+
+def conv_kxk_cuda(x: torch.Tensor, group: ConvGroup, pads: Pads,
+                  dgrad: bool = False) -> torch.Tensor:
+    """The single launch on checked CUDA operands: `group` one problem (its
+    operands made once), counted. The wrapper's CUDA route and the
+    registered op's CUDA body."""
+    path = path_for(x.shape[3])
+    with torch.cuda.device(x.device):
+        out = _run(_entry(x.dtype, path), x, group, None, pads,
+                   torch.cuda.current_stream().cuda_stream, path)
+    global LAUNCHES
+    LAUNCHES += 1
+    LAUNCHES_BY_PATH[path] += 1
+    if dgrad:
+        DGRAD_LAUNCHES_BY_PATH[path] += 1
+    return out
+
+
+def conv_kxk_group_cuda(x: torch.Tensor, group: ConvGroup, pads: Pads) -> torch.Tensor:
+    """The grouped launch on G checked CUDA problems stacked in x (G, n, h,
+    w, c); returns the outputs stacked, counted. The wrapper's CUDA route
+    and the registered op's CUDA body."""
+    path = path_for(x.shape[-1])
+    with torch.cuda.device(x.device):
+        out = _run_group(_entry(x.dtype, path, True), x, group, pads,
+                         torch.cuda.current_stream().cuda_stream, path)
+    GROUP_LAUNCHES_BY_PATH[path] += 1
+    return out
+
+
 def conv_kxk(x: torch.Tensor, kernel, bias: Optional[torch.Tensor] = None,
              pads: Optional[Sequence[int]] = None, dgrad: bool = False) -> torch.Tensor:
     """KxK conv + bias with explicit zero pads (default: SAME for an odd
     kernel). CUDA tensor: the hand-written kernel; CPU tensor: the plain
-    version. `kernel` is an HWIO kernel, laid out for the entry every call,
-    or a fixed one as a ConvGroup of one problem (its bias with it: `bias`
-    must be None), whose operands are made once. `dgrad` marks an input
-    gradient (`ConvKxKTrain.backward`), counted in DGRAD_LAUNCHES_BY_PATH as
-    well."""
+    version; under torch.export, the registered op `larvanet.conv_kxk`
+    (ops/library.py), which runs the same two. `kernel` is an HWIO kernel,
+    laid out for the entry every call, or a fixed one as a ConvGroup of one
+    problem (its bias with it: `bias` must be None), whose operands are
+    made once. `dgrad` marks an input gradient (`ConvKxKTrain.backward`),
+    counted in DGRAD_LAUNCHES_BY_PATH as well."""
     group = None
     if isinstance(kernel, ConvGroup):
         if len(kernel) != 1 or bias is not None:
@@ -429,20 +470,14 @@ def conv_kxk(x: torch.Tensor, kernel, bias: Optional[torch.Tensor] = None,
         raise ValueError("kernel must be HWIO (kh, kw, C, F), got %s" % (tuple(kernel.shape),))
     kh, kw = kernel.shape[:2]
     pads = tuple(pads) if pads is not None else same_pads(kh, kw)
+    if torch.compiler.is_exporting():
+        from larvanet_tpu_torch.ops import library
+
+        return library.conv_kxk(x, kernel, bias, pads)
     if x.device.type == "cpu":
         return conv_kxk_reference(x, kernel, bias, pads)
-    _check(x, "conv_kxk")
-    pads = _check_operands(x, kernel, bias, pads)
-    path = path_for(x.shape[3])
-    with torch.cuda.device(x.device):
-        out = _run(_entry(x.dtype, path), x, group or kernel, bias, pads,
-                   torch.cuda.current_stream().cuda_stream, path)
-    global LAUNCHES
-    LAUNCHES += 1
-    LAUNCHES_BY_PATH[path] += 1
-    if dgrad:
-        DGRAD_LAUNCHES_BY_PATH[path] += 1
-    return out
+    pads = check_conv(x, kernel, bias, pads)
+    return conv_kxk_cuda(x, group or ConvGroup([kernel], [bias]), pads, dgrad)
 
 
 def conv_kxk_group(xs: Sequence[torch.Tensor], kernels, biases=None,
@@ -453,8 +488,9 @@ def conv_kxk_group(xs: Sequence[torch.Tensor], kernels, biases=None,
     be None), or the HWIO kernels with `biases` (made into a ConvGroup for
     this call). CUDA tensors: the grouped entry of `path_for(C)` on the
     inputs stacked (views are copied into one contiguous tensor); CPU
-    tensors: the plain version, problem by problem. Returns the G
-    outputs."""
+    tensors: the plain version, problem by problem; under torch.export, the
+    registered op `larvanet.conv_kxk_group` on the inputs stacked. Returns
+    the G outputs."""
     if isinstance(kernels, ConvGroup):
         if biases is not None:
             raise ValueError("a ConvGroup carries its biases")
@@ -470,20 +506,19 @@ def conv_kxk_group(xs: Sequence[torch.Tensor], kernels, biases=None,
     if len(xs) != len(group):
         raise ValueError("conv_kxk_group takes as many inputs as kernels (%d), got %d"
                          % (len(group), len(xs)))
+    if torch.compiler.is_exporting():
+        from larvanet_tpu_torch.ops import library
+
+        return list(library.conv_kxk_group(torch.stack(list(xs)), group.kernels,
+                                           group.biases, pads).unbind(0))
     if xs[0].device.type == "cpu":
         return conv_kxk_group_reference(xs, group, None, pads)
     x = torch.stack(list(xs))
     key = (x.shape, x.dtype, x.device, pads)
     if key not in group._checked:  # the checks of a shape once a group
-        _check(x[0], "conv_kxk_group")
-        group._checked[key] = _check_operands(x[0], group.kernels[0], group.biases[0], pads)
-    pads = group._checked[key]
-    path = path_for(x.shape[-1])
-    with torch.cuda.device(x.device):
-        out = _run_group(_entry(x.dtype, path, True), x, group, pads,
-                         torch.cuda.current_stream().cuda_stream, path)
-    GROUP_LAUNCHES_BY_PATH[path] += 1
-    return list(out.unbind(0))
+        group._checked[key] = check_conv(x[0], group.kernels[0], group.biases[0], pads,
+                                         "conv_kxk_group")
+    return list(conv_kxk_group_cuda(x, group, group._checked[key]).unbind(0))
 
 
 def conv_kxk_wgrad(x: torch.Tensor, g: torch.Tensor, kh: int, kw: int,

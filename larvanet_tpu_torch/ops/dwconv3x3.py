@@ -175,15 +175,9 @@ def _count(entry: str) -> None:
     LAUNCHES_BY_ENTRY[entry] += 1
 
 
-def dwconv3x3(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
-              dgrad: bool = False) -> torch.Tensor:
-    """The depthwise SAME 3x3 conv + bias. CUDA tensor: the hand-written
-    kernel; CPU tensor: the plain version. `dgrad` marks an input gradient
-    (`DWConv3x3Train.backward`), counted as such."""
-    if x.device.type == "cpu":
-        return dwconv3x3_reference(x, kernel, bias)
-    if x.device.type != "cuda":
-        raise ValueError("dwconv3x3 runs on CUDA or the CPU, not %s" % (x.device,))
+def check_operands(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor) -> None:
+    """The forward's checks on shapes, dtypes and devices: the wrapper's
+    and the registered op's fake body's (ops/library.py)."""
     _check(x, "dwconv3x3")
     c = x.shape[3]
     if tuple(kernel.shape) != (3, 3, 1, c) or tuple(bias.shape) != (c,):
@@ -191,11 +185,37 @@ def dwconv3x3(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
                          "and %s" % (c, c, tuple(kernel.shape), tuple(bias.shape)))
     if kernel.device != x.device or bias.device != x.device:
         raise ValueError("dwconv3x3: x, kernel and bias must be on one device")
+
+
+def dwconv3x3_cuda(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
+                   dgrad: bool = False) -> torch.Tensor:
+    """The forward entry's launch on checked CUDA operands, counted (as an
+    input gradient where `dgrad`): the wrapper's CUDA route and the
+    registered op's CUDA body."""
     with torch.cuda.device(x.device):
         out = _run(_entry("forward", x.dtype), x, kernel, bias,
                    torch.cuda.current_stream().cuda_stream)
     _count("dgrad" if dgrad else "forward")
     return out
+
+
+def dwconv3x3(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
+              dgrad: bool = False) -> torch.Tensor:
+    """The depthwise SAME 3x3 conv + bias. CUDA tensor: the hand-written
+    kernel; CPU tensor: the plain version; under torch.export, the
+    registered op `larvanet.dwconv3x3` (ops/library.py), which runs the
+    same two. `dgrad` marks an input gradient
+    (`DWConv3x3Train.backward`), counted as such."""
+    if torch.compiler.is_exporting():
+        from larvanet_tpu_torch.ops import library
+
+        return library.dwconv3x3(x, kernel, bias)
+    if x.device.type == "cpu":
+        return dwconv3x3_reference(x, kernel, bias)
+    if x.device.type != "cuda":
+        raise ValueError("dwconv3x3 runs on CUDA or the CPU, not %s" % (x.device,))
+    check_operands(x, kernel, bias)
+    return dwconv3x3_cuda(x, kernel, bias, dgrad)
 
 
 def dwconv3x3_wgrad(x: torch.Tensor, g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -320,7 +320,7 @@ def test_drain_sheds_new_requests():
 
 def test_unported_flags_are_refused(tmp_path):
     pth = _pth(tmp_path)
-    for flag in ("--artifact=x.stablehlo", "--dp_devices=2", "--spatial_shard=2"):
+    for flag in ("--dp_devices=2", "--spatial_shard=2"):
         with pytest.raises(SystemExit, match="ROADMAP"):
             serve.build_service(*_port_args(pth, flag))
 

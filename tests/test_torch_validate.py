@@ -273,6 +273,24 @@ def test_unported_flags_exit_nonzero(cli, flag, even_data, pth, tmp_path):
     assert exc.value.code not in (0, None)
 
 
+@pytest.mark.parametrize("extra,message", [
+    (["--chop_forward"], "--chop_forward does not apply"),
+    (["--self_ensemble"], "--self_ensemble does not apply"),
+    (["--int8_trunk", "1"], "--int8_trunk does not apply"),
+    (["--ema", "1"], "--ema does not apply"),
+    (["--serving_dtype", "bf16"], "--serving_dtype does not apply"),
+    (["--restore_path", "m.pth"], "not both"),
+])
+def test_artifact_conflicts_exit_nonzero(extra, message, even_data):
+    """validate --artifact refuses JAX's conflicting flags
+    (larvanet_tpu/cli/validate.py:109-121) before it reads the artifact."""
+    argv = ["--device", "cpu", "--data_input_path", even_data[0], "--data_truth_path",
+            even_data[1], "--artifact", "missing.lvt"]
+    with pytest.raises(SystemExit, match=message) as exc:
+        validate.main(argv + extra)
+    assert exc.value.code not in (0, None)
+
+
 def test_tpu_layout_flags_are_accepted_and_ignored(even_data, pth, tmp_path, capsys):
     validate.main(_flags(even_data, pth, "--device", "cpu", "--collapsed_tail", "1",
                          "--packed_trunk", "0"))
