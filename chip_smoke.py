@@ -2,6 +2,8 @@
 """On-card smoke run of the PyTorch/CUDA port, `larvanet_tpu_torch`.
 
     python3 chip_smoke.py        # from the repo root, on a machine with one H100
+    python3 chip_smoke.py --phase parallel   # the build and phase 20 alone
+
 
 It drives the port's main paths on the card, serving and validating
 EDSR-baseline x4 and the LarvaNet family (the flagship LarvaNet 2x16, and
@@ -10,7 +12,10 @@ flagship, then serving, running and training the MSRR family (phase 15),
 TreeNet, REGO-Net and REGO-serial (phase 16), the EBRN and HRSR
 families (phase 17) and MAMNet and IMDN (phase 18), then exporting, serving
 and validating serving artifacts and the full-frame forwards (phase 19),
-and fails (exit code != 0, no result line) if any phase fails.
+then the parallel package (phase 20: spatial halo sharding, data-parallel
+serving and training, NCCL, channel TP, directory checkpoints, on a mesh
+that repeats the one card, and over distinct cards where there are 2 or
+more), and fails (exit code != 0, no result line) if any phase fails.
 EDSR serves on its default route, the collapsed linear tail
 (ops/collapsed_tail.py: the trunk's 34 convs on conv3x3, the tail as one
 5x5 conv, 4 side and 4 corner operators on conv_kxk; the CLIs make the
@@ -382,6 +387,27 @@ on the default, collapsed route:
     radius 36) equal to the direct frame, timed with peak memory beside
     TiledUpscaler's tiles and the chop. 19e: the 2-D Winograd EDSR forward
     (ops/winograd.py) in f32 against the module at JAX's bar.
+ 11b. Phase 20 (`parallel_phase`), each mesh's devices printed. 20a:
+    EDSR-baseline x4 at full width on one 540x960 LR frame, its rows split
+    4 ways (parallel/halo.py): at halo = the measured receptive radius (36)
+    the f32 sharded forward against the full frame (FWD_RTOL) and bf16
+    against the sharded plain convs (BF16_FWD_RTOL); at the default halo 32
+    both against the sharded plain convs; 4 x 37 conv3x3 launches a sharded
+    forward; sharded and full frame timed in turns. 20b: a 2-way
+    use_data_parallel_eval of the collapsed route and of the int8 route,
+    bit for bit with the single-device forward (34 conv3x3 + 4 conv_kxk, or
+    32 s8, a shard); validate --tile_forward --dp_devices 2 and serve
+    --dp_devices 2 (4 direct requests) frame for frame against the same
+    CLIs without it. 20c: one 2-way data-parallel step of EDSR-baseline x4
+    and of LarvaNet 2x16 against the single-device step (loss 1e-5,
+    gradients GRAD_RTOL, parameters 2 lr), twice the step's launches. 20d:
+    NCCL at world size 1 carrying 20c's EDSR step's all-reduce (two
+    processes, one card each, on a machine of 2 cards or more). 20e:
+    make_tp_spatial_forward on a 2 x 2 mesh, a 4-conv stack at C = 64,
+    against the plain convs, each shard's conv path counted. 20f: the train
+    CLI with --dp_devices 2 --orbax_checkpoint 1, sync and async: the resume
+    from a directory repeats the run, the restored directory's forward
+    equals the trained one.
  12. (last) prints the kernels JSON line, the nvidia-smi line, then the
     result line {"ok": true, "device": {...}}.
 
@@ -453,7 +479,11 @@ its collapsed forwards and step to the conv_kxk lines. Phase 19a's counted
 forwards (each artifact's and its live route's) add to the conv3x3,
 conv3x3_s8, conv_kxk and dwconv3x3 lines, which give them under
 "artifact_launches"; the conv3x3 line gives phase 19's numbers under
-"artifact".
+"artifact". Phase 20's counted forwards add to the conv3x3 line (by path
+under "parallel_launches", each part's times under "parallel"), its dp
+steps to the conv3x3 and conv3x3_wgrad lines' train runs, its dp int8
+forwards to the conv3x3_s8 line ("parallel_launches") and its collapsed
+dp forwards to the conv_kxk line.
 """
 
 from __future__ import annotations
@@ -475,8 +505,9 @@ from unittest import mock
 SEED = 0
 WARMUP_REPS = 2
 TIMED_REPS = 10
-# timing windows of TIMED_REPS calls; a time is their median
-WINDOWS = 5
+# timing windows of TIMED_REPS calls; a time is their median (3 windows keep
+# the whole script, phase 20 included, well inside its clock)
+WINDOWS = 3
 # f32: the kernel and the plain version sum the same f32 products in another
 # order; tools/pallas_check.py holds the TPU kernel to the same bar. The
 # tensor-core entry's split-TF32 products drop a_lo b_lo, ~2^-22 of each
@@ -760,9 +791,10 @@ INT8_LAUNCHES = {"edsr": ({"conv_a": 16, "conv_b": 16},
                               {"cuda_core": 1, "tensor_core": 0, "narrow": 0})}
 INT8_FWD_PSNR_DB = 55.0
 QAT_STEPS = 3
-# the profiled calls of the family phases' train-step splits (15d, 16d, 17d;
-# phases 8, 8b, 13 and 14 take TIMED_REPS): the profiler's host cost on a
-# host-bound step (QAT: ~2.5 s a profiled call) is the phases' largest part
+# the profiled calls of every device split, forwards' and train steps'
+# (phases 5, 8, 8b, 13, 14 and 19 included, for the script's clock): the
+# profiler's host cost on a host-bound step (QAT: ~2.5 s a profiled call)
+# is the phases' largest part
 SPLIT_REPS = 3
 
 
@@ -1467,7 +1499,7 @@ def larvanet_model(name, flags, device="cuda", pth=None):
 
 
 def device_breakdown(torch, fn, kinds=("conv3x3", "wino_resblock", "conv_kxk"),
-                     reps=TIMED_REPS):
+                     reps=SPLIT_REPS):
     """The card's kernel time in one call of `fn`: (wall ms under the
     profiler, {each of `kinds`, "other": ms of kernels by name, a kernel
     going to the first kind its name holds}), from torch.profiler's CUDA
@@ -2073,17 +2105,16 @@ def time_train_step(torch, model, x, t, step, label, batch, patch, dname="f32"):
     return tm
 
 
-def train_step_split(torch, model, x, t, step, label, batch, patch, dname, tm,
-                     reps=TIMED_REPS):
+def train_step_split(torch, model, x, t, step, label, batch, patch, dname, tm):
     """Print a train step's time `tm` (a time_windows entry) and where the
-    card's time goes in it (time_train_step's split, over `reps` profiled
-    calls)."""
+    card's time goes in it (time_train_step's split, over SPLIT_REPS
+    profiled calls)."""
     print("train: %s, batch %d x %dx%d, %s: %s per train step, %.3f LR-MP/s trained"
           % (label, batch, patch, patch, dname, spread(tm),
              batch * patch * patch / 1e3 / tm[0]), flush=True)
     _, fwd = device_breakdown(torch, lambda: model._compute_loss(x, t),
-                              kinds=("wgrad", "conv3x3"), reps=reps)
-    _, parts = device_breakdown(torch, step, kinds=("wgrad", "conv3x3"), reps=reps)
+                              kinds=("wgrad", "conv3x3"))
+    _, parts = device_breakdown(torch, step, kinds=("wgrad", "conv3x3"))
     if parts is None or fwd is None:
         print("train step device breakdown not measured (the profiler recorded no kernel)")
         return
@@ -4865,8 +4896,7 @@ def msrr_train_phase(torch):
             steps.append(launches)
             # 3 windows of 5 steps: the phase's share of the script's time
             tm = time_windows(torch, {"train_step": step}, windows=3, reps=5)["train_step"]
-            train_step_split(torch, model, x, t, step, label, batch, patch, "f32", tm,
-                             reps=SPLIT_REPS)
+            train_step_split(torch, model, x, t, step, label, batch, patch, "f32", tm)
             times[name] = tm[0]
             del model
             torch.cuda.empty_cache()
@@ -5261,8 +5291,7 @@ def branchy_train_phase(torch):
                                      % (label, launches, want))
             steps.append(launches)
             tm = time_windows(torch, {"train_step": step}, windows=3, reps=5)["train_step"]
-            train_step_split(torch, model, x, t, step, label, batch, patch, "f32", tm,
-                             reps=SPLIT_REPS)
+            train_step_split(torch, model, x, t, step, label, batch, patch, "f32", tm)
             times[name] = tm[0]
             del model
             torch.cuda.empty_cache()
@@ -5711,8 +5740,7 @@ def sr_train_phase(torch):
             steps.append(launches)
             tm = time_windows(torch, {"train_step": step}, windows=3, reps=5)["train_step"]
             t2 = time.perf_counter()
-            train_step_split(torch, model, x, t, step, label, batch, patch, "f32", tm,
-                             reps=SPLIT_REPS)
+            train_step_split(torch, model, x, t, step, label, batch, patch, "f32", tm)
             times[name] = tm[0]
             print("17d %s: %.1f s checking the gradients, %.1f s counting and timing, %.1f s "
                   "profiling" % (label, t1 - t0, t2 - t1, time.perf_counter() - t2),
@@ -6110,8 +6138,7 @@ def mi_train_phase(torch):
         steps.append(launches)
         tm = time_windows(torch, {"train_step": step}, windows=3, reps=5)["train_step"]
         t2 = time.perf_counter()
-        train_step_split(torch, model, x, t, step, label, batch, patch, "f32", tm,
-                         reps=SPLIT_REPS)
+        train_step_split(torch, model, x, t, step, label, batch, patch, "f32", tm)
         times[name] = tm[0]
         print("18c %s: %.1f s checking the gradients, %.1f s counting and timing, %.1f s "
               "profiling" % (label, t1 - t0, t2 - t1, time.perf_counter() - t2), flush=True)
@@ -6615,6 +6642,580 @@ def artifact_phase(torch):
             "frames": frames, "winograd": wino}
 
 
+# ---- phase 20: the parallel package ------------------------------------------
+# 20a: EDSR-baseline x4 at full width on one 540x960 LR frame (3840x2160
+# out), its rows split 4 ways: exact (halo = the receptive radius, 36 LR
+# rows: RECEPTIVE_RADIUS) and at the CLIs' default --spatial_halo, 32
+SPATIAL_LR = (540, 960)
+SPATIAL_SHARDS = 4
+SPATIAL_DEFAULT_HALO = 32
+# 20b: data-parallel serving on a 2-way mesh: LR_BATCH through the collapsed
+# route and the int8 route, validate --tile_forward on phase 6's set, serve
+# direct requests of DP_REQUEST_LR
+DP_EVAL = 2
+DP_REQUESTS = 4
+DP_REQUEST_LR = (64, 96)
+# 20c/20d: data-parallel training on a 2-way mesh at phase 8's batch; the
+# parameters after one step lie within 2 learning rates of the single step's
+# (Adam's first step moves each weight by +-lr, whose sign flips where a
+# gradient lies within its f32 rounding of 0) and the gradients within
+# GRAD_RTOL of each tensor's largest
+DP_TRAIN = 2
+DP_TRAIN_MODELS = (("EDSR-baseline x4", "edsr", ["--collapsed_tail_train", "0"],
+                    TRAIN_LAUNCHES),
+                   ("LarvaNet 2x16", "LarvaNet", LARVANET_FLAGS, LARVA_TRAIN_LAUNCHES))
+# 20e: a 4-conv + shuffle stack at C = 64, x4, on a (2 spatial x 2 model)
+# mesh, halo 4 (its receptive radius)
+TP_MESH = (2, 2)
+TP_CHANS = (3, 64, 64, 64, 48)
+TP_LR = (1, 192, 192)
+PARALLEL_WINDOWS = 3
+
+
+def parallel_meshes(torch, n):
+    """[(label, devices)] of phase 20's n-device meshes: n repeats of
+    cuda:0 (a virtual mesh), and, where the machine has 2 cards or more, n
+    positions over the distinct cards."""
+    count = torch.cuda.device_count()
+    out = [("virtual", [torch.device("cuda", 0)] * n)]
+    if count >= 2:
+        out.append(("distinct", [torch.device("cuda", i % count) for i in range(n)]))
+    return out
+
+
+def cli_mesh_devices(torch):
+    """A context in which the CLIs' meshes (parallel/mesh.devices_for) repeat
+    the model's card where the machine has fewer cards than asked: the same
+    CLI code a multi-card machine runs, on one card."""
+    from larvanet_tpu_torch.parallel import mesh as pm
+
+    real = pm.devices_for
+
+    def devices(device, n, flag="dp_devices"):
+        if torch.cuda.device_count() >= n:
+            return real(device, n, flag)
+        return [torch.device(device)] * n
+
+    return mock.patch.object(pm, "devices_for", devices)
+
+
+def _rel_err(torch, got, want):
+    """(max |got - want|, its share of max |want|)."""
+    err = float((got.float() - want.float()).abs().max())
+    return err, err / max(float(want.float().abs().max()), 1e-30)
+
+
+def spatial_phase(torch, devices):
+    """20a. EDSR-baseline x4's module graph split over SPATIAL_SHARDS rows of
+    `devices`: the receptive radius measured; at halo = radius the f32
+    sharded forward against the full-frame forward (FWD_RTOL of the largest
+    value; bit for bit where no sum order depends on the strip) and the bf16
+    one against the same sharded function on plain convs (BF16_FWD_RTOL); at
+    the default halo, both against the sharded plain-conv function (not
+    exact against the full frame, printed); 4 x 37 conv3x3 launches a
+    sharded forward; the sharded and the full-frame forward timed in
+    turns. Returns {"conv": launches by path, "radius", "rows"}."""
+    import numpy as np
+
+    from larvanet_tpu_torch.core.registry import get_model
+    from larvanet_tpu_torch.parallel.halo import receptive_radius, spatial_sharded_forward
+    from larvanet_tpu_torch.parallel.mesh import make_mesh, replicate
+
+    mesh = make_mesh((SPATIAL_SHARDS,), ("spatial",), devices)
+    model = get_model("edsr")
+    model.parse_args([])
+    model.prepare([4], device="cuda", seed=SEED)
+    with torch.no_grad():
+        radius = receptive_radius(model.module, 4, device="cuda")
+    print("20a: %r, EDSR-baseline x4 receptive radius %d LR rows (measured)"
+          % (mesh, radius), flush=True)
+    if radius != RECEPTIVE_RADIUS:
+        raise AssertionError("receptive radius %d, not %d" % (radius, RECEPTIVE_RADIUS))
+    rng = np.random.default_rng(SEED + 20)
+    x = torch.from_numpy(np.ascontiguousarray(
+        photo(rng, *SPATIAL_LR).transpose(1, 2, 0), np.float32))[None].cuda()
+    launches, rows = {}, {}
+    for dname in ("f32", "bf16"):
+        model.set_serving_dtype(dname)
+        serving = model.serving_module
+        params = replicate(serving, mesh)
+        xd = x.to(model.compute_dtype)
+        exact = spatial_sharded_forward(lambda m, v: m(v), mesh, halo=radius, scale=4)
+        default = spatial_sharded_forward(lambda m, v: m(v), mesh, halo=SPATIAL_DEFAULT_HALO,
+                                          scale=4)
+        bar = FWD_RTOL if dname == "f32" else BF16_FWD_RTOL
+        with torch.no_grad():
+            got, by_path, _ = counted(torch, lambda: exact(params, xd))
+            expect_forwards("20a sharded %s" % dname, by_path, PLAIN_PATH_LAUNCHES[dname],
+                            SPATIAL_SHARDS)
+            _add(launches, by_path)
+            full = serving(xd)
+            with plain_versions():
+                plain = exact(params, xd)
+                plain_default = default(params, xd)
+            got_default = default(params, xd)
+        if got.shape != (1, 4 * SPATIAL_LR[0], 4 * SPATIAL_LR[1], 3) or not bool(
+                torch.isfinite(got).all()):
+            raise AssertionError("20a: sharded output %s" % (tuple(got.shape),))
+        ref = full if dname == "f32" else plain
+        err = _rel_err(torch, got, ref)
+        err_default = _rel_err(torch, got_default, plain_default)
+        off_default = _rel_err(torch, got_default, full)
+        print("20a %s halo %d: |sharded - %s| %.3g (%.3g of the max; bit for bit: %s); "
+              "halo %d: |sharded - plain sharded| %.3g (%.3g), |sharded - full frame| %.3g "
+              "(not exact below the radius)"
+              % (dname, radius, "full frame" if dname == "f32" else "plain sharded", *err,
+                 bool(torch.equal(got, ref)), SPATIAL_DEFAULT_HALO, *err_default,
+                 off_default[0]), flush=True)
+        if err[1] > bar or err_default[1] > bar:
+            raise AssertionError("20a %s: sharded forward off by %s / %s (bar %g)"
+                                 % (dname, err, err_default, bar))
+        with torch.no_grad():
+            tm = time_windows(torch, {"sharded": lambda: exact(params, xd),
+                                      "full frame": lambda: serving(xd)},
+                              windows=PARALLEL_WINDOWS, reps=1)
+        print("20a %s: %d-way sharded forward %s, full frame %s"
+              % (dname, SPATIAL_SHARDS, spread(tm["sharded"]), spread(tm["full frame"])),
+              flush=True)
+        rows[dname] = {"max_abs_err": err[0], "bit_for_bit": bool(torch.equal(got, ref)),
+                       "default_halo_err": err_default[0], "default_halo_vs_full": off_default[0],
+                       "sharded_ms": tm["sharded"][0], "full_frame_ms": tm["full frame"][0]}
+        del got, full, plain, plain_default, got_default
+    del model, params
+    torch.cuda.empty_cache()
+    return {"conv": launches, "radius": radius, "rows": rows}
+
+
+def dp_eval_phase(torch, devices):
+    """20b. use_data_parallel_eval over DP_EVAL positions of `devices`: LR_BATCH
+    through EDSR-baseline x4's collapsed route and its int8 route, each
+    equal to the single-device forward bit for bit (the same kernels on the
+    same samples), 34 conv3x3 + 4 conv_kxk launches a shard (int8: 32 s8);
+    validate --tile_forward --dp_devices 2 (TiledUpscaler(min_batch=2)) and
+    serve --dp_devices 2 (build_service, DP_REQUESTS direct requests) against
+    the same CLIs without it, frame for frame. Returns {"conv", "s8",
+    "ms"}."""
+    from types import SimpleNamespace
+
+    import numpy as np
+
+    from larvanet_tpu_torch.cli import common, serve, validate
+    from larvanet_tpu_torch.core.registry import get_model
+    from larvanet_tpu_torch.data import io
+    from larvanet_tpu_torch.parallel.mesh import make_mesh, use_data_parallel_eval
+
+    mesh = make_mesh((DP_EVAL,), ("data",), devices[:DP_EVAL])
+    print("20b: %r" % (mesh,), flush=True)
+    rng = np.random.default_rng(SEED + 21)
+    n, h, w = LR_BATCH
+    frames = [photo(rng, h, w) for _ in range(n)]
+    x = torch.from_numpy(np.ascontiguousarray(
+        np.stack(frames).transpose(0, 2, 3, 1), np.float32)).cuda()
+    calib = np.stack([photo(rng, *INT8_CALIB[1:]) for _ in range(INT8_CALIB[0])])
+    calib = calib.transpose(0, 2, 3, 1).astype(np.float32)
+    conv, s8_by_entry, ms = {}, {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        pth = os.path.join(tmp, "edsr.pth")
+        save_edsr_baseline(torch, pth, frames[0])
+        for route in ("collapsed", "int8"):
+            model = get_model("edsr")
+            model.parse_args([])
+            model.prepare([4], device="cuda", seed=SEED)
+            model.restore(pth)
+            if route == "collapsed":
+                common.maybe_collapse_tail(model, SimpleNamespace(collapsed_tail=1))
+            else:
+                common.maybe_int8_trunk(model, SimpleNamespace(int8_trunk=1, model="edsr"),
+                                        lambda: calib)
+            single = model.fwd_runtime(x)
+            model_single = model.route
+            use_data_parallel_eval(model, mesh)
+            got, s8_got, by_path = _counted_s8(torch, lambda: model.fwd_runtime(x))
+            if route == "collapsed":
+                expect_forwards("20b dp eval collapsed", by_path, PATH_LAUNCHES["f32"], DP_EVAL,
+                                kxk=KXK_LAUNCHES)
+            else:
+                _expect_s8("20b dp eval int8", s8_got, INT8_LAUNCHES["edsr"][0], DP_EVAL)
+                expect_forwards("20b dp eval int8", by_path, INT8_LAUNCHES["edsr"][1], DP_EVAL,
+                                kxk=KXK_LAUNCHES)
+                _add(s8_by_entry, s8_got)
+            _add(conv, by_path)
+            if not torch.equal(got, single):
+                raise AssertionError("20b %s: the dp forward differs from the single-device "
+                                     "one by %g" % (route, float((got - single).abs().max())))
+            dp_route = model.route
+            with torch.no_grad():
+                tm = time_windows(torch, {"dp": lambda: dp_route(x),
+                                          "single": lambda: model_single(x)},
+                                  windows=PARALLEL_WINDOWS, reps=2)
+            ms[route] = {k: v[0] for k, v in tm.items()}
+            print("20b %s: %d x %dx%d, %d-way dp forward %s, single %s; equal bit for bit"
+                  % (route, n, h, w, DP_EVAL, spread(tm["dp"]), spread(tm["single"])),
+                  flush=True)
+            del model, single, got
+        # validate --tile_forward, with and without --dp_devices
+        write_validate_set(tmp)
+        flags = ["--model", "edsr", "--scales", "4", "--device", "cuda", "--restore_path", pth,
+                 "--data_input_path", os.path.join(tmp, "even", "LR"),
+                 "--data_truth_path", os.path.join(tmp, "even", "HR"), "--tile_forward",
+                 *VALIDATE_TILE]
+        with cli_mesh_devices(torch):
+            dp_psnr = validate.main(flags + ["--dp_devices", str(DP_EVAL), "--save_path",
+                                             os.path.join(tmp, "dp")])
+        one_psnr = validate.main(flags + ["--save_path", os.path.join(tmp, "one")])
+        names = io.list_pngs(os.path.join(tmp, "one", "x4"))
+        same = [np.array_equal(io.load_image_u8(os.path.join(tmp, "dp", "x4", k + ".png")),
+                               io.load_image_u8(os.path.join(tmp, "one", "x4", k + ".png")))
+                for k in names]
+        print("20b validate --tile_forward --dp_devices %d: PSNR %s, without %s; %d/%d frames "
+              "equal" % (DP_EVAL, dp_psnr, one_psnr, sum(same), len(same)), flush=True)
+        if dp_psnr != one_psnr or not all(same) or len(same) != len(VALIDATE_LR):
+            raise AssertionError("20b: validate --dp_devices differs")
+        # serve: direct requests through build_service
+        argv = ["--restore_path", pth, "--device", "cuda"]
+        with cli_mesh_devices(torch):
+            dp_service = serve.build_service(*serve.build_parser().parse_known_args(
+                argv + ["--dp_devices", str(DP_EVAL)]))
+        one_service = serve.build_service(*serve.build_parser().parse_known_args(argv))
+        if dp_service.dynamic_batch != DP_EVAL:
+            raise AssertionError("20b: serve's --dynamic_batch %d, not %d"
+                                 % (dp_service.dynamic_batch, DP_EVAL))
+        requests = [photo(rng, *DP_REQUEST_LR) for _ in range(DP_REQUESTS)]
+        outs, by_path, _ = counted(torch, lambda: [dp_service.upscale_chw(r) for r in requests])
+        # a lone request is padded to the mesh: DP_EVAL shard forwards each
+        expect_forwards("20b serve --dp_devices", by_path, PATH_LAUNCHES["f32"],
+                        DP_REQUESTS * DP_EVAL, kxk=KXK_LAUNCHES)
+        _add(conv, by_path)
+        for r, out in zip(requests, outs):
+            if not np.array_equal(out, one_service.upscale_chw(r)):
+                raise AssertionError("20b: a served frame differs under --dp_devices")
+        print("20b serve --dp_devices %d: %d requests equal the single-device server's"
+              % (DP_EVAL, DP_REQUESTS), flush=True)
+        del dp_service, one_service
+    torch.cuda.empty_cache()
+    return {"conv": conv, "s8": s8_by_entry, "ms": ms}
+
+
+def _dp_step_pair(torch, name, flags):
+    """Two models of `name` from SEED for training, on the card."""
+    from larvanet_tpu_torch.core.registry import get_model
+
+    out = []
+    for _ in range(2):
+        m = get_model(name)
+        m.parse_args(list(flags))
+        m.prepare([4], device="cuda", seed=SEED, is_training=True)
+        out.append(m)
+    return out
+
+
+def _dp_step_check(torch, label, single, dp, x, t, per_step, lr):
+    """One step of `single` and one of `dp` (data-parallel already) on the
+    same batch: the loss (LOSS_RTOL), the averaged gradients (GRAD_RTOL of
+    each tensor's largest), the parameters (2 lr); the dp step's launches,
+    per_step by path twice over. Returns the counted launches."""
+    loss1 = float(single._optimizer_step(x, t, lr))
+    out = []
+    launches = counted_step(torch, lambda: out.append(dp._optimizer_step(x, t, lr)))
+    want = {k: {p: DP_TRAIN * v for p, v in d.items()} for k, d in per_step.items()}
+    if launches != want:
+        raise AssertionError("%s: dp step launches %s, not %s" % (label, launches, want))
+    loss2 = float(out[0])
+    grad_err = max(float((a.grad - b.grad).abs().max()) / max(float(a.grad.abs().max()), 1e-30)
+                   for a, b in zip(single.module.parameters(), dp.module.parameters())
+                   if a.grad is not None)
+    diffs = [(a - b).detach().abs() for a, b in zip(single.module.parameters(),
+                                                   dp.module.parameters())]
+    param_err = max(float(d.max()) for d in diffs)
+    moved = sum(int((d > 1e-6).sum()) for d in diffs)
+    print("%s: dp loss %.9g, single %.9g (rel %.3g); gradients %.3g of each max; "
+          "parameters max |d| %.3g (%d of %d beyond 1e-6)"
+          % (label, loss2, loss1, abs(loss2 - loss1) / abs(loss1), grad_err, param_err, moved,
+             sum(d.numel() for d in diffs)), flush=True)
+    if abs(loss2 - loss1) > LOSS_RTOL * abs(loss1) or grad_err > GRAD_RTOL or \
+            param_err > 2 * lr:
+        raise AssertionError("%s: the dp step differs from the single-device step" % label)
+    return launches
+
+
+def dp_train_phase(torch, devices):
+    """20c. One data-parallel step of EDSR-baseline x4 (phase 8's batch, the
+    module's tail) and of the flagship LarvaNet 2x16 on DP_TRAIN positions of
+    `devices`, against the single-device step from the same weights; the
+    two timed in turns. Returns {"steps": [launches], "ms"}."""
+    import numpy as np
+
+    from larvanet_tpu_torch.parallel.mesh import make_mesh, use_data_parallel
+
+    mesh = make_mesh((DP_TRAIN,), ("data",), devices[:DP_TRAIN])
+    print("20c: %r" % (mesh,), flush=True)
+    rng = np.random.default_rng(SEED + 22)
+    x = torch.from_numpy(rng.uniform(0, 255, (TRAIN_BATCH, TRAIN_PATCH, TRAIN_PATCH, 3))
+                         .astype(np.float32)).cuda()
+    t = torch.from_numpy(rng.uniform(0, 255, (TRAIN_BATCH, 4 * TRAIN_PATCH, 4 * TRAIN_PATCH, 3))
+                         .astype(np.float32)).cuda()
+    steps, ms = [], {}
+    for label, name, flags, per_step in DP_TRAIN_MODELS:
+        single, dp = _dp_step_pair(torch, name, flags)
+        use_data_parallel(dp, mesh)
+        lr = single.get_learning_rate()
+        steps.append(_dp_step_check(torch, "20c " + label, single, dp, x, t, per_step, lr))
+        tm = time_windows(torch, {"dp": lambda: dp._optimizer_step(x, t, lr),
+                                  "single": lambda: single._optimizer_step(x, t, lr)},
+                          windows=PARALLEL_WINDOWS, reps=2)
+        ms[label] = {k: v[0] for k, v in tm.items()}
+        print("20c %s: %d-way dp step %s, single %s" % (label, DP_TRAIN, spread(tm["dp"]),
+                                                        spread(tm["single"])), flush=True)
+        del single, dp
+        torch.cuda.empty_cache()
+    return {"steps": steps, "ms": ms}
+
+
+def nccl_worker(coordinator, rank):
+    """20d's process on card `rank` of a two-card machine: NCCL at world size
+    2, one data-parallel EDSR step on its half of the global batch, against
+    the single-device step on the whole batch. Returns an exit code."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from larvanet_tpu_torch.parallel.distributed import init_distributed
+    from larvanet_tpu_torch.parallel.mesh import make_mesh, use_data_parallel
+
+    torch.cuda.set_device(rank)
+    torch.backends.cudnn.allow_tf32 = False
+    init_distributed(coordinator, 2, rank, backend="nccl")
+    try:
+        rng = np.random.default_rng(SEED + 23)
+        x = torch.from_numpy(rng.uniform(0, 255, (TRAIN_BATCH, TRAIN_PATCH, TRAIN_PATCH, 3))
+                             .astype(np.float32)).cuda()
+        t = torch.from_numpy(rng.uniform(0, 255, (TRAIN_BATCH, 4 * TRAIN_PATCH,
+                                                  4 * TRAIN_PATCH, 3)).astype(np.float32)).cuda()
+        label, name, flags, per_step = DP_TRAIN_MODELS[0]
+        single, dp = _dp_step_pair(torch, name, flags)
+        use_data_parallel(dp, make_mesh((1,), ("data",), [torch.device("cuda", rank)]))
+        half = TRAIN_BATCH // 2
+        loss1 = float(single._optimizer_step(x, t, single.get_learning_rate()))
+        loss2 = float(dp._optimizer_step(x[rank * half:(rank + 1) * half],
+                                         t[rank * half:(rank + 1) * half],
+                                         dp.get_learning_rate()))
+        err = max(float((a - b).detach().abs().max())
+                  for a, b in zip(single.module.parameters(), dp.module.parameters()))
+        print("20d rank %d on %s: NCCL dp loss %.9g, single %.9g; parameters max |d| %.3g"
+              % (rank, torch.cuda.get_device_name(rank), loss2, loss1, err), flush=True)
+        ok = abs(loss2 - loss1) <= LOSS_RTOL * abs(loss1) and err <= 2 * single.get_learning_rate()
+    finally:
+        dist.destroy_process_group()
+    return 0 if ok else 1
+
+
+def nccl_phase(torch, devices):
+    """20d. NCCL on the card: init_distributed at world size 1 and 20c's
+    EDSR step through the process group's all-reduce against the
+    single-device step; where the machine has 2 cards or more, two processes,
+    one card each (nccl_worker). Returns the counted step's launches."""
+    import socket
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from larvanet_tpu_torch.parallel.distributed import init_distributed, is_primary
+    from larvanet_tpu_torch.parallel.mesh import make_mesh, use_data_parallel
+
+    def free_port():
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            return s.getsockname()[1]
+
+    init_distributed("127.0.0.1:%d" % free_port(), 1, 0, backend="nccl")
+    try:
+        if not (dist.get_backend() == "nccl" and is_primary()):
+            raise AssertionError("20d: not an NCCL group of rank 0")
+        rng = np.random.default_rng(SEED + 23)
+        x = torch.from_numpy(rng.uniform(0, 255, (TRAIN_BATCH, TRAIN_PATCH, TRAIN_PATCH, 3))
+                             .astype(np.float32)).cuda()
+        t = torch.from_numpy(rng.uniform(0, 255, (TRAIN_BATCH, 4 * TRAIN_PATCH,
+                                                  4 * TRAIN_PATCH, 3)).astype(np.float32)).cuda()
+        label, name, flags, per_step = DP_TRAIN_MODELS[0]
+        single, dp = _dp_step_pair(torch, name, flags)
+        use_data_parallel(dp, make_mesh((DP_TRAIN,), ("data",), devices[:DP_TRAIN]))
+        if not dp.data_parallel.distributed:
+            raise AssertionError("20d: the step does not see the process group")
+        launches = _dp_step_check(torch, "20d NCCL world 1, " + label, single, dp, x, t,
+                                  per_step, single.get_learning_rate())
+        del single, dp
+    finally:
+        dist.destroy_process_group()
+    count = torch.cuda.device_count()
+    if count < 2:
+        print("20d: one card: the two-process NCCL step needs 2 cards (not run)", flush=True)
+        return launches
+    coord = "127.0.0.1:%d" % free_port()
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+    code = ("import sys, chip_smoke; "
+            "sys.exit(chip_smoke.nccl_worker(sys.argv[1], int(sys.argv[2])))")
+    procs = [subprocess.Popen([sys.executable, "-c", code, coord, str(r)], env=env,
+                              cwd=os.path.dirname(os.path.abspath(__file__)),
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=300)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        print(out.strip(), flush=True)
+        if p.returncode != 0:
+            raise AssertionError("20d: NCCL worker %d failed (exit %s)" % (r, p.returncode))
+    return launches
+
+
+def tp_phase(torch, devices):
+    """20e. make_tp_spatial_forward on a TP_MESH (spatial x model) mesh of
+    `devices`: a TP_CHANS conv + shuffle stack x4 on TP_LR against the same
+    function on plain convs (FWD_RTOL of the largest value); each shard's
+    conv path as path_for names it, counted. Returns {"conv", "ms"}."""
+    import numpy as np
+
+    from larvanet_tpu_torch.ops.conv3x3 import path_for
+    from larvanet_tpu_torch.parallel.mesh import make_mesh
+    from larvanet_tpu_torch.parallel.tp import make_tp_spatial_forward
+
+    mesh = make_mesh(TP_MESH, ("spatial", "model"), devices[:TP_MESH[0] * TP_MESH[1]])
+    n_spatial, n_model = TP_MESH
+    gen = torch.Generator().manual_seed(SEED + 24)
+    params = {}
+    for i in range(len(TP_CHANS) - 1):
+        c, f = TP_CHANS[i], TP_CHANS[i + 1]
+        params["conv%d" % i] = {
+            "kernel": (torch.randn((3, 3, c, f), generator=gen) / math.sqrt(9 * c)).cuda(),
+            "bias": (0.1 * torch.randn((f,), generator=gen)).cuda()}
+    rng = np.random.default_rng(SEED + 24)
+    x = torch.from_numpy(np.ascontiguousarray(
+        photo(rng, *TP_LR[1:]).transpose(1, 2, 0), np.float32))[None].cuda()
+    halo = len(TP_CHANS) - 1
+    f = make_tp_spatial_forward(mesh, halo=halo, scale=4)
+    want_paths = {"cuda_core": 0, "tensor_core": 0, "narrow": 0}
+    shard_paths = []
+    for i in range(len(TP_CHANS) - 1):
+        path = path_for(TP_CHANS[i], TP_CHANS[i + 1] // n_model, torch.float32)
+        shard_paths.append("conv%d %d->%d/%d: %s" % (i, TP_CHANS[i], TP_CHANS[i + 1], n_model,
+                                                    path))
+        want_paths[path] += n_spatial * n_model
+    got, by_path, _ = counted(torch, lambda: f(params, x))
+    print("20e: %r, shard conv paths %s" % (mesh, "; ".join(shard_paths)), flush=True)
+    expect_forwards("20e tp forward", by_path, want_paths, 1)
+    with plain_versions():
+        want = f(params, x)
+    err = _rel_err(torch, got, want)
+    tm = time_windows(torch, {"tp": lambda: f(params, x)}, windows=PARALLEL_WINDOWS, reps=2)
+    with plain_versions():
+        tp_plain = time_windows(torch, {"tp plain": lambda: f(params, x)},
+                                windows=PARALLEL_WINDOWS, reps=2)
+    print("20e: output %s, |kernels - plain convs| %.3g (%.3g of the max); %s, plain %s"
+          % (tuple(got.shape), *err, spread(tm["tp"]), spread(tp_plain["tp plain"])), flush=True)
+    if got.shape != (1, 4 * TP_LR[1], 4 * TP_LR[2], 3) or err[1] > FWD_RTOL:
+        raise AssertionError("20e: the TP forward is off by %s" % (err,))
+    return {"conv": by_path, "ms": {"tp": tm["tp"][0], "plain": tp_plain["tp plain"][0]}}
+
+
+def dir_checkpoint_phase(torch):
+    """20f. --orbax_checkpoint 1: the train CLI at phase 8's batch for 2 steps
+    with --dp_devices 2 and directory checkpoints, synchronous and
+    --async_checkpoint 1; a resume from the step-1 directory repeats step 2's
+    loss, and the restored step-2 directory's forward equals the CLI's
+    trained model's, bit for bit."""
+    import numpy as np
+
+    from larvanet_tpu_torch.cli import train
+    from larvanet_tpu_torch.core.registry import get_model
+    from larvanet_tpu_torch.utils.checkpoints import is_dir_checkpoint
+
+    with tempfile.TemporaryDirectory() as tmp:
+        write_train_set(tmp, np.random.default_rng(SEED + 25), 2, TRAIN_LR)
+        cli = ["--dataloader", "div2k_train_loader", "--model", "edsr", "--scales", "4",
+               "--device", "cuda", "--batch_size", str(TRAIN_BATCH), "--input_patch_size",
+               str(TRAIN_PATCH), "--save_freq", "1", "--collapsed_tail_train", "0",
+               "--orbax_checkpoint", "1", "--dp_devices", str(DP_TRAIN),
+               "--data_input_path", os.path.join(tmp, "LR"),
+               "--data_truth_path", os.path.join(tmp, "HR"), "--data_cached",
+               "--data_seed", str(SEED)]
+        for mode in ("sync", "async"):
+            run = os.path.join(tmp, mode)
+            extra = ["--async_checkpoint", "1"] if mode == "async" else []
+            with cli_mesh_devices(torch):
+                trained, losses = train.main(cli + extra + ["--train_path", run,
+                                                            "--max_steps", "2"])
+                again = os.path.join(tmp, mode + "_again")
+                os.makedirs(again)
+                os.rename(os.path.join(run, "model_1.pth"), os.path.join(again, "model_1.pth"))
+                _, resumed = train.main(cli + extra + ["--train_path", again, "--max_steps", "2",
+                                                       "--restore_path", "latest"])
+            path = os.path.join(run, "model_2.pth")
+            if not is_dir_checkpoint(path) or resumed != {2: losses[2]}:
+                raise AssertionError("20f %s: directory %s, resumed losses %s, the run's %s"
+                                     % (mode, is_dir_checkpoint(path), resumed, losses))
+            model = get_model("edsr")
+            model.parse_args([])
+            model.prepare([4], device="cuda", seed=SEED)
+            model.restore(path)
+            x = torch.rand((2, 48, 48, 3), device="cuda") * 255
+            if not torch.equal(model.fwd_runtime(x), trained.fwd_runtime(x)):
+                raise AssertionError("20f %s: the restored directory's forward differs" % mode)
+            print("20f %s: 2 dp steps with directory checkpoints; the resume from model_1.pth/ "
+                  "repeats step 2's loss %.9g; model_2.pth/ restores the trained forward bit "
+                  "for bit" % (mode, losses[2]), flush=True)
+            del trained, model
+    torch.cuda.empty_cache()
+
+
+def parallel_phase(torch):
+    """Phase 20: 20a-20f on a virtual mesh of the one card, and on the
+    distinct cards where there are 2 or more. Returns {"conv": 20a/20b/20e
+    forward launches by path, "s8", "steps": 20c/20d's counted steps, and
+    the numbers of each part}."""
+    t0 = time.perf_counter()
+    out = {"conv": {}, "s8": {}, "steps": [], "spatial": {}, "dp_eval": {}, "dp_train": {},
+           "tp": {}}
+    times = {}
+    for label, devices in parallel_meshes(torch, SPATIAL_SHARDS):
+        print("phase 20 on the %s mesh: %s" % (label, ", ".join(map(str, devices))),
+              flush=True)
+        t = time.perf_counter()
+        spatial = spatial_phase(torch, devices)
+        times["20a " + label] = time.perf_counter() - t
+        t = time.perf_counter()
+        dp_eval = dp_eval_phase(torch, devices)
+        times["20b " + label] = time.perf_counter() - t
+        t = time.perf_counter()
+        dp_train = dp_train_phase(torch, devices)
+        times["20c " + label] = time.perf_counter() - t
+        t = time.perf_counter()
+        tp = tp_phase(torch, devices)
+        times["20e " + label] = time.perf_counter() - t
+        for part in (spatial["conv"], dp_eval["conv"], tp["conv"]):
+            _add(out["conv"], part)
+        _add(out["s8"], dp_eval["s8"])
+        out["steps"].extend(dp_train["steps"])
+        out["spatial"][label] = {k: spatial[k] for k in ("radius", "rows")}
+        out["dp_eval"][label] = dp_eval["ms"]
+        out["dp_train"][label] = dp_train["ms"]
+        out["tp"][label] = tp["ms"]
+    t = time.perf_counter()
+    out["steps"].append(nccl_phase(torch, parallel_meshes(torch, DP_TRAIN)[0][1]))
+    times["20d"] = time.perf_counter() - t
+    t = time.perf_counter()
+    dir_checkpoint_phase(torch)
+    times["20f"] = time.perf_counter() - t
+    print("phase 20: %.1f s (%s)" % (time.perf_counter() - t0, ", ".join(
+        "%s %.1f s" % kv for kv in times.items())), flush=True)
+    return out
+
+
 def print_sass_mix(build):
     """The instruction mix of each tensor-core and narrow kernel in the
     built libraries (cuobjdump -sass): ldmatrix, tensor-core products,
@@ -6646,9 +7247,30 @@ def print_sass_mix(build):
             print("sass %s %s: %s" % (source, name, mix))
 
 
-def main() -> int:
+def timed(label, fn, *args, **kwargs):
+    """fn(*args, **kwargs), its seconds printed with the script's total so
+    far (where the time limit goes)."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    print("[time] %s: %.1f s (%.1f s since the start)"
+          % (label, time.perf_counter() - t0, time.perf_counter() - T_START), flush=True)
+    return out
+
+
+T_START = time.perf_counter()
+
+
+def main(argv=None) -> int:
+    import argparse
+
     import torch
 
+    parser = argparse.ArgumentParser(description="On-card smoke run of the port.")
+    parser.add_argument("--phase", choices=("all", "parallel"), default="all",
+                        help="'parallel': build the kernels and run phase 20 alone "
+                             "(on every card of the machine; no kernels line and no "
+                             "result line)")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
               file=sys.stderr)
@@ -6668,12 +7290,18 @@ def main() -> int:
     for source in build.SOURCES:
         print("build log %s:\n%s" % (source, build.build_log(source).strip()))
     print_sass_mix(build)
+    if args.phase == "parallel":
+        par = timed("parallel_phase", parallel_phase, torch)
+        print("phase 20 launches: conv3x3 %s, conv3x3_s8 %s" % (par["conv"], par["s8"]))
+        print(nvidia_smi_line())
+        return 0
 
-    sums, tc_sums, worst, narrow = kernel_phase(torch)
-    larva_sums, _, larva_worst, _ = kernel_phase(torch, LARVANET_CONVS, "LarvaNet 2x16")
+    sums, tc_sums, worst, narrow = timed("kernel_phase", kernel_phase, torch)
+    larva_sums, _, larva_worst, _ = timed("kernel_phase LarvaNet", kernel_phase, torch,
+                                          LARVANET_CONVS, "LarvaNet 2x16")
     for dname in ("f32", "bf16"):
         worst[dname] = max(worst[dname], larva_worst[dname])
-    wino = wino_phase(torch)
+    wino = timed("wino_phase", wino_phase, torch)
     launches, by_path, served = 0, {}, {}
     for model_name in ("edsr", "LarvaNet"):
         for dtype_name in ("bf16", "f32"):
@@ -6683,18 +7311,20 @@ def main() -> int:
             served[(model_name, dtype_name)] = n_by_path
             _add(by_path, n_by_path)
             if model_name == "edsr" and dtype_name == "f32":
-                fwd_launches = forward_phase(torch, model)
+                fwd_launches = timed("forward_phase", forward_phase, torch, model)
             del model
-    larva_fwd_launches = larvanet_forward_phase(torch)
-    validate_launches = validate_phase(torch)
-    larva_validate_launches = validate_phase(torch, model_name="LarvaNet_w64")
-    runtime_launches = runtime_phase(torch)
-    runtime_phase(torch, model_name="LarvaNet")
+    larva_fwd_launches = timed("larvanet_forward_phase", larvanet_forward_phase, torch)
+    validate_launches = timed("validate_phase", validate_phase, torch)
+    larva_validate_launches = timed("validate_phase LarvaNet_w64", validate_phase, torch,
+                                    model_name="LarvaNet_w64")
+    runtime_launches = timed("runtime_phase", runtime_phase, torch)
+    timed("runtime_phase LarvaNet", runtime_phase, torch, model_name="LarvaNet")
     torch.cuda.empty_cache()
-    train_launches = train_phase(torch)
-    wgrad_sums, wgrad_by, wgrad_err, wgrad_rel, dgrad_times, _ = train_kernel_phase(torch)
+    train_launches = timed("train_phase", train_phase, torch)
+    wgrad_sums, wgrad_by, wgrad_err, wgrad_rel, dgrad_times, _ = timed(
+        "train_kernel_phase", train_kernel_phase, torch)
     torch.cuda.empty_cache()
-    larva_train = larva_train_phase(torch)
+    larva_train = timed("larva_train_phase", larva_train_phase, torch)
     (larva_wgrad_sums, larva_wgrad_by, larva_wgrad_err, larva_wgrad_rel, larva_dgrad,
      larva_wgrad_shapes) = train_kernel_phase(torch, LARVA_TRAIN_WGRAD, LARVA_TRAIN_DGRAD,
                                               "LarvaNet 2x16")
@@ -6702,27 +7332,27 @@ def main() -> int:
     # the counted train steps' launches, and the V2 run's
     trained = [train_launches, larva_train["step"], larva_train["v2"]]
     torch.cuda.empty_cache()
-    full_frame = full_frame_phase(torch)
+    full_frame = timed("full_frame_phase", full_frame_phase, torch)
     torch.cuda.empty_cache()
-    s8_sums, s8_rows, s8_errs = s8_kernel_phase(torch)
-    s8_wide = s8_wide_phase(torch)
-    s8_forward = int8_forward_phase(torch)
-    s8_cli = int8_cli_phase(torch)
-    qat_phase(torch)
+    s8_sums, s8_rows, s8_errs = timed("s8_kernel_phase", s8_kernel_phase, torch)
+    s8_wide = timed("s8_wide_phase", s8_wide_phase, torch)
+    s8_forward = timed("int8_forward_phase", int8_forward_phase, torch)
+    s8_cli = timed("int8_cli_phase", int8_cli_phase, torch)
+    timed("qat_phase", qat_phase, torch)
     torch.cuda.empty_cache()
-    flags = train_flags_phase(torch)
+    flags = timed("train_flags_phase", train_flags_phase, torch)
     trained.append(flags["bf16_step"])
     trained.append(flags["chunk"])
     torch.cuda.empty_cache()
-    kxk_sums, kxk_worst, kxk_rows = kxk_kernel_phase(torch)
-    kxk_wgrads = kxk_wgrad_phase(torch)
+    kxk_sums, kxk_worst, kxk_rows = timed("kxk_kernel_phase", kxk_kernel_phase, torch)
+    kxk_wgrads = timed("kxk_wgrad_phase", kxk_wgrad_phase, torch)
     kxk_wgrad = kxk_wgrads["tensor_core"]
-    radius = collapsed_radius_phase(torch)
-    collapsed_serve = collapsed_serve_phase(torch)
-    collapsed_train = collapsed_train_phase(torch)
+    radius = timed("collapsed_radius_phase", collapsed_radius_phase, torch)
+    collapsed_serve = timed("collapsed_serve_phase", collapsed_serve_phase, torch)
+    collapsed_train = timed("collapsed_train_phase", collapsed_train_phase, torch)
     trained.append(collapsed_train)
     torch.cuda.empty_cache()
-    msrr = msrr_phase(torch)
+    msrr = timed("msrr_phase", msrr_phase, torch)
     trained.extend(msrr["steps"])
     msrr_conv = {}
     for part in (msrr["served"], msrr["forwards"]["conv3x3"], msrr["test_conv"]):
@@ -6735,20 +7365,24 @@ def main() -> int:
         _add(dw_by_entry, run["dw"])
     dw_main = msrr["dw_main"]
     torch.cuda.empty_cache()
-    branchy = branchy_phase(torch)
+    branchy = timed("branchy_phase", branchy_phase, torch)
     trained.extend(branchy["steps"])
     torch.cuda.empty_cache()
-    sr = sr_phase(torch)
+    sr = timed("sr_phase", sr_phase, torch)
     trained.extend(sr["steps"])
     torch.cuda.empty_cache()
-    mi = mi_phase(torch)
+    mi = timed("mi_phase", mi_phase, torch)
     trained.extend(mi["steps"])
     torch.cuda.empty_cache()
-    art = artifact_phase(torch)
-    family_conv = dict(msrr_conv)  # phases 15's to 18's counted runs
-    for part in (branchy["conv"], sr["conv"], mi["conv"], art["launches"]["conv3x3"]):
+    art = timed("artifact_phase", artifact_phase, torch)
+    torch.cuda.empty_cache()
+    par = timed("parallel_phase", parallel_phase, torch)
+    trained.extend(par["steps"])
+    family_conv = dict(msrr_conv)  # phases 15's to 20's counted runs
+    for part in (branchy["conv"], sr["conv"], mi["conv"], art["launches"]["conv3x3"],
+                 par["conv"]):
         _add(family_conv, part)
-    for part in (branchy["s8"], sr["s8"], mi["s8"], art["launches"]["s8"]):
+    for part in (branchy["s8"], sr["s8"], mi["s8"], art["launches"]["s8"], par["s8"]):
         _add(s8_by_entry, part)
     # phase 18's MAMNet forwards and steps: its 16 CSDs a forward
     mi_dw = dict(mi["dw"])
@@ -6845,6 +7479,11 @@ def main() -> int:
         # 19b's pixel differences, 19c's PSNRs, 19d's frames, 19e's Winograd
         "artifact_launches": art["launches"]["conv3x3"],
         "artifact": {k: art[k] for k in ("rows", "serve", "validate", "frames", "winograd")},
+        # phase 20: 20a's sharded forwards, 20b's dp forwards and served
+        # requests, 20e's TP forward (20c's and 20d's dp steps are among the
+        # train runs above), by path; each part's numbers by mesh
+        "parallel_launches": par["conv"],
+        "parallel": {k: par[k] for k in ("spatial", "dp_eval", "dp_train", "tp")},
     }, {
         "name": "conv3x3_wgrad",
         "route": "cuda",
@@ -6969,6 +7608,8 @@ def main() -> int:
         "mamnet": mi["s8_pair"],
         # phase 19a's int8 artifact and its live route, by entry
         "artifact_launches": art["launches"]["s8"],
+        # phase 20b's dp forwards of the int8 route (32 a shard)
+        "parallel_launches": par["s8"],
         "f32": dict(s8_sums["f32"], max_abs_err=s8_errs["f32"]),
         "shapes": s8_rows,
         # phase 11a's widths past one code halo (the chunked plan): the

@@ -3,8 +3,8 @@ CLIs use).
 
 Entry points run on the card. `--device cpu` runs them on the CPU (the
 tests do); without it and without CUDA they exit non-zero instead of
-quietly running on the CPU. Flags of features the port does not have yet
-exit non-zero with a pointer to ROADMAP.md (`refuse_unported`).
+quietly running on the CPU. The JAX CLIs' TPU-only settings are accepted
+and ignored with a notice (`add_ignored_flags`, `note_ignored`).
 """
 
 from __future__ import annotations
@@ -60,24 +60,12 @@ def synchronize(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def add_refused_flags(parser: argparse.ArgumentParser, refused: Sequence[str],
-                      ignored: Sequence[str]) -> None:
-    """Flags of the JAX CLI that the port refuses (any value but 0) or
-    accepts and ignores."""
-    for flag in refused:
-        parser.add_argument("--" + flag, type=str, default=None, nargs="?", const="1",
-                            help="Not ported yet (see ROADMAP.md); refused.")
+def add_ignored_flags(parser: argparse.ArgumentParser, ignored: Sequence[str]) -> None:
+    """Flags of the JAX CLI that only matter on the TPU: accepted and
+    ignored (`note_ignored` names them)."""
     for flag in ignored:
         parser.add_argument("--" + flag, type=str, default=None,
                             help="A TPU-only setting; accepted and ignored.")
-
-
-def refuse_unported(args, refused: Sequence[str], tool: str,
-                    where: str = "see ROADMAP.md") -> None:
-    for flag in refused:
-        if getattr(args, flag, None) not in (None, "0", ""):
-            raise SystemExit("--%s is not ported to larvanet_tpu_torch yet (%s); run %s "
-                             "without it" % (flag, where, tool))
 
 
 def note_ignored(args, ignored: Sequence[str], tool: str, model) -> None:
@@ -165,14 +153,16 @@ def add_tile_flags(parser: argparse.ArgumentParser) -> None:
 
 def make_tiler(model, args, forward=None):
     """The TiledUpscaler of --tile_forward over `forward` (default: the
-    model's serving forward, `fwd_runtime`), or None without the flag."""
+    model's serving forward, `fwd_runtime`), or None without the flag; its
+    tile batches are rounded up to a multiple of --dp_devices."""
     from larvanet_tpu_torch.eval.tiling import TiledUpscaler
 
     if not getattr(args, "tile_forward", False):
         return None
     return TiledUpscaler(forward or model.fwd_runtime, scale=model.scale,
                          tile_size=args.tile_size, overlap=args.tile_overlap,
-                         device=model.device)
+                         device=model.device,
+                         min_batch=max(1, int(getattr(args, "dp_devices", 0) or 0)))
 
 
 def add_serving_dtype_flag(parser: argparse.ArgumentParser) -> None:
@@ -230,8 +220,10 @@ def maybe_wino_trunk(model, args) -> None:
             raise SystemExit("--wino_trunk: the kernel is built for %d features, the "
                              "model has %d" % (KERNEL_CHANNELS, features))
         model.set_route(make_wino_edsr_forward(model, m))
+        model.route_remake = lambda rep: make_wino_edsr_forward(rep, m)
     else:
         model.set_route(make_wino_larvanet_forward(model, m))
+        model.route_remake = lambda rep: make_wino_larvanet_forward(rep, m)
         if features != KERNEL_CHANNELS:
             print("--wino_trunk: %r trunk is %d channels (the fused kernel is built "
                   "for %d); body ResBlocks run the direct conv3x3 kernel"
@@ -272,6 +264,7 @@ def maybe_collapse_tail(model, args) -> None:
               "shifts, not these, so the exact module graph runs")
         return
     model.set_route(make_collapsed_edsr_forward(model))
+    model.route_remake = make_collapsed_edsr_forward
     print("inference: collapsed linear tail enabled")
 
 
@@ -348,19 +341,28 @@ def maybe_int8_trunk(model, args, get_calib) -> None:
     if calib.shape[2] % 2:
         calib = calib[:, :, : calib.shape[2] // 2 * 2]
     try:
-        int8_fwd, exact_fwd = int8_and_exact_forwards(model, model_name, calib)
+        forward, exact_fwd = int8_route(model, model_name, calib)
     except Int8Unsupported as e:
         print("--int8_trunk: %s; ignoring" % (e,))
         return
+    model.set_route(forward)
+    # a copy on another device calibrates its own on the same batch
+    model.route_remake = lambda rep: int8_route(rep, model_name, calib)[0]
+    model.int8_exact_forward = exact_fwd
+    print("inference: int8 (W8A8) trunk enabled (NOT float-exact)")
+
+
+def int8_route(model, model_name: str, calib):
+    """(the --int8_trunk route, its exact forward): the int8 forward on
+    even widths, the exact one on odd widths."""
+    int8_fwd, exact_fwd = int8_and_exact_forwards(model, model_name, calib)
 
     def forward(x):
         if x.shape[2] % 2:
             return exact_fwd(x)  # odd width: the exact forward
         return int8_fwd(x)
 
-    model.set_route(forward)
-    model.int8_exact_forward = exact_fwd
-    print("inference: int8 (W8A8) trunk enabled (NOT float-exact)")
+    return forward, exact_fwd
 
 
 def int8_calib_batch(dataloader, scale, num_images=4) -> np.ndarray:
@@ -381,8 +383,9 @@ def int8_calib_batch(dataloader, scale, num_images=4) -> np.ndarray:
 
 
 def add_train_flags(parser: argparse.ArgumentParser) -> None:
-    """The train CLIs' --async_checkpoint, --profile_dir, --device_pipeline
-    and --widen_from (larvanet_tpu/cli/train.py:36-58, common.py:140-148)."""
+    """The train CLIs' --async_checkpoint, --profile_dir, --device_pipeline,
+    --widen_from, --dp_devices and --orbax_checkpoint
+    (larvanet_tpu/cli/train.py:36-67, common.py:140-148, 185-193)."""
     parser.add_argument("--async_checkpoint", type=int, default=0,
                         help="Write checkpoints on a worker thread: the tensors are "
                              "snapshotted on the device and the loop goes on.")
@@ -398,14 +401,20 @@ def add_train_flags(parser: argparse.ArgumentParser) -> None:
                              "of the same topology (a JAX .ckpt or the port's .pth): "
                              "function-preserving widening, optimizer reset. "
                              "Exclusive with --restore_path.")
+    add_dp_train_flag(parser)
+    parser.add_argument("--orbax_checkpoint", type=int, default=0,
+                        help="Directory checkpoints (torch.distributed.checkpoint; "
+                             "written by every process of an initialized group; "
+                             "combines with --async_checkpoint; restore recognises "
+                             "them).")
 
 
 def maybe_widen_from(model, args) -> None:
     """--widen_from (larvanet_tpu/cli/common.py:151-187): the narrow
     checkpoint's parameters embedded function-preservingly into the prepared
     (wider) model, with fresh optimizer moments and average. Takes a JAX
-    `.ckpt` (read by utils/flax_msgpack) or the port's `.pth`; an orbax
-    directory is refused."""
+    `.ckpt` (read by utils/flax_msgpack), the port's `.pth` or its
+    --orbax_checkpoint directory; a JAX orbax directory is refused."""
     ckpt = getattr(args, "widen_from", None)
     if not ckpt:
         return
@@ -414,14 +423,17 @@ def maybe_widen_from(model, args) -> None:
                          "exclusive (widening IS the warm start)")
     from larvanet_tpu_torch.models.base import ParamEMA, make_optimizer
     from larvanet_tpu_torch.utils import flax_msgpack
+    from larvanet_tpu_torch.utils.checkpoints import is_dir_checkpoint, read_dir_checkpoint
     from larvanet_tpu_torch.utils.torch_convert import load_pth
     from larvanet_tpu_torch.utils.width_transfer import widen_state_dict
 
-    if os.path.isdir(ckpt):
-        raise SystemExit("--widen_from %s: an orbax directory needs orbax, which the port "
-                         "does not use (ROADMAP.md queue 1 item 11); widen from a .ckpt "
-                         "or a .pth" % (ckpt,))
-    if ckpt.endswith((".pth", ".pt")):
+    if is_dir_checkpoint(ckpt):
+        old = read_dir_checkpoint(ckpt)[0]
+    elif os.path.isdir(ckpt):
+        raise SystemExit("--widen_from %s: a JAX orbax directory needs orbax, which the "
+                         "port does not use; widen from a .ckpt, a .pth or the port's "
+                         "--orbax_checkpoint directory" % (ckpt,))
+    elif ckpt.endswith((".pth", ".pt")):
         old = load_pth(ckpt)
     else:
         with open(ckpt, "rb") as f:
@@ -438,6 +450,98 @@ def maybe_widen_from(model, args) -> None:
             model.ema = ParamEMA(params, model.ema_decay)
     print("warm-started by widening %s into %s (function-preserving; "
           "optimizer reset)" % (ckpt, model.registry_name))
+
+
+def add_parallel_serving_flags(parser: argparse.ArgumentParser, dp_help: str) -> None:
+    """--dp_devices, --spatial_shard and --spatial_halo of the inference
+    CLIs (larvanet_tpu/cli/validate.py:59-65)."""
+    parser.add_argument("--dp_devices", type=int, default=0, help=dp_help)
+    parser.add_argument("--spatial_shard", type=int, default=0,
+                        help="Shard full-frame inference height across N devices with "
+                             "halo exchange (0 = off; parallel/halo.py).")
+    parser.add_argument("--spatial_halo", type=int, default=32,
+                        help="Halo rows exchanged between spatial shards; the sharded "
+                             "forward equals the full frame once it reaches the model's "
+                             "receptive radius (36 LR rows for EDSR-baseline x4).")
+
+
+def maybe_spatial_shard(model, args, scale: int) -> None:
+    """Route the forward through an H-sharded forward when --spatial_shard
+    N > 1 (larvanet_tpu/cli/common.py:485-516): the frame split over N
+    devices with halo exchange (parallel/halo.py). Like JAX's, it wraps the
+    module graph (its serving module, in the serving dtype), not the route
+    set before it, so a sharded forward runs the module's own tail. The
+    CPU's mesh repeats the CPU; on the card, fewer cards than N print and
+    ignore the flag, as JAX does."""
+    from larvanet_tpu_torch.parallel.halo import spatial_sharded_forward
+    from larvanet_tpu_torch.parallel.mesh import devices_for, make_mesh, replicate
+
+    n = int(getattr(args, "spatial_shard", 0) or 0)
+    if n <= 1:
+        return
+    if model.device.type == "cuda" and torch.cuda.device_count() < n:
+        print("spatial_shard=%d requested but only %d devices; ignoring"
+              % (n, torch.cuda.device_count()))
+        return
+    mesh = make_mesh((1, n), ("data", "spatial"),
+                     devices=devices_for(model.device, n, "spatial_shard"))
+    halo = int(getattr(args, "spatial_halo", 32))
+    inner = spatial_sharded_forward(lambda module, x: module(x), mesh, halo=halo,
+                                    scale=scale, axis_name="spatial", spatial_axis=1)
+    params = replicate(model.serving_module, mesh)
+    model.set_route(lambda x: inner(params, x))
+    print("inference: spatially sharded over %d devices (halo %d; %s)"
+          % (n, halo, mesh))
+
+
+def maybe_dp_eval(model, args, what: str = "serving") -> None:
+    """--dp_devices N > 1 on the inference CLIs (larvanet_tpu/cli/
+    validate.py:153-163, get_sr.py:93-101, serve.py:652-660): the batch of
+    every forward split over a 1-D 'data' mesh of N devices, each through
+    its copy of the route set so far (parallel/mesh.use_data_parallel_eval).
+    The CPU's mesh repeats the CPU; on the card N must not exceed the
+    cards."""
+    from larvanet_tpu_torch.parallel.mesh import devices_for, make_mesh, use_data_parallel_eval
+
+    n = int(getattr(args, "dp_devices", 0) or 0)
+    if n <= 1:
+        return
+    mesh = make_mesh((n,), ("data",), devices=devices_for(model.device, n))
+    use_data_parallel_eval(model, mesh)
+    print("%s: tile batches sharded over %d devices (%s)" % (what, n, mesh))
+
+
+def add_dp_train_flag(parser: argparse.ArgumentParser) -> None:
+    parser.add_argument("--dp_devices", type=int, default=0,
+                        help="Train data-parallel over this many devices: the global "
+                             "batch splits along a 1-D 'data' mesh, each device's "
+                             "replica takes its shard's gradients, averaged in device "
+                             "order (parallel/mesh.use_data_parallel). batch_size must "
+                             "be divisible. 0/1 = single device.")
+
+
+def maybe_dp_train(model, args) -> None:
+    """Switch a prepared and restored model to data-parallel training when
+    --dp_devices > 1 (larvanet_tpu/cli/common.py:195-219), with JAX's
+    refusals: --device_pipeline, a --batch_size the mesh does not divide,
+    and more cards than are visible. Call after restore: the replicas are
+    copied from the restored model."""
+    from larvanet_tpu_torch.parallel.mesh import devices_for, make_mesh, use_data_parallel
+
+    n = int(getattr(args, "dp_devices", 0) or 0)
+    if n <= 1:
+        return
+    if getattr(args, "device_pipeline", 0):
+        raise SystemExit(
+            "--dp_devices composes with the host loop only; drop "
+            "--device_pipeline (the device-resident pipeline is single-device)")
+    if getattr(args, "batch_size", 0) % n:
+        raise SystemExit("--batch_size (%d) must be divisible by "
+                         "--dp_devices (%d)" % (args.batch_size, n))
+    mesh = make_mesh((n,), ("data",), devices=devices_for(model.device, n))
+    use_data_parallel(model, mesh)
+    print("training data-parallel over %d devices (%s; gradients averaged in device "
+          "order)" % (n, mesh))
 
 
 class ChunkRateMeter:

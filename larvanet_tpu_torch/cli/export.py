@@ -79,7 +79,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--export_dtype", type=str, default="f32", choices=["f32", "bf16"],
                         help="Artifact compute dtype: f32 = parity; bf16 = the "
                              "throughput configuration (NOT bit-identical).")
-    common.add_refused_flags(parser, (), IGNORED)
+    common.add_ignored_flags(parser, IGNORED)
     return parser
 
 

@@ -17,8 +17,11 @@ parameter average.
 --int8_trunk 1 serves the W8A8 trunk (bf16 whatever --serving_dtype says),
 calibrated on the first input PNG, as in JAX.
 
-Not ported yet, refused with a pointer to ROADMAP.md: --spatial_shard,
---dp_devices. --collapsed_tail 1 (the default, as in JAX) serves EDSR through the
+--dp_devices N splits each forward's batch over N devices (with
+--tile_forward, whose tile batches are padded to a multiple of N);
+--spatial_shard N splits each frame's rows over N devices with
+--spatial_halo rows exchanged, on the module graph, as JAX does
+(parallel/). --collapsed_tail 1 (the default, as in JAX) serves EDSR through the
 collapsed linear tail (ops/collapsed_tail.py: the tail probed once into
 one 5x5 conv, border operators and one shuffle, on the conv_kxk kernel);
 0 keeps the module's own tail.
@@ -42,7 +45,6 @@ from larvanet_tpu_torch.data import io
 from larvanet_tpu_torch.eval.pipeline import pipelined_upscale
 from larvanet_tpu_torch.eval.tiling import upscale_with_chop_forward
 
-REFUSED = ("spatial_shard", "dp_devices")
 IGNORED = ("packed_trunk", "plain_frame_px")
 
 
@@ -67,7 +69,10 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--pipeline_depth", type=int, default=2,
                         help="Frames launched but not yet pulled (1 = serial).")
     common.add_collapsed_tail_flag(parser)
-    common.add_refused_flags(parser, REFUSED, IGNORED)
+    common.add_parallel_serving_flags(
+        parser, "Shard tile batches across N devices (data-parallel serving; use with "
+                "--tile_forward; 0 = off).")
+    common.add_ignored_flags(parser, IGNORED)
     common.add_int8_trunk_flag(parser, " Calibrated on the first input PNG.")
     common.add_serving_dtype_flag(parser)
     return parser
@@ -75,7 +80,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args, remaining = build_parser().parse_known_args(argv)
-    common.refuse_unported(args, REFUSED, "get_sr")
     device = common.resolve_device(args)
     scale_list = common.scales_of(args)
     scale = scale_list[0]
@@ -90,6 +94,8 @@ def main(argv=None):
     image_names = io.list_pngs(args.input_path)
     common.maybe_int8_trunk(model, args, lambda: io.load_image_chw(
         os.path.join(args.input_path, image_names[0] + ".png")).transpose(1, 2, 0)[None])
+    common.maybe_spatial_shard(model, args, scale)
+    common.maybe_dp_eval(model, args)
     tiler = common.make_tiler(model, args)
     # the direct path pushes uint8 frames; chop and tiles take the f32 loader
     # frame, as in JAX (larvanet_tpu/cli/get_sr.py:112-117)

@@ -34,7 +34,6 @@ import torch
 
 from larvanet_tpu_torch.cli import common
 
-REFUSED = ()
 IGNORED = ("packed_trunk", "plain_frame_px")
 
 
@@ -55,14 +54,13 @@ def build_parser() -> argparse.ArgumentParser:
     common.add_wino_trunk_flag(parser)
     common.add_int8_trunk_flag(parser, " Calibrated on the first input.")
     common.add_collapsed_tail_flag(parser)
-    common.add_refused_flags(parser, REFUSED, IGNORED)
+    common.add_ignored_flags(parser, IGNORED)
     common.add_serving_dtype_flag(parser)
     return parser
 
 
 def main(argv=None):
     args, remaining = build_parser().parse_known_args(argv)
-    common.refuse_unported(args, REFUSED, "runtime")
     device = common.resolve_device(args)
     scale_list = common.scales_of(args)
     use_loader = args.input_width == 0

@@ -6,7 +6,7 @@ standard library's HTTP server:
 
     python -m larvanet_tpu_torch.cli.serve --model edsr --scales 4 \
         --restore_path model.pth --port 8080 [--dynamic_batch 4] \
-        [--chop_forward | --tile_forward] [--ema 1]
+        [--chop_forward | --tile_forward] [--ema 1] [--dp_devices N]
     python -m larvanet_tpu_torch.cli.serve --model LarvaNet --num_modules 2 \
         --num_blocks 16,16 --scales 4 --restore_path larvanet.pth
 
@@ -45,11 +45,18 @@ artifact's "path_desc" and "input_shape"). Direct mode takes requests of
 exactly the exported LR geometry, and a batch-N artifact coalesces up to N
 waiting requests into one call; --tile_forward serves any frame at least
 the exported square tile through tiles of that size. --dynamic_batch,
---chop_forward, --int8_trunk, --ema, a --serving_dtype other than f32 and
---restore_path are refused with it, as in JAX.
+--chop_forward, --int8_trunk, --spatial_shard, --dp_devices, --ema, a
+--serving_dtype other than f32 and --restore_path are refused with it, as
+in JAX.
 
-Not ported yet, refused with a pointer to ROADMAP.md: --spatial_shard,
---dp_devices. --collapsed_tail 1 (the default, as in JAX) serves EDSR through the
+--dp_devices N splits every forward's batch over N devices (parallel/
+mesh.use_data_parallel_eval; on the CPU a mesh of N repeats the CPU, on
+the card N distinct cards): tile batches are padded to a multiple of N,
+and in direct mode --dynamic_batch is raised to N and each coalesced batch
+is padded up to a multiple of N. --spatial_shard N splits each frame's
+rows over N devices with --spatial_halo rows exchanged (parallel/halo.py),
+on the module graph, as JAX does; with fewer cards than N it is ignored
+with a notice. --collapsed_tail 1 (the default, as in JAX) serves EDSR through the
 collapsed linear tail (ops/collapsed_tail.py: the tail probed once into
 one 5x5 conv, border operators and one shuffle, on the conv_kxk kernel);
 0 keeps the module's own tail.
@@ -77,9 +84,8 @@ from larvanet_tpu_torch.cli import common
 from larvanet_tpu_torch.data import png
 from larvanet_tpu_torch.eval.tiling import TiledUpscaler, upscale_with_chop_forward
 
-REFUSED = ("spatial_shard", "dp_devices")
 # refused with --artifact (larvanet_tpu/cli/serve.py:768-796)
-ARTIFACT_REFUSED = ("chop_forward", "int8_trunk", "ema")
+ARTIFACT_REFUSED = ("chop_forward", "int8_trunk", "spatial_shard", "dp_devices", "ema")
 IGNORED = ("packed_trunk",)
 
 
@@ -117,7 +123,7 @@ class SRService:
                  latency_window: int = 1024, dynamic_batch: int = 1,
                  device_uint8: bool = True, pipeline_depth: int = 2,
                  uint8_input: bool = True, mode: str = "direct", tiler=None,
-                 chop_overlap: int = 20):
+                 chop_overlap: int = 20, batch_multiple: int = 1):
         if mode not in ("direct", "chop", "tile") or (mode == "tile") != (tiler is not None):
             raise ValueError("mode %r with tiler %r" % (mode, tiler))
         if mode != "direct" and int(dynamic_batch) > 1:
@@ -133,13 +139,19 @@ class SRService:
         # PNG decodes are uint8; the cast to f32 happens on the device
         self.input_dtype = np.uint8 if uint8_input else np.float32
         self.max_queue = int(max_queue)
-        self.dynamic_batch = max(1, int(dynamic_batch))
+        # the data-parallel mesh's size (--dp_devices): every forwarded
+        # batch is a multiple of it, a short one padded with copies of its
+        # first frame, dropped on the device before the pull
+        # (larvanet_tpu/cli/serve.py:94-111)
+        self._multiple = max(1, int(batch_multiple))
+        self.dynamic_batch = max(self._multiple, int(dynamic_batch))
+        cap = -(-self.dynamic_batch // self._multiple) * self._multiple
         self._buckets = []
-        b = 1
-        while b < self.dynamic_batch:
+        b = self._multiple
+        while b < cap:
             self._buckets.append(b)
             b *= 2
-        self._buckets.append(self.dynamic_batch)
+        self._buckets.append(cap)
         self._pending = []                    # coalescing queue (under _stats)
         self._lock = threading.Lock()         # serializes device dispatch
         self._stats = threading.Lock()        # guards counters + window
@@ -167,7 +179,13 @@ class SRService:
         if self.mode == "tile":
             out = self.tiler.upscale_chw(imgs[0])
             return lambda: [out]
-        dev = self.model.upscale_device(imgs, self.scale, uint8=self.device_uint8)
+        n = len(imgs)
+        bucket = next((b for b in self._buckets if b >= n), n)
+        if bucket > n:
+            dev = self.model.upscale_device(list(imgs) + [imgs[0]] * (bucket - n), self.scale,
+                                            uint8=self.device_uint8, keep=n)
+        else:
+            dev = self.model.upscale_device(imgs, self.scale, uint8=self.device_uint8)
 
         def pull():
             arr = dev.cpu().numpy().transpose(0, 3, 1, 2)
@@ -209,7 +227,10 @@ class SRService:
                         if any(e is entry for e in self._pending):
                             cand = [e for e in self._pending
                                     if e["shape"] == entry["shape"]]
-                            k = max(b for b in self._buckets if b <= len(cand))
+                            # the largest bucket the waiting requests fill; fewer
+                            # than the smallest are padded up to it
+                            fit = [b for b in self._buckets if b <= len(cand)]
+                            k = fit[-1] if fit else len(cand)
                             batch = cand[:k]
                             if not any(e is entry for e in batch):
                                 batch = cand[: k - 1] + [entry]
@@ -570,7 +591,11 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--artifact", type=str, default=None,
                         help="Serve a serving artifact (cli/export.py --stablehlo) instead "
                              "of a checkpoint: no model build or restore.")
-    common.add_refused_flags(parser, REFUSED, IGNORED)
+    common.add_parallel_serving_flags(
+        parser, "Shard forward batches across N devices (data-parallel serving): tile "
+                "batches under --tile_forward, coalesced request batches in direct mode "
+                "(--dynamic_batch raised to N). 0 = off.")
+    common.add_ignored_flags(parser, IGNORED)
     common.add_serving_dtype_flag(parser)
     return parser
 
@@ -595,7 +620,6 @@ def int8_calib(args):
 
 def build_service(args, remaining) -> SRService:
     """Restore the model on the device and wrap it in an SRService."""
-    common.refuse_unported(args, REFUSED, "serve")
     mode = "chop" if args.chop_forward else "tile" if args.tile_forward else "direct"
     if args.dynamic_batch > 1 and mode != "direct":
         raise SystemExit("--dynamic_batch coalesces same-geometry direct forwards; it "
@@ -614,11 +638,22 @@ def build_service(args, remaining) -> SRService:
     common.maybe_collapse_tail(model, args)
     if args.int8_trunk:
         common.maybe_int8_trunk(model, args, lambda: int8_calib(args))
+    common.maybe_spatial_shard(model, args, scale)
+    common.maybe_dp_eval(model, args)
     tiler = common.make_tiler(model, args) if mode == "tile" else None
+    dyn, multiple = args.dynamic_batch, 1
+    if args.dp_devices > 1 and mode == "direct":
+        # every forward must divide the mesh: request batches are coalesced
+        # and padded up to a multiple of it (larvanet_tpu/cli/serve.py:678-690)
+        multiple = args.dp_devices
+        if dyn < multiple:
+            dyn = multiple
+            print("serving: --dynamic_batch raised to %d (= --dp_devices) so request "
+                  "batches shard across the mesh" % multiple)
     return SRService(model, scale, mode=mode, tiler=tiler,
                      chop_overlap=args.chop_overlap_size,
                      max_queue=args.max_queue,
-                     dynamic_batch=args.dynamic_batch,
+                     dynamic_batch=dyn, batch_multiple=multiple,
                      pipeline_depth=args.pipeline_depth,
                      device_uint8=bool(args.device_uint8),
                      uint8_input=bool(args.uint8_input))
@@ -627,7 +662,6 @@ def build_service(args, remaining) -> SRService:
 def build_artifact_service(args, remaining) -> ArtifactService:
     """serve --artifact (larvanet_tpu/cli/serve.py:768-801): JAX's
     refusals, then the ArtifactService on the device."""
-    common.refuse_unported(args, REFUSED, "serve")
     if args.dynamic_batch > 1:
         raise SystemExit("--dynamic_batch does not apply to --artifact serving: the batch "
                          "dimension was baked at export, and a batch-N artifact already "

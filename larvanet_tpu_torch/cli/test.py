@@ -53,7 +53,6 @@ from larvanet_tpu_torch.eval import metrics
 from larvanet_tpu_torch.eval.pipeline import pipelined_upscale
 from larvanet_tpu_torch.eval.tiling import upscale_with_chop_forward
 
-REFUSED = ()
 IGNORED = ("packed_trunk",)
 
 
@@ -89,7 +88,7 @@ def build_parser() -> argparse.ArgumentParser:
                         help="LR images (first dataset, centre-cropped to a common "
                              "size) in the int8 activation-scale calibration batch.")
     common.add_collapsed_tail_flag(parser)
-    common.add_refused_flags(parser, REFUSED, IGNORED)
+    common.add_ignored_flags(parser, IGNORED)
     common.add_serving_dtype_flag(parser)
     return parser
 
@@ -129,7 +128,6 @@ def score(output_image: np.ndarray, truth_image: np.ndarray, scale: int,
 
 def main(argv=None):
     args, remaining = build_parser().parse_known_args(argv)
-    common.refuse_unported(args, REFUSED, "test")
     device = common.resolve_device(args)
     scale_list = common.scales_of(args)
     scale = scale_list[0]

@@ -7,7 +7,8 @@ train.py):
         [--batch_size 16 --input_patch_size 48] [--max_steps N] \\
         [--restore_path latest] [--ema_decay 0.999] [--grad_accum 2] \\
         [--device_pipeline 100] [--async_checkpoint 1] [--profile_dir trace] \\
-        [--widen_from narrow.ckpt] [--train_dtype bf16] [--remat 1] [--device cpu]
+        [--widen_from narrow.ckpt] [--train_dtype bf16] [--remat 1] [--device cpu] \\
+        [--dp_devices N] [--orbax_checkpoint 1]
 
 The host loop: `reseed_for_step` (with --data_seed, a resumed run draws
 the batches an uninterrupted one would), `get_patch_batch`, `train_step`,
@@ -35,10 +36,13 @@ model's --train_dtype bf16 (EDSR) trains in mixed precision on the kernels'
 bf16 entries, and --remat 1 recomputes each conv pair in the backward.
 --qat 1 trains through the fake-quant conv pairs (ops/pairs.qat_pair; even
 patch width). An explicit --packed_trunk 0 makes a bf16 step f32 and is
-refused with --qat 1 or --remat 1, as in JAX. Refused, with a pointer to
-ROADMAP.md queue 1 item 11 (parallel): --orbax_checkpoint, --dp_devices.
-The model's --collapsed_tail_train and --lr_domain_loss (EDSR, default 1)
-train through the live collapsed tail with the loss before the shuffle, as
+refused with --qat 1 or --remat 1, as in JAX. --dp_devices N trains
+data-parallel over N devices (parallel/mesh.use_data_parallel, after the
+restore; --batch_size must divide, --device_pipeline is refused, as in
+JAX). --orbax_checkpoint 1 writes each checkpoint as a directory
+(torch.distributed.checkpoint; models/base.py `_save_dir`). The model's
+--collapsed_tail_train and --lr_domain_loss (EDSR, default 1) train
+through the live collapsed tail with the loss before the shuffle, as
 JAX's default graph does (ops/collapsed_tail.py). Accepted and ignored:
 --fused_opt (numerically identical per element).
 """
@@ -55,8 +59,6 @@ from larvanet_tpu_torch.utils.checkpoints import resolve_restore_path
 from larvanet_tpu_torch.utils.profiling import annotate, trace
 from larvanet_tpu_torch.utils.summary import SummaryWriter
 
-REFUSED = ("orbax_checkpoint", "dp_devices")
-PARALLEL = "ROADMAP.md queue 1 item 11, parallel"
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -92,14 +94,12 @@ def build_parser() -> argparse.ArgumentParser:
     common.add_ema_decay_flag(parser)
     common.add_fused_opt_flag(parser)
     common.add_train_flags(parser)
-    common.add_refused_flags(parser, REFUSED, ())
     return parser
 
 
 def main(argv=None):
     """Train; returns (the model in its final state, {global_step: loss})."""
     args, remaining = build_parser().parse_known_args(argv)
-    common.refuse_unported(args, REFUSED, "train", PARALLEL)
     if args.fused_opt is not None:
         print("train: --fused_opt is numerically identical per element; ignored")
     device = common.resolve_device(args)
@@ -113,6 +113,7 @@ def main(argv=None):
         global_step=args.global_step, ema_decay=args.ema_decay)
     model.grad_accum = args.grad_accum
     model.async_checkpoints = bool(args.async_checkpoint)
+    model.orbax_checkpoints = bool(args.orbax_checkpoint)
     common.warn_leftovers(remaining)
     common.maybe_widen_from(model, args)
 
@@ -120,6 +121,7 @@ def main(argv=None):
     if restore_path is not None:
         model.restore(restore_path)
         print("restored the model")
+    common.maybe_dp_train(model, args)
 
     summary_writers = {}  # by scale, made when its first summary is due
     dump_arguments_json(os.path.join(args.train_path, "arguments.json"), args, loader_args,

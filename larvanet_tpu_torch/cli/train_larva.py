@@ -36,8 +36,8 @@ with ChunkRateMeter's steps/s. --async_checkpoint 1, --profile_dir,
 --widen_from and a JAX `.ckpt` resume as in cli/train.py; the model's
 --remat 1 recomputes each body and leg conv pair in the backward. --qat 1
 trains every body and leg conv pair through the fake-quant pair
-(ops/pairs.qat_pair). Refused, with a pointer to ROADMAP.md queue 1 item 11
-(parallel): --orbax_checkpoint, --dp_devices. The model's --lr_domain_loss
+(ops/pairs.qat_pair). --dp_devices and --orbax_checkpoint as in
+cli/train.py. The model's --lr_domain_loss
 (default 1) takes every exit's loss before the shuffle, as JAX's default
 graph does. Accepted and ignored: --fused_opt (numerically identical per
 element).
@@ -51,7 +51,6 @@ import os
 import time
 
 from larvanet_tpu_torch.cli import common
-from larvanet_tpu_torch.cli.train import PARALLEL, REFUSED
 from larvanet_tpu_torch.core.config import dump_arguments_json
 from larvanet_tpu_torch.utils.checkpoints import resolve_restore_path
 from larvanet_tpu_torch.utils.profiling import annotate, trace
@@ -101,7 +100,6 @@ def build_parser() -> argparse.ArgumentParser:
     common.add_ema_decay_flag(parser)
     common.add_fused_opt_flag(parser)
     common.add_train_flags(parser)
-    common.add_refused_flags(parser, REFUSED, ())
     return parser
 
 
@@ -110,7 +108,6 @@ def main(argv=None, step: str = "train_step_larva"):
     train_step_squid); returns (the model in its final state,
     {global_step: loss})."""
     args, remaining = build_parser().parse_known_args(argv)
-    common.refuse_unported(args, REFUSED, "train_larva", PARALLEL)
     if args.fused_opt is not None:
         print("train_larva: --fused_opt is numerically identical per element; ignored")
     device = common.resolve_device(args)
@@ -131,6 +128,7 @@ def main(argv=None, step: str = "train_step_larva"):
                          "larvanet_tpu_torch.cli.train" % (args.model,))
     model.grad_accum = args.grad_accum
     model.async_checkpoints = bool(args.async_checkpoint)
+    model.orbax_checkpoints = bool(args.orbax_checkpoint)
     common.warn_leftovers(remaining)
     model.volume_per_step = args.input_patch_size ** 2 * args.batch_size * 3
     common.maybe_widen_from(model, args)
@@ -139,6 +137,7 @@ def main(argv=None, step: str = "train_step_larva"):
     if restore_path is not None:
         model.restore(restore_path)
         print("restored the model")
+    common.maybe_dp_train(model, args)
 
     dump_arguments_json(os.path.join(args.train_path, "arguments.json"), args, loader_args,
                         model_args)

@@ -36,9 +36,9 @@ loss and lr summary at each boundary and at the end.
 --async_checkpoint, --grad_accum, --ema_decay, --widen_from, --profile_dir
 and --restore_path (a `.pth` or a JAX `.ckpt`, which resumes with its
 optimizer state and scheduler) as in cli/train.py. It runs on the card
-unless --device cpu is given, and never falls back to the CPU. Refused,
-with a pointer to ROADMAP.md queue 1 item 11 (parallel): --orbax_checkpoint,
---dp_devices. Accepted and ignored: --fused_opt. `main` returns (the model
+unless --device cpu is given, and never falls back to the CPU.
+--dp_devices and --orbax_checkpoint as in cli/train.py. Accepted and
+ignored: --fused_opt. `main` returns (the model
 in its final state, {global_step: loss}, [(step, mean PSNR, lr after the
 scheduler's step)] of the validations).
 """
@@ -52,7 +52,6 @@ import time
 import numpy as np
 
 from larvanet_tpu_torch.cli import common
-from larvanet_tpu_torch.cli.train import PARALLEL, REFUSED
 from larvanet_tpu_torch.cli.train_larva import round_to_1
 from larvanet_tpu_torch.core.config import dump_arguments_json
 from larvanet_tpu_torch.eval import metrics
@@ -103,13 +102,11 @@ def build_parser() -> argparse.ArgumentParser:
     common.add_ema_decay_flag(parser)
     common.add_fused_opt_flag(parser)
     common.add_train_flags(parser)
-    common.add_refused_flags(parser, REFUSED, ())
     return parser
 
 
 def main(argv=None):
     args, remaining = build_parser().parse_known_args(argv)
-    common.refuse_unported(args, REFUSED, "train_schedule", PARALLEL)
     if args.fused_opt is not None:
         print("train_schedule: --fused_opt is numerically identical per element; ignored")
     device = common.resolve_device(args)
@@ -126,6 +123,7 @@ def main(argv=None):
         args.model, remaining, scale_list, device, is_training=True,
         global_step=args.global_step, ema_decay=args.ema_decay)
     model.async_checkpoints = bool(args.async_checkpoint)
+    model.orbax_checkpoints = bool(args.orbax_checkpoint)
     model.grad_accum = args.grad_accum
     common.warn_leftovers(remaining)
     common.maybe_widen_from(model, args)
@@ -134,6 +132,7 @@ def main(argv=None):
     if restore_path is not None:
         model.restore(restore_path)
         print("restored the model")
+    common.maybe_dp_train(model, args)
 
     dump_arguments_json(os.path.join(args.train_path, "arguments.json"), args, loader_args,
                         model_args)

@@ -39,12 +39,17 @@ utils/aot.py) instead of a checkpoint: the challenge protocol runs against
 the file production deploys, loaded without the model zoo. Its frames must
 match the exported geometry, or pass --tile_forward (the tile size is the
 exported square size). --chop_forward, --self_ensemble, --int8_trunk,
---ema, a --serving_dtype other than f32 and --restore_path are refused
-with it, as in JAX (the graph is baked into the file); --wino_trunk is
-ignored, as JAX ignores it there.
+--spatial_shard, --ema, --dp_devices, a --serving_dtype other than f32 and
+--restore_path are refused with it, as in JAX (the graph is baked into the
+file); --wino_trunk is ignored, as JAX ignores it there.
 
-Not ported yet, refused with a pointer to ROADMAP.md: --dp_devices,
---spatial_shard.
+--dp_devices N splits each forward's batch over N devices (parallel/
+mesh.use_data_parallel_eval, over the route set before it), with
+--tile_forward's tile batches padded to a multiple of N; without
+--tile_forward a frame's batch of one cannot split and is refused, as in
+JAX. --spatial_shard N splits each frame's rows over N devices with
+--spatial_halo rows exchanged (parallel/halo.py), on the module graph, as
+JAX does.
 --collapsed_tail 1 (the default, as in JAX) serves EDSR through the
 collapsed linear tail (ops/collapsed_tail.py: the tail probed once into
 one 5x5 conv, border operators and one shuffle, on the conv_kxk kernel);
@@ -72,9 +77,9 @@ from larvanet_tpu_torch.eval.ensemble import self_ensemble_forward
 from larvanet_tpu_torch.eval.pipeline import pipelined_upscale
 from larvanet_tpu_torch.eval.tiling import upscale_with_chop_forward
 
-REFUSED = ("dp_devices", "spatial_shard")
 # refused with --artifact (larvanet_tpu/cli/validate.py:109-121)
-ARTIFACT_REFUSED = ("chop_forward", "self_ensemble", "int8_trunk", "ema")
+ARTIFACT_REFUSED = ("chop_forward", "self_ensemble", "int8_trunk", "spatial_shard", "ema",
+                    "dp_devices")
 IGNORED = ("packed_trunk",)
 
 
@@ -119,7 +124,10 @@ def build_parser() -> argparse.ArgumentParser:
                              "against the file production deploys. Images must match "
                              "the exported geometry, or pass --tile_forward (tile size "
                              "auto-set).")
-    common.add_refused_flags(parser, REFUSED, IGNORED)
+    common.add_parallel_serving_flags(
+        parser, "Shard eval tile batches across N devices (data-parallel serving; use "
+                "with --tile_forward; 0 = off).")
+    common.add_ignored_flags(parser, IGNORED)
     common.add_serving_dtype_flag(parser)
     return parser
 
@@ -156,7 +164,6 @@ def load_artifact_model(args, scale_list, device):
 
 def main(argv=None):
     args, remaining = build_parser().parse_known_args(argv)
-    common.refuse_unported(args, REFUSED, "validate")
     if not args.restore_path and not args.artifact:
         raise SystemExit("pass --restore_path (a .pth or .ckpt checkpoint) or --artifact")
     device = common.resolve_device(args)
@@ -177,6 +184,11 @@ def main(argv=None):
         common.maybe_wino_trunk(model, args)
         common.maybe_int8_trunk(model, args, lambda: common.int8_calib_batch(
             dataloader, scale_list[0], args.int8_calib_images))
+        common.maybe_spatial_shard(model, args, scale_list[0])
+        common.maybe_dp_eval(model, args, "eval")
+        if args.dp_devices > 1 and not args.tile_forward:
+            print("WARNING: --dp_devices without --tile_forward: full-frame "
+                  "batches of 1 cannot shard; pass --tile_forward")
     int8_report = args.int8_report and hasattr(model, "int8_exact_forward")
     if args.int8_report and not int8_report:
         print("--int8_report: int8 trunk is not active; nothing to report")

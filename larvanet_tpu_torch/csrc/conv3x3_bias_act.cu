@@ -137,8 +137,26 @@
 #include <cuda_runtime.h>
 #include <mma.h>
 
+#include <atomic>
 #include <cstdint>
 #include <type_traits>
+
+// cudaFuncSetAttribute acts on the current device only, so a kernel's
+// shared-memory limit is set once per device (bit d of `done` for device d),
+// not once per process: a process that launches on a second card sets it
+// there too
+template <typename K>
+cudaError_t smem_limit_once(std::atomic<unsigned long long>& done, K kernel, int bytes) {
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if (device >= 64) return cudaErrorInvalidValue;
+  const unsigned long long bit = 1ull << device;
+  if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_acq_rel);
+  return err;
+}
 
 namespace {
 
@@ -650,9 +668,9 @@ int launch_tc(K kernel, cudaError_t attr, int smem, const TcShape& s, const void
 template <bool kFull>
 int bf16_tc(const void* x, const void* w, const void* bias, void* y, const TcShape& s, Act act,
             void* stream) {
-  static const cudaError_t attr =
-      cudaFuncSetAttribute(conv3x3_bf16_tc_kernel<kFull>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, tc_smem_bytes(kKC));
+  static std::atomic<unsigned long long> limit_set{0};
+  const cudaError_t attr =
+      smem_limit_once(limit_set, conv3x3_bf16_tc_kernel<kFull>, tc_smem_bytes(kKC));
   return launch_tc<__nv_bfloat16>(conv3x3_bf16_tc_kernel<kFull>, attr,
                                   tc_smem_bytes(s.c < kKC ? s.c : kKC), s, x, w, bias, y, act,
                                   stream);
@@ -917,9 +935,9 @@ __global__ void __launch_bounds__(kTcThreads, 1)
 template <bool kFull>
 int f32_tc(const void* x, const void* w, const void* bias, void* y, const TcShape& s, Act act,
            void* stream) {
-  static const cudaError_t attr =
-      cudaFuncSetAttribute(conv3x3_f32_tc_kernel<kFull>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, f32_tc_smem_bytes(kKC));
+  static std::atomic<unsigned long long> limit_set{0};
+  const cudaError_t attr =
+      smem_limit_once(limit_set, conv3x3_f32_tc_kernel<kFull>, f32_tc_smem_bytes(kKC));
   return launch_tc<float>(conv3x3_f32_tc_kernel<kFull>, attr,
                           f32_tc_smem_bytes(s.c < kKC ? s.c : kKC), s, x, w, bias, y, act,
                           stream);
@@ -1283,9 +1301,9 @@ int launch_narrow(K kernel, cudaError_t attr, int smem, const TcShape& s, const 
 template <int FP>
 int narrow_f32(const void* x, const void* w, const void* bias, void* y, const TcShape& s,
                Act act, void* stream) {
-  static const cudaError_t attr =
-      cudaFuncSetAttribute(conv3x3_narrow_f32_kernel<FP>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, nf_smem_bytes(kNwMaxC, FP));
+  static std::atomic<unsigned long long> limit_set{0};
+  const cudaError_t attr =
+      smem_limit_once(limit_set, conv3x3_narrow_f32_kernel<FP>, nf_smem_bytes(kNwMaxC, FP));
   return launch_narrow<float>(conv3x3_narrow_f32_kernel<FP>, attr, nf_smem_bytes(s.c, FP), s, x,
                               w, bias, y, act, stream);
 }
@@ -1315,8 +1333,8 @@ int conv3x3_narrow_bf16(const void* x, const void* w, const void* bias, void* y,
   if (refused) return refused;
   const TcShape s{n, h, w_img, c, f, (h + kNbTH - 1) / kNbTH, (w_img + kNwTW - 1) / kNwTW};
   // its shared memory, set once per process
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      conv3x3_narrow_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kNbSmemBytes);
+  static std::atomic<unsigned long long> limit_set{0};
+  const cudaError_t attr = smem_limit_once(limit_set, conv3x3_narrow_tc_kernel, kNbSmemBytes);
   return launch_narrow<__nv_bfloat16>(conv3x3_narrow_tc_kernel, attr, kNbSmemBytes, s, x, w, bias,
                                       y, act, stream);
 }

@@ -982,34 +982,45 @@ int launch(const void* x, const void* w, const void* scale, const void* bias, co
     if (mapped) return mapped;
   }
   auto kernel = conv3x3_s8_kernel<Tin, Tout, T, kA>;
-  // the grid: the blocks the card holds at once. Asked once per shared-memory
-  // size and kept (a launch of the same plan asks the runtime nothing)
+  // the grid: the blocks the card holds at once. Asked once per device and
+  // shared-memory size and kept (a launch of the same plan on the same card
+  // asks the runtime nothing); the shared-memory limit, which
+  // cudaFuncSetAttribute sets on the current device only, is raised per
+  // device too
+  struct Asked {
+    int attr_bytes = 0, asked_bytes = -1;
+    long long asked_blocks = 0;
+  };
   static std::mutex mu;
-  static int attr_bytes = 0, asked_bytes = -1;
-  static long long asked_blocks = 0;
+  static Asked per_device[64];
+  int device = 0;
+  {
+    const cudaError_t err = cudaGetDevice(&device);
+    if (err != cudaSuccess) return err;
+    if (device >= 64) return cudaErrorInvalidValue;
+  }
   long long resident;
   {
     std::lock_guard<std::mutex> lock(mu);
-    if (s.smem_bytes > attr_bytes) {
+    Asked& a = per_device[device];
+    if (s.smem_bytes > a.attr_bytes) {
       const cudaError_t err = cudaFuncSetAttribute(
           kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, s.smem_bytes);
       if (err != cudaSuccess) return err;
-      attr_bytes = s.smem_bytes;
+      a.attr_bytes = s.smem_bytes;
     }
-    if (s.smem_bytes != asked_bytes) {
-      int device = 0, sms = 0, per_sm = 0;
-      cudaError_t err = cudaGetDevice(&device);
-      if (err == cudaSuccess)
-        err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (s.smem_bytes != a.asked_bytes) {
+      int sms = 0, per_sm = 0;
+      cudaError_t err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
       if (err == cudaSuccess)
         err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads,
                                                             s.smem_bytes);
       if (err != cudaSuccess) return err;
       if (per_sm < 1) return cudaErrorInvalidValue;
-      asked_bytes = s.smem_bytes;
-      asked_blocks = (long long)sms * per_sm;
+      a.asked_bytes = s.smem_bytes;
+      a.asked_blocks = (long long)sms * per_sm;
     }
-    resident = asked_blocks;
+    resident = a.asked_blocks;
   }
   const unsigned grid = (unsigned)(s.tiles < resident ? s.tiles : resident);
   kernel<<<grid, kThreads, s.smem_bytes, (cudaStream_t)stream>>>(

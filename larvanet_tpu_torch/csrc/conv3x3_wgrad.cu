@@ -120,7 +120,25 @@
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <cstdint>
+
+// cudaFuncSetAttribute acts on the current device only, so a kernel's
+// shared-memory limit is set once per device (bit d of `done` for device d),
+// not once per process: a process that launches on a second card sets it
+// there too
+template <typename K>
+cudaError_t smem_limit_once(std::atomic<unsigned long long>& done, K kernel, int bytes) {
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if (device >= 64) return cudaErrorInvalidValue;
+  const unsigned long long bit = 1ull << device;
+  if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_acq_rel);
+  return err;
+}
 
 namespace {
 
@@ -898,8 +916,8 @@ int wgrad_tc(const void* x, const void* g, void* ws, void* out, int n, int h, in
       tiled_refusal<kTcTH, kTcTW>(x, g, ws, n, h, w_img, c, f, splits, chunk, &s);
   if (refused) return refused;
   if (f % 8) return (int)cudaErrorInvalidValue;
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      wgrad_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kTcSmem);
+  static std::atomic<unsigned long long> limit_set{0};
+  const cudaError_t attr = smem_limit_once(limit_set, wgrad_tc_kernel, kTcSmem);
   if (attr != cudaSuccess) return (int)attr;
   const int blocks = ((f + kTcBN - 1) / kTcBN) * ((c + kTcKC - 1) / kTcKC);
   wgrad_tc_kernel<<<dim3((unsigned)blocks, 1, (unsigned)splits), kTcThreads, kTcSmem, static_cast<cudaStream_t>(stream)>>>(
@@ -915,8 +933,8 @@ int wgrad_tc_bf16(const void* x, const void* g, void* ws, void* out, int n, int 
       tiled_refusal<kTcTH, kTcTW>(x, g, ws, n, h, w_img, c, f, splits, chunk, &s);
   if (refused) return refused;
   if (f % 8) return (int)cudaErrorInvalidValue;
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      wgrad_tc_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kBfSmem);
+  static std::atomic<unsigned long long> limit_set{0};
+  const cudaError_t attr = smem_limit_once(limit_set, wgrad_tc_bf16_kernel, kBfSmem);
   if (attr != cudaSuccess) return (int)attr;
   const int blocks = ((f + kTcBN - 1) / kTcBN) * ((c + kTcKC - 1) / kTcKC);
   wgrad_tc_bf16_kernel<<<dim3((unsigned)blocks, 1, (unsigned)splits), kTcThreads, kBfSmem, static_cast<cudaStream_t>(stream)>>>(
@@ -928,8 +946,8 @@ int wgrad_tc_bf16(const void* x, const void* g, void* ws, void* out, int n, int 
 template <int FP>
 int wgrad_narrow_launch(const void* x, const void* g, void* ws, const WgShape& s, int splits,
                         int chunk, void* stream) {
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      wgrad_narrow_kernel<FP>, cudaFuncAttributeMaxDynamicSharedMemorySize, kNwSmem);
+  static std::atomic<unsigned long long> limit_set{0};
+  const cudaError_t attr = smem_limit_once(limit_set, wgrad_narrow_kernel<FP>, kNwSmem);
   if (attr != cudaSuccess) return (int)attr;
   wgrad_narrow_kernel<FP><<<dim3((unsigned)((s.c + kNwKC - 1) / kNwKC), 1, (unsigned)splits), kNwThreads, kNwSmem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<const float*>(g), static_cast<float*>(ws), s,

@@ -141,12 +141,30 @@
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <cstdint>
 #include <map>
 #include <mutex>
 #include <tuple>
 #include <type_traits>
 #include <utility>
+
+// cudaFuncSetAttribute acts on the current device only, so a kernel's
+// shared-memory limit is set once per device (bit d of `done` for device d),
+// not once per process: a process that launches on a second card sets it
+// there too
+template <typename K>
+cudaError_t smem_limit_once(std::atomic<unsigned long long>& done, K kernel, int bytes) {
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if (device >= 64) return cudaErrorInvalidValue;
+  const unsigned long long bit = 1ull << device;
+  if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_acq_rel);
+  return err;
+}
 
 namespace {
 
@@ -810,8 +828,8 @@ template <typename T, int MW, int NW>
 int launch_tc(const void* bias, void* y, FwdPlan& p, const CUtensorMap& x_map,
               const CUtensorMap& w_map, void* stream) {
   auto kernel = conv_kxk_tc_kernel<T, MW, NW>;
-  static const cudaError_t attr =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
+  static std::atomic<unsigned long long> limit_set{0};
+  const cudaError_t attr = smem_limit_once(limit_set, kernel, kSmemLimit);
   if (attr != cudaSuccess) return attr;
   const int threads = 32 * (p.warps + 1);
   long long card = 0;
@@ -1248,8 +1266,8 @@ template <typename T, int NT>
 int launch_wgrad_tc(const void* x, const void* g, void* ws, const WgPlan& p, int chunk,
                     dim3 grid, int smem, void* stream) {
   auto kernel = conv_kxk_wgrad_tc_kernel<T, NT>;
-  static const cudaError_t attr =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
+  static std::atomic<unsigned long long> limit_set{0};
+  const cudaError_t attr = smem_limit_once(limit_set, kernel, kSmemLimit);
   if (attr != cudaSuccess) return attr;
   kernel<<<grid, kWgThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(x), static_cast<const T*>(g), static_cast<float*>(ws), p, chunk);

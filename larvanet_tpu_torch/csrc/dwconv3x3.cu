@@ -521,7 +521,8 @@ size_t smem_bytes(const DwPlan& p) {
   return sizeof(float) * (red_offset<T, VT>(p) + (size_t)(p.g * lanes / span) * kSums * VT);
 }
 
-// What a kernel's launch asks of the card, kept per kernel: the dynamic
+// What a kernel's launch asks of a card, kept per kernel and device
+// (cudaFuncSetAttribute acts on the current device only): the dynamic
 // shared memory it may take (raised past 48 KB as a launch needs it) and,
 // for the last (threads, smem) asked, the blocks the card holds at once. A
 // launch at the same shape reads one atomic word; a new shape takes the lock.
@@ -530,27 +531,31 @@ struct KernelLimits {
   std::size_t allowed = 48 * 1024;
   std::atomic<unsigned long long> last{0};  // threads << 48 | smem << 24 | blocks
 };
+constexpr int kMaxDevices = 64;
 
-// let `kernel` take `smem` bytes; with `blocks`, also the blocks the card
-// holds at once at (threads, smem)
+// let `kernel` take `smem` bytes on the current device; with `blocks`,
+// also the blocks the card holds at once at (threads, smem)
 template <typename K>
-int prepare(K kernel, KernelLimits& lim, int threads, int smem, long long* blocks) {
+int prepare(K kernel, KernelLimits (&limits)[kMaxDevices], int threads, int smem,
+            long long* blocks) {
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if (device >= kMaxDevices) return cudaErrorInvalidValue;
+  KernelLimits& lim = limits[device];
   const unsigned long long key =
       (unsigned long long)threads << 48 | (unsigned long long)smem << 24, low = 0xffffff;
   unsigned long long got = lim.last.load(std::memory_order_acquire);
   if ((got & ~low) != key) {
     std::lock_guard<std::mutex> lock(lim.mu);
-    cudaError_t err = cudaSuccess;
     if ((std::size_t)smem > lim.allowed) {
       err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
       if (err != cudaSuccess) return err;
       lim.allowed = smem;
     }
-    int device = 0, sms = 0, per_sm = 0;
+    int sms = 0, per_sm = 0;
     if (blocks) {
-      err = cudaGetDevice(&device);
-      if (err == cudaSuccess)
-        err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
       if (err == cudaSuccess)
         err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
       if (err != cudaSuccess) return err;
@@ -568,7 +573,7 @@ int prepare(K kernel, KernelLimits& lim, int threads, int smem, long long* block
 template <typename T, int VT, int NC, int CV>
 int forward_v(const void* x, const void* k, const void* bias, void* y, DwPlan p,
               cudaStream_t stream, DwPlan* planned) {
-  static KernelLimits limits;
+  static KernelLimits limits[kMaxDevices];
   const int threads = p.g * p.tw / NC;
   const size_t smem = smem_bytes<T, VT, false>(p);
   long long resident = 0;
@@ -632,7 +637,7 @@ int forward(const void* x, const void* k, const void* bias, void* y, int n, int 
 template <typename T, int VT>
 int wgrad_v(const void* x, const void* g, float* part, float* dk, float* db, DwPlan p,
             int max_blocks, cudaStream_t stream, DwPlan* planned) {
-  static KernelLimits limits;
+  static KernelLimits limits[kMaxDevices];
   // at most max_blocks / chunks runs a chunk, each of kMinRows rows at least
   set_runs(p, max_blocks / p.chunks);
   p.ring = kDepth<T, true> + 1;

@@ -134,8 +134,26 @@
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <cstdint>
 #include <type_traits>
+
+// cudaFuncSetAttribute acts on the current device only, so a kernel's
+// shared-memory limit is set once per device (bit d of `done` for device d),
+// not once per process: a process that launches on a second card sets it
+// there too
+template <typename K>
+cudaError_t smem_limit_once(std::atomic<unsigned long long>& done, K kernel, int bytes) {
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if (device >= 64) return cudaErrorInvalidValue;
+  const unsigned long long bit = 1ull << device;
+  if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_acq_rel);
+  return err;
+}
 
 namespace {
 
@@ -936,8 +954,8 @@ int launch_tc(const void* x, const void* ua, const void* ba, const void* ub, con
   using Tl = TcTile<M, GB, TW, MT, NQ, NW>;
   auto kernel = wino_resblock_tc_kernel<M, GB, TW, MT, NQ, NW>;
   // once per process and instance: the tile's shared memory exceeds 48 KB
-  static const cudaError_t attr =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Tl::kSmemBytes);
+  static std::atomic<unsigned long long> limit_set{0};
+  const cudaError_t attr = smem_limit_once(limit_set, kernel, Tl::kSmemBytes);
   return launch_persistent<Tl>(kernel, attr, static_cast<const __nv_bfloat16*>(x),
                                static_cast<const __nv_bfloat16*>(ua), ba,
                                static_cast<const __nv_bfloat16*>(ub), bb,
@@ -1306,8 +1324,8 @@ int launch_f32_tc(const void* x, const void* ua, const void* ba, const void* ub,
   using Tl = F32Tile<M, GB, TW, MT, NQ, NW>;
   auto kernel = wino_resblock_f32_tc_kernel<M, GB, TW, MT, NQ, NW>;
   // once per process and instance: the tile's shared memory exceeds 48 KB
-  static const cudaError_t attr =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Tl::kSmemBytes);
+  static std::atomic<unsigned long long> limit_set{0};
+  const cudaError_t attr = smem_limit_once(limit_set, kernel, Tl::kSmemBytes);
   return launch_persistent<Tl>(kernel, attr, static_cast<const float*>(x),
                                static_cast<const float*>(ua), ba, static_cast<const float*>(ub),
                                bb, static_cast<float*>(y), rw, n, h, w, stream);

@@ -208,7 +208,7 @@ class TiledUpscaler:
 
     def __init__(self, forward_nhwc: Callable[[torch.Tensor], torch.Tensor], scale: int,
                  tile_size: int = 128, overlap: int = 24, max_batch: int = 64,
-                 device="cpu"):
+                 device="cpu", min_batch: int = 1):
         if overlap >= tile_size:
             raise ValueError("overlap must be smaller than tile_size")
         if max_batch < 1:
@@ -219,6 +219,18 @@ class TiledUpscaler:
         self.stride = tile_size - overlap
         self.max_batch = max_batch
         self.device = torch.device(device)
+        # every batch of tiles (and a small frame's batch of one) is
+        # zero-padded up to a multiple of min_batch, so that a data-parallel
+        # mesh divides it (parallel/mesh.use_data_parallel_eval;
+        # larvanet_tpu/eval/tiling.py:320-340)
+        self.min_batch = max(1, int(min_batch))
+
+    def _forward_padded(self, batch: torch.Tensor) -> torch.Tensor:
+        n = batch.shape[0]
+        pad = -n % self.min_batch
+        if pad:
+            batch = torch.cat([batch, batch.new_zeros((pad,) + tuple(batch.shape[1:]))])
+        return self.forward(batch)[:n]
 
     @torch.no_grad()
     def upscale_device(self, frame_hwc: torch.Tensor) -> torch.Tensor:
@@ -228,14 +240,14 @@ class TiledUpscaler:
         h, w, c = x.shape
         t, s = self.tile, self.scale
         if h < t or w < t:
-            return self.forward(x[None])[0]
+            return self._forward_padded(x[None])[0]
         ys = _tile_starts(h, t, self.stride)
         xs = _tile_starts(w, t, self.stride)
         tiles = torch.stack([x[y:y + t, x0:x0 + t] for y in ys for x0 in xs])
         owned = [(r, q) for r in _owned_ranges(ys, t, h) for q in _owned_ranges(xs, t, w)]
         result = torch.empty((h * s, w * s, c), dtype=torch.float32, device=x.device)
         for i in range(0, len(tiles), self.max_batch):
-            out = self.forward(tiles[i:i + self.max_batch])
+            out = self._forward_padded(tiles[i:i + self.max_batch])
             for tile_out, ((oy0, oy1, ty0, ty1), (ox0, ox1, tx0, tx1)) in zip(
                     out, owned[i:i + self.max_batch]):
                 result[oy0 * s:oy1 * s, ox0 * s:ox1 * s] = \

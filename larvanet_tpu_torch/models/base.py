@@ -40,7 +40,16 @@ JAX package's jitted closures become plain calls of the module.
     per parameter, per leaf or in `--fused_opt`'s one flat vector; the
     EMA node becomes `ParamEMA`'s average) and what a subclass adds
     (`_load_jax_train_extras`: the plateau schedule), so the next step is
-    the one JAX takes from the same file. Orbax directories are refused.
+    the one JAX takes from the same file. A JAX orbax directory is refused.
+  * `--orbax_checkpoint` (`orbax_checkpoints` set): `save` writes a
+    directory at the same name (`_save_dir`, torch.distributed.checkpoint:
+    every process of an initialized group writes its part), swapped in
+    when complete, or with `--async_checkpoint` by DCP's async_save;
+    `restore` recognises such a directory by its `.metadata` file.
+  * Data-parallel training (parallel/mesh.use_data_parallel): with
+    `data_parallel` set, `_optimizer_step` takes the shards' mean loss and
+    gradients from it, steps the optimizer and the average once, and
+    copies the parameters back to the replicas.
   * `--async_checkpoint` (`async_checkpoints` set): `save` snapshots the
     files' tensors on the device and returns; a worker thread writes them
     (utils/checkpoints.AsyncCheckpointWriter). `wait_for_checkpoints()`
@@ -202,6 +211,7 @@ class SRModel:
         self.device = torch.device("cpu")
         self.compute_dtype = torch.float32
         self.route = None
+        self.route_remake = None
         self._serving_copy: Optional[nn.Module] = None
         self.global_step = 0
         self.total_volume = 0.0
@@ -219,6 +229,11 @@ class SRModel:
         self.grad_accum = 1
         self.async_checkpoints = False
         self._ckpt_writer: Optional[AsyncCheckpointWriter] = None
+        # --orbax_checkpoint: directory checkpoints (torch.distributed.checkpoint)
+        self.orbax_checkpoints = False
+        self._dir_saves: List = []
+        # parallel/mesh.use_data_parallel's step
+        self.data_parallel = None
         self._rng = np.random.default_rng()
 
     # ---- plugin protocol -------------------------------------------------
@@ -247,6 +262,7 @@ class SRModel:
         self.temp_volume = 0.0
         self.is_training = is_training
         self.optimizer = self.ema = None
+        self.data_parallel = None
         if is_training and qat_requested(self) and getattr(self.args, "packed_trunk",
                                                            None) == 0:
             # JAX's check (base.py:383-388); the port's --packed_trunk is
@@ -289,8 +305,12 @@ class SRModel:
     def set_route(self, forward) -> None:
         """Run `fwd_runtime` through `forward` (NHWC batch in the compute
         dtype -> NHWC output) instead of the serving module; None restores
-        it."""
+        it. It clears `route_remake`, which a caller that can build the same
+        route for a copy of the model on another device sets after it:
+        `route_remake(replica)` -> the route, its baked tensors made on the
+        replica's device (parallel/mesh.use_data_parallel_eval)."""
         self.route = forward
+        self.route_remake = None
 
     def num_parameters(self) -> int:
         return sum(p.numel() for p in self.module.parameters())
@@ -310,6 +330,8 @@ class SRModel:
         (`wait_for_checkpoints`)."""
         os.makedirs(base_path, exist_ok=True)
         path = os.path.join(base_path, self.checkpoint_name())
+        if self.orbax_checkpoints:
+            return self._save_dir(path)
         files = [({k: v.detach() for k, v in self.module.state_dict().items()}, path)]
         if self.optimizer is not None:
             files.append((self._train_state(), state_path(path)))
@@ -327,6 +349,31 @@ class SRModel:
         synchronous ones); raises the writer's errors (base.py:765-771)."""
         if self._ckpt_writer is not None:
             self._ckpt_writer.wait()
+        pending, self._dir_saves = self._dir_saves, []
+        for future in pending:
+            future.result()
+
+    def _save_dir(self, path: str) -> str:
+        """`--orbax_checkpoint`: a directory at `path` (the name `save`
+        gives a file), holding the module's state_dict and, when training,
+        the state file's contents (utils/checkpoints.save_dir_checkpoint:
+        torch.distributed.checkpoint, coordinated across the processes of an
+        initialized group). Synchronous: written beside and swapped in.
+        With `async_checkpoints`: the tensors are copied to the host here,
+        the earlier directory save is waited for, and DCP's async_save
+        writes; `wait_for_checkpoints` waits for it."""
+        from larvanet_tpu_torch.utils.checkpoints import (dir_checkpoint_state,
+                                                          save_dir_checkpoint)
+
+        flat = dir_checkpoint_state(self.module.state_dict(),
+                                    self._train_state() if self.optimizer is not None
+                                    else None)
+        if self.async_checkpoints:
+            self.wait_for_checkpoints()
+            self._dir_saves.append(save_dir_checkpoint(flat, path, asynchronous=True))
+        else:
+            save_dir_checkpoint(flat, path)
+        return path
 
     def _train_state(self) -> dict:
         """What a resume needs beyond the weights. JAX saves no
@@ -359,7 +406,12 @@ class SRModel:
 
         Any other file is a flax msgpack checkpoint, restored for
         evaluation as JAX's `restore` does (base.py:615-646, :775-785)."""
+        from larvanet_tpu_torch.utils.checkpoints import is_dir_checkpoint
+
         self._restored_ema = self._ema_state_file = None
+        if is_dir_checkpoint(ckpt_path):
+            self._restore_dir(ckpt_path, strict)
+            return
         if os.path.isdir(ckpt_path):
             raise ValueError(
                 "%s is an orbax directory: restoring it needs orbax, which the port "
@@ -387,6 +439,28 @@ class SRModel:
                 "%s was saved %s an EMA; --ema_decay must be consistent across a "
                 "resumed run" % (saved, "without" if state["ema"] is None else "with"))
         self._load_train_state(state)
+
+    def _restore_dir(self, ckpt_path: str, strict: bool) -> None:
+        """A directory checkpoint of the port (`_save_dir`): the module's
+        state_dict; when training, the training state it holds, as a
+        `.pth`'s state file is loaded (only where the checkpoint covered
+        every key); for evaluation its average, kept for `use_ema_params`."""
+        from larvanet_tpu_torch.utils.checkpoints import read_dir_checkpoint
+
+        module_state, state = read_dir_checkpoint(ckpt_path)
+        complete = self.load_state_dict(module_state, strict=strict)
+        if state is None or not complete:
+            return
+        if self.optimizer is None:
+            if state.get("ema") is not None:
+                names = [name for name, _ in self.module.named_parameters()]
+                self._restored_ema = dict(zip(names, state["ema"]))
+            return
+        if (state["ema"] is None) != (self.ema is None):
+            raise ValueError(
+                "%s was saved %s an EMA; --ema_decay must be consistent across a "
+                "resumed run" % (ckpt_path, "without" if state["ema"] is None else "with"))
+        self._load_train_state(state)  # the optimizer and the average copy to the device
 
     def _restore_msgpack(self, ckpt_path: str, strict: bool) -> None:
         """A JAX `.ckpt` (flax msgpack): `params` through the port's copy of
@@ -621,10 +695,16 @@ class SRModel:
         for group in self.optimizer.param_groups:
             group["lr"] = lr
         self.optimizer.zero_grad(set_to_none=True)
-        loss = self._loss_and_grads(inputs, targets)
+        dp = self.data_parallel
+        if dp is None:
+            loss = self._loss_and_grads(inputs, targets)
+        else:  # the shards' mean gradients (parallel/mesh.DataParallelTrain)
+            loss = dp.loss_and_grads(inputs, targets)
         self.optimizer.step()
         if self.ema is not None:
             self.ema.update()
+        if dp is not None:
+            dp.copy_out()
         return loss
 
     def train_step(self, input_list, scale, truth_list, summary=None) -> float:

@@ -429,6 +429,8 @@ def test_artifact_service_serves_the_live_servers_pixels(artifacts):
     (["--chop_forward"], "--chop_forward does not apply"),
     (["--int8_trunk", "1"], "--int8_trunk does not apply"),
     (["--ema", "1"], "--ema does not apply"),
+    (["--dp_devices", "2"], "--dp_devices does not apply"),
+    (["--spatial_shard", "2"], "--spatial_shard does not apply"),
     (["--serving_dtype", "bf16"], "--serving_dtype does not apply"),
     (["--restore_path", "m.pth"], "not both"),
 ])

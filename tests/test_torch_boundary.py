@@ -40,7 +40,8 @@ def test_importing_every_module_loads_no_jax():
                          capture_output=True, text=True, timeout=300)
     loaded = json.loads(out.stdout.strip().splitlines()[-1])
     assert "larvanet_tpu_torch.cli.serve" in loaded
-    for name in ("ops.conv3x3_s8", "ops.pairs", "ops.int8_forward"):
+    for name in ("ops.conv3x3_s8", "ops.pairs", "ops.int8_forward", "parallel.mesh",
+                 "parallel.halo", "parallel.tp", "parallel.distributed"):
         assert "larvanet_tpu_torch." + name in loaded
     assert [m for m in loaded if FORBIDDEN.match(m)] == []
 
@@ -67,9 +68,44 @@ def test_int8_serving_and_qat_on_the_cpu_load_no_jax():
     assert [m for m in loaded if FORBIDDEN.match(m)] == []
 
 
+def test_parallel_paths_on_the_cpu_load_no_jax(tmp_path):
+    """A data-parallel step, a spatially sharded forward, a channel-sharded
+    forward and a directory checkpoint, in a fresh process on meshes that
+    repeat the CPU: no JAX module loads."""
+    code = (
+        "import json, sys, torch\n"
+        "from larvanet_tpu_torch.core.registry import get_model\n"
+        "from larvanet_tpu_torch.parallel import halo, mesh, tp\n"
+        "cpu = [torch.device('cpu')] * 2\n"
+        "m = get_model('edsr')\n"
+        "m.parse_args(['--edsr_res_blocks', '1', '--edsr_conv_features', '8'])\n"
+        "m.prepare([4], device='cpu', is_training=True)\n"
+        "mesh.use_data_parallel(m, mesh.make_mesh((2,), ('data',), cpu))\n"
+        "m.train_step(torch.rand(2, 8, 8, 3) * 255, 4, torch.rand(2, 32, 32, 3) * 255)\n"
+        "f = halo.spatial_sharded_forward(lambda mod, x: mod(x),\n"
+        "    mesh.make_mesh((2,), ('spatial',), cpu), halo=4, scale=4)\n"
+        "with torch.no_grad():\n"
+        "    assert f(m.module, torch.rand(1, 16, 8, 3)).shape == (1, 64, 32, 3)\n"
+        "g = tp.make_tp_forward(lambda p, xs: tp.tp_conv3x3(xs, p['k'], p['b']),\n"
+        "    mesh.make_mesh((2,), ('model',), cpu))\n"
+        "assert g({'k': torch.rand(3, 3, 3, 4), 'b': torch.rand(4)},\n"
+        "         torch.rand(1, 6, 6, 3)).shape == (1, 6, 6, 4)\n"
+        "m.orbax_checkpoints = True\n"
+        "m.restore(m.save(sys.argv[1]))\n"
+        "print(json.dumps(sorted(sys.modules)))\n")
+    out = subprocess.run([sys.executable, "-c", code, str(tmp_path)], cwd=ROOT, check=True,
+                         capture_output=True, text=True, timeout=300)
+    loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    assert "torch.distributed.checkpoint" in loaded
+    assert [m for m in loaded if FORBIDDEN.match(m)] == []
+
+
 def test_no_source_file_imports_jax():
     files = sorted(PACKAGE.rglob("*.py")) + [ROOT / name for name in PORT_SCRIPTS]
     assert len(files) > 10
+    parallel = {PACKAGE / "parallel" / (name + ".py")
+                for name in ("__init__", "mesh", "halo", "tp", "distributed")}
+    assert parallel <= set(files)
     bad = []
     for path in files:
         for m in IMPORT_LINE.finditer(path.read_text()):

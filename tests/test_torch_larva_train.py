@@ -434,9 +434,32 @@ def test_cli_takes_ema_decay_and_grad_accum(div2k_root, tmp_path):
 
 
 @pytest.mark.parametrize("flags", [["--orbax_checkpoint", "1"], ["--dp_devices", "2"]])
-def test_cli_refuses_what_is_not_ported(div2k_root, tmp_path, flags):
-    with pytest.raises(SystemExit, match="ROADMAP.md queue 1 item 11"):
-        _larva_cli(div2k_root, str(tmp_path), "--max_steps", "1", *flags)
+def test_cli_refuses_what_is_not_ported(div2k_root, straight_and_resumed, tmp_path, flags):
+    """The parallel package's train flags, refused until the port had it,
+    now train. --orbax_checkpoint 1: a directory at the --val_volume
+    boundary, from which a resume repeats the straight run bit for bit
+    (step, volume, AdamW, schedule). --dp_devices 2 (a mesh that repeats
+    the CPU): the multi-exit loss and the weights of the straight run to
+    f32 tolerance."""
+    (sm, slosses), (fm, flosses), *_ = straight_and_resumed
+    path = str(tmp_path / "run")
+    if flags[0] == "--orbax_checkpoint":
+        _larva_cli(div2k_root, path, "--max_steps", "3", *flags)
+        assert os.path.isdir(os.path.join(path, "model_step3_vol0G.pth"))
+        resumed, rlosses = _larva_cli(div2k_root, path, "--max_steps", "6", *flags,
+                                      "--restore_path", "latest")
+        assert rlosses == {k: v for k, v in slosses.items() if k > 3}
+        for a, b in zip(sm.module.parameters(), resumed.module.parameters()):
+            assert torch.equal(a, b)
+        assert resumed.scheduler.state_dict() == sm.scheduler.state_dict()
+        assert resumed.total_volume == sm.total_volume
+        return
+    model, losses = _larva_cli(div2k_root, path, "--max_steps", "3", *flags)
+    assert model.data_parallel is not None
+    for step, loss in flosses.items():
+        assert abs(losses[step] - loss) <= 1e-5 * abs(loss)
+    for a, b in zip(fm.module.parameters(), model.module.parameters()):
+        assert float((a - b).abs().max()) <= PARAM_ATOL
 
 
 def test_cli_trains_with_qat(div2k_root, tmp_path, monkeypatch):

@@ -184,9 +184,33 @@ def test_model_without_a_scheduler_and_the_default_epoch(root):
 
 @pytest.mark.parametrize("flag", ["--orbax_checkpoint", "--dp_devices"])
 def test_refusals(root, flag):
-    with pytest.raises(SystemExit, match="ROADMAP") as exc:
-        train_schedule.main(_argv(root, "refused", extra=["--device", "cpu", flag, "2"]))
-    assert exc.value.code not in (0, None)
+    """The parallel package's train flags, refused until the port had it,
+    now train. --orbax_checkpoint: directory checkpoints, from whose step 6
+    a resume trains to the uninterrupted run's weights and scheduler bit for
+    bit. --dp_devices 2 (a mesh that repeats the CPU): the uninterrupted
+    run's first losses and validation to f32 tolerance."""
+    (model, losses, validations), _ = _port_run(root)
+    if flag == "--orbax_checkpoint":
+        _run(train_schedule.main, _argv(root, "dirs", extra=["--device", "cpu", flag, "1",
+                                                             "--max_steps", "6"]))
+        assert os.path.isdir(os.path.join(root, "dirs", "model_6.pth"))
+        (resumed, _, rest), _ = _run(train_schedule.main, _argv(
+            root, "dirs_resumed", restore=os.path.join("dirs", "model_6.pth"),
+            extra=["--device", "cpu", flag, "1"]))
+        assert rest == validations[3:]
+        assert resumed.lr_scheduler == model.lr_scheduler
+        for (key, a), b in zip(model.module.state_dict().items(),
+                               resumed.module.state_dict().values()):
+            assert torch.equal(a, b), key
+        return
+    (dp, dp_losses, dp_validations), out = _run(train_schedule.main, _argv(
+        root, "dp", extra=["--device", "cpu", flag, "2", "--max_steps", "2"]))
+    assert "data-parallel over 2 devices" in out and dp.data_parallel is not None
+    assert sorted(dp_losses) == [1, 2]
+    for step in (1, 2):
+        assert abs(dp_losses[step] - losses[step]) <= LOSS_RTOL * abs(losses[step])
+    (step, psnr, lr), = dp_validations
+    assert (step, lr) == validations[0][::2] and abs(psnr - validations[0][1]) <= PSNR_TOL_DB
 
 
 def test_validate_tree_refuses_other_models(root):

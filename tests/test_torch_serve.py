@@ -318,11 +318,30 @@ def test_drain_sheds_new_requests():
         httpd.server_close()
 
 
-def test_unported_flags_are_refused(tmp_path):
+def test_unported_flags_are_refused(tmp_path, capsys):
+    """--dp_devices and --spatial_shard, refused until the port had its
+    parallel package, now serve on --device cpu (a mesh of 2 that repeats
+    the CPU) the unsharded service's frames: --dp_devices 2 in direct mode
+    (--dynamic_batch raised to 2, a lone request padded to 2) and over
+    --tile_forward's tiles (batches padded to a multiple of 2);
+    --spatial_shard 2 at --spatial_halo 8, the tiny EDSR's receptive
+    radius, on the module graph (held against --collapsed_tail 0)."""
     pth = _pth(tmp_path)
-    for flag in ("--dp_devices=2", "--spatial_shard=2"):
-        with pytest.raises(SystemExit, match="ROADMAP"):
-            serve.build_service(*_port_args(pth, flag))
+    img = np.random.default_rng(1).integers(0, 256, (3, 32, 20), dtype=np.uint8)
+    tile = ("--tile_forward", "--tile_size", "12", "--tile_overlap", "4")
+    runs = (((), ("--dp_devices=2",)), (tile, ("--dp_devices=2",)),
+            (("--collapsed_tail", "0"), ("--spatial_shard=2", "--spatial_halo", "8")))
+    for base, flags in runs:
+        want = serve.build_service(*_port_args(pth, *base)).upscale_chw(img)
+        service = serve.build_service(*_port_args(pth, *base, *flags))
+        got = service.upscale_chw(img)
+        if flags[0] == "--dp_devices=2" and not base:
+            assert service.dynamic_batch == 2 and service._buckets == [2]
+            assert "--dynamic_batch raised to 2" in capsys.readouterr().out
+        if base == tile:
+            assert service.tiler.min_batch == 2
+        assert got.shape == want.shape == (3, 128, 80)
+        assert int(np.abs(got.astype(int) - want.astype(int)).max()) <= 1, (base, flags)
 
 
 def test_no_cuda_without_device_cpu_exits_nonzero(tmp_path, monkeypatch):

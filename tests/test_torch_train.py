@@ -495,9 +495,37 @@ def test_restore_path_latest_finds_the_highest_step(tmp_path):
 
 
 @pytest.mark.parametrize("flags", [["--orbax_checkpoint", "1"], ["--dp_devices", "2"]])
-def test_cli_refuses_what_is_not_ported(div2k_train_root, tmp_path, flags):
-    with pytest.raises(SystemExit, match="ROADMAP.md queue 1 item 11"):
-        _cli(div2k_train_root, str(tmp_path), "--max_steps", "1", *flags)
+def test_cli_refuses_what_is_not_ported(div2k_train_root, straight_and_resumed, tmp_path,
+                                        flags):
+    """The parallel package's train flags, refused until the port had it,
+    now train. --orbax_checkpoint 1: directory checkpoints, from which a
+    resume repeats the straight run bit for bit. --dp_devices 2 (a mesh that
+    repeats the CPU): the straight run's losses and weights to f32
+    tolerance, and JAX's refusals of --device_pipeline and of a batch the
+    mesh does not divide."""
+    (sm, slosses), (fm, flosses), *_ = straight_and_resumed
+    path = str(tmp_path / "run")
+    if flags[0] == "--orbax_checkpoint":
+        _cli(div2k_train_root, path, "--max_steps", "3", *flags)
+        assert os.path.isdir(os.path.join(path, "model_3.pth"))
+        resumed, rlosses = _cli(div2k_train_root, path, "--max_steps", "6", *flags,
+                                "--restore_path", "latest")
+        assert rlosses == {k: v for k, v in slosses.items() if k > 3}
+        for a, b in zip(sm.module.parameters(), resumed.module.parameters()):
+            assert torch.equal(a, b)
+        assert all(torch.equal(a, b) for a, b in zip(sm.ema.average, resumed.ema.average))
+        return
+    model, losses = _cli(div2k_train_root, path, "--max_steps", "3", *flags)
+    assert model.data_parallel is not None and len(model.data_parallel.devices) == 2
+    assert sorted(losses) == [1, 2, 3]
+    for step, loss in flosses.items():
+        assert abs(losses[step] - loss) <= 1e-5 * abs(loss)
+    for a, b in zip(fm.module.parameters(), model.module.parameters()):
+        assert float((a - b).abs().max()) <= PARAM_ATOL
+    with pytest.raises(SystemExit, match="--device_pipeline"):
+        _cli(div2k_train_root, path, "--max_steps", "1", *flags, "--device_pipeline", "2")
+    with pytest.raises(SystemExit, match="must be divisible by --dp_devices"):
+        _cli(div2k_train_root, path, "--max_steps", "1", "--dp_devices", "4")
 
 
 def test_cli_trains_with_qat(div2k_train_root, tmp_path):

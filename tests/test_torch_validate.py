@@ -260,17 +260,49 @@ def test_validate_larvanet_matches_jax_validate(name, wino, even_data, larva_ckp
     assert max(deltas.values()) <= PSNR_TOL
 
 
-@pytest.mark.parametrize("cli,flag", [(validate, f) for f in validate.REFUSED]
-                         + [(runtime, f) for f in runtime.REFUSED]
-                         + [(get_sr, f) for f in get_sr.REFUSED])
-def test_unported_flags_exit_nonzero(cli, flag, even_data, pth, tmp_path):
-    argv = {validate: _flags(even_data, pth, "--device", "cpu"),
-            runtime: ["--device", "cpu", "--input_height", "8", "--input_width", "8", *TINY],
-            get_sr: ["--device", "cpu", "--input_path", even_data[0], "--output_path",
-                     str(tmp_path), "--restore_path", pth, *TINY]}[cli]
-    with pytest.raises(SystemExit, match="ROADMAP") as exc:
-        cli.main(argv + ["--%s=1" % flag])
-    assert exc.value.code not in (0, None)
+# the parallel flags on --device cpu (a mesh that repeats the CPU), each
+# against the unsharded run: --dp_devices over --tile_forward's tiles (the
+# same collapsed route on each shard), --spatial_shard at the tiny EDSR's
+# receptive radius, 8 LR rows (the module graph, as JAX's sharded forward
+# runs it: held against --collapsed_tail 0)
+PARALLEL_RUNS = {
+    "dp_devices": (["--tile_forward", "--tile_size", "16", "--tile_overlap", "8"],
+                   ["--dp_devices", "2"]),
+    "spatial_shard": (["--collapsed_tail", "0"], ["--spatial_shard", "2", "--spatial_halo", "8"]),
+}
+
+
+@pytest.mark.parametrize("cli,flag", [(validate, "dp_devices"), (validate, "spatial_shard"),
+                                      (get_sr, "spatial_shard"), (get_sr, "dp_devices")])
+def test_unported_flags_exit_nonzero(cli, flag, even_data, pth, tmp_path, capsys):
+    """--dp_devices and --spatial_shard, refused until the port had its
+    parallel package, now run and give the unsharded run's frames: the same
+    PSNRs (validate) and the same PNGs to a level (get_sr)."""
+    base, parallel = PARALLEL_RUNS[flag]
+
+    def run(name, extra):
+        out = str(tmp_path / name)
+        if cli is validate:
+            validate.main(_flags(even_data, pth, "--device", "cpu", "--report_json", out,
+                                 *extra))
+            return _per_image(out)
+        get_sr.main(["--device", "cpu", "--input_path", even_data[0], "--output_path", out,
+                     "--restore_path", pth, *TINY, *extra])
+        return {n: io.load_image_u8(os.path.join(out, n + ".png")).astype(int)
+                for n in io.list_pngs(out)}
+
+    want = run("plain", base)
+    got = run("sharded", base + parallel)
+    printed = capsys.readouterr().out
+    assert ("sharded over 2 devices" in printed
+            and ("virtual" in printed or flag == "spatial_shard"))
+    assert sorted(got) == sorted(want) == io.list_pngs(even_data[0])
+    for name in want:
+        if cli is validate:
+            assert abs(got[name] - want[name]) <= PSNR_TOL
+        else:
+            assert got[name].shape == want[name].shape
+            assert np.abs(got[name] - want[name]).max() <= 1
 
 
 @pytest.mark.parametrize("extra,message", [
@@ -278,6 +310,8 @@ def test_unported_flags_exit_nonzero(cli, flag, even_data, pth, tmp_path):
     (["--self_ensemble"], "--self_ensemble does not apply"),
     (["--int8_trunk", "1"], "--int8_trunk does not apply"),
     (["--ema", "1"], "--ema does not apply"),
+    (["--dp_devices", "2"], "--dp_devices does not apply"),
+    (["--spatial_shard", "2"], "--spatial_shard does not apply"),
     (["--serving_dtype", "bf16"], "--serving_dtype does not apply"),
     (["--restore_path", "m.pth"], "not both"),
 ])
