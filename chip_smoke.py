@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py        # from the repo root, on a machine with one H100
     python3 chip_smoke.py --phase parallel   # the build and phase 20 alone
+    python3 chip_smoke.py --phase data       # the build and phase 21 alone
 
 
 It drives the port's main paths on the card, serving and validating
@@ -15,7 +16,7 @@ and validating serving artifacts and the full-frame forwards (phase 19),
 then the parallel package (phase 20: spatial halo sharding, data-parallel
 serving and training, NCCL, channel TP, directory checkpoints, on a mesh
 that repeats the one card, and over distinct cards where there are 2 or
-more), and fails (exit code != 0, no result line) if any phase fails.
+more), then the native host data path and --fused_opt (phase 21), and fails (exit code != 0, no result line) if any phase fails.
 EDSR serves on its default route, the collapsed linear tail
 (ops/collapsed_tail.py: the trunk's 34 convs on conv3x3, the tail as one
 5x5 conv, 4 side and 4 corner operators on conv_kxk; the CLIs make the
@@ -26,7 +27,8 @@ on the default, collapsed route:
 
  1. device: CUDA must be available; prints nvidia-smi's name and power limit.
  2. build: compiles every kernel of the path from larvanet_tpu_torch/csrc/
-    with nvcc for sm_90a, all sources at once, and prints the seconds.
+    with nvcc for sm_90a, all sources at once, and prints the seconds; then
+    the host library of the data path (csrc/host/lvt_data.cpp) with g++.
  3. kernels: holds each kernel against its plain PyTorch version on the
     card at every conv shape of the x4 forward, for a batch of 4 LR tiles
     of 192x192 and one ragged 339x510 frame, in f32 (TF32 off) and bf16.
@@ -408,6 +410,24 @@ on the default, collapsed route:
     CLI with --dp_devices 2 --orbax_checkpoint 1, sync and async: the resume
     from a directory repeats the run, the restored directory's forward
     equals the trained one.
+ 21. the native host data path and --fused_opt (after phase 20). 21a: the
+    seconds g++ took to build the host library (csrc/host/lvt_data.cpp)
+    right after the kernels' build, before any phase decodes a PNG; the
+    port's standard fixture (data/fixture.py) written in a temporary
+    directory, its MANIFEST equal to tests/data/fixture_manifest.json. 21b:
+    the flagship's batch, 16 x 48x48 at x4, from a cached set with HR = LR
+    x 4: the native stream bit for bit with native.patch_batch_plain at
+    three seeks; C and plain assembly timed (host clock). 21c: PNG decode
+    of a 320x480 realistic-fixture frame with Paeth, Average and Sub rows,
+    C rows against numpy rows (host clock). 21d: adam_flat against its
+    plain version, bit for bit, after ADAM_STEPS AdamW steps on EDSR-
+    baseline x4's and LarvaNet 2x16's parameters at full width; one step
+    timed as a graph replay, through the wrapper, plain, and
+    torch.optim.AdamW(fused=True), in turns. 21e: train_larva, LarvaNet
+    2x16 at full width, 3 steps with --data_cached --data_native 1
+    --fused_opt 1 (counted: 3 adam_flat launches, 3 x 68 + 3 wgrad and 3 x
+    68 dgrad conv launches) and --fused_opt 0, the losses within
+    FUSED_LOSS_RTOL; one step of each timed in turns.
  12. (last) prints the kernels JSON line, the nvidia-smi line, then the
     result line {"ok": true, "device": {...}}.
 
@@ -483,7 +503,12 @@ conv3x3_s8, conv_kxk and dwconv3x3 lines, which give them under
 under "parallel_launches", each part's times under "parallel"), its dp
 steps to the conv3x3 and conv3x3_wgrad lines' train runs, its dp int8
 forwards to the conv3x3_s8 line ("parallel_launches") and its collapsed
-dp forwards to the conv_kxk line.
+dp forwards to the conv_kxk line. Phase 21e's counted --fused_opt 1 run adds
+to the conv3x3 and conv3x3_wgrad lines' train runs; the adam_flat line
+gives its launches (one a step), 21d's error and the LarvaNet 2x16 step's
+times (graph replay, wrapper, plain, torch's fused AdamW) and bound, with
+EDSR-baseline x4's under "edsr", 21e's step times under "train_step_ms"
+and 21a-c's host numbers under "host".
 """
 
 from __future__ import annotations
@@ -7216,6 +7241,294 @@ def parallel_phase(torch):
     return out
 
 
+# phase 21: the native host data path and --fused_opt
+DATA_FRAMES = 4
+DATA_LR = (96, 128)                  # HR 384x512, exactly LR x 4: the native stream's set
+DATA_SEEKS = (0, 7, 123456)          # steps the batcher is seeked to
+DECODE_FRAME = (320, 480)            # a realistic-fixture-class HR frame (_render_hr_natural)
+DECODE_FILTERS = (4, 3, 1)           # Paeth, Average, Sub: the rows a photo's PNG carries
+HOST_WINDOWS = 3                     # host timings: the median of windows of HOST_REPS calls
+HOST_REPS = 5
+ADAM_STEPS = 10
+ADAM_LR = 1e-3
+ADAM_MODELS = (("EDSR-baseline x4", "edsr", []), ("LarvaNet 2x16", "LarvaNet", LARVANET_FLAGS))
+ADAM_BYTES = 28                      # a parameter's f32 p, g, m, v read, p, m, v written
+DATA_TRAIN_STEPS = 3
+FUSED_LOSS_RTOL = 1e-5
+
+
+def host_windows(fns, windows=HOST_WINDOWS, reps=HOST_REPS):
+    """{name: (median, min, max)} ms per call of each host callable, by the
+    host's clock: windows of `reps` calls in turns, after one call each."""
+    for fn in fns.values():
+        fn()
+    times = {name: [] for name in fns}
+    for _ in range(windows):
+        for name, fn in fns.items():
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            times[name].append(1e3 * (time.perf_counter() - t0) / reps)
+    return {name: (statistics.median(t), min(t), max(t)) for name, t in times.items()}
+
+
+def data_stream_phase(torch, tmp):
+    """21b: the flagship's batch, 16 x 48x48 at x4, from a cached set with
+    HR = LR x 4: the native stream (`PairDataset.patch_batch_nhwc`, seeked
+    to each of DATA_SEEKS) bit for bit with `native.patch_batch_plain`, and
+    the C assembly timed against the plain one (host clock)."""
+    import numpy as np
+
+    from larvanet_tpu_torch.data import native
+    from larvanet_tpu_torch.data.dataset import PairDataset
+
+    batch, patch = TRAIN_BATCH, TRAIN_PATCH
+    write_train_set(tmp, np.random.default_rng(SEED + 21), DATA_FRAMES, DATA_LR)
+    ds = PairDataset(os.path.join(tmp, "LR"), os.path.join(tmp, "HR"), cached=True, seed=SEED)
+    ds.prepare([4])
+    for step in DATA_SEEKS:
+        ds.reseed_for_step(step)
+        got = ds.patch_batch_nhwc(batch, 4, patch)
+        nb = ds._native_batchers[4]
+        lr = [ds.input_u8(4, i) for i in range(len(ds))]
+        hr = [ds.truth_u8(i) for i in range(len(ds))]
+        want = native.patch_batch_plain(lr, hr, 4, nb.seed + step + 1, batch, patch)
+        if not all(np.array_equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError("the native batch at step %d differs from the plain one"
+                                 % (step,))
+    times = host_windows({
+        "c": lambda: nb.batch(batch, patch),
+        "plain": lambda: native.patch_batch_plain(lr, hr, 4, nb.seed, batch, patch)})
+    print("21b batch %d x %dx%d at x4, %d threads: native stream bit for bit with the plain "
+          "one at steps %s; assembly C %s, plain %s (host clock)" % (
+              batch, patch, patch, nb.num_threads, list(DATA_SEEKS), spread(times["c"]),
+              spread(times["plain"])), flush=True)
+    return {"batch_ms": times["c"], "batch_plain_ms": times["plain"],
+            "threads": nb.num_threads}
+
+
+def data_decode_phase():
+    """21c: PNG decode of a DECODE_FRAME frame of the realistic fixture's
+    generator, every row filtered by each of DECODE_FILTERS: the port's
+    decoder with its rows in C (`native.unfilter`) against the same decoder
+    with the numpy rows (`native.unfilter_plain`), host clock; both must
+    give the frame back."""
+    import numpy as np
+
+    from larvanet_tpu_torch.data import fixture, native, png
+
+    frame = fixture._render_hr_natural(np.random.default_rng(SEED), *DECODE_FRAME)
+    out = {}
+    for kind in DECODE_FILTERS:
+        data = png.encode(frame, filter_type=kind)
+
+        def plain_decode():
+            with mock.patch.object(native, "unfilter", native.unfilter_plain):
+                return png.decode(data, grey16="high")
+
+        for fn in (lambda: png.decode(data, grey16="high"), plain_decode):
+            if not np.array_equal(fn(), frame):
+                raise AssertionError("decoding a filter-%d PNG does not give the frame" % kind)
+        times = host_windows({"c": lambda: png.decode(data, grey16="high"),
+                              "plain": plain_decode}, reps=1)
+        out[kind] = {"ms": times["c"], "plain_ms": times["plain"], "bytes": len(data)}
+        print("21c decode %dx%d, every row filter %d (%d bytes): C rows %s, numpy rows %s "
+              "(host clock)" % (DECODE_FRAME[0], DECODE_FRAME[1], kind, len(data),
+                                spread(times["c"]), spread(times["plain"])), flush=True)
+    return out
+
+
+def adam_bound_ms(n):
+    """The least time of one Adam step over n f32 parameters: ADAM_BYTES a
+    parameter over HBM bandwidth (its ~14 operations a parameter take far
+    less at 67 TFLOP/s)."""
+    return 1e3 * ADAM_BYTES * n / PEAK_BYTES
+
+
+def adam_phase(torch, device="cuda"):
+    """21d: `adam_flat` against its plain version after ADAM_STEPS AdamW
+    steps (random gradients from SEED, one parameter without one) on each
+    ADAM_MODELS model's parameters at full width; then one step timed: the
+    kernel as a CUDA graph replay and through the wrapper, the plain
+    version, and torch.optim.AdamW(fused=True) on the same tensors, and
+    the two optimizers of --fused_opt 1 and 0 (models/base.FlatAdamW,
+    torch.optim.AdamW) stepping copies, in turns. Returns {label:
+    numbers}."""
+    from larvanet_tpu_torch.core.registry import get_model
+    from larvanet_tpu_torch.models.base import make_optimizer
+    from larvanet_tpu_torch.ops import adam_flat
+
+    out = {}
+    for label, name, flags in ADAM_MODELS:
+        model = get_model(name)
+        model.parse_args(list(flags))
+        model.prepare([4], device=device, seed=SEED)
+        params = [p.detach().clone() for p in model.module.parameters()]
+        del model
+        ref = [p.clone() for p in params]
+        lib = [p.clone() for p in params]
+        fa, fb = adam_flat.AdamFlat(params), adam_flat.AdamFlat(ref)
+        gen = torch.Generator(device=device).manual_seed(SEED)
+        before = adam_flat.LAUNCHES
+        for step in range(1, ADAM_STEPS + 1):
+            grads = [torch.randn(p.shape, device=device, generator=gen) * 1e-2 for p in params]
+            grads[len(grads) // 2] = None
+            s = adam_flat.scalars(ADAM_LR, (0.9, 0.999), 1e-8, step, weight_decay=0.01,
+                                  adamw=True)
+            fa.step(grads, s)
+            adam_flat.adam_flat_reference(ref, grads, fb.m, fb.v, fb.offsets, s)
+        torch.cuda.synchronize()
+        err = max(float((a - b).abs().max()) for a, b in zip(params, ref))
+        same_moments = torch.equal(fa.m, fb.m) and torch.equal(fa.v, fb.v)
+        if err != 0.0 or not same_moments:
+            raise AssertionError("%s: adam_flat differs from its plain version after %d steps "
+                                 "(max |p| difference %g, moments equal: %s)"
+                                 % (label, ADAM_STEPS, err, same_moments))
+        grads = [torch.randn(p.shape, device=device, generator=gen) * 1e-2 for p in params]
+        for p, g in zip(lib, grads):
+            p.grad = g
+        library = torch.optim.AdamW(lib, lr=ADAM_LR, betas=(0.9, 0.999), eps=1e-8,
+                                    weight_decay=0.01, fused=device != "cpu")
+        optimizers = {}
+        for fused in (True, False):
+            copies = [torch.nn.Parameter(p.detach().clone()) for p in params]
+            for p, g in zip(copies, grads):
+                p.grad = g
+            optimizers[fused] = make_optimizer("adamw", copies, fused=fused)
+            for group in optimizers[fused].param_groups:
+                group["lr"] = ADAM_LR
+        fa.step(grads, s)  # the table of this step's gradients, before the capture
+        times = time_windows(torch, {
+            "kernel": graph_replay(torch, lambda: fa.step(grads, s)),
+            "wrapper": lambda: fa.step(grads, s),
+            "plain": lambda: adam_flat.adam_flat_reference(ref, grads, fb.m, fb.v, fb.offsets,
+                                                           s),
+            "library": library.step,
+            "fused_opt 1": optimizers[True].step,
+            "fused_opt 0": optimizers[False].step})
+        adam_flat.LAUNCHES = before  # the comparisons' launches are not the path's
+        n = sum(p.numel() for p in params)
+        bound = adam_bound_ms(n)
+        out[label] = {"params": n, "max_abs_err": err, "ms": times["kernel"][0],
+                      "wrapper_ms": times["wrapper"][0], "plain_ms": times["plain"][0],
+                      "library_ms": times["library"][0], "bound_ms": bound,
+                      "bound_by": "bytes",
+                      "optimizer_ms": {k: times[k][0] for k in ("fused_opt 1", "fused_opt 0")}}
+        print("21d adam_flat %s (%d parameters, %d tensors): bit for bit with the plain "
+              "version after %d steps; graph replay %s, wrapper %s, plain %s, "
+              "torch.optim.AdamW(fused=True) %s; bound %.4f ms (bytes); the optimizer's "
+              "step: --fused_opt 1 %s, --fused_opt 0 (torch's foreach AdamW) %s" % (
+                  label, n, len(params), ADAM_STEPS, spread(times["kernel"]),
+                  spread(times["wrapper"]), spread(times["plain"]), spread(times["library"]),
+                  bound, spread(times["fused_opt 1"]), spread(times["fused_opt 0"])),
+              flush=True)
+        del params, ref, lib, fa, fb, library, grads, optimizers
+        torch.cuda.empty_cache()
+    return out
+
+
+def fused_train_phase(torch, tmp, device="cuda"):
+    """21e: train_larva on the flagship LarvaNet 2x16 at full width for
+    DATA_TRAIN_STEPS steps, --data_cached --data_native 1, with --fused_opt 1
+    (counted: one adam_flat launch a step, the conv, dgrad and wgrad kernels
+    as phase 8b counts them) and with --fused_opt 0; the losses held within
+    FUSED_LOSS_RTOL of each other; then one step of each model timed in
+    turns. Returns {"launches": adam_flat's, "conv": the counted run's
+    conv3x3 and wgrad launches, "ms": the steps' times}."""
+    import numpy as np
+
+    from larvanet_tpu_torch.cli import train_larva
+    from larvanet_tpu_torch.core.registry import get_loader
+    from larvanet_tpu_torch.ops import adam_flat
+
+    batch, patch = TRAIN_BATCH, TRAIN_PATCH
+    data = ["--data_input_path", os.path.join(tmp, "LR"), "--data_truth_path",
+            os.path.join(tmp, "HR"), "--data_cached", "--data_native", "1",
+            "--data_seed", str(SEED)]
+    cli = ["--dataloader", "div2k_train_loader", "--device", device,
+           "--val_data_input_path", os.path.join(tmp, "LR"),
+           "--val_data_truth_path", os.path.join(tmp, "HR"), "--batch_size", str(batch),
+           "--input_patch_size", str(patch), "--max_steps", str(DATA_TRAIN_STEPS),
+           "--log_freq", "1"] + data + LARVANET_FLAGS
+    runs = {}
+    adam_flat.reset_launches()
+    holder = {}
+    launches = counted_step(torch, lambda: holder.update(run=train_larva.main(
+        cli + ["--fused_opt", "1", "--train_path", os.path.join(tmp, "fused")])))
+    n_adam = adam_flat.LAUNCHES
+    runs[1] = holder["run"]
+    runs[0] = train_larva.main(cli + ["--fused_opt", "0", "--train_path",
+                                      os.path.join(tmp, "plain")])
+    fused, plain = runs[1][0], runs[0][0]
+    if type(fused.optimizer).__name__ != "FlatAdamW" or n_adam != DATA_TRAIN_STEPS:
+        raise AssertionError("--fused_opt 1 ran %s with %d adam_flat launches in %d steps"
+                             % (type(fused.optimizer).__name__, n_adam, DATA_TRAIN_STEPS))
+    want_wgrad = {p: DATA_TRAIN_STEPS * n for p, n in LARVA_TRAIN_LAUNCHES["wgrad"].items()}
+    if launches["wgrad"] != want_wgrad or launches["dgrad"] != {
+            p: DATA_TRAIN_STEPS * n for p, n in LARVA_TRAIN_LAUNCHES["dgrad"].items()}:
+        raise AssertionError("the --fused_opt 1 run's launches %s" % (launches,))
+    losses = {k: runs[k][1] for k in runs}
+    rel = max(abs(losses[1][s] - losses[0][s]) / abs(losses[0][s]) for s in losses[0])
+    if sorted(losses[1]) != sorted(losses[0]) or not rel <= FUSED_LOSS_RTOL:
+        raise AssertionError("--fused_opt 1 losses %s against --fused_opt 0's %s"
+                             % (losses[1], losses[0]))
+    loader = get_loader("div2k_train_loader")
+    loader.parse_args(data)
+    loader.prepare([4])
+    lr_nhwc, hr_nhwc = loader.get_patch_batch_nhwc(batch, 4, patch)
+    times = time_windows(torch, {
+        "fused_opt 1": lambda: fused.train_step(lr_nhwc, 4, hr_nhwc),
+        "fused_opt 0": lambda: plain.train_step(lr_nhwc, 4, hr_nhwc)})
+    print("21e train_larva LarvaNet 2x16, %d steps, --data_cached --data_native 1: "
+          "--fused_opt 1 (%d adam_flat launches) losses %s, --fused_opt 0 %s (largest "
+          "relative difference %.3g); a step: --fused_opt 1 %s, --fused_opt 0 %s" % (
+              DATA_TRAIN_STEPS, n_adam, [round(losses[1][s], 6) for s in sorted(losses[1])],
+              [round(losses[0][s], 6) for s in sorted(losses[0])], rel,
+              spread(times["fused_opt 1"]), spread(times["fused_opt 0"])), flush=True)
+    return {"launches": n_adam, "conv": launches,
+            "ms": {k: v[0] for k, v in times.items()}, "loss_rel": rel}
+
+
+def data_phase(torch, host_build_s, device="cuda"):
+    """Phase 21: the native host data path and --fused_opt (21a-21e);
+    `host_build_s` the seconds main's host build took. Returns the numbers
+    of each part."""
+    from larvanet_tpu_torch.data import fixture
+
+    t0 = time.perf_counter()
+    times = {}
+    t = time.perf_counter()
+    print("21a host library built by g++ at the start in %.2f s" % host_build_s, flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        manifest = fixture.generate(os.path.join(tmp, "fixture"))
+        fixture.verify(os.path.join(tmp, "fixture"))
+        with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data",
+                               "fixture_manifest.json")) as f:
+            frozen = json.load(f)
+        if manifest != frozen:
+            raise AssertionError("the port's standard fixture differs from "
+                                 "tests/data/fixture_manifest.json")
+        print("21a fixture: the port's standard fixture, %d images, equals the frozen manifest"
+              % len(manifest["images"]), flush=True)
+        times["21a"] = time.perf_counter() - t
+        t = time.perf_counter()
+        stream = data_stream_phase(torch, tmp)
+        times["21b"] = time.perf_counter() - t
+        t = time.perf_counter()
+        decode = data_decode_phase()
+        times["21c"] = time.perf_counter() - t
+        t = time.perf_counter()
+        adam = adam_phase(torch, device)
+        times["21d"] = time.perf_counter() - t
+        t = time.perf_counter()
+        train = fused_train_phase(torch, tmp, device)
+        times["21e"] = time.perf_counter() - t
+    print("phase 21: %.1f s (%s)" % (time.perf_counter() - t0, ", ".join(
+        "%s %.1f s" % kv for kv in times.items())), flush=True)
+    return {"host_build_s": host_build_s, "stream": stream, "decode": decode, "adam": adam,
+            "train": train}
+
+
 def print_sass_mix(build):
     """The instruction mix of each tensor-core and narrow kernel in the
     built libraries (cuobjdump -sass): ldmatrix, tensor-core products,
@@ -7266,10 +7579,11 @@ def main(argv=None) -> int:
     import torch
 
     parser = argparse.ArgumentParser(description="On-card smoke run of the port.")
-    parser.add_argument("--phase", choices=("all", "parallel"), default="all",
+    parser.add_argument("--phase", choices=("all", "parallel", "data"), default="all",
                         help="'parallel': build the kernels and run phase 20 alone "
-                             "(on every card of the machine; no kernels line and no "
-                             "result line)")
+                             "(on every card of the machine); 'data': build them and "
+                             "run phase 21 alone; neither prints the kernels line or "
+                             "the result line")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -7289,10 +7603,18 @@ def main(argv=None) -> int:
                                    or "cached"))
     for source in build.SOURCES:
         print("build log %s:\n%s" % (source, build.build_log(source).strip()))
+    from larvanet_tpu_torch.data import native
+
+    host_build_s = build.build_host(native.SOURCE)  # before any phase decodes a PNG
+    print("build %s (g++): %.2f s" % (native.SOURCE, host_build_s), flush=True)
     print_sass_mix(build)
     if args.phase == "parallel":
         par = timed("parallel_phase", parallel_phase, torch)
         print("phase 20 launches: conv3x3 %s, conv3x3_s8 %s" % (par["conv"], par["s8"]))
+        print(nvidia_smi_line())
+        return 0
+    if args.phase == "data":
+        timed("data_phase", data_phase, torch, host_build_s)
         print(nvidia_smi_line())
         return 0
 
@@ -7378,6 +7700,9 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     par = timed("parallel_phase", parallel_phase, torch)
     trained.extend(par["steps"])
+    torch.cuda.empty_cache()
+    data = timed("data_phase", data_phase, torch, host_build_s)
+    trained.append(data["train"]["conv"])
     family_conv = dict(msrr_conv)  # phases 15's to 20's counted runs
     for part in (branchy["conv"], sr["conv"], mi["conv"], art["launches"]["conv3x3"],
                  par["conv"]):
@@ -7732,6 +8057,33 @@ def main(argv=None) -> int:
         "library_ms": dw_wgrad["library_ms"],
         "bf16": dw_main["bf16"]["wgrad"],
         "shapes": [r for r in msrr["dw_rows"] if r["entry"] == "wgrad"],
+    })
+    adam = data["adam"]["LarvaNet 2x16"]
+    kernels.append({
+        "name": "adam_flat",
+        "route": "cuda",
+        "source": "larvanet_tpu_torch/csrc/adam_flat.cu",
+        "replaces": "larvanet_tpu/models/base.py:292 (optax.flatten's one XLA fusion of "
+                    "Adam / AdamW under --fused_opt; no Pallas kernel)",
+        # phase 21e's counted train_larva run under --fused_opt 1: one a step
+        "launches": data["train"]["launches"],
+        # 21d: after ADAM_STEPS AdamW steps at the flagship's parameters
+        "max_abs_err": adam["max_abs_err"],
+        # one AdamW step over LarvaNet 2x16's 1414656 parameters: a CUDA
+        # graph replay ("ms"), through the wrapper, the plain version,
+        # torch.optim.AdamW(fused=True) on the same tensors, in turns
+        "ms": adam["ms"],
+        "wrapper_ms": adam["wrapper_ms"],
+        "plain_ms": adam["plain_ms"],
+        "bound_ms": adam["bound_ms"],
+        "bound_by": adam["bound_by"],
+        "library_ms": adam["library_ms"],
+        "edsr": data["adam"]["EDSR-baseline x4"],
+        # 21e: a LarvaNet 2x16 train step under --fused_opt 1 and 0, in turns
+        "train_step_ms": data["train"]["ms"],
+        # 21b-c: the host data path's C against its plain versions (host clock)
+        "host": {"batch": data["stream"], "decode": data["decode"],
+                 "build_s": data["host_build_s"]},
     })
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())

@@ -87,7 +87,7 @@ def setup_loader(name: str, remaining: Sequence[str], scales: List[int]):
 
 def setup_model(name: str, remaining: Sequence[str], scales: List[int],
                 device: torch.device, seed: int = 0, is_training: bool = False,
-                global_step: int = 0, ema_decay: float = 0.0):
+                global_step: int = 0, ema_decay: float = 0.0, fused_opt: int = 0):
     print("prepare model - %s" % (name,))
     try:
         model = registry.get_model(name)
@@ -96,6 +96,7 @@ def setup_model(name: str, remaining: Sequence[str], scales: List[int],
         raise SystemExit("--model %s: %s" % (name, e.args[0]))
     model_args, remaining = model.parse_args(list(remaining))
     model.ema_decay = float(ema_decay or 0.0)  # before prepare: it makes the average
+    model.fused_opt = bool(fused_opt)  # before prepare: it makes the optimizer
     model.prepare(scales=scales, device=device, seed=seed, is_training=is_training,
                   global_step=global_step)
     return model, model_args, remaining
@@ -109,10 +110,12 @@ def add_ema_decay_flag(parser: argparse.ArgumentParser) -> None:
 
 
 def add_fused_opt_flag(parser: argparse.ArgumentParser) -> None:
-    parser.add_argument("--fused_opt", type=int, default=None,
-                        help="The JAX package's one-pass Adam over a flattened "
-                             "parameter vector (numerically identical per "
-                             "element); accepted and ignored.")
+    parser.add_argument("--fused_opt", type=int, default=0,
+                        help="Run the Adam / AdamW update as one hand-written launch a "
+                             "step over flat moment buffers (ops/adam_flat.py; JAX's "
+                             "optax.flatten) instead of torch's per-tensor kernels. "
+                             "Checkpoints keep the per-parameter layout and resume "
+                             "under either setting. 0 = torch's optimizer.")
 
 
 def add_ema_flag(parser: argparse.ArgumentParser) -> None:
@@ -421,7 +424,7 @@ def maybe_widen_from(model, args) -> None:
     if getattr(args, "restore_path", None):
         raise SystemExit("--widen_from and --restore_path are mutually "
                          "exclusive (widening IS the warm start)")
-    from larvanet_tpu_torch.models.base import ParamEMA, make_optimizer
+    from larvanet_tpu_torch.models.base import ParamEMA
     from larvanet_tpu_torch.utils import flax_msgpack
     from larvanet_tpu_torch.utils.checkpoints import is_dir_checkpoint, read_dir_checkpoint
     from larvanet_tpu_torch.utils.torch_convert import load_pth
@@ -445,7 +448,7 @@ def maybe_widen_from(model, args) -> None:
     model.load_state_dict(widened, strict=True)
     if model.optimizer is not None:
         params = list(module.parameters())
-        model.optimizer = make_optimizer(model.optimizer_kind, params)
+        model.optimizer = model.make_optimizer(params)
         if model.ema is not None:
             model.ema = ParamEMA(params, model.ema_decay)
     print("warm-started by widening %s into %s (function-preserving; "

@@ -43,8 +43,10 @@ JAX). --orbax_checkpoint 1 writes each checkpoint as a directory
 (torch.distributed.checkpoint; models/base.py `_save_dir`). The model's
 --collapsed_tail_train and --lr_domain_loss (EDSR, default 1) train
 through the live collapsed tail with the loss before the shuffle, as
-JAX's default graph does (ops/collapsed_tail.py). Accepted and ignored:
---fused_opt (numerically identical per element).
+JAX's default graph does (ops/collapsed_tail.py). --fused_opt 1 steps Adam
+(AdamW) in one hand-written launch a step over flat moment buffers in JAX's
+ravel_pytree order (ops/adam_flat.py, models/base.make_optimizer), as JAX's
+flag runs optax.flatten; the checkpoints are the same either way.
 """
 
 from __future__ import annotations
@@ -100,8 +102,6 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None):
     """Train; returns (the model in its final state, {global_step: loss})."""
     args, remaining = build_parser().parse_known_args(argv)
-    if args.fused_opt is not None:
-        print("train: --fused_opt is numerically identical per element; ignored")
     device = common.resolve_device(args)
     scale_list = common.scales_of(args)
     os.makedirs(args.train_path, exist_ok=True)
@@ -110,7 +110,8 @@ def main(argv=None):
                                                              scale_list)
     model, model_args, remaining = common.setup_model(
         args.model, remaining, scale_list, device, is_training=True,
-        global_step=args.global_step, ema_decay=args.ema_decay)
+        global_step=args.global_step, ema_decay=args.ema_decay,
+        fused_opt=args.fused_opt)
     model.grad_accum = args.grad_accum
     model.async_checkpoints = bool(args.async_checkpoint)
     model.orbax_checkpoints = bool(args.orbax_checkpoint)

@@ -39,8 +39,8 @@ trains every body and leg conv pair through the fake-quant pair
 (ops/pairs.qat_pair). --dp_devices and --orbax_checkpoint as in
 cli/train.py. The model's --lr_domain_loss
 (default 1) takes every exit's loss before the shuffle, as JAX's default
-graph does. Accepted and ignored: --fused_opt (numerically identical per
-element).
+graph does. --fused_opt 1 steps AdamW in one `ops/adam_flat` launch a step
+(models/base.make_optimizer).
 """
 
 from __future__ import annotations
@@ -108,8 +108,6 @@ def main(argv=None, step: str = "train_step_larva"):
     train_step_squid); returns (the model in its final state,
     {global_step: loss})."""
     args, remaining = build_parser().parse_known_args(argv)
-    if args.fused_opt is not None:
-        print("train_larva: --fused_opt is numerically identical per element; ignored")
     device = common.resolve_device(args)
     scale_list = common.scales_of(args)
     os.makedirs(args.train_path, exist_ok=True)
@@ -122,7 +120,8 @@ def main(argv=None, step: str = "train_step_larva"):
                               "--data_truth_path", args.val_data_truth_path], scale_list)
     model, model_args, remaining = common.setup_model(
         args.model, remaining, scale_list, device, is_training=True,
-        global_step=args.global_step, ema_decay=args.ema_decay)
+        global_step=args.global_step, ema_decay=args.ema_decay,
+        fused_opt=args.fused_opt)
     if not hasattr(model, step):
         raise SystemExit("train_larva trains the LarvaNet family; --model %s trains with "
                          "larvanet_tpu_torch.cli.train" % (args.model,))

@@ -37,8 +37,8 @@ loss and lr summary at each boundary and at the end.
 and --restore_path (a `.pth` or a JAX `.ckpt`, which resumes with its
 optimizer state and scheduler) as in cli/train.py. It runs on the card
 unless --device cpu is given, and never falls back to the CPU.
---dp_devices and --orbax_checkpoint as in cli/train.py. Accepted and
-ignored: --fused_opt. `main` returns (the model
+--dp_devices, --orbax_checkpoint and --fused_opt as in cli/train.py.
+`main` returns (the model
 in its final state, {global_step: loss}, [(step, mean PSNR, lr after the
 scheduler's step)] of the validations).
 """
@@ -107,8 +107,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args, remaining = build_parser().parse_known_args(argv)
-    if args.fused_opt is not None:
-        print("train_schedule: --fused_opt is numerically identical per element; ignored")
     device = common.resolve_device(args)
     scale_list = common.scales_of(args)
     scale = scale_list[0]
@@ -121,7 +119,8 @@ def main(argv=None):
                               "--data_truth_path", args.val_data_truth_path], scale_list)
     model, model_args, remaining = common.setup_model(
         args.model, remaining, scale_list, device, is_training=True,
-        global_step=args.global_step, ema_decay=args.ema_decay)
+        global_step=args.global_step, ema_decay=args.ema_decay,
+        fused_opt=args.fused_opt)
     model.async_checkpoints = bool(args.async_checkpoint)
     model.orbax_checkpoints = bool(args.orbax_checkpoint)
     model.grad_accum = args.grad_accum

@@ -544,3 +544,5 @@ inline void emu_mma_m16n8k32_s8(int* d, const unsigned (&a)[4], unsigned b0, uns
 inline float __fmul_rn(float a, float b) { return a * b; }
 inline float __fadd_rn(float a, float b) { return a + b; }
 inline float __fdiv_rn(float a, float b) { return a / b; }
+inline float __fsub_rn(float a, float b) { return a - b; }
+inline float __fsqrt_rn(float a) { return std::sqrt(a); }

@@ -5,12 +5,25 @@ File schemes: `div2k`, input `X{s}/{name}x{s}.png` against truth
 `{name}.png`; `flat`, `{name}.png` in both directories. The optional cache
 holds uint8 HWC images, a quarter of the float32 CHW bytes.
 
-Patches (dataset.py:112-165): a random crop aligned to the scale, rot90 by
-k in 1..4, then a horizontal flip with p 0.5, from a numpy Generator per
-dataset; `reseed_for_step` re-keys it to (seed, step), so that a resumed
-run draws what an uninterrupted one would. The draws are the JAX
-package's numpy path, bit for bit; its native C++ batcher (`--data_native
-1` on its `patch_batch_nhwc` path) draws another stream and is not ported.
+Patches (dataset.py:112-191): a random crop aligned to the scale, rot90 by
+k in 1..4, then a horizontal flip with p 0.5. Two streams, each the JAX
+package's bit for bit:
+
+  * numpy: a Generator per dataset (`random_patch_pair_u8`, the CHW patch
+    lists and `patch_batch_nhwc` off the native path); `reseed_for_step`
+    re-keys it to (seed, step), so that a resumed run draws what an
+    uninterrupted one would.
+  * native (`use_native` and `cached`, JAX's conditions): `patch_batch_nhwc`
+    decodes every image into the cache and assembles the batch in C
+    (`data/native.NativeBatcher`, seeded seed + scale), the splitmix64
+    stream of JAX's `lvt_patch_batch`; `reseed_for_step` seeks it. A set
+    whose HR is not exactly LR x scale takes the numpy stream, as JAX's
+    does, with one line saying why.
+
+A batcher made after a reseed (the first batch of a run, or of a resumed
+one) starts at that step; JAX's starts at 0 and seeks only from the next
+reseed, so its resumed native stream repeats its first batch (ROADMAP
+queue 3).
 """
 
 from __future__ import annotations
@@ -21,14 +34,14 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from larvanet_tpu_torch.data import io
+from larvanet_tpu_torch.data import io, native
 
 
 class PairDataset:
     """LR/HR pair store with an optional in-RAM uint8 cache."""
 
     def __init__(self, input_path: str, truth_path: str, scheme: str = "div2k",
-                 cached: bool = False, seed: Optional[int] = None):
+                 cached: bool = False, seed: Optional[int] = None, use_native: bool = True):
         if scheme not in ("div2k", "flat"):
             raise ValueError("unknown file scheme %r (div2k or flat)" % (scheme,))
         self.input_path = input_path
@@ -36,7 +49,10 @@ class PairDataset:
         self.scheme = scheme
         self.cached = cached
         self.seed = seed
+        self.use_native = use_native
         self.rng = np.random.default_rng(seed)
+        self._native_batchers: Dict[int, native.NativeBatcher] = {}
+        self._step = 0  # the step of the last reseed_for_step
         self.image_names: List[str] = []
         self.scale_list: List[int] = []
         self._input_cache: Dict[int, Dict[str, np.ndarray]] = {}
@@ -114,7 +130,11 @@ class PairDataset:
 
     def patch_batch_nhwc(self, batch_size: int, scale: int,
                          input_patch_size: int) -> Tuple[np.ndarray, np.ndarray]:
-        """A batch of augmented patches as NHWC float32 (the numpy path)."""
+        """A batch of augmented patches as NHWC float32: the native batcher's
+        where it applies (`_native_batcher`), else the numpy path's."""
+        nb = self._native_batcher(scale)
+        if nb is not None:
+            return nb.batch(batch_size, input_patch_size)
         p = input_patch_size
         ins = np.empty((batch_size, p, p, 3), np.float32)
         trs = np.empty((batch_size, p * scale, p * scale, 3), np.float32)
@@ -124,8 +144,36 @@ class PairDataset:
 
     def reseed_for_step(self, step: int) -> None:
         """Stateless re-key: the numpy stream from SeedSequence((seed, step)),
-        so a run resumed at step N draws what an uninterrupted one would.
-        No-op when unseeded."""
+        the native batchers seeked to step (their next batch draws from
+        seed + scale + step + 1), so a run resumed at step N draws what an
+        uninterrupted one would. No-op when unseeded."""
         if self.seed is None:
             return
         self.rng = np.random.default_rng((self.seed, step))
+        self._step = int(step)
+        for nb in self._native_batchers.values():
+            nb.seek(step)
+
+    def _native_batcher(self, scale: int) -> Optional[native.NativeBatcher]:
+        """The native batcher of `scale`, made once over the whole decoded
+        set (dataset.py:167-191), or None where the numpy path applies:
+        without `use_native` or `cached`, or (told once) where an HR image
+        is not exactly its LR image x scale."""
+        if not self.use_native or not self.cached:
+            return None
+        nb = self._native_batchers.get(scale)
+        if nb is not None:
+            return nb
+        lr = [self.input_u8(scale, i) for i in range(len(self.image_names))]
+        hr = [self.truth_u8(i) for i in range(len(self.image_names))]
+        try:
+            nb = native.NativeBatcher(lr, hr, scale=scale,
+                                      seed=None if self.seed is None else self.seed + scale)
+        except ValueError as exc:
+            print("data: the native batcher does not apply (%s); the numpy stream "
+                  "draws the patches" % (exc,))
+            self.use_native = False
+            return None
+        nb.seek(self._step)
+        self._native_batchers[scale] = nb
+        return nb

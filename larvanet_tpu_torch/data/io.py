@@ -1,10 +1,14 @@
 """Host-side image IO (larvanet_tpu/data/io.py:22-66).
 
 Images travel through the port as the reference's loader contract has
-them: CHW float32 RGB in [0, 255]. The card's machine has no Pillow, so
-PNGs go through the port's own codec (`data/png.py`), which decodes every
-PNG to the values the JAX loader's libpng decoder gives (16-bit greyscale
-keeps its high byte, as `png_set_strip_16` does).
+them: CHW float32 RGB in [0, 255]. The card's machine has no Pillow and
+no libpng guarantee, so PNGs go through the port's own decoder,
+`data/native.decode_png` (the counterpart of the JAX loader's libpng path):
+zlib's inflate and the codec of `data/png.py`, with the row filters undone
+in the port's host C (`csrc/host/lvt_data.cpp`). It gives every PNG the
+values the JAX loader's libpng decoder gives (16-bit greyscale keeps its
+high byte, as `png_set_strip_16` does) and raises IOError where a file
+cannot be read or decoded.
 """
 
 from __future__ import annotations
@@ -14,13 +18,12 @@ from typing import List
 
 import numpy as np
 
-from larvanet_tpu_torch.data import png
+from larvanet_tpu_torch.data import native, png
 
 
 def load_image_u8(path: str) -> np.ndarray:
-    """Read a PNG as HWC uint8 RGB."""
-    with open(path, "rb") as f:
-        return png.decode(f.read(), grey16="high")
+    """Read a PNG as HWC uint8 RGB (`native.decode_png`)."""
+    return native.decode_png(path)
 
 
 def load_image_chw(path: str) -> np.ndarray:

@@ -14,9 +14,16 @@ Registered here:
                              tensor-loader names too
   basic_loader               flat file scheme (`{name}.png` in both directories)
 
-`--data_seed` seeds patch sampling (the JAX package's
-numpy stream, bit for bit); `--data_native` is accepted and ignored (the
-JAX package's native decoder and batcher, which the port does not have).
+`--data_seed` seeds patch sampling; `--data_native` (default 1) takes the
+native batch stream where JAX's takes it (data/dataset.py: a cached set's
+NHWC batches, `data/native.NativeBatcher`), 0 the numpy stream. Both are
+the JAX package's streams bit for bit under the same flags. PNGs decode
+through `data/native.decode_png` either way.
+
+The runner threads build their datasets as JAX's do (loaders.py:186-205):
+seeded data_seed + worker_id and with the native stream on whenever the
+loader caches, whatever `--data_native` says (JAX's runner datasets keep
+the constructor's default).
 """
 
 from __future__ import annotations
@@ -99,9 +106,9 @@ class PairLoader(BaseLoader):
         parser.add_argument("--data_seed", type=int, default=None,
                             help="Seed for the patch-sampling RNG (training).")
         parser.add_argument("--data_native", type=int, default=1,
-                            help="The JAX package's native decoder switch; "
-                                 "accepted and ignored (the port decodes PNG "
-                                 "in numpy and zlib).")
+                            help="Assemble a cached set's NHWC patch batches in the "
+                                 "port's host C (the JAX package's native stream); "
+                                 "0 draws them from numpy.")
         self._add_extra_args(parser)
         self.args, remaining = parse_known(parser, args)
         return self.args, remaining
@@ -116,6 +123,7 @@ class PairLoader(BaseLoader):
             scheme=self.scheme,
             cached=self.args.data_cached or self.always_cached,
             seed=self.args.data_seed,
+            use_native=bool(self.args.data_native),
         )
         self.dataset.prepare(scales)
 
@@ -132,8 +140,9 @@ class PairLoader(BaseLoader):
         return input_list, truth_list
 
     def get_patch_batch_nhwc(self, batch_size, scale, input_patch_size):
-        """An NHWC float32 batch (input, truth): the same draws as
-        get_patch_batch."""
+        """An NHWC float32 batch (input, truth): the native stream where it
+        applies (`PairDataset.patch_batch_nhwc`), else get_patch_batch's
+        draws."""
         return self.dataset.patch_batch_nhwc(batch_size, scale, input_patch_size)
 
     def reseed_for_step(self, step: int) -> None:
@@ -187,6 +196,8 @@ class _QueueRunnerMixin:
 
     def _runner(self, scale, batch_size, input_patch_size, worker_id):
         seed = self.args.data_seed
+        # use_native at its default, as JAX's runner builds it: the native
+        # stream wherever the loader caches, whatever --data_native says
         local = PairDataset(input_path=self.dataset.input_path,
                             truth_path=self.dataset.truth_path, scheme=self.dataset.scheme,
                             seed=None if seed is None else seed + worker_id)

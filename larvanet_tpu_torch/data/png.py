@@ -1,4 +1,5 @@
-"""PNG codec in numpy and zlib, for machines without Pillow.
+"""PNG codec in numpy, zlib and the port's host C (row filters), for machines
+without Pillow.
 
 Decodes every PNG the JAX package decodes into an (H, W, 3) uint8 RGB
 array: greyscale (colour type 0) at 1, 2, 4, 8 and 16 bits, RGB (2) and
@@ -13,7 +14,11 @@ decoders differ is 16-bit greyscale: Pillow clips the value at 255, libpng
 follows (`grey16`). A bad signature, truncated or corrupt data, an unknown
 filter type, an unknown bit depth or colour type and an empty image raise
 `ValueError`, which the server answers with 400. Encodes (H, W, 3) uint8
-RGB with filter 0 at a zlib level.
+RGB at a zlib level, every row with one filter type (0, None, by default).
+
+zlib inflates; the row filters are undone in host C (`data/native.unfilter`,
+`csrc/host/lvt_data.cpp`), whose plain version, in numpy, is
+`native.unfilter_plain`.
 """
 
 from __future__ import annotations
@@ -22,6 +27,8 @@ import struct
 import zlib
 
 import numpy as np
+
+from larvanet_tpu_torch.data import native
 
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}  # colour type -> samples per pixel
@@ -46,46 +53,6 @@ def _chunks(data: bytes):
             return
         pos += 12 + length
     raise ValueError("PNG ends without IEND")
-
-
-def _unfilter_serial(kind: int, line: bytearray, prev: bytes, bpp: int) -> bytearray:
-    """Average (3) and Paeth (4) rows: each byte depends on the
-    reconstructed byte bpp to its left, so they run byte by byte."""
-    for i in range(len(line)):
-        a = line[i - bpp] if i >= bpp else 0
-        b = prev[i]
-        if kind == 3:
-            pred = (a + b) >> 1
-        else:
-            c = prev[i - bpp] if i >= bpp else 0
-            p = a + b - c
-            pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
-            pred = a if pa <= pb and pa <= pc else (b if pb <= pc else c)
-        line[i] = (line[i] + pred) & 0xFF
-    return line
-
-
-def _unfilter(raw: np.ndarray, height: int, stride: int, bpp: int) -> np.ndarray:
-    """Undo the per-row filters; raw is (height, 1 + stride) uint8."""
-    out = np.zeros((height, stride), np.uint8)
-    prev = np.zeros(stride, np.uint8)
-    for y in range(height):
-        kind = int(raw[y, 0])
-        line = raw[y, 1:]
-        if kind == 0:
-            cur = line
-        elif kind == 1:  # sub: a running sum along the row, per channel
-            cur = np.cumsum(line.reshape(-1, bpp), axis=0, dtype=np.uint8).reshape(-1)
-        elif kind == 2:  # up
-            cur = line + prev  # uint8 arithmetic wraps mod 256
-        elif kind in (3, 4):
-            cur = np.frombuffer(_unfilter_serial(kind, bytearray(line.tobytes()),
-                                                 prev.tobytes(), bpp), np.uint8)
-        else:
-            raise ValueError("unknown PNG filter type %d" % kind)
-        out[y] = cur
-        prev = out[y]
-    return out
 
 
 def _samples(rows: np.ndarray, width: int, depth: int, channels: int) -> np.ndarray:
@@ -116,7 +83,7 @@ def _image(raw: bytes, width: int, height: int, depth: int, channels: int,
         if len(raw) < end:
             raise ValueError("PNG image data is short")
         rows = np.frombuffer(raw, np.uint8, h * (stride + 1), pos).reshape(h, stride + 1)
-        return _samples(_unfilter(rows, h, stride, bpp), w, depth, channels), end
+        return _samples(native.unfilter(rows, h, stride, bpp), w, depth, channels), end
 
     if not interlace:
         return rows_of(0, width, height)[0]
@@ -185,15 +152,45 @@ def _chunk(kind: bytes, body: bytes) -> bytes:
     return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", crc)
 
 
-def encode(rgb: np.ndarray, level: int = 6) -> bytes:
-    """(H, W, 3) uint8 RGB -> PNG bytes, filter 0, zlib `level` (0-9)."""
+def _filter_rows(rows: np.ndarray, kind: int, bpp: int) -> np.ndarray:
+    """(h, row bytes) uint8 rows -> each filtered by `kind` (0-4) as the
+    PNG spec writes it (9.2), from the raw bytes (a filter never reads
+    filtered ones, so every row at once)."""
+    x = rows.astype(np.int16)
+    left = np.zeros_like(x)
+    left[:, bpp:] = x[:, :-bpp]
+    up = np.zeros_like(x)
+    up[1:] = x[:-1]
+    up_left = np.zeros_like(x)
+    up_left[1:, bpp:] = x[:-1, :-bpp]
+    if kind == 0:
+        pred = 0
+    elif kind == 1:
+        pred = left
+    elif kind == 2:
+        pred = up
+    elif kind == 3:
+        pred = (left + up) >> 1
+    elif kind == 4:
+        p = left + up - up_left
+        pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - up_left)
+        pred = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, up, up_left))
+    else:
+        raise ValueError("PNG filter type %d is not 0-4" % kind)
+    return ((x - pred) & 0xFF).astype(np.uint8)
+
+
+def encode(rgb: np.ndarray, level: int = 6, filter_type: int = 0) -> bytes:
+    """(H, W, 3) uint8 RGB -> PNG bytes, zlib `level` (0-9), every row
+    filtered by `filter_type` (0 None, 1 Sub, 2 Up, 3 Average, 4 Paeth)."""
     rgb = np.asarray(rgb)
     if rgb.dtype != np.uint8 or rgb.ndim != 3 or rgb.shape[2] != 3:
         raise ValueError("encode takes (H, W, 3) uint8, got %s %s"
                          % (rgb.dtype, rgb.shape))
     height, width, _ = rgb.shape
-    rows = np.zeros((height, 1 + 3 * width), np.uint8)  # leading 0 = filter none
-    rows[:, 1:] = rgb.reshape(height, 3 * width)
+    rows = np.empty((height, 1 + 3 * width), np.uint8)
+    rows[:, 0] = filter_type
+    rows[:, 1:] = _filter_rows(rgb.reshape(height, 3 * width), filter_type, 3)
     ihdr = struct.pack(">IIBBBBB", width, height, 8, 2, 0, 0, 0)
     return (SIGNATURE + _chunk(b"IHDR", ihdr)
             + _chunk(b"IDAT", zlib.compress(rows.tobytes(), level))

@@ -87,10 +87,11 @@ import torch
 from torch import nn
 
 from larvanet_tpu_torch.eval.metrics import psnr_rgb_device
+from larvanet_tpu_torch.ops import adam_flat
 from larvanet_tpu_torch.train.losses import l1_loss
 from larvanet_tpu_torch.utils import flax_msgpack
 from larvanet_tpu_torch.utils.checkpoints import AsyncCheckpointWriter, to_host
-from larvanet_tpu_torch.utils.torch_convert import (EXPORT_RULES, load_pth,
+from larvanet_tpu_torch.utils.torch_convert import (EXPORT_RULES, jax_ravel_order, load_pth,
                                                     state_dict_from_jax_params)
 
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
@@ -143,19 +144,113 @@ def remat_requested(model) -> bool:
     return bool(getattr(getattr(model, "args", None), "remat", 0))
 
 
-def make_optimizer(kind: str, params) -> torch.optim.Optimizer:
+def make_optimizer(kind: str, params, fused: bool = False,
+                   order: Optional[Sequence[int]] = None) -> torch.optim.Optimizer:
     """Adam or AdamW with torch's defaults (betas 0.9 / 0.999, eps 1e-8;
     AdamW's weight decay 0.01 on every parameter), the learning rate set
     into `param_groups` before every step (make_optimizer,
     larvanet_tpu/models/base.py:267-330). Their updates are optax's: eps
     outside the square root, both bias corrections; AdamW's p (1 - lr wd)
-    before the step is optax's joint update."""
-    if kind == "adam":
-        return torch.optim.Adam(params, lr=0.0, betas=(0.9, 0.999), eps=1e-8)
-    if kind == "adamw":
-        return torch.optim.AdamW(params, lr=0.0, betas=(0.9, 0.999), eps=1e-8,
-                                 weight_decay=0.01)
-    raise ValueError("unknown optimizer %r" % (kind,))
+    before the step is optax's joint update.
+
+    `fused` (--fused_opt 1): the same optimizer class with every step one
+    `ops/adam_flat` launch over flat moment buffers kept in the parameters'
+    `order` (indices into `params`; the model's `jax_ravel_order()`, JAX's
+    ravel_pytree order); see `FlatAdamMixin`."""
+    if kind not in ("adam", "adamw"):
+        raise ValueError("unknown optimizer %r" % (kind,))
+    extra = {"weight_decay": 0.01} if kind == "adamw" else {}
+    if fused:
+        cls = FlatAdam if kind == "adam" else FlatAdamW
+        return cls(params, order=order, lr=0.0, betas=(0.9, 0.999), eps=1e-8, **extra)
+    cls = torch.optim.Adam if kind == "adam" else torch.optim.AdamW
+    return cls(params, lr=0.0, betas=(0.9, 0.999), eps=1e-8, **extra)
+
+
+class FlatAdamMixin:
+    """torch's Adam / AdamW whose step is one `ops/adam_flat` launch (the
+    counterpart of JAX's optax.flatten, --fused_opt). Every parameter's
+    `exp_avg` and `exp_avg_sq` in `state` are views into the flat buffers
+    `flat.m` and `flat.v`, so `state_dict` and `load_state_dict` keep
+    torch's per-parameter format: the port's state files, a JAX `.ckpt`
+    (per leaf or flat), DCP directories, `ParamEMA` and the data-parallel
+    step work as with the per-tensor optimizer, and a checkpoint moves
+    between the two either way. `load_state_dict` copies the loaded moments
+    into the views. A parameter without a gradient is skipped (its moments
+    and step left as they are), as torch's Adam skips it; the parameters
+    with one share a step count, one launch a step (a launch a distinct
+    count otherwise). One parameter group, f32 parameters; `order` (indices
+    into `params`, by default their own order) lays out the flat buffers."""
+
+    def __init__(self, params, order: Optional[Sequence[int]] = None, **kwargs):
+        params = list(params)
+        super().__init__(params, **kwargs)
+        if len(self.param_groups) != 1:
+            raise ValueError("the flat Adam takes one parameter group")
+        group = self.param_groups[0]
+        for key in ("amsgrad", "maximize"):
+            if group.get(key):
+                raise ValueError("the flat Adam does not take %s" % (key,))
+        order = list(range(len(params)) if order is None else order)
+        if sorted(order) != list(range(len(params))):
+            raise ValueError("the order must name every parameter once")
+        self._flat_params = [params[i] for i in order]
+        self.flat = adam_flat.AdamFlat(self._flat_params)
+        self._bind_views()
+
+    def _bind_views(self) -> None:
+        """Point each parameter's state at its slices of the flat buffers,
+        copying what the state held there first."""
+        for i, p in enumerate(self._flat_params):
+            state = self.state[p]
+            for key, buf in (("exp_avg", self.flat.m), ("exp_avg_sq", self.flat.v)):
+                view = self.flat.view(buf, i)
+                held = state.get(key)
+                if held is None:
+                    view.zero_()
+                elif held.data_ptr() != view.data_ptr():
+                    view.copy_(held)
+                state[key] = view
+            if "step" not in state:
+                state["step"] = torch.tensor(0.0, dtype=torch.float32)
+
+    def load_state_dict(self, state_dict) -> None:
+        super().load_state_dict(state_dict)
+        self._bind_views()
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        loss = None
+        if closure is not None:
+            with torch.enable_grad():
+                loss = closure()
+        group = self.param_groups[0]
+        adamw = isinstance(self, torch.optim.AdamW)
+        if group["weight_decay"] and not adamw:
+            raise ValueError("the flat Adam takes no L2 weight decay (Adam's weight_decay)")
+        live_all = [i for i, p in enumerate(self._flat_params) if p.grad is not None]
+        if not live_all:
+            return loss
+        counts = [self.state[self._flat_params[i]]["step"] for i in live_all]
+        torch._foreach_add_(counts, 1)  # one op for the step counts, as torch's Adam
+        by_step: Dict[float, List[int]] = {}
+        for i, t in zip(live_all, torch.stack(counts).tolist()):
+            by_step.setdefault(t, []).append(i)
+        for t, live in by_step.items():
+            live = set(live)
+            grads = [p.grad if i in live else None for i, p in enumerate(self._flat_params)]
+            self.flat.step(grads, adam_flat.scalars(
+                group["lr"], group["betas"], group["eps"], t,
+                weight_decay=group["weight_decay"], adamw=adamw))
+        return loss
+
+
+class FlatAdam(FlatAdamMixin, torch.optim.Adam):
+    """Adam on one `ops/adam_flat` launch a step (`make_optimizer(..., fused=True)`)."""
+
+
+class FlatAdamW(FlatAdamMixin, torch.optim.AdamW):
+    """AdamW on one `ops/adam_flat` launch a step."""
 
 
 class ParamEMA:
@@ -226,6 +321,8 @@ class SRModel:
         self._ema_state_file: Optional[str] = None
         # set before prepare, as the train CLI does
         self.ema_decay = 0.0
+        # --fused_opt: the flat Adam (make_optimizer), set before prepare
+        self.fused_opt = False
         self.grad_accum = 1
         self.async_checkpoints = False
         self._ckpt_writer: Optional[AsyncCheckpointWriter] = None
@@ -280,9 +377,25 @@ class SRModel:
                 "the plain module graph would silently train without it")
         if is_training:
             params = list(self.module.parameters())
-            self.optimizer = make_optimizer(self.optimizer_kind, params)
+            self.optimizer = self.make_optimizer(params)
             if self.ema_decay:
                 self.ema = ParamEMA(params, self.ema_decay)
+
+    def make_optimizer(self, params) -> torch.optim.Optimizer:
+        """The family's optimizer over `params` (the module's parameters, in
+        their order); under `fused_opt` the flat one, its buffers in JAX's
+        ravel_pytree order (`jax_ravel_order`)."""
+        return make_optimizer(self.optimizer_kind, params, fused=self.fused_opt,
+                              order=self.jax_ravel_order() if self.fused_opt else None)
+
+    def jax_ravel_order(self) -> List[int]:
+        """Indices of `module.parameters()` in JAX's ravel_pytree order of the
+        same parameters (utils/torch_convert.jax_ravel_order); the module's
+        own order for a family without export rules."""
+        names = [name for name, _ in self.module.named_parameters()]
+        if self.registry_name not in EXPORT_RULES:
+            return list(range(len(names)))
+        return jax_ravel_order(names, self.registry_name)
 
     def set_serving_dtype(self, name: str) -> None:
         """Serve in `name` ("f32" or "bf16"). bf16 runs a bf16 copy of the

@@ -341,6 +341,132 @@ def state_dict_from_jax_params(params_np, model_name: str) -> Dict[str, torch.Te
     return {k: torch.from_numpy(np.array(v, np.float32)) for k, v in state.items()}
 
 
+def _c12(body: str) -> str:
+    """A ResBlock's body index (0 or 2) -> JAX's conv1 / conv2."""
+    return "1" if body == "0" else "2"
+
+
+_EDSR_PATHS = (
+    (r"res_blocks\.(\d+)\.body\.([02])$", lambda m: "res_block_%s/conv%s" % (m[1], _c12(m[2]))),
+    (r"upsample\.body\.(\d+)$", lambda m: "upsample/conv%d" % (int(m[1]) // 2)),
+    (r"(first_conv|after_res_conv|final_conv)$", lambda m: m[1]))
+_EBRN_RM_PATHS = (
+    (r"brms\.(\d+)\.body\.([02])$", lambda m: "brm_%s_conv%s" % (m[1], _c12(m[2]))),
+    (r"fusion_layers\.(\d+)$", lambda m: "fusion_%s" % m[1]),
+    (r"upsample\.body\.0$", lambda m: "upsample_conv"),
+    (r"(first_conv)$", lambda m: m[1]))
+_MSRR_REDUCED_PATHS = (
+    (r"res_blocks\.(\d+)\.body\.([02])$", lambda m: "res_block_%s/conv%s" % (m[1], _c12(m[2]))),
+    (r"(first_conv)$", lambda m: m[1]))
+_LARVANET_PATHS = (
+    (r"head\.feature_extraction$", lambda m: "head"),
+    (r"body_(\d+)\.res_blocks\.(\d+)\.body\.([02])$",
+     lambda m: "body_%s/block_%s/conv%s" % (m[1], m[2], _c12(m[3]))),
+    (r"body_(\d+)\.leg\.recon_block\.body\.([02])$",
+     lambda m: "leg_%s/recon/conv%s" % (m[1], _c12(m[2]))),
+    (r"body_(\d+)\.leg\.recon_block\.([02])$", lambda m: "leg_%s/recon%s" % (m[1], _c12(m[2]))),
+    (r"tail\.merge_conv$", lambda m: "tail_merge"),
+    (r"tail\.recon_block\.([02])$", lambda m: "tail_recon%s" % _c12(m[1])))
+
+
+def _rego_paths(serial: bool):
+    resb = ((r"RESB_(\d+)_(\d+)_(\d+)\.body\.([02])$",
+             lambda m: "RESB_%s_%s_%s/conv%s" % (m[1], m[2], m[3], _c12(m[4]))) if serial else
+            (r"RESB_(\d+)_(\d+)\.body\.([02])$",
+             lambda m: "RESB_0_%s_%s/conv%s" % (m[1], m[2], _c12(m[3]))))
+    return (resb, (r"(conv_\d+|feature_extraction)$", lambda m: m[1]),
+            (r"SRrecon\.body\.0$", lambda m: "SRrecon"))
+
+
+# the inverse of each family's export rule: a torch module's key stem -> the
+# JAX path it comes from, (pattern, path) tried in order; a path whose rule
+# makes a PReLU is marked by its leaf, `slope`
+_JAX_PATHS = {
+    "edsr": _EDSR_PATHS, "edsr_loss": _EDSR_PATHS,
+    **{name: _LARVANET_PATHS for name in LARVANET_NAMES},
+    "mamnet": ((r"res_blocks\.(\d+)\.body\.3\.conv_du\.([02])$",
+                lambda m: "mam_block_%s/mam/du%s" % (m[1], _c12(m[2]))),
+               (r"res_blocks\.(\d+)\.body\.3\.depthwise_conv2d$",
+                lambda m: "mam_block_%s/mam/depthwise" % m[1]),
+               (r"res_blocks\.(\d+)\.body\.([02])$",
+                lambda m: "mam_block_%s/conv%s" % (m[1], _c12(m[2]))),
+               *_EDSR_PATHS[1:]),
+    "imdn_aim2019": ((r"res_blocks\.(\d+)\.conv([1-4])\.0$",
+                      lambda m: "imd_block_%s/conv%s" % (m[1], m[2])),
+                     (r"res_blocks\.(\d+)\.conv5$", lambda m: "imd_block_%s/conv5" % m[1]),
+                     (r"(first_conv|after_res_conv)$", lambda m: m[1]),
+                     (r"upsample\.body\.0$", lambda m: "upsample_conv")),
+    "msrr": (_MSRR_REDUCED_PATHS[0],
+             (r"upsample\.body\.(\d+)$", lambda m: "upsample/conv%d" % (int(m[1]) // 3)),
+             (r"(first_conv|HR_conv|final_conv)$", lambda m: m[1])),
+    **{name: _MSRR_REDUCED_PATHS for name in MSRR_REDUCED_NAMES},
+    "msrr_test": ((r"recon_trunk\.(\d+)\.conv([12])$",
+                   lambda m: "res_block_%s/conv%s" % (m[1], m[2])),
+                  (r"(conv_first|upconv1|upconv2|HRconv|conv_last)$", lambda m: m[1])),
+    "dwsr_reduced": ((r"res_blocks\.(\d+)\.body\.([0134])$",
+                      lambda m: "res_block_%s/%s" % (m[1], {"0": "dw1", "1": "pw1", "3": "dw2",
+                                                           "4": "pw2"}[m[2]])),
+                     (r"(first_conv)$", lambda m: m[1])),
+    "TreeNet": ((r"common_parts\.0$", lambda m: "first_conv"),
+                (r"common_parts\.2\.(\d+)\.body\.([02])$",
+                 lambda m: "common_block_%s/conv%s" % (m[1], _c12(m[2]))),
+                (r"branch_(\d+)\.(\d+)\.body\.([02])$",
+                 lambda m: "branch_%s_block_%s/conv%s" % (m[1], m[2], _c12(m[3])))),
+    "REGO-Net": _rego_paths(serial=False), "REGO-serial": _rego_paths(serial=True),
+    "ebrn": ((r"feature_extract\.(\d+)$",
+              lambda m: ("fe%d" % (int(m[1]) // 2)) if int(m[1]) % 2 == 0
+              else ("fe_prelu%d" % (int(m[1]) // 2), "slope")),
+             (r"brms\.(\d+)\.(up_block|down_block)$", lambda m: "brm_%s/%s" % (m[1], m[2])),
+             (r"brms\.(\d+)\.(sr|bp)_flow\.(\d+)$",
+              lambda m: ("brm_%s/%s_flow/conv%d" % (m[1], m[2], int(m[3]) // 2))
+              if int(m[3]) % 2 == 0
+              else ("brm_%s/%s_flow/prelu%d" % (m[1], m[2], int(m[3]) // 2), "slope")),
+             (r"fusion_layers\.(\d+)$", lambda m: "fusion_%s" % m[1]),
+             (r"recon_layer$", lambda m: "recon")),
+    "ebrn_rm": _EBRN_RM_PATHS, "ebrn_rm_BLI": _EBRN_RM_PATHS,
+    **{name: ((r"(lr|hr)_res_blocks\.(\d+)\.body\.([02])$",
+               lambda m: "%s_block_%s/conv%s" % (m[1], m[2], _c12(m[3]))),
+              (r"(first_conv|middle_conv|final_conv)$", lambda m: m[1]))
+       for name in ("hrsr", "hrsr_", "hrsr_c3")},
+}
+
+
+def jax_leaf(name: str, model_name: str) -> Tuple[str, ...]:
+    """The JAX parameter path of the port's parameter `name` (a state_dict
+    key of `model_name`'s module), as its tuple of keys: the path the
+    export rule maps onto the key's stem, then the leaf (kernel, bias or a
+    PReLU's slope). KeyError where no path maps onto it."""
+    stem, _, suffix = name.rpartition(".")
+    for pattern, path in _JAX_PATHS[model_name]:
+        m = re.match(pattern, stem)
+        if m:
+            found = path(m)
+            prelu = isinstance(found, tuple)
+            found = found[0] if prelu else found
+            if suffix == "bias":
+                leaf = "bias"
+            else:
+                leaf = "slope" if prelu else "kernel"
+            return tuple(found.split("/")) + (leaf,)
+    raise KeyError(name)
+
+
+def jax_ravel_order(names, model_name: str) -> list:
+    """Indices into `names` (the port's parameter names of `model_name`'s
+    module) in the order of JAX's ravel_pytree over its parameter tree:
+    its leaves in sorted key order (larvanet_tpu/models/base.py:265-300,
+    the --fused_opt vector). A name whose path JAX's tree lacks (full
+    EBRN's dead last BRM, which only the reference builds) sorts among them
+    by that path; a name no rule maps onto follows, in the given order."""
+    keyed, rest = [], []
+    for i, name in enumerate(names):
+        try:
+            keyed.append((jax_leaf(name, model_name), i))
+        except KeyError:
+            rest.append(i)
+    return [i for _, i in sorted(keyed)] + rest
+
+
 def load_pth(path: str) -> Dict[str, torch.Tensor]:
     """A `.pth` state_dict on the CPU. weights_only=True: a state_dict is
     plain tensors, and a full unpickle could run arbitrary code."""

@@ -269,12 +269,13 @@ def train_root(tmp_path_factory):
 
 def test_tensor_loader_draws_jax_stream(train_root):
     """div2k_train_loader_tensor under the reference's path names: the
-    port's NHWC batches equal JAX's loader's (--data_native 0), bit for
-    bit, over 3 re-seeded steps."""
+    port's NHWC batches equal JAX's loader's (--data_native 0 on both), bit
+    for bit, over 3 re-seeded steps."""
     flags = ["--train_input_path", os.path.join(train_root, "LR"),
-             "--train_truth_path", os.path.join(train_root, "HR"), "--data_seed", "7"]
+             "--train_truth_path", os.path.join(train_root, "HR"), "--data_seed", "7",
+             "--data_native", "0"]
     jl = jax_get_loader("div2k_train_loader_tensor")
-    jl.parse_args(flags + ["--data_native", "0"])
+    jl.parse_args(flags)
     jl.prepare([SCALE])
     pl = get_loader("div2k_train_loader_tensor")
     _, left = pl.parse_args(flags)
